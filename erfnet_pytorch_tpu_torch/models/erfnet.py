@@ -1,0 +1,174 @@
+"""ERFNet as ``nn.Module``s — the counterpart of the JAX
+``erfnet_pytorch_tpu/models/erfnet.py``.
+
+Parameter names and shapes are the reference torch layout (the keys of
+``erfnet_pretrained.pth``), so a strict ``load_state_dict`` of a reference
+checkpoint, or of ``weights.from_jax`` output, works.  The modules compute in
+NCHW like the reference; ``Net.forward`` takes and returns NHWC, the JAX
+package's layout.
+
+The eval forward here is plain PyTorch and is the oracle for the fused
+inference path (``inference.py``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+BN_EPS = 1e-3
+
+# (kind, args) — kind in {"down", "nb1d", "up"}; nb1d args = (C, drop, dil).
+# Copies of the JAX package's ENCODER_LAYER_SPECS / DECODER_LAYER_SPECS.
+ENCODER_LAYER_SPECS: List[Tuple[str, tuple]] = (
+    [("down", (16, 64))]
+    + [("nb1d", (64, 0.03, 1))] * 5
+    + [("down", (64, 128))]
+    + [("nb1d", (128, 0.3, d)) for _ in range(2) for d in (2, 4, 8, 16)]
+)
+
+DECODER_LAYER_SPECS: List[Tuple[str, tuple]] = [
+    ("up", (128, 64)),
+    ("nb1d", (64, 0.0, 1)),
+    ("nb1d", (64, 0.0, 1)),
+    ("up", (64, 16)),
+    ("nb1d", (16, 0.0, 1)),
+    ("nb1d", (16, 0.0, 1)),
+]
+
+
+class DownsamplerBlock(nn.Module):
+    """cat[conv3x3 s2 p1 (Cin -> Cout-Cin), maxpool 2x2] -> BN -> ReLU."""
+
+    def __init__(self, ninput, noutput):
+        super().__init__()
+        self.conv = nn.Conv2d(ninput, noutput - ninput, 3, stride=2,
+                              padding=1, bias=True)
+        self.pool = nn.MaxPool2d(2, stride=2)
+        self.bn = nn.BatchNorm2d(noutput, eps=BN_EPS)
+
+    def forward(self, x):
+        return F.relu(self.bn(torch.cat([self.conv(x), self.pool(x)], 1)))
+
+
+class non_bottleneck_1d(nn.Module):  # noqa: N801 — the reference's name
+    def __init__(self, chann, dropprob, dilated):
+        super().__init__()
+        self.conv3x1_1 = nn.Conv2d(chann, chann, (3, 1), padding=(1, 0))
+        self.conv1x3_1 = nn.Conv2d(chann, chann, (1, 3), padding=(0, 1))
+        self.bn1 = nn.BatchNorm2d(chann, eps=BN_EPS)
+        self.conv3x1_2 = nn.Conv2d(chann, chann, (3, 1),
+                                   padding=(dilated, 0),
+                                   dilation=(dilated, 1))
+        self.conv1x3_2 = nn.Conv2d(chann, chann, (1, 3),
+                                   padding=(0, dilated),
+                                   dilation=(1, dilated))
+        self.bn2 = nn.BatchNorm2d(chann, eps=BN_EPS)
+        self.dropout = nn.Dropout2d(dropprob)
+        self.dilated = dilated
+
+    def forward(self, x):
+        out = F.relu(self.conv3x1_1(x))
+        out = F.relu(self.bn1(self.conv1x3_1(out)))
+        out = F.relu(self.conv3x1_2(out))
+        out = self.bn2(self.conv1x3_2(out))
+        if self.dropout.p != 0:
+            out = self.dropout(out)
+        return F.relu(out + x)
+
+
+class UpsamplerBlock(nn.Module):
+    """ConvTranspose2d(k3 s2 p1 op1) -> BN -> ReLU."""
+
+    def __init__(self, ninput, noutput):
+        super().__init__()
+        self.conv = nn.ConvTranspose2d(ninput, noutput, 3, stride=2,
+                                       padding=1, output_padding=1, bias=True)
+        self.bn = nn.BatchNorm2d(noutput, eps=BN_EPS)
+
+    def forward(self, x):
+        return F.relu(self.bn(self.conv(x)))
+
+
+def _make_layer(kind, args):
+    if kind == "down":
+        return DownsamplerBlock(*args)
+    if kind == "up":
+        return UpsamplerBlock(*args)
+    c, drop, dil = args
+    return non_bottleneck_1d(c, drop, dil)
+
+
+class Encoder(nn.Module):
+    def __init__(self, num_classes):
+        super().__init__()
+        self.initial_block = DownsamplerBlock(3, 16)
+        self.layers = nn.ModuleList(
+            [_make_layer(k, a) for k, a in ENCODER_LAYER_SPECS])
+        self.output_conv = nn.Conv2d(128, num_classes, 1, bias=True)
+
+    def forward(self, x, predict=False):
+        out = self.initial_block(x)
+        for layer in self.layers:
+            out = layer(out)
+        if predict:
+            out = self.output_conv(out)
+        return out
+
+
+class Decoder(nn.Module):
+    def __init__(self, num_classes):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            [_make_layer(k, a) for k, a in DECODER_LAYER_SPECS])
+        self.output_conv = nn.ConvTranspose2d(16, num_classes, 2, stride=2,
+                                              padding=0, output_padding=0,
+                                              bias=True)
+
+    def forward(self, x):
+        for layer in self.layers:
+            x = layer(x)
+        return self.output_conv(x)
+
+
+class Net(nn.Module):
+    """Full segmentation net.  ``forward`` takes NHWC images and returns
+    NHWC logits; ``only_encode=True`` gives the encoder's 1x1 prediction
+    at 1/8 resolution, as the reference's ``Net.forward`` does."""
+
+    def __init__(self, num_classes=20):
+        super().__init__()
+        self.encoder = Encoder(num_classes)
+        self.decoder = Decoder(num_classes)
+
+    def forward(self, x, only_encode=False):
+        x = x.permute(0, 3, 1, 2)
+        if only_encode:
+            y = self.encoder(x, predict=True)
+        else:
+            y = self.decoder(self.encoder(x))
+        return y.permute(0, 2, 3, 1)
+
+
+def init_weights(net: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded init with the JAX package's distribution: every conv weight
+    and bias U(-1/sqrt(fan_in), 1/sqrt(fan_in)) (torch's fan_in: dim 1 times
+    the receptive field, which for ConvTranspose2d is Cout*kh*kw); BN
+    scale 1, bias 0, running mean 0, var 1.  The numbers differ from
+    ``jax.random``'s for the same seed."""
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+                w = m.weight
+                fan_in = w.shape[1] * w.shape[2] * w.shape[3]
+                bound = 1.0 / math.sqrt(fan_in)
+                for t in (m.weight, m.bias):
+                    t.copy_(torch.rand(t.shape, generator=generator)
+                            .mul_(2 * bound).sub_(bound))
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
+    return net

@@ -1,0 +1,88 @@
+"""PyTorch port: what the package may import, which device it runs on, when
+a kernel's launch counter moves, and the forward-time CLI on the CPU."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import erfnet_pytorch_tpu_torch
+from erfnet_pytorch_tpu_torch.device import resolve_device
+from erfnet_pytorch_tpu_torch.inference import build_fast_infer
+from erfnet_pytorch_tpu_torch.models.erfnet import Net, init_weights
+from erfnet_pytorch_tpu_torch.ops import cuda as kernels
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        erfnet_pytorch_tpu_torch.__path__, "erfnet_pytorch_tpu_torch."))
+
+
+def test_package_imports_neither_jax_nor_the_jax_package():
+    """Every module of the port, imported in a fresh interpreter (this
+    process already holds jax, through tests/conftest.py), leaves
+    neither ``jax`` nor ``erfnet_pytorch_tpu`` in sys.modules."""
+    mods = _modules()
+    assert "erfnet_pytorch_tpu_torch.ops.cuda.nb1d" in mods
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(k for k in sys.modules if k == 'jax' or "
+            "k.startswith('jax.') or k == 'erfnet_pytorch_tpu' or "
+            "k.startswith('erfnet_pytorch_tpu.'))\n"
+            "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_cuda_requested_without_a_card_raises(monkeypatch):
+    """The entry points default to cuda and never fall back to the host."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    sd = Net(20).state_dict()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_fast_infer(sd, preds_only=True)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_cpu_tensors_never_move_a_launch_counter():
+    """On CPU tensors every wrapper runs its plain version: a full
+    preds_only forward leaves every launch counter at 0."""
+    net = init_weights(Net(20), torch.Generator().manual_seed(0))
+    infer = build_fast_infer(net, preds_only=True, device="cpu")
+    kernels.reset_launch_counts()
+    x = torch.rand(1, 32, 64, 3, generator=torch.Generator().manual_seed(1))
+    preds = infer(x)
+    assert preds.shape == (1, 32, 64) and preds.dtype == torch.int32
+    assert kernels.launch_counts() == {"downsampler": 0, "nb1d": 0,
+                                       "upsampler": 0, "head_argmax": 0}
+
+
+def test_eval_forward_time_cli_runs_on_cpu():
+    out = subprocess.run(
+        [sys.executable, "-m", "erfnet_pytorch_tpu_torch.cli.eval_forwardTime",
+         "--cpu", "--height", "64", "--width", "128", "--iterations", "2"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    line = [ln for ln in out.stdout.splitlines() if ln.startswith("FORWARD:")]
+    assert len(line) == 1 and "ms/img" in line[0] and "cpu" in line[0]
+    assert float(line[0].split()[1]) > 0
+
+
+def test_to_tensor_scales_uint8():
+    from erfnet_pytorch_tpu_torch.data import to_tensor
+    u8 = np.array([[[[0, 128, 255]]]], dtype=np.uint8)
+    got = to_tensor(torch.from_numpy(u8))
+    assert got.dtype == torch.float32
+    assert torch.equal(got, torch.tensor([[[[0.0, 128 / 255, 1.0]]]]))
