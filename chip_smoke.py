@@ -38,6 +38,27 @@ Phases, each fatal on failure (non-zero exit, no result line):
    B=4 forward; ``launches`` is the count of the serving phase.
 5. Profile (``torch.profiler``): per B=1 and B=4 forward, device time by
    kernel and the device's busy share of the wall time.
+6. Train parity: each train kernel (NB1d conv pair in its three lead
+   modes, train downsampler and stem, head+loss), forward and backward,
+   against its plain version on the card at every shape of the B=6
+   encoder step, with B=2, random stat cotangents, dropout masks with
+   zeros, a dilation of 16, a pool window of ties and an all-void batch.
+   bf16 outputs as in 2; f32 outputs (weight and bias gradients, BN sums)
+   within ``F32_REL`` norm-relative.
+7. Train: ``make_train_step(enc=True)`` at B=6 on 512x1024 uint8 frames
+   takes 5 steps; the losses are finite and the launch counts per step
+   are as documented.  Step 1 from the same state runs twice through the
+   kernels (bit-identical state); the first run records every train
+   kernel call, and each call is held against its plain version on the
+   same inputs, the step's own (tolerances as in 6, see
+   ``PRE_BN_BIAS_ULP``).  Step 1 also runs through the plain versions
+   (loss within ``STEP_LOSS_REL``) and through the plain versions in f32
+   (the yardstick of the gradients: see ``STEP_NOISE_X``).
+8. Train timing and profile: ms/step through the kernels and through the
+   plain versions, each train kernel's forward and backward time per step
+   beside its plain version, bound and cuDNN's convolutions, summed by
+   PERF.md row; the device's busy share of a step and the host's time by
+   operation.
 
 The last three lines are the card (``nvidia-smi`` name and power limit),
 one JSON object listing every kernel, and the result object.
@@ -71,7 +92,19 @@ SOURCES = {
                   "erfnet_pytorch_tpu/ops/pallas/upsampler.py:488"),
     "head_argmax": ("erfnet_pytorch_tpu_torch/csrc/head_argmax.cu",
                     "erfnet_pytorch_tpu/ops/pallas/head_argmax.py:88"),
+    # the train path; each also replaces its backward kernel and the
+    # sibling modes (PERF.md's table lists every row)
+    "nb1d_pair": ("erfnet_pytorch_tpu_torch/csrc/nb1d_pair.cu",
+                  "erfnet_pytorch_tpu/ops/pallas/nb1d_train.py:946"),
+    "downsampler_train": ("erfnet_pytorch_tpu_torch/csrc/downsampler_train.cu",
+                          "erfnet_pytorch_tpu/ops/pallas/downsampler.py:380"),
+    "head_loss": ("erfnet_pytorch_tpu_torch/csrc/head_loss.cu",
+                  "erfnet_pytorch_tpu/ops/pallas/head_loss.py:86"),
 }
+# train kernel -> its (forward, backward) wrappers' counter names
+TRAIN_WRAPPERS = {"nb1d_pair": ("pair_fwd", "pair_bwd"),
+                  "downsampler_train": ("down_fwd", "down_bwd"),
+                  "head_loss": ("head_loss_fwd", "head_loss_bwd")}
 
 
 class PhaseError(RuntimeError):
@@ -123,7 +156,9 @@ def bf16_ulps(a, b):
     return (ordered(a) - ordered(b)).abs()
 
 
-def compare_bf16(name, got, ref):
+def bf16_metrics(name, got, ref):
+    """(share of elements within 1 bf16 ulp, max ulps, max error relative
+    to max(|ref|, rms(ref)), max abs error, within the tolerance)."""
     import torch
     if got.shape != ref.shape or got.dtype != ref.dtype:
         raise PhaseError(f"{name}: {tuple(got.shape)} {got.dtype} vs "
@@ -136,13 +171,18 @@ def compare_bf16(name, got, ref):
     err = (g - r).abs()
     floor = r.pow(2).mean().sqrt().clamp_min(1e-30)
     rel = (err / torch.maximum(r.abs(), floor)).max().item()
-    ok = within1 >= 0.999 and rel <= 2.0 ** -6
+    return (within1, int(ulps.max()), rel, err.max().item(),
+            within1 >= 0.999 and rel <= 2.0 ** -6)
+
+
+def compare_bf16(name, got, ref):
+    within1, ulps, rel, err, ok = bf16_metrics(name, got, ref)
     log(f"  {name}: within 1 ulp {within1:.6f}, max ulps "
-        f"{int(ulps.max())}, max rel {rel:.3e}, max abs "
-        f"{err.max().item():.3e} -> {'ok' if ok else 'FAIL'}")
+        f"{ulps}, max rel {rel:.3e}, max abs "
+        f"{err:.3e} -> {'ok' if ok else 'FAIL'}")
     if not ok:
         raise PhaseError(f"{name}: kernel disagrees with its plain version")
-    return err.max().item()
+    return err
 
 
 def head_ties(feats, p):
@@ -489,41 +529,768 @@ def phase_profile(sd, device, e2e, n=5):
                 infer(x)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        spans, by_name = [], {}
-        for ev in prof.events():
-            if ev.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            a, b = ev.time_range.start, ev.time_range.end
-            spans.append((a, b))
-            key = (ev.name.replace("void ", "")
-                   .replace("(anonymous namespace)::", "")
-                   .split("(")[0][:60])
-            by_name[key] = by_name.get(key, 0.0) + (b - a) / n
-        if not spans:
-            log(f"  B={B}: device activity not measured (no CUDA events)")
-            continue
-        spans.sort()
-        busy, cur_a, cur_b = 0.0, *spans[0]
-        for a, b in spans[1:]:
-            if a > cur_b:
-                busy += cur_b - cur_a
-                cur_a, cur_b = a, b
-            else:
-                cur_b = max(cur_b, b)
-        busy += cur_b - cur_a
         timed_us = 1e3 * B * e2e[f"ms_per_img_b{B}"]
-        share = min(1.0, busy / n / timed_us)
-        out[f"b{B}"] = {"profiled_wall_us_per_forward": wall_us / n,
-                        "device_busy_us_per_forward": busy / n,
-                        "timed_us_per_forward": timed_us,
-                        "device_busy_share": share}
-        log(f"  B={B}: device busy {busy / n:.1f} us/forward of "
-            f"{timed_us:.1f} us timed ({100 * share:.1f} %; "
-            f"{wall_us / n:.1f} us wall under the profiler)")
-        for k, us in sorted(by_name.items(), key=lambda kv: -kv[1]):
-            log(f"    {us:9.1f} us  {k}")
+        log(f"  B={B}: {wall_us / n:.1f} us wall per forward under the "
+            "profiler")
+        r = busy_share(prof, n, timed_us, "forward")
+        if r is not None:
+            out[f"b{B}"] = {"profiled_wall_us_per_forward": wall_us / n, **r}
     kernels.reset_launch_counts()
     return out
+
+
+# ---------------------------------------------------------------------------
+# the encoder-stage train path (make_train_step(enc=True), B=6, 512x1024)
+# ---------------------------------------------------------------------------
+
+TRAIN_B = 6
+TRAIN_STEPS = 5
+KEEP = 0.7                       # dropout keep rate of the parity masks
+# f32 outputs (weight and bias gradients, BN sums): ||kernel - plain|| <=
+# F32_REL ||plain||.  Both sum the same bf16 products in f32, in other
+# orders; their bf16 inputs (dz1, g, t1) are themselves f32 sums rounded
+# once, which the two sides may round one ulp (2^-8 relative) apart on a
+# few elements, so the difference stays well under one ulp in norm.
+F32_REL = 5e-3
+# step 1, kernels vs plain on the card: the loss within STEP_LOSS_REL.
+# Gradients: bf16 alone moves some tensors far from the f32 step (sums
+# over 10^5-10^6 pixels with heavy cancellation, BatchNorm carrying
+# one-ulp differences forward), so each tensor is held to the plain bf16
+# step's own distance from the same step in f32 through the plain
+# versions: ||kernel - f32|| <= STEP_NOISE_X ||plain - f32|| +
+# STEP_GRAD_REL ||f32||.  Conv biases right before a BatchNorm (gradient
+# zero up to rounding) are left out.
+STEP_LOSS_REL = 1e-3
+STEP_NOISE_X = 2.0
+STEP_GRAD_REL = 2e-2
+# the forward loss sums (num, den) of head+loss: relative error
+LOSS_REL = 1e-4
+# In a real step the gradient of a conv bias right before a BatchNorm (the
+# pair's dbw, the downsampler's db) is zero up to rounding: a sum over the
+# batch's pixels of g = bf16(gy + gs1 + 2 y gs2), whose terms cancel.  Both
+# sides sum the same bf16 g in f32, in other orders, so the call is held
+# to ||kernel - plain|| <= PRE_BN_BIAS_ULP ||sum |g|||, one bf16 ulp of
+# every summand; phase 6's random cotangents hold these outputs
+# norm-relative.
+PRE_BN_BIAS_ULP = 2.0 ** -8
+PRE_BN_BIAS_OUT = {"pair_bwd": "dbw", "down_bwd": 2}
+
+
+def pair_cases(B):
+    """(mode, map shape, dilation, calls per step) of the B=6 step."""
+    c64, c128 = (B, 128, 256, 64), (B, 64, 128, 128)
+    return ([("none", c64, 1, 1), ("affine", c64, 1, 5), ("epi", c64, 1, 4),
+             ("none", c128, 1, 1), ("epi", c128, 1, 7)]
+            + [("affine", c128, d, 2) for d in (2, 4, 8, 16)])
+
+
+def down_train_cases(B):
+    """(label, input shape, conv channels); one call per step each."""
+    return [("stem", (B, 512, 1024, 3), 13), ("down 16->", (B, 256, 512, 16),
+                                              48),
+            ("down 64->", (B, 128, 256, 64), 64)]
+
+
+def head_loss_rows(B):
+    return B * 64 * 128
+
+
+def compare_f32(name, got, ref, rel=F32_REL):
+    import torch
+    got, ref = got.float(), ref.float()
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        raise PhaseError(f"{name}: {tuple(got.shape)} vs {tuple(ref.shape)} "
+                         "or non-finite")
+    r = ((got - ref).norm() / ref.norm().clamp_min(1e-30)).item()
+    ok = r <= rel
+    log(f"  {name}: norm-relative {r:.3e} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseError(f"{name}: kernel disagrees with its plain version")
+    return r
+
+
+def pair_inputs(mode, shape, d, g, device):
+    """Seeded inputs of one pair call: post-ReLU x for the first pair, a
+    signed pre-BN map for the others, weights at the conv's fan-in scale,
+    BN coefficients near 1 and 0, a dropout mask with real zeros."""
+    import torch
+    B, H, W, C = shape
+
+    def rn(*s, scale=1.0):
+        return (scale * torch.randn(*s, generator=g)).to(device)
+
+    x = rn(*shape)
+    kw = {"x": (x.relu() if mode == "none" else x).bfloat16(),
+          "wh": rn(3, C, C, scale=(3 * C) ** -0.5), "bh": rn(C, scale=0.1),
+          "ww": rn(3, C, C, scale=(3 * C) ** -0.5), "bw": rn(C, scale=0.1),
+          "dil": d}
+    if mode != "none":
+        kw["a"] = 1.0 + rn(C, scale=0.1)
+        kw["b"] = rn(C, scale=0.1)
+    if mode == "epi":
+        kw["yres"] = rn(*shape).relu().bfloat16()
+        keep = torch.rand(B, C, generator=g) < KEEP
+        kw["m"] = torch.where(keep, 1.0 / KEEP, 0.0).to(device)
+    return kw
+
+
+def pair_saved(mode, kw, fwd_out):
+    t0, t1, z = fwd_out[:3]
+    bf = __import__("torch").bfloat16
+    return {"x": kw["x"], "t0": t0, "t1": t1, "z": z,
+            "wh": kw["wh"].to(bf), "ww": kw["ww"].to(bf),
+            "a": kw.get("a"), "m": kw.get("m"), "dil": kw["dil"]}
+
+
+def pair_cotangents(mode, shape, g, device):
+    import torch
+    B, C = shape[0], shape[-1]
+    ct = {"gz": torch.randn(*shape, generator=g).to(device).bfloat16(),
+          "gs1": (1e-3 * torch.randn(B, C, generator=g)).to(device),
+          "gs2": (1e-3 * torch.randn(B, C, generator=g)).to(device)}
+    if mode == "epi":
+        ct["gy"] = torch.randn(*shape, generator=g).to(device).bfloat16()
+    return ct
+
+
+def down_inputs(label, shape, cc, g, device):
+    """x (the f32 image with per-image shifts for the stem, a signed map
+    after a ReLU otherwise, with one 2x2 pool window of four equal values
+    in every image and channel), HWIO weights, bias."""
+    import torch
+    B, H, W, cin = shape
+    if label == "stem":
+        x = torch.rand(*shape, generator=g).to(device)
+        shifts = torch.tensor([[-2, 1], [2, -1], [0, 2], [1, -2], [-1, 0],
+                               [2, 2]][:B])
+        kw = {"shifts": shifts.to(device), "dtype": torch.bfloat16}
+    else:
+        x = torch.randn(*shape, generator=g).relu()
+        x[:, 2:4, 6:8, :] = 0.75                     # a window of ties
+        x = x.to(device).bfloat16()
+        kw = {}
+    w = (torch.randn(3, 3, cin, cc, generator=g) * (9 * cin) ** -0.5)
+    b = 0.1 * torch.randn(cc, generator=g)
+    return x, w.to(device), b.to(device), kw
+
+
+def head_inputs(M, g, device, all_void=False):
+    import torch
+    from erfnet_pytorch_tpu_torch.training.class_weights import \
+        ENCODER_WEIGHTS
+    feats = torch.randn(M, 128, generator=g).relu().to(device).bfloat16()
+    w = (0.1 * torch.randn(128, N_CLASSES, generator=g)).to(device)
+    b = (0.1 * torch.randn(N_CLASSES, generator=g)).to(device)
+    labels = torch.randint(0, N_CLASSES, (M,), generator=g)
+    labels[: M // 8] = N_CLASSES - 1                  # void rows (weight 0)
+    if all_void:
+        labels[:] = N_CLASSES - 1
+    cw = torch.as_tensor(ENCODER_WEIGHTS).to(device)
+    return feats, w, b, labels.to(device), cw
+
+
+def phase_train_parity(device):
+    """Each train kernel, forward and backward, against its plain version
+    on the same inputs, at every shape of the B=6 step with B=2."""
+    import torch
+    from erfnet_pytorch_tpu_torch.ops.cuda import downsampler_train as dt
+    from erfnet_pytorch_tpu_torch.ops.cuda import head_loss as hl
+    from erfnet_pytorch_tpu_torch.ops.cuda import nb1d_pair as pr
+    B = 2
+    g = torch.Generator().manual_seed(11)
+    errs = {"nb1d_pair": 0.0, "downsampler_train": 0.0, "head_loss": 0.0}
+    log("[train parity] train kernels vs plain on the card, B=2, bf16 "
+        f"(f32 outputs: norm-relative <= {F32_REL})")
+    seen = set()
+    for mode, shape, d, _n in pair_cases(B):
+        if (mode, shape, d) in seen:
+            continue
+        seen.add((mode, shape, d))
+        tag = f"pair {mode} C{shape[-1]} d{d}"
+        kw = pair_inputs(mode, shape, d, g, device)
+        got = pr.pair_fwd(mode, **kw)
+        ref = pr.pair_fwd_plain(mode, **kw)
+        names = ("t0", "t1", "z") if mode != "none" else ("t1", "z")
+        for nm in names:
+            i = ("t0", "t1", "z").index(nm)
+            errs["nb1d_pair"] = max(errs["nb1d_pair"], compare_bf16(
+                f"{tag} fwd {nm}", got[i], ref[i]))
+        compare_f32(f"{tag} fwd s1", got[3], ref[3])
+        compare_f32(f"{tag} fwd s2", got[4], ref[4])
+        saved = pair_saved(mode, kw, ref)
+        ct = pair_cotangents(mode, shape, g, device)
+        got = pr.pair_bwd(mode, saved, **ct)
+        ref = pr.pair_bwd_plain(mode, saved, **ct)
+        for nm, v in ref.items():
+            if v.dtype == torch.bfloat16:
+                errs["nb1d_pair"] = max(errs["nb1d_pair"], compare_bf16(
+                    f"{tag} bwd {nm}", got[nm], v))
+            else:
+                compare_f32(f"{tag} bwd {nm}", got[nm], v)
+    for label, shape, cc in down_train_cases(B):
+        x, w, b, kw = down_inputs(label, shape, cc, g, device)
+        got = dt.down_fwd(x, w, b, **kw)
+        ref = dt.down_fwd_plain(x, w, b, **kw)
+        for i, nm in enumerate(("xa", "y")):
+            errs["downsampler_train"] = max(
+                errs["downsampler_train"],
+                compare_bf16(f"{label} fwd {nm}", got[i], ref[i]))
+        compare_f32(f"{label} fwd s1", got[2], ref[2])
+        compare_f32(f"{label} fwd s2", got[3], ref[3])
+        xa, y = ref[0], ref[1]
+        cout = y.shape[-1]
+        gy = torch.randn(*y.shape, generator=g).to(device).bfloat16()
+        gs1 = (1e-3 * torch.randn(shape[0], cout, generator=g)).to(device)
+        gs2 = (1e-3 * torch.randn(shape[0], cout, generator=g)).to(device)
+        stem = label == "stem"
+        got = dt.down_bwd(xa, y, gy, gs1, gs2, w, stem=stem)
+        ref = dt.down_bwd_plain(xa, y, gy, gs1, gs2, w, stem=stem)
+        if not stem:
+            errs["downsampler_train"] = max(
+                errs["downsampler_train"],
+                compare_bf16(f"{label} bwd dx", got[0], ref[0]))
+        compare_f32(f"{label} bwd dW", got[1], ref[1])
+        compare_f32(f"{label} bwd db", got[2], ref[2])
+    for all_void in (False, True):
+        tag = "head_loss all-void" if all_void else "head_loss"
+        feats, w, b, labels, cw = head_inputs(head_loss_rows(B), g, device,
+                                              all_void)
+        num, den = hl.head_loss_fwd(feats, w, b, labels, cw)
+        pnum, pden = hl.head_loss_fwd_plain(feats, w, b, labels, cw)
+        loss = (num / den.clamp_min(1e-12)).item()
+        ploss = (pnum / pden.clamp_min(1e-12)).item()
+        rel = abs(loss - ploss) / max(abs(ploss), 1e-30)
+        log(f"  {tag} fwd: loss {loss:.6f} vs plain {ploss:.6f} "
+            f"(rel {rel:.2e}), den {den.item():.1f} vs {pden.item():.1f}")
+        if (not torch.isfinite(num) or rel > 1e-4
+                or abs(den.item() - pden.item()) > 1e-4 * abs(pden.item())
+                or (all_void and (num.item() != 0 or den.item() != 0))):
+            raise PhaseError(f"{tag}: forward disagrees with the plain one")
+        gnum = 1.0 / den.clamp_min(1e-12)
+        got = hl.head_loss_bwd(feats, w, b, labels, cw, gnum)
+        ref = hl.head_loss_bwd_plain(feats, w, b, labels, cw, gnum)
+        if all_void:
+            if any(t.abs().max().item() != 0 for t in got):
+                raise PhaseError(f"{tag}: non-zero gradient")
+            log(f"  {tag} bwd: all gradients 0 -> ok")
+            continue
+        errs["head_loss"] = max(errs["head_loss"], compare_bf16(
+            f"{tag} bwd dfeats", got[0], ref[0]))
+        compare_f32(f"{tag} bwd dW", got[1], ref[1])
+        compare_f32(f"{tag} bwd db", got[2], ref[2])
+    torch.cuda.synchronize()
+    return errs
+
+
+def train_data(g, B, steps):
+    """Seeded uint8 frames and int32 labels with voids: a band of 255
+    rows in each image and a void block."""
+    import torch
+    frames, labels = [], []
+    for _ in range(steps):
+        frames.append(torch.randint(0, 256, (B, 512, 1024, 3), generator=g,
+                                    dtype=torch.uint8))
+        lab = torch.randint(0, N_CLASSES - 1, (B, 512, 1024), generator=g,
+                            dtype=torch.int32)
+        lab[:, :40] = 255
+        lab[0, 200:300, 100:400] = 255
+        labels.append(lab)
+    return frames, labels
+
+
+def make_trainer(sd, device, dtype=None):
+    import torch
+    from erfnet_pytorch_tpu_torch.models.erfnet import Net
+    from erfnet_pytorch_tpu_torch.training.class_weights import \
+        ENCODER_WEIGHTS
+    from erfnet_pytorch_tpu_torch.training.optim import make_adam
+    from erfnet_pytorch_tpu_torch.training.steps import (create_train_state,
+                                                         make_train_step)
+    net = Net(N_CLASSES)
+    net.load_state_dict(sd)
+    opt = make_adam(net.parameters())
+    step = make_train_step(net, opt, ENCODER_WEIGHTS, enc=True,
+                           dtype=dtype or torch.bfloat16, device=device)
+    return net, create_train_state(net, opt), step
+
+
+def expected_train_launches():
+    """Kernel launches per encoder-stage step, from each wrapper's
+    launches per call and the calls of the step."""
+    from erfnet_pytorch_tpu_torch.ops.cuda import downsampler_train as dt
+    from erfnet_pytorch_tpu_torch.ops.cuda import head_loss as hl
+    from erfnet_pytorch_tpu_torch.ops.cuda import nb1d_pair as pr
+    calls = {"none": 0, "affine": 0, "epi": 0}
+    for mode, _s, _d, n in pair_cases(TRAIN_B):
+        calls[mode] += n
+    return {"down_fwd": 3 * dt.FWD_LAUNCHES,
+            "down_bwd": dt.BWD_LAUNCHES[True] + 2 * dt.BWD_LAUNCHES[False],
+            "pair_fwd": sum(n * pr.FWD_LAUNCHES[m] for m, n in calls.items()),
+            "pair_bwd": sum(n * pr.BWD_LAUNCHES[m] for m, n in calls.items()),
+            "head_loss_fwd": hl.FWD_LAUNCHES,
+            "head_loss_bwd": hl.BWD_LAUNCHES}
+
+
+PRE_BN_BIAS_PARTS = ("conv1x3_1.bias", "conv1x3_2.bias", "conv.bias")
+
+
+def _call_label(name, args, kwargs):
+    if name.startswith("pair"):
+        x = args[1] if name == "pair_fwd" else args[1]["x"]
+        return f"{name} {args[0]} C{x.shape[-1]}"
+    if name.startswith("down"):
+        stem = (kwargs.get("shifts") is not None if name == "down_fwd"
+                else kwargs["stem"])
+        return f"{name} {'stem' if stem else f'Cin{args[0].shape[-1]}'}"
+    return name
+
+
+def _pre_bn_bias_scale(name, args):
+    """Per channel, the sum over the batch's pixels of |g|, the summands
+    of a pre-BN conv bias's gradient."""
+    import torch
+    if name == "pair_bwd":
+        saved, gz, gs1, gs2 = args[1:5]
+        z, cc = saved["z"], gz.shape[-1]
+    else:
+        _x, z, gz, gs1, gs2, w = args
+        cc = w.shape[3]
+    bc = (slice(None), None, None, slice(None))
+    g = (gz.float() + gs1.float()[bc] + 2.0 * z.float() * gs2.float()[bc])
+    return g.bfloat16().float()[..., :cc].abs().sum((0, 1, 2))
+
+
+def check_recorded_calls(calls):
+    """Each recorded train-kernel call of the B=6 step against its plain
+    version on the same (recorded) inputs.  Returns the largest bf16
+    absolute error by kernel."""
+    import torch
+    from erfnet_pytorch_tpu_torch.ops import cuda as kernels
+    plain = {f.__name__: f.plain for f in kernels.kernel_wrappers()
+             if hasattr(f, "plain")}
+    kernel_of = {w: k for k, ws in TRAIN_WRAPPERS.items() for w in ws}
+    errs = {k: 0.0 for k in TRAIN_WRAPPERS}
+    agg, bad = {}, []
+    for name, args, kwargs, got in calls:
+        ref = plain[name](*args, **kwargs)
+        label = _call_label(name, args, kwargs)
+        for k, r in (ref.items() if isinstance(ref, dict)
+                     else enumerate(ref)):
+            if r is None:
+                continue
+            key = f"{label} [{k}]"
+            a = agg.setdefault(key, {"calls": 0, "bf16": r.dtype ==
+                                     torch.bfloat16, "within1": 1.0,
+                                     "ulps": 0, "rel": 0.0, "abs": 0.0})
+            a["calls"] += 1
+            if a["bf16"]:
+                w1, ulps, rel, err, ok = bf16_metrics(key, got[k], r)
+                a["within1"] = min(a["within1"], w1)
+                a["ulps"] = max(a["ulps"], ulps)
+                a["abs"] = max(a["abs"], err)
+                errs[kernel_of[name]] = max(errs[kernel_of[name]], err)
+            else:
+                g, rf = got[k].float(), r.float()
+                if not torch.isfinite(g).all():
+                    raise PhaseError(f"{key}: non-finite output")
+                if PRE_BN_BIAS_OUT.get(name) == k:
+                    scale = _pre_bn_bias_scale(name, args).norm()
+                    bound, a["scale"] = PRE_BN_BIAS_ULP, "sum|g|"
+                else:
+                    scale = rf.norm()
+                    bound = LOSS_REL if name == "head_loss_fwd" else F32_REL
+                rel = ((g - rf).norm() / scale.clamp_min(1e-30)).item()
+                ok = rel <= bound
+            a["rel"] = max(a["rel"], rel)
+            if not ok:
+                bad.append(key)
+    for key, a in agg.items():
+        if a["bf16"]:
+            log(f"  {key} x{a['calls']}: within 1 ulp >= {a['within1']:.6f}"
+                f", max ulps {a['ulps']}, max rel {a['rel']:.3e}, max abs "
+                f"{a['abs']:.3e}")
+        else:
+            log(f"  {key} x{a['calls']}: norm-relative"
+                f"{' to ' + a['scale'] if 'scale' in a else ''} <= "
+                f"{a['rel']:.3e}")
+    if bad:
+        raise PhaseError(f"recorded step calls disagree with their plain "
+                         f"versions: {sorted(set(bad))[:6]}")
+    return errs
+
+
+def phase_train(sd, device):
+    """The main train path: 5 steps of make_train_step(enc=True) at B=6,
+    512x1024 uint8 frames, the draws from a seeded generator.  Then step 1
+    from the same state three more times with one fixed draw: twice
+    through the kernels (bit-identical parameters) and once through the
+    plain versions on the card (loss and gradients agree).  The first
+    kernel run of step 1 records every train kernel call; each is held
+    against its plain version on the same inputs."""
+    import contextlib
+    import torch
+    from erfnet_pytorch_tpu_torch.ops import cuda as kernels
+    from erfnet_pytorch_tpu_torch.ops.cuda import route
+    from erfnet_pytorch_tpu_torch.ops.augment import draw
+    from erfnet_pytorch_tpu_torch.training.steps import draw_drop_masks
+    g = torch.Generator().manual_seed(12)
+    frames, labels = train_data(g, TRAIN_B, TRAIN_STEPS)
+    frames = [f.to(device) for f in frames]
+    labels = [lb.to(device) for lb in labels]
+    log(f"[train] make_train_step(enc=True), {TRAIN_STEPS} steps of "
+        f"{TRAIN_B}x512x1024 uint8, bf16")
+    net, state, step = make_trainer(sd, device)
+    gen = torch.Generator(device=device).manual_seed(13)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    losses = []
+    for f, lb in zip(frames, labels):
+        state, loss = step(state, f, lb, gen)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    losses = [x.item() for x in losses]
+    log(f"  losses {losses}")
+    log(f"  launches over {TRAIN_STEPS} steps: {counts}")
+    if not all(map(lambda v: v == v and abs(v) < float("inf"), losses)):
+        raise PhaseError("non-finite loss")
+    per_step = expected_train_launches()
+    for name, n in counts.items():
+        want = TRAIN_STEPS * per_step.get(name, 0)
+        if n != want:
+            raise PhaseError(f"{name}: {n} launches, expected {want}")
+
+    aug = draw(gen, TRAIN_B)
+    masks = draw_drop_masks(gen, TRAIN_B)
+
+    def step1(plain, dtype=None, record=False):
+        net, st, stp = make_trainer(sd, device, dtype)
+        nul = contextlib.nullcontext
+        with (route.plain_versions() if plain else nul()), \
+                (route.recording() if record else nul([])) as calls:
+            _, loss = stp(st, frames[0], labels[0], None, aug=aug,
+                          drop_masks=masks)
+        grads = {k: p.grad.detach().clone()
+                 for k, p in net.named_parameters()}
+        return loss.item(), grads, {k: v.detach().clone()
+                                    for k, v in net.state_dict().items()}, \
+            calls
+
+    loss1, grads1, state1, calls = step1(False, record=True)
+    _, _, state2, _ = step1(False)
+    same = all(torch.equal(state1[k], state2[k]) for k in state1)
+    log(f"  step 1 twice through the kernels: state bit-identical: {same}")
+    if not same:
+        raise PhaseError("two runs of step 1 give different parameters")
+    n_calls = {}
+    for c in calls:
+        n_calls[c[0]] = n_calls.get(c[0], 0) + 1
+    n_pair = sum(n for *_, n in pair_cases(TRAIN_B))
+    n_down = len(down_train_cases(TRAIN_B))
+    want = {"pair_fwd": n_pair, "pair_bwd": n_pair, "down_fwd": n_down,
+            "down_bwd": n_down, "head_loss_fwd": 1, "head_loss_bwd": 1}
+    log(f"  step 1's train kernel calls, each against its plain version on "
+        f"its recorded inputs: {n_calls}")
+    if n_calls != want:
+        raise PhaseError(f"recorded calls {n_calls}, expected {want}")
+    rerrs = check_recorded_calls(calls)
+    del calls
+    lossp, gradsp, _, _ = step1(True)
+    lossf, gradsf, _, _ = step1(True, torch.float32)
+    rel = abs(loss1 - lossp) / abs(lossp)
+    log(f"  step 1 loss: kernels {loss1:.6f}, plain {lossp:.6f} "
+        f"(rel {rel:.2e}, bound {STEP_LOSS_REL}); plain f32 {lossf:.6f}")
+
+    def dist(a, b):
+        return (a.float() - b.float()).norm().item()
+    rows, bad = [], []
+    for k, f in gradsf.items():
+        if k.startswith("decoder.") or k.endswith(PRE_BN_BIAS_PARTS):
+            continue
+        nf = f.float().norm().item()
+        dk, dp = dist(grads1[k], f), dist(gradsp[k], f)
+        rows.append((dist(grads1[k], gradsp[k]) / nf, dk / nf, dp / nf, k))
+        if dk > STEP_NOISE_X * dp + STEP_GRAD_REL * nf:
+            bad.append(k)
+    rows.sort(reverse=True)
+    log("  step 1 gradients, norm-relative: kernels vs plain bf16, kernels "
+        "vs plain f32, plain bf16 vs plain f32 (worst 12, then the median)")
+    for r in rows[:12] + [rows[len(rows) // 2]]:
+        log(f"    {r[3]:<40} {r[0]:.3e} {r[1]:.3e} {r[2]:.3e}")
+    dec = max(grads1[k].abs().max().item() for k in grads1
+              if k.startswith("decoder."))
+    if rel > STEP_LOSS_REL or bad or dec != 0:
+        raise PhaseError(f"step 1 through the kernels disagrees with the "
+                         f"plain versions: {bad[:5]}, loss rel {rel:.2e}, "
+                         f"decoder grad {dec}")
+    worst = [(r[0], r[3]) for r in rows]
+    return counts, losses, rerrs, {
+        "step1_loss_rel": rel,
+        "step1_grad_rel_median": worst[len(worst) // 2][0],
+        "step1_grad_rel_max": worst[0][0]}
+
+
+def _flops_bytes_pair(mode, shape, bwd):
+    B, H, W, C = shape
+    P = B * H * W
+    maps = P * C * 2
+    wbytes = 2 * 3 * C * C * 4 + 2 * C * 4
+    if not bwd:
+        n_in = 2 if mode == "epi" else 1
+        n_out = 2 if mode == "epi" else 1
+        return 2 * P * 6 * C * C, (n_in + n_out) * maps + wbytes
+    n_in = 5 if mode == "epi" else 3          # x (t, y_res), z, gz (gy)
+    n_out = 2 if mode == "epi" else 1         # dx (dt, dy_res)
+    return 2 * P * 12 * C * C, (n_in + n_out) * maps + 2 * wbytes
+
+
+def _flops_bytes_down(shape, cc, stem, bwd):
+    B, H, W, cin = shape
+    po = B * (H // 2) * (W // 2)
+    xin = B * H * W * cin * (4 if stem and not bwd else 2)
+    y = po * (cin + cc) * 2
+    wb = 9 * cin * cc * 4
+    if not bwd:
+        return (2 * po * 9 * cin * cc,
+                xin + y + (B * H * W * cin * 2 if stem else 0) + wb)
+    dx = 0 if stem else B * H * W * cin * 2
+    return (2 if stem else 4) * po * 9 * cin * cc, xin + 2 * y + dx + wb
+
+
+def _bound(flops, nbytes):
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / BF16_FLOPS_PER_S
+
+
+def _lib_conv(x, w_oihw, stride, padding, dilation, weight_only=False):
+    """cuDNN's forward conv and its backward (input and weight gradients),
+    bf16 channels-last, as two calls to time: the yardstick, never on the
+    path."""
+    import torch
+    import torch.nn.functional as F
+    xc = x.permute(0, 3, 1, 2)
+    w = w_oihw.to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    y = F.conv2d(xc, w, None, stride, padding, dilation)
+    mask = [not weight_only, True, True]
+    return (lambda: F.conv2d(xc, w, None, stride, padding, dilation),
+            lambda: torch.ops.aten.convolution_backward(
+                y, xc, w, [w.shape[0]], stride, padding, dilation, False,
+                [0, 0], 1, mask))
+
+
+# PERF.md kernel-table rows of the train functions
+PAIR_ROW = {"none": 21, "affine": 22, "epi": 23}
+
+
+def phase_train_timing(sd, device, iters):
+    """ms/step through the kernels and through the plain versions (CUDA
+    events), and each train kernel's forward and backward time at every
+    shape of the step beside its plain version, its bound and cuDNN's
+    convolutions of the same shapes; summed per step by kernel (the
+    ``kernels`` line) and by the TPU kernel each replaces (PERF.md's
+    rows)."""
+    import contextlib
+    import torch
+    from erfnet_pytorch_tpu_torch.ops import cuda as kernels
+    from erfnet_pytorch_tpu_torch.ops.cuda import route
+    from erfnet_pytorch_tpu_torch.ops.cuda import downsampler_train as dt
+    from erfnet_pytorch_tpu_torch.ops.cuda import head_loss as hl
+    from erfnet_pytorch_tpu_torch.ops.cuda import nb1d_pair as pr
+    g = torch.Generator().manual_seed(14)
+    frames, labels = train_data(g, TRAIN_B, 1)
+    f0, l0 = frames[0].to(device), labels[0].to(device)
+    log("[train timing] CUDA events, B=6")
+    e2e = {}
+    for plain, n in ((False, iters), (True, 3)):
+        _net, st, step = make_trainer(sd, device)
+        gen = torch.Generator(device=device).manual_seed(15)
+        box = [st]
+
+        def one():
+            box[0], _ = step(box[0], f0, l0, gen)
+        key = "plain_ms_per_step" if plain else "ms_per_step"
+        with (route.plain_versions() if plain
+              else contextlib.nullcontext()):
+            e2e[key] = _time(one, n)
+        log(f"  {'plain' if plain else 'kernels'}: {e2e[key]:.3f} ms/step")
+    e2e["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    rows, table = {}, {}
+
+    def add(kernel, row, n, launches, ms, pms, fl, lms):
+        """n calls per step of one function: kernel and plain ms per call,
+        (flops, bytes) per call, cuDNN ms per call or None."""
+        b_ms, o_ms = _bound(*fl)
+        for key, acc in ((kernel, rows), (row, table)):
+            r = acc.setdefault(key, {"ms": 0.0, "plain_ms": 0.0,
+                                     "byte_ms": 0.0, "op_ms": 0.0,
+                                     "bound_ms": 0.0, "library_ms": 0.0,
+                                     "launches": 0})
+            r["ms"] += n * ms
+            r["plain_ms"] += n * pms
+            r["byte_ms"] += n * b_ms
+            r["op_ms"] += n * o_ms
+            r["bound_ms"] += n * max(b_ms, o_ms)
+            r["launches"] += n * launches
+            r["library_ms"] = (None if lms is None or r["library_ms"] is None
+                               else r["library_ms"] + n * lms)
+        return max(b_ms, o_ms)
+
+    def tm(fn, n):
+        saved = {f: f.launches for f in kernels.kernel_wrappers()}
+        ms = _time(fn, n)
+        for f, v in saved.items():
+            f.launches = v
+        return ms
+
+    def line(label, what, ms, pms, bms, lms):
+        lib = "n/a" if lms is None else f"{lms:.4f}"
+        log(f"  {label} {what}: kernel {ms:.4f} ms, plain {pms:.4f}, bound "
+            f"{bms:.4f}, cuDNN {lib} ({ms / bms:.1f}x bound)")
+
+    for mode, shape, d, n in pair_cases(TRAIN_B):
+        kw = pair_inputs(mode, shape, d, g, device)
+        saved = pair_saved(mode, kw, pr.pair_fwd(mode, **kw))
+        ct = pair_cotangents(mode, shape, g, device)
+        wh = kw["wh"].permute(2, 1, 0)[..., None]          # (O, I, 3, 1)
+        ww = kw["ww"].permute(2, 1, 0)[:, :, None, :]      # (O, I, 1, 3)
+        lh = _lib_conv(kw["x"], wh, (1, 1), (d, 0), (d, 1))
+        lw = _lib_conv(saved["t1"], ww, (1, 1), (0, d), (1, d))
+        label = f"pair {mode:<6} C{shape[-1]:<3} d{d:<2} x{n}"
+        for bwd in (False, True):
+            if bwd:
+                ms = tm(lambda: pr.pair_bwd(mode, saved, **ct), iters)
+                pms = tm(lambda: pr.pair_bwd_plain(mode, saved, **ct), 2)
+            else:
+                ms = tm(lambda: pr.pair_fwd(mode, **kw), iters)
+                pms = tm(lambda: pr.pair_fwd_plain(mode, **kw), 2)
+            i = int(bwd)
+            lms = tm(lambda: (lh[i](), lw[i]()), iters)
+            launches = (pr.BWD_LAUNCHES if bwd else pr.FWD_LAUNCHES)[mode]
+            bms = add("nb1d_pair", PAIR_ROW[mode], n, launches, ms, pms,
+                      _flops_bytes_pair(mode, shape, bwd), lms)
+            line(label, "bwd" if bwd else "fwd", ms, pms, bms, lms)
+    for label, shape, cc in down_train_cases(TRAIN_B):
+        stem = label == "stem"
+        x, w, b, kw = down_inputs(label, shape, cc, g, device)
+        xa, y, _s1, _s2 = dt.down_fwd(x, w, b, **kw)
+        gy = torch.randn(*y.shape, generator=g).to(device).bfloat16()
+        gs = (1e-3 * torch.randn(shape[0], y.shape[-1], generator=g)).to(
+            device)
+        lib = _lib_conv(xa, w.permute(3, 2, 0, 1), (2, 2), (1, 1), (1, 1),
+                        weight_only=stem)
+        for bwd in (False, True):
+            if bwd:
+                ms = tm(lambda: dt.down_bwd(xa, y, gy, gs, gs, w, stem=stem),
+                        iters)
+                pms = tm(lambda: dt.down_bwd_plain(xa, y, gy, gs, gs, w,
+                                                   stem=stem), 2)
+                row, launches = (8 if stem else 5), dt.BWD_LAUNCHES[stem]
+            else:
+                ms = tm(lambda: dt.down_fwd(x, w, b, **kw), iters)
+                pms = tm(lambda: dt.down_fwd_plain(x, w, b, **kw), 2)
+                row, launches = (7 if stem else 6), dt.FWD_LAUNCHES
+            lms = tm(lib[int(bwd)], iters)
+            bms = add("downsampler_train", row, 1, launches, ms, pms,
+                      _flops_bytes_down(shape, cc, stem, bwd), lms)
+            line(f"{label:<10}", "bwd" if bwd else "fwd", ms, pms, bms, lms)
+    M = head_loss_rows(TRAIN_B)
+    feats, w, b, labels, cw = head_inputs(M, g, device)
+    gnum = torch.ones((), device=device)
+    K = feats.shape[1]
+    for bwd in (False, True):
+        if bwd:
+            ms = tm(lambda: hl.head_loss_bwd(feats, w, b, labels, cw, gnum),
+                    iters)
+            pms = tm(lambda: hl.head_loss_bwd_plain(feats, w, b, labels, cw,
+                                                    gnum), 2)
+            fl = (4 * M * K * N_CLASSES, 2 * M * K * 2 + M * 4)
+        else:
+            ms = tm(lambda: hl.head_loss_fwd(feats, w, b, labels, cw), iters)
+            pms = tm(lambda: hl.head_loss_fwd_plain(feats, w, b, labels, cw),
+                     2)
+            fl = (2 * M * K * N_CLASSES, M * K * 2 + M * 4)
+        launches = hl.BWD_LAUNCHES if bwd else hl.FWD_LAUNCHES
+        bms = add("head_loss", 17, 1, launches, ms, pms, fl, None)
+        line(f"head_loss M={M}", "bwd" if bwd else "fwd", ms, pms, bms, None)
+    for r in list(rows.values()) + list(table.values()):
+        r["bound_by"] = "operations" if r["op_ms"] > r["byte_ms"] else "bytes"
+    log("  per step, by PERF.md row: kernel, plain, bound, cuDNN ms; "
+        "launches")
+    for row, r in sorted(table.items()):
+        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        log(f"    row {row}: {r['ms']:.4f} {r['plain_ms']:.4f} "
+            f"{r['bound_ms']:.4f} ({r['bound_by']}) {lib}; {r['launches']}")
+    kernels.reset_launch_counts()
+    return e2e, rows, table
+
+
+def phase_train_profile(sd, device, e2e, n=2):
+    """torch.profiler over n kernel steps: device time by kernel and the
+    device's busy share of a step (against the CUDA-event ms/step)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from erfnet_pytorch_tpu_torch.ops import cuda as kernels
+    g = torch.Generator().manual_seed(16)
+    frames, labels = train_data(g, TRAIN_B, 1)
+    f0, l0 = frames[0].to(device), labels[0].to(device)
+    _net, st, step = make_trainer(sd, device)
+    gen = torch.Generator(device=device).manual_seed(17)
+    for _ in range(2):
+        st, _ = step(st, f0, l0, gen)
+    torch.cuda.synchronize()
+    log("[train profile] torch.profiler, per step")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            st, _ = step(st, f0, l0, gen)
+        torch.cuda.synchronize()
+    out = busy_share(prof, n, 1e3 * e2e["ms_per_step"], "step")
+    log("  host: self CPU time per step by operation (top 15)")
+    ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    for e in ops[:15]:
+        log(f"    {e.self_cpu_time_total / n:9.1f} us  x{e.count // n:<5} "
+            f"{e.key[:60]}")
+    kernels.reset_launch_counts()
+    return out
+
+
+def busy_share(prof, n, timed_us, what):
+    """Device busy time (the union of kernel intervals) per iteration and
+    its share of the timed iteration; device time by kernel name."""
+    import torch
+    spans, by_name = [], {}
+    for ev in prof.events():
+        # user annotations (e.g. the optimizer's) span kernels: not work
+        if (ev.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(ev, "is_user_annotation", False)
+                or "#" in ev.name or ev.name.startswith("ProfilerStep")):
+            continue
+        a, b = ev.time_range.start, ev.time_range.end
+        spans.append((a, b))
+        key = (ev.name.replace("void ", "")
+               .replace("(anonymous namespace)::", "").split("(")[0][:60])
+        by_name[key] = by_name.get(key, 0.0) + (b - a) / n
+    if not spans:
+        log("  device activity not measured (no CUDA events)")
+        return None
+    spans.sort()
+    busy, cur_a, cur_b = 0.0, *spans[0]
+    for a, b in spans[1:]:
+        if a > cur_b:
+            busy += cur_b - cur_a
+            cur_a, cur_b = a, b
+        else:
+            cur_b = max(cur_b, b)
+    busy += cur_b - cur_a
+    share = min(1.0, busy / n / timed_us)
+    log(f"  device busy {busy / n:.1f} us/{what} of {timed_us:.1f} us timed "
+        f"({100 * share:.1f} %)")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    for k, us in top[:25]:
+        log(f"    {us:9.1f} us  {k}")
+    return {f"device_busy_us_per_{what}": busy / n,
+            f"timed_us_per_{what}": timed_us, "device_busy_share": share}
 
 
 def main():
@@ -558,6 +1325,11 @@ def main():
         counts, agree = phase_serving(sd, device)
         e2e, rows = phase_timing(sd, device, ITERS)
         prof = phase_profile(sd, device, e2e)
+        terrs = phase_train_parity(device)
+        tcounts, losses, rerrs, agree_train = phase_train(sd, device)
+        terrs = {k: max(v, rerrs[k]) for k, v in terrs.items()}
+        te2e, trows, ttable = phase_train_timing(sd, device, ITERS)
+        tprof = phase_train_profile(sd, device, te2e)
     except Exception:  # every phase failure is fatal and reported
         traceback.print_exc()
         log("FAIL")
@@ -573,8 +1345,19 @@ def main():
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
+    for name, (fw, bw) in TRAIN_WRAPPERS.items():
+        src, repl = SOURCES[name]
+        r = trows[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": repl,
+            "launches": tcounts[fw] + tcounts[bw],
+            "max_abs_err": terrs[name], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     summary = {"build_s": build_s, "serving_agreement": agree, **e2e,
-               "profile": prof}
+               "profile": prof, "train": {"losses": losses, **agree_train,
+                                          **te2e, "profile": tprof,
+                                          "rows": ttable}}
     log(f"summary {json.dumps(summary)}")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -200,6 +200,196 @@ inline cudaError_t resident_ctas(Kernel kernel, int threads, size_t smem,
   return cudaSuccess;
 }
 
+// ---------------------------------------------------------------------------
+// Training helpers: the stats-cotangent fold, fixed-order reductions of
+// per-CTA partial sums, and the weight-gradient product.  Every sum over
+// the batch is taken per CTA into its own slot of a partial buffer and then
+// reduced in a fixed order, never with f32 atomics, so two runs of a step
+// give bit-identical results.
+// ---------------------------------------------------------------------------
+
+// out = bf16(g + gs1[b, c] + 2 z gs2[b, c]) in f32: the backward of a
+// kernel's per-image (sum, sum of squares) outputs folded into the
+// upstream gradient.  g, z, out: (B, HW, C) bf16, C % 8 == 0; gs1, gs2:
+// (B, C) f32.  One thread per 8 channels of a pixel.
+template <int UNUSED = 0>
+__global__ void __launch_bounds__(256)
+adjust_grad_kernel(const bf16* __restrict__ g, const bf16* __restrict__ z,
+                   const float* __restrict__ gs1,
+                   const float* __restrict__ gs2, bf16* __restrict__ out,
+                   long long pixels, int HW, int C) {
+  const int vpp = C / 8;
+  const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= pixels * vpp) return;
+  const long long m = v / vpp;
+  const int c0 = (int)(v % vpp) * 8;
+  const int b = (int)(m / HW);
+  float gv[8], zv[8], o[8];
+  unpack_bf16x8(__ldg(reinterpret_cast<const uint4*>(g + m * C + c0)), gv);
+  unpack_bf16x8(__ldg(reinterpret_cast<const uint4*>(z + m * C + c0)), zv);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float a1 = __ldg(gs1 + b * C + c0 + k);
+    const float a2 = __ldg(gs2 + b * C + c0 + k);
+    o[k] = __fadd_rn(__fadd_rn(gv[k], a1), __fmul_rn(__fmul_rn(2.0f, zv[k]), a2));
+  }
+  *reinterpret_cast<uint4*>(out + m * C + c0) = pack_bf16x8(o);
+}
+
+inline cudaError_t adjust_grad(const void* g, const void* z, const void* gs1,
+                               const void* gs2, void* out, int B, int HW,
+                               int C, cudaStream_t s) {
+  if (C % 8) return cudaErrorInvalidValue;
+  const long long pixels = (long long)B * HW;
+  const long long n = pixels * (C / 8);
+  adjust_grad_kernel<><<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+      static_cast<const bf16*>(g), static_cast<const bf16*>(z),
+      static_cast<const float*>(gs1), static_cast<const float*>(gs2),
+      static_cast<bf16*>(out), pixels, HW, C);
+  return cudaGetLastError();
+}
+
+// out[g][l] = sum_{j < n} part[(g n + j) len + l] in a fixed order: a
+// block takes 32 consecutive l (one per lane, coalesced) and splits j over
+// its warps, warp w adding j = w, w + WJ, ... in increasing order; lane l
+// of warp 0 then adds the WJ warp sums in warp order.
+template <int UNUSED = 0>
+__global__ void __launch_bounds__(1024)
+reduce_parts_kernel(const float* __restrict__ part, float* __restrict__ out,
+                    int n, int len) {
+  __shared__ float s[32][33];
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  const int wj = blockDim.x / 32;
+  const int l = blockIdx.x * 32 + lane;
+  const float* p = part + (long long)blockIdx.y * n * len + l;
+  float acc = 0.0f;
+  if (l < len) {
+#pragma unroll 4
+    for (int j = w; j < n; j += wj) acc += __ldg(p + (long long)j * len);
+  }
+  s[w][lane] = acc;
+  __syncthreads();
+  if (w == 0 && l < len) {
+    float t = 0.0f;
+    for (int k = 0; k < wj; ++k) t += s[k][lane];
+    out[(long long)blockIdx.y * len + l] = t;
+  }
+}
+
+inline cudaError_t reduce_parts(const float* part, float* out, int groups,
+                                int n, int len, cudaStream_t s) {
+  const int wj = n >= 256 ? 32 : n >= 32 ? 8 : 1;
+  reduce_parts_kernel<><<<dim3((len + 31) / 32, groups), 32 * wj, 0, s>>>(
+      part, out, n, len);
+  return cudaGetLastError();
+}
+
+// Weight-gradient product of one CTA: D (MB x NP, f32) += A^T G over BP
+// pixels, A (BP x MB) and G (BP x NP) bf16 in shared memory, pixel-major
+// (row = pixel).  The A fragments are loaded with ldmatrix.trans, so the
+// pixel axis is the product's depth.  The 8 warps form a grid of
+// (MB / WM) x (NP / WN) x WARPS_K; with WARPS_K > 1 a warp takes every
+// WARPS_K-th 16-pixel step and the warps' sums are added in a fixed order
+// at the end (wgrad_store).
+template <int MB, int NP, int WM, int WN>
+struct WgCfg {
+  static constexpr int THREADS = 256, BP = 64;
+  static constexpr int WARPS_MN = (MB / WM) * (NP / WN);
+  static constexpr int WARPS_K = 8 / WARPS_MN;
+  static constexpr int MT = WM / 16, NT = WN / 8;
+  static constexpr int LDA = MB + 8, LDG = NP + 8;
+  static_assert(MB % WM == 0 && NP % WN == 0 && WM % 16 == 0 &&
+                    WN % 16 == 0 && 8 % WARPS_MN == 0,
+                "wgrad warp grid");
+  static constexpr size_t a_bytes = ((size_t)BP * LDA * 2 + 127) / 128 * 128;
+  static constexpr size_t g_bytes = ((size_t)BP * LDG * 2 + 127) / 128 * 128;
+  static constexpr size_t red_bytes =
+      WARPS_K > 1 ? (size_t)WARPS_K * MB * NP * 4 : 0;
+  static constexpr size_t smem = a_bytes + g_bytes > red_bytes
+                                     ? a_bytes + g_bytes
+                                     : red_bytes;
+};
+
+template <int MB, int NP, int WM, int WN>
+__device__ __forceinline__ void wgrad_step(
+    const bf16* As, const bf16* Gs,
+    float (&acc)[WgCfg<MB, NP, WM, WN>::MT][WgCfg<MB, NP, WM, WN>::NT][4]) {
+  using Q = WgCfg<MB, NP, WM, WN>;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wk = warp / Q::WARPS_MN, wmn = warp % Q::WARPS_MN;
+  const int wm = wmn / (NP / WN), wn = wmn % (NP / WN);
+  const bf16* a_base = As + ((lane % 8) + (lane / 16) * 8) * Q::LDA + wm * WM +
+                       ((lane / 8) % 2) * 8;
+  const bf16* g_base = Gs + (lane % 16) * Q::LDG + wn * WN + (lane / 16) * 8;
+#pragma unroll
+  for (int ks = 0; ks < Q::BP / 16; ++ks) {
+    if (ks % Q::WARPS_K != wk) continue;
+    unsigned a[Q::MT][4];
+#pragma unroll
+    for (int m = 0; m < Q::MT; ++m)
+      ldsm_x4_trans(a[m], a_base + ks * 16 * Q::LDA + m * 16);
+#pragma unroll
+    for (int n = 0; n < WN / 16; ++n) {
+      unsigned b[4];
+      ldsm_x4_trans(b, g_base + ks * 16 * Q::LDG + n * 16);
+#pragma unroll
+      for (int m = 0; m < Q::MT; ++m) {
+        mma_bf16_16816(acc[m][2 * n], a[m], b[0], b[1]);
+        mma_bf16_16816(acc[m][2 * n + 1], a[m], b[2], b[3]);
+      }
+    }
+  }
+}
+
+// Store D's rows [0, mreal) x columns [0, nreal) to dst (row pitch nreal),
+// adding the WARPS_K partial sums in a fixed order through shared memory
+// (red, >= red_bytes, free for use).  Call with the whole block.
+template <int MB, int NP, int WM, int WN>
+__device__ __forceinline__ void wgrad_store(
+    float (&acc)[WgCfg<MB, NP, WM, WN>::MT][WgCfg<MB, NP, WM, WN>::NT][4],
+    float* red, float* dst, int mreal, int nreal) {
+  using Q = WgCfg<MB, NP, WM, WN>;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wk = warp / Q::WARPS_MN, wmn = warp % Q::WARPS_MN;
+  const int wm = wmn / (NP / WN), wn = wmn % (NP / WN);
+  const int g = lane / 4, t = lane % 4;
+  if constexpr (Q::WARPS_K == 1) {
+#pragma unroll
+    for (int m = 0; m < Q::MT; ++m)
+#pragma unroll
+      for (int n = 0; n < Q::NT; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = wm * WM + m * 16 + g + 8 * h;
+          const int col = wn * WN + n * 8 + 2 * t;
+          if (row >= mreal) continue;
+          if (col < nreal) dst[row * nreal + col] = acc[m][n][2 * h];
+          if (col + 1 < nreal) dst[row * nreal + col + 1] = acc[m][n][2 * h + 1];
+        }
+  } else {
+    __syncthreads();  // the staged tiles are dead: red may alias them
+#pragma unroll
+    for (int m = 0; m < Q::MT; ++m)
+#pragma unroll
+      for (int n = 0; n < Q::NT; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = wm * WM + m * 16 + g + 8 * h;
+          const int col = wn * WN + n * 8 + 2 * t;
+          float* r = red + ((size_t)wk * MB + row) * NP + col;
+          r[0] = acc[m][n][2 * h];
+          r[1] = acc[m][n][2 * h + 1];
+        }
+    __syncthreads();
+    for (int e = threadIdx.x; e < mreal * nreal; e += blockDim.x) {
+      const int row = e / nreal, col = e % nreal;
+      float s = 0.0f;
+      for (int k = 0; k < Q::WARPS_K; ++k) s += red[((size_t)k * MB + row) * NP + col];
+      dst[e] = s;
+    }
+  }
+}
+
 }  // namespace erfk
 
 extern "C" const char* erf_error_string(int err) {

@@ -172,3 +172,113 @@ def init_weights(net: nn.Module, generator: torch.Generator) -> nn.Module:
             elif isinstance(m, nn.BatchNorm2d):
                 m.reset_parameters()
     return net
+
+
+# ---------------------------------------------------------------------------
+# Train-mode encoder through the train kernels (ops/cuda: the stem and
+# downsampler with BN statistics, the NB1d conv pairs, each a
+# torch.autograd.Function whose backward is a kernel too).  The
+# counterpart of the JAX ``_apply_encoder_packed_train`` with
+# ``_fused_nb1d_run``'s epilogue carry, unpacked (the JAX C=64 run's
+# W-packing is a TPU lane device).
+# ---------------------------------------------------------------------------
+
+def conv_taps_of(conv):
+    """A (3, 1) or (1, 3) Conv2d's weight as the (3, Cin, Cout) tap stack
+    (a view: gradients reach the parameter)."""
+    w = conv.weight
+    return (w[:, :, :, 0] if w.shape[3] == 1 else w[:, :, 0, :]).permute(
+        2, 1, 0)
+
+
+def conv_hwio_of(conv):
+    """A Conv2d's weight as HWIO (a view)."""
+    return conv.weight.permute(2, 3, 1, 0)
+
+
+def _bn_coeffs(bn, name, s1, s2, n_img, new_stats):
+    from ..ops.batchnorm import bn_train_coeffs, stat_sums_from_rows
+    (a, b), st = bn_train_coeffs(*stat_sums_from_rows(s1, s2, n_img),
+                                 bn.weight, bn.bias, bn.running_mean,
+                                 bn.running_var, eps=bn.eps)
+    new_stats[name] = st
+    return a, b
+
+
+def _down_bn_relu(block, name, y, s1, s2, new_stats):
+    """BN from the kernel's statistics, then ReLU, in the activation dtype
+    (a and b rounded to it first, as the JAX ``bn_relu`` does)."""
+    a, b = _bn_coeffs(block.bn, name, s1, s2, y.shape[1] * y.shape[2],
+                      new_stats)
+    return torch.relu(y * a.to(y.dtype) + b.to(y.dtype))
+
+
+def _nb1d_train_run(layers, idxs, x, masks, new_stats):
+    """A run of same-C NB1d blocks with the epilogue carried: block i's
+    BN2 affine, dropout mask and residual ReLU run in block i+1's first
+    pair (the ``epi`` lead); the last block's epilogue is plain."""
+    from ..ops.cuda.nb1d_pair import (pair_affine_stats, pair_epi_stats,
+                                      pair_stats)
+    n_img = x.shape[1] * x.shape[2]
+    pending = None
+    for i in idxs:
+        blk = layers[i]
+        d = ENCODER_LAYER_SPECS[i][1][2]
+        first = (conv_taps_of(blk.conv3x1_1), blk.conv3x1_1.bias,
+                 conv_taps_of(blk.conv1x3_1), blk.conv1x3_1.bias)
+        if pending is None:
+            z1, s1a, s1b = pair_stats(x, *first, dil=1)
+            y_in = x
+        else:
+            z1, y_in, s1a, s1b = pair_epi_stats(*pending, *first, dil=1)
+        a1, b1 = _bn_coeffs(blk.bn1, f"layers.{i}.bn1", s1a, s1b, n_img,
+                            new_stats)
+        t, s2a, s2b = pair_affine_stats(
+            z1, a1, b1, conv_taps_of(blk.conv3x1_2), blk.conv3x1_2.bias,
+            conv_taps_of(blk.conv1x3_2), blk.conv1x3_2.bias, dil=d)
+        a2, b2 = _bn_coeffs(blk.bn2, f"layers.{i}.bn2", s2a, s2b, n_img,
+                            new_stats)
+        pending = (t, y_in, masks[i], a2, b2)
+    t, y_in, m, a2, b2 = pending
+    dt = t.dtype
+    return torch.relu((t * a2.to(dt) + b2.to(dt))
+                      * m.to(dt)[:, None, None, :] + y_in)
+
+
+def encoder_train_forward(encoder, images, shifts, masks, dtype):
+    """Train-mode encoder up to the pre-head features.
+
+    images: (B, H, W, 3) f32, flipped but not translated; shifts: (B, 2)
+    per-image (tx, ty), applied by the stem in its gather; masks: {layer
+    index: (B, C) f32 Dropout2d mask in {0, 1/keep}} for every NB1d layer;
+    dtype: the activation dtype (the kernels take bf16; on CPU tensors the
+    plain versions also take f32).  Returns (features (B, H/8, W/8, 128) in
+    ``dtype``, {BN name: (new running mean, new running var)}).  Each
+    entry of the path is a kernel wrapper: CPU tensors run the plain
+    versions, CUDA tensors the kernels, and a shape a kernel refuses
+    raises."""
+    from ..ops.cuda.downsampler_train import (downsampler_stats,
+                                              downsampler_stem_stats)
+    new_stats = {}
+    ib = encoder.initial_block
+    y, s1, s2 = downsampler_stem_stats(images, shifts, conv_hwio_of(ib.conv),
+                                       ib.conv.bias, dtype=dtype)
+    x = _down_bn_relu(ib, "initial_block.bn", y, s1, s2, new_stats)
+    layers, n = encoder.layers, len(ENCODER_LAYER_SPECS)
+    i = 0
+    while i < n:
+        kind, args = ENCODER_LAYER_SPECS[i]
+        if kind == "down":
+            blk = layers[i]
+            y, s1, s2 = downsampler_stats(x, conv_hwio_of(blk.conv),
+                                          blk.conv.bias)
+            x = _down_bn_relu(blk, f"layers.{i}.bn", y, s1, s2, new_stats)
+            i += 1
+            continue
+        j = i
+        while (j < n and ENCODER_LAYER_SPECS[j][0] == "nb1d"
+               and ENCODER_LAYER_SPECS[j][1][0] == args[0]):
+            j += 1
+        x = _nb1d_train_run(layers, range(i, j), x, masks, new_stats)
+        i = j
+    return x, new_stats

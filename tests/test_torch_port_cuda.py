@@ -1,7 +1,11 @@
 """PyTorch port on the card: each hand-written kernel against its plain
 version at small and ragged shapes (tile tails, maps narrower than a
 tile, dilations beyond the map), the launch counters, the wrappers'
-refusals, and the whole serving path against its plain pipeline.
+refusals, the whole serving path against its plain pipeline, and the
+encoder-stage train step against the same step through the plain
+versions (and against itself: two runs give bit-identical parameters),
+and each train kernel call of that step against its plain version on the
+call's own recorded inputs.
 
 These tests need an NVIDIA GPU with ``nvcc`` (sm_90a) and skip without
 one.  They import nothing of JAX, so on a machine without it run them
@@ -12,7 +16,10 @@ without the repository's conftest (which imports jax):
 Tolerance for bf16 outputs, as in ``chip_smoke.py``: >= 99.9 % of the
 elements within one bf16 ulp and every error <= 2^-6 relative to
 max(|ref|, rms(ref)): both sides sum in f32 in different orders and
-round once to bf16 per stage.
+round once to bf16 per stage.  f32 outputs of the train kernels (weight
+and bias gradients, BN sums): norm-relative 5e-3, as in ``chip_smoke.py``
+(the same bf16 products summed in other orders; their bf16 operands may
+sit one ulp apart on a few elements).
 """
 
 import pytest
@@ -22,8 +29,10 @@ from erfnet_pytorch_tpu_torch.inference import (build_fast_infer,
                                                 build_plain_infer)
 from erfnet_pytorch_tpu_torch.models.erfnet import Net, init_weights
 from erfnet_pytorch_tpu_torch.ops import cuda as kernels
-from erfnet_pytorch_tpu_torch.ops.cuda import (downsampler, head_argmax,
-                                               nb1d, upsampler)
+from erfnet_pytorch_tpu_torch.ops.cuda import (downsampler,
+                                               downsampler_train, head_argmax,
+                                               head_loss, nb1d, nb1d_pair,
+                                               route, upsampler)
 
 pytestmark = pytest.mark.cuda
 
@@ -169,9 +178,254 @@ def test_serving_path_matches_plain_pipeline(dev, sd):
     kernels.reset_launch_counts()
     got = infer(to_tensor(u8))
     torch.cuda.synchronize()
-    assert kernels.launch_counts() == {"downsampler": 3,
-                                       "nb1d": 17 * nb1d.LAUNCHES_PER_BLOCK,
-                                       "upsampler": 2, "head_argmax": 1}
+    counts = kernels.launch_counts()
+    assert {k: counts.pop(k) for k in ("downsampler", "nb1d", "upsampler",
+                                       "head_argmax")} == {
+        "downsampler": 3, "nb1d": 17 * nb1d.LAUNCHES_PER_BLOCK,
+        "upsampler": 2, "head_argmax": 1}
+    assert set(counts.values()) == {0}
     ref = plain(to_tensor(u8))
     assert got.shape == (2, 64, 128) and got.dtype == torch.int32
     assert (got == ref).float().mean().item() >= 0.995
+
+
+def _rel(got, ref, tol=5e-3):
+    g, r = got.float(), ref.float()
+    err = ((g - r).norm() / r.norm().clamp_min(1e-30)).item()
+    assert err <= tol, err
+
+
+def _rn(*shape, seed, scale=1.0):
+    g = torch.Generator().manual_seed(seed)
+    return scale * torch.randn(*shape, generator=g)
+
+
+@pytest.mark.parametrize("mode,shape,dil", [
+    ("none", (1, 5, 9, 64), 1), ("affine", (2, 7, 11, 64), 1),
+    ("epi", (1, 9, 13, 64), 1), ("none", (2, 4, 8, 128), 1),
+    ("affine", (1, 6, 10, 128), 2), ("affine", (2, 4, 8, 128), 16),
+    ("epi", (1, 3, 70, 128), 1)])
+def test_nb1d_pair_kernels(dev, mode, shape, dil):
+    B, H, W, C = shape
+    x = _rn(*shape, seed=1)
+    kw = {"x": (x.relu() if mode == "none" else x).to(dev, torch.bfloat16),
+          "wh": _rn(3, C, C, seed=2, scale=(3 * C) ** -0.5).to(dev),
+          "bh": _rn(C, seed=3, scale=0.1).to(dev),
+          "ww": _rn(3, C, C, seed=4, scale=(3 * C) ** -0.5).to(dev),
+          "bw": _rn(C, seed=5, scale=0.1).to(dev), "dil": dil}
+    if mode != "none":
+        kw["a"] = (1 + _rn(C, seed=6, scale=0.1)).to(dev)
+        kw["b"] = _rn(C, seed=7, scale=0.1).to(dev)
+    if mode == "epi":
+        kw["yres"] = _rn(*shape, seed=8).relu().to(dev, torch.bfloat16)
+        kw["m"] = torch.where(_rn(B, C, seed=9) > -0.5, 1 / 0.7, 0.0).to(dev)
+    n0 = nb1d_pair.pair_fwd.launches
+    got = nb1d_pair.pair_fwd(mode, **kw)
+    ref = nb1d_pair.pair_fwd_plain(mode, **kw)
+    torch.cuda.synchronize()
+    assert (nb1d_pair.pair_fwd.launches - n0
+            == nb1d_pair.FWD_LAUNCHES[mode])
+    for i in (0, 1, 2):
+        _close(got[i], ref[i])
+    _rel(got[3], ref[3])
+    _rel(got[4], ref[4])
+    t0, t1, z = ref[:3]
+    saved = {"x": kw["x"], "t0": t0, "t1": t1, "z": z,
+             "wh": kw["wh"].bfloat16(), "ww": kw["ww"].bfloat16(),
+             "a": kw.get("a"), "m": kw.get("m"), "dil": dil}
+    ct = {"gz": _rn(*shape, seed=10).to(dev, torch.bfloat16),
+          "gs1": _rn(B, C, seed=11, scale=1e-3).to(dev),
+          "gs2": _rn(B, C, seed=12, scale=1e-3).to(dev)}
+    if mode == "epi":
+        ct["gy"] = _rn(*shape, seed=13).to(dev, torch.bfloat16)
+    n0 = nb1d_pair.pair_bwd.launches
+    got = nb1d_pair.pair_bwd(mode, saved, **ct)
+    ref = nb1d_pair.pair_bwd_plain(mode, saved, **ct)
+    torch.cuda.synchronize()
+    assert (nb1d_pair.pair_bwd.launches - n0
+            == nb1d_pair.BWD_LAUNCHES[mode])
+    assert set(got) == set(ref)
+    for k, v in ref.items():
+        (_close if v.dtype == torch.bfloat16 else _rel)(got[k], v)
+
+
+@pytest.mark.parametrize("shape,cc,stem", [
+    ((2, 6, 10, 3), 13, True), ((2, 10, 6, 16), 48, False),
+    ((1, 18, 14, 64), 64, False)])
+def test_downsampler_train_kernels(dev, shape, cc, stem):
+    B, H, W, cin = shape
+    if stem:
+        x = torch.rand(*shape, generator=torch.Generator().manual_seed(1))
+        x, kw = x.to(dev), {"shifts": torch.tensor([[-2, 1], [2, -2]]).to(
+            dev), "dtype": torch.bfloat16}
+    else:
+        x = _rn(*shape, seed=1).relu()
+        x[:, 2:4, 2:4, :] = 0.5                       # a window of ties
+        x, kw = x.to(dev, torch.bfloat16), {}
+    w = _rn(3, 3, cin, cc, seed=2, scale=(9 * cin) ** -0.5).to(dev)
+    b = _rn(cc, seed=3, scale=0.1).to(dev)
+    got = downsampler_train.down_fwd(x, w, b, **kw)
+    ref = downsampler_train.down_fwd_plain(x, w, b, **kw)
+    torch.cuda.synchronize()
+    _close(got[0], ref[0])
+    _close(got[1], ref[1])
+    _rel(got[2], ref[2])
+    _rel(got[3], ref[3])
+    xa, y = ref[0], ref[1]
+    gy = _rn(*y.shape, seed=4).to(dev, torch.bfloat16)
+    gs1 = _rn(B, y.shape[-1], seed=5, scale=1e-3).to(dev)
+    gs2 = _rn(B, y.shape[-1], seed=6, scale=1e-3).to(dev)
+    n0 = downsampler_train.down_bwd.launches
+    got = downsampler_train.down_bwd(xa, y, gy, gs1, gs2, w, stem=stem)
+    ref = downsampler_train.down_bwd_plain(xa, y, gy, gs1, gs2, w, stem=stem)
+    torch.cuda.synchronize()
+    assert (downsampler_train.down_bwd.launches - n0
+            == downsampler_train.BWD_LAUNCHES[stem])
+    if not stem:
+        _close(got[0], ref[0])
+    _rel(got[1], ref[1])
+    _rel(got[2], ref[2])
+
+
+@pytest.mark.parametrize("all_void", [False, True])
+def test_head_loss_kernels(dev, all_void):
+    from erfnet_pytorch_tpu_torch.training.class_weights import \
+        ENCODER_WEIGHTS
+    M = 1300                                   # ragged against 256 and 1024
+    feats = _rn(M, 128, seed=1).relu().to(dev, torch.bfloat16)
+    w = _rn(128, 20, seed=2, scale=0.1).to(dev)
+    b = _rn(20, seed=3, scale=0.1).to(dev)
+    labels = torch.randint(0, 20, (M,),
+                           generator=torch.Generator().manual_seed(4))
+    labels[:100] = 19
+    if all_void:
+        labels[:] = 19
+    labels = labels.to(dev)
+    cw = torch.as_tensor(ENCODER_WEIGHTS).to(dev)
+    num, den = head_loss.head_loss_fwd(feats, w, b, labels, cw)
+    pnum, pden = head_loss.head_loss_fwd_plain(feats, w, b, labels, cw)
+    gnum = 1.0 / den.clamp_min(1e-12)
+    got = head_loss.head_loss_bwd(feats, w, b, labels, cw, gnum)
+    ref = head_loss.head_loss_bwd_plain(feats, w, b, labels, cw, gnum)
+    torch.cuda.synchronize()
+    if all_void:
+        assert num.item() == 0 and den.item() == 0
+        assert all(t.abs().max().item() == 0 for t in got)
+        return
+    assert abs(num.item() - pnum.item()) <= 1e-5 * abs(pnum.item())
+    assert abs(den.item() - pden.item()) <= 1e-5 * abs(pden.item())
+    _close(got[0], ref[0])
+    _rel(got[1], ref[1])
+    _rel(got[2], ref[2])
+
+
+def test_train_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x = torch.zeros(1, 4, 4, 64, device=dev)
+    w3 = torch.zeros(3, 64, 64, device=dev)
+    c = torch.zeros(64, device=dev)
+    with pytest.raises(TypeError):
+        nb1d_pair.pair_fwd("none", x, w3, c, w3, c, 1)                # f32
+    with pytest.raises(ValueError):
+        nb1d_pair.pair_fwd("none", torch.zeros(1, 4, 4, 32, device=dev,
+                                               dtype=torch.bfloat16),
+                           w3[:, :32, :32], c[:32], w3[:, :32, :32], c[:32],
+                           1)                                          # C=32
+    with pytest.raises(ValueError):
+        downsampler_train.down_fwd(
+            torch.zeros(1, 5, 4, 16, device=dev, dtype=torch.bfloat16),
+            torch.zeros(3, 3, 16, 48, device=dev), torch.zeros(48,
+                                                               device=dev))
+    with pytest.raises(ValueError):
+        head_loss.head_loss_fwd(
+            torch.zeros(8, 64, device=dev, dtype=torch.bfloat16),
+            torch.zeros(64, 20, device=dev), torch.zeros(20, device=dev),
+            torch.zeros(8, dtype=torch.int64, device=dev),
+            torch.ones(20, device=dev))
+
+
+def _train_step_run(dev, sd, plain=False, dtype=torch.bfloat16,
+                    record=False):
+    """One encoder-stage step at B=2, 64x128 with fixed draws: (loss,
+    launch counts, grads, state, recorded calls)."""
+    import contextlib
+    from erfnet_pytorch_tpu_torch.ops.augment import draw
+    from erfnet_pytorch_tpu_torch.training.class_weights import \
+        ENCODER_WEIGHTS
+    from erfnet_pytorch_tpu_torch.training.optim import make_adam
+    from erfnet_pytorch_tpu_torch.training.steps import (create_train_state,
+                                                         draw_drop_masks,
+                                                         make_train_step)
+    g = torch.Generator().manual_seed(3)
+    u8 = torch.randint(0, 256, (2, 64, 128, 3), generator=g,
+                       dtype=torch.uint8).to(dev)
+    labels = torch.randint(0, 19, (2, 64, 128), generator=g).to(dev)
+    labels[:, :8] = 255
+    gen = torch.Generator(device=dev).manual_seed(4)
+    aug, masks = draw(gen, 2), draw_drop_masks(gen, 2)
+    net = Net(20)
+    net.load_state_dict(sd)
+    opt = make_adam(net.parameters())
+    step = make_train_step(net, opt, ENCODER_WEIGHTS, dtype=dtype,
+                           device=dev)
+    kernels.reset_launch_counts()
+    nul = contextlib.nullcontext
+    with (route.plain_versions() if plain else nul()), \
+            (route.recording() if record else nul([])) as calls:
+        _, loss = step(create_train_state(net, opt), u8, labels, None,
+                       aug=aug, drop_masks=masks)
+    torch.cuda.synchronize()
+    return (loss.item(), kernels.launch_counts(),
+            {k: p.grad.clone() for k, p in net.named_parameters()},
+            {k: v.clone() for k, v in net.state_dict().items()}, calls)
+
+
+def test_train_step_matches_plain_and_repeats_bit_identically(dev, sd):
+    """make_train_step(enc=True) at B=2, 64x128 on the card: the launch
+    counts per step, two runs from one state give bit-identical state,
+    the loss agrees with the step through the plain versions (rtol 1e-3),
+    and no gradient tensor is farther from the same step in f32 through
+    the plain versions than twice the plain bf16 step's own distance plus
+    2 % (bf16 rounds the BN-adjusted gradients of both paths to a noise
+    floor of their own, as in ``chip_smoke.py``); pre-BN conv biases,
+    whose gradient is rounding noise, are left out."""
+    loss1, counts, grads1, state1, _ = _train_step_run(dev, sd)
+    assert counts["pair_fwd"] == 2 * 3 + 13 * 4 + 11 * 4
+    assert counts["pair_bwd"] == 2 * 6 + 24 * 7
+    assert counts["down_fwd"] == 6 and counts["down_bwd"] == 3 + 2 * 4
+    assert counts["head_loss_fwd"] == 2 and counts["head_loss_bwd"] == 3
+    _, _, _, state2, _ = _train_step_run(dev, sd)
+    assert all(torch.equal(state1[k], state2[k]) for k in state1)
+    lossp, counts, gradsp, _, _ = _train_step_run(dev, sd, plain=True)
+    assert set(counts.values()) == {0}
+    _, _, gradsf, _, _ = _train_step_run(dev, sd, plain=True,
+                                         dtype=torch.float32)
+    assert abs(loss1 - lossp) <= 1e-3 * abs(lossp)
+    for k, f in gradsf.items():
+        if k.startswith("decoder."):
+            assert grads1[k].abs().max().item() == 0
+        elif not k.endswith(("conv1x3_1.bias", "conv1x3_2.bias",
+                             "conv.bias")):
+            dk = (grads1[k].float() - f).norm().item()
+            dp = (gradsp[k].float() - f).norm().item()
+            assert dk <= 2.0 * dp + 0.02 * f.norm().item(), (k, dk, dp)
+
+
+def test_train_step_calls_match_their_plain_versions(dev, sd):
+    """Every train kernel call of one step, held against its plain version
+    on the inputs the step gave it, by ``chip_smoke.py``'s own check
+    (``check_recorded_calls``: bf16 outputs by the one-ulp rule, f32
+    outputs norm-relative 5e-3, the loss sums 1e-4, pre-BN conv bias
+    gradients within 2^-8 of the norm of their summands' magnitudes)."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    *_, calls = _train_step_run(dev, sd, record=True)
+    names = [c[0] for c in calls]
+    assert {n: names.count(n) for n in set(names)} == {
+        "pair_fwd": 26, "pair_bwd": 26, "down_fwd": 3, "down_bwd": 3,
+        "head_loss_fwd": 1, "head_loss_bwd": 1}
+    smoke.check_recorded_calls(calls)

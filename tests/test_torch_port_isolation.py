@@ -29,7 +29,11 @@ def test_package_imports_neither_jax_nor_the_jax_package():
     process already holds jax, through tests/conftest.py), leaves
     neither ``jax`` nor ``erfnet_pytorch_tpu`` in sys.modules."""
     mods = _modules()
-    assert "erfnet_pytorch_tpu_torch.ops.cuda.nb1d" in mods
+    for m in ("ops.cuda.nb1d", "ops.cuda.nb1d_pair", "ops.cuda.downsampler_train",
+              "ops.cuda.head_loss", "ops.cuda.route", "ops.augment",
+              "ops.dropout", "ops.loss",
+              "training.steps", "training.optim", "training.class_weights"):
+        assert f"erfnet_pytorch_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -37,6 +41,29 @@ def test_package_imports_neither_jax_nor_the_jax_package():
             "k.startswith('jax.') or k == 'erfnet_pytorch_tpu' or "
             "k.startswith('erfnet_pytorch_tpu.'))\n"
             "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
+    """chip_smoke.py names no jax module in any import statement, and
+    importing it in a fresh interpreter loads neither."""
+    import ast
+    path = os.path.join(ROOT, "chip_smoke.py")
+    names = []
+    for node in ast.walk(ast.parse(open(path).read())):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    assert "erfnet_pytorch_tpu_torch.training.steps" in names
+    bad = [n for n in names if n.split(".")[0] in ("jax", "erfnet_pytorch_tpu")]
+    assert bad == [], bad
+    code = ("import sys; sys.path.insert(0, '.'); import chip_smoke\n"
+            "print(sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'erfnet_pytorch_tpu')))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -65,8 +92,41 @@ def test_cpu_tensors_never_move_a_launch_counter():
     x = torch.rand(1, 32, 64, 3, generator=torch.Generator().manual_seed(1))
     preds = infer(x)
     assert preds.shape == (1, 32, 64) and preds.dtype == torch.int32
-    assert kernels.launch_counts() == {"downsampler": 0, "nb1d": 0,
-                                       "upsampler": 0, "head_argmax": 0}
+    counts = kernels.launch_counts()
+    assert set(counts) == {"downsampler", "nb1d", "upsampler", "head_argmax",
+                           "pair_fwd", "pair_bwd", "down_fwd", "down_bwd",
+                           "head_loss_fwd", "head_loss_bwd"}
+    assert set(counts.values()) == {0}
+
+
+def test_cpu_train_step_never_moves_a_launch_counter():
+    """The encoder-stage train step with device="cpu" runs every train
+    wrapper's plain version, forward and backward: every launch counter
+    stays at 0, and the step moves the encoder's parameters and BN
+    statistics."""
+    from erfnet_pytorch_tpu_torch.training.class_weights import \
+        ENCODER_WEIGHTS
+    from erfnet_pytorch_tpu_torch.training.optim import make_adam
+    from erfnet_pytorch_tpu_torch.training.steps import (create_train_state,
+                                                         make_train_step)
+    net = init_weights(Net(20), torch.Generator().manual_seed(0))
+    before = {k: v.clone() for k, v in net.state_dict().items()}
+    opt = make_adam(net.parameters())
+    step = make_train_step(net, opt, ENCODER_WEIGHTS, enc=True,
+                           dtype=torch.float32, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    u8 = torch.randint(0, 256, (2, 32, 64, 3), generator=g,
+                       dtype=torch.uint8)
+    labels = torch.randint(0, 20, (2, 32, 64), generator=g)
+    labels[:, :4] = 255
+    kernels.reset_launch_counts()
+    state, loss = step(create_train_state(net, opt), u8, labels, g)
+    assert set(kernels.launch_counts().values()) == {0}
+    assert state.step == 1 and torch.isfinite(loss)
+    after = net.state_dict()
+    for k in ("encoder.layers.7.conv3x1_1.weight",
+              "encoder.layers.7.bn1.running_mean"):
+        assert not torch.equal(after[k], before[k]), k
 
 
 def test_eval_forward_time_cli_runs_on_cpu():
