@@ -54,14 +54,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``PRE_BN_BIAS_ULP``).  Step 1 also runs through the plain versions
    (loss within ``STEP_LOSS_REL``) and through the plain versions in f32
    (the yardstick of the gradients: see ``STEP_NOISE_X``).
-8. Train timing and profile: ms/step through the kernels and through the
-   plain versions, each train kernel's forward and backward time per step
-   beside its plain version, bound and cuDNN's convolutions, summed by
-   PERF.md row; the device's busy share of a step and the host's time by
+   Phase 6 also holds the stage-2 kernels: the train upsampler forward
+   and backward at both decoder shapes, the pair at C=16 in its three
+   leads (the decoder's mask of ones) and the head+loss at G=4 (with an
+   all-void batch).
+8. Stage 2: ``make_train_step(enc=False)`` with ``DECODER_WEIGHTS`` at
+   B=6 on a net built by ``Net(20, encoder=...)`` from the encoder that
+   phase 7 trained takes 5 steps: launch counts per step as documented,
+   losses finite, the encoder's 1x1 head bit-unchanged, peak device
+   memory.  Step 1 twice through the kernels (bit-identical state), its
+   every train kernel call against its plain version on the recorded
+   inputs (as in 7), and its loss against the plain path's.
+9. Train timing and profile: ms/step of both stages through the kernels
+   and through the plain versions, each train kernel's forward and
+   backward time per step beside its plain version, bound and cuDNN's
+   convolutions, summed by PERF.md row; the device's busy share of a
+   step, its time by kernel, and the host's time and kernel launches by
    operation.
 
 The last three lines are the card (``nvidia-smi`` name and power limit),
-one JSON object listing every kernel, and the result object.
+one JSON object listing every kernel, and the result object.  In that
+object the train kernels' figures are sums over one step of each stage,
+and their launches the counts of phases 7 and 8 together.
 """
 
 from __future__ import annotations
@@ -100,11 +114,14 @@ SOURCES = {
                           "erfnet_pytorch_tpu/ops/pallas/downsampler.py:380"),
     "head_loss": ("erfnet_pytorch_tpu_torch/csrc/head_loss.cu",
                   "erfnet_pytorch_tpu/ops/pallas/head_loss.py:86"),
+    "upsampler_train": ("erfnet_pytorch_tpu_torch/csrc/upsampler_train.cu",
+                        "erfnet_pytorch_tpu/ops/pallas/upsampler.py:317"),
 }
 # train kernel -> its (forward, backward) wrappers' counter names
 TRAIN_WRAPPERS = {"nb1d_pair": ("pair_fwd", "pair_bwd"),
                   "downsampler_train": ("down_fwd", "down_bwd"),
-                  "head_loss": ("head_loss_fwd", "head_loss_bwd")}
+                  "head_loss": ("head_loss_fwd", "head_loss_bwd"),
+                  "upsampler_train": ("ups_fwd", "ups_bwd")}
 
 
 class PhaseError(RuntimeError):
@@ -573,15 +590,34 @@ LOSS_REL = 1e-4
 # every summand; phase 6's random cotangents hold these outputs
 # norm-relative.
 PRE_BN_BIAS_ULP = 2.0 ** -8
-PRE_BN_BIAS_OUT = {"pair_bwd": "dbw", "down_bwd": 2}
+PRE_BN_BIAS_OUT = {"pair_bwd": "dbw", "down_bwd": 2, "ups_bwd": 2}
 
 
 def pair_cases(B):
-    """(mode, map shape, dilation, calls per step) of the B=6 step."""
+    """(mode, map shape, dilation, calls per step) of the B=6 encoder."""
     c64, c128 = (B, 128, 256, 64), (B, 64, 128, 128)
     return ([("none", c64, 1, 1), ("affine", c64, 1, 5), ("epi", c64, 1, 4),
              ("none", c128, 1, 1), ("epi", c128, 1, 7)]
             + [("affine", c128, d, 2) for d in (2, 4, 8, 16)])
+
+
+def dec_pair_cases(B):
+    """(mode, map shape, dilation, calls per step) of the B=6 decoder: a
+    run of two blocks at C64 and one at C16, d=1, no dropout."""
+    c64, c16 = (B, 128, 256, 64), (B, 256, 512, 16)
+    return [("none", c64, 1, 1), ("affine", c64, 1, 2), ("epi", c64, 1, 1),
+            ("none", c16, 1, 1), ("affine", c16, 1, 2), ("epi", c16, 1, 1)]
+
+
+def up_train_cases(B):
+    """(label, input shape, Cout) of the decoder's two upsamplers."""
+    return [("up 128->64", (B, 64, 128, 128), 64),
+            ("up 64->16", (B, 128, 256, 64), 16)]
+
+
+def head4_rows(B):
+    """Rows of the decoder head+loss: one per pre-head pixel."""
+    return B * 256 * 512
 
 
 def down_train_cases(B):
@@ -612,7 +648,8 @@ def compare_f32(name, got, ref, rel=F32_REL):
 def pair_inputs(mode, shape, d, g, device):
     """Seeded inputs of one pair call: post-ReLU x for the first pair, a
     signed pre-BN map for the others, weights at the conv's fan-in scale,
-    BN coefficients near 1 and 0, a dropout mask with real zeros."""
+    BN coefficients near 1 and 0, a dropout mask with real zeros (ones at
+    C=16: the decoder drops nothing)."""
     import torch
     B, H, W, C = shape
 
@@ -630,7 +667,8 @@ def pair_inputs(mode, shape, d, g, device):
     if mode == "epi":
         kw["yres"] = rn(*shape).relu().bfloat16()
         keep = torch.rand(B, C, generator=g) < KEEP
-        kw["m"] = torch.where(keep, 1.0 / KEEP, 0.0).to(device)
+        kw["m"] = (torch.where(keep, 1.0 / KEEP, 0.0) if C != 16
+                   else torch.ones(B, C)).to(device)
     return kw
 
 
@@ -674,19 +712,36 @@ def down_inputs(label, shape, cc, g, device):
     return x, w.to(device), b.to(device), kw
 
 
-def head_inputs(M, g, device, all_void=False):
+def head_inputs(M, g, device, all_void=False, G=1):
+    """G=1: the encoder head (K=128, labels (M,)); G=4: the decoder head
+    (K=16, W (16, 4n), labels (M, 4) in plane order)."""
     import torch
-    from erfnet_pytorch_tpu_torch.training.class_weights import \
-        ENCODER_WEIGHTS
-    feats = torch.randn(M, 128, generator=g).relu().to(device).bfloat16()
-    w = (0.1 * torch.randn(128, N_CLASSES, generator=g)).to(device)
-    b = (0.1 * torch.randn(N_CLASSES, generator=g)).to(device)
-    labels = torch.randint(0, N_CLASSES, (M,), generator=g)
+    from erfnet_pytorch_tpu_torch.training.class_weights import (
+        DECODER_WEIGHTS, ENCODER_WEIGHTS)
+    K = 128 if G == 1 else 16
+    feats = torch.randn(M, K, generator=g).relu().to(device).bfloat16()
+    w = ((0.1 if G == 1 else 0.3)
+         * torch.randn(K, G * N_CLASSES, generator=g)).to(device)
+    b = (0.1 * torch.randn(N_CLASSES, generator=g)).repeat(G).to(device)
+    labels = torch.randint(0, N_CLASSES, (M, G), generator=g)
     labels[: M // 8] = N_CLASSES - 1                  # void rows (weight 0)
     if all_void:
         labels[:] = N_CLASSES - 1
-    cw = torch.as_tensor(ENCODER_WEIGHTS).to(device)
-    return feats, w, b, labels.to(device), cw
+    cw = torch.as_tensor(ENCODER_WEIGHTS if G == 1 else DECODER_WEIGHTS)
+    if G == 1:
+        labels = labels.reshape(M)
+    return feats, w, b, labels.to(device), cw.to(device)
+
+
+def ups_inputs(shape, cout, g, device):
+    """x (post-ReLU bf16), the forward-conv HWIO weight and the bias of a
+    train upsampler call."""
+    import torch
+    B, H, W, cin = shape
+    x = torch.randn(*shape, generator=g).relu().to(device).bfloat16()
+    w = (torch.randn(3, 3, cin, cout, generator=g) * (9 * cin) ** -0.5)
+    b = 0.1 * torch.randn(cout, generator=g)
+    return x, w.to(device), b.to(device)
 
 
 def phase_train_parity(device):
@@ -696,13 +751,14 @@ def phase_train_parity(device):
     from erfnet_pytorch_tpu_torch.ops.cuda import downsampler_train as dt
     from erfnet_pytorch_tpu_torch.ops.cuda import head_loss as hl
     from erfnet_pytorch_tpu_torch.ops.cuda import nb1d_pair as pr
+    from erfnet_pytorch_tpu_torch.ops.cuda import upsampler_train as ut
     B = 2
     g = torch.Generator().manual_seed(11)
-    errs = {"nb1d_pair": 0.0, "downsampler_train": 0.0, "head_loss": 0.0}
+    errs = {k: 0.0 for k in TRAIN_WRAPPERS}
     log("[train parity] train kernels vs plain on the card, B=2, bf16 "
         f"(f32 outputs: norm-relative <= {F32_REL})")
     seen = set()
-    for mode, shape, d, _n in pair_cases(B):
+    for mode, shape, d, _n in pair_cases(B) + dec_pair_cases(B):
         if (mode, shape, d) in seen:
             continue
         seen.add((mode, shape, d))
@@ -751,10 +807,11 @@ def phase_train_parity(device):
                 compare_bf16(f"{label} bwd dx", got[0], ref[0]))
         compare_f32(f"{label} bwd dW", got[1], ref[1])
         compare_f32(f"{label} bwd db", got[2], ref[2])
-    for all_void in (False, True):
-        tag = "head_loss all-void" if all_void else "head_loss"
-        feats, w, b, labels, cw = head_inputs(head_loss_rows(B), g, device,
-                                              all_void)
+    for G, all_void in ((1, False), (1, True), (4, False), (4, True)):
+        tag = f"head_loss G{G}{' all-void' if all_void else ''}"
+        feats, w, b, labels, cw = head_inputs(
+            head_loss_rows(B) if G == 1 else head4_rows(B), g, device,
+            all_void, G)
         num, den = hl.head_loss_fwd(feats, w, b, labels, cw)
         pnum, pden = hl.head_loss_fwd_plain(feats, w, b, labels, cw)
         loss = (num / den.clamp_min(1e-12)).item()
@@ -778,6 +835,24 @@ def phase_train_parity(device):
             f"{tag} bwd dfeats", got[0], ref[0]))
         compare_f32(f"{tag} bwd dW", got[1], ref[1])
         compare_f32(f"{tag} bwd db", got[2], ref[2])
+    for label, shape, cout in up_train_cases(B):
+        x, w, b = ups_inputs(shape, cout, g, device)
+        got = ut.ups_fwd(x, w, b)
+        ref = ut.ups_fwd_plain(x, w, b)
+        errs["upsampler_train"] = max(errs["upsampler_train"], compare_bf16(
+            f"{label} fwd y", got[0], ref[0]))
+        compare_f32(f"{label} fwd s1", got[1], ref[1])
+        compare_f32(f"{label} fwd s2", got[2], ref[2])
+        y = ref[0]
+        gy = torch.randn(*y.shape, generator=g).to(device).bfloat16()
+        gs1 = (1e-3 * torch.randn(B, cout, generator=g)).to(device)
+        gs2 = (1e-3 * torch.randn(B, cout, generator=g)).to(device)
+        got = ut.ups_bwd(x, y, gy, gs1, gs2, w)
+        ref = ut.ups_bwd_plain(x, y, gy, gs1, gs2, w)
+        errs["upsampler_train"] = max(errs["upsampler_train"], compare_bf16(
+            f"{label} bwd dx", got[0], ref[0]))
+        compare_f32(f"{label} bwd dW", got[1], ref[1])
+        compare_f32(f"{label} bwd db", got[2], ref[2])
     torch.cuda.synchronize()
     return errs
 
@@ -798,37 +873,48 @@ def train_data(g, B, steps):
     return frames, labels
 
 
-def make_trainer(sd, device, dtype=None):
+def make_trainer(sd, device, dtype=None, enc=True, net=None):
+    """(net, state, step) of make_train_step(enc=enc) on a net loaded from
+    ``sd`` (or on ``net``), with the stage's class weights."""
     import torch
     from erfnet_pytorch_tpu_torch.models.erfnet import Net
-    from erfnet_pytorch_tpu_torch.training.class_weights import \
-        ENCODER_WEIGHTS
+    from erfnet_pytorch_tpu_torch.training.class_weights import (
+        DECODER_WEIGHTS, ENCODER_WEIGHTS)
     from erfnet_pytorch_tpu_torch.training.optim import make_adam
     from erfnet_pytorch_tpu_torch.training.steps import (create_train_state,
                                                          make_train_step)
-    net = Net(N_CLASSES)
-    net.load_state_dict(sd)
+    if net is None:
+        net = Net(N_CLASSES)
+        net.load_state_dict(sd)
     opt = make_adam(net.parameters())
-    step = make_train_step(net, opt, ENCODER_WEIGHTS, enc=True,
-                           dtype=dtype or torch.bfloat16, device=device)
+    step = make_train_step(net, opt,
+                           ENCODER_WEIGHTS if enc else DECODER_WEIGHTS,
+                           enc=enc, dtype=dtype or torch.bfloat16,
+                           device=device)
     return net, create_train_state(net, opt), step
 
 
-def expected_train_launches():
-    """Kernel launches per encoder-stage step, from each wrapper's
+def expected_train_launches(enc=True):
+    """Kernel launches per train step of the stage, from each wrapper's
     launches per call and the calls of the step."""
     from erfnet_pytorch_tpu_torch.ops.cuda import downsampler_train as dt
     from erfnet_pytorch_tpu_torch.ops.cuda import head_loss as hl
     from erfnet_pytorch_tpu_torch.ops.cuda import nb1d_pair as pr
+    from erfnet_pytorch_tpu_torch.ops.cuda import upsampler_train as ut
     calls = {"none": 0, "affine": 0, "epi": 0}
-    for mode, _s, _d, n in pair_cases(TRAIN_B):
+    for mode, _s, _d, n in pair_cases(TRAIN_B) + (
+            [] if enc else dec_pair_cases(TRAIN_B)):
         calls[mode] += n
+    G = 1 if enc else 4
+    n_up = 0 if enc else len(up_train_cases(TRAIN_B))
     return {"down_fwd": 3 * dt.FWD_LAUNCHES,
             "down_bwd": dt.BWD_LAUNCHES[True] + 2 * dt.BWD_LAUNCHES[False],
             "pair_fwd": sum(n * pr.FWD_LAUNCHES[m] for m, n in calls.items()),
             "pair_bwd": sum(n * pr.BWD_LAUNCHES[m] for m, n in calls.items()),
             "head_loss_fwd": hl.FWD_LAUNCHES,
-            "head_loss_bwd": hl.BWD_LAUNCHES}
+            "head_loss_bwd": hl.BWD_LAUNCHES[G],
+            "ups_fwd": n_up * ut.FWD_LAUNCHES,
+            "ups_bwd": n_up * ut.BWD_LAUNCHES}
 
 
 PRE_BN_BIAS_PARTS = ("conv1x3_1.bias", "conv1x3_2.bias", "conv.bias")
@@ -842,7 +928,9 @@ def _call_label(name, args, kwargs):
         stem = (kwargs.get("shifts") is not None if name == "down_fwd"
                 else kwargs["stem"])
         return f"{name} {'stem' if stem else f'Cin{args[0].shape[-1]}'}"
-    return name
+    if name.startswith("ups"):
+        return f"{name} Cin{args[0].shape[-1]}"
+    return f"{name} G{1 if args[3].dim() == 1 else args[3].shape[1]}"
 
 
 def _pre_bn_bias_scale(name, args):
@@ -927,10 +1015,8 @@ def phase_train(sd, device):
     plain versions on the card (loss and gradients agree).  The first
     kernel run of step 1 records every train kernel call; each is held
     against its plain version on the same inputs."""
-    import contextlib
     import torch
     from erfnet_pytorch_tpu_torch.ops import cuda as kernels
-    from erfnet_pytorch_tpu_torch.ops.cuda import route
     from erfnet_pytorch_tpu_torch.ops.augment import draw
     from erfnet_pytorch_tpu_torch.training.steps import draw_drop_masks
     g = torch.Generator().manual_seed(12)
@@ -963,21 +1049,10 @@ def phase_train(sd, device):
     aug = draw(gen, TRAIN_B)
     masks = draw_drop_masks(gen, TRAIN_B)
 
-    def step1(plain, dtype=None, record=False):
-        net, st, stp = make_trainer(sd, device, dtype)
-        nul = contextlib.nullcontext
-        with (route.plain_versions() if plain else nul()), \
-                (route.recording() if record else nul([])) as calls:
-            _, loss = stp(st, frames[0], labels[0], None, aug=aug,
-                          drop_masks=masks)
-        grads = {k: p.grad.detach().clone()
-                 for k, p in net.named_parameters()}
-        return loss.item(), grads, {k: v.detach().clone()
-                                    for k, v in net.state_dict().items()}, \
-            calls
-
-    loss1, grads1, state1, calls = step1(False, record=True)
-    _, _, state2, _ = step1(False)
+    args = (device, frames[0], labels[0], aug, masks)
+    loss1, grads1, state1, calls = run_step1(sd, *args, enc=True,
+                                             record=True)
+    _, _, state2, _ = run_step1(sd, *args, enc=True)
     same = all(torch.equal(state1[k], state2[k]) for k in state1)
     log(f"  step 1 twice through the kernels: state bit-identical: {same}")
     if not same:
@@ -995,8 +1070,9 @@ def phase_train(sd, device):
         raise PhaseError(f"recorded calls {n_calls}, expected {want}")
     rerrs = check_recorded_calls(calls)
     del calls
-    lossp, gradsp, _, _ = step1(True)
-    lossf, gradsf, _, _ = step1(True, torch.float32)
+    lossp, gradsp, _, _ = run_step1(sd, *args, enc=True, plain=True)
+    lossf, gradsf, _, _ = run_step1(sd, *args, enc=True, plain=True,
+                                    dtype=torch.float32)
     rel = abs(loss1 - lossp) / abs(lossp)
     log(f"  step 1 loss: kernels {loss1:.6f}, plain {lossp:.6f} "
         f"(rel {rel:.2e}, bound {STEP_LOSS_REL}); plain f32 {lossf:.6f}")
@@ -1024,10 +1100,125 @@ def phase_train(sd, device):
                          f"plain versions: {bad[:5]}, loss rel {rel:.2e}, "
                          f"decoder grad {dec}")
     worst = [(r[0], r[3]) for r in rows]
-    return counts, losses, rerrs, {
+    return net, counts, losses, rerrs, {
         "step1_loss_rel": rel,
         "step1_grad_rel_median": worst[len(worst) // 2][0],
         "step1_grad_rel_max": worst[0][0]}
+
+
+def run_step1(sd, device, frames, labels, aug, masks, *, enc, plain=False,
+              dtype=None, record=False):
+    """One step from ``sd`` with fixed draws: (loss, grads, state, the
+    recorded train kernel calls or [])."""
+    import contextlib
+    from erfnet_pytorch_tpu_torch.ops.cuda import route
+    net, st, stp = make_trainer(sd, device, dtype, enc=enc)
+    nul = contextlib.nullcontext
+    with (route.plain_versions() if plain else nul()), \
+            (route.recording() if record else nul([])) as calls:
+        _, loss = stp(st, frames, labels, None, aug=aug, drop_masks=masks)
+    grads = {k: None if p.grad is None else p.grad.detach().clone()
+             for k, p in net.named_parameters()}
+    return loss.item(), grads, {k: v.detach().clone()
+                                for k, v in net.state_dict().items()}, calls
+
+
+HEAD1 = ("encoder.output_conv.weight", "encoder.output_conv.bias")
+
+
+def phase_train2(encoder, device):
+    """Stage 2: 5 steps of make_train_step(enc=False) at B=6, 512x1024
+    uint8 frames, on ``Net(20, encoder=...)`` built from the encoder that
+    phase 7 trained (a seeded fresh decoder).  Then step 1 from the same
+    state twice through the kernels (bit-identical state; the first run
+    records every train kernel call, each held against its plain version
+    on the same inputs) and once through the plain versions (the loss)."""
+    import torch
+    from erfnet_pytorch_tpu_torch.models.erfnet import Net
+    from erfnet_pytorch_tpu_torch.ops import cuda as kernels
+    from erfnet_pytorch_tpu_torch.ops.augment import draw
+    from erfnet_pytorch_tpu_torch.training.steps import draw_drop_masks
+    torch.manual_seed(21)
+    net = Net(N_CLASSES, encoder=encoder)
+    sd2 = {k: v.detach().to("cpu", copy=True)
+           for k, v in net.state_dict().items()}
+    g = torch.Generator().manual_seed(22)
+    frames, labels = train_data(g, TRAIN_B, TRAIN_STEPS)
+    frames = [f.to(device) for f in frames]
+    labels = [lb.to(device) for lb in labels]
+    log(f"[train stage 2] make_train_step(enc=False) on Net(20, encoder="
+        f"the trained encoder), {TRAIN_STEPS} steps of {TRAIN_B}x512x1024 "
+        "uint8, bf16, DECODER_WEIGHTS")
+    net, state, step = make_trainer(None, device, enc=False, net=net)
+    head0 = {k: p.detach().clone() for k, p in net.named_parameters()
+             if k in HEAD1}
+    gen = torch.Generator(device=device).manual_seed(23)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses = []
+    for f, lb in zip(frames, labels):
+        state, loss = step(state, f, lb, gen)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [x.item() for x in losses]
+    log(f"  losses {losses}; peak device memory {peak:.2f} GiB")
+    log(f"  launches over {TRAIN_STEPS} steps: {counts}")
+    if not all(map(lambda v: v == v and abs(v) < float("inf"), losses)):
+        raise PhaseError("non-finite stage-2 loss")
+    per_step = expected_train_launches(enc=False)
+    for name, n in counts.items():
+        want = TRAIN_STEPS * per_step.get(name, 0)
+        if n != want:
+            raise PhaseError(f"stage 2 {name}: {n} launches, expected {want}")
+    for k, p in net.named_parameters():
+        if k in HEAD1 and (p.grad is not None
+                           or not torch.equal(p.detach(), head0[k])):
+            raise PhaseError(f"stage 2 moved the frozen {k}")
+    log(f"  {', '.join(HEAD1)}: grad None, bit-unchanged after "
+        f"{TRAIN_STEPS} steps")
+
+    aug = draw(gen, TRAIN_B)
+    masks = draw_drop_masks(gen, TRAIN_B)
+    args = (device, frames[0], labels[0], aug, masks)
+    torch.cuda.reset_peak_memory_stats()
+    loss1, _, state1, calls = run_step1(sd2, *args, enc=False, record=True)
+    peak_rec = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  peak device memory of step 1 with every call recorded: "
+        f"{peak_rec:.2f} GiB")
+    _, _, state2, _ = run_step1(sd2, *args, enc=False)
+    same = all(torch.equal(state1[k], state2[k]) for k in state1)
+    log(f"  step 1 twice through the kernels: state bit-identical: {same}")
+    if not same:
+        raise PhaseError("two runs of stage-2 step 1 give different "
+                         "parameters")
+    n_calls = {}
+    for c in calls:
+        n_calls[c[0]] = n_calls.get(c[0], 0) + 1
+    n_pair = sum(n for *_, n in pair_cases(TRAIN_B) + dec_pair_cases(TRAIN_B))
+    n_down, n_up = len(down_train_cases(TRAIN_B)), len(up_train_cases(
+        TRAIN_B))
+    want = {"pair_fwd": n_pair, "pair_bwd": n_pair, "down_fwd": n_down,
+            "down_bwd": n_down, "ups_fwd": n_up, "ups_bwd": n_up,
+            "head_loss_fwd": 1, "head_loss_bwd": 1}
+    log(f"  stage-2 step 1's train kernel calls, each against its plain "
+        f"version on its recorded inputs: {n_calls}")
+    if n_calls != want:
+        raise PhaseError(f"recorded calls {n_calls}, expected {want}")
+    rerrs = check_recorded_calls(calls)
+    del calls
+    lossp, _, _, _ = run_step1(sd2, *args, enc=False, plain=True)
+    rel = abs(loss1 - lossp) / abs(lossp)
+    log(f"  stage-2 step 1 loss: kernels {loss1:.6f}, plain {lossp:.6f} "
+        f"(rel {rel:.2e}, bound {STEP_LOSS_REL})")
+    if rel > STEP_LOSS_REL:
+        raise PhaseError(f"stage-2 step 1 loss through the kernels "
+                         f"disagrees with the plain path: rel {rel:.2e}")
+    return sd2, counts, losses, rerrs, {"step1_loss_rel": rel,
+                                        "peak_mem_gib": peak,
+                                        "peak_mem_recorded_gib": peak_rec}
 
 
 def _flops_bytes_pair(mode, shape, bwd):
@@ -1057,25 +1248,53 @@ def _flops_bytes_down(shape, cc, stem, bwd):
     return (2 if stem else 4) * po * 9 * cin * cc, xin + 2 * y + dx + wb
 
 
+def _flops_bytes_ups(shape, cout, bwd):
+    B, H, W, cin = shape
+    P = B * H * W
+    x, y = P * cin * 2, 4 * P * cout * 2
+    wb = 9 * cin * cout * 4 + cout * 4
+    if not bwd:
+        return 2 * P * 9 * cin * cout, x + y + wb + 2 * B * cout * 4
+    return 2 * 2 * P * 9 * cin * cout, 2 * x + 2 * y + 2 * wb
+
+
+def _flops_bytes_head(M, K, G, bwd):
+    n = G * N_CLASSES
+    labels = M * G * 4
+    if not bwd:
+        return 2 * M * K * n, M * K * 2 + labels
+    return 4 * M * K * n, 2 * M * K * 2 + labels + 2 * K * n * 4
+
+
 def _bound(flops, nbytes):
     return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / BF16_FLOPS_PER_S
 
 
-def _lib_conv(x, w_oihw, stride, padding, dilation, weight_only=False):
-    """cuDNN's forward conv and its backward (input and weight gradients),
-    bf16 channels-last, as two calls to time: the yardstick, never on the
-    path."""
+def _lib_conv(x, w_oihw, stride, padding, dilation, weight_only=False,
+              transposed=False):
+    """cuDNN's forward conv (or transposed conv, k3 s2 p1 op1 for the
+    upsampler) and its backward (input and weight gradients), bf16
+    channels-last, as two calls to time: the yardstick, never on the
+    path.  A transposed conv's weight is (Cin, Cout, kh, kw)."""
     import torch
     import torch.nn.functional as F
     xc = x.permute(0, 3, 1, 2)
     w = w_oihw.to(torch.bfloat16).contiguous(
         memory_format=torch.channels_last)
-    y = F.conv2d(xc, w, None, stride, padding, dilation)
+    if transposed:
+        def fwd():
+            return F.conv_transpose2d(xc, w, None, stride, padding, 1)
+        out_pad, cout = [1, 1], w.shape[1]
+    else:
+        def fwd():
+            return F.conv2d(xc, w, None, stride, padding, dilation)
+        out_pad, cout = [0, 0], w.shape[0]
+    y = fwd()
     mask = [not weight_only, True, True]
-    return (lambda: F.conv2d(xc, w, None, stride, padding, dilation),
+    return (fwd,
             lambda: torch.ops.aten.convolution_backward(
-                y, xc, w, [w.shape[0]], stride, padding, dilation, False,
-                [0, 0], 1, mask))
+                y, xc, w, [cout], stride, padding, dilation, transposed,
+                out_pad, 1, mask))
 
 
 # PERF.md kernel-table rows of the train functions
@@ -1083,12 +1302,13 @@ PAIR_ROW = {"none": 21, "affine": 22, "epi": 23}
 
 
 def phase_train_timing(sd, device, iters):
-    """ms/step through the kernels and through the plain versions (CUDA
-    events), and each train kernel's forward and backward time at every
-    shape of the step beside its plain version, its bound and cuDNN's
-    convolutions of the same shapes; summed per step by kernel (the
-    ``kernels`` line) and by the TPU kernel each replaces (PERF.md's
-    rows)."""
+    """ms/step of both stages through the kernels and through the plain
+    versions (CUDA events), and each train kernel's forward and backward
+    time at every shape of the two steps beside its plain version, its
+    bound and cuDNN's convolutions of the same shapes; summed per step of
+    each stage by kernel and by the TPU kernel each replaces (PERF.md's
+    rows; the stage-2 cases new in the decoder are rows "12", "13",
+    "17 G4" and "21 C16" .. "23 C16")."""
     import contextlib
     import torch
     from erfnet_pytorch_tpu_torch.ops import cuda as kernels
@@ -1096,44 +1316,57 @@ def phase_train_timing(sd, device, iters):
     from erfnet_pytorch_tpu_torch.ops.cuda import downsampler_train as dt
     from erfnet_pytorch_tpu_torch.ops.cuda import head_loss as hl
     from erfnet_pytorch_tpu_torch.ops.cuda import nb1d_pair as pr
+    from erfnet_pytorch_tpu_torch.ops.cuda import upsampler_train as ut
     g = torch.Generator().manual_seed(14)
     frames, labels = train_data(g, TRAIN_B, 1)
     f0, l0 = frames[0].to(device), labels[0].to(device)
     log("[train timing] CUDA events, B=6")
     e2e = {}
-    for plain, n in ((False, iters), (True, 3)):
-        _net, st, step = make_trainer(sd, device)
-        gen = torch.Generator(device=device).manual_seed(15)
-        box = [st]
+    for enc in (True, False):
+        pre = "" if enc else "stage2_"
+        for plain in (False, True):
+            _net, st, step = make_trainer(sd, device, enc=enc)
+            gen = torch.Generator(device=device).manual_seed(15)
+            box = [st]
 
-        def one():
-            box[0], _ = step(box[0], f0, l0, gen)
-        key = "plain_ms_per_step" if plain else "ms_per_step"
-        with (route.plain_versions() if plain
-              else contextlib.nullcontext()):
-            e2e[key] = _time(one, n)
-        log(f"  {'plain' if plain else 'kernels'}: {e2e[key]:.3f} ms/step")
-    e2e["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            def one():
+                box[0], _ = step(box[0], f0, l0, gen)
+            key = f"{pre}{'plain_' if plain else ''}ms_per_step"
+            torch.cuda.reset_peak_memory_stats()
+            with (route.plain_versions() if plain
+                  else contextlib.nullcontext()):
+                e2e[key] = _time(one, 3 if plain and enc else iters)
+            if not plain:
+                e2e[f"{pre}peak_mem_gib"] = (torch.cuda.max_memory_allocated()
+                                             / 2 ** 30)
+            log(f"  stage {1 if enc else 2}, "
+                f"{'plain' if plain else 'kernels'}: {e2e[key]:.3f} ms/step")
+            del _net, st, step, box
 
-    rows, table = {}, {}
+    acc = {1: ({}, {}), 2: ({}, {})}    # stage -> (by kernel, by row)
 
-    def add(kernel, row, n, launches, ms, pms, fl, lms):
-        """n calls per step of one function: kernel and plain ms per call,
-        (flops, bytes) per call, cuDNN ms per call or None."""
+    def add(kernel, row, ns, launches, ms, pms, fl, lms):
+        """Calls per step of one function in stage 1 and stage 2 (ns):
+        kernel and plain ms per call, (flops, bytes) per call, cuDNN ms
+        per call or None."""
         b_ms, o_ms = _bound(*fl)
-        for key, acc in ((kernel, rows), (row, table)):
-            r = acc.setdefault(key, {"ms": 0.0, "plain_ms": 0.0,
-                                     "byte_ms": 0.0, "op_ms": 0.0,
-                                     "bound_ms": 0.0, "library_ms": 0.0,
-                                     "launches": 0})
-            r["ms"] += n * ms
-            r["plain_ms"] += n * pms
-            r["byte_ms"] += n * b_ms
-            r["op_ms"] += n * o_ms
-            r["bound_ms"] += n * max(b_ms, o_ms)
-            r["launches"] += n * launches
-            r["library_ms"] = (None if lms is None or r["library_ms"] is None
-                               else r["library_ms"] + n * lms)
+        for stage, n in zip((1, 2), ns):
+            if not n:
+                continue
+            for key, d in zip((kernel, str(row)), acc[stage]):
+                r = d.setdefault(key, {"ms": 0.0, "plain_ms": 0.0,
+                                       "byte_ms": 0.0, "op_ms": 0.0,
+                                       "bound_ms": 0.0, "library_ms": 0.0,
+                                       "launches": 0})
+                r["ms"] += n * ms
+                r["plain_ms"] += n * pms
+                r["byte_ms"] += n * b_ms
+                r["op_ms"] += n * o_ms
+                r["bound_ms"] += n * max(b_ms, o_ms)
+                r["launches"] += n * launches
+                r["library_ms"] = (None if lms is None
+                                   or r["library_ms"] is None
+                                   else r["library_ms"] + n * lms)
         return max(b_ms, o_ms)
 
     def tm(fn, n):
@@ -1148,7 +1381,14 @@ def phase_train_timing(sd, device, iters):
         log(f"  {label} {what}: kernel {ms:.4f} ms, plain {pms:.4f}, bound "
             f"{bms:.4f}, cuDNN {lib} ({ms / bms:.1f}x bound)")
 
-    for mode, shape, d, n in pair_cases(TRAIN_B):
+    ncalls = {}
+    for i, cases in enumerate((pair_cases(TRAIN_B), dec_pair_cases(TRAIN_B))):
+        for mode, shape, d, n in cases:
+            c = ncalls.setdefault((mode, shape, d), [0, 0])
+            if i == 0:
+                c[0] += n
+            c[1] += n
+    for (mode, shape, d), ns in ncalls.items():
         kw = pair_inputs(mode, shape, d, g, device)
         saved = pair_saved(mode, kw, pr.pair_fwd(mode, **kw))
         ct = pair_cotangents(mode, shape, g, device)
@@ -1156,7 +1396,8 @@ def phase_train_timing(sd, device, iters):
         ww = kw["ww"].permute(2, 1, 0)[:, :, None, :]      # (O, I, 1, 3)
         lh = _lib_conv(kw["x"], wh, (1, 1), (d, 0), (d, 1))
         lw = _lib_conv(saved["t1"], ww, (1, 1), (0, d), (1, d))
-        label = f"pair {mode:<6} C{shape[-1]:<3} d{d:<2} x{n}"
+        label = f"pair {mode:<6} C{shape[-1]:<3} d{d:<2} x{ns[0]}/{ns[1]}"
+        row = PAIR_ROW[mode] if shape[-1] != 16 else f"{PAIR_ROW[mode]} C16"
         for bwd in (False, True):
             if bwd:
                 ms = tm(lambda: pr.pair_bwd(mode, saved, **ct), iters)
@@ -1167,7 +1408,7 @@ def phase_train_timing(sd, device, iters):
             i = int(bwd)
             lms = tm(lambda: (lh[i](), lw[i]()), iters)
             launches = (pr.BWD_LAUNCHES if bwd else pr.FWD_LAUNCHES)[mode]
-            bms = add("nb1d_pair", PAIR_ROW[mode], n, launches, ms, pms,
+            bms = add("nb1d_pair", row, ns, launches, ms, pms,
                       _flops_bytes_pair(mode, shape, bwd), lms)
             line(label, "bwd" if bwd else "fwd", ms, pms, bms, lms)
     for label, shape, cc in down_train_cases(TRAIN_B):
@@ -1191,66 +1432,104 @@ def phase_train_timing(sd, device, iters):
                 pms = tm(lambda: dt.down_fwd_plain(x, w, b, **kw), 2)
                 row, launches = (7 if stem else 6), dt.FWD_LAUNCHES
             lms = tm(lib[int(bwd)], iters)
-            bms = add("downsampler_train", row, 1, launches, ms, pms,
+            bms = add("downsampler_train", row, (1, 1), launches, ms, pms,
                       _flops_bytes_down(shape, cc, stem, bwd), lms)
             line(f"{label:<10}", "bwd" if bwd else "fwd", ms, pms, bms, lms)
-    M = head_loss_rows(TRAIN_B)
-    feats, w, b, labels, cw = head_inputs(M, g, device)
+    for label, shape, cout in up_train_cases(TRAIN_B):
+        x, w, b = ups_inputs(shape, cout, g, device)
+        y = ut.ups_fwd(x, w, b)[0]
+        gy = torch.randn(*y.shape, generator=g).to(device).bfloat16()
+        gs = (1e-3 * torch.randn(shape[0], cout, generator=g)).to(device)
+        # forward-conv HWIO (flipped) -> ConvTranspose2d (I, O, kh, kw)
+        lib = _lib_conv(x, w.flip(0, 1).permute(2, 3, 0, 1), (2, 2), (1, 1),
+                        (1, 1), transposed=True)
+        for bwd in (False, True):
+            if bwd:
+                ms = tm(lambda: ut.ups_bwd(x, y, gy, gs, gs, w), iters)
+                pms = tm(lambda: ut.ups_bwd_plain(x, y, gy, gs, gs, w), 2)
+                row, launches = 13, ut.BWD_LAUNCHES
+            else:
+                ms = tm(lambda: ut.ups_fwd(x, w, b), iters)
+                pms = tm(lambda: ut.ups_fwd_plain(x, w, b), 2)
+                row, launches = 12, ut.FWD_LAUNCHES
+            lms = tm(lib[int(bwd)], iters)
+            bms = add("upsampler_train", row, (0, 1), launches, ms, pms,
+                      _flops_bytes_ups(shape, cout, bwd), lms)
+            line(f"{label:<10}", "bwd" if bwd else "fwd", ms, pms, bms, lms)
     gnum = torch.ones((), device=device)
-    K = feats.shape[1]
-    for bwd in (False, True):
-        if bwd:
-            ms = tm(lambda: hl.head_loss_bwd(feats, w, b, labels, cw, gnum),
-                    iters)
-            pms = tm(lambda: hl.head_loss_bwd_plain(feats, w, b, labels, cw,
-                                                    gnum), 2)
-            fl = (4 * M * K * N_CLASSES, 2 * M * K * 2 + M * 4)
-        else:
-            ms = tm(lambda: hl.head_loss_fwd(feats, w, b, labels, cw), iters)
-            pms = tm(lambda: hl.head_loss_fwd_plain(feats, w, b, labels, cw),
-                     2)
-            fl = (2 * M * K * N_CLASSES, M * K * 2 + M * 4)
-        launches = hl.BWD_LAUNCHES if bwd else hl.FWD_LAUNCHES
-        bms = add("head_loss", 17, 1, launches, ms, pms, fl, None)
-        line(f"head_loss M={M}", "bwd" if bwd else "fwd", ms, pms, bms, None)
-    for r in list(rows.values()) + list(table.values()):
-        r["bound_by"] = "operations" if r["op_ms"] > r["byte_ms"] else "bytes"
-    log("  per step, by PERF.md row: kernel, plain, bound, cuDNN ms; "
-        "launches")
-    for row, r in sorted(table.items()):
-        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        log(f"    row {row}: {r['ms']:.4f} {r['plain_ms']:.4f} "
-            f"{r['bound_ms']:.4f} ({r['bound_by']}) {lib}; {r['launches']}")
+    for G in (1, 4):
+        M = head_loss_rows(TRAIN_B) if G == 1 else head4_rows(TRAIN_B)
+        feats, w, b, labels, cw = head_inputs(M, g, device, G=G)
+        K = feats.shape[1]
+        for bwd in (False, True):
+            if bwd:
+                ms = tm(lambda: hl.head_loss_bwd(feats, w, b, labels, cw,
+                                                 gnum), iters)
+                pms = tm(lambda: hl.head_loss_bwd_plain(feats, w, b, labels,
+                                                        cw, gnum), 2)
+                launches = hl.BWD_LAUNCHES[G]
+            else:
+                ms = tm(lambda: hl.head_loss_fwd(feats, w, b, labels, cw),
+                        iters)
+                pms = tm(lambda: hl.head_loss_fwd_plain(feats, w, b, labels,
+                                                        cw), 2)
+                launches = hl.FWD_LAUNCHES
+            bms = add("head_loss", 17 if G == 1 else "17 G4",
+                      (1, 0) if G == 1 else (0, 1), launches, ms, pms,
+                      _flops_bytes_head(M, K, G, bwd), None)
+            line(f"head_loss G{G} M={M}", "bwd" if bwd else "fwd", ms, pms,
+                 bms, None)
+    for stage in (1, 2):
+        for d in acc[stage]:
+            for r in d.values():
+                r["bound_by"] = ("operations" if r["op_ms"] > r["byte_ms"]
+                                 else "bytes")
+        log(f"  per stage-{stage} step, by PERF.md row: kernel, plain, "
+            "bound, cuDNN ms; launches")
+        for row, r in sorted(acc[stage][1].items(),
+                             key=lambda kv: (int(kv[0].split()[0]), kv[0])):
+            lib = ("n/a" if r["library_ms"] is None
+                   else f"{r['library_ms']:.4f}")
+            log(f"    row {row}: {r['ms']:.4f} {r['plain_ms']:.4f} "
+                f"{r['bound_ms']:.4f} ({r['bound_by']}) {lib}; "
+                f"{r['launches']}")
     kernels.reset_launch_counts()
-    return e2e, rows, table
+    return e2e, acc
 
 
-def phase_train_profile(sd, device, e2e, n=2):
-    """torch.profiler over n kernel steps: device time by kernel and the
-    device's busy share of a step (against the CUDA-event ms/step)."""
+def phase_train_profile(sd, device, e2e, n=2, enc=True):
+    """torch.profiler over n kernel steps of the stage: device time by
+    kernel, the device's busy share of a step (against the CUDA-event
+    ms/step), and the host's time and kernel launches by operation."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from erfnet_pytorch_tpu_torch.ops import cuda as kernels
     g = torch.Generator().manual_seed(16)
     frames, labels = train_data(g, TRAIN_B, 1)
     f0, l0 = frames[0].to(device), labels[0].to(device)
-    _net, st, step = make_trainer(sd, device)
+    _net, st, step = make_trainer(sd, device, enc=enc)
     gen = torch.Generator(device=device).manual_seed(17)
     for _ in range(2):
         st, _ = step(st, f0, l0, gen)
     torch.cuda.synchronize()
-    log("[train profile] torch.profiler, per step")
+    log(f"[train profile] stage {1 if enc else 2}, torch.profiler, per step")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             st, _ = step(st, f0, l0, gen)
         torch.cuda.synchronize()
-    out = busy_share(prof, n, 1e3 * e2e["ms_per_step"], "step")
+    key = "ms_per_step" if enc else "stage2_ms_per_step"
+    out = busy_share(prof, n, 1e3 * e2e[key], "step") or {}
     log("  host: self CPU time per step by operation (top 15)")
     ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
     for e in ops[:15]:
         log(f"    {e.self_cpu_time_total / n:9.1f} us  x{e.count // n:<5} "
             f"{e.key[:60]}")
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                "cudaLaunchKernelExC", "cuLaunchKernelEx"))
+    out["host_kernel_launches_per_step"] = launches / n
+    log(f"  host kernel launches per step: {launches / n:.0f}")
     kernels.reset_launch_counts()
     return out
 
@@ -1326,10 +1605,14 @@ def main():
         e2e, rows = phase_timing(sd, device, ITERS)
         prof = phase_profile(sd, device, e2e)
         terrs = phase_train_parity(device)
-        tcounts, losses, rerrs, agree_train = phase_train(sd, device)
-        terrs = {k: max(v, rerrs[k]) for k, v in terrs.items()}
-        te2e, trows, ttable = phase_train_timing(sd, device, ITERS)
+        net1, tcounts, losses, rerrs, agree_train = phase_train(sd, device)
+        _sd2, t2counts, losses2, rerrs2, agree2 = phase_train2(net1.encoder,
+                                                               device)
+        del net1, _sd2
+        terrs = {k: max(v, rerrs[k], rerrs2[k]) for k, v in terrs.items()}
+        te2e, tacc = phase_train_timing(sd, device, ITERS)
         tprof = phase_train_profile(sd, device, te2e)
+        tprof2 = phase_train_profile(sd, device, te2e, enc=False)
     except Exception:  # every phase failure is fatal and reported
         traceback.print_exc()
         log("FAIL")
@@ -1346,18 +1629,29 @@ def main():
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
     for name, (fw, bw) in TRAIN_WRAPPERS.items():
+        # one step of each stage: the encoder stage's and stage 2's sums
         src, repl = SOURCES[name]
-        r = trows[name]
+        parts = [tacc[st][0][name] for st in (1, 2) if name in tacc[st][0]]
+        r = {k: sum(p[k] for p in parts) for k in
+             ("ms", "plain_ms", "bound_ms", "byte_ms", "op_ms")}
+        lib = [p["library_ms"] for p in parts]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": repl,
-            "launches": tcounts[fw] + tcounts[bw],
+            "launches": sum(c[fw] + c[bw] for c in (tcounts, t2counts)),
             "max_abs_err": terrs[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": ("operations" if r["op_ms"] > r["byte_ms"]
+                         else "bytes"),
+            "library_ms": None if None in lib else sum(lib)})
     summary = {"build_s": build_s, "serving_agreement": agree, **e2e,
-               "profile": prof, "train": {"losses": losses, **agree_train,
-                                          **te2e, "profile": tprof,
-                                          "rows": ttable}}
+               "profile": prof,
+               "train": {"losses": losses, **agree_train, **te2e,
+                         "profile": tprof, "rows": tacc[1][1]},
+               "train_stage2": {"losses": losses2, **agree2,
+                                "profile": tprof2, "rows": tacc[2][1],
+                                "launches_per_step": {
+                                    k: v // TRAIN_STEPS
+                                    for k, v in t2counts.items()}}}
     log(f"summary {json.dumps(summary)}")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -46,13 +46,16 @@
 // one image x all C channels (K = 3C): the three tap rows of each pixel
 // are gathered into shared memory with cp.async (zero fill off the map,
 // which also covers d >= H or W), the (3C x C) tap stack sits beside
-// them, eight warps multiply with ldmatrix + mma.sync.  A persistent grid
-// walks the tiles, staging the tap stack once per CTA.  The transposed
-// convs are the same kernel with the tap stack flipped and each tap
-// transposed (the wrapper prepares it).
+// them, eight warps (four at C = 16) multiply with ldmatrix + mma.sync.
+// A persistent grid walks the tiles, staging the tap stack once per CTA.
+// The transposed convs are the same kernel with the tap stack flipped and
+// each tap transposed (the wrapper prepares it).
 //
-// Bound on this card: operations (C = 64 and 128: 12 C^2 MACs per pixel
-// forward, 24 C^2 backward, against about 10 C bytes moved per pixel).
+// Bound on this card: 6 C^2 MACs per pixel forward and 12 C^2 backward
+// against 4 C to 10 C bytes per pixel read and written once, so
+// operations at C = 128 and bytes at C = 64 and at C = 16 (the decoder's
+// last run).
+//
 // This version moves t1, g and dz1 through device memory between launches
 // and gathers every input pixel three times; one fused launch per pair
 // with the intermediate kept on chip, and wgmma, are the next steps.
@@ -62,20 +65,25 @@ using namespace erfk;
 
 namespace {
 
+constexpr size_t cmax(size_t a, size_t b) { return a > b ? a : b; }
+
+// C = 16: four warps of 16 x 16 (N = 16 is two n8 tiles, K = 48 three k16
+// steps); C = 64, 128: eight warps in two column bands.
 template <int C>
 struct Cfg {
-  static constexpr int THREADS = 256, BM = 64;
+  static constexpr int THREADS = C == 16 ? 128 : 256, BM = 64;
   static constexpr int NBUF = C == 64 ? 1 : 2;
-  static constexpr int WCOLS = 2;
+  static constexpr int WCOLS = C == 16 ? 1 : 2;
   static constexpr int WN = C / WCOLS, WM = BM * WCOLS / (THREADS / 32);
   static constexpr int K = 3 * C, LDA = K + 8, LDB = C + 8, LDC = C + 4;
-  static constexpr size_t a_raw = (size_t)BM * LDA * 2 > (size_t)BM * LDC * 4
-                                      ? (size_t)BM * LDA * 2
-                                      : (size_t)BM * LDC * 4;
+  static constexpr int VPT = C / 8, RSTEP = THREADS / VPT, PER = BM / RSTEP;
+  // one buffer holds the gathered A tile, then the f32 product, then the
+  // per-thread statistic sums of the tile
+  static constexpr size_t a_raw =
+      cmax(cmax((size_t)BM * LDA * 2, (size_t)BM * LDC * 4),
+           (size_t)RSTEP * 2 * C * 4);
   static constexpr size_t a_bytes = (a_raw + 127) / 128 * 128;
   static constexpr size_t smem = NBUF * a_bytes + (size_t)K * LDB * 2;
-  static constexpr int VPT = C / 8, RSTEP = THREADS / VPT, PER = BM / RSTEP;
-  static_assert((size_t)RSTEP * 2 * C * 4 <= a_bytes, "reduction scratch");
 };
 
 // tile -> pixels [m0, m_end) of image b: tiles never straddle two images,
@@ -407,6 +415,11 @@ constexpr int CHUNK = 2048;
 template <int C>
 struct WgPick;
 template <>
+struct WgPick<16> {
+  using Q = WgCfg<16, 16, 16, 16>;
+  static constexpr int WM = 16, WN = 16;
+};
+template <>
 struct WgPick<64> {
   using Q = WgCfg<64, 64, 16, 32>;
   static constexpr int WM = 16, WN = 32;
@@ -596,7 +609,7 @@ int bwd(int mode, const void* gz, const void* z, const void* gs1,
 }
 
 bool shape_ok(int B, int H, int W, int C) {
-  return (C == 64 || C == 128) && B > 0 && H > 0 && W > 0 &&
+  return (C == 16 || C == 64 || C == 128) && B > 0 && H > 0 && W > 0 &&
          (long long)B * H * W * C < (1LL << 31);
 }
 
@@ -604,7 +617,7 @@ bool shape_ok(int B, int H, int W, int C) {
 
 // ------------------------------ C interface -------------------------------
 //
-// Maps are (B, H, W, C) bf16, NHWC, C in {64, 128}; tap stacks (3, C, C)
+// Maps are (B, H, W, C) bf16, NHWC, C in {16, 64, 128}; tap stacks (3, C, C)
 // bf16 [tap, cin, cout]; biases, a, b (C,) f32; the dropout mask (B, C)
 // f32.  Scratch (from the wrapper): part (B * tiles_per_image, 2C) f32 in
 // the forward, part_b (tiles, 4C) and part_w (chunks, 6, C, C) f32 in the
@@ -643,6 +656,8 @@ extern "C" int erf_pair_fwd(const void* t0, const void* wh, const void* bh,
                             int W, int C, int dil, void* stream) {
   if (!shape_ok(B, H, W, C)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (C == 16)
+    return fwd<16>(t0, wh, bh, ww, bw, t1, z, part, stats, B, H, W, dil, s);
   if (C == 64)
     return fwd<64>(t0, wh, bh, ww, bw, t1, z, part, stats, B, H, W, dil, s);
   return fwd<128>(t0, wh, bh, ww, bw, t1, z, part, stats, B, H, W, dil, s);
@@ -663,6 +678,10 @@ extern "C" int erf_pair_bwd(const void* gz, const void* z, const void* gs1,
                             int H, int W, int C, int dil, void* stream) {
   if (!shape_ok(B, H, W, C)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (C == 16)
+    return bwd<16>(mode, gz, z, gs1, gs2, t0, t1, wht, wwt, x, mask, gy,
+                   drop, a, g, dz1, out, out2, part_b, part_w, grads, B, H,
+                   W, dil, s);
   if (C == 64)
     return bwd<64>(mode, gz, z, gs1, gs2, t0, t1, wht, wwt, x, mask, gy,
                    drop, a, g, dz1, out, out2, part_b, part_w, grads, B, H,

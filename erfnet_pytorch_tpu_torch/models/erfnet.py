@@ -13,6 +13,7 @@ inference path (``inference.py``).
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import List, Tuple
 
@@ -138,11 +139,16 @@ class Decoder(nn.Module):
 class Net(nn.Module):
     """Full segmentation net.  ``forward`` takes NHWC images and returns
     NHWC logits; ``only_encode=True`` gives the encoder's 1x1 prediction
-    at 1/8 resolution, as the reference's ``Net.forward`` does."""
+    at 1/8 resolution, as the reference's ``Net.forward`` does.
 
-    def __init__(self, num_classes=20):
+    ``encoder``: an ``Encoder`` to start from, as the reference's stage 2
+    builds ``Net(NUM_CLASSES, encoder=pretrainedEnc)``: the net holds a
+    copy of it (its tensors copied) and a freshly initialised decoder."""
+
+    def __init__(self, num_classes=20, encoder=None):
         super().__init__()
-        self.encoder = Encoder(num_classes)
+        self.encoder = (Encoder(num_classes) if encoder is None
+                        else copy.deepcopy(encoder))
         self.decoder = Decoder(num_classes)
 
     def forward(self, x, only_encode=False):
@@ -175,12 +181,14 @@ def init_weights(net: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 # ---------------------------------------------------------------------------
-# Train-mode encoder through the train kernels (ops/cuda: the stem and
-# downsampler with BN statistics, the NB1d conv pairs, each a
-# torch.autograd.Function whose backward is a kernel too).  The
-# counterpart of the JAX ``_apply_encoder_packed_train`` with
-# ``_fused_nb1d_run``'s epilogue carry, unpacked (the JAX C=64 run's
-# W-packing is a TPU lane device).
+# Train-mode encoder and decoder through the train kernels (ops/cuda: the
+# stem and downsampler with BN statistics, the NB1d conv pairs, the
+# upsampler with BN statistics, each a torch.autograd.Function whose
+# backward is a kernel too).  The counterparts of the JAX
+# ``_apply_encoder_packed_train`` and ``_apply_decoder_packed_train`` with
+# the NB1d runs' epilogue carry, unpacked (the JAX W-packing is a TPU lane
+# device).  BN statistics are keyed by the module path from the net
+# (``encoder.layers.1.bn1``, ``decoder.layers.0.bn``).
 # ---------------------------------------------------------------------------
 
 def conv_taps_of(conv):
@@ -205,7 +213,7 @@ def _bn_coeffs(bn, name, s1, s2, n_img, new_stats):
     return a, b
 
 
-def _down_bn_relu(block, name, y, s1, s2, new_stats):
+def _bn_relu(block, name, y, s1, s2, new_stats):
     """BN from the kernel's statistics, then ReLU, in the activation dtype
     (a and b rounded to it first, as the JAX ``bn_relu`` does)."""
     a, b = _bn_coeffs(block.bn, name, s1, s2, y.shape[1] * y.shape[2],
@@ -213,17 +221,18 @@ def _down_bn_relu(block, name, y, s1, s2, new_stats):
     return torch.relu(y * a.to(y.dtype) + b.to(y.dtype))
 
 
-def _nb1d_train_run(layers, idxs, x, masks, new_stats):
-    """A run of same-C NB1d blocks with the epilogue carried: block i's
-    BN2 affine, dropout mask and residual ReLU run in block i+1's first
-    pair (the ``epi`` lead); the last block's epilogue is plain."""
+def _nb1d_train_run(layers, specs, prefix, idxs, x, masks, new_stats):
+    """A run of same-C NB1d blocks ``layers[i]``, i in ``idxs`` (dilation
+    from ``specs[i]``), with the epilogue carried: block i's BN2 affine,
+    dropout mask and residual ReLU run in block i+1's first pair (the
+    ``epi`` lead); the last block's epilogue is plain."""
     from ..ops.cuda.nb1d_pair import (pair_affine_stats, pair_epi_stats,
                                       pair_stats)
     n_img = x.shape[1] * x.shape[2]
     pending = None
     for i in idxs:
         blk = layers[i]
-        d = ENCODER_LAYER_SPECS[i][1][2]
+        d = specs[i][1][2]
         first = (conv_taps_of(blk.conv3x1_1), blk.conv3x1_1.bias,
                  conv_taps_of(blk.conv1x3_1), blk.conv1x3_1.bias)
         if pending is None:
@@ -231,18 +240,48 @@ def _nb1d_train_run(layers, idxs, x, masks, new_stats):
             y_in = x
         else:
             z1, y_in, s1a, s1b = pair_epi_stats(*pending, *first, dil=1)
-        a1, b1 = _bn_coeffs(blk.bn1, f"layers.{i}.bn1", s1a, s1b, n_img,
+        a1, b1 = _bn_coeffs(blk.bn1, f"{prefix}.{i}.bn1", s1a, s1b, n_img,
                             new_stats)
         t, s2a, s2b = pair_affine_stats(
             z1, a1, b1, conv_taps_of(blk.conv3x1_2), blk.conv3x1_2.bias,
             conv_taps_of(blk.conv1x3_2), blk.conv1x3_2.bias, dil=d)
-        a2, b2 = _bn_coeffs(blk.bn2, f"layers.{i}.bn2", s2a, s2b, n_img,
+        a2, b2 = _bn_coeffs(blk.bn2, f"{prefix}.{i}.bn2", s2a, s2b, n_img,
                             new_stats)
         pending = (t, y_in, masks[i], a2, b2)
     t, y_in, m, a2, b2 = pending
     dt = t.dtype
     return torch.relu((t * a2.to(dt) + b2.to(dt))
                       * m.to(dt)[:, None, None, :] + y_in)
+
+
+def _train_layers(layers, specs, prefix, x, masks, new_stats):
+    """The layers of ``specs`` in train mode: each downsampler or
+    upsampler with its BN from the kernel's statistics, then ReLU; each
+    run of same-C NB1d blocks as one carried run."""
+    from ..ops.cuda.downsampler_train import downsampler_stats
+    from ..ops.cuda.upsampler_train import upsampler_stats
+    i, n = 0, len(specs)
+    while i < n:
+        kind, args = specs[i]
+        if kind in ("down", "up"):
+            blk = layers[i]
+            if kind == "down":
+                y, s1, s2 = downsampler_stats(x, conv_hwio_of(blk.conv),
+                                              blk.conv.bias)
+            else:
+                y, s1, s2 = upsampler_stats(x, blk.conv.weight,
+                                            blk.conv.bias)
+            x = _bn_relu(blk, f"{prefix}.{i}.bn", y, s1, s2, new_stats)
+            i += 1
+            continue
+        j = i
+        while (j < n and specs[j][0] == "nb1d"
+               and specs[j][1][0] == args[0]):
+            j += 1
+        x = _nb1d_train_run(layers, specs, prefix, range(i, j), x, masks,
+                            new_stats)
+        i = j
+    return x
 
 
 def encoder_train_forward(encoder, images, shifts, masks, dtype):
@@ -253,32 +292,38 @@ def encoder_train_forward(encoder, images, shifts, masks, dtype):
     index: (B, C) f32 Dropout2d mask in {0, 1/keep}} for every NB1d layer;
     dtype: the activation dtype (the kernels take bf16; on CPU tensors the
     plain versions also take f32).  Returns (features (B, H/8, W/8, 128) in
-    ``dtype``, {BN name: (new running mean, new running var)}).  Each
-    entry of the path is a kernel wrapper: CPU tensors run the plain
+    ``dtype``, {BN module path: (new running mean, new running var)}).
+    Each entry of the path is a kernel wrapper: CPU tensors run the plain
     versions, CUDA tensors the kernels, and a shape a kernel refuses
     raises."""
-    from ..ops.cuda.downsampler_train import (downsampler_stats,
-                                              downsampler_stem_stats)
+    from ..ops.cuda.downsampler_train import downsampler_stem_stats
     new_stats = {}
     ib = encoder.initial_block
     y, s1, s2 = downsampler_stem_stats(images, shifts, conv_hwio_of(ib.conv),
                                        ib.conv.bias, dtype=dtype)
-    x = _down_bn_relu(ib, "initial_block.bn", y, s1, s2, new_stats)
-    layers, n = encoder.layers, len(ENCODER_LAYER_SPECS)
-    i = 0
-    while i < n:
-        kind, args = ENCODER_LAYER_SPECS[i]
-        if kind == "down":
-            blk = layers[i]
-            y, s1, s2 = downsampler_stats(x, conv_hwio_of(blk.conv),
-                                          blk.conv.bias)
-            x = _down_bn_relu(blk, f"layers.{i}.bn", y, s1, s2, new_stats)
-            i += 1
-            continue
-        j = i
-        while (j < n and ENCODER_LAYER_SPECS[j][0] == "nb1d"
-               and ENCODER_LAYER_SPECS[j][1][0] == args[0]):
-            j += 1
-        x = _nb1d_train_run(layers, range(i, j), x, masks, new_stats)
-        i = j
+    x = _bn_relu(ib, "encoder.initial_block.bn", y, s1, s2, new_stats)
+    x = _train_layers(encoder.layers, ENCODER_LAYER_SPECS, "encoder.layers",
+                      x, masks, new_stats)
+    return x, new_stats
+
+
+def decoder_train_forward(decoder, x, dtype):
+    """Train-mode decoder up to the pre-head features: the counterpart of
+    the JAX ``_apply_decoder_packed_train`` (``keep_packed=False``)
+    without the W-packing.
+
+    x: the encoder's features (B, h, w, 128) in ``dtype``.  Returns
+    (features (B, 4h, 4w, 16) in ``dtype``, {BN module path: (new running
+    mean, new running var)}).  The decoder's NB1d blocks drop nothing: their
+    masks are ones, as the JAX ``_drop_mask_packed`` gives at p = 0."""
+    new_stats = {}
+    masks = {}
+    for i, (kind, args) in enumerate(DECODER_LAYER_SPECS):
+        if kind == "nb1d":
+            if args[1] != 0:
+                raise ValueError(f"decoder layer {i}: dropout {args[1]}, "
+                                 "the decoder train path takes 0")
+            masks[i] = torch.ones(x.shape[0], args[0], device=x.device)
+    x = _train_layers(decoder.layers, DECODER_LAYER_SPECS, "decoder.layers",
+                      x.to(dtype), masks, new_stats)
     return x, new_stats

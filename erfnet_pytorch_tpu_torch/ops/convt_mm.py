@@ -83,3 +83,13 @@ def apply_head_matmul(x, W, bias):
     y = (x.reshape(-1, cin).float() @ W.float() + bias.float()).to(x.dtype)
     y = y.reshape(B, H, Wd, 2, 2, cout).permute(0, 1, 3, 2, 4, 5)
     return y.reshape(B, 2 * H, 2 * Wd, cout)
+
+
+def pack_labels_2x2(labels):
+    """Full-resolution int labels (B, 2H, 2W) -> (B H W, 4) in the
+    parity-plane order of ``build_head_matmul``'s column blocks (column
+    a*2 + b holds the label of pixel (2i + a, 2j + b))."""
+    B, H2, W2 = labels.shape
+    H, W = H2 // 2, W2 // 2
+    return (labels.reshape(B, H, 2, W, 2).permute(0, 1, 3, 2, 4)
+            .reshape(B * H * W, 4))

@@ -19,12 +19,13 @@ next BatchNorm.  The backward takes the cotangents of z, of the stats and
 [tap, cin, cout] and the biases; the weight gradients are f32 sums over
 the batch in a fixed order.
 
-Kernels take bf16 maps, C in {64, 128}, and raise on anything else; the
-plain versions take f32 or bf16.  On a CPU tensor the ``Function``s run
-the plain versions, on a CUDA tensor the kernels.  Bound on the H100:
-operations (12 C^2 MACs per pixel forward, 24 C^2 backward); this version
-keeps t0 and t1 from the forward (no recompute) and passes the pair's
-intermediates through device memory between launches.
+Kernels take bf16 maps, C in {16, 64, 128}, and raise on anything else;
+the plain versions take f32 or bf16.  On a CPU tensor the ``Function``s
+run the plain versions, on a CUDA tensor the kernels.  Bound on the H100:
+operations at C = 128, bytes at C = 64 and 16 (6 C^2 MACs per pixel
+forward, 12 C^2 backward); this version keeps t0 and t1 from the forward
+(no recompute) and passes the pair's intermediates through device memory
+between launches.
 """
 
 from __future__ import annotations
@@ -139,9 +140,12 @@ def pair_bwd_plain(mode, saved, gz, gs1, gs2, gy=None):
 # kernel launches
 # ---------------------------------------------------------------------------
 
+CHANNELS = (16, 64, 128)
+
+
 def _check_map(x, name, C):
-    if C not in (64, 128):
-        raise ValueError(f"nb1d pair kernel takes C in (64, 128), got {C}")
+    if C not in CHANNELS:
+        raise ValueError(f"nb1d pair kernel takes C in {CHANNELS}, got {C}")
     _build.require(x, name, torch.bfloat16, x.device)
 
 
@@ -149,7 +153,7 @@ def _check_map(x, name, C):
 def pair_fwd(mode, x, wh, bh, ww, bw, dil, *, yres=None, m=None, a=None,
              b=None):
     """pair_fwd_plain's contract.  CPU tensor: the plain version.  CUDA
-    tensor: the kernels (bf16 maps, C in {64, 128}), or raise."""
+    tensor: the kernels (bf16 maps, C in {16, 64, 128}), or raise."""
     if x.device.type == "cpu":
         return pair_fwd_plain(mode, x, wh, bh, ww, bw, dil, yres=yres, m=m,
                               a=a, b=b)

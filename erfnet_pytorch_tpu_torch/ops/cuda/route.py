@@ -1,9 +1,10 @@
 """Which functions the train path's autograd Functions call, and a record
 of the train kernel wrappers' calls.
 
-By default every Function of ``nb1d_pair``, ``downsampler_train`` and
-``head_loss`` calls its kernel wrappers, which launch the kernels on a CUDA
-tensor and run the plain versions on a CPU tensor.  Inside
+By default every Function of ``nb1d_pair``, ``downsampler_train``,
+``head_loss`` and ``upsampler_train`` calls its kernel wrappers, which
+launch the kernels on a CUDA tensor and run the plain versions on a CPU
+tensor.  Inside
 ``plain_versions()`` the Functions call the plain versions instead, on any
 device: the reference that the kernels are held against on the card.
 Inside ``recording()`` each wrapper call is kept, arguments and result

@@ -22,6 +22,20 @@ from erfnet_pytorch_tpu_torch.weights import from_jax, load_torch_weights
 N_CLASSES = 20
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Torch on one intra-op thread for the module (restored after it).
+    The tier-1 run puts six test workers on the host's cores, and torch's
+    default of one OpenMP thread per core in each of them oversubscribes
+    the host: the port's small CPU ops, and the JAX compiles of the
+    workers beside them, then ran several times slower.  Import this
+    fixture into a ``test_torch_port_*`` file to apply it there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def jax_net(seed):
     """JAX (params, state) with non-trivial BN (gamma, beta, running mean
     and var drawn from a numpy seed, so that folding matters), and the

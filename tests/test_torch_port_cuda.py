@@ -2,10 +2,10 @@
 version at small and ragged shapes (tile tails, maps narrower than a
 tile, dilations beyond the map), the launch counters, the wrappers'
 refusals, the whole serving path against its plain pipeline, and the
-encoder-stage train step against the same step through the plain
-versions (and against itself: two runs give bit-identical parameters),
-and each train kernel call of that step against its plain version on the
-call's own recorded inputs.
+train steps of both stages against the same step through the plain
+versions (and against themselves: two runs give bit-identical
+parameters), and each train kernel call of a step against its plain
+version on the call's own recorded inputs.
 
 These tests need an NVIDIA GPU with ``nvcc`` (sm_90a) and skip without
 one.  They import nothing of JAX, so on a machine without it run them
@@ -32,7 +32,8 @@ from erfnet_pytorch_tpu_torch.ops import cuda as kernels
 from erfnet_pytorch_tpu_torch.ops.cuda import (downsampler,
                                                downsampler_train, head_argmax,
                                                head_loss, nb1d, nb1d_pair,
-                                               route, upsampler)
+                                               route, upsampler,
+                                               upsampler_train)
 
 pytestmark = pytest.mark.cuda
 
@@ -204,7 +205,8 @@ def _rn(*shape, seed, scale=1.0):
     ("none", (1, 5, 9, 64), 1), ("affine", (2, 7, 11, 64), 1),
     ("epi", (1, 9, 13, 64), 1), ("none", (2, 4, 8, 128), 1),
     ("affine", (1, 6, 10, 128), 2), ("affine", (2, 4, 8, 128), 16),
-    ("epi", (1, 3, 70, 128), 1)])
+    ("epi", (1, 3, 70, 128), 1), ("none", (1, 5, 9, 16), 1),
+    ("affine", (2, 7, 11, 16), 1), ("epi", (1, 9, 13, 16), 1)])
 def test_nb1d_pair_kernels(dev, mode, shape, dil):
     B, H, W, C = shape
     x = _rn(*shape, seed=1)
@@ -287,15 +289,17 @@ def test_downsampler_train_kernels(dev, shape, cc, stem):
     _rel(got[2], ref[2])
 
 
+@pytest.mark.parametrize("G", [1, 4])
 @pytest.mark.parametrize("all_void", [False, True])
-def test_head_loss_kernels(dev, all_void):
+def test_head_loss_kernels(dev, all_void, G):
     from erfnet_pytorch_tpu_torch.training.class_weights import \
         ENCODER_WEIGHTS
     M = 1300                                   # ragged against 256 and 1024
-    feats = _rn(M, 128, seed=1).relu().to(dev, torch.bfloat16)
-    w = _rn(128, 20, seed=2, scale=0.1).to(dev)
-    b = _rn(20, seed=3, scale=0.1).to(dev)
-    labels = torch.randint(0, 20, (M,),
+    K = 128 if G == 1 else 16
+    feats = _rn(M, K, seed=1).relu().to(dev, torch.bfloat16)
+    w = _rn(K, 20 * G, seed=2, scale=0.1 if G == 1 else 0.3).to(dev)
+    b = _rn(20 * G, seed=3, scale=0.1).to(dev)
+    labels = torch.randint(0, 20, (M,) if G == 1 else (M, G),
                            generator=torch.Generator().manual_seed(4))
     labels[:100] = 19
     if all_void:
@@ -305,15 +309,51 @@ def test_head_loss_kernels(dev, all_void):
     num, den = head_loss.head_loss_fwd(feats, w, b, labels, cw)
     pnum, pden = head_loss.head_loss_fwd_plain(feats, w, b, labels, cw)
     gnum = 1.0 / den.clamp_min(1e-12)
+    n0 = head_loss.head_loss_bwd.launches
     got = head_loss.head_loss_bwd(feats, w, b, labels, cw, gnum)
     ref = head_loss.head_loss_bwd_plain(feats, w, b, labels, cw, gnum)
     torch.cuda.synchronize()
+    assert (head_loss.head_loss_bwd.launches - n0
+            == head_loss.BWD_LAUNCHES[G])
     if all_void:
         assert num.item() == 0 and den.item() == 0
         assert all(t.abs().max().item() == 0 for t in got)
         return
     assert abs(num.item() - pnum.item()) <= 1e-5 * abs(pnum.item())
     assert abs(den.item() - pden.item()) <= 1e-5 * abs(pden.item())
+    _close(got[0], ref[0])
+    _rel(got[1], ref[1])
+    _rel(got[2], ref[2])
+
+
+@pytest.mark.parametrize("shape,cout", [
+    ((1, 5, 7, 128), 64), ((2, 9, 70, 64), 16), ((1, 64, 128, 128), 64)])
+def test_upsampler_train_kernels(dev, shape, cout):
+    """Maps narrower than a tile, a tile tail at the bottom-right edge,
+    and one image at the decoder's first shape."""
+    B, H, W, cin = shape
+    x = _rn(*shape, seed=1).relu().to(dev, torch.bfloat16)
+    w = _rn(3, 3, cin, cout, seed=2, scale=(9 * cin) ** -0.5).to(dev)
+    b = _rn(cout, seed=3, scale=0.1).to(dev)
+    n0 = upsampler_train.ups_fwd.launches
+    got = upsampler_train.ups_fwd(x, w, b)
+    ref = upsampler_train.ups_fwd_plain(x, w, b)
+    torch.cuda.synchronize()
+    assert (upsampler_train.ups_fwd.launches - n0
+            == upsampler_train.FWD_LAUNCHES)
+    _close(got[0], ref[0])
+    _rel(got[1], ref[1])
+    _rel(got[2], ref[2])
+    y = ref[0]
+    gy = _rn(*y.shape, seed=4).to(dev, torch.bfloat16)
+    gs1 = _rn(B, cout, seed=5, scale=1e-3).to(dev)
+    gs2 = _rn(B, cout, seed=6, scale=1e-3).to(dev)
+    n0 = upsampler_train.ups_bwd.launches
+    got = upsampler_train.ups_bwd(x, y, gy, gs1, gs2, w)
+    ref = upsampler_train.ups_bwd_plain(x, y, gy, gs1, gs2, w)
+    torch.cuda.synchronize()
+    assert (upsampler_train.ups_bwd.launches - n0
+            == upsampler_train.BWD_LAUNCHES)
     _close(got[0], ref[0])
     _rel(got[1], ref[1])
     _rel(got[2], ref[2])
@@ -341,32 +381,48 @@ def test_train_wrappers_refuse_what_the_kernels_do_not_take(dev):
             torch.zeros(64, 20, device=dev), torch.zeros(20, device=dev),
             torch.zeros(8, dtype=torch.int64, device=dev),
             torch.ones(20, device=dev))
+    with pytest.raises(ValueError):                                # G=4, n=24
+        head_loss.head_loss_fwd(
+            torch.zeros(8, 16, device=dev, dtype=torch.bfloat16),
+            torch.zeros(16, 96, device=dev), torch.zeros(96, device=dev),
+            torch.zeros(8, 4, dtype=torch.int64, device=dev),
+            torch.ones(24, device=dev))
+    with pytest.raises(ValueError):                                # 64 -> 32
+        upsampler_train.ups_fwd(
+            torch.zeros(1, 4, 4, 64, device=dev, dtype=torch.bfloat16),
+            torch.zeros(3, 3, 64, 32, device=dev), torch.zeros(32,
+                                                               device=dev))
+    with pytest.raises(TypeError):                                 # f32
+        upsampler_train.ups_fwd(torch.zeros(1, 4, 4, 64, device=dev),
+                                torch.zeros(3, 3, 64, 16, device=dev),
+                                torch.zeros(16, device=dev))
 
 
 def _train_step_run(dev, sd, plain=False, dtype=torch.bfloat16,
-                    record=False):
-    """One encoder-stage step at B=2, 64x128 with fixed draws: (loss,
+                    record=False, enc=True, hw=(64, 128)):
+    """One train step of the stage at B=2, ``hw`` with fixed draws: (loss,
     launch counts, grads, state, recorded calls)."""
     import contextlib
     from erfnet_pytorch_tpu_torch.ops.augment import draw
-    from erfnet_pytorch_tpu_torch.training.class_weights import \
-        ENCODER_WEIGHTS
+    from erfnet_pytorch_tpu_torch.training.class_weights import (
+        DECODER_WEIGHTS, ENCODER_WEIGHTS)
     from erfnet_pytorch_tpu_torch.training.optim import make_adam
     from erfnet_pytorch_tpu_torch.training.steps import (create_train_state,
                                                          draw_drop_masks,
                                                          make_train_step)
     g = torch.Generator().manual_seed(3)
-    u8 = torch.randint(0, 256, (2, 64, 128, 3), generator=g,
+    u8 = torch.randint(0, 256, (2, *hw, 3), generator=g,
                        dtype=torch.uint8).to(dev)
-    labels = torch.randint(0, 19, (2, 64, 128), generator=g).to(dev)
+    labels = torch.randint(0, 19, (2, *hw), generator=g).to(dev)
     labels[:, :8] = 255
     gen = torch.Generator(device=dev).manual_seed(4)
     aug, masks = draw(gen, 2), draw_drop_masks(gen, 2)
     net = Net(20)
     net.load_state_dict(sd)
     opt = make_adam(net.parameters())
-    step = make_train_step(net, opt, ENCODER_WEIGHTS, dtype=dtype,
-                           device=dev)
+    step = make_train_step(net, opt,
+                           ENCODER_WEIGHTS if enc else DECODER_WEIGHTS,
+                           enc=enc, dtype=dtype, device=dev)
     kernels.reset_launch_counts()
     nul = contextlib.nullcontext
     with (route.plain_versions() if plain else nul()), \
@@ -375,7 +431,8 @@ def _train_step_run(dev, sd, plain=False, dtype=torch.bfloat16,
                        aug=aug, drop_masks=masks)
     torch.cuda.synchronize()
     return (loss.item(), kernels.launch_counts(),
-            {k: p.grad.clone() for k, p in net.named_parameters()},
+            {k: None if p.grad is None else p.grad.clone()
+             for k, p in net.named_parameters()},
             {k: v.clone() for k, v in net.state_dict().items()}, calls)
 
 
@@ -428,4 +485,48 @@ def test_train_step_calls_match_their_plain_versions(dev, sd):
     assert {n: names.count(n) for n in set(names)} == {
         "pair_fwd": 26, "pair_bwd": 26, "down_fwd": 3, "down_bwd": 3,
         "head_loss_fwd": 1, "head_loss_bwd": 1}
+    smoke.check_recorded_calls(calls)
+
+
+def test_stage2_train_step_on_the_card(dev, sd):
+    """make_train_step(enc=False) at B=2, 256x512 on the card: the launch
+    counts per step, two runs from one state give bit-identical state, the
+    loss agrees with the step through the plain versions (rtol 1e-3), the
+    encoder's 1x1 head keeps a None grad and its value, and every train
+    kernel call of the step passes ``chip_smoke.py``'s recorded-call check
+    against its plain version.  At 64x128 the two losses sat 1.0e-3 apart
+    (one-ulp differences carried through 39 BatchNorms over 128 to 2048
+    pixels per channel), at B=6, 512x1024 1.2e-5 (chip_smoke.py)."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    hw = (256, 512)
+    loss1, counts, grads, state1, calls = _train_step_run(
+        dev, sd, enc=False, record=True, hw=hw)
+    per_call = {"pair_fwd": {"none": 3, "affine": 4, "epi": 4},
+                "pair_bwd": {"none": 6, "affine": 7, "epi": 7}}
+    # encoder 2 runs (none 2, affine 13, epi 11), decoder 2 runs (none 2,
+    # affine 4, epi 2)
+    n = {"none": 4, "affine": 17, "epi": 13}
+    for w in ("pair_fwd", "pair_bwd"):
+        assert counts[w] == sum(n[m] * per_call[w][m] for m in n), w
+    assert counts["down_fwd"] == 6 and counts["down_bwd"] == 3 + 2 * 4
+    assert counts["ups_fwd"] == 2 * 2 and counts["ups_bwd"] == 2 * 5
+    assert counts["head_loss_fwd"] == 2 and counts["head_loss_bwd"] == 2
+    for k in ("encoder.output_conv.weight", "encoder.output_conv.bias"):
+        assert grads[k] is None and torch.equal(state1[k], sd[k].to(dev)), k
+    _, _, _, state2, _ = _train_step_run(dev, sd, enc=False, hw=hw)
+    assert all(torch.equal(state1[k], state2[k]) for k in state1)
+    lossp, counts, _, _, _ = _train_step_run(dev, sd, enc=False, plain=True,
+                                             hw=hw)
+    assert set(counts.values()) == {0}
+    assert abs(loss1 - lossp) <= 1e-3 * abs(lossp)
+    names = [c[0] for c in calls]
+    assert {m: names.count(m) for m in set(names)} == {
+        "pair_fwd": 34, "pair_bwd": 34, "down_fwd": 3, "down_bwd": 3,
+        "ups_fwd": 2, "ups_bwd": 2, "head_loss_fwd": 1, "head_loss_bwd": 1}
     smoke.check_recorded_calls(calls)

@@ -25,6 +25,7 @@ from erfnet_pytorch_tpu_torch.ops.cuda.downsampler import (
 from erfnet_pytorch_tpu_torch.ops.cuda.upsampler import (prepare_upsampler,
                                                          upsampler)
 from test_torch_port_common import assert_bf16_close, jax_net, to_torch
+from test_torch_port_common import one_torch_thread  # noqa: F401
 
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}

@@ -27,6 +27,7 @@ from erfnet_pytorch_tpu_torch.ops.convt_mm import apply_head_matmul
 from erfnet_pytorch_tpu_torch.ops.cuda.head_argmax import (head_argmax,
                                                            prepare_head)
 from test_torch_port_common import N_CLASSES, jax_net, to_torch
+from test_torch_port_common import one_torch_thread  # noqa: F401
 
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}

@@ -15,6 +15,7 @@ from erfnet_pytorch_tpu_torch.device import resolve_device
 from erfnet_pytorch_tpu_torch.inference import build_fast_infer
 from erfnet_pytorch_tpu_torch.models.erfnet import Net, init_weights
 from erfnet_pytorch_tpu_torch.ops import cuda as kernels
+from test_torch_port_common import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -30,7 +31,8 @@ def test_package_imports_neither_jax_nor_the_jax_package():
     neither ``jax`` nor ``erfnet_pytorch_tpu`` in sys.modules."""
     mods = _modules()
     for m in ("ops.cuda.nb1d", "ops.cuda.nb1d_pair", "ops.cuda.downsampler_train",
-              "ops.cuda.head_loss", "ops.cuda.route", "ops.augment",
+              "ops.cuda.head_loss", "ops.cuda.upsampler_train",
+              "ops.cuda.route", "ops.augment", "ops.convt_mm",
               "ops.dropout", "ops.loss",
               "training.steps", "training.optim", "training.class_weights"):
         assert f"erfnet_pytorch_tpu_torch.{m}" in mods, m
@@ -95,7 +97,8 @@ def test_cpu_tensors_never_move_a_launch_counter():
     counts = kernels.launch_counts()
     assert set(counts) == {"downsampler", "nb1d", "upsampler", "head_argmax",
                            "pair_fwd", "pair_bwd", "down_fwd", "down_bwd",
-                           "head_loss_fwd", "head_loss_bwd"}
+                           "head_loss_fwd", "head_loss_bwd", "ups_fwd",
+                           "ups_bwd"}
     assert set(counts.values()) == {0}
 
 
@@ -146,3 +149,39 @@ def test_to_tensor_scales_uint8():
     got = to_tensor(torch.from_numpy(u8))
     assert got.dtype == torch.float32
     assert torch.equal(got, torch.tensor([[[[0.0, 128 / 255, 1.0]]]]))
+
+
+def test_cpu_stage2_train_step_never_moves_a_launch_counter():
+    """The stage-2 step (enc=False) with device="cpu" runs every train
+    wrapper's plain version, the train upsampler and the G=4 head+loss
+    included: every launch counter stays at 0; the step moves the
+    decoder's parameters and BN statistics and leaves the encoder's 1x1
+    head as it was, with a None grad."""
+    from erfnet_pytorch_tpu_torch.training.class_weights import \
+        DECODER_WEIGHTS
+    from erfnet_pytorch_tpu_torch.training.optim import make_adam
+    from erfnet_pytorch_tpu_torch.training.steps import (create_train_state,
+                                                         make_train_step)
+    net = init_weights(Net(20), torch.Generator().manual_seed(0))
+    before = {k: v.clone() for k, v in net.state_dict().items()}
+    opt = make_adam(net.parameters())
+    step = make_train_step(net, opt, DECODER_WEIGHTS, enc=False,
+                           dtype=torch.float32, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    u8 = torch.randint(0, 256, (2, 32, 64, 3), generator=g,
+                       dtype=torch.uint8)
+    labels = torch.randint(0, 20, (2, 32, 64), generator=g)
+    labels[:, :4] = 255
+    kernels.reset_launch_counts()
+    state, loss = step(create_train_state(net, opt), u8, labels, g)
+    assert set(kernels.launch_counts().values()) == {0}
+    assert state.step == 1 and torch.isfinite(loss)
+    after = net.state_dict()
+    for k in ("decoder.layers.0.conv.weight",
+              "decoder.layers.4.bn1.running_var",
+              "decoder.output_conv.weight",
+              "encoder.layers.7.bn1.running_mean"):
+        assert not torch.equal(after[k], before[k]), k
+    for k in ("encoder.output_conv.weight", "encoder.output_conv.bias"):
+        assert torch.equal(after[k], before[k]), k
+    assert net.encoder.output_conv.weight.grad is None

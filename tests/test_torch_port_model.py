@@ -11,6 +11,7 @@ from erfnet_pytorch_tpu.models import erfnet
 
 from erfnet_pytorch_tpu_torch.models.erfnet import Net, init_weights
 from test_torch_port_common import N_CLASSES, jax_net
+from test_torch_port_common import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

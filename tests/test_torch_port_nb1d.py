@@ -22,6 +22,7 @@ from erfnet_pytorch_tpu.ops.pallas import nb1d as jnb1d
 from erfnet_pytorch_tpu_torch.ops.cuda.nb1d import (fuse_nb1d_params,
                                                     nb1d, prepare_nb1d)
 from test_torch_port_common import assert_bf16_close, jax_net, to_torch
+from test_torch_port_common import one_torch_thread  # noqa: F401
 
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}

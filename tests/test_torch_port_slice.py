@@ -14,6 +14,7 @@ from erfnet_pytorch_tpu.utils import torch_import
 
 from erfnet_pytorch_tpu_torch.inference import build_fast_infer
 from erfnet_pytorch_tpu_torch.weights import from_jax
+from test_torch_port_common import one_torch_thread  # noqa: F401
 
 
 def _nets(seed):

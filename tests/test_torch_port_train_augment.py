@@ -16,6 +16,7 @@ from erfnet_pytorch_tpu.ops import augment as jaug
 
 from erfnet_pytorch_tpu_torch.ops import augment as paug
 from erfnet_pytorch_tpu_torch.ops.dropout import drop_mask
+from test_torch_port_common import one_torch_thread  # noqa: F401
 
 
 def _batch(seed, B=4, H=24, W=40):

@@ -24,6 +24,7 @@ from erfnet_pytorch_tpu.ops.pallas.downsampler import (
     downsampler_packed_stats, downsampler_packed_stats_aug)
 
 from erfnet_pytorch_tpu_torch.ops.cuda import downsampler_train as D
+from test_torch_port_common import one_torch_thread  # noqa: F401
 
 DT = {"f32": (jnp.float32, torch.float32),
       "bf16": (jnp.bfloat16, torch.bfloat16)}

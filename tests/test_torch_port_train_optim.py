@@ -15,6 +15,7 @@ from erfnet_pytorch_tpu.training import optim as joptim
 
 from erfnet_pytorch_tpu_torch.training import class_weights as pcw
 from erfnet_pytorch_tpu_torch.training import optim as poptim
+from test_torch_port_common import one_torch_thread  # noqa: F401
 
 
 def test_class_weight_tables_match_jax():

@@ -5,10 +5,10 @@ Pallas kernels ``fused_pair_stats`` / ``fused_pair_affine_stats`` /
 every cotangent of ``jax.vjp``, in f32 and bf16.
 
 C=128 runs unpacked on both sides, with a dilation beyond the 4x8 map.
-C=64 holds the port's unpacked pair against the JAX call at pack factor 2
-(the train path's W-packed layout, tap stacks built by ``stack_taps_h/w``),
-with the gradients taken w.r.t. the (3, C, C) weights and the per-image
-sums of the two packed slots added.
+C=64 and C=16 hold the port's unpacked pair against the JAX call at pack
+factors 2 and 8 (the train path's W-packed layouts, tap stacks built by
+``stack_taps_h/w``), with the gradients taken w.r.t. the (3, C, C) weights
+and the per-image sums of the packed slots added.
 
 Tolerances.  f32: max|diff| <= 1e-4 max|ref| for maps, norm-relative
 1e-4 for sums and gradients (the same products summed in other orders).
@@ -29,6 +29,7 @@ from erfnet_pytorch_tpu.ops.packed import _merge_thrw
 from erfnet_pytorch_tpu.ops.pallas import nb1d_train as J
 
 from erfnet_pytorch_tpu_torch.ops.cuda import nb1d_pair as P
+from test_torch_port_common import one_torch_thread  # noqa: F401
 
 DT = {"f32": (jnp.float32, torch.float32),
       "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -154,10 +155,13 @@ def _close(name, got, ref, dt, is_map):
 
 
 # (mode, C, dilation, pack factor of the JAX call); the 4x8 C128 map at
-# d=8 reaches past both sides, so every dilated tap reads zero fill
+# d=8 reaches past both sides, so every dilated tap reads zero fill.  C=16
+# (the decoder's last run) runs at the JAX train path's pack factor 8,
+# with the decoder's dropout mask of ones in the epi lead.
 CASES = [("none", 128, 1, 1), ("affine", 128, 2, 1), ("affine", 128, 8, 1),
          ("epi", 128, 1, 1), ("none", 64, 1, 2), ("affine", 64, 1, 2),
-         ("epi", 64, 1, 2)]
+         ("epi", 64, 1, 2), ("none", 16, 1, 8), ("affine", 16, 1, 8),
+         ("epi", 16, 1, 8)]
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
@@ -165,6 +169,8 @@ CASES = [("none", 128, 1, 1), ("affine", 128, 2, 1), ("affine", 128, 8, 1),
 def test_pair_matches_jax_kernel(mode, C, d, p, dt):
     B, H, W = 2, (4 if C == 128 else 8), (8 if C == 128 else 16)
     v = _inputs(mode, B, H, W, C, seed=C + d + len(mode))
+    if C == 16 and mode == "epi":
+        v["m"] = np.ones_like(v["m"])          # the decoder drops nothing
     jdt, tdt = DT[dt]
     jout, jgrads = _jax(mode, v, d, p, jdt)
     pout, pgrads = _port(mode, v, d, tdt)

@@ -14,25 +14,29 @@ import torch
 from erfnet_pytorch_tpu_torch.models.erfnet import Net, init_weights
 from erfnet_pytorch_tpu_torch.ops import cuda as kernels
 from erfnet_pytorch_tpu_torch.ops.cuda import route
-from erfnet_pytorch_tpu_torch.training.class_weights import ENCODER_WEIGHTS
+from erfnet_pytorch_tpu_torch.training.class_weights import (
+    DECODER_WEIGHTS, ENCODER_WEIGHTS)
 from erfnet_pytorch_tpu_torch.training.optim import make_adam
 from erfnet_pytorch_tpu_torch.training.steps import (create_train_state,
                                                      draw_drop_masks,
                                                      make_train_step)
 from erfnet_pytorch_tpu_torch.ops.augment import draw
+from test_torch_port_common import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CALLS = {"pair_fwd": 26, "pair_bwd": 26, "down_fwd": 3, "down_bwd": 3,
          "head_loss_fwd": 1, "head_loss_bwd": 1}
 
 
-def _step(plain=False, record=False, dtype=torch.bfloat16):
-    """One CPU step at B=2, 32x64 from seeded weights and fixed draws:
-    (loss, grads, parameters after the step, recorded calls or None)."""
+def _step(plain=False, record=False, dtype=torch.bfloat16, enc=True):
+    """One CPU step of the stage at B=2, 32x64 from seeded weights and
+    fixed draws: (loss, grads, parameters after the step, recorded calls
+    or None)."""
     net = init_weights(Net(20), torch.Generator().manual_seed(0))
     opt = make_adam(net.parameters())
-    step = make_train_step(net, opt, ENCODER_WEIGHTS, dtype=dtype,
-                           device="cpu")
+    step = make_train_step(net, opt,
+                           ENCODER_WEIGHTS if enc else DECODER_WEIGHTS,
+                           enc=enc, dtype=dtype, device="cpu")
     g = torch.Generator().manual_seed(1)
     u8 = torch.randint(0, 256, (2, 32, 64, 3), generator=g,
                        dtype=torch.uint8)
@@ -46,7 +50,8 @@ def _step(plain=False, record=False, dtype=torch.bfloat16):
                        aug=aug, drop_masks=masks)
         if not plain:
             calls = log
-    return (loss, {k: p.grad.clone() for k, p in net.named_parameters()},
+    return (loss, {k: None if p.grad is None else p.grad.clone()
+                   for k, p in net.named_parameters()},
             {k: p.detach().clone() for k, p in net.named_parameters()},
             calls)
 
@@ -54,6 +59,11 @@ def _step(plain=False, record=False, dtype=torch.bfloat16):
 @pytest.fixture(scope="module")
 def recorded():
     return _step(record=True)
+
+
+@pytest.fixture(scope="module")
+def recorded2():
+    return _step(record=True, enc=False)
 
 
 @pytest.fixture(scope="module")
@@ -111,7 +121,8 @@ def test_recording_is_off_outside_its_context():
 def test_chip_smoke_recorded_check_passes_a_faithful_step(recorded,
                                                           chip_smoke):
     errs = chip_smoke.check_recorded_calls(recorded[3])
-    assert set(errs) == {"nb1d_pair", "downsampler_train", "head_loss"}
+    assert set(errs) == {"nb1d_pair", "downsampler_train", "head_loss",
+                         "upsampler_train"}
     assert set(errs.values()) == {0.0}
 
 
@@ -127,6 +138,52 @@ def test_chip_smoke_recorded_check_fails_a_broken_output(recorded,
     or 1 % off) fails the check."""
     calls = list(recorded[3])
     i = max(j for j, c in enumerate(calls) if c[0] == name
+            and (not isinstance(c[3], dict) or out in c[3]))
+    n, args, kwargs, got = calls[i]
+    got = dict(got) if isinstance(got, dict) else list(got)
+    t = got[out]
+    got[out] = {"zero": torch.zeros_like(t), "negate": -t,
+                "scale": t * 1.01}[how]
+    calls[i] = (n, args, kwargs, got)
+    with pytest.raises(chip_smoke.PhaseError):
+        chip_smoke.check_recorded_calls(calls)
+
+
+def test_stage2_recording_keeps_every_train_kernel_call(recorded2,
+                                                        chip_smoke):
+    """The stage-2 step's calls: the encoder's and the decoder's pairs
+    (26 + 8), the train upsamplers and the G=4 head+loss; a faithful
+    record passes the check."""
+    names = [c[0] for c in recorded2[3]]
+    assert {n: names.count(n) for n in set(names)} == {
+        "pair_fwd": 34, "pair_bwd": 34, "down_fwd": 3, "down_bwd": 3,
+        "ups_fwd": 2, "ups_bwd": 2, "head_loss_fwd": 1, "head_loss_bwd": 1}
+    errs = chip_smoke.check_recorded_calls(recorded2[3])
+    assert set(errs) == {"nb1d_pair", "downsampler_train", "head_loss",
+                         "upsampler_train"}
+    assert set(errs.values()) == {0.0}
+
+
+def _channels(name, args):
+    x = args[1] if name == "pair_fwd" else (
+        args[1]["x"] if name == "pair_bwd" else args[0])
+    return x.shape[-1]
+
+
+@pytest.mark.parametrize("name,out,how,C", [
+    ("ups_fwd", 0, "negate", 128), ("ups_fwd", 1, "scale", 64),
+    ("ups_bwd", 0, "zero", 64), ("ups_bwd", 1, "negate", 128),
+    ("pair_bwd", "dx", "negate", 16), ("head_loss_fwd", 0, "scale", 16),
+    ("head_loss_bwd", 0, "zero", 16)])
+def test_chip_smoke_recorded_check_fails_a_broken_stage2_output(
+        recorded2, chip_smoke, name, out, how, C):
+    """One output of one stage-2 call broken (zeroed, negated or 1 % off):
+    the train upsampler's y, s1, dx and dW, the C16 pair's dx, the G=4
+    head+loss's num and dfeats; the check fails each (C: the input
+    channels of the call broken)."""
+    calls = list(recorded2[3])
+    i = max(j for j, c in enumerate(calls) if c[0] == name
+            and _channels(name, c[1]) == C
             and (not isinstance(c[3], dict) or out in c[3]))
     n, args, kwargs, got = calls[i]
     got = dict(got) if isinstance(got, dict) else list(got)

@@ -76,6 +76,7 @@ from erfnet_pytorch_tpu_torch.training.optim import make_adam
 from erfnet_pytorch_tpu_torch.training.steps import (create_train_state,
                                                      make_train_step)
 from erfnet_pytorch_tpu_torch.weights import from_jax
+from test_torch_port_common import one_torch_thread  # noqa: F401
 
 B, H, W = 2, 32, 64
 DTYPES = {"f32": (None, torch.float32), "bf16": (jnp.bfloat16,

@@ -10,6 +10,7 @@ from test_torch_port_train_step import (step_results,  # noqa: F401
                                         test_gradient_tree_matches,
                                         test_loss_matches,
                                         test_one_step_params_match)
+from test_torch_port_common import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

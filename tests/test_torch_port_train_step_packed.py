@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from test_torch_port_train_step import PRE_BN_BIAS, step_results
+from test_torch_port_common import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")
