@@ -72,10 +72,38 @@ Phases, each fatal on failure (non-zero exit, no result line):
    step, its time by kernel, and the host's time and kernel launches by
    operation.
 
+Phases 10-13 (the int8 serving path) run right after phase 5:
+
+10. int8 calibration and parity: ``calibrate_q8_scales`` on 2 seeded
+    uint8 batches of 4 512x1024 frames (f32 through the plain versions,
+    TF32 off and restored), then the int8 block ``nb1d_q8`` against its
+    plain version on the card at B=2 and every shape and input/output
+    dtype pair of the int8 path (C=64 at 128x256, C=16 at 256x512, C=128
+    at 64x128 with d = 2..16, bf16 -> f32, f32 -> f32, f32 -> bf16), plus
+    bf16 -> bf16 at C=128 and a dilation beyond the map: bit-identical
+    (exact int32 sums, epilogues rounded at the same points).
+11. int8 serving: ``build_fast_infer(preds_only=True, q8_scales=...)``
+    answers 3 requests of 4 uint8 512x1024 frames; launch counts per
+    forward 17 / 0 / 3 / 2 / 1 (nb1d_q8, one launch per block / nb1d /
+    downsampler / upsampler / head); the features bit-identical to those
+    of the same path with the int8 block's plain version; the pixels
+    that disagree with the plain int8 pipeline on the card at most
+    ``Q8_NOISE_X`` times those of the bf16 path against its plain
+    pipeline on the same frames (see there why); the agreement with the
+    bf16 pipeline printed without a gate.
+12. int8 timing: ms/img of the int8 and bf16 paths at B=1 and B=4 (in
+    turns, the better of two), and the int8 block summed over one B=4
+    forward beside its plain version and its bound (bytes over 3.35 TB/s
+    or int8 operations over 1979 TOP/s, whichever is larger).
+13. int8 profile: the device's busy share of a B=4 int8 forward and its
+    time by kernel.
+
 The last three lines are the card (``nvidia-smi`` name and power limit),
 one JSON object listing every kernel, and the result object.  In that
 object the train kernels' figures are sums over one step of each stage,
-and their launches the counts of phases 7 and 8 together.
+and their launches the counts of phases 7 and 8 together; the int8
+block's figures are sums over one B=4 int8 forward, its launches the count
+of phase 11.
 """
 
 from __future__ import annotations
@@ -89,6 +117,7 @@ import traceback
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor-core peak
+INT8_OPS_PER_S = 1979e12         # dense int8 tensor-core peak
 N_CLASSES = 20
 ITERS = 20                       # timed iterations per kernel measurement
 # launches per forward; nb1d's is 17 blocks times its launches per block
@@ -116,6 +145,9 @@ SOURCES = {
                   "erfnet_pytorch_tpu/ops/pallas/head_loss.py:86"),
     "upsampler_train": ("erfnet_pytorch_tpu_torch/csrc/upsampler_train.cu",
                         "erfnet_pytorch_tpu/ops/pallas/upsampler.py:317"),
+    # the int8 path; also replaces nb1d_q8.py:223 (_nb1d_q8_stack_kernel)
+    "nb1d_q8": ("erfnet_pytorch_tpu_torch/csrc/nb1d_q8.cu",
+                "erfnet_pytorch_tpu/ops/pallas/nb1d_q8.py:149"),
 }
 # train kernel -> its (forward, backward) wrappers' counter names
 TRAIN_WRAPPERS = {"nb1d_pair": ("pair_fwd", "pair_bwd"),
@@ -554,6 +586,294 @@ def phase_profile(sd, device, e2e, n=5):
             out[f"b{B}"] = {"profiled_wall_us_per_forward": wall_us / n, **r}
     kernels.reset_launch_counts()
     return out
+
+
+# ---------------------------------------------------------------------------
+# the int8 serving path (build_fast_infer(q8_scales=...), 512x1024)
+# ---------------------------------------------------------------------------
+
+# int8 block cases of one B forward: (prefix, input shape, dilation, input
+# dtype, output dtype, calls per forward).  The C=128 run is the int8
+# stack: bf16 in, an f32 carry between its blocks, bf16 out.
+def q8_cases(B):
+    import torch
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [("encoder.layers.1", (B, 128, 256, 64), 1, bf, bf, 7),
+             ("decoder.layers.4", (B, 256, 512, 16), 1, bf, bf, 2)]
+    for k, d in enumerate((2, 4, 8, 16, 2, 4, 8, 16)):
+        cases.append((f"encoder.layers.{7 + k}", (B, 64, 128, 128), d,
+                      bf if k == 0 else f32, bf if k == 7 else f32, 1))
+    return cases
+
+
+def _scale_key(prefix):
+    parts = prefix.split(".")
+    return parts[0], int(parts[2])
+
+
+def q8_params(sd, scales, prefix, d, device):
+    from erfnet_pytorch_tpu_torch.ops.cuda.nb1d import fuse_nb1d_params
+    from erfnet_pytorch_tpu_torch.ops.cuda.nb1d_q8 import prepare_nb1d_q8
+    w, b = fuse_nb1d_params(sd, prefix)
+    p = prepare_nb1d_q8(w, b, scales[_scale_key(prefix)], d)
+    return {k: v.to(device) if hasattr(v, "to") else v for k, v in p.items()}
+
+
+def _q8_input(shape, acts, dtype, g, device):
+    """A post-ReLU block input spanning the calibrated range of the block
+    (the largest of 2^20 half-normal draws is about 4.9)."""
+    import torch
+    x = torch.randn(shape, generator=g).relu() * (acts["in"] / 4.0)
+    return x.to(device=device, dtype=dtype)
+
+
+def phase_q8_calibrate(sd, device):
+    """Scales of the int8 path: calibrate_q8_scales on 2 seeded uint8
+    batches of 4 512x1024 frames (an f32 forward through the plain
+    versions on the card, TF32 off)."""
+    import torch
+    from erfnet_pytorch_tpu_torch.quantize import calibrate_q8_scales
+    g = torch.Generator().manual_seed(30)
+    batches = [torch.randint(0, 256, (4, 512, 1024, 3), generator=g,
+                             dtype=torch.uint8).to(device) for _ in range(2)]
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    t0 = time.time()
+    scales = calibrate_q8_scales(sd, batches)
+    restored = flags == (torch.backends.cudnn.allow_tf32,
+                         torch.backends.cuda.matmul.allow_tf32)
+    log(f"[int8 calibrate] {len(scales)} blocks on 2 batches of 4 frames in "
+        f"{time.time() - t0:.2f} s; TF32 flags restored: {restored}")
+    if len(scales) != 17 or not restored:
+        raise PhaseError("calibration: 17 blocks, TF32 flags restored")
+    return scales
+
+
+def phase_q8_parity(sd, scales, device):
+    """(a) The int8 block against its plain version on the card at B=2 and
+    every shape and dtype pair of the int8 path, plus bf16 -> bf16 at
+    C=128 and a dilation beyond the map: bit-identical (the int32 sums are
+    exact, the epilogues round at the same points)."""
+    import torch
+    from erfnet_pytorch_tpu_torch.ops.cuda import nb1d_q8 as q8
+    g = torch.Generator().manual_seed(31)
+    bf = torch.bfloat16
+    cases = [(p, (2,) + s[1:], d, di, do) for p, s, d, di, do, _n in
+             q8_cases(2)]
+    cases += [("encoder.layers.7", (2, 64, 128, 128), 2, bf, bf),
+              ("encoder.layers.10", (2, 64, 128, 128), 160, bf, bf)]
+    log("[int8 parity] nb1d_q8 kernel vs plain on the card, B=2, "
+        "bit-identical")
+    err = 0.0
+    for prefix, shape, d, din, dout in cases:
+        p = q8_params(sd, scales, prefix, d, device)
+        x = _q8_input(shape, scales[_scale_key(prefix)], din, g, device)
+        got = q8.nb1d_q8(x, p, dout)
+        ref = q8.nb1d_q8_plain(x, p, dout)
+        torch.cuda.synchronize()
+        if got.dtype != dout or not torch.isfinite(got).all():
+            raise PhaseError(f"nb1d_q8 {prefix}: {got.dtype}, or non-finite")
+        diff = (got.float() - ref.float()).abs()
+        n = int((diff > 0).sum())
+        log(f"  C{shape[-1]} d{d} {str(din)[6:]}->{str(dout)[6:]}: "
+            f"{n} of {diff.numel()} elements differ, max "
+            f"{diff.max().item():.3e} -> {'ok' if n == 0 else 'FAIL'}")
+        if n:
+            raise PhaseError("nb1d_q8 kernel differs from its plain version")
+        err = max(err, diff.max().item())
+    return err
+
+
+# The int8 path against its plain pipeline: the int8 blocks are bit-
+# identical to their plain versions, but the bf16 down/upsamplers and
+# head round after other summation orders than theirs, and the int8
+# blocks turn a one-ulp difference of their input into a whole code when
+# it sits near a rounding boundary; on random weights some pixels are
+# near-ties that any such difference flips.  The phase prints the
+# yardstick: each plain pipeline against itself with only its three
+# downsamplers summed in f64 (the same function in another order).  So
+# the pixels the int8 path gets wrong are held to Q8_NOISE_X times those
+# of the bf16 path against its plain pipeline on the same frames, and
+# every int8 launch of the path is held bit-identical on the path's own
+# inputs.
+Q8_NOISE_X = 2.0
+
+
+def _down_f64(x, p):
+    """The plain downsampler with its sums in f64, rounded once to x's
+    dtype: the same function as ``downsampler_plain``, another order."""
+    import torch
+    import torch.nn.functional as F
+    xd = x.double().permute(0, 3, 1, 2)
+    conv = F.conv2d(xd, p["w"].double().permute(3, 2, 0, 1),
+                    p["b"].double(), stride=2, padding=1)
+    y = torch.cat([conv, F.max_pool2d(xd, 2, 2)], 1).permute(0, 2, 3, 1)
+    y = y * p["scale"].double() + p["shift"].double()
+    return torch.relu(y).to(x.dtype)
+
+
+def phase_q8_serving(sd, scales, device):
+    """(b) build_fast_infer(preds_only=True, q8_scales=...) answers 3
+    requests of 4 uint8 512x1024 frames: shape, dtype, class range, launch
+    counts per forward (nb1d_q8 17, nb1d 0, downsampler 3, upsampler 2,
+    head 1); the features bit-identical to the same path with the int8
+    block's plain version; the pixels that disagree with the plain int8
+    pipeline at most Q8_NOISE_X times those of the bf16 path with its
+    plain pipeline.  The agreement with the bf16 kernel path is printed,
+    ungated (the quantization's cost on random weights)."""
+    import torch
+    from erfnet_pytorch_tpu_torch.data import to_tensor
+    from erfnet_pytorch_tpu_torch.inference import (KERNEL_OPS, PLAIN_OPS,
+                                                    build_fast_infer,
+                                                    build_plain_infer,
+                                                    features, prepare)
+    from erfnet_pytorch_tpu_torch.ops import cuda as kernels
+    from erfnet_pytorch_tpu_torch.ops.cuda.nb1d_q8 import LAUNCHES_PER_BLOCK
+    infer = build_fast_infer(sd, preds_only=True, q8_scales=scales)
+    plain = build_plain_infer(sd, preds_only=True, device=device,
+                              q8_scales=scales)
+    bf16 = build_fast_infer(sd, preds_only=True)
+    bf16_plain = build_plain_infer(sd, preds_only=True, device=device)
+    g = torch.Generator().manual_seed(32)
+    frames = [torch.randint(0, 256, (4, 512, 1024, 3), generator=g,
+                            dtype=torch.uint8).to(device) for _ in range(3)]
+    log("[int8 serving] build_fast_infer(preds_only=True, q8_scales), 3 "
+        "requests of 4x512x1024 uint8")
+    kernels.reset_launch_counts()
+    preds = [infer(to_tensor(f)) for f in frames]
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    log(f"  launches over 3 forwards: {counts}")
+    want = {"nb1d_q8": 17 * LAUNCHES_PER_BLOCK, "nb1d": 0, "downsampler": 3,
+            "upsampler": 2, "head_argmax": 1}
+    for name, n in counts.items():
+        if n != 3 * want.get(name, 0):
+            raise PhaseError(f"int8 {name}: {n} launches, expected "
+                             f"{3 * want.get(name, 0)}")
+    agree, agree_bf16, noise = [], [], []
+    for f, pr in zip(frames, preds):
+        if tuple(pr.shape) != (4, 512, 1024) or pr.dtype != torch.int32:
+            raise PhaseError(f"int8 preds {tuple(pr.shape)} {pr.dtype}")
+        if pr.min().item() < 0 or pr.max().item() >= N_CLASSES:
+            raise PhaseError("int8: predicted class out of range")
+        x = to_tensor(f)
+        agree.append((pr == plain(x)).float().mean().item())
+        pb = bf16(x)
+        agree_bf16.append((pr == pb).float().mean().item())
+        noise.append((pb == bf16_plain(x)).float().mean().item())
+    log(f"  agreement with the plain int8 path: {agree}")
+    log(f"  the bf16 path with its plain path, same frames: {noise}")
+    log(f"  agreement with the bf16 path (not gated): {agree_bf16}")
+    bad = [1 - a > Q8_NOISE_X * (1 - n) for a, n in zip(agree, noise)]
+    if any(bad):
+        raise PhaseError(f"int8 serving: {agree} against the plain int8 "
+                         f"path, beyond {Q8_NOISE_X}x the bf16 path's "
+                         f"disagreement {noise}")
+    # every int8 launch of the path against its plain version on the
+    # path's own inputs: the same pipeline with the int8 block's plain
+    # version gives bit-identical features
+    prep = prepare(sd, torch.bfloat16, device, scales)
+    hybrid = dict(KERNEL_OPS, nb1d_q8=PLAIN_OPS["nb1d_q8"])
+    with torch.inference_mode():
+        exact = all(torch.equal(
+            features(prep, to_tensor(f), torch.bfloat16, KERNEL_OPS),
+            features(prep, to_tensor(f), torch.bfloat16, hybrid))
+            for f in frames)
+    log(f"  features equal to those of the same path with the plain int8 "
+        f"block: {exact}")
+    if not exact:
+        raise PhaseError("int8 path differs from its plain int8 blocks")
+    f64_ops = dict(PLAIN_OPS, down=_down_f64)
+    prep_bf16 = prepare(sd, torch.bfloat16, device)
+    with torch.inference_mode():
+        for name, pp in (("int8", prep), ("bf16", prep_bf16)):
+            x = to_tensor(frames[0])
+            a = [PLAIN_OPS["head"](features(pp, x, torch.bfloat16, ops),
+                                   pp["head"]) for ops in (PLAIN_OPS,
+                                                           f64_ops)]
+            log(f"  yardstick: plain {name} path against itself with f64 "
+                f"downsampler sums: {(a[0] == a[1]).float().mean().item()}")
+    kernels.reset_launch_counts()
+    return counts["nb1d_q8"], min(agree), min(agree_bf16), min(noise)
+
+
+def phase_q8_timing(sd, scales, device, iters):
+    """(c) ms/img of the int8 and bf16 serving paths at B=1 and B=4, and
+    the int8 block summed over one B=4 forward beside its plain version and
+    its bound: the larger of bytes (input, output, codes, multipliers and
+    biases, each once) over 3.35 TB/s and int8 operations over 1979
+    TOP/s.  No single PyTorch call computes the block (library_ms null)."""
+    import torch
+    from erfnet_pytorch_tpu_torch.inference import build_fast_infer
+    from erfnet_pytorch_tpu_torch.ops import cuda as kernels
+    from erfnet_pytorch_tpu_torch.ops.cuda import nb1d_q8 as q8
+    g = torch.Generator().manual_seed(33)
+    log("[int8 timing] CUDA events")
+    paths = {"int8": build_fast_infer(sd, preds_only=True, q8_scales=scales),
+             "bf16": build_fast_infer(sd, preds_only=True)}
+    e2e = {}
+    for B in (1, 4):
+        x = torch.rand(B, 512, 1024, 3, generator=g).to(device)
+        for name in ("int8", "bf16", "int8", "bf16"):
+            ms = _time(lambda: paths[name](x), iters) / B
+            e2e.setdefault(f"{name}_ms_per_img_b{B}", []).append(ms)
+        for name in ("int8", "bf16"):
+            log(f"  {name} B={B}: "
+                f"{e2e[f'{name}_ms_per_img_b{B}']} ms/img (two turns)")
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    byte_ms = op_ms = 0.0
+    for prefix, shape, d, din, dout, n in q8_cases(4):
+        p = q8_params(sd, scales, prefix, d, device)
+        x = _q8_input(shape, scales[_scale_key(prefix)], din, g, device)
+        saved = q8.nb1d_q8.launches
+        ms = _time(lambda: q8.nb1d_q8(x, p, dout), iters)
+        q8.nb1d_q8.launches = saved  # timing launches are not the main path
+        pms = _time(lambda: q8.nb1d_q8_plain(x, p, dout), 3)
+        B, H, W, C = shape
+        esz = {torch.bfloat16: 2, torch.float32: 4}
+        nbytes = (B * H * W * C * (esz[din] + esz[dout]) + 12 * C * C
+                  + 2 * 4 * C * 4)
+        b_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        o_ms = 1e3 * 2 * B * H * W * 12 * C * C / INT8_OPS_PER_S
+        log(f"  nb1d_q8 C{C} d{d} {str(din)[6:]}->{str(dout)[6:]} x{n}: "
+            f"kernel {ms:.4f} ms, plain {pms:.4f}, bound "
+            f"{max(b_ms, o_ms):.4f} ({ms / max(b_ms, o_ms):.1f}x bound)")
+        tot["ms"] += n * ms
+        tot["plain_ms"] += n * pms
+        tot["bound_ms"] += n * max(b_ms, o_ms)
+        byte_ms += n * b_ms
+        op_ms += n * o_ms
+    tot["bound_by"] = "operations" if op_ms > byte_ms else "bytes"
+    tot["library_ms"] = None
+    log(f"  nb1d_q8 per B=4 forward: kernel {tot['ms']:.4f} ms, plain "
+        f"{tot['plain_ms']:.4f}, bound {tot['bound_ms']:.4f} "
+        f"({tot['bound_by']})")
+    kernels.reset_launch_counts()
+    return {k: min(v) for k, v in e2e.items()}, tot
+
+
+def phase_q8_profile(sd, scales, device, e2e, n=5):
+    """(d) torch.profiler over n int8 forwards at B=4: the device's busy
+    share of the event-timed forward, and device time by kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from erfnet_pytorch_tpu_torch.inference import build_fast_infer
+    from erfnet_pytorch_tpu_torch.ops import cuda as kernels
+    infer = build_fast_infer(sd, preds_only=True, q8_scales=scales)
+    x = torch.rand(4, 512, 1024, 3,
+                   generator=torch.Generator().manual_seed(34)).to(device)
+    log("[int8 profile] torch.profiler, per B=4 forward")
+    for _ in range(3):
+        infer(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            infer(x)
+        torch.cuda.synchronize()
+    r = busy_share(prof, n, 4e3 * e2e["int8_ms_per_img_b4"], "forward")
+    kernels.reset_launch_counts()
+    return r
 
 
 # ---------------------------------------------------------------------------
@@ -1604,6 +1924,12 @@ def main():
         counts, agree = phase_serving(sd, device)
         e2e, rows = phase_timing(sd, device, ITERS)
         prof = phase_profile(sd, device, e2e)
+        scales = phase_q8_calibrate(sd, device)
+        q8_err = phase_q8_parity(sd, scales, device)
+        q8_launches, q8_agree, q8_agree_bf16, q8_noise = phase_q8_serving(
+            sd, scales, device)
+        q8_e2e, q8_row = phase_q8_timing(sd, scales, device, ITERS)
+        q8_prof = phase_q8_profile(sd, scales, device, q8_e2e)
         terrs = phase_train_parity(device)
         net1, tcounts, losses, rerrs, agree_train = phase_train(sd, device)
         _sd2, t2counts, losses2, rerrs2, agree2 = phase_train2(net1.encoder,
@@ -1643,8 +1969,16 @@ def main():
             "bound_by": ("operations" if r["op_ms"] > r["byte_ms"]
                          else "bytes"),
             "library_ms": None if None in lib else sum(lib)})
+    src, repl = SOURCES["nb1d_q8"]
+    kernels.append({
+        "name": "nb1d_q8", "route": "cuda", "source": src, "replaces": repl,
+        "launches": q8_launches, "max_abs_err": q8_err, **q8_row})
     summary = {"build_s": build_s, "serving_agreement": agree, **e2e,
                "profile": prof,
+               "int8": {"agreement_plain": q8_agree,
+                        "bf16_agreement_plain": q8_noise,
+                        "agreement_bf16": q8_agree_bf16, **q8_e2e,
+                        "profile": q8_prof},
                "train": {"losses": losses, **agree_train, **te2e,
                          "profile": tprof, "rows": tacc[1][1]},
                "train_stage2": {"losses": losses2, **agree2,

@@ -14,18 +14,19 @@ def kernel_wrappers():
     """The wrappers of the serving path (downsampler, nb1d, upsampler,
     head_argmax), then those of the train path (forward and backward of
     the NB1d pair, the train downsampler, the head+loss and the train
-    upsampler)."""
+    upsampler), then the int8 NB1d block of the int8 serving path."""
     from .downsampler import downsampler
     from .downsampler_train import down_bwd, down_fwd
     from .head_argmax import head_argmax
     from .head_loss import head_loss_bwd, head_loss_fwd
     from .nb1d import nb1d
+    from .nb1d_q8 import nb1d_q8
     from .nb1d_pair import pair_bwd, pair_fwd
     from .upsampler import upsampler
     from .upsampler_train import ups_bwd, ups_fwd
     return (downsampler, nb1d, upsampler, head_argmax, pair_fwd, pair_bwd,
             down_fwd, down_bwd, head_loss_fwd, head_loss_bwd, ups_fwd,
-            ups_bwd)
+            ups_bwd, nb1d_q8)
 
 
 def reset_launch_counts():

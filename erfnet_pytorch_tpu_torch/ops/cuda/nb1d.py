@@ -103,14 +103,22 @@ def conv_stage_plain(x, w, b, *, axis, dilation, res=None):
     return torch.relu(acc).to(x.dtype)
 
 
-def nb1d_plain(x, p):
-    """One block, the TPU kernel's rounding points: each stage rounds to
-    x's dtype, the residual is added in f32 before the last rounding."""
+def nb1d_stages_plain(x, p):
+    """One block stage by stage -> (t1, t2, t3, out), the three post-ReLU
+    intermediates and the output, at the TPU kernel's rounding points:
+    each stage rounds to x's dtype, the residual is added in f32 before
+    the last rounding."""
     w, b, d = p["w"], p["b"], p["dilation"]
-    t = conv_stage_plain(x, w[0], b[0], axis=0, dilation=1)
-    t = conv_stage_plain(t, w[1], b[1], axis=1, dilation=1)
-    t = conv_stage_plain(t, w[2], b[2], axis=0, dilation=d)
-    return conv_stage_plain(t, w[3], b[3], axis=1, dilation=d, res=x)
+    t1 = conv_stage_plain(x, w[0], b[0], axis=0, dilation=1)
+    t2 = conv_stage_plain(t1, w[1], b[1], axis=1, dilation=1)
+    t3 = conv_stage_plain(t2, w[2], b[2], axis=0, dilation=d)
+    return t1, t2, t3, conv_stage_plain(t3, w[3], b[3], axis=1, dilation=d,
+                                        res=x)
+
+
+def nb1d_plain(x, p):
+    """One block (``nb1d_stages_plain``'s output)."""
+    return nb1d_stages_plain(x, p)[3]
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,9 @@ version at small and ragged shapes (tile tails, maps narrower than a
 tile, dilations beyond the map), the launch counters, the wrappers'
 refusals, the whole serving path against its plain pipeline, and the
 train steps of both stages against the same step through the plain
-versions (and against themselves: two runs give bit-identical
+versions, the int8 block against its plain version bit for bit at every
+input/output dtype pair, the int8 serving path against its plain
+pipeline, (and against themselves: two runs give bit-identical
 parameters), and each train kernel call of a step against its plain
 version on the call's own recorded inputs.
 
@@ -32,7 +34,7 @@ from erfnet_pytorch_tpu_torch.ops import cuda as kernels
 from erfnet_pytorch_tpu_torch.ops.cuda import (downsampler,
                                                downsampler_train, head_argmax,
                                                head_loss, nb1d, nb1d_pair,
-                                               route, upsampler,
+                                               nb1d_q8, route, upsampler,
                                                upsampler_train)
 
 pytestmark = pytest.mark.cuda
@@ -530,3 +532,79 @@ def test_stage2_train_step_on_the_card(dev, sd):
         "pair_fwd": 34, "pair_bwd": 34, "down_fwd": 3, "down_bwd": 3,
         "ups_fwd": 2, "ups_bwd": 2, "head_loss_fwd": 1, "head_loss_bwd": 1}
     smoke.check_recorded_calls(calls)
+
+
+BF, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("din,dout", [(BF, BF), (BF, F32), (F32, F32),
+                                      (F32, BF)])
+@pytest.mark.parametrize("prefix,shape,dil", [
+    ("encoder.layers.7", (1, 3, 5, 128), 2),
+    ("encoder.layers.10", (2, 8, 16, 128), 16),
+    ("encoder.layers.1", (1, 7, 9, 64), 1),
+    ("decoder.layers.4", (3, 5, 33, 16), 1),
+])
+def test_nb1d_q8_kernel(dev, sd, prefix, shape, dil, din, dout):
+    """The int8 block at ragged shapes, scales calibrated on the input
+    itself: equal to its plain version bit for bit (exact int32 sums, the
+    same rounded epilogues)."""
+    w, b = nb1d.fuse_nb1d_params(sd, prefix)
+    x = _x(shape, shape[-1], dev).to(din)
+    f32p = _on(nb1d.prepare_nb1d(w, b, dil, F32, round_bias=False), dev)
+    t1, t2, t3, _ = nb1d.nb1d_stages_plain(x.float(), f32p)
+    acts = {k: v.abs().max().item() for k, v in
+            zip(("in", "a1", "a2", "a3"), (x.float(), t1, t2, t3))}
+    p = _on(nb1d_q8.prepare_nb1d_q8(w, b, acts, dil), dev)
+    n0 = nb1d_q8.nb1d_q8.launches
+    got = nb1d_q8.nb1d_q8(x, p, dout)
+    torch.cuda.synchronize()
+    assert nb1d_q8.nb1d_q8.launches - n0 == nb1d_q8.LAUNCHES_PER_BLOCK
+    assert got.dtype == dout
+    assert torch.equal(got, nb1d_q8.nb1d_q8_plain(x, p, dout))
+
+
+def test_nb1d_q8_wrapper_refuses_what_the_kernel_does_not_take(dev, sd):
+    w, b = nb1d.fuse_nb1d_params(sd, "encoder.layers.1")
+    p = _on(nb1d_q8.prepare_nb1d_q8(w, b, {"in": 1, "a1": 1, "a2": 1,
+                                           "a3": 1}), dev)
+    with pytest.raises(TypeError):
+        nb1d_q8.nb1d_q8(torch.zeros(1, 4, 8, 64, device=dev,
+                                    dtype=torch.float16), p, BF)
+    with pytest.raises(TypeError):
+        nb1d_q8.nb1d_q8(torch.zeros(1, 4, 8, 64, device=dev, dtype=BF), p,
+                        torch.float16)
+    with pytest.raises(ValueError):
+        nb1d_q8.nb1d_q8(torch.zeros(1, 4, 8, 32, device=dev, dtype=BF), p,
+                        BF)                                        # C=32
+
+
+def test_int8_serving_path_matches_plain_pipeline(dev, sd):
+    """build_fast_infer(preds_only, q8_scales) on the card at B=2, 64x128,
+    scales calibrated on the card: 17 int8 block launches (9 single blocks
+    and the C=128 stack of 8), no bf16 block, and >= 99.5 % of the pixels
+    equal to the plain int8 pipeline's (the int8 blocks are bit-identical;
+    the down/upsamplers and the head differ by an ulp after differently
+    ordered sums, which can move a code at a rounding boundary)."""
+    from erfnet_pytorch_tpu_torch.data import to_tensor
+    from erfnet_pytorch_tpu_torch.quantize import calibrate_q8_scales
+    u8 = torch.randint(0, 256, (2, 64, 128, 3),
+                       generator=torch.Generator().manual_seed(6),
+                       dtype=torch.uint8).to(dev)
+    scales = calibrate_q8_scales(sd, [u8])
+    assert torch.backends.cudnn.allow_tf32 is False
+    infer = build_fast_infer(sd, preds_only=True, q8_scales=scales)
+    plain = build_plain_infer(sd, preds_only=True, device=dev,
+                              q8_scales=scales)
+    kernels.reset_launch_counts()
+    got = infer(to_tensor(u8))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert {k: counts.pop(k) for k in ("downsampler", "nb1d", "upsampler",
+                                       "head_argmax", "nb1d_q8")} == {
+        "downsampler": 3, "nb1d": 0, "upsampler": 2, "head_argmax": 1,
+        "nb1d_q8": 17 * nb1d_q8.LAUNCHES_PER_BLOCK}
+    assert set(counts.values()) == {0}
+    ref = plain(to_tensor(u8))
+    assert got.shape == (2, 64, 128) and got.dtype == torch.int32
+    assert (got == ref).float().mean().item() >= 0.995

@@ -1,6 +1,7 @@
 """PyTorch port: what the package may import, which device it runs on, when
 a kernel's launch counter moves, and the forward-time CLI on the CPU."""
 
+import json
 import os
 import pkgutil
 import subprocess
@@ -30,7 +31,8 @@ def test_package_imports_neither_jax_nor_the_jax_package():
     process already holds jax, through tests/conftest.py), leaves
     neither ``jax`` nor ``erfnet_pytorch_tpu`` in sys.modules."""
     mods = _modules()
-    for m in ("ops.cuda.nb1d", "ops.cuda.nb1d_pair", "ops.cuda.downsampler_train",
+    for m in ("ops.cuda.nb1d", "ops.cuda.nb1d_q8", "quantize",
+              "ops.cuda.nb1d_pair", "ops.cuda.downsampler_train",
               "ops.cuda.head_loss", "ops.cuda.upsampler_train",
               "ops.cuda.route", "ops.augment", "ops.convt_mm",
               "ops.dropout", "ops.loss",
@@ -98,8 +100,24 @@ def test_cpu_tensors_never_move_a_launch_counter():
     assert set(counts) == {"downsampler", "nb1d", "upsampler", "head_argmax",
                            "pair_fwd", "pair_bwd", "down_fwd", "down_bwd",
                            "head_loss_fwd", "head_loss_bwd", "ups_fwd",
-                           "ups_bwd"}
+                           "ups_bwd", "nb1d_q8"}
     assert set(counts.values()) == {0}
+
+
+def test_cpu_int8_forward_never_moves_a_launch_counter():
+    """The int8 serving path on CPU tensors (calibrated on the CPU) runs
+    the int8 block's plain version: every launch counter stays at 0."""
+    from erfnet_pytorch_tpu_torch.quantize import calibrate_q8_scales
+    net = init_weights(Net(20), torch.Generator().manual_seed(0))
+    x = torch.rand(1, 32, 64, 3, generator=torch.Generator().manual_seed(1))
+    scales = calibrate_q8_scales(net, [x], device="cpu")
+    assert len(scales) == 17
+    infer = build_fast_infer(net, preds_only=True, device="cpu",
+                             q8_scales=scales)
+    kernels.reset_launch_counts()
+    preds = infer(x)
+    assert preds.shape == (1, 32, 64) and preds.dtype == torch.int32
+    assert set(kernels.launch_counts().values()) == {0}
 
 
 def test_cpu_train_step_never_moves_a_launch_counter():
@@ -141,6 +159,26 @@ def test_eval_forward_time_cli_runs_on_cpu():
     line = [ln for ln in out.stdout.splitlines() if ln.startswith("FORWARD:")]
     assert len(line) == 1 and "ms/img" in line[0] and "cpu" in line[0]
     assert float(line[0].split()[1]) > 0
+
+
+def test_eval_forward_time_cli_int8_runs_on_cpu(tmp_path):
+    """--int8 without a scales file calibrates on the seeded input and
+    writes the file; a second run loads it."""
+    path = tmp_path / "scales.json"
+    cmd = [sys.executable, "-m",
+           "erfnet_pytorch_tpu_torch.cli.eval_forwardTime", "--cpu",
+           "--int8", "--q8-scales", str(path), "--height", "32", "--width",
+           "64", "--iterations", "1", "--warmup", "1"]
+    for said in ("calibrated activation scales on 1 batches",
+                 "loading calibration scales"):
+        out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                             timeout=300)
+        assert out.returncode == 0, out.stderr
+        assert said in out.stdout and "int8 NB1d" in out.stdout
+        line = [ln for ln in out.stdout.splitlines()
+                if ln.startswith("FORWARD:")]
+        assert len(line) == 1 and float(line[0].split()[1]) > 0
+    assert len(json.loads(path.read_text())) == 17
 
 
 def test_to_tensor_scales_uint8():
