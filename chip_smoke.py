@@ -10,7 +10,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
 2. Kernel parity: each kernel against its plain PyTorch version on the card,
    at every shape the 512x1024 serving path gives it, B=2, bf16, seeded
    inputs and weights with non-trivial BN running statistics, plus a
-   dilation beyond the map.  Tolerances:
+   dilation beyond the map (``nb1d`` also at the C=64 and C=16 blocks'
+   shapes, which the halo-tile block serves: its yardstick).  Tolerances:
      * bf16 outputs: >= 99.9 % of elements within 1 bf16 ulp, and max error
        <= 2^-6 relative to max(|ref|, rms(ref)).  Both sides accumulate in
        f32 in different orders and round once to bf16, so a rounding
@@ -22,8 +23,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
        that the f32 summation order may break either way).
 3. Serving: ``build_fast_infer(preds_only=True)`` at 20 classes on seeded
    random weights answers 3 requests of 4 uint8 512x1024 frames.  Checks
-   shape, dtype and class range; launch counts per forward of 3 / 17 / 2 / 1
-   (downsampler / nb1d, one launch per block / upsampler / head); and
+   shape, dtype and class range; launch counts per forward of 3 / 8 / 9 /
+   2 / 1 (downsampler / nb1d, the C=128 run, one launch per block /
+   nb1d_halo, the C=64 and C=16 blocks / upsampler / head); and
    >= 99.5 % pixel agreement with the same pipeline through the plain
    versions on the card.  The margin: the two paths round to bf16 after
    differently ordered f32 sums in each of 23 blocks, and a one-ulp
@@ -72,7 +74,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    step, its time by kernel, and the host's time and kernel launches by
    operation.
 
-Phases 10-13 (the int8 serving path) run right after phase 5:
+Phases 10-13 (the int8 serving path) run right after phase 5, and
+phases 14-16 (the 1024x2048 streaming path) right after phase 13:
 
 10. int8 calibration and parity: ``calibrate_q8_scales`` on 2 seeded
     uint8 batches of 4 512x1024 frames (f32 through the plain versions,
@@ -97,13 +100,42 @@ Phases 10-13 (the int8 serving path) run right after phase 5:
     or int8 operations over 1979 TOP/s, whichever is larger).
 13. int8 profile: the device's busy share of a B=4 int8 forward and its
     time by kernel.
+14. Halo parity: the halo-tile NB1d block ``nb1d_halo`` (the large maps'
+    block) against its plain version on the card, phase 2's tolerances,
+    at the 1024x2048 shapes (C=64 (2,256,512,64), C=16 (2,512,1024,16)),
+    the 512x1024 ones and ragged maps (H and W not tile multiples, one
+    row, one column); its agreement with ``nb1d`` printed, ungated.  Then
+    every other kernel of the 1024x2048 forward at its shapes there, B=2:
+    the three downsamplers, ``nb1d`` at C=128 for each dilation, the two
+    upsamplers and the head (phase 2's tolerances and near-tie rule), and
+    ``nb1d_q8`` at C=128 with its f32 carry, bit-identical as in phase 10.
+15. Streaming: ``StreamingSegmenter`` answers 3 requests of 2 host uint8
+    1024x2048 frames through the pinned path (color, then trainId and
+    labelId): launch counts per forward 3 / 8 / 9 / 2 / 1 (downsampler /
+    nb1d / nb1d_halo / upsampler / head); >= 99.5 % of the trainIds equal
+    to the plain pipeline's; the color and labelId outputs exactly the
+    port's colorize / remap of the trainIds.  With scales calibrated on
+    one 1024x2048 batch: nb1d_q8 8, nb1d_halo 9, nb1d 0 per forward, and
+    the disagreement with the plain int8 pipeline at most ``Q8_NOISE_X``
+    times the bf16 path's.  Then ``eval_cityscapes_color``,
+    ``eval_cityscapes_server`` and ``eval_iou --height 1024``, each in a
+    process of its own, on a synthetic tree of 4 1024x2048 frames: exit
+    0, 4 PNGs each, the IoU table.
+16. 1024x2048 timing and profile: ms/img at B=1 and B=4 (frames on the
+    card), the streaming rate in frames/s (host uint8 frames to host
+    uint8 color maps, 10 batches of 4), ``nb1d_halo`` summed over one B=4
+    forward (9 launches) beside its plain version, its bound and
+    ``nb1d``'s time on the same shapes, the same two blocks at the
+    512x1024 serving shapes, and the device's busy share of a B=4 forward
+    with its time by kernel.
 
 The last three lines are the card (``nvidia-smi`` name and power limit),
 one JSON object listing every kernel, and the result object.  In that
 object the train kernels' figures are sums over one step of each stage,
 and their launches the counts of phases 7 and 8 together; the int8
 block's figures are sums over one B=4 int8 forward, its launches the count
-of phase 11.
+of phase 11; the halo-tile block's are sums over one B=4 1024x2048
+forward, its launches the count of phase 15's color run.
 """
 
 from __future__ import annotations
@@ -120,17 +152,23 @@ BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor-core peak
 INT8_OPS_PER_S = 1979e12         # dense int8 tensor-core peak
 N_CLASSES = 20
 ITERS = 20                       # timed iterations per kernel measurement
-# launches per forward; nb1d's is 17 blocks times its launches per block
+# launches per forward; nb1d's is the 8 blocks of the C=128 run times its
+# launches per block.  The halo-tile block serves the other 9 NB1d blocks
+# (the C=64 and C=16 ones) at every frame size.
 PER_FORWARD = {"downsampler": 3, "nb1d": None, "upsampler": 2,
                "head_argmax": 1}
-# kernel -> (source, the TPU kernel it replaces).  nb1d also replaces
-# nb1d.py:434 (_nb1d_stack_kernel), head_argmax also head_argmax.py:65
-# (_kernel); PERF.md's table lists every row.
+HALO_PER_FORWARD = 9
+# kernel -> (source, the TPU kernel it replaces).  On the serving path
+# nb1d runs the C=128 run (nb1d.py:434, _nb1d_stack_kernel; it also
+# takes nb1d.py:140, _nb1d_kernel, at C=128), and nb1d_halo the C=64 and
+# C=16 blocks (_nb1d_kernel's W-packed form at 512x1024, nb1d.py:315 at
+# 1024x2048); head_argmax also replaces head_argmax.py:65 (_kernel).
+# PERF.md's table lists every row.
 SOURCES = {
     "downsampler": ("erfnet_pytorch_tpu_torch/csrc/downsampler.cu",
                     "erfnet_pytorch_tpu/ops/pallas/downsampler.py:790"),
     "nb1d": ("erfnet_pytorch_tpu_torch/csrc/nb1d.cu",
-             "erfnet_pytorch_tpu/ops/pallas/nb1d.py:140"),
+             "erfnet_pytorch_tpu/ops/pallas/nb1d.py:434"),
     "upsampler": ("erfnet_pytorch_tpu_torch/csrc/upsampler.cu",
                   "erfnet_pytorch_tpu/ops/pallas/upsampler.py:488"),
     "head_argmax": ("erfnet_pytorch_tpu_torch/csrc/head_argmax.cu",
@@ -148,6 +186,9 @@ SOURCES = {
     # the int8 path; also replaces nb1d_q8.py:223 (_nb1d_q8_stack_kernel)
     "nb1d_q8": ("erfnet_pytorch_tpu_torch/csrc/nb1d_q8.cu",
                 "erfnet_pytorch_tpu/ops/pallas/nb1d_q8.py:149"),
+    # the C=64 and C=16 blocks; the 1024x2048 path's large-map block
+    "nb1d_halo": ("erfnet_pytorch_tpu_torch/csrc/nb1d_halo.cu",
+                  "erfnet_pytorch_tpu/ops/pallas/nb1d.py:315"),
 }
 # train kernel -> its (forward, backward) wrappers' counter names
 TRAIN_WRAPPERS = {"nb1d_pair": ("pair_fwd", "pair_bwd"),
@@ -250,36 +291,47 @@ def head_ties(feats, p):
 
 
 # ---------------------------------------------------------------------------
-# shapes of the 512x1024 serving path
+# shapes of the serving path (512x1024, or the 1024x2048 streaming frames)
 # ---------------------------------------------------------------------------
 
-def down_cases(B):
+SERVE_HW = (512, 1024)
+STREAM_HW = (1024, 2048)
+
+
+def down_cases(B, hw=SERVE_HW):
     # (prefix, input shape)
-    return [("encoder.initial_block", (B, 512, 1024, 3)),
-            ("encoder.layers.0", (B, 256, 512, 16)),
-            ("encoder.layers.6", (B, 128, 256, 64))]
+    H, W = hw
+    return [("encoder.initial_block", (B, H, W, 3)),
+            ("encoder.layers.0", (B, H // 2, W // 2, 16)),
+            ("encoder.layers.6", (B, H // 4, W // 4, 64))]
 
 
-def nb1d_cases(B):
-    # (prefix, input shape, dilation, calls per forward)
-    cases = [("encoder.layers.1", (B, 128, 256, 64), 1, 7),
-             ("decoder.layers.4", (B, 256, 512, 16), 1, 2)]
-    cases += [(f"encoder.layers.{7 + k}", (B, 64, 128, 128), d, 2)
+def nb1d_cases(B, hw=SERVE_HW):
+    # (prefix, input shape, dilation, nb1d calls per forward).  The C=64
+    # and C=16 blocks run the halo-tile block (halo_cases); nb1d is held
+    # and timed at their shapes too, as its yardstick, with 0 calls.
+    H, W = hw
+    cases = [("encoder.layers.1", (B, H // 4, W // 4, 64), 1, 0),
+             ("decoder.layers.4", (B, H // 2, W // 2, 16), 1, 0)]
+    cases += [(f"encoder.layers.{7 + k}", (B, H // 8, W // 8, 128), d, 2)
               for k, d in enumerate((2, 4, 8, 16))]
     return cases
 
 
-def up_cases(B):
-    return [("decoder.layers.0", (B, 64, 128, 128)),
-            ("decoder.layers.3", (B, 128, 256, 64))]
+def up_cases(B, hw=SERVE_HW):
+    H, W = hw
+    return [("decoder.layers.0", (B, H // 8, W // 8, 128)),
+            ("decoder.layers.3", (B, H // 4, W // 4, 64))]
 
 
-def head_case(B):
-    return ("decoder.output_conv", (B, 256, 512, 16))
+def head_case(B, hw=SERVE_HW):
+    H, W = hw
+    return ("decoder.output_conv", (B, H // 2, W // 2, 16))
 
 
-def prepared_ops(sd, device):
-    """{kernel: [(label, params, input shape, calls per forward)]}."""
+def prepared_ops(sd, device, hw=SERVE_HW):
+    """{kernel: [(label, params, input shape, calls per forward)]} at the
+    B=4 shapes of an hw frame."""
     import torch
     from erfnet_pytorch_tpu_torch.ops.cuda.downsampler import \
         prepare_downsampler
@@ -301,13 +353,13 @@ def prepared_ops(sd, device):
 
     return {
         "downsampler": [(f"down {s[-1]}->", dev(prepare_downsampler(sd, p, bf)),
-                         s, 1) for p, s in down_cases(4)],
+                         s, 1) for p, s in down_cases(4, hw)],
         "nb1d": [(f"nb1d C{s[-1]} d{d}", nb(p, d, s[-1]), s, n)
-                 for p, s, d, n in nb1d_cases(4)],
+                 for p, s, d, n in nb1d_cases(4, hw)],
         "upsampler": [(f"up {s[-1]}->", dev(prepare_upsampler(sd, p, bf)), s,
-                       1) for p, s in up_cases(4)],
+                       1) for p, s in up_cases(4, hw)],
         "head_argmax": [("head", dev(prepare_head(sd, head_case(4)[0], bf)),
-                         head_case(4)[1], 1)],
+                         head_case(4, hw)[1], 1)],
     }
 
 
@@ -336,24 +388,20 @@ def _input(shape, g, device):
                                               dtype=torch.bfloat16)
 
 
-def phase_parity(sd, device):
+def serving_parity(ops, g, device, errs, extra_nb1d=()):
+    """Each serving kernel against its plain version on the card at B=2 and
+    the shapes of ``ops`` (``prepared_ops``), phase 2's tolerances; folds
+    each kernel's largest error into ``errs``."""
     import torch
     from erfnet_pytorch_tpu_torch.ops.cuda import (downsampler, head_argmax,
                                                    nb1d, upsampler)
-    ops = prepared_ops(sd, device)
-    g = torch.Generator().manual_seed(1)
-    errs = {k: 0.0 for k in PER_FORWARD}
-    log("[parity] kernel vs plain on the card, B=2, bf16")
     for label, p, shape, _n in ops["downsampler"]:
         x = _input((2,) + shape[1:], g, device)
         errs["downsampler"] = max(errs["downsampler"], compare_bf16(
             label, downsampler.downsampler(x, p),
             downsampler.downsampler_plain(x, p)))
     cases = [(label, p, s) for label, p, s, _n in ops["nb1d"]]
-    # a dilation beyond the map: every dilated side tap reads zero fill
-    big = dict(ops["nb1d"][-1][1], dilation=160)
-    cases.append(("nb1d C128 d160 (>= H, W)", big, (4, 64, 128, 128)))
-    for label, p, shape in cases:
+    for label, p, shape in cases + list(extra_nb1d):
         # post-ReLU block inputs are non-negative
         x = _input((2,) + shape[1:], g, device).relu()
         errs["nb1d"] = max(errs["nb1d"], compare_bf16(
@@ -377,9 +425,22 @@ def phase_parity(sd, device):
         f"-> {'ok' if bad == 0 else 'FAIL'}")
     if bad:
         raise PhaseError("head_argmax disagrees off a tie")
-    errs["head_argmax"] = float((got - ref).abs()[~ties].max().item())
+    errs["head_argmax"] = max(errs["head_argmax"], float(
+        (got - ref).abs()[~ties].max().item()))
     torch.cuda.synchronize()
     return errs
+
+
+def phase_parity(sd, device):
+    import torch
+    ops = prepared_ops(sd, device)
+    g = torch.Generator().manual_seed(1)
+    log("[parity] kernel vs plain on the card, B=2, bf16")
+    # a dilation beyond the map: every dilated side tap reads zero fill
+    big = dict(ops["nb1d"][-1][1], dilation=160)
+    return serving_parity(
+        ops, g, device, {k: 0.0 for k in PER_FORWARD},
+        extra_nb1d=[("nb1d C128 d160 (>= H, W)", big, (4, 64, 128, 128))])
 
 
 def phase_serving(sd, device):
@@ -401,10 +462,8 @@ def phase_serving(sd, device):
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     log(f"  launches over 3 forwards: {counts}")
-    for name, per in PER_FORWARD.items():
-        if counts[name] != 3 * per:
-            raise PhaseError(f"{name}: {counts[name]} launches, expected "
-                             f"{3 * per}")
+    _check_counts(counts, dict(PER_FORWARD, nb1d_halo=HALO_PER_FORWARD), 3,
+                  "serving")
     agree = []
     for f, pr in zip(frames, preds):
         if tuple(pr.shape) != (4, 512, 1024) or pr.dtype != torch.int32:
@@ -595,14 +654,15 @@ def phase_profile(sd, device, e2e, n=5):
 # int8 block cases of one B forward: (prefix, input shape, dilation, input
 # dtype, output dtype, calls per forward).  The C=128 run is the int8
 # stack: bf16 in, an f32 carry between its blocks, bf16 out.
-def q8_cases(B):
+def q8_cases(B, hw=SERVE_HW):
     import torch
     bf, f32 = torch.bfloat16, torch.float32
-    cases = [("encoder.layers.1", (B, 128, 256, 64), 1, bf, bf, 7),
-             ("decoder.layers.4", (B, 256, 512, 16), 1, bf, bf, 2)]
+    H, W = hw
+    cases = [("encoder.layers.1", (B, H // 4, W // 4, 64), 1, bf, bf, 7),
+             ("decoder.layers.4", (B, H // 2, W // 2, 16), 1, bf, bf, 2)]
     for k, d in enumerate((2, 4, 8, 16, 2, 4, 8, 16)):
-        cases.append((f"encoder.layers.{7 + k}", (B, 64, 128, 128), d,
-                      bf if k == 0 else f32, bf if k == 7 else f32, 1))
+        cases.append((f"encoder.layers.{7 + k}", (B, H // 8, W // 8, 128),
+                      d, bf if k == 0 else f32, bf if k == 7 else f32, 1))
     return cases
 
 
@@ -649,21 +709,12 @@ def phase_q8_calibrate(sd, device):
     return scales
 
 
-def phase_q8_parity(sd, scales, device):
-    """(a) The int8 block against its plain version on the card at B=2 and
-    every shape and dtype pair of the int8 path, plus bf16 -> bf16 at
-    C=128 and a dilation beyond the map: bit-identical (the int32 sums are
-    exact, the epilogues round at the same points)."""
+def q8_parity(sd, scales, cases, g, device):
+    """The int8 block against its plain version on the card at each case
+    (prefix, shape, dilation, input dtype, output dtype): bit-identical.
+    Returns the largest difference (0)."""
     import torch
     from erfnet_pytorch_tpu_torch.ops.cuda import nb1d_q8 as q8
-    g = torch.Generator().manual_seed(31)
-    bf = torch.bfloat16
-    cases = [(p, (2,) + s[1:], d, di, do) for p, s, d, di, do, _n in
-             q8_cases(2)]
-    cases += [("encoder.layers.7", (2, 64, 128, 128), 2, bf, bf),
-              ("encoder.layers.10", (2, 64, 128, 128), 160, bf, bf)]
-    log("[int8 parity] nb1d_q8 kernel vs plain on the card, B=2, "
-        "bit-identical")
     err = 0.0
     for prefix, shape, d, din, dout in cases:
         p = q8_params(sd, scales, prefix, d, device)
@@ -675,13 +726,31 @@ def phase_q8_parity(sd, scales, device):
             raise PhaseError(f"nb1d_q8 {prefix}: {got.dtype}, or non-finite")
         diff = (got.float() - ref.float()).abs()
         n = int((diff > 0).sum())
-        log(f"  C{shape[-1]} d{d} {str(din)[6:]}->{str(dout)[6:]}: "
-            f"{n} of {diff.numel()} elements differ, max "
-            f"{diff.max().item():.3e} -> {'ok' if n == 0 else 'FAIL'}")
+        log(f"  C{shape[-1]} {shape[1]}x{shape[2]} d{d} "
+            f"{str(din)[6:]}->{str(dout)[6:]}: {n} of {diff.numel()} "
+            f"elements differ, max {diff.max().item():.3e} -> "
+            f"{'ok' if n == 0 else 'FAIL'}")
         if n:
             raise PhaseError("nb1d_q8 kernel differs from its plain version")
         err = max(err, diff.max().item())
     return err
+
+
+def phase_q8_parity(sd, scales, device):
+    """(a) The int8 block against its plain version on the card at B=2 and
+    every shape and dtype pair of the int8 path, plus bf16 -> bf16 at
+    C=128 and a dilation beyond the map: bit-identical (the int32 sums are
+    exact, the epilogues round at the same points)."""
+    import torch
+    g = torch.Generator().manual_seed(31)
+    bf = torch.bfloat16
+    cases = [(p, (2,) + s[1:], d, di, do) for p, s, d, di, do, _n in
+             q8_cases(2)]
+    cases += [("encoder.layers.7", (2, 64, 128, 128), 2, bf, bf),
+              ("encoder.layers.10", (2, 64, 128, 128), 160, bf, bf)]
+    log("[int8 parity] nb1d_q8 kernel vs plain on the card, B=2, "
+        "bit-identical")
+    return q8_parity(sd, scales, cases, g, device)
 
 
 # The int8 path against its plain pipeline: the int8 blocks are bit-
@@ -874,6 +943,355 @@ def phase_q8_profile(sd, scales, device, e2e, n=5):
     r = busy_share(prof, n, 4e3 * e2e["int8_ms_per_img_b4"], "forward")
     kernels.reset_launch_counts()
     return r
+
+
+# ---------------------------------------------------------------------------
+# the 1024x2048 streaming path (StreamingSegmenter, the eval CLIs)
+# ---------------------------------------------------------------------------
+
+# halo-tile block cases of one B forward of an hw frame (by default
+# 1024x2048): (prefix, input shape, calls per forward).
+def halo_cases(B, hw=STREAM_HW):
+    H, W = hw
+    return [("encoder.layers.1", (B, H // 4, W // 4, 64), 7),
+            ("decoder.layers.4", (B, H // 2, W // 2, 16), 2)]
+
+
+def halo_params(sd, prefix, device):
+    import torch
+    from erfnet_pytorch_tpu_torch.ops.cuda.nb1d import (fuse_nb1d_params,
+                                                        prepare_nb1d)
+    w, b = fuse_nb1d_params(sd, prefix)
+    p = prepare_nb1d(w, b, 1, torch.bfloat16, round_bias=False)
+    return {k: v.to(device) if hasattr(v, "to") else v for k, v in p.items()}
+
+
+def phase_halo_parity(sd, scales, device):
+    """14. The halo-tile block against its plain version on the card, bf16,
+    phase 2's tolerances: the 1024x2048 shapes at B=2, the 512x1024
+    shapes, and ragged maps (H and W not tile multiples, one row, one
+    column).  Its agreement with the whole-map block ``nb1d`` on the same
+    inputs is printed, ungated.  Then every other kernel of the 1024x2048
+    forward at its shapes there, B=2: the downsamplers, nb1d (the C=128
+    run, each dilation), the upsamplers and the head as in phase 2, and
+    the int8 block at C=128 with its f32 carry (the int8 stack, scales of
+    phase 10) bit-identical as in phase 10.  Returns the halo block's
+    largest error, the others' by kernel, and the int8 block's."""
+    import torch
+    from erfnet_pytorch_tpu_torch.ops.cuda import nb1d, nb1d_halo
+    g = torch.Generator().manual_seed(40)
+    params = {c: halo_params(sd, p, device) for p, (_b, _h, _w, c), _n in
+              halo_cases(1)}
+    shapes = [s for _p, s, _n in halo_cases(2)]
+    shapes += [s for _p, s, _n in halo_cases(2, SERVE_HW)]
+    for c in (64, 16):
+        th, tw = nb1d_halo.TILES[c]
+        shapes += [(2, 5 * th + 3, 7 * tw + 5, c), (1, 1, 3 * tw + 1, c),
+                   (1, 4 * th + 1, 1, c), (3, th - 1, tw + 1, c)]
+    log("[halo parity] nb1d_halo kernel vs plain on the card, bf16")
+    err = 0.0
+    for shape in shapes:
+        p = params[shape[-1]]
+        x = _input(shape, g, device).relu()
+        got = nb1d_halo.nb1d_halo(x, p)
+        ref = nb1d_halo.nb1d_halo_plain(x, p)
+        torch.cuda.synchronize()
+        err = max(err, compare_bf16(f"nb1d_halo {shape}", got, ref))
+        within1, ulps, rel, _e, _ok = bf16_metrics(
+            "nb1d", got, nb1d.nb1d(x, p))
+        log(f"    against nb1d (csrc/nb1d.cu), not gated: within 1 ulp "
+            f"{within1:.6f}, max ulps {ulps}, max rel {rel:.3e}")
+    torch.cuda.synchronize()
+
+    log("[stream parity] the other kernels at the 1024x2048 shapes, B=2")
+    ops = prepared_ops(sd, device, STREAM_HW)
+    ops["nb1d"] = [c for c in ops["nb1d"] if c[3] > 0]    # the C=128 run
+    errs = serving_parity(ops, g, device, {k: 0.0 for k in PER_FORWARD})
+    cases = [(p, (2,) + s[1:], d, di, do) for p, s, d, di, do, _n in
+             q8_cases(2, STREAM_HW) if s[-1] == 128]
+    log("[stream int8 parity] nb1d_q8 at C=128 with its f32 carry, B=2, "
+        "bit-identical")
+    q8_err = q8_parity(sd, scales, cases, g, device)
+    return err, errs, q8_err
+
+
+# launches per 1024x2048 forward, bf16 and with int8 scales
+STREAM_PER_FORWARD = {"downsampler": 3, "nb1d": 8, "nb1d_halo": 9,
+                      "upsampler": 2, "head_argmax": 1}
+STREAM_Q8_PER_FORWARD = {"downsampler": 3, "nb1d_q8": 8, "nb1d_halo": 9,
+                         "upsampler": 2, "head_argmax": 1}
+
+
+def _stream_requests(seed, n=3, B=2):
+    """n requests of B host uint8 1024x2048 frames, with their names."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    return [(torch.randint(0, 256, (B,) + STREAM_HW + (3,), generator=g,
+                           dtype=torch.uint8), None,
+             [f"r{i}/f{j}.png" for j in range(B)]) for i in range(n)]
+
+
+def _check_counts(counts, per_forward, n, what):
+    for name, got in counts.items():
+        want = n * per_forward.get(name, 0)
+        if got != want:
+            raise PhaseError(f"{what} {name}: {got} launches, expected "
+                             f"{want}")
+
+
+def _stream_run(seg, requests, what):
+    """Drive the segmenter over the requests with every launch count set to
+    0 just before and read just after; returns (outputs, counts)."""
+    import torch
+    from erfnet_pytorch_tpu_torch.ops import cuda as kernels
+    kernels.reset_launch_counts()
+    outs = list(seg.run(requests))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    log(f"  {what}: launches over {len(requests)} requests: "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    if [r for _o, r in outs] != [q[2] for q in requests]:
+        raise PhaseError(f"{what}: outputs out of order")
+    return [o for o, _r in outs], counts
+
+
+def _write_cityscapes(root, n, seed):
+    """A synthetic Cityscapes tree: n 1024x2048 frames and labelTrainIds
+    (with a void band) under leftImg8bit/val and gtFine/val."""
+    import numpy as np
+    from PIL import Image
+    rng = np.random.RandomState(seed)
+    for i in range(n):
+        city = f"city{i % 2}"
+        stem = f"{city}_{i:06d}_000019"
+        for sub in ("leftImg8bit", "gtFine"):
+            os.makedirs(os.path.join(root, sub, "val", city), exist_ok=True)
+        img = rng.randint(0, 256, STREAM_HW + (3,), dtype=np.uint8)
+        Image.fromarray(img).save(os.path.join(
+            root, "leftImg8bit", "val", city, f"{stem}_leftImg8bit.png"),
+            compress_level=1)
+        lab = rng.randint(0, 19, STREAM_HW, dtype=np.uint8)
+        lab[:64] = 255
+        Image.fromarray(lab, mode="L").save(os.path.join(
+            root, "gtFine", "val", city, f"{stem}_gtFine_labelTrainIds.png"),
+            compress_level=1)
+
+
+def phase_stream(sd, device):
+    """15. StreamingSegmenter at 1024x2048: 3 requests of 2 host uint8
+    frames through the pinned path for each output form (the color run
+    is the main path).  Checks the launch counts per forward (3 / 8 / 9 /
+    2 / 1: downsampler / nb1d (the C=128 run) / nb1d_halo (the C=64 and
+    C=16 blocks) / upsampler / head); >= 99.5 % of the trainIds equal to
+    the plain pipeline's on the card; the color and labelId outputs
+    exactly the port's colorize / train_id_to_label_id of the trainIds.
+    Then the same with scales calibrated on one 1024x2048 batch: 8
+    nb1d_q8 and 9 nb1d_halo launches per forward, no nb1d, and the pixels
+    that disagree with the plain int8 pipeline at most Q8_NOISE_X times
+    those of the bf16 path.  Then the three eval CLIs, each a process of
+    its own, on a synthetic Cityscapes tree of 4 frames at 1024x2048:
+    exit 0, 4 PNGs each, and the IoU table."""
+    import tempfile
+    import torch
+    from erfnet_pytorch_tpu_torch.data.transforms import (
+        colorize, to_tensor, train_id_to_label_id)
+    from erfnet_pytorch_tpu_torch.inference import build_plain_infer
+    from erfnet_pytorch_tpu_torch.quantize import calibrate_q8_scales
+    from erfnet_pytorch_tpu_torch.streaming import StreamingSegmenter
+    requests = _stream_requests(50)
+    log("[stream] StreamingSegmenter, 3 requests of 2 host uint8 "
+        "1024x2048 frames")
+    outs, counts = {}, None
+    for output in ("color", "trainId", "labelId"):
+        seg = StreamingSegmenter(sd, output=output)
+        outs[output], c = _stream_run(seg, requests, output)
+        if output == "color":
+            counts = c
+        _check_counts(c, STREAM_PER_FORWARD, len(requests), output)
+    plain = build_plain_infer(sd, preds_only=True, device=device)
+    agree = []
+    with torch.inference_mode():
+        for (f, _l, _r), col, tid, lid in zip(requests, outs["color"],
+                                              outs["trainId"],
+                                              outs["labelId"]):
+            t = torch.from_numpy(tid).long()
+            if tuple(t.shape) != (2,) + STREAM_HW or t.max() >= N_CLASSES:
+                raise PhaseError(f"trainIds {tuple(t.shape)}, max "
+                                 f"{t.max().item()}")
+            if not (torch.equal(torch.from_numpy(col), colorize(t)) and
+                    torch.equal(torch.from_numpy(lid),
+                                train_id_to_label_id(t))):
+                raise PhaseError("color / labelId outputs are not the "
+                                 "colorize / remap of the trainIds")
+            ref = plain(to_tensor(f.to(device))).cpu()
+            agree.append((t == ref).float().mean().item())
+    log(f"  color and labelId exactly colorize / remap of the trainIds; "
+        f"trainId agreement with the plain pipeline: {agree}")
+    if min(agree) < 0.995:
+        raise PhaseError(f"streaming agreement {min(agree)} < 0.995")
+
+    calib = requests[0][0].to(device)
+    scales = calibrate_q8_scales(sd, [calib])
+    log(f"[stream int8] scales of {len(scales)} blocks calibrated on one "
+        "2x1024x2048 batch")
+    seg = StreamingSegmenter(sd, output="trainId", q8_scales=scales)
+    q8_requests = _stream_requests(51)
+    q8_outs, q8_counts = _stream_run(seg, q8_requests, "int8 trainId")
+    _check_counts(q8_counts, STREAM_Q8_PER_FORWARD, len(q8_requests),
+                  "int8")
+    plain_q8 = build_plain_infer(sd, preds_only=True, device=device,
+                                 q8_scales=scales)
+    bf16 = StreamingSegmenter(sd, output="trainId")
+    q8_agree, noise = [], []
+    with torch.inference_mode():
+        for (f, _l, _r), tid in zip(q8_requests, q8_outs):
+            x = to_tensor(f.to(device))
+            q8_agree.append((torch.from_numpy(tid).to(device).long()
+                             == plain_q8(x)).float().mean().item())
+            noise.append((bf16.step(f).long() == plain(x)).float()
+                         .mean().item())
+    log(f"  int8 agreement with the plain int8 pipeline: {q8_agree}; "
+        f"the bf16 path with its plain pipeline: {noise}")
+    if any(1 - a > Q8_NOISE_X * (1 - n) for a, n in zip(q8_agree, noise)):
+        raise PhaseError("int8 streaming disagrees beyond "
+                         f"{Q8_NOISE_X}x the bf16 path")
+
+    log("[stream CLIs] eval_cityscapes_color, eval_cityscapes_server, "
+        "eval_iou on 4 synthetic 1024x2048 frames")
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        _write_cityscapes(tmp, 4, 52)
+        wpath = os.path.join(tmp, "model_best.pth")
+        torch.save(sd, wpath)
+        base = ["--datadir", tmp, "--state", wpath, "--subset", "val",
+                "--height", str(STREAM_HW[0]), "--batch-size", "2",
+                "--num-workers", "4"]
+        for cli, extra in (("eval_cityscapes_color", ["--outdir"]),
+                           ("eval_cityscapes_server", ["--outdir"]),
+                           ("eval_iou", [])):
+            args = base + (extra + [os.path.join(tmp, cli)] if extra
+                           else [])
+            t0 = time.time()
+            r = subprocess.run(
+                [sys.executable, "-m", f"erfnet_pytorch_tpu_torch.cli.{cli}",
+                 *args], cwd=here, capture_output=True, text=True,
+                timeout=300)
+            if r.returncode != 0:
+                log(r.stdout[-3000:] + r.stderr[-3000:])
+                raise PhaseError(f"{cli}: exit {r.returncode}")
+            if extra:
+                pngs = [os.path.join(d, f) for d, _s, fs in
+                        os.walk(os.path.join(tmp, cli)) for f in fs
+                        if f.endswith(".png")]
+                ok = len(pngs) == 4
+                said = f"{len(pngs)} PNGs"
+            else:
+                ok = "MEAN IoU" in r.stdout and r.stdout.count("% ") >= 20
+                said = r.stdout.strip().splitlines()[-1]
+            log(f"  {cli}: exit 0 in {time.time() - t0:.1f} s, {said}")
+            if not ok:
+                raise PhaseError(f"{cli}: wrote no expected output")
+    return counts, min(agree), q8_counts, min(q8_agree), min(noise)
+
+
+def phase_stream_timing(sd, device, iters):
+    """16. At 1024x2048: ms/img at B=1 and B=4 (CUDA events, frames on the
+    card); the streaming rate in frames/s from host uint8 frames to host
+    uint8 color maps over 10 batches of 4; nb1d_halo summed over one B=4
+    forward (9 launches) beside its plain version, its bound and nb1d's
+    time on the same shapes, and the same two blocks at the 512x1024
+    serving path's shapes; the device's busy share of a B=4 forward and
+    its time by kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from erfnet_pytorch_tpu_torch.inference import build_fast_infer
+    from erfnet_pytorch_tpu_torch.ops import cuda as kernels
+    from erfnet_pytorch_tpu_torch.ops.cuda import nb1d, nb1d_halo
+    from erfnet_pytorch_tpu_torch.streaming import StreamingSegmenter
+    g = torch.Generator().manual_seed(53)
+    log("[stream timing] 1024x2048, CUDA events")
+    infer = build_fast_infer(sd, preds_only=True)
+    e2e = {}
+    for B in (1, 4):
+        x = torch.rand((B,) + STREAM_HW + (3,), generator=g).to(device)
+        e2e[f"ms_per_img_b{B}"] = _time(lambda: infer(x), iters) / B
+        log(f"  forward B={B}: {e2e[f'ms_per_img_b{B}']:.4f} ms/img")
+    seg = StreamingSegmenter(sd, output="color")
+    batches = _stream_requests(54, n=10, B=4)
+    list(seg.run(batches[:2]))             # warm the pinned buffers
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = sum(out.shape[0] for out, _r in seg.run(batches))
+    dt = time.perf_counter() - t0
+    e2e["stream_frames_per_s"] = n / dt
+    log(f"  streaming, host uint8 -> host uint8 color: {n} frames in "
+        f"{dt:.3f} s = {n / dt:.2f} frames/s")
+
+    row = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "nb1d_ms": 0.0}
+    byte_ms = op_ms = 0.0
+    for prefix, shape, calls in halo_cases(4):
+        p = halo_params(sd, prefix, device)
+        x = _input(shape, g, device).relu()
+        saved = (nb1d_halo.nb1d_halo.launches, nb1d.nb1d.launches)
+        ms = _time(lambda: nb1d_halo.nb1d_halo(x, p), iters)
+        whole = _time(lambda: nb1d.nb1d(x, p), iters)
+        # timing launches are not the main path
+        nb1d_halo.nb1d_halo.launches, nb1d.nb1d.launches = saved
+        pms = _time(lambda: nb1d_halo.nb1d_halo_plain(x, p), 3)
+        b_ms, o_ms = bound_ms("nb1d", shape, p)
+        log(f"  nb1d_halo C{shape[-1]} {shape[1]}x{shape[2]} x{calls}: "
+            f"kernel {ms:.4f} ms, plain {pms:.4f}, bound "
+            f"{max(b_ms, o_ms):.4f} ({'bytes' if b_ms > o_ms else 'ops'}), "
+            f"nb1d {whole:.4f} ({ms / max(b_ms, o_ms):.1f}x bound)")
+        row["ms"] += calls * ms
+        row["plain_ms"] += calls * pms
+        row["bound_ms"] += calls * max(b_ms, o_ms)
+        row["nb1d_ms"] += calls * whole
+        byte_ms += calls * b_ms
+        op_ms += calls * o_ms
+    row["bound_by"] = "operations" if op_ms > byte_ms else "bytes"
+    log(f"  nb1d_halo per B=4 forward: kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} "
+        f"({row['bound_by']}), nb1d on the same shapes {row['nb1d_ms']:.4f}")
+    # the 512x1024 serving path's C=64 and C=16 blocks: the halo-tile block
+    # against the whole-map block, in turns, the better of two each
+    serve = {"ms": 0.0, "nb1d_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    for prefix, shape, calls in halo_cases(4, SERVE_HW):
+        p = halo_params(sd, prefix, device)
+        x = _input(shape, g, device).relu()
+        saved = (nb1d_halo.nb1d_halo.launches, nb1d.nb1d.launches)
+        ms, whole = [], []
+        for _ in range(2):
+            ms.append(_time(lambda: nb1d_halo.nb1d_halo(x, p), iters))
+            whole.append(_time(lambda: nb1d.nb1d(x, p), iters))
+        nb1d_halo.nb1d_halo.launches, nb1d.nb1d.launches = saved
+        pms = _time(lambda: nb1d_halo.nb1d_halo_plain(x, p), 3)
+        b_ms, o_ms = bound_ms("nb1d", shape, p)
+        log(f"  512x1024 C{shape[-1]} {shape[1]}x{shape[2]} x{calls}: "
+            f"nb1d_halo {min(ms):.4f} ms, nb1d {min(whole):.4f}, plain "
+            f"{pms:.4f}, bound {max(b_ms, o_ms):.4f}")
+        serve["ms"] += calls * min(ms)
+        serve["nb1d_ms"] += calls * min(whole)
+        serve["plain_ms"] += calls * pms
+        serve["bound_ms"] += calls * max(b_ms, o_ms)
+    e2e["nb1d_halo_512x1024"] = serve
+    log(f"  512x1024 per B=4 forward, the 9 C=64 and C=16 blocks: "
+        f"nb1d_halo {serve['ms']:.4f} ms, nb1d {serve['nb1d_ms']:.4f}, "
+        f"plain {serve['plain_ms']:.4f}, bound {serve['bound_ms']:.4f}")
+
+    x = torch.rand((4,) + STREAM_HW + (3,), generator=g).to(device)
+    for _ in range(2):
+        infer(x)
+    torch.cuda.synchronize()
+    log("[stream profile] torch.profiler, per B=4 1024x2048 forward")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            infer(x)
+        torch.cuda.synchronize()
+    prof_out = busy_share(prof, 3, 4e3 * e2e["ms_per_img_b4"], "forward")
+    kernels.reset_launch_counts()
+    return e2e, row, prof_out
 
 
 # ---------------------------------------------------------------------------
@@ -1910,7 +2328,7 @@ def main():
             "script: the kernels must be built from this checkout")
         return 2
     from erfnet_pytorch_tpu_torch.ops.cuda.nb1d import LAUNCHES_PER_BLOCK
-    PER_FORWARD["nb1d"] = 17 * LAUNCHES_PER_BLOCK
+    PER_FORWARD["nb1d"] = 8 * LAUNCHES_PER_BLOCK
     # the plain versions are the f32 reference: no TF32 anywhere
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1930,6 +2348,12 @@ def main():
             sd, scales, device)
         q8_e2e, q8_row = phase_q8_timing(sd, scales, device, ITERS)
         q8_prof = phase_q8_profile(sd, scales, device, q8_e2e)
+        halo_err, st_errs, st_q8_err = phase_halo_parity(sd, scales, device)
+        errs = {k: max(v, st_errs[k]) for k, v in errs.items()}
+        q8_err = max(q8_err, st_q8_err)
+        (st_counts, st_agree, st_q8_counts, st_q8_agree,
+         st_noise) = phase_stream(sd, device)
+        st_e2e, halo_row, st_prof = phase_stream_timing(sd, device, ITERS)
         terrs = phase_train_parity(device)
         net1, tcounts, losses, rerrs, agree_train = phase_train(sd, device)
         _sd2, t2counts, losses2, rerrs2, agree2 = phase_train2(net1.encoder,
@@ -1973,12 +2397,28 @@ def main():
     kernels.append({
         "name": "nb1d_q8", "route": "cuda", "source": src, "replaces": repl,
         "launches": q8_launches, "max_abs_err": q8_err, **q8_row})
+    src, repl = SOURCES["nb1d_halo"]
+    # no single PyTorch call computes the fused block: library_ms null;
+    # nb1d's time on the same shapes is in the summary
+    kernels.append({
+        "name": "nb1d_halo", "route": "cuda", "source": src,
+        "replaces": repl, "launches": st_counts["nb1d_halo"],
+        "max_abs_err": halo_err, "ms": halo_row["ms"],
+        "plain_ms": halo_row["plain_ms"], "bound_ms": halo_row["bound_ms"],
+        "bound_by": halo_row["bound_by"], "library_ms": None})
     summary = {"build_s": build_s, "serving_agreement": agree, **e2e,
                "profile": prof,
                "int8": {"agreement_plain": q8_agree,
                         "bf16_agreement_plain": q8_noise,
                         "agreement_bf16": q8_agree_bf16, **q8_e2e,
                         "profile": q8_prof},
+               "stream_1024x2048": {
+                   "agreement_plain": st_agree, **st_e2e,
+                   "int8_agreement_plain": st_q8_agree,
+                   "bf16_agreement_plain_int8_frames": st_noise,
+                   "int8_launches": st_q8_counts,
+                   "nb1d_halo_nb1d_ms_same_shapes": halo_row["nb1d_ms"],
+                   "profile": st_prof},
                "train": {"losses": losses, **agree_train, **te2e,
                          "profile": tprof, "rows": tacc[1][1]},
                "train_stage2": {"losses": losses2, **agree2,

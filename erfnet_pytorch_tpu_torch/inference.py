@@ -3,17 +3,21 @@ through its kernel — the counterpart of the JAX ``inference.py:
 build_fast_infer``.
 
   * DownsamplerBlocks (3)              -> ops/cuda/downsampler.py
-  * non_bottleneck_1d blocks (17)      -> ops/cuda/nb1d.py
+  * non_bottleneck_1d blocks (17)      -> ops/cuda/nb1d_halo.py for
+    the C=64 and C=16 blocks (d=1), ops/cuda/nb1d.py for the dilated
+    C=128 run, at every map size
   * UpsamplerBlocks (2)                -> ops/cuda/upsampler.py
   * head ConvT + argmax (preds_only)   -> ops/cuda/head_argmax.py
 
 With calibrated activation scales (``q8_scales``, see ``quantize.py``) the
 NB1d blocks run the w8a8 int8 block (ops/cuda/nb1d_q8.py) where the JAX
-package runs its int8 kernels: a block with scales whose map passes the JAX
-``_eligible`` gate (``q8_eligible``), and the dilated C=128 run as one
-int8 stack, with an f32 carry between its blocks, only when every block
-of it has scales.  Other blocks and maps run the bf16 block, as in the
-JAX package.
+package runs its int8 kernels: a block with scales whose map passes the
+gate, and the dilated C=128 run as one int8 stack, with an f32 carry
+between its blocks, only when every block of it has scales.  Other
+blocks and maps run the bf16 blocks, as in the JAX package.  The gate
+(``whole_map_eligible``) decides only the int8 choice, since it decides
+what the reference computes; the two bf16 blocks compute the same
+function, so the bf16 choice is by channel count and dilation alone.
 
 Weights are folded once at build time.  On a CUDA device every block runs
 its kernel (bf16); on the CPU every block runs the kernel's plain version.
@@ -35,14 +39,16 @@ from .ops.cuda.downsampler import (downsampler, downsampler_plain,
                                    prepare_downsampler)
 from .ops.cuda.head_argmax import head_argmax, head_argmax_plain, prepare_head
 from .ops.cuda.nb1d import fuse_nb1d_params, nb1d, nb1d_plain, prepare_nb1d
+from .ops.cuda.nb1d_halo import (nb1d_halo, nb1d_halo_plain,
+                                 takes as halo_takes)
 from .ops.cuda.nb1d_q8 import nb1d_q8, nb1d_q8_plain, prepare_nb1d_q8
 from .ops.cuda.upsampler import prepare_upsampler, upsampler, upsampler_plain
 
-KERNEL_OPS = {"down": downsampler, "nb1d": nb1d, "up": upsampler,
-              "head": head_argmax, "nb1d_q8": nb1d_q8}
+KERNEL_OPS = {"down": downsampler, "nb1d": nb1d, "nb1d_halo": nb1d_halo,
+              "up": upsampler, "head": head_argmax, "nb1d_q8": nb1d_q8}
 PLAIN_OPS = {"down": downsampler_plain, "nb1d": nb1d_plain,
-             "up": upsampler_plain, "head": head_argmax_plain,
-             "nb1d_q8": nb1d_q8_plain}
+             "nb1d_halo": nb1d_halo_plain, "up": upsampler_plain,
+             "head": head_argmax_plain, "nb1d_q8": nb1d_q8_plain}
 
 # Copies of the JAX package's gate constants (inference.py): the map-size
 # budget of its whole-map kernels, and each channel count's W-pack factor.
@@ -50,11 +56,13 @@ _MAX_MAP_ELEMS = 64 * 128 * 128 * 4
 _PACK = {128: 1, 64: 2, 16: 8}
 
 
-def q8_eligible(shape, p):
+def whole_map_eligible(shape, p):
     """The JAX ``inference._eligible`` with one data shard: whether its
     whole-map kernels take a (B, H, W, C) map W-packed by ``p``.  A TPU
-    VMEM limit, kept because it decides which blocks the reference runs
-    in int8 (at 1024x2048 only the C=128 run)."""
+    VMEM limit, kept because it decides what the reference runs: a block
+    with int8 operands runs int8 only where its map passes, as in the JAX
+    package, and bf16 elsewhere.  At 512x1024 every map passes; at
+    1024x2048 only the C=128 run's."""
     _b, h, w, c = shape
     return (w % max(p, 8) == 0 and (c * p) % 128 == 0 and w // p >= 2
             and h * (w // p) * (c * p) <= _MAX_MAP_ELEMS)
@@ -157,22 +165,32 @@ def prepare(state_dict_or_net, dtype, device, q8_scales=None):
     return to_dev(prep)
 
 
-def _nb1d_block(x, p, dtype, ops):
-    """One block: int8 where it has int8 operands and the gate passes its
-    map (the JAX ``_make_layer_fn``), else the bf16 block."""
-    q = p.get("q8")
-    if q is not None and q8_eligible(x.shape, _PACK[x.shape[-1]]):
-        return ops["nb1d_q8"](x, q, dtype)
+def _bf16_block(x, p, ops):
+    """The bf16 block: the halo-tile block wherever its kernel takes the
+    block's (C, d) (the C=64 and C=16 blocks), else the whole-map block
+    (the dilated C=128 run).  Both compute ``nb1d_plain`` and take any H
+    and W."""
+    if halo_takes(x.shape[-1], p["dilation"]):
+        return ops["nb1d_halo"](x, p)
     return ops["nb1d"](x, p)
+
+
+def _nb1d_block(x, p, dtype, ops):
+    """One block (the JAX ``_make_layer_fn``): int8 if it has int8
+    operands and the gate passes its map, else the bf16 block."""
+    q = p.get("q8")
+    if q is not None and whole_map_eligible(x.shape, _PACK[x.shape[-1]]):
+        return ops["nb1d_q8"](x, q, dtype)
+    return _bf16_block(x, p, ops)
 
 
 def _nb1d_q8_stack(x, ps, dtype, ops):
     """The JAX int8 stack (``nb1d_stack_infer_q8``) as one int8 block per
     call: the carry between blocks is f32 and only the last block writes
     the compute dtype.  A map the gate refuses runs the bf16 blocks."""
-    if not q8_eligible(x.shape, 1):
+    if not whole_map_eligible(x.shape, 1):
         for p in ps:
-            x = ops["nb1d"](x, p)
+            x = _bf16_block(x, p, ops)
         return x
     for k, p in enumerate(ps):
         x = ops["nb1d_q8"](x, p["q8"],

@@ -32,7 +32,8 @@ PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("nb1d", "downsampler", "upsampler", "head_argmax", "nb1d_pair",
-           "downsampler_train", "head_loss", "upsampler_train", "nb1d_q8")
+           "downsampler_train", "head_loss", "upsampler_train", "nb1d_q8",
+           "nb1d_halo")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -4,7 +4,11 @@ Replaces the TPU kernels ``erfnet_pytorch_tpu/ops/pallas/nb1d.py:
 _nb1d_kernel`` (via ``nb1d_infer`` / ``nb1d_infer_packed``) and
 ``_nb1d_stack_kernel`` (via ``nb1d_stack_infer``: K blocks in one call,
 here K calls of the block; x is rounded to its dtype between blocks, as
-one block's output is).  Kernel source: ``csrc/nb1d.cu``.
+one block's output is).  Kernel source: ``csrc/nb1d.cu``.  The serving
+path runs it for the dilated C=128 run; the C=64 and C=16 blocks, which
+it also takes, run the halo-tile block (``nb1d_halo.py``, the same
+function, faster at every frame size measured), so here they serve as
+its yardstick.
 
 Form shipped: one launch per block.  The four convs run as four stages of
 one cooperative kernel, a persistent grid with a grid-wide barrier between

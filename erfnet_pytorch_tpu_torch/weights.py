@@ -95,3 +95,26 @@ def load_torch_weights(path) -> Dict[str, torch.Tensor]:
         obj = obj["state_dict"]
     return {(k[len("module."):] if k.startswith("module.") else k): v
             for k, v in obj.items() if isinstance(v, torch.Tensor)}
+
+
+def load_any_weights(path) -> Dict[str, torch.Tensor]:
+    """The eval CLIs' weights: a reference-layout torch checkpoint (the
+    keys of ``erfnet_pretrained.pth``, bare or under ``state_dict``, with
+    or without ``module.``) -> state_dict.  A JAX msgpack checkpoint, or
+    an ImageNet classifier's ``features.*`` state_dict, raises."""
+    with open(path, "rb") as f:
+        head = f.read(2)
+    # torch.save writes a zip archive ("PK") or, in the legacy format, a
+    # pickle (protocol byte 0x80 then 2); anything else is not torch's
+    if head != b"PK" and head[:1] != b"\x80":
+        raise ValueError(
+            f"{path}: not a torch checkpoint (a JAX msgpack checkpoint?); "
+            "convert it with `python -m erfnet_pytorch_tpu.cli.export_model "
+            "--format torch`")
+    sd = load_torch_weights(path)
+    if any(k.startswith("features.") for k in sd):
+        raise ValueError(
+            f"{path}: an ImageNet classifier state_dict (features.*); its "
+            "import into the segmentation net is not ported yet (ROADMAP "
+            "Queue A6)")
+    return sd

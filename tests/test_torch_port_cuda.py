@@ -7,7 +7,11 @@ versions, the int8 block against its plain version bit for bit at every
 input/output dtype pair, the int8 serving path against its plain
 pipeline, (and against themselves: two runs give bit-identical
 parameters), and each train kernel call of a step against its plain
-version on the call's own recorded inputs.
+version on the call's own recorded inputs; the halo-tile block of the
+C=64 and C=16 blocks against its plain version at the 1024x2048,
+512x1024 and ragged shapes, the 1024x2048 forward's launch counts, and a
+600x1200 forward (maps off the whole-map gate) against its plain
+pipeline.
 
 These tests need an NVIDIA GPU with ``nvcc`` (sm_90a) and skip without
 one.  They import nothing of JAX, so on a machine without it run them
@@ -33,9 +37,9 @@ from erfnet_pytorch_tpu_torch.models.erfnet import Net, init_weights
 from erfnet_pytorch_tpu_torch.ops import cuda as kernels
 from erfnet_pytorch_tpu_torch.ops.cuda import (downsampler,
                                                downsampler_train, head_argmax,
-                                               head_loss, nb1d, nb1d_pair,
-                                               nb1d_q8, route, upsampler,
-                                               upsampler_train)
+                                               head_loss, nb1d, nb1d_halo,
+                                               nb1d_pair, nb1d_q8, route,
+                                               upsampler, upsampler_train)
 
 pytestmark = pytest.mark.cuda
 
@@ -169,7 +173,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev, sd):
 
 def test_serving_path_matches_plain_pipeline(dev, sd):
     """build_fast_infer(preds_only) on the card: every kernel launches the
-    expected number of times per forward, and >= 99.5 % of the pixels
+    expected number of times per forward (the C=128 run on nb1d, the C=64
+    and C=16 blocks on nb1d_halo), and >= 99.5 % of the pixels
     agree with the same pipeline through the plain versions (a one-ulp
     difference early in the net can flip a near-tie pixel)."""
     infer = build_fast_infer(sd, preds_only=True)
@@ -182,10 +187,11 @@ def test_serving_path_matches_plain_pipeline(dev, sd):
     got = infer(to_tensor(u8))
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    assert {k: counts.pop(k) for k in ("downsampler", "nb1d", "upsampler",
-                                       "head_argmax")} == {
-        "downsampler": 3, "nb1d": 17 * nb1d.LAUNCHES_PER_BLOCK,
-        "upsampler": 2, "head_argmax": 1}
+    assert {k: counts.pop(k) for k in ("downsampler", "nb1d", "nb1d_halo",
+                                       "upsampler", "head_argmax")} == {
+        "downsampler": 3, "nb1d": 8 * nb1d.LAUNCHES_PER_BLOCK,
+        "nb1d_halo": 9 * nb1d_halo.LAUNCHES_PER_BLOCK, "upsampler": 2,
+        "head_argmax": 1}
     assert set(counts.values()) == {0}
     ref = plain(to_tensor(u8))
     assert got.shape == (2, 64, 128) and got.dtype == torch.int32
@@ -608,3 +614,119 @@ def test_int8_serving_path_matches_plain_pipeline(dev, sd):
     ref = plain(to_tensor(u8))
     assert got.shape == (2, 64, 128) and got.dtype == torch.int32
     assert (got == ref).float().mean().item() >= 0.995
+
+
+def _halo_shapes():
+    shapes = [(2, 256, 512, 64), (2, 512, 1024, 16), (2, 128, 256, 64),
+              (2, 256, 512, 16)]
+    for c in (64, 16):
+        th, tw = nb1d_halo.TILES[c]
+        shapes += [(2, 5 * th + 3, 7 * tw + 5, c), (1, 1, 3 * tw + 1, c),
+                   (1, 4 * th + 1, 1, c), (3, th - 1, tw + 1, c)]
+    return shapes
+
+
+@pytest.mark.parametrize("shape", _halo_shapes())
+def test_nb1d_halo_kernel(dev, sd, shape):
+    """The halo-tile block at chip_smoke.py phase 14's shapes: the
+    1024x2048 maps at B=2, the 512x1024 ones, and ragged maps (H and W
+    not tile multiples, one row, one column, under one tile)."""
+    prefix = "encoder.layers.1" if shape[-1] == 64 else "decoder.layers.4"
+    w, b = nb1d.fuse_nb1d_params(sd, prefix)
+    p = _on(nb1d.prepare_nb1d(w, b, 1, torch.bfloat16, round_bias=False),
+            dev)
+    x = _x(shape, shape[1], dev)
+    n0 = nb1d_halo.nb1d_halo.launches
+    got = nb1d_halo.nb1d_halo(x, p)
+    torch.cuda.synchronize()
+    assert nb1d_halo.nb1d_halo.launches - n0 == nb1d_halo.LAUNCHES_PER_BLOCK
+    _close(got, nb1d_halo.nb1d_halo_plain(x, p))
+
+
+def test_nb1d_halo_wrapper_refuses_what_the_kernel_does_not_take(dev, sd):
+    w, b = nb1d.fuse_nb1d_params(sd, "encoder.layers.1")
+    p = _on(nb1d.prepare_nb1d(w, b, 1, torch.bfloat16, round_bias=False),
+            dev)
+    x = torch.zeros(1, 8, 16, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        nb1d_halo.nb1d_halo(x.float(), p)                          # f32
+    with pytest.raises(ValueError, match="dilation"):
+        nb1d_halo.nb1d_halo(x, dict(p, dilation=2))                # d=2
+    w, b = nb1d.fuse_nb1d_params(sd, "encoder.layers.7")
+    q = _on(nb1d.prepare_nb1d(w, b, 2, torch.bfloat16, round_bias=True),
+            dev)
+    with pytest.raises(ValueError, match="C="):
+        nb1d_halo.nb1d_halo(torch.zeros(1, 8, 16, 128, device=dev,
+                                        dtype=torch.bfloat16), q)  # C=128
+
+
+def test_1024x2048_forward_launch_counts(dev, sd):
+    """One B=1 1024x2048 forward: downsampler 3, nb1d 8 (the C=128 run),
+    nb1d_halo 9 (the C=64 and C=16 blocks), upsampler 2, head 1; with
+    int8 scales nb1d_q8 8, nb1d_halo 9, nb1d 0."""
+    from erfnet_pytorch_tpu_torch.quantize import calibrate_q8_scales
+    u8 = torch.randint(0, 256, (1, 1024, 2048, 3),
+                       generator=torch.Generator().manual_seed(7),
+                       dtype=torch.uint8).to(dev)
+    x = u8.float() / 255.0
+    want = {"downsampler": 3, "nb1d": 8, "nb1d_halo": 9, "upsampler": 2,
+            "head_argmax": 1}
+    scales = calibrate_q8_scales(sd, [u8])
+    for q8, extra in ((None, {}),
+                      (scales, {"nb1d": 0, "nb1d_q8": 8})):
+        infer = build_fast_infer(sd, preds_only=True, q8_scales=q8)
+        kernels.reset_launch_counts()
+        preds = infer(x)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        expect = dict(want, **extra)
+        assert {k: counts.pop(k) for k in expect} == expect
+        assert set(counts.values()) == {0}
+        assert preds.shape == (1, 1024, 2048)
+
+
+def test_forward_off_the_whole_map_gate(dev, sd):
+    """A B=1 600x1200 frame, whose maps are no multiple of the whole-map
+    gate's W-block (the C=128 run at 75x150, the C=64 blocks at 150x300):
+    bf16, and with int8 scales, where the gate refuses the C=128 stack
+    and the C=64 blocks (bf16 blocks) and passes the C=16 ones (int8).
+    Launch counts; bf16: >= 99.5 % of the pixels equal to the plain
+    pipeline's (as in the serving test); int8 as ``chip_smoke.py`` holds
+    the int8 path: its features bit-identical to those of the same path
+    with the int8 block's plain version, and the pixels that disagree
+    with the plain int8 pipeline at most ``Q8_NOISE_X`` = 2 times those
+    of the bf16 path (an int8 block turns a one-ulp difference of its
+    input into a whole code)."""
+    from erfnet_pytorch_tpu_torch.data import to_tensor
+    from erfnet_pytorch_tpu_torch.inference import (KERNEL_OPS, PLAIN_OPS,
+                                                    features, prepare)
+    from erfnet_pytorch_tpu_torch.quantize import calibrate_q8_scales
+    u8 = torch.randint(0, 256, (1, 600, 1200, 3),
+                       generator=torch.Generator().manual_seed(8),
+                       dtype=torch.uint8).to(dev)
+    x = to_tensor(u8)
+    scales = calibrate_q8_scales(sd, [u8])
+    want = {"downsampler": 3, "nb1d": 8, "nb1d_halo": 9, "upsampler": 2,
+            "head_argmax": 1}
+    agree = {}
+    for q8, extra in ((None, {}),
+                      (scales, {"nb1d_halo": 7, "nb1d_q8": 2})):
+        infer = build_fast_infer(sd, preds_only=True, q8_scales=q8)
+        plain = build_plain_infer(sd, preds_only=True, device=dev,
+                                  q8_scales=q8)
+        kernels.reset_launch_counts()
+        got = infer(x)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        expect = dict(want, **extra)
+        assert {k: counts.pop(k) for k in expect} == expect
+        assert set(counts.values()) == {0}
+        assert got.shape == (1, 600, 1200) and got.dtype == torch.int32
+        agree[q8 is None] = (got == plain(x)).float().mean().item()
+    assert agree[True] >= 0.995
+    assert 1 - agree[False] <= 2.0 * (1 - agree[True]), agree
+    prep = prepare(sd, torch.bfloat16, dev, scales)
+    hybrid = dict(KERNEL_OPS, nb1d_q8=PLAIN_OPS["nb1d_q8"])
+    with torch.inference_mode():
+        assert torch.equal(features(prep, x, torch.bfloat16, KERNEL_OPS),
+                           features(prep, x, torch.bfloat16, hybrid))

@@ -35,8 +35,10 @@ def test_package_imports_neither_jax_nor_the_jax_package():
               "ops.cuda.nb1d_pair", "ops.cuda.downsampler_train",
               "ops.cuda.head_loss", "ops.cuda.upsampler_train",
               "ops.cuda.route", "ops.augment", "ops.convt_mm",
-              "ops.dropout", "ops.loss",
-              "training.steps", "training.optim", "training.class_weights"):
+              "ops.dropout", "ops.loss", "ops.cuda.nb1d_halo", "streaming",
+              "data.cityscapes", "data.loader", "data.transforms",
+              "metrics.iou", "cli.eval_iou", "cli.eval_cityscapes_color",
+              "cli.eval_cityscapes_server", "training.steps", "training.optim", "training.class_weights"):
         assert f"erfnet_pytorch_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -100,8 +102,30 @@ def test_cpu_tensors_never_move_a_launch_counter():
     assert set(counts) == {"downsampler", "nb1d", "upsampler", "head_argmax",
                            "pair_fwd", "pair_bwd", "down_fwd", "down_bwd",
                            "head_loss_fwd", "head_loss_bwd", "ups_fwd",
-                           "ups_bwd", "nb1d_q8"}
+                           "ups_bwd", "nb1d_q8", "nb1d_halo"}
     assert set(counts.values()) == {0}
+
+
+def test_cpu_streaming_through_the_halo_block_never_moves_a_counter(
+        monkeypatch):
+    """StreamingSegmenter with device="cpu": the halo-tile block's plain
+    version runs for the C=64 and C=16 blocks, 9 times, and every launch
+    counter stays at 0."""
+    from erfnet_pytorch_tpu_torch import inference
+    from erfnet_pytorch_tpu_torch.streaming import StreamingSegmenter
+    calls = []
+    plain = inference.PLAIN_OPS["nb1d_halo"]
+    monkeypatch.setitem(inference.KERNEL_OPS, "nb1d_halo",
+                        lambda x, p: calls.append(1) or plain(x, p))
+    net = init_weights(Net(20), torch.Generator().manual_seed(0))
+    seg = StreamingSegmenter(net, output="color", device="cpu")
+    u8 = torch.randint(0, 256, (2, 32, 64, 3), dtype=torch.uint8,
+                       generator=torch.Generator().manual_seed(1))
+    kernels.reset_launch_counts()
+    [(out, rels)] = list(seg.run([(u8, None, ["a", "b"])]))
+    assert out.shape == (2, 32, 64, 3) and out.dtype == np.uint8
+    assert rels == ["a", "b"] and len(calls) == 9
+    assert set(kernels.launch_counts().values()) == {0}
 
 
 def test_cpu_int8_forward_never_moves_a_launch_counter():

@@ -143,19 +143,23 @@ def test_prepare_moves_every_operand_to_the_device(net, jax_scales):
 
 def _route(sd, scales, x, monkeypatch):
     """Run the port's CPU forward, recording each NB1d call: ("q8", map
-    shape, input dtype, output dtype) or ("bf16", map shape)."""
+    shape, input dtype, output dtype), or ("nb1d" or "nb1d_halo", map
+    shape) for a bf16 block."""
     calls = []
 
     def q8(x, p, out_dtype):
         calls.append(("q8", tuple(x.shape), x.dtype, out_dtype))
         return inference.PLAIN_OPS["nb1d_q8"](x, p, out_dtype)
 
-    def bf16(x, p):
-        calls.append(("bf16", tuple(x.shape)))
-        return inference.PLAIN_OPS["nb1d"](x, p)
+    def bf16(name):
+        def op(x, p):
+            calls.append((name, tuple(x.shape)))
+            return inference.PLAIN_OPS[name](x, p)
+        return op
 
     monkeypatch.setitem(inference.KERNEL_OPS, "nb1d_q8", q8)
-    monkeypatch.setitem(inference.KERNEL_OPS, "nb1d", bf16)
+    for name in ("nb1d", "nb1d_halo"):
+        monkeypatch.setitem(inference.KERNEL_OPS, name, bf16(name))
     inference.build_fast_infer(sd, preds_only=True, device="cpu",
                                q8_scales=scales)(x)
     return calls
@@ -166,8 +170,9 @@ def test_int8_routing(net, jax_scales, monkeypatch):
     2 decoder C=64, 2 C=16) in the compute dtype, and the run of 8 C=128
     blocks as one int8 stack whose carry is f32 (bf16 in, f32 between
     blocks, bf16 out); no bf16 block.  A block without scales runs the
-    bf16 block; a C=128 run with one block unscaled runs bf16 whole, as
-    the JAX stack takes it."""
+    bf16 block (the halo-tile one at C=16); a C=128 run with one block
+    unscaled runs the bf16 whole-map block whole, as the JAX stack takes
+    it."""
     _params, _state, sd = net
     x = torch.rand(1, 64, 128, 3, generator=torch.Generator().manual_seed(1))
     bf, f32 = torch.bfloat16, torch.float32
@@ -182,8 +187,8 @@ def test_int8_routing(net, jax_scales, monkeypatch):
     partial = {k: v for k, v in jax_scales.items()
                if k not in (("decoder", 4), ("encoder", 10))}
     calls = _route(sd, partial, x, monkeypatch)
-    assert [c[0] for c in calls] == (["q8"] * 5 + ["bf16"] * 8
-                                     + ["q8"] * 2 + ["bf16", "q8"])
+    assert [c[0] for c in calls] == (["q8"] * 5 + ["nb1d"] * 8
+                                     + ["q8"] * 2 + ["nb1d_halo", "q8"])
 
 
 @pytest.mark.parametrize("shape,p,want", [
@@ -193,25 +198,28 @@ def test_int8_routing(net, jax_scales, monkeypatch):
     ((1, 16, 4, 64), 2, False), ((1, 8, 8, 16), 8, False),
     ((2, 8, 16, 128), 1, True), ((1, 4, 6, 128), 1, False)])
 def test_eligible_gate_is_the_jax_gate(shape, p, want):
-    """The int8 gate, a pure function of the map's shape, against the
+    """The whole-map gate, a pure function of the map's shape, against the
     JAX ``_eligible`` with one data shard: at 512x1024 every block passes;
     at 1024x2048 only the C=128 run does (C=64 at 256x512 and C=16 at
     512x1024 exceed the whole-map budget); narrow maps fail on the
     W-block floor."""
-    assert inference.q8_eligible(shape, p) == jinf._eligible(shape, p) == want
+    assert (inference.whole_map_eligible(shape, p) == jinf._eligible(shape, p)
+            == want)
 
 
 def test_int8_routing_at_1024x2048_follows_the_gate():
     """The routing decision at the 1024x2048 block shapes, on empty
     (meta) tensors: no forward runs.  The C=64 and C=16 blocks take the
-    bf16 block, the C=128 stack takes the int8 block."""
+    bf16 halo-tile block, the C=128 stack takes the int8 block."""
     calls = []
     ops = {"nb1d": lambda x, p: calls.append("bf16") or x,
+           "nb1d_halo": lambda x, p: calls.append("halo") or x,
            "nb1d_q8": lambda x, p, dt: calls.append("q8") or x}
     for c in (64, 16):
         shape = {64: (1, 256, 512, 64), 16: (1, 512, 1024, 16)}[c]
         x = torch.empty(shape, device="meta", dtype=torch.bfloat16)
-        inference._nb1d_block(x, {"q8": {}}, torch.bfloat16, ops)
+        inference._nb1d_block(x, {"q8": {}, "dilation": 1}, torch.bfloat16,
+                              ops)
     x = torch.empty((1, 128, 256, 128), device="meta", dtype=torch.bfloat16)
     inference._nb1d_q8_stack(x, [{"q8": {}}] * 8, torch.bfloat16, ops)
-    assert calls == ["bf16", "bf16"] + ["q8"] * 8
+    assert calls == ["halo", "halo"] + ["q8"] * 8
