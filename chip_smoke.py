@@ -129,13 +129,52 @@ phases 14-16 (the 1024x2048 streaming path) right after phase 13:
     512x1024 serving shapes, and the device's busy share of a B=4 forward
     with its time by kernel.
 
+Phases 17-19 (the trainer: ``train_main`` -> ``train_two_stage`` ->
+``train_stage`` with its eval step, train IoU, loader and checkpoints)
+run after phase 9:
+
+17. Head+argmax parity: the encoder's 1x1 head + argmax kernel
+    ``head_argmax_1x1`` against its plain version on the card at the
+    encoder-stage eval batch (49152, 128) -> 20, a ragged M with NaN rows
+    (the last class) and a planted exact tie (the first max wins),
+    phase 2's near-tie rule; its device time per B=6 call (torch.profiler:
+    a call is as short as the host's time to launch it, so CUDA events
+    would time the host) beside the plain version's, its bound and that
+    of ``torch.addmm`` + ``argmax`` on the same inputs.
+18. Eval steps: ``make_eval_step`` of both stages at B=6 on 512x1024
+    uint8 frames, bf16: launch counts per eval batch (encoder stage 3 /
+    5 / 8 / 2 / 1: downsampler / nb1d_halo / nb1d / head+loss forward /
+    head_argmax_1x1; stage 2 3 / 9 / 8 / 2 / 2 / 1 with the upsamplers
+    and head_argmax), the loss within ``EVAL_LOSS_REL`` of the same step
+    through the plain versions on the card and the predictions
+    >= ``EVAL_AGREE`` equal to its, and an eval after one more train step
+    that sees the new weights.  Then ``with_pred`` of both train steps:
+    launch counts (a step plus one head+argmax launch), the recorded
+    head+argmax call against its plain version on the step's features
+    (the near-tie rule).
+19. Trainer: ``python -m erfnet_pytorch_tpu_torch.cli.train_main --bf16
+    --iouTrain`` in a process of its own, both stages, 2 epochs each at
+    B=6 on a synthetic tree of 60 train and 24 val 512x1024 PNG frames
+    (12 distinct per subset, the rest hard links; labels with voids):
+    10 steps and 4 val batches per epoch; exit 0, every artifact of both stages, two log
+    rows per stage with finite losses, the run's kernel launches exactly
+    as its steps and eval batches make them.  Then the same run killed
+    at the start of stage 2's last epoch and resumed with ``--resume``:
+    its ``model.pth`` bit-identical to the uninterrupted run's, and its
+    ``automated_log.txt`` the same.  Prints the trainer's own step
+    timing (its ``StepTimer`` lines of the last epoch: mean, p50, p95 of
+    the steps, loader included) beside phase 9's bare step, the same for
+    the val batches, and s per epoch from the arrival times of its log
+    lines.
+
 The last three lines are the card (``nvidia-smi`` name and power limit),
 one JSON object listing every kernel, and the result object.  In that
 object the train kernels' figures are sums over one step of each stage,
 and their launches the counts of phases 7 and 8 together; the int8
 block's figures are sums over one B=4 int8 forward, its launches the count
 of phase 11; the halo-tile block's are sums over one B=4 1024x2048
-forward, its launches the count of phase 15's color run.
+forward, its launches the count of phase 15's color run; the encoder
+head's are one B=6 call, its launches the count of phase 19's run.
 """
 
 from __future__ import annotations
@@ -189,6 +228,10 @@ SOURCES = {
     # the C=64 and C=16 blocks; the 1024x2048 path's large-map block
     "nb1d_halo": ("erfnet_pytorch_tpu_torch/csrc/nb1d_halo.cu",
                   "erfnet_pytorch_tpu/ops/pallas/nb1d.py:315"),
+    # the encoder's 1x1 head + argmax (G = 1, K = 128) of the encoder-stage
+    # eval step and train IoU; head_argmax.py:_kernel via _op (:159)
+    "head_argmax_1x1": ("erfnet_pytorch_tpu_torch/csrc/head_argmax.cu",
+                        "erfnet_pytorch_tpu/ops/pallas/head_argmax.py:65"),
 }
 # train kernel -> its (forward, backward) wrappers' counter names
 TRAIN_WRAPPERS = {"nb1d_pair": ("pair_fwd", "pair_bwd"),
@@ -1165,7 +1208,7 @@ def phase_stream(sd, device):
         torch.save(sd, wpath)
         base = ["--datadir", tmp, "--state", wpath, "--subset", "val",
                 "--height", str(STREAM_HW[0]), "--batch-size", "2",
-                "--num-workers", "4"]
+                "--num-workers", "4", "--bf16"]
         for cli, extra in (("eval_cityscapes_color", ["--outdir"]),
                            ("eval_cityscapes_server", ["--outdir"]),
                            ("eval_iou", [])):
@@ -2310,6 +2353,490 @@ def busy_share(prof, n, timed_us, what):
             f"timed_us_per_{what}": timed_us, "device_busy_share": share}
 
 
+# ---------------------------------------------------------------------------
+# the trainer (make_eval_step, with_pred, train_main), B=6, 512x1024
+# ---------------------------------------------------------------------------
+
+HEAD1_K = 128
+# the encoder stage's eval batch at B=6: (6, 64, 128) feature pixels
+HEAD1_M = TRAIN_B * (512 // 8) * (1024 // 8)
+# eval steps against the same step through the plain versions: the loss
+# within EVAL_LOSS_REL relative, the predictions >= EVAL_AGREE equal
+EVAL_LOSS_REL = 1e-3
+EVAL_AGREE = 0.995
+TRAINER_EPOCHS = 2
+# 10 train steps and 4 val batches per epoch, so that the trainer's
+# timing holds more than its start-up; TRAINER_DISTINCT frames per subset
+# are written, the other names are hard links to them
+TRAINER_TRAIN, TRAINER_VAL = 60, 24
+TRAINER_DISTINCT = 12
+
+
+def _device_ms(fn, n):
+    """Device time of one call of ``fn``: its CUDA kernels' durations
+    (torch.profiler) summed over n calls, over n."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.time_range.end - ev.time_range.start for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA
+             and not getattr(ev, "is_user_annotation", False)
+             and "#" not in ev.name)
+    if not us:
+        raise PhaseError("the profiler recorded no device time")
+    return us / n / 1e3
+
+
+def head1_ties(feats, w, b):
+    """Rows (M,) whose two largest bf16 logits (plain version) are within
+    one bf16 ulp."""
+    import torch
+    z = (feats.float() @ w.to(feats.dtype).float() + b.float())
+    top = z.to(torch.bfloat16).float().topk(2, dim=-1).values
+    ulp = torch.exp2(torch.floor(torch.log2(top[..., 0].abs()
+                                            .clamp_min(1e-30))) - 7)
+    return (top[..., 0] - top[..., 1]) <= ulp
+
+
+def compare_preds(name, got, ref, tie):
+    """Predictions equal except at near-ties of the reference's logits."""
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise PhaseError(f"{name}: {tuple(got.shape)} {got.dtype} vs "
+                         f"{tuple(ref.shape)} {ref.dtype}")
+    off = got != ref
+    bad = int((off & ~tie).sum())
+    log(f"  {name}: {int(off.sum())} of {got.numel()} differ, "
+        f"{int(tie.sum())} near-ties, {bad} off a tie -> "
+        f"{'ok' if bad == 0 else 'FAIL'}")
+    if bad:
+        raise PhaseError(f"{name}: kernel disagrees with its plain version")
+    keep = ~tie
+    return float((got - ref).abs()[keep].max()) if keep.any() else 0.0
+
+
+def _head1_inputs(sd, M, g, device):
+    import torch
+    f = torch.randn(M, HEAD1_K, generator=g).clamp_min(0).to(torch.bfloat16)
+    w = sd["encoder.output_conv.weight"][:, :, 0, 0].t().contiguous()
+    b = sd["encoder.output_conv.bias"].float()
+    return f.to(device), w.to(device), b.to(device)
+
+
+def phase_head1(sd, device, iters):
+    """The encoder's 1x1 head + argmax kernel against its plain version on
+    the card at the encoder-stage eval batch (49152, 128) -> 20, a ragged
+    M with an all-NaN row and a row of one NaN (both give n - 1), and a
+    planted exact tie (the first max wins); then its device time at B=6
+    beside the plain version's, its bound and ``torch.addmm`` +
+    ``argmax``'s."""
+    import torch
+    from erfnet_pytorch_tpu_torch.ops.cuda.head_argmax import (
+        head_argmax_1x1, head_argmax_1x1_plain)
+    log("[head1] head_argmax_1x1 against its plain version")
+    g = torch.Generator().manual_seed(31)
+    err = 0.0
+    for M in (HEAD1_M, 1037):
+        f, w, b = _head1_inputs(sd, M, g, device)
+        if M != HEAD1_M:
+            f[5] = float("nan")
+            f[9, 3] = float("nan")
+            f[11] = 0                    # every logit is its bias
+        got = head_argmax_1x1(f, w, b)
+        torch.cuda.synchronize()
+        ref = head_argmax_1x1_plain(f, w, b)
+        tie = head1_ties(f, w, b)
+        tie[~torch.isfinite(f.float()).all(-1)] = False
+        err = max(err, compare_preds(f"head_argmax_1x1 ({M}, 128) -> 20",
+                                     got, ref, tie))
+        if M != HEAD1_M:
+            if got[5].item() != N_CLASSES - 1 or got[9].item() != N_CLASSES - 1:
+                raise PhaseError("a NaN row does not give the last class")
+    # a planted exact tie: two equal columns of W and bias
+    f, w, b = _head1_inputs(sd, 4096, g, device)
+    w, b = w.clone(), b.clone()
+    w[:, 7], b[7] = w[:, 3], b[3] + 1e3
+    b[3] += 1e3
+    got = head_argmax_1x1(f, w, b)
+    if not (got == 3).all():
+        raise PhaseError("head_argmax_1x1: the first of two equal maxima "
+                         "does not win")
+    log("  planted tie: the first max wins at every row")
+
+    f, w, b = _head1_inputs(sd, HEAD1_M, g, device)
+    wb, bb = w.to(torch.bfloat16), b.to(torch.bfloat16)
+    calls = {"kernel": lambda: head_argmax_1x1(f, wb, b),
+             "plain": lambda: head_argmax_1x1_plain(f, wb, b),
+             "addmm + argmax": lambda: torch.addmm(bb, f, wb).argmax(-1)}
+    # a call takes tens of microseconds, about what the host needs to
+    # launch it: CUDA events around a loop of calls time the host's launch
+    # rate, so the figures are device time from the profiler; the events'
+    # figures are printed beside them
+    dev_ms = {k: _device_ms(fn, iters) for k, fn in calls.items()}
+    ev_ms = {k: _time(fn, iters) for k, fn in calls.items()}
+    log("  CUDA events over a loop of calls (host-bound): " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in ev_ms.items()))
+    ms, plain_ms, lib_ms = (dev_ms[k] for k in calls)
+    nbytes = f.numel() * 2 + HEAD1_M * 4 + w.numel() * 2 + b.numel() * 4
+    flops = 2 * HEAD1_M * HEAD1_K * N_CLASSES
+    byte_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    op_ms = 1e3 * flops / BF16_FLOPS_PER_S
+    bound = max(byte_ms, op_ms)
+    log(f"  B=6 ({HEAD1_M}, 128) -> 20, device time per call: kernel "
+        f"{ms:.4f} ms, plain "
+        f"{plain_ms:.4f}, bound {bound:.4f} "
+        f"({'bytes' if byte_ms >= op_ms else 'operations'}), addmm + "
+        f"argmax {lib_ms:.4f}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+            "library_ms": lib_ms}
+
+
+def eval_launches(enc):
+    """Kernel launches of one eval batch of the stage."""
+    from erfnet_pytorch_tpu_torch.ops.cuda import head_loss as hl
+    want = {"downsampler": 3, "nb1d_halo": 5 if enc else HALO_PER_FORWARD,
+            "nb1d": PER_FORWARD["nb1d"], "head_loss_fwd": hl.FWD_LAUNCHES}
+    if enc:
+        want["head_argmax_1x1"] = 1
+    else:
+        want.update(upsampler=2, head_argmax=1)
+    return want
+
+
+def phase_eval(sd, device):
+    """make_eval_step of both stages at B=6, 512x1024 uint8 frames, bf16:
+    launch counts per eval batch, the loss and predictions against the
+    same step through the plain versions on the card, a second eval after
+    one more train step (the fold follows the state's step).  Then
+    ``with_pred`` of both train steps: launch counts, and each recorded
+    head+argmax call against its plain version on the step's features.
+    Returns (eval launches by stage, the largest prediction mismatch
+    off a tie, agreement figures)."""
+    import torch
+    from erfnet_pytorch_tpu_torch.models.erfnet import Net
+    from erfnet_pytorch_tpu_torch.ops import cuda as kernels
+    from erfnet_pytorch_tpu_torch.ops.cuda import route
+    from erfnet_pytorch_tpu_torch.training.class_weights import (
+        DECODER_WEIGHTS, ENCODER_WEIGHTS)
+    from erfnet_pytorch_tpu_torch.training.optim import make_adam
+    from erfnet_pytorch_tpu_torch.training.steps import (create_train_state,
+                                                         make_eval_step,
+                                                         make_train_step)
+    g = torch.Generator().manual_seed(41)
+    frames, labels = train_data(g, TRAIN_B, 1)
+    f0, l0 = frames[0].to(device), labels[0].to(device)
+    out, counts_by_stage = {}, {}
+    for enc in (True, False):
+        stage = "enc" if enc else "dec"
+        cw = ENCODER_WEIGHTS if enc else DECODER_WEIGHTS
+        net = Net(N_CLASSES)
+        net.load_state_dict(sd)
+        net.to(device)
+        opt = make_adam(net.parameters())
+        state = create_train_state(net, opt)
+        ev = make_eval_step(net, cw, enc=enc, device=device)
+        evp = make_eval_step(net, cw, enc=enc, device=device, plain=True)
+        log(f"[eval] make_eval_step(enc={enc}), {TRAIN_B}x512x1024 uint8, "
+            "bf16")
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        loss, preds, tgts = ev(state, f0, l0)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        log(f"  launches of one eval batch: {counts}")
+        _check_counts(counts, eval_launches(enc), 1, f"eval {stage}")
+        counts_by_stage[stage] = counts
+        lossp, predsp, tgtsp = evp(state, f0, l0)
+        H, W = f0.shape[1:3]
+        hw = (H // 8, W // 8) if enc else (H, W)
+        if (tuple(preds.shape) != (TRAIN_B,) + hw
+                or not torch.equal(tgts, tgtsp)):
+            raise PhaseError(f"eval {stage}: preds {tuple(preds.shape)}, "
+                             "labels differ from the plain step's")
+        rel = abs(loss.item() - lossp.item()) / abs(lossp.item())
+        agree = (preds == predsp).float().mean().item()
+        log(f"  loss {loss.item():.6f}, plain {lossp.item():.6f} (rel "
+            f"{rel:.2e}, bound {EVAL_LOSS_REL}); predictions equal "
+            f"{agree:.6f} (floor {EVAL_AGREE})")
+        if not (rel <= EVAL_LOSS_REL and agree >= EVAL_AGREE):
+            raise PhaseError(f"eval {stage} disagrees with the plain step")
+
+        step = make_train_step(net, opt, cw, enc=enc, device=device,
+                               with_pred=True)
+        gen = torch.Generator(device=device).manual_seed(42)
+        kernels.reset_launch_counts()
+        with route.recording() as calls:
+            state, tloss, tpreds, ttgts = step(state, f0, l0, gen)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        want = dict(expected_train_launches(enc))
+        want["head_argmax_1x1" if enc else "head_argmax"] = 1
+        _check_counts(counts, want, 1, f"with_pred train step {stage}")
+        heads = [c for c in calls if c[0].startswith("head_argmax")]
+        if len(heads) != 1 or tuple(tpreds.shape) != tuple(ttgts.shape):
+            raise PhaseError(f"with_pred {stage}: {len(heads)} head calls, "
+                             f"preds {tuple(tpreds.shape)}")
+        name, args, kwargs, got = heads[0]
+        plain = {f.__name__: f.plain for f in kernels.kernel_wrappers()
+                 if hasattr(f, "plain")}
+        ref = plain[name](*args, **kwargs)
+        tie = head1_ties(*args) if enc else head_ties(*args)
+        compare_preds(f"with_pred {stage} {name}", got, ref, tie)
+        if not torch.equal(got.reshape(tpreds.shape), tpreds):
+            raise PhaseError(f"with_pred {stage}: returned predictions are "
+                             "not the recorded call's")
+        del calls
+        loss2, _p2, _t2 = ev(state, f0, l0)
+        log(f"  with_pred step: loss {tloss.item():.6f}, launches as a "
+            f"step plus one {name}; eval after it {loss2.item():.6f} "
+            f"(before {loss.item():.6f})")
+        if loss2.item() == loss.item():
+            raise PhaseError(f"eval {stage}: the eval after a train step "
+                             "saw the old weights")
+        out[stage] = {"eval_loss_rel": rel, "eval_pred_agreement": agree}
+        del net, opt, state, step, ev, evp
+    kernels.reset_launch_counts()
+    return counts_by_stage, out
+
+
+def _write_train_tree(root):
+    """A synthetic Cityscapes tree of 512x1024 frames: TRAINER_TRAIN under
+    train and TRAINER_VAL under val, labelTrainIds with a void band and a
+    void block.  The first TRAINER_DISTINCT frames of each subset are
+    written, frame i is a hard link to frame i % TRAINER_DISTINCT."""
+    import numpy as np
+    from PIL import Image
+    rng = np.random.RandomState(61)
+
+    def paths(subset, i):
+        city = f"city{i % 2}"
+        stem = f"{city}_{i:06d}_000019"
+        for sub in ("leftImg8bit", "gtFine"):
+            os.makedirs(os.path.join(root, sub, subset, city), exist_ok=True)
+        return (os.path.join(root, "leftImg8bit", subset, city,
+                             f"{stem}_leftImg8bit.png"),
+                os.path.join(root, "gtFine", subset, city,
+                             f"{stem}_gtFine_labelTrainIds.png"))
+
+    for subset, n in (("train", TRAINER_TRAIN), ("val", TRAINER_VAL)):
+        for i in range(n):
+            img_path, lab_path = paths(subset, i)
+            if i >= TRAINER_DISTINCT:
+                for src, dst in zip(paths(subset, i % TRAINER_DISTINCT),
+                                    (img_path, lab_path)):
+                    os.link(src, dst)
+                continue
+            img = rng.randint(0, 256, SERVE_HW + (3,), dtype=np.uint8)
+            Image.fromarray(img).save(img_path, compress_level=1)
+            lab = rng.randint(0, 19, SERVE_HW, dtype=np.uint8)
+            lab[:40] = 255
+            lab[100:200, 300:500] = 255
+            Image.fromarray(lab, mode="L").save(lab_path, compress_level=1)
+
+
+# The killed run: train_main in this interpreter, whose stdout ends the
+# process (as SIGKILL would, no clean-up) when stage 2 logs the start of
+# its last epoch, right after the previous epoch's checkpoint was written.
+KILL_AT_LAST_EPOCH = r"""
+import os, runpy, sys
+marker = "----- TRAINING - EPOCH %d -----"
+class Out:
+    def __init__(self, out):
+        self.out, self.dec = out, False
+    def write(self, s):
+        self.dec = self.dec or "DECODER TRAINING" in s
+        if self.dec and marker in s:
+            self.out.write("killed at: " + s + "\n")
+            self.out.flush()
+            os._exit(137)
+        return self.out.write(s)
+    def flush(self):
+        self.out.flush()
+sys.stdout = Out(sys.stdout)
+sys.argv = ["train_main"] + sys.argv[1:]
+runpy.run_module("erfnet_pytorch_tpu_torch.cli.train_main",
+                 run_name="__main__")
+"""
+
+
+def _run_train_main(here, args, timeout, kill=False):
+    """train_main in a process of its own; returns (exit code, its output
+    lines, stderr merged, each with the host time it arrived at)."""
+    cmd = ([sys.executable, "-u", "-c",
+            KILL_AT_LAST_EPOCH % TRAINER_EPOCHS] if kill else
+           [sys.executable, "-u", "-m",
+            "erfnet_pytorch_tpu_torch.cli.train_main"]) + args
+    proc = subprocess.Popen(cmd, cwd=here, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines = []
+    try:
+        t0 = time.time()
+        for line in proc.stdout:
+            lines.append((time.time(), line.rstrip("\n")))
+            if time.time() - t0 > timeout:
+                raise PhaseError(f"train_main: over {timeout} s")
+        proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return proc.returncode, lines
+
+
+def _timer_line(text, prefix, n):
+    """The trainer's StepTimer line ``<prefix> steps=n mean=Xms p50=Yms
+    p95=Zms`` as {"mean": X, "p50": Y, "p95": Z} (ms)."""
+    line = next(s for s in text if s.startswith(prefix))
+    fields = dict(f.split("=") for f in line[len(prefix):].split())
+    if int(fields["steps"]) != n:
+        raise PhaseError(f"trainer timing: {line!r}, expected {n} steps")
+    return {k: float(fields[k][:-2]) for k in ("mean", "p50", "p95")}
+
+
+def _stage_timing(lines, header, steps, val_batches):
+    """The last epoch of the stage under ``header``: the trainer's own
+    StepTimer figures of its train steps and val batches (ms), and s per
+    epoch from the arrival times of its log lines (the epoch's start to
+    the stage's end, checkpoint writes included)."""
+    text = [s for _t, s in lines]
+    i0 = text.index(header)
+    stage = lines[i0:]
+    nxt = [k for k, (_t, s) in enumerate(stage) if k and s.startswith("====")]
+    stage = stage[:nxt[0] + 1] if nxt else stage
+    last = TRAINER_EPOCHS
+    k0 = next(k for k, (_t, s) in enumerate(stage)
+              if s == f"----- TRAINING - EPOCH {last} -----")
+    epoch = [s for _t, s in stage[k0:]]
+    return {"s_per_epoch": stage[-1][0] - stage[k0][0],
+            "step_ms": _timer_line(epoch, "train step timing: ", steps),
+            "val_batch_ms": _timer_line(epoch, "val batch timing: ",
+                                        val_batches)}
+
+
+def _expected_trainer_launches():
+    """Every kernel launch of the two-stage run: per stage, the train
+    steps with their head+argmax for --iouTrain, and the val batches."""
+    steps = TRAINER_EPOCHS * (TRAINER_TRAIN // TRAIN_B)
+    vals = TRAINER_EPOCHS * -(-TRAINER_VAL // TRAIN_B)
+    want = {}
+    for enc in (True, False):
+        per_step = dict(expected_train_launches(enc))
+        per_step["head_argmax_1x1" if enc else "head_argmax"] = 1
+        for name, n in per_step.items():
+            want[name] = want.get(name, 0) + steps * n
+        for name, n in eval_launches(enc).items():
+            want[name] = want.get(name, 0) + vals * n
+    return want
+
+
+def phase_trainer(device, te2e):
+    """train_main --bf16 --iouTrain, both stages, TRAINER_EPOCHS epochs of
+    B=6 512x1024 frames from a synthetic tree, in a process of its own:
+    exit 0, every artifact, two log rows per stage with finite losses,
+    its kernel launches as expected.  Then the same run killed at the
+    start of stage 2's last epoch and resumed with --resume: its final
+    model.pth bit-identical to the uninterrupted run's.  Returns timing
+    and the run's kernel launches."""
+    import math
+    import tempfile
+    import torch
+    here = os.path.dirname(os.path.abspath(__file__))
+    log(f"[trainer] train_main --bf16 --iouTrain, {TRAINER_EPOCHS} epochs "
+        f"per stage, B={TRAIN_B}, {TRAINER_TRAIN} train / {TRAINER_VAL} val "
+        "512x1024 frames")
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "cityscapes")
+        _write_train_tree(data)
+        base = ["--bf16", "--datadir", data, "--height", str(SERVE_HW[0]),
+                "--num-epochs", str(TRAINER_EPOCHS), "--batch-size",
+                str(TRAIN_B), "--iouTrain", "--num-workers", "4"]
+        full = os.path.join(tmp, "full")
+        t0 = time.time()
+        rc, lines = _run_train_main(here, base + ["--savedir", full], 600)
+        wall = time.time() - t0
+        if rc != 0:
+            log("\n".join(s for _t, s in lines[-60:]))
+            raise PhaseError(f"train_main: exit {rc}")
+        log(f"  train_main exit 0 in {wall:.1f} s")
+        want_files = ("checkpoint_enc.pth.tar", "model_best_enc.pth.tar",
+                      "model_encoder.pth", "best_enc.txt",
+                      "automated_log_encoder.txt", "checkpoint.pth.tar",
+                      "model_best.pth", "model.pth", "best.txt",
+                      "automated_log.txt", "model.txt", "opts.txt",
+                      "erfnet.py")
+        missing = [f for f in want_files
+                   if not os.path.exists(os.path.join(full, f))]
+        if missing:
+            raise PhaseError(f"train_main: missing artifacts {missing}")
+        rows = {}
+        for name in ("automated_log_encoder.txt", "automated_log.txt"):
+            with open(os.path.join(full, name)) as f:
+                text = f.read().splitlines()
+            rows[name] = [[c for c in r.split("\t") if c] for r in text[1:]]
+            losses = [float(r[k]) for r in rows[name] for k in (1, 2)]
+            log(f"  {name}: {len(rows[name])} rows {rows[name]}")
+            if (len(rows[name]) != TRAINER_EPOCHS
+                    or not all(map(math.isfinite, losses))):
+                raise PhaseError(f"{name}: rows {rows[name]}")
+        said = [s for _t, s in lines if s.startswith("kernel launches ")]
+        if not said:
+            raise PhaseError("train_main printed no kernel launches")
+        counts = json.loads(said[-1][len("kernel launches "):])
+        log(f"  kernel launches of the run: {counts}")
+        _check_counts(counts, _expected_trainer_launches(), 1, "trainer")
+        steps = TRAINER_TRAIN // TRAIN_B
+        vals = -(-TRAINER_VAL // TRAIN_B)
+        timing = {
+            "enc": _stage_timing(lines, "========== ENCODER TRAINING "
+                                 "==========", steps, vals),
+            "dec": _stage_timing(lines, "========== DECODER TRAINING "
+                                 "==========", steps, vals),
+            "run_s": wall}
+        for st, key in (("enc", "ms_per_step"), ("dec", "stage2_ms_per_step")):
+            t = timing[st]
+            log(f"  stage {st}, last epoch: {t['s_per_epoch']} s "
+                f"(checkpoint writes included); train steps in the trainer "
+                f"(loader included) {t['step_ms']} ms, phase 9's bare step "
+                f"{te2e[key]} ms; val batches {t['val_batch_ms']} ms")
+
+        killed = os.path.join(tmp, "killed")
+        rc, lines = _run_train_main(here, base + ["--savedir", killed],
+                                    600, kill=True)
+        said = [s for _t, s in lines if s.startswith("killed at: ")]
+        if rc != 137 or not said:
+            log("\n".join(s for _t, s in lines[-60:]))
+            raise PhaseError(f"the killed run exited {rc}")
+        log(f"  second run killed at the start of stage 2's epoch "
+            f"{TRAINER_EPOCHS} (exit {rc})")
+        rc, lines = _run_train_main(
+            here, base + ["--savedir", killed, "--resume"], 600)
+        if rc != 0:
+            log("\n".join(s for _t, s in lines[-60:]))
+            raise PhaseError(f"the resumed run exited {rc}")
+        a = torch.load(os.path.join(full, "model.pth"))
+        b = torch.load(os.path.join(killed, "model.pth"))
+        diff = [k for k in a if k not in b or not torch.equal(a[k], b[k])]
+        log(f"  resumed run exit 0; model.pth bit-identical to the "
+            f"uninterrupted run's: {not diff} ({len(a)} tensors)")
+        if diff or set(a) != set(b):
+            raise PhaseError(f"resume is not bit-equal: {diff[:5]}")
+        with open(os.path.join(killed, "automated_log.txt")) as f:
+            if f.read() != open(os.path.join(full, "automated_log.txt")
+                                ).read():
+                raise PhaseError("the resumed run's automated_log.txt "
+                                 "differs")
+        log("  its automated_log.txt is the uninterrupted run's")
+    return timing, counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2363,6 +2890,9 @@ def main():
         te2e, tacc = phase_train_timing(sd, device, ITERS)
         tprof = phase_train_profile(sd, device, te2e)
         tprof2 = phase_train_profile(sd, device, te2e, enc=False)
+        head1_row = phase_head1(sd, device, ITERS)
+        eval_counts, eval_agree = phase_eval(sd, device)
+        trainer_timing, trainer_counts = phase_trainer(device, te2e)
     except Exception:  # every phase failure is fatal and reported
         traceback.print_exc()
         log("FAIL")
@@ -2406,6 +2936,13 @@ def main():
         "max_abs_err": halo_err, "ms": halo_row["ms"],
         "plain_ms": halo_row["plain_ms"], "bound_ms": halo_row["bound_ms"],
         "bound_by": halo_row["bound_by"], "library_ms": None})
+    src, repl = SOURCES["head_argmax_1x1"]
+    # launches: the two-stage train_main run of phase 19 (its eval batches
+    # and --iouTrain steps of the encoder stage)
+    kernels.append({
+        "name": "head_argmax_1x1", "route": "cuda", "source": src,
+        "replaces": repl, "launches": trainer_counts["head_argmax_1x1"],
+        **head1_row})
     summary = {"build_s": build_s, "serving_agreement": agree, **e2e,
                "profile": prof,
                "int8": {"agreement_plain": q8_agree,
@@ -2425,7 +2962,10 @@ def main():
                                 "profile": tprof2, "rows": tacc[2][1],
                                 "launches_per_step": {
                                     k: v // TRAIN_STEPS
-                                    for k, v in t2counts.items()}}}
+                                    for k, v in t2counts.items()}},
+               "eval_step": {"launches": eval_counts, **eval_agree},
+               "trainer": {"timing": trainer_timing,
+                           "launches": trainer_counts}}
     log(f"summary {json.dumps(summary)}")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -1,12 +1,13 @@
 """What the port's three Cityscapes eval CLIs share: the flags of the JAX
-CLIs' surface (weights, data, batch, size, device, dtype, int8, frame
-form), and the device, dtype and weights they resolve to."""
+CLIs' surface (weights, data, batch, size, device, dtype, kernels, int8,
+frame form), and the device, dtype and weights they resolve to (the
+device and dtype rule is ``_device_flags``'s)."""
 
 from __future__ import annotations
 
 import os
 
-import torch
+from ._device_flags import add_device_flags, resolve_device_dtype
 
 
 def add_eval_flags(p, *, subset):
@@ -26,13 +27,7 @@ def add_eval_flags(p, *, subset):
     p.add_argument("--width", type=int, default=None,
                    help="eval width (default 2*height, the reference's "
                         "Resize((512, 1024)) contract)")
-    p.add_argument("--cpu", action="store_true",
-                   help="run the plain versions on the host CPU")
-    p.add_argument("--bf16", action="store_true", default=True,
-                   help="bf16 compute (the default; the CUDA kernels take "
-                        "bf16 only)")
-    p.add_argument("--fp32", dest="bf16", action="store_false",
-                   help="f32 compute (with --cpu only)")
+    add_device_flags(p)
     from ..inference import add_int8_flags
     add_int8_flags(p)
     p.add_argument("--image-dtype", default="uint8",
@@ -43,15 +38,11 @@ def add_eval_flags(p, *, subset):
     return p
 
 
-def resolve(args):
+def resolve(args, parser=None):
     """(device, dtype, eval width, state_dict): the card unless --cpu (and
-    then raise if there is none), bf16 unless --fp32."""
-    from ..device import resolve_device
+    then raise if there is none); the dtype by ``_device_flags``."""
     from ..weights import load_any_weights
-    device = resolve_device("cpu" if args.cpu else None)
-    if device.type == "cuda" and not args.bf16:
-        raise SystemExit("--fp32 needs --cpu: the CUDA kernels take bf16")
-    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    device, dtype = resolve_device_dtype(args, parser)
     width = args.width if args.width is not None else 2 * args.height
     path = args.state or os.path.join(args.loadDir, args.loadWeights)
     print(f"Loading weights: {path}")

@@ -1,4 +1,6 @@
-// Decoder head + argmax: ConvTranspose2d(16, n, k2 s2) as a parity-plane
+// Two heads + argmax, logits never in device memory.
+//
+// (1) erf_head_argmax, the decoder head: ConvTranspose2d(16, n, k2 s2) as a parity-plane
 // matmul, logits rounded to bf16, first-max argmax over the n classes of
 // each parity plane, int32 predictions stored straight into (B, 2H, 2W).
 //
@@ -17,6 +19,25 @@
 // CUDA cores in f32 (1280 for n = 20) against 32 bytes read and 16 written,
 // so this version is bound by f32 issue rate, above the byte bound.  Moving
 // the product to the tensor cores is the next step.
+//
+// (2) erf_head_argmax_1x1, the encoder's 1x1 head as the encoder-stage eval
+// step and train IoU run it: feats (M, 128) bf16 @ W (128, n) + bias (n,)
+// f32, logits rounded to bf16, first-max argmax over n, int32 (M,).
+// Replaces erfnet_pytorch_tpu/ops/pallas/head_argmax.py:_kernel at G = 1,
+// K = 128 (head_argmax -> _op -> pallas_call, as training/steps.py:374 calls
+// it): the same sum in f32 (bf16 x bf16 products are exact), the same
+// rounding, the same first-max rule, and a pixel with a NaN logit gives
+// n - 1 as that kernel's clamp does.  The TPU kernel computes the logits
+// transposed so that the argmax is a sublane reduction; here each thread
+// owns one pixel and keeps its n logits in registers.
+//
+// Bound on this card: bytes, 256 read and 4 written per pixel (12.8 MB at
+// the B=6 512x1024 encoder stage, about 3.8 us at 3.35 TB/s); the 128 x n
+// FMAs per pixel run on the CUDA cores in f32, so this simple version is
+// bound by its f32 FMAs and shared-memory reads of W instead (W and the bias
+// stay in shared memory, padded to NP classes, read as broadcasts; the
+// feature row comes in as sixteen 16-byte loads).  The tensor cores are
+// the next step.
 #include "common.cuh"
 
 using namespace erfk;
@@ -72,7 +93,83 @@ head_argmax_kernel(const bf16* __restrict__ feats, const bf16* __restrict__ w,
   }
 }
 
+constexpr int K1 = 128, THREADS1 = 128;
+
+template <int NP>
+__global__ void __launch_bounds__(THREADS1)
+head_argmax_1x1_kernel(const bf16* __restrict__ feats,
+                       const bf16* __restrict__ w,
+                       const float* __restrict__ bias, int* __restrict__ out,
+                       long long M, int n) {
+  __shared__ __align__(16) float Ws[K1 * NP];  // (K1, NP), zero past n
+  __shared__ float bs[NP];
+  for (int i = threadIdx.x; i < K1 * NP; i += blockDim.x) {
+    const int k = i / NP, c = i % NP;
+    Ws[i] = c < n ? __bfloat162float(w[k * n + c]) : 0.0f;
+  }
+  for (int i = threadIdx.x; i < NP; i += blockDim.x)
+    bs[i] = i < n ? bias[i] : 0.0f;
+  __syncthreads();
+
+  const long long m = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (m >= M) return;
+  float acc[NP];
+#pragma unroll
+  for (int c = 0; c < NP; ++c) acc[c] = 0.0f;
+  const uint4* src = reinterpret_cast<const uint4*>(feats + m * K1);
+#pragma unroll 2
+  for (int k0 = 0; k0 < K1; k0 += 8) {
+    float f[8];
+    unpack_bf16x8(__ldg(src + k0 / 8), f);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const float* wr = Ws + (k0 + kk) * NP;
+#pragma unroll
+      for (int c = 0; c < NP; ++c) acc[c] = fmaf(f[kk], wr[c], acc[c]);
+    }
+  }
+  float best = __int_as_float(0xff800000);  // -inf
+  int idx = 0;
+  bool nan = false;
+#pragma unroll
+  for (int c = 0; c < NP; ++c) {
+    if (c < n) {
+      const float z = __bfloat162float(__float2bfloat16(acc[c] + bs[c]));
+      if (isnan(z)) {
+        nan = true;
+      } else if (z > best) {
+        best = z;
+        idx = c;
+      }
+    }
+  }
+  out[m] = nan ? n - 1 : idx;
+}
+
+template <int NP>
+cudaError_t launch_1x1(const void* feats, const void* w, const void* bias,
+                       void* out, long long M, int n, cudaStream_t s) {
+  const unsigned grid = (unsigned)((M + THREADS1 - 1) / THREADS1);
+  head_argmax_1x1_kernel<NP><<<grid, THREADS1, 0, s>>>(
+      static_cast<const bf16*>(feats), static_cast<const bf16*>(w),
+      static_cast<const float*>(bias), static_cast<int*>(out), M, n);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// feats: (M, 128) bf16; w: (128, n) bf16; bias: (n,) f32; out: (M,) int32.
+// n <= 32 (the class count padded to NP = 8, 16, 24 or 32).
+extern "C" int erf_head_argmax_1x1(const void* feats, const void* w,
+                                   const void* bias, void* out, int M, int n,
+                                   void* stream) {
+  if (M < 1 || n < 1 || n > 32) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= 8) return launch_1x1<8>(feats, w, bias, out, M, n, s);
+  if (n <= 16) return launch_1x1<16>(feats, w, bias, out, M, n, s);
+  if (n <= 24) return launch_1x1<24>(feats, w, bias, out, M, n, s);
+  return launch_1x1<32>(feats, w, bias, out, M, n, s);
+}
 
 // feats: (B, H, W, 16) bf16; w: (16, 4n) bf16 (column block g = plane a*2+b);
 // bias: (4n,) f32; out: (B, 2H, 2W) int32.

@@ -4,12 +4,13 @@
     {datadir}/leftImg8bit/{subset}/{city}/*_leftImg8bit.png
     {datadir}/gtFine/{subset}/{city}/*_gtFine_labelTrainIds.png
 
-Host work is PNG decode and PIL resize only.  ``size=(h, w)`` resizes to
-exactly (h, w) with PIL BILINEAR (image) and NEAREST (label), the
-reference eval pipeline's ``Resize((512, 1024))``; the 255 -> 19 relabel
-runs on the device.  The JAX dataset's aspect-keeping ``height`` /
-``target_height`` resize and its native-loader hooks serve training and
-the native decoder, and are not ported yet.
+Host work is PNG decode and PIL resize only: the 255 -> 19 relabel runs
+on the device.  ``size=(h, w)`` resizes to exactly (h, w) with PIL
+BILINEAR (image) and NEAREST (label), the reference eval pipeline's
+``Resize((512, 1024))``; ``height`` alone keeps the frame's aspect ratio
+(the image to (height, w * height // h), the label likewise to
+``target_height``), as the trainer's datasets do.  The JAX dataset's
+native-loader hooks wait for the native decoder.
 """
 
 from __future__ import annotations
@@ -34,18 +35,26 @@ class CityscapesDataset:
     the path relative to leftImg8bit/{subset} (for naming the outputs)."""
 
     def __init__(self, root: str, subset: str = "train",
+                 height: Optional[int] = 512,
+                 target_height: Optional[int] = None,
                  size: Optional[Tuple[int, int]] = None,
                  image_dtype: str = "float32"):
-        """``size=(h, w)`` resizes image and label to exactly (h, w); None
-        keeps the frames' own size.  ``image_dtype='uint8'`` yields the
-        PIL-rounded resize itself, a quarter of the bytes, normalized on
-        the device by the consumer (``data.transforms.to_tensor``)."""
+        """``size=(h, w)`` resizes image and label to exactly (h, w).
+        Without it, ``height`` resizes the image to (height, w * height //
+        h) (BILINEAR) and ``target_height`` (default ``height``) the label
+        likewise (NEAREST); ``height=None`` keeps the frames' own size.
+        ``image_dtype='uint8'`` yields the PIL-rounded resize itself, a
+        quarter of the bytes, normalized on the device by the consumer
+        (``data.transforms.to_tensor``)."""
         if image_dtype not in ("float32", "uint8"):
             raise ValueError(f"unsupported image_dtype: {image_dtype!r}")
         self.image_dtype = image_dtype
         self.root = root
         self.subset = subset
         self.size = size
+        self.height = size[0] if size is not None else height
+        self.target_height = (target_height if target_height is not None
+                              else self.height)
         self.images_root = os.path.join(root, "leftImg8bit", subset)
         self.labels_root = os.path.join(root, "gtFine", subset)
         if not os.path.isdir(self.images_root):
@@ -76,6 +85,9 @@ class CityscapesDataset:
             if self.size is not None:
                 image = image.resize((self.size[1], self.size[0]),
                                      Image.BILINEAR)
+            elif self.height is not None:
+                w = image.width * self.height // image.height
+                image = image.resize((w, self.height), Image.BILINEAR)
             if self.image_dtype == "uint8":
                 image_np = np.asarray(image, dtype=np.uint8)
             else:
@@ -85,8 +97,13 @@ class CityscapesDataset:
         if os.path.exists(lp):
             with Image.open(lp) as lab:
                 label = lab.convert("L")
-                if self.size is not None:
+                if (self.size is not None
+                        and self.target_height == self.size[0]):
                     label = label.resize((self.size[1], self.size[0]),
+                                         Image.NEAREST)
+                elif self.target_height is not None:
+                    w = label.width * self.target_height // label.height
+                    label = label.resize((w, self.target_height),
                                          Image.NEAREST)
                 label_np = np.asarray(label, dtype=np.int32)
         else:

@@ -4,6 +4,11 @@
   * a thread pool decodes and resizes samples (PIL releases the GIL while
     it decodes) into fixed-shape numpy batches;
   * a bounded queue keeps ``prefetch`` batches in flight;
+  * ``shuffle`` draws each epoch's order from
+    ``np.random.RandomState(seed + epoch)``, the JAX loader's stream, so
+    the two packages see the same batches; ``set_epoch`` pins the next
+    iteration's epoch (a resumed run replays the uninterrupted run's
+    order), and ``drop_last`` drops a short last batch;
   * ``pad_final`` pads the last batch up to ``batch_size`` by repeating
     its last image with void (255) labels; ``n_valid``, the 4th item of
     every batch, says how many rows are real;
@@ -12,10 +17,9 @@
     stream and the host goes on to the next batch.  Without one the
     batches stay on the host as CPU tensors.
 
-Each ``__iter__`` builds its own iterator (thread pool, queue), so two
-iterations of one loader never share a producer.  Shuffling and the
-multi-process sharding of the JAX loader serve training and wait for
-the trainer's port.
+Each ``__iter__`` builds its own iterator (thread pool, queue, epoch), so
+two iterations of one loader never share a producer.  The JAX loader's
+``pad_to`` and multi-process sharding wait for multi-GPU training.
 """
 
 from __future__ import annotations
@@ -43,18 +47,43 @@ def to_device(t, device):
 
 
 class DataLoader:
-    def __init__(self, dataset, batch_size: int, *, num_workers: int = 4,
-                 prefetch: int = 2, pad_final: bool = False, device=None):
+    def __init__(self, dataset, batch_size: int, *, shuffle: bool = False,
+                 num_workers: int = 4, drop_last: bool = False,
+                 prefetch: int = 2, seed: int = 0, pad_final: bool = False,
+                 device=None):
         """``device``: where the batches go (None: stay on the host)."""
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
         self.num_workers = max(1, num_workers)
+        self.drop_last = drop_last
         self.prefetch = prefetch
+        self.seed = seed
         self.pad_final = pad_final
         self.device = None if device is None else torch.device(device)
+        self._epoch = 0
 
     def __len__(self):
-        return -(-len(self.dataset) // self.batch_size)
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return -(-n // self.batch_size)
+
+    def set_epoch(self, epoch: int):
+        """Pin the next ``__iter__``'s shuffle stream to ``epoch`` (the
+        torch DistributedSampler convention, as the JAX loader does)."""
+        self._epoch = int(epoch) - 1
+
+    def _batch_indices(self, epoch: int):
+        n = len(self.dataset)
+        order = np.arange(n)
+        if self.shuffle:
+            np.random.RandomState(self.seed + epoch).shuffle(order)
+        for i in range(0, n, self.batch_size):
+            idx = order[i:i + self.batch_size]
+            if len(idx) < self.batch_size and self.drop_last:
+                return
+            yield idx
 
     def _pad(self, images, labels, n_valid: int):
         reps = (self.batch_size if self.pad_final else n_valid) - n_valid
@@ -67,6 +96,7 @@ class DataLoader:
         return images, np.concatenate([labels, pad_lab])
 
     def __iter__(self) -> Iterator:
+        epoch = self._epoch = self._epoch + 1
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
         pool = ThreadPoolExecutor(max_workers=self.num_workers)
@@ -74,9 +104,7 @@ class DataLoader:
 
         def producer():
             try:
-                n = len(self.dataset)
-                for start in range(0, n, self.batch_size):
-                    idx = range(start, min(start + self.batch_size, n))
+                for idx in self._batch_indices(epoch):
                     if stop.is_set():
                         return
                     samples = list(pool.map(self.dataset.__getitem__, idx))

@@ -8,6 +8,9 @@ build_fast_infer``.
     C=128 run, at every map size
   * UpsamplerBlocks (2)                -> ops/cuda/upsampler.py
   * head ConvT + argmax (preds_only)   -> ops/cuda/head_argmax.py
+  * the encoder's 1x1 head + argmax    -> ops/cuda/head_argmax.py
+    (``head_argmax_1x1``; the encoder-stage eval step's, on
+    ``encoder_features``)
 
 With calibrated activation scales (``q8_scales``, see ``quantize.py``) the
 NB1d blocks run the w8a8 int8 block (ops/cuda/nb1d_q8.py) where the JAX
@@ -37,7 +40,9 @@ from .ops.argmax import fast_argmax
 from .ops.convt_mm import apply_head_matmul
 from .ops.cuda.downsampler import (downsampler, downsampler_plain,
                                    prepare_downsampler)
-from .ops.cuda.head_argmax import head_argmax, head_argmax_plain, prepare_head
+from .ops.cuda.head_argmax import (head_argmax, head_argmax_1x1,
+                                   head_argmax_1x1_plain, head_argmax_plain,
+                                   prepare_head)
 from .ops.cuda.nb1d import fuse_nb1d_params, nb1d, nb1d_plain, prepare_nb1d
 from .ops.cuda.nb1d_halo import (nb1d_halo, nb1d_halo_plain,
                                  takes as halo_takes)
@@ -45,10 +50,12 @@ from .ops.cuda.nb1d_q8 import nb1d_q8, nb1d_q8_plain, prepare_nb1d_q8
 from .ops.cuda.upsampler import prepare_upsampler, upsampler, upsampler_plain
 
 KERNEL_OPS = {"down": downsampler, "nb1d": nb1d, "nb1d_halo": nb1d_halo,
-              "up": upsampler, "head": head_argmax, "nb1d_q8": nb1d_q8}
+              "up": upsampler, "head": head_argmax, "nb1d_q8": nb1d_q8,
+              "head1": head_argmax_1x1}
 PLAIN_OPS = {"down": downsampler_plain, "nb1d": nb1d_plain,
              "nb1d_halo": nb1d_halo_plain, "up": upsampler_plain,
-             "head": head_argmax_plain, "nb1d_q8": nb1d_q8_plain}
+             "head": head_argmax_plain, "nb1d_q8": nb1d_q8_plain,
+             "head1": head_argmax_1x1_plain}
 
 # Copies of the JAX package's gate constants (inference.py): the map-size
 # budget of its whole-map kernels, and each channel count's W-pack factor.
@@ -139,19 +146,34 @@ def _group_stacks(layers):
     return out
 
 
-def prepare(state_dict_or_net, dtype, device, q8_scales=None):
+def prepare_encoder_head(sd, dtype):
+    """The encoder's 1x1 prediction head as a product: ``w`` (128, n) cast
+    to ``dtype`` (the TPU kernel casts W to the feats' dtype), ``b`` (n,)
+    f32."""
+    w = sd["encoder.output_conv.weight"][:, :, 0, 0].t()
+    return {"w": w.to(dtype).contiguous(),
+            "b": sd["encoder.output_conv.bias"].float().contiguous()}
+
+
+def prepare(state_dict_or_net, dtype, device, q8_scales=None,
+            encoder_only=False):
     """Fold and cast every block's weights once (f32 folding on the host),
     with the int8 operands of every NB1d block that ``q8_scales`` has,
-    then move them to ``device``."""
+    then move them to ``device``.  ``encoder_only``: the stem, the
+    encoder and its 1x1 head alone (what ``encoder_features`` and the
+    encoder-stage eval step run)."""
     sd = _state_dict(state_dict_or_net)
     prep = {
         "initial": prepare_downsampler(sd, "encoder.initial_block", dtype),
         "encoder": _prepare_layers(sd, "encoder.layers", ENCODER_LAYER_SPECS,
                                    dtype, "encoder", q8_scales),
-        "decoder": _prepare_layers(sd, "decoder.layers", DECODER_LAYER_SPECS,
-                                   dtype, "decoder", q8_scales),
-        "head": prepare_head(sd, "decoder.output_conv", dtype),
+        "enc_head": prepare_encoder_head(sd, dtype),
     }
+    if not encoder_only:
+        prep["decoder"] = _prepare_layers(sd, "decoder.layers",
+                                          DECODER_LAYER_SPECS, dtype,
+                                          "decoder", q8_scales)
+        prep["head"] = prepare_head(sd, "decoder.output_conv", dtype)
 
     def to_dev(p):
         if isinstance(p, torch.Tensor):
@@ -198,10 +220,8 @@ def _nb1d_q8_stack(x, ps, dtype, ops):
     return x
 
 
-def features(prep, images, dtype, ops):
-    """Images (B, H, W, 3) -> pre-head features (B, H/2, W/2, 16)."""
-    x = ops["down"](images.to(dtype), prep["initial"])
-    for kind, p in prep["encoder"] + prep["decoder"]:
+def _run_layers(x, layers, dtype, ops):
+    for kind, p in layers:
         if kind == "nb1d":
             x = _nb1d_block(x, p, dtype, ops)
         elif kind == "nb1d_q8_stack":
@@ -209,6 +229,20 @@ def features(prep, images, dtype, ops):
         else:
             x = ops[kind](x, p)
     return x
+
+
+def encoder_features(prep, images, dtype, ops):
+    """Images (B, H, W, 3) -> the encoder's features before its 1x1 head
+    (B, H/8, W/8, 128): the JAX ``model.apply(train=False,
+    only_encode=True, skip_head=True)``."""
+    x = ops["down"](images.to(dtype), prep["initial"])
+    return _run_layers(x, prep["encoder"], dtype, ops)
+
+
+def features(prep, images, dtype, ops):
+    """Images (B, H, W, 3) -> pre-head features (B, H/2, W/2, 16)."""
+    return _run_layers(encoder_features(prep, images, dtype, ops),
+                       prep["decoder"], dtype, ops)
 
 
 def _make_infer(prep, dtype, device, preds_only, ops):

@@ -8,9 +8,12 @@ counterpart of the JAX ``metrics/iou.py``.
     as 0).
   * The ANSI-colored printing (``colors``, ``get_color_entry``).
 
-The (C, C) confusion matrix is one ``torch.bincount`` per batch on the
-device that holds the predictions; it stays there across batches, and
-only ``get_iou`` copies its 400 counts to the host.
+The (C, C) confusion matrix is one ``index_add_`` of ones per batch on
+the device that holds the predictions (``torch.bincount`` would read the
+largest index back to the host on a card, a synchronisation per batch);
+it stays there across batches, and only ``get_iou`` copies its 400
+counts to the host.  The counts are integers, so their sum is exact in
+any order.
 """
 
 from __future__ import annotations
@@ -25,7 +28,9 @@ def confusion_matrix_update(cm, preds, labels):
     n = cm.shape[0]
     g = labels.reshape(-1).to(device=cm.device, dtype=torch.int64)
     p = preds.reshape(-1).to(device=cm.device, dtype=torch.int64)
-    return cm + torch.bincount(g * n + p, minlength=n * n).reshape(n, n)
+    counts = torch.zeros(n * n, dtype=torch.int64, device=cm.device)
+    counts.index_add_(0, g * n + p, torch.ones_like(g))
+    return cm + counts.reshape(n, n)
 
 
 def iou_from_confusion(cm, ignore_index=19):

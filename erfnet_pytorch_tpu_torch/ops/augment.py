@@ -65,7 +65,12 @@ def co_transform_shifts(images, labels, flip, shifts, *, enc):
     shifts = shifts.to(dev).long()
     labels = _shift_batch(_shift_batch(labels, shifts[:, 1], 1, 255),
                           shifts[:, 0], 2, 255)
+    return images, finish_labels(labels, enc=enc), shifts
+
+
+def finish_labels(labels, *, enc):
+    """The tail of co_transform on labels (B, H, W), shared by the train
+    and the eval step: taken at 4::8 when ``enc``, then 255 (void) -> 19."""
     if enc:
         labels = labels[:, 4::8, 4::8]
-    labels = torch.where(labels == 255, torch.full_like(labels, 19), labels)
-    return images, labels, shifts
+    return torch.where(labels == 255, torch.full_like(labels, 19), labels)

@@ -15,10 +15,12 @@ def kernel_wrappers():
     head_argmax), then those of the train path (forward and backward of
     the NB1d pair, the train downsampler, the head+loss and the train
     upsampler), then the int8 NB1d block of the int8 serving path, then
-    the halo-tile NB1d block of the large maps (1024x2048)."""
+    the halo-tile NB1d block of the large maps (1024x2048), then the
+    encoder's 1x1 head + argmax of the encoder-stage eval step and train
+    IoU."""
     from .downsampler import downsampler
     from .downsampler_train import down_bwd, down_fwd
-    from .head_argmax import head_argmax
+    from .head_argmax import head_argmax, head_argmax_1x1
     from .head_loss import head_loss_bwd, head_loss_fwd
     from .nb1d import nb1d
     from .nb1d_halo import nb1d_halo
@@ -28,7 +30,7 @@ def kernel_wrappers():
     from .upsampler_train import ups_bwd, ups_fwd
     return (downsampler, nb1d, upsampler, head_argmax, pair_fwd, pair_bwd,
             down_fwd, down_bwd, head_loss_fwd, head_loss_bwd, ups_fwd,
-            ups_bwd, nb1d_q8, nb1d_halo)
+            ups_bwd, nb1d_q8, nb1d_halo, head_argmax_1x1)
 
 
 def reset_launch_counts():

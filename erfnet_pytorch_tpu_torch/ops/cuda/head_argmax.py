@@ -1,9 +1,11 @@
-"""Decoder head + argmax: CUDA kernel and plain version.
+"""Head + argmax: CUDA kernels and plain versions, for the decoder's
+ConvTranspose2d head (``head_argmax``) and the encoder's 1x1 head
+(``head_argmax_1x1``).  Kernel source: ``csrc/head_argmax.cu``.
 
-Replaces the TPU kernels ``erfnet_pytorch_tpu/ops/pallas/head_argmax.py:
-_kernel_grouped`` (G = 32, W-packed) and ``_kernel`` (G = 4), both via
-``head_argmax``, plus the ``depth_to_space_planes(_packed)`` reshape, which
-the kernel folds into its store.  Kernel source: ``csrc/head_argmax.cu``.
+``head_argmax`` replaces the TPU kernels ``erfnet_pytorch_tpu/ops/pallas/
+head_argmax.py:_kernel_grouped`` (G = 32, W-packed) and ``_kernel`` (G =
+4), both via ``head_argmax``, plus the ``depth_to_space_planes(_packed)``
+reshape, which the kernel folds into its store.
 
 Function: ConvTranspose2d(16, n, k2 s2) as the parity-plane matmul
 feats (M, 16) @ W (16, 4n) + bias, logits rounded to bf16 when the feats
@@ -19,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from ..convt_mm import build_head_matmul, convt_to_hwio
-from . import _build
+from . import _build, route
 
 
 def prepare_head(sd, prefix, dtype):
@@ -47,6 +49,7 @@ def head_argmax_plain(feats, p):
             .to(torch.int32))
 
 
+@route.recorded(head_argmax_plain)
 def head_argmax(feats, p):
     """CPU tensor: the plain version.  CUDA tensor: one kernel launch
     (bf16 feats with 16 channels), or raise."""
@@ -71,3 +74,57 @@ def head_argmax(feats, p):
 
 
 head_argmax.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The encoder's 1x1 head + argmax.  Replaces ``head_argmax.py:_kernel`` at
+# G = 1, K = 128 (``head_argmax(f2, Wm, bm, G=1, n_classes=20)``, as the
+# JAX encoder-stage eval step calls it): z = feats (M, 128) @ W (128, n) +
+# b in f32 with W cast to the feats' dtype first, z rounded to bf16 when
+# the feats are bf16, first-max argmax over n, a pixel with a NaN logit
+# gives n - 1; predictions (M,) int32.  Bound on the H100: bytes (the
+# 256-byte feature row per pixel); this version is bound by its f32 FMAs
+# on the CUDA cores instead (see the source).
+# ---------------------------------------------------------------------------
+
+def head_argmax_1x1_plain(feats, w, b):
+    """feats (M, K), w (K, n), b (n,) -> predictions (M,) int32."""
+    n = w.shape[1]
+    z = feats.float() @ w.to(feats.dtype).float() + b.float()
+    if feats.dtype == torch.bfloat16:
+        z = z.to(torch.bfloat16).float()
+    m = z.amax(dim=-1, keepdim=True)
+    iota = torch.arange(n, device=feats.device)
+    return (torch.where(z >= m, iota, n).amin(dim=-1).clamp(max=n - 1)
+            .to(torch.int32))
+
+
+@route.recorded(head_argmax_1x1_plain)
+def head_argmax_1x1(feats, w, b):
+    """head_argmax_1x1_plain's contract.  CPU tensor: the plain version.
+    CUDA tensor: one kernel launch (bf16 feats with 128 channels, at most
+    32 classes), or raise."""
+    if feats.device.type == "cpu":
+        return head_argmax_1x1_plain(feats, w, b)
+    M, K = feats.shape
+    n = w.shape[1]
+    if K != 128 or not 1 <= n <= 32 or M < 1:
+        raise ValueError(f"head_argmax_1x1 kernel takes feats (M, 128) and "
+                         f"at most 32 classes; got feats "
+                         f"{tuple(feats.shape)}, W {tuple(w.shape)}")
+    _build.require(feats, "feats", torch.bfloat16, feats.device)
+    wc = w.to(torch.bfloat16).contiguous()
+    bf = b.float().contiguous()
+    _build.require(wc, "w", torch.bfloat16, feats.device, (K, n))
+    _build.require(bf, "b", torch.float32, feats.device, (n,))
+    lib = _build.library("head_argmax")
+    fn = _build.declare(lib, "erf_head_argmax_1x1", 4, 2)
+    out = torch.empty(M, dtype=torch.int32, device=feats.device)
+    err = fn(_build.ptr(feats), _build.ptr(wc), _build.ptr(bf),
+             _build.ptr(out), M, n, _build.stream_ptr(feats))
+    _build.check(lib, err, "head_argmax_1x1 launch")
+    head_argmax_1x1.launches += 1
+    return out
+
+
+head_argmax_1x1.launches = 0

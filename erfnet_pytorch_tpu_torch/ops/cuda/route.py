@@ -7,9 +7,10 @@ launch the kernels on a CUDA tensor and run the plain versions on a CPU
 tensor.  Inside
 ``plain_versions()`` the Functions call the plain versions instead, on any
 device: the reference that the kernels are held against on the card.
-Inside ``recording()`` each wrapper call is kept, arguments and result
-copied, so that every call of a real step can be held against its plain
-version on the same inputs afterwards.
+Inside ``recording()`` each call of a ``recorded`` wrapper (those, and
+the head+argmax wrappers of the train step's predictions) is kept,
+arguments and result copied, so that every call of a real step can be
+held against its plain version on the same inputs afterwards.
 """
 
 from __future__ import annotations

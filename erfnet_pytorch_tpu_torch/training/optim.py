@@ -23,3 +23,14 @@ def make_adam(params, base_lr: float = 5e-4, weight_decay: float = 1e-4,
     return torch.optim.Adam(params, lr=base_lr, betas=(b1, b2), eps=eps,
                             weight_decay=weight_decay)
 
+
+def set_learning_rate(optimizer, lr: float):
+    """Set every param group's learning rate (the JAX ``set_learning_rate``
+    on optax's injected hyperparameter; the reference's LambdaLR step)."""
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+    return optimizer
+
+
+def get_learning_rate(optimizer) -> float:
+    return float(optimizer.param_groups[0]["lr"])

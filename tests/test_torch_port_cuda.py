@@ -11,7 +11,9 @@ version on the call's own recorded inputs; the halo-tile block of the
 C=64 and C=16 blocks against its plain version at the 1024x2048,
 512x1024 and ragged shapes, the 1024x2048 forward's launch counts, and a
 600x1200 forward (maps off the whole-map gate) against its plain
-pipeline.
+pipeline; the encoder's 1x1 head + argmax against its plain version and
+its refusals, and the eval step of both stages (launch counts, and the
+same step through the plain versions).
 
 These tests need an NVIDIA GPU with ``nvcc`` (sm_90a) and skip without
 one.  They import nothing of JAX, so on a machine without it run them
@@ -730,3 +732,74 @@ def test_forward_off_the_whole_map_gate(dev, sd):
     with torch.inference_mode():
         assert torch.equal(features(prep, x, torch.bfloat16, KERNEL_OPS),
                            features(prep, x, torch.bfloat16, hybrid))
+
+
+def test_head_argmax_1x1_kernel(dev, sd):
+    """The encoder's 1x1 head + argmax: one launch; equal to its plain
+    version on the card wherever the two largest bf16 logits differ by
+    more than one bf16 ulp; a row holding a NaN gives the last class."""
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn(1037, 128, generator=g).clamp_min(0).bfloat16().to(dev)
+    x[7, 100] = float("nan")
+    w = sd["encoder.output_conv.weight"][:, :, 0, 0].t().to(dev)
+    b = sd["encoder.output_conv.bias"].to(dev)
+    n0 = head_argmax.head_argmax_1x1.launches
+    got = head_argmax.head_argmax_1x1(x, w, b)
+    torch.cuda.synchronize()
+    assert head_argmax.head_argmax_1x1.launches - n0 == 1
+    ref = head_argmax.head_argmax_1x1_plain(x, w, b)
+    assert got.shape == (1037,) and got.dtype == torch.int32
+    assert got[7] == 19 and ref[7] == 19
+    z = (x.float() @ w.bfloat16().float() + b).bfloat16().float()
+    top = z.topk(2, dim=-1).values
+    tie = (top[:, 0] - top[:, 1]) <= top[:, 0].abs() * 2.0 ** -7
+    assert ((got != ref) & ~tie).sum().item() == 0
+
+
+def test_head_argmax_1x1_refuses_what_the_kernel_does_not_take(dev, sd):
+    w = sd["encoder.output_conv.weight"][:, :, 0, 0].t().to(dev)
+    b = sd["encoder.output_conv.bias"].to(dev)
+    with pytest.raises(TypeError):
+        head_argmax.head_argmax_1x1(torch.zeros(4, 128, device=dev), w, b)
+    with pytest.raises(ValueError):
+        head_argmax.head_argmax_1x1(
+            torch.zeros(4, 64, device=dev, dtype=torch.bfloat16), w[:64], b)
+    with pytest.raises(ValueError):
+        head_argmax.head_argmax_1x1(
+            torch.zeros(4, 128, device=dev, dtype=torch.bfloat16),
+            torch.zeros(128, 40, device=dev), torch.zeros(40, device=dev))
+
+
+@pytest.mark.parametrize("enc", [True, False])
+def test_eval_step_launch_counts(dev, sd, enc):
+    """make_eval_step at B=2, 64x128 on the card: the launches of one
+    eval batch, and the loss and predictions of the same step through the
+    plain versions (loss rtol 1e-3, predictions >= 99.5 % equal)."""
+    from erfnet_pytorch_tpu_torch.training.class_weights import (
+        DECODER_WEIGHTS, ENCODER_WEIGHTS)
+    from erfnet_pytorch_tpu_torch.training.optim import make_adam
+    from erfnet_pytorch_tpu_torch.training.steps import (create_train_state,
+                                                         make_eval_step)
+    g = torch.Generator().manual_seed(10)
+    u8 = torch.randint(0, 256, (2, 64, 128, 3), generator=g,
+                       dtype=torch.uint8).to(dev)
+    labels = torch.randint(0, 19, (2, 64, 128), generator=g).to(dev)
+    labels[:, :8] = 255
+    net = Net(20)
+    net.load_state_dict(sd)
+    net.to(dev)
+    state = create_train_state(net, make_adam(net.parameters()))
+    cw = ENCODER_WEIGHTS if enc else DECODER_WEIGHTS
+    kernels.reset_launch_counts()
+    loss, preds, _ = make_eval_step(net, cw, enc=enc, device=dev)(
+        state, u8, labels)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    want = {"downsampler": 3, "nb1d": 8, "head_loss_fwd": 2}
+    want.update({"nb1d_halo": 5, "head_argmax_1x1": 1} if enc else
+                {"nb1d_halo": 9, "upsampler": 2, "head_argmax": 1})
+    assert counts == want
+    lossp, predsp, _ = make_eval_step(net, cw, enc=enc, device=dev,
+                                      plain=True)(state, u8, labels)
+    assert abs(loss.item() - lossp.item()) <= 1e-3 * abs(lossp.item())
+    assert (preds == predsp).float().mean().item() >= 0.995

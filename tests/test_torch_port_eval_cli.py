@@ -136,9 +136,8 @@ def test_eval_iou_matches_jax(fake_cityscapes, setup, monkeypatch, capsys):
 
 
 def test_clis_refuse_what_they_do_not_run(fake_cityscapes, setup, tmp_path):
-    """--writer native is not ported yet; --fp32 needs --cpu; without
-    --cpu and without a card the CLIs raise instead of running on the
-    host."""
+    """--writer native is not ported yet; without --cpu and without a
+    card the CLIs raise instead of running on the host."""
     path, _ties = setup
     base = ["--datadir", fake_cityscapes, "--state", path, "--height",
             str(H), "--outdir", str(tmp_path)]

@@ -38,7 +38,10 @@ def test_package_imports_neither_jax_nor_the_jax_package():
               "ops.dropout", "ops.loss", "ops.cuda.nb1d_halo", "streaming",
               "data.cityscapes", "data.loader", "data.transforms",
               "metrics.iou", "cli.eval_iou", "cli.eval_cityscapes_color",
-              "cli.eval_cityscapes_server", "training.steps", "training.optim", "training.class_weights"):
+              "cli.eval_cityscapes_server", "training.steps", "training.optim", "training.class_weights",
+              "training.trainer", "training.checkpoint",
+              "training.visualize", "utils.profiling", "data.cache",
+              "cli.train_main", "cli._device_flags", "cli._eval_common"):
         assert f"erfnet_pytorch_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -102,7 +105,8 @@ def test_cpu_tensors_never_move_a_launch_counter():
     assert set(counts) == {"downsampler", "nb1d", "upsampler", "head_argmax",
                            "pair_fwd", "pair_bwd", "down_fwd", "down_bwd",
                            "head_loss_fwd", "head_loss_bwd", "ups_fwd",
-                           "ups_bwd", "nb1d_q8", "nb1d_halo"}
+                           "ups_bwd", "nb1d_q8", "nb1d_halo",
+                           "head_argmax_1x1"}
     assert set(counts.values()) == {0}
 
 
