@@ -118,9 +118,13 @@ phases 14-16 (the 1024x2048 streaming path) right after phase 13:
     one 1024x2048 batch: nb1d_q8 8, nb1d_halo 9, nb1d 0 per forward, and
     the disagreement with the plain int8 pipeline at most ``Q8_NOISE_X``
     times the bf16 path's.  Then ``eval_cityscapes_color``,
-    ``eval_cityscapes_server`` and ``eval_iou --height 1024``, each in a
-    process of its own, on a synthetic tree of 4 1024x2048 frames: exit
-    0, 4 PNGs each, the IoU table.
+    ``eval_cityscapes_server`` and ``eval_iou --height 1024`` at their
+    default dtype, f32, and ``eval_cityscapes_color --bf16``, each in a
+    process of its own, on a synthetic tree of 4 1024x2048 frames, and
+    ``eval_forwardTime --fp32`` at B=4 512x1024: exit 0, 4 PNGs each, the
+    IoU table, the f32 dtype line, no "training bf16" note on stderr, and
+    the launches that each run prints exactly those of its forwards in
+    its dtype's kernel forms (no bf16 launch in an f32 run).
 16. 1024x2048 timing and profile: ms/img at B=1 and B=4 (frames on the
     card), the streaming rate in frames/s (host uint8 frames to host
     uint8 color maps, 10 batches of 4), ``nb1d_halo`` summed over one B=4
@@ -128,6 +132,42 @@ phases 14-16 (the 1024x2048 streaming path) right after phase 13:
     ``nb1d``'s time on the same shapes, the same two blocks at the
     512x1024 serving shapes, and the device's busy share of a B=4 forward
     with its time by kernel.
+
+Phases 20-22 (f32 serving, the JAX package's default compute dtype) run
+right after phase 16, with TF32 off for cuDNN and cuBLAS (the plain
+versions' convolutions and matmuls) and the flags restored after:
+
+20. f32 parity: each f32 form (downsampler, nb1d, upsampler, the decoder
+    head, the encoder's 1x1 head) against its plain version on the card
+    at B=2 and every shape of the 512x1024 and 1024x2048 f32 forwards
+    (nb1d at C=16, 64 and 128, every dilation, all on nb1d), plus a
+    dilation beyond the map, ragged maps, the 1x1 head with NaN rows and
+    a planted exact tie.  Outputs within ``F32_NORM_REL`` norm-relative
+    and ``F32_MAX_REL`` x max(|ref|, rms(ref)) at every element;
+    predictions equal off the plain version's near-ties (``F32_TIE_REL``).
+    Prints the measured maxima.
+21. f32 serving: ``build_fast_infer(dtype=f32, preds_only=True)`` answers
+    3 requests of 4 uint8 512x1024 frames (launches per forward 3 / 17 /
+    2 / 1 of the f32 forms: downsampler / nb1d, all 17 blocks /
+    upsampler / head, no bf16 launch; >= ``F32_AGREE`` of the pixels
+    equal to the plain f32 pipeline's and every other one a near-tie of
+    its logits); ``StreamingSegmenter(dtype=f32)`` over 3 requests of 2
+    host uint8 1024x2048 frames, the same checks; with int8 scales at
+    f32, the int8 and f32 blocks as the gate decides at both sizes and
+    the features bit-identical to the same path with the int8 block's
+    plain version; the encoder stage's eval features and 1x1-head
+    predictions at f32, B=6: launches 3 / 13 / 1 and the same agreement.
+    No entry point reaches the 1x1 head's f32 form yet (the f32 eval
+    step raises at its loss, whose head+loss kernel has no f32 form
+    until TPU row 17's lands; ``train_main`` trains bf16), so this part
+    makes the eval step's calls before its loss by hand.
+22. f32 timing and profile (CUDA events): ms/img at B=1 and B=4 at
+    512x1024 and 1024x2048, the plain f32 pipeline at B=4; each f32 form
+    summed over one B=4 512x1024 forward beside its plain version, its
+    bound (bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s,
+    whichever is larger) and cuDNN's f32 convolution (TF32 off); the 1x1
+    head's device time per B=6 call; the device's busy share of a B=4
+    f32 forward and its time by kernel.
 
 Phases 17-19 (the trainer: ``train_main`` -> ``train_two_stage`` ->
 ``train_stage`` with its eval step, train IoU, loader and checkpoints)
@@ -174,7 +214,12 @@ and their launches the counts of phases 7 and 8 together; the int8
 block's figures are sums over one B=4 int8 forward, its launches the count
 of phase 11; the halo-tile block's are sums over one B=4 1024x2048
 forward, its launches the count of phase 15's color run; the encoder
-head's are one B=6 call, its launches the count of phase 19's run.
+head's are one B=6 call, its launches the count of phase 19's run.  The
+f32 forms are listed as ``<kernel>_f32``: their figures are sums over one
+B=4 512x1024 f32 forward (the 1x1 head's one B=6 call), their launches
+the counts of phase 21's 512x1024 requests (the 1x1 head's: phase 21's
+hand-made call of the f32 encoder stage's eval calls, since no entry
+point reaches that form until row 17's f32 form lands).
 """
 
 from __future__ import annotations
@@ -188,6 +233,7 @@ import traceback
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor-core peak
+F32_FLOPS_PER_S = 67e12          # f32 on the CUDA cores (no tensor cores)
 INT8_OPS_PER_S = 1979e12         # dense int8 tensor-core peak
 N_CLASSES = 20
 ITERS = 20                       # timed iterations per kernel measurement
@@ -372,9 +418,10 @@ def head_case(B, hw=SERVE_HW):
     return ("decoder.output_conv", (B, H // 2, W // 2, 16))
 
 
-def prepared_ops(sd, device, hw=SERVE_HW):
+def prepared_ops(sd, device, hw=SERVE_HW, dtype=None):
     """{kernel: [(label, params, input shape, calls per forward)]} at the
-    B=4 shapes of an hw frame."""
+    B=4 shapes of an hw frame, the operands in ``dtype`` (default bf16;
+    f32: nb1d takes all 17 blocks, ``nb1d_cases_f32``)."""
     import torch
     from erfnet_pytorch_tpu_torch.ops.cuda.downsampler import \
         prepare_downsampler
@@ -384,7 +431,9 @@ def prepared_ops(sd, device, hw=SERVE_HW):
     from erfnet_pytorch_tpu_torch.ops.cuda.upsampler import \
         prepare_upsampler
 
-    bf = torch.bfloat16
+    bf = dtype or torch.bfloat16
+    cases = nb1d_cases(4, hw) if bf == torch.bfloat16 else \
+        nb1d_cases_f32(4, hw)
 
     def dev(p):
         return {k: v.to(device) if isinstance(v, torch.Tensor) else v
@@ -398,12 +447,21 @@ def prepared_ops(sd, device, hw=SERVE_HW):
         "downsampler": [(f"down {s[-1]}->", dev(prepare_downsampler(sd, p, bf)),
                          s, 1) for p, s in down_cases(4, hw)],
         "nb1d": [(f"nb1d C{s[-1]} d{d}", nb(p, d, s[-1]), s, n)
-                 for p, s, d, n in nb1d_cases(4, hw)],
+                 for p, s, d, n in cases],
         "upsampler": [(f"up {s[-1]}->", dev(prepare_upsampler(sd, p, bf)), s,
                        1) for p, s in up_cases(4, hw)],
         "head_argmax": [("head", dev(prepare_head(sd, head_case(4)[0], bf)),
                          head_case(4, hw)[1], 1)],
     }
+
+
+def nb1d_cases_f32(B, hw=SERVE_HW):
+    # the f32 route: nb1d takes all 17 blocks (prefix, input shape,
+    # dilation, calls per forward)
+    H, W = hw
+    cases = [("encoder.layers.1", (B, H // 4, W // 4, 64), 1, 7),
+             ("decoder.layers.4", (B, H // 2, W // 2, 16), 1, 2)]
+    return cases + [c for c in nb1d_cases(B, hw) if c[1][-1] == 128]
 
 
 # ---------------------------------------------------------------------------
@@ -425,10 +483,10 @@ def phase_build():
     return dt
 
 
-def _input(shape, g, device):
+def _input(shape, g, device, dtype=None):
     import torch
-    return torch.randn(shape, generator=g).to(device=device,
-                                              dtype=torch.bfloat16)
+    return torch.randn(shape, generator=g).to(
+        device=device, dtype=dtype or torch.bfloat16)
 
 
 def serving_parity(ops, g, device, errs, extra_nb1d=()):
@@ -538,51 +596,64 @@ def _time(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(kind, shape, p):
+def _time_uncounted(fn, iters):
+    """``_time``, with every launch counter put back after: timing
+    launches are not the main path's."""
+    from erfnet_pytorch_tpu_torch.ops import cuda as kernels
+    saved = {f: dict(f.launches) for f in kernels.kernel_wrappers()}
+    ms = _time(fn, iters)
+    for f, c in saved.items():
+        f.launches.update(c)
+    return ms
+
+
+def bound_ms(kind, shape, p, esz=2, flops_per_s=BF16_FLOPS_PER_S):
     """Least time for the function at this shape, the larger of bytes
-    (each input read once, each output written once, weights included)
-    over the memory rate and bf16 operations over the tensor-core peak.
-    Returns (bytes ms, operations ms)."""
+    (each input read once, each output written once, weights included;
+    maps of ``esz`` bytes an element) over the memory rate and operations
+    over ``flops_per_s`` (bf16: the tensor-core peak; f32: the CUDA-core
+    peak).  Returns (bytes ms, operations ms)."""
     B, H, W, C = shape
     wbytes = sum(v.numel() * v.element_size() for k, v in p.items()
                  if hasattr(v, "numel") and k != "wmat")
     if kind == "downsampler":
         cc = p["b"].shape[0]
         pix = B * (H // 2) * (W // 2)
-        nbytes = B * H * W * C * 2 + pix * (C + cc) * 2 + wbytes
+        nbytes = B * H * W * C * esz + pix * (C + cc) * esz + wbytes
         flops = 2 * pix * 9 * C * cc
     elif kind == "nb1d":
-        nbytes = 2 * B * H * W * C * 2 + wbytes
+        nbytes = 2 * B * H * W * C * esz + wbytes
         flops = 2 * B * H * W * 12 * C * C
     elif kind == "upsampler":
         cout = p["b"].shape[0]
-        nbytes = B * H * W * C * 2 + 4 * B * H * W * cout * 2 + wbytes
+        nbytes = B * H * W * C * esz + 4 * B * H * W * cout * esz + wbytes
         flops = 2 * B * H * W * 9 * C * cout
     else:
         n4 = p["b"].shape[0]
-        nbytes = B * H * W * C * 2 + 4 * B * H * W * 4 + wbytes
+        nbytes = B * H * W * C * esz + 4 * B * H * W * 4 + wbytes
         flops = 2 * B * H * W * C * n4
-    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / BF16_FLOPS_PER_S
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / flops_per_s
 
 
 def library_call(kind, x, p):
     """One PyTorch call computing the kernel's product, as a yardstick the
-    port never calls: cuDNN conv / transposed conv in bf16, channels-last.
-    None where no single call computes the function."""
+    port never calls: cuDNN conv / transposed conv in x's dtype (bf16, or
+    f32 with TF32 off), channels-last.  None where no single call computes
+    the function."""
     import torch
     import torch.nn.functional as F
     if kind == "downsampler":
         xc = x.permute(0, 3, 1, 2)       # NCHW view of NHWC = channels-last
         w = p["w"].permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
-        b = p["b"].to(torch.bfloat16)
+        b = p["b"].to(x.dtype)
         return lambda: F.conv2d(xc, w, b, stride=2, padding=1)
     if kind == "upsampler":
         xc = x.permute(0, 3, 1, 2)
         # forward-conv HWIO (flipped) -> ConvTranspose2d (I, O, kh, kw)
         w = p["w"].flip(0, 1).permute(2, 3, 0, 1).contiguous(
             memory_format=torch.channels_last)
-        b = p["b"].to(torch.bfloat16)
+        b = p["b"].to(x.dtype)
         return lambda: F.conv_transpose2d(xc, w, b, stride=2, padding=1,
                                           output_padding=1)
     return None
@@ -614,7 +685,22 @@ def phase_timing(sd, device, iters):
     e2e["plain_ms_per_img_b4"] = _time(lambda: plain(x), 3) / 4
     log(f"  plain path B=4: {e2e['plain_ms_per_img_b4']:.4f} ms/img")
 
-    ops = prepared_ops(sd, device)
+    rows = kernel_rows(prepared_ops(sd, device), fns, g, device, iters)
+    kernels.reset_launch_counts()
+    return e2e, rows
+
+
+def kernel_rows(ops, fns, g, device, iters, dtype=None):
+    """Each serving kernel of ``ops`` (``prepared_ops``) at its cases,
+    summed over one B=4 forward: the kernel's time (CUDA events), its
+    plain version's, its bound (bf16: bf16 operations over the
+    tensor-core peak; f32: f32 operations over the CUDA-core peak) and
+    the cuDNN call's, where one computes the function.  Maps in
+    ``dtype`` (default bf16).  The timing launches are not the main
+    path's: every counter is put back."""
+    import torch
+    dtype = dtype or torch.bfloat16
+    f32 = dtype == torch.float32
     rows = {}
     for kind, cases in ops.items():
         kfn, pfn = fns[kind]
@@ -622,14 +708,13 @@ def phase_timing(sd, device, iters):
         byte_ms = op_ms = 0.0
         has_lib = True
         for label, p, shape, n in cases:
-            xin = _input(shape, g, device)
+            xin = _input(shape, g, device, dtype)
             if kind != "downsampler":
                 xin = xin.relu()
-            saved = kfn.launches
-            ms = _time(lambda: kfn(xin, p), iters)
-            kfn.launches = saved     # timing launches are not the main path
+            ms = _time_uncounted(lambda: kfn(xin, p), iters)
             pms = _time(lambda: pfn(xin, p), 3)
-            b_ms, o_ms = bound_ms(kind, shape, p)
+            b_ms, o_ms = (bound_ms(kind, shape, p, 4, F32_FLOPS_PER_S) if f32
+                          else bound_ms(kind, shape, p))
             bms = max(b_ms, o_ms)
             byte_ms += n * b_ms
             op_ms += n * o_ms
@@ -648,8 +733,7 @@ def phase_timing(sd, device, iters):
             tot["library_ms"] = None
         tot["bound_by"] = "operations" if op_ms > byte_ms else "bytes"
         rows[kind] = tot
-    kernels.reset_launch_counts()
-    return e2e, rows
+    return rows
 
 
 def phase_profile(sd, device, e2e, n=5):
@@ -937,9 +1021,7 @@ def phase_q8_timing(sd, scales, device, iters):
     for prefix, shape, d, din, dout, n in q8_cases(4):
         p = q8_params(sd, scales, prefix, d, device)
         x = _q8_input(shape, scales[_scale_key(prefix)], din, g, device)
-        saved = q8.nb1d_q8.launches
-        ms = _time(lambda: q8.nb1d_q8(x, p, dout), iters)
-        q8.nb1d_q8.launches = saved  # timing launches are not the main path
+        ms = _time_uncounted(lambda: q8.nb1d_q8(x, p, dout), iters)
         pms = _time(lambda: q8.nb1d_q8_plain(x, p, dout), 3)
         B, H, W, C = shape
         esz = {torch.bfloat16: 2, torch.float32: 4}
@@ -1131,11 +1213,16 @@ def phase_stream(sd, device):
     Then the same with scales calibrated on one 1024x2048 batch: 8
     nb1d_q8 and 9 nb1d_halo launches per forward, no nb1d, and the pixels
     that disagree with the plain int8 pipeline at most Q8_NOISE_X times
-    those of the bf16 path.  Then the three eval CLIs, each a process of
-    its own, on a synthetic Cityscapes tree of 4 frames at 1024x2048:
-    exit 0, 4 PNGs each, and the IoU table."""
+    those of the bf16 path.  Then the three eval CLIs at their default
+    dtype, f32, and the color CLI with --bf16, each a process of its own,
+    on a synthetic Cityscapes tree of 4 frames at 1024x2048: exit 0, 4
+    PNGs each, and the IoU table; and eval_forwardTime --fp32 (its dtype
+    line says f32).  Each run's own kernel launches, which it prints,
+    are exactly those of its forwards in its dtype's forms (f32: 3 / 17
+    / 2 / 1 of the ``_f32`` forms, no bf16 launch)."""
     import tempfile
     import torch
+    from erfnet_pytorch_tpu_torch.cli._device_flags import F32_ON_CARD
     from erfnet_pytorch_tpu_torch.data.transforms import (
         colorize, to_tensor, train_id_to_label_id)
     from erfnet_pytorch_tpu_torch.inference import build_plain_infer
@@ -1200,7 +1287,7 @@ def phase_stream(sd, device):
                          f"{Q8_NOISE_X}x the bf16 path")
 
     log("[stream CLIs] eval_cityscapes_color, eval_cityscapes_server, "
-        "eval_iou on 4 synthetic 1024x2048 frames")
+        "eval_iou on 4 synthetic 1024x2048 frames; eval_forwardTime --fp32")
     here = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory() as tmp:
         _write_cityscapes(tmp, 4, 52)
@@ -1208,12 +1295,24 @@ def phase_stream(sd, device):
         torch.save(sd, wpath)
         base = ["--datadir", tmp, "--state", wpath, "--subset", "val",
                 "--height", str(STREAM_HW[0]), "--batch-size", "2",
-                "--num-workers", "4", "--bf16"]
-        for cli, extra in (("eval_cityscapes_color", ["--outdir"]),
-                           ("eval_cityscapes_server", ["--outdir"]),
-                           ("eval_iou", [])):
-            args = base + (extra + [os.path.join(tmp, cli)] if extra
-                           else [])
+                "--num-workers", "4"]
+        # each eval CLI at its default dtype, f32, over 2 batches; the
+        # color CLI once more with --bf16; eval_forwardTime --fp32 over
+        # 1 + 3 forwards of 4 512x1024 frames
+        f32, bf16 = F32_PER_FORWARD, STREAM_PER_FORWARD
+        for cli, args, out, per, n in (
+                ("eval_cityscapes_color", base + ["--outdir"], "color",
+                 f32, 2),
+                ("eval_cityscapes_server", base + ["--outdir"], "server",
+                 f32, 2),
+                ("eval_iou", base, None, f32, 2),
+                ("eval_cityscapes_color", base + ["--bf16", "--outdir"],
+                 "color_bf16", bf16, 2),
+                ("eval_forwardTime", ["--fp32", "--batch-size", "4",
+                                      "--warmup", "1", "--iterations", "3"],
+                 None, f32, 4)):
+            if out:
+                args = args + [os.path.join(tmp, out)]
             t0 = time.time()
             r = subprocess.run(
                 [sys.executable, "-m", f"erfnet_pytorch_tpu_torch.cli.{cli}",
@@ -1222,18 +1321,37 @@ def phase_stream(sd, device):
             if r.returncode != 0:
                 log(r.stdout[-3000:] + r.stderr[-3000:])
                 raise PhaseError(f"{cli}: exit {r.returncode}")
-            if extra:
+            if out:
                 pngs = [os.path.join(d, f) for d, _s, fs in
-                        os.walk(os.path.join(tmp, cli)) for f in fs
+                        os.walk(os.path.join(tmp, out)) for f in fs
                         if f.endswith(".png")]
                 ok = len(pngs) == 4
                 said = f"{len(pngs)} PNGs"
-            else:
+            elif cli == "eval_iou":
                 ok = "MEAN IoU" in r.stdout and r.stdout.count("% ") >= 20
                 said = r.stdout.strip().splitlines()[-1]
-            log(f"  {cli}: exit 0 in {time.time() - t0:.1f} s, {said}")
+            else:
+                said = [ln for ln in r.stdout.splitlines()
+                        if ln.startswith(("device:", "FORWARD:"))]
+                ok = len(said) == 2 and "dtype f32" in said[0]
+            if r.stderr.strip():
+                log(f"  {cli} stderr: {r.stderr.strip()[-500:]}")
+            if F32_ON_CARD in r.stderr:
+                raise PhaseError(f"{cli}: says it trains bf16 on the card; "
+                                 "only train_main may")
+            launched = [ln for ln in r.stdout.splitlines()
+                        if ln.startswith("kernel launches ")]
+            if len(launched) != 1:
+                raise PhaseError(f"{cli}: printed no kernel launches")
+            c = json.loads(launched[0][len("kernel launches "):])
+            dtype_flag = " ".join(a for a in args if a in ("--bf16",
+                                                           "--fp32"))
+            log(f"  {cli} {dtype_flag}: exit 0 in {time.time() - t0:.1f} "
+                f"s, {said}; launches {({k: v for k, v in c.items() if v})}")
             if not ok:
                 raise PhaseError(f"{cli}: wrote no expected output")
+            # the run went through the forms of its dtype alone
+            _check_counts(c, per, n, cli)
     return counts, min(agree), q8_counts, min(q8_agree), min(noise)
 
 
@@ -1275,11 +1393,8 @@ def phase_stream_timing(sd, device, iters):
     for prefix, shape, calls in halo_cases(4):
         p = halo_params(sd, prefix, device)
         x = _input(shape, g, device).relu()
-        saved = (nb1d_halo.nb1d_halo.launches, nb1d.nb1d.launches)
-        ms = _time(lambda: nb1d_halo.nb1d_halo(x, p), iters)
-        whole = _time(lambda: nb1d.nb1d(x, p), iters)
-        # timing launches are not the main path
-        nb1d_halo.nb1d_halo.launches, nb1d.nb1d.launches = saved
+        ms = _time_uncounted(lambda: nb1d_halo.nb1d_halo(x, p), iters)
+        whole = _time_uncounted(lambda: nb1d.nb1d(x, p), iters)
         pms = _time(lambda: nb1d_halo.nb1d_halo_plain(x, p), 3)
         b_ms, o_ms = bound_ms("nb1d", shape, p)
         log(f"  nb1d_halo C{shape[-1]} {shape[1]}x{shape[2]} x{calls}: "
@@ -1302,12 +1417,11 @@ def phase_stream_timing(sd, device, iters):
     for prefix, shape, calls in halo_cases(4, SERVE_HW):
         p = halo_params(sd, prefix, device)
         x = _input(shape, g, device).relu()
-        saved = (nb1d_halo.nb1d_halo.launches, nb1d.nb1d.launches)
         ms, whole = [], []
         for _ in range(2):
-            ms.append(_time(lambda: nb1d_halo.nb1d_halo(x, p), iters))
-            whole.append(_time(lambda: nb1d.nb1d(x, p), iters))
-        nb1d_halo.nb1d_halo.launches, nb1d.nb1d.launches = saved
+            ms.append(_time_uncounted(lambda: nb1d_halo.nb1d_halo(x, p),
+                                      iters))
+            whole.append(_time_uncounted(lambda: nb1d.nb1d(x, p), iters))
         pms = _time(lambda: nb1d_halo.nb1d_halo_plain(x, p), 3)
         b_ms, o_ms = bound_ms("nb1d", shape, p)
         log(f"  512x1024 C{shape[-1]} {shape[1]}x{shape[2]} x{calls}: "
@@ -1335,6 +1449,435 @@ def phase_stream_timing(sd, device, iters):
     prof_out = busy_share(prof, 3, 4e3 * e2e["ms_per_img_b4"], "forward")
     kernels.reset_launch_counts()
     return e2e, row, prof_out
+
+
+# ---------------------------------------------------------------------------
+# f32 serving (the JAX package's default compute dtype): phases 20-22
+# ---------------------------------------------------------------------------
+
+# Phase 20: each f32 form against its plain version.  Both sides are f32
+# FMA chains over the same products in other orders (TF32 off), so they
+# differ by a few f32 ulps of the sums' terms: outputs within F32_NORM_REL
+# norm-relative, every error <= F32_MAX_REL x max(|ref|, rms(ref)) (the
+# rms floor for values that come from cancellation); predictions equal
+# except where the plain version's two largest logits lie within
+# F32_TIE_REL x max(|top|, rms(logits)) of each other.  The output limits
+# were 1e-5 and 1e-4 until the first run measured at most 1.742e-07 and
+# 3.588e-06 over every shape of this phase (PERF.md §6): tightened to
+# about three times that.
+F32_NORM_REL = 5e-7
+F32_MAX_REL = 1e-5
+F32_TIE_REL = 1e-5
+# phase 21: the share of pixels equal to the plain f32 pipeline's (every
+# other one a near-tie of its logits)
+F32_AGREE = 0.999
+# the f32 forms' counter names and launches per forward: all 17 NB1d
+# blocks on nb1d's f32 form, no bf16 launch
+F32_FORMS = ("downsampler", "nb1d", "upsampler", "head_argmax",
+             "head_argmax_1x1")
+F32_PER_FORWARD = {"downsampler_f32": 3, "nb1d_f32": 17, "upsampler_f32": 2,
+                   "head_argmax_f32": 1}
+# the encoder stage's eval features and predictions at f32
+F32_ENC_PER_CALL = {"downsampler_f32": 3, "nb1d_f32": 13,
+                    "head_argmax_1x1_f32": 1}
+# with int8 scales: 512x1024 every block int8; 1024x2048 the C=128 stack
+# int8 and the C=64 / C=16 blocks (off the whole-map gate) the f32 block
+F32_Q8_PER_FORWARD = {
+    SERVE_HW: {"downsampler_f32": 3, "nb1d_q8": 17, "upsampler_f32": 2,
+               "head_argmax_f32": 1},
+    STREAM_HW: {"downsampler_f32": 3, "nb1d_q8": 8, "nb1d_f32": 9,
+                "upsampler_f32": 2, "head_argmax_f32": 1}}
+
+
+class no_tf32:
+    """TF32 off for cuDNN convolutions and cuBLAS matmuls inside, restored
+    after: the plain versions call F.conv2d and matmul, which would
+    otherwise be TF32 and not f32."""
+
+    def __enter__(self):
+        import torch
+        self.saved = (torch.backends.cudnn.allow_tf32,
+                      torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = self.saved
+        return False
+
+
+def f32_metrics(name, got, ref):
+    """(norm-relative error, max error relative to max(|ref|, rms(ref)),
+    max abs error); raises on a shape, dtype or finiteness mismatch."""
+    import torch
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise PhaseError(f"{name}: {tuple(got.shape)} {got.dtype} vs "
+                         f"{tuple(ref.shape)} {ref.dtype}")
+    if not torch.isfinite(got).all():
+        raise PhaseError(f"{name}: non-finite output")
+    g, r = got.double(), ref.double()
+    err = (g - r).abs()
+    norm = (err.norm() / r.norm().clamp_min(1e-30)).item()
+    floor = r.pow(2).mean().sqrt().clamp_min(1e-30)
+    rel = (err / torch.maximum(r.abs(), floor)).max().item()
+    return norm, rel, err.max().item()
+
+
+def compare_f32_form(name, got, ref, worst):
+    """Phase 20's output rule; folds the errors into ``worst`` (the
+    measured maxima, printed at the end).  Returns the max abs error."""
+    norm, rel, err = f32_metrics(name, got, ref)
+    ok = norm <= F32_NORM_REL and rel <= F32_MAX_REL
+    log(f"  {name}: norm rel {norm:.3e}, max rel {rel:.3e}, max abs "
+        f"{err:.3e} -> {'ok' if ok else 'FAIL'}")
+    worst["norm"] = max(worst["norm"], norm)
+    worst["rel"] = max(worst["rel"], rel)
+    if not ok:
+        raise PhaseError(f"{name}: f32 kernel disagrees with its plain "
+                         "version")
+    return err
+
+
+def f32_ties(z):
+    """Logits z (..., n) -> bool (...): the two largest within F32_TIE_REL
+    x max(|top|, rms(z))."""
+    import torch
+    z = z.float()
+    top = z.topk(2, dim=-1).values
+    floor = z[torch.isfinite(z)].pow(2).mean().sqrt()
+    return (top[..., 0] - top[..., 1]) <= F32_TIE_REL * torch.maximum(
+        top[..., 0].abs(), floor)
+
+
+def head_ties_f32(feats, p):
+    """Pixels (B, 2H, 2W) of the decoder head whose plain f32 logits are a
+    near-tie."""
+    B, H, W, K = feats.shape
+    z = feats.reshape(-1, K).float() @ p["w"].float() + p["b"]
+    tie = f32_ties(z.reshape(B, H, W, 2, 2, p["n_classes"]))
+    return tie.permute(0, 1, 3, 2, 4).reshape(B, 2 * H, 2 * W)
+
+
+def compare_preds_f32(name, got, ref, tie, worst):
+    """Predictions equal off the plain version's near-ties; the pixels that
+    differ at a tie are counted into ``worst``."""
+    import torch
+    if got.shape != ref.shape or got.dtype != torch.int32:
+        raise PhaseError(f"{name}: {tuple(got.shape)} {got.dtype}")
+    diff = got != ref
+    bad = int((diff & ~tie).sum())
+    log(f"  {name}: {int(diff.sum())} of {diff.numel()} differ, "
+        f"{int(tie.sum())} near-ties, {bad} off a tie -> "
+        f"{'ok' if bad == 0 else 'FAIL'}")
+    worst["tie_flips"] += int(diff.sum())
+    if bad:
+        raise PhaseError(f"{name}: f32 predictions differ off a near-tie")
+    return float((got - ref).abs()[~tie].max()) if (~tie).any() else 0.0
+
+
+def phase_f32_parity(sd, device):
+    """20. Each f32 form against its plain version on the card, B=2, at
+    every shape of the 512x1024 and 1024x2048 f32 forwards: the three
+    downsamplers; nb1d at C=16 and C=64 (d=1) and at C=128 for each
+    dilation, plus a dilation beyond the map and ragged maps; the two
+    upsamplers; the decoder head; the encoder's 1x1 head at the B=6
+    eval batch and a ragged M with a NaN row, plus a planted exact tie.
+    Returns ({form: largest abs error}, the measured error maxima)."""
+    import torch
+    from erfnet_pytorch_tpu_torch.ops.cuda import (downsampler, head_argmax,
+                                                   nb1d, upsampler)
+    f32 = torch.float32
+    g = torch.Generator().manual_seed(60)
+    errs = {k: 0.0 for k in F32_FORMS}
+    worst = {"norm": 0.0, "rel": 0.0, "tie_flips": 0}
+    log("[f32 parity] each f32 form vs its plain version on the card, B=2, "
+        "TF32 off")
+    for hw in (SERVE_HW, STREAM_HW):
+        ops = prepared_ops(sd, device, hw, f32)
+        tag = f"{hw[0]}x{hw[1]}"
+        for label, p, shape, _n in ops["downsampler"]:
+            x = _input((2,) + shape[1:], g, device, f32)
+            errs["downsampler"] = max(errs["downsampler"], compare_f32_form(
+                f"{tag} {label}", downsampler.downsampler(x, p),
+                downsampler.downsampler_plain(x, p), worst))
+        cases = [(label, p, s) for label, p, s, _n in ops["nb1d"]]
+        if hw == SERVE_HW:
+            c128 = ops["nb1d"][-1][1]
+            by_c = {s[-1]: q for _l, q, s, _n in ops["nb1d"]}
+            cases += [("nb1d C128 d160 (>= H, W)", dict(c128, dilation=160),
+                       (2, 64, 128, 128)),
+                      ("nb1d C128 d4 ragged", dict(c128, dilation=4),
+                       (2, 37, 70, 128)),
+                      ("nb1d C64 ragged", by_c[64], (1, 45, 91, 64)),
+                      ("nb1d C16 ragged", by_c[16], (1, 131, 257, 16))]
+        for label, p, shape in cases:
+            x = _input((2,) + shape[1:], g, device, f32).relu()
+            errs["nb1d"] = max(errs["nb1d"], compare_f32_form(
+                f"{tag} {label} {shape[1]}x{shape[2]}", nb1d.nb1d(x, p),
+                nb1d.nb1d_plain(x, p), worst))
+        for label, p, shape, _n in ops["upsampler"]:
+            x = _input((2,) + shape[1:], g, device, f32).relu()
+            errs["upsampler"] = max(errs["upsampler"], compare_f32_form(
+                f"{tag} {label}", upsampler.upsampler(x, p),
+                upsampler.upsampler_plain(x, p), worst))
+        label, p, shape, _n = ops["head_argmax"][0]
+        x = _input((2,) + shape[1:], g, device, f32).relu()
+        errs["head_argmax"] = max(errs["head_argmax"], compare_preds_f32(
+            f"{tag} head", head_argmax.head_argmax(x, p),
+            head_argmax.head_argmax_plain(x, p), head_ties_f32(x, p), worst))
+        torch.cuda.synchronize()
+
+    for M in (HEAD1_M, 1037):
+        f, w, b = _head1_inputs(sd, M, g, device, f32)
+        if M != HEAD1_M:
+            f[5] = float("nan")
+            f[9, 3] = float("nan")
+            f[11] = 0                    # every logit is its bias
+        got = head_argmax.head_argmax_1x1(f, w, b)
+        ref = head_argmax.head_argmax_1x1_plain(f, w, b)
+        tie = f32_ties(f @ w + b)
+        tie[~torch.isfinite(f).all(-1)] = False
+        errs["head_argmax_1x1"] = max(errs["head_argmax_1x1"],
+                                      compare_preds_f32(
+            f"head_argmax_1x1 ({M}, 128) -> 20", got, ref, tie, worst))
+        if M != HEAD1_M and (got[5].item() != N_CLASSES - 1
+                             or got[9].item() != N_CLASSES - 1):
+            raise PhaseError("f32 1x1 head: a NaN row does not give the "
+                             "last class")
+    f, w, b = _head1_inputs(sd, 4096, g, device, f32)
+    w, b = w.clone(), b.clone()
+    w[:, 7], b[7] = w[:, 3], b[3] + 1e3
+    b[3] += 1e3
+    if not (head_argmax.head_argmax_1x1(f, w, b) == 3).all():
+        raise PhaseError("f32 1x1 head: the first of two equal maxima does "
+                         "not win")
+    log("  f32 1x1 head, planted tie: the first max wins at every row")
+    torch.cuda.synchronize()
+    log(f"  measured maxima: norm rel {worst['norm']:.3e} (limit "
+        f"{F32_NORM_REL:g}), max rel {worst['rel']:.3e} (limit "
+        f"{F32_MAX_REL:g}), {worst['tie_flips']} predictions flipped at "
+        "near-ties")
+    return errs, worst
+
+
+def _f32_agreement(name, preds, ref, logits):
+    """Share of pixels equal to the plain f32 pipeline's; every other one
+    must be a near-tie of its logits."""
+    agree = (preds == ref).float().mean().item()
+    bad = int(((preds != ref) & ~f32_ties(logits)).sum())
+    log(f"  {name}: agreement {agree:.7f}, {bad} pixels off a near-tie")
+    if agree < F32_AGREE or bad:
+        raise PhaseError(f"{name}: agreement {agree} < {F32_AGREE} or "
+                         f"{bad} pixels differ off a near-tie")
+    return agree
+
+
+def phase_f32_serving(sd, q8_scales, device):
+    """21. f32 serving and streaming.  (a) build_fast_infer(dtype=f32,
+    preds_only=True) answers 3 requests of 4 uint8 512x1024 frames:
+    launches per forward 3 / 17 / 2 / 1 (downsampler / nb1d, all 17
+    blocks / upsampler / head, each its f32 form), no bf16 launch; >=
+    F32_AGREE of the pixels equal to the plain f32 pipeline's and the
+    rest near-ties.  (b) StreamingSegmenter(dtype=f32) over 3 requests of
+    2 host uint8 1024x2048 frames: the same counts and agreement, uint8
+    on the host.  (c) With int8 scales (phase 10's at 512x1024, one
+    1024x2048 batch's at 1024x2048), at f32: int8 and f32 blocks as the
+    gate decides (F32_Q8_PER_FORWARD), the features bit-identical to the
+    same path with the int8 block's plain version.  (d) The encoder
+    stage's eval features and predictions at f32, B=6: launches 3 / 13 /
+    1 (downsampler / nb1d / the 1x1 head), agreement as in (a).  These
+    are the calls make_eval_step(enc=True) makes before its loss, made
+    here by hand: no entry point reaches the 1x1 head's f32 form until
+    the head+loss kernel (row 17) has an f32 form, for the f32 eval step
+    raises at its loss and train_main trains bf16.
+    Returns (launch counts of (a), of (d), agreements)."""
+    import torch
+    from erfnet_pytorch_tpu_torch.data import to_tensor
+    from erfnet_pytorch_tpu_torch.inference import (
+        KERNEL_OPS, PLAIN_OPS, build_fast_infer, build_plain_infer,
+        encoder_features, features, prepare)
+    from erfnet_pytorch_tpu_torch.ops import cuda as kernels
+    from erfnet_pytorch_tpu_torch.quantize import calibrate_q8_scales
+    from erfnet_pytorch_tpu_torch.streaming import StreamingSegmenter
+    f32 = torch.float32
+    out = {}
+    plain = build_plain_infer(sd, dtype=f32, device=device)   # logits form
+    g = torch.Generator().manual_seed(61)
+    frames = [torch.randint(0, 256, (4,) + SERVE_HW + (3,), generator=g,
+                            dtype=torch.uint8) for _ in range(3)]
+    log("[f32 serving] build_fast_infer(dtype=f32, preds_only=True), 3 "
+        "requests of 4x512x1024 uint8")
+    infer = build_fast_infer(sd, dtype=f32, preds_only=True)
+    kernels.reset_launch_counts()
+    preds = [infer(to_tensor(f.to(device))) for f in frames]
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    log(f"  launches over 3 forwards: "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    _check_counts(counts, F32_PER_FORWARD, 3, "f32 serving")
+    agree = []
+    with torch.inference_mode():
+        for f, pr in zip(frames, preds):
+            if tuple(pr.shape) != (4,) + SERVE_HW or pr.dtype != torch.int32:
+                raise PhaseError(f"f32 preds {tuple(pr.shape)} {pr.dtype}")
+            logits, ref = plain(to_tensor(f.to(device)))
+            agree.append(_f32_agreement("512x1024 request", pr, ref, logits))
+    out["agreement"] = min(agree)
+
+    log("[f32 stream] StreamingSegmenter(dtype=f32), 3 requests of 2 host "
+        "uint8 1024x2048 frames")
+    requests = _stream_requests(62)
+    seg = StreamingSegmenter(sd, dtype=f32, output="trainId")
+    outs, st_counts = _stream_run(seg, requests, "f32 trainId")
+    _check_counts(st_counts, F32_PER_FORWARD, len(requests), "f32 stream")
+    agree = []
+    with torch.inference_mode():
+        for (f, _l, _r), tid in zip(requests, outs):
+            if tid.dtype.name != "uint8" or tid.shape != (2,) + STREAM_HW:
+                raise PhaseError(f"f32 stream output {tid.dtype} "
+                                 f"{tid.shape}")
+            logits, ref = plain(to_tensor(f.to(device)))
+            agree.append(_f32_agreement(
+                "1024x2048 request", torch.from_numpy(tid).to(device).int(),
+                ref, logits))
+    out["stream_agreement"] = min(agree)
+
+    log("[f32 int8] int8 and f32 blocks as the gate decides, at f32")
+    stream_scales = calibrate_q8_scales(sd, [requests[0][0].to(device)])
+    for hw, scales in ((SERVE_HW, q8_scales), (STREAM_HW, stream_scales)):
+        x = to_tensor(torch.randint(0, 256, (2,) + hw + (3,), generator=g,
+                                    dtype=torch.uint8).to(device))
+        infer = build_fast_infer(sd, dtype=f32, preds_only=True,
+                                 q8_scales=scales)
+        kernels.reset_launch_counts()
+        pr = infer(x)
+        torch.cuda.synchronize()
+        c = kernels.launch_counts()
+        log(f"  {hw[0]}x{hw[1]}: launches "
+            f"{ {k: v for k, v in c.items() if v} }")
+        _check_counts(c, F32_Q8_PER_FORWARD[hw], 1, f"f32 int8 {hw}")
+        prep = prepare(sd, f32, device, scales)
+        hybrid = dict(KERNEL_OPS, nb1d_q8=PLAIN_OPS["nb1d_q8"])
+        with torch.inference_mode():
+            exact = torch.equal(features(prep, x, f32, KERNEL_OPS),
+                                features(prep, x, f32, hybrid))
+            ref = build_plain_infer(sd, dtype=f32, preds_only=True,
+                                    device=device, q8_scales=scales)(x)
+        a = (pr == ref).float().mean().item()
+        log(f"  {hw[0]}x{hw[1]}: features equal to the path with the plain "
+            f"int8 block: {exact}; agreement with the plain int8 f32 "
+            f"pipeline (not gated) {a:.6f}")
+        if not exact:
+            raise PhaseError("f32 int8 path differs from its plain int8 "
+                             "blocks")
+        out[f"int8_agreement_plain_{hw[0]}x{hw[1]}"] = a
+
+    log("[f32 encoder] the encoder stage's eval features and 1x1-head "
+        "predictions at f32, B=6, called by hand (no entry point reaches "
+        "the 1x1 head's f32 form before row 17's f32 form lands)")
+    prep = prepare(sd, f32, device, encoder_only=True)
+    hp = prep["enc_head"]
+    x = to_tensor(torch.randint(0, 256, (TRAIN_B,) + SERVE_HW + (3,),
+                                generator=g, dtype=torch.uint8).to(device))
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        f2 = encoder_features(prep, x, f32, KERNEL_OPS).reshape(-1, HEAD1_K)
+        pr = KERNEL_OPS["head1"](f2, hp["w"], hp["b"])
+        torch.cuda.synchronize()
+        enc_counts = kernels.launch_counts()
+        log(f"  launches { {k: v for k, v in enc_counts.items() if v} }")
+        _check_counts(enc_counts, F32_ENC_PER_CALL, 1, "f32 encoder")
+        p2 = encoder_features(prep, x, f32, PLAIN_OPS).reshape(-1, HEAD1_K)
+        ref = PLAIN_OPS["head1"](p2, hp["w"], hp["b"])
+        out["encoder_agreement"] = _f32_agreement(
+            "encoder predictions", pr, ref, p2 @ hp["w"] + hp["b"])
+    kernels.reset_launch_counts()
+    return counts, enc_counts, out
+
+
+def phase_f32_timing(sd, device, iters):
+    """22. f32 timing (CUDA events) and profile: ms/img at B=1 and B=4 at
+    512x1024 and 1024x2048, the plain f32 pipeline at B=4 512x1024; each
+    f32 form summed over one B=4 512x1024 forward beside its plain
+    version, its bound (bytes over 3.35 TB/s or f32 operations over 67
+    TFLOP/s) and cuDNN's f32 convolution (TF32 off); the 1x1 head's
+    device time per B=6 call (as phase 17) beside its plain version and
+    addmm + argmax in f32; the device's busy share of a B=4 512x1024
+    forward and its time by kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from erfnet_pytorch_tpu_torch.inference import (build_fast_infer,
+                                                    build_plain_infer)
+    from erfnet_pytorch_tpu_torch.ops import cuda as kernels
+    from erfnet_pytorch_tpu_torch.ops.cuda import (downsampler, head_argmax,
+                                                   nb1d, upsampler)
+    f32 = torch.float32
+    g = torch.Generator().manual_seed(63)
+    log("[f32 timing] CUDA events")
+    infer = build_fast_infer(sd, dtype=f32, preds_only=True)
+    e2e = {}
+    for hw in (SERVE_HW, STREAM_HW):
+        for B in (1, 4):
+            x = torch.rand((B,) + hw + (3,), generator=g).to(device)
+            key = f"ms_per_img_{hw[0]}x{hw[1]}_b{B}"
+            e2e[key] = _time(lambda: infer(x), iters) / B
+            log(f"  f32 forward {hw[0]}x{hw[1]} B={B}: {e2e[key]:.4f} ms/img")
+    x = torch.rand((4,) + SERVE_HW + (3,), generator=g).to(device)
+    plain = build_plain_infer(sd, dtype=f32, preds_only=True, device=device)
+    e2e["plain_ms_per_img_b4"] = _time(lambda: plain(x), 3) / 4
+    log(f"  plain f32 path 512x1024 B=4: {e2e['plain_ms_per_img_b4']:.4f} "
+        "ms/img")
+    fns = {"downsampler": (downsampler.downsampler,
+                           downsampler.downsampler_plain),
+           "nb1d": (nb1d.nb1d, nb1d.nb1d_plain),
+           "upsampler": (upsampler.upsampler, upsampler.upsampler_plain),
+           "head_argmax": (head_argmax.head_argmax,
+                           head_argmax.head_argmax_plain)}
+    rows = kernel_rows(prepared_ops(sd, device, SERVE_HW, f32), fns, g,
+                       device, iters, f32)
+    for kind, r in rows.items():
+        log(f"  {kind}_f32 per B=4 forward: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} "
+            f"({r['bound_by']}), cuDNN f32 "
+            + ("n/a" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f}"))
+
+    f, w, b = _head1_inputs(sd, HEAD1_M, g, device, f32)
+    calls = {"kernel": lambda: head_argmax.head_argmax_1x1(f, w, b),
+             "plain": lambda: head_argmax.head_argmax_1x1_plain(f, w, b),
+             "addmm + argmax": lambda: torch.addmm(b, f, w).argmax(-1)}
+    dev_ms = {k: _device_ms(fn, iters) for k, fn in calls.items()}
+    nbytes = f.numel() * 4 + HEAD1_M * 4 + w.numel() * 4 + b.numel() * 4
+    byte_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    op_ms = 1e3 * 2 * HEAD1_M * HEAD1_K * N_CLASSES / F32_FLOPS_PER_S
+    rows["head_argmax_1x1"] = {
+        "ms": dev_ms["kernel"], "plain_ms": dev_ms["plain"],
+        "bound_ms": max(byte_ms, op_ms),
+        "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+        "library_ms": dev_ms["addmm + argmax"]}
+    log(f"  head_argmax_1x1_f32 B=6 ({HEAD1_M}, 128) -> 20, device time: "
+        f"kernel {dev_ms['kernel']:.4f} ms, plain {dev_ms['plain']:.4f}, "
+        f"bound {max(byte_ms, op_ms):.4f}, addmm + argmax f32 "
+        f"{dev_ms['addmm + argmax']:.4f}")
+
+    x = torch.rand((4,) + SERVE_HW + (3,), generator=g).to(device)
+    for _ in range(2):
+        infer(x)
+    torch.cuda.synchronize()
+    log("[f32 profile] torch.profiler, per B=4 512x1024 f32 forward")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            infer(x)
+        torch.cuda.synchronize()
+    e2e["profile"] = busy_share(
+        prof, 3, 4e3 * e2e[f"ms_per_img_{SERVE_HW[0]}x{SERVE_HW[1]}_b4"],
+        "forward")
+    kernels.reset_launch_counts()
+    return e2e, rows
 
 
 # ---------------------------------------------------------------------------
@@ -2150,12 +2693,7 @@ def phase_train_timing(sd, device, iters):
                                    else r["library_ms"] + n * lms)
         return max(b_ms, o_ms)
 
-    def tm(fn, n):
-        saved = {f: f.launches for f in kernels.kernel_wrappers()}
-        ms = _time(fn, n)
-        for f, v in saved.items():
-            f.launches = v
-        return ms
+    tm = _time_uncounted
 
     def line(label, what, ms, pms, bms, lms):
         lib = "n/a" if lms is None else f"{lms:.4f}"
@@ -2421,12 +2959,15 @@ def compare_preds(name, got, ref, tie):
     return float((got - ref).abs()[keep].max()) if keep.any() else 0.0
 
 
-def _head1_inputs(sd, M, g, device):
+def _head1_inputs(sd, M, g, device, dtype=None):
+    """Post-ReLU feats (M, 128), W (128, 20) in the feats' dtype (as the
+    kernel takes it) and the f32 bias."""
     import torch
-    f = torch.randn(M, HEAD1_K, generator=g).clamp_min(0).to(torch.bfloat16)
+    dtype = dtype or torch.bfloat16
+    f = torch.randn(M, HEAD1_K, generator=g).clamp_min(0).to(dtype)
     w = sd["encoder.output_conv.weight"][:, :, 0, 0].t().contiguous()
     b = sd["encoder.output_conv.bias"].float()
-    return f.to(device), w.to(device), b.to(device)
+    return f.to(device), w.to(device, dtype), b.to(device)
 
 
 def phase_head1(sd, device, iters):
@@ -2469,8 +3010,8 @@ def phase_head1(sd, device, iters):
                          "does not win")
     log("  planted tie: the first max wins at every row")
 
-    f, w, b = _head1_inputs(sd, HEAD1_M, g, device)
-    wb, bb = w.to(torch.bfloat16), b.to(torch.bfloat16)
+    f, wb, b = _head1_inputs(sd, HEAD1_M, g, device)
+    bb = b.to(torch.bfloat16)
     calls = {"kernel": lambda: head_argmax_1x1(f, wb, b),
              "plain": lambda: head_argmax_1x1_plain(f, wb, b),
              "addmm + argmax": lambda: torch.addmm(bb, f, wb).argmax(-1)}
@@ -2483,7 +3024,7 @@ def phase_head1(sd, device, iters):
     log("  CUDA events over a loop of calls (host-bound): " + ", ".join(
         f"{k} {v:.4f} ms" for k, v in ev_ms.items()))
     ms, plain_ms, lib_ms = (dev_ms[k] for k in calls)
-    nbytes = f.numel() * 2 + HEAD1_M * 4 + w.numel() * 2 + b.numel() * 4
+    nbytes = f.numel() * 2 + HEAD1_M * 4 + wb.numel() * 2 + b.numel() * 4
     flops = 2 * HEAD1_M * HEAD1_K * N_CLASSES
     byte_ms = 1e3 * nbytes / HBM_BYTES_PER_S
     op_ms = 1e3 * flops / BF16_FLOPS_PER_S
@@ -2881,6 +3422,11 @@ def main():
         (st_counts, st_agree, st_q8_counts, st_q8_agree,
          st_noise) = phase_stream(sd, device)
         st_e2e, halo_row, st_prof = phase_stream_timing(sd, device, ITERS)
+        with no_tf32():
+            f32_errs, f32_worst = phase_f32_parity(sd, device)
+            f32_counts, f32_enc_counts, f32_agree = phase_f32_serving(
+                sd, scales, device)
+            f32_e2e, f32_rows = phase_f32_timing(sd, device, ITERS)
         terrs = phase_train_parity(device)
         net1, tcounts, losses, rerrs, agree_train = phase_train(sd, device)
         _sd2, t2counts, losses2, rerrs2, agree2 = phase_train2(net1.encoder,
@@ -2943,6 +3489,20 @@ def main():
         "name": "head_argmax_1x1", "route": "cuda", "source": src,
         "replaces": repl, "launches": trainer_counts["head_argmax_1x1"],
         **head1_row})
+    for name in F32_FORMS:
+        # the f32 forms: launches of phase 21's 512x1024 requests (the
+        # 1x1 head: the f32 encoder features and predictions), errors of
+        # phase 20, times of phase 22 (sums over one B=4 512x1024 forward;
+        # the 1x1 head one B=6 call)
+        src, repl = SOURCES[name]
+        r = f32_rows[name]
+        launched = f32_enc_counts if name == "head_argmax_1x1" else f32_counts
+        kernels.append({
+            "name": f"{name}_f32", "route": "cuda", "source": src,
+            "replaces": repl, "launches": launched[f"{name}_f32"],
+            "max_abs_err": f32_errs[name], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     summary = {"build_s": build_s, "serving_agreement": agree, **e2e,
                "profile": prof,
                "int8": {"agreement_plain": q8_agree,
@@ -2965,7 +3525,13 @@ def main():
                                     for k, v in t2counts.items()}},
                "eval_step": {"launches": eval_counts, **eval_agree},
                "trainer": {"timing": trainer_timing,
-                           "launches": trainer_counts}}
+                           "launches": trainer_counts},
+               "f32": {"measured_norm_rel": f32_worst["norm"],
+                       "measured_max_rel": f32_worst["rel"],
+                       "parity_tie_flips": f32_worst["tie_flips"], **f32_agree,
+                       **f32_e2e,
+                       "rows": {k: {q: v for q, v in r.items()}
+                                for k, r in f32_rows.items()}}}
     log(f"summary {json.dumps(summary)}")
     log(card)
     log(json.dumps({"kernels": kernels}))

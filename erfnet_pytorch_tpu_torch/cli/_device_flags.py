@@ -4,10 +4,12 @@ with the JAX CLIs, and what they resolve to.
   * ``--cpu`` runs the plain versions on the host; without it the run is
     on the card (and fails where there is none).
   * ``--bf16`` opts in to bf16 compute, as in the JAX CLIs; ``--fp32``
-    says f32 explicitly.  On ``--cpu`` the default is f32, the JAX CLIs'
-    default.  The card runs bf16 in any case: its kernels take bf16 only
-    until the f32 kernels land (ROADMAP A3), and a run on the card
-    without ``--bf16`` says so on stderr.
+    says f32 explicitly.  The default is f32, the JAX CLIs' default, on
+    ``--cpu`` and on the card, where the serving kernels have f32 forms.
+    ``train_main`` alone runs bf16 on the card whatever the flag: the
+    train kernels take bf16 only until their f32 forms land (ROADMAP
+    Queue B item 2, the train rows), and its run on the card without
+    ``--bf16`` says so on stderr (``F32_ON_CARD``).
   * ``--pallas`` / ``--no-pallas``, the JAX ``add_pallas_flag`` tri-state.
     On the card the kernels always run, so ``--no-pallas`` there exits 2;
     on ``--cpu`` the plain versions run, so ``--pallas`` there exits 2.
@@ -15,12 +17,14 @@ with the JAX CLIs, and what they resolve to.
 
 from __future__ import annotations
 
+import json
 import sys
 
 import torch
 
-F32_ON_CARD = ("the CUDA kernels take bf16 only until their f32 forms land "
-               "(ROADMAP A3); running bf16 on the card")
+F32_ON_CARD = ("the train kernels take bf16 only until their f32 forms "
+               "land (ROADMAP Queue B item 2, the train rows); training "
+               "bf16 on the card")
 
 
 def add_device_flags(p):
@@ -30,8 +34,9 @@ def add_device_flags(p):
     dt.add_argument("--bf16", action="store_true",
                     help="bf16 compute (f32 parameters and sums)")
     dt.add_argument("--fp32", dest="bf16", action="store_false",
-                    help="f32 compute (the default on --cpu; the card "
-                         "runs bf16 until ROADMAP A3)")
+                    help="f32 compute (the default; train_main trains "
+                         "bf16 on the card until the train kernels' f32 "
+                         "forms land)")
     g = p.add_mutually_exclusive_group()
     g.add_argument("--pallas", dest="pallas", action="store_true",
                    default=None,
@@ -41,9 +46,20 @@ def add_device_flags(p):
     return p
 
 
-def resolve_device_dtype(args, parser=None):
+def print_launch_counts():
+    """One stdout line, ``kernel launches {json}``: every kernel
+    wrapper's launches in this process, each f32 form apart as
+    ``<name>_f32`` (all 0 on ``--cpu``), so a run shows which kernels and
+    forms it went through."""
+    from ..ops import cuda as kernels
+    print(f"kernel launches {json.dumps(kernels.launch_counts())}")
+
+
+def resolve_device_dtype(args, parser=None, *, f32_on_card=True):
     """(device, dtype) of the parsed flags; exits 2 on a kernel flag the
-    device cannot honour."""
+    device cannot honour.  ``f32_on_card``: whether the caller's kernels
+    take f32 on the card (the serving kernels do, the train kernels not
+    yet: ``train_main`` passes False and then gets bf16 there)."""
     from ..device import resolve_device
 
     def refuse(msg):
@@ -61,6 +77,9 @@ def resolve_device_dtype(args, parser=None):
         refuse("--no-pallas: the port keeps no plain path on the card; "
                "use --cpu for the plain versions")
     device = resolve_device(None)
-    if not args.bf16:
-        print(F32_ON_CARD, file=sys.stderr)
+    if args.bf16:
+        return device, torch.bfloat16
+    if f32_on_card:
+        return device, torch.float32
+    print(F32_ON_CARD, file=sys.stderr)
     return device, torch.bfloat16

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import argparse
 
+from ._device_flags import print_launch_counts
 from ._eval_common import add_eval_flags, resolve
 
 
@@ -54,6 +55,7 @@ def run(args, kind):
     for out, rels in seg.run(dl):
         for out_path in sink.write(out, rels):
             print(out_path)
+    print_launch_counts()
 
 
 def main(argv=None):

@@ -3,12 +3,15 @@ surface and the counterpart of the JAX package's CLI of the same name:
 random input, warmup, synchronized timing loop, mean ms per image.
 
 Times the serving path, ``build_fast_infer(preds_only=True)``, with CUDA
-events on the card (host clock with ``--cpu``).  The CUDA kernels take
-bf16, so ``--fp32`` runs only with ``--cpu``.  ``--int8`` runs the NB1d
-blocks through the w8a8 int8 block, with scales from ``--q8-scales`` or,
-when no such file exists, calibrated on the seeded random input.
+events on the card (host clock with ``--cpu``).  bf16 by default, as the
+JAX CLI; ``--fp32`` runs the kernels' f32 forms (on the card too).
+``--int8`` runs the NB1d blocks through the w8a8 int8 block, with scales
+from ``--q8-scales`` or, when no such file exists, calibrated on the
+seeded random input.
 
     python -m erfnet_pytorch_tpu_torch.cli.eval_forwardTime --width 1024 --height 512
+    python -m erfnet_pytorch_tpu_torch.cli.eval_forwardTime --fp32 \
+        --batch-size 4
     python -m erfnet_pytorch_tpu_torch.cli.eval_forwardTime --int8 \
         --batch-size 4
 """
@@ -19,6 +22,8 @@ import argparse
 import time
 
 import torch
+
+from ._device_flags import print_launch_counts
 
 
 def build_parser():
@@ -38,6 +43,14 @@ def build_parser():
     from ..inference import add_int8_flags
     add_int8_flags(p)
     return p
+
+
+def resolve(args):
+    """(device, dtype): the card unless --cpu; bf16 unless --fp32, on
+    either."""
+    from ..device import resolve_device
+    device = resolve_device("cpu" if args.cpu else None)
+    return device, torch.bfloat16 if args.bf16 else torch.float32
 
 
 def benchmark(infer, images, *, warmup, iterations, device):
@@ -61,16 +74,13 @@ def benchmark(infer, images, *, warmup, iterations, device):
 
 
 def main(argv=None):
-    from ..device import resolve_device
     from ..inference import build_fast_infer
     from ..models.erfnet import Net, init_weights
     from ..quantize import resolve_q8_scales
     from ..weights import load_torch_weights
 
     args = build_parser().parse_args(argv)
-    device = resolve_device("cpu" if args.cpu else None)
-    if device.type == "cuda" and not args.bf16:
-        raise SystemExit("--fp32 needs --cpu: the CUDA kernels take bf16")
+    device, dtype = resolve(args)
     g = torch.Generator().manual_seed(0)
     if args.state:
         weights = load_torch_weights(args.state)
@@ -79,19 +89,20 @@ def main(argv=None):
     images = torch.rand(args.batch_size, args.height, args.width, 3,
                         generator=g).to(device)
     q8 = resolve_q8_scales(args, weights, [images], device=device)
-    infer = build_fast_infer(
-        weights, dtype=torch.bfloat16 if args.bf16 else torch.float32,
-        preds_only=True, device=device, q8_scales=q8)
+    infer = build_fast_infer(weights, dtype=dtype, preds_only=True,
+                             device=device, q8_scales=q8)
     dt = benchmark(infer, images, warmup=args.warmup,
                    iterations=args.iterations, device=device)
     per_img = dt / args.batch_size
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     print(f"device: {name}, input {args.batch_size}x{args.height}x"
-          f"{args.width}, dtype {'bf16' if args.bf16 else 'f32'}"
+          f"{args.width}, dtype "
+          f"{'bf16' if dtype == torch.bfloat16 else 'f32'}"
           f"{', int8 NB1d' if q8 else ''}")
     print(f"FORWARD: {per_img * 1000:.3f} ms/img  ({1.0 / per_img:.2f} FPS)"
           f"  [{name}]")
+    print_launch_counts()
     return per_img
 
 

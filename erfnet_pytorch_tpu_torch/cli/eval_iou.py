@@ -13,6 +13,7 @@ from __future__ import annotations
 import argparse
 import time
 
+from ._device_flags import print_launch_counts
 from ._eval_common import add_eval_flags, resolve
 
 NUM_CLASSES = 20
@@ -75,6 +76,7 @@ def main(argv=None):
     mean_iou, per_class = ev.get_iou()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+    print_launch_counts()
     print(f"took {time.time() - start:.1f}s "
           f"({len(ds) / max(time.time() - start, 1e-9):.2f} img/s)")
 

@@ -22,10 +22,10 @@ on ``--cpu`` the plain versions run anyway).
 from __future__ import annotations
 
 import argparse
-import json
 import os
 
-from ._device_flags import add_device_flags, resolve_device_dtype
+from ._device_flags import (add_device_flags, print_launch_counts,
+                            resolve_device_dtype)
 
 NUM_CLASSES = 20
 
@@ -109,7 +109,9 @@ def main(argv=None):
         parser.exit(2, "error: --no-fused-kernels: the port keeps no plain "
                        "path on the card; use --cpu for the plain "
                        "versions\n")
-    device, dtype = resolve_device_dtype(args, parser)
+    # the train kernels have no f32 forms yet: the card trains bf16 (and
+    # says so without --bf16)
+    device, dtype = resolve_device_dtype(args, parser, f32_on_card=False)
     savedir = args.savedir if os.path.isabs(args.savedir) \
         else os.path.join("save", args.savedir)
 
@@ -137,8 +139,7 @@ def main(argv=None):
     kernels.reset_launch_counts()
     train_two_stage(cfg, decoder_only=args.decoder,
                     pretrained_encoder=pretrained_encoder)
-    # every kernel wrapper's launches in this run (all 0 on --cpu)
-    print(f"kernel launches {json.dumps(kernels.launch_counts())}")
+    print_launch_counts()
     print("========== TRAINING FINISHED ==========")
 
 

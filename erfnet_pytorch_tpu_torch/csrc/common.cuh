@@ -170,6 +170,110 @@ __device__ __forceinline__ void unpack_bf16x8(uint4 in, float* v) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// f32 helpers.  The f32 forms of the serving kernels multiply on the CUDA
+// cores in f32 (FFMA, no TF32 anywhere): the operands are staged in shared
+// memory as f32 with the same cp.async gathers as the bf16 forms (4
+// channels per 16-byte copy instead of 8), and each thread accumulates a
+// TM x TN block of the product in registers.
+// ---------------------------------------------------------------------------
+
+// 8 consecutive elements -> 8 f32: one 16-byte load of bf16, two of f32.
+// Read-only path: for operands no kernel writes in the same launch.
+__device__ __forceinline__ void load8(const bf16* p, float* v) {
+  unpack_bf16x8(__ldg(reinterpret_cast<const uint4*>(p)), v);
+}
+
+__device__ __forceinline__ void load8(const float* p, float* v) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(float v) { return v; }
+
+// A value as the element type T would hold it: bf16 rounds (nearest even),
+// f32 keeps it.
+template <typename T>
+__device__ __forceinline__ float round_as(float v);
+template <>
+__device__ __forceinline__ float round_as<bf16>(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+template <>
+__device__ __forceinline__ float round_as<float>(float v) { return v; }
+
+// A row pitch (floats) >= k with pitch % 32 == 4: the float4 reads of
+// the rows of a quarter warp (ffma_tile's A operand) fall on distinct
+// banks.
+constexpr int pitch4(int k) { return k + (36 - k % 32) % 32; }
+
+// Thread tile of an f32 product on the CUDA cores:
+//   acc[i][4 g + q] += sum_{k < KLEN} A(i, k) B(k, g CS + q)
+// A: this thread's row i at a + i * rstride (floats), k along the row;
+// B: row k at b + k * ldb, this thread's columns in TN / 4 groups of four,
+// group g at column g CS.  Both in shared memory, 16-byte aligned, KLEN
+// % 4 == 0.  With b = B + 4 t for thread t of a row of TC threads and CS =
+// 4 TC, the threads of a row read each group as one contiguous run (no
+// bank conflicts); with row pitches of 4 mod 32 floats (pitch4), the A
+// reads of the rows of a quarter warp fall on distinct banks.  Per four k
+// a thread loads TM + TN float4 and issues 4 TM TN FMAs; each output is one
+// f32 FMA chain in increasing k.
+template <int TM, int TN, int KLEN, int CS>
+__device__ __forceinline__ void ffma_tile(float (&acc)[TM][TN],
+                                          const float* a, int rstride,
+                                          const float* b, int ldb) {
+  static_assert(KLEN % 4 == 0 && TN % 4 == 0, "ffma_tile shape");
+#pragma unroll 2
+  for (int k = 0; k < KLEN; k += 4) {
+    float av[TM][4];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const float4 v = *reinterpret_cast<const float4*>(a + i * rstride + k);
+      av[i][0] = v.x; av[i][1] = v.y; av[i][2] = v.z; av[i][3] = v.w;
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float bv[TN];
+#pragma unroll
+      for (int g = 0; g < TN / 4; ++g) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(b + (k + kk) * ldb + g * CS);
+        bv[4 * g] = v.x; bv[4 * g + 1] = v.y;
+        bv[4 * g + 2] = v.z; bv[4 * g + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j)
+          acc[i][j] = fmaf(av[i][kk], bv[j], acc[i][j]);
+    }
+  }
+}
+
+template <int TM, int TN>
+__device__ __forceinline__ void zero_tile(float (&acc)[TM][TN]) {
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+}
+
+// Start copying a dense row-major (rows x cols) f32 matrix from global
+// memory into shared memory with row pitch ld; cols % 4 == 0.  Completes
+// at the caller's cp_async_wait_all().
+__device__ __forceinline__ void load_matrix(float* dst, int ld,
+                                            const float* src, int rows,
+                                            int cols) {
+  const int vpr = cols / 4;
+  for (int v = threadIdx.x; v < rows * vpr; v += blockDim.x) {
+    const int r = v / vpr, j = v % vpr;
+    cp_async16(dst + r * ld + j * 4, src + (int64_t)r * cols + j * 4, true);
+  }
+}
+
 // Opt a kernel into more than 48 KB of dynamic shared memory (once per
 // instantiation; the attribute is per function).
 template <typename Kernel>

@@ -38,6 +38,15 @@
 // stay in shared memory, padded to NP classes, read as broadcasts; the
 // feature row comes in as sixteen 16-byte loads).  The tensor cores are
 // the next step.
+// (3) The f32 forms of both (the JAX package's default compute dtype,
+// eval_iou and the other eval CLIs without --bf16): the same kernels as
+// templates on the element type T of feats and W.  At f32 the feats and W
+// are read as f32 (the 1x1 head's 512-byte feature row as thirty-two
+// 16-byte loads), the same f32 FMAs run, and the logits are not rounded:
+// the TPU kernel's round_bf16 is false at f32.  The first-max and NaN
+// rules are the same.  Bound at f32: the decoder head's 16 x 80 FMAs per
+// feature pixel against 67 TFLOP/s (above its 80 bytes); the 1x1 head's
+// bytes (512 read, 4 written per pixel).
 #include "common.cuh"
 
 using namespace erfk;
@@ -46,24 +55,24 @@ namespace {
 
 constexpr int K = 16, THREADS = 256;
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-head_argmax_kernel(const bf16* __restrict__ feats, const bf16* __restrict__ w,
+head_argmax_kernel(const T* __restrict__ feats, const T* __restrict__ w,
                    const float* __restrict__ bias, int* __restrict__ out,
                    long long M, int H, int W, int n) {
   extern __shared__ float sm[];
   float* Ws = sm;              // (K, 4n)
   float* bs = sm + K * 4 * n;  // (4n,)
   for (int i = threadIdx.x; i < K * 4 * n; i += blockDim.x)
-    Ws[i] = __bfloat162float(w[i]);
+    Ws[i] = to_f32(w[i]);
   for (int i = threadIdx.x; i < 4 * n; i += blockDim.x) bs[i] = bias[i];
   __syncthreads();
 
   const long long m = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (m >= M) return;
   float f[K];
-  const uint4* src = reinterpret_cast<const uint4*>(feats + m * K);
-  unpack_bf16x8(__ldg(src), f);
-  unpack_bf16x8(__ldg(src + 1), f + 8);
+  load8(feats + m * K, f);
+  load8(feats + m * K + 8, f + 8);
   const long long b = m / ((long long)H * W);
   const int i = (int)((m / W) % H), j = (int)(m % W);
 
@@ -78,7 +87,7 @@ head_argmax_kernel(const bf16* __restrict__ feats, const bf16* __restrict__ w,
         float acc = 0.0f;
 #pragma unroll
         for (int k = 0; k < K; ++k) acc = fmaf(f[k], Ws[k * 4 * n + g * n + c], acc);
-        const float z = __bfloat162float(__float2bfloat16(acc + bs[g * n + c]));
+        const float z = round_as<T>(acc + bs[g * n + c]);
         if (isnan(z)) {
           nan = true;
         } else if (z > best) {
@@ -95,17 +104,17 @@ head_argmax_kernel(const bf16* __restrict__ feats, const bf16* __restrict__ w,
 
 constexpr int K1 = 128, THREADS1 = 128;
 
-template <int NP>
+template <typename T, int NP>
 __global__ void __launch_bounds__(THREADS1)
-head_argmax_1x1_kernel(const bf16* __restrict__ feats,
-                       const bf16* __restrict__ w,
+head_argmax_1x1_kernel(const T* __restrict__ feats,
+                       const T* __restrict__ w,
                        const float* __restrict__ bias, int* __restrict__ out,
                        long long M, int n) {
   __shared__ __align__(16) float Ws[K1 * NP];  // (K1, NP), zero past n
   __shared__ float bs[NP];
   for (int i = threadIdx.x; i < K1 * NP; i += blockDim.x) {
     const int k = i / NP, c = i % NP;
-    Ws[i] = c < n ? __bfloat162float(w[k * n + c]) : 0.0f;
+    Ws[i] = c < n ? to_f32(w[k * n + c]) : 0.0f;
   }
   for (int i = threadIdx.x; i < NP; i += blockDim.x)
     bs[i] = i < n ? bias[i] : 0.0f;
@@ -116,11 +125,11 @@ head_argmax_1x1_kernel(const bf16* __restrict__ feats,
   float acc[NP];
 #pragma unroll
   for (int c = 0; c < NP; ++c) acc[c] = 0.0f;
-  const uint4* src = reinterpret_cast<const uint4*>(feats + m * K1);
+  const T* src = feats + m * K1;
 #pragma unroll 2
   for (int k0 = 0; k0 < K1; k0 += 8) {
     float f[8];
-    unpack_bf16x8(__ldg(src + k0 / 8), f);
+    load8(src + k0, f);
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) {
       const float* wr = Ws + (k0 + kk) * NP;
@@ -134,7 +143,7 @@ head_argmax_1x1_kernel(const bf16* __restrict__ feats,
 #pragma unroll
   for (int c = 0; c < NP; ++c) {
     if (c < n) {
-      const float z = __bfloat162float(__float2bfloat16(acc[c] + bs[c]));
+      const float z = round_as<T>(acc[c] + bs[c]);
       if (isnan(z)) {
         nan = true;
       } else if (z > best) {
@@ -146,13 +155,38 @@ head_argmax_1x1_kernel(const bf16* __restrict__ feats,
   out[m] = nan ? n - 1 : idx;
 }
 
-template <int NP>
+template <typename T, int NP>
 cudaError_t launch_1x1(const void* feats, const void* w, const void* bias,
                        void* out, long long M, int n, cudaStream_t s) {
   const unsigned grid = (unsigned)((M + THREADS1 - 1) / THREADS1);
-  head_argmax_1x1_kernel<NP><<<grid, THREADS1, 0, s>>>(
-      static_cast<const bf16*>(feats), static_cast<const bf16*>(w),
+  head_argmax_1x1_kernel<T, NP><<<grid, THREADS1, 0, s>>>(
+      static_cast<const T*>(feats), static_cast<const T*>(w),
       static_cast<const float*>(bias), static_cast<int*>(out), M, n);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int head_1x1(const void* feats, const void* w, const void* bias, void* out,
+             int M, int n, void* stream) {
+  if (M < 1 || n < 1 || n > 32) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= 8) return launch_1x1<T, 8>(feats, w, bias, out, M, n, s);
+  if (n <= 16) return launch_1x1<T, 16>(feats, w, bias, out, M, n, s);
+  if (n <= 24) return launch_1x1<T, 24>(feats, w, bias, out, M, n, s);
+  return launch_1x1<T, 32>(feats, w, bias, out, M, n, s);
+}
+
+template <typename T>
+int head(const void* feats, const void* w, const void* bias, void* out,
+         int B, int H, int W, int n, void* stream) {
+  if (n < 1 || n > 256) return cudaErrorInvalidValue;
+  const long long M = (long long)B * H * W;
+  const size_t smem = (size_t)(K + 1) * 4 * n * sizeof(float);
+  const unsigned grid = (unsigned)((M + THREADS - 1) / THREADS);
+  head_argmax_kernel<T><<<grid, THREADS, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(feats), static_cast<const T*>(w),
+      static_cast<const float*>(bias), static_cast<int*>(out), M, H, W, n);
   return cudaGetLastError();
 }
 
@@ -163,12 +197,14 @@ cudaError_t launch_1x1(const void* feats, const void* w, const void* bias,
 extern "C" int erf_head_argmax_1x1(const void* feats, const void* w,
                                    const void* bias, void* out, int M, int n,
                                    void* stream) {
-  if (M < 1 || n < 1 || n > 32) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= 8) return launch_1x1<8>(feats, w, bias, out, M, n, s);
-  if (n <= 16) return launch_1x1<16>(feats, w, bias, out, M, n, s);
-  if (n <= 24) return launch_1x1<24>(feats, w, bias, out, M, n, s);
-  return launch_1x1<32>(feats, w, bias, out, M, n, s);
+  return head_1x1<bf16>(feats, w, bias, out, M, n, stream);
+}
+
+// The f32 form: feats (M, 128) f32, w (128, n) f32, logits not rounded.
+extern "C" int erf_head_argmax_1x1_f32(const void* feats, const void* w,
+                                       const void* bias, void* out, int M,
+                                       int n, void* stream) {
+  return head_1x1<float>(feats, w, bias, out, M, n, stream);
 }
 
 // feats: (B, H, W, 16) bf16; w: (16, 4n) bf16 (column block g = plane a*2+b);
@@ -176,12 +212,13 @@ extern "C" int erf_head_argmax_1x1(const void* feats, const void* w,
 extern "C" int erf_head_argmax(const void* feats, const void* w,
                                const void* bias, void* out, int B, int H,
                                int W, int n, void* stream) {
-  if (n < 1 || n > 256) return cudaErrorInvalidValue;
-  const long long M = (long long)B * H * W;
-  const size_t smem = (size_t)(K + 1) * 4 * n * sizeof(float);
-  const unsigned grid = (unsigned)((M + THREADS - 1) / THREADS);
-  head_argmax_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(feats), static_cast<const bf16*>(w),
-      static_cast<const float*>(bias), static_cast<int*>(out), M, H, W, n);
-  return cudaGetLastError();
+  return head<bf16>(feats, w, bias, out, B, H, W, n, stream);
+}
+
+// The f32 form: feats (B, H, W, 16) f32, w (16, 4n) f32, logits not
+// rounded.
+extern "C" int erf_head_argmax_f32(const void* feats, const void* w,
+                                   const void* bias, void* out, int B, int H,
+                                   int W, int n, void* stream) {
+  return head<float>(feats, w, bias, out, B, H, W, n, stream);
 }

@@ -3,9 +3,9 @@ through its kernel — the counterpart of the JAX ``inference.py:
 build_fast_infer``.
 
   * DownsamplerBlocks (3)              -> ops/cuda/downsampler.py
-  * non_bottleneck_1d blocks (17)      -> ops/cuda/nb1d_halo.py for
+  * non_bottleneck_1d blocks (17)      -> bf16: ops/cuda/nb1d_halo.py for
     the C=64 and C=16 blocks (d=1), ops/cuda/nb1d.py for the dilated
-    C=128 run, at every map size
+    C=128 run; f32: ops/cuda/nb1d.py for all 17; at every map size
   * UpsamplerBlocks (2)                -> ops/cuda/upsampler.py
   * head ConvT + argmax (preds_only)   -> ops/cuda/head_argmax.py
   * the encoder's 1x1 head + argmax    -> ops/cuda/head_argmax.py
@@ -17,16 +17,20 @@ NB1d blocks run the w8a8 int8 block (ops/cuda/nb1d_q8.py) where the JAX
 package runs its int8 kernels: a block with scales whose map passes the
 gate, and the dilated C=128 run as one int8 stack, with an f32 carry
 between its blocks, only when every block of it has scales.  Other
-blocks and maps run the bf16 blocks, as in the JAX package.  The gate
-(``whole_map_eligible``) decides only the int8 choice, since it decides
-what the reference computes; the two bf16 blocks compute the same
-function, so the bf16 choice is by channel count and dilation alone.
+blocks and maps run the block of the compute dtype, as in the JAX
+package (its ``_make_layer_fn``).  The gate (``whole_map_eligible``)
+decides only the int8 choice, since it decides what the reference
+computes; the blocks of one dtype compute the same function, so the
+choice among them is by dtype, channel count and dilation alone.
 
-Weights are folded once at build time.  On a CUDA device every block runs
-its kernel (bf16); on the CPU every block runs the kernel's plain version.
-There is no switch between the two and no fallback: a block the kernel
-cannot take raises.  ``build_plain_infer`` runs the same pipeline through
-the plain versions on any device; it is the on-card reference.
+The compute dtype is bf16 or f32 (the JAX package's default): every
+kernel has a form for each, picked by the dtype of the map it is given,
+with the weights cast to that dtype (f32: the f32 fold itself).  Weights
+are folded once at build time.  On a CUDA device every block runs its
+kernel; on the CPU every block runs the kernel's plain version.  There is
+no switch between the two and no fallback: a block the kernel cannot take
+raises.  ``build_plain_infer`` runs the same pipeline through the plain
+versions on any device; it is the on-card reference.
 """
 
 from __future__ import annotations
@@ -187,32 +191,35 @@ def prepare(state_dict_or_net, dtype, device, q8_scales=None,
     return to_dev(prep)
 
 
-def _bf16_block(x, p, ops):
-    """The bf16 block: the halo-tile block wherever its kernel takes the
-    block's (C, d) (the C=64 and C=16 blocks), else the whole-map block
-    (the dilated C=128 run).  Both compute ``nb1d_plain`` and take any H
-    and W."""
-    if halo_takes(x.shape[-1], p["dilation"]):
+def _float_block(x, p, ops):
+    """The block of x's dtype.  bf16: the halo-tile block wherever its
+    kernel takes the block's (C, d) (the C=64 and C=16 blocks), else the
+    whole-map block (the dilated C=128 run).  f32: the whole-map block's
+    f32 form for every (C, d); the halo-tile block has no f32 form.  All
+    compute ``nb1d_plain`` and take any H and W."""
+    if x.dtype == torch.bfloat16 and halo_takes(x.shape[-1], p["dilation"]):
         return ops["nb1d_halo"](x, p)
     return ops["nb1d"](x, p)
 
 
 def _nb1d_block(x, p, dtype, ops):
     """One block (the JAX ``_make_layer_fn``): int8 if it has int8
-    operands and the gate passes its map, else the bf16 block."""
+    operands and the gate passes its map (compute dtype in and out), else
+    the block of the compute dtype."""
     q = p.get("q8")
     if q is not None and whole_map_eligible(x.shape, _PACK[x.shape[-1]]):
         return ops["nb1d_q8"](x, q, dtype)
-    return _bf16_block(x, p, ops)
+    return _float_block(x, p, ops)
 
 
 def _nb1d_q8_stack(x, ps, dtype, ops):
     """The JAX int8 stack (``nb1d_stack_infer_q8``) as one int8 block per
     call: the carry between blocks is f32 and only the last block writes
-    the compute dtype.  A map the gate refuses runs the bf16 blocks."""
+    the compute dtype.  A map the gate refuses runs the blocks of the
+    compute dtype."""
     if not whole_map_eligible(x.shape, 1):
         for p in ps:
-            x = _bf16_block(x, p, ops)
+            x = _float_block(x, p, ops)
         return x
     for k, p in enumerate(ps):
         x = ops["nb1d_q8"](x, p["q8"],
@@ -266,8 +273,9 @@ def build_fast_infer(state_dict_or_net, *, dtype=torch.bfloat16,
 
     images: (B, H, W, 3) float (``data.to_tensor`` of uint8 frames), on
     any device; predictions (B, H, W) int32 on ``device`` (default cuda).
-    On CUDA the kernels take bf16 only: ``dtype=torch.float32`` raises
-    there at the first block.
+    ``dtype``: the compute dtype, bf16 or f32 (the JAX CLIs' default); on
+    CUDA each kernel runs its form for that dtype (f32: f32 FMAs on the
+    CUDA cores, no TF32, all 17 NB1d blocks on ``nb1d``).
 
     q8_scales: calibrated activation absmaxes {(tag, layer): {"in", "a1",
     "a2", "a3"}} (``quantize.py``); the NB1d blocks then run int8 as the

@@ -120,16 +120,43 @@ def ptr(t) -> ctypes.c_void_p:
 
 def require(t, name, dtype, device, shape=None) -> None:
     """Validate an operand before its pointer goes to a kernel: CUDA, on
-    ``device``, of ``dtype``, contiguous and (optionally) of ``shape``."""
+    ``device``, of ``dtype`` (one dtype, or a tuple of the dtypes the
+    kernel takes), contiguous and (optionally) of ``shape``."""
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, the kernel takes {dtype}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: dtype {t.dtype}, the kernel takes "
+                        f"{' or '.join(str(d) for d in dtypes)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
+
+
+def kernel_form(t, name) -> str:
+    """Validate the map operand ``t`` of a serving kernel (``require``:
+    bf16 or f32, the two forms) and return its form: "" for bf16, "_f32"
+    for f32, the suffix of the form's C entry point and the key of its
+    launch count (``counter``)."""
+    import torch
+    forms = {torch.bfloat16: "", torch.float32: "_f32"}
+    require(t, name, tuple(forms), t.device)
+    return forms[t.dtype]
+
+
+def counter(*forms) -> Dict[str, int]:
+    """A wrapper's launch counter, ``<wrapper>.launches``: one count per
+    kernel form, keyed by the form's suffix ("" for the bf16 or only
+    form, "_f32" for the f32 form); ``launch_counts()`` names each count
+    ``<wrapper name><suffix>``."""
+    return dict.fromkeys(forms or ("",), 0)
+
+
+def count(wrapper, form: str = "", n: int = 1) -> None:
+    """Add ``n`` launches of ``wrapper``'s kernel form to its counter."""
+    wrapper.launches[form] += n
 
 
 def declare(lib, fn: str, n_ptrs: int, n_ints: int):

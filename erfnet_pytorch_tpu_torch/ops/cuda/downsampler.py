@@ -13,6 +13,12 @@ the H100: bytes (the three blocks move far more bytes than their products
 need time); this version gathers each 3x3 window through L2, so input
 pixels are read up to four times from cache, and stages the weights once
 per CTA.
+
+Forms: bf16 (``erf_downsampler_eval``, mma.sync) and f32
+(``erf_downsampler_eval_f32``, the JAX package's default compute dtype:
+f32 maps, an f32 ``wmat``, f32 FMAs on the CUDA cores, no TF32), picked by
+the input's dtype; launches counted apart (``downsampler.launches[""]``
+and ``["_f32"]``).
 """
 
 from __future__ import annotations
@@ -60,8 +66,9 @@ def downsampler_plain(x, p):
 
 
 def downsampler(x, p):
-    """CPU tensor: the plain version.  CUDA tensor: one kernel launch
-    (bf16, Cin in 3/16/64 with Cc 13/48/64, even H and W), or raise."""
+    """CPU tensor: the plain version.  CUDA tensor: one launch of the
+    kernel's form for x's dtype (bf16 or f32, ``wmat`` in the same dtype;
+    Cin in 3/16/64 with Cc 13/48/64, even H and W), or raise."""
     if x.device.type == "cpu":
         return downsampler_plain(x, p)
     B, H, W, cin = x.shape
@@ -69,21 +76,21 @@ def downsampler(x, p):
     if (cin, cc) not in ((3, 13), (16, 48), (64, 64)) or H % 2 or W % 2:
         raise ValueError(f"downsampler kernel: unsupported shape {x.shape} "
                          f"-> Cc {cc}")
-    _build.require(x, "x", torch.bfloat16, x.device)
-    _build.require(p["wmat"], "wmat", torch.bfloat16, x.device,
+    form = _build.kernel_form(x, "x")
+    _build.require(p["wmat"], "wmat", x.dtype, x.device,
                    (_round16(9 * cin), _round16(cc)))
     for name, n in (("b", cc), ("scale", cin + cc), ("shift", cin + cc)):
         _build.require(p[name], name, torch.float32, x.device, (n,))
     lib = _build.library("downsampler")
-    fn = _build.declare(lib, "erf_downsampler_eval", 6, 5)
+    fn = _build.declare(lib, "erf_downsampler_eval" + form, 6, 5)
     out = torch.empty(B, H // 2, W // 2, cin + cc, dtype=x.dtype,
                       device=x.device)
     err = fn(_build.ptr(x), _build.ptr(p["wmat"]), _build.ptr(p["b"]),
              _build.ptr(p["scale"]), _build.ptr(p["shift"]), _build.ptr(out),
              B, H, W, cin, cc, _build.stream_ptr(x))
-    _build.check(lib, err, "downsampler launch")
-    downsampler.launches += 1
+    _build.check(lib, err, f"downsampler{form} launch")
+    _build.count(downsampler, form)
     return out
 
 
-downsampler.launches = 0
+downsampler.launches = _build.counter("", "_f32")

@@ -157,11 +157,11 @@ def down_fwd(x, w, b, *, shifts=None, dtype=None):
              _build.ptr(xa), _build.ptr(part), _build.ptr(stats), B, H, W,
              cin, cc, int(stem), _build.stream_ptr(x))
     _build.check(lib, err, "train downsampler forward launch")
-    down_fwd.launches += FWD_LAUNCHES
+    _build.count(down_fwd, n=FWD_LAUNCHES)
     return xa, y, stats[:, :cout], stats[:, cout:]
 
 
-down_fwd.launches = 0
+down_fwd.launches = _build.counter()
 
 
 @route.recorded(down_bwd_plain)
@@ -195,12 +195,12 @@ def down_bwd(x, y, gy, gs1, gs2, w, *, stem):
              _build.ptr(part), _build.ptr(grads), B, H, W, cin, cc,
              int(stem), _build.stream_ptr(x))
     _build.check(lib, err, "train downsampler backward launch")
-    down_bwd.launches += BWD_LAUNCHES[stem]
+    _build.count(down_bwd, n=BWD_LAUNCHES[stem])
     dw = grads[:9 * cin * cc].view(3, 3, cin, cc)
     return (None if stem else dx), dw, grads[9 * cin * cc:]
 
 
-down_bwd.launches = 0
+down_bwd.launches = _build.counter()
 
 
 # ---------------------------------------------------------------------------

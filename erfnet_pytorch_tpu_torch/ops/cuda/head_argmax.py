@@ -14,6 +14,14 @@ n - 1; predictions int32 (B, 2H, 2W).  Logits never reach device memory.
 Bound on the H100: this version does the 16 x 4n FMAs per pixel in f32 on
 the CUDA cores, so it is bound by their issue rate rather than by its
 48 bytes per feature pixel.
+
+Forms of both kernels: bf16 feats with a bf16 W (``erf_head_argmax``,
+``erf_head_argmax_1x1``) and f32 feats with an f32 W (the ``_f32`` entry
+points; the JAX package's default compute dtype), picked by the feats'
+dtype.  The f32 form runs the same f32 FMAs and leaves the logits
+unrounded (the TPU kernel's ``round_bf16`` is false at f32).  W must be in
+the feats' dtype and the bias f32.  Launches are counted apart
+(``launches[""]``, ``launches["_f32"]``).
 """
 
 from __future__ import annotations
@@ -51,29 +59,30 @@ def head_argmax_plain(feats, p):
 
 @route.recorded(head_argmax_plain)
 def head_argmax(feats, p):
-    """CPU tensor: the plain version.  CUDA tensor: one kernel launch
-    (bf16 feats with 16 channels), or raise."""
+    """CPU tensor: the plain version.  CUDA tensor: one launch of the
+    kernel's form for the feats' dtype (bf16 or f32 feats with 16
+    channels, W in the same dtype), or raise."""
     if feats.device.type == "cpu":
         return head_argmax_plain(feats, p)
     B, H, W, K = feats.shape
     n = p["n_classes"]
     if K != 16:
         raise ValueError(f"head_argmax kernel takes 16 channels, got {K}")
-    _build.require(feats, "feats", torch.bfloat16, feats.device)
-    _build.require(p["w"], "w", torch.bfloat16, feats.device, (K, 4 * n))
+    form = _build.kernel_form(feats, "feats")
+    _build.require(p["w"], "w", feats.dtype, feats.device, (K, 4 * n))
     _build.require(p["b"], "b", torch.float32, feats.device, (4 * n,))
     lib = _build.library("head_argmax")
-    fn = _build.declare(lib, "erf_head_argmax", 4, 4)
+    fn = _build.declare(lib, "erf_head_argmax" + form, 4, 4)
     out = torch.empty(B, 2 * H, 2 * W, dtype=torch.int32,
                       device=feats.device)
     err = fn(_build.ptr(feats), _build.ptr(p["w"]), _build.ptr(p["b"]),
              _build.ptr(out), B, H, W, n, _build.stream_ptr(feats))
-    _build.check(lib, err, "head_argmax launch")
-    head_argmax.launches += 1
+    _build.check(lib, err, f"head_argmax{form} launch")
+    _build.count(head_argmax, form)
     return out
 
 
-head_argmax.launches = 0
+head_argmax.launches = _build.counter("", "_f32")
 
 
 # ---------------------------------------------------------------------------
@@ -102,8 +111,9 @@ def head_argmax_1x1_plain(feats, w, b):
 @route.recorded(head_argmax_1x1_plain)
 def head_argmax_1x1(feats, w, b):
     """head_argmax_1x1_plain's contract.  CPU tensor: the plain version.
-    CUDA tensor: one kernel launch (bf16 feats with 128 channels, at most
-    32 classes), or raise."""
+    CUDA tensor: one launch of the kernel's form for the feats' dtype
+    (bf16 or f32 feats with 128 channels, W in the same dtype, an f32 bias,
+    at most 32 classes), or raise."""
     if feats.device.type == "cpu":
         return head_argmax_1x1_plain(feats, w, b)
     M, K = feats.shape
@@ -112,19 +122,17 @@ def head_argmax_1x1(feats, w, b):
         raise ValueError(f"head_argmax_1x1 kernel takes feats (M, 128) and "
                          f"at most 32 classes; got feats "
                          f"{tuple(feats.shape)}, W {tuple(w.shape)}")
-    _build.require(feats, "feats", torch.bfloat16, feats.device)
-    wc = w.to(torch.bfloat16).contiguous()
-    bf = b.float().contiguous()
-    _build.require(wc, "w", torch.bfloat16, feats.device, (K, n))
-    _build.require(bf, "b", torch.float32, feats.device, (n,))
+    form = _build.kernel_form(feats, "feats")
+    _build.require(w, "w", feats.dtype, feats.device, (K, n))
+    _build.require(b, "b", torch.float32, feats.device, (n,))
     lib = _build.library("head_argmax")
-    fn = _build.declare(lib, "erf_head_argmax_1x1", 4, 2)
+    fn = _build.declare(lib, "erf_head_argmax_1x1" + form, 4, 2)
     out = torch.empty(M, dtype=torch.int32, device=feats.device)
-    err = fn(_build.ptr(feats), _build.ptr(wc), _build.ptr(bf),
+    err = fn(_build.ptr(feats), _build.ptr(w), _build.ptr(b),
              _build.ptr(out), M, n, _build.stream_ptr(feats))
-    _build.check(lib, err, "head_argmax_1x1 launch")
-    head_argmax_1x1.launches += 1
+    _build.check(lib, err, f"head_argmax_1x1{form} launch")
+    _build.count(head_argmax_1x1, form)
     return out
 
 
-head_argmax_1x1.launches = 0
+head_argmax_1x1.launches = _build.counter("", "_f32")

@@ -114,11 +114,11 @@ def head_loss_fwd(feats, w, b, labels, cw):
              _build.ptr(lab), _build.ptr(cwf), _build.ptr(part),
              _build.ptr(out), M, n, _build.stream_ptr(feats))
     _build.check(lib, err, "head_loss forward launch")
-    head_loss_fwd.launches += FWD_LAUNCHES
+    _build.count(head_loss_fwd, n=FWD_LAUNCHES)
     return out[0], out[1]
 
 
-head_loss_fwd.launches = 0
+head_loss_fwd.launches = _build.counter()
 
 
 @route.recorded(head_loss_bwd_plain)
@@ -151,11 +151,11 @@ def head_loss_bwd(feats, w, b, labels, cw, gnum):
                  _build.ptr(dfeats), _build.ptr(part), _build.ptr(grads), M,
                  n, _build.stream_ptr(feats))
     _build.check(lib, err, "head_loss backward launch")
-    head_loss_bwd.launches += BWD_LAUNCHES[G]
+    _build.count(head_loss_bwd, n=BWD_LAUNCHES[G])
     return dfeats, grads[:K * gn].view(K, gn), grads[K * gn:]
 
 
-head_loss_bwd.launches = 0
+head_loss_bwd.launches = _build.counter()
 
 
 class _HeadLoss(torch.autograd.Function):

@@ -19,6 +19,14 @@ C=64 blocks are operation-bound, the C=16 blocks byte-bound; each CTA
 stages a stage's tap stack once, gathers every input pixel once per tap
 with cp.async, and multiplies with mma.sync.
 
+Forms: bf16 maps with bf16 weights (``erf_nb1d_block``; on the serving
+path the C=128 run), and f32 maps with f32 weights (``erf_nb1d_block_f32``,
+the JAX package's default compute dtype; on the f32 serving path all 17
+blocks, every (C, d) and map size).  The f32 form multiplies with f32
+FMAs on the CUDA cores (no TF32); its two scratch maps are f32, allocated
+per call at the call's map size.  The wrapper counts each form's launches
+apart: ``nb1d.launches[""]`` and ``nb1d.launches["_f32"]``.
+
 Parameters of one block (``prepare_nb1d``): ``w`` (4, 3, C, C) — the four
 convs' tap stacks [tap, cin, cout], BN1/BN2 folded in f32 and then cast to
 the compute dtype — ``b`` (4, C) f32, and the dilation.  The TPU path has
@@ -67,7 +75,7 @@ def fuse_nb1d_params(sd, prefix):
 def prepare_nb1d(w, b, dilation, dtype, *, round_bias):
     """Kernel operands of one block: weights in ``dtype``; biases f32,
     rounded through ``dtype`` first when ``round_bias`` (the C=128 stack)."""
-    b = b.to(dtype).float() if round_bias else b.float()
+    b = b.to(dtype).float() if round_bias else b.float()  # no-op at f32
     return {"w": w.to(dtype).contiguous(), "b": b.contiguous(),
             "dilation": int(dilation)}
 
@@ -131,25 +139,25 @@ def nb1d_plain(x, p):
 
 def nb1d(x, p):
     """x (B, H, W, C) -> same shape.  CPU tensor: the plain version.  CUDA
-    tensor: one launch of the block kernel (bf16 only), or raise."""
+    tensor: one launch of the block kernel's form for x's dtype (bf16 or
+    f32, the weights in the same dtype), or raise."""
     if x.device.type == "cpu":
         return nb1d_plain(x, p)
     B, H, W, C = x.shape
     if C not in (16, 64, 128):
         raise ValueError(f"nb1d kernel takes C in (16, 64, 128), got {C}")
-    _build.require(x, "x", torch.bfloat16, x.device)
-    _build.require(p["w"], "w", torch.bfloat16, x.device, (4, 3, C, C))
+    form = _build.kernel_form(x, "x")
+    _build.require(p["w"], "w", x.dtype, x.device, (4, 3, C, C))
     _build.require(p["b"], "b", torch.float32, x.device, (4, C))
     lib = _build.library("nb1d")
-    fn = _build.declare(lib, "erf_nb1d_block", 6, 5)
+    fn = _build.declare(lib, "erf_nb1d_block" + form, 6, 5)
     t1, t2, out = (torch.empty_like(x) for _ in range(3))
     err = fn(_build.ptr(x), _build.ptr(p["w"]), _build.ptr(p["b"]),
              _build.ptr(t1), _build.ptr(t2), _build.ptr(out), B, H, W, C,
              p["dilation"], _build.stream_ptr(x))
-    _build.check(lib, err, "nb1d launch")
-    nb1d.launches += 1
+    _build.check(lib, err, f"nb1d{form} launch")
+    _build.count(nb1d, form)
     return out
 
 
-nb1d.launches = 0
-
+nb1d.launches = _build.counter("", "_f32")

@@ -8,9 +8,11 @@ through ``_nb1d_blocked_call``, via ``nb1d_infer_blocked`` and
 block whose map fails its whole-map budget: at 1024x2048 the seven C=64
 blocks at (B, 256, 512, 64) and the two C=16 blocks at (B, 512, 1024,
 16), all at dilation 1.  Kernel source: ``csrc/nb1d_halo.cu``.  The
-port's serving path runs it for every C=64 and C=16 block at any frame
-size (``inference._bf16_block``): at 512x1024 too it is faster than the
-whole-map block, which computes the same function.
+port's bf16 serving path runs it for every C=64 and C=16 block at any
+frame size (``inference._float_block``): at 512x1024 too it is faster than
+the whole-map block, which computes the same function.  It has a bf16
+form only; the f32 path runs those blocks on the whole-map block's f32
+form.
 
 The function is ``nb1d``'s (``ops/cuda/nb1d.py``), on the same operands
 (``prepare_nb1d``) and at the same rounding points, so its plain version
@@ -148,8 +150,8 @@ def nb1d_halo(x, p):
     err = fn(_build.ptr(x), _build.ptr(p["w"]), _build.ptr(p["b"]),
              _build.ptr(out), B, H, W, C, d, _build.stream_ptr(x))
     _build.check(lib, err, "nb1d_halo launch")
-    nb1d_halo.launches += 1
+    _build.count(nb1d_halo)
     return out
 
 
-nb1d_halo.launches = 0
+nb1d_halo.launches = _build.counter()

@@ -185,7 +185,7 @@ def pair_fwd(mode, x, wh, bh, ww, bw, dil, *, yres=None, m=None, a=None,
                  _build.ptr(mf), _build.ptr(af), _build.ptr(bf),
                  _build.ptr(t0), MODES.index(mode), B, H, W, C, stream)
         _build.check(lib, err, "nb1d pair lead launch")
-        pair_fwd.launches += 1
+        _build.count(pair_fwd)
     t1, z = torch.empty_like(x), torch.empty_like(x)
     tpi = -(-(H * W) // BM)
     part = torch.empty(B * tpi, 2 * C, dtype=torch.float32, device=dev)
@@ -196,11 +196,11 @@ def pair_fwd(mode, x, wh, bh, ww, bw, dil, *, yres=None, m=None, a=None,
              _build.ptr(part), _build.ptr(stats), B, H, W, C, int(dil),
              stream)
     _build.check(lib, err, "nb1d pair forward launch")
-    pair_fwd.launches += 3
+    _build.count(pair_fwd, n=3)
     return t0, t1, z, stats[:, :C], stats[:, C:]
 
 
-pair_fwd.launches = 0
+pair_fwd.launches = _build.counter()
 
 
 @route.recorded(pair_bwd_plain)
@@ -251,7 +251,7 @@ def pair_bwd(mode, saved, gz, gs1, gs2, gy=None):
              _build.ptr(part_w), _build.ptr(grads), MODES.index(mode), B, H,
              W, C, int(saved["dil"]), _build.stream_ptr(x))
     _build.check(lib, err, "nb1d pair backward launch")
-    pair_bwd.launches += BWD_LAUNCHES[mode]
+    _build.count(pair_bwd, n=BWD_LAUNCHES[mode])
     cc = C * C
     res = {"dwh": grads[:3 * cc].view(3, C, C),
            "dww": grads[3 * cc:6 * cc].view(3, C, C),
@@ -269,7 +269,7 @@ def pair_bwd(mode, saved, gz, gs1, gs2, gy=None):
     return res
 
 
-pair_bwd.launches = 0
+pair_bwd.launches = _build.counter()
 
 
 # ---------------------------------------------------------------------------

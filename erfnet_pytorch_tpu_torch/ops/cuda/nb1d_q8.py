@@ -177,8 +177,8 @@ def nb1d_q8(x, p, out_dtype):
         B, H, W, C, p["dilation"], int(x.dtype == torch.float32),
         int(out_dtype == torch.float32), p["inv_in"], _build.stream_ptr(x))
     _build.check(lib, err, "nb1d_q8 launch")
-    nb1d_q8.launches += 1
+    _build.count(nb1d_q8)
     return out
 
 
-nb1d_q8.launches = 0
+nb1d_q8.launches = _build.counter()

@@ -11,6 +11,12 @@ neighbours (``ops/convt_mm.py``); the kernel multiplies each parity plane's
 taps only.  Bound on the H100: bytes at both widths; each CTA stages its
 plane's weights for one tile, and the four planes re-read their input
 tile through L2.
+
+Forms: bf16 (``erf_upsampler_eval``, mma.sync) and f32
+(``erf_upsampler_eval_f32``, the JAX package's default compute dtype: f32
+maps and weights, f32 FMAs on the CUDA cores, no TF32), picked by the
+input's dtype; launches counted apart (``upsampler.launches[""]`` and
+``["_f32"]``).
 """
 
 from __future__ import annotations
@@ -43,25 +49,26 @@ def upsampler_plain(x, p):
 
 
 def upsampler(x, p):
-    """CPU tensor: the plain version.  CUDA tensor: one kernel launch
-    (bf16, 128 -> 64 or 64 -> 16), or raise."""
+    """CPU tensor: the plain version.  CUDA tensor: one launch of the
+    kernel's form for x's dtype (bf16 or f32, the weights in the same
+    dtype; 128 -> 64 or 64 -> 16), or raise."""
     if x.device.type == "cpu":
         return upsampler_plain(x, p)
     B, H, W, cin = x.shape
     cout = p["b"].shape[0]
     if (cin, cout) not in ((128, 64), (64, 16)):
         raise ValueError(f"upsampler kernel: unsupported {cin} -> {cout}")
-    _build.require(x, "x", torch.bfloat16, x.device)
-    _build.require(p["w"], "w", torch.bfloat16, x.device, (3, 3, cin, cout))
+    form = _build.kernel_form(x, "x")
+    _build.require(p["w"], "w", x.dtype, x.device, (3, 3, cin, cout))
     _build.require(p["b"], "b", torch.float32, x.device, (cout,))
     lib = _build.library("upsampler")
-    fn = _build.declare(lib, "erf_upsampler_eval", 4, 5)
+    fn = _build.declare(lib, "erf_upsampler_eval" + form, 4, 5)
     out = torch.empty(B, 2 * H, 2 * W, cout, dtype=x.dtype, device=x.device)
     err = fn(_build.ptr(x), _build.ptr(p["w"]), _build.ptr(p["b"]),
              _build.ptr(out), B, H, W, cin, cout, _build.stream_ptr(x))
-    _build.check(lib, err, "upsampler launch")
-    upsampler.launches += 1
+    _build.check(lib, err, f"upsampler{form} launch")
+    _build.count(upsampler, form)
     return out
 
 
-upsampler.launches = 0
+upsampler.launches = _build.counter("", "_f32")

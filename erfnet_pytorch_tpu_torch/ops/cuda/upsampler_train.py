@@ -153,11 +153,11 @@ def ups_fwd(x, w, b):
              _build.ptr(part), _build.ptr(stats), B, H, W, cin, cout,
              _build.stream_ptr(x))
     _build.check(lib, err, "train upsampler forward launch")
-    ups_fwd.launches += FWD_LAUNCHES
+    _build.count(ups_fwd, n=FWD_LAUNCHES)
     return y, stats[:, :cout], stats[:, cout:]
 
 
-ups_fwd.launches = 0
+ups_fwd.launches = _build.counter()
 
 
 @route.recorded(ups_bwd_plain)
@@ -193,12 +193,12 @@ def ups_bwd(x, y, gy, gs1, gs2, w):
              _build.ptr(part_w), _build.ptr(part_db), _build.ptr(grads), B,
              H, W, cin, cout, _build.stream_ptr(x))
     _build.check(lib, err, "train upsampler backward launch")
-    ups_bwd.launches += BWD_LAUNCHES
+    _build.count(ups_bwd, n=BWD_LAUNCHES)
     return (dx, grads[:9 * cin * cout].view(3, 3, cin, cout),
             grads[9 * cin * cout:])
 
 
-ups_bwd.launches = 0
+ups_bwd.launches = _build.counter()
 
 
 # ---------------------------------------------------------------------------

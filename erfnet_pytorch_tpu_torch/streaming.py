@@ -44,8 +44,10 @@ class StreamingSegmenter:
     def __init__(self, state_dict_or_net, *, dtype=torch.bfloat16,
                  output: str = "color", q8_scales=None, device=None):
         """output: 'color' (palette RGB), 'labelId' (the test-server
-        remap) or 'trainId' (the raw argmax).  q8_scales: optional w8a8
-        int8 calibration (``quantize.py``).  device: default cuda."""
+        remap) or 'trainId' (the raw argmax).  dtype: the compute dtype,
+        bf16 or f32 (the eval CLIs' default); either way the predictions
+        are int32 on the device and the output uint8.  q8_scales: optional
+        w8a8 int8 calibration (``quantize.py``).  device: default cuda."""
         if output not in OUTPUTS:
             raise ValueError(f"output must be one of {OUTPUTS}, got "
                              f"{output!r}")

@@ -162,11 +162,14 @@ def make_train_step(net, optimizer, class_weights, *, enc: bool = True,
 def _train_preds(feats, w, b, enc, label_shape, dtype):
     """The argmax of the head's logits on pre-head features: the encoder's
     1x1 head (feats (B, h, w, 128), W (128, n)) or the decoder's ConvT
-    head as the parity-plane product (feats (B, h, w, 16), W (16, 4n))."""
+    head as the parity-plane product (feats (B, h, w, 16), W (16, 4n));
+    W cast to the compute dtype, as the kernels take it."""
     with torch.no_grad():
         if enc:
-            return head_argmax_1x1(feats.reshape(-1, feats.shape[-1]), w,
-                                   b).reshape(label_shape)
+            return head_argmax_1x1(feats.reshape(-1, feats.shape[-1]),
+                                   w.to(dtype).contiguous(),
+                                   b.float().contiguous()
+                                   ).reshape(label_shape)
         return head_argmax(feats, {"w": w.to(dtype).contiguous(),
                                    "b": b.float().contiguous(),
                                    "n_classes": w.shape[1] // 4})

@@ -2,9 +2,14 @@
 (``eval_iou``, ``eval_cityscapes_color``, ``eval_cityscapes_server``,
 ``train_main``) against the JAX CLIs' parsers: every flag the two
 parsers share has the same parsed default, ``--pallas`` and
-``--no-pallas`` parse to the JAX tri-state, ``--cpu`` without a dtype
-flag computes f32 (the JAX default), the card runs bf16 and says so
-without ``--bf16``, and the flags that cannot be honoured exit 2."""
+``--no-pallas`` parse to the JAX tri-state, without a dtype flag the
+three eval CLIs compute f32 (the JAX default) on ``--cpu`` and on the
+card, ``eval_forwardTime --fp32`` f32 on the card, ``train_main`` f32 on
+``--cpu`` and bf16 on the card (saying so without ``--bf16``: the train
+kernels have no f32 forms yet), and the flags that cannot be honoured
+exit 2."""
+
+import functools
 
 import pytest
 import torch
@@ -18,7 +23,8 @@ from erfnet_pytorch_tpu_torch import device as port_device
 from erfnet_pytorch_tpu_torch.cli import (eval_cityscapes_color,
                                           eval_cityscapes_server, eval_iou,
                                           train_main)
-from erfnet_pytorch_tpu_torch.cli._device_flags import resolve_device_dtype
+from erfnet_pytorch_tpu_torch.cli._device_flags import (F32_ON_CARD,
+                                                        resolve_device_dtype)
 from test_torch_port_common import one_torch_thread  # noqa: F401
 
 CLIS = {"eval_iou": (eval_iou, jeval_iou, []),
@@ -52,13 +58,16 @@ def test_pallas_flags_parse(cli, flag, value):
 @pytest.mark.parametrize("cli", sorted(CLIS))
 def test_device_and_dtype_rule(cli, monkeypatch, capsys):
     """--cpu: f32 unless --bf16 (--fp32 says so explicitly), and --pallas
-    exits 2.  The card (stood in for here): bf16, with one line on stderr
-    naming ROADMAP A3 unless --bf16; --no-pallas exits 2."""
+    exits 2.  The card (stood in for here): the eval CLIs f32 unless
+    --bf16, silently; train_main bf16, with one line on stderr naming the
+    train rows' f32 forms unless --bf16; --no-pallas exits 2."""
     parser = CLIS[cli][0].build_parser()
     argv = CLIS[cli][2]
+    rule = (functools.partial(resolve_device_dtype, f32_on_card=False)
+            if cli == "train_main" else resolve_device_dtype)
 
     def resolve(extra):
-        return resolve_device_dtype(parser.parse_args(argv + extra), parser)
+        return rule(parser.parse_args(argv + extra), parser)
 
     assert resolve(["--cpu"]) == (torch.device("cpu"), torch.float32)
     assert resolve(["--cpu", "--fp32"])[1] == torch.float32
@@ -76,9 +85,51 @@ def test_device_and_dtype_rule(cli, monkeypatch, capsys):
     assert resolve(["--bf16", "--pallas"]) == (torch.device("cuda"),
                                                torch.bfloat16)
     assert capsys.readouterr().err == ""
+    if cli != "train_main":
+        assert resolve([]) == (torch.device("cuda"), torch.float32)
+        assert resolve(["--fp32"])[1] == torch.float32
+        assert capsys.readouterr().err == ""
+        return
     assert resolve([])[1] == torch.bfloat16
     err = capsys.readouterr().err
-    assert "ROADMAP A3" in err and len(err.strip().splitlines()) == 1
+    assert err.strip() == F32_ON_CARD and "train rows" in err
+
+
+@pytest.mark.parametrize("cli", ["eval_iou", "color", "server"])
+@pytest.mark.parametrize("extra,dtype", [([], torch.float32),
+                                         (["--fp32"], torch.float32),
+                                         (["--bf16"], torch.bfloat16)])
+def test_eval_clis_take_the_jax_default_on_the_card(cli, extra, dtype,
+                                                    monkeypatch, capsys):
+    """The eval CLIs' own resolution (``_eval_common.resolve``) on a card
+    (stood in for here): f32 unless --bf16, as the JAX parsers, and no
+    note on stderr."""
+    from erfnet_pytorch_tpu_torch import weights
+    from erfnet_pytorch_tpu_torch.cli._eval_common import resolve
+    monkeypatch.setattr(port_device, "resolve_device",
+                        lambda d=None: torch.device(d or "cuda"))
+    monkeypatch.setattr(weights, "load_any_weights", lambda path: {})
+    args = CLIS[cli][0].build_parser().parse_args(["--state", "w.pth"]
+                                                  + extra)
+    capsys.readouterr()
+    device, got, width, _sd = resolve(args)
+    assert (device, got, width) == (torch.device("cuda"), dtype, 1024)
+    assert capsys.readouterr().err == ""
+
+
+@pytest.mark.parametrize("extra,dtype", [([], torch.bfloat16),
+                                         (["--fp32"], torch.float32),
+                                         (["--bf16"], torch.bfloat16)])
+def test_forward_time_dtype_on_the_card(extra, dtype, monkeypatch):
+    """eval_forwardTime on a card (stood in for here): bf16 by default, as
+    the JAX CLI, and --fp32 runs f32 there (the f32 kernel forms)."""
+    from erfnet_pytorch_tpu_torch.cli import eval_forwardTime
+    from erfnet_pytorch_tpu.cli import eval_forwardTime as jforward
+    monkeypatch.setattr(port_device, "resolve_device",
+                        lambda d=None: torch.device(d or "cuda"))
+    args = eval_forwardTime.build_parser().parse_args(extra)
+    assert args.bf16 == jforward.build_parser().parse_args(extra).bf16
+    assert eval_forwardTime.resolve(args) == (torch.device("cuda"), dtype)
 
 
 @pytest.mark.parametrize("extra", [["--devices", "2"], ["--multi-step", "2"],

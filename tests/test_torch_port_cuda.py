@@ -28,6 +28,14 @@ round once to bf16 per stage.  f32 outputs of the train kernels (weight
 and bias gradients, BN sums): norm-relative 5e-3, as in ``chip_smoke.py``
 (the same bf16 products summed in other orders; their bf16 operands may
 sit one ulp apart on a few elements).
+
+The serving kernels' f32 forms (downsampler, nb1d, upsampler, both heads)
+are held to ``chip_smoke.py`` phase 20's tolerances: outputs within
+``F32_NORM_REL`` norm-relative and every error <= ``F32_MAX_REL`` x
+max(|ref|, rms(ref)); predictions equal except where the plain version's
+two largest logits lie within ``F32_TIE_REL`` relative of each other.
+Both sides are f32 FMA chains over the same products in other orders, so
+they differ by a few f32 ulps of the sums' terms.
 """
 
 import pytest
@@ -44,6 +52,12 @@ from erfnet_pytorch_tpu_torch.ops.cuda import (downsampler,
                                                upsampler, upsampler_train)
 
 pytestmark = pytest.mark.cuda
+
+# chip_smoke.py phase 20
+F32_NORM_REL = 5e-7
+F32_MAX_REL = 1e-5
+F32_TIE_REL = 1e-5
+BF, F32 = torch.bfloat16, torch.float32
 
 
 @pytest.fixture(scope="module")
@@ -69,9 +83,9 @@ def sd():
     return sd
 
 
-def _x(shape, seed, dev, relu=True):
+def _x(shape, seed, dev, relu=True, dtype=torch.bfloat16):
     x = torch.randn(shape, generator=torch.Generator().manual_seed(seed))
-    return (x.relu() if relu else x).to(dev, torch.bfloat16)
+    return (x.relu() if relu else x).to(dev, dtype)
 
 
 def _on(p, dev):
@@ -80,6 +94,9 @@ def _on(p, dev):
 
 
 def _close(got, ref):
+    if ref.dtype == torch.float32:
+        return _close_f32(got, ref)
+
     def ordered(t):
         i = t.contiguous().view(torch.int16).int()
         return torch.where(i < 0, -(i & 0x7FFF), i)
@@ -91,78 +108,120 @@ def _close(got, ref):
     assert frac >= 0.999 and rel <= 2.0 ** -6, (frac, rel)
 
 
+def _close_f32(got, ref):
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    g, r = got.double(), ref.double()
+    assert torch.isfinite(g).all()
+    norm = ((g - r).norm() / r.norm().clamp_min(1e-30)).item()
+    floor = r.pow(2).mean().sqrt().clamp_min(1e-30)
+    rel = ((g - r).abs() / torch.maximum(r.abs(), floor)).max().item()
+    assert norm <= F32_NORM_REL and rel <= F32_MAX_REL, (norm, rel)
+
+
+def _ties(z, dtype):
+    """Rows of logits z (..., n), as the plain version computes them, whose
+    two largest values are within one bf16 ulp (bf16) or F32_TIE_REL
+    relative of max(|top|, rms(z)) (f32)."""
+    top = z.float().topk(2, dim=-1).values
+    if dtype == torch.bfloat16:
+        return (top[..., 0] - top[..., 1]) <= top[..., 0].abs() * 2.0 ** -7
+    floor = z.float().pow(2).mean().sqrt()
+    return (top[..., 0] - top[..., 1]) <= F32_TIE_REL * torch.maximum(
+        top[..., 0].abs(), floor)
+
+
+def _launched(wrapper, dtype):
+    return wrapper.launches["" if dtype == torch.bfloat16 else "_f32"]
+
+
+@pytest.mark.parametrize("dtype", [BF, F32])
 @pytest.mark.parametrize("prefix,c,shape,dil", [
     ("encoder.layers.7", 128, (1, 3, 5, 128), 2),
     ("encoder.layers.10", 128, (2, 8, 16, 128), 16),
     ("encoder.layers.1", 64, (1, 7, 9, 64), 1),
     ("decoder.layers.4", 16, (3, 5, 33, 16), 1),
+    ("encoder.layers.8", 128, (1, 9, 70, 128), 4),
+    ("encoder.layers.1", 64, (2, 33, 65, 64), 1),
+    ("decoder.layers.4", 16, (1, 70, 300, 16), 1),
 ])
-def test_nb1d_kernel(dev, sd, prefix, c, shape, dil):
+def test_nb1d_kernel(dev, sd, prefix, c, shape, dil, dtype):
+    """Both forms at ragged maps (tile tails, maps narrower than a tile,
+    dilations beyond the map); the f32 form's C=128 stages take K in
+    chunks, its C=16 tiles are 256 pixels."""
     w, b = nb1d.fuse_nb1d_params(sd, prefix)
-    p = _on(nb1d.prepare_nb1d(w, b, dil, torch.bfloat16,
-                              round_bias=(c == 128)), dev)
-    x = _x(shape, c, dev)
-    n0 = nb1d.nb1d.launches
+    p = _on(nb1d.prepare_nb1d(w, b, dil, dtype, round_bias=(c == 128)), dev)
+    x = _x(shape, c, dev, dtype=dtype)
+    n0 = _launched(nb1d.nb1d, dtype)
     got = nb1d.nb1d(x, p)
     torch.cuda.synchronize()
-    assert nb1d.nb1d.launches - n0 == nb1d.LAUNCHES_PER_BLOCK
+    assert _launched(nb1d.nb1d, dtype) - n0 == nb1d.LAUNCHES_PER_BLOCK
     _close(got, nb1d.nb1d_plain(x, p))
 
 
+@pytest.mark.parametrize("dtype", [BF, F32])
 @pytest.mark.parametrize("prefix,shape", [
     ("encoder.initial_block", (1, 6, 10, 3)),
     ("encoder.layers.0", (2, 10, 6, 16)),
     ("encoder.layers.6", (1, 18, 14, 64)),
+    ("encoder.initial_block", (1, 34, 130, 3)),
+    ("encoder.layers.6", (2, 30, 34, 64)),
 ])
-def test_downsampler_kernel(dev, sd, prefix, shape):
-    p = _on(downsampler.prepare_downsampler(sd, prefix, torch.bfloat16), dev)
-    x = _x(shape, shape[-1], dev, relu=False)
-    n0 = downsampler.downsampler.launches
+def test_downsampler_kernel(dev, sd, prefix, shape, dtype):
+    p = _on(downsampler.prepare_downsampler(sd, prefix, dtype), dev)
+    x = _x(shape, shape[-1], dev, relu=False, dtype=dtype)
+    n0 = _launched(downsampler.downsampler, dtype)
     got = downsampler.downsampler(x, p)
     torch.cuda.synchronize()
-    assert downsampler.downsampler.launches - n0 == 1
+    assert _launched(downsampler.downsampler, dtype) - n0 == 1
     _close(got, downsampler.downsampler_plain(x, p))
 
 
+@pytest.mark.parametrize("dtype", [BF, F32])
 @pytest.mark.parametrize("prefix,shape", [
     ("decoder.layers.0", (1, 3, 7, 128)),
     ("decoder.layers.3", (2, 9, 5, 64)),
+    ("decoder.layers.0", (2, 9, 33, 128)),
 ])
-def test_upsampler_kernel(dev, sd, prefix, shape):
-    p = _on(upsampler.prepare_upsampler(sd, prefix, torch.bfloat16), dev)
-    x = _x(shape, shape[-1], dev)
-    n0 = upsampler.upsampler.launches
+def test_upsampler_kernel(dev, sd, prefix, shape, dtype):
+    p = _on(upsampler.prepare_upsampler(sd, prefix, dtype), dev)
+    x = _x(shape, shape[-1], dev, dtype=dtype)
+    n0 = _launched(upsampler.upsampler, dtype)
     got = upsampler.upsampler(x, p)
     torch.cuda.synchronize()
-    assert upsampler.upsampler.launches - n0 == 1
+    assert _launched(upsampler.upsampler, dtype) - n0 == 1
     _close(got, upsampler.upsampler_plain(x, p))
 
 
-def test_head_argmax_kernel(dev, sd):
-    """Equal wherever the plain version's two largest bf16 logits differ
-    by more than one bf16 ulp; a NaN feature gives the last class."""
-    p = _on(head_argmax.prepare_head(sd, "decoder.output_conv",
-                                     torch.bfloat16), dev)
-    x = _x((2, 7, 37, 16), 16, dev)
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_head_argmax_kernel(dev, sd, dtype):
+    """Equal wherever the plain version's two largest logits are not a
+    near-tie (``_ties``); a NaN feature gives the last class."""
+    p = _on(head_argmax.prepare_head(sd, "decoder.output_conv", dtype), dev)
+    x = _x((2, 7, 37, 16), 16, dev, dtype=dtype)
     x[1, 2, 3, 4] = float("nan")
-    n0 = head_argmax.head_argmax.launches
+    n0 = _launched(head_argmax.head_argmax, dtype)
     got = head_argmax.head_argmax(x, p)
     torch.cuda.synchronize()
-    assert head_argmax.head_argmax.launches - n0 == 1
+    assert _launched(head_argmax.head_argmax, dtype) - n0 == 1
     ref = head_argmax.head_argmax_plain(x, p)
     assert (got[1, 4:6, 6:8] == 19).all() and (ref[1, 4:6, 6:8] == 19).all()
-    z = (x.reshape(-1, 16).float() @ p["w"].float() + p["b"]).bfloat16()
-    top = z.float().reshape(2, 7, 37, 2, 2, 20).topk(2, dim=-1).values
-    tie = (top[..., 0] - top[..., 1]) <= top[..., 0].abs() * 2.0 ** -7
+    z = (x.reshape(-1, 16).float() @ p["w"].float() + p["b"]).to(dtype)
+    tie = _ties(z.reshape(2, 7, 37, 2, 2, 20), dtype)
     tie = tie.permute(0, 1, 3, 2, 4).reshape(2, 14, 74)
     assert ((got != ref) & ~tie).sum().item() == 0
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev, sd):
+    """Maps of another dtype than bf16 or f32, weights of another dtype
+    than the map's, and shapes the kernels do not take raise."""
     p = _on(nb1d.prepare_nb1d(*nb1d.fuse_nb1d_params(sd, "encoder.layers.1"),
                               1, torch.bfloat16, round_bias=False), dev)
     with pytest.raises(TypeError):
-        nb1d.nb1d(torch.zeros(1, 4, 4, 64, device=dev), p)       # f32
+        nb1d.nb1d(torch.zeros(1, 4, 4, 64, device=dev), p)  # f32 x, bf16 w
+    for dt in (torch.float16, torch.float64):
+        with pytest.raises(TypeError):
+            nb1d.nb1d(torch.zeros(1, 4, 4, 64, device=dev, dtype=dt),
+                      dict(p, w=p["w"].to(dt)))
     with pytest.raises(ValueError):
         nb1d.nb1d(torch.zeros(1, 4, 4, 32, device=dev,
                               dtype=torch.bfloat16), p)            # C=32
@@ -171,16 +230,45 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev, sd):
     with pytest.raises(ValueError):
         downsampler.downsampler(torch.zeros(1, 5, 4, 16, device=dev,
                                             dtype=torch.bfloat16), q)
+    x16 = torch.zeros(1, 4, 4, 16, device=dev)
+    with pytest.raises(TypeError):                          # f32 x, bf16 w
+        downsampler.downsampler(x16, q)
+    for dt in (torch.float16, torch.float64):
+        with pytest.raises(TypeError):
+            downsampler.downsampler(x16.to(dt), dict(q, wmat=q["wmat"].to(dt)))
+    u = _on(upsampler.prepare_upsampler(sd, "decoder.layers.3", F32), dev)
+    x64 = torch.zeros(1, 4, 4, 64, device=dev)
+    with pytest.raises(TypeError):                          # bf16 x, f32 w
+        upsampler.upsampler(x64.bfloat16(), u)
+    with pytest.raises(TypeError):
+        upsampler.upsampler(x64.half(), dict(u, w=u["w"].half()))
+    h = _on(head_argmax.prepare_head(sd, "decoder.output_conv", F32), dev)
+    f = torch.zeros(1, 4, 4, 16, device=dev)
+    with pytest.raises(TypeError):                          # bf16 x, f32 w
+        head_argmax.head_argmax(f.bfloat16(), h)
+    with pytest.raises(TypeError):
+        head_argmax.head_argmax(f.double(), dict(h, w=h["w"].double()))
+    w1 = sd["encoder.output_conv.weight"][:, :, 0, 0].t().contiguous().to(dev)
+    b1 = sd["encoder.output_conv.bias"].to(dev)
+    with pytest.raises(TypeError):                          # bf16 x, f32 w
+        head_argmax.head_argmax_1x1(torch.zeros(4, 128, device=dev,
+                                                dtype=BF), w1, b1)
+    with pytest.raises(TypeError):                          # f32 b required
+        head_argmax.head_argmax_1x1(torch.zeros(4, 128, device=dev), w1,
+                                    b1.bfloat16())
 
 
-def test_serving_path_matches_plain_pipeline(dev, sd):
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_serving_path_matches_plain_pipeline(dev, sd, dtype):
     """build_fast_infer(preds_only) on the card: every kernel launches the
-    expected number of times per forward (the C=128 run on nb1d, the C=64
-    and C=16 blocks on nb1d_halo), and >= 99.5 % of the pixels
-    agree with the same pipeline through the plain versions (a one-ulp
-    difference early in the net can flip a near-tie pixel)."""
-    infer = build_fast_infer(sd, preds_only=True)
-    plain = build_plain_infer(sd, preds_only=True, device=dev)
+    expected number of times per forward (bf16: the C=128 run on nb1d, the
+    C=64 and C=16 blocks on nb1d_halo; f32: all 17 blocks on nb1d's f32
+    form, no bf16 launch), and the pixels agree with the same pipeline
+    through the plain versions: bf16 >= 99.5 % (a one-ulp difference
+    early in the net can flip a near-tie pixel); f32 >= 99.9 % and every
+    difference at a near-tie of the plain pipeline's logits."""
+    infer = build_fast_infer(sd, dtype=dtype, preds_only=True)
+    plain = build_plain_infer(sd, dtype=dtype, preds_only=True, device=dev)
     u8 = torch.randint(0, 256, (2, 64, 128, 3),
                        generator=torch.Generator().manual_seed(5),
                        dtype=torch.uint8).to(dev)
@@ -189,15 +277,26 @@ def test_serving_path_matches_plain_pipeline(dev, sd):
     got = infer(to_tensor(u8))
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    assert {k: counts.pop(k) for k in ("downsampler", "nb1d", "nb1d_halo",
-                                       "upsampler", "head_argmax")} == {
-        "downsampler": 3, "nb1d": 8 * nb1d.LAUNCHES_PER_BLOCK,
-        "nb1d_halo": 9 * nb1d_halo.LAUNCHES_PER_BLOCK, "upsampler": 2,
-        "head_argmax": 1}
+    if dtype == BF:
+        want = {"downsampler": 3, "nb1d": 8 * nb1d.LAUNCHES_PER_BLOCK,
+                "nb1d_halo": 9 * nb1d_halo.LAUNCHES_PER_BLOCK,
+                "upsampler": 2, "head_argmax": 1}
+    else:
+        want = {"downsampler_f32": 3,
+                "nb1d_f32": 17 * nb1d.LAUNCHES_PER_BLOCK,
+                "upsampler_f32": 2, "head_argmax_f32": 1}
+    assert {k: counts.pop(k) for k in want} == want
     assert set(counts.values()) == {0}
     ref = plain(to_tensor(u8))
     assert got.shape == (2, 64, 128) and got.dtype == torch.int32
-    assert (got == ref).float().mean().item() >= 0.995
+    agree = (got == ref).float().mean().item()
+    if dtype == BF:
+        assert agree >= 0.995
+    else:
+        logits = build_plain_infer(sd, dtype=F32, device=dev)(
+            to_tensor(u8))[0]
+        assert agree >= 0.999
+        assert ((got != ref) & ~_ties(logits, F32)).sum().item() == 0
 
 
 def _rel(got, ref, tol=5e-3):
@@ -231,11 +330,11 @@ def test_nb1d_pair_kernels(dev, mode, shape, dil):
     if mode == "epi":
         kw["yres"] = _rn(*shape, seed=8).relu().to(dev, torch.bfloat16)
         kw["m"] = torch.where(_rn(B, C, seed=9) > -0.5, 1 / 0.7, 0.0).to(dev)
-    n0 = nb1d_pair.pair_fwd.launches
+    n0 = nb1d_pair.pair_fwd.launches[""]
     got = nb1d_pair.pair_fwd(mode, **kw)
     ref = nb1d_pair.pair_fwd_plain(mode, **kw)
     torch.cuda.synchronize()
-    assert (nb1d_pair.pair_fwd.launches - n0
+    assert (nb1d_pair.pair_fwd.launches[""] - n0
             == nb1d_pair.FWD_LAUNCHES[mode])
     for i in (0, 1, 2):
         _close(got[i], ref[i])
@@ -250,11 +349,11 @@ def test_nb1d_pair_kernels(dev, mode, shape, dil):
           "gs2": _rn(B, C, seed=12, scale=1e-3).to(dev)}
     if mode == "epi":
         ct["gy"] = _rn(*shape, seed=13).to(dev, torch.bfloat16)
-    n0 = nb1d_pair.pair_bwd.launches
+    n0 = nb1d_pair.pair_bwd.launches[""]
     got = nb1d_pair.pair_bwd(mode, saved, **ct)
     ref = nb1d_pair.pair_bwd_plain(mode, saved, **ct)
     torch.cuda.synchronize()
-    assert (nb1d_pair.pair_bwd.launches - n0
+    assert (nb1d_pair.pair_bwd.launches[""] - n0
             == nb1d_pair.BWD_LAUNCHES[mode])
     assert set(got) == set(ref)
     for k, v in ref.items():
@@ -287,11 +386,11 @@ def test_downsampler_train_kernels(dev, shape, cc, stem):
     gy = _rn(*y.shape, seed=4).to(dev, torch.bfloat16)
     gs1 = _rn(B, y.shape[-1], seed=5, scale=1e-3).to(dev)
     gs2 = _rn(B, y.shape[-1], seed=6, scale=1e-3).to(dev)
-    n0 = downsampler_train.down_bwd.launches
+    n0 = downsampler_train.down_bwd.launches[""]
     got = downsampler_train.down_bwd(xa, y, gy, gs1, gs2, w, stem=stem)
     ref = downsampler_train.down_bwd_plain(xa, y, gy, gs1, gs2, w, stem=stem)
     torch.cuda.synchronize()
-    assert (downsampler_train.down_bwd.launches - n0
+    assert (downsampler_train.down_bwd.launches[""] - n0
             == downsampler_train.BWD_LAUNCHES[stem])
     if not stem:
         _close(got[0], ref[0])
@@ -319,11 +418,11 @@ def test_head_loss_kernels(dev, all_void, G):
     num, den = head_loss.head_loss_fwd(feats, w, b, labels, cw)
     pnum, pden = head_loss.head_loss_fwd_plain(feats, w, b, labels, cw)
     gnum = 1.0 / den.clamp_min(1e-12)
-    n0 = head_loss.head_loss_bwd.launches
+    n0 = head_loss.head_loss_bwd.launches[""]
     got = head_loss.head_loss_bwd(feats, w, b, labels, cw, gnum)
     ref = head_loss.head_loss_bwd_plain(feats, w, b, labels, cw, gnum)
     torch.cuda.synchronize()
-    assert (head_loss.head_loss_bwd.launches - n0
+    assert (head_loss.head_loss_bwd.launches[""] - n0
             == head_loss.BWD_LAUNCHES[G])
     if all_void:
         assert num.item() == 0 and den.item() == 0
@@ -345,11 +444,11 @@ def test_upsampler_train_kernels(dev, shape, cout):
     x = _rn(*shape, seed=1).relu().to(dev, torch.bfloat16)
     w = _rn(3, 3, cin, cout, seed=2, scale=(9 * cin) ** -0.5).to(dev)
     b = _rn(cout, seed=3, scale=0.1).to(dev)
-    n0 = upsampler_train.ups_fwd.launches
+    n0 = upsampler_train.ups_fwd.launches[""]
     got = upsampler_train.ups_fwd(x, w, b)
     ref = upsampler_train.ups_fwd_plain(x, w, b)
     torch.cuda.synchronize()
-    assert (upsampler_train.ups_fwd.launches - n0
+    assert (upsampler_train.ups_fwd.launches[""] - n0
             == upsampler_train.FWD_LAUNCHES)
     _close(got[0], ref[0])
     _rel(got[1], ref[1])
@@ -358,11 +457,11 @@ def test_upsampler_train_kernels(dev, shape, cout):
     gy = _rn(*y.shape, seed=4).to(dev, torch.bfloat16)
     gs1 = _rn(B, cout, seed=5, scale=1e-3).to(dev)
     gs2 = _rn(B, cout, seed=6, scale=1e-3).to(dev)
-    n0 = upsampler_train.ups_bwd.launches
+    n0 = upsampler_train.ups_bwd.launches[""]
     got = upsampler_train.ups_bwd(x, y, gy, gs1, gs2, w)
     ref = upsampler_train.ups_bwd_plain(x, y, gy, gs1, gs2, w)
     torch.cuda.synchronize()
-    assert (upsampler_train.ups_bwd.launches - n0
+    assert (upsampler_train.ups_bwd.launches[""] - n0
             == upsampler_train.BWD_LAUNCHES)
     _close(got[0], ref[0])
     _rel(got[1], ref[1])
@@ -564,10 +663,10 @@ def test_nb1d_q8_kernel(dev, sd, prefix, shape, dil, din, dout):
     acts = {k: v.abs().max().item() for k, v in
             zip(("in", "a1", "a2", "a3"), (x.float(), t1, t2, t3))}
     p = _on(nb1d_q8.prepare_nb1d_q8(w, b, acts, dil), dev)
-    n0 = nb1d_q8.nb1d_q8.launches
+    n0 = nb1d_q8.nb1d_q8.launches[""]
     got = nb1d_q8.nb1d_q8(x, p, dout)
     torch.cuda.synchronize()
-    assert nb1d_q8.nb1d_q8.launches - n0 == nb1d_q8.LAUNCHES_PER_BLOCK
+    assert nb1d_q8.nb1d_q8.launches[""] - n0 == nb1d_q8.LAUNCHES_PER_BLOCK
     assert got.dtype == dout
     assert torch.equal(got, nb1d_q8.nb1d_q8_plain(x, p, dout))
 
@@ -638,10 +737,11 @@ def test_nb1d_halo_kernel(dev, sd, shape):
     p = _on(nb1d.prepare_nb1d(w, b, 1, torch.bfloat16, round_bias=False),
             dev)
     x = _x(shape, shape[1], dev)
-    n0 = nb1d_halo.nb1d_halo.launches
+    n0 = nb1d_halo.nb1d_halo.launches[""]
     got = nb1d_halo.nb1d_halo(x, p)
     torch.cuda.synchronize()
-    assert nb1d_halo.nb1d_halo.launches - n0 == nb1d_halo.LAUNCHES_PER_BLOCK
+    assert (nb1d_halo.nb1d_halo.launches[""] - n0
+            == nb1d_halo.LAUNCHES_PER_BLOCK)
     _close(got, nb1d_halo.nb1d_halo_plain(x, p))
 
 
@@ -734,33 +834,36 @@ def test_forward_off_the_whole_map_gate(dev, sd):
                            features(prep, x, torch.bfloat16, hybrid))
 
 
-def test_head_argmax_1x1_kernel(dev, sd):
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_head_argmax_1x1_kernel(dev, sd, dtype):
     """The encoder's 1x1 head + argmax: one launch; equal to its plain
-    version on the card wherever the two largest bf16 logits differ by
-    more than one bf16 ulp; a row holding a NaN gives the last class."""
+    version on the card wherever the plain version's two largest logits
+    are not a near-tie (``_ties``); a row holding a NaN gives the last
+    class."""
     g = torch.Generator().manual_seed(9)
-    x = torch.randn(1037, 128, generator=g).clamp_min(0).bfloat16().to(dev)
+    x = torch.randn(1037, 128, generator=g).clamp_min(0).to(dev, dtype)
     x[7, 100] = float("nan")
-    w = sd["encoder.output_conv.weight"][:, :, 0, 0].t().to(dev)
+    w = sd["encoder.output_conv.weight"][:, :, 0, 0].t().contiguous().to(
+        dev, dtype)
     b = sd["encoder.output_conv.bias"].to(dev)
-    n0 = head_argmax.head_argmax_1x1.launches
+    n0 = _launched(head_argmax.head_argmax_1x1, dtype)
     got = head_argmax.head_argmax_1x1(x, w, b)
     torch.cuda.synchronize()
-    assert head_argmax.head_argmax_1x1.launches - n0 == 1
+    assert _launched(head_argmax.head_argmax_1x1, dtype) - n0 == 1
     ref = head_argmax.head_argmax_1x1_plain(x, w, b)
     assert got.shape == (1037,) and got.dtype == torch.int32
     assert got[7] == 19 and ref[7] == 19
-    z = (x.float() @ w.bfloat16().float() + b).bfloat16().float()
-    top = z.topk(2, dim=-1).values
-    tie = (top[:, 0] - top[:, 1]) <= top[:, 0].abs() * 2.0 ** -7
-    assert ((got != ref) & ~tie).sum().item() == 0
+    z = (x.float() @ w.float() + b).to(dtype)
+    assert ((got != ref) & ~_ties(z, dtype)).sum().item() == 0
 
 
 def test_head_argmax_1x1_refuses_what_the_kernel_does_not_take(dev, sd):
-    w = sd["encoder.output_conv.weight"][:, :, 0, 0].t().to(dev)
+    w = sd["encoder.output_conv.weight"][:, :, 0, 0].t().contiguous().to(dev)
     b = sd["encoder.output_conv.bias"].to(dev)
     with pytest.raises(TypeError):
-        head_argmax.head_argmax_1x1(torch.zeros(4, 128, device=dev), w, b)
+        head_argmax.head_argmax_1x1(torch.zeros(4, 128, device=dev,
+                                                dtype=torch.float16),
+                                    w.half(), b)
     with pytest.raises(ValueError):
         head_argmax.head_argmax_1x1(
             torch.zeros(4, 64, device=dev, dtype=torch.bfloat16), w[:64], b)
@@ -803,3 +906,35 @@ def test_eval_step_launch_counts(dev, sd, enc):
                                       plain=True)(state, u8, labels)
     assert abs(loss.item() - lossp.item()) <= 1e-3 * abs(lossp.item())
     assert (preds == predsp).float().mean().item() >= 0.995
+
+
+@pytest.mark.parametrize("enc", [True, False])
+def test_f32_eval_step_runs_the_f32_serving_kernels(dev, sd, enc):
+    """make_eval_step at f32 on the card: its features run the serving
+    kernels' f32 forms (no bf16 launch), and its loss raises, since the
+    head+loss kernel (row 17) has no f32 form yet; the trainer keeps its
+    eval step at the train dtype, bf16 on the card."""
+    from erfnet_pytorch_tpu_torch.training.class_weights import (
+        DECODER_WEIGHTS, ENCODER_WEIGHTS)
+    from erfnet_pytorch_tpu_torch.training.optim import make_adam
+    from erfnet_pytorch_tpu_torch.training.steps import (create_train_state,
+                                                         make_eval_step)
+    g = torch.Generator().manual_seed(11)
+    u8 = torch.randint(0, 256, (2, 64, 128, 3), generator=g,
+                       dtype=torch.uint8).to(dev)
+    labels = torch.randint(0, 19, (2, 64, 128), generator=g).to(dev)
+    net = Net(20)
+    net.load_state_dict(sd)
+    net.to(dev)
+    state = create_train_state(net, make_adam(net.parameters()))
+    step = make_eval_step(net, ENCODER_WEIGHTS if enc else DECODER_WEIGHTS,
+                          enc=enc, dtype=F32, device=dev)
+    kernels.reset_launch_counts()
+    with pytest.raises(TypeError, match="feats"):
+        step(state, u8, labels)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    want = {"downsampler_f32": 3, "nb1d_f32": 13}
+    if not enc:
+        want = {"downsampler_f32": 3, "nb1d_f32": 17, "upsampler_f32": 2}
+    assert counts == want

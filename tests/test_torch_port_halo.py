@@ -36,12 +36,15 @@ from erfnet_pytorch_tpu_torch.models.erfnet import Net, init_weights
 from erfnet_pytorch_tpu_torch.ops.cuda import nb1d_halo as halo
 from erfnet_pytorch_tpu_torch.quantize import calibrate_q8_scales
 from erfnet_pytorch_tpu_torch.ops.cuda.nb1d import (fuse_nb1d_params,
-                                                    prepare_nb1d)
+                                                    nb1d_plain, prepare_nb1d)
 from test_torch_port_common import assert_bf16_close, jax_net, to_torch
 from test_torch_port_common import one_torch_thread  # noqa: F401
 
 # (where, layer) of a d=1 block of each channel count the kernel takes
 BLOCKS = {64: ("encoder", 1), 16: ("decoder", 4)}
+# f32 agreement, as chip_smoke.py phase 20 holds the f32 kernels
+F32_NORM_REL = 1e-5
+F32_MAX_REL = 1e-4
 
 
 @pytest.fixture(scope="module")
@@ -106,24 +109,45 @@ def test_zero_fill_is_what_makes_the_tiling_right(nets, c, edge,
     assert not torch.equal(halo.nb1d_halo_tiled_plain(x, p), ref)
 
 
-@pytest.mark.parametrize("c,p", [(64, 2), (16, 8)])
-def test_block_matches_jax_packed_blocked(nets, c, p):
+@pytest.mark.parametrize("c,p,dtype", [
+    pytest.param(64, 2, "bf16", id="64-2"),
+    pytest.param(16, 8, "bf16", id="16-8"),
+    pytest.param(64, 2, "f32", id="64-2-f32"),
+    pytest.param(16, 8, "f32", id="16-8-f32")])
+def test_block_matches_jax_packed_blocked(nets, c, p, dtype):
     """The port's block (the wrapper and the tiled reference, on the CPU)
-    against the JAX blocked kernel on the same seeded bf16 input and the
-    weights ``weights.from_jax`` carried over; the budget leaves R = 8
-    kept rows per H-block (6 blocks)."""
+    against the JAX blocked kernel (row 2) on the same seeded input and
+    the weights ``weights.from_jax`` carried over; the budget leaves R = 8
+    kept rows per H-block (6 blocks).  bf16: the halo-tile block.  f32
+    (the JAX default; the port's f32 path runs these blocks on ``nb1d``'s
+    f32 form): ``nb1d_plain`` in f32 within F32_NORM_REL norm-relative,
+    every error <= F32_MAX_REL x max(|ref|, rms(ref)), as ``chip_smoke.py``
+    phase 20 holds the f32 kernels (f32 sums in other orders)."""
     params, state, _sd = nets
     where, i = BLOCKS[c]
     jf = jnb1d.fuse_nb1d_params(params[where]["layers"][i],
                                 state[where]["layers"][i])
-    weights, s2, s4 = pack_nb1d_for_pallas(jf, p, 1, dtype=jnp.bfloat16)
+    jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    weights, s2, s4 = pack_nb1d_for_pallas(jf, p, 1, dtype=jdt)
     B, H, W = 2, 48, 32
     max_elems = (8 + 2 * 2 + 6) * (W // p) * (p * c)
     assert jnb1d._blocked_rows(H, W * c, 2, max_elems) == 8
     x = _x((B, H, W, c), 3)
     ref = jnb1d.nb1d_infer_packed_blocked(
-        jnp.asarray(x.float().numpy(), jnp.bfloat16), weights, p=p,
+        jnp.asarray(x.float().numpy(), jdt), weights, p=p,
         dilated=1, s2=s2, s4=s4, max_elems=max_elems, interpret=True)
+    if dtype == "f32":
+        ref = to_torch(ref)
+        _sd_w, _sd_b = fuse_nb1d_params(nets[2], f"{where}.layers.{i}")
+        pf = prepare_nb1d(_sd_w, _sd_b, 1, torch.float32, round_bias=False)
+        got = nb1d_plain(x.float(), pf)
+        assert got.dtype == ref.dtype == torch.float32
+        err = (got - ref).double()
+        floor = ref.double().pow(2).mean().sqrt()
+        assert err.norm() <= F32_NORM_REL * ref.double().norm()
+        assert (err.abs() / torch.maximum(ref.double().abs(), floor)
+                ).max() <= F32_MAX_REL
+        return
     ref = to_torch(ref, torch.bfloat16)
     pp = _params(nets, c)
     assert_bf16_close(halo.nb1d_halo(x, pp), ref)
@@ -170,3 +194,42 @@ def test_routing_gives_each_block_a_kernel_that_takes_it(hw, int8, want,
                                        q8_scales=scales)(x)
     assert preds.shape == (1,) + hw
     assert calls == want
+
+
+@pytest.mark.parametrize("hw,int8,want", [
+    ((48, 80), False, {"nb1d": 17}),
+    ((48, 80), True, {"nb1d": 15, "nb1d_q8": 2}),
+    ((64, 128), False, {"nb1d": 17}),
+    ((64, 128), True, {"nb1d_q8": 17}),
+])
+def test_f32_routing_sends_every_block_to_nb1d(hw, int8, want, monkeypatch):
+    """The f32 route (the JAX default dtype): every f32 block goes to the
+    whole-map block's f32 form, at any (C, d) and map size (the halo-tile
+    block has no f32 form).  With int8 scales the blocks whose maps pass
+    the gate go to the int8 block with f32 in and out (the f32 carry
+    included), the others to the f32 block: the JAX ``_make_layer_fn`` at
+    dtype=f32."""
+    net = init_weights(Net(20), torch.Generator().manual_seed(0))
+    x = torch.rand((1,) + hw + (3,),
+                   generator=torch.Generator().manual_seed(1))
+    scales = calibrate_q8_scales(net, [x], device="cpu") if int8 else None
+    calls, dtypes = {}, set()
+
+    def op(name):
+        plain = inference.PLAIN_OPS[name]
+
+        def run(x, p, *a):
+            calls[name] = calls.get(name, 0) + 1
+            dtypes.add((x.dtype,) + tuple(a))
+            return plain(x, p, *a)
+        return run
+
+    for name in ("nb1d", "nb1d_halo", "nb1d_q8"):
+        monkeypatch.setitem(inference.KERNEL_OPS, name, op(name))
+    preds = inference.build_fast_infer(net, dtype=torch.float32,
+                                       preds_only=True, device="cpu",
+                                       q8_scales=scales)(x)
+    assert preds.shape == (1,) + hw
+    assert calls == want
+    f32 = torch.float32
+    assert dtypes <= {(f32,), (f32, f32)}

@@ -82,7 +82,7 @@ def test_wrapper_runs_the_plain_version_on_the_cpu(head):
     nothing; W is cast to the feats' dtype before the product."""
     w, b = head
     x = torch.from_numpy(_feats(3)).to(torch.bfloat16)
-    n0 = port.head_argmax_1x1.launches
+    n0 = dict(port.head_argmax_1x1.launches)
     got = port.head_argmax_1x1(x, torch.from_numpy(w), torch.from_numpy(b))
     assert port.head_argmax_1x1.launches == n0
     ref = port.head_argmax_1x1_plain(x, torch.from_numpy(w).bfloat16(),

@@ -94,19 +94,23 @@ def test_cuda_requested_without_a_card_raises(monkeypatch):
 
 def test_cpu_tensors_never_move_a_launch_counter():
     """On CPU tensors every wrapper runs its plain version: a full
-    preds_only forward leaves every launch counter at 0."""
+    preds_only forward, bf16 and f32, leaves every launch counter at 0.
+    The serving kernels with an f32 form count it apart (``<name>_f32``)."""
     net = init_weights(Net(20), torch.Generator().manual_seed(0))
-    infer = build_fast_infer(net, preds_only=True, device="cpu")
-    kernels.reset_launch_counts()
     x = torch.rand(1, 32, 64, 3, generator=torch.Generator().manual_seed(1))
-    preds = infer(x)
-    assert preds.shape == (1, 32, 64) and preds.dtype == torch.int32
+    kernels.reset_launch_counts()
+    for dtype in (torch.bfloat16, torch.float32):
+        preds = build_fast_infer(net, dtype=dtype, preds_only=True,
+                                 device="cpu")(x)
+        assert preds.shape == (1, 32, 64) and preds.dtype == torch.int32
     counts = kernels.launch_counts()
     assert set(counts) == {"downsampler", "nb1d", "upsampler", "head_argmax",
                            "pair_fwd", "pair_bwd", "down_fwd", "down_bwd",
                            "head_loss_fwd", "head_loss_bwd", "ups_fwd",
                            "ups_bwd", "nb1d_q8", "nb1d_halo",
-                           "head_argmax_1x1"}
+                           "head_argmax_1x1", "downsampler_f32", "nb1d_f32",
+                           "upsampler_f32", "head_argmax_f32",
+                           "head_argmax_1x1_f32"}
     assert set(counts.values()) == {0}
 
 

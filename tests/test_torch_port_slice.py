@@ -1,8 +1,10 @@
 """PyTorch port, whole serving slice: the port's build_fast_infer
 (preds_only, on the CPU, i.e. every kernel's plain version) against the JAX
-package's build_fast_infer on the same weights and images."""
+package's build_fast_infer on the same weights and images, in f32 (the
+JAX default) and bf16."""
 
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -34,14 +36,19 @@ def _nets(seed):
     return params, state, from_jax(params, state)
 
 
-def test_slice_f32_matches_jax_xla():
-    """f32: predictions equal the JAX XLA path's except where its two
-    largest f32 logits are within 1e-4 (summation order may break such a
-    near-tie either way)."""
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_slice_f32_matches_jax_xla(use_pallas):
+    """f32, the JAX package's default dtype: predictions equal those of
+    the JAX XLA path, and of its default accelerator path with every
+    Pallas kernel (rows 1-3, 9, 14, 15-16 at f32) in interpret mode,
+    except where its two largest f32 logits are within 1e-4 (summation
+    order may break such a near-tie either way)."""
     params, state, sd = _nets(0)
     x = np.random.RandomState(1).rand(2, 64, 128, 3).astype(np.float32)
+    kw = {"interpret": True} if use_pallas else {}
     logits, ref = jax_fast_infer(params, state, dtype=jnp.float32,
-                                 use_pallas=False)(jnp.asarray(x))
+                                 use_pallas=use_pallas, **kw)(
+                                     jnp.asarray(x))
     ref = np.asarray(ref)
     top2 = np.sort(np.asarray(logits), axis=-1)[..., -2:]
     near_tie = (top2[..., 1] - top2[..., 0]) <= 1e-4

@@ -1,5 +1,5 @@
 """PyTorch port: the 1024x2048 streaming slice on the CPU — the routing of
-the large maps to the halo-tile block, ``StreamingSegmenter`` and
+the large maps, ``StreamingSegmenter`` and
 ``PngBatchSink``, and the data path under them (transforms, IoU, the
 Cityscapes dataset and loader, the CLIs' weights loader), each against
 its JAX counterpart.
@@ -51,11 +51,13 @@ def nets():
 
 def test_routing_under_a_small_budget(nets, monkeypatch):
     """With the port's and the JAX whole-map budgets both set to 24*32*128,
-    a 1x128x256 frame sends the C=64 and C=16 blocks to the halo-tile
-    block (the JAX blocked kernel: as many calls) and the C=128 run to
-    the whole-map block; its predictions equal those of the JAX fused path
-    with every Pallas kernel in interpret mode under the same budget (as
-    tests/test_fast_infer.py runs it), near-ties apart."""
+    a 1x128x256 frame at f32 sends every block, the C=64 and C=16 ones
+    whose maps fail the budget included, to the whole-map block (its f32
+    form takes any map; the halo-tile block is bf16 only), where the JAX
+    package runs its blocked kernel for those 9 blocks; its predictions
+    equal those of the JAX fused path with every Pallas kernel in
+    interpret mode under the same budget (as tests/test_fast_infer.py
+    runs it), near-ties apart."""
     params, state, sd = nets
     budget = 24 * 32 * 128
     monkeypatch.setattr(jinf, "_MAX_MAP_ELEMS", budget)
@@ -76,8 +78,8 @@ def test_routing_under_a_small_budget(nets, monkeypatch):
     x = np.random.RandomState(3).rand(1, 128, 256, 3).astype(np.float32)
     logits, preds = inference.build_fast_infer(
         sd, dtype=torch.float32, device="cpu")(torch.from_numpy(x))
-    assert calls == ([("nb1d_halo", 64)] * 5 + [("nb1d", 128)] * 8
-                     + [("nb1d_halo", 64)] * 2 + [("nb1d_halo", 16)] * 2)
+    assert calls == ([("nb1d", 64)] * 5 + [("nb1d", 128)] * 8
+                     + [("nb1d", 64)] * 2 + [("nb1d", 16)] * 2)
     jl, jp = jinf.build_fast_infer(params, state, dtype=jnp.float32,
                                    use_pallas=True, interpret=True,
                                    use_stack=False)(jnp.asarray(x))
