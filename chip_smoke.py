@@ -155,12 +155,9 @@ versions' convolutions and matmuls) and the flags restored after:
     host uint8 1024x2048 frames, the same checks; with int8 scales at
     f32, the int8 and f32 blocks as the gate decides at both sizes and
     the features bit-identical to the same path with the int8 block's
-    plain version; the encoder stage's eval features and 1x1-head
-    predictions at f32, B=6: launches 3 / 13 / 1 and the same agreement.
-    No entry point reaches the 1x1 head's f32 form yet (the f32 eval
-    step raises at its loss, whose head+loss kernel has no f32 form
-    until TPU row 17's lands; ``train_main`` trains bf16), so this part
-    makes the eval step's calls before its loss by hand.
+    plain version.  The encoder stage's f32 eval features and 1x1-head
+    predictions run through their entry point, ``make_eval_step(dtype=
+    f32)``, in phase 24, and ``train_main`` in phase 26.
 22. f32 timing and profile (CUDA events): ms/img at B=1 and B=4 at
     512x1024 and 1024x2048, the plain f32 pipeline at B=4; each f32 form
     summed over one B=4 512x1024 forward beside its plain version, its
@@ -207,6 +204,47 @@ run after phase 9:
     the val batches, and s per epoch from the arrival times of its log
     lines.
 
+Phases 23-26 (f32 training, the JAX default of ``train_main``) run after
+phase 19, with TF32 off and the flags restored after:
+
+23. f32 train parity: each train kernel's f32 form, forward and backward,
+    against its plain version on the card at every shape of both B=6
+    steps with B=2, phase 6's cases (random stat cotangents, dropout
+    masks with zeros, d=16, a pool window of ties, all-void batches)
+    plus ragged maps (the pair at 37x70 C=128 d=4, 45x91 C=64 and
+    131x257 C=16, d=160 beyond the map; downsamplers at 38x70, 46x90,
+    18x34; upsamplers at 9x70 and 5x7; the head+loss at M=1037).  Maps
+    by phase 20's rule (``F32_NORM_REL``, ``F32_MAX_REL``); weight and
+    bias gradients and BN sums within ``F32_GRAD_REL`` norm-relative;
+    losses within ``F32_LOSS_REL``.  Prints the measured maxima.
+24. f32 steps: ``make_train_step(enc=True, dtype=f32)`` takes 5 steps at
+    B=6 on uint8 512x1024 frames, then stage 2 on ``Net(20, encoder=
+    that encoder)`` 5 more: losses finite, the launches per step those
+    of phases 7-8 under the ``_f32`` names only (no bf16 launch), stage
+    2's peak device memory.  Step 1 of each stage from phase 7's (8's)
+    state and draw: twice (bit-identical state), every recorded train
+    kernel call against its plain version (phase 23's rules, pre-BN bias
+    gradients ``PRE_BN_BIAS_F32``), the loss within ``STEP_LOSS_REL`` of
+    the plain f32 step, and per gradient tensor phase 7's rule with the
+    f32 kernels in the bf16 kernels' place (the plain versions compute in
+    f32 by construction, so no float64 step exists); the ratio of the two
+    distances is printed.  Then ``make_eval_step(dtype=f32)`` of both
+    stages (launches 3 / 13 / 2 / 1 of ``downsampler_f32`` / ``nb1d_f32``
+    / ``head_loss_fwd_f32`` / ``head_argmax_1x1_f32``, and 3 / 17 / 2 /
+    2 / 1 with ``upsampler_f32`` and ``head_argmax_f32`` for stage 2;
+    the loss within ``EVAL_LOSS_REL`` of the plain f32 step's, >=
+    ``F32_AGREE`` of the predictions equal and every other one a near-tie)
+    and ``with_pred`` of both f32 steps, as phase 18.
+25. f32 train timing and profile, as phase 9: ms/step of both stages
+    through the f32 forms and the plain f32 versions; each f32 form per
+    step by PERF.md row beside its plain version, its bound (bytes over
+    3.35 TB/s or f32 operations over 67 TFLOP/s) and cuDNN's f32
+    convolutions (TF32 off); the device's busy share and time by kernel.
+26. The f32 trainer: ``train_main --iouTrain`` without ``--bf16``, as
+    phase 19 (2 epochs a stage): exit 0, no dtype note on stderr, its
+    printed launches exactly its steps' and eval batches' in the ``_f32``
+    forms, the killed and resumed run's ``model.pth`` bit-identical.
+
 The last three lines are the card (``nvidia-smi`` name and power limit),
 one JSON object listing every kernel, and the result object.  In that
 object the train kernels' figures are sums over one step of each stage,
@@ -215,11 +253,12 @@ block's figures are sums over one B=4 int8 forward, its launches the count
 of phase 11; the halo-tile block's are sums over one B=4 1024x2048
 forward, its launches the count of phase 15's color run; the encoder
 head's are one B=6 call, its launches the count of phase 19's run.  The
-f32 forms are listed as ``<kernel>_f32``: their figures are sums over one
-B=4 512x1024 f32 forward (the 1x1 head's one B=6 call), their launches
-the counts of phase 21's 512x1024 requests (the 1x1 head's: phase 21's
-hand-made call of the f32 encoder stage's eval calls, since no entry
-point reaches that form until row 17's f32 form lands).
+f32 forms are listed as ``<kernel>_f32``: the serving kernels' figures
+are sums over one B=4 512x1024 f32 forward (the 1x1 head's one B=6
+call), their launches the counts of phase 21's 512x1024 requests (the
+1x1 head's: phase 26's ``train_main`` run); the train kernels' are sums
+over one f32 step of each stage (phase 25), their launches the counts of
+phase 24's steps.
 """
 
 from __future__ import annotations
@@ -284,6 +323,8 @@ TRAIN_WRAPPERS = {"nb1d_pair": ("pair_fwd", "pair_bwd"),
                   "downsampler_train": ("down_fwd", "down_bwd"),
                   "head_loss": ("head_loss_fwd", "head_loss_bwd"),
                   "upsampler_train": ("ups_fwd", "ups_bwd")}
+TRAIN_WRAPPER_NAMES = tuple(w for ws in TRAIN_WRAPPERS.values()
+                            for w in ws)
 
 
 class PhaseError(RuntimeError):
@@ -1222,7 +1263,6 @@ def phase_stream(sd, device):
     / 2 / 1 of the ``_f32`` forms, no bf16 launch)."""
     import tempfile
     import torch
-    from erfnet_pytorch_tpu_torch.cli._device_flags import F32_ON_CARD
     from erfnet_pytorch_tpu_torch.data.transforms import (
         colorize, to_tensor, train_id_to_label_id)
     from erfnet_pytorch_tpu_torch.inference import build_plain_infer
@@ -1336,9 +1376,8 @@ def phase_stream(sd, device):
                 ok = len(said) == 2 and "dtype f32" in said[0]
             if r.stderr.strip():
                 log(f"  {cli} stderr: {r.stderr.strip()[-500:]}")
-            if F32_ON_CARD in r.stderr:
-                raise PhaseError(f"{cli}: says it trains bf16 on the card; "
-                                 "only train_main may")
+            if "bf16 on the card" in r.stderr:
+                raise PhaseError(f"{cli}: says it runs bf16 on the card")
             launched = [ln for ln in r.stdout.splitlines()
                         if ln.startswith("kernel launches ")]
             if len(launched) != 1:
@@ -1477,9 +1516,6 @@ F32_FORMS = ("downsampler", "nb1d", "upsampler", "head_argmax",
              "head_argmax_1x1")
 F32_PER_FORWARD = {"downsampler_f32": 3, "nb1d_f32": 17, "upsampler_f32": 2,
                    "head_argmax_f32": 1}
-# the encoder stage's eval features and predictions at f32
-F32_ENC_PER_CALL = {"downsampler_f32": 3, "nb1d_f32": 13,
-                    "head_argmax_1x1_f32": 1}
 # with int8 scales: 512x1024 every block int8; 1024x2048 the C=128 stack
 # int8 and the C=64 / C=16 blocks (off the whole-map gate) the f32 block
 F32_Q8_PER_FORWARD = {
@@ -1686,19 +1722,15 @@ def phase_f32_serving(sd, q8_scales, device):
     on the host.  (c) With int8 scales (phase 10's at 512x1024, one
     1024x2048 batch's at 1024x2048), at f32: int8 and f32 blocks as the
     gate decides (F32_Q8_PER_FORWARD), the features bit-identical to the
-    same path with the int8 block's plain version.  (d) The encoder
-    stage's eval features and predictions at f32, B=6: launches 3 / 13 /
-    1 (downsampler / nb1d / the 1x1 head), agreement as in (a).  These
-    are the calls make_eval_step(enc=True) makes before its loss, made
-    here by hand: no entry point reaches the 1x1 head's f32 form until
-    the head+loss kernel (row 17) has an f32 form, for the f32 eval step
-    raises at its loss and train_main trains bf16.
-    Returns (launch counts of (a), of (d), agreements)."""
+    same path with the int8 block's plain version.  The encoder stage's
+    f32 features and 1x1-head predictions run through their entry point,
+    make_eval_step(dtype=f32), in phase 24.
+    Returns (launch counts of (a), agreements)."""
     import torch
     from erfnet_pytorch_tpu_torch.data import to_tensor
     from erfnet_pytorch_tpu_torch.inference import (
-        KERNEL_OPS, PLAIN_OPS, build_fast_infer, build_plain_infer,
-        encoder_features, features, prepare)
+        KERNEL_OPS, PLAIN_OPS, build_fast_infer, build_plain_infer, features,
+        prepare)
     from erfnet_pytorch_tpu_torch.ops import cuda as kernels
     from erfnet_pytorch_tpu_torch.quantize import calibrate_q8_scales
     from erfnet_pytorch_tpu_torch.streaming import StreamingSegmenter
@@ -1775,27 +1807,8 @@ def phase_f32_serving(sd, q8_scales, device):
                              "blocks")
         out[f"int8_agreement_plain_{hw[0]}x{hw[1]}"] = a
 
-    log("[f32 encoder] the encoder stage's eval features and 1x1-head "
-        "predictions at f32, B=6, called by hand (no entry point reaches "
-        "the 1x1 head's f32 form before row 17's f32 form lands)")
-    prep = prepare(sd, f32, device, encoder_only=True)
-    hp = prep["enc_head"]
-    x = to_tensor(torch.randint(0, 256, (TRAIN_B,) + SERVE_HW + (3,),
-                                generator=g, dtype=torch.uint8).to(device))
-    with torch.inference_mode():
-        kernels.reset_launch_counts()
-        f2 = encoder_features(prep, x, f32, KERNEL_OPS).reshape(-1, HEAD1_K)
-        pr = KERNEL_OPS["head1"](f2, hp["w"], hp["b"])
-        torch.cuda.synchronize()
-        enc_counts = kernels.launch_counts()
-        log(f"  launches { {k: v for k, v in enc_counts.items() if v} }")
-        _check_counts(enc_counts, F32_ENC_PER_CALL, 1, "f32 encoder")
-        p2 = encoder_features(prep, x, f32, PLAIN_OPS).reshape(-1, HEAD1_K)
-        ref = PLAIN_OPS["head1"](p2, hp["w"], hp["b"])
-        out["encoder_agreement"] = _f32_agreement(
-            "encoder predictions", pr, ref, p2 @ hp["w"] + hp["b"])
     kernels.reset_launch_counts()
-    return counts, enc_counts, out
+    return counts, out
 
 
 def phase_f32_timing(sd, device, iters):
@@ -1915,6 +1928,24 @@ LOSS_REL = 1e-4
 # norm-relative.
 PRE_BN_BIAS_ULP = 2.0 ** -8
 PRE_BN_BIAS_OUT = {"pair_bwd": "dbw", "down_bwd": 2, "ups_bwd": 2}
+# The train kernels' f32 forms (phases 23-24): maps by phase 20's rule
+# (F32_NORM_REL, F32_MAX_REL); weight and bias gradients and BN sums,
+# f32 sums over up to 3.1 M terms in other orders, within F32_GRAD_REL
+# norm-relative; the loss sums within F32_LOSS_REL.  In a real step the
+# pre-BN bias gradients (see PRE_BN_BIAS_ULP) are held to PRE_BN_BIAS_F32
+# x ||sum |g|||: both sides sum the same f32 g (bit-identical fold) in
+# other orders, so they differ by the rounding of the partial sums.  The
+# first run measured at most 1.850e-06 for the gradients and sums and
+# 9.094e-09 for the pre-BN biases (PERF.md §6): the limits were 1e-5 and
+# 2^-16 and are now about three and seven times those.
+F32_GRAD_REL = 5e-6
+F32_LOSS_REL = 1e-6
+PRE_BN_BIAS_F32 = 2.0 ** -24
+# the outputs of each train wrapper that are maps (the others are weight
+# and bias gradients, BN sums and the loss sums)
+MAP_OUT = {"pair_fwd": (0, 1, 2), "pair_bwd": ("dx", "dt", "dy_res"),
+           "down_fwd": (0, 1), "down_bwd": (0,), "ups_fwd": (0,),
+           "ups_bwd": (0,), "head_loss_bwd": (0,)}
 
 
 def pair_cases(B):
@@ -1969,19 +2000,20 @@ def compare_f32(name, got, ref, rel=F32_REL):
     return r
 
 
-def pair_inputs(mode, shape, d, g, device):
+def pair_inputs(mode, shape, d, g, device, dtype=None):
     """Seeded inputs of one pair call: post-ReLU x for the first pair, a
     signed pre-BN map for the others, weights at the conv's fan-in scale,
     BN coefficients near 1 and 0, a dropout mask with real zeros (ones at
-    C=16: the decoder drops nothing)."""
+    C=16: the decoder drops nothing); maps in ``dtype`` (bf16)."""
     import torch
     B, H, W, C = shape
+    dtype = dtype or torch.bfloat16
 
     def rn(*s, scale=1.0):
         return (scale * torch.randn(*s, generator=g)).to(device)
 
     x = rn(*shape)
-    kw = {"x": (x.relu() if mode == "none" else x).bfloat16(),
+    kw = {"x": (x.relu() if mode == "none" else x).to(dtype),
           "wh": rn(3, C, C, scale=(3 * C) ** -0.5), "bh": rn(C, scale=0.1),
           "ww": rn(3, C, C, scale=(3 * C) ** -0.5), "bw": rn(C, scale=0.1),
           "dil": d}
@@ -1989,7 +2021,7 @@ def pair_inputs(mode, shape, d, g, device):
         kw["a"] = 1.0 + rn(C, scale=0.1)
         kw["b"] = rn(C, scale=0.1)
     if mode == "epi":
-        kw["yres"] = rn(*shape).relu().bfloat16()
+        kw["yres"] = rn(*shape).relu().to(dtype)
         keep = torch.rand(B, C, generator=g) < KEEP
         kw["m"] = (torch.where(keep, 1.0 / KEEP, 0.0) if C != 16
                    else torch.ones(B, C)).to(device)
@@ -1998,52 +2030,57 @@ def pair_inputs(mode, shape, d, g, device):
 
 def pair_saved(mode, kw, fwd_out):
     t0, t1, z = fwd_out[:3]
-    bf = __import__("torch").bfloat16
+    dt = kw["x"].dtype
     return {"x": kw["x"], "t0": t0, "t1": t1, "z": z,
-            "wh": kw["wh"].to(bf), "ww": kw["ww"].to(bf),
+            "wh": kw["wh"].to(dt), "ww": kw["ww"].to(dt),
             "a": kw.get("a"), "m": kw.get("m"), "dil": kw["dil"]}
 
 
-def pair_cotangents(mode, shape, g, device):
+def pair_cotangents(mode, shape, g, device, dtype=None):
     import torch
+    dtype = dtype or torch.bfloat16
     B, C = shape[0], shape[-1]
-    ct = {"gz": torch.randn(*shape, generator=g).to(device).bfloat16(),
+    ct = {"gz": torch.randn(*shape, generator=g).to(device).to(dtype),
           "gs1": (1e-3 * torch.randn(B, C, generator=g)).to(device),
           "gs2": (1e-3 * torch.randn(B, C, generator=g)).to(device)}
     if mode == "epi":
-        ct["gy"] = torch.randn(*shape, generator=g).to(device).bfloat16()
+        ct["gy"] = torch.randn(*shape, generator=g).to(device).to(dtype)
     return ct
 
 
-def down_inputs(label, shape, cc, g, device):
+def down_inputs(label, shape, cc, g, device, dtype=None):
     """x (the f32 image with per-image shifts for the stem, a signed map
     after a ReLU otherwise, with one 2x2 pool window of four equal values
-    in every image and channel), HWIO weights, bias."""
+    in every image and channel), HWIO weights, bias; the compute dtype
+    ``dtype`` (bf16)."""
     import torch
+    dtype = dtype or torch.bfloat16
     B, H, W, cin = shape
     if label == "stem":
         x = torch.rand(*shape, generator=g).to(device)
         shifts = torch.tensor([[-2, 1], [2, -1], [0, 2], [1, -2], [-1, 0],
                                [2, 2]][:B])
-        kw = {"shifts": shifts.to(device), "dtype": torch.bfloat16}
+        kw = {"shifts": shifts.to(device), "dtype": dtype}
     else:
         x = torch.randn(*shape, generator=g).relu()
         x[:, 2:4, 6:8, :] = 0.75                     # a window of ties
-        x = x.to(device).bfloat16()
+        x = x.to(device).to(dtype)
         kw = {}
     w = (torch.randn(3, 3, cin, cc, generator=g) * (9 * cin) ** -0.5)
     b = 0.1 * torch.randn(cc, generator=g)
     return x, w.to(device), b.to(device), kw
 
 
-def head_inputs(M, g, device, all_void=False, G=1):
+def head_inputs(M, g, device, all_void=False, G=1, dtype=None):
     """G=1: the encoder head (K=128, labels (M,)); G=4: the decoder head
-    (K=16, W (16, 4n), labels (M, 4) in plane order)."""
+    (K=16, W (16, 4n), labels (M, 4) in plane order); feats in ``dtype``
+    (bf16)."""
     import torch
     from erfnet_pytorch_tpu_torch.training.class_weights import (
         DECODER_WEIGHTS, ENCODER_WEIGHTS)
     K = 128 if G == 1 else 16
-    feats = torch.randn(M, K, generator=g).relu().to(device).bfloat16()
+    feats = torch.randn(M, K, generator=g).relu().to(device).to(
+        dtype or torch.bfloat16)
     w = ((0.1 if G == 1 else 0.3)
          * torch.randn(K, G * N_CLASSES, generator=g)).to(device)
     b = (0.1 * torch.randn(N_CLASSES, generator=g)).repeat(G).to(device)
@@ -2057,94 +2094,149 @@ def head_inputs(M, g, device, all_void=False, G=1):
     return feats, w, b, labels.to(device), cw.to(device)
 
 
-def ups_inputs(shape, cout, g, device):
-    """x (post-ReLU bf16), the forward-conv HWIO weight and the bias of a
-    train upsampler call."""
+def ups_inputs(shape, cout, g, device, dtype=None):
+    """x (post-ReLU, in ``dtype``: bf16), the forward-conv HWIO weight and
+    the bias of a train upsampler call."""
     import torch
     B, H, W, cin = shape
-    x = torch.randn(*shape, generator=g).relu().to(device).bfloat16()
+    x = torch.randn(*shape, generator=g).relu().to(device).to(
+        dtype or torch.bfloat16)
     w = (torch.randn(3, 3, cin, cout, generator=g) * (9 * cin) ** -0.5)
     b = 0.1 * torch.randn(cout, generator=g)
     return x, w.to(device), b.to(device)
 
 
-def phase_train_parity(device):
+def _checks(dtype, worst):
+    """(map check, f32-output check, loss bound) of a train kernel's form:
+    bf16 as in phase 6; f32 (phase 23) maps by phase 20's rule, weight and
+    bias gradients and BN sums within F32_GRAD_REL norm-relative, the loss
+    F32_LOSS_REL; the measured maxima are folded into ``worst``."""
+    import torch
+    if dtype == torch.bfloat16:
+        return compare_bf16, compare_f32, 1e-4
+
+    def sums(name, got, ref):
+        r = compare_f32(name, got, ref, F32_GRAD_REL)
+        worst["grad"] = max(worst["grad"], r)
+        return r
+    return (lambda name, got, ref: compare_f32_form(name, got, ref, worst),
+            sums, F32_LOSS_REL)
+
+
+def phase_train_parity(device, dtype=None, ragged=False):
     """Each train kernel, forward and backward, against its plain version
-    on the same inputs, at every shape of the B=6 step with B=2."""
+    on the same inputs, at every shape of the B=6 step with B=2, in the
+    form of ``dtype`` (bf16: phase 6; f32: phase 23, with ``ragged`` maps
+    too).  Returns (the largest map error by kernel, the measured maxima
+    of the f32 rules)."""
     import torch
     from erfnet_pytorch_tpu_torch.ops.cuda import downsampler_train as dt
     from erfnet_pytorch_tpu_torch.ops.cuda import head_loss as hl
     from erfnet_pytorch_tpu_torch.ops.cuda import nb1d_pair as pr
     from erfnet_pytorch_tpu_torch.ops.cuda import upsampler_train as ut
+    dtype = dtype or torch.bfloat16
+    bf16 = dtype == torch.bfloat16
     B = 2
-    g = torch.Generator().manual_seed(11)
+    g = torch.Generator().manual_seed(11 if bf16 else 71)
     errs = {k: 0.0 for k in TRAIN_WRAPPERS}
-    log("[train parity] train kernels vs plain on the card, B=2, bf16 "
-        f"(f32 outputs: norm-relative <= {F32_REL})")
+    worst = {"norm": 0.0, "rel": 0.0, "grad": 0.0, "loss": 0.0,
+             "tie_flips": 0}
+    cmp_map, cmp_sum, loss_rel = _checks(dtype, worst)
+    if bf16:
+        log("[train parity] train kernels vs plain on the card, B=2, bf16 "
+            f"(f32 outputs: norm-relative <= {F32_REL})")
+    else:
+        log("[f32 train parity] the train kernels' f32 forms vs plain on the "
+            f"card, B=2, TF32 off (maps: norm rel <= {F32_NORM_REL:g}, max "
+            f"rel <= {F32_MAX_REL:g}; gradients and sums: norm rel <= "
+            f"{F32_GRAD_REL:g}; losses <= {F32_LOSS_REL:g})")
     seen = set()
-    for mode, shape, d, _n in pair_cases(B) + dec_pair_cases(B):
+    pairs = pair_cases(B) + dec_pair_cases(B)
+    if ragged:
+        pairs += [("epi", (B, 37, 70, 128), 4, 0), ("affine", (1, 45, 91, 64),
+                                                   1, 0),
+                  ("epi", (1, 131, 257, 16), 1, 0),
+                  ("affine", (B, 64, 128, 128), 160, 0)]
+    for mode, shape, d, _n in pairs:
         if (mode, shape, d) in seen:
             continue
         seen.add((mode, shape, d))
         tag = f"pair {mode} C{shape[-1]} d{d}"
-        kw = pair_inputs(mode, shape, d, g, device)
+        if shape[1:3] not in ((64, 128), (128, 256), (256, 512)):
+            tag += f" {shape[1]}x{shape[2]}"
+        kw = pair_inputs(mode, shape, d, g, device, dtype)
         got = pr.pair_fwd(mode, **kw)
         ref = pr.pair_fwd_plain(mode, **kw)
         names = ("t0", "t1", "z") if mode != "none" else ("t1", "z")
         for nm in names:
             i = ("t0", "t1", "z").index(nm)
-            errs["nb1d_pair"] = max(errs["nb1d_pair"], compare_bf16(
+            errs["nb1d_pair"] = max(errs["nb1d_pair"], cmp_map(
                 f"{tag} fwd {nm}", got[i], ref[i]))
-        compare_f32(f"{tag} fwd s1", got[3], ref[3])
-        compare_f32(f"{tag} fwd s2", got[4], ref[4])
+        cmp_sum(f"{tag} fwd s1", got[3], ref[3])
+        cmp_sum(f"{tag} fwd s2", got[4], ref[4])
         saved = pair_saved(mode, kw, ref)
-        ct = pair_cotangents(mode, shape, g, device)
+        ct = pair_cotangents(mode, shape, g, device, dtype)
         got = pr.pair_bwd(mode, saved, **ct)
         ref = pr.pair_bwd_plain(mode, saved, **ct)
         for nm, v in ref.items():
-            if v.dtype == torch.bfloat16:
-                errs["nb1d_pair"] = max(errs["nb1d_pair"], compare_bf16(
+            if nm in ("dx", "dt", "dy_res"):
+                errs["nb1d_pair"] = max(errs["nb1d_pair"], cmp_map(
                     f"{tag} bwd {nm}", got[nm], v))
             else:
-                compare_f32(f"{tag} bwd {nm}", got[nm], v)
-    for label, shape, cc in down_train_cases(B):
-        x, w, b, kw = down_inputs(label, shape, cc, g, device)
+                cmp_sum(f"{tag} bwd {nm}", got[nm], v)
+    downs = down_train_cases(B)
+    if ragged:
+        downs += [("stem", (B, 38, 70, 3), 13), ("down 16->", (1, 46, 90, 16),
+                                                 48),
+                  ("down 64->", (1, 18, 34, 64), 64)]
+    for label, shape, cc in downs:
+        if shape[1:3] not in ((512, 1024), (256, 512), (128, 256)):
+            label = f"{label} {shape[1]}x{shape[2]}"
+        x, w, b, kw = down_inputs(label.split()[0] if label.startswith(
+            "stem") else label, shape, cc, g, device, dtype)
         got = dt.down_fwd(x, w, b, **kw)
         ref = dt.down_fwd_plain(x, w, b, **kw)
         for i, nm in enumerate(("xa", "y")):
             errs["downsampler_train"] = max(
                 errs["downsampler_train"],
-                compare_bf16(f"{label} fwd {nm}", got[i], ref[i]))
-        compare_f32(f"{label} fwd s1", got[2], ref[2])
-        compare_f32(f"{label} fwd s2", got[3], ref[3])
+                cmp_map(f"{label} fwd {nm}", got[i], ref[i]))
+        cmp_sum(f"{label} fwd s1", got[2], ref[2])
+        cmp_sum(f"{label} fwd s2", got[3], ref[3])
         xa, y = ref[0], ref[1]
         cout = y.shape[-1]
-        gy = torch.randn(*y.shape, generator=g).to(device).bfloat16()
+        gy = torch.randn(*y.shape, generator=g).to(device).to(dtype)
         gs1 = (1e-3 * torch.randn(shape[0], cout, generator=g)).to(device)
         gs2 = (1e-3 * torch.randn(shape[0], cout, generator=g)).to(device)
-        stem = label == "stem"
+        stem = label.startswith("stem")
         got = dt.down_bwd(xa, y, gy, gs1, gs2, w, stem=stem)
         ref = dt.down_bwd_plain(xa, y, gy, gs1, gs2, w, stem=stem)
         if not stem:
             errs["downsampler_train"] = max(
                 errs["downsampler_train"],
-                compare_bf16(f"{label} bwd dx", got[0], ref[0]))
-        compare_f32(f"{label} bwd dW", got[1], ref[1])
-        compare_f32(f"{label} bwd db", got[2], ref[2])
-    for G, all_void in ((1, False), (1, True), (4, False), (4, True)):
+                cmp_map(f"{label} bwd dx", got[0], ref[0]))
+        cmp_sum(f"{label} bwd dW", got[1], ref[1])
+        cmp_sum(f"{label} bwd db", got[2], ref[2])
+    heads = [(1, False, None), (1, True, None), (4, False, None),
+             (4, True, None)]
+    if ragged:
+        heads += [(1, False, 1037), (4, False, 1037)]
+    for G, all_void, M in heads:
+        M = M or (head_loss_rows(B) if G == 1 else head4_rows(B))
         tag = f"head_loss G{G}{' all-void' if all_void else ''}"
-        feats, w, b, labels, cw = head_inputs(
-            head_loss_rows(B) if G == 1 else head4_rows(B), g, device,
-            all_void, G)
+        if M not in (head_loss_rows(B), head4_rows(B)):
+            tag += f" M={M}"
+        feats, w, b, labels, cw = head_inputs(M, g, device, all_void, G,
+                                              dtype)
         num, den = hl.head_loss_fwd(feats, w, b, labels, cw)
         pnum, pden = hl.head_loss_fwd_plain(feats, w, b, labels, cw)
         loss = (num / den.clamp_min(1e-12)).item()
         ploss = (pnum / pden.clamp_min(1e-12)).item()
         rel = abs(loss - ploss) / max(abs(ploss), 1e-30)
+        worst["loss"] = max(worst["loss"], rel)
         log(f"  {tag} fwd: loss {loss:.6f} vs plain {ploss:.6f} "
             f"(rel {rel:.2e}), den {den.item():.1f} vs {pden.item():.1f}")
-        if (not torch.isfinite(num) or rel > 1e-4
-                or abs(den.item() - pden.item()) > 1e-4 * abs(pden.item())
+        if (not torch.isfinite(num) or rel > loss_rel
+                or abs(den.item() - pden.item()) > loss_rel * abs(pden.item())
                 or (all_void and (num.item() != 0 or den.item() != 0))):
             raise PhaseError(f"{tag}: forward disagrees with the plain one")
         gnum = 1.0 / den.clamp_min(1e-12)
@@ -2155,30 +2247,40 @@ def phase_train_parity(device):
                 raise PhaseError(f"{tag}: non-zero gradient")
             log(f"  {tag} bwd: all gradients 0 -> ok")
             continue
-        errs["head_loss"] = max(errs["head_loss"], compare_bf16(
+        errs["head_loss"] = max(errs["head_loss"], cmp_map(
             f"{tag} bwd dfeats", got[0], ref[0]))
-        compare_f32(f"{tag} bwd dW", got[1], ref[1])
-        compare_f32(f"{tag} bwd db", got[2], ref[2])
-    for label, shape, cout in up_train_cases(B):
-        x, w, b = ups_inputs(shape, cout, g, device)
+        cmp_sum(f"{tag} bwd dW", got[1], ref[1])
+        cmp_sum(f"{tag} bwd db", got[2], ref[2])
+    ups = up_train_cases(B)
+    if ragged:
+        ups += [("up 64->16 9x70", (B, 9, 70, 64), 16),
+                ("up 128->64 5x7", (1, 5, 7, 128), 64)]
+    for label, shape, cout in ups:
+        x, w, b = ups_inputs(shape, cout, g, device, dtype)
         got = ut.ups_fwd(x, w, b)
         ref = ut.ups_fwd_plain(x, w, b)
-        errs["upsampler_train"] = max(errs["upsampler_train"], compare_bf16(
+        errs["upsampler_train"] = max(errs["upsampler_train"], cmp_map(
             f"{label} fwd y", got[0], ref[0]))
-        compare_f32(f"{label} fwd s1", got[1], ref[1])
-        compare_f32(f"{label} fwd s2", got[2], ref[2])
+        cmp_sum(f"{label} fwd s1", got[1], ref[1])
+        cmp_sum(f"{label} fwd s2", got[2], ref[2])
         y = ref[0]
-        gy = torch.randn(*y.shape, generator=g).to(device).bfloat16()
-        gs1 = (1e-3 * torch.randn(B, cout, generator=g)).to(device)
-        gs2 = (1e-3 * torch.randn(B, cout, generator=g)).to(device)
+        gy = torch.randn(*y.shape, generator=g).to(device).to(dtype)
+        gs1 = (1e-3 * torch.randn(shape[0], cout, generator=g)).to(device)
+        gs2 = (1e-3 * torch.randn(shape[0], cout, generator=g)).to(device)
         got = ut.ups_bwd(x, y, gy, gs1, gs2, w)
         ref = ut.ups_bwd_plain(x, y, gy, gs1, gs2, w)
-        errs["upsampler_train"] = max(errs["upsampler_train"], compare_bf16(
+        errs["upsampler_train"] = max(errs["upsampler_train"], cmp_map(
             f"{label} bwd dx", got[0], ref[0]))
-        compare_f32(f"{label} bwd dW", got[1], ref[1])
-        compare_f32(f"{label} bwd db", got[2], ref[2])
+        cmp_sum(f"{label} bwd dW", got[1], ref[1])
+        cmp_sum(f"{label} bwd db", got[2], ref[2])
     torch.cuda.synchronize()
-    return errs
+    if not bf16:
+        log(f"  measured maxima: maps norm rel {worst['norm']:.3e} (limit "
+            f"{F32_NORM_REL:g}), max rel {worst['rel']:.3e} (limit "
+            f"{F32_MAX_REL:g}); gradients and sums norm rel "
+            f"{worst['grad']:.3e} (limit {F32_GRAD_REL:g}); losses "
+            f"{worst['loss']:.3e} (limit {F32_LOSS_REL:g})")
+    return errs, worst
 
 
 def train_data(g, B, steps):
@@ -2259,7 +2361,7 @@ def _call_label(name, args, kwargs):
 
 def _pre_bn_bias_scale(name, args):
     """Per channel, the sum over the batch's pixels of |g|, the summands
-    of a pre-BN conv bias's gradient."""
+    of a pre-BN conv bias's gradient (g in the call's compute dtype)."""
     import torch
     if name == "pair_bwd":
         saved, gz, gs1, gs2 = args[1:5]
@@ -2269,58 +2371,95 @@ def _pre_bn_bias_scale(name, args):
         cc = w.shape[3]
     bc = (slice(None), None, None, slice(None))
     g = (gz.float() + gs1.float()[bc] + 2.0 * z.float() * gs2.float()[bc])
-    return g.bfloat16().float()[..., :cc].abs().sum((0, 1, 2))
+    return g.to(z.dtype).float()[..., :cc].abs().sum((0, 1, 2))
 
 
-def check_recorded_calls(calls):
+def _call_dtype(name, args, kwargs):
+    """The compute dtype of a recorded train-kernel call (its form)."""
+    if name == "pair_fwd":
+        return args[1].dtype
+    if name == "pair_bwd":
+        return args[1]["x"].dtype
+    if name == "down_fwd" and kwargs.get("shifts") is not None:
+        return kwargs["dtype"]
+    return args[0].dtype
+
+
+def check_recorded_calls(calls, worst=None):
     """Each recorded train-kernel call of the B=6 step against its plain
-    version on the same (recorded) inputs.  Returns the largest bf16
-    absolute error by kernel."""
+    version on the same (recorded) inputs, by the rules of the call's
+    form: bf16 as in phase 6 (maps by the one-ulp rule, f32 outputs
+    F32_REL, the loss sums LOSS_REL, pre-BN bias gradients
+    PRE_BN_BIAS_ULP); f32 as in phase 23 (maps by phase 20's rule, f32
+    outputs F32_GRAD_REL, the loss sums F32_LOSS_REL, pre-BN bias
+    gradients PRE_BN_BIAS_F32).  Returns the largest map absolute error
+    by kernel; folds the f32 calls' measured maxima into ``worst``."""
     import torch
     from erfnet_pytorch_tpu_torch.ops import cuda as kernels
     plain = {f.__name__: f.plain for f in kernels.kernel_wrappers()
              if hasattr(f, "plain")}
     kernel_of = {w: k for k, ws in TRAIN_WRAPPERS.items() for w in ws}
     errs = {k: 0.0 for k in TRAIN_WRAPPERS}
+    worst = {} if worst is None else worst
+    for k in ("norm", "rel", "grad", "loss", "pre_bn"):
+        worst.setdefault(k, 0.0)
     agg, bad = {}, []
     for name, args, kwargs, got in calls:
         ref = plain[name](*args, **kwargs)
         label = _call_label(name, args, kwargs)
+        f32 = _call_dtype(name, args, kwargs) == torch.float32
         for k, r in (ref.items() if isinstance(ref, dict)
                      else enumerate(ref)):
             if r is None:
                 continue
             key = f"{label} [{k}]"
-            a = agg.setdefault(key, {"calls": 0, "bf16": r.dtype ==
-                                     torch.bfloat16, "within1": 1.0,
-                                     "ulps": 0, "rel": 0.0, "abs": 0.0})
+            kind = ("map" if k in MAP_OUT.get(name, ()) else
+                    "loss" if name == "head_loss_fwd" else
+                    "pre_bn" if PRE_BN_BIAS_OUT.get(name) == k else "grad")
+            a = agg.setdefault(key, {"calls": 0, "kind": kind, "f32": f32,
+                                     "within1": 1.0, "ulps": 0, "rel": 0.0,
+                                     "norm": 0.0, "abs": 0.0})
             a["calls"] += 1
-            if a["bf16"]:
+            if kind == "map" and not f32:
                 w1, ulps, rel, err, ok = bf16_metrics(key, got[k], r)
                 a["within1"] = min(a["within1"], w1)
                 a["ulps"] = max(a["ulps"], ulps)
-                a["abs"] = max(a["abs"], err)
-                errs[kernel_of[name]] = max(errs[kernel_of[name]], err)
+            elif kind == "map":
+                norm, rel, err = f32_metrics(key, got[k], r)
+                ok = norm <= F32_NORM_REL and rel <= F32_MAX_REL
+                a["norm"] = max(a["norm"], norm)
+                worst["norm"] = max(worst["norm"], norm)
+                worst["rel"] = max(worst["rel"], rel)
             else:
                 g, rf = got[k].float(), r.float()
                 if not torch.isfinite(g).all():
                     raise PhaseError(f"{key}: non-finite output")
-                if PRE_BN_BIAS_OUT.get(name) == k:
+                if kind == "pre_bn":
                     scale = _pre_bn_bias_scale(name, args).norm()
-                    bound, a["scale"] = PRE_BN_BIAS_ULP, "sum|g|"
+                    bound = PRE_BN_BIAS_F32 if f32 else PRE_BN_BIAS_ULP
+                    a["scale"] = "sum|g|"
+                elif kind == "loss":
+                    scale, bound = rf.norm(), F32_LOSS_REL if f32 else LOSS_REL
                 else:
-                    scale = rf.norm()
-                    bound = LOSS_REL if name == "head_loss_fwd" else F32_REL
+                    scale, bound = rf.norm(), F32_GRAD_REL if f32 else F32_REL
                 rel = ((g - rf).norm() / scale.clamp_min(1e-30)).item()
                 ok = rel <= bound
+                if f32:
+                    worst[kind] = max(worst[kind], rel)
+            if kind == "map":
+                a["abs"] = max(a["abs"], err)
+                errs[kernel_of[name]] = max(errs[kernel_of[name]], err)
             a["rel"] = max(a["rel"], rel)
             if not ok:
                 bad.append(key)
     for key, a in agg.items():
-        if a["bf16"]:
+        if a["kind"] == "map" and not a["f32"]:
             log(f"  {key} x{a['calls']}: within 1 ulp >= {a['within1']:.6f}"
                 f", max ulps {a['ulps']}, max rel {a['rel']:.3e}, max abs "
                 f"{a['abs']:.3e}")
+        elif a["kind"] == "map":
+            log(f"  {key} x{a['calls']}: norm rel <= {a['norm']:.3e}, max "
+                f"rel {a['rel']:.3e}, max abs {a['abs']:.3e}")
         else:
             log(f"  {key} x{a['calls']}: norm-relative"
                 f"{' to ' + a['scale'] if 'scale' in a else ''} <= "
@@ -2424,10 +2563,14 @@ def phase_train(sd, device):
                          f"plain versions: {bad[:5]}, loss rel {rel:.2e}, "
                          f"decoder grad {dec}")
     worst = [(r[0], r[3]) for r in rows]
+    # step 1's draw and its plain bf16 and f32 gradients: phase 24's
+    # yardstick for the f32 kernels on the same step
+    ref = {"args": args, "grads_plain": gradsp, "grads_plain_f32": gradsf,
+           "loss_plain_f32": lossf}
     return net, counts, losses, rerrs, {
         "step1_loss_rel": rel,
         "step1_grad_rel_median": worst[len(worst) // 2][0],
-        "step1_grad_rel_max": worst[0][0]}
+        "step1_grad_rel_max": worst[0][0]}, ref
 
 
 def run_step1(sd, device, frames, labels, aug, masks, *, enc, plain=False,
@@ -2533,7 +2676,7 @@ def phase_train2(encoder, device):
         raise PhaseError(f"recorded calls {n_calls}, expected {want}")
     rerrs = check_recorded_calls(calls)
     del calls
-    lossp, _, _, _ = run_step1(sd2, *args, enc=False, plain=True)
+    lossp, gradsp, _, _ = run_step1(sd2, *args, enc=False, plain=True)
     rel = abs(loss1 - lossp) / abs(lossp)
     log(f"  stage-2 step 1 loss: kernels {loss1:.6f}, plain {lossp:.6f} "
         f"(rel {rel:.2e}, bound {STEP_LOSS_REL})")
@@ -2542,13 +2685,198 @@ def phase_train2(encoder, device):
                          f"disagrees with the plain path: rel {rel:.2e}")
     return sd2, counts, losses, rerrs, {"step1_loss_rel": rel,
                                         "peak_mem_gib": peak,
-                                        "peak_mem_recorded_gib": peak_rec}
+                                        "peak_mem_recorded_gib": peak_rec}, {
+        "args": args, "grads_plain": gradsp}
 
 
-def _flops_bytes_pair(mode, shape, bwd):
+# ---------------------------------------------------------------------------
+# the f32 train path (the JAX default of train_main): phases 23-26
+# ---------------------------------------------------------------------------
+
+def f32_names(counts):
+    """A bf16 launch table under the f32 forms' counter names."""
+    return {f"{k}_f32": v for k, v in counts.items()}
+
+
+def _check_f32_train_counts(counts, per_step, n, what):
+    """n steps' launches: each train wrapper's f32 form as many times as
+    the bf16 step launches it (``per_step``), no bf16 form, nothing
+    else."""
+    want = f32_names({k: n * v for k, v in per_step.items() if v})
+    got = {k: v for k, v in counts.items() if v}
+    if got != want:
+        raise PhaseError(f"{what}: launches {got}, expected {want}")
+
+
+def _grad_yardstick(grads, gradsp, gradsf, what):
+    """The f32 kernel step's gradients against phase 7's rule: per tensor
+    ||kernel f32 - plain f32|| <= STEP_NOISE_X ||plain bf16 - plain f32||
+    + STEP_GRAD_REL ||plain f32||, on the same state and draw.  (The plain
+    versions compute in f32 by construction, .float() at every product,
+    and the parameters are f32, so no float64 step through them exists to
+    hold both f32 steps against.)  Pre-BN conv biases, whose gradient is
+    rounding noise, and tensors with no gradient in the stage are left
+    out.  Returns the measured figures."""
+    rows, bad = [], []
+    for k, f in gradsf.items():
+        if f is None or k.endswith(PRE_BN_BIAS_PARTS):
+            continue
+        nf = f.float().norm().item()
+        if nf == 0:
+            continue
+        dk = (grads[k].float() - f.float()).norm().item()
+        dp = (gradsp[k].float() - f.float()).norm().item()
+        rows.append((dk / nf, dp / nf, dk / max(dp, 1e-30), k))
+        if dk > STEP_NOISE_X * dp + STEP_GRAD_REL * nf:
+            bad.append(k)
+    rows.sort(reverse=True)
+    log(f"  {what} gradients, norm-relative to the plain f32 step: kernels "
+        "f32, plain bf16, and their ratio (worst 12, then the median)")
+    for r in rows[:12] + [rows[len(rows) // 2]]:
+        log(f"    {r[3]:<40} {r[0]:.3e} {r[1]:.3e} {r[2]:.3e}")
+    ratios = sorted(r[2] for r in rows)
+    if bad:
+        raise PhaseError(f"{what}: f32 kernel gradients off the yardstick: "
+                         f"{bad[:5]}")
+    return {"grad_rel_max": rows[0][0], "grad_rel_median":
+            rows[len(rows) // 2][0], "ratio_to_bf16_max": ratios[-1],
+            "ratio_to_bf16_median": ratios[len(ratios) // 2]}
+
+
+def _step1_calls_want(enc):
+    n_pair = sum(n for *_, n in pair_cases(TRAIN_B) + (
+        [] if enc else dec_pair_cases(TRAIN_B)))
+    n_down = len(down_train_cases(TRAIN_B))
+    want = {"pair_fwd": n_pair, "pair_bwd": n_pair, "down_fwd": n_down,
+            "down_bwd": n_down, "head_loss_fwd": 1, "head_loss_bwd": 1}
+    if not enc:
+        n_up = len(up_train_cases(TRAIN_B))
+        want.update(ups_fwd=n_up, ups_bwd=n_up)
+    return want
+
+
+def phase_f32_train(sd, device, ref1, sd2, ref2):
+    """24. The f32 steps: make_train_step(enc=True, dtype=f32) takes 5
+    steps at B=6 on uint8 512x1024 frames, then stage 2 (enc=False) on
+    Net(20, encoder=that encoder) 5 more: losses finite, the launches per
+    step the bf16 step's under the ``_f32`` names only, stage 2's peak
+    device memory.  Step 1 of each stage from phase 7's (phase 8's) state
+    and draw: twice through the kernels (bit-identical state), its every
+    train kernel call against its plain version on its recorded inputs
+    (phase 23's rules), its loss against the plain f32 step
+    (STEP_LOSS_REL), its gradients by ``_grad_yardstick``.  Returns
+    (launches of stage 1, of stage 2, figures, map errors by kernel)."""
+    import torch
+    from erfnet_pytorch_tpu_torch.models.erfnet import Net
+    from erfnet_pytorch_tpu_torch.ops import cuda as kernels
+    f32 = torch.float32
+    out, worst, counts_by = {}, {}, {}
+    errs = {k: 0.0 for k in TRAIN_WRAPPERS}
+    net = None
+    for enc in (True, False):
+        stage = "stage 1" if enc else "stage 2"
+        g = torch.Generator().manual_seed(72 if enc else 74)
+        frames, labels = train_data(g, TRAIN_B, TRAIN_STEPS)
+        frames = [f.to(device) for f in frames]
+        labels = [lb.to(device) for lb in labels]
+        if enc:
+            net, state, step = make_trainer(sd, device, f32, enc=True)
+        else:
+            torch.manual_seed(75)
+            net, state, step = make_trainer(
+                None, device, f32, enc=False,
+                net=Net(N_CLASSES, encoder=net.encoder))
+            head0 = {k: p.detach().clone() for k, p in net.named_parameters()
+                     if k in HEAD1}
+        log(f"[f32 train] {stage}: make_train_step(enc={enc}, dtype=f32), "
+            f"{TRAIN_STEPS} steps of {TRAIN_B}x512x1024 uint8"
+            + ("" if enc else " on Net(20, encoder=the f32-trained encoder)"))
+        gen = torch.Generator(device=device).manual_seed(76)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        box = [state]
+        losses = []
+        for f, lb in zip(frames, labels):
+            box[0], loss = step(box[0], f, lb, gen)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = [x.item() for x in losses]
+        log(f"  losses {losses}; peak device memory {peak:.2f} GiB")
+        log(f"  launches over {TRAIN_STEPS} steps: "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        if not all(map(lambda v: v == v and abs(v) < float("inf"), losses)):
+            raise PhaseError(f"f32 {stage}: non-finite loss")
+        _check_f32_train_counts(counts, expected_train_launches(enc),
+                                TRAIN_STEPS, f"f32 {stage}")
+        if not enc:
+            for k, p in net.named_parameters():
+                if k in HEAD1 and (p.grad is not None
+                                   or not torch.equal(p.detach(), head0[k])):
+                    raise PhaseError(f"f32 stage 2 moved the frozen {k}")
+        counts_by[stage] = counts
+        key = "" if enc else "stage2_"
+        out[f"{key}losses"] = losses
+        out[f"{key}peak_mem_gib"] = peak
+
+        ref, sd0 = (ref1, sd) if enc else (ref2, sd2)
+        args = ref["args"]
+        loss1, grads1, state1, calls = run_step1(sd0, *args, enc=enc,
+                                                 dtype=f32, record=True)
+        _, _, state2, _ = run_step1(sd0, *args, enc=enc, dtype=f32)
+        same = all(torch.equal(state1[k], state2[k]) for k in state1)
+        log(f"  step 1 twice through the f32 kernels: state bit-identical: "
+            f"{same}")
+        if not same:
+            raise PhaseError(f"f32 {stage}: two runs of step 1 differ")
+        n_calls = {}
+        for c in calls:
+            n_calls[c[0]] = n_calls.get(c[0], 0) + 1
+        log(f"  step 1's train kernel calls, each against its plain version "
+            f"on its recorded inputs: {n_calls}")
+        if n_calls != _step1_calls_want(enc):
+            raise PhaseError(f"f32 {stage}: recorded calls {n_calls}")
+        e = check_recorded_calls(calls, worst)
+        errs = {k: max(v, e[k]) for k, v in errs.items()}
+        del calls
+        if enc:
+            lossf, gradsf = ref1["loss_plain_f32"], ref1["grads_plain_f32"]
+        else:
+            lossf, gradsf, _, _ = run_step1(sd2, *args, enc=False,
+                                            plain=True, dtype=f32)
+        rel = abs(loss1 - lossf) / abs(lossf)
+        log(f"  step 1 loss: f32 kernels {loss1:.7f}, plain f32 {lossf:.7f} "
+            f"(rel {rel:.2e}, bound {STEP_LOSS_REL})")
+        if rel > STEP_LOSS_REL:
+            raise PhaseError(f"f32 {stage}: step 1 loss off the plain f32 "
+                             f"step: rel {rel:.2e}")
+        if enc:
+            dec = max(grads1[k].abs().max().item() for k in grads1
+                      if k.startswith("decoder."))
+            if dec != 0:
+                raise PhaseError("f32 stage 1: a decoder gradient is not 0")
+            gradsf = {k: v for k, v in gradsf.items()
+                      if not k.startswith("decoder.")}
+        out[f"{key}step1_loss_rel"] = rel
+        out[f"{key}yardstick"] = _grad_yardstick(
+            grads1, ref["grads_plain"], gradsf, f"f32 {stage} step 1")
+        del grads1, state1, state2
+    log(f"  recorded calls, measured maxima: maps norm rel "
+        f"{worst['norm']:.3e}, max rel {worst['rel']:.3e}; gradients and "
+        f"sums {worst['grad']:.3e}; losses {worst['loss']:.3e}; pre-BN "
+        f"biases {worst['pre_bn']:.3e} of ||sum |g|||")
+    out["recorded_maxima"] = worst
+    kernels.reset_launch_counts()
+    return counts_by["stage 1"], counts_by["stage 2"], out, errs
+
+
+def _flops_bytes_pair(mode, shape, bwd, esz=2):
+    """(operations, bytes) of one pair call, maps of ``esz`` bytes."""
     B, H, W, C = shape
     P = B * H * W
-    maps = P * C * 2
+    maps = P * C * esz
     wbytes = 2 * 3 * C * C * 4 + 2 * C * 4
     if not bwd:
         n_in = 2 if mode == "epi" else 1
@@ -2559,51 +2887,52 @@ def _flops_bytes_pair(mode, shape, bwd):
     return 2 * P * 12 * C * C, (n_in + n_out) * maps + 2 * wbytes
 
 
-def _flops_bytes_down(shape, cc, stem, bwd):
+def _flops_bytes_down(shape, cc, stem, bwd, esz=2):
     B, H, W, cin = shape
     po = B * (H // 2) * (W // 2)
-    xin = B * H * W * cin * (4 if stem and not bwd else 2)
-    y = po * (cin + cc) * 2
+    xin = B * H * W * cin * (4 if stem and not bwd else esz)
+    y = po * (cin + cc) * esz
     wb = 9 * cin * cc * 4
     if not bwd:
         return (2 * po * 9 * cin * cc,
-                xin + y + (B * H * W * cin * 2 if stem else 0) + wb)
-    dx = 0 if stem else B * H * W * cin * 2
+                xin + y + (B * H * W * cin * esz if stem else 0) + wb)
+    dx = 0 if stem else B * H * W * cin * esz
     return (2 if stem else 4) * po * 9 * cin * cc, xin + 2 * y + dx + wb
 
 
-def _flops_bytes_ups(shape, cout, bwd):
+def _flops_bytes_ups(shape, cout, bwd, esz=2):
     B, H, W, cin = shape
     P = B * H * W
-    x, y = P * cin * 2, 4 * P * cout * 2
+    x, y = P * cin * esz, 4 * P * cout * esz
     wb = 9 * cin * cout * 4 + cout * 4
     if not bwd:
         return 2 * P * 9 * cin * cout, x + y + wb + 2 * B * cout * 4
     return 2 * 2 * P * 9 * cin * cout, 2 * x + 2 * y + 2 * wb
 
 
-def _flops_bytes_head(M, K, G, bwd):
+def _flops_bytes_head(M, K, G, bwd, esz=2):
     n = G * N_CLASSES
     labels = M * G * 4
     if not bwd:
-        return 2 * M * K * n, M * K * 2 + labels
-    return 4 * M * K * n, 2 * M * K * 2 + labels + 2 * K * n * 4
+        return 2 * M * K * n, M * K * esz + labels
+    return 4 * M * K * n, 2 * M * K * esz + labels + 2 * K * n * 4
 
 
-def _bound(flops, nbytes):
-    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / BF16_FLOPS_PER_S
+def _bound(flops, nbytes, flops_per_s=BF16_FLOPS_PER_S):
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / flops_per_s
 
 
 def _lib_conv(x, w_oihw, stride, padding, dilation, weight_only=False,
               transposed=False):
     """cuDNN's forward conv (or transposed conv, k3 s2 p1 op1 for the
-    upsampler) and its backward (input and weight gradients), bf16
-    channels-last, as two calls to time: the yardstick, never on the
-    path.  A transposed conv's weight is (Cin, Cout, kh, kw)."""
+    upsampler) and its backward (input and weight gradients) in x's dtype
+    (bf16, or f32 with TF32 off), channels-last, as two calls to time:
+    the yardstick, never on the path.  A transposed conv's weight is (Cin,
+    Cout, kh, kw)."""
     import torch
     import torch.nn.functional as F
     xc = x.permute(0, 3, 1, 2)
-    w = w_oihw.to(torch.bfloat16).contiguous(
+    w = w_oihw.to(x.dtype).contiguous(
         memory_format=torch.channels_last)
     if transposed:
         def fwd():
@@ -2625,14 +2954,17 @@ def _lib_conv(x, w_oihw, stride, padding, dilation, weight_only=False,
 PAIR_ROW = {"none": 21, "affine": 22, "epi": 23}
 
 
-def phase_train_timing(sd, device, iters):
+def phase_train_timing(sd, device, iters, dtype=None):
     """ms/step of both stages through the kernels and through the plain
     versions (CUDA events), and each train kernel's forward and backward
     time at every shape of the two steps beside its plain version, its
     bound and cuDNN's convolutions of the same shapes; summed per step of
     each stage by kernel and by the TPU kernel each replaces (PERF.md's
     rows; the stage-2 cases new in the decoder are rows "12", "13",
-    "17 G4" and "21 C16" .. "23 C16")."""
+    "17 G4" and "21 C16" .. "23 C16").  ``dtype``: bf16 (phase 9; bound
+    by bf16 operations over 989 TFLOP/s) or f32 (phase 25: the f32 forms,
+    the plain f32 step, cuDNN in f32 with TF32 off, operations over 67
+    TFLOP/s)."""
     import contextlib
     import torch
     from erfnet_pytorch_tpu_torch.ops import cuda as kernels
@@ -2641,15 +2973,20 @@ def phase_train_timing(sd, device, iters):
     from erfnet_pytorch_tpu_torch.ops.cuda import head_loss as hl
     from erfnet_pytorch_tpu_torch.ops.cuda import nb1d_pair as pr
     from erfnet_pytorch_tpu_torch.ops.cuda import upsampler_train as ut
-    g = torch.Generator().manual_seed(14)
+    dtype = dtype or torch.bfloat16
+    f32 = dtype == torch.float32
+    esz = 4 if f32 else 2
+    rate = F32_FLOPS_PER_S if f32 else BF16_FLOPS_PER_S
+    g = torch.Generator().manual_seed(14 if not f32 else 78)
     frames, labels = train_data(g, TRAIN_B, 1)
     f0, l0 = frames[0].to(device), labels[0].to(device)
-    log("[train timing] CUDA events, B=6")
+    log(f"[{'f32 ' if f32 else ''}train timing] CUDA events, B=6"
+        + (", f32, TF32 off" if f32 else ""))
     e2e = {}
     for enc in (True, False):
         pre = "" if enc else "stage2_"
         for plain in (False, True):
-            _net, st, step = make_trainer(sd, device, enc=enc)
+            _net, st, step = make_trainer(sd, device, dtype, enc=enc)
             gen = torch.Generator(device=device).manual_seed(15)
             box = [st]
 
@@ -2673,7 +3010,7 @@ def phase_train_timing(sd, device, iters):
         """Calls per step of one function in stage 1 and stage 2 (ns):
         kernel and plain ms per call, (flops, bytes) per call, cuDNN ms
         per call or None."""
-        b_ms, o_ms = _bound(*fl)
+        b_ms, o_ms = _bound(*fl, rate)
         for stage, n in zip((1, 2), ns):
             if not n:
                 continue
@@ -2708,9 +3045,9 @@ def phase_train_timing(sd, device, iters):
                 c[0] += n
             c[1] += n
     for (mode, shape, d), ns in ncalls.items():
-        kw = pair_inputs(mode, shape, d, g, device)
+        kw = pair_inputs(mode, shape, d, g, device, dtype)
         saved = pair_saved(mode, kw, pr.pair_fwd(mode, **kw))
-        ct = pair_cotangents(mode, shape, g, device)
+        ct = pair_cotangents(mode, shape, g, device, dtype)
         wh = kw["wh"].permute(2, 1, 0)[..., None]          # (O, I, 3, 1)
         ww = kw["ww"].permute(2, 1, 0)[:, :, None, :]      # (O, I, 1, 3)
         lh = _lib_conv(kw["x"], wh, (1, 1), (d, 0), (d, 1))
@@ -2728,13 +3065,13 @@ def phase_train_timing(sd, device, iters):
             lms = tm(lambda: (lh[i](), lw[i]()), iters)
             launches = (pr.BWD_LAUNCHES if bwd else pr.FWD_LAUNCHES)[mode]
             bms = add("nb1d_pair", row, ns, launches, ms, pms,
-                      _flops_bytes_pair(mode, shape, bwd), lms)
+                      _flops_bytes_pair(mode, shape, bwd, esz), lms)
             line(label, "bwd" if bwd else "fwd", ms, pms, bms, lms)
     for label, shape, cc in down_train_cases(TRAIN_B):
         stem = label == "stem"
-        x, w, b, kw = down_inputs(label, shape, cc, g, device)
+        x, w, b, kw = down_inputs(label, shape, cc, g, device, dtype)
         xa, y, _s1, _s2 = dt.down_fwd(x, w, b, **kw)
-        gy = torch.randn(*y.shape, generator=g).to(device).bfloat16()
+        gy = torch.randn(*y.shape, generator=g).to(device).to(dtype)
         gs = (1e-3 * torch.randn(shape[0], y.shape[-1], generator=g)).to(
             device)
         lib = _lib_conv(xa, w.permute(3, 2, 0, 1), (2, 2), (1, 1), (1, 1),
@@ -2752,12 +3089,12 @@ def phase_train_timing(sd, device, iters):
                 row, launches = (7 if stem else 6), dt.FWD_LAUNCHES
             lms = tm(lib[int(bwd)], iters)
             bms = add("downsampler_train", row, (1, 1), launches, ms, pms,
-                      _flops_bytes_down(shape, cc, stem, bwd), lms)
+                      _flops_bytes_down(shape, cc, stem, bwd, esz), lms)
             line(f"{label:<10}", "bwd" if bwd else "fwd", ms, pms, bms, lms)
     for label, shape, cout in up_train_cases(TRAIN_B):
-        x, w, b = ups_inputs(shape, cout, g, device)
+        x, w, b = ups_inputs(shape, cout, g, device, dtype)
         y = ut.ups_fwd(x, w, b)[0]
-        gy = torch.randn(*y.shape, generator=g).to(device).bfloat16()
+        gy = torch.randn(*y.shape, generator=g).to(device).to(dtype)
         gs = (1e-3 * torch.randn(shape[0], cout, generator=g)).to(device)
         # forward-conv HWIO (flipped) -> ConvTranspose2d (I, O, kh, kw)
         lib = _lib_conv(x, w.flip(0, 1).permute(2, 3, 0, 1), (2, 2), (1, 1),
@@ -2773,12 +3110,12 @@ def phase_train_timing(sd, device, iters):
                 row, launches = 12, ut.FWD_LAUNCHES
             lms = tm(lib[int(bwd)], iters)
             bms = add("upsampler_train", row, (0, 1), launches, ms, pms,
-                      _flops_bytes_ups(shape, cout, bwd), lms)
+                      _flops_bytes_ups(shape, cout, bwd, esz), lms)
             line(f"{label:<10}", "bwd" if bwd else "fwd", ms, pms, bms, lms)
     gnum = torch.ones((), device=device)
     for G in (1, 4):
         M = head_loss_rows(TRAIN_B) if G == 1 else head4_rows(TRAIN_B)
-        feats, w, b, labels, cw = head_inputs(M, g, device, G=G)
+        feats, w, b, labels, cw = head_inputs(M, g, device, G=G, dtype=dtype)
         K = feats.shape[1]
         for bwd in (False, True):
             if bwd:
@@ -2795,7 +3132,7 @@ def phase_train_timing(sd, device, iters):
                 launches = hl.FWD_LAUNCHES
             bms = add("head_loss", 17 if G == 1 else "17 G4",
                       (1, 0) if G == 1 else (0, 1), launches, ms, pms,
-                      _flops_bytes_head(M, K, G, bwd), None)
+                      _flops_bytes_head(M, K, G, bwd, esz), None)
             line(f"head_loss G{G} M={M}", "bwd" if bwd else "fwd", ms, pms,
                  bms, None)
     for stage in (1, 2):
@@ -2816,22 +3153,24 @@ def phase_train_timing(sd, device, iters):
     return e2e, acc
 
 
-def phase_train_profile(sd, device, e2e, n=2, enc=True):
-    """torch.profiler over n kernel steps of the stage: device time by
-    kernel, the device's busy share of a step (against the CUDA-event
-    ms/step), and the host's time and kernel launches by operation."""
+def phase_train_profile(sd, device, e2e, n=2, enc=True, dtype=None):
+    """torch.profiler over n kernel steps of the stage (in ``dtype``, bf16
+    by default): device time by kernel, the device's busy share of a step
+    (against the CUDA-event ms/step), and the host's time and kernel
+    launches by operation."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from erfnet_pytorch_tpu_torch.ops import cuda as kernels
     g = torch.Generator().manual_seed(16)
     frames, labels = train_data(g, TRAIN_B, 1)
     f0, l0 = frames[0].to(device), labels[0].to(device)
-    _net, st, step = make_trainer(sd, device, enc=enc)
+    _net, st, step = make_trainer(sd, device, dtype, enc=enc)
     gen = torch.Generator(device=device).manual_seed(17)
     for _ in range(2):
         st, _ = step(st, f0, l0, gen)
     torch.cuda.synchronize()
-    log(f"[train profile] stage {1 if enc else 2}, torch.profiler, per step")
+    log(f"[{'f32 ' if dtype == torch.float32 else ''}train profile] stage "
+        f"{1 if enc else 2}, torch.profiler, per step")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
@@ -3040,9 +3379,20 @@ def phase_head1(sd, device, iters):
             "library_ms": lib_ms}
 
 
-def eval_launches(enc):
-    """Kernel launches of one eval batch of the stage."""
+def eval_launches(enc, dtype=None):
+    """Kernel launches of one eval batch of the stage: bf16 (the default),
+    or f32 (every block on nb1d's f32 form, the f32 head+loss and
+    head+argmax forms)."""
+    import torch
     from erfnet_pytorch_tpu_torch.ops.cuda import head_loss as hl
+    if dtype == torch.float32:
+        want = {"downsampler": 3, "nb1d": 13 if enc else 17,
+                "head_loss_fwd": hl.FWD_LAUNCHES}
+        if enc:
+            want["head_argmax_1x1"] = 1
+        else:
+            want.update(upsampler=2, head_argmax=1)
+        return f32_names(want)
     want = {"downsampler": 3, "nb1d_halo": 5 if enc else HALO_PER_FORWARD,
             "nb1d": PER_FORWARD["nb1d"], "head_loss_fwd": hl.FWD_LAUNCHES}
     if enc:
@@ -3052,15 +3402,36 @@ def eval_launches(enc):
     return want
 
 
-def phase_eval(sd, device):
-    """make_eval_step of both stages at B=6, 512x1024 uint8 frames, bf16:
-    launch counts per eval batch, the loss and predictions against the
-    same step through the plain versions on the card, a second eval after
-    one more train step (the fold follows the state's step).  Then
-    ``with_pred`` of both train steps: launch counts, and each recorded
-    head+argmax call against its plain version on the step's features.
-    Returns (eval launches by stage, the largest prediction mismatch
-    off a tie, agreement figures)."""
+def _eval_ties(state, f0, enc, device):
+    """The near-ties (F32_TIE_REL) of the plain f32 eval logits of the
+    batch: (B, H/8, W/8) for the encoder stage, (B, H, W) for stage 2."""
+    from erfnet_pytorch_tpu_torch.data import to_tensor
+    from erfnet_pytorch_tpu_torch.inference import (PLAIN_OPS,
+                                                    encoder_features,
+                                                    features, prepare)
+    import torch
+    f32 = torch.float32
+    prep = prepare(state.net, f32, device, encoder_only=enc)
+    x = to_tensor(f0)
+    with torch.no_grad():
+        if enc:
+            f2 = encoder_features(prep, x, f32, PLAIN_OPS)
+            hp = prep["enc_head"]
+            return f32_ties(f2 @ hp["w"] + hp["b"])
+        return head_ties_f32(features(prep, x, f32, PLAIN_OPS), prep["head"])
+
+
+def phase_eval(sd, device, dtype=None):
+    """make_eval_step of both stages at B=6, 512x1024 uint8 frames, bf16
+    (phase 18) or f32 (phase 24): launch counts per eval batch, the loss
+    and predictions against the same step through the plain versions on
+    the card (bf16: >= EVAL_AGREE equal; f32: >= F32_AGREE and every other
+    pixel a near-tie of the plain logits), a second eval after one more
+    train step (the fold follows the state's step).  Then ``with_pred``
+    of both train steps: launch counts, and each recorded head+argmax
+    call against its plain version on the step's features (the near-tie
+    rule of the dtype).  Returns (eval launches by stage, agreement
+    figures)."""
     import torch
     from erfnet_pytorch_tpu_torch.models.erfnet import Net
     from erfnet_pytorch_tpu_torch.ops import cuda as kernels
@@ -3071,7 +3442,9 @@ def phase_eval(sd, device):
     from erfnet_pytorch_tpu_torch.training.steps import (create_train_state,
                                                          make_eval_step,
                                                          make_train_step)
-    g = torch.Generator().manual_seed(41)
+    dtype = dtype or torch.bfloat16
+    f32 = dtype == torch.float32
+    g = torch.Generator().manual_seed(41 if not f32 else 77)
     frames, labels = train_data(g, TRAIN_B, 1)
     f0, l0 = frames[0].to(device), labels[0].to(device)
     out, counts_by_stage = {}, {}
@@ -3083,17 +3456,19 @@ def phase_eval(sd, device):
         net.to(device)
         opt = make_adam(net.parameters())
         state = create_train_state(net, opt)
-        ev = make_eval_step(net, cw, enc=enc, device=device)
-        evp = make_eval_step(net, cw, enc=enc, device=device, plain=True)
-        log(f"[eval] make_eval_step(enc={enc}), {TRAIN_B}x512x1024 uint8, "
-            "bf16")
+        ev = make_eval_step(net, cw, enc=enc, device=device, dtype=dtype)
+        evp = make_eval_step(net, cw, enc=enc, device=device, dtype=dtype,
+                             plain=True)
+        log(f"[{'f32 ' if f32 else ''}eval] make_eval_step(enc={enc}), "
+            f"{TRAIN_B}x512x1024 uint8, {'f32' if f32 else 'bf16'}")
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         loss, preds, tgts = ev(state, f0, l0)
         torch.cuda.synchronize()
         counts = kernels.launch_counts()
-        log(f"  launches of one eval batch: {counts}")
-        _check_counts(counts, eval_launches(enc), 1, f"eval {stage}")
+        log(f"  launches of one eval batch: "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        _check_counts(counts, eval_launches(enc, dtype), 1, f"eval {stage}")
         counts_by_stage[stage] = counts
         lossp, predsp, tgtsp = evp(state, f0, l0)
         H, W = f0.shape[1:3]
@@ -3104,14 +3479,23 @@ def phase_eval(sd, device):
                              "labels differ from the plain step's")
         rel = abs(loss.item() - lossp.item()) / abs(lossp.item())
         agree = (preds == predsp).float().mean().item()
-        log(f"  loss {loss.item():.6f}, plain {lossp.item():.6f} (rel "
+        floor = F32_AGREE if f32 else EVAL_AGREE
+        log(f"  loss {loss.item():.7f}, plain {lossp.item():.7f} (rel "
             f"{rel:.2e}, bound {EVAL_LOSS_REL}); predictions equal "
-            f"{agree:.6f} (floor {EVAL_AGREE})")
-        if not (rel <= EVAL_LOSS_REL and agree >= EVAL_AGREE):
+            f"{agree:.7f} (floor {floor})")
+        if not (rel <= EVAL_LOSS_REL and agree >= floor):
             raise PhaseError(f"eval {stage} disagrees with the plain step")
+        if f32:
+            off = int(((preds != predsp)
+                       & ~_eval_ties(state, f0, enc, device)).sum())
+            log(f"  {off} predictions differ off a near-tie of the plain "
+                "f32 logits")
+            if off:
+                raise PhaseError(f"f32 eval {stage}: predictions differ off "
+                                 "a near-tie")
 
         step = make_train_step(net, opt, cw, enc=enc, device=device,
-                               with_pred=True)
+                               with_pred=True, dtype=dtype)
         gen = torch.Generator(device=device).manual_seed(42)
         kernels.reset_launch_counts()
         with route.recording() as calls:
@@ -3120,6 +3504,8 @@ def phase_eval(sd, device):
         counts = kernels.launch_counts()
         want = dict(expected_train_launches(enc))
         want["head_argmax_1x1" if enc else "head_argmax"] = 1
+        if f32:
+            want = f32_names(want)
         _check_counts(counts, want, 1, f"with_pred train step {stage}")
         heads = [c for c in calls if c[0].startswith("head_argmax")]
         if len(heads) != 1 or tuple(tpreds.shape) != tuple(ttgts.shape):
@@ -3129,7 +3515,11 @@ def phase_eval(sd, device):
         plain = {f.__name__: f.plain for f in kernels.kernel_wrappers()
                  if hasattr(f, "plain")}
         ref = plain[name](*args, **kwargs)
-        tie = head1_ties(*args) if enc else head_ties(*args)
+        if f32:
+            tie = (f32_ties(args[0] @ args[1] + args[2]) if enc
+                   else head_ties_f32(*args))
+        else:
+            tie = head1_ties(*args) if enc else head_ties(*args)
         compare_preds(f"with_pred {stage} {name}", got, ref, tie)
         if not torch.equal(got.reshape(tpreds.shape), tpreds):
             raise PhaseError(f"with_pred {stage}: returned predictions are "
@@ -3209,27 +3599,30 @@ runpy.run_module("erfnet_pytorch_tpu_torch.cli.train_main",
 
 
 def _run_train_main(here, args, timeout, kill=False):
-    """train_main in a process of its own; returns (exit code, its output
-    lines, stderr merged, each with the host time it arrived at)."""
+    """train_main in a process of its own; returns (exit code, its stdout
+    lines, each with the host time it arrived at, its stderr)."""
+    import tempfile
     cmd = ([sys.executable, "-u", "-c",
             KILL_AT_LAST_EPOCH % TRAINER_EPOCHS] if kill else
            [sys.executable, "-u", "-m",
             "erfnet_pytorch_tpu_torch.cli.train_main"]) + args
-    proc = subprocess.Popen(cmd, cwd=here, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    lines = []
-    try:
-        t0 = time.time()
-        for line in proc.stdout:
-            lines.append((time.time(), line.rstrip("\n")))
-            if time.time() - t0 > timeout:
-                raise PhaseError(f"train_main: over {timeout} s")
-        proc.wait(timeout=60)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    return proc.returncode, lines
+    with tempfile.TemporaryFile("w+") as err:
+        proc = subprocess.Popen(cmd, cwd=here, stdout=subprocess.PIPE,
+                                stderr=err, text=True)
+        lines = []
+        try:
+            t0 = time.time()
+            for line in proc.stdout:
+                lines.append((time.time(), line.rstrip("\n")))
+                if time.time() - t0 > timeout:
+                    raise PhaseError(f"train_main: over {timeout} s")
+            proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        err.seek(0)
+        return proc.returncode, lines, err.read()
 
 
 def _timer_line(text, prefix, n):
@@ -3262,51 +3655,73 @@ def _stage_timing(lines, header, steps, val_batches):
                                         val_batches)}
 
 
-def _expected_trainer_launches():
-    """Every kernel launch of the two-stage run: per stage, the train
-    steps with their head+argmax for --iouTrain, and the val batches."""
+def _expected_trainer_launches(dtype=None):
+    """Every kernel launch of the two-stage run in ``dtype``'s forms (bf16
+    by default): per stage, the train steps with their head+argmax for
+    --iouTrain, and the val batches."""
+    import torch
     steps = TRAINER_EPOCHS * (TRAINER_TRAIN // TRAIN_B)
     vals = TRAINER_EPOCHS * -(-TRAINER_VAL // TRAIN_B)
     want = {}
     for enc in (True, False):
         per_step = dict(expected_train_launches(enc))
         per_step["head_argmax_1x1" if enc else "head_argmax"] = 1
+        if dtype == torch.float32:
+            per_step = f32_names(per_step)
         for name, n in per_step.items():
             want[name] = want.get(name, 0) + steps * n
-        for name, n in eval_launches(enc).items():
+        for name, n in eval_launches(enc, dtype).items():
             want[name] = want.get(name, 0) + vals * n
     return want
 
 
-def phase_trainer(device, te2e):
-    """train_main --bf16 --iouTrain, both stages, TRAINER_EPOCHS epochs of
-    B=6 512x1024 frames from a synthetic tree, in a process of its own:
-    exit 0, every artifact, two log rows per stage with finite losses,
-    its kernel launches as expected.  Then the same run killed at the
-    start of stage 2's last epoch and resumed with --resume: its final
+def _no_dtype_note(err, what):
+    """A train_main run on the card says nothing about its dtype on
+    stderr (the f32 default trains f32, as the JAX CLI does); anything
+    else on stderr is printed."""
+    if err.strip():
+        log(f"  {what} stderr: {err.strip()[-800:]}")
+    if "bf16" in err or "f32" in err:
+        raise PhaseError(f"{what}: a dtype note on stderr")
+
+
+def phase_trainer(device, te2e, dtype=None):
+    """train_main --iouTrain, with --bf16 (phase 19) or at its f32 default
+    (phase 26, no dtype flag), both stages, TRAINER_EPOCHS epochs of B=6
+    512x1024 frames from a synthetic tree, in a process of its own: exit
+    0, every artifact, two log rows per stage with finite losses, its
+    kernel launches exactly those of its steps and eval batches in the
+    dtype's forms, no dtype note on stderr.  Then the same run killed at
+    the start of stage 2's last epoch and resumed with --resume: its final
     model.pth bit-identical to the uninterrupted run's.  Returns timing
     and the run's kernel launches."""
     import math
     import tempfile
     import torch
+    f32 = dtype == torch.float32
+    flag = [] if f32 else ["--bf16"]
     here = os.path.dirname(os.path.abspath(__file__))
-    log(f"[trainer] train_main --bf16 --iouTrain, {TRAINER_EPOCHS} epochs "
-        f"per stage, B={TRAIN_B}, {TRAINER_TRAIN} train / {TRAINER_VAL} val "
+    log(f"[{'f32 ' if f32 else ''}trainer] train_main "
+        f"{'' if f32 else '--bf16 '}--iouTrain, {TRAINER_EPOCHS} epochs per "
+        f"stage, B={TRAIN_B}, {TRAINER_TRAIN} train / {TRAINER_VAL} val "
         "512x1024 frames")
     with tempfile.TemporaryDirectory() as tmp:
         data = os.path.join(tmp, "cityscapes")
         _write_train_tree(data)
-        base = ["--bf16", "--datadir", data, "--height", str(SERVE_HW[0]),
-                "--num-epochs", str(TRAINER_EPOCHS), "--batch-size",
-                str(TRAIN_B), "--iouTrain", "--num-workers", "4"]
+        base = flag + ["--datadir", data, "--height", str(SERVE_HW[0]),
+                       "--num-epochs", str(TRAINER_EPOCHS), "--batch-size",
+                       str(TRAIN_B), "--iouTrain", "--num-workers", "4"]
         full = os.path.join(tmp, "full")
         t0 = time.time()
-        rc, lines = _run_train_main(here, base + ["--savedir", full], 600)
+        rc, lines, err = _run_train_main(here, base + ["--savedir", full],
+                                         600)
         wall = time.time() - t0
         if rc != 0:
             log("\n".join(s for _t, s in lines[-60:]))
+            log(err[-3000:])
             raise PhaseError(f"train_main: exit {rc}")
         log(f"  train_main exit 0 in {wall:.1f} s")
+        _no_dtype_note(err, "train_main")
         want_files = ("checkpoint_enc.pth.tar", "model_best_enc.pth.tar",
                       "model_encoder.pth", "best_enc.txt",
                       "automated_log_encoder.txt", "checkpoint.pth.tar",
@@ -3331,8 +3746,10 @@ def phase_trainer(device, te2e):
         if not said:
             raise PhaseError("train_main printed no kernel launches")
         counts = json.loads(said[-1][len("kernel launches "):])
-        log(f"  kernel launches of the run: {counts}")
-        _check_counts(counts, _expected_trainer_launches(), 1, "trainer")
+        log(f"  kernel launches of the run: "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        _check_counts(counts, _expected_trainer_launches(dtype), 1,
+                      "trainer")
         steps = TRAINER_TRAIN // TRAIN_B
         vals = -(-TRAINER_VAL // TRAIN_B)
         timing = {
@@ -3345,23 +3762,27 @@ def phase_trainer(device, te2e):
             t = timing[st]
             log(f"  stage {st}, last epoch: {t['s_per_epoch']} s "
                 f"(checkpoint writes included); train steps in the trainer "
-                f"(loader included) {t['step_ms']} ms, phase 9's bare step "
-                f"{te2e[key]} ms; val batches {t['val_batch_ms']} ms")
+                f"(loader included) {t['step_ms']} ms, phase "
+                f"{25 if f32 else 9}'s bare step {te2e[key]} ms; val "
+                f"batches {t['val_batch_ms']} ms")
 
         killed = os.path.join(tmp, "killed")
-        rc, lines = _run_train_main(here, base + ["--savedir", killed],
-                                    600, kill=True)
+        rc, lines, err = _run_train_main(
+            here, base + ["--savedir", killed], 600, kill=True)
         said = [s for _t, s in lines if s.startswith("killed at: ")]
         if rc != 137 or not said:
             log("\n".join(s for _t, s in lines[-60:]))
+            log(err[-3000:])
             raise PhaseError(f"the killed run exited {rc}")
         log(f"  second run killed at the start of stage 2's epoch "
             f"{TRAINER_EPOCHS} (exit {rc})")
-        rc, lines = _run_train_main(
+        rc, lines, err = _run_train_main(
             here, base + ["--savedir", killed, "--resume"], 600)
         if rc != 0:
             log("\n".join(s for _t, s in lines[-60:]))
+            log(err[-3000:])
             raise PhaseError(f"the resumed run exited {rc}")
+        _no_dtype_note(err, "the resumed train_main")
         a = torch.load(os.path.join(full, "model.pth"))
         b = torch.load(os.path.join(killed, "model.pth"))
         diff = [k for k in a if k not in b or not torch.equal(a[k], b[k])]
@@ -3424,14 +3845,14 @@ def main():
         st_e2e, halo_row, st_prof = phase_stream_timing(sd, device, ITERS)
         with no_tf32():
             f32_errs, f32_worst = phase_f32_parity(sd, device)
-            f32_counts, f32_enc_counts, f32_agree = phase_f32_serving(
-                sd, scales, device)
+            f32_counts, f32_agree = phase_f32_serving(sd, scales, device)
             f32_e2e, f32_rows = phase_f32_timing(sd, device, ITERS)
-        terrs = phase_train_parity(device)
-        net1, tcounts, losses, rerrs, agree_train = phase_train(sd, device)
-        _sd2, t2counts, losses2, rerrs2, agree2 = phase_train2(net1.encoder,
-                                                               device)
-        del net1, _sd2
+        terrs, _ = phase_train_parity(device)
+        net1, tcounts, losses, rerrs, agree_train, ref1 = phase_train(
+            sd, device)
+        sd2, t2counts, losses2, rerrs2, agree2, ref2 = phase_train2(
+            net1.encoder, device)
+        del net1
         terrs = {k: max(v, rerrs[k], rerrs2[k]) for k, v in terrs.items()}
         te2e, tacc = phase_train_timing(sd, device, ITERS)
         tprof = phase_train_profile(sd, device, te2e)
@@ -3439,6 +3860,20 @@ def main():
         head1_row = phase_head1(sd, device, ITERS)
         eval_counts, eval_agree = phase_eval(sd, device)
         trainer_timing, trainer_counts = phase_trainer(device, te2e)
+        with no_tf32():
+            f32 = torch.float32
+            t32errs, t32worst = phase_train_parity(device, f32, ragged=True)
+            t32counts, t32counts2, f32_train, r32errs = phase_f32_train(
+                sd, device, ref1, sd2, ref2)
+            del ref1, ref2, sd2
+            t32errs = {k: max(v, r32errs[k]) for k, v in t32errs.items()}
+            f32_eval_counts, f32_eval_agree = phase_eval(sd, device, f32)
+            te2e32, tacc32 = phase_train_timing(sd, device, ITERS, f32)
+            tprof32 = phase_train_profile(sd, device, te2e32, dtype=f32)
+            tprof32_2 = phase_train_profile(sd, device, te2e32, enc=False,
+                                            dtype=f32)
+            trainer32_timing, trainer32_counts = phase_trainer(
+                device, te2e32, f32)
     except Exception:  # every phase failure is fatal and reported
         traceback.print_exc()
         log("FAIL")
@@ -3454,21 +3889,26 @@ def main():
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
-    for name, (fw, bw) in TRAIN_WRAPPERS.items():
-        # one step of each stage: the encoder stage's and stage 2's sums
-        src, repl = SOURCES[name]
-        parts = [tacc[st][0][name] for st in (1, 2) if name in tacc[st][0]]
-        r = {k: sum(p[k] for p in parts) for k in
-             ("ms", "plain_ms", "bound_ms", "byte_ms", "op_ms")}
-        lib = [p["library_ms"] for p in parts]
-        kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": repl,
-            "launches": sum(c[fw] + c[bw] for c in (tcounts, t2counts)),
-            "max_abs_err": terrs[name], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": ("operations" if r["op_ms"] > r["byte_ms"]
-                         else "bytes"),
-            "library_ms": None if None in lib else sum(lib)})
+    def train_entries(acc, counts, errs, form):
+        # one step of each stage: the encoder stage's and stage 2's sums;
+        # launches of phases 7 and 8 (bf16) or of phase 24 (f32)
+        for name, (fw, bw) in TRAIN_WRAPPERS.items():
+            src, repl = SOURCES[name]
+            parts = [acc[st][0][name] for st in (1, 2) if name in acc[st][0]]
+            r = {k: sum(p[k] for p in parts) for k in
+                 ("ms", "plain_ms", "bound_ms", "byte_ms", "op_ms")}
+            lib = [p["library_ms"] for p in parts]
+            kernels.append({
+                "name": name + form, "route": "cuda", "source": src,
+                "replaces": repl,
+                "launches": sum(c[fw + form] + c[bw + form] for c in counts),
+                "max_abs_err": errs[name], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": ("operations" if r["op_ms"] > r["byte_ms"]
+                             else "bytes"),
+                "library_ms": None if None in lib else sum(lib)})
+
+    train_entries(tacc, (tcounts, t2counts), terrs, "")
     src, repl = SOURCES["nb1d_q8"]
     kernels.append({
         "name": "nb1d_q8", "route": "cuda", "source": src, "replaces": repl,
@@ -3491,18 +3931,24 @@ def main():
         **head1_row})
     for name in F32_FORMS:
         # the f32 forms: launches of phase 21's 512x1024 requests (the
-        # 1x1 head: the f32 encoder features and predictions), errors of
-        # phase 20, times of phase 22 (sums over one B=4 512x1024 forward;
-        # the 1x1 head one B=6 call)
+        # 1x1 head: phase 26's train_main run, its eval batches and
+        # --iouTrain steps of the encoder stage), errors of phase 20, times
+        # of phase 22 (sums over one B=4 512x1024 forward; the 1x1 head
+        # one B=6 call)
         src, repl = SOURCES[name]
         r = f32_rows[name]
-        launched = f32_enc_counts if name == "head_argmax_1x1" else f32_counts
+        launched = (trainer32_counts if name == "head_argmax_1x1"
+                    else f32_counts)
         kernels.append({
             "name": f"{name}_f32", "route": "cuda", "source": src,
             "replaces": repl, "launches": launched[f"{name}_f32"],
             "max_abs_err": f32_errs[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # the train kernels' f32 forms: sums over one f32 step of each stage
+    # (phase 25), launches of phase 24's 5 steps of each stage, errors of
+    # phases 23 and 24
+    train_entries(tacc32, (t32counts, t32counts2), t32errs, "_f32")
     summary = {"build_s": build_s, "serving_agreement": agree, **e2e,
                "profile": prof,
                "int8": {"agreement_plain": q8_agree,
@@ -3531,7 +3977,16 @@ def main():
                        "parity_tie_flips": f32_worst["tie_flips"], **f32_agree,
                        **f32_e2e,
                        "rows": {k: {q: v for q, v in r.items()}
-                                for k, r in f32_rows.items()}}}
+                                for k, r in f32_rows.items()}},
+               "f32_train": {"parity_maxima": t32worst, **f32_train,
+                             **te2e32, "profile": tprof32,
+                             "profile_stage2": tprof32_2,
+                             "rows": tacc32[1][1],
+                             "rows_stage2": tacc32[2][1],
+                             "eval_step": {"launches": f32_eval_counts,
+                                           **f32_eval_agree},
+                             "trainer": {"timing": trainer32_timing,
+                                         "launches": trainer32_counts}}}
     log(f"summary {json.dumps(summary)}")
     log(card)
     log(json.dumps({"kernels": kernels}))

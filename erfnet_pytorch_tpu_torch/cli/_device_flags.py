@@ -5,11 +5,8 @@ with the JAX CLIs, and what they resolve to.
     on the card (and fails where there is none).
   * ``--bf16`` opts in to bf16 compute, as in the JAX CLIs; ``--fp32``
     says f32 explicitly.  The default is f32, the JAX CLIs' default, on
-    ``--cpu`` and on the card, where the serving kernels have f32 forms.
-    ``train_main`` alone runs bf16 on the card whatever the flag: the
-    train kernels take bf16 only until their f32 forms land (ROADMAP
-    Queue B item 2, the train rows), and its run on the card without
-    ``--bf16`` says so on stderr (``F32_ON_CARD``).
+    ``--cpu`` and on the card, where the serving and the train kernels
+    have f32 forms.
   * ``--pallas`` / ``--no-pallas``, the JAX ``add_pallas_flag`` tri-state.
     On the card the kernels always run, so ``--no-pallas`` there exits 2;
     on ``--cpu`` the plain versions run, so ``--pallas`` there exits 2.
@@ -18,13 +15,8 @@ with the JAX CLIs, and what they resolve to.
 from __future__ import annotations
 
 import json
-import sys
 
 import torch
-
-F32_ON_CARD = ("the train kernels take bf16 only until their f32 forms "
-               "land (ROADMAP Queue B item 2, the train rows); training "
-               "bf16 on the card")
 
 
 def add_device_flags(p):
@@ -34,9 +26,7 @@ def add_device_flags(p):
     dt.add_argument("--bf16", action="store_true",
                     help="bf16 compute (f32 parameters and sums)")
     dt.add_argument("--fp32", dest="bf16", action="store_false",
-                    help="f32 compute (the default; train_main trains "
-                         "bf16 on the card until the train kernels' f32 "
-                         "forms land)")
+                    help="f32 compute (the default)")
     g = p.add_mutually_exclusive_group()
     g.add_argument("--pallas", dest="pallas", action="store_true",
                    default=None,
@@ -55,11 +45,10 @@ def print_launch_counts():
     print(f"kernel launches {json.dumps(kernels.launch_counts())}")
 
 
-def resolve_device_dtype(args, parser=None, *, f32_on_card=True):
-    """(device, dtype) of the parsed flags; exits 2 on a kernel flag the
-    device cannot honour.  ``f32_on_card``: whether the caller's kernels
-    take f32 on the card (the serving kernels do, the train kernels not
-    yet: ``train_main`` passes False and then gets bf16 there)."""
+def resolve_device_dtype(args, parser=None):
+    """(device, dtype) of the parsed flags: bf16 with ``--bf16``, else f32,
+    on the host and on the card alike; exits 2 on a kernel flag the device
+    cannot honour."""
     from ..device import resolve_device
 
     def refuse(msg):
@@ -76,10 +65,5 @@ def resolve_device_dtype(args, parser=None, *, f32_on_card=True):
     if args.pallas is False:
         refuse("--no-pallas: the port keeps no plain path on the card; "
                "use --cpu for the plain versions")
-    device = resolve_device(None)
-    if args.bf16:
-        return device, torch.bfloat16
-    if f32_on_card:
-        return device, torch.float32
-    print(F32_ON_CARD, file=sys.stderr)
-    return device, torch.bfloat16
+    return resolve_device(None), (torch.bfloat16 if args.bf16
+                                  else torch.float32)

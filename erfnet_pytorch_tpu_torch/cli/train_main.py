@@ -8,9 +8,10 @@ surface and the counterpart of the JAX CLI of the same name:
 The JAX CLI's flags with its defaults; a relative ``--savedir`` lands
 under ``save/``.  ``--cuda`` is accepted and ignored, as in the
 reference.  The device, dtype and kernel flags follow ``_device_flags``:
-the card runs the kernels in bf16, ``--cpu`` the plain versions in f32
-unless ``--bf16``.  ``--pretrainedEncoder`` and ``--decoder --state``
-take the ``encoder.*`` tensors of a reference-layout ``.pth``.
+f32 unless ``--bf16``, as the JAX CLI trains, through the kernels' f32
+or bf16 forms on the card and the plain versions on ``--cpu``.
+``--pretrainedEncoder`` and ``--decoder --state`` take the
+``encoder.*`` tensors of a reference-layout ``.pth``.
 
 Not ported, and refused with exit 2: ``--devices`` and ``--multi-step``
 above 1 (multi-GPU is ROADMAP A7; the multi-step dispatch served TPU
@@ -109,9 +110,7 @@ def main(argv=None):
         parser.exit(2, "error: --no-fused-kernels: the port keeps no plain "
                        "path on the card; use --cpu for the plain "
                        "versions\n")
-    # the train kernels have no f32 forms yet: the card trains bf16 (and
-    # says so without --bf16)
-    device, dtype = resolve_device_dtype(args, parser, f32_on_card=False)
+    device, dtype = resolve_device_dtype(args, parser)
     savedir = args.savedir if os.path.isabs(args.savedir) \
         else os.path.join("save", args.savedir)
 

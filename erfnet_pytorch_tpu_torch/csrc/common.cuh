@@ -194,6 +194,27 @@ __device__ __forceinline__ void load8(const float* p, float* v) {
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f32(float v) { return v; }
 
+// f32 -> the element type T (bf16 rounds to nearest even).
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float v) {
+  return __float2bfloat16(v);
+}
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+
+// 8 f32 -> 8 consecutive elements: one 16-byte store of bf16 (rounded),
+// two of f32.
+__device__ __forceinline__ void store_vec8(bf16* p, const float* v) {
+  *reinterpret_cast<uint4*>(p) = pack_bf16x8(v);
+}
+
+__device__ __forceinline__ void store_vec8(float* p, const float* v) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
 // A value as the element type T would hold it: bf16 rounds (nearest even),
 // f32 keeps it.
 template <typename T>
@@ -259,6 +280,20 @@ __device__ __forceinline__ void zero_tile(float (&acc)[TM][TN]) {
   for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+}
+
+// acc += part: a K chunk's partial sums added to the running total.  The
+// chunked f32 products sum each chunk in a chain of its own and add the
+// chunks in order: shorter FMA chains (their rounding grows with the
+// chain) and the order in which the plain versions add their per-tap
+// products.
+template <int TM, int TN>
+__device__ __forceinline__ void add_tile(float (&acc)[TM][TN],
+                                         const float (&part)[TM][TN]) {
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] += part[i][j];
 }
 
 // Start copying a dense row-major (rows x cols) f32 matrix from global
@@ -489,6 +524,166 @@ __device__ __forceinline__ void wgrad_store(
       const int row = e / nreal, col = e % nreal;
       float s = 0.0f;
       for (int k = 0; k < Q::WARPS_K; ++k) s += red[((size_t)k * MB + row) * NP + col];
+      dst[e] = s;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32 training helpers: the f32 forms of the train kernels (the JAX
+// package's default compute dtype) keep every map in f32, round nothing to
+// bf16 and multiply on the CUDA cores (FFMA; no TF32).  Sums over the
+// batch stay per CTA and are reduced in a fixed order, as above.
+// ---------------------------------------------------------------------------
+
+// out = g + gs1[b, c] + 2 z gs2[b, c] in f32, the order of the bf16 fold
+// without its rounding.  g, z, out: (B, HW, C) f32, C % 4 == 0.  One
+// thread per 4 channels of a pixel.
+template <int UNUSED = 0>
+__global__ void __launch_bounds__(256)
+adjust_grad_f32_kernel(const float* __restrict__ g,
+                       const float* __restrict__ z,
+                       const float* __restrict__ gs1,
+                       const float* __restrict__ gs2,
+                       float* __restrict__ out, long long pixels, int HW,
+                       int C) {
+  const int vpp = C / 4;
+  const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= pixels * vpp) return;
+  const long long m = v / vpp;
+  const int c0 = (int)(v % vpp) * 4;
+  const int b = (int)(m / HW);
+  const float4 gv = __ldg(reinterpret_cast<const float4*>(g + m * C + c0));
+  const float4 zv = __ldg(reinterpret_cast<const float4*>(z + m * C + c0));
+  const float gi[4] = {gv.x, gv.y, gv.z, gv.w};
+  const float zi[4] = {zv.x, zv.y, zv.z, zv.w};
+  float o[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float a1 = __ldg(gs1 + b * C + c0 + k);
+    const float a2 = __ldg(gs2 + b * C + c0 + k);
+    o[k] = __fadd_rn(__fadd_rn(gi[k], a1), __fmul_rn(__fmul_rn(2.0f, zi[k]), a2));
+  }
+  *reinterpret_cast<float4*>(out + m * C + c0) =
+      make_float4(o[0], o[1], o[2], o[3]);
+}
+
+inline cudaError_t adjust_grad_f32(const void* g, const void* z,
+                                   const void* gs1, const void* gs2,
+                                   void* out, int B, int HW, int C,
+                                   cudaStream_t s) {
+  if (C % 4) return cudaErrorInvalidValue;
+  const long long pixels = (long long)B * HW;
+  const long long n = pixels * (C / 4);
+  adjust_grad_f32_kernel<><<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+      static_cast<const float*>(g), static_cast<const float*>(z),
+      static_cast<const float*>(gs1), static_cast<const float*>(gs2),
+      static_cast<float*>(out), pixels, HW, C);
+  return cudaGetLastError();
+}
+
+// Thread tile of an f32 product whose depth is the pixel axis, both
+// operands pixel-major in shared memory (row k = a pixel):
+//   acc[4 ga + qa][4 gb + qb] += sum_{k < KLEN} A(k, ga CSA + qa) B(k, gb CSB + qb)
+// A row k at a + k * lda, B row k at b + k * ldb, 16-byte aligned.  With
+// a = As + 4 rg and b = Bs + 4 tc for thread (rg, tc) of an (RG x TC)
+// grid, CSA = 4 RG and CSB = 4 TC, the threads cover every (row, column)
+// of an (RG TM) x (TC TN) output once.  All threads read the same
+// pixel row at a time (broadcasts, consecutive float4 across tc); each
+// output is one f32 FMA chain in increasing k.
+template <int TM, int TN, int KLEN, int CSA, int CSB>
+__device__ __forceinline__ void ffma_outer(float (&acc)[TM][TN],
+                                           const float* a, int lda,
+                                           const float* b, int ldb) {
+  static_assert(TM % 4 == 0 && TN % 4 == 0, "ffma_outer shape");
+#pragma unroll 4
+  for (int k = 0; k < KLEN; ++k) {
+    float av[TM], bv[TN];
+#pragma unroll
+    for (int g = 0; g < TM / 4; ++g) {
+      const float4 v = *reinterpret_cast<const float4*>(a + k * lda + g * CSA);
+      av[4 * g] = v.x; av[4 * g + 1] = v.y; av[4 * g + 2] = v.z;
+      av[4 * g + 3] = v.w;
+    }
+#pragma unroll
+    for (int g = 0; g < TN / 4; ++g) {
+      const float4 v = *reinterpret_cast<const float4*>(b + k * ldb + g * CSB);
+      bv[4 * g] = v.x; bv[4 * g + 1] = v.y; bv[4 * g + 2] = v.z;
+      bv[4 * g + 3] = v.w;
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+// The f32 weight-gradient product of one CTA: D (MR x NC) += A^T G over
+// pixel blocks of BP staged pixel-major in shared memory (A (BP x MR), G
+// (BP x NC), row pitches MR and NC).  The threads form WK groups of an
+// (RG x TC) grid, RG = MR / TM, TC = NC / TN; group w takes pixels
+// [w KL, (w + 1) KL) of each block (KL = BP / WK), and at the end the
+// groups' sums are added in group order (wg32_store).
+template <int MR, int NC, int TM, int TN, int THREADS, int BP>
+struct Wg32 {
+  static constexpr int RG = MR / TM, TC = NC / TN, GT = RG * TC;
+  static constexpr int WK = THREADS / GT, KL = BP / WK;
+  static_assert(MR % TM == 0 && NC % TN == 0 && THREADS % GT == 0 &&
+                    BP % WK == 0 && TM % 4 == 0 && TN % 4 == 0,
+                "f32 wgrad grid");
+  static constexpr size_t a_bytes = ((size_t)BP * MR * 4 + 127) / 128 * 128;
+  static constexpr size_t g_bytes = ((size_t)BP * NC * 4 + 127) / 128 * 128;
+  static constexpr size_t red_bytes = WK > 1 ? (size_t)WK * MR * NC * 4 : 0;
+  static constexpr size_t smem =
+      a_bytes + g_bytes > red_bytes ? a_bytes + g_bytes : red_bytes;
+};
+
+template <int MR, int NC, int TM, int TN, int THREADS, int BP>
+__device__ __forceinline__ void wg32_step(const float* As, const float* Gs,
+                                          float (&acc)[TM][TN]) {
+  using Q = Wg32<MR, NC, TM, TN, THREADS, BP>;
+  const int w = threadIdx.x / Q::GT, t = threadIdx.x % Q::GT;
+  const int rg = t / Q::TC, tc = t % Q::TC;
+  ffma_outer<TM, TN, Q::KL, 4 * Q::RG, 4 * Q::TC>(
+      acc, As + (size_t)w * Q::KL * MR + 4 * rg, MR,
+      Gs + (size_t)w * Q::KL * NC + 4 * tc, NC);
+}
+
+// Store D's rows [0, mreal) x columns [0, nreal) to dst (row pitch nreal),
+// the WK groups' sums added in group order through shared memory (red,
+// >= red_bytes; the staged tiles must be dead).  Call with the whole
+// block.
+template <int MR, int NC, int TM, int TN, int THREADS, int BP>
+__device__ __forceinline__ void wg32_store(const float (&acc)[TM][TN],
+                                           float* red, float* dst, int mreal,
+                                           int nreal) {
+  using Q = Wg32<MR, NC, TM, TN, THREADS, BP>;
+  const int w = threadIdx.x / Q::GT, t = threadIdx.x % Q::GT;
+  const int rg = t / Q::TC, tc = t % Q::TC;
+  if constexpr (Q::WK == 1) {
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int row = 4 * rg + (i / 4) * 4 * Q::RG + i % 4;
+        const int col = 4 * tc + (j / 4) * 4 * Q::TC + j % 4;
+        if (row < mreal && col < nreal) dst[row * nreal + col] = acc[i][j];
+      }
+  } else {
+    __syncthreads();  // the staged tiles are dead: red may alias them
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int row = 4 * rg + (i / 4) * 4 * Q::RG + i % 4;
+        const int col = 4 * tc + (j / 4) * 4 * Q::TC + j % 4;
+        red[((size_t)w * MR + row) * NC + col] = acc[i][j];
+      }
+    __syncthreads();
+    for (int e = threadIdx.x; e < mreal * nreal; e += THREADS) {
+      const int row = e / nreal, col = e % nreal;
+      float s = 0.0f;
+      for (int k = 0; k < Q::WK; ++k) s += red[((size_t)k * MR + row) * NC + col];
       dst[e] = s;
     }
   }

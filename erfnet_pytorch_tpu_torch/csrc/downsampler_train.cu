@@ -35,6 +35,24 @@
 // read).  This version gathers each input pixel up to four times through
 // L2 and runs the transposed conv over all nine taps although the stride
 // leaves 1, 2 or 4 of them for each input pixel.
+//
+// The f32 forms (erf_down_train_*_f32, the JAX package's default compute
+// dtype): the same function with every map in f32 and nothing rounded to
+// bf16; the stem translates the f32 image without a cast and saves it in
+// f32.  Products on the CUDA cores (FFMA micro-tiles, common.cuh
+// ffma_tile / ffma_outer; no TF32): the forward and the input gradient
+// are implicit GEMMs over tiles of output (input) pixels whose K extent is
+// staged a chunk of taps at a time where the f32 tap stack would not fit
+// beside the tile (the (64, 64) forward's 144 KB of taps three taps at a
+// time, the input gradients three taps at a time; each chunk summed in a
+// chain of its own, the chunks added in order); the pool of the
+// non-stem forward reads its 2x2 window from the map.  The weight
+// gradient is one (Cin x Cc) product per (pixel chunk, tap), the stem's
+// one (27 x 13) product over all taps per chunk (its im2col rows), with
+// the pixels as the product's depth.  The same launches, partial buffers
+// and fixed-order reductions as the bf16 forms.  Bound at f32: bytes for
+// the stem, operations for the others (9 Cin Cc MACs per output pixel
+// against 67 TFLOP/s).
 #include "common.cuh"
 
 using namespace erfk;
@@ -368,6 +386,381 @@ down_wgrad_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
       acc, reinterpret_cast<float*>(smem), dst + tap * CIN * CC, CIN, CC);
 }
 
+
+// ---------------------------------------------------------------------------
+// f32 forms
+// ---------------------------------------------------------------------------
+
+constexpr int round4(int v) { return (v + 3) / 4 * 4; }
+
+// Forward: tiles of BM output pixels; thread (rowg, colg) of an RS x TC
+// grid owns rows rowg + i RS (i < TM) and conv channels 4 colg .. + 3
+// (TN = 4).  NCHUNK chunks of TPC taps; KC = TPC CIN columns.
+template <int CIN, int CC>
+struct Fwd32 {
+  static constexpr bool STEM = CIN == 3;
+  static constexpr int COUT = CIN + CC, K = 9 * CIN;
+  static constexpr int NP = round4(CC), TN = 4, TC = NP / TN;
+  static constexpr int THREADS = TC == 12 ? 192 : 256;
+  static constexpr int BM = STEM ? 128 : 64, RS = THREADS / TC, TM = BM / RS;
+  static constexpr int NCHUNK = CIN == 64 ? 3 : 1, TPC = 9 / NCHUNK;
+  static constexpr int KC = STEM ? round4(K) : TPC * CIN;
+  static constexpr int LDA = pitch4(KC);
+  static constexpr size_t a_bytes = ((size_t)BM * LDA * 4 + 127) / 128 * 128;
+  static constexpr size_t c_bytes = ((size_t)BM * NP * 4 + 127) / 128 * 128;
+  static constexpr size_t smem = a_bytes + c_bytes + (size_t)KC * NP * 4;
+  static_assert(THREADS % TC == 0 && BM % RS == 0 && THREADS % COUT == 0 &&
+                    KC % 4 == 0 && (size_t)THREADS * 2 * 4 <= c_bytes,
+                "f32 down forward tile");
+};
+
+// Stage taps [t0, t0 + TPC) of the 3x3 windows of output pixels [m0,
+// m_end): row r, column tq CIN + ci; zero off the map and in the K pad.
+// STEM: the f32 image translated by (tx, ty), scalar loads.
+template <int CIN, int CC>
+__device__ __forceinline__ void gather_fwd_f32(float* As, const float* x,
+                                               const int* shifts,
+                                               long long m0, long long m_end,
+                                               int Ho, int Wo, int t0) {
+  using G = Fwd32<CIN, CC>;
+  const int H = 2 * Ho, W = 2 * Wo;
+  if constexpr (G::STEM) {
+    for (int e = threadIdx.x; e < G::BM * G::KC; e += blockDim.x) {
+      const int r = e / G::KC, k = e % G::KC;
+      const long long m = m0 + r;
+      const int tap = k / CIN, ci = k % CIN;
+      const long long b = m / ((long long)Ho * Wo);
+      const int rem = (int)(m % ((long long)Ho * Wo));
+      int hi = 2 * (rem / Wo) - 1 + tap / 3;
+      int wi = 2 * (rem % Wo) - 1 + tap % 3;
+      bool valid = m < m_end && k < G::K && hi >= 0 && hi < H && wi >= 0 &&
+                   wi < W;
+      float v = 0.0f;
+      if (valid) {
+        hi -= __ldg(shifts + 2 * b + 1);
+        wi -= __ldg(shifts + 2 * b);
+        if (hi >= 0 && hi < H && wi >= 0 && wi < W)
+          v = __ldg(x + ((b * H + hi) * W + wi) * CIN + ci);
+      }
+      As[r * G::LDA + k] = v;
+    }
+  } else {
+    constexpr int VPT = CIN / 4;
+    for (int v = threadIdx.x; v < G::BM * G::TPC * VPT; v += blockDim.x) {
+      const int r = v / (G::TPC * VPT), tq = (v / VPT) % G::TPC, j = v % VPT;
+      const int tap = t0 + tq;
+      const long long m = m0 + r;
+      const long long b = m / ((long long)Ho * Wo);
+      const int rem = (int)(m % ((long long)Ho * Wo));
+      const int hi = 2 * (rem / Wo) - 1 + tap / 3;
+      const int wi = 2 * (rem % Wo) - 1 + tap % 3;
+      const bool valid = m < m_end && hi >= 0 && hi < H && wi >= 0 && wi < W;
+      const long long pix = valid ? (b * H + hi) * W + wi : 0;
+      cp_async16(As + r * G::LDA + tq * CIN + j * 4, x + pix * CIN + j * 4,
+                 valid);
+    }
+  }
+}
+
+template <int CIN, int CC>
+__global__ void __launch_bounds__(256)
+down_fwd_f32_kernel(const float* __restrict__ x,
+                    const int* __restrict__ shifts,
+                    const float* __restrict__ wmat,
+                    const float* __restrict__ bias, float* __restrict__ out,
+                    float* __restrict__ xa, float* __restrict__ part, int B,
+                    int Ho, int Wo) {
+  using G = Fwd32<CIN, CC>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* As = reinterpret_cast<float*>(smem);
+  float* Cs = reinterpret_cast<float*>(smem + G::a_bytes);
+  float* Ws = reinterpret_cast<float*>(smem + G::a_bytes + G::c_bytes);
+  const int HWo = Ho * Wo, TPI = (HWo + G::BM - 1) / G::BM;
+  const int tiles = B * TPI;
+  const int H = 2 * Ho, W = 2 * Wo;
+  const int c = threadIdx.x % G::COUT;  // this thread's epilogue channel
+  const float bc = c < CC ? __ldg(bias + c) : 0.0f;
+  const int colg = threadIdx.x % G::TC, rowg = threadIdx.x / G::TC;
+
+  if constexpr (G::NCHUNK == 1) load_matrix(Ws, G::NP, wmat, G::KC, G::NP);
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int b = tile / TPI, local = tile % TPI;
+    const long long m0 = (long long)b * HWo + (long long)local * G::BM;
+    const long long e_img = (long long)b * HWo + HWo;
+    const long long m_end = m0 + G::BM < e_img ? m0 + G::BM : e_img;
+    float acc[G::TM][G::TN];
+    zero_tile(acc);
+    for (int ch = 0; ch < G::NCHUNK; ++ch) {
+      gather_fwd_f32<CIN, CC>(As, x, shifts, m0, m_end, Ho, Wo, ch * G::TPC);
+      if constexpr (G::NCHUNK > 1)
+        load_matrix(Ws, G::NP, wmat + (size_t)ch * G::KC * G::NP, G::KC,
+                    G::NP);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+      if constexpr (G::NCHUNK == 1) {
+        ffma_tile<G::TM, G::TN, G::KC, 4 * G::TC>(
+            acc, As + rowg * G::LDA, G::RS * G::LDA, Ws + 4 * colg, G::NP);
+      } else {  // a chain per chunk, added in order (add_tile)
+        float part[G::TM][G::TN];
+        zero_tile(part);
+        ffma_tile<G::TM, G::TN, G::KC, 4 * G::TC>(
+            part, As + rowg * G::LDA, G::RS * G::LDA, Ws + 4 * colg, G::NP);
+        add_tile(acc, part);
+        __syncthreads();  // chunk consumed
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < G::TM; ++i)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        Cs[(rowg + i * G::RS) * G::NP + 4 * colg + q] = acc[i][q];
+    __syncthreads();
+
+    float s0 = 0.0f, s1 = 0.0f;
+    for (int e = threadIdx.x; e < G::BM * G::COUT; e += blockDim.x) {
+      const int r = e / G::COUT;
+      const long long m = m0 + r;
+      if (m >= m_end) break;
+      float v;
+      if (c < CC) {
+        v = Cs[r * G::NP + c] + bc;
+      } else if constexpr (G::STEM) {
+        const float* a = As + r * G::LDA + (c - CC);
+        v = fmaxf(fmaxf(a[4 * CIN], a[5 * CIN]), fmaxf(a[7 * CIN], a[8 * CIN]));
+      } else {
+        const int rem = (int)(m - (long long)b * HWo);
+        const float* p = x + (((long long)b * H + 2 * (rem / Wo)) * W +
+                              2 * (rem % Wo)) * CIN + (c - CC);
+        v = fmaxf(fmaxf(__ldg(p), __ldg(p + CIN)),
+                  fmaxf(__ldg(p + (long long)W * CIN),
+                        __ldg(p + (long long)W * CIN + CIN)));
+      }
+      out[m * G::COUT + c] = v;
+      s0 += v;
+      s1 += __fmul_rn(v, v);
+    }
+    if constexpr (G::STEM) {
+      // each input pixel lies in exactly one output pixel's 2x2 window
+      // (taps 4, 5, 7, 8): that tile writes its translated value
+      for (int e = threadIdx.x; e < G::BM * 4 * CIN; e += blockDim.x) {
+        const int r = e / (4 * CIN), q = (e / CIN) % 4, ci = e % CIN;
+        const long long m = m0 + r;
+        if (m >= m_end) break;
+        const int rem = (int)(m - (long long)b * HWo);
+        const int h = 2 * (rem / Wo) + q / 2, w = 2 * (rem % Wo) + q % 2;
+        const int tap = (1 + q / 2) * 3 + 1 + q % 2;
+        xa[(((long long)b * H + h) * W + w) * CIN + ci] =
+            As[r * G::LDA + tap * CIN + ci];
+      }
+    }
+    __syncthreads();  // Cs and As read: Cs becomes the reduction scratch
+    float* red = Cs;
+    red[threadIdx.x] = s0;
+    red[G::THREADS + threadIdx.x] = s1;
+    __syncthreads();
+    if (threadIdx.x < G::COUT) {
+      float a0 = 0.0f, a1 = 0.0f;
+      for (int t = threadIdx.x; t < G::THREADS; t += G::COUT) {
+        a0 += red[t];
+        a1 += red[G::THREADS + t];
+      }
+      part[(long long)tile * 2 * G::COUT + threadIdx.x] = a0;
+      part[(long long)tile * 2 * G::COUT + G::COUT + threadIdx.x] = a1;
+    }
+    __syncthreads();
+  }
+  cp_async_wait_all();
+}
+
+// Input gradient of the conv (K = 9 CC in three chunks of three taps, N =
+// CIN) plus the pool's; thread (rowg, colg) owns input pixels rowg + i RS
+// and input channels 4 colg .. + 3.
+template <int CIN, int CC>
+struct Dx32 {
+  static constexpr int COUT = CIN + CC, TPC = 3, KC = TPC * CC;
+  static constexpr int TN = 4, TC = CIN / TN, THREADS = 256;
+  static constexpr int RS = THREADS / TC, BM = CIN == 16 ? 128 : 64;
+  static constexpr int TM = BM / RS, LDA = pitch4(KC);
+  static constexpr size_t a_bytes = ((size_t)BM * LDA * 4 + 127) / 128 * 128;
+  static constexpr size_t smem = a_bytes + (size_t)KC * CIN * 4;
+  static_assert(CC % 4 == 0 && CIN % 4 == 0 && BM % RS == 0, "f32 dx tile");
+};
+
+template <int CIN, int CC>
+__global__ void __launch_bounds__(256)
+down_dx_f32_kernel(const float* __restrict__ g, const float* __restrict__ x,
+                   const float* __restrict__ wt, float* __restrict__ dx,
+                   int B, int H, int W) {
+  using G = Dx32<CIN, CC>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* As = reinterpret_cast<float*>(smem);
+  float* Ws = reinterpret_cast<float*>(smem + G::a_bytes);
+  const int Ho = H / 2, Wo = W / 2;
+  const long long M = (long long)B * H * W;
+  const long long tiles = (M + G::BM - 1) / G::BM;
+  constexpr int VPT = CC / 4;
+  const int colg = threadIdx.x % G::TC, rowg = threadIdx.x / G::TC;
+
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long m0 = tile * G::BM;
+    float acc[G::TM][G::TN];
+    zero_tile(acc);
+    for (int ch = 0; ch < 3; ++ch) {
+      for (int v = threadIdx.x; v < G::BM * G::TPC * VPT; v += blockDim.x) {
+        const int r = v / (G::TPC * VPT), tq = (v / VPT) % G::TPC,
+                  j = v % VPT;
+        const int tap = ch * G::TPC + tq;
+        const long long m = m0 + r;
+        const long long b = m / ((long long)H * W);
+        const int rem = (int)(m % ((long long)H * W));
+        const int hh = rem / W + 1 - tap / 3, ww = rem % W + 1 - tap % 3;
+        const bool valid = m < M && hh >= 0 && ww >= 0 && hh % 2 == 0 &&
+                           ww % 2 == 0 && hh / 2 < Ho && ww / 2 < Wo;
+        const long long pix = valid ? (b * Ho + hh / 2) * Wo + ww / 2 : 0;
+        cp_async16(As + r * G::LDA + tq * CC + j * 4,
+                   g + pix * G::COUT + j * 4, valid);
+      }
+      load_matrix(Ws, CIN, wt + (size_t)ch * G::KC * CIN, G::KC, CIN);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+      float part[G::TM][G::TN];  // a chain per chunk (add_tile)
+      zero_tile(part);
+      ffma_tile<G::TM, G::TN, G::KC, 4 * G::TC>(
+          part, As + rowg * G::LDA, G::RS * G::LDA, Ws + 4 * colg, CIN);
+      add_tile(acc, part);
+      __syncthreads();  // chunk consumed before the next gather
+    }
+#pragma unroll
+    for (int i = 0; i < G::TM; ++i) {
+      const long long m = m0 + rowg + i * G::RS;
+      if (m >= M) break;  // rows grow with i
+      const long long b = m / ((long long)H * W);
+      const int rem = (int)(m % ((long long)H * W));
+      const int h = rem / W, w = rem % W;
+      const int ho = h / 2, wo = w / 2, pr = h % 2, pc = w % 2;
+      float o[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int ci = 4 * colg + q;
+        const float* win = x + ((b * H + 2 * ho) * W + 2 * wo) * CIN + ci;
+        float xv[2][2];
+#pragma unroll
+        for (int a = 0; a < 2; ++a)
+#pragma unroll
+          for (int k = 0; k < 2; ++k)
+            xv[a][k] = __ldg(win + ((long long)a * W + k) * CIN);
+        const float m0v = fmaxf(xv[0][0], xv[0][1]);
+        const float m1v = fmaxf(xv[1][0], xv[1][1]);
+        const float mp = fmaxf(m0v, m1v);
+        const float gp = __ldg(g + ((b * Ho + ho) * Wo + wo) * G::COUT + CC + ci);
+        const float mr = pr ? m1v : m0v;
+        float share = 0.0f;
+        if (mr == mp) {
+          const float gr = gp / (float)((m0v == mp) + (m1v == mp));
+          if (xv[pr][pc] == mr)
+            share = gr / (float)((xv[pr][0] == mr) + (xv[pr][1] == mr));
+        }
+        o[q] = acc[i][q] + share;
+      }
+      *reinterpret_cast<float4*>(dx + m * CIN + 4 * colg) =
+          make_float4(o[0], o[1], o[2], o[3]);
+    }
+  }
+}
+
+// Weight gradient, f32: blockIdx.x = a chunk of CHUNK output pixels,
+// blockIdx.y = tap (the stem: one CTA per chunk over its 27 im2col rows,
+// tap ci).  part[chunk] = [dW (9, CIN, CC) | db (CC)], db from the
+// blockIdx.y = 0 CTAs.
+template <int CIN, int CC>
+struct Wg32Shape {
+  static constexpr bool STEM = CIN == 3;
+  static constexpr int MR = STEM ? 32 : CIN, NC = round4(CC);
+  static constexpr int THREADS = CC == 48 ? 192 : 256, BP = 64;
+  using Q = Wg32<MR, NC, 4, 4, THREADS, BP>;
+  static constexpr int PLEN = 9 * CIN * CC + CC;
+};
+
+template <int CIN, int CC>
+__global__ void __launch_bounds__(256)
+down_wgrad_f32_kernel(const float* __restrict__ x,
+                      const float* __restrict__ g, float* __restrict__ part,
+                      int B, int Ho, int Wo) {
+  using S = Wg32Shape<CIN, CC>;
+  using Q = typename S::Q;
+  constexpr int COUT = CIN + CC;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* As = reinterpret_cast<float*>(smem);
+  float* Gs = reinterpret_cast<float*>(smem + Q::a_bytes);
+  const int tap0 = blockIdx.y;
+  const int H = 2 * Ho, W = 2 * Wo;
+  const long long P = (long long)B * Ho * Wo;
+  const long long p_begin = (long long)blockIdx.x * CHUNK;
+  const long long p_stop = p_begin + CHUNK < P ? p_begin + CHUNK : P;
+  float dbs = 0.0f;
+  float acc[4][4];
+  zero_tile(acc);
+
+  for (long long p0 = p_begin; p0 < p_stop; p0 += S::BP) {
+    if constexpr (S::STEM) {
+      // row k = tap * 3 + ci of the im2col window (k < 27), zero past
+      for (int e = threadIdx.x; e < S::BP * S::MR; e += blockDim.x) {
+        const int r = e / S::MR, k = e % S::MR;
+        const long long p = p0 + r;
+        const long long b = p / ((long long)Ho * Wo);
+        const int rem = (int)(p % ((long long)Ho * Wo));
+        const int tap = k / CIN, ci = k % CIN;
+        const int hi = 2 * (rem / Wo) - 1 + tap / 3;
+        const int wi = 2 * (rem % Wo) - 1 + tap % 3;
+        const bool valid = p < p_stop && k < 9 * CIN && hi >= 0 && hi < H &&
+                           wi >= 0 && wi < W;
+        As[r * S::MR + k] =
+            valid ? __ldg(x + ((b * H + hi) * W + wi) * CIN + ci) : 0.0f;
+      }
+      for (int e = threadIdx.x; e < S::BP * S::NC; e += blockDim.x) {
+        const int r = e / S::NC, k = e % S::NC;
+        const long long p = p0 + r;
+        Gs[r * S::NC + k] =
+            p < p_stop && k < CC ? __ldg(g + p * COUT + k) : 0.0f;
+      }
+    } else {
+      const int kh = tap0 / 3, kw = tap0 % 3;
+      for (int e = threadIdx.x; e < S::BP * (CIN + CC) / 4; e += blockDim.x) {
+        const int r = e / ((CIN + CC) / 4), v = e % ((CIN + CC) / 4);
+        const long long p = p0 + r;
+        if (v < CIN / 4) {
+          const long long b = p / ((long long)Ho * Wo);
+          const int rem = (int)(p % ((long long)Ho * Wo));
+          const int hi = 2 * (rem / Wo) - 1 + kh, wi = 2 * (rem % Wo) - 1 + kw;
+          const bool valid = p < p_stop && hi >= 0 && hi < H && wi >= 0 &&
+                             wi < W;
+          const long long src = valid ? ((b * H + hi) * W + wi) * CIN : 0;
+          cp_async16(As + r * S::MR + 4 * v, x + src + 4 * v, valid);
+        } else {
+          const int k = 4 * (v - CIN / 4);
+          const bool valid = p < p_stop;
+          cp_async16(Gs + r * S::NC + k, g + (valid ? p * COUT : 0) + k,
+                     valid);
+        }
+      }
+      cp_async_commit();
+      cp_async_wait_all();
+    }
+    __syncthreads();
+    if (tap0 == 0 && threadIdx.x < CC)
+      for (int r = 0; r < S::BP; ++r) dbs += Gs[r * S::NC + threadIdx.x];
+    wg32_step<S::MR, S::NC, 4, 4, S::THREADS, S::BP>(As, Gs, acc);
+    __syncthreads();
+  }
+  float* dst = part + (long long)blockIdx.x * S::PLEN;
+  if (tap0 == 0 && threadIdx.x < CC) dst[9 * CIN * CC + threadIdx.x] = dbs;
+  wg32_store<S::MR, S::NC, 4, 4, S::THREADS, S::BP>(
+      acc, reinterpret_cast<float*>(smem), dst + tap0 * CIN * CC,
+      S::STEM ? 9 * CIN : CIN, CC);
+}
+
 // ------------------------------- launchers --------------------------------
 
 template <class Kernel>
@@ -439,6 +832,69 @@ int bwd(const void* gy, const void* y, const void* gs1, const void* gs2,
                       static_cast<float*>(grads), 1, chunks, S::PLEN, s);
 }
 
+template <int CIN, int CC>
+int fwd_f32(const void* x, const void* shifts, const void* wmat,
+            const void* bias, void* out, void* xa, void* part, void* stats,
+            int B, int H, int W, cudaStream_t s) {
+  using G = Fwd32<CIN, CC>;
+  static bool ok = false;
+  static int gm = 0;
+  cudaError_t e = grid_for(down_fwd_f32_kernel<CIN, CC>, G::THREADS, G::smem,
+                           &ok, &gm);
+  if (e != cudaSuccess) return e;
+  const int Ho = H / 2, Wo = W / 2;
+  const int tpi = (Ho * Wo + G::BM - 1) / G::BM;
+  const int tiles = B * tpi;
+  down_fwd_f32_kernel<CIN, CC>
+      <<<tiles < gm ? tiles : gm, G::THREADS, G::smem, s>>>(
+          static_cast<const float*>(x), static_cast<const int*>(shifts),
+          static_cast<const float*>(wmat), static_cast<const float*>(bias),
+          static_cast<float*>(out), static_cast<float*>(xa),
+          static_cast<float*>(part), B, Ho, Wo);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  return reduce_parts(static_cast<const float*>(part),
+                      static_cast<float*>(stats), B, tpi, 2 * G::COUT, s);
+}
+
+template <int CIN, int CC, bool DX>
+int bwd_f32(const void* gy, const void* y, const void* gs1, const void* gs2,
+            const void* x, const void* wt, void* g, void* dx, void* part,
+            void* grads, int B, int H, int W, cudaStream_t s) {
+  constexpr int COUT = CIN + CC;
+  const int Ho = H / 2, Wo = W / 2;
+  cudaError_t e = adjust_grad_f32(gy, y, gs1, gs2, g, B, Ho * Wo, COUT, s);
+  if (e != cudaSuccess) return e;
+  if constexpr (DX) {
+    using G = Dx32<CIN, CC>;
+    static bool ok = false;
+    static int gm = 0;
+    if ((e = grid_for(down_dx_f32_kernel<CIN, CC>, G::THREADS, G::smem, &ok,
+                      &gm)) != cudaSuccess)
+      return e;
+    const long long tiles = ((long long)B * H * W + G::BM - 1) / G::BM;
+    down_dx_f32_kernel<CIN, CC>
+        <<<(unsigned)(tiles < gm ? tiles : gm), G::THREADS, G::smem, s>>>(
+            static_cast<const float*>(g), static_cast<const float*>(x),
+            static_cast<const float*>(wt), static_cast<float*>(dx), B, H, W);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  using S = Wg32Shape<CIN, CC>;
+  using Q = typename S::Q;
+  static bool wg_ok = false;
+  if ((e = allow_smem(down_wgrad_f32_kernel<CIN, CC>, Q::smem, &wg_ok)) !=
+      cudaSuccess)
+    return e;
+  const long long P = (long long)B * Ho * Wo;
+  const int chunks = (int)((P + CHUNK - 1) / CHUNK);
+  down_wgrad_f32_kernel<CIN, CC>
+      <<<dim3(chunks, S::STEM ? 1 : 9), S::THREADS, Q::smem, s>>>(
+          static_cast<const float*>(x), static_cast<const float*>(g),
+          static_cast<float*>(part), B, Ho, Wo);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  return reduce_parts(static_cast<const float*>(part),
+                      static_cast<float*>(grads), 1, chunks, S::PLEN, s);
+}
+
 bool shape_ok(int B, int H, int W, int cin) {
   return B > 0 && H > 0 && W > 0 && H % 2 == 0 && W % 2 == 0 &&
          (long long)B * H * W * (cin > 64 ? cin : 64) < (1LL << 31);
@@ -498,5 +954,50 @@ extern "C" int erf_down_train_bwd(const void* gy, const void* y,
   if (!stem && cin == 64 && cc == 64)
     return bwd<64, 64, true>(gy, y, gs1, gs2, x, wt, g, dx, part, grads, B,
                              H, W, s);
+  return cudaErrorInvalidValue;
+}
+
+
+// The f32 forms: the same operands with x (the f32 image in the stem
+// mode), out, xa in f32; wmat: (round4(9 cin), round4(cc)) f32, zero
+// padded.
+extern "C" int erf_down_train_fwd_f32(const void* x, const void* shifts,
+                                      const void* wmat, const void* bias,
+                                      void* out, void* xa, void* part,
+                                      void* stats, int B, int H, int W,
+                                      int cin, int cc, int stem,
+                                      void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!shape_ok(B, H, W, cin)) return cudaErrorInvalidValue;
+  if (stem && cin == 3 && cc == 13)
+    return fwd_f32<3, 13>(x, shifts, wmat, bias, out, xa, part, stats, B, H,
+                          W, s);
+  if (!stem && cin == 16 && cc == 48)
+    return fwd_f32<16, 48>(x, shifts, wmat, bias, out, xa, part, stats, B, H,
+                           W, s);
+  if (!stem && cin == 64 && cc == 64)
+    return fwd_f32<64, 64>(x, shifts, wmat, bias, out, xa, part, stats, B, H,
+                           W, s);
+  return cudaErrorInvalidValue;
+}
+
+// The f32 backward: gy, y, x, wt (9 cc, cin), g, dx in f32.
+extern "C" int erf_down_train_bwd_f32(const void* gy, const void* y,
+                                      const void* gs1, const void* gs2,
+                                      const void* x, const void* wt, void* g,
+                                      void* dx, void* part, void* grads,
+                                      int B, int H, int W, int cin, int cc,
+                                      int stem, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!shape_ok(B, H, W, cin)) return cudaErrorInvalidValue;
+  if (stem && cin == 3 && cc == 13)
+    return bwd_f32<3, 13, false>(gy, y, gs1, gs2, x, wt, g, dx, part, grads,
+                                 B, H, W, s);
+  if (!stem && cin == 16 && cc == 48)
+    return bwd_f32<16, 48, true>(gy, y, gs1, gs2, x, wt, g, dx, part, grads,
+                                 B, H, W, s);
+  if (!stem && cin == 64 && cc == 64)
+    return bwd_f32<64, 64, true>(gy, y, gs1, gs2, x, wt, g, dx, part, grads,
+                                 B, H, W, s);
   return cudaErrorInvalidValue;
 }

@@ -59,6 +59,24 @@
 // This version moves t1, g and dz1 through device memory between launches
 // and gathers every input pixel three times; one fused launch per pair
 // with the intermediate kept on chip, and wgmma, are the next steps.
+//
+// The f32 forms (erf_pair_*_f32, the JAX package's default compute dtype):
+// the same launches and the same function with every map in f32 and
+// nothing rounded to bf16 (t0, t1, z, g, dz1 and the outputs stay f32; the
+// lead stage's a, b and mask are not rounded).  The convs are implicit
+// GEMMs on the CUDA cores (FFMA micro-tiles, common.cuh ffma_tile; no
+// TF32): each thread owns TM pixels x 8 channels of a tile.  An f32 tap
+// stack is 3 C^2 x 4 bytes, 192 KB at C = 128, so the C = 128 convs take
+// K one tap at a time (the tap's weights and the tile's shifted rows,
+// restaged per tile), as the f32 serving block does, each tap's sum in
+// a chain of its own, the taps added in order (as the plain version adds
+// its per-tap products; a quarter of one 384-term chain's error at the
+// backward's dx, PERF.md §6); the C = 64 and C = 16 stacks are staged
+// once per CTA.  The weight gradients are (C x C)
+// products with the chunk's pixels as their depth (common.cuh
+// ffma_outer), per (chunk, tap) partials reduced in a fixed order.
+// Bound at f32: operations at every C (6 C^2 MACs per pixel forward, 12
+// C^2 backward, against 67 TFLOP/s).
 #include "common.cuh"
 
 using namespace erfk;
@@ -479,6 +497,377 @@ wgrad_kernel(const bf16* __restrict__ t0, const bf16* __restrict__ dz1,
                                   C);
 }
 
+
+// ---------------------------------------------------------------------------
+// f32 forms
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+__device__ __forceinline__ void st4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// Thread t of the tile grid owns pixels rowg + i RS (i < TM, rowg = t /
+// TC) and channels 4 colg + g CS + q (g < TN / 4, q < 4, colg = t % TC,
+// CS = 4 TC).  NCHUNK chunks of TPC taps, KC = TPC C columns.
+template <int C>
+struct Cfg32 {
+  static constexpr int THREADS = 256, TN = 8, BM = C == 16 ? 256 : 64;
+  static constexpr int TC = C / TN, RS = THREADS / TC, TM = BM / RS;
+  static constexpr int CS = 4 * TC;
+  static constexpr int NCHUNK = C == 128 ? 3 : 1, TPC = 3 / NCHUNK;
+  static constexpr int KC = TPC * C, LDA = pitch4(KC);
+  static constexpr size_t a_bytes = ((size_t)BM * LDA * 4 + 127) / 128 * 128;
+  static constexpr size_t smem = a_bytes + (size_t)KC * C * 4;
+  static_assert(THREADS % TC == 0 && BM % RS == 0 &&
+                    (size_t)RS * 2 * C * 4 <= a_bytes,
+                "f32 pair tile");
+};
+
+// Start copying taps [t0, t0 + TPC) of the A tile of pixels [m0, m_end):
+// row r, column tq C + c = channel c of pixel m0 + r shifted by (t0 + tq
+// - 1) dil along the axis, zero off the map or past the tile.
+template <int C>
+__device__ __forceinline__ void gather_f32(float* As, const float* src,
+                                           long long m0, long long m_end,
+                                           int H, int W, int axis, int dil,
+                                           int t0) {
+  using G = Cfg32<C>;
+  constexpr int VPT = C / 4;
+  const int step = axis == 0 ? W : 1;
+  const int lim = axis == 0 ? H : W;
+  for (int v = threadIdx.x; v < G::BM * G::TPC * VPT; v += blockDim.x) {
+    const int r = v / (G::TPC * VPT), tq = (v / VPT) % G::TPC, j = v % VPT;
+    const long long m = m0 + r;
+    const int off = (t0 + tq - 1) * dil;
+    const int pos = axis == 0 ? (int)((m / W) % H) : (int)(m % W);
+    const bool valid = m < m_end && pos + off >= 0 && pos + off < lim;
+    const long long pix = valid ? m + (long long)off * step : 0;
+    cp_async16(As + r * G::LDA + tq * C + j * 4, src + pix * C + j * 4,
+               valid);
+  }
+}
+
+// One conv over all tiles of this CTA's share, f32: acc = sum_t shift(src,
+// t) @ w[t]; then epi(m, b, c0, v, s0, s1) for each owned pixel m and
+// group of 4 channels c0..; with Epi::SUMS the per-thread sums are added
+// over the tile in a fixed order into part[tile][2C].
+template <int C, class Epi>
+__device__ void conv_tiles_f32(unsigned char* smem, const float* src,
+                               const float* w, int B, int H, int W, int axis,
+                               int dil, const Epi& epi, float* part) {
+  using G = Cfg32<C>;
+  constexpr int NG = G::TN / 4;
+  float* As = reinterpret_cast<float*>(smem);
+  float* Ws = reinterpret_cast<float*>(smem + G::a_bytes);
+  const TileMap tm{H * W, (H * W + G::BM - 1) / G::BM};
+  const int tiles = B * tm.TPI;
+  const int colg = threadIdx.x % G::TC, rowg = threadIdx.x / G::TC;
+
+  if constexpr (G::NCHUNK == 1) load_matrix(Ws, C, w, G::KC, C);
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    int b;
+    long long m0, m_end;
+    tm.at(tile, G::BM, b, m0, m_end);
+    float acc[G::TM][G::TN];
+    zero_tile(acc);
+    for (int ch = 0; ch < G::NCHUNK; ++ch) {
+      gather_f32<C>(As, src, m0, m_end, H, W, axis, dil, ch * G::TPC);
+      if constexpr (G::NCHUNK > 1)
+        load_matrix(Ws, C, w + (size_t)ch * G::KC * C, G::KC, C);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+      if constexpr (G::NCHUNK == 1) {
+        ffma_tile<G::TM, G::TN, G::KC, G::CS>(acc, As + rowg * G::LDA,
+                                              G::RS * G::LDA, Ws + 4 * colg,
+                                              C);
+      } else {  // a chain per tap, the taps added in order (add_tile)
+        float part[G::TM][G::TN];
+        zero_tile(part);
+        ffma_tile<G::TM, G::TN, G::KC, G::CS>(part, As + rowg * G::LDA,
+                                              G::RS * G::LDA, Ws + 4 * colg,
+                                              C);
+        add_tile(acc, part);
+      }
+      __syncthreads();  // every thread is done with the chunk
+    }
+    float s0[G::TN], s1[G::TN];
+#pragma unroll
+    for (int j = 0; j < G::TN; ++j) s0[j] = s1[j] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < G::TM; ++i) {
+      const long long m = m0 + rowg + i * G::RS;
+      if (m >= m_end) break;  // rows grow with i
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        float v[4] = {acc[i][4 * g], acc[i][4 * g + 1], acc[i][4 * g + 2],
+                      acc[i][4 * g + 3]};
+        epi(m, b, 4 * colg + g * G::CS, v, s0 + 4 * g, s1 + 4 * g);
+      }
+    }
+    if constexpr (Epi::SUMS) {
+      float* red = As;  // the chunk loop ended with a barrier
+#pragma unroll
+      for (int j = 0; j < G::TN; ++j) {
+        const int c = 4 * colg + (j / 4) * G::CS + j % 4;
+        red[rowg * 2 * C + c] = s0[j];
+        red[rowg * 2 * C + C + c] = s1[j];
+      }
+      __syncthreads();
+      for (int c = threadIdx.x; c < 2 * C; c += blockDim.x) {
+        float s = 0.0f;
+        for (int q = 0; q < G::RS; ++q) s += red[q * 2 * C + c];
+        part[(long long)tile * 2 * C + c] = s;
+      }
+      __syncthreads();  // red is read before the next gather
+    }
+  }
+  cp_async_wait_all();
+}
+
+// t1 = relu(acc + bh)
+template <int C>
+struct EpiReluBias32 {
+  static constexpr bool SUMS = false;
+  const float* bias;
+  float* out;
+  __device__ void operator()(long long m, int, int c0, float (&v)[4], float*,
+                             float*) const {
+    float o[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) o[k] = fmaxf(v[k] + __ldg(bias + c0 + k), 0.0f);
+    st4(out + m * C + c0, o);
+  }
+};
+
+// z = acc + bw; s0 += z, s1 += z^2
+template <int C>
+struct EpiStats32 {
+  static constexpr bool SUMS = true;
+  const float* bias;
+  float* out;
+  __device__ void operator()(long long m, int, int c0, float (&v)[4],
+                             float* s0, float* s1) const {
+    float o[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      o[k] = v[k] + __ldg(bias + c0 + k);
+      s0[k] += o[k];
+      s1[k] += __fmul_rn(o[k], o[k]);
+    }
+    st4(out + m * C + c0, o);
+  }
+};
+
+// dz1 = acc [t1 > 0]; s0 += dz1, s1 += g
+template <int C>
+struct EpiDz1_32 {
+  static constexpr bool SUMS = true;
+  const float* t1;
+  const float* g;
+  float* out;
+  __device__ void operator()(long long m, int, int c0, float (&v)[4],
+                             float* s0, float* s1) const {
+    const float4 t = ld4(t1 + m * C + c0), gv = ld4(g + m * C + c0);
+    const float tv[4] = {t.x, t.y, t.z, t.w}, gg[4] = {gv.x, gv.y, gv.z, gv.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      v[k] = tv[k] > 0.0f ? v[k] : 0.0f;
+      s0[k] += v[k];
+      s1[k] += gg[k];
+    }
+    st4(out + m * C + c0, v);
+  }
+};
+
+// the lead stage's backward from dt0 = acc, f32 (see the file comment)
+template <int C, int MODE>
+struct EpiLeadBwd32 {
+  static constexpr bool SUMS = MODE != NONE;
+  const float* x;     // affine: x; epi: t
+  const float* mask;  // affine: t0; epi: y_next
+  const float* gy;    // epi
+  const float* drop;  // epi: (B, C)
+  const float* a;     // (C,)
+  float* out;         // dx (none, affine) or dt (epi)
+  float* out2;        // epi: dy_res
+  __device__ void operator()(long long m, int b, int c0, float (&v)[4],
+                             float* s0, float* s1) const {
+    if constexpr (MODE == NONE) {
+      st4(out + m * C + c0, v);
+    } else {
+      const float4 x4 = ld4(x + m * C + c0), m4 = ld4(mask + m * C + c0);
+      const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
+      const float mv[4] = {m4.x, m4.y, m4.z, m4.w};
+      float o[4];
+      if constexpr (MODE == EPI) {
+        const float4 g4 = ld4(gy + m * C + c0);
+        const float gv[4] = {g4.x, g4.y, g4.z, g4.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) v[k] = mv[k] > 0.0f ? v[k] + gv[k] : 0.0f;
+        st4(out2 + m * C + c0, v);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) v[k] = v[k] * __ldg(drop + b * C + c0 + k);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) v[k] = mv[k] > 0.0f ? v[k] : 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        o[k] = v[k] * __ldg(a + c0 + k);
+        s0[k] += __fmul_rn(v[k], xv[k]);
+        s1[k] += v[k];
+      }
+      st4(out + m * C + c0, o);
+    }
+  }
+};
+
+template <int C>
+__global__ void __launch_bounds__(256)
+fwd_h_f32_kernel(const float* t0, const float* __restrict__ w,
+                 const float* __restrict__ bias, float* t1, int B, int H,
+                 int W, int dil) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  conv_tiles_f32<C>(smem, t0, w, B, H, W, 0, dil, EpiReluBias32<C>{bias, t1},
+                    nullptr);
+}
+
+template <int C>
+__global__ void __launch_bounds__(256)
+fwd_w_f32_kernel(const float* t1, const float* __restrict__ w,
+                 const float* __restrict__ bias, float* z, float* part, int B,
+                 int H, int W, int dil) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  conv_tiles_f32<C>(smem, t1, w, B, H, W, 1, dil, EpiStats32<C>{bias, z},
+                    part);
+}
+
+template <int C>
+__global__ void __launch_bounds__(256)
+bwd_w_f32_kernel(const float* g, const float* __restrict__ wt,
+                 const float* t1, float* dz1, float* part, int B, int H,
+                 int W, int dil) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  conv_tiles_f32<C>(smem, g, wt, B, H, W, 1, dil, EpiDz1_32<C>{t1, g, dz1},
+                    part);
+}
+
+template <int C, int MODE>
+__global__ void __launch_bounds__(256)
+bwd_h_f32_kernel(const float* dz1, const float* __restrict__ wt,
+                 const float* x, const float* mask, const float* gy,
+                 const float* drop, const float* a, float* out, float* out2,
+                 float* part, int B, int H, int W, int dil) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  conv_tiles_f32<C>(smem, dz1, wt, B, H, W, 0, dil,
+                    EpiLeadBwd32<C, MODE>{x, mask, gy, drop, a, out, out2},
+                    part);
+}
+
+// Weight gradients, f32: blockIdx.y = 0..2: dwh[k] = shift_h(t0, k)^T dz1;
+// 3..5: dww[k] = shift_w(t1, k)^T g; blockIdx.x = a chunk of CHUNK
+// pixels; its (C x C) partial goes to part[chunk][y].
+template <int C>
+struct PairWg32 {
+  static constexpr int TM = C == 128 ? 8 : 4, TN = TM;
+  static constexpr int THREADS = 256, BP = C == 16 ? 256 : 64;
+  using Q = Wg32<C, C, TM, TN, THREADS, BP>;
+};
+
+template <int C>
+__global__ void __launch_bounds__(256)
+wgrad_f32_kernel(const float* __restrict__ t0, const float* __restrict__ dz1,
+                 const float* __restrict__ t1, const float* __restrict__ g,
+                 float* __restrict__ part, int B, int H, int W, int dil) {
+  using S = PairWg32<C>;
+  using Q = typename S::Q;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* As = reinterpret_cast<float*>(smem);
+  float* Gs = reinterpret_cast<float*>(smem + Q::a_bytes);
+  const int y = blockIdx.y;
+  const int axis = y < 3 ? 0 : 1, tap = y % 3;
+  const float* A = y < 3 ? t0 : t1;
+  const float* Gm = y < 3 ? dz1 : g;
+  const int off = (tap - 1) * dil;
+  const int step = axis == 0 ? W : 1, lim = axis == 0 ? H : W;
+  const long long P_ = (long long)B * H * W;
+  const long long p_begin = (long long)blockIdx.x * CHUNK;
+  const long long p_stop = p_begin + CHUNK < P_ ? p_begin + CHUNK : P_;
+  constexpr int VPT = C / 4;
+  float acc[S::TM][S::TN];
+  zero_tile(acc);
+
+  for (long long p0 = p_begin; p0 < p_stop; p0 += S::BP) {
+    for (int v = threadIdx.x; v < S::BP * VPT; v += blockDim.x) {
+      const int r = v / VPT, jv = v % VPT;
+      const long long p = p0 + r;
+      const bool in = p < p_stop;
+      const int pos = axis == 0 ? (int)((p / W) % H) : (int)(p % W);
+      const bool valid = in && pos + off >= 0 && pos + off < lim;
+      const long long src = valid ? p + (long long)off * step : 0;
+      cp_async16(As + r * C + jv * 4, A + src * C + jv * 4, valid);
+      cp_async16(Gs + r * C + jv * 4, Gm + (in ? p : 0) * C + jv * 4, in);
+    }
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    wg32_step<C, C, S::TM, S::TN, S::THREADS, S::BP>(As, Gs, acc);
+    __syncthreads();
+  }
+  float* dst = part + ((long long)blockIdx.x * 6 + y) * C * C;
+  wg32_store<C, C, S::TM, S::TN, S::THREADS, S::BP>(
+      acc, reinterpret_cast<float*>(smem), dst, C, C);
+}
+
+// t0 = relu(x a + b), f32 (nothing rounded)
+__global__ void __launch_bounds__(256)
+lead_affine_f32_kernel(const float* __restrict__ x,
+                       const float* __restrict__ a,
+                       const float* __restrict__ b, float* __restrict__ t0,
+                       long long n4, int C) {
+  const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= n4) return;
+  const int c0 = (int)(v % (C / 4)) * 4;
+  const float4 x4 = ld4(x + v * 4);
+  const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
+  float o[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    o[k] = fmaxf(__fadd_rn(__fmul_rn(xv[k], __ldg(a + c0 + k)),
+                           __ldg(b + c0 + k)),
+                 0.0f);
+  st4(t0 + v * 4, o);
+}
+
+// y_next = relu((t a + b) m + y_res), f32
+__global__ void __launch_bounds__(256)
+lead_epi_f32_kernel(const float* __restrict__ t,
+                    const float* __restrict__ yres,
+                    const float* __restrict__ drop,
+                    const float* __restrict__ a, const float* __restrict__ b,
+                    float* __restrict__ ynext, long long n4, int HW, int C) {
+  const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= n4) return;
+  const int c0 = (int)(v % (C / 4)) * 4;
+  const int img = (int)(v / ((long long)HW * (C / 4)));
+  const float4 t4 = ld4(t + v * 4), y4 = ld4(yres + v * 4);
+  const float tv[4] = {t4.x, t4.y, t4.z, t4.w};
+  const float yv[4] = {y4.x, y4.y, y4.z, y4.w};
+  float o[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    float p = __fadd_rn(__fmul_rn(tv[k], __ldg(a + c0 + k)), __ldg(b + c0 + k));
+    p = __fmul_rn(p, __ldg(drop + img * C + c0 + k));
+    o[k] = fmaxf(__fadd_rn(p, yv[k]), 0.0f);
+  }
+  st4(ynext + v * 4, o);
+}
+
 // ------------------------------- launchers --------------------------------
 
 template <int C, class Kernel>
@@ -608,6 +997,132 @@ int bwd(int mode, const void* gz, const void* z, const void* gs1,
   return e;
 }
 
+// f32 launchers: the same sequence as the bf16 ones
+template <int C, class Kernel>
+cudaError_t prep32(Kernel k, bool* smem_ok, int* grid_max) {
+  using G = Cfg32<C>;
+  cudaError_t e = allow_smem(k, G::smem, smem_ok);
+  if (e != cudaSuccess) return e;
+  if (*grid_max == 0) return resident_ctas(k, G::THREADS, G::smem, grid_max);
+  return cudaSuccess;
+}
+
+template <int C>
+int conv_grid32(int B, int H, int W, int grid_max) {
+  const int tiles = B * ((H * W + Cfg32<C>::BM - 1) / Cfg32<C>::BM);
+  return tiles < grid_max ? tiles : grid_max;
+}
+
+template <int C>
+int fwd_f32(const void* t0, const void* wh, const void* bh, const void* ww,
+            const void* bw, void* t1, void* z, void* part, void* stats, int B,
+            int H, int W, int dil, cudaStream_t s) {
+  using G = Cfg32<C>;
+  static bool ok_h = false, ok_w = false;
+  static int gm_h = 0, gm_w = 0;
+  cudaError_t e = prep32<C>(fwd_h_f32_kernel<C>, &ok_h, &gm_h);
+  if (e == cudaSuccess) e = prep32<C>(fwd_w_f32_kernel<C>, &ok_w, &gm_w);
+  if (e != cudaSuccess) return e;
+  fwd_h_f32_kernel<C>
+      <<<conv_grid32<C>(B, H, W, gm_h), G::THREADS, G::smem, s>>>(
+          static_cast<const float*>(t0), static_cast<const float*>(wh),
+          static_cast<const float*>(bh), static_cast<float*>(t1), B, H, W,
+          dil);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  fwd_w_f32_kernel<C>
+      <<<conv_grid32<C>(B, H, W, gm_w), G::THREADS, G::smem, s>>>(
+          static_cast<const float*>(t1), static_cast<const float*>(ww),
+          static_cast<const float*>(bw), static_cast<float*>(z),
+          static_cast<float*>(part), B, H, W, dil);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  const int tpi = (H * W + G::BM - 1) / G::BM;
+  return reduce_parts(static_cast<const float*>(part),
+                      static_cast<float*>(stats), B, tpi, 2 * C, s);
+}
+
+template <int C, int MODE>
+int bwd_h_f32(const void* dz1, const void* wht, const void* x,
+              const void* mask, const void* gy, const void* drop,
+              const void* a, void* out, void* out2, float* part, int B, int H,
+              int W, int dil, cudaStream_t s) {
+  using G = Cfg32<C>;
+  static bool ok = false;
+  static int gm = 0;
+  cudaError_t e = prep32<C>(bwd_h_f32_kernel<C, MODE>, &ok, &gm);
+  if (e != cudaSuccess) return e;
+  bwd_h_f32_kernel<C, MODE>
+      <<<conv_grid32<C>(B, H, W, gm), G::THREADS, G::smem, s>>>(
+          static_cast<const float*>(dz1), static_cast<const float*>(wht),
+          static_cast<const float*>(x), static_cast<const float*>(mask),
+          static_cast<const float*>(gy), static_cast<const float*>(drop),
+          static_cast<const float*>(a), static_cast<float*>(out),
+          static_cast<float*>(out2), part, B, H, W, dil);
+  return cudaGetLastError();
+}
+
+template <int C>
+int bwd_f32(int mode, const void* gz, const void* z, const void* gs1,
+            const void* gs2, const void* t0, const void* t1, const void* wht,
+            const void* wwt, const void* x, const void* mask, const void* gy,
+            const void* drop, const void* a, void* g, void* dz1, void* out,
+            void* out2, void* part_b, void* part_w, void* grads, int B, int H,
+            int W, int dil, cudaStream_t s) {
+  using G = Cfg32<C>;
+  static bool ok_w = false;
+  static int gm_w = 0;
+  static bool wg_ok = false;
+  const long long P = (long long)B * H * W;
+  const int tiles = B * ((H * W + G::BM - 1) / G::BM);
+  float* pb = static_cast<float*>(part_b);
+  cudaError_t e = adjust_grad_f32(gz, z, gs1, gs2, g, B, H * W, C, s);
+  if (e != cudaSuccess) return e;
+  if ((e = prep32<C>(bwd_w_f32_kernel<C>, &ok_w, &gm_w)) != cudaSuccess)
+    return e;
+  bwd_w_f32_kernel<C>
+      <<<conv_grid32<C>(B, H, W, gm_w), G::THREADS, G::smem, s>>>(
+          static_cast<const float*>(g), static_cast<const float*>(wwt),
+          static_cast<const float*>(t1), static_cast<float*>(dz1), pb, B, H,
+          W, dil);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  float* ph = pb + (long long)tiles * 2 * C;
+  switch (mode) {
+    case NONE:
+      e = (cudaError_t)bwd_h_f32<C, NONE>(dz1, wht, x, mask, gy, drop, a, out,
+                                          out2, ph, B, H, W, dil, s);
+      break;
+    case AFFINE:
+      e = (cudaError_t)bwd_h_f32<C, AFFINE>(dz1, wht, x, mask, gy, drop, a,
+                                            out, out2, ph, B, H, W, dil, s);
+      break;
+    case EPI:
+      e = (cudaError_t)bwd_h_f32<C, EPI>(dz1, wht, x, mask, gy, drop, a, out,
+                                         out2, ph, B, H, W, dil, s);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  if (e != cudaSuccess) return e;
+  using Q = typename PairWg32<C>::Q;
+  if ((e = allow_smem(wgrad_f32_kernel<C>, Q::smem, &wg_ok)) != cudaSuccess)
+    return e;
+  const int chunks = (int)((P + CHUNK - 1) / CHUNK);
+  wgrad_f32_kernel<C><<<dim3(chunks, 6), PairWg32<C>::THREADS, Q::smem, s>>>(
+      static_cast<const float*>(t0), static_cast<const float*>(dz1),
+      static_cast<const float*>(t1), static_cast<const float*>(g),
+      static_cast<float*>(part_w), B, H, W, dil);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  float* gr = static_cast<float*>(grads);
+  if ((e = reduce_parts(static_cast<const float*>(part_w), gr, 1, chunks,
+                        6 * C * C, s)) != cudaSuccess)
+    return e;
+  if ((e = reduce_parts(pb, gr + 6 * C * C, 1, tiles, 2 * C, s)) !=
+      cudaSuccess)
+    return e;
+  if (mode != NONE)
+    e = reduce_parts(ph, gr + 6 * C * C + 2 * C, 1, tiles, 2 * C, s);
+  return e;
+}
+
 bool shape_ok(int B, int H, int W, int C) {
   return (C == 16 || C == 64 || C == 128) && B > 0 && H > 0 && W > 0 &&
          (long long)B * H * W * C < (1LL << 31);
@@ -689,4 +1204,72 @@ extern "C" int erf_pair_bwd(const void* gz, const void* z, const void* gs1,
   return bwd<128>(mode, gz, z, gs1, gs2, t0, t1, wht, wwt, x, mask, gy, drop,
                   a, g, dz1, out, out2, part_b, part_w, grads, B, H, W, dil,
                   s);
+}
+
+
+// The f32 forms: the same operands with every map (x, y_res, t0, t1, z,
+// g, dz1, gz, gy, out, out2) and tap stack in f32.  The scratch sizes
+// follow the f32 tiles: tiles_per_image = ceil(H W / 256) at C = 16,
+// ceil(H W / 64) at C = 64 and 128.
+extern "C" int erf_pair_lead_f32(const void* x, const void* yres,
+                                 const void* drop, const void* a,
+                                 const void* b, void* t0, int mode, int B,
+                                 int H, int W, int C, void* stream) {
+  if (!shape_ok(B, H, W, C)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long n4 = (long long)B * H * W * C / 4;
+  const unsigned grid = (unsigned)((n4 + 255) / 256);
+  if (mode == AFFINE)
+    lead_affine_f32_kernel<<<grid, 256, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(a),
+        static_cast<const float*>(b), static_cast<float*>(t0), n4, C);
+  else if (mode == EPI)
+    lead_epi_f32_kernel<<<grid, 256, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(yres),
+        static_cast<const float*>(drop), static_cast<const float*>(a),
+        static_cast<const float*>(b), static_cast<float*>(t0), n4, H * W, C);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}
+
+extern "C" int erf_pair_fwd_f32(const void* t0, const void* wh,
+                                const void* bh, const void* ww,
+                                const void* bw, void* t1, void* z, void* part,
+                                void* stats, int B, int H, int W, int C,
+                                int dil, void* stream) {
+  if (!shape_ok(B, H, W, C)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (C == 16)
+    return fwd_f32<16>(t0, wh, bh, ww, bw, t1, z, part, stats, B, H, W, dil,
+                       s);
+  if (C == 64)
+    return fwd_f32<64>(t0, wh, bh, ww, bw, t1, z, part, stats, B, H, W, dil,
+                       s);
+  return fwd_f32<128>(t0, wh, bh, ww, bw, t1, z, part, stats, B, H, W, dil, s);
+}
+
+extern "C" int erf_pair_bwd_f32(const void* gz, const void* z,
+                                const void* gs1, const void* gs2,
+                                const void* t0, const void* t1,
+                                const void* wht, const void* wwt,
+                                const void* x, const void* mask,
+                                const void* gy, const void* drop,
+                                const void* a, void* g, void* dz1, void* out,
+                                void* out2, void* part_b, void* part_w,
+                                void* grads, int mode, int B, int H, int W,
+                                int C, int dil, void* stream) {
+  if (!shape_ok(B, H, W, C)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (C == 16)
+    return bwd_f32<16>(mode, gz, z, gs1, gs2, t0, t1, wht, wwt, x, mask, gy,
+                       drop, a, g, dz1, out, out2, part_b, part_w, grads, B,
+                       H, W, dil, s);
+  if (C == 64)
+    return bwd_f32<64>(mode, gz, z, gs1, gs2, t0, t1, wht, wwt, x, mask, gy,
+                       drop, a, g, dz1, out, out2, part_b, part_w, grads, B,
+                       H, W, dil, s);
+  return bwd_f32<128>(mode, gz, z, gs1, gs2, t0, t1, wht, wwt, x, mask, gy,
+                      drop, a, g, dz1, out, out2, part_b, part_w, grads, B, H,
+                      W, dil, s);
 }

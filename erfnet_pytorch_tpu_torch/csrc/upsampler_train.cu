@@ -43,6 +43,21 @@
 // column tile gathers its A tile anew and reads its B tiles from L2;
 // keeping A on chip across the four planes and the weights resident are
 // the next steps.
+//
+// The f32 forms (erf_ups_train_*_f32, the JAX package's default compute
+// dtype): the same launches and the same function with x, y, g, dx and
+// Wcat in f32 and nothing rounded to bf16 (Wcat's taps unrounded).  The
+// two products are the same tiled GEMMs (64 pixels x 64 columns, K staged
+// 64 at a time, the forward skipping zero weight blocks) on the CUDA
+// cores (FFMA micro-tiles of 4 pixels x 8 columns a thread, common.cuh
+// ffma_tile; no TF32): the forward's K in one FFMA chain per output (as
+// the plain version's single matmul sums it), the dx product's 16 Cout
+// in a chain per 64-wide chunk, the chunks added in order (shorter
+// chains; measured 0.4 of the single chain's error, PERF.md §6); the
+// weight gradient is one (Cin x Cout) product per (chunk, tap) with the
+// pixels as its depth (common.cuh ffma_outer).
+// Bound at f32: operations (9 Cin Cout MACs per input pixel forward, twice
+// that backward, against 67 TFLOP/s).
 #include "common.cuh"
 
 using namespace erfk;
@@ -389,6 +404,240 @@ wgrad_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
         dbs;
 }
 
+
+// ---------------------------------------------------------------------------
+// f32 forms
+// ---------------------------------------------------------------------------
+
+// Thread (rowg, colg) of an RS32 x TC32 grid owns rows rowg + i RS32 (i <
+// TM32) and columns 4 colg + g CS32 + q (g < 2, q < 4) of the tile.
+constexpr int THREADS32 = 128, TN32 = 8, TC32 = BN / TN32;
+constexpr int RS32 = THREADS32 / TC32, TM32 = BM / RS32, CS32 = 4 * TC32;
+constexpr int LDA32 = pitch4(KC);
+constexpr size_t A32_BYTES = ((size_t)BM * LDA32 * 4 + 127) / 128 * 128;
+constexpr size_t SMEM32 = A32_BYTES + (size_t)KC * BN * 4;
+static_assert((size_t)RS32 * 2 * BN * 4 <= SMEM32, "f32 statistic scratch");
+
+// Start copying chunk [k0, k0 + KC) of the forward gather (FWD) or of the
+// dx gather, f32 (see load_a_fwd / load_a_dx), and rows [k0, k0 + KC) x
+// columns [n0, n0 + BN) of the (K x N) f32 matrix w.
+template <bool FWD>
+__device__ __forceinline__ void load_chunk_f32(float* As, float* Bs,
+                                               const float* a_src,
+                                               const float* w, int N, int Cin,
+                                               int Cout, int H, int W, int b,
+                                               int p0, int p_end, int k0,
+                                               int n0) {
+  for (int v = threadIdx.x; v < BM * KC / 4; v += THREADS32) {
+    const int r = v / (KC / 4), j = v % (KC / 4);
+    const int k = k0 + j * 4, p = p0 + r;
+    long long src = 0;
+    bool valid;
+    if (FWD) {
+      const int q = k / Cin, c = k % Cin;
+      const int i = p / W + dh_of(q), jj = p % W + dw_of(q);
+      valid = p < p_end && i < H && jj < W;
+      if (valid) src = (((long long)b * H + i) * W + jj) * Cin + c;
+    } else {
+      const int q = k / (4 * Cout), w4 = k % (4 * Cout);
+      const int pl = w4 / Cout, c = w4 % Cout;
+      const int i = p / W - dh_of(q), jj = p % W - dw_of(q);
+      valid = p < p_end && i >= 0 && jj >= 0;
+      if (valid)
+        src = (((long long)b * 2 * H + 2 * i + (pl >> 1)) * 2 * W + 2 * jj +
+               (pl & 1)) * Cout + c;
+    }
+    cp_async16(As + r * LDA32 + j * 4, a_src + src, valid);
+  }
+  for (int v = threadIdx.x; v < KC * BN / 4; v += THREADS32) {
+    const int r = v / (BN / 4), j = v % (BN / 4);
+    cp_async16(Bs + r * BN + j * 4, w + (long long)(k0 + r) * N + n0 + j * 4,
+               true);
+  }
+  cp_async_commit();
+}
+
+// The tile of CTA (blockIdx.x = pixel tile, blockIdx.y = column tile):
+// acc = the product over the K chunks (the forward skips zero blocks).
+template <bool FWD>
+__device__ void gemm_tile_f32(unsigned char* smem, const float* a_src,
+                              const float* w, int K, int N, int Cin, int Cout,
+                              int H, int W, int b, int p0, int p_end, int n0,
+                              float (&acc)[TM32][TN32]) {
+  float* As = reinterpret_cast<float*>(smem);
+  float* Bs = reinterpret_cast<float*>(smem + A32_BYTES);
+  const int colg = threadIdx.x % TC32, rowg = threadIdx.x / TC32;
+  zero_tile(acc);
+  for (int k0 = 0; k0 < K; k0 += KC) {
+    if (FWD && !fwd_chunk_used(k0, n0, Cin, Cout)) continue;
+    load_chunk_f32<FWD>(As, Bs, a_src, w, N, Cin, Cout, H, W, b, p0, p_end,
+                        k0, n0);
+    cp_async_wait_all();
+    __syncthreads();
+    if constexpr (FWD) {  // one chain: the plain version's single matmul
+      ffma_tile<TM32, TN32, KC, CS32>(acc, As + rowg * LDA32, RS32 * LDA32,
+                                      Bs + 4 * colg, BN);
+    } else {  // a chain per chunk, added in order (add_tile)
+      float part[TM32][TN32];
+      zero_tile(part);
+      ffma_tile<TM32, TN32, KC, CS32>(part, As + rowg * LDA32, RS32 * LDA32,
+                                      Bs + 4 * colg, BN);
+      add_tile(acc, part);
+    }
+    __syncthreads();  // the chunk is consumed before the next load
+  }
+}
+
+__global__ void __launch_bounds__(THREADS32)
+fwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ wcat,
+               const float* __restrict__ bias, float* __restrict__ y,
+               float* __restrict__ part, int H, int W, int Cin, int Cout) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int HW = H * W, tpi = (HW + BM - 1) / BM;
+  const int tile = blockIdx.x, ct = blockIdx.y, n_ct = gridDim.y;
+  const int b = tile / tpi, p0 = (tile % tpi) * BM;
+  const int p_end = p0 + BM < HW ? p0 + BM : HW;
+  const int n0 = ct * BN;
+  float acc[TM32][TN32];
+  gemm_tile_f32<true>(smem, x, wcat, 4 * Cin, 4 * Cout, Cin, Cout, H, W, b,
+                      p0, p_end, n0, acc);
+  const int colg = threadIdx.x % TC32, rowg = threadIdx.x / TC32;
+  float s0[TN32], s1[TN32];
+#pragma unroll
+  for (int j = 0; j < TN32; ++j) s0[j] = s1[j] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < TM32; ++i) {
+    const int p = p0 + rowg + i * RS32;
+    if (p >= p_end) break;
+#pragma unroll
+    for (int g = 0; g < TN32 / 4; ++g) {
+      const int n = n0 + 4 * colg + g * CS32, pl = n / Cout, c0 = n % Cout;
+      float o[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        o[q] = acc[i][4 * g + q] + __ldg(bias + c0 + q);
+        s0[4 * g + q] += o[q];
+        s1[4 * g + q] += __fmul_rn(o[q], o[q]);
+      }
+      const int oi = 2 * (p / W) + (pl >> 1), oj = 2 * (p % W) + (pl & 1);
+      *reinterpret_cast<float4*>(
+          y + (((long long)b * 2 * H + oi) * 2 * W + oj) * Cout + c0) =
+          make_float4(o[0], o[1], o[2], o[3]);
+    }
+  }
+  float* red = reinterpret_cast<float*>(smem);  // gemm ended with a barrier
+#pragma unroll
+  for (int j = 0; j < TN32; ++j) {
+    const int col = 4 * colg + (j / 4) * CS32 + j % 4;
+    red[rowg * 2 * BN + col] = s0[j];
+    red[rowg * 2 * BN + BN + col] = s1[j];
+  }
+  __syncthreads();
+  // output t < 2 Cout: [sum | sum of squares] of channel t % Cout over
+  // the planes of this column tile, then the row groups, in order
+  for (int t = threadIdx.x; t < 2 * Cout; t += THREADS32) {
+    const int c = t % Cout, sq = t / Cout;
+    float s = 0.0f;
+    for (int pn = 0; pn < BN; pn += Cout)  // Cout divides BN
+      for (int q = 0; q < RS32; ++q) s += red[q * 2 * BN + sq * BN + pn + c];
+    part[((long long)tile * n_ct + ct) * 2 * Cout + t] = s;
+  }
+}
+
+__global__ void __launch_bounds__(THREADS32)
+dx_f32_kernel(const float* __restrict__ g, const float* __restrict__ wt,
+              float* __restrict__ dx, int H, int W, int Cin, int Cout) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int HW = H * W, tpi = (HW + BM - 1) / BM;
+  const int tile = blockIdx.x, b = tile / tpi, p0 = (tile % tpi) * BM;
+  const int p_end = p0 + BM < HW ? p0 + BM : HW;
+  const int n0 = blockIdx.y * BN;
+  float acc[TM32][TN32];
+  gemm_tile_f32<false>(smem, g, wt, 16 * Cout, Cin, Cin, Cout, H, W, b, p0,
+                       p_end, n0, acc);
+  const int colg = threadIdx.x % TC32, rowg = threadIdx.x / TC32;
+#pragma unroll
+  for (int i = 0; i < TM32; ++i) {
+    const int p = p0 + rowg + i * RS32;
+    if (p >= p_end) break;
+#pragma unroll
+    for (int gq = 0; gq < TN32 / 4; ++gq)
+      *reinterpret_cast<float4*>(dx + ((long long)b * HW + p) * Cin + n0 +
+                                 4 * colg + gq * CS32) =
+          make_float4(acc[i][4 * gq], acc[i][4 * gq + 1], acc[i][4 * gq + 2],
+                      acc[i][4 * gq + 3]);
+  }
+}
+
+// Weight gradient, f32: as wgrad_kernel (blockIdx.y = tap, blockIdx.x = a
+// chunk of CHUNK input pixels; part_w, part_db as there).
+template <int CIN, int COUT>
+struct WgPick32 {
+  static constexpr int TM = CIN == 128 ? 8 : 4, TN = 4, THREADS = 256;
+  static constexpr int BP = 64;
+  using Q = Wg32<CIN, COUT, TM, TN, THREADS, BP>;
+};
+
+template <int CIN, int COUT>
+__global__ void __launch_bounds__(256)
+wgrad_f32_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                 float* __restrict__ part_w, float* __restrict__ part_db,
+                 int B, int H, int W) {
+  using P = WgPick32<CIN, COUT>;
+  using Q = typename P::Q;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* As = reinterpret_cast<float*>(smem);
+  float* Gs = reinterpret_cast<float*>(smem + Q::a_bytes);
+  const int tap = blockIdx.y;
+  int a, bb, dh, dw;
+  tap_of(tap / 3, a, dh);
+  tap_of(tap % 3, bb, dw);
+  const bool sum_db = dh == 0 && dw == 0;
+  const int HW = H * W;
+  const long long P_ = (long long)B * HW;
+  const long long p_begin = (long long)blockIdx.x * CHUNK;
+  const long long p_stop = p_begin + CHUNK < P_ ? p_begin + CHUNK : P_;
+  constexpr int VA = CIN / 4, VG = COUT / 4;
+  float acc[P::TM][P::TN];
+  zero_tile(acc);
+  float dbs = 0.0f;  // thread t < COUT: channel t of this plane
+
+  for (long long p0 = p_begin; p0 < p_stop; p0 += P::BP) {
+    for (int v = threadIdx.x; v < P::BP * (VA + VG); v += blockDim.x) {
+      const int r = v / (VA + VG), e = v % (VA + VG);
+      const long long p = p0 + r;
+      const bool in = p < p_stop;
+      const int img = (int)(p / HW), local = (int)(p % HW);
+      const int i = local / W, jj = local % W;
+      if (e < VA) {
+        const bool valid = in && i + dh < H && jj + dw < W;
+        const long long src =
+            valid ? (((long long)img * H + i + dh) * W + jj + dw) * CIN : 0;
+        cp_async16(As + r * CIN + e * 4, x + src + e * 4, valid);
+      } else {
+        const long long src =
+            in ? (((long long)img * 2 * H + 2 * i + a) * 2 * W + 2 * jj +
+                  bb) * COUT
+               : 0;
+        cp_async16(Gs + r * COUT + (e - VA) * 4, g + src + (e - VA) * 4, in);
+      }
+    }
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    wg32_step<CIN, COUT, P::TM, P::TN, P::THREADS, P::BP>(As, Gs, acc);
+    if (sum_db && threadIdx.x < COUT)
+      for (int r = 0; r < P::BP; ++r) dbs += Gs[r * COUT + threadIdx.x];
+    __syncthreads();
+  }
+  float* dst = part_w + ((long long)blockIdx.x * 9 + tap) * CIN * COUT;
+  wg32_store<CIN, COUT, P::TM, P::TN, P::THREADS, P::BP>(
+      acc, reinterpret_cast<float*>(smem), dst, CIN, COUT);
+  if (sum_db && threadIdx.x < COUT)
+    part_db[((long long)blockIdx.x * 4 + a * 2 + bb) * COUT + threadIdx.x] =
+        dbs;
+}
+
 // ------------------------------- launchers --------------------------------
 
 bool shape_ok(int B, int H, int W, int Cin, int Cout) {
@@ -414,6 +663,21 @@ int wgrad(const void* x, const void* g, void* part_w, void* part_db, int B,
   const int chunks = (int)(((long long)B * H * W + CHUNK - 1) / CHUNK);
   wgrad_kernel<CIN, COUT><<<dim3(chunks, 9), Q::THREADS, Q::smem, s>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(g),
+      static_cast<float*>(part_w), static_cast<float*>(part_db), B, H, W);
+  return cudaGetLastError();
+}
+
+template <int CIN, int COUT>
+int wgrad_f32(const void* x, const void* g, void* part_w, void* part_db,
+              int B, int H, int W, cudaStream_t s) {
+  using P = WgPick32<CIN, COUT>;
+  static bool ok = false;
+  cudaError_t e = allow((const void*)wgrad_f32_kernel<CIN, COUT>,
+                        P::Q::smem, &ok);
+  if (e != cudaSuccess) return e;
+  const int chunks = (int)(((long long)B * H * W + CHUNK - 1) / CHUNK);
+  wgrad_f32_kernel<CIN, COUT><<<dim3(chunks, 9), P::THREADS, P::Q::smem, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(g),
       static_cast<float*>(part_w), static_cast<float*>(part_db), B, H, W);
   return cudaGetLastError();
 }
@@ -474,6 +738,60 @@ extern "C" int erf_ups_train_bwd(const void* x, const void* y, const void* gy,
                                                  W, s)
                                : wgrad<64, 16>(x, g, part_w, part_db, B, H,
                                                W, s));
+  if (e != cudaSuccess) return e;
+  const int chunks = (int)(((long long)B * H * W + CHUNK - 1) / CHUNK);
+  float* gr = static_cast<float*>(grads);
+  if ((e = reduce_parts(static_cast<const float*>(part_w), gr, 1, chunks,
+                        9 * Cin * Cout, s)) != cudaSuccess)
+    return e;
+  return reduce_parts(static_cast<const float*>(part_db), gr + 9 * Cin * Cout,
+                      1, 4 * chunks, Cout, s);
+}
+
+
+// The f32 forms: x, y, gy, g, dx, wcat (4 Cin, 4 Cout) and wt (16 Cout,
+// Cin) in f32; the same scratch and outputs.
+extern "C" int erf_ups_train_fwd_f32(const void* x, const void* wcat,
+                                     const void* bias, void* y, void* part,
+                                     void* stats, int B, int H, int W,
+                                     int Cin, int Cout, void* stream) {
+  if (!shape_ok(B, H, W, Cin, Cout)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  static bool ok = false;
+  cudaError_t e = allow((const void*)fwd_f32_kernel, SMEM32, &ok);
+  if (e != cudaSuccess) return e;
+  const int tpi = (H * W + BM - 1) / BM, n_ct = 4 * Cout / BN;
+  fwd_f32_kernel<<<dim3(B * tpi, n_ct), THREADS32, SMEM32, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(wcat),
+      static_cast<const float*>(bias), static_cast<float*>(y),
+      static_cast<float*>(part), H, W, Cin, Cout);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  return reduce_parts(static_cast<const float*>(part),
+                      static_cast<float*>(stats), B, tpi * n_ct, 2 * Cout, s);
+}
+
+extern "C" int erf_ups_train_bwd_f32(const void* x, const void* y,
+                                     const void* gy, const void* gs1,
+                                     const void* gs2, const void* wt, void* g,
+                                     void* dx, void* part_w, void* part_db,
+                                     void* grads, int B, int H, int W,
+                                     int Cin, int Cout, void* stream) {
+  if (!shape_ok(B, H, W, Cin, Cout)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = adjust_grad_f32(gy, y, gs1, gs2, g, B, 4 * H * W, Cout, s);
+  if (e != cudaSuccess) return e;
+  static bool ok = false;
+  if ((e = allow((const void*)dx_f32_kernel, SMEM32, &ok)) != cudaSuccess)
+    return e;
+  const int tpi = (H * W + BM - 1) / BM;
+  dx_f32_kernel<<<dim3(B * tpi, Cin / BN), THREADS32, SMEM32, s>>>(
+      static_cast<const float*>(g), static_cast<const float*>(wt),
+      static_cast<float*>(dx), H, W, Cin, Cout);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  e = (cudaError_t)(Cin == 128
+                        ? wgrad_f32<128, 64>(x, g, part_w, part_db, B, H, W, s)
+                        : wgrad_f32<64, 16>(x, g, part_w, part_db, B, H, W,
+                                            s));
   if (e != cudaSuccess) return e;
   const int chunks = (int)(((long long)B * H * W + CHUNK - 1) / CHUNK);
   float* gr = static_cast<float*>(grads);

@@ -290,12 +290,12 @@ def encoder_train_forward(encoder, images, shifts, masks, dtype):
     images: (B, H, W, 3) f32, flipped but not translated; shifts: (B, 2)
     per-image (tx, ty), applied by the stem in its gather; masks: {layer
     index: (B, C) f32 Dropout2d mask in {0, 1/keep}} for every NB1d layer;
-    dtype: the activation dtype (the kernels take bf16; on CPU tensors the
-    plain versions also take f32).  Returns (features (B, H/8, W/8, 128) in
-    ``dtype``, {BN module path: (new running mean, new running var)}).
-    Each entry of the path is a kernel wrapper: CPU tensors run the plain
-    versions, CUDA tensors the kernels, and a shape a kernel refuses
-    raises."""
+    dtype: the activation dtype, bf16 or f32 (each kernel has both forms;
+    at f32 nothing on the path rounds to bf16).  Returns (features (B,
+    H/8, W/8, 128) in ``dtype``, {BN module path: (new running mean, new
+    running var)}).  Each entry of the path is a kernel wrapper: CPU
+    tensors run the plain versions, CUDA tensors the kernels, and a shape
+    a kernel refuses raises."""
     from ..ops.cuda.downsampler_train import downsampler_stem_stats
     new_stats = {}
     ib = encoder.initial_block

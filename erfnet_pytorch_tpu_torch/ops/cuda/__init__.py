@@ -4,8 +4,9 @@ wrappers.
 Every wrapper runs its plain PyTorch version on a CPU tensor and launches
 its kernels on a CUDA tensor (or raises); it counts its kernel launches in
 ``<wrapper>.launches`` (``_build.counter``), one count per kernel form: the
-serving kernels that have an f32 form (downsampler, nb1d, upsampler and
-both heads) count that form's launches apart.  ``route``
+kernels that have an f32 form (the serving downsampler, nb1d, upsampler
+and both heads, and every train kernel) count that form's launches
+apart.  ``route``
 holds the one switch that sends the train path to the plain versions on
 the card (the reference the kernels are held against) and the record of
 the train wrappers' calls.
@@ -43,6 +44,6 @@ def reset_launch_counts():
 
 def launch_counts():
     """{counter name: launches}: ``<wrapper name>`` for the bf16 or only
-    form, ``<wrapper name>_f32`` for a serving kernel's f32 form."""
+    form, ``<wrapper name>_f32`` for a kernel's f32 form."""
     return {fn.__name__ + form: n for fn in kernel_wrappers()
             for form, n in fn.launches.items()}

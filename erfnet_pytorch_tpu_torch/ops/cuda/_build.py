@@ -135,15 +135,32 @@ def require(t, name, dtype, device, shape=None) -> None:
                          f"{tuple(shape)}")
 
 
-def kernel_form(t, name) -> str:
-    """Validate the map operand ``t`` of a serving kernel (``require``:
-    bf16 or f32, the two forms) and return its form: "" for bf16, "_f32"
-    for f32, the suffix of the form's C entry point and the key of its
-    launch count (``counter``)."""
+def form_of(dtype, name) -> str:
+    """The kernel form of the compute dtype ``dtype``: "" for bf16,
+    "_f32" for f32, the suffix of the form's C entry point and the key of
+    its launch count (``counter``); raises on any other dtype."""
     import torch
     forms = {torch.bfloat16: "", torch.float32: "_f32"}
-    require(t, name, tuple(forms), t.device)
-    return forms[t.dtype]
+    if dtype not in forms:
+        raise TypeError(f"{name}: dtype {dtype}, the kernels take "
+                        "torch.bfloat16 or torch.float32")
+    return forms[dtype]
+
+
+def kernel_form(t, name, others=()) -> str:
+    """Validate the map operand ``t`` of a kernel (``require``: bf16 or
+    f32, the two forms) and return its form (``form_of``).  ``others``:
+    (name, tensor) pairs of the call's other map operands, which must have
+    ``t``'s dtype and device (one dtype per call: a mixed call raises)."""
+    form = form_of(t.dtype, name)
+    require(t, name, t.dtype, t.device)
+    for oname, o in others:
+        if o.dtype != t.dtype:
+            raise TypeError(f"{oname}: dtype {o.dtype}, but {name} is "
+                            f"{t.dtype}: the maps of one call share one "
+                            "dtype")
+        require(o, oname, t.dtype, t.device)
+    return form
 
 
 def counter(*forms) -> Dict[str, int]:

@@ -17,9 +17,15 @@ except for the stem (the image takes no gradient), dx = bf16(bf16(conv
 input grad) + pool grad) with JAX's tie rule for the pool (each of the W-
 then H-pair maxima splits its cotangent equally among ties).
 
-The kernels take bf16 maps with (Cin, Cc) in {(3, 13) stem, (16, 48),
-(64, 64)} and even H, W, and raise on anything else.  Bound on the H100:
-bytes.
+The kernels take (Cin, Cc) in {(3, 13) stem, (16, 48), (64, 64)} and
+even H, W, and raise on anything else.  Two forms, picked by the compute
+dtype (the maps' dtype; the stem's ``dtype``): bf16 (``erf_down_train_*``)
+and f32 (the ``_f32`` entry points; the JAX package's default compute
+dtype), which rounds nothing to bf16: the stem saves the translated
+image in f32, y, g and dx stay f32.  Every map of one call has one dtype
+(``_build.kernel_form``), or the call raises.  Launches are counted
+apart (``launches[""]``, ``launches["_f32"]``).  Bound on the H100:
+bytes at bf16; at f32 bytes for the stem, operations for the others.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from ..augment import apply_shifts
 from . import _build, route
 
 BM = 64          # output pixels per forward tile (csrc Fwd::BM)
+BM_STEM_F32 = 128  # the f32 stem's (csrc Fwd32::BM; the others' is BM)
 CHUNK = 2048     # output pixels per weight-gradient partial (csrc CHUNK)
 FWD_LAUNCHES = 2
 BWD_LAUNCHES = {True: 3, False: 4}   # by stem
@@ -38,6 +45,10 @@ BWD_LAUNCHES = {True: 3, False: 4}   # by stem
 
 def _round16(v):
     return (v + 15) // 16 * 16
+
+
+def _round4(v):
+    return (v + 3) // 4 * 4
 
 
 # ---------------------------------------------------------------------------
@@ -122,65 +133,65 @@ def _shapes(x, w, stem):
 @route.recorded(down_fwd_plain)
 def down_fwd(x, w, b, *, shifts=None, dtype=None):
     """down_fwd_plain's contract.  CPU tensor: the plain version.  CUDA
-    tensor: the kernels (bf16), or raise."""
+    tensor: the kernels' form for the compute dtype (bf16 or f32; the
+    stem's ``dtype``, else x's), or raise."""
     if x.device.type == "cpu":
         return down_fwd_plain(x, w, b, shifts=shifts, dtype=dtype)
     stem = shifts is not None
     B, H, W, cin, cc = _shapes(x, w, stem)
     dev = x.device
     if stem:
-        if dtype != torch.bfloat16:
-            raise TypeError(f"train downsampler kernel computes in bf16, "
-                            f"asked for {dtype}")
+        form = _build.form_of(dtype, "dtype")
         _build.require(x, "x", torch.float32, dev)
         shifts = shifts.to(device=dev, dtype=torch.int32).contiguous()
         _build.require(shifts, "shifts", torch.int32, dev, (B, 2))
-        xa = torch.empty(B, H, W, cin, dtype=torch.bfloat16, device=dev)
+        xa = torch.empty(B, H, W, cin, dtype=dtype, device=dev)
     else:
-        _build.require(x, "x", torch.bfloat16, dev)
+        form = _build.kernel_form(x, "x")
         xa = x
-    wmat = torch.zeros(_round16(9 * cin), _round16(cc), dtype=torch.bfloat16,
-                       device=dev)
+    dt = xa.dtype
+    rnd = _round4 if form else _round16
+    wmat = torch.zeros(rnd(9 * cin), rnd(cc), dtype=dt, device=dev)
     wmat[:9 * cin, :cc] = w.reshape(9 * cin, cc)
     bias = b.float().contiguous()
     _build.require(bias, "b", torch.float32, dev, (cc,))
     cout = cin + cc
-    y = torch.empty(B, H // 2, W // 2, cout, dtype=torch.bfloat16,
-                    device=dev)
-    tpi = -(-((H // 2) * (W // 2)) // BM)
+    y = torch.empty(B, H // 2, W // 2, cout, dtype=dt, device=dev)
+    tpi = -(-((H // 2) * (W // 2)) // (BM_STEM_F32 if form and stem else BM))
     part = torch.empty(B * tpi, 2 * cout, dtype=torch.float32, device=dev)
     stats = torch.empty(B, 2 * cout, dtype=torch.float32, device=dev)
     lib = _build.library("downsampler_train")
-    fn = _build.declare(lib, "erf_down_train_fwd", 8, 6)
+    fn = _build.declare(lib, "erf_down_train_fwd" + form, 8, 6)
     err = fn(_build.ptr(x), _build.ptr(shifts if stem else bias),
              _build.ptr(wmat), _build.ptr(bias), _build.ptr(y),
              _build.ptr(xa), _build.ptr(part), _build.ptr(stats), B, H, W,
              cin, cc, int(stem), _build.stream_ptr(x))
-    _build.check(lib, err, "train downsampler forward launch")
-    _build.count(down_fwd, n=FWD_LAUNCHES)
+    _build.check(lib, err, f"train downsampler{form} forward launch")
+    _build.count(down_fwd, form, n=FWD_LAUNCHES)
     return xa, y, stats[:, :cout], stats[:, cout:]
 
 
-down_fwd.launches = _build.counter()
+down_fwd.launches = _build.counter("", "_f32")
 
 
 @route.recorded(down_bwd_plain)
 def down_bwd(x, y, gy, gs1, gs2, w, *, stem):
     """down_bwd_plain's contract.  CPU tensor: the plain version.  CUDA
-    tensor: the kernels, or raise."""
+    tensor: the kernels' form for the maps' dtype (bf16 or f32), or
+    raise."""
     if x.device.type == "cpu":
         return down_bwd_plain(x, y, gy, gs1, gs2, w, stem=stem)
     B, H, W, cin, cc = _shapes(x, w, stem)
     dev, cout = x.device, cin + cc
-    _build.require(x, "x", torch.bfloat16, dev)
-    gy = gy.to(torch.bfloat16).contiguous()
+    gy = gy.contiguous()
+    form = _build.kernel_form(x, "x", (("y", y), ("gy", gy)))
     gs1, gs2 = gs1.float().contiguous(), gs2.float().contiguous()
     for name, t in (("y", y), ("gy", gy)):
-        _build.require(t, name, torch.bfloat16, dev, (B, H // 2, W // 2, cout))
+        _build.require(t, name, x.dtype, dev, (B, H // 2, W // 2, cout))
     _build.require(gs1, "gs1", torch.float32, dev, (B, cout))
     _build.require(gs2, "gs2", torch.float32, dev, (B, cout))
     # the input gradient's B operand: row (kh * 3 + kw) cc + co, column ci
-    wt = w.to(torch.bfloat16).permute(0, 1, 3, 2).reshape(9 * cc, cin)
+    wt = w.to(x.dtype).permute(0, 1, 3, 2).reshape(9 * cc, cin)
     wt = wt.contiguous()
     g = torch.empty_like(y)
     dx = torch.empty_like(x) if not stem else g
@@ -189,18 +200,18 @@ def down_bwd(x, y, gy, gs1, gs2, w, *, stem):
     part = torch.empty(chunks, plen, dtype=torch.float32, device=dev)
     grads = torch.empty(plen, dtype=torch.float32, device=dev)
     lib = _build.library("downsampler_train")
-    fn = _build.declare(lib, "erf_down_train_bwd", 10, 6)
+    fn = _build.declare(lib, "erf_down_train_bwd" + form, 10, 6)
     err = fn(_build.ptr(gy), _build.ptr(y), _build.ptr(gs1), _build.ptr(gs2),
              _build.ptr(x), _build.ptr(wt), _build.ptr(g), _build.ptr(dx),
              _build.ptr(part), _build.ptr(grads), B, H, W, cin, cc,
              int(stem), _build.stream_ptr(x))
-    _build.check(lib, err, "train downsampler backward launch")
-    _build.count(down_bwd, n=BWD_LAUNCHES[stem])
+    _build.check(lib, err, f"train downsampler{form} backward launch")
+    _build.count(down_bwd, form, n=BWD_LAUNCHES[stem])
     dw = grads[:9 * cin * cc].view(3, 3, cin, cc)
     return (None if stem else dx), dw, grads[9 * cin * cc:]
 
 
-down_bwd.launches = _build.counter()
+down_bwd.launches = _build.counter("", "_f32")
 
 
 # ---------------------------------------------------------------------------

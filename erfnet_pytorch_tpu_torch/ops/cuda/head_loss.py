@@ -9,17 +9,23 @@ head as a (16, 4n) product over the parity planes
 form is the same function on a reshaped view.  Kernel source:
 ``csrc/head_loss.cu``.
 
-Forward: z = feats @ bf16(W) + b in f32 (feats (M, K) in the compute
-dtype, W (K, G n)), per row the G groups of n logits with the log-sum-exp
-shifted by the row's max, nll = logsumexp(z_g) - z_g[t_g], num = sum
-w[t] nll, den = sum w[t] with w the class weights (a label outside
-[0, n) weighs 0); labels (M,) at G = 1, (M, G) else; the caller's loss
-is num / max(den, 1e-12), so an all-void batch gives 0.  Backward (the
-cotangent of num): dz = bf16(gnum w[t] (softmax(z_g) - onehot(t_g))),
-dfeats = bf16(dz @ bf16(W)^T), dW = feats^T dz and db = sum dz in f32.
-The kernels take bf16 feats with (K, G) = (128, 1), n <= 32, or (16, 4),
-n <= 20, and raise on anything else.  Bound on the H100: bytes (the
-feature rows and labels).
+Forward: z = feats @ W + b in f32 (feats (M, K) in the compute dtype,
+W (K, G n) cast to it), per row the G groups of n logits with the
+log-sum-exp shifted by the row's max, nll = logsumexp(z_g) - z_g[t_g],
+num = sum w[t] nll, den = sum w[t] with w the class weights (a label
+outside [0, n) weighs 0); labels (M,) at G = 1, (M, G) else; the
+caller's loss is num / max(den, 1e-12), so an all-void batch gives 0.
+Backward (the cotangent of num): dz = gnum w[t] (softmax(z_g) -
+onehot(t_g)) and dfeats = dz @ W^T, each rounded to the feats' dtype (W
+in that dtype), dW = feats^T dz and db = sum dz in f32.  The kernels
+take (K, G) = (128, 1), n <= 32, or (16, 4), n <= 20, and raise on
+anything else.  Two forms, picked by the feats' dtype
+(``_build.kernel_form``): bf16 feats (``erf_head_loss*``) and f32 feats
+(the ``_f32`` entry points; the JAX package's default compute dtype), in
+which W is cast to f32 and nothing is rounded to bf16 (dz and dfeats
+stay f32).  Launches are counted apart (``launches[""]``,
+``launches["_f32"]``).  Bound on the H100: bytes (the feature rows and
+labels).
 """
 
 from __future__ import annotations
@@ -85,49 +91,49 @@ def _check(feats, w, b, labels, cw):
                          f"<= 32 or (16, 4) with n <= 20; got feats "
                          f"{tuple(feats.shape)}, W {tuple(w.shape)}, labels "
                          f"{tuple(labels.shape)}")
-    _build.require(feats, "feats", torch.bfloat16, dev)
-    wc = w.to(torch.bfloat16).contiguous()
+    form = _build.kernel_form(feats, "feats")
+    wc = w.to(feats.dtype).contiguous()
     bf, cwf = b.float().contiguous(), cw.float().to(dev).contiguous()
     lab = labels.to(device=dev, dtype=torch.int32).contiguous()
     _build.require(bf, "b", torch.float32, dev, (gn,))
     _build.require(cwf, "class_weights", torch.float32, dev, (n,))
     _build.require(lab, "labels", torch.int32, dev,
                    (M,) if G == 1 else (M, G))
-    return M, G, n, wc, bf, lab, cwf
+    return form, M, G, n, wc, bf, lab, cwf
 
 
 @route.recorded(head_loss_fwd_plain)
 def head_loss_fwd(feats, w, b, labels, cw):
     """head_loss_fwd_plain's contract.  CPU tensor: the plain version.
-    CUDA tensor: the kernel (bf16 feats, (K, G) in ``KERNELS``), or
-    raise."""
+    CUDA tensor: the kernel's form for the feats' dtype (bf16 or f32,
+    (K, G) in ``KERNELS``), or raise."""
     if feats.device.type == "cpu":
         return head_loss_fwd_plain(feats, w, b, labels, cw)
-    M, G, n, wc, bf, lab, cwf = _check(feats, w, b, labels, cw)
+    form, M, G, n, wc, bf, lab, cwf = _check(feats, w, b, labels, cw)
     part = torch.empty(-(-M // 256), 2, dtype=torch.float32,
                        device=feats.device)
     out = torch.empty(2, dtype=torch.float32, device=feats.device)
     lib = _build.library("head_loss")
-    fn = _build.declare(lib, "erf_head_loss_fwd" if G == 1
-                        else "erf_head_loss4_fwd", 7, 2)
+    fn = _build.declare(lib, ("erf_head_loss_fwd" if G == 1
+                              else "erf_head_loss4_fwd") + form, 7, 2)
     err = fn(_build.ptr(feats), _build.ptr(wc), _build.ptr(bf),
              _build.ptr(lab), _build.ptr(cwf), _build.ptr(part),
              _build.ptr(out), M, n, _build.stream_ptr(feats))
-    _build.check(lib, err, "head_loss forward launch")
-    _build.count(head_loss_fwd, n=FWD_LAUNCHES)
+    _build.check(lib, err, f"head_loss{form} forward launch")
+    _build.count(head_loss_fwd, form, n=FWD_LAUNCHES)
     return out[0], out[1]
 
 
-head_loss_fwd.launches = _build.counter()
+head_loss_fwd.launches = _build.counter("", "_f32")
 
 
 @route.recorded(head_loss_bwd_plain)
 def head_loss_bwd(feats, w, b, labels, cw, gnum):
     """head_loss_bwd_plain's contract.  CPU tensor: the plain version.
-    CUDA tensor: the kernels, or raise."""
+    CUDA tensor: the kernels' form for the feats' dtype, or raise."""
     if feats.device.type == "cpu":
         return head_loss_bwd_plain(feats, w, b, labels, cw, gnum)
-    M, G, n, wc, bf, lab, cwf = _check(feats, w, b, labels, cw)
+    form, M, G, n, wc, bf, lab, cwf = _check(feats, w, b, labels, cw)
     K, gn = feats.shape[1], G * n
     dev = feats.device
     g = gnum.float().reshape(1).to(dev).contiguous()
@@ -138,24 +144,24 @@ def head_loss_bwd(feats, w, b, labels, cw, gnum):
     grads = torch.empty(K * gn + gn, dtype=torch.float32, device=dev)
     lib = _build.library("head_loss")
     if G == 1:
-        dz = torch.empty(M, n, dtype=torch.bfloat16, device=dev)
-        fn = _build.declare(lib, "erf_head_loss_bwd", 10, 2)
+        dz = torch.empty(M, n, dtype=feats.dtype, device=dev)
+        fn = _build.declare(lib, "erf_head_loss_bwd" + form, 10, 2)
         err = fn(_build.ptr(feats), _build.ptr(wc), _build.ptr(bf),
                  _build.ptr(lab), _build.ptr(cwf), _build.ptr(g),
                  _build.ptr(dz), _build.ptr(dfeats), _build.ptr(part),
                  _build.ptr(grads), M, n, _build.stream_ptr(feats))
     else:
-        fn = _build.declare(lib, "erf_head_loss4_bwd", 9, 2)
+        fn = _build.declare(lib, "erf_head_loss4_bwd" + form, 9, 2)
         err = fn(_build.ptr(feats), _build.ptr(wc), _build.ptr(bf),
                  _build.ptr(lab), _build.ptr(cwf), _build.ptr(g),
                  _build.ptr(dfeats), _build.ptr(part), _build.ptr(grads), M,
                  n, _build.stream_ptr(feats))
-    _build.check(lib, err, "head_loss backward launch")
-    _build.count(head_loss_bwd, n=BWD_LAUNCHES[G])
+    _build.check(lib, err, f"head_loss{form} backward launch")
+    _build.count(head_loss_bwd, form, n=BWD_LAUNCHES[G])
     return dfeats, grads[:K * gn].view(K, gn), grads[K * gn:]
 
 
-head_loss_bwd.launches = _build.counter()
+head_loss_bwd.launches = _build.counter("", "_f32")
 
 
 class _HeadLoss(torch.autograd.Function):

@@ -19,13 +19,18 @@ next BatchNorm.  The backward takes the cotangents of z, of the stats and
 [tap, cin, cout] and the biases; the weight gradients are f32 sums over
 the batch in a fixed order.
 
-Kernels take bf16 maps, C in {16, 64, 128}, and raise on anything else;
-the plain versions take f32 or bf16.  On a CPU tensor the ``Function``s
-run the plain versions, on a CUDA tensor the kernels.  Bound on the H100:
+Kernels take C in {16, 64, 128} and raise on anything else.  Two forms,
+picked by the maps' dtype (``_build.kernel_form``; every map of one call
+has one dtype, or the call raises): bf16 (``erf_pair_*``) and f32 (the
+``_f32`` entry points; the JAX package's default compute dtype), which
+rounds nothing to bf16 (t0, t1, z, g, dz1 and the outputs stay f32).
+Launches are counted apart (``launches[""]``, ``launches["_f32"]``).  The
+plain versions take f32 or bf16.  On a CPU tensor the ``Function``s run
+the plain versions, on a CUDA tensor the kernels.  Bound on the H100:
 operations at C = 128, bytes at C = 64 and 16 (6 C^2 MACs per pixel
-forward, 12 C^2 backward); this version keeps t0 and t1 from the forward
-(no recompute) and passes the pair's intermediates through device memory
-between launches.
+forward, 12 C^2 backward) at bf16, operations at every C at f32; this
+version keeps t0 and t1 from the forward (no recompute) and passes the
+pair's intermediates through device memory between launches.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from .nb1d import _shift
 
 MODES = ("none", "affine", "epi")
 BM = 64         # pixels per conv tile (csrc/nb1d_pair.cu Cfg::BM)
+BM_F32 = {16: 256, 64: 64, 128: 64}   # the f32 form's, by C (Cfg32::BM)
 CHUNK = 2048    # pixels per weight-gradient partial (csrc CHUNK)
 # kernel launches of one pair call, by lead mode
 FWD_LAUNCHES = {"none": 3, "affine": 4, "epi": 4}
@@ -143,28 +149,34 @@ def pair_bwd_plain(mode, saved, gz, gs1, gs2, gy=None):
 CHANNELS = (16, 64, 128)
 
 
-def _check_map(x, name, C):
+def _check_map(x, name, C, others=()):
+    """The call's form (``_build.kernel_form``: x and ``others`` share one
+    dtype, bf16 or f32)."""
     if C not in CHANNELS:
         raise ValueError(f"nb1d pair kernel takes C in {CHANNELS}, got {C}")
-    _build.require(x, name, torch.bfloat16, x.device)
+    return _build.kernel_form(x, name, others)
+
+
+def _tiles_per_image(form, H, W, C):
+    return -(-(H * W) // (BM_F32[C] if form else BM))
 
 
 @route.recorded(pair_fwd_plain)
 def pair_fwd(mode, x, wh, bh, ww, bw, dil, *, yres=None, m=None, a=None,
              b=None):
     """pair_fwd_plain's contract.  CPU tensor: the plain version.  CUDA
-    tensor: the kernels (bf16 maps, C in {16, 64, 128}), or raise."""
+    tensor: the kernels' form for the maps' dtype (bf16 or f32, C in {16,
+    64, 128}), or raise."""
     if x.device.type == "cpu":
         return pair_fwd_plain(mode, x, wh, bh, ww, bw, dil, yres=yres, m=m,
                               a=a, b=b)
     B, H, W, C = x.shape
-    dev = x.device
-    _check_map(x, "x", C)
-    whc, wwc = wh.to(torch.bfloat16).contiguous(), ww.to(
-        torch.bfloat16).contiguous()
+    dev, dt = x.device, x.dtype
+    form = _check_map(x, "x", C, (("y_res", yres),) if mode == "epi" else ())
+    whc, wwc = wh.to(dt).contiguous(), ww.to(dt).contiguous()
     bhf, bwf = bh.float().contiguous(), bw.float().contiguous()
-    _build.require(whc, "wh", torch.bfloat16, dev, (3, C, C))
-    _build.require(wwc, "ww", torch.bfloat16, dev, (3, C, C))
+    _build.require(whc, "wh", dt, dev, (3, C, C))
+    _build.require(wwc, "ww", dt, dev, (3, C, C))
     lib = _build.library("nb1d_pair")
     stream = _build.stream_ptr(x)
     if mode == "none":
@@ -174,74 +186,76 @@ def pair_fwd(mode, x, wh, bh, ww, bw, dil, *, yres=None, m=None, a=None,
         _build.require(af, "a", torch.float32, dev, (C,))
         _build.require(bf, "b", torch.float32, dev, (C,))
         if mode == "epi":
-            _build.require(yres, "y_res", torch.bfloat16, dev, x.shape)
+            _build.require(yres, "y_res", dt, dev, x.shape)
             mf = m.float().contiguous()
             _build.require(mf, "m", torch.float32, dev, (B, C))
         else:
             mf = af
         t0 = torch.empty_like(x)
-        fn = _build.declare(lib, "erf_pair_lead", 6, 5)
+        fn = _build.declare(lib, "erf_pair_lead" + form, 6, 5)
         err = fn(_build.ptr(x), _build.ptr(yres if mode == "epi" else x),
                  _build.ptr(mf), _build.ptr(af), _build.ptr(bf),
                  _build.ptr(t0), MODES.index(mode), B, H, W, C, stream)
-        _build.check(lib, err, "nb1d pair lead launch")
-        _build.count(pair_fwd)
+        _build.check(lib, err, f"nb1d pair{form} lead launch")
+        _build.count(pair_fwd, form)
     t1, z = torch.empty_like(x), torch.empty_like(x)
-    tpi = -(-(H * W) // BM)
+    tpi = _tiles_per_image(form, H, W, C)
     part = torch.empty(B * tpi, 2 * C, dtype=torch.float32, device=dev)
     stats = torch.empty(B, 2 * C, dtype=torch.float32, device=dev)
-    fn = _build.declare(lib, "erf_pair_fwd", 9, 5)
+    fn = _build.declare(lib, "erf_pair_fwd" + form, 9, 5)
     err = fn(_build.ptr(t0), _build.ptr(whc), _build.ptr(bhf),
              _build.ptr(wwc), _build.ptr(bwf), _build.ptr(t1), _build.ptr(z),
              _build.ptr(part), _build.ptr(stats), B, H, W, C, int(dil),
              stream)
-    _build.check(lib, err, "nb1d pair forward launch")
-    _build.count(pair_fwd, n=3)
+    _build.check(lib, err, f"nb1d pair{form} forward launch")
+    _build.count(pair_fwd, form, n=3)
     return t0, t1, z, stats[:, :C], stats[:, C:]
 
 
-pair_fwd.launches = _build.counter()
+pair_fwd.launches = _build.counter("", "_f32")
 
 
 @route.recorded(pair_bwd_plain)
 def pair_bwd(mode, saved, gz, gs1, gs2, gy=None):
     """pair_bwd_plain's contract.  CPU tensor: the plain version.  CUDA
-    tensor: the kernels, or raise."""
+    tensor: the kernels' form for the maps' dtype (bf16 or f32), or
+    raise."""
     x = saved["x"]
     if x.device.type == "cpu":
         return pair_bwd_plain(mode, saved, gz, gs1, gs2, gy)
     B, H, W, C = x.shape
-    dev = x.device
-    _check_map(x, "x", C)
-    gz = gz.to(torch.bfloat16).contiguous()
+    dev, dt = x.device, x.dtype
+    gz = gz.contiguous()
+    maps = [(k, saved[k]) for k in ("t0", "t1", "z")] + [("gz", gz)]
+    if mode == "epi":
+        gy = gy.contiguous()
+        maps.append(("gy", gy))
+    form = _check_map(x, "x", C, maps)
     gs1 = gs1.float().contiguous()
     gs2 = gs2.float().contiguous()
-    for name in ("t0", "t1", "z"):
-        _build.require(saved[name], name, torch.bfloat16, dev, x.shape)
-    _build.require(gz, "gz", torch.bfloat16, dev, x.shape)
+    for name, t in maps:
+        _build.require(t, name, dt, dev, x.shape)
     _build.require(gs1, "gs1", torch.float32, dev, (B, C))
     _build.require(gs2, "gs2", torch.float32, dev, (B, C))
     # the transposed convs: tap k of the flipped stack is w[2 - k]^T
-    wht = saved["wh"].to(torch.bfloat16).flip(0).transpose(1, 2).contiguous()
-    wwt = saved["ww"].to(torch.bfloat16).flip(0).transpose(1, 2).contiguous()
+    wht = saved["wh"].to(dt).flip(0).transpose(1, 2).contiguous()
+    wwt = saved["ww"].to(dt).flip(0).transpose(1, 2).contiguous()
     g, dz1, out = (torch.empty_like(x) for _ in range(3))
     out2 = torch.empty_like(x) if mode == "epi" else out
     mask = {"none": x, "affine": saved["t0"], "epi": saved["t0"]}[mode]
     a = saved["a"].float().contiguous() if mode != "none" else gs1
     drop = saved["m"].float().contiguous() if mode == "epi" else gs1
     if mode == "epi":
-        gy = gy.to(torch.bfloat16).contiguous()
-        _build.require(gy, "gy", torch.bfloat16, dev, x.shape)
         _build.require(drop, "m", torch.float32, dev, (B, C))
     else:
         gy = x
-    tiles = B * -(-(H * W) // BM)
+    tiles = B * _tiles_per_image(form, H, W, C)
     chunks = -(-(B * H * W) // CHUNK)
     part_b = torch.empty(2 * tiles, 2 * C, dtype=torch.float32, device=dev)
     part_w = torch.empty(chunks, 6, C, C, dtype=torch.float32, device=dev)
     grads = torch.zeros(6 * C * C + 4 * C, dtype=torch.float32, device=dev)
     lib = _build.library("nb1d_pair")
-    fn = _build.declare(lib, "erf_pair_bwd", 20, 6)
+    fn = _build.declare(lib, "erf_pair_bwd" + form, 20, 6)
     err = fn(_build.ptr(gz), _build.ptr(saved["z"]), _build.ptr(gs1),
              _build.ptr(gs2), _build.ptr(saved["t0"]),
              _build.ptr(saved["t1"]), _build.ptr(wht), _build.ptr(wwt),
@@ -250,8 +264,8 @@ def pair_bwd(mode, saved, gz, gs1, gs2, gy=None):
              _build.ptr(out), _build.ptr(out2), _build.ptr(part_b),
              _build.ptr(part_w), _build.ptr(grads), MODES.index(mode), B, H,
              W, C, int(saved["dil"]), _build.stream_ptr(x))
-    _build.check(lib, err, "nb1d pair backward launch")
-    _build.count(pair_bwd, n=BWD_LAUNCHES[mode])
+    _build.check(lib, err, f"nb1d pair{form} backward launch")
+    _build.count(pair_bwd, form, n=BWD_LAUNCHES[mode])
     cc = C * C
     res = {"dwh": grads[:3 * cc].view(3, C, C),
            "dww": grads[3 * cc:6 * cc].view(3, C, C),
@@ -269,7 +283,7 @@ def pair_bwd(mode, saved, gz, gs1, gs2, gy=None):
     return res
 
 
-pair_bwd.launches = _build.counter()
+pair_bwd.launches = _build.counter("", "_f32")
 
 
 # ---------------------------------------------------------------------------

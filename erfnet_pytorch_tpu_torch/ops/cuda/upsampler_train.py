@@ -15,9 +15,14 @@ from (gy, gs1, gs2): g = bf16(gy + gs1 + 2 y gs2), dx = bf16(the
 transposed product), dW (3, 3, Cin, Cout) forward-conv HWIO in f32 and
 db = sum g in f32.
 
-The kernels take bf16 maps with (Cin, Cout) in {(128, 64), (64, 16)} and
-raise on anything else; the plain versions take f32 or bf16.  Bound on
-the H100: bytes.
+The kernels take (Cin, Cout) in {(128, 64), (64, 16)} and raise on
+anything else.  Two forms, picked by the maps' dtype
+(``_build.kernel_form``; every map of one call has one dtype, or the call
+raises): bf16 (``erf_ups_train_*``) and f32 (the ``_f32`` entry points;
+the JAX package's default compute dtype), in which Wcat is built in f32
+and nothing is rounded to bf16.  Launches are counted apart
+(``launches[""]``, ``launches["_f32"]``).  The plain versions take f32 or
+bf16.  Bound on the H100: bytes at bf16, operations at f32.
 """
 
 from __future__ import annotations
@@ -112,71 +117,72 @@ def ups_bwd_plain(x, y, gy, gs1, gs2, w):
 # kernel launches
 # ---------------------------------------------------------------------------
 
-def _check(x, w):
+def _check(x, w, others=()):
+    """-> (form, B, H, W, Cin, Cout); x and ``others`` share one dtype."""
     B, H, W, cin = x.shape
     cout = w.shape[3]
     if (cin, cout) not in SHAPES or tuple(w.shape[:3]) != (3, 3, cin):
         raise ValueError(f"train upsampler kernel takes (Cin, Cout) in "
                          f"{SHAPES}; got x {tuple(x.shape)}, w "
                          f"{tuple(w.shape)}")
-    _build.require(x, "x", torch.bfloat16, x.device)
-    return B, H, W, cin, cout
+    return _build.kernel_form(x, "x", others), B, H, W, cin, cout
 
 
-def _wcat(w, cin, cout):
-    """The bf16 (4 Cin, 4 Cout) parity-plane matrix of the HWIO weight."""
-    wcat, _ = build_upsampler_matmul(w.to(torch.bfloat16),
-                                     w.new_zeros(cout))
-    return wcat.to(torch.bfloat16)
+def _wcat(w, cin, cout, dtype):
+    """The (4 Cin, 4 Cout) parity-plane matrix of the HWIO weight in
+    ``dtype``, its taps rounded to it first."""
+    wcat, _ = build_upsampler_matmul(w.to(dtype), w.new_zeros(cout))
+    return wcat.to(dtype)
 
 
 @route.recorded(ups_fwd_plain)
 def ups_fwd(x, w, b):
     """ups_fwd_plain's contract.  CPU tensor: the plain version.  CUDA
-    tensor: the kernels (bf16), or raise."""
+    tensor: the kernels' form for x's dtype (bf16 or f32), or raise."""
     if x.device.type == "cpu":
         return ups_fwd_plain(x, w, b)
-    B, H, W, cin, cout = _check(x, w)
-    dev = x.device
-    wcat = _wcat(w, cin, cout).contiguous()
+    form, B, H, W, cin, cout = _check(x, w)
+    dev, dt = x.device, x.dtype
+    wcat = _wcat(w, cin, cout, dt).contiguous()
     bias = b.float().contiguous()
-    _build.require(wcat, "wcat", torch.bfloat16, dev, (4 * cin, 4 * cout))
+    _build.require(wcat, "wcat", dt, dev, (4 * cin, 4 * cout))
     _build.require(bias, "b", torch.float32, dev, (cout,))
-    y = torch.empty(B, 2 * H, 2 * W, cout, dtype=torch.bfloat16, device=dev)
+    y = torch.empty(B, 2 * H, 2 * W, cout, dtype=dt, device=dev)
     tpi = -(-(H * W) // BM)
     part = torch.empty(B * tpi * (4 * cout // BN), 2 * cout,
                        dtype=torch.float32, device=dev)
     stats = torch.empty(B, 2 * cout, dtype=torch.float32, device=dev)
     lib = _build.library("upsampler_train")
-    fn = _build.declare(lib, "erf_ups_train_fwd", 6, 5)
+    fn = _build.declare(lib, "erf_ups_train_fwd" + form, 6, 5)
     err = fn(_build.ptr(x), _build.ptr(wcat), _build.ptr(bias), _build.ptr(y),
              _build.ptr(part), _build.ptr(stats), B, H, W, cin, cout,
              _build.stream_ptr(x))
-    _build.check(lib, err, "train upsampler forward launch")
-    _build.count(ups_fwd, n=FWD_LAUNCHES)
+    _build.check(lib, err, f"train upsampler{form} forward launch")
+    _build.count(ups_fwd, form, n=FWD_LAUNCHES)
     return y, stats[:, :cout], stats[:, cout:]
 
 
-ups_fwd.launches = _build.counter()
+ups_fwd.launches = _build.counter("", "_f32")
 
 
 @route.recorded(ups_bwd_plain)
 def ups_bwd(x, y, gy, gs1, gs2, w):
     """ups_bwd_plain's contract.  CPU tensor: the plain version.  CUDA
-    tensor: the kernels, or raise."""
+    tensor: the kernels' form for the maps' dtype (bf16 or f32), or
+    raise."""
     if x.device.type == "cpu":
         return ups_bwd_plain(x, y, gy, gs1, gs2, w)
-    B, H, W, cin, cout = _check(x, w)
-    dev = x.device
-    gy = gy.to(torch.bfloat16).contiguous()
+    gy = gy.contiguous()
+    form, B, H, W, cin, cout = _check(x, w, (("y", y), ("gy", gy)))
+    dev, dt = x.device, x.dtype
     gs1, gs2 = gs1.float().contiguous(), gs2.float().contiguous()
     for name, t in (("y", y), ("gy", gy)):
-        _build.require(t, name, torch.bfloat16, dev, (B, 2 * H, 2 * W, cout))
+        _build.require(t, name, dt, dev, (B, 2 * H, 2 * W, cout))
     _build.require(gs1, "gs1", torch.float32, dev, (B, cout))
     _build.require(gs2, "gs2", torch.float32, dev, (B, cout))
     # the dx product's B operand: row q 4 Cout + plane Cout + c holds
     # Wcat[q Cin:(q + 1) Cin, plane Cout + c]
-    wt = (_wcat(w, cin, cout).reshape(4, cin, 4 * cout).transpose(1, 2)
+    wt = (_wcat(w, cin, cout, dt).reshape(4, cin, 4 * cout).transpose(1, 2)
           .reshape(16 * cout, cin).contiguous())
     g = torch.empty_like(y)
     dx = torch.empty_like(x)
@@ -187,18 +193,18 @@ def ups_bwd(x, y, gy, gs1, gs2, w):
     grads = torch.empty(9 * cin * cout + cout, dtype=torch.float32,
                         device=dev)
     lib = _build.library("upsampler_train")
-    fn = _build.declare(lib, "erf_ups_train_bwd", 11, 5)
+    fn = _build.declare(lib, "erf_ups_train_bwd" + form, 11, 5)
     err = fn(_build.ptr(x), _build.ptr(y), _build.ptr(gy), _build.ptr(gs1),
              _build.ptr(gs2), _build.ptr(wt), _build.ptr(g), _build.ptr(dx),
              _build.ptr(part_w), _build.ptr(part_db), _build.ptr(grads), B,
              H, W, cin, cout, _build.stream_ptr(x))
-    _build.check(lib, err, "train upsampler backward launch")
-    _build.count(ups_bwd, n=BWD_LAUNCHES)
+    _build.check(lib, err, f"train upsampler{form} backward launch")
+    _build.count(ups_bwd, form, n=BWD_LAUNCHES)
     return (dx, grads[:9 * cin * cout].view(3, 3, cin, cout),
             grads[9 * cin * cout:])
 
 
-ups_bwd.launches = _build.counter()
+ups_bwd.launches = _build.counter("", "_f32")
 
 
 # ---------------------------------------------------------------------------

@@ -99,8 +99,12 @@ def make_train_step(net, optimizer, class_weights, *, enc: bool = True,
     (tx, ty)) and ``drop_masks`` ({layer index: (B, C)}) override the
     draws.  ``enc=True``: the encoder stage (the encoder and its 1x1
     head, labels at 1/8); ``enc=False``: the whole net (stage 2), with the
-    encoder's head frozen.  Runs on ``cuda`` unless ``device="cpu"`` (then
-    every kernel wrapper runs its plain version).
+    encoder's head frozen.  ``dtype``: the compute dtype, bf16 or f32
+    (the JAX package's default, ``compute_dtype=None``); every train
+    kernel has both forms and runs the one of the maps' dtype, and with
+    ``with_pred`` the head+argmax kernels do too.  Runs on ``cuda``
+    unless ``device="cpu"`` (then every kernel wrapper runs its plain
+    version).
     """
     dev = resolve_device(device)
     net.to(dev)
@@ -187,7 +191,9 @@ def make_eval_step(net, class_weights, *, enc: bool, dtype=torch.bfloat16,
     (``head_argmax_1x1``, or ``head_argmax``).
 
     ``net`` is the module that the states passed to the step carry (the
-    JAX step takes its model); the weights are folded from ``state.net``
+    JAX step takes its model).  At ``dtype=torch.float32`` every kernel of
+    the step runs its f32 form: the serving kernels, the head+loss forward
+    and the head+argmax kernels.  The weights are folded from ``state.net``
     once per ``state.step``: a validation pass folds once, and an eval
     after one more train step sees that step's weights and BN running
     statistics.  Runs on ``cuda``

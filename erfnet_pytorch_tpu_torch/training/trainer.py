@@ -46,7 +46,8 @@ from .steps import (TrainState, create_train_state, make_eval_step,
 class TrainConfig:
     """The JAX ``TrainConfig`` fields the port honours, with the same
     defaults, and ``device``.  ``compute_dtype`` None is f32, as in the
-    JAX package; the kernels on the card take bf16."""
+    JAX package; the kernels on the card take bf16 or f32 (two forms of
+    each)."""
     datadir: str
     savedir: str
     model: str = "erfnet"

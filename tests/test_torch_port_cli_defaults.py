@@ -3,13 +3,10 @@
 ``train_main``) against the JAX CLIs' parsers: every flag the two
 parsers share has the same parsed default, ``--pallas`` and
 ``--no-pallas`` parse to the JAX tri-state, without a dtype flag the
-three eval CLIs compute f32 (the JAX default) on ``--cpu`` and on the
-card, ``eval_forwardTime --fp32`` f32 on the card, ``train_main`` f32 on
-``--cpu`` and bf16 on the card (saying so without ``--bf16``: the train
-kernels have no f32 forms yet), and the flags that cannot be honoured
-exit 2."""
+three eval CLIs and ``train_main`` compute f32 (the JAX default) on
+``--cpu`` and on the card, silently, ``eval_forwardTime --fp32`` f32 on
+the card, and the flags that cannot be honoured exit 2."""
 
-import functools
 
 import pytest
 import torch
@@ -23,8 +20,7 @@ from erfnet_pytorch_tpu_torch import device as port_device
 from erfnet_pytorch_tpu_torch.cli import (eval_cityscapes_color,
                                           eval_cityscapes_server, eval_iou,
                                           train_main)
-from erfnet_pytorch_tpu_torch.cli._device_flags import (F32_ON_CARD,
-                                                        resolve_device_dtype)
+from erfnet_pytorch_tpu_torch.cli._device_flags import resolve_device_dtype
 from test_torch_port_common import one_torch_thread  # noqa: F401
 
 CLIS = {"eval_iou": (eval_iou, jeval_iou, []),
@@ -58,16 +54,13 @@ def test_pallas_flags_parse(cli, flag, value):
 @pytest.mark.parametrize("cli", sorted(CLIS))
 def test_device_and_dtype_rule(cli, monkeypatch, capsys):
     """--cpu: f32 unless --bf16 (--fp32 says so explicitly), and --pallas
-    exits 2.  The card (stood in for here): the eval CLIs f32 unless
-    --bf16, silently; train_main bf16, with one line on stderr naming the
-    train rows' f32 forms unless --bf16; --no-pallas exits 2."""
+    exits 2.  The card (stood in for here): every CLI, train_main too, f32
+    unless --bf16, silently, as the JAX CLIs; --no-pallas exits 2."""
     parser = CLIS[cli][0].build_parser()
     argv = CLIS[cli][2]
-    rule = (functools.partial(resolve_device_dtype, f32_on_card=False)
-            if cli == "train_main" else resolve_device_dtype)
 
     def resolve(extra):
-        return rule(parser.parse_args(argv + extra), parser)
+        return resolve_device_dtype(parser.parse_args(argv + extra), parser)
 
     assert resolve(["--cpu"]) == (torch.device("cpu"), torch.float32)
     assert resolve(["--cpu", "--fp32"])[1] == torch.float32
@@ -85,14 +78,9 @@ def test_device_and_dtype_rule(cli, monkeypatch, capsys):
     assert resolve(["--bf16", "--pallas"]) == (torch.device("cuda"),
                                                torch.bfloat16)
     assert capsys.readouterr().err == ""
-    if cli != "train_main":
-        assert resolve([]) == (torch.device("cuda"), torch.float32)
-        assert resolve(["--fp32"])[1] == torch.float32
-        assert capsys.readouterr().err == ""
-        return
-    assert resolve([])[1] == torch.bfloat16
-    err = capsys.readouterr().err
-    assert err.strip() == F32_ON_CARD and "train rows" in err
+    assert resolve([]) == (torch.device("cuda"), torch.float32)
+    assert resolve(["--fp32"])[1] == torch.float32
+    assert capsys.readouterr().err == ""
 
 
 @pytest.mark.parametrize("cli", ["eval_iou", "color", "server"])

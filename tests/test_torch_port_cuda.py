@@ -35,7 +35,12 @@ are held to ``chip_smoke.py`` phase 20's tolerances: outputs within
 max(|ref|, rms(ref)); predictions equal except where the plain version's
 two largest logits lie within ``F32_TIE_REL`` relative of each other.
 Both sides are f32 FMA chains over the same products in other orders, so
-they differ by a few f32 ulps of the sums' terms.
+they differ by a few f32 ulps of the sums' terms.  The train kernels'
+f32 forms are held to ``chip_smoke.py`` phase 23's: maps by the same
+rule, weight and bias gradients and BN sums within ``F32_GRAD_REL``
+norm-relative; the f32 train steps of both stages launch only the
+``_f32`` forms, repeat bit-identically and pass phase 24's check of
+their recorded calls.
 """
 
 import pytest
@@ -305,6 +310,17 @@ def _rel(got, ref, tol=5e-3):
     assert err <= tol, err
 
 
+# the train kernels' f32 outputs (weight and bias gradients, BN sums) in
+# their f32 forms: chip_smoke.py F32_GRAD_REL
+F32_GRAD_REL = 5e-6
+
+
+def _rel_for(dtype):
+    """The f32-output rule of a train kernel's form."""
+    tol = 5e-3 if dtype == BF else F32_GRAD_REL
+    return lambda got, ref: _rel(got, ref, tol)
+
+
 def _rn(*shape, seed, scale=1.0):
     g = torch.Generator().manual_seed(seed)
     return scale * torch.randn(*shape, generator=g)
@@ -316,10 +332,12 @@ def _rn(*shape, seed, scale=1.0):
     ("affine", (1, 6, 10, 128), 2), ("affine", (2, 4, 8, 128), 16),
     ("epi", (1, 3, 70, 128), 1), ("none", (1, 5, 9, 16), 1),
     ("affine", (2, 7, 11, 16), 1), ("epi", (1, 9, 13, 16), 1)])
-def test_nb1d_pair_kernels(dev, mode, shape, dil):
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_nb1d_pair_kernels(dev, mode, shape, dil, dtype):
     B, H, W, C = shape
+    rel = _rel_for(dtype)
     x = _rn(*shape, seed=1)
-    kw = {"x": (x.relu() if mode == "none" else x).to(dev, torch.bfloat16),
+    kw = {"x": (x.relu() if mode == "none" else x).to(dev, dtype),
           "wh": _rn(3, C, C, seed=2, scale=(3 * C) ** -0.5).to(dev),
           "bh": _rn(C, seed=3, scale=0.1).to(dev),
           "ww": _rn(3, C, C, seed=4, scale=(3 * C) ** -0.5).to(dev),
@@ -328,51 +346,53 @@ def test_nb1d_pair_kernels(dev, mode, shape, dil):
         kw["a"] = (1 + _rn(C, seed=6, scale=0.1)).to(dev)
         kw["b"] = _rn(C, seed=7, scale=0.1).to(dev)
     if mode == "epi":
-        kw["yres"] = _rn(*shape, seed=8).relu().to(dev, torch.bfloat16)
+        kw["yres"] = _rn(*shape, seed=8).relu().to(dev, dtype)
         kw["m"] = torch.where(_rn(B, C, seed=9) > -0.5, 1 / 0.7, 0.0).to(dev)
-    n0 = nb1d_pair.pair_fwd.launches[""]
+    n0 = _launched(nb1d_pair.pair_fwd, dtype)
     got = nb1d_pair.pair_fwd(mode, **kw)
     ref = nb1d_pair.pair_fwd_plain(mode, **kw)
     torch.cuda.synchronize()
-    assert (nb1d_pair.pair_fwd.launches[""] - n0
+    assert (_launched(nb1d_pair.pair_fwd, dtype) - n0
             == nb1d_pair.FWD_LAUNCHES[mode])
     for i in (0, 1, 2):
         _close(got[i], ref[i])
-    _rel(got[3], ref[3])
-    _rel(got[4], ref[4])
+    rel(got[3], ref[3])
+    rel(got[4], ref[4])
     t0, t1, z = ref[:3]
     saved = {"x": kw["x"], "t0": t0, "t1": t1, "z": z,
-             "wh": kw["wh"].bfloat16(), "ww": kw["ww"].bfloat16(),
+             "wh": kw["wh"].to(dtype), "ww": kw["ww"].to(dtype),
              "a": kw.get("a"), "m": kw.get("m"), "dil": dil}
-    ct = {"gz": _rn(*shape, seed=10).to(dev, torch.bfloat16),
+    ct = {"gz": _rn(*shape, seed=10).to(dev, dtype),
           "gs1": _rn(B, C, seed=11, scale=1e-3).to(dev),
           "gs2": _rn(B, C, seed=12, scale=1e-3).to(dev)}
     if mode == "epi":
-        ct["gy"] = _rn(*shape, seed=13).to(dev, torch.bfloat16)
-    n0 = nb1d_pair.pair_bwd.launches[""]
+        ct["gy"] = _rn(*shape, seed=13).to(dev, dtype)
+    n0 = _launched(nb1d_pair.pair_bwd, dtype)
     got = nb1d_pair.pair_bwd(mode, saved, **ct)
     ref = nb1d_pair.pair_bwd_plain(mode, saved, **ct)
     torch.cuda.synchronize()
-    assert (nb1d_pair.pair_bwd.launches[""] - n0
+    assert (_launched(nb1d_pair.pair_bwd, dtype) - n0
             == nb1d_pair.BWD_LAUNCHES[mode])
     assert set(got) == set(ref)
     for k, v in ref.items():
-        (_close if v.dtype == torch.bfloat16 else _rel)(got[k], v)
+        (_close if k in ("dx", "dt", "dy_res") else rel)(got[k], v)
 
 
 @pytest.mark.parametrize("shape,cc,stem", [
     ((2, 6, 10, 3), 13, True), ((2, 10, 6, 16), 48, False),
     ((1, 18, 14, 64), 64, False)])
-def test_downsampler_train_kernels(dev, shape, cc, stem):
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_downsampler_train_kernels(dev, shape, cc, stem, dtype):
     B, H, W, cin = shape
+    rel = _rel_for(dtype)
     if stem:
         x = torch.rand(*shape, generator=torch.Generator().manual_seed(1))
         x, kw = x.to(dev), {"shifts": torch.tensor([[-2, 1], [2, -2]]).to(
-            dev), "dtype": torch.bfloat16}
+            dev), "dtype": dtype}
     else:
         x = _rn(*shape, seed=1).relu()
         x[:, 2:4, 2:4, :] = 0.5                       # a window of ties
-        x, kw = x.to(dev, torch.bfloat16), {}
+        x, kw = x.to(dev, dtype), {}
     w = _rn(3, 3, cin, cc, seed=2, scale=(9 * cin) ** -0.5).to(dev)
     b = _rn(cc, seed=3, scale=0.1).to(dev)
     got = downsampler_train.down_fwd(x, w, b, **kw)
@@ -380,32 +400,33 @@ def test_downsampler_train_kernels(dev, shape, cc, stem):
     torch.cuda.synchronize()
     _close(got[0], ref[0])
     _close(got[1], ref[1])
-    _rel(got[2], ref[2])
-    _rel(got[3], ref[3])
+    rel(got[2], ref[2])
+    rel(got[3], ref[3])
     xa, y = ref[0], ref[1]
-    gy = _rn(*y.shape, seed=4).to(dev, torch.bfloat16)
+    gy = _rn(*y.shape, seed=4).to(dev, dtype)
     gs1 = _rn(B, y.shape[-1], seed=5, scale=1e-3).to(dev)
     gs2 = _rn(B, y.shape[-1], seed=6, scale=1e-3).to(dev)
-    n0 = downsampler_train.down_bwd.launches[""]
+    n0 = _launched(downsampler_train.down_bwd, dtype)
     got = downsampler_train.down_bwd(xa, y, gy, gs1, gs2, w, stem=stem)
     ref = downsampler_train.down_bwd_plain(xa, y, gy, gs1, gs2, w, stem=stem)
     torch.cuda.synchronize()
-    assert (downsampler_train.down_bwd.launches[""] - n0
+    assert (_launched(downsampler_train.down_bwd, dtype) - n0
             == downsampler_train.BWD_LAUNCHES[stem])
     if not stem:
         _close(got[0], ref[0])
-    _rel(got[1], ref[1])
-    _rel(got[2], ref[2])
+    rel(got[1], ref[1])
+    rel(got[2], ref[2])
 
 
 @pytest.mark.parametrize("G", [1, 4])
 @pytest.mark.parametrize("all_void", [False, True])
-def test_head_loss_kernels(dev, all_void, G):
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_head_loss_kernels(dev, all_void, G, dtype):
     from erfnet_pytorch_tpu_torch.training.class_weights import \
         ENCODER_WEIGHTS
     M = 1300                                   # ragged against 256 and 1024
     K = 128 if G == 1 else 16
-    feats = _rn(M, K, seed=1).relu().to(dev, torch.bfloat16)
+    feats = _rn(M, K, seed=1).relu().to(dev, dtype)
     w = _rn(K, 20 * G, seed=2, scale=0.1 if G == 1 else 0.3).to(dev)
     b = _rn(20 * G, seed=3, scale=0.1).to(dev)
     labels = torch.randint(0, 20, (M,) if G == 1 else (M, G),
@@ -418,11 +439,11 @@ def test_head_loss_kernels(dev, all_void, G):
     num, den = head_loss.head_loss_fwd(feats, w, b, labels, cw)
     pnum, pden = head_loss.head_loss_fwd_plain(feats, w, b, labels, cw)
     gnum = 1.0 / den.clamp_min(1e-12)
-    n0 = head_loss.head_loss_bwd.launches[""]
+    n0 = _launched(head_loss.head_loss_bwd, dtype)
     got = head_loss.head_loss_bwd(feats, w, b, labels, cw, gnum)
     ref = head_loss.head_loss_bwd_plain(feats, w, b, labels, cw, gnum)
     torch.cuda.synchronize()
-    assert (head_loss.head_loss_bwd.launches[""] - n0
+    assert (_launched(head_loss.head_loss_bwd, dtype) - n0
             == head_loss.BWD_LAUNCHES[G])
     if all_void:
         assert num.item() == 0 and den.item() == 0
@@ -431,49 +452,85 @@ def test_head_loss_kernels(dev, all_void, G):
     assert abs(num.item() - pnum.item()) <= 1e-5 * abs(pnum.item())
     assert abs(den.item() - pden.item()) <= 1e-5 * abs(pden.item())
     _close(got[0], ref[0])
-    _rel(got[1], ref[1])
-    _rel(got[2], ref[2])
+    _rel_for(dtype)(got[1], ref[1])
+    _rel_for(dtype)(got[2], ref[2])
 
 
 @pytest.mark.parametrize("shape,cout", [
     ((1, 5, 7, 128), 64), ((2, 9, 70, 64), 16), ((1, 64, 128, 128), 64)])
-def test_upsampler_train_kernels(dev, shape, cout):
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_upsampler_train_kernels(dev, shape, cout, dtype):
     """Maps narrower than a tile, a tile tail at the bottom-right edge,
     and one image at the decoder's first shape."""
     B, H, W, cin = shape
-    x = _rn(*shape, seed=1).relu().to(dev, torch.bfloat16)
+    rel = _rel_for(dtype)
+    x = _rn(*shape, seed=1).relu().to(dev, dtype)
     w = _rn(3, 3, cin, cout, seed=2, scale=(9 * cin) ** -0.5).to(dev)
     b = _rn(cout, seed=3, scale=0.1).to(dev)
-    n0 = upsampler_train.ups_fwd.launches[""]
+    n0 = _launched(upsampler_train.ups_fwd, dtype)
     got = upsampler_train.ups_fwd(x, w, b)
     ref = upsampler_train.ups_fwd_plain(x, w, b)
     torch.cuda.synchronize()
-    assert (upsampler_train.ups_fwd.launches[""] - n0
+    assert (_launched(upsampler_train.ups_fwd, dtype) - n0
             == upsampler_train.FWD_LAUNCHES)
     _close(got[0], ref[0])
-    _rel(got[1], ref[1])
-    _rel(got[2], ref[2])
+    rel(got[1], ref[1])
+    rel(got[2], ref[2])
     y = ref[0]
-    gy = _rn(*y.shape, seed=4).to(dev, torch.bfloat16)
+    gy = _rn(*y.shape, seed=4).to(dev, dtype)
     gs1 = _rn(B, cout, seed=5, scale=1e-3).to(dev)
     gs2 = _rn(B, cout, seed=6, scale=1e-3).to(dev)
-    n0 = upsampler_train.ups_bwd.launches[""]
+    n0 = _launched(upsampler_train.ups_bwd, dtype)
     got = upsampler_train.ups_bwd(x, y, gy, gs1, gs2, w)
     ref = upsampler_train.ups_bwd_plain(x, y, gy, gs1, gs2, w)
     torch.cuda.synchronize()
-    assert (upsampler_train.ups_bwd.launches[""] - n0
+    assert (_launched(upsampler_train.ups_bwd, dtype) - n0
             == upsampler_train.BWD_LAUNCHES)
     _close(got[0], ref[0])
-    _rel(got[1], ref[1])
-    _rel(got[2], ref[2])
+    rel(got[1], ref[1])
+    rel(got[2], ref[2])
 
 
 def test_train_wrappers_refuse_what_the_kernels_do_not_take(dev):
-    x = torch.zeros(1, 4, 4, 64, device=dev)
+    """Shapes the kernels do not take, a dtype with no form (f16), and a
+    call whose maps mix bf16 and f32."""
+    x = torch.zeros(1, 4, 4, 64, device=dev, dtype=torch.float16)
     w3 = torch.zeros(3, 64, 64, device=dev)
     c = torch.zeros(64, device=dev)
     with pytest.raises(TypeError):
-        nb1d_pair.pair_fwd("none", x, w3, c, w3, c, 1)                # f32
+        nb1d_pair.pair_fwd("none", x, w3, c, w3, c, 1)                # f16
+    with pytest.raises(TypeError, match="y_res"):                    # mixed
+        nb1d_pair.pair_fwd("epi", x.to(BF), w3, c, w3, c, 1, yres=x.float(),
+                           m=torch.ones(1, 64, device=dev), a=c, b=c)
+    xb = x.to(BF)
+    saved = {"x": xb, "t0": xb, "t1": xb, "z": x.float(), "wh": w3.to(BF),
+             "ww": w3.to(BF), "a": None, "m": None, "dil": 1}
+    with pytest.raises(TypeError, match="z"):                        # mixed
+        nb1d_pair.pair_bwd("none", saved, xb, c[None], c[None])
+    with pytest.raises(TypeError):                                   # f16
+        downsampler_train.down_fwd(
+            torch.zeros(1, 4, 4, 16, device=dev, dtype=torch.float16),
+            torch.zeros(3, 3, 16, 48, device=dev), torch.zeros(48,
+                                                               device=dev))
+    with pytest.raises(TypeError):                           # stem at f16
+        downsampler_train.down_fwd(
+            torch.zeros(1, 4, 4, 3, device=dev), torch.zeros(3, 3, 3, 13,
+                                                             device=dev),
+            torch.zeros(13, device=dev),
+            shifts=torch.zeros(1, 2, dtype=torch.int64, device=dev),
+            dtype=torch.float16)
+    y = torch.zeros(1, 2, 2, 64, device=dev)
+    with pytest.raises(TypeError, match="gy"):                       # mixed
+        downsampler_train.down_bwd(
+            torch.zeros(1, 4, 4, 16, device=dev), y, y.to(BF),
+            torch.zeros(1, 64, device=dev), torch.zeros(1, 64, device=dev),
+            torch.zeros(3, 3, 16, 48, device=dev), stem=False)
+    with pytest.raises(TypeError):                                   # f16
+        head_loss.head_loss_fwd(
+            torch.zeros(8, 128, device=dev, dtype=torch.float16),
+            torch.zeros(128, 20, device=dev), torch.zeros(20, device=dev),
+            torch.zeros(8, dtype=torch.int64, device=dev),
+            torch.ones(20, device=dev))
     with pytest.raises(ValueError):
         nb1d_pair.pair_fwd("none", torch.zeros(1, 4, 4, 32, device=dev,
                                                dtype=torch.bfloat16),
@@ -501,10 +558,17 @@ def test_train_wrappers_refuse_what_the_kernels_do_not_take(dev):
             torch.zeros(1, 4, 4, 64, device=dev, dtype=torch.bfloat16),
             torch.zeros(3, 3, 64, 32, device=dev), torch.zeros(32,
                                                                device=dev))
-    with pytest.raises(TypeError):                                 # f32
-        upsampler_train.ups_fwd(torch.zeros(1, 4, 4, 64, device=dev),
+    with pytest.raises(TypeError):                                 # f16
+        upsampler_train.ups_fwd(torch.zeros(1, 4, 4, 64, device=dev,
+                                            dtype=torch.float16),
                                 torch.zeros(3, 3, 64, 16, device=dev),
                                 torch.zeros(16, device=dev))
+    y = torch.zeros(1, 8, 8, 16, device=dev, dtype=BF)
+    with pytest.raises(TypeError, match="y"):                        # mixed
+        upsampler_train.ups_bwd(torch.zeros(1, 4, 4, 64, device=dev), y, y,
+                                torch.zeros(1, 16, device=dev),
+                                torch.zeros(1, 16, device=dev),
+                                torch.zeros(3, 3, 64, 16, device=dev))
 
 
 def _train_step_run(dev, sd, plain=False, dtype=torch.bfloat16,
@@ -910,10 +974,11 @@ def test_eval_step_launch_counts(dev, sd, enc):
 
 @pytest.mark.parametrize("enc", [True, False])
 def test_f32_eval_step_runs_the_f32_serving_kernels(dev, sd, enc):
-    """make_eval_step at f32 on the card: its features run the serving
-    kernels' f32 forms (no bf16 launch), and its loss raises, since the
-    head+loss kernel (row 17) has no f32 form yet; the trainer keeps its
-    eval step at the train dtype, bf16 on the card."""
+    """make_eval_step at f32 on the card: its features, its loss and its
+    predictions run the kernels' f32 forms (the serving kernels, the
+    head+loss forward and the head+argmax kernels; no bf16 launch), and
+    it agrees with the same step through the plain versions (loss rtol
+    1e-5, predictions equal off the plain logits' near-ties)."""
     from erfnet_pytorch_tpu_torch.training.class_weights import (
         DECODER_WEIGHTS, ENCODER_WEIGHTS)
     from erfnet_pytorch_tpu_torch.training.optim import make_adam
@@ -927,14 +992,52 @@ def test_f32_eval_step_runs_the_f32_serving_kernels(dev, sd, enc):
     net.load_state_dict(sd)
     net.to(dev)
     state = create_train_state(net, make_adam(net.parameters()))
-    step = make_eval_step(net, ENCODER_WEIGHTS if enc else DECODER_WEIGHTS,
-                          enc=enc, dtype=F32, device=dev)
+    cw = ENCODER_WEIGHTS if enc else DECODER_WEIGHTS
+    step = make_eval_step(net, cw, enc=enc, dtype=F32, device=dev)
     kernels.reset_launch_counts()
-    with pytest.raises(TypeError, match="feats"):
-        step(state, u8, labels)
+    loss, preds, _ = step(state, u8, labels)
     torch.cuda.synchronize()
     counts = {k: v for k, v in kernels.launch_counts().items() if v}
-    want = {"downsampler_f32": 3, "nb1d_f32": 13}
+    want = {"downsampler_f32": 3, "nb1d_f32": 13, "head_loss_fwd_f32": 2,
+            "head_argmax_1x1_f32": 1}
     if not enc:
-        want = {"downsampler_f32": 3, "nb1d_f32": 17, "upsampler_f32": 2}
+        want = {"downsampler_f32": 3, "nb1d_f32": 17, "upsampler_f32": 2,
+                "head_loss_fwd_f32": 2, "head_argmax_f32": 1}
     assert counts == want
+    lossp, predsp, _ = make_eval_step(net, cw, enc=enc, dtype=F32,
+                                      device=dev, plain=True)(state, u8,
+                                                              labels)
+    assert abs(loss.item() - lossp.item()) <= 1e-5 * abs(lossp.item())
+    assert (preds == predsp).float().mean().item() >= 0.999
+
+
+@pytest.mark.parametrize("enc", [True, False])
+def test_f32_train_step_runs_the_f32_forms(dev, sd, enc):
+    """make_train_step(dtype=f32) of both stages on the card, B=2, 64x128
+    (stage 2 at 256x512): every train launch is an ``_f32`` form's, as
+    many as the bf16 step's, none of a bf16 form; two runs from one state
+    give bit-identical state; the loss agrees with the plain f32 step
+    (rtol 1e-4); and every recorded train kernel call passes
+    ``chip_smoke.py``'s f32 check against its plain version."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    hw = (64, 128) if enc else (256, 512)
+    _, bf_counts, _, _, _ = _train_step_run(dev, sd, enc=enc, hw=hw)
+    loss1, counts, _, state1, calls = _train_step_run(
+        dev, sd, enc=enc, dtype=F32, record=True, hw=hw)
+    train = set(smoke.TRAIN_WRAPPER_NAMES)
+    assert {k: v for k, v in counts.items() if k in train and v} == {}
+    assert ({k[:-4]: v for k, v in counts.items()
+             if k.endswith("_f32") and k[:-4] in train and v}
+            == {k: v for k, v in bf_counts.items() if k in train and v})
+    _, _, _, state2, _ = _train_step_run(dev, sd, enc=enc, dtype=F32, hw=hw)
+    assert all(torch.equal(state1[k], state2[k]) for k in state1)
+    lossp, _, _, _, _ = _train_step_run(dev, sd, enc=enc, dtype=F32,
+                                        plain=True, hw=hw)
+    assert abs(loss1 - lossp) <= 1e-4 * abs(lossp)
+    smoke.check_recorded_calls(calls)

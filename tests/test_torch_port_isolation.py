@@ -95,7 +95,8 @@ def test_cuda_requested_without_a_card_raises(monkeypatch):
 def test_cpu_tensors_never_move_a_launch_counter():
     """On CPU tensors every wrapper runs its plain version: a full
     preds_only forward, bf16 and f32, leaves every launch counter at 0.
-    The serving kernels with an f32 form count it apart (``<name>_f32``)."""
+    The kernels with an f32 form (the serving kernels and every train
+    kernel) count it apart (``<name>_f32``)."""
     net = init_weights(Net(20), torch.Generator().manual_seed(0))
     x = torch.rand(1, 32, 64, 3, generator=torch.Generator().manual_seed(1))
     kernels.reset_launch_counts()
@@ -110,7 +111,10 @@ def test_cpu_tensors_never_move_a_launch_counter():
                            "ups_bwd", "nb1d_q8", "nb1d_halo",
                            "head_argmax_1x1", "downsampler_f32", "nb1d_f32",
                            "upsampler_f32", "head_argmax_f32",
-                           "head_argmax_1x1_f32"}
+                           "head_argmax_1x1_f32", "pair_fwd_f32",
+                           "pair_bwd_f32", "down_fwd_f32", "down_bwd_f32",
+                           "head_loss_fwd_f32", "head_loss_bwd_f32",
+                           "ups_fwd_f32", "ups_bwd_f32"}
     assert set(counts.values()) == {0}
 
 
