@@ -244,6 +244,21 @@ phase 19, with TF32 off and the flags restored after:
     phase 19 (2 epochs a stage): exit 0, no dtype note on stderr, its
     printed launches exactly its steps' and eval batches' in the ``_f32``
     forms, the killed and resumed run's ``model.pth`` bit-identical.
+27. Stats-free parity, bf16 and f32: each stats-free form of the train
+    kernels (the pair at every lead, the relu lead included, with (dh,
+    dw) apart and a dilation beyond the map; the train downsampler with
+    dx at Cin=3; the train upsampler) against its plain version at B=2.
+28. The stats-free ops' own path, bf16 and f32: the K=8 value+grad chain
+    of ``scripts/tpu_train_merge_ab.py`` at C=64 and C=16, B=6, then each
+    other op once, counts checked and every call held to its plain
+    version; each form timed at B=6 beside its plain version, its bound
+    and cuDNN's convolutions.
+29. The packed runs: ``build_fast_infer`` with ``inference._PACKED_STACKS``
+    on answers 3 requests of B=4 in bf16, f32 and int8, the launches made
+    inside the runs counted; agreement with the plain pipeline; each run
+    block by block against its plain version, timed beside its bound;
+    ms/img gate on and off; one 1024x2048 request, whose packed maps fail
+    the gate, equal to the gate-off path's.
 
 The last three lines are the card (``nvidia-smi`` name and power limit),
 one JSON object listing every kernel, and the result object.  In that
@@ -258,11 +273,18 @@ are sums over one B=4 512x1024 f32 forward (the 1x1 head's one B=6
 call), their launches the counts of phase 21's 512x1024 requests (the
 1x1 head's: phase 26's ``train_main`` run); the train kernels' are sums
 over one f32 step of each stage (phase 25), their launches the counts of
-phase 24's steps.
+phase 24's steps.  The stats-free forms (``<kernel>_nostats``, and
+``_nostats_f32``) take their launches from phase 28's path and their
+figures from phase 28's table (one forward and one backward of every B=6
+case); the packed runs (``nb1d_stack_packed``, ``_f32``, and
+``nb1d_q8_stack_packed``) their launches from inside the runs in phase
+29's requests and their figures from the three runs at B=4.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
 import os
 import subprocess
@@ -653,10 +675,17 @@ def bound_ms(kind, shape, p, esz=2, flops_per_s=BF16_FLOPS_PER_S):
     (each input read once, each output written once, weights included;
     maps of ``esz`` bytes an element) over the memory rate and operations
     over ``flops_per_s`` (bf16: the tensor-core peak; f32: the CUDA-core
-    peak).  Returns (bytes ms, operations ms)."""
+    peak; int8: the int8 peak).  ``p``: the kernel's operands; for
+    "nb1d" also a list of them, a run of blocks on one map, whose input
+    is read once and output written once (the carry between blocks
+    stays on chip, as in the TPU's stack kernel).  Returns (bytes ms,
+    operations ms)."""
     B, H, W, C = shape
-    wbytes = sum(v.numel() * v.element_size() for k, v in p.items()
-                 if hasattr(v, "numel") and k != "wmat")
+    ps = p if isinstance(p, list) else [p]
+    # wmat and q: other layouts of w and qt, which the kernels read
+    wbytes = sum(v.numel() * v.element_size() for q in ps
+                 for k, v in q.items()
+                 if hasattr(v, "numel") and k not in ("wmat", "q"))
     if kind == "downsampler":
         cc = p["b"].shape[0]
         pix = B * (H // 2) * (W // 2)
@@ -664,7 +693,7 @@ def bound_ms(kind, shape, p, esz=2, flops_per_s=BF16_FLOPS_PER_S):
         flops = 2 * pix * 9 * C * cc
     elif kind == "nb1d":
         nbytes = 2 * B * H * W * C * esz + wbytes
-        flops = 2 * B * H * W * 12 * C * C
+        flops = 2 * B * H * W * 12 * C * C * len(ps)
     elif kind == "upsampler":
         cout = p["b"].shape[0]
         nbytes = B * H * W * C * esz + 4 * B * H * W * cout * esz + wbytes
@@ -1925,7 +1954,8 @@ LOSS_REL = 1e-4
 # sides sum the same bf16 g in f32, in other orders, so the call is held
 # to ||kernel - plain|| <= PRE_BN_BIAS_ULP ||sum |g|||, one bf16 ulp of
 # every summand; phase 6's random cotangents hold these outputs
-# norm-relative.
+# norm-relative, and so does phase 28 the stats-free calls' (no BN follows
+# them: their bias gradients do not cancel).
 PRE_BN_BIAS_ULP = 2.0 ** -8
 PRE_BN_BIAS_OUT = {"pair_bwd": "dbw", "down_bwd": 2, "ups_bwd": 2}
 # The train kernels' f32 forms (phases 23-24): maps by phase 20's rule
@@ -2017,7 +2047,7 @@ def pair_inputs(mode, shape, d, g, device, dtype=None):
           "wh": rn(3, C, C, scale=(3 * C) ** -0.5), "bh": rn(C, scale=0.1),
           "ww": rn(3, C, C, scale=(3 * C) ** -0.5), "bw": rn(C, scale=0.1),
           "dil": d}
-    if mode != "none":
+    if mode in ("affine", "epi"):
         kw["a"] = 1.0 + rn(C, scale=0.1)
         kw["b"] = rn(C, scale=0.1)
     if mode == "epi":
@@ -2395,9 +2425,7 @@ def check_recorded_calls(calls, worst=None):
     gradients PRE_BN_BIAS_F32).  Returns the largest map absolute error
     by kernel; folds the f32 calls' measured maxima into ``worst``."""
     import torch
-    from erfnet_pytorch_tpu_torch.ops import cuda as kernels
-    plain = {f.__name__: f.plain for f in kernels.kernel_wrappers()
-             if hasattr(f, "plain")}
+    plain = _plain_versions()
     kernel_of = {w: k for k, ws in TRAIN_WRAPPERS.items() for w in ws}
     errs = {k: 0.0 for k in TRAIN_WRAPPERS}
     worst = {} if worst is None else worst
@@ -2413,9 +2441,11 @@ def check_recorded_calls(calls, worst=None):
             if r is None:
                 continue
             key = f"{label} [{k}]"
+            # a stats-free call's bias gradient is no pre-BN one
+            pre_bn = PRE_BN_BIAS_OUT.get(name) == k and args[3] is not None
             kind = ("map" if k in MAP_OUT.get(name, ()) else
                     "loss" if name == "head_loss_fwd" else
-                    "pre_bn" if PRE_BN_BIAS_OUT.get(name) == k else "grad")
+                    "pre_bn" if pre_bn else "grad")
             a = agg.setdefault(key, {"calls": 0, "kind": kind, "f32": f32,
                                      "within1": 1.0, "ulps": 0, "rel": 0.0,
                                      "norm": 0.0, "abs": 0.0})
@@ -2577,7 +2607,6 @@ def run_step1(sd, device, frames, labels, aug, masks, *, enc, plain=False,
               dtype=None, record=False):
     """One step from ``sd`` with fixed draws: (loss, grads, state, the
     recorded train kernel calls or [])."""
-    import contextlib
     from erfnet_pytorch_tpu_torch.ops.cuda import route
     net, st, stp = make_trainer(sd, device, dtype, enc=enc)
     nul = contextlib.nullcontext
@@ -2872,8 +2901,9 @@ def phase_f32_train(sd, device, ref1, sd2, ref2):
     return counts_by["stage 1"], counts_by["stage 2"], out, errs
 
 
-def _flops_bytes_pair(mode, shape, bwd, esz=2):
-    """(operations, bytes) of one pair call, maps of ``esz`` bytes."""
+def _flops_bytes_pair(mode, shape, bwd, esz=2, stats=True):
+    """(operations, bytes) of one pair call, maps of ``esz`` bytes; the
+    stats-free backward does not read z."""
     B, H, W, C = shape
     P = B * H * W
     maps = P * C * esz
@@ -2882,12 +2912,12 @@ def _flops_bytes_pair(mode, shape, bwd, esz=2):
         n_in = 2 if mode == "epi" else 1
         n_out = 2 if mode == "epi" else 1
         return 2 * P * 6 * C * C, (n_in + n_out) * maps + wbytes
-    n_in = 5 if mode == "epi" else 3          # x (t, y_res), z, gz (gy)
+    n_in = (5 if mode == "epi" else 3) - (not stats)  # x (t, y_res), z, gz
     n_out = 2 if mode == "epi" else 1         # dx (dt, dy_res)
     return 2 * P * 12 * C * C, (n_in + n_out) * maps + 2 * wbytes
 
 
-def _flops_bytes_down(shape, cc, stem, bwd, esz=2):
+def _flops_bytes_down(shape, cc, stem, bwd, esz=2, stats=True):
     B, H, W, cin = shape
     po = B * (H // 2) * (W // 2)
     xin = B * H * W * cin * (4 if stem and not bwd else esz)
@@ -2897,17 +2927,19 @@ def _flops_bytes_down(shape, cc, stem, bwd, esz=2):
         return (2 * po * 9 * cin * cc,
                 xin + y + (B * H * W * cin * esz if stem else 0) + wb)
     dx = 0 if stem else B * H * W * cin * esz
-    return (2 if stem else 4) * po * 9 * cin * cc, xin + 2 * y + dx + wb
+    return ((2 if stem else 4) * po * 9 * cin * cc,
+            xin + (2 if stats else 1) * y + dx + wb)
 
 
-def _flops_bytes_ups(shape, cout, bwd, esz=2):
+def _flops_bytes_ups(shape, cout, bwd, esz=2, stats=True):
     B, H, W, cin = shape
     P = B * H * W
     x, y = P * cin * esz, 4 * P * cout * esz
     wb = 9 * cin * cout * 4 + cout * 4
     if not bwd:
         return 2 * P * 9 * cin * cout, x + y + wb + 2 * B * cout * 4
-    return 2 * 2 * P * 9 * cin * cout, 2 * x + 2 * y + 2 * wb
+    return (2 * 2 * P * 9 * cin * cout,
+            2 * x + (2 if stats else 1) * y + 2 * wb)
 
 
 def _flops_bytes_head(M, K, G, bwd, esz=2):
@@ -2965,7 +2997,6 @@ def phase_train_timing(sd, device, iters, dtype=None):
     by bf16 operations over 989 TFLOP/s) or f32 (phase 25: the f32 forms,
     the plain f32 step, cuDNN in f32 with TF32 off, operations over 67
     TFLOP/s)."""
-    import contextlib
     import torch
     from erfnet_pytorch_tpu_torch.ops import cuda as kernels
     from erfnet_pytorch_tpu_torch.ops.cuda import route
@@ -3799,6 +3830,696 @@ def phase_trainer(device, te2e, dtype=None):
     return timing, counts
 
 
+# ---------------------------------------------------------------------------
+# the stats-free train ops and the packed NB1d runs: phases 27-29
+# ---------------------------------------------------------------------------
+
+# kernel -> (fwd, bwd) wrappers whose stats-free forms phases 27-28 drive,
+# and the JAX function each form replaces (PERF.md rows 18-20, 4-5, 10-11)
+NOSTATS_WRAPPERS = {"nb1d_pair": ("pair_fwd", "pair_bwd"),
+                    "downsampler_train": ("down_fwd", "down_bwd"),
+                    "upsampler_train": ("ups_fwd", "ups_bwd")}
+NOSTATS_REPLACES = {
+    "nb1d_pair": "erfnet_pytorch_tpu/ops/pallas/nb1d_train.py:578",
+    "downsampler_train": "erfnet_pytorch_tpu/ops/pallas/downsampler.py:306",
+    "upsampler_train": "erfnet_pytorch_tpu/ops/pallas/upsampler.py:280"}
+# the packed runs (rows 3p, 25p): the JAX function each replaces; their
+# launches are their blocks' (nb1d_halo, nb1d's f32 form, nb1d_q8)
+PACKED_REPLACES = {
+    "nb1d_stack_packed": "erfnet_pytorch_tpu/ops/pallas/nb1d.py:512",
+    "nb1d_q8_stack_packed": "erfnet_pytorch_tpu/ops/pallas/nb1d_q8.py:286"}
+MERGE_CHAIN = 8          # K of scripts/tpu_train_merge_ab.py's chain
+# blocks in the W-packed runs of one forward (encoder 5x C64, decoder
+# 2x C64 and 2x C16, all d=1), and the block kernel each launches once
+PACKED_BLOCKS = 9
+PACKED_RUN_KERNEL = {"bf16": "nb1d_halo", "f32": "nb1d_f32",
+                     "int8": "nb1d_q8"}
+# PERF.md rows of the stats-free functions
+NOSTATS_ROW = {("pair", "none"): 18, ("pair", "relu"): 18,
+               ("pair", "affine"): 19, ("pair", "epi"): 20,
+               ("down", False): 4, ("down", True): 5,
+               ("ups", False): 10, ("ups", True): 11}
+
+
+def _nostats_key(name, dtype):
+    import torch
+    return f"{name}_nostats{'' if dtype == torch.bfloat16 else '_f32'}"
+
+
+def nostats_pair_cases(B):
+    """(mode, map shape, (dh, dw)) of phase 27: every lead at the recipe's
+    C64 and C16 maps (d=1) and at C128 with (dh, dw) = (2, 2), (16, 8)
+    and a dilation beyond the 64x128 map."""
+    c64, c16, c128 = (B, 128, 256, 64), (B, 256, 512, 16), (B, 64, 128, 128)
+    return [(m, s, d) for m in ("none", "relu", "affine", "epi")
+            for s, d in ((c64, (1, 1)), (c16, (1, 1)), (c128, (2, 2)),
+                         (c128, (16, 8)), (c128, (96, 160)))]
+
+
+def nostats_down_cases(B):
+    """(label, input shape, conv channels): Cin=3 is a 3-channel map with
+    dx (no translate), as downsampler_packed takes it."""
+    return [("down 3->", (B, 512, 1024, 3), 13),
+            ("down 16->", (B, 256, 512, 16), 48),
+            ("down 64->", (B, 128, 256, 64), 64)]
+
+
+def _delta(before, after):
+    return {k: after[k] - before.get(k, 0) for k in after
+            if after[k] != before.get(k, 0)}
+
+
+def phase_nostats_parity(device, dtype):
+    """27. Each stats-free form (``pair_fwd``/``pair_bwd`` with stats off
+    at every lead, the relu lead included, with (dh, dw) apart; the train
+    downsampler with dx at Cin=3; the train upsampler) against its plain
+    version on the same inputs at B=2, at the recipe's shapes, by phase
+    6's rules (bf16) or phase 23's (f32).  Only the ``_nostats`` counters
+    of the form move, by the launches each call documents.  Returns (the
+    largest map error by kernel, the f32 rules' measured maxima)."""
+    import torch
+    from erfnet_pytorch_tpu_torch.ops import cuda as kernels
+    from erfnet_pytorch_tpu_torch.ops.cuda import downsampler_train as dt
+    from erfnet_pytorch_tpu_torch.ops.cuda import nb1d_pair as pr
+    from erfnet_pytorch_tpu_torch.ops.cuda import upsampler_train as ut
+    bf16 = dtype == torch.bfloat16
+    B = 2
+    g = torch.Generator().manual_seed(91 if bf16 else 93)
+    errs = {k: 0.0 for k in NOSTATS_WRAPPERS}
+    worst = {"norm": 0.0, "rel": 0.0, "grad": 0.0, "loss": 0.0,
+             "tie_flips": 0}
+    cmp_map, cmp_sum, _ = _checks(dtype, worst)
+    log(f"[stats-free parity] {'bf16' if bf16 else 'f32, TF32 off'}, B=2: "
+        "fused_pair (every lead, dh != dw), fused_pair_affine, "
+        "fused_pair_epi, downsampler_packed, upsampler_packed")
+    before = kernels.launch_counts()
+    want = {}
+
+    def expect(name, n):
+        k = _nostats_key(name, dtype)
+        want[k] = want.get(k, 0) + n
+
+    def fold(kernel, name, got, ref):
+        errs[kernel] = max(errs[kernel], cmp_map(name, got, ref))
+
+    for mode, shape, d in nostats_pair_cases(B):
+        tag = f"pair {mode} C{shape[-1]} d{d[0]},{d[1]}"
+        kw = pair_inputs(mode, shape, d, g, device, dtype)
+        got = pr.pair_fwd(mode, **kw, stats=False)
+        ref = pr.pair_fwd_plain(mode, **kw, stats=False)
+        expect("pair_fwd", pr.NOSTATS_FWD_LAUNCHES[mode])
+        if got[3] is not None or got[4] is not None:
+            raise PhaseError(f"{tag}: the stats-free form returned sums")
+        for i, nm in enumerate(("t0", "t1", "z")):
+            if nm != "t0" or mode != "none":
+                fold("nb1d_pair", f"{tag} fwd {nm}", got[i], ref[i])
+        saved = pair_saved(mode, kw, ref)
+        ct = pair_cotangents(mode, shape, g, device, dtype)
+        ct["gs1"] = ct["gs2"] = None
+        got = pr.pair_bwd(mode, saved, **ct)
+        ref = pr.pair_bwd_plain(mode, saved, **ct)
+        expect("pair_bwd", pr.NOSTATS_BWD_LAUNCHES[mode])
+        for nm, v in ref.items():
+            if nm in ("dx", "dt", "dy_res"):
+                fold("nb1d_pair", f"{tag} bwd {nm}", got[nm], v)
+            else:
+                cmp_sum(f"{tag} bwd {nm}", got[nm], v)
+    for label, shape, cc in nostats_down_cases(B):
+        x, w, b, _kw = down_inputs(label, shape, cc, g, device, dtype)
+        got = dt.down_fwd(x, w, b, stats=False)
+        ref = dt.down_fwd_plain(x, w, b, stats=False)
+        expect("down_fwd", dt.NOSTATS_FWD_LAUNCHES)
+        fold("downsampler_train", f"{label} fwd y", got[1], ref[1])
+        gy = torch.randn(*ref[1].shape, generator=g).to(device).to(dtype)
+        got = dt.down_bwd(x, None, gy, None, None, w, stem=False)
+        ref = dt.down_bwd_plain(x, None, gy, None, None, w, stem=False)
+        expect("down_bwd", dt.NOSTATS_BWD_LAUNCHES)
+        fold("downsampler_train", f"{label} bwd dx", got[0], ref[0])
+        cmp_sum(f"{label} bwd dW", got[1], ref[1])
+        cmp_sum(f"{label} bwd db", got[2], ref[2])
+    for label, shape, cout in up_train_cases(B):
+        x, w, b = ups_inputs(shape, cout, g, device, dtype)
+        got = ut.ups_fwd(x, w, b, stats=False)
+        ref = ut.ups_fwd_plain(x, w, b, stats=False)
+        expect("ups_fwd", ut.NOSTATS_FWD_LAUNCHES)
+        fold("upsampler_train", f"{label} fwd y", got[0], ref[0])
+        gy = torch.randn(*ref[0].shape, generator=g).to(device).to(dtype)
+        got = ut.ups_bwd(x, None, gy, None, None, w)
+        ref = ut.ups_bwd_plain(x, None, gy, None, None, w)
+        expect("ups_bwd", ut.NOSTATS_BWD_LAUNCHES)
+        fold("upsampler_train", f"{label} bwd dx", got[0], ref[0])
+        cmp_sum(f"{label} bwd dW", got[1], ref[1])
+        cmp_sum(f"{label} bwd db", got[2], ref[2])
+    torch.cuda.synchronize()
+    moved = _delta(before, kernels.launch_counts())
+    log(f"  launches: {moved}")
+    if moved != want:
+        raise PhaseError(f"stats-free parity: launches {moved}, expected "
+                         f"{want}")
+    if not bf16:
+        log(f"  measured maxima: maps norm rel {worst['norm']:.3e}, max rel "
+            f"{worst['rel']:.3e}; gradients norm rel {worst['grad']:.3e}")
+    return errs, worst
+
+
+def _value_grad(fn, args, diff):
+    """(outputs, gradients of args[i], i in ``diff``) of fn(*args), each
+    output its own cotangent (as scripts/tpu_train_merge_ab.py's chain
+    takes z)."""
+    import torch
+    a = [t.detach().requires_grad_() if i in diff else t
+         for i, t in enumerate(args)]
+    out = fn(*a)
+    outs = out if isinstance(out, tuple) else (out,)
+    grads = torch.autograd.grad(outs, [a[i] for i in diff],
+                                [o.detach() for o in outs])
+    return [o.detach() for o in outs], [t.detach() for t in grads]
+
+
+def _nostats_path_ops(g, device, dtype):
+    """The stats-free ops' value+grad calls of phase 28 besides the
+    chains, at B=6 recipe shapes: (label, fn, args, diff indices, names of
+    the outputs and gradients that are maps)."""
+    from erfnet_pytorch_tpu_torch.ops.cuda import downsampler_train as dt
+    from erfnet_pytorch_tpu_torch.ops.cuda import nb1d_pair as pr
+    from erfnet_pytorch_tpu_torch.ops.cuda import upsampler_train as ut
+    B = TRAIN_B
+    c128 = (B, 64, 128, 128)
+    ops = []
+    for mode, d in (("none", (4, 1)), ("affine", (16, 8)),
+                    ("epi", (16, 8))):
+        kw = pair_inputs(mode, c128, d, g, device, dtype)
+        w = (kw["wh"], kw["bh"], kw["ww"], kw["bw"])
+        if mode == "none":
+            ops.append((f"pair none C128 d{d}",
+                        lambda x, *w, d=d: pr.pair(x, *w, dil=d),
+                        (kw["x"], *w), (0, 1, 2, 3, 4), 1))
+        elif mode == "affine":
+            ops.append((f"pair_affine C128 d{d}",
+                        lambda *a, d=d: pr.pair_affine(*a, dil=d),
+                        (kw["x"], kw["a"], kw["b"], *w), tuple(range(7)), 1))
+        else:
+            ops.append((f"pair_epi C128 d{d}",
+                        lambda t, y, m, *r, d=d: pr.pair_epi(t, y, m, *r,
+                                                             dil=d),
+                        (kw["x"], kw["yres"], kw["m"], kw["a"], kw["b"], *w),
+                        (0, 1, 3, 4, 5, 6, 7, 8), 2))
+    for label, shape, cc in nostats_down_cases(B):
+        x, w, b, _kw = down_inputs(label, shape, cc, g, device, dtype)
+        ops.append((f"downsampler {label[5:]}", dt.downsampler, (x, w, b),
+                    (0, 1, 2), 1))
+    for label, shape, cout in up_train_cases(B):
+        x, w, b = ups_inputs(shape, cout, g, device, dtype)
+        wt = w.flip(0, 1).permute(2, 3, 0, 1).contiguous()   # (I, O, 3, 3)
+        ops.append((f"upsampler {label[3:]}", ut.upsampler, (x, wt, b),
+                    (0, 1, 2), 1))
+    return ops
+
+
+def phase_nostats_path(device, dtype):
+    """28 (a). The stats-free ops' own path, through their public entry
+    points (``nb1d_pair.pair``, ``pair_affine``, ``pair_epi``,
+    ``downsampler_train.downsampler``, ``upsampler_train.upsampler``):
+    scripts/tpu_train_merge_ab.py's value+grad chain, K=8 chained
+    ``pair(lead_relu=True)`` at C=64 (6, 128, 256, 64) and C=16 (6, 128,
+    512, 16) with z as its own cotangent, then one value+grad of each
+    other op at its B=6 recipe shape, each output its own cotangent.
+    Every count set to 0 just before and read just after; every kernel
+    call of the path recorded (``route.recording()``) and held against
+    its plain version on its own inputs by phase 7's check (bf16) or
+    phase 24's (f32), ``check_recorded_calls``.  Returns (counts, the
+    largest map error by kernel, the chain's ms through the kernels and
+    through the plain versions)."""
+    import torch
+    from erfnet_pytorch_tpu_torch.ops import cuda as kernels
+    from erfnet_pytorch_tpu_torch.ops.cuda import downsampler_train as dt
+    from erfnet_pytorch_tpu_torch.ops.cuda import nb1d_pair as pr
+    from erfnet_pytorch_tpu_torch.ops.cuda import route
+    from erfnet_pytorch_tpu_torch.ops.cuda import upsampler_train as ut
+    bf16 = dtype == torch.bfloat16
+    g = torch.Generator().manual_seed(95 if bf16 else 97)
+    log(f"[stats-free path] {'bf16' if bf16 else 'f32, TF32 off'}: the "
+        f"value+grad chain (K={MERGE_CHAIN}, pair lead_relu, z its own "
+        "cotangent) at B=6, then each other stats-free op once")
+    chains = []
+    # the script's taps are 0.2 randn, which grows the chain's values about
+    # 60x a step (f32 overflows by step 6; it only times): here at the
+    # convs' fan-in scale, so that every step can be held to its plain one
+    for C, shape in ((64, (TRAIN_B, 128, 256, 64)),
+                     (16, (TRAIN_B, 128, 512, 16))):
+        w = [((3 * C) ** -0.5 * torch.randn(3, C, C, generator=g)).to(device),
+             (0.1 * torch.randn(C, generator=g)).to(device),
+             ((3 * C) ** -0.5 * torch.randn(3, C, C, generator=g)).to(device),
+             (0.1 * torch.randn(C, generator=g)).to(device)]
+        x = torch.randn(*shape, generator=g).to(device).to(dtype)
+        chains.append((C, x, w))
+    others = _nostats_path_ops(g, device, dtype)
+
+    def run_chain():
+        for _C, x, w in chains:
+            for _ in range(MERGE_CHAIN):
+                _outs, grads = _value_grad(
+                    lambda *a: pr.pair(*a, dil=1, lead_relu=True), (x, *w),
+                    (0, 1, 2, 3, 4))
+                x = grads[0].to(dtype)
+
+    with route.recording() as calls:
+        kernels.reset_launch_counts()
+        run_chain()
+        for _label, fn, args, diff, _n in others:
+            _value_grad(fn, args, diff)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    nf, nb = pr.NOSTATS_FWD_LAUNCHES, pr.NOSTATS_BWD_LAUNCHES
+    n_chain = 2 * MERGE_CHAIN
+    want = {_nostats_key("pair_fwd", dtype):
+            n_chain * nf["relu"] + nf["none"] + nf["affine"] + nf["epi"],
+            _nostats_key("pair_bwd", dtype):
+            n_chain * nb["relu"] + nb["none"] + nb["affine"] + nb["epi"],
+            _nostats_key("down_fwd", dtype): 3 * dt.NOSTATS_FWD_LAUNCHES,
+            _nostats_key("down_bwd", dtype): 3 * dt.NOSTATS_BWD_LAUNCHES,
+            _nostats_key("ups_fwd", dtype): 2 * ut.NOSTATS_FWD_LAUNCHES,
+            _nostats_key("ups_bwd", dtype): 2 * ut.NOSTATS_BWD_LAUNCHES}
+    log(f"  launches: {counts}")
+    names = [c[0] for c in calls]
+    per_name = {n: names.count(n) for n in sorted(set(names))}
+    log(f"  the path's kernel calls, each against its plain version on its "
+        f"recorded inputs: {per_name}")
+    errs = check_recorded_calls(calls, None if bf16 else {})
+    del calls
+    if counts != want:
+        raise PhaseError(f"stats-free path: launches {counts}, expected "
+                         f"{want}")
+    ms = _time_uncounted(run_chain, 5)
+    with route.plain_versions():
+        pms = _time(run_chain, 2)
+    log(f"  chain (both C, K={MERGE_CHAIN} each): kernels {ms:.3f} ms, "
+        f"plain {pms:.3f} ms")
+    kernels.reset_launch_counts()
+    return counts, {k: errs[k] for k in NOSTATS_WRAPPERS}, {
+        "chain_ms": ms, "chain_plain_ms": pms}
+
+
+def nostats_timing_cases(B):
+    """(op, label, case) timed by phase 28 (b) at B=6: every lead at C64
+    and C16 (d=1) and at C128 (d=2); the three downsamplers; the two
+    upsamplers."""
+    c64, c16, c128 = (B, 128, 256, 64), (B, 256, 512, 16), (B, 64, 128, 128)
+    cases = [("pair", f"pair {m:<6} C{s[-1]:<3}", (m, s, d))
+             for m in ("none", "relu", "affine", "epi")
+             for s, d in ((c64, (1, 1)), (c16, (1, 1)), (c128, (2, 2)))]
+    cases += [("down", label, (shape, cc))
+              for label, shape, cc in nostats_down_cases(B)]
+    cases += [("ups", label, (shape, cout))
+              for label, shape, cout in up_train_cases(B)]
+    return cases
+
+
+def phase_nostats_timing(device, iters, dtype):
+    """28 (b). Each stats-free form, forward and backward, at its B=6
+    recipe shapes: the kernel's time (CUDA events), its plain version's,
+    its bound (bytes over 3.35 TB/s, or operations over 989 TFLOP/s bf16
+    / 67 TFLOP/s f32) and cuDNN's convolutions of the same product (TF32
+    off at f32), summed by kernel and by PERF.md row over one forward and
+    one backward of every case."""
+    import torch
+    from erfnet_pytorch_tpu_torch.ops import cuda as kernels
+    from erfnet_pytorch_tpu_torch.ops.cuda import downsampler_train as dt
+    from erfnet_pytorch_tpu_torch.ops.cuda import nb1d_pair as pr
+    from erfnet_pytorch_tpu_torch.ops.cuda import upsampler_train as ut
+    f32 = dtype == torch.float32
+    esz, rate = (4, F32_FLOPS_PER_S) if f32 else (2, BF16_FLOPS_PER_S)
+    g = torch.Generator().manual_seed(99 if f32 else 98)
+    tm = _time_uncounted
+    log(f"[stats-free timing] {'f32, TF32 off' if f32 else 'bf16'}, B=6, "
+        "CUDA events: kernel, plain, bound, cuDNN ms")
+    by_kernel, by_row = {}, {}
+
+    def add(kernel, row, ms, pms, fl, lms):
+        b_ms, o_ms = _bound(*fl, rate)
+        for key, d in ((kernel, by_kernel), (str(row), by_row)):
+            r = d.setdefault(key, {"ms": 0.0, "plain_ms": 0.0, "byte_ms": 0.0,
+                                   "op_ms": 0.0, "bound_ms": 0.0,
+                                   "library_ms": 0.0})
+            r["ms"] += ms
+            r["plain_ms"] += pms
+            r["byte_ms"] += b_ms
+            r["op_ms"] += o_ms
+            r["bound_ms"] += max(b_ms, o_ms)
+            r["library_ms"] = (None if lms is None or r["library_ms"] is None
+                               else r["library_ms"] + lms)
+        lib = "n/a" if lms is None else f"{lms:.4f}"
+        return f"{ms:.4f} {pms:.4f} {max(b_ms, o_ms):.4f} {lib}"
+
+    for op, label, case in nostats_timing_cases(TRAIN_B):
+        if op == "pair":
+            mode, shape, d = case
+            kw = pair_inputs(mode, shape, d, g, device, dtype)
+            ref = pr.pair_fwd_plain(mode, **kw, stats=False)
+            saved = pair_saved(mode, kw, ref)
+            ct = pair_cotangents(mode, shape, g, device, dtype)
+            ct["gs1"] = ct["gs2"] = None
+            wh = kw["wh"].permute(2, 1, 0)[..., None]          # (O, I, 3, 1)
+            ww = kw["ww"].permute(2, 1, 0)[:, :, None, :]      # (O, I, 1, 3)
+            lh = _lib_conv(kw["x"], wh, (1, 1), (d[0], 0), (d[0], 1))
+            lw = _lib_conv(saved["t1"], ww, (1, 1), (0, d[1]), (1, d[1]))
+            calls = [(lambda: pr.pair_fwd(mode, **kw, stats=False),
+                      lambda: pr.pair_fwd_plain(mode, **kw, stats=False),
+                      lambda: (lh[0](), lw[0]())),
+                     (lambda: pr.pair_bwd(mode, saved, **ct),
+                      lambda: pr.pair_bwd_plain(mode, saved, **ct),
+                      lambda: (lh[1](), lw[1]()))]
+            lead = "none" if mode == "relu" else mode
+            fls = [_flops_bytes_pair(lead, shape, bwd, esz, stats=False)
+                   for bwd in (False, True)]
+            kernel, rows = "nb1d_pair", (NOSTATS_ROW[("pair", mode)],) * 2
+        elif op == "down":
+            shape, cc = case
+            x, w, b, _kw = down_inputs(label, shape, cc, g, device, dtype)
+            y = dt.down_fwd_plain(x, w, b, stats=False)[1]
+            gy = torch.randn(*y.shape, generator=g).to(device).to(dtype)
+            lib = _lib_conv(x, w.permute(3, 2, 0, 1), (2, 2), (1, 1), (1, 1))
+            calls = [(lambda: dt.down_fwd(x, w, b, stats=False),
+                      lambda: dt.down_fwd_plain(x, w, b, stats=False),
+                      lib[0]),
+                     (lambda: dt.down_bwd(x, None, gy, None, None, w,
+                                          stem=False),
+                      lambda: dt.down_bwd_plain(x, None, gy, None, None, w,
+                                                stem=False), lib[1])]
+            fls = [_flops_bytes_down(shape, cc, False, bwd, esz, stats=False)
+                   for bwd in (False, True)]
+            kernel = "downsampler_train"
+            rows = (NOSTATS_ROW[("down", False)], NOSTATS_ROW[("down", True)])
+        else:
+            shape, cout = case
+            x, w, b = ups_inputs(shape, cout, g, device, dtype)
+            y = ut.ups_fwd_plain(x, w, b, stats=False)[0]
+            gy = torch.randn(*y.shape, generator=g).to(device).to(dtype)
+            lib = _lib_conv(x, w.flip(0, 1).permute(2, 3, 0, 1), (2, 2),
+                            (1, 1), (1, 1), transposed=True)
+            calls = [(lambda: ut.ups_fwd(x, w, b, stats=False),
+                      lambda: ut.ups_fwd_plain(x, w, b, stats=False),
+                      lib[0]),
+                     (lambda: ut.ups_bwd(x, None, gy, None, None, w),
+                      lambda: ut.ups_bwd_plain(x, None, gy, None, None, w),
+                      lib[1])]
+            fls = [_flops_bytes_ups(shape, cout, bwd, esz, stats=False)
+                   for bwd in (False, True)]
+            kernel = "upsampler_train"
+            rows = (NOSTATS_ROW[("ups", False)], NOSTATS_ROW[("ups", True)])
+        for (kfn, pfn, lfn), fl, row, what in zip(calls, fls, rows,
+                                                  ("fwd", "bwd")):
+            ms = tm(kfn, iters)
+            pms = tm(pfn, 2)
+            lms = tm(lfn, iters)
+            figures = add(kernel, row, ms, pms, fl, lms)
+            log(f"  {label} {what} (row {row}): {figures}")
+    for d in (by_kernel, by_row):
+        for r in d.values():
+            r["bound_by"] = ("operations" if r["op_ms"] > r["byte_ms"]
+                             else "bytes")
+    for row, r in sorted(by_row.items(), key=lambda kv: int(kv[0])):
+        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        log(f"  row {row}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} "
+            f"({r['bound_by']}), cuDNN {lib}")
+    kernels.reset_launch_counts()
+    return by_kernel, by_row
+
+
+def _run_entries(prep, dtype):
+    """The W-packed runs of a prepared pipeline (``inference.prepare``):
+    (label, C, the operands of the blocks it launches, run(x, ops)) of
+    each ``nb1d_stack`` and packed ``nb1d_q8_stack`` entry."""
+    from erfnet_pytorch_tpu_torch import inference as inf
+    out = []
+    for part in ("encoder", "decoder"):
+        for kind, p in prep[part]:
+            if kind == "nb1d_stack":
+                C, blocks = p[0][0]["w"].shape[-1], p[1]
+
+                def run(x, ops, p=p):
+                    return inf._nb1d_stack(x, p, ops)
+            elif kind == "nb1d_q8_stack" and p[0]["w"].shape[-1] != 128:
+                C, blocks = p[0]["w"].shape[-1], [q["q8"] for q in p]
+
+                def run(x, ops, p=p):
+                    return inf._nb1d_q8_stack(x, p, dtype, ops)
+            else:
+                continue
+            out.append((f"{part} run {len(blocks)}x C{C}", C, blocks, run))
+    return out
+
+
+def _plain_versions():
+    """Each recorded kernel wrapper's plain version, by the wrapper's
+    name (the names ``route.recording()`` logs)."""
+    from erfnet_pytorch_tpu_torch.ops import cuda as kernels
+    return {f.__name__: f.plain for f in kernels.kernel_wrappers()
+            if hasattr(f, "plain")}
+
+
+@contextlib.contextmanager
+def _run_launches():
+    """Inside: the path's calls of inference's two run functions
+    (``_nb1d_stack``, ``_nb1d_q8_stack``) on W-packed maps (C < 128)
+    each add the launches made during the call (the kernel wrappers'
+    counts after it less before it) to the yielded Counter."""
+    from erfnet_pytorch_tpu_torch import inference as inf
+    from erfnet_pytorch_tpu_torch.ops import cuda as kernels
+    tally = collections.Counter()
+    saved = inf._nb1d_stack, inf._nb1d_q8_stack
+
+    def counted(fn):
+        def run(x, *args):
+            before = kernels.launch_counts()
+            y = fn(x, *args)
+            if x.shape[-1] != 128:
+                after = kernels.launch_counts()
+                tally.update({k: after[k] - before[k] for k in after})
+            return y
+        return run
+
+    inf._nb1d_stack, inf._nb1d_q8_stack = map(counted, saved)
+    try:
+        yield tally
+    finally:
+        inf._nb1d_stack, inf._nb1d_q8_stack = saved
+
+
+def _packed_requests(fast, frames, name):
+    """29 (a). The gate-on pipeline ``fast`` answers the requests, every
+    count set to 0 just before and read just after: the forward's
+    launches (the gate-off path's), and those made inside its W-packed
+    runs (``_run_launches``), one launch of the dtype's block kernel for
+    each of the runs' blocks.  Returns (counts, the runs' launches,
+    predictions)."""
+    import torch
+    from erfnet_pytorch_tpu_torch.data import to_tensor
+    from erfnet_pytorch_tpu_torch.ops import cuda as kernels
+    per_forward = {"bf16": dict(PER_FORWARD, nb1d_halo=HALO_PER_FORWARD),
+                   "f32": F32_PER_FORWARD,
+                   "int8": {"nb1d_q8": 17, "downsampler": 3, "upsampler": 2,
+                            "head_argmax": 1}}[name]
+    kernels.reset_launch_counts()
+    with _run_launches() as tally:
+        preds = [fast(to_tensor(f)) for f in frames]
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    runs = {k: v for k, v in tally.items() if v}
+    log(f"  {name}: launches over {len(frames)} forwards: {counts}; inside "
+        f"the packed runs: {runs}")
+    _check_counts(kernels.launch_counts(), per_forward, len(frames),
+                  f"packed {name}")
+    want = {PACKED_RUN_KERNEL[name]: len(frames) * PACKED_BLOCKS}
+    if runs != want:
+        raise PhaseError(f"packed {name}: launches inside the runs {runs}, "
+                         f"expected {want}")
+    return counts, sum(runs.values()), preds
+
+
+def _packed_agreement(plain, frames, preds, name, noise):
+    """29 (a). Each request's predictions against the plain pipeline with
+    the gate on: bf16 >= 99.5 %, f32 by phase 21's rule, int8 within
+    Q8_NOISE_X of the bf16 path's disagreement ``noise``.  Returns the
+    agreement of each request."""
+    from erfnet_pytorch_tpu_torch.data import to_tensor
+    agree = []
+    for f, pr_ in zip(frames, preds):
+        logits, ref = plain(to_tensor(f))
+        if name == "f32":
+            agree.append(_f32_agreement(f"{name} request", pr_, ref, logits))
+        else:
+            agree.append((pr_ == ref).float().mean().item())
+    log(f"  {name}: agreement with the plain pipeline (gate on): {agree}")
+    if name == "bf16" and min(agree) < 0.995:
+        raise PhaseError(f"packed bf16: agreement {agree}")
+    if name == "int8" and any(1 - a > Q8_NOISE_X * (1 - n)
+                              for a, n in zip(agree, noise)):
+        raise PhaseError(f"packed int8: agreement {agree} beyond "
+                         f"{Q8_NOISE_X}x the bf16 path's disagreement "
+                         f"{noise}")
+    return agree
+
+
+def _packed_runs(prep, dtype, name, g, device, iters, hw):
+    """29 (b). Each W-packed run of ``prep`` at its B=4 map: every block
+    call recorded (``route.recording()``) and held against its plain
+    version on its own inputs (a run chains up to 20 roundings; bf16 and
+    f32 by phase 27's rules, int8 bit-identical); its time through the
+    kernels beside the plain run's and its bound (``bound_ms`` of the
+    run: its input and output once, every block's operands, all its
+    operations at the dtype's peak).  Returns the three runs' sums."""
+    import torch
+    from erfnet_pytorch_tpu_torch import inference as inf
+    from erfnet_pytorch_tpu_torch.ops.cuda import route
+    FH, FW = hw
+    plain = _plain_versions()
+    peak = {"bf16": BF16_FLOPS_PER_S, "f32": F32_FLOPS_PER_S,
+            "int8": INT8_OPS_PER_S}[name]
+    runs = _run_entries(prep, dtype)
+    if len(runs) != 3:
+        raise PhaseError(f"packed {name}: runs {[r[0] for r in runs]}")
+    tot = dict.fromkeys(("ms", "plain_ms", "bound_ms", "byte_ms", "op_ms",
+                         "max_abs_err"), 0.0)
+    for label, C, blocks, run in runs:
+        shape = {64: (4, FH // 4, FW // 4, 64),
+                 16: (4, FH // 2, FW // 2, 16)}[C]
+        x = torch.randn(*shape, generator=g).relu().to(device).to(dtype)
+        with torch.inference_mode():
+            with route.recording() as calls:
+                got = run(x, inf.KERNEL_OPS)
+            ref = run(x, inf.PLAIN_OPS)
+            for op, args, kwargs, y in calls:
+                yp = plain[op](*args, **kwargs)
+                tag = f"{label} {name} {op} block"
+                if op == "nb1d_q8":
+                    if not torch.equal(y, yp):
+                        raise PhaseError(f"{tag}: not bit-identical to its "
+                                         "plain version")
+                    err = 0.0
+                elif dtype == torch.bfloat16:
+                    err = compare_bf16(tag, y, yp)
+                else:
+                    err = compare_f32_form(tag, y, yp,
+                                           {"norm": 0.0, "rel": 0.0})
+                tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        torch.cuda.synchronize()
+        if len(calls) != len(blocks):
+            raise PhaseError(f"{label}: {len(calls)} block calls, expected "
+                             f"{len(blocks)}")
+        del calls
+        diff = (got.float() - ref.float()).abs().max().item()
+        log(f"  {label} {name}: {len(blocks)} blocks, run output max abs "
+            f"diff from the plain run {diff:.3e}")
+        with torch.inference_mode():
+            ms = _time_uncounted(lambda: run(x, inf.KERNEL_OPS), iters)
+            pms = _time(lambda: run(x, inf.PLAIN_OPS), 2)
+        b_ms, o_ms = bound_ms("nb1d", shape, blocks, x.element_size(), peak)
+        log(f"  {label} {name}: kernels {ms:.4f} ms, plain {pms:.4f}, bound "
+            f"{max(b_ms, o_ms):.4f} (bytes {b_ms:.4f}, operations "
+            f"{o_ms:.4f})")
+        tot["ms"] += ms
+        tot["plain_ms"] += pms
+        tot["bound_ms"] += max(b_ms, o_ms)
+        tot["byte_ms"] += b_ms
+        tot["op_ms"] += o_ms
+    tot["bound_by"] = "operations" if tot["op_ms"] > tot["byte_ms"] else "bytes"
+    return tot
+
+
+def _packed_on_off(sd, dtype, q8, on, x, iters, name):
+    """29 (c). ms/img of the request ``x`` with the gate on (``on``) and
+    off, in turns (on, off, off, on); the least of each."""
+    from erfnet_pytorch_tpu_torch import inference as inf
+    inf._PACKED_STACKS = False
+    off = inf.build_fast_infer(sd, dtype=dtype, preds_only=True, q8_scales=q8)
+    tms = {"on": [], "off": []}
+    for turn in ("on", "off", "off", "on"):
+        fn = on if turn == "on" else off
+        tms[turn].append(_time_uncounted(lambda: fn(x), iters) / x.shape[0])
+    log(f"  {name}: ms/img at B={x.shape[0]}, gate on {tms['on']}, gate off "
+        f"{tms['off']}")
+    return {k: min(v) for k, v in tms.items()}
+
+
+def _packed_big_request(sd, g, device, hw):
+    """29 (d). One bf16 request at ``hw`` (1024x2048), whose W-packed maps
+    fail the whole-map gate and run block by block with their own f32
+    biases: the gate-off path's launches and predictions, bit for bit."""
+    import torch
+    from erfnet_pytorch_tpu_torch import inference as inf
+    from erfnet_pytorch_tpu_torch.data import to_tensor
+    from erfnet_pytorch_tpu_torch.ops import cuda as kernels
+    inf._PACKED_STACKS = True
+    on = inf.build_fast_infer(sd, preds_only=True)
+    inf._PACKED_STACKS = False
+    off = inf.build_fast_infer(sd, preds_only=True)
+    frame = torch.randint(0, 256, (1, *hw, 3), generator=g,
+                          dtype=torch.uint8).to(device)
+    kernels.reset_launch_counts()
+    p_on = on(to_tensor(frame))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    _check_counts(counts, STREAM_PER_FORWARD, 1, "packed 1024x2048")
+    same = torch.equal(p_on, off(to_tensor(frame)))
+    log(f"  1024x2048, gate on: launches "
+        f"{ {k: v for k, v in counts.items() if v} }, predictions equal to "
+        f"the gate-off path's: {same}")
+    if not same:
+        raise PhaseError("packed 1024x2048: predictions differ from the "
+                         "gate-off path's")
+
+
+def phase_packed_serving(sd, scales, device, iters, hw=SERVE_HW,
+                         big_hw=STREAM_HW):
+    """29. The serving path with the packed-run gate on
+    (``inference._PACKED_STACKS = True``, the JAX package's gate): 3
+    requests of B=4 uint8 512x1024 frames in bf16, f32 and int8 (phase
+    10's scales), with their launches and agreement (a); each packed run
+    against its plain version, timed beside its bound (b); ms/img gate
+    on and off (c); one 1024x2048 request (d)."""
+    import torch
+    from erfnet_pytorch_tpu_torch import inference as inf
+    from erfnet_pytorch_tpu_torch.data import to_tensor
+    g = torch.Generator().manual_seed(29)
+    frames = [torch.randint(0, 256, (4, *hw, 3), generator=g,
+                            dtype=torch.uint8).to(device) for _ in range(3)]
+    bf, f32 = torch.bfloat16, torch.float32
+    out = {"agreement": {}, "launches": {}, "run_launches": {},
+           "ms_per_img_b4": {}, "runs": {}}
+    log("[packed runs] build_fast_infer with _PACKED_STACKS on: 3 requests "
+        "of B=4 at 512x1024, bf16 / f32 / int8")
+    prev = inf._PACKED_STACKS
+    try:
+        noise = None
+        for name, dtype, q8 in (("bf16", bf, None), ("f32", f32, None),
+                                ("int8", bf, scales)):
+            with no_tf32() if dtype == f32 else contextlib.nullcontext():
+                inf._PACKED_STACKS = True
+                fast = inf.build_fast_infer(sd, dtype=dtype, preds_only=True,
+                                            q8_scales=q8)
+                plain = inf.build_plain_infer(sd, dtype=dtype, q8_scales=q8)
+                counts, n_runs, preds = _packed_requests(fast, frames, name)
+                out["launches"][name] = counts
+                out["run_launches"][name] = n_runs
+                agree = _packed_agreement(plain, frames, preds, name, noise)
+                noise = agree if name == "bf16" else noise
+                out["agreement"][name] = min(agree)
+                out["runs"][name] = _packed_runs(
+                    inf.prepare(sd, dtype, device, q8), dtype, name, g,
+                    device, iters, hw)
+                out["ms_per_img_b4"][name] = _packed_on_off(
+                    sd, dtype, q8, fast, to_tensor(frames[0]), iters, name)
+                del fast, plain, preds
+        _packed_big_request(sd, g, device, big_hw)
+    finally:
+        inf._PACKED_STACKS = prev
+    from erfnet_pytorch_tpu_torch.ops import cuda as kernels
+    kernels.reset_launch_counts()
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3874,6 +4595,18 @@ def main():
                                             dtype=f32)
             trainer32_timing, trainer32_counts = phase_trainer(
                 device, te2e32, f32)
+        nostats = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            form = "" if dtype == torch.bfloat16 else "_f32"
+            with no_tf32() if form else contextlib.nullcontext():
+                nerrs, _ = phase_nostats_parity(device, dtype)
+                ncounts, perrs, chain = phase_nostats_path(device, dtype)
+                nkern, nrows = phase_nostats_timing(device, ITERS, dtype)
+            nostats[form] = {
+                "errs": {k: max(v, perrs[k]) for k, v in nerrs.items()},
+                "launches": ncounts, "chain": chain, "kernels": nkern,
+                "rows": nrows}
+        packed = phase_packed_serving(sd, scales, device, ITERS)
     except Exception:  # every phase failure is fatal and reported
         traceback.print_exc()
         log("FAIL")
@@ -3949,6 +4682,37 @@ def main():
     # (phase 25), launches of phase 24's 5 steps of each stage, errors of
     # phases 23 and 24
     train_entries(tacc32, (t32counts, t32counts2), t32errs, "_f32")
+    # the stats-free forms: launches of phase 28's path, errors of phases
+    # 27-28, times summed over phase 28's table (one forward and one
+    # backward of every B=6 case)
+    for form, ns in nostats.items():
+        for name, (fw, bw) in NOSTATS_WRAPPERS.items():
+            r = ns["kernels"][name]
+            kernels.append({
+                "name": f"{name}_nostats{form}", "route": "cuda",
+                "source": SOURCES[name][0],
+                "replaces": NOSTATS_REPLACES[name],
+                "launches": (ns["launches"][f"{fw}_nostats{form}"]
+                             + ns["launches"][f"{bw}_nostats{form}"]),
+                "max_abs_err": ns["errs"][name], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # the packed runs (phase 29): the launches made inside the runs during
+    # the 3 gate-on requests, times and bounds summed over the three runs
+    # at B=4 512x1024; no single PyTorch call computes a run
+    for name, key, src in (
+            ("nb1d_stack_packed", "bf16", "nb1d_halo"),
+            ("nb1d_stack_packed_f32", "f32", "nb1d"),
+            ("nb1d_q8_stack_packed", "int8", "nb1d_q8")):
+        r = packed["runs"][key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[src][0],
+            "replaces": PACKED_REPLACES[name.replace("_f32", "")],
+            "launches": packed["run_launches"][key],
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None})
     summary = {"build_s": build_s, "serving_agreement": agree, **e2e,
                "profile": prof,
                "int8": {"agreement_plain": q8_agree,
@@ -3986,7 +4750,11 @@ def main():
                              "eval_step": {"launches": f32_eval_counts,
                                            **f32_eval_agree},
                              "trainer": {"timing": trainer32_timing,
-                                         "launches": trainer32_counts}}}
+                                         "launches": trainer32_counts}},
+               "stats_free": {form or "_bf16": {
+                   k: v for k, v in ns.items() if k != "errs"}
+                   for form, ns in nostats.items()},
+               "packed_runs": packed}
     log(f"summary {json.dumps(summary)}")
     log(card)
     log(json.dumps({"kernels": kernels}))

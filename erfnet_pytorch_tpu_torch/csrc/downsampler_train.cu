@@ -53,6 +53,17 @@
 // and fixed-order reductions as the bf16 forms.  Bound at f32: bytes for
 // the stem, operations for the others (9 Cin Cc MACs per output pixel
 // against 67 TFLOP/s).
+//
+// The stats-free forms (with_stats = 0) replace downsampler_packed
+// (_down_fwd_kernel via _call_fwd_local, with the pool lanes that
+// down_pool_packed adds in XLA, and _down_bwd_kernel via _call_bwd_local
+// on g = gy with the pool's VJP): the forward writes the same y without
+// the per-tile partials and skips their reduction; the backward starts
+// from gy (no g fold) and always gives dx, also at Cin = 3 (an ordinary
+// 3-channel map, not the stem's translated image: the stem mode is a
+// flag of its own, apart from the channel count).  At Cin = 3 the input
+// gradient is a direct sum (down_dx_small_kernel): its K of 9 x 13 and
+// N of 3 are too narrow for the tiled products.
 #include "common.cuh"
 
 using namespace erfk;
@@ -141,7 +152,7 @@ __device__ __forceinline__ void gather_fwd(bf16* As, const void* xv,
   }
 }
 
-template <int CIN, int CC, bool STEM>
+template <int CIN, int CC, bool STEM, bool S>
 __global__ void __launch_bounds__(128)
 down_fwd_kernel(const void* __restrict__ x, const int* __restrict__ shifts,
                 const bf16* __restrict__ wmat, const float* __restrict__ bias,
@@ -185,8 +196,10 @@ down_fwd_kernel(const void* __restrict__ x, const int* __restrict__ shifts,
                         __bfloat162float(a[8 * CIN])));
       }
       out[m * G::COUT + c] = __float2bfloat16(v);
-      s0 += v;
-      s1 += __fmul_rn(v, v);
+      if constexpr (S) {
+        s0 += v;
+        s1 += __fmul_rn(v, v);
+      }
     }
     if constexpr (STEM) {
       // each input pixel lies in exactly one output pixel's 2x2 window
@@ -203,6 +216,7 @@ down_fwd_kernel(const void* __restrict__ x, const int* __restrict__ shifts,
       }
     }
     __syncthreads();  // Cs and As read: Cs becomes the reduction scratch
+    if constexpr (!S) continue;
     float* red = Cs;
     red[threadIdx.x] = s0;
     red[G::THREADS + threadIdx.x] = s1;
@@ -305,6 +319,67 @@ down_dx_kernel(const bf16* __restrict__ g, const bf16* __restrict__ x,
   }
 }
 
+// Input gradient at Cin = 3 (the stats-free downsampler on a 3-channel
+// map): one thread per input pixel and all its channels; f32 sums over
+// the taps whose output pixel exists (the stride leaves 1, 2 or 4 of the
+// nine) in tap order, rounded to T, plus the pool's share, as in
+// down_dx_kernel.  wt (9 CC, CIN) as the tiled kernels take it.
+template <typename T, int CIN, int CC>
+__global__ void __launch_bounds__(256)
+down_dx_small_kernel(const T* __restrict__ g, const T* __restrict__ x,
+                     const T* __restrict__ wt, T* __restrict__ dx, int B,
+                     int H, int W) {
+  constexpr int COUT = CIN + CC;
+  __shared__ float ws[9 * CC * CIN];
+  for (int i = threadIdx.x; i < 9 * CC * CIN; i += blockDim.x)
+    ws[i] = to_f32(wt[i]);
+  __syncthreads();
+  const long long m = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (m >= (long long)B * H * W) return;
+  const int Ho = H / 2, Wo = W / 2;
+  const long long b = m / ((long long)H * W);
+  const int rem = (int)(m % ((long long)H * W));
+  const int h = rem / W, w = rem % W;
+  float acc[CIN];
+#pragma unroll
+  for (int ci = 0; ci < CIN; ++ci) acc[ci] = 0.0f;
+  for (int tap = 0; tap < 9; ++tap) {
+    const int hh = h + 1 - tap / 3, ww = w + 1 - tap % 3;
+    if (hh < 0 || ww < 0 || hh % 2 || ww % 2 || hh / 2 >= Ho || ww / 2 >= Wo)
+      continue;
+    const T* gp = g + ((b * Ho + hh / 2) * Wo + ww / 2) * COUT;
+    for (int co = 0; co < CC; ++co) {
+      const float gv = to_f32(gp[co]);
+#pragma unroll
+      for (int ci = 0; ci < CIN; ++ci)
+        acc[ci] = fmaf(gv, ws[(tap * CC + co) * CIN + ci], acc[ci]);
+    }
+  }
+  const int ho = h / 2, wo = w / 2, pr = h % 2, pc = w % 2;
+#pragma unroll
+  for (int ci = 0; ci < CIN; ++ci) {
+    const T* win = x + ((b * H + 2 * ho) * W + 2 * wo) * CIN + ci;
+    float xv[2][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+        xv[i][k] = to_f32(win[((long long)i * W + k) * CIN]);
+    const float m0v = fmaxf(xv[0][0], xv[0][1]);
+    const float m1v = fmaxf(xv[1][0], xv[1][1]);
+    const float mp = fmaxf(m0v, m1v);
+    const float gpool = to_f32(g[((b * Ho + ho) * Wo + wo) * COUT + CC + ci]);
+    const float mr = pr ? m1v : m0v;
+    float share = 0.0f;
+    if (mr == mp) {
+      const float gr = gpool / (float)((m0v == mp) + (m1v == mp));
+      if (xv[pr][pc] == mr)
+        share = gr / (float)((xv[pr][0] == mr) + (xv[pr][1] == mr));
+    }
+    dx[m * CIN + ci] = from_f32<T>(round_as<T>(acc[ci]) + share);
+  }
+}
+
 // Weight gradient: blockIdx.y = tap (kh * 3 + kw), blockIdx.x = a chunk of
 // CHUNK output pixels.  part[chunk] = [dW (9, CIN, CC) | db (CC)], db from
 // the tap-0 CTAs.
@@ -395,16 +470,19 @@ constexpr int round4(int v) { return (v + 3) / 4 * 4; }
 
 // Forward: tiles of BM output pixels; thread (rowg, colg) of an RS x TC
 // grid owns rows rowg + i RS (i < TM) and conv channels 4 colg .. + 3
-// (TN = 4).  NCHUNK chunks of TPC taps; KC = TPC CIN columns.
+// (TN = 4).  NCHUNK chunks of TPC taps; KC = TPC CIN columns.  SCALAR
+// (Cin = 3: the stem, or a stats-free 3-channel map): the whole 3x3
+// window in one chunk of scalar loads, the pool read from it.
 template <int CIN, int CC>
 struct Fwd32 {
-  static constexpr bool STEM = CIN == 3;
+  static constexpr bool SCALAR = CIN % 4 != 0;
   static constexpr int COUT = CIN + CC, K = 9 * CIN;
   static constexpr int NP = round4(CC), TN = 4, TC = NP / TN;
   static constexpr int THREADS = TC == 12 ? 192 : 256;
-  static constexpr int BM = STEM ? 128 : 64, RS = THREADS / TC, TM = BM / RS;
+  static constexpr int BM = SCALAR ? 128 : 64, RS = THREADS / TC;
+  static constexpr int TM = BM / RS;
   static constexpr int NCHUNK = CIN == 64 ? 3 : 1, TPC = 9 / NCHUNK;
-  static constexpr int KC = STEM ? round4(K) : TPC * CIN;
+  static constexpr int KC = SCALAR ? round4(K) : TPC * CIN;
   static constexpr int LDA = pitch4(KC);
   static constexpr size_t a_bytes = ((size_t)BM * LDA * 4 + 127) / 128 * 128;
   static constexpr size_t c_bytes = ((size_t)BM * NP * 4 + 127) / 128 * 128;
@@ -416,15 +494,15 @@ struct Fwd32 {
 
 // Stage taps [t0, t0 + TPC) of the 3x3 windows of output pixels [m0,
 // m_end): row r, column tq CIN + ci; zero off the map and in the K pad.
-// STEM: the f32 image translated by (tx, ty), scalar loads.
-template <int CIN, int CC>
+// SCALAR: scalar loads; STEM: the f32 image translated by (tx, ty).
+template <int CIN, int CC, bool STEM>
 __device__ __forceinline__ void gather_fwd_f32(float* As, const float* x,
                                                const int* shifts,
                                                long long m0, long long m_end,
                                                int Ho, int Wo, int t0) {
   using G = Fwd32<CIN, CC>;
   const int H = 2 * Ho, W = 2 * Wo;
-  if constexpr (G::STEM) {
+  if constexpr (G::SCALAR) {
     for (int e = threadIdx.x; e < G::BM * G::KC; e += blockDim.x) {
       const int r = e / G::KC, k = e % G::KC;
       const long long m = m0 + r;
@@ -437,8 +515,10 @@ __device__ __forceinline__ void gather_fwd_f32(float* As, const float* x,
                    wi < W;
       float v = 0.0f;
       if (valid) {
-        hi -= __ldg(shifts + 2 * b + 1);
-        wi -= __ldg(shifts + 2 * b);
+        if constexpr (STEM) {
+          hi -= __ldg(shifts + 2 * b + 1);
+          wi -= __ldg(shifts + 2 * b);
+        }
         if (hi >= 0 && hi < H && wi >= 0 && wi < W)
           v = __ldg(x + ((b * H + hi) * W + wi) * CIN + ci);
       }
@@ -462,7 +542,7 @@ __device__ __forceinline__ void gather_fwd_f32(float* As, const float* x,
   }
 }
 
-template <int CIN, int CC>
+template <int CIN, int CC, bool STEM, bool S>
 __global__ void __launch_bounds__(256)
 down_fwd_f32_kernel(const float* __restrict__ x,
                     const int* __restrict__ shifts,
@@ -491,7 +571,8 @@ down_fwd_f32_kernel(const float* __restrict__ x,
     float acc[G::TM][G::TN];
     zero_tile(acc);
     for (int ch = 0; ch < G::NCHUNK; ++ch) {
-      gather_fwd_f32<CIN, CC>(As, x, shifts, m0, m_end, Ho, Wo, ch * G::TPC);
+      gather_fwd_f32<CIN, CC, STEM>(As, x, shifts, m0, m_end, Ho, Wo,
+                                    ch * G::TPC);
       if constexpr (G::NCHUNK > 1)
         load_matrix(Ws, G::NP, wmat + (size_t)ch * G::KC * G::NP, G::KC,
                     G::NP);
@@ -525,7 +606,7 @@ down_fwd_f32_kernel(const float* __restrict__ x,
       float v;
       if (c < CC) {
         v = Cs[r * G::NP + c] + bc;
-      } else if constexpr (G::STEM) {
+      } else if constexpr (G::SCALAR) {
         const float* a = As + r * G::LDA + (c - CC);
         v = fmaxf(fmaxf(a[4 * CIN], a[5 * CIN]), fmaxf(a[7 * CIN], a[8 * CIN]));
       } else {
@@ -537,10 +618,12 @@ down_fwd_f32_kernel(const float* __restrict__ x,
                         __ldg(p + (long long)W * CIN + CIN)));
       }
       out[m * G::COUT + c] = v;
-      s0 += v;
-      s1 += __fmul_rn(v, v);
+      if constexpr (S) {
+        s0 += v;
+        s1 += __fmul_rn(v, v);
+      }
     }
-    if constexpr (G::STEM) {
+    if constexpr (STEM) {
       // each input pixel lies in exactly one output pixel's 2x2 window
       // (taps 4, 5, 7, 8): that tile writes its translated value
       for (int e = threadIdx.x; e < G::BM * 4 * CIN; e += blockDim.x) {
@@ -555,6 +638,7 @@ down_fwd_f32_kernel(const float* __restrict__ x,
       }
     }
     __syncthreads();  // Cs and As read: Cs becomes the reduction scratch
+    if constexpr (!S) continue;
     float* red = Cs;
     red[threadIdx.x] = s0;
     red[G::THREADS + threadIdx.x] = s1;
@@ -676,8 +760,8 @@ down_dx_f32_kernel(const float* __restrict__ g, const float* __restrict__ x,
 // blockIdx.y = 0 CTAs.
 template <int CIN, int CC>
 struct Wg32Shape {
-  static constexpr bool STEM = CIN == 3;
-  static constexpr int MR = STEM ? 32 : CIN, NC = round4(CC);
+  static constexpr bool IM2COL = CIN % 4 != 0;  // Cin = 3
+  static constexpr int MR = IM2COL ? 32 : CIN, NC = round4(CC);
   static constexpr int THREADS = CC == 48 ? 192 : 256, BP = 64;
   using Q = Wg32<MR, NC, 4, 4, THREADS, BP>;
   static constexpr int PLEN = 9 * CIN * CC + CC;
@@ -704,7 +788,7 @@ down_wgrad_f32_kernel(const float* __restrict__ x,
   zero_tile(acc);
 
   for (long long p0 = p_begin; p0 < p_stop; p0 += S::BP) {
-    if constexpr (S::STEM) {
+    if constexpr (S::IM2COL) {
       // row k = tap * 3 + ci of the im2col window (k < 27), zero past
       for (int e = threadIdx.x; e < S::BP * S::MR; e += blockDim.x) {
         const int r = e / S::MR, k = e % S::MR;
@@ -758,7 +842,7 @@ down_wgrad_f32_kernel(const float* __restrict__ x,
   if (tap0 == 0 && threadIdx.x < CC) dst[9 * CIN * CC + threadIdx.x] = dbs;
   wg32_store<S::MR, S::NC, 4, 4, S::THREADS, S::BP>(
       acc, reinterpret_cast<float*>(smem), dst + tap0 * CIN * CC,
-      S::STEM ? 9 * CIN : CIN, CC);
+      S::IM2COL ? 9 * CIN : CIN, CC);
 }
 
 // ------------------------------- launchers --------------------------------
@@ -771,38 +855,59 @@ cudaError_t grid_for(Kernel k, int threads, size_t smem, bool* ok, int* gm) {
   return cudaSuccess;
 }
 
-template <int CIN, int CC, bool STEM>
+// S: with the statistics (part and their reduction into stats)
+template <int CIN, int CC, bool STEM, bool S>
 int fwd(const void* x, const void* shifts, const void* wmat, const void* bias,
         void* out, void* xa, void* part, void* stats, int B, int H, int W,
         cudaStream_t s) {
   using G = Fwd<CIN, CC>;
   static bool ok = false;
   static int gm = 0;
-  cudaError_t e = grid_for(down_fwd_kernel<CIN, CC, STEM>, G::THREADS,
+  cudaError_t e = grid_for(down_fwd_kernel<CIN, CC, STEM, S>, G::THREADS,
                            G::smem, &ok, &gm);
   if (e != cudaSuccess) return e;
   const int Ho = H / 2, Wo = W / 2;
   const int tpi = (Ho * Wo + G::BM - 1) / G::BM;
   const int tiles = B * tpi;
-  down_fwd_kernel<CIN, CC, STEM>
+  down_fwd_kernel<CIN, CC, STEM, S>
       <<<tiles < gm ? tiles : gm, G::THREADS, G::smem, s>>>(
           x, static_cast<const int*>(shifts), static_cast<const bf16*>(wmat),
           static_cast<const float*>(bias), static_cast<bf16*>(out),
           static_cast<bf16*>(xa), static_cast<float*>(part), B, Ho, Wo);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if constexpr (!S) return cudaSuccess;
   return reduce_parts(static_cast<const float*>(part),
                       static_cast<float*>(stats), B, tpi, 2 * G::COUT, s);
 }
 
+// dx at Cin = 3 (either form)
+template <typename T, int CIN, int CC>
+cudaError_t dx_small(const void* g, const void* x, const void* wt, void* dx,
+                     int B, int H, int W, cudaStream_t s) {
+  const long long n = (long long)B * H * W;
+  down_dx_small_kernel<T, CIN, CC><<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+      static_cast<const T*>(g), static_cast<const T*>(x),
+      static_cast<const T*>(wt), static_cast<T*>(dx), B, H, W);
+  return cudaGetLastError();
+}
+
+// stats: from the stats fold g = bf16(gy + gs1 + 2 y gs2), else from gy
 template <int CIN, int CC, bool DX>
-int bwd(const void* gy, const void* y, const void* gs1, const void* gs2,
-        const void* x, const void* wt, void* g, void* dx, void* part,
-        void* grads, int B, int H, int W, cudaStream_t s) {
+int bwd(int stats, const void* gy, const void* y, const void* gs1,
+        const void* gs2, const void* x, const void* wt, void* g, void* dx,
+        void* part, void* grads, int B, int H, int W, cudaStream_t s) {
   constexpr int COUT = CIN + CC;
   const int Ho = H / 2, Wo = W / 2;
-  cudaError_t e = adjust_grad(gy, y, gs1, gs2, g, B, Ho * Wo, COUT, s);
-  if (e != cudaSuccess) return e;
-  if constexpr (DX) {
+  cudaError_t e = cudaSuccess;
+  const void* gg = stats ? g : gy;
+  if (stats && (e = adjust_grad(gy, y, gs1, gs2, g, B, Ho * Wo, COUT, s)) !=
+                   cudaSuccess)
+    return e;
+  if constexpr (DX && CIN % 16 != 0) {
+    if ((e = dx_small<bf16, CIN, CC>(gg, x, wt, dx, B, H, W, s)) !=
+        cudaSuccess)
+      return e;
+  } else if constexpr (DX) {
     using G = Bwd<CIN, CC>;
     static bool ok = false;
     static int gm = 0;
@@ -812,7 +917,7 @@ int bwd(const void* gy, const void* y, const void* gs1, const void* gs2,
     const long long tiles = ((long long)B * H * W + G::BM - 1) / G::BM;
     down_dx_kernel<CIN, CC>
         <<<(unsigned)(tiles < gm ? tiles : gm), G::THREADS, G::smem, s>>>(
-            static_cast<const bf16*>(g), static_cast<const bf16*>(x),
+            static_cast<const bf16*>(gg), static_cast<const bf16*>(x),
             static_cast<const bf16*>(wt), static_cast<bf16*>(dx), B, H, W);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
   }
@@ -825,46 +930,54 @@ int bwd(const void* gy, const void* y, const void* gs1, const void* gs2,
   const long long P = (long long)B * Ho * Wo;
   const int chunks = (int)((P + CHUNK - 1) / CHUNK);
   down_wgrad_kernel<CIN, CC><<<dim3(chunks, 9), Q::THREADS, Q::smem, s>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(g),
+      static_cast<const bf16*>(x), static_cast<const bf16*>(gg),
       static_cast<float*>(part), B, Ho, Wo);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   return reduce_parts(static_cast<const float*>(part),
                       static_cast<float*>(grads), 1, chunks, S::PLEN, s);
 }
 
-template <int CIN, int CC>
+template <int CIN, int CC, bool STEM, bool S>
 int fwd_f32(const void* x, const void* shifts, const void* wmat,
             const void* bias, void* out, void* xa, void* part, void* stats,
             int B, int H, int W, cudaStream_t s) {
   using G = Fwd32<CIN, CC>;
   static bool ok = false;
   static int gm = 0;
-  cudaError_t e = grid_for(down_fwd_f32_kernel<CIN, CC>, G::THREADS, G::smem,
-                           &ok, &gm);
+  cudaError_t e = grid_for(down_fwd_f32_kernel<CIN, CC, STEM, S>, G::THREADS,
+                           G::smem, &ok, &gm);
   if (e != cudaSuccess) return e;
   const int Ho = H / 2, Wo = W / 2;
   const int tpi = (Ho * Wo + G::BM - 1) / G::BM;
   const int tiles = B * tpi;
-  down_fwd_f32_kernel<CIN, CC>
+  down_fwd_f32_kernel<CIN, CC, STEM, S>
       <<<tiles < gm ? tiles : gm, G::THREADS, G::smem, s>>>(
           static_cast<const float*>(x), static_cast<const int*>(shifts),
           static_cast<const float*>(wmat), static_cast<const float*>(bias),
           static_cast<float*>(out), static_cast<float*>(xa),
           static_cast<float*>(part), B, Ho, Wo);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if constexpr (!S) return cudaSuccess;
   return reduce_parts(static_cast<const float*>(part),
                       static_cast<float*>(stats), B, tpi, 2 * G::COUT, s);
 }
 
 template <int CIN, int CC, bool DX>
-int bwd_f32(const void* gy, const void* y, const void* gs1, const void* gs2,
-            const void* x, const void* wt, void* g, void* dx, void* part,
-            void* grads, int B, int H, int W, cudaStream_t s) {
+int bwd_f32(int stats, const void* gy, const void* y, const void* gs1,
+            const void* gs2, const void* x, const void* wt, void* g, void* dx,
+            void* part, void* grads, int B, int H, int W, cudaStream_t s) {
   constexpr int COUT = CIN + CC;
   const int Ho = H / 2, Wo = W / 2;
-  cudaError_t e = adjust_grad_f32(gy, y, gs1, gs2, g, B, Ho * Wo, COUT, s);
-  if (e != cudaSuccess) return e;
-  if constexpr (DX) {
+  cudaError_t e = cudaSuccess;
+  const void* gg = stats ? g : gy;
+  if (stats && (e = adjust_grad_f32(gy, y, gs1, gs2, g, B, Ho * Wo, COUT,
+                                    s)) != cudaSuccess)
+    return e;
+  if constexpr (DX && CIN % 4 != 0) {
+    if ((e = dx_small<float, CIN, CC>(gg, x, wt, dx, B, H, W, s)) !=
+        cudaSuccess)
+      return e;
+  } else if constexpr (DX) {
     using G = Dx32<CIN, CC>;
     static bool ok = false;
     static int gm = 0;
@@ -874,7 +987,7 @@ int bwd_f32(const void* gy, const void* y, const void* gs1, const void* gs2,
     const long long tiles = ((long long)B * H * W + G::BM - 1) / G::BM;
     down_dx_f32_kernel<CIN, CC>
         <<<(unsigned)(tiles < gm ? tiles : gm), G::THREADS, G::smem, s>>>(
-            static_cast<const float*>(g), static_cast<const float*>(x),
+            static_cast<const float*>(gg), static_cast<const float*>(x),
             static_cast<const float*>(wt), static_cast<float*>(dx), B, H, W);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
   }
@@ -887,8 +1000,8 @@ int bwd_f32(const void* gy, const void* y, const void* gs1, const void* gs2,
   const long long P = (long long)B * Ho * Wo;
   const int chunks = (int)((P + CHUNK - 1) / CHUNK);
   down_wgrad_f32_kernel<CIN, CC>
-      <<<dim3(chunks, S::STEM ? 1 : 9), S::THREADS, Q::smem, s>>>(
-          static_cast<const float*>(x), static_cast<const float*>(g),
+      <<<dim3(chunks, S::IM2COL ? 1 : 9), S::THREADS, Q::smem, s>>>(
+          static_cast<const float*>(x), static_cast<const float*>(gg),
           static_cast<float*>(part), B, Ho, Wo);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   return reduce_parts(static_cast<const float*>(part),
@@ -900,61 +1013,70 @@ bool shape_ok(int B, int H, int W, int cin) {
          (long long)B * H * W * (cin > 64 ? cin : 64) < (1LL << 31);
 }
 
+// (cin, cc) pairs: (3, 13) (the stem, or a 3-channel map), (16, 48),
+// (64, 64); the stem mode only at (3, 13)
+bool pair_ok(int cin, int cc, int stem) {
+  return (cin == 3 && cc == 13) ||
+         (!stem && ((cin == 16 && cc == 48) || (cin == 64 && cc == 64)));
+}
+
+// FN<CIN, CC, STEM, S>(ARGS) for the runtime with_stats flag
+#define ERF_DOWN_FWD(FN, CIN, CC, STEM)                                  \
+  (with_stats ? FN<CIN, CC, STEM, true>(ARGS)                            \
+              : FN<CIN, CC, STEM, false>(ARGS))
+
 }  // namespace
 
 // ------------------------------ C interface -------------------------------
 //
-// (cin, cc) in {(3, 13) stem only, (16, 48), (64, 64)}.  x: (B, H, W, cin)
-// f32 in the stem mode (the flipped image), else bf16; shifts: (B, 2) int32
-// (tx, ty), stem mode only; wmat: (round16(9 cin), round16(cc)) bf16, row
-// (kh * 3 + kw) cin + ci; bias: (cc,) f32; out: (B, H/2, W/2, cin + cc)
-// bf16; xa: (B, H, W, 3) bf16, the translated image (stem mode); part:
-// (B * ceil(H W / 256), 2 (cin + cc)) f32 scratch; stats: (B, 2 (cin +
-// cc)) f32 = [sum y, sum y^2] per image.
+// (cin, cc) in {(3, 13), (16, 48), (64, 64)}, the stem mode only at
+// (3, 13).  x: (B, H, W, cin) f32 in the stem mode (the flipped image),
+// else bf16; shifts: (B, 2) int32 (tx, ty), stem mode only; wmat:
+// (round16(9 cin), round16(cc)) bf16, row (kh * 3 + kw) cin + ci; bias:
+// (cc,) f32; out: (B, H/2, W/2, cin + cc) bf16; xa: (B, H, W, 3) bf16, the
+// translated image (stem mode); part: (B * ceil(H W / 256), 2 (cin + cc))
+// f32 scratch; stats: (B, 2 (cin + cc)) f32 = [sum y, sum y^2] per image;
+// with_stats 0: part and stats are not touched.
 extern "C" int erf_down_train_fwd(const void* x, const void* shifts,
                                   const void* wmat, const void* bias,
                                   void* out, void* xa, void* part,
                                   void* stats, int B, int H, int W, int cin,
-                                  int cc, int stem, void* stream) {
+                                  int cc, int stem, int with_stats,
+                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!shape_ok(B, H, W, cin)) return cudaErrorInvalidValue;
-  if (stem && cin == 3 && cc == 13)
-    return fwd<3, 13, true>(x, shifts, wmat, bias, out, xa, part, stats, B,
-                            H, W, s);
-  if (!stem && cin == 16 && cc == 48)
-    return fwd<16, 48, false>(x, shifts, wmat, bias, out, xa, part, stats, B,
-                              H, W, s);
-  if (!stem && cin == 64 && cc == 64)
-    return fwd<64, 64, false>(x, shifts, wmat, bias, out, xa, part, stats, B,
-                              H, W, s);
-  return cudaErrorInvalidValue;
+  if (!shape_ok(B, H, W, cin) || !pair_ok(cin, cc, stem))
+    return cudaErrorInvalidValue;
+#define ARGS x, shifts, wmat, bias, out, xa, part, stats, B, H, W, s
+  if (cin == 3)
+    return stem ? ERF_DOWN_FWD(fwd, 3, 13, true)
+                : ERF_DOWN_FWD(fwd, 3, 13, false);
+  if (cin == 16) return ERF_DOWN_FWD(fwd, 16, 48, false);
+  return ERF_DOWN_FWD(fwd, 64, 64, false);
+#undef ARGS
 }
 
 // gy, y: (B, H/2, W/2, cin + cc) bf16; gs1, gs2: (B, cin + cc) f32; x:
 // the forward's bf16 input (the translated image in the stem mode); wt:
 // (9 cc, cin) bf16, row (kh * 3 + kw) cc + co, column ci (not read in the
-// stem mode); g: (B, H/2, W/2, cin + cc) bf16 scratch; dx: (B, H, W, cin)
-// bf16 (not written in the stem mode); part: (ceil(B H W / 8192),
-// 9 cin cc + cc) f32 scratch; grads: (9 cin cc + cc) f32 = [dW in HWIO
-// order, db].
+// stem mode); g: (B, H/2, W/2, cin + cc) bf16 scratch (with_stats 0: gy is
+// g, and y, gs1, gs2 and g are not read); dx: (B, H, W, cin) bf16 (not
+// written in the stem mode); part: (ceil(B H W / 8192), 9 cin cc + cc)
+// f32 scratch; grads: (9 cin cc + cc) f32 = [dW in HWIO order, db].
 extern "C" int erf_down_train_bwd(const void* gy, const void* y,
                                   const void* gs1, const void* gs2,
                                   const void* x, const void* wt, void* g,
                                   void* dx, void* part, void* grads, int B,
                                   int H, int W, int cin, int cc, int stem,
-                                  void* stream) {
+                                  int with_stats, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!shape_ok(B, H, W, cin)) return cudaErrorInvalidValue;
-  if (stem && cin == 3 && cc == 13)
-    return bwd<3, 13, false>(gy, y, gs1, gs2, x, wt, g, dx, part, grads, B,
-                             H, W, s);
-  if (!stem && cin == 16 && cc == 48)
-    return bwd<16, 48, true>(gy, y, gs1, gs2, x, wt, g, dx, part, grads, B,
-                             H, W, s);
-  if (!stem && cin == 64 && cc == 64)
-    return bwd<64, 64, true>(gy, y, gs1, gs2, x, wt, g, dx, part, grads, B,
-                             H, W, s);
-  return cudaErrorInvalidValue;
+  if (!shape_ok(B, H, W, cin) || !pair_ok(cin, cc, stem))
+    return cudaErrorInvalidValue;
+#define ARGS with_stats, gy, y, gs1, gs2, x, wt, g, dx, part, grads, B, H, W, s
+  if (cin == 3)
+    return stem ? bwd<3, 13, false>(ARGS) : bwd<3, 13, true>(ARGS);
+  if (cin == 16) return bwd<16, 48, true>(ARGS);
+  return bwd<64, 64, true>(ARGS);
+#undef ARGS
 }
 
 
@@ -966,19 +1088,17 @@ extern "C" int erf_down_train_fwd_f32(const void* x, const void* shifts,
                                       void* out, void* xa, void* part,
                                       void* stats, int B, int H, int W,
                                       int cin, int cc, int stem,
-                                      void* stream) {
+                                      int with_stats, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!shape_ok(B, H, W, cin)) return cudaErrorInvalidValue;
-  if (stem && cin == 3 && cc == 13)
-    return fwd_f32<3, 13>(x, shifts, wmat, bias, out, xa, part, stats, B, H,
-                          W, s);
-  if (!stem && cin == 16 && cc == 48)
-    return fwd_f32<16, 48>(x, shifts, wmat, bias, out, xa, part, stats, B, H,
-                           W, s);
-  if (!stem && cin == 64 && cc == 64)
-    return fwd_f32<64, 64>(x, shifts, wmat, bias, out, xa, part, stats, B, H,
-                           W, s);
-  return cudaErrorInvalidValue;
+  if (!shape_ok(B, H, W, cin) || !pair_ok(cin, cc, stem))
+    return cudaErrorInvalidValue;
+#define ARGS x, shifts, wmat, bias, out, xa, part, stats, B, H, W, s
+  if (cin == 3)
+    return stem ? ERF_DOWN_FWD(fwd_f32, 3, 13, true)
+                : ERF_DOWN_FWD(fwd_f32, 3, 13, false);
+  if (cin == 16) return ERF_DOWN_FWD(fwd_f32, 16, 48, false);
+  return ERF_DOWN_FWD(fwd_f32, 64, 64, false);
+#undef ARGS
 }
 
 // The f32 backward: gy, y, x, wt (9 cc, cin), g, dx in f32.
@@ -987,17 +1107,15 @@ extern "C" int erf_down_train_bwd_f32(const void* gy, const void* y,
                                       const void* x, const void* wt, void* g,
                                       void* dx, void* part, void* grads,
                                       int B, int H, int W, int cin, int cc,
-                                      int stem, void* stream) {
+                                      int stem, int with_stats,
+                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!shape_ok(B, H, W, cin)) return cudaErrorInvalidValue;
-  if (stem && cin == 3 && cc == 13)
-    return bwd_f32<3, 13, false>(gy, y, gs1, gs2, x, wt, g, dx, part, grads,
-                                 B, H, W, s);
-  if (!stem && cin == 16 && cc == 48)
-    return bwd_f32<16, 48, true>(gy, y, gs1, gs2, x, wt, g, dx, part, grads,
-                                 B, H, W, s);
-  if (!stem && cin == 64 && cc == 64)
-    return bwd_f32<64, 64, true>(gy, y, gs1, gs2, x, wt, g, dx, part, grads,
-                                 B, H, W, s);
-  return cudaErrorInvalidValue;
+  if (!shape_ok(B, H, W, cin) || !pair_ok(cin, cc, stem))
+    return cudaErrorInvalidValue;
+#define ARGS with_stats, gy, y, gs1, gs2, x, wt, g, dx, part, grads, B, H, W, s
+  if (cin == 3)
+    return stem ? bwd_f32<3, 13, false>(ARGS) : bwd_f32<3, 13, true>(ARGS);
+  if (cin == 16) return bwd_f32<16, 48, true>(ARGS);
+  return bwd_f32<64, 64, true>(ARGS);
+#undef ARGS
 }

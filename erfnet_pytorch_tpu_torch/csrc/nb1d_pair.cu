@@ -10,8 +10,8 @@
 //   t0 = lead(x)                          none:   x
 //                                         affine: relu(x a + b)      (BN1)
 //                                         epi:    relu((t a + b) m + y_res)
-//   t1 = bf16(relu(conv_h(t0) + bh))      3 taps along H, dilation d
-//   z  = bf16(conv_w(t1) + bw)            3 taps along W, dilation d
+//   t1 = bf16(relu(conv_h(t0) + bh))      3 taps along H, dilation dh
+//   z  = bf16(conv_w(t1) + bw)            3 taps along W, dilation dw
 //   s1[b], s2[b] = sum, sum of squares of z over image b (after rounding)
 //
 // with the TPU kernels' rounding points: the lead stage in bf16 (a, b and
@@ -77,6 +77,18 @@
 // ffma_outer), per (chunk, tap) partials reduced in a fixed order.
 // Bound at f32: operations at every C (6 C^2 MACs per pixel forward, 12
 // C^2 backward, against 67 TFLOP/s).
+//
+// The stats-free forms (erf_pair_* with with_stats = 0) replace fused_pair,
+// fused_pair_affine and fused_pair_epi (_fwd_kernel / _bwd_kernel and
+// their _affine / _epi twins): the W conv's epilogue writes z without
+// per-tile partials and the statistics' reduction launch is skipped; the
+// backward starts from g = gz (the JAX bwd casts gz to the maps' dtype),
+// with no g fold and no read of z.  A fourth lead, relu (lead_relu=True:
+// t0 = relu(x), an elementwise launch like the affine lead's), masks dt0
+// where x > 0 in its backward, with no sums.  Every form takes the H and
+// W dilations apart (dh for the H conv, its transpose and dwh; dw for the
+// W ones), on the unpacked map: a tap at or beyond the map's extent reads
+// the zero fill.
 #include "common.cuh"
 
 using namespace erfk;
@@ -259,10 +271,10 @@ struct EpiReluBias {
   }
 };
 
-// z = bf16(acc + bw); s0 += z, s1 += z^2 (of the rounded z)
-template <int C>
+// z = bf16(acc + bw); with S: s0 += z, s1 += z^2 (of the rounded z)
+template <int C, bool S>
 struct EpiStats {
-  static constexpr bool SUMS = true;
+  static constexpr bool SUMS = S;
   const float* bias;
   bf16* out;
   __device__ void operator()(long long m, int, int c0, float (&v)[8],
@@ -271,10 +283,12 @@ struct EpiStats {
 #pragma unroll
     for (int k = 0; k < 8; ++k) o[k] = round_bf16(v[k] + __ldg(bias + c0 + k));
     store8(out + m * C + c0, o);
+    if constexpr (S) {
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      s0[k] += o[k];
-      s1[k] += __fmul_rn(o[k], o[k]);
+      for (int k = 0; k < 8; ++k) {
+        s0[k] += o[k];
+        s1[k] += __fmul_rn(o[k], o[k]);
+      }
     }
   }
 };
@@ -301,14 +315,16 @@ struct EpiDz1 {
   }
 };
 
-enum Lead { NONE = 0, AFFINE = 1, EPI = 2 };
+enum Lead { NONE = 0, AFFINE = 1, EPI = 2, RELU = 3 };
+
+constexpr bool lead_sums(int mode) { return mode == AFFINE || mode == EPI; }
 
 // the lead stage's backward from dt0 = acc (see the file comment)
 template <int C, int MODE>
 struct EpiLeadBwd {
-  static constexpr bool SUMS = MODE != NONE;
+  static constexpr bool SUMS = lead_sums(MODE);
   const bf16* x;      // affine: x; epi: t
-  const bf16* mask;   // affine: t0; epi: y_next
+  const bf16* mask;   // affine: t0; epi: y_next; relu: x
   const bf16* gy;     // epi
   const float* drop;  // epi: (B, C) f32
   const float* a;     // f32 (C,)
@@ -317,6 +333,12 @@ struct EpiLeadBwd {
   __device__ void operator()(long long m, int b, int c0, float (&v)[8],
                              float (&s0)[8], float (&s1)[8]) const {
     if constexpr (MODE == NONE) {
+      store8(out + m * C + c0, v);
+    } else if constexpr (MODE == RELU) {
+      float mv[8];
+      load8(mask + m * C + c0, mv);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[k] = mv[k] > 0.0f ? v[k] : 0.0f;
       store8(out + m * C + c0, v);
     } else {
       float xv[8], mv[8], o[8];
@@ -349,27 +371,27 @@ template <int C>
 __global__ void __launch_bounds__(256)
 fwd_h_kernel(const bf16* t0, const bf16* __restrict__ w,
              const float* __restrict__ bias, bf16* t1, int B, int H, int W,
-             int dil) {
+             int dh) {
   extern __shared__ __align__(128) unsigned char smem[];
-  conv_tiles<C>(smem, t0, w, B, H, W, 0, dil, EpiReluBias<C>{bias, t1},
+  conv_tiles<C>(smem, t0, w, B, H, W, 0, dh, EpiReluBias<C>{bias, t1},
                 nullptr);
 }
 
-template <int C>
+template <int C, bool S>
 __global__ void __launch_bounds__(256)
 fwd_w_kernel(const bf16* t1, const bf16* __restrict__ w,
              const float* __restrict__ bias, bf16* z, float* part, int B,
-             int H, int W, int dil) {
+             int H, int W, int dw) {
   extern __shared__ __align__(128) unsigned char smem[];
-  conv_tiles<C>(smem, t1, w, B, H, W, 1, dil, EpiStats<C>{bias, z}, part);
+  conv_tiles<C>(smem, t1, w, B, H, W, 1, dw, EpiStats<C, S>{bias, z}, part);
 }
 
 template <int C>
 __global__ void __launch_bounds__(256)
 bwd_w_kernel(const bf16* g, const bf16* __restrict__ wt, const bf16* t1,
-             bf16* dz1, float* part, int B, int H, int W, int dil) {
+             bf16* dz1, float* part, int B, int H, int W, int dw) {
   extern __shared__ __align__(128) unsigned char smem[];
-  conv_tiles<C>(smem, g, wt, B, H, W, 1, dil, EpiDz1<C>{t1, g, dz1}, part);
+  conv_tiles<C>(smem, g, wt, B, H, W, 1, dw, EpiDz1<C>{t1, g, dz1}, part);
 }
 
 template <int C, int MODE>
@@ -377,9 +399,9 @@ __global__ void __launch_bounds__(256)
 bwd_h_kernel(const bf16* dz1, const bf16* __restrict__ wt, const bf16* x,
              const bf16* mask, const bf16* gy, const float* drop,
              const float* a, bf16* out, bf16* out2, float* part, int B, int H,
-             int W, int dil) {
+             int W, int dh) {
   extern __shared__ __align__(128) unsigned char smem[];
-  conv_tiles<C>(smem, dz1, wt, B, H, W, 0, dil,
+  conv_tiles<C>(smem, dz1, wt, B, H, W, 0, dh,
                 EpiLeadBwd<C, MODE>{x, mask, gy, drop, a, out, out2}, part);
 }
 
@@ -425,6 +447,20 @@ lead_epi_kernel(const bf16* __restrict__ t, const bf16* __restrict__ yres,
   reinterpret_cast<uint4*>(ynext)[v] = pack_bf16x8(o);
 }
 
+// t0 = relu(x), exact in either dtype (T = bf16 or float), 8 elements a
+// thread (n8 of them)
+template <typename T>
+__global__ void __launch_bounds__(256)
+lead_relu_kernel(const T* __restrict__ x, T* __restrict__ t0, long long n8) {
+  const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= n8) return;
+  float o[8];
+  erfk::load8(x + v * 8, o);  // both dtypes (the local load8 is bf16)
+#pragma unroll
+  for (int k = 0; k < 8; ++k) o[k] = fmaxf(o[k], 0.0f);
+  store_vec8(t0 + v * 8, o);
+}
+
 // Weight gradients: blockIdx.y = 0..2: dwh[k] = shift_h(t0, k)^T dz1;
 // 3..5: dww[k] = shift_w(t1, k)^T g.  blockIdx.x = a chunk of CHUNK
 // pixels; its (C x C) partial goes to part[chunk][y].
@@ -452,7 +488,7 @@ template <int C>
 __global__ void __launch_bounds__(256)
 wgrad_kernel(const bf16* __restrict__ t0, const bf16* __restrict__ dz1,
              const bf16* __restrict__ t1, const bf16* __restrict__ g,
-             float* __restrict__ part, int B, int H, int W, int dil) {
+             float* __restrict__ part, int B, int H, int W, int dh, int dw) {
   using P = WgPick<C>;
   using Q = typename P::Q;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -462,7 +498,7 @@ wgrad_kernel(const bf16* __restrict__ t0, const bf16* __restrict__ dz1,
   const int axis = y < 3 ? 0 : 1, tap = y % 3;
   const bf16* A = y < 3 ? t0 : t1;
   const bf16* Gm = y < 3 ? dz1 : g;
-  const int off = (tap - 1) * dil;
+  const int off = (tap - 1) * (axis == 0 ? dh : dw);
   const int step = axis == 0 ? W : 1, lim = axis == 0 ? H : W;
   const long long P_ = (long long)B * H * W;
   const long long p_begin = (long long)blockIdx.x * CHUNK;
@@ -644,10 +680,10 @@ struct EpiReluBias32 {
   }
 };
 
-// z = acc + bw; s0 += z, s1 += z^2
-template <int C>
+// z = acc + bw; with S: s0 += z, s1 += z^2
+template <int C, bool S>
 struct EpiStats32 {
-  static constexpr bool SUMS = true;
+  static constexpr bool SUMS = S;
   const float* bias;
   float* out;
   __device__ void operator()(long long m, int, int c0, float (&v)[4],
@@ -656,8 +692,10 @@ struct EpiStats32 {
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       o[k] = v[k] + __ldg(bias + c0 + k);
-      s0[k] += o[k];
-      s1[k] += __fmul_rn(o[k], o[k]);
+      if constexpr (S) {
+        s0[k] += o[k];
+        s1[k] += __fmul_rn(o[k], o[k]);
+      }
     }
     st4(out + m * C + c0, o);
   }
@@ -687,9 +725,9 @@ struct EpiDz1_32 {
 // the lead stage's backward from dt0 = acc, f32 (see the file comment)
 template <int C, int MODE>
 struct EpiLeadBwd32 {
-  static constexpr bool SUMS = MODE != NONE;
+  static constexpr bool SUMS = lead_sums(MODE);
   const float* x;     // affine: x; epi: t
-  const float* mask;  // affine: t0; epi: y_next
+  const float* mask;  // affine: t0; epi: y_next; relu: x
   const float* gy;    // epi
   const float* drop;  // epi: (B, C)
   const float* a;     // (C,)
@@ -698,6 +736,12 @@ struct EpiLeadBwd32 {
   __device__ void operator()(long long m, int b, int c0, float (&v)[4],
                              float* s0, float* s1) const {
     if constexpr (MODE == NONE) {
+      st4(out + m * C + c0, v);
+    } else if constexpr (MODE == RELU) {
+      const float4 m4 = ld4(mask + m * C + c0);
+      const float mv[4] = {m4.x, m4.y, m4.z, m4.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[k] = mv[k] > 0.0f ? v[k] : 0.0f;
       st4(out + m * C + c0, v);
     } else {
       const float4 x4 = ld4(x + m * C + c0), m4 = ld4(mask + m * C + c0);
@@ -731,19 +775,19 @@ template <int C>
 __global__ void __launch_bounds__(256)
 fwd_h_f32_kernel(const float* t0, const float* __restrict__ w,
                  const float* __restrict__ bias, float* t1, int B, int H,
-                 int W, int dil) {
+                 int W, int dh) {
   extern __shared__ __align__(128) unsigned char smem[];
-  conv_tiles_f32<C>(smem, t0, w, B, H, W, 0, dil, EpiReluBias32<C>{bias, t1},
+  conv_tiles_f32<C>(smem, t0, w, B, H, W, 0, dh, EpiReluBias32<C>{bias, t1},
                     nullptr);
 }
 
-template <int C>
+template <int C, bool S>
 __global__ void __launch_bounds__(256)
 fwd_w_f32_kernel(const float* t1, const float* __restrict__ w,
                  const float* __restrict__ bias, float* z, float* part, int B,
-                 int H, int W, int dil) {
+                 int H, int W, int dw) {
   extern __shared__ __align__(128) unsigned char smem[];
-  conv_tiles_f32<C>(smem, t1, w, B, H, W, 1, dil, EpiStats32<C>{bias, z},
+  conv_tiles_f32<C>(smem, t1, w, B, H, W, 1, dw, EpiStats32<C, S>{bias, z},
                     part);
 }
 
@@ -751,9 +795,9 @@ template <int C>
 __global__ void __launch_bounds__(256)
 bwd_w_f32_kernel(const float* g, const float* __restrict__ wt,
                  const float* t1, float* dz1, float* part, int B, int H,
-                 int W, int dil) {
+                 int W, int dw) {
   extern __shared__ __align__(128) unsigned char smem[];
-  conv_tiles_f32<C>(smem, g, wt, B, H, W, 1, dil, EpiDz1_32<C>{t1, g, dz1},
+  conv_tiles_f32<C>(smem, g, wt, B, H, W, 1, dw, EpiDz1_32<C>{t1, g, dz1},
                     part);
 }
 
@@ -762,9 +806,9 @@ __global__ void __launch_bounds__(256)
 bwd_h_f32_kernel(const float* dz1, const float* __restrict__ wt,
                  const float* x, const float* mask, const float* gy,
                  const float* drop, const float* a, float* out, float* out2,
-                 float* part, int B, int H, int W, int dil) {
+                 float* part, int B, int H, int W, int dh) {
   extern __shared__ __align__(128) unsigned char smem[];
-  conv_tiles_f32<C>(smem, dz1, wt, B, H, W, 0, dil,
+  conv_tiles_f32<C>(smem, dz1, wt, B, H, W, 0, dh,
                     EpiLeadBwd32<C, MODE>{x, mask, gy, drop, a, out, out2},
                     part);
 }
@@ -783,7 +827,8 @@ template <int C>
 __global__ void __launch_bounds__(256)
 wgrad_f32_kernel(const float* __restrict__ t0, const float* __restrict__ dz1,
                  const float* __restrict__ t1, const float* __restrict__ g,
-                 float* __restrict__ part, int B, int H, int W, int dil) {
+                 float* __restrict__ part, int B, int H, int W, int dh,
+                 int dw) {
   using S = PairWg32<C>;
   using Q = typename S::Q;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -793,7 +838,7 @@ wgrad_f32_kernel(const float* __restrict__ t0, const float* __restrict__ dz1,
   const int axis = y < 3 ? 0 : 1, tap = y % 3;
   const float* A = y < 3 ? t0 : t1;
   const float* Gm = y < 3 ? dz1 : g;
-  const int off = (tap - 1) * dil;
+  const int off = (tap - 1) * (axis == 0 ? dh : dw);
   const int step = axis == 0 ? W : 1, lim = axis == 0 ? H : W;
   const long long P_ = (long long)B * H * W;
   const long long p_begin = (long long)blockIdx.x * CHUNK;
@@ -885,25 +930,27 @@ int conv_grid(int B, int H, int W, int grid_max) {
   return tiles < grid_max ? tiles : grid_max;
 }
 
-template <int C>
+// S: with the statistics (part and their reduction into stats)
+template <int C, bool S>
 int fwd(const void* t0, const void* wh, const void* bh, const void* ww,
         const void* bw, void* t1, void* z, void* part, void* stats, int B,
-        int H, int W, int dil, cudaStream_t s) {
+        int H, int W, int dh, int dw, cudaStream_t s) {
   using G = Cfg<C>;
   static bool ok_h = false, ok_w = false;
   static int gm_h = 0, gm_w = 0;
   cudaError_t e = prep<C>(fwd_h_kernel<C>, &ok_h, &gm_h);
-  if (e == cudaSuccess) e = prep<C>(fwd_w_kernel<C>, &ok_w, &gm_w);
+  if (e == cudaSuccess) e = prep<C>(fwd_w_kernel<C, S>, &ok_w, &gm_w);
   if (e != cudaSuccess) return e;
   fwd_h_kernel<C><<<conv_grid<C>(B, H, W, gm_h), G::THREADS, G::smem, s>>>(
       static_cast<const bf16*>(t0), static_cast<const bf16*>(wh),
-      static_cast<const float*>(bh), static_cast<bf16*>(t1), B, H, W, dil);
+      static_cast<const float*>(bh), static_cast<bf16*>(t1), B, H, W, dh);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  fwd_w_kernel<C><<<conv_grid<C>(B, H, W, gm_w), G::THREADS, G::smem, s>>>(
+  fwd_w_kernel<C, S><<<conv_grid<C>(B, H, W, gm_w), G::THREADS, G::smem, s>>>(
       static_cast<const bf16*>(t1), static_cast<const bf16*>(ww),
       static_cast<const float*>(bw), static_cast<bf16*>(z),
-      static_cast<float*>(part), B, H, W, dil);
+      static_cast<float*>(part), B, H, W, dw);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if constexpr (!S) return cudaSuccess;
   const int tpi = (H * W + G::BM - 1) / G::BM;
   return reduce_parts(static_cast<const float*>(part),
                       static_cast<float*>(stats), B, tpi, 2 * C, s);
@@ -912,7 +959,7 @@ int fwd(const void* t0, const void* wh, const void* bh, const void* ww,
 template <int C, int MODE>
 int bwd_h(const void* dz1, const void* wht, const void* x, const void* mask,
           const void* gy, const void* drop, const void* a, void* out,
-          void* out2, float* part, int B, int H, int W, int dil,
+          void* out2, float* part, int B, int H, int W, int dh,
           cudaStream_t s) {
   using G = Cfg<C>;
   static bool ok = false;
@@ -924,17 +971,17 @@ int bwd_h(const void* dz1, const void* wht, const void* x, const void* mask,
       static_cast<const bf16*>(x), static_cast<const bf16*>(mask),
       static_cast<const bf16*>(gy), static_cast<const float*>(drop),
       static_cast<const float*>(a), static_cast<bf16*>(out),
-      static_cast<bf16*>(out2), part, B, H, W, dil);
+      static_cast<bf16*>(out2), part, B, H, W, dh);
   return cudaGetLastError();
 }
 
 template <int C>
-int bwd(int mode, const void* gz, const void* z, const void* gs1,
+int bwd(int mode, int stats, const void* gz, const void* z, const void* gs1,
         const void* gs2, const void* t0, const void* t1, const void* wht,
         const void* wwt, const void* x, const void* mask, const void* gy,
         const void* drop, const void* a, void* g, void* dz1, void* out,
         void* out2, void* part_b, void* part_w, void* grads, int B, int H,
-        int W, int dil, cudaStream_t s) {
+        int W, int dh, int dw, cudaStream_t s) {
   using G = Cfg<C>;
   static bool ok_w = false;
   static int gm_w = 0;
@@ -942,29 +989,37 @@ int bwd(int mode, const void* gz, const void* z, const void* gs1,
   const long long P = (long long)B * H * W;
   const int tiles = B * ((H * W + G::BM - 1) / G::BM);
   float* pb = static_cast<float*>(part_b);
-  cudaError_t e = adjust_grad(gz, z, gs1, gs2, g, B, H * W, C, s);
-  if (e != cudaSuccess) return e;
+  cudaError_t e = cudaSuccess;
+  // the stats fold writes g; without the statistics g is gz itself
+  const void* gg = stats ? g : gz;
+  if (stats && (e = adjust_grad(gz, z, gs1, gs2, g, B, H * W, C, s)) !=
+                   cudaSuccess)
+    return e;
   if ((e = prep<C>(bwd_w_kernel<C>, &ok_w, &gm_w)) != cudaSuccess) return e;
   // bias partials: part_b holds two (tiles, 2C) halves, [dbh, dbw] per
   // tile from bwd_w and [da, db] per tile from bwd_h
   bwd_w_kernel<C><<<conv_grid<C>(B, H, W, gm_w), G::THREADS, G::smem, s>>>(
-      static_cast<const bf16*>(g), static_cast<const bf16*>(wwt),
+      static_cast<const bf16*>(gg), static_cast<const bf16*>(wwt),
       static_cast<const bf16*>(t1), static_cast<bf16*>(dz1), pb, B, H, W,
-      dil);
+      dw);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   float* ph = pb + (long long)tiles * 2 * C;
   switch (mode) {
     case NONE:
       e = (cudaError_t)bwd_h<C, NONE>(dz1, wht, x, mask, gy, drop, a, out,
-                                      out2, ph, B, H, W, dil, s);
+                                      out2, ph, B, H, W, dh, s);
       break;
     case AFFINE:
       e = (cudaError_t)bwd_h<C, AFFINE>(dz1, wht, x, mask, gy, drop, a, out,
-                                        out2, ph, B, H, W, dil, s);
+                                        out2, ph, B, H, W, dh, s);
       break;
     case EPI:
       e = (cudaError_t)bwd_h<C, EPI>(dz1, wht, x, mask, gy, drop, a, out,
-                                     out2, ph, B, H, W, dil, s);
+                                     out2, ph, B, H, W, dh, s);
+      break;
+    case RELU:
+      e = (cudaError_t)bwd_h<C, RELU>(dz1, wht, x, mask, gy, drop, a, out,
+                                      out2, ph, B, H, W, dh, s);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -981,8 +1036,8 @@ int bwd(int mode, const void* gz, const void* z, const void* gs1,
   const int chunks = (int)((P + CHUNK - 1) / CHUNK);
   wgrad_kernel<C><<<dim3(chunks, 6), Q::THREADS, Q::smem, s>>>(
       static_cast<const bf16*>(t0), static_cast<const bf16*>(dz1),
-      static_cast<const bf16*>(t1), static_cast<const bf16*>(g),
-      static_cast<float*>(part_w), B, H, W, dil);
+      static_cast<const bf16*>(t1), static_cast<const bf16*>(gg),
+      static_cast<float*>(part_w), B, H, W, dh, dw);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   // grads = [dwh (3CC), dww (3CC) | dbh, dbw | da, db]
   float* gr = static_cast<float*>(grads);
@@ -992,7 +1047,7 @@ int bwd(int mode, const void* gz, const void* z, const void* gs1,
   if ((e = reduce_parts(pb, gr + 6 * C * C, 1, tiles, 2 * C, s)) !=
       cudaSuccess)
     return e;
-  if (mode != NONE)
+  if (lead_sums(mode))
     e = reduce_parts(ph, gr + 6 * C * C + 2 * C, 1, tiles, 2 * C, s);
   return e;
 }
@@ -1013,28 +1068,29 @@ int conv_grid32(int B, int H, int W, int grid_max) {
   return tiles < grid_max ? tiles : grid_max;
 }
 
-template <int C>
+template <int C, bool S>
 int fwd_f32(const void* t0, const void* wh, const void* bh, const void* ww,
             const void* bw, void* t1, void* z, void* part, void* stats, int B,
-            int H, int W, int dil, cudaStream_t s) {
+            int H, int W, int dh, int dw, cudaStream_t s) {
   using G = Cfg32<C>;
   static bool ok_h = false, ok_w = false;
   static int gm_h = 0, gm_w = 0;
   cudaError_t e = prep32<C>(fwd_h_f32_kernel<C>, &ok_h, &gm_h);
-  if (e == cudaSuccess) e = prep32<C>(fwd_w_f32_kernel<C>, &ok_w, &gm_w);
+  if (e == cudaSuccess) e = prep32<C>(fwd_w_f32_kernel<C, S>, &ok_w, &gm_w);
   if (e != cudaSuccess) return e;
   fwd_h_f32_kernel<C>
       <<<conv_grid32<C>(B, H, W, gm_h), G::THREADS, G::smem, s>>>(
           static_cast<const float*>(t0), static_cast<const float*>(wh),
           static_cast<const float*>(bh), static_cast<float*>(t1), B, H, W,
-          dil);
+          dh);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  fwd_w_f32_kernel<C>
+  fwd_w_f32_kernel<C, S>
       <<<conv_grid32<C>(B, H, W, gm_w), G::THREADS, G::smem, s>>>(
           static_cast<const float*>(t1), static_cast<const float*>(ww),
           static_cast<const float*>(bw), static_cast<float*>(z),
-          static_cast<float*>(part), B, H, W, dil);
+          static_cast<float*>(part), B, H, W, dw);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if constexpr (!S) return cudaSuccess;
   const int tpi = (H * W + G::BM - 1) / G::BM;
   return reduce_parts(static_cast<const float*>(part),
                       static_cast<float*>(stats), B, tpi, 2 * C, s);
@@ -1044,7 +1100,7 @@ template <int C, int MODE>
 int bwd_h_f32(const void* dz1, const void* wht, const void* x,
               const void* mask, const void* gy, const void* drop,
               const void* a, void* out, void* out2, float* part, int B, int H,
-              int W, int dil, cudaStream_t s) {
+              int W, int dh, cudaStream_t s) {
   using G = Cfg32<C>;
   static bool ok = false;
   static int gm = 0;
@@ -1056,17 +1112,18 @@ int bwd_h_f32(const void* dz1, const void* wht, const void* x,
           static_cast<const float*>(x), static_cast<const float*>(mask),
           static_cast<const float*>(gy), static_cast<const float*>(drop),
           static_cast<const float*>(a), static_cast<float*>(out),
-          static_cast<float*>(out2), part, B, H, W, dil);
+          static_cast<float*>(out2), part, B, H, W, dh);
   return cudaGetLastError();
 }
 
 template <int C>
-int bwd_f32(int mode, const void* gz, const void* z, const void* gs1,
-            const void* gs2, const void* t0, const void* t1, const void* wht,
-            const void* wwt, const void* x, const void* mask, const void* gy,
-            const void* drop, const void* a, void* g, void* dz1, void* out,
-            void* out2, void* part_b, void* part_w, void* grads, int B, int H,
-            int W, int dil, cudaStream_t s) {
+int bwd_f32(int mode, int stats, const void* gz, const void* z,
+            const void* gs1, const void* gs2, const void* t0, const void* t1,
+            const void* wht, const void* wwt, const void* x, const void* mask,
+            const void* gy, const void* drop, const void* a, void* g,
+            void* dz1, void* out, void* out2, void* part_b, void* part_w,
+            void* grads, int B, int H, int W, int dh, int dw,
+            cudaStream_t s) {
   using G = Cfg32<C>;
   static bool ok_w = false;
   static int gm_w = 0;
@@ -1074,29 +1131,36 @@ int bwd_f32(int mode, const void* gz, const void* z, const void* gs1,
   const long long P = (long long)B * H * W;
   const int tiles = B * ((H * W + G::BM - 1) / G::BM);
   float* pb = static_cast<float*>(part_b);
-  cudaError_t e = adjust_grad_f32(gz, z, gs1, gs2, g, B, H * W, C, s);
-  if (e != cudaSuccess) return e;
+  cudaError_t e = cudaSuccess;
+  const void* gg = stats ? g : gz;
+  if (stats && (e = adjust_grad_f32(gz, z, gs1, gs2, g, B, H * W, C, s)) !=
+                   cudaSuccess)
+    return e;
   if ((e = prep32<C>(bwd_w_f32_kernel<C>, &ok_w, &gm_w)) != cudaSuccess)
     return e;
   bwd_w_f32_kernel<C>
       <<<conv_grid32<C>(B, H, W, gm_w), G::THREADS, G::smem, s>>>(
-          static_cast<const float*>(g), static_cast<const float*>(wwt),
+          static_cast<const float*>(gg), static_cast<const float*>(wwt),
           static_cast<const float*>(t1), static_cast<float*>(dz1), pb, B, H,
-          W, dil);
+          W, dw);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   float* ph = pb + (long long)tiles * 2 * C;
   switch (mode) {
     case NONE:
       e = (cudaError_t)bwd_h_f32<C, NONE>(dz1, wht, x, mask, gy, drop, a, out,
-                                          out2, ph, B, H, W, dil, s);
+                                          out2, ph, B, H, W, dh, s);
       break;
     case AFFINE:
       e = (cudaError_t)bwd_h_f32<C, AFFINE>(dz1, wht, x, mask, gy, drop, a,
-                                            out, out2, ph, B, H, W, dil, s);
+                                            out, out2, ph, B, H, W, dh, s);
       break;
     case EPI:
       e = (cudaError_t)bwd_h_f32<C, EPI>(dz1, wht, x, mask, gy, drop, a, out,
-                                         out2, ph, B, H, W, dil, s);
+                                         out2, ph, B, H, W, dh, s);
+      break;
+    case RELU:
+      e = (cudaError_t)bwd_h_f32<C, RELU>(dz1, wht, x, mask, gy, drop, a, out,
+                                          out2, ph, B, H, W, dh, s);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -1108,8 +1172,8 @@ int bwd_f32(int mode, const void* gz, const void* z, const void* gs1,
   const int chunks = (int)((P + CHUNK - 1) / CHUNK);
   wgrad_f32_kernel<C><<<dim3(chunks, 6), PairWg32<C>::THREADS, Q::smem, s>>>(
       static_cast<const float*>(t0), static_cast<const float*>(dz1),
-      static_cast<const float*>(t1), static_cast<const float*>(g),
-      static_cast<float*>(part_w), B, H, W, dil);
+      static_cast<const float*>(t1), static_cast<const float*>(gg),
+      static_cast<float*>(part_w), B, H, W, dh, dw);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   float* gr = static_cast<float*>(grads);
   if ((e = reduce_parts(static_cast<const float*>(part_w), gr, 1, chunks,
@@ -1118,14 +1182,43 @@ int bwd_f32(int mode, const void* gz, const void* z, const void* gs1,
   if ((e = reduce_parts(pb, gr + 6 * C * C, 1, tiles, 2 * C, s)) !=
       cudaSuccess)
     return e;
-  if (mode != NONE)
+  if (lead_sums(mode))
     e = reduce_parts(ph, gr + 6 * C * C + 2 * C, 1, tiles, 2 * C, s);
   return e;
 }
 
-bool shape_ok(int B, int H, int W, int C) {
+bool shape_ok(int B, int H, int W, int C, int dh, int dw) {
   return (C == 16 || C == 64 || C == 128) && B > 0 && H > 0 && W > 0 &&
-         (long long)B * H * W * C < (1LL << 31);
+         dh > 0 && dw > 0 && (long long)B * H * W * C < (1LL << 31);
+}
+
+// The relu lead (x -> t0), either form.
+template <typename T>
+cudaError_t lead_relu(const void* x, void* t0, long long n8, cudaStream_t s) {
+  lead_relu_kernel<T><<<(unsigned)((n8 + 255) / 256), 256, 0, s>>>(
+      static_cast<const T*>(x), static_cast<T*>(t0), n8);
+  return cudaGetLastError();
+}
+
+template <int C>
+int fwd_any(int stats, const void* t0, const void* wh, const void* bh,
+            const void* ww, const void* bw, void* t1, void* z, void* part,
+            void* st, int B, int H, int W, int dh, int dw, cudaStream_t s) {
+  return stats ? fwd<C, true>(t0, wh, bh, ww, bw, t1, z, part, st, B, H, W,
+                              dh, dw, s)
+               : fwd<C, false>(t0, wh, bh, ww, bw, t1, z, part, st, B, H, W,
+                               dh, dw, s);
+}
+
+template <int C>
+int fwd_any_f32(int stats, const void* t0, const void* wh, const void* bh,
+                const void* ww, const void* bw, void* t1, void* z, void* part,
+                void* st, int B, int H, int W, int dh, int dw,
+                cudaStream_t s) {
+  return stats ? fwd_f32<C, true>(t0, wh, bh, ww, bw, t1, z, part, st, B, H,
+                                  W, dh, dw, s)
+               : fwd_f32<C, false>(t0, wh, bh, ww, bw, t1, z, part, st, B, H,
+                                   W, dh, dw, s);
 }
 
 }  // namespace
@@ -1134,18 +1227,21 @@ bool shape_ok(int B, int H, int W, int C) {
 //
 // Maps are (B, H, W, C) bf16, NHWC, C in {16, 64, 128}; tap stacks (3, C, C)
 // bf16 [tap, cin, cout]; biases, a, b (C,) f32; the dropout mask (B, C)
-// f32.  Scratch (from the wrapper): part (B * tiles_per_image, 2C) f32 in
-// the forward, part_b (tiles, 4C) and part_w (chunks, 6, C, C) f32 in the
-// backward, with tiles_per_image = ceil(H W / 64) and chunks =
-// ceil(B H W / 2048).  Each entry point returns the first CUDA error.
+// f32; dh, dw the H and W dilations (>= 1); stats 1 for the forms with the
+// per-image statistics, 0 for the stats-free ones.  Scratch (from the
+// wrapper): part (B * tiles_per_image, 2C) f32 in the forward (not read
+// without the statistics), part_b (tiles, 4C) and part_w (chunks, 6, C,
+// C) f32 in the backward, with tiles_per_image = ceil(H W / 64) and chunks
+// = ceil(B H W / 2048).  Each entry point returns the first CUDA error.
 
-// t0 = lead(x): mode 1 affine (x, a, b), 2 epi (x = t, yres, drop, a, b).
-// Pointers first, then ints, then the stream, in every entry point.
+// t0 = lead(x): mode 1 affine (x, a, b), 2 epi (x = t, yres, drop, a, b),
+// 3 relu (x).  Pointers first, then ints, then the stream, in every entry
+// point.
 extern "C" int erf_pair_lead(const void* x, const void* yres,
                              const void* drop, const void* a, const void* b,
                              void* t0, int mode, int B, int H, int W, int C,
                              void* stream) {
-  if (!shape_ok(B, H, W, C)) return cudaErrorInvalidValue;
+  if (!shape_ok(B, H, W, C, 1, 1)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long n8 = (long long)B * H * W * C / 8;
   const unsigned grid = (unsigned)((n8 + 255) / 256);
@@ -1158,31 +1254,39 @@ extern "C" int erf_pair_lead(const void* x, const void* yres,
         static_cast<const bf16*>(x), static_cast<const bf16*>(yres),
         static_cast<const float*>(drop), static_cast<const float*>(a),
         static_cast<const float*>(b), static_cast<bf16*>(t0), n8, H * W, C);
+  else if (mode == RELU)
+    return lead_relu<bf16>(x, t0, n8, s);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();
 }
 
-// t1 = bf16(relu(conv_h(t0) + bh)); z = bf16(conv_w(t1) + bw);
-// stats (B, 2C) = [sum z, sum z^2] per image
+// t1 = bf16(relu(conv_h(t0) + bh)); z = bf16(conv_w(t1) + bw); with the
+// statistics, stats (B, 2C) = [sum z, sum z^2] per image
 extern "C" int erf_pair_fwd(const void* t0, const void* wh, const void* bh,
                             const void* ww, const void* bw, void* t1,
                             void* z, void* part, void* stats, int B, int H,
-                            int W, int C, int dil, void* stream) {
-  if (!shape_ok(B, H, W, C)) return cudaErrorInvalidValue;
+                            int W, int C, int dh, int dw, int with_stats,
+                            void* stream) {
+  if (!shape_ok(B, H, W, C, dh, dw)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (C == 16)
-    return fwd<16>(t0, wh, bh, ww, bw, t1, z, part, stats, B, H, W, dil, s);
+    return fwd_any<16>(with_stats, t0, wh, bh, ww, bw, t1, z, part, stats, B,
+                       H, W, dh, dw, s);
   if (C == 64)
-    return fwd<64>(t0, wh, bh, ww, bw, t1, z, part, stats, B, H, W, dil, s);
-  return fwd<128>(t0, wh, bh, ww, bw, t1, z, part, stats, B, H, W, dil, s);
+    return fwd_any<64>(with_stats, t0, wh, bh, ww, bw, t1, z, part, stats, B,
+                       H, W, dh, dw, s);
+  return fwd_any<128>(with_stats, t0, wh, bh, ww, bw, t1, z, part, stats, B,
+                      H, W, dh, dw, s);
 }
 
 // The backward.  wht, wwt: the tap stacks flipped and transposed
 // (w[2 - k]^T).  mode 0: out = dx; 1: x, mask = t0, out = dx; 2: x = t,
-// mask = y_next, gy, drop, out = dt, out2 = dy_res.  g, dz1: (B, H, W, C)
-// bf16 scratch (g is the adjusted gradient).  grads (6CC + 4C) f32 =
-// [dwh, dww, dbh, dbw, da, db] (da, db left as they are in mode 0).
+// mask = y_next, gy, drop, out = dt, out2 = dy_res; 3: mask = x, out = dx.
+// With the statistics g (B, H, W, C) bf16 scratch receives the adjusted
+// gradient; without them gz is g, and z, gs1, gs2 and g are not read.
+// dz1: (B, H, W, C) bf16 scratch.  grads (6CC + 4C) f32 = [dwh, dww, dbh,
+// dbw, da, db] (da, db left as they are in modes 0 and 3).
 extern "C" int erf_pair_bwd(const void* gz, const void* z, const void* gs1,
                             const void* gs2, const void* t0, const void* t1,
                             const void* wht, const void* wwt, const void* x,
@@ -1190,20 +1294,21 @@ extern "C" int erf_pair_bwd(const void* gz, const void* z, const void* gs1,
                             const void* drop, const void* a, void* g,
                             void* dz1, void* out, void* out2, void* part_b,
                             void* part_w, void* grads, int mode, int B,
-                            int H, int W, int C, int dil, void* stream) {
-  if (!shape_ok(B, H, W, C)) return cudaErrorInvalidValue;
+                            int H, int W, int C, int dh, int dw,
+                            int with_stats, void* stream) {
+  if (!shape_ok(B, H, W, C, dh, dw)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (C == 16)
-    return bwd<16>(mode, gz, z, gs1, gs2, t0, t1, wht, wwt, x, mask, gy,
-                   drop, a, g, dz1, out, out2, part_b, part_w, grads, B, H,
-                   W, dil, s);
+    return bwd<16>(mode, with_stats, gz, z, gs1, gs2, t0, t1, wht, wwt, x,
+                   mask, gy, drop, a, g, dz1, out, out2, part_b, part_w,
+                   grads, B, H, W, dh, dw, s);
   if (C == 64)
-    return bwd<64>(mode, gz, z, gs1, gs2, t0, t1, wht, wwt, x, mask, gy,
-                   drop, a, g, dz1, out, out2, part_b, part_w, grads, B, H,
-                   W, dil, s);
-  return bwd<128>(mode, gz, z, gs1, gs2, t0, t1, wht, wwt, x, mask, gy, drop,
-                  a, g, dz1, out, out2, part_b, part_w, grads, B, H, W, dil,
-                  s);
+    return bwd<64>(mode, with_stats, gz, z, gs1, gs2, t0, t1, wht, wwt, x,
+                   mask, gy, drop, a, g, dz1, out, out2, part_b, part_w,
+                   grads, B, H, W, dh, dw, s);
+  return bwd<128>(mode, with_stats, gz, z, gs1, gs2, t0, t1, wht, wwt, x,
+                  mask, gy, drop, a, g, dz1, out, out2, part_b, part_w, grads,
+                  B, H, W, dh, dw, s);
 }
 
 
@@ -1215,7 +1320,7 @@ extern "C" int erf_pair_lead_f32(const void* x, const void* yres,
                                  const void* drop, const void* a,
                                  const void* b, void* t0, int mode, int B,
                                  int H, int W, int C, void* stream) {
-  if (!shape_ok(B, H, W, C)) return cudaErrorInvalidValue;
+  if (!shape_ok(B, H, W, C, 1, 1)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long n4 = (long long)B * H * W * C / 4;
   const unsigned grid = (unsigned)((n4 + 255) / 256);
@@ -1228,6 +1333,8 @@ extern "C" int erf_pair_lead_f32(const void* x, const void* yres,
         static_cast<const float*>(x), static_cast<const float*>(yres),
         static_cast<const float*>(drop), static_cast<const float*>(a),
         static_cast<const float*>(b), static_cast<float*>(t0), n4, H * W, C);
+  else if (mode == RELU)
+    return lead_relu<float>(x, t0, n4 / 2, s);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();
@@ -1237,16 +1344,18 @@ extern "C" int erf_pair_fwd_f32(const void* t0, const void* wh,
                                 const void* bh, const void* ww,
                                 const void* bw, void* t1, void* z, void* part,
                                 void* stats, int B, int H, int W, int C,
-                                int dil, void* stream) {
-  if (!shape_ok(B, H, W, C)) return cudaErrorInvalidValue;
+                                int dh, int dw, int with_stats,
+                                void* stream) {
+  if (!shape_ok(B, H, W, C, dh, dw)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (C == 16)
-    return fwd_f32<16>(t0, wh, bh, ww, bw, t1, z, part, stats, B, H, W, dil,
-                       s);
+    return fwd_any_f32<16>(with_stats, t0, wh, bh, ww, bw, t1, z, part, stats,
+                           B, H, W, dh, dw, s);
   if (C == 64)
-    return fwd_f32<64>(t0, wh, bh, ww, bw, t1, z, part, stats, B, H, W, dil,
-                       s);
-  return fwd_f32<128>(t0, wh, bh, ww, bw, t1, z, part, stats, B, H, W, dil, s);
+    return fwd_any_f32<64>(with_stats, t0, wh, bh, ww, bw, t1, z, part, stats,
+                           B, H, W, dh, dw, s);
+  return fwd_any_f32<128>(with_stats, t0, wh, bh, ww, bw, t1, z, part, stats,
+                          B, H, W, dh, dw, s);
 }
 
 extern "C" int erf_pair_bwd_f32(const void* gz, const void* z,
@@ -1258,18 +1367,19 @@ extern "C" int erf_pair_bwd_f32(const void* gz, const void* z,
                                 const void* a, void* g, void* dz1, void* out,
                                 void* out2, void* part_b, void* part_w,
                                 void* grads, int mode, int B, int H, int W,
-                                int C, int dil, void* stream) {
-  if (!shape_ok(B, H, W, C)) return cudaErrorInvalidValue;
+                                int C, int dh, int dw, int with_stats,
+                                void* stream) {
+  if (!shape_ok(B, H, W, C, dh, dw)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (C == 16)
-    return bwd_f32<16>(mode, gz, z, gs1, gs2, t0, t1, wht, wwt, x, mask, gy,
-                       drop, a, g, dz1, out, out2, part_b, part_w, grads, B,
-                       H, W, dil, s);
+    return bwd_f32<16>(mode, with_stats, gz, z, gs1, gs2, t0, t1, wht, wwt, x,
+                       mask, gy, drop, a, g, dz1, out, out2, part_b, part_w,
+                       grads, B, H, W, dh, dw, s);
   if (C == 64)
-    return bwd_f32<64>(mode, gz, z, gs1, gs2, t0, t1, wht, wwt, x, mask, gy,
-                       drop, a, g, dz1, out, out2, part_b, part_w, grads, B,
-                       H, W, dil, s);
-  return bwd_f32<128>(mode, gz, z, gs1, gs2, t0, t1, wht, wwt, x, mask, gy,
-                      drop, a, g, dz1, out, out2, part_b, part_w, grads, B, H,
-                      W, dil, s);
+    return bwd_f32<64>(mode, with_stats, gz, z, gs1, gs2, t0, t1, wht, wwt, x,
+                       mask, gy, drop, a, g, dz1, out, out2, part_b, part_w,
+                       grads, B, H, W, dh, dw, s);
+  return bwd_f32<128>(mode, with_stats, gz, z, gs1, gs2, t0, t1, wht, wwt, x,
+                      mask, gy, drop, a, g, dz1, out, out2, part_b, part_w,
+                      grads, B, H, W, dh, dw, s);
 }

@@ -58,6 +58,12 @@
 // pixels as its depth (common.cuh ffma_outer).
 // Bound at f32: operations (9 Cin Cout MACs per input pixel forward, twice
 // that backward, against 67 TFLOP/s).
+//
+// The stats-free forms (with_stats = 0) replace upsampler_packed
+// (_ups_fwd_kernel via _call_fwd_local, _ups_bwd_kernel via
+// _call_bwd_local): the forward's epilogue writes y without the
+// statistic partials and their reduction is skipped; the backward starts
+// from g = gy (no g fold, y not read).
 #include "common.cuh"
 
 using namespace erfk;
@@ -228,6 +234,7 @@ __device__ void gemm_tile(unsigned char* smem, const bf16* a_src,
 // Forward: y (B, 2H, 2W, Cout) bf16 and per-(tile, column tile) partial
 // sums part[(tile * n_ct + ct)][2 Cout] = [sum y, sum y^2] over the
 // tile's pixels and the planes in the column tile.
+template <bool S>
 __global__ void __launch_bounds__(THREADS)
 fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wcat,
            const float* __restrict__ bias, bf16* __restrict__ y,
@@ -257,14 +264,17 @@ fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wcat,
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
       o[k] = __bfloat162float(__float2bfloat16(v[k] + __ldg(bias + c0 + k)));
-      s0[k] += o[k];
-      s1[k] += __fmul_rn(o[k], o[k]);
+      if constexpr (S) {
+        s0[k] += o[k];
+        s1[k] += __fmul_rn(o[k], o[k]);
+      }
     }
     const int oi = 2 * (p / W) + (pl >> 1), oj = 2 * (p % W) + (pl & 1);
     *reinterpret_cast<uint4*>(
         y + (((long long)b * 2 * H + oi) * 2 * W + oj) * Cout + c0) =
         pack_bf16x8(o);
   }
+  if constexpr (!S) return;
   __syncthreads();  // every read of Cs is done: reuse it as scratch
   float* red = reinterpret_cast<float*>(smem);
 #pragma unroll
@@ -488,6 +498,7 @@ __device__ void gemm_tile_f32(unsigned char* smem, const float* a_src,
   }
 }
 
+template <bool S>
 __global__ void __launch_bounds__(THREADS32)
 fwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ wcat,
                const float* __restrict__ bias, float* __restrict__ y,
@@ -516,8 +527,10 @@ fwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ wcat,
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         o[q] = acc[i][4 * g + q] + __ldg(bias + c0 + q);
-        s0[4 * g + q] += o[q];
-        s1[4 * g + q] += __fmul_rn(o[q], o[q]);
+        if constexpr (S) {
+          s0[4 * g + q] += o[q];
+          s1[4 * g + q] += __fmul_rn(o[q], o[q]);
+        }
       }
       const int oi = 2 * (p / W) + (pl >> 1), oj = 2 * (p % W) + (pl & 1);
       *reinterpret_cast<float4*>(
@@ -525,6 +538,7 @@ fwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ wcat,
           make_float4(o[0], o[1], o[2], o[3]);
     }
   }
+  if constexpr (!S) return;
   float* red = reinterpret_cast<float*>(smem);  // gemm ended with a barrier
 #pragma unroll
   for (int j = 0; j < TN32; ++j) {
@@ -682,61 +696,97 @@ int wgrad_f32(const void* x, const void* g, void* part_w, void* part_db,
   return cudaGetLastError();
 }
 
+template <bool S>
+int fwd(const void* x, const void* wcat, const void* bias, void* y,
+        void* part, void* stats, int B, int H, int W, int Cin, int Cout,
+        cudaStream_t s) {
+  static bool ok = false;
+  cudaError_t e = allow((const void*)fwd_kernel<S>, SMEM, &ok);
+  if (e != cudaSuccess) return e;
+  const int tpi = (H * W + BM - 1) / BM, n_ct = 4 * Cout / BN;
+  fwd_kernel<S><<<dim3(B * tpi, n_ct), THREADS, SMEM, s>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(wcat),
+      static_cast<const float*>(bias), static_cast<bf16*>(y),
+      static_cast<float*>(part), H, W, Cin, Cout);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if constexpr (!S) return cudaSuccess;
+  return reduce_parts(static_cast<const float*>(part),
+                      static_cast<float*>(stats), B, tpi * n_ct, 2 * Cout, s);
+}
+
+template <bool S>
+int fwd_f32(const void* x, const void* wcat, const void* bias, void* y,
+            void* part, void* stats, int B, int H, int W, int Cin, int Cout,
+            cudaStream_t s) {
+  static bool ok = false;
+  cudaError_t e = allow((const void*)fwd_f32_kernel<S>, SMEM32, &ok);
+  if (e != cudaSuccess) return e;
+  const int tpi = (H * W + BM - 1) / BM, n_ct = 4 * Cout / BN;
+  fwd_f32_kernel<S><<<dim3(B * tpi, n_ct), THREADS32, SMEM32, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(wcat),
+      static_cast<const float*>(bias), static_cast<float*>(y),
+      static_cast<float*>(part), H, W, Cin, Cout);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if constexpr (!S) return cudaSuccess;
+  return reduce_parts(static_cast<const float*>(part),
+                      static_cast<float*>(stats), B, tpi * n_ct, 2 * Cout, s);
+}
+
 }  // namespace
 
 // ------------------------------ C interface -------------------------------
 //
 // x (B, H, W, Cin) and y (B, 2H, 2W, Cout) bf16, NHWC, (Cin, Cout) in
-// {(128, 64), (64, 16)}; bias (Cout,) f32.  Each entry point returns the
-// first CUDA error.
+// {(128, 64), (64, 16)}; bias (Cout,) f32; with_stats 1 for the forms
+// with the per-image statistics, 0 for the stats-free ones.  Each entry
+// point returns the first CUDA error.
 
 // Forward.  wcat (4 Cin, 4 Cout) bf16 (build_upsampler_matmul's layout);
 // part (B * ceil(H W / 64) * 4 Cout / 64, 2 Cout) f32 scratch; stats
-// (B, 2 Cout) f32 = [sum y, sum y^2] per image.
+// (B, 2 Cout) f32 = [sum y, sum y^2] per image (with_stats 0: part and
+// stats are not touched).
 extern "C" int erf_ups_train_fwd(const void* x, const void* wcat,
                                  const void* bias, void* y, void* part,
                                  void* stats, int B, int H, int W, int Cin,
-                                 int Cout, void* stream) {
+                                 int Cout, int with_stats, void* stream) {
   if (!shape_ok(B, H, W, Cin, Cout)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  static bool ok = false;
-  cudaError_t e = allow((const void*)fwd_kernel, SMEM, &ok);
-  if (e != cudaSuccess) return e;
-  const int tpi = (H * W + BM - 1) / BM, n_ct = 4 * Cout / BN;
-  fwd_kernel<<<dim3(B * tpi, n_ct), THREADS, SMEM, s>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(wcat),
-      static_cast<const float*>(bias), static_cast<bf16*>(y),
-      static_cast<float*>(part), H, W, Cin, Cout);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  return reduce_parts(static_cast<const float*>(part),
-                      static_cast<float*>(stats), B, tpi * n_ct, 2 * Cout, s);
+  return with_stats ? fwd<true>(x, wcat, bias, y, part, stats, B, H, W, Cin,
+                                Cout, s)
+                    : fwd<false>(x, wcat, bias, y, part, stats, B, H, W, Cin,
+                                 Cout, s);
 }
 
 // Backward.  y: the forward's output; gy (B, 2H, 2W, Cout) bf16; gs1, gs2
 // (B, Cout) f32; wt (16 Cout, Cin) bf16 (see dx_kernel); g (B, 2H, 2W,
-// Cout) bf16 scratch; dx (B, H, W, Cin) bf16; part_w (chunks, 9, Cin, Cout)
-// and part_db (chunks, 4, Cout) f32 scratch with chunks = ceil(B H W /
-// 1024); grads (9 Cin Cout + Cout) f32 = [dW (3, 3, Cin, Cout) HWIO, db].
+// Cout) bf16 scratch (with_stats 0: gy is g, and y, gs1, gs2 and g are not
+// read); dx (B, H, W, Cin) bf16; part_w (chunks, 9, Cin, Cout) and part_db
+// (chunks, 4, Cout) f32 scratch with chunks = ceil(B H W / 1024); grads
+// (9 Cin Cout + Cout) f32 = [dW (3, 3, Cin, Cout) HWIO, db].
 extern "C" int erf_ups_train_bwd(const void* x, const void* y, const void* gy,
                                  const void* gs1, const void* gs2,
                                  const void* wt, void* g, void* dx,
                                  void* part_w, void* part_db, void* grads,
                                  int B, int H, int W, int Cin, int Cout,
-                                 void* stream) {
+                                 int with_stats, void* stream) {
   if (!shape_ok(B, H, W, Cin, Cout)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = adjust_grad(gy, y, gs1, gs2, g, B, 4 * H * W, Cout, s);
-  if (e != cudaSuccess) return e;
+  cudaError_t e = cudaSuccess;
+  const void* gg = with_stats ? g : gy;
+  if (with_stats &&
+      (e = adjust_grad(gy, y, gs1, gs2, g, B, 4 * H * W, Cout, s)) !=
+          cudaSuccess)
+    return e;
   static bool ok = false;
   if ((e = allow((const void*)dx_kernel, SMEM, &ok)) != cudaSuccess) return e;
   const int tpi = (H * W + BM - 1) / BM;
   dx_kernel<<<dim3(B * tpi, Cin / BN), THREADS, SMEM, s>>>(
-      static_cast<const bf16*>(g), static_cast<const bf16*>(wt),
+      static_cast<const bf16*>(gg), static_cast<const bf16*>(wt),
       static_cast<bf16*>(dx), H, W, Cin, Cout);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  e = (cudaError_t)(Cin == 128 ? wgrad<128, 64>(x, g, part_w, part_db, B, H,
+  e = (cudaError_t)(Cin == 128 ? wgrad<128, 64>(x, gg, part_w, part_db, B, H,
                                                  W, s)
-                               : wgrad<64, 16>(x, g, part_w, part_db, B, H,
+                               : wgrad<64, 16>(x, gg, part_w, part_db, B, H,
                                                W, s));
   if (e != cudaSuccess) return e;
   const int chunks = (int)(((long long)B * H * W + CHUNK - 1) / CHUNK);
@@ -754,20 +804,14 @@ extern "C" int erf_ups_train_bwd(const void* x, const void* y, const void* gy,
 extern "C" int erf_ups_train_fwd_f32(const void* x, const void* wcat,
                                      const void* bias, void* y, void* part,
                                      void* stats, int B, int H, int W,
-                                     int Cin, int Cout, void* stream) {
+                                     int Cin, int Cout, int with_stats,
+                                     void* stream) {
   if (!shape_ok(B, H, W, Cin, Cout)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  static bool ok = false;
-  cudaError_t e = allow((const void*)fwd_f32_kernel, SMEM32, &ok);
-  if (e != cudaSuccess) return e;
-  const int tpi = (H * W + BM - 1) / BM, n_ct = 4 * Cout / BN;
-  fwd_f32_kernel<<<dim3(B * tpi, n_ct), THREADS32, SMEM32, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(wcat),
-      static_cast<const float*>(bias), static_cast<float*>(y),
-      static_cast<float*>(part), H, W, Cin, Cout);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  return reduce_parts(static_cast<const float*>(part),
-                      static_cast<float*>(stats), B, tpi * n_ct, 2 * Cout, s);
+  return with_stats ? fwd_f32<true>(x, wcat, bias, y, part, stats, B, H, W,
+                                    Cin, Cout, s)
+                    : fwd_f32<false>(x, wcat, bias, y, part, stats, B, H, W,
+                                     Cin, Cout, s);
 }
 
 extern "C" int erf_ups_train_bwd_f32(const void* x, const void* y,
@@ -775,22 +819,28 @@ extern "C" int erf_ups_train_bwd_f32(const void* x, const void* y,
                                      const void* gs2, const void* wt, void* g,
                                      void* dx, void* part_w, void* part_db,
                                      void* grads, int B, int H, int W,
-                                     int Cin, int Cout, void* stream) {
+                                     int Cin, int Cout, int with_stats,
+                                     void* stream) {
   if (!shape_ok(B, H, W, Cin, Cout)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = adjust_grad_f32(gy, y, gs1, gs2, g, B, 4 * H * W, Cout, s);
-  if (e != cudaSuccess) return e;
+  cudaError_t e = cudaSuccess;
+  const void* gg = with_stats ? g : gy;
+  if (with_stats &&
+      (e = adjust_grad_f32(gy, y, gs1, gs2, g, B, 4 * H * W, Cout, s)) !=
+          cudaSuccess)
+    return e;
   static bool ok = false;
   if ((e = allow((const void*)dx_f32_kernel, SMEM32, &ok)) != cudaSuccess)
     return e;
   const int tpi = (H * W + BM - 1) / BM;
   dx_f32_kernel<<<dim3(B * tpi, Cin / BN), THREADS32, SMEM32, s>>>(
-      static_cast<const float*>(g), static_cast<const float*>(wt),
+      static_cast<const float*>(gg), static_cast<const float*>(wt),
       static_cast<float*>(dx), H, W, Cin, Cout);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   e = (cudaError_t)(Cin == 128
-                        ? wgrad_f32<128, 64>(x, g, part_w, part_db, B, H, W, s)
-                        : wgrad_f32<64, 16>(x, g, part_w, part_db, B, H, W,
+                        ? wgrad_f32<128, 64>(x, gg, part_w, part_db, B, H, W,
+                                             s)
+                        : wgrad_f32<64, 16>(x, gg, part_w, part_db, B, H, W,
                                             s));
   if (e != cudaSuccess) return e;
   const int chunks = (int)(((long long)B * H * W + CHUNK - 1) / CHUNK);

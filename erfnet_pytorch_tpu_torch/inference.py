@@ -16,7 +16,17 @@ With calibrated activation scales (``q8_scales``, see ``quantize.py``) the
 NB1d blocks run the w8a8 int8 block (ops/cuda/nb1d_q8.py) where the JAX
 package runs its int8 kernels: a block with scales whose map passes the
 gate, and the dilated C=128 run as one int8 stack, with an f32 carry
-between its blocks, only when every block of it has scales.  Other
+between its blocks, only when every block of it has scales.
+
+``_PACKED_STACKS`` is the JAX package's module gate of the same name (off
+there and here): on, each run of >= 2 same-C W-packed blocks (the
+encoder's five C=64 blocks, the decoder's two C=64 and two C=16) is a
+stack as the C=128 run is: the JAX ``nb1d_stack_infer_packed`` (biases
+rounded to the compute dtype, ``stack_nb1d_params``; one launch a block,
+each block's kernel picked as ``_float_block`` picks it) or, with scales
+for every block, ``nb1d_stack_infer_packed_q8`` (the int8 block with an
+f32 carry).  A map the gate refuses runs the blocks one by one with
+their own f32 biases.  Other
 blocks and maps run the block of the compute dtype, as in the JAX
 package (its ``_make_layer_fn``).  The gate (``whole_map_eligible``)
 decides only the int8 choice, since it decides what the reference
@@ -47,7 +57,8 @@ from .ops.cuda.downsampler import (downsampler, downsampler_plain,
 from .ops.cuda.head_argmax import (head_argmax, head_argmax_1x1,
                                    head_argmax_1x1_plain, head_argmax_plain,
                                    prepare_head)
-from .ops.cuda.nb1d import fuse_nb1d_params, nb1d, nb1d_plain, prepare_nb1d
+from .ops.cuda.nb1d import (fuse_nb1d_params, nb1d, nb1d_plain,
+                            prepare_nb1d, stack_nb1d_params)
 from .ops.cuda.nb1d_halo import (nb1d_halo, nb1d_halo_plain,
                                  takes as halo_takes)
 from .ops.cuda.nb1d_q8 import nb1d_q8, nb1d_q8_plain, prepare_nb1d_q8
@@ -65,6 +76,10 @@ PLAIN_OPS = {"down": downsampler_plain, "nb1d": nb1d_plain,
 # budget of its whole-map kernels, and each channel count's W-pack factor.
 _MAX_MAP_ELEMS = 64 * 128 * 128 * 4
 _PACK = {128: 1, 64: 2, 16: 8}
+# The JAX package's gate of the W-packed runs' stacks (its inference.py
+# _PACKED_STACKS, off: the TPU measured the packed stack slower than
+# the blocks one by one); read when the weights are prepared.
+_PACKED_STACKS = False
 
 
 def whole_map_eligible(shape, p):
@@ -126,26 +141,42 @@ def _prepare_layers(sd, prefix, specs, dtype, tag, q8_scales):
     return _group_stacks(layers)
 
 
+def _stacked(p):
+    """Whether a layer's block may join a stack: the C=128 blocks, and the
+    W-packed C=64/C=16 ones under ``_PACKED_STACKS``."""
+    return p["w"].shape[-1] == 128 or _PACKED_STACKS
+
+
 def _group_stacks(layers):
-    """Each maximal run (>= 2) of consecutive C=128 NB1d blocks is one
-    int8 stack entry when every block of it has int8 operands; otherwise
-    none of its blocks runs int8 (the JAX ``_find_stacks``: its bf16
-    stack takes such a run whole).  The W-packed C=64/C=16 runs stay
-    per block, as the JAX package's are."""
+    """The JAX ``_find_stacks``: each maximal run (>= 2) of consecutive
+    same-C NB1d blocks that may stack (``_stacked``) is one int8 stack
+    entry when every block of it has int8 operands; otherwise none of its
+    blocks runs int8, and a W-packed run is one ``nb1d_stack`` entry
+    (its blocks and their stack operands), the C=128 run's blocks stay
+    entries of their own (their biases are rounded as a stack's are).
+    Other blocks stay per block."""
     out, run = [], []
-    for kind, p in layers + [("end", None)]:
-        if kind == "nb1d" and p["w"].shape[-1] == 128:
-            run.append(p)
-            continue
+
+    def flush():
         if len(run) >= 2 and all("q8" in q for q in run):
             out.append(("nb1d_q8_stack", run))
+            return
+        for q in run:
+            if len(run) >= 2:
+                q.pop("q8", None)
+        if len(run) >= 2 and run[0]["w"].shape[-1] != 128:
+            out.append(("nb1d_stack", (run, stack_nb1d_params(run))))
         else:
-            for q in run:
-                if len(run) >= 2:
-                    q.pop("q8", None)
-                out.append(("nb1d", q))
-        run = []
-        if kind != "end":
+            out.extend(("nb1d", q) for q in run)
+
+    for kind, p in layers + [("end", None)]:
+        if (kind == "nb1d" and _stacked(p)
+                and (not run or run[0]["w"].shape == p["w"].shape)):
+            run.append(p)
+            continue
+        flush()
+        run = [p] if kind == "nb1d" and _stacked(p) else []
+        if not run and kind != "end":
             out.append((kind, p))
     return out
 
@@ -212,12 +243,25 @@ def _nb1d_block(x, p, dtype, ops):
     return _float_block(x, p, ops)
 
 
+def _nb1d_stack(x, run, ops):
+    """The JAX float stack of a W-packed run (``nb1d_stack_infer_packed``)
+    as one launch a block, on the stack's operands (biases rounded to the
+    compute dtype).  A map the gate refuses runs the blocks one by one on
+    their own operands (f32 biases), as the JAX per-block path does."""
+    blocks, stack = run
+    eligible = whole_map_eligible(x.shape, _PACK[x.shape[-1]])
+    for p in stack if eligible else blocks:
+        x = _float_block(x, p, ops)
+    return x
+
+
 def _nb1d_q8_stack(x, ps, dtype, ops):
-    """The JAX int8 stack (``nb1d_stack_infer_q8``) as one int8 block per
-    call: the carry between blocks is f32 and only the last block writes
-    the compute dtype.  A map the gate refuses runs the blocks of the
-    compute dtype."""
-    if not whole_map_eligible(x.shape, 1):
+    """The JAX int8 stack (``nb1d_stack_infer_q8``, and on a W-packed run
+    ``nb1d_stack_infer_packed_q8``) as one int8 block per call: the carry
+    between blocks is f32 and only the last block writes the compute
+    dtype.  A map the gate refuses runs the blocks of the compute
+    dtype."""
+    if not whole_map_eligible(x.shape, _PACK[x.shape[-1]]):
         for p in ps:
             x = _float_block(x, p, ops)
         return x
@@ -233,6 +277,8 @@ def _run_layers(x, layers, dtype, ops):
             x = _nb1d_block(x, p, dtype, ops)
         elif kind == "nb1d_q8_stack":
             x = _nb1d_q8_stack(x, p, dtype, ops)
+        elif kind == "nb1d_stack":
+            x = _nb1d_stack(x, p, ops)
         else:
             x = ops[kind](x, p)
     return x

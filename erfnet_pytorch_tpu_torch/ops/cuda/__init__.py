@@ -6,7 +6,8 @@ its kernels on a CUDA tensor (or raises); it counts its kernel launches in
 ``<wrapper>.launches`` (``_build.counter``), one count per kernel form: the
 kernels that have an f32 form (the serving downsampler, nb1d, upsampler
 and both heads, and every train kernel) count that form's launches
-apart.  ``route``
+apart, and the train pair, downsampler and upsampler count their
+stats-free forms apart too (``_nostats``, ``_nostats_f32``).  ``route``
 holds the one switch that sends the train path to the plain versions on
 the card (the reference the kernels are held against) and the record of
 the train wrappers' calls.

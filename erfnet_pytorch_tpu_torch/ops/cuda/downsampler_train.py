@@ -1,11 +1,17 @@
-"""DownsamplerBlock train path (conv || pool, bias, BN statistics): CUDA
-kernels and plain versions, forward and backward.
+"""DownsamplerBlock train path (conv || pool, bias, with or without BN
+statistics): CUDA kernels and plain versions, forward and backward.
 
 Replaces the TPU kernels ``erfnet_pytorch_tpu/ops/pallas/downsampler.py:
 _down_fwd_kernel_st`` (via ``downsampler_packed_stats``) with its backward
 ``_down_bwd_kernel`` plus the pool VJP that ran in XLA, and, for the stem,
 ``_down_fwd_kernel_staug`` (via ``downsampler_packed_stats_aug``) with
-``_down_bwd_kernel_nodx``.  Kernel source: ``csrc/downsampler_train.cu``.
+``_down_bwd_kernel_nodx``; and the stats-free ``downsampler_packed``
+(``_down_fwd_kernel`` via ``_call_fwd_local`` with the pool lanes of
+``down_pool_packed``, and ``_down_bwd_kernel`` via ``_call_bwd_local`` on
+g = gy): ``downsampler`` here, on the unpacked map, with dx at every
+(Cin, Cc), the 3-channel map's included (the stem mode, an augmenting
+forward without dx, is a flag apart from the channel count).  Kernel
+source: ``csrc/downsampler_train.cu``.
 
 Forward: y = cat[bf16(conv3x3 s2 p1(x) + b), maxpool2x2(x)] (conv channels
 first) and the per-image (B, Cout) f32 sum and sum of squares of y.  The
@@ -17,15 +23,17 @@ except for the stem (the image takes no gradient), dx = bf16(bf16(conv
 input grad) + pool grad) with JAX's tie rule for the pool (each of the W-
 then H-pair maxima splits its cotangent equally among ties).
 
-The kernels take (Cin, Cc) in {(3, 13) stem, (16, 48), (64, 64)} and
-even H, W, and raise on anything else.  Two forms, picked by the compute
-dtype (the maps' dtype; the stem's ``dtype``): bf16 (``erf_down_train_*``)
-and f32 (the ``_f32`` entry points; the JAX package's default compute
-dtype), which rounds nothing to bf16: the stem saves the translated
-image in f32, y, g and dx stay f32.  Every map of one call has one dtype
-(``_build.kernel_form``), or the call raises.  Launches are counted
-apart (``launches[""]``, ``launches["_f32"]``).  Bound on the H100:
-bytes at bf16; at f32 bytes for the stem, operations for the others.
+The kernels take (Cin, Cc) in {(3, 13), (16, 48), (64, 64)} (the stem only
+at (3, 13)) and even H, W, and raise on anything else.  Two forms, picked
+by the compute dtype (the maps' dtype; the stem's ``dtype``): bf16
+(``erf_down_train_*``) and f32 (the ``_f32`` entry points; the JAX
+package's default compute dtype), which rounds nothing to bf16: the stem
+saves the translated image in f32, y, g and dx stay f32.  Every map of one
+call has one dtype (``_build.kernel_form``), or the call raises.  Launches
+are counted apart: ``launches[""]``, ``launches["_f32"]``, and the
+stats-free forms' ``launches["_nostats"]`` and
+``launches["_nostats_f32"]``.  Bound on the H100: bytes at bf16; at f32
+bytes for the stem, operations for the others.
 """
 
 from __future__ import annotations
@@ -37,10 +45,13 @@ from ..augment import apply_shifts
 from . import _build, route
 
 BM = 64          # output pixels per forward tile (csrc Fwd::BM)
-BM_STEM_F32 = 128  # the f32 stem's (csrc Fwd32::BM; the others' is BM)
+BM_STEM_F32 = 128  # the f32 form's at Cin = 3 (csrc Fwd32::BM; else BM)
 CHUNK = 2048     # output pixels per weight-gradient partial (csrc CHUNK)
 FWD_LAUNCHES = 2
 BWD_LAUNCHES = {True: 3, False: 4}   # by stem
+# the stats-free forms: no statistics reduction, no g fold; always dx
+NOSTATS_FWD_LAUNCHES = 1
+NOSTATS_BWD_LAUNCHES = 3
 
 
 def _round16(v):
@@ -79,10 +90,11 @@ def pool_grad_plain(x, gp):
     return dx.reshape(B, H, W, C)
 
 
-def down_fwd_plain(x, w, b, *, shifts=None, dtype=None):
+def down_fwd_plain(x, w, b, *, shifts=None, dtype=None, stats=True):
     """-> (xa, y, s1, s2).  x (B, H, W, Cin) in the compute dtype, or the
     f32 image with ``shifts`` (B, 2) (tx, ty) for the stem (then xa is the
-    translated image in ``dtype``, else x itself); w (3, 3, Cin, Cc)."""
+    translated image in ``dtype``, else x itself); w (3, 3, Cin, Cc);
+    s1, s2 None when not ``stats``."""
     if shifts is not None:
         x = apply_shifts(x, shifts).to(dtype)
     dt = x.dtype
@@ -90,18 +102,25 @@ def down_fwd_plain(x, w, b, *, shifts=None, dtype=None):
                     b.float(), stride=2, padding=1)
     pool = F.max_pool2d(_nchw(x.float()), 2, 2)
     y = torch.cat([_nhwc(conv).to(dt), _nhwc(pool).to(dt)], -1)
+    if not stats:
+        return x, y, None, None
     yf = y.float()
     return x, y, yf.sum((1, 2)), (yf * yf).sum((1, 2))
 
 
 def down_bwd_plain(x, y, gy, gs1, gs2, w, *, stem):
     """-> (dx or None for the stem, dW (3, 3, Cin, Cc) f32, db (Cc,) f32),
-    the TPU backward's arithmetic written out; x is the forward's xa."""
+    the TPU backward's arithmetic written out; x is the forward's xa.
+    gs1 = gs2 = None: the stats-free backward, from g = gy in x's dtype
+    (y not read)."""
     dt = x.dtype
     cin, cc = w.shape[2], w.shape[3]
     bc = (slice(None), None, None, slice(None))
-    g = (gy.float() + gs1.float()[bc]
-         + 2.0 * y.float() * gs2.float()[bc]).to(dt)
+    if gs1 is None:
+        g = gy.to(dt)
+    else:
+        g = (gy.float() + gs1.float()[bc]
+             + 2.0 * y.float() * gs2.float()[bc]).to(dt)
     gc = _nchw(g[..., :cc].float())
     xf = _nchw(x.float())
     dw = torch.nn.grad.conv2d_weight(xf, (cc, cin, 3, 3), gc, stride=2,
@@ -123,7 +142,8 @@ def down_bwd_plain(x, y, gy, gs1, gs2, w, *, stem):
 def _shapes(x, w, stem):
     B, H, W, cin = x.shape
     cc = w.shape[3]
-    ok = ((cin, cc) == (3, 13)) if stem else (cin, cc) in ((16, 48), (64, 64))
+    ok = ((cin, cc) == (3, 13) if stem
+          else (cin, cc) in ((3, 13), (16, 48), (64, 64)))
     if not ok or H % 2 or W % 2 or tuple(w.shape[:3]) != (3, 3, cin):
         raise ValueError(f"train downsampler kernel: unsupported x "
                          f"{tuple(x.shape)}, w {tuple(w.shape)}, stem={stem}")
@@ -131,12 +151,14 @@ def _shapes(x, w, stem):
 
 
 @route.recorded(down_fwd_plain)
-def down_fwd(x, w, b, *, shifts=None, dtype=None):
+def down_fwd(x, w, b, *, shifts=None, dtype=None, stats=True):
     """down_fwd_plain's contract.  CPU tensor: the plain version.  CUDA
     tensor: the kernels' form for the compute dtype (bf16 or f32; the
-    stem's ``dtype``, else x's), or raise."""
+    stem's ``dtype``, else x's), with or without the statistics, or
+    raise."""
     if x.device.type == "cpu":
-        return down_fwd_plain(x, w, b, shifts=shifts, dtype=dtype)
+        return down_fwd_plain(x, w, b, shifts=shifts, dtype=dtype,
+                              stats=stats)
     stem = shifts is not None
     B, H, W, cin, cc = _shapes(x, w, stem)
     dev = x.device
@@ -157,21 +179,30 @@ def down_fwd(x, w, b, *, shifts=None, dtype=None):
     _build.require(bias, "b", torch.float32, dev, (cc,))
     cout = cin + cc
     y = torch.empty(B, H // 2, W // 2, cout, dtype=dt, device=dev)
-    tpi = -(-((H // 2) * (W // 2)) // (BM_STEM_F32 if form and stem else BM))
-    part = torch.empty(B * tpi, 2 * cout, dtype=torch.float32, device=dev)
-    stats = torch.empty(B, 2 * cout, dtype=torch.float32, device=dev)
+    if stats:
+        tpi = -(-((H // 2) * (W // 2))
+                // (BM_STEM_F32 if form and cin == 3 else BM))
+        part = torch.empty(B * tpi, 2 * cout, dtype=torch.float32,
+                           device=dev)
+        sums = torch.empty(B, 2 * cout, dtype=torch.float32, device=dev)
+    else:   # not touched by the stats-free form
+        part = sums = bias
+    key = "" if stats else "_nostats"
     lib = _build.library("downsampler_train")
-    fn = _build.declare(lib, "erf_down_train_fwd" + form, 8, 6)
+    fn = _build.declare(lib, "erf_down_train_fwd" + form, 8, 7)
     err = fn(_build.ptr(x), _build.ptr(shifts if stem else bias),
              _build.ptr(wmat), _build.ptr(bias), _build.ptr(y),
-             _build.ptr(xa), _build.ptr(part), _build.ptr(stats), B, H, W,
-             cin, cc, int(stem), _build.stream_ptr(x))
-    _build.check(lib, err, f"train downsampler{form} forward launch")
-    _build.count(down_fwd, form, n=FWD_LAUNCHES)
-    return xa, y, stats[:, :cout], stats[:, cout:]
+             _build.ptr(xa), _build.ptr(part), _build.ptr(sums), B, H, W,
+             cin, cc, int(stem), int(stats), _build.stream_ptr(x))
+    _build.check(lib, err, f"train downsampler{key}{form} forward launch")
+    _build.count(down_fwd, key + form,
+                 n=FWD_LAUNCHES if stats else NOSTATS_FWD_LAUNCHES)
+    if not stats:
+        return xa, y, None, None
+    return xa, y, sums[:, :cout], sums[:, cout:]
 
 
-down_fwd.launches = _build.counter("", "_f32")
+down_fwd.launches = _build.counter("", "_f32", "_nostats", "_nostats_f32")
 
 
 @route.recorded(down_bwd_plain)
@@ -183,35 +214,42 @@ def down_bwd(x, y, gy, gs1, gs2, w, *, stem):
         return down_bwd_plain(x, y, gy, gs1, gs2, w, stem=stem)
     B, H, W, cin, cc = _shapes(x, w, stem)
     dev, cout = x.device, cin + cc
+    stats = gs1 is not None
+    key = "" if stats else "_nostats"
     gy = gy.contiguous()
-    form = _build.kernel_form(x, "x", (("y", y), ("gy", gy)))
-    gs1, gs2 = gs1.float().contiguous(), gs2.float().contiguous()
-    for name, t in (("y", y), ("gy", gy)):
+    maps = (("y", y), ("gy", gy)) if stats else (("gy", gy),)
+    form = _build.kernel_form(x, "x", maps)
+    for name, t in maps:
         _build.require(t, name, x.dtype, dev, (B, H // 2, W // 2, cout))
-    _build.require(gs1, "gs1", torch.float32, dev, (B, cout))
-    _build.require(gs2, "gs2", torch.float32, dev, (B, cout))
+    if stats:
+        gs1, gs2 = gs1.float().contiguous(), gs2.float().contiguous()
+        _build.require(gs1, "gs1", torch.float32, dev, (B, cout))
+        _build.require(gs2, "gs2", torch.float32, dev, (B, cout))
+    else:   # not read by the stats-free form (g is gy)
+        y = gs1 = gs2 = gy
     # the input gradient's B operand: row (kh * 3 + kw) cc + co, column ci
     wt = w.to(x.dtype).permute(0, 1, 3, 2).reshape(9 * cc, cin)
     wt = wt.contiguous()
-    g = torch.empty_like(y)
+    g = torch.empty_like(gy) if stats else gy
     dx = torch.empty_like(x) if not stem else g
     chunks = -(-(B * (H // 2) * (W // 2)) // CHUNK)
     plen = 9 * cin * cc + cc
     part = torch.empty(chunks, plen, dtype=torch.float32, device=dev)
     grads = torch.empty(plen, dtype=torch.float32, device=dev)
     lib = _build.library("downsampler_train")
-    fn = _build.declare(lib, "erf_down_train_bwd" + form, 10, 6)
+    fn = _build.declare(lib, "erf_down_train_bwd" + form, 10, 7)
     err = fn(_build.ptr(gy), _build.ptr(y), _build.ptr(gs1), _build.ptr(gs2),
              _build.ptr(x), _build.ptr(wt), _build.ptr(g), _build.ptr(dx),
              _build.ptr(part), _build.ptr(grads), B, H, W, cin, cc,
-             int(stem), _build.stream_ptr(x))
-    _build.check(lib, err, f"train downsampler{form} backward launch")
-    _build.count(down_bwd, form, n=BWD_LAUNCHES[stem])
+             int(stem), int(stats), _build.stream_ptr(x))
+    _build.check(lib, err, f"train downsampler{key}{form} backward launch")
+    _build.count(down_bwd, key + form,
+                 n=BWD_LAUNCHES[stem] if stats else NOSTATS_BWD_LAUNCHES)
     dw = grads[:9 * cin * cc].view(3, 3, cin, cc)
     return (None if stem else dx), dw, grads[9 * cin * cc:]
 
 
-down_bwd.launches = _build.counter("", "_f32")
+down_bwd.launches = _build.counter("", "_f32", "_nostats", "_nostats_f32")
 
 
 # ---------------------------------------------------------------------------
@@ -236,18 +274,21 @@ class _DownStem(torch.autograd.Function):
 
 
 class _Down(torch.autograd.Function):
+    """(y, s1, s2) with ``stats``, else y."""
     @staticmethod
-    def forward(ctx, x, w, b):
-        _, y, s1, s2 = route.pick(down_fwd)(x, w, b)
-        ctx.bwd = route.pick(down_bwd)
-        ctx.save_for_backward(x, y, w)
-        return y, s1, s2
+    def forward(ctx, x, w, b, stats):
+        _, y, s1, s2 = route.pick(down_fwd)(x, w, b, stats=stats)
+        ctx.bwd, ctx.stats = route.pick(down_bwd), stats
+        ctx.save_for_backward(x, y if stats else None, w)
+        return (y, s1, s2) if stats else y
 
     @staticmethod
-    def backward(ctx, gy, gs1, gs2):
+    def backward(ctx, gy, gs1=None, gs2=None):
         x, y, w = ctx.saved_tensors
+        if not ctx.stats:
+            gs1 = gs2 = None
         dx, dw, db = ctx.bwd(x, y, gy, gs1, gs2, w, stem=False)
-        return dx, dw, db
+        return dx, dw, db, None
 
 
 def downsampler_stem_stats(x, shifts, w, b, *, dtype):
@@ -259,4 +300,13 @@ def downsampler_stem_stats(x, shifts, w, b, *, dtype):
 
 def downsampler_stats(x, w, b):
     """downsampler_packed_stats: (y, s1, s2); w (3, 3, Cin, Cc) HWIO."""
-    return _Down.apply(x, w, b)
+    return _Down.apply(x, w, b, True)
+
+
+def downsampler(x, w, b):
+    """downsampler_packed (downsampler.py:306, the stats-free block) on the
+    unpacked map: y = cat[conv3x3 s2 p1(x) + b, maxpool2x2(x)] in x's dtype
+    (B, H/2, W/2, Cin + Cc); w (3, 3, Cin, Cc) HWIO, (Cin, Cc) in {(3, 13),
+    (16, 48), (64, 64)}.  Differentiable in x (JAX's pool tie rule), w
+    and b."""
+    return _Down.apply(x, w, b, False)

@@ -2,13 +2,14 @@
 
 Replaces the TPU kernels ``erfnet_pytorch_tpu/ops/pallas/nb1d.py:
 _nb1d_kernel`` (via ``nb1d_infer`` / ``nb1d_infer_packed``) and
-``_nb1d_stack_kernel`` (via ``nb1d_stack_infer``: K blocks in one call,
-here K calls of the block; x is rounded to its dtype between blocks, as
-one block's output is).  Kernel source: ``csrc/nb1d.cu``.  The serving
-path runs it for the dilated C=128 run; the C=64 and C=16 blocks, which
-it also takes, run the halo-tile block (``nb1d_halo.py``, the same
-function, faster at every frame size measured), so here they serve as
-its yardstick.
+``_nb1d_stack_kernel`` (via ``nb1d_stack_infer``, and via
+``nb1d_stack_infer_packed`` on a W-packed C=64/C=16 run: K blocks in one
+call, here K calls of a block, its operands from ``stack_nb1d_params``; x
+is rounded to its dtype between blocks, as one block's output is).  Kernel
+source: ``csrc/nb1d.cu``.  The serving path runs it for the dilated C=128
+run; the C=64 and C=16 blocks, which it also takes, run the halo-tile
+block (``nb1d_halo.py``, the same function, faster at every frame size
+measured), so here they serve as its yardstick.
 
 Form shipped: one launch per block.  The four convs run as four stages of
 one cooperative kernel, a persistent grid with a grid-wide barrier between
@@ -39,7 +40,7 @@ from __future__ import annotations
 import torch
 
 from ..batchnorm import fold_batch_norm
-from . import _build
+from . import _build, route
 
 
 def conv_taps(w_oihw):
@@ -78,6 +79,16 @@ def prepare_nb1d(w, b, dilation, dtype, *, round_bias):
     b = b.to(dtype).float() if round_bias else b.float()  # no-op at f32
     return {"w": w.to(dtype).contiguous(), "b": b.contiguous(),
             "dilation": int(dilation)}
+
+
+def stack_nb1d_params(ps):
+    """The JAX ``stack_nb1d_params(..., dtype)`` of a run of blocks: each
+    block's operands (``prepare_nb1d``) with its biases rounded through
+    the weights' dtype, as the JAX stack casts them.  A no-op at f32 and
+    for the C=128 blocks, whose biases are rounded already; the W-packed
+    C=64/C=16 run's bf16 blocks take rounded biases only as a stack."""
+    return [dict(p, b=p["b"].to(p["w"].dtype).float().contiguous())
+            for p in ps]
 
 
 # kernel launches per block: the four stages run in one launch
@@ -137,6 +148,7 @@ def nb1d_plain(x, p):
 # wrapper
 # ---------------------------------------------------------------------------
 
+@route.recorded(nb1d_plain)
 def nb1d(x, p):
     """x (B, H, W, C) -> same shape.  CPU tensor: the plain version.  CUDA
     tensor: one launch of the block kernel's form for x's dtype (bf16 or

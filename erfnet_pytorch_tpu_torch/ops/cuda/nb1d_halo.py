@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, route
 from .nb1d import nb1d_plain
 
 # output tile (TH, TW) of one CTA by channel count; csrc/nb1d_halo.cu's
@@ -128,6 +128,7 @@ def nb1d_halo_tiled_plain(x, p):
 # wrapper
 # ---------------------------------------------------------------------------
 
+@route.recorded(nb1d_halo_plain)
 def nb1d_halo(x, p):
     """x (B, H, W, C) -> same shape.  CPU tensor: the plain version.  CUDA
     tensor: one launch of the halo-tile kernel (bf16, C in TILES, dilation

@@ -1,30 +1,39 @@
-"""non_bottleneck_1d train conv pair with BN statistics: CUDA kernels and
-plain versions.
+"""non_bottleneck_1d train conv pair, with or without BN statistics: CUDA
+kernels and plain versions.
 
 Replaces the TPU kernels ``erfnet_pytorch_tpu/ops/pallas/nb1d_train.py:
 fused_pair_stats`` (``_fwd_kernel_st`` / ``_bwd_kernel_st``),
 ``fused_pair_affine_stats`` (``_fwd_kernel_affine_st`` /
 ``_bwd_kernel_affine_st``) and ``fused_pair_epi_stats``
-(``_fwd_kernel_epi_st`` / ``_bwd_kernel_epi_st``).  Kernel source:
-``csrc/nb1d_pair.cu`` (its header comment has the function, the rounding
-points and the launch sequence).
+(``_fwd_kernel_epi_st`` / ``_bwd_kernel_epi_st``), which the train step
+runs, and their stats-free twins ``fused_pair`` (``_fwd_kernel`` /
+``_bwd_kernel`` via ``_fwd_call`` / ``_bwd_call``), ``fused_pair_affine``
+and ``fused_pair_epi`` (``pair``, ``pair_affine``, ``pair_epi`` here).
+Kernel source: ``csrc/nb1d_pair.cu`` (its header comment has the
+function, the rounding points and the launch sequence).
 
 A pair is ``z = bf16(conv_w(bf16(relu(conv_h(t0) + bh))) + bw)`` with a
-lead stage ``t0 = lead(x)``: ``none`` (x), ``affine`` (relu(x a + b), the
-block's BN1) or ``epi`` (relu((t a + b) m + y_res), the previous block's
-BN2, dropout mask and residual, whose result ``y_next`` the pair also
-returns).  It returns the per-image sum and sum of squares of z for the
-next BatchNorm.  The backward takes the cotangents of z, of the stats and
+lead stage ``t0 = lead(x)``: ``none`` (x), ``relu`` (relu(x), the JAX
+``lead_relu=True``), ``affine`` (relu(x a + b), the block's BN1) or
+``epi`` (relu((t a + b) m + y_res), the previous block's BN2, dropout mask
+and residual, whose result ``y_next`` the pair also returns).  The
+``_stats`` forms also return the per-image sum and sum of squares of z
+for the next BatchNorm.  The backward takes the cotangents of z, of the
+stats (``_stats`` forms; the stats-free backward starts from g = gz) and
 (epi) of y_next, and returns those of the inputs, the (3, C, C) tap stacks
 [tap, cin, cout] and the biases; the weight gradients are f32 sums over
-the batch in a fixed order.
+the batch in a fixed order.  ``dil`` is the dilation of both convs, or a
+pair (dh, dw): the H conv's and the W conv's (the JAX ``sh`` and ``sw``
+on the unpacked map).
 
 Kernels take C in {16, 64, 128} and raise on anything else.  Two forms,
 picked by the maps' dtype (``_build.kernel_form``; every map of one call
 has one dtype, or the call raises): bf16 (``erf_pair_*``) and f32 (the
 ``_f32`` entry points; the JAX package's default compute dtype), which
 rounds nothing to bf16 (t0, t1, z, g, dz1 and the outputs stay f32).
-Launches are counted apart (``launches[""]``, ``launches["_f32"]``).  The
+Launches are counted apart: ``launches[""]``, ``launches["_f32"]``, and
+the stats-free forms' ``launches["_nostats"]`` and
+``launches["_nostats_f32"]``.  The
 plain versions take f32 or bf16.  On a CPU tensor the ``Function``s run
 the plain versions, on a CUDA tensor the kernels.  Bound on the H100:
 operations at C = 128, bytes at C = 64 and 16 (6 C^2 MACs per pixel
@@ -40,13 +49,22 @@ import torch
 from . import _build, route
 from .nb1d import _shift
 
-MODES = ("none", "affine", "epi")
+MODES = ("none", "affine", "epi", "relu")   # csrc enum Lead
 BM = 64         # pixels per conv tile (csrc/nb1d_pair.cu Cfg::BM)
 BM_F32 = {16: 256, 64: 64, 128: 64}   # the f32 form's, by C (Cfg32::BM)
 CHUNK = 2048    # pixels per weight-gradient partial (csrc CHUNK)
-# kernel launches of one pair call, by lead mode
-FWD_LAUNCHES = {"none": 3, "affine": 4, "epi": 4}
-BWD_LAUNCHES = {"none": 6, "affine": 7, "epi": 7}
+# kernel launches of one pair call, by lead mode; the stats-free forms
+# launch one fewer each way (no statistics reduction, no g fold)
+FWD_LAUNCHES = {"none": 3, "affine": 4, "epi": 4, "relu": 4}
+BWD_LAUNCHES = {"none": 6, "affine": 7, "epi": 7, "relu": 6}
+NOSTATS_FWD_LAUNCHES = {m: n - 1 for m, n in FWD_LAUNCHES.items()}
+NOSTATS_BWD_LAUNCHES = {m: n - 1 for m, n in BWD_LAUNCHES.items()}
+
+
+def dilations(dil):
+    """(dh, dw) of a pair's ``dil``: one int for both convs, or a pair."""
+    dh, dw = dil if isinstance(dil, (tuple, list)) else (dil, dil)
+    return int(dh), int(dw)
 
 
 # ---------------------------------------------------------------------------
@@ -84,11 +102,13 @@ def _wgrad(a, g, axis, dil):
 
 
 def lead_plain(mode, x, yres=None, m=None, a=None, b=None):
-    """t0 in x's dtype: x; relu(x a + b); relu((x a + b) m + yres), every
-    op rounded to x's dtype (a, b, m cast to it first)."""
+    """t0 in x's dtype: x; relu(x); relu(x a + b); relu((x a + b) m +
+    yres), every op rounded to x's dtype (a, b, m cast to it first)."""
     dt = x.dtype
     if mode == "none":
         return x
+    if mode == "relu":
+        return torch.relu(x)
     t = x * a.to(dt) + b.to(dt)
     if mode == "epi":
         t = t * m.to(dt)[:, None, None, :] + yres
@@ -96,13 +116,17 @@ def lead_plain(mode, x, yres=None, m=None, a=None, b=None):
 
 
 def pair_fwd_plain(mode, x, wh, bh, ww, bw, dil, *, yres=None, m=None,
-                   a=None, b=None):
+                   a=None, b=None, stats=True):
     """-> (t0, t1, z, s1, s2): t0 = lead(x) (y_next in epi mode), t1 the
-    inter-conv activation, z, and (B, C) f32 sums of z and z^2."""
+    inter-conv activation, z, and (B, C) f32 sums of z and z^2 (None and
+    None when not ``stats``).  ``dil``: int or (dh, dw)."""
     dt = x.dtype
+    dh, dw = dilations(dil)
     t0 = lead_plain(mode, x, yres, m, a, b)
-    t1 = torch.relu(_conv3(t0, wh.to(dt), 0, dil) + bh.float()).to(dt)
-    z = (_conv3(t1, ww.to(dt), 1, dil) + bw.float()).to(dt)
+    t1 = torch.relu(_conv3(t0, wh.to(dt), 0, dh) + bh.float()).to(dt)
+    z = (_conv3(t1, ww.to(dt), 1, dw) + bw.float()).to(dt)
+    if not stats:
+        return t0, t1, z, None, None
     zf = z.float()
     return t0, t1, z, zf.sum((1, 2)), (zf * zf).sum((1, 2))
 
@@ -110,25 +134,35 @@ def pair_fwd_plain(mode, x, wh, bh, ww, bw, dil, *, yres=None, m=None,
 def pair_bwd_plain(mode, saved, gz, gs1, gs2, gy=None):
     """The TPU backward kernels' arithmetic, written out (autograd of the
     plain forward would round elsewhere).  saved: dict of x, t0, t1, z,
-    wh, ww (in the activation dtype), dil, and a, m (f32) where the mode
-    has them.  Returns dict dwh, dww (3, C, C), dbh, dbw (C,) f32; dx
-    (none, affine) or dt and dy_res (epi) in the activation dtype; da, db
-    (affine, epi) f32."""
-    x, t0, t1, z = saved["x"], saved["t0"], saved["t1"], saved["z"]
-    dil, dt = saved["dil"], x.dtype
+    wh, ww (in the activation dtype), dil (int or (dh, dw)), and a, m
+    (f32) where the mode has them.  gs1 = gs2 = None: the stats-free
+    backward, from g = gz in the activation dtype (z not read).  Returns
+    dict dwh, dww (3, C, C), dbh, dbw (C,) f32; dx (none, relu, affine) or
+    dt and dy_res (epi) in the activation dtype; da, db (affine, epi)
+    f32."""
+    x, t0, t1 = saved["x"], saved["t0"], saved["t1"]
+    dt = x.dtype
+    dh, dw = dilations(saved["dil"])
     bc = (slice(None), None, None, slice(None))
-    g = (gz.float() + gs1.float()[bc]
-         + 2.0 * z.float() * gs2.float()[bc]).to(dt)
+    if gs1 is None:
+        g = gz.to(dt)
+    else:
+        g = (gz.float() + gs1.float()[bc]
+             + 2.0 * saved["z"].float() * gs2.float()[bc]).to(dt)
     out = {"dbw": g.float().sum((0, 1, 2)),
-           "dww": _wgrad(t1, g, 1, dil)}
-    dt1 = _conv3_t(g, saved["ww"], 1, dil)
+           "dww": _wgrad(t1, g, 1, dw)}
+    dt1 = _conv3_t(g, saved["ww"], 1, dw)
     dz1 = torch.where(t1 > 0, dt1, torch.zeros_like(dt1))
     out["dbh"] = dz1.sum((0, 1, 2))
     dz1 = dz1.to(dt)
-    out["dwh"] = _wgrad(t0, dz1, 0, dil)
-    dt0 = _conv3_t(dz1, saved["wh"], 0, dil)
+    out["dwh"] = _wgrad(t0, dz1, 0, dh)
+    dt0 = _conv3_t(dz1, saved["wh"], 0, dh)
     if mode == "none":
         out["dx"] = dt0.to(dt)
+        return out
+    if mode == "relu":   # dt0 where the f32 x is > 0: an exact 0 gets none
+        out["dx"] = torch.where(x.float() > 0, dt0,
+                                torch.zeros_like(dt0)).to(dt)
         return out
     if mode == "epi":
         dt0 = dt0 + gy.float()
@@ -163,13 +197,15 @@ def _tiles_per_image(form, H, W, C):
 
 @route.recorded(pair_fwd_plain)
 def pair_fwd(mode, x, wh, bh, ww, bw, dil, *, yres=None, m=None, a=None,
-             b=None):
+             b=None, stats=True):
     """pair_fwd_plain's contract.  CPU tensor: the plain version.  CUDA
     tensor: the kernels' form for the maps' dtype (bf16 or f32, C in {16,
-    64, 128}), or raise."""
+    64, 128}), with or without the statistics, or raise."""
     if x.device.type == "cpu":
         return pair_fwd_plain(mode, x, wh, bh, ww, bw, dil, yres=yres, m=m,
-                              a=a, b=b)
+                              a=a, b=b, stats=stats)
+    dh, dw = dilations(dil)
+    key = "" if stats else "_nostats"   # the counter key, before the form
     B, H, W, C = x.shape
     dev, dt = x.device, x.dtype
     form = _check_map(x, "x", C, (("y_res", yres),) if mode == "epi" else ())
@@ -182,37 +218,44 @@ def pair_fwd(mode, x, wh, bh, ww, bw, dil, *, yres=None, m=None, a=None,
     if mode == "none":
         t0 = x
     else:
-        af, bf = a.float().contiguous(), b.float().contiguous()
-        _build.require(af, "a", torch.float32, dev, (C,))
-        _build.require(bf, "b", torch.float32, dev, (C,))
+        if mode == "relu":   # the relu lead reads x alone
+            af = bf = mf = bhf
+        else:
+            af, bf = a.float().contiguous(), b.float().contiguous()
+            _build.require(af, "a", torch.float32, dev, (C,))
+            _build.require(bf, "b", torch.float32, dev, (C,))
+            mf = af
         if mode == "epi":
             _build.require(yres, "y_res", dt, dev, x.shape)
             mf = m.float().contiguous()
             _build.require(mf, "m", torch.float32, dev, (B, C))
-        else:
-            mf = af
         t0 = torch.empty_like(x)
         fn = _build.declare(lib, "erf_pair_lead" + form, 6, 5)
         err = fn(_build.ptr(x), _build.ptr(yres if mode == "epi" else x),
                  _build.ptr(mf), _build.ptr(af), _build.ptr(bf),
                  _build.ptr(t0), MODES.index(mode), B, H, W, C, stream)
         _build.check(lib, err, f"nb1d pair{form} lead launch")
-        _build.count(pair_fwd, form)
+        _build.count(pair_fwd, key + form)
     t1, z = torch.empty_like(x), torch.empty_like(x)
-    tpi = _tiles_per_image(form, H, W, C)
-    part = torch.empty(B * tpi, 2 * C, dtype=torch.float32, device=dev)
-    stats = torch.empty(B, 2 * C, dtype=torch.float32, device=dev)
-    fn = _build.declare(lib, "erf_pair_fwd" + form, 9, 5)
+    if stats:
+        tpi = _tiles_per_image(form, H, W, C)
+        part = torch.empty(B * tpi, 2 * C, dtype=torch.float32, device=dev)
+        sums = torch.empty(B, 2 * C, dtype=torch.float32, device=dev)
+    else:   # not read by the stats-free form
+        part = sums = bhf
+    fn = _build.declare(lib, "erf_pair_fwd" + form, 9, 7)
     err = fn(_build.ptr(t0), _build.ptr(whc), _build.ptr(bhf),
              _build.ptr(wwc), _build.ptr(bwf), _build.ptr(t1), _build.ptr(z),
-             _build.ptr(part), _build.ptr(stats), B, H, W, C, int(dil),
-             stream)
-    _build.check(lib, err, f"nb1d pair{form} forward launch")
-    _build.count(pair_fwd, form, n=3)
-    return t0, t1, z, stats[:, :C], stats[:, C:]
+             _build.ptr(part), _build.ptr(sums), B, H, W, C, dh, dw,
+             int(stats), stream)
+    _build.check(lib, err, f"nb1d pair{key}{form} forward launch")
+    _build.count(pair_fwd, key + form, n=3 if stats else 2)
+    if not stats:
+        return t0, t1, z, None, None
+    return t0, t1, z, sums[:, :C], sums[:, C:]
 
 
-pair_fwd.launches = _build.counter("", "_f32")
+pair_fwd.launches = _build.counter("", "_f32", "_nostats", "_nostats_f32")
 
 
 @route.recorded(pair_bwd_plain)
@@ -225,25 +268,34 @@ def pair_bwd(mode, saved, gz, gs1, gs2, gy=None):
         return pair_bwd_plain(mode, saved, gz, gs1, gs2, gy)
     B, H, W, C = x.shape
     dev, dt = x.device, x.dtype
+    dh, dw = dilations(saved["dil"])
+    stats = gs1 is not None
+    key = "" if stats else "_nostats"   # the counter key, before the form
     gz = gz.contiguous()
-    maps = [(k, saved[k]) for k in ("t0", "t1", "z")] + [("gz", gz)]
+    keys = ("t0", "t1", "z") if stats else ("t0", "t1")   # z: the g fold's
+    maps = [(k, saved[k]) for k in keys] + [("gz", gz)]
     if mode == "epi":
         gy = gy.contiguous()
         maps.append(("gy", gy))
     form = _check_map(x, "x", C, maps)
-    gs1 = gs1.float().contiguous()
-    gs2 = gs2.float().contiguous()
     for name, t in maps:
         _build.require(t, name, dt, dev, x.shape)
-    _build.require(gs1, "gs1", torch.float32, dev, (B, C))
-    _build.require(gs2, "gs2", torch.float32, dev, (B, C))
+    if stats:
+        gs1 = gs1.float().contiguous()
+        gs2 = gs2.float().contiguous()
+        _build.require(gs1, "gs1", torch.float32, dev, (B, C))
+        _build.require(gs2, "gs2", torch.float32, dev, (B, C))
+    else:   # not read by the stats-free form (g is gz)
+        gs1 = gs2 = gz
     # the transposed convs: tap k of the flipped stack is w[2 - k]^T
     wht = saved["wh"].to(dt).flip(0).transpose(1, 2).contiguous()
     wwt = saved["ww"].to(dt).flip(0).transpose(1, 2).contiguous()
-    g, dz1, out = (torch.empty_like(x) for _ in range(3))
+    dz1, out = torch.empty_like(x), torch.empty_like(x)
+    g = torch.empty_like(x) if stats else gz
     out2 = torch.empty_like(x) if mode == "epi" else out
-    mask = {"none": x, "affine": saved["t0"], "epi": saved["t0"]}[mode]
-    a = saved["a"].float().contiguous() if mode != "none" else gs1
+    mask = saved["t0"] if mode in ("affine", "epi") else x
+    a = (saved["a"].float().contiguous() if mode in ("affine", "epi")
+         else gs1)
     drop = saved["m"].float().contiguous() if mode == "epi" else gs1
     if mode == "epi":
         _build.require(drop, "m", torch.float32, dev, (B, C))
@@ -255,23 +307,25 @@ def pair_bwd(mode, saved, gz, gs1, gs2, gy=None):
     part_w = torch.empty(chunks, 6, C, C, dtype=torch.float32, device=dev)
     grads = torch.zeros(6 * C * C + 4 * C, dtype=torch.float32, device=dev)
     lib = _build.library("nb1d_pair")
-    fn = _build.declare(lib, "erf_pair_bwd" + form, 20, 6)
-    err = fn(_build.ptr(gz), _build.ptr(saved["z"]), _build.ptr(gs1),
+    fn = _build.declare(lib, "erf_pair_bwd" + form, 20, 8)
+    err = fn(_build.ptr(gz), _build.ptr(saved["z"] if stats else gz),
+             _build.ptr(gs1),
              _build.ptr(gs2), _build.ptr(saved["t0"]),
              _build.ptr(saved["t1"]), _build.ptr(wht), _build.ptr(wwt),
              _build.ptr(x), _build.ptr(mask), _build.ptr(gy),
              _build.ptr(drop), _build.ptr(a), _build.ptr(g), _build.ptr(dz1),
              _build.ptr(out), _build.ptr(out2), _build.ptr(part_b),
              _build.ptr(part_w), _build.ptr(grads), MODES.index(mode), B, H,
-             W, C, int(saved["dil"]), _build.stream_ptr(x))
-    _build.check(lib, err, f"nb1d pair{form} backward launch")
-    _build.count(pair_bwd, form, n=BWD_LAUNCHES[mode])
+             W, C, dh, dw, int(stats), _build.stream_ptr(x))
+    _build.check(lib, err, f"nb1d pair{key}{form} backward launch")
+    _build.count(pair_bwd, key + form,
+                 n=(BWD_LAUNCHES if stats else NOSTATS_BWD_LAUNCHES)[mode])
     cc = C * C
     res = {"dwh": grads[:3 * cc].view(3, C, C),
            "dww": grads[3 * cc:6 * cc].view(3, C, C),
            "dbh": grads[6 * cc:6 * cc + C],
            "dbw": grads[6 * cc + C:6 * cc + 2 * C]}
-    if mode == "none":
+    if mode in ("none", "relu"):
         res["dx"] = out
         return res
     res["da"] = grads[6 * cc + 2 * C:6 * cc + 3 * C]
@@ -283,7 +337,7 @@ def pair_bwd(mode, saved, gz, gs1, gs2, gy=None):
     return res
 
 
-pair_bwd.launches = _build.counter("", "_f32")
+pair_bwd.launches = _build.counter("", "_f32", "_nostats", "_nostats_f32")
 
 
 # ---------------------------------------------------------------------------
@@ -291,9 +345,9 @@ pair_bwd.launches = _build.counter("", "_f32")
 # route.plain_versions()
 # ---------------------------------------------------------------------------
 
-def _save(ctx, mode, x, t0, t1, z, wh, ww, dil, a=None, m=None):
+def _save(ctx, mode, x, t0, t1, z, wh, ww, dil, stats, a=None, m=None):
     dt = x.dtype
-    ctx.mode, ctx.dil = mode, dil
+    ctx.mode, ctx.dil, ctx.stats = mode, dil, stats
     ctx.bwd = route.pick(pair_bwd)
     ctx.save_for_backward(x, t0, t1, z, wh.to(dt), ww.to(dt), a, m)
 
@@ -302,67 +356,101 @@ def _backward(ctx, gz, gs1, gs2, gy=None):
     x, t0, t1, z, wh, ww, a, m = ctx.saved_tensors
     saved = {"x": x, "t0": t0, "t1": t1, "z": z, "wh": wh, "ww": ww,
              "a": a, "m": m, "dil": ctx.dil}
+    if not ctx.stats:
+        gs1 = gs2 = None
     return ctx.bwd(ctx.mode, saved, gz, gs1, gs2, gy)
 
 
 class _Pair(torch.autograd.Function):
+    """mode "none" or "relu"; (z, s1, s2) with ``stats``, else z."""
     @staticmethod
-    def forward(ctx, x, wh, bh, ww, bw, dil):
+    def forward(ctx, x, wh, bh, ww, bw, dil, mode, stats):
         fwd = route.pick(pair_fwd)
-        t0, t1, z, s1, s2 = fwd("none", x, wh, bh, ww, bw, dil)
-        _save(ctx, "none", x, t0, t1, z, wh, ww, dil)
-        return z, s1, s2
+        t0, t1, z, s1, s2 = fwd(mode, x, wh, bh, ww, bw, dil, stats=stats)
+        _save(ctx, mode, x, t0, t1, z, wh, ww, dil, stats)
+        return (z, s1, s2) if stats else z
 
     @staticmethod
-    def backward(ctx, gz, gs1, gs2):
+    def backward(ctx, gz, gs1=None, gs2=None):
         r = _backward(ctx, gz, gs1, gs2)
-        return r["dx"], r["dwh"], r["dbh"], r["dww"], r["dbw"], None
+        return (r["dx"], r["dwh"], r["dbh"], r["dww"], r["dbw"], None, None,
+                None)
 
 
 class _PairAffine(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, a, b, wh, bh, ww, bw, dil):
+    def forward(ctx, x, a, b, wh, bh, ww, bw, dil, stats):
         fwd = route.pick(pair_fwd)
-        t0, t1, z, s1, s2 = fwd("affine", x, wh, bh, ww, bw, dil, a=a, b=b)
-        _save(ctx, "affine", x, t0, t1, z, wh, ww, dil, a=a.float())
-        return z, s1, s2
+        t0, t1, z, s1, s2 = fwd("affine", x, wh, bh, ww, bw, dil, a=a, b=b,
+                                stats=stats)
+        _save(ctx, "affine", x, t0, t1, z, wh, ww, dil, stats, a=a.float())
+        return (z, s1, s2) if stats else z
 
     @staticmethod
-    def backward(ctx, gz, gs1, gs2):
+    def backward(ctx, gz, gs1=None, gs2=None):
         r = _backward(ctx, gz, gs1, gs2)
         return (r["dx"], r["da"], r["db"], r["dwh"], r["dbh"], r["dww"],
-                r["dbw"], None)
+                r["dbw"], None, None)
 
 
 class _PairEpi(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, t, yres, m, a, b, wh, bh, ww, bw, dil):
+    def forward(ctx, t, yres, m, a, b, wh, bh, ww, bw, dil, stats):
         fwd = route.pick(pair_fwd)
         y_next, t1, z, s1, s2 = fwd("epi", t, wh, bh, ww, bw, dil, yres=yres,
-                                    m=m, a=a, b=b)
-        _save(ctx, "epi", t, y_next, t1, z, wh, ww, dil, a=a.float(),
+                                    m=m, a=a, b=b, stats=stats)
+        _save(ctx, "epi", t, y_next, t1, z, wh, ww, dil, stats, a=a.float(),
               m=m.float())
-        return z, y_next, s1, s2
+        return (z, y_next, s1, s2) if stats else (z, y_next)
 
     @staticmethod
-    def backward(ctx, gz, gy, gs1, gs2):
+    def backward(ctx, gz, gy, gs1=None, gs2=None):
         r = _backward(ctx, gz, gs1, gs2, gy)
         return (r["dt"], r["dy_res"], None, r["da"], r["db"], r["dwh"],
-                r["dbh"], r["dww"], r["dbw"], None)
+                r["dbh"], r["dww"], r["dbw"], None, None)
 
 
-def pair_stats(x, wh, bh, ww, bw, *, dil):
-    """fused_pair_stats: (z, s1, s2); x (B, H, W, C), wh/ww (3, C, C)."""
-    return _Pair.apply(x, wh, bh, ww, bw, int(dil))
+def _lead(lead_relu):
+    return "relu" if lead_relu else "none"
+
+
+def pair_stats(x, wh, bh, ww, bw, *, dil, lead_relu=False):
+    """fused_pair_stats: (z, s1, s2); x (B, H, W, C), wh/ww (3, C, C);
+    ``dil`` int or (dh, dw); ``lead_relu``: t0 = relu(x)."""
+    return _Pair.apply(x, wh, bh, ww, bw, dilations(dil), _lead(lead_relu),
+                       True)
 
 
 def pair_affine_stats(x, a, b, wh, bh, ww, bw, *, dil):
     """fused_pair_affine_stats: (z, s1, s2); lead relu(x a + b)."""
-    return _PairAffine.apply(x, a, b, wh, bh, ww, bw, int(dil))
+    return _PairAffine.apply(x, a, b, wh, bh, ww, bw, dilations(dil), True)
 
 
 def pair_epi_stats(t, y_res, m, a, b, wh, bh, ww, bw, *, dil):
     """fused_pair_epi_stats: (z, y_next, s1, s2); lead
     y_next = relu((t a + b) m + y_res), m the (B, C) dropout mask in
     {0, 1/keep} (no gradient)."""
-    return _PairEpi.apply(t, y_res, m, a, b, wh, bh, ww, bw, int(dil))
+    return _PairEpi.apply(t, y_res, m, a, b, wh, bh, ww, bw, dilations(dil),
+                          True)
+
+
+def pair(x, wh, bh, ww, bw, *, dil, lead_relu=False):
+    """fused_pair (nb1d_train.py:578, the stats-free pair): z =
+    conv_w(relu(conv_h(t0) + bh)) + bw in x's dtype, t0 = relu(x) with
+    ``lead_relu``, else x; ``dil`` int or (dh, dw).  Differentiable in x,
+    the tap stacks and the biases."""
+    return _Pair.apply(x, wh, bh, ww, bw, dilations(dil), _lead(lead_relu),
+                       False)
+
+
+def pair_affine(x, a, b, wh, bh, ww, bw, *, dil):
+    """fused_pair_affine (nb1d_train.py:896): z of the lead relu(x a + b)."""
+    return _PairAffine.apply(x, a, b, wh, bh, ww, bw, dilations(dil), False)
+
+
+def pair_epi(t, y_res, m, a, b, wh, bh, ww, bw, *, dil):
+    """fused_pair_epi (nb1d_train.py:872): (z, y_next) of the lead
+    y_next = relu((t a + b) m + y_res), m the (B, C) dropout mask in
+    {0, 1/keep} (no gradient)."""
+    return _PairEpi.apply(t, y_res, m, a, b, wh, bh, ww, bw, dilations(dil),
+                          False)

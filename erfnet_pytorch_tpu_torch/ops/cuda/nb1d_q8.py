@@ -3,10 +3,12 @@ version.
 
 Replaces the TPU kernels ``erfnet_pytorch_tpu/ops/pallas/nb1d_q8.py:
 _nb1d_q8_kernel`` (via ``nb1d_infer_q8`` / ``nb1d_infer_packed_q8``) and
-``_nb1d_q8_stack_kernel`` (via ``nb1d_stack_infer_q8``: K blocks in one
-call with an f32 carry; here K calls of the block, the first taking the
-compute dtype and writing f32, the middle ones f32 to f32, the last f32 to
-the compute dtype).  Kernel source: ``csrc/nb1d_q8.cu``.
+``_nb1d_q8_stack_kernel`` (via ``nb1d_stack_infer_q8``, and via
+``nb1d_stack_infer_packed_q8`` on a W-packed C=64/C=16 run: K blocks in
+one call with an f32 carry; here K calls of the block,
+``inference._nb1d_q8_stack``, the first taking the compute dtype and
+writing f32, the middle ones f32 to f32, the last f32 to the compute
+dtype).  Kernel source: ``csrc/nb1d_q8.cu``.
 
 Scheme, as in the JAX package (post-training quantization, no reference
 counterpart): symmetric per-output-column int8 weights, one scale per
@@ -35,7 +37,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, route
 from .nb1d import _shift
 
 _QMAX = 127.0
@@ -148,6 +150,7 @@ def _entry(lib):
     return fn
 
 
+@route.recorded(nb1d_q8_plain)
 def nb1d_q8(x, p, out_dtype):
     """x (B, H, W, C) -> same shape in ``out_dtype``.  CPU tensor: the
     plain version.  CUDA tensor: one launch of the int8 block kernel (x

@@ -1,5 +1,5 @@
 """Which functions the train path's autograd Functions call, and a record
-of the train kernel wrappers' calls.
+of the kernel wrappers' calls.
 
 By default every Function of ``nb1d_pair``, ``downsampler_train``,
 ``head_loss`` and ``upsampler_train`` calls its kernel wrappers, which
@@ -7,10 +7,11 @@ launch the kernels on a CUDA tensor and run the plain versions on a CPU
 tensor.  Inside
 ``plain_versions()`` the Functions call the plain versions instead, on any
 device: the reference that the kernels are held against on the card.
-Inside ``recording()`` each call of a ``recorded`` wrapper (those, and
-the head+argmax wrappers of the train step's predictions) is kept,
-arguments and result copied, so that every call of a real step can be
-held against its plain version on the same inputs afterwards.
+Inside ``recording()`` each call of a ``recorded`` wrapper (those, the
+head+argmax wrappers of the train step's predictions, and the serving
+NB1d blocks ``nb1d``, ``nb1d_halo`` and ``nb1d_q8``) is kept, arguments
+and result copied, so that every call of a real step or run can be held
+against its plain version on the same inputs afterwards.
 """
 
 from __future__ import annotations

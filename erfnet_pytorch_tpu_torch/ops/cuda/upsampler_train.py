@@ -1,28 +1,33 @@
-"""UpsamplerBlock train conv (ConvTranspose2d k3 s2 p1 op1 + bias, with BN
-statistics): CUDA kernels and plain versions, forward and backward.
+"""UpsamplerBlock train conv (ConvTranspose2d k3 s2 p1 op1 + bias, with or
+without BN statistics): CUDA kernels and plain versions, forward and
+backward.
 
 Replaces the TPU kernels ``erfnet_pytorch_tpu/ops/pallas/upsampler.py:
 upsampler_packed_stats`` (``_ups_fwd_kernel_st`` / ``_ups_bwd_kernel_st``)
-without their W-packing, a TPU lane layout.  Kernel source:
-``csrc/upsampler_train.cu`` (its header comment has the function, the
-rounding points and the launch sequence).
+and the stats-free ``upsampler_packed`` (``_ups_fwd_kernel`` /
+``_ups_bwd_kernel`` via ``_call_fwd_local`` / ``_call_bwd_local``;
+``upsampler`` here), without their W-packing, a TPU lane layout.  Kernel
+source: ``csrc/upsampler_train.cu`` (its header comment has the function,
+the rounding points and the launch sequence).
 
-Forward, as the parity-plane product of ``ops/convt_mm.py``:
-y = bf16([x, x_h+1, x_w+1, x_hw+1] @ Wcat + b), Wcat built from the
-weight's taps rounded to the activation dtype, f32 sums and bias, and the
-per-image (B, Cout) f32 sum and sum of squares of the stored y.  Backward
-from (gy, gs1, gs2): g = bf16(gy + gs1 + 2 y gs2), dx = bf16(the
-transposed product), dW (3, 3, Cin, Cout) forward-conv HWIO in f32 and
-db = sum g in f32.
+Forward, as the parity-plane product of ``ops/convt_mm.py``: y = bf16([x,
+x_h+1, x_w+1, x_hw+1] @ Wcat + b), Wcat built from the weight's taps
+rounded to the activation dtype, f32 sums and bias, and the per-image (B,
+Cout) f32 sum and sum of squares of the stored y (not in the stats-free
+forms).  Backward from (gy, gs1, gs2): g = bf16(gy + gs1 + 2 y gs2) (the
+stats-free forms: g = gy), dx = bf16(the transposed product), dW (3, 3,
+Cin, Cout) forward-conv HWIO in f32 and db = sum g in f32.
 
 The kernels take (Cin, Cout) in {(128, 64), (64, 16)} and raise on
 anything else.  Two forms, picked by the maps' dtype
 (``_build.kernel_form``; every map of one call has one dtype, or the call
 raises): bf16 (``erf_ups_train_*``) and f32 (the ``_f32`` entry points;
 the JAX package's default compute dtype), in which Wcat is built in f32
-and nothing is rounded to bf16.  Launches are counted apart
-(``launches[""]``, ``launches["_f32"]``).  The plain versions take f32 or
-bf16.  Bound on the H100: bytes at bf16, operations at f32.
+and nothing is rounded to bf16.  Launches are counted apart:
+``launches[""]``, ``launches["_f32"]``, and the stats-free forms'
+``launches["_nostats"]`` and ``launches["_nostats_f32"]``.  The plain
+versions take f32 or bf16.  Bound on the H100: bytes at bf16, operations
+at f32.
 """
 
 from __future__ import annotations
@@ -37,6 +42,9 @@ BN = 64          # output columns per tile (csrc BN)
 CHUNK = 1024     # input pixels per weight-gradient partial (csrc CHUNK)
 FWD_LAUNCHES = 2
 BWD_LAUNCHES = 5
+# the stats-free forms: no statistics reduction, no g fold
+NOSTATS_FWD_LAUNCHES = 1
+NOSTATS_BWD_LAUNCHES = 4
 SHAPES = ((128, 64), (64, 16))
 
 
@@ -68,16 +76,18 @@ def _unplanes(y):
             .reshape(B, H2 // 2, W2 // 2, 4 * c))
 
 
-def ups_fwd_plain(x, w, b):
+def ups_fwd_plain(x, w, b, *, stats=True):
     """-> (y, s1, s2).  x (B, H, W, Cin); w (3, 3, Cin, Cout) forward-conv
     HWIO; b (Cout,).  y (B, 2H, 2W, Cout) in x's dtype; s1, s2 (B, Cout)
-    f32 sums of y and y^2 per image."""
+    f32 sums of y and y^2 per image (None when not ``stats``)."""
     dt = x.dtype
     cin, cout = w.shape[2], w.shape[3]
     wcat, _ = build_upsampler_matmul(w.to(dt), b)
     y4 = _xcat(x.float()).reshape(-1, 4 * cin) @ wcat
     y4 = (y4 + b.float().repeat(4)).to(dt)
     y = _planes(y4.reshape(*x.shape[:3], 4 * cout), cout)
+    if not stats:
+        return y, None, None
     yf = y.float()
     return y, yf.sum((1, 2)), (yf * yf).sum((1, 2))
 
@@ -85,13 +95,17 @@ def ups_fwd_plain(x, w, b):
 def ups_bwd_plain(x, y, gy, gs1, gs2, w):
     """-> (dx in x's dtype, dW (3, 3, Cin, Cout) f32, db (Cout,) f32), the
     TPU backward's arithmetic written out (autograd of the plain forward
-    would round elsewhere)."""
+    would round elsewhere).  gs1 = gs2 = None: the stats-free backward,
+    from g = gy in x's dtype (y not read)."""
     dt = x.dtype
     B, H, W, cin = x.shape
     cout = w.shape[3]
     bc = (slice(None), None, None, slice(None))
-    g = (gy.float() + gs1.float()[bc]
-         + 2.0 * y.float() * gs2.float()[bc]).to(dt)
+    if gs1 is None:
+        g = gy.to(dt)
+    else:
+        g = (gy.float() + gs1.float()[bc]
+             + 2.0 * y.float() * gs2.float()[bc]).to(dt)
     g4 = _unplanes(g.float()).reshape(-1, 4 * cout)
     wcat, _ = build_upsampler_matmul(w.to(dt), w.new_zeros(cout))
     d = (g4 @ wcat.t()).reshape(B, H, W, 4, cin)
@@ -136,11 +150,12 @@ def _wcat(w, cin, cout, dtype):
 
 
 @route.recorded(ups_fwd_plain)
-def ups_fwd(x, w, b):
+def ups_fwd(x, w, b, *, stats=True):
     """ups_fwd_plain's contract.  CPU tensor: the plain version.  CUDA
-    tensor: the kernels' form for x's dtype (bf16 or f32), or raise."""
+    tensor: the kernels' form for x's dtype (bf16 or f32), with or without
+    the statistics, or raise."""
     if x.device.type == "cpu":
-        return ups_fwd_plain(x, w, b)
+        return ups_fwd_plain(x, w, b, stats=stats)
     form, B, H, W, cin, cout = _check(x, w)
     dev, dt = x.device, x.dtype
     wcat = _wcat(w, cin, cout, dt).contiguous()
@@ -148,21 +163,28 @@ def ups_fwd(x, w, b):
     _build.require(wcat, "wcat", dt, dev, (4 * cin, 4 * cout))
     _build.require(bias, "b", torch.float32, dev, (cout,))
     y = torch.empty(B, 2 * H, 2 * W, cout, dtype=dt, device=dev)
-    tpi = -(-(H * W) // BM)
-    part = torch.empty(B * tpi * (4 * cout // BN), 2 * cout,
-                       dtype=torch.float32, device=dev)
-    stats = torch.empty(B, 2 * cout, dtype=torch.float32, device=dev)
+    if stats:
+        tpi = -(-(H * W) // BM)
+        part = torch.empty(B * tpi * (4 * cout // BN), 2 * cout,
+                           dtype=torch.float32, device=dev)
+        sums = torch.empty(B, 2 * cout, dtype=torch.float32, device=dev)
+    else:   # not touched by the stats-free form
+        part = sums = bias
+    key = "" if stats else "_nostats"
     lib = _build.library("upsampler_train")
-    fn = _build.declare(lib, "erf_ups_train_fwd" + form, 6, 5)
+    fn = _build.declare(lib, "erf_ups_train_fwd" + form, 6, 6)
     err = fn(_build.ptr(x), _build.ptr(wcat), _build.ptr(bias), _build.ptr(y),
-             _build.ptr(part), _build.ptr(stats), B, H, W, cin, cout,
-             _build.stream_ptr(x))
-    _build.check(lib, err, f"train upsampler{form} forward launch")
-    _build.count(ups_fwd, form, n=FWD_LAUNCHES)
-    return y, stats[:, :cout], stats[:, cout:]
+             _build.ptr(part), _build.ptr(sums), B, H, W, cin, cout,
+             int(stats), _build.stream_ptr(x))
+    _build.check(lib, err, f"train upsampler{key}{form} forward launch")
+    _build.count(ups_fwd, key + form,
+                 n=FWD_LAUNCHES if stats else NOSTATS_FWD_LAUNCHES)
+    if not stats:
+        return y, None, None
+    return y, sums[:, :cout], sums[:, cout:]
 
 
-ups_fwd.launches = _build.counter("", "_f32")
+ups_fwd.launches = _build.counter("", "_f32", "_nostats", "_nostats_f32")
 
 
 @route.recorded(ups_bwd_plain)
@@ -173,18 +195,24 @@ def ups_bwd(x, y, gy, gs1, gs2, w):
     if x.device.type == "cpu":
         return ups_bwd_plain(x, y, gy, gs1, gs2, w)
     gy = gy.contiguous()
-    form, B, H, W, cin, cout = _check(x, w, (("y", y), ("gy", gy)))
+    stats = gs1 is not None
+    key = "" if stats else "_nostats"
+    maps = (("y", y), ("gy", gy)) if stats else (("gy", gy),)
+    form, B, H, W, cin, cout = _check(x, w, maps)
     dev, dt = x.device, x.dtype
-    gs1, gs2 = gs1.float().contiguous(), gs2.float().contiguous()
-    for name, t in (("y", y), ("gy", gy)):
+    for name, t in maps:
         _build.require(t, name, dt, dev, (B, 2 * H, 2 * W, cout))
-    _build.require(gs1, "gs1", torch.float32, dev, (B, cout))
-    _build.require(gs2, "gs2", torch.float32, dev, (B, cout))
+    if stats:
+        gs1, gs2 = gs1.float().contiguous(), gs2.float().contiguous()
+        _build.require(gs1, "gs1", torch.float32, dev, (B, cout))
+        _build.require(gs2, "gs2", torch.float32, dev, (B, cout))
+    else:   # not read by the stats-free form (g is gy)
+        y = gs1 = gs2 = gy
     # the dx product's B operand: row q 4 Cout + plane Cout + c holds
     # Wcat[q Cin:(q + 1) Cin, plane Cout + c]
     wt = (_wcat(w, cin, cout, dt).reshape(4, cin, 4 * cout).transpose(1, 2)
           .reshape(16 * cout, cin).contiguous())
-    g = torch.empty_like(y)
+    g = torch.empty_like(gy) if stats else gy
     dx = torch.empty_like(x)
     chunks = -(-(B * H * W) // CHUNK)
     part_w = torch.empty(chunks, 9, cin, cout, dtype=torch.float32,
@@ -193,18 +221,19 @@ def ups_bwd(x, y, gy, gs1, gs2, w):
     grads = torch.empty(9 * cin * cout + cout, dtype=torch.float32,
                         device=dev)
     lib = _build.library("upsampler_train")
-    fn = _build.declare(lib, "erf_ups_train_bwd" + form, 11, 5)
+    fn = _build.declare(lib, "erf_ups_train_bwd" + form, 11, 6)
     err = fn(_build.ptr(x), _build.ptr(y), _build.ptr(gy), _build.ptr(gs1),
              _build.ptr(gs2), _build.ptr(wt), _build.ptr(g), _build.ptr(dx),
              _build.ptr(part_w), _build.ptr(part_db), _build.ptr(grads), B,
-             H, W, cin, cout, _build.stream_ptr(x))
-    _build.check(lib, err, f"train upsampler{form} backward launch")
-    _build.count(ups_bwd, form, n=BWD_LAUNCHES)
+             H, W, cin, cout, int(stats), _build.stream_ptr(x))
+    _build.check(lib, err, f"train upsampler{key}{form} backward launch")
+    _build.count(ups_bwd, key + form,
+                 n=BWD_LAUNCHES if stats else NOSTATS_BWD_LAUNCHES)
     return (dx, grads[:9 * cin * cout].view(3, 3, cin, cout),
             grads[9 * cin * cout:])
 
 
-ups_bwd.launches = _build.counter("", "_f32")
+ups_bwd.launches = _build.counter("", "_f32", "_nostats", "_nostats_f32")
 
 
 # ---------------------------------------------------------------------------
@@ -213,21 +242,31 @@ ups_bwd.launches = _build.counter("", "_f32")
 # ---------------------------------------------------------------------------
 
 class _Ups(torch.autograd.Function):
+    """(y, s1, s2) with ``stats``, else y."""
     @staticmethod
-    def forward(ctx, x, w, b):
-        y, s1, s2 = route.pick(ups_fwd)(x, w, b)
-        ctx.bwd = route.pick(ups_bwd)
-        ctx.save_for_backward(x, y, w)
-        return y, s1, s2
+    def forward(ctx, x, w, b, stats):
+        y, s1, s2 = route.pick(ups_fwd)(x, w, b, stats=stats)
+        ctx.bwd, ctx.stats = route.pick(ups_bwd), stats
+        ctx.save_for_backward(x, y if stats else None, w)
+        return (y, s1, s2) if stats else y
 
     @staticmethod
-    def backward(ctx, gy, gs1, gs2):
+    def backward(ctx, gy, gs1=None, gs2=None):
         x, y, w = ctx.saved_tensors
-        return ctx.bwd(x, y, gy, gs1, gs2, w)
+        if not ctx.stats:
+            gs1 = gs2 = None
+        return (*ctx.bwd(x, y, gy, gs1, gs2, w), None)
 
 
 def upsampler_stats(x, w, b):
     """upsampler_packed_stats, unpacked: (y, s1, s2) of the UpsamplerBlock
     conv on x (B, H, W, Cin); w the torch ConvTranspose2d weight (Cin,
     Cout, 3, 3), b (Cout,).  Differentiable in x, w and b."""
-    return _Ups.apply(x, convt_to_hwio(w), b)
+    return _Ups.apply(x, convt_to_hwio(w), b, True)
+
+
+def upsampler(x, w, b):
+    """upsampler_packed (upsampler.py:280, the stats-free conv), unpacked:
+    y (B, 2H, 2W, Cout) in x's dtype; w the torch ConvTranspose2d weight
+    (Cin, Cout, 3, 3), b (Cout,).  Differentiable in x, w and b."""
+    return _Ups.apply(x, convt_to_hwio(w), b, False)

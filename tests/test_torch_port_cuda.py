@@ -13,7 +13,11 @@ C=64 and C=16 blocks against its plain version at the 1024x2048,
 600x1200 forward (maps off the whole-map gate) against its plain
 pipeline; the encoder's 1x1 head + argmax against its plain version and
 its refusals, and the eval step of both stages (launch counts, and the
-same step through the plain versions).
+same step through the plain versions); the train kernels' stats-free
+forms (the pair at every lead with (dh, dw) apart, the downsampler with
+dx at Cin = 3, the upsampler) and the relu lead of the stats forms
+against their plain versions, and serving with the packed-run gate on
+(launch counts, agreement with its plain pipeline).
 
 These tests need an NVIDIA GPU with ``nvcc`` (sm_90a) and skip without
 one.  They import nothing of JAX, so on a machine without it run them
@@ -1041,3 +1045,167 @@ def test_f32_train_step_runs_the_f32_forms(dev, sd, enc):
                                         plain=True, hw=hw)
     assert abs(loss1 - lossp) <= 1e-4 * abs(lossp)
     smoke.check_recorded_calls(calls)
+
+
+# ---------------------------------------------------------------------------
+# the stats-free train kernels and the packed runs
+# ---------------------------------------------------------------------------
+
+def _nostats(wrapper, dtype):
+    return wrapper.launches["_nostats" + ("" if dtype == BF else "_f32")]
+
+
+@pytest.mark.parametrize("mode,shape,dil,stats", [
+    ("none", (1, 5, 9, 64), 1, False), ("relu", (2, 7, 11, 64), 1, False),
+    ("affine", (1, 9, 13, 64), 1, False), ("epi", (2, 4, 8, 128), (2, 2),
+                                            False),
+    ("relu", (2, 8, 16, 128), (16, 8), False),
+    ("none", (1, 6, 10, 128), (4, 1), False),
+    ("epi", (1, 8, 16, 128), (16, 8), False),
+    ("relu", (1, 9, 13, 16), 1, False),
+    ("relu", (2, 8, 16, 128), (16, 8), True),
+    ("relu", (1, 5, 9, 64), (2, 1), True)])
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_nb1d_pair_kernels_relu_two_dilations_nostats(dev, mode, shape, dil,
+                                                      stats, dtype):
+    """The stats-free forms (fused_pair and its affine / epi twins) and
+    the relu lead with (dh, dw) apart, also in the stats forms; sh = 16 on
+    H = 8 reads zero fill for every off-centre H tap; x holds exact zeros
+    for the relu lead's mask."""
+    B, H, W, C = shape
+    rel = _rel_for(dtype)
+    x = _rn(*shape, seed=1)
+    x[:, :, :2] = 0.0
+    kw = {"x": x.to(dev, dtype),
+          "wh": _rn(3, C, C, seed=2, scale=(3 * C) ** -0.5).to(dev),
+          "bh": _rn(C, seed=3, scale=0.1).to(dev),
+          "ww": _rn(3, C, C, seed=4, scale=(3 * C) ** -0.5).to(dev),
+          "bw": _rn(C, seed=5, scale=0.1).to(dev), "dil": dil}
+    if mode in ("affine", "epi"):
+        kw["a"] = (1 + _rn(C, seed=6, scale=0.1)).to(dev)
+        kw["b"] = _rn(C, seed=7, scale=0.1).to(dev)
+    if mode == "epi":
+        kw["yres"] = _rn(*shape, seed=8).relu().to(dev, dtype)
+        kw["m"] = torch.where(_rn(B, C, seed=9) > -0.5, 1 / 0.7, 0.0).to(dev)
+    count = _launched if stats else _nostats
+    fwd_n = (nb1d_pair.FWD_LAUNCHES if stats
+             else nb1d_pair.NOSTATS_FWD_LAUNCHES)[mode]
+    bwd_n = (nb1d_pair.BWD_LAUNCHES if stats
+             else nb1d_pair.NOSTATS_BWD_LAUNCHES)[mode]
+    n0 = count(nb1d_pair.pair_fwd, dtype)
+    got = nb1d_pair.pair_fwd(mode, **kw, stats=stats)
+    ref = nb1d_pair.pair_fwd_plain(mode, **kw, stats=stats)
+    torch.cuda.synchronize()
+    assert count(nb1d_pair.pair_fwd, dtype) - n0 == fwd_n
+    for i in (0, 1, 2):
+        _close(got[i], ref[i])
+    if stats:
+        rel(got[3], ref[3])
+        rel(got[4], ref[4])
+    else:
+        assert got[3] is None and got[4] is None
+    t0, t1, z = ref[:3]
+    saved = {"x": kw["x"], "t0": t0, "t1": t1, "z": z,
+             "wh": kw["wh"].to(dtype), "ww": kw["ww"].to(dtype),
+             "a": kw.get("a"), "m": kw.get("m"), "dil": dil}
+    ct = {"gz": _rn(*shape, seed=10).to(dev, dtype),
+          "gs1": _rn(B, C, seed=11, scale=1e-3).to(dev) if stats else None,
+          "gs2": _rn(B, C, seed=12, scale=1e-3).to(dev) if stats else None}
+    if mode == "epi":
+        ct["gy"] = _rn(*shape, seed=13).to(dev, dtype)
+    n0 = count(nb1d_pair.pair_bwd, dtype)
+    got = nb1d_pair.pair_bwd(mode, saved, **ct)
+    ref = nb1d_pair.pair_bwd_plain(mode, saved, **ct)
+    torch.cuda.synchronize()
+    assert count(nb1d_pair.pair_bwd, dtype) - n0 == bwd_n
+    assert set(got) == set(ref)
+    for k, v in ref.items():
+        (_close if k in ("dx", "dt", "dy_res") else rel)(got[k], v)
+    if mode == "relu":
+        assert (got["dx"][:, :, :2] == 0).all()
+
+
+@pytest.mark.parametrize("shape,cc", [
+    ((2, 6, 10, 3), 13), ((2, 10, 6, 16), 48), ((1, 18, 14, 64), 64)])
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_downsampler_train_kernels_nostats(dev, shape, cc, dtype):
+    """downsampler_packed's forms: y without sums, and dx, dW, db from gy
+    alone, dx at Cin = 3 too (a 3-channel map, not the stem)."""
+    B, H, W, cin = shape
+    rel = _rel_for(dtype)
+    x = _rn(*shape, seed=1).relu()
+    x[:, 2:4, 2:4, :] = 0.5                           # a window of ties
+    x = x.to(dev, dtype)
+    w = _rn(3, 3, cin, cc, seed=2, scale=(9 * cin) ** -0.5).to(dev)
+    b = _rn(cc, seed=3, scale=0.1).to(dev)
+    n0 = _nostats(downsampler_train.down_fwd, dtype)
+    got = downsampler_train.down_fwd(x, w, b, stats=False)
+    ref = downsampler_train.down_fwd_plain(x, w, b, stats=False)
+    torch.cuda.synchronize()
+    assert (_nostats(downsampler_train.down_fwd, dtype) - n0
+            == downsampler_train.NOSTATS_FWD_LAUNCHES)
+    assert got[2] is None and got[3] is None
+    _close(got[1], ref[1])
+    gy = _rn(*ref[1].shape, seed=4).to(dev, dtype)
+    n0 = _nostats(downsampler_train.down_bwd, dtype)
+    got = downsampler_train.down_bwd(x, None, gy, None, None, w, stem=False)
+    ref = downsampler_train.down_bwd_plain(x, None, gy, None, None, w,
+                                           stem=False)
+    torch.cuda.synchronize()
+    assert (_nostats(downsampler_train.down_bwd, dtype) - n0
+            == downsampler_train.NOSTATS_BWD_LAUNCHES)
+    _close(got[0], ref[0])
+    rel(got[1], ref[1])
+    rel(got[2], ref[2])
+
+
+@pytest.mark.parametrize("shape,cout", [
+    ((1, 5, 7, 128), 64), ((2, 9, 70, 64), 16)])
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_upsampler_train_kernels_nostats(dev, shape, cout, dtype):
+    B, H, W, cin = shape
+    rel = _rel_for(dtype)
+    x = _rn(*shape, seed=1).relu().to(dev, dtype)
+    w = _rn(3, 3, cin, cout, seed=2, scale=(9 * cin) ** -0.5).to(dev)
+    b = _rn(cout, seed=3, scale=0.1).to(dev)
+    n0 = _nostats(upsampler_train.ups_fwd, dtype)
+    got = upsampler_train.ups_fwd(x, w, b, stats=False)
+    ref = upsampler_train.ups_fwd_plain(x, w, b, stats=False)
+    torch.cuda.synchronize()
+    assert (_nostats(upsampler_train.ups_fwd, dtype) - n0
+            == upsampler_train.NOSTATS_FWD_LAUNCHES)
+    _close(got[0], ref[0])
+    gy = _rn(*ref[0].shape, seed=4).to(dev, dtype)
+    n0 = _nostats(upsampler_train.ups_bwd, dtype)
+    got = upsampler_train.ups_bwd(x, None, gy, None, None, w)
+    ref = upsampler_train.ups_bwd_plain(x, None, gy, None, None, w)
+    torch.cuda.synchronize()
+    assert (_nostats(upsampler_train.ups_bwd, dtype) - n0
+            == upsampler_train.NOSTATS_BWD_LAUNCHES)
+    _close(got[0], ref[0])
+    rel(got[1], ref[1])
+    rel(got[2], ref[2])
+
+
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_packed_stacks_serving_on_the_card(dev, sd, dtype, monkeypatch):
+    """build_fast_infer with the packed-run gate on, 64x128 B=2: the same
+    launch counts as with the gate off (one launch a block), and
+    predictions against the plain pipeline with the gate on (bf16 >= 99.5
+    %, f32 >= 99.9 %, as chip_smoke.py phases 3 and 21)."""
+    from erfnet_pytorch_tpu_torch import inference
+    monkeypatch.setattr(inference, "_PACKED_STACKS", True)
+    x = torch.rand(2, 64, 128, 3, generator=torch.Generator().manual_seed(7))
+    fast = build_fast_infer(sd, dtype=dtype, preds_only=True, device=dev)
+    plain = build_plain_infer(sd, dtype=dtype, preds_only=True, device=dev)
+    kernels.reset_launch_counts()
+    got = fast(x)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    want = ({"downsampler": 3, "nb1d": 8, "nb1d_halo": 9, "upsampler": 2,
+             "head_argmax": 1} if dtype == BF else
+            {"downsampler_f32": 3, "nb1d_f32": 17, "upsampler_f32": 2,
+             "head_argmax_f32": 1})
+    assert counts == want
+    agree = (got == plain(x)).float().mean().item()
+    assert agree >= (0.995 if dtype == BF else 0.999), agree

@@ -96,7 +96,8 @@ def test_cpu_tensors_never_move_a_launch_counter():
     """On CPU tensors every wrapper runs its plain version: a full
     preds_only forward, bf16 and f32, leaves every launch counter at 0.
     The kernels with an f32 form (the serving kernels and every train
-    kernel) count it apart (``<name>_f32``)."""
+    kernel) count it apart (``<name>_f32``), and the train kernels'
+    stats-free forms too (``<name>_nostats``, ``<name>_nostats_f32``)."""
     net = init_weights(Net(20), torch.Generator().manual_seed(0))
     x = torch.rand(1, 32, 64, 3, generator=torch.Generator().manual_seed(1))
     kernels.reset_launch_counts()
@@ -114,7 +115,10 @@ def test_cpu_tensors_never_move_a_launch_counter():
                            "head_argmax_1x1_f32", "pair_fwd_f32",
                            "pair_bwd_f32", "down_fwd_f32", "down_bwd_f32",
                            "head_loss_fwd_f32", "head_loss_bwd_f32",
-                           "ups_fwd_f32", "ups_bwd_f32"}
+                           "ups_fwd_f32", "ups_bwd_f32"} | {
+        f"{w}_nostats{f}" for w in ("pair_fwd", "pair_bwd", "down_fwd",
+                                    "down_bwd", "ups_fwd", "ups_bwd")
+        for f in ("", "_f32")}
     assert set(counts.values()) == {0}
 
 
