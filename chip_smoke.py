@@ -2,6 +2,14 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py            # from the root of a checkout
+    python3 chip_smoke.py --split    # only the build and phase_split
+
+``--split`` builds the kernels and splits the calls of the parity-plane
+rows (the train downsampler backward, rows 5, 5 on g = gy and 8; the
+train upsampler forward, rows 12 and 10) at their B=6 shapes by launch:
+CUDA events, device time by kernel (torch.profiler) and the host's
+enqueue time, then prints the card line; no result line.  Phases 9 and
+28 print the same split for those rows.
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -70,9 +78,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
 9. Train timing and profile: ms/step of both stages through the kernels
    and through the plain versions, each train kernel's forward and
    backward time per step beside its plain version, bound and cuDNN's
-   convolutions, summed by PERF.md row; the device's busy share of a
-   step, its time by kernel, and the host's time and kernel launches by
-   operation.
+   convolutions, summed by PERF.md row (the parity-plane rows 5, 8 and
+   12 also split by launch: device time by kernel, host enqueue time);
+   the device's busy share of a step, its time by kernel, and the host's
+   time and kernel launches by operation.
 
 Phases 10-13 (the int8 serving path) run right after phase 5, and
 phases 14-16 (the 1024x2048 streaming path) right after phase 13:
@@ -252,7 +261,8 @@ phase 19, with TF32 off and the flags restored after:
     of ``scripts/tpu_train_merge_ab.py`` at C=64 and C=16, B=6, then each
     other op once, counts checked and every call held to its plain
     version; each form timed at B=6 beside its plain version, its bound
-    and cuDNN's convolutions.
+    and cuDNN's convolutions (rows 5 on g = gy and 10 also split by
+    launch).
 29. The packed runs: ``build_fast_infer`` with ``inference._PACKED_STACKS``
     on answers 3 requests of B=4 in bf16, f32 and int8, the launches made
     inside the runs counted; agreement with the plain pipeline; each run
@@ -3037,10 +3047,11 @@ def phase_train_timing(sd, device, iters, dtype=None):
 
     acc = {1: ({}, {}), 2: ({}, {})}    # stage -> (by kernel, by row)
 
-    def add(kernel, row, ns, launches, ms, pms, fl, lms):
+    def add(kernel, row, ns, launches, ms, pms, fl, lms, dms=None):
         """Calls per step of one function in stage 1 and stage 2 (ns):
         kernel and plain ms per call, (flops, bytes) per call, cuDNN ms
-        per call or None."""
+        per call or None; the kernel's device ms per call where it was
+        split (``kernel_split``)."""
         b_ms, o_ms = _bound(*fl, rate)
         for stage, n in zip((1, 2), ns):
             if not n:
@@ -3050,6 +3061,8 @@ def phase_train_timing(sd, device, iters, dtype=None):
                                        "byte_ms": 0.0, "op_ms": 0.0,
                                        "bound_ms": 0.0, "library_ms": 0.0,
                                        "launches": 0})
+                if dms is not None:
+                    r["device_ms"] = r.get("device_ms", 0.0) + n * dms
                 r["ms"] += n * ms
                 r["plain_ms"] += n * pms
                 r["byte_ms"] += n * b_ms
@@ -3067,6 +3080,13 @@ def phase_train_timing(sd, device, iters, dtype=None):
         lib = "n/a" if lms is None else f"{lms:.4f}"
         log(f"  {label} {what}: kernel {ms:.4f} ms, plain {pms:.4f}, bound "
             f"{bms:.4f}, cuDNN {lib} ({ms / bms:.1f}x bound)")
+
+    def split(label, fn):
+        """The parity-plane rows (5, 8, 12): events, device time and the
+        per-launch split."""
+        sp = kernel_split(fn, iters)
+        log_split(label, sp)
+        return sp["events"], sp["device"]
 
     ncalls = {}
     for i, cases in enumerate((pair_cases(TRAIN_B), dec_pair_cases(TRAIN_B))):
@@ -3108,19 +3128,22 @@ def phase_train_timing(sd, device, iters, dtype=None):
         lib = _lib_conv(xa, w.permute(3, 2, 0, 1), (2, 2), (1, 1), (1, 1),
                         weight_only=stem)
         for bwd in (False, True):
+            dms = None
             if bwd:
-                ms = tm(lambda: dt.down_bwd(xa, y, gy, gs, gs, w, stem=stem),
-                        iters)
+                row = 8 if stem else 5
+                ms, dms = split(
+                    f"{label} bwd (row {row})",
+                    lambda: dt.down_bwd(xa, y, gy, gs, gs, w, stem=stem))
                 pms = tm(lambda: dt.down_bwd_plain(xa, y, gy, gs, gs, w,
                                                    stem=stem), 2)
-                row, launches = (8 if stem else 5), dt.BWD_LAUNCHES[stem]
+                launches = dt.BWD_LAUNCHES[stem]
             else:
                 ms = tm(lambda: dt.down_fwd(x, w, b, **kw), iters)
                 pms = tm(lambda: dt.down_fwd_plain(x, w, b, **kw), 2)
                 row, launches = (7 if stem else 6), dt.FWD_LAUNCHES
             lms = tm(lib[int(bwd)], iters)
             bms = add("downsampler_train", row, (1, 1), launches, ms, pms,
-                      _flops_bytes_down(shape, cc, stem, bwd, esz), lms)
+                      _flops_bytes_down(shape, cc, stem, bwd, esz), lms, dms)
             line(f"{label:<10}", "bwd" if bwd else "fwd", ms, pms, bms, lms)
     for label, shape, cout in up_train_cases(TRAIN_B):
         x, w, b = ups_inputs(shape, cout, g, device, dtype)
@@ -3131,17 +3154,19 @@ def phase_train_timing(sd, device, iters, dtype=None):
         lib = _lib_conv(x, w.flip(0, 1).permute(2, 3, 0, 1), (2, 2), (1, 1),
                         (1, 1), transposed=True)
         for bwd in (False, True):
+            dms = None
             if bwd:
                 ms = tm(lambda: ut.ups_bwd(x, y, gy, gs, gs, w), iters)
                 pms = tm(lambda: ut.ups_bwd_plain(x, y, gy, gs, gs, w), 2)
                 row, launches = 13, ut.BWD_LAUNCHES
             else:
-                ms = tm(lambda: ut.ups_fwd(x, w, b), iters)
+                ms, dms = split(f"{label} fwd (row 12)",
+                                lambda: ut.ups_fwd(x, w, b))
                 pms = tm(lambda: ut.ups_fwd_plain(x, w, b), 2)
                 row, launches = 12, ut.FWD_LAUNCHES
             lms = tm(lib[int(bwd)], iters)
             bms = add("upsampler_train", row, (0, 1), launches, ms, pms,
-                      _flops_bytes_ups(shape, cout, bwd, esz), lms)
+                      _flops_bytes_ups(shape, cout, bwd, esz), lms, dms)
             line(f"{label:<10}", "bwd" if bwd else "fwd", ms, pms, bms, lms)
     gnum = torch.ones((), device=device)
     for G in (1, 4):
@@ -3177,7 +3202,9 @@ def phase_train_timing(sd, device, iters, dtype=None):
                              key=lambda kv: (int(kv[0].split()[0]), kv[0])):
             lib = ("n/a" if r["library_ms"] is None
                    else f"{r['library_ms']:.4f}")
-            log(f"    row {row}: {r['ms']:.4f} {r['plain_ms']:.4f} "
+            dev = ("" if "device_ms" not in r
+                   else f" (device {r['device_ms']:.4f})")
+            log(f"    row {row}: {r['ms']:.4f}{dev} {r['plain_ms']:.4f} "
                 f"{r['bound_ms']:.4f} ({r['bound_by']}) {lib}; "
                 f"{r['launches']}")
     kernels.reset_launch_counts()
@@ -3280,26 +3307,147 @@ TRAINER_TRAIN, TRAINER_VAL = 60, 24
 TRAINER_DISTINCT = 12
 
 
-def _device_ms(fn, n):
-    """Device time of one call of ``fn``: its CUDA kernels' durations
-    (torch.profiler) summed over n calls, over n."""
+def _device_events(fn, n):
+    """The device activity of n calls of ``fn`` (torch.profiler), after 3
+    calls to warm up.  A session that recorded no device event at all
+    (seen after many earlier sessions in one process, which also drop a
+    session's first events) is run again, twice at most."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(ev.time_range.end - ev.time_range.start for ev in prof.events()
-             if ev.device_type == torch.autograd.DeviceType.CUDA
-             and not getattr(ev, "is_user_annotation", False)
-             and "#" not in ev.name)
-    if not us:
-        raise PhaseError("the profiler recorded no device time")
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        evs = [ev for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(ev, "is_user_annotation", False)
+               and "#" not in ev.name]
+        if evs:
+            return evs
+        log(f"  the profiler recorded no device time (session {attempt + 1})")
+    raise PhaseError("the profiler recorded no device time")
+
+
+def _device_ms(fn, n):
+    """Device time of one call of ``fn``: its CUDA kernels' durations
+    (torch.profiler) summed over n calls, over n."""
+    us = sum(ev.time_range.end - ev.time_range.start
+             for ev in _device_events(fn, n))
     return us / n / 1e3
+
+
+def kernel_split(fn, iters):
+    """One wrapper call's time, split: ``events`` (CUDA events over a loop
+    of ``iters`` calls, per call), ``device`` (its device activity by
+    torch.profiler, per call), ``host`` (the host's enqueue time per call,
+    a loop of ``iters`` calls without a synchronise), ``gap`` (events less
+    device) and ``launches`` {kernel name: [ms, seen]}: a kernel's mean
+    duration times its launches a call (``seen`` per call, rounded; a long
+    run's profiler may drop a few events, so the mean stands for the
+    lost ones), ``seen`` as recorded.  Counters are put back: these are
+    timing launches."""
+    import torch
+    from erfnet_pytorch_tpu_torch.ops import cuda as kernels
+    saved = {f: dict(f.launches) for f in kernels.kernel_wrappers()}
+    events = _time(fn, iters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    split = {}
+    for ev in _device_events(fn, iters):
+        key = (ev.name.replace("void ", "")
+               .replace("(anonymous namespace)::", "").split("(")[0][:60])
+        r = split.setdefault(key, [0.0, 0])   # total ms, launches seen
+        r[0] += (ev.time_range.end - ev.time_range.start) / 1e3
+        r[1] += 1
+    for r in split.values():
+        seen = r[1] / iters
+        r[0] = r[0] / r[1] * max(1, round(seen))
+        r[1] = seen
+    for f, c in saved.items():
+        f.launches.update(c)
+    device = sum(r[0] for r in split.values())
+    return {"events": events, "device": device, "host": host,
+            "gap": events - device, "launches": split}
+
+
+def log_split(label, s):
+    log(f"  {label}: events {s['events']:.4f} ms, device {s['device']:.4f}, "
+        f"host enqueue {s['host']:.4f}, events - device {s['gap']:.4f}")
+    for k, (ms, n) in sorted(s["launches"].items(), key=lambda kv: -kv[1][0]):
+        log(f"      {ms:.4f} ms  x{round(n, 3):g} seen  {k}")
+
+
+def split_calls(device, dtype):
+    """(row, label, call) of the parity-plane rows at their B=6 shapes:
+    the train downsampler backward with statistics (rows 5, 8)
+    and on g = gy (row 5 gy), the train upsampler forward with and
+    without statistics (rows 12, 10)."""
+    import torch
+    from erfnet_pytorch_tpu_torch.ops.cuda import downsampler_train as dt
+    from erfnet_pytorch_tpu_torch.ops.cuda import upsampler_train as ut
+    g = torch.Generator().manual_seed(97)
+    calls = []
+    for label, shape, cc in down_train_cases(TRAIN_B):
+        stem = label == "stem"
+        x, w, b, kw = down_inputs(label, shape, cc, g, device, dtype)
+        xa, y = dt.down_fwd_plain(x, w, b, **kw)[:2]
+        gy = torch.randn(*y.shape, generator=g).to(device).to(dtype)
+        gs = (1e-3 * torch.randn(shape[0], y.shape[-1], generator=g)).to(
+            device)
+        calls.append((8 if stem else 5, label, (
+            lambda xa=xa, y=y, gy=gy, gs=gs, w=w, stem=stem:
+            dt.down_bwd(xa, y, gy, gs, gs, w, stem=stem))))
+    for label, shape, cc in nostats_down_cases(TRAIN_B):
+        x, w, b, _kw = down_inputs(label, shape, cc, g, device, dtype)
+        y = dt.down_fwd_plain(x, w, b, stats=False)[1]
+        gy = torch.randn(*y.shape, generator=g).to(device).to(dtype)
+        calls.append(("5 gy", label, (
+            lambda x=x, gy=gy, w=w:
+            dt.down_bwd(x, None, gy, None, None, w, stem=False))))
+    for label, shape, cout in up_train_cases(TRAIN_B):
+        x, w, b = ups_inputs(shape, cout, g, device, dtype)
+        for stats in (True, False):
+            calls.append((12 if stats else 10, label, (
+                lambda x=x, w=w, b=b, stats=stats:
+                ut.ups_fwd(x, w, b, stats=stats))))
+    return calls
+
+
+def phase_split(device, iters, dtypes=None):
+    """Each call of ``split_calls`` through its wrapper, split by
+    ``kernel_split`` (bf16, and the f32 forms of rows 10 and 12, whose
+    wrappers build the same parity-plane weight); summed by row."""
+    import torch
+    out = {}
+    for dtype in dtypes or (torch.bfloat16, torch.float32):
+        form = "" if dtype == torch.bfloat16 else " f32"
+        log(f"[kernel split{form}] B=6: CUDA events, device time by kernel "
+            "(torch.profiler), host enqueue time per call")
+        with no_tf32() if form else contextlib.nullcontext():
+            for row, label, fn in split_calls(device, dtype):
+                if form and row not in (10, 12):
+                    continue
+                s = kernel_split(fn, iters)
+                log_split(f"row {row}{form} {label}", s)
+                r = out.setdefault(f"{row}{form}", {
+                    "events": 0.0, "device": 0.0, "host": 0.0, "gap": 0.0,
+                    "calls": {}})
+                for k in ("events", "device", "host", "gap"):
+                    r[k] += s[k]
+                r["calls"][label] = s
+    for row, r in out.items():
+        log(f"  row {row}: events {r['events']:.4f} ms, device "
+            f"{r['device']:.4f}, host enqueue {r['host']:.4f}")
+    return out
 
 
 def head1_ties(feats, w, b):
@@ -4155,12 +4303,14 @@ def phase_nostats_timing(device, iters, dtype):
         "CUDA events: kernel, plain, bound, cuDNN ms")
     by_kernel, by_row = {}, {}
 
-    def add(kernel, row, ms, pms, fl, lms):
+    def add(kernel, row, ms, pms, fl, lms, dms=None):
         b_ms, o_ms = _bound(*fl, rate)
         for key, d in ((kernel, by_kernel), (str(row), by_row)):
             r = d.setdefault(key, {"ms": 0.0, "plain_ms": 0.0, "byte_ms": 0.0,
                                    "op_ms": 0.0, "bound_ms": 0.0,
                                    "library_ms": 0.0})
+            if dms is not None:
+                r["device_ms"] = r.get("device_ms", 0.0) + dms
             r["ms"] += ms
             r["plain_ms"] += pms
             r["byte_ms"] += b_ms
@@ -4229,10 +4379,16 @@ def phase_nostats_timing(device, iters, dtype):
             rows = (NOSTATS_ROW[("ups", False)], NOSTATS_ROW[("ups", True)])
         for (kfn, pfn, lfn), fl, row, what in zip(calls, fls, rows,
                                                   ("fwd", "bwd")):
-            ms = tm(kfn, iters)
+            dms = None
+            if row in (5, 10):   # the parity-plane rows: split by launch
+                sp = kernel_split(kfn, iters)
+                log_split(f"{label} {what} (row {row})", sp)
+                ms, dms = sp["events"], sp["device"]
+            else:
+                ms = tm(kfn, iters)
             pms = tm(pfn, 2)
             lms = tm(lfn, iters)
-            figures = add(kernel, row, ms, pms, fl, lms)
+            figures = add(kernel, row, ms, pms, fl, lms, dms)
             log(f"  {label} {what} (row {row}): {figures}")
     for d in (by_kernel, by_row):
         for r in d.values():
@@ -4240,6 +4396,8 @@ def phase_nostats_timing(device, iters, dtype):
                              else "bytes")
     for row, r in sorted(by_row.items(), key=lambda kv: int(kv[0])):
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        if "device_ms" in r:
+            log(f"  row {row}: device {r['device_ms']:.4f} ms")
         log(f"  row {row}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} "
             f"({r['bound_by']}), cuDNN {lib}")
@@ -4547,6 +4705,12 @@ def main():
         card = card_line()
         log(f"torch {torch.__version__} cuda {torch.version.cuda}; {card}")
         build_s = phase_build()
+        if "--split" in sys.argv[1:]:
+            # only the build and the split of the redesigned rows' calls
+            split = phase_split(device, ITERS)
+            log(json.dumps({"split": split}))
+            log(card)
+            return 0
         sd = seeded_state_dict(0)
         errs = phase_parity(sd, device)
         counts, agree = phase_serving(sd, device)

@@ -25,16 +25,34 @@
 // Forward: an implicit GEMM over tiles of 64 output pixels of one image
 // (K = 9 Cin padded to 16, N = Cc padded to 16), the 3x3 windows gathered
 // into shared memory, mma.sync; the pool from the staged window; per-tile
-// stat partials reduced in a fixed order by a second launch.  Input
-// gradient: an implicit GEMM over tiles of 64 input pixels with K = 9 Cc
-// (each tap's output pixel, zero where the stride skips it) and N = Cin.
-// Weight gradient: per (chunk of output pixels, tap) partials with the
-// pixels as the product's depth, reduced in a fixed order.
+// stat partials reduced in a fixed order by a second launch.
+//
+// Input gradient (bf16): the conv's input gradient is the transposed
+// conv's parity-plane product (parity_plane.cuh): g pixel (i, j) gives
+// the 2x2 input block (2i + a, 2j + b) from g at (i, j), (i+1, j),
+// (i, j+1), (i+1, j+1) and nine (Cc x Cin) blocks, each a flipped,
+// transposed tap (the wrapper's wt, the taps as they are: 9 Cin Cc MACs a
+// g pixel where a 3x3 implicit GEMM per input pixel with the stride's
+// zeros does 36).  The tile's g patch is gathered once for all four
+// planes, the weight blocks stream through a cp.async ring, persistent
+// CTAs; the epilogue adds the pool's share from x's 2x2 window and g's
+// pool channels and writes whole output rows, 16 bytes a thread.  The
+// stats fold stays a launch of its own (adjust_grad, into a g scratch):
+// folded into both products' loads it read y beside gy in each, three
+// times in the weight gradient, and cost more than the pass (PERF.md §6).
+//
+// Weight gradient (bf16): per (chunk of ROWS output rows, kh) partials:
+// a block of BP output pixels of one row stages its g tile once and the
+// one input-row segment (2 BP + 1 pixels) its kh needs; the three kw taps
+// are stride-2 views of it, so g is read three times (once per kh), not
+// nine; double-buffered; the partials reduced in a fixed order.
 //
 // Bound on this card: bytes (the products are small next to the maps they
-// read).  This version gathers each input pixel up to four times through
-// L2 and runs the transposed conv over all nine taps although the stride
-// leaves 1, 2 or 4 of them for each input pixel.
+// read).  What is left: the forward's gathers (each input pixel up to four
+// times through L2); the input gradient's epilogue reads x's window once
+// per output pixel, four times in all; the weight gradient's partials (a
+// chunk of 4 rows at 64 -> 64 is 144 CTAs, 1.1 per SM) and its scalar
+// loads of the 3-channel image; wgmma and TMA nowhere.
 //
 // The f32 forms (erf_down_train_*_f32, the JAX package's default compute
 // dtype): the same function with every map in f32 and nothing rounded to
@@ -49,10 +67,11 @@
 // non-stem forward reads its 2x2 window from the map.  The weight
 // gradient is one (Cin x Cc) product per (pixel chunk, tap), the stem's
 // one (27 x 13) product over all taps per chunk (its im2col rows), with
-// the pixels as the product's depth.  The same launches, partial buffers
-// and fixed-order reductions as the bf16 forms.  Bound at f32: bytes for
-// the stem, operations for the others (9 Cin Cc MACs per output pixel
-// against 67 TFLOP/s).
+// the pixels as the product's depth.  The same launches as the bf16 forms;
+// the weight gradient's partials are per (2048-pixel chunk, tap), reduced
+// in a fixed order.  Bound at f32:
+// bytes for the stem, operations for the others (9 Cin Cc MACs per output
+// pixel against 67 TFLOP/s).
 //
 // The stats-free forms (with_stats = 0) replace downsampler_packed
 // (_down_fwd_kernel via _call_fwd_local, with the pool lanes that
@@ -64,7 +83,7 @@
 // flag of its own, apart from the channel count).  At Cin = 3 the input
 // gradient is a direct sum (down_dx_small_kernel): its K of 9 x 13 and
 // N of 3 are too narrow for the tiled products.
-#include "common.cuh"
+#include "parity_plane.cuh"
 
 using namespace erfk;
 
@@ -234,96 +253,95 @@ down_fwd_kernel(const void* __restrict__ x, const int* __restrict__ shifts,
   }
 }
 
-// Input gradient of the conv (K = 9 CC, N = CIN) plus the pool's.
+// Input gradient: the conv's, as the parity-plane product
+// (parity_plane.cuh, FLIP) of g's CC conv channels (the A map, (B, Ho, Wo)
+// at channel stride CIN + CC) and the (3, 3, CC, CIN) transposed tap
+// stack, rounded to bf16, plus the pool's share: for g pixel (i, j), the
+// 2x2 input block (2i + a, 2j + b) is
+//   dx = bf16(bf16(sum_q g[(i, j) + e_q] @ W(q, plane)) + pool share)
 template <int CIN, int CC>
-struct Bwd {
-  static constexpr int BM = 64, THREADS = 128;
-  static constexpr int COUT = CIN + CC;
-  static constexpr int K = 9 * CC, N = CIN;
-  static constexpr int WCOLS = N == 16 ? 1 : 2, WN = N / WCOLS,
-                       WM = BM * WCOLS / (THREADS / 32);
-  static constexpr int LDA = K + 8, LDB = N + 8, LDC = N + 4;
-  static constexpr size_t a_bytes = ((size_t)BM * LDA * 2 + 127) / 128 * 128;
-  static constexpr size_t c_bytes = ((size_t)BM * LDC * 4 + 127) / 128 * 128;
-  static constexpr size_t smem = a_bytes + c_bytes + (size_t)K * LDB * 2;
-  static_assert(CC % 8 == 0 && CIN % 16 == 0, "dx shapes");
+using DxCfg = PPCfg<CC, CIN, CIN == 64 ? 2 : 4, CIN == 64 ? 4 : 9>;
+
+template <class C>
+struct DownDxEpi {
+  static constexpr int CIN = C::N, CC = C::K, COUT = CIN + CC;
+  int tiles, H, W;  // the g map's (Ho, Wo)
+  const bf16* g;    // (B, Ho, Wo, COUT)
+  const bf16* x;    // the forward's input (B, 2 Ho, 2 Wo, CIN)
+  bf16* dx;
+  __device__ float pre(float v, int) const { return v; }
+  // half a: input rows 2 i + a of the tile; a thread: 8 channels of one
+  // input pixel at a time, its pool window's x and g's pool channels read
+  // from the maps
+  __device__ void out(int a, PPTile tl, const bf16* Cs) const {
+    const int H2 = 2 * H, W2 = 2 * W;
+    for (int e = threadIdx.x; e < C::TH * 2 * C::TW * C::VN;
+         e += C::THREADS) {
+      const int pix = e / C::VN, j = e % C::VN;
+      const int r = pix / (2 * C::TW), pc = pix % (2 * C::TW);
+      const int i = tl.i0 + r, jj = tl.j0 + pc / 2, b = pc & 1;
+      if (i >= H || jj >= W) continue;
+      float conv[8], x00[8], x01[8], x10[8], x11[8], gp[8], o[8];
+      unpack_bf16x8(*reinterpret_cast<const uint4*>(Cs + pix * C::LDN + j * 8),
+                    conv);
+      const bf16* win =
+          x + (((long long)tl.b * H2 + 2 * i) * W2 + 2 * jj) * CIN + j * 8;
+      load8(win, x00);
+      load8(win + CIN, x01);
+      load8(win + (long long)W2 * CIN, x10);
+      load8(win + (long long)W2 * CIN + CIN, x11);
+      load8(g + (((long long)tl.b * H + i) * W + jj) * COUT + CC + j * 8, gp);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const float m0v = fmaxf(x00[k], x01[k]);
+        const float m1v = fmaxf(x10[k], x11[k]);
+        const float mp = fmaxf(m0v, m1v), mr = a ? m1v : m0v;
+        const float x0 = a ? x10[k] : x00[k], x1 = a ? x11[k] : x01[k];
+        float share = 0.0f;
+        if (mr == mp) {
+          const float gr = gp[k] / (float)((m0v == mp) + (m1v == mp));
+          if ((b ? x1 : x0) == mr)
+            share = gr / (float)((x0 == mr) + (x1 == mr));
+        }
+        o[k] = conv[k] + share;
+      }
+      *reinterpret_cast<uint4*>(
+          dx + (((long long)tl.b * H2 + 2 * i + a) * W2 + 2 * tl.j0 + pc) *
+                   CIN + j * 8) = pack_bf16x8(o);
+    }
+  }
+  __device__ void end_tile(int) const {}
 };
 
 template <int CIN, int CC>
-__global__ void __launch_bounds__(128)
+__host__ __device__ constexpr int dx_tiles_per_image(int Ho, int Wo) {
+  return ((Ho + DxCfg<CIN, CC>::TH - 1) / DxCfg<CIN, CC>::TH) *
+         ((Wo + 31) / 32);
+}
+
+template <int CIN, int CC>
+__global__ void __launch_bounds__(256, 2)
 down_dx_kernel(const bf16* __restrict__ g, const bf16* __restrict__ x,
                const bf16* __restrict__ wt, bf16* __restrict__ dx, int B,
-               int H, int W) {
-  using G = Bwd<CIN, CC>;
+               int Ho, int Wo) {
+  using C = DxCfg<CIN, CC>;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  float* Cs = reinterpret_cast<float*>(smem + G::a_bytes);
-  bf16* Ws = reinterpret_cast<bf16*>(smem + G::a_bytes + G::c_bytes);
-  const int Ho = H / 2, Wo = W / 2;
-  const long long M = (long long)B * H * W;
-  const long long tiles = (M + G::BM - 1) / G::BM;
-  constexpr int VPT = CC / 8;
-
-  load_matrix(Ws, G::LDB, wt, G::K, G::N);
-  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const long long m0 = tile * G::BM;
-    for (int v = threadIdx.x; v < G::BM * 9 * VPT; v += blockDim.x) {
-      const int r = v / (9 * VPT), tap = (v / VPT) % 9, j = v % VPT;
-      const long long m = m0 + r;
-      const long long b = m / ((long long)H * W);
-      const int rem = (int)(m % ((long long)H * W));
-      const int hh = rem / W + 1 - tap / 3, ww = rem % W + 1 - tap % 3;
-      const bool valid = m < M && hh >= 0 && ww >= 0 && hh % 2 == 0 &&
-                         ww % 2 == 0 && hh / 2 < Ho && ww / 2 < Wo;
-      const long long pix = valid ? (b * Ho + hh / 2) * Wo + ww / 2 : 0;
-      cp_async16(As + r * G::LDA + tap * CC + j * 8,
-                 g + pix * G::COUT + j * 8, valid);
-    }
-    cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();
-
-    block_gemm<G::WM, G::WN, G::LDA, G::N, G::K>(As, Ws, Cs);
-
-    for (int e = threadIdx.x; e < G::BM * CIN; e += blockDim.x) {
-      const int r = e / CIN, ci = e % CIN;
-      const long long m = m0 + r;
-      if (m >= M) break;
-      const long long b = m / ((long long)H * W);
-      const int rem = (int)(m % ((long long)H * W));
-      const int h = rem / W, w = rem % W;
-      const int ho = h / 2, wo = w / 2, pr = h % 2, pc = w % 2;
-      const bf16* win = x + ((b * H + 2 * ho) * W + 2 * wo) * CIN + ci;
-      float xv[2][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int k = 0; k < 2; ++k)
-          xv[i][k] = __bfloat162float(win[((long long)i * W + k) * CIN]);
-      const float m0v = fmaxf(xv[0][0], xv[0][1]);
-      const float m1v = fmaxf(xv[1][0], xv[1][1]);
-      const float mp = fmaxf(m0v, m1v);
-      const float gp = __bfloat162float(
-          g[((b * Ho + ho) * Wo + wo) * G::COUT + CC + ci]);
-      const float mr = pr ? m1v : m0v;
-      float share = 0.0f;
-      if (mr == mp) {
-        const float gr = gp / (float)((m0v == mp) + (m1v == mp));
-        if (xv[pr][pc] == mr)
-          share = gr / (float)((xv[pr][0] == mr) + (xv[pr][1] == mr));
-      }
-      const float conv = __bfloat162float(__float2bfloat16(Cs[r * G::LDC + ci]));
-      dx[m * CIN + ci] = __float2bfloat16(conv + share);
-    }
-    __syncthreads();
-  }
+  DownDxEpi<C> epi;
+  epi.tiles = B * dx_tiles_per_image<CIN, CC>(Ho, Wo);
+  epi.H = Ho;
+  epi.W = Wo;
+  epi.g = g;
+  epi.x = x;
+  epi.dx = dx;
+  const PPSrc src{g, CIN + CC};
+  pp_run<C, true>(smem, src, wt, Ho, Wo, epi);
 }
 
 // Input gradient at Cin = 3 (the stats-free downsampler on a 3-channel
 // map): one thread per input pixel and all its channels; f32 sums over
 // the taps whose output pixel exists (the stride leaves 1, 2 or 4 of the
 // nine) in tap order, rounded to T, plus the pool's share, as in
-// down_dx_kernel.  wt (9 CC, CIN) as the tiled kernels take it.
+// DownDxEpi.  wt (9 CC, CIN) as the tiled kernels take it.
 template <typename T, int CIN, int CC>
 __global__ void __launch_bounds__(256)
 down_dx_small_kernel(const T* __restrict__ g, const T* __restrict__ x,
@@ -380,87 +398,183 @@ down_dx_small_kernel(const T* __restrict__ g, const T* __restrict__ x,
   }
 }
 
-// Weight gradient: blockIdx.y = tap (kh * 3 + kw), blockIdx.x = a chunk of
-// CHUNK output pixels.  part[chunk] = [dW (9, CIN, CC) | db (CC)], db from
-// the tap-0 CTAs.
-constexpr int CHUNK = 2048;
+// Weight gradient: blockIdx.y = kh, blockIdx.x = a chunk of ROWS output
+// rows (row b Ho + ho, flattened over the batch), each row in blocks of
+// BP output pixels.  A block stages its g tile (BP x CC) and the one
+// input-row segment kh needs: slot s of
+// 2 BP + 1 holds input column 2 wo0 - 1 + s of row 2 ho - 1 + kh, even
+// slots in XE, odd ones in XO, so tap kw's operand is a stride-2 view
+// (kw = 0: XE rows [0, BP), 1: XO, 2: XE rows [1, BP]).  The products
+// dW[kh, kw] += view_kw^T G run as ITEMS = 3 (MB / 16) (NP / 16) m16 x n16
+// items: each warp owns IPW items over every 16-pixel step (WARPS_K = 1),
+// or every item over one step of eight (WARPS_K = 8, the warps' sums
+// added in order at the end).  Double-buffered: block j + 1 copies while
+// block j multiplies.  part[chunk] = [dW (9, CIN, CC) | db (CC)]: each
+// (chunk, kh) CTA writes taps kh * 3 + kw, the kh = 0 CTAs also db.
+constexpr int CHUNK = 2048;  // f32 forms: output pixels per partial
 
 template <int CIN, int CC>
-struct WgShape {
-  static constexpr int MB = round16(CIN), NP = round16(CC);
-  static constexpr int WM = 16, WN = MB == 64 ? 32 : NP;
-  using Q = WgCfg<MB, NP, WM, WN>;
+struct Wg {
+  static constexpr int COUT = CIN + CC, MB = round16(CIN), NP = round16(CC);
+  static constexpr int MT16 = MB / 16, NT16 = NP / 16;
+  static constexpr int ITEMS = 3 * MT16 * NT16;
+  static constexpr int WARPS_K = ITEMS % 8 == 0 ? 1 : 8;
+  static constexpr int IPW = ITEMS / (8 / WARPS_K);
+  static constexpr int BP = WARPS_K == 1 ? 64 : 128;
+  static constexpr int ROWS = CIN == 3 ? 2 : 4;  // output rows per chunk
+  static constexpr int LDA = MB + 8, LDG = NP + 8, VG = (CC + 7) / 8;
+  static constexpr size_t xe_bytes = pp_align((size_t)(BP + 1) * LDA * 2);
+  static constexpr size_t xo_bytes = pp_align((size_t)BP * LDA * 2);
+  static constexpr size_t g_bytes = pp_align((size_t)BP * LDG * 2);
+  static constexpr size_t stage_bytes = xe_bytes + xo_bytes + g_bytes;
+  static constexpr size_t main_bytes = 2 * stage_bytes;
+  static constexpr size_t red_bytes =
+      WARPS_K > 1 ? (size_t)WARPS_K * ITEMS * 256 * 4 : 0;
+  static constexpr size_t smem =
+      main_bytes > red_bytes ? main_bytes : red_bytes;
   static constexpr int PLEN = 9 * CIN * CC + CC;
+  static_assert(ITEMS % (8 / WARPS_K) == 0 && BP % (16 * WARPS_K) == 0 &&
+                    VG * 8 <= COUT,
+                "wgrad items");
 };
 
 template <int CIN, int CC>
 __global__ void __launch_bounds__(256)
 down_wgrad_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
                   float* __restrict__ part, int B, int Ho, int Wo) {
-  using S = WgShape<CIN, CC>;
-  using Q = typename S::Q;
-  constexpr int COUT = CIN + CC;
+  using G = Wg<CIN, CC>;
+  constexpr int COUT = G::COUT, BP = G::BP, LDA = G::LDA, LDG = G::LDG;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Gs = reinterpret_cast<bf16*>(smem + Q::a_bytes);
-  const int tap = blockIdx.y, kh = tap / 3, kw = tap % 3;
-  const int H = 2 * Ho, W = 2 * Wo;
-  const long long P = (long long)B * Ho * Wo;
-  const long long p_begin = (long long)blockIdx.x * CHUNK;
-  const long long p_stop = p_begin + CHUNK < P ? p_begin + CHUNK : P;
-  float dbs = 0.0f;
-
-  float acc[Q::MT][Q::NT][4];
-#pragma unroll
-  for (int m = 0; m < Q::MT; ++m)
-#pragma unroll
-    for (int n = 0; n < Q::NT; ++n)
-      acc[m][n][0] = acc[m][n][1] = acc[m][n][2] = acc[m][n][3] = 0.0f;
-
-  for (long long p0 = p_begin; p0 < p_stop; p0 += Q::BP) {
-    // A: the tap's input pixel of each output pixel; G: its conv gradient
-    for (int e = threadIdx.x; e < Q::BP * S::MB; e += blockDim.x) {
-      const int r = e / S::MB, k = e % S::MB;
-      if (CIN % 8 == 0 && k % 8) continue;
-      const long long p = p0 + r;
-      const long long b = p / ((long long)Ho * Wo);
-      const int rem = (int)(p % ((long long)Ho * Wo));
-      const int hi = 2 * (rem / Wo) - 1 + kh, wi = 2 * (rem % Wo) - 1 + kw;
-      const bool valid = p < p_stop && k < CIN && hi >= 0 && hi < H &&
-                         wi >= 0 && wi < W;
-      const long long src = ((b * H + hi) * W + wi) * CIN + k;
+  const int kh = blockIdx.y, H = 2 * Ho, W = 2 * Wo;
+  const int row0 = blockIdx.x * G::ROWS;
+  const int rows = B * Ho - row0 < G::ROWS ? B * Ho - row0 : G::ROWS;
+  const int bpr = (Wo + BP - 1) / BP, nb = rows * bpr;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  auto xe_of = [&](int j) {
+    return reinterpret_cast<bf16*>(smem + (j & 1) * G::stage_bytes);
+  };
+  auto xo_of = [&](int j) { return xe_of(j) + G::xe_bytes / 2; };
+  auto g_of = [&](int j) { return xo_of(j) + G::xo_bytes / 2; };
+  // start staging block j (rows of the chunk, then blocks of a row)
+  auto issue = [&](int j) {
+    if (j < nb) {
+      const int row = row0 + j / bpr, wo0 = (j % bpr) * BP;
+      const int hi = 2 * (row % Ho) - 1 + kh;
+      const bool hv = hi >= 0 && hi < H;
+      const bf16* xrow = x + ((long long)(row / Ho) * H + (hv ? hi : 0)) *
+                                 W * CIN;
+      bf16* xe = xe_of(j);
+      bf16* xo = xo_of(j);
       if constexpr (CIN % 8 == 0) {
-        cp_async16(As + r * Q::LDA + k, x + (valid ? src : 0), valid);
-      } else {
-        As[r * Q::LDA + k] = valid ? x[src] : __float2bfloat16(0.0f);
+        constexpr int V = CIN / 8;
+        for (int v = threadIdx.x; v < (2 * BP + 1) * V; v += 256) {
+          const int sl = v / V, e = v % V, wi = 2 * wo0 - 1 + sl;
+          const bool ok = hv && wi >= 0 && wi < W;
+          cp_async16((sl & 1 ? xo : xe) + (sl >> 1) * LDA + e * 8,
+                     xrow + (ok ? (long long)wi * CIN + e * 8 : 0), ok);
+        }
+      } else {  // the segment is (2 BP + 1) CIN contiguous values
+        for (int v = threadIdx.x; v < (2 * BP + 1) * CIN; v += 256) {
+          const int sl = v / CIN, c = v % CIN, wi = 2 * wo0 - 1 + sl;
+          const bool ok = hv && wi >= 0 && wi < W;
+          (sl & 1 ? xo : xe)[(sl >> 1) * LDA + c] =
+              ok ? xrow[(long long)wi * CIN + c] : __float2bfloat16(0.0f);
+        }
       }
-    }
-    for (int e = threadIdx.x; e < Q::BP * S::NP; e += blockDim.x) {
-      const int r = e / S::NP, k = e % S::NP;
-      if (CC % 8 == 0 && k % 8) continue;
-      const long long p = p0 + r;
-      const bool valid = p < p_stop && k < CC;
-      if constexpr (CC % 8 == 0) {
-        cp_async16(Gs + r * Q::LDG + k, g + (valid ? p * COUT + k : 0), valid);
-      } else {
-        Gs[r * Q::LDG + k] = valid ? g[p * COUT + k] : __float2bfloat16(0.0f);
+      const long long g0 = ((long long)row * Wo + wo0) * COUT;
+      for (int v = threadIdx.x; v < BP * G::VG; v += 256) {
+        const int r = v / G::VG, e = v % G::VG;
+        const bool ok = wo0 + r < Wo;
+        const long long src = ok ? g0 + (long long)r * COUT + e * 8 : 0;
+        cp_async16(g_of(j) + r * LDG + e * 8, g + src, ok);
       }
     }
     cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();
-    if (tap == 0 && threadIdx.x < CC)
-      for (int r = 0; r < Q::BP; ++r)
-        dbs += __bfloat162float(Gs[r * Q::LDG + threadIdx.x]);
-    wgrad_step<S::MB, S::NP, S::WM, S::WN>(As, Gs, acc);
-    __syncthreads();
-  }
-  float* dst = part + (long long)blockIdx.x * S::PLEN;
-  if (tap == 0 && threadIdx.x < CC) dst[9 * CIN * CC + threadIdx.x] = dbs;
-  wgrad_store<S::MB, S::NP, S::WM, S::WN>(
-      acc, reinterpret_cast<float*>(smem), dst + tap * CIN * CC, CIN, CC);
-}
+  };
 
+  float acc[G::IPW][2][4];
+#pragma unroll
+  for (int i = 0; i < G::IPW; ++i)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+      acc[i][n][0] = acc[i][n][1] = acc[i][n][2] = acc[i][n][3] = 0.0f;
+  float dbs = 0.0f;  // thread t < CC: channel t, kh = 0 only
+  issue(0);
+  for (int j = 0; j < nb; ++j) {
+    issue(j + 1);
+    cp_async_wait_group<1>();
+    __syncthreads();
+    // G: the block's g rows (channels past CC and rows past the map's
+    // width are dropped or zero)
+    const bf16* gs = g_of(j);
+    if (kh == 0 && threadIdx.x < CC)
+      for (int r = 0; r < BP; ++r)
+        dbs += __bfloat162float(gs[r * LDG + threadIdx.x]);
+    const bf16* xe = xe_of(j);
+    const bf16* xo = xo_of(j);
+#pragma unroll
+    for (int ks = 0; ks < BP / 16; ++ks) {
+      if (G::WARPS_K > 1 && ks % G::WARPS_K != warp) continue;
+#pragma unroll
+      for (int i = 0; i < G::IPW; ++i) {
+        const int it = (G::WARPS_K == 1 ? warp * G::IPW : 0) + i;
+        const int kw = it / (G::MT16 * G::NT16);
+        const int mt = (it / G::NT16) % G::MT16, nt = it % G::NT16;
+        const bf16* view = (kw == 1 ? xo : xe) + (kw == 2 ? LDA : 0);
+        unsigned a[4], bq[4];
+        ldsm_x4_trans(a, view + (ks * 16 + lane % 8 + (lane / 16) * 8) * LDA +
+                             mt * 16 + ((lane / 8) % 2) * 8);
+        ldsm_x4_trans(bq, gs + (ks * 16 + lane % 16) * LDG + nt * 16 +
+                               (lane / 16) * 8);
+        mma_bf16_16816(acc[i][0], a, bq[0], bq[1]);
+        mma_bf16_16816(acc[i][1], a, bq[2], bq[3]);
+      }
+    }
+    __syncthreads();  // the stage is consumed before block j + 2 refills it
+  }
+  cp_async_wait_all();
+  float* dst = part + (long long)blockIdx.x * G::PLEN;
+  if (kh == 0 && threadIdx.x < CC) dst[9 * CIN * CC + threadIdx.x] = dbs;
+  // thread (g8, t4) of an m16 x n8 tile: rows g8, g8 + 8, columns 2 t4, + 1
+  const int g8 = lane / 4, t4 = lane % 4;
+  auto put = [&](int it, int loc, float v) {  // loc: row * 16 + col
+    const int kw = it / (G::MT16 * G::NT16);
+    const int ci = ((it / G::NT16) % G::MT16) * 16 + loc / 16;
+    const int co = (it % G::NT16) * 16 + loc % 16;
+    if (ci < CIN && co < CC)
+      dst[(kh * 3 + kw) * CIN * CC + ci * CC + co] = v;
+  };
+  if constexpr (G::WARPS_K == 1) {
+#pragma unroll
+    for (int i = 0; i < G::IPW; ++i)
+#pragma unroll
+      for (int n8 = 0; n8 < 2; ++n8)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            put(warp * G::IPW + i, (g8 + 8 * h) * 16 + n8 * 8 + 2 * t4 + c,
+                acc[i][n8][2 * h + c]);
+  } else {
+    float* red = reinterpret_cast<float*>(smem);  // the stages are dead
+#pragma unroll
+    for (int i = 0; i < G::IPW; ++i)
+#pragma unroll
+      for (int n8 = 0; n8 < 2; ++n8)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            red[(warp * G::ITEMS + i) * 256 + (g8 + 8 * h) * 16 + n8 * 8 +
+                2 * t4 + c] = acc[i][n8][2 * h + c];
+    __syncthreads();
+    for (int e = threadIdx.x; e < G::ITEMS * 256; e += 256) {
+      float v = 0.0f;
+      for (int w = 0; w < G::WARPS_K; ++w) v += red[w * G::ITEMS * 256 + e];
+      put(e / 256, e % 256, v);
+    }
+  }
+}
 
 // ---------------------------------------------------------------------------
 // f32 forms
@@ -891,7 +1005,9 @@ cudaError_t dx_small(const void* g, const void* x, const void* wt, void* dx,
   return cudaGetLastError();
 }
 
-// stats: from the stats fold g = bf16(gy + gs1 + 2 y gs2), else from gy
+// stats: from the stats fold g = bf16(gy + gs1 + 2 y gs2), else from gy.
+// Launches: the fold (stats), the input gradient (DX), the weight
+// gradient, the reduction of its partials.
 template <int CIN, int CC, bool DX>
 int bwd(int stats, const void* gy, const void* y, const void* gs1,
         const void* gs2, const void* x, const void* wt, void* g, void* dx,
@@ -908,33 +1024,31 @@ int bwd(int stats, const void* gy, const void* y, const void* gs1,
         cudaSuccess)
       return e;
   } else if constexpr (DX) {
-    using G = Bwd<CIN, CC>;
+    using C = DxCfg<CIN, CC>;
     static bool ok = false;
     static int gm = 0;
-    if ((e = grid_for(down_dx_kernel<CIN, CC>, G::THREADS, G::smem, &ok,
+    if ((e = grid_for(down_dx_kernel<CIN, CC>, C::THREADS, C::smem, &ok,
                       &gm)) != cudaSuccess)
       return e;
-    const long long tiles = ((long long)B * H * W + G::BM - 1) / G::BM;
-    down_dx_kernel<CIN, CC>
-        <<<(unsigned)(tiles < gm ? tiles : gm), G::THREADS, G::smem, s>>>(
-            static_cast<const bf16*>(gg), static_cast<const bf16*>(x),
-            static_cast<const bf16*>(wt), static_cast<bf16*>(dx), B, H, W);
+    const int tiles = B * dx_tiles_per_image<CIN, CC>(Ho, Wo);
+    down_dx_kernel<CIN, CC><<<tiles < gm ? tiles : gm, C::THREADS, C::smem,
+                              s>>>(
+        static_cast<const bf16*>(gg), static_cast<const bf16*>(x),
+        static_cast<const bf16*>(wt), static_cast<bf16*>(dx), B, Ho, Wo);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
   }
-  using S = WgShape<CIN, CC>;
-  using Q = typename S::Q;
+  using G = Wg<CIN, CC>;
   static bool wg_ok = false;
-  if ((e = allow_smem(down_wgrad_kernel<CIN, CC>, Q::smem, &wg_ok)) !=
+  if ((e = allow_smem(down_wgrad_kernel<CIN, CC>, G::smem, &wg_ok)) !=
       cudaSuccess)
     return e;
-  const long long P = (long long)B * Ho * Wo;
-  const int chunks = (int)((P + CHUNK - 1) / CHUNK);
-  down_wgrad_kernel<CIN, CC><<<dim3(chunks, 9), Q::THREADS, Q::smem, s>>>(
+  const int chunks = (B * Ho + G::ROWS - 1) / G::ROWS;
+  down_wgrad_kernel<CIN, CC><<<dim3(chunks, 3), 256, G::smem, s>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(gg),
       static_cast<float*>(part), B, Ho, Wo);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   return reduce_parts(static_cast<const float*>(part),
-                      static_cast<float*>(grads), 1, chunks, S::PLEN, s);
+                      static_cast<float*>(grads), 1, chunks, G::PLEN, s);
 }
 
 template <int CIN, int CC, bool STEM, bool S>
@@ -1057,11 +1171,12 @@ extern "C" int erf_down_train_fwd(const void* x, const void* shifts,
 
 // gy, y: (B, H/2, W/2, cin + cc) bf16; gs1, gs2: (B, cin + cc) f32; x:
 // the forward's bf16 input (the translated image in the stem mode); wt:
-// (9 cc, cin) bf16, row (kh * 3 + kw) cc + co, column ci (not read in the
-// stem mode); g: (B, H/2, W/2, cin + cc) bf16 scratch (with_stats 0: gy is
-// g, and y, gs1, gs2 and g are not read); dx: (B, H, W, cin) bf16 (not
-// written in the stem mode); part: (ceil(B H W / 8192), 9 cin cc + cc)
-// f32 scratch; grads: (9 cin cc + cc) f32 = [dW in HWIO order, db].
+// (3, 3, cc, cin) bf16, the transposed taps: row (kh * 3 + kw) cc + co,
+// column ci (not read in the stem mode); g: (B, H/2, W/2, cin + cc) bf16
+// scratch (with_stats 0: gy is g, and y, gs1, gs2 and g are not read); dx:
+// (B, H, W, cin) bf16 (not written in the stem mode); part: (ceil(B H/2 /
+// rows), 9 cin cc + cc) f32 scratch, rows = 2 output rows at cin = 3, else
+// 4; grads: (9 cin cc + cc) f32 = [dW in HWIO order, db].
 extern "C" int erf_down_train_bwd(const void* gy, const void* y,
                                   const void* gs1, const void* gs2,
                                   const void* x, const void* wt, void* g,
@@ -1101,7 +1216,8 @@ extern "C" int erf_down_train_fwd_f32(const void* x, const void* shifts,
 #undef ARGS
 }
 
-// The f32 backward: gy, y, x, wt (9 cc, cin), g, dx in f32.
+// The f32 backward: gy, y, x, wt (9 cc, cin), g, dx in f32; part:
+// (ceil(B H/2 W/2 / 2048), 9 cin cc + cc) f32 scratch.
 extern "C" int erf_down_train_bwd_f32(const void* gy, const void* y,
                                       const void* gs1, const void* gs2,
                                       const void* x, const void* wt, void* g,

@@ -29,25 +29,34 @@
 // Wcat, per-chunk partials; the four blocks of offset (0, 0) also sum
 // db), and two fixed-order reductions.
 //
-// Both products are tiled GEMMs over 64 input pixels of one image by 64
-// output columns: the K extent (4 Cin forward, 16 Cout for dx) is staged
-// 64 at a time, A gathered from the four neighbours with cp.async and
-// zero fill, B copied from the bf16 weight matrix, double-buffered, and
-// multiplied by four warps with ldmatrix + mma.sync m16n8k16 into f32
-// registers.  The forward skips the K chunks whose weight block is zero
-// for every column of its tile; dx multiplies through them.
+// Forward (bf16): the parity-plane product of parity_plane.cuh, which
+// reads the nine non-zero blocks straight from the (3, 3, Cin, Cout) tap
+// stack (no Wcat is built): per tile of 4 x 32 input pixels the A patch
+// with its halo is gathered once
+// for all four planes, the weight blocks stream through a cp.async ring,
+// persistent CTAs, whole output rows 16 bytes a thread; the statistic
+// partials per tile, over a warp's lanes by a fixed xor tree, then over
+// the warps in order.
+//
+// dx: a tiled GEMM over 64 input pixels of one image by 64 output
+// columns: the K extent (16 Cout) is staged 64 at a time, A gathered from
+// the four neighbours with cp.async and zero fill, B copied from the bf16
+// weight matrix, double-buffered, and multiplied by four warps with
+// ldmatrix + mma.sync m16n8k16 into f32 registers, through the zero
+// blocks too.
 //
 // Bound on this card: bytes (9 Cin Cout MACs per input pixel forward
 // against 2 Cin + 8 Cout bytes read and written: 72 operations per byte
-// at 64 -> 16 and 192 at 128 -> 64, under the card's 295).  Every output
-// column tile gathers its A tile anew and reads its B tiles from L2;
-// keeping A on chip across the four planes and the weights resident are
-// the next steps.
+// at 64 -> 16 and 192 at 128 -> 64, under the card's 295).  What is left
+// in the forward: each tile reads its 9 Cin Cout weights from L2 (1.2 KB
+// a pixel at 128 -> 64), one CTA an SM there (165 KB of shared memory),
+// mma.sync and not wgmma.  The backward is as it was: dx is the
+// downsampler forward's product (a stride-2 conv of g), next to port.
 //
 // The f32 forms (erf_ups_train_*_f32, the JAX package's default compute
 // dtype): the same launches and the same function with x, y, g, dx and
-// Wcat in f32 and nothing rounded to bf16 (Wcat's taps unrounded).  The
-// two products are the same tiled GEMMs (64 pixels x 64 columns, K staged
+// Wcat in f32 and nothing rounded to bf16 (Wcat's taps unrounded).  Both
+// products are tiled GEMMs as dx's above (64 pixels x 64 columns, K staged
 // 64 at a time, the forward skipping zero weight blocks) on the CUDA
 // cores (FFMA micro-tiles of 4 pixels x 8 columns a thread, common.cuh
 // ffma_tile; no TF32): the forward's K in one FFMA chain per output (as
@@ -64,7 +73,7 @@
 // _call_bwd_local): the forward's epilogue writes y without the
 // statistic partials and their reduction is skipped; the backward starts
 // from g = gy (no g fold, y not read).
-#include "common.cuh"
+#include "parity_plane.cuh"
 
 using namespace erfk;
 
@@ -79,7 +88,6 @@ constexpr size_t STAGE = (A_BYTES + B_BYTES + 127) / 128 * 128;
 constexpr size_t SMEM = 2 * STAGE;
 constexpr int RSTEP = THREADS / (BN / 8), PER = BM / RSTEP;
 static_assert((size_t)BM * LDC * 4 <= SMEM, "product staging");
-static_assert((size_t)RSTEP * 2 * BN * 4 <= SMEM, "statistic scratch");
 static_assert((BM / WM) * (BN / WN) * 32 == THREADS, "warp grid");
 
 // neighbour q of Wcat's row blocks [x, x_h, x_w, x_hw]
@@ -94,23 +102,6 @@ __device__ __forceinline__ void load_b(bf16* Bs, const bf16* w, int N, int k0,
     const int r = v / (BN / 8), j = v % (BN / 8);
     cp_async16(Bs + r * LDB + j * 8, w + (long long)(k0 + r) * N + n0 + j * 8,
                true);
-  }
-}
-
-// Forward A chunk: columns [k0, k0 + KC) of the (BM x 4 Cin) gather of
-// input pixels [m0, m_end) of image b: column k is channel k % Cin of
-// neighbour q = k / Cin, zero past the map's bottom and right edges.
-__device__ __forceinline__ void load_a_fwd(bf16* As, const bf16* x, int Cin,
-                                           int H, int W, int b, int p0,
-                                           int p_end, int k0) {
-  for (int v = threadIdx.x; v < BM * KC / 8; v += THREADS) {
-    const int r = v / (KC / 8), j = v % (KC / 8);
-    const int k = k0 + j * 8, q = k / Cin, c = k % Cin;
-    const int p = p0 + r, i = p / W + dh_of(q), jj = p % W + dw_of(q);
-    const bool valid = p < p_end && i < H && jj < W;
-    const long long src =
-        valid ? (((long long)b * H + i) * W + jj) * Cin + c : 0;
-    cp_async16(As + r * LDA + j * 8, x + src, valid);
   }
 }
 
@@ -188,36 +179,29 @@ __device__ __forceinline__ void store_acc(float* Cs,
     }
 }
 
-// The tile of CTA (blockIdx.x = pixel tile, blockIdx.y = column tile):
+// The dx tile of CTA (blockIdx.x = pixel tile, blockIdx.y = column tile):
 // the product over the K chunks, double-buffered, left in Cs.
-template <bool FWD>
-__device__ void gemm_tile(unsigned char* smem, const bf16* a_src,
-                          const bf16* w, int K, int N, int Cin, int Cout,
-                          int H, int W, int b, int p0, int p_end, int n0) {
+__device__ void gemm_tile(unsigned char* smem, const bf16* g, const bf16* w,
+                          int K, int N, int Cout, int H, int W, int b, int p0,
+                          int p_end, int n0) {
   float acc[MT][NT][4];
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
     for (int n = 0; n < NT; ++n)
       acc[m][n][0] = acc[m][n][1] = acc[m][n][2] = acc[m][n][3] = 0.0f;
-  int chunks[16], nc = 0;  // K / KC <= 16 (checked by the launcher)
-  for (int k0 = 0; k0 < K; k0 += KC)
-    if (!FWD || fwd_chunk_used(k0, n0, Cin, Cout)) chunks[nc++] = k0;
   auto stage = [&](int s) { return smem + s * STAGE; };
   auto load = [&](int s, int k0) {
-    bf16* As = reinterpret_cast<bf16*>(stage(s));
-    bf16* Bs = reinterpret_cast<bf16*>(stage(s) + A_BYTES);
-    if (FWD)
-      load_a_fwd(As, a_src, Cin, H, W, b, p0, p_end, k0);
-    else
-      load_a_dx(As, a_src, Cout, H, W, b, p0, p_end, k0);
-    load_b(Bs, w, N, k0, n0);
+    load_a_dx(reinterpret_cast<bf16*>(stage(s)), g, Cout, H, W, b, p0, p_end,
+              k0);
+    load_b(reinterpret_cast<bf16*>(stage(s) + A_BYTES), w, N, k0, n0);
     cp_async_commit();
   };
-  load(0, chunks[0]);
+  const int nc = K / KC;
+  load(0, 0);
   for (int c = 0; c < nc; ++c) {
     if (c + 1 < nc) {
-      load((c + 1) % 2, chunks[c + 1]);
+      load((c + 1) % 2, (c + 1) * KC);
       cp_async_wait_group<1>();
     } else {
       cp_async_wait_group<0>();
@@ -231,67 +215,103 @@ __device__ void gemm_tile(unsigned char* smem, const bf16* a_src,
   __syncthreads();
 }
 
-// Forward: y (B, 2H, 2W, Cout) bf16 and per-(tile, column tile) partial
-// sums part[(tile * n_ct + ct)][2 Cout] = [sum y, sum y^2] over the
-// tile's pixels and the planes in the column tile.
-template <bool S>
-__global__ void __launch_bounds__(THREADS)
-fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wcat,
-           const float* __restrict__ bias, bf16* __restrict__ y,
-           float* __restrict__ part, int H, int W, int Cin, int Cout) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int HW = H * W, tpi = (HW + BM - 1) / BM;
-  const int tile = blockIdx.x, ct = blockIdx.y, n_ct = gridDim.y;
-  const int b = tile / tpi, p0 = (tile % tpi) * BM;
-  const int p_end = p0 + BM < HW ? p0 + BM : HW;
-  const int n0 = ct * BN;
-  gemm_tile<true>(smem, x, wcat, 4 * Cin, 4 * Cout, Cin, Cout, H, W, b, p0,
-                  p_end, n0);
-  const float* Cs = reinterpret_cast<const float*>(smem);
-  const int j = threadIdx.x % (BN / 8), r0 = threadIdx.x / (BN / 8);
-  const int n = n0 + j * 8, pl = n / Cout, c0 = n % Cout;
+// Forward: the parity-plane product (parity_plane.cuh) of x and the
+// (3, 3, Cin, Cout) tap stack, y = bf16(sum + bias); with S, the per-tile
+// partials part[tile][2 Cout] = [sum y, sum y^2] of the stored y.
+template <int CIN, int COUT>
+using UpsCfg = PPCfg<CIN, COUT, 4, COUT == 16 ? 9 : 4>;
+
+template <class C, bool S>
+struct UpsFwdEpi {
+  int tiles, H, W;
+  const float* bias;
+  bf16* y;
+  float* part;
+  float* red;  // WARPS x 2 COUT f32 in shared memory
+  // this thread's sums over its channels 8 (threadIdx % VN) .. + 7
   float s0[8], s1[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) s0[k] = s1[k] = 0.0f;
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int r = r0 + i * RSTEP, p = p0 + r;
-    if (p >= p_end) break;
-    const float4* cv = reinterpret_cast<const float4*>(Cs + r * LDC + j * 8);
-    const float4 v0 = cv[0], v1 = cv[1];
-    const float v[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
-    float o[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      o[k] = __bfloat162float(__float2bfloat16(v[k] + __ldg(bias + c0 + k)));
+  __device__ float pre(float v, int n) const { return v + __ldg(bias + n); }
+  // half a's output rows of the tile (each thread always the same 8
+  // channels: THREADS % VN == 0)
+  __device__ void out(int a, PPTile tl, const bf16* Cs) {
+    for (int e = threadIdx.x; e < C::TH * 2 * C::TW * C::VN;
+         e += C::THREADS) {
+      const int pix = e / C::VN, j = e % C::VN;
+      const int r = pix / (2 * C::TW), pc = pix % (2 * C::TW);
+      const int i = tl.i0 + r;
+      if (i >= H || tl.j0 + pc / 2 >= W) continue;
+      const uint4 v =
+          *reinterpret_cast<const uint4*>(Cs + pix * C::LDN + j * 8);
+      *reinterpret_cast<uint4*>(
+          y + (((long long)tl.b * 2 * H + 2 * i + a) * 2 * W + 2 * tl.j0 +
+               pc) * C::N + j * 8) = v;
       if constexpr (S) {
-        s0[k] += o[k];
-        s1[k] += __fmul_rn(o[k], o[k]);
+        float f[8];
+        unpack_bf16x8(v, f);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          s0[k] += f[k];
+          s1[k] += __fmul_rn(f[k], f[k]);
+        }
       }
     }
-    const int oi = 2 * (p / W) + (pl >> 1), oj = 2 * (p % W) + (pl & 1);
-    *reinterpret_cast<uint4*>(
-        y + (((long long)b * 2 * H + oi) * 2 * W + oj) * Cout + c0) =
-        pack_bf16x8(o);
   }
-  if constexpr (!S) return;
-  __syncthreads();  // every read of Cs is done: reuse it as scratch
-  float* red = reinterpret_cast<float*>(smem);
+  // the tile's partials: over the lanes of a warp that hold the same
+  // channels (a fixed xor tree), then over the warps in order
+  __device__ void end_tile(int t) {
+    if constexpr (S) {
+      const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    red[r0 * 2 * BN + j * 8 + k] = s0[k];
-    red[r0 * 2 * BN + BN + j * 8 + k] = s1[k];
+      for (int k = 0; k < 8; ++k)
+        for (int o = C::VN; o < 32; o <<= 1) {
+          s0[k] += __shfl_xor_sync(0xffffffffu, s0[k], o);
+          s1[k] += __shfl_xor_sync(0xffffffffu, s1[k], o);
+        }
+      if (lane < C::VN)
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          red[warp * 2 * C::N + lane * 8 + k] = s0[k];
+          red[warp * 2 * C::N + C::N + lane * 8 + k] = s1[k];
+        }
+      __syncthreads();
+      for (int q = threadIdx.x; q < 2 * C::N; q += C::THREADS) {
+        float s = 0.0f;
+        for (int w = 0; w < C::WARPS; ++w) s += red[w * 2 * C::N + q];
+        part[(long long)t * 2 * C::N + q] = s;
+      }
+      // red is rewritten after the next tile's units, each of which
+      // synchronises the block first
+#pragma unroll
+      for (int k = 0; k < 8; ++k) s0[k] = s1[k] = 0.0f;
+    }
   }
-  __syncthreads();
-  // output t < 2 Cout: [sum | sum of squares] of channel t % Cout over
-  // the planes of this column tile, then the row groups, in order
-  for (int t = threadIdx.x; t < 2 * Cout; t += THREADS) {
-    const int c = t % Cout, sq = t / Cout;
-    float s = 0.0f;
-    for (int pn = 0; pn < BN; pn += Cout)  // Cout divides BN
-      for (int q = 0; q < RSTEP; ++q) s += red[q * 2 * BN + sq * BN + pn + c];
-    part[((long long)tile * n_ct + ct) * 2 * Cout + t] = s;
-  }
+};
+
+template <int CIN, int COUT>
+__host__ __device__ constexpr int ups_tiles_per_image(int H, int W) {
+  return ((H + UpsCfg<CIN, COUT>::TH - 1) / UpsCfg<CIN, COUT>::TH) *
+         ((W + 31) / 32);
+}
+
+template <int CIN, int COUT, bool S>
+__global__ void __launch_bounds__(256)
+fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+           const float* __restrict__ bias, bf16* __restrict__ y,
+           float* __restrict__ part, int B, int H, int W) {
+  using C = UpsCfg<CIN, COUT>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  UpsFwdEpi<C, S> epi;
+  epi.tiles = B * ups_tiles_per_image<CIN, COUT>(H, W);
+  epi.H = H;
+  epi.W = W;
+  epi.bias = bias;
+  epi.y = y;
+  epi.part = part;
+  epi.red = reinterpret_cast<float*>(smem + C::red_off);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) epi.s0[k] = epi.s1[k] = 0.0f;
+  const PPSrc src{x, CIN};
+  pp_run<C, false>(smem, src, w, H, W, epi);
 }
 
 // dx (B, H, W, Cin) bf16 from the adjusted gradient g (B, 2H, 2W, Cout)
@@ -305,8 +325,7 @@ dx_kernel(const bf16* __restrict__ g, const bf16* __restrict__ wt,
   const int tile = blockIdx.x, b = tile / tpi, p0 = (tile % tpi) * BM;
   const int p_end = p0 + BM < HW ? p0 + BM : HW;
   const int n0 = blockIdx.y * BN;
-  gemm_tile<false>(smem, g, wt, 16 * Cout, Cin, Cin, Cout, H, W, b, p0,
-                   p_end, n0);
+  gemm_tile(smem, g, wt, 16 * Cout, Cin, Cout, H, W, b, p0, p_end, n0);
   const float* Cs = reinterpret_cast<const float*>(smem);
   const int j = threadIdx.x % (BN / 8), r0 = threadIdx.x / (BN / 8);
 #pragma unroll
@@ -428,8 +447,9 @@ constexpr size_t A32_BYTES = ((size_t)BM * LDA32 * 4 + 127) / 128 * 128;
 constexpr size_t SMEM32 = A32_BYTES + (size_t)KC * BN * 4;
 static_assert((size_t)RS32 * 2 * BN * 4 <= SMEM32, "f32 statistic scratch");
 
-// Start copying chunk [k0, k0 + KC) of the forward gather (FWD) or of the
-// dx gather, f32 (see load_a_fwd / load_a_dx), and rows [k0, k0 + KC) x
+// Start copying chunk [k0, k0 + KC) of the forward gather (FWD: column k
+// is channel k % Cin of neighbour q = k / Cin, zero past the bottom and
+// right edges) or of the dx gather (load_a_dx), f32, and rows [k0, k0 + KC) x
 // columns [n0, n0 + BN) of the (K x N) f32 matrix w.
 template <bool FWD>
 __device__ __forceinline__ void load_chunk_f32(float* As, float* Bs,
@@ -696,22 +716,27 @@ int wgrad_f32(const void* x, const void* g, void* part_w, void* part_db,
   return cudaGetLastError();
 }
 
-template <bool S>
-int fwd(const void* x, const void* wcat, const void* bias, void* y,
-        void* part, void* stats, int B, int H, int W, int Cin, int Cout,
-        cudaStream_t s) {
+template <int CIN, int COUT, bool S>
+int fwd(const void* x, const void* w, const void* bias, void* y, void* part,
+        void* stats, int B, int H, int W, cudaStream_t s) {
+  using C = UpsCfg<CIN, COUT>;
   static bool ok = false;
-  cudaError_t e = allow((const void*)fwd_kernel<S>, SMEM, &ok);
+  static int gm = 0;
+  cudaError_t e = allow_smem(fwd_kernel<CIN, COUT, S>, C::smem, &ok);
   if (e != cudaSuccess) return e;
-  const int tpi = (H * W + BM - 1) / BM, n_ct = 4 * Cout / BN;
-  fwd_kernel<S><<<dim3(B * tpi, n_ct), THREADS, SMEM, s>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(wcat),
+  if (gm == 0 && (e = resident_ctas(fwd_kernel<CIN, COUT, S>, C::THREADS,
+                                    C::smem, &gm)) != cudaSuccess)
+    return e;
+  const int tpi = ups_tiles_per_image<CIN, COUT>(H, W), tiles = B * tpi;
+  fwd_kernel<CIN, COUT, S><<<tiles < gm ? tiles : gm, C::THREADS, C::smem,
+                             s>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
       static_cast<const float*>(bias), static_cast<bf16*>(y),
-      static_cast<float*>(part), H, W, Cin, Cout);
+      static_cast<float*>(part), B, H, W);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   if constexpr (!S) return cudaSuccess;
   return reduce_parts(static_cast<const float*>(part),
-                      static_cast<float*>(stats), B, tpi * n_ct, 2 * Cout, s);
+                      static_cast<float*>(stats), B, tpi, 2 * COUT, s);
 }
 
 template <bool S>
@@ -741,20 +766,23 @@ int fwd_f32(const void* x, const void* wcat, const void* bias, void* y,
 // with the per-image statistics, 0 for the stats-free ones.  Each entry
 // point returns the first CUDA error.
 
-// Forward.  wcat (4 Cin, 4 Cout) bf16 (build_upsampler_matmul's layout);
-// part (B * ceil(H W / 64) * 4 Cout / 64, 2 Cout) f32 scratch; stats
-// (B, 2 Cout) f32 = [sum y, sum y^2] per image (with_stats 0: part and
-// stats are not touched).
-extern "C" int erf_ups_train_fwd(const void* x, const void* wcat,
+// Forward.  w (3, 3, Cin, Cout) bf16, the forward-conv HWIO tap stack
+// (each parity-plane block is one of its taps); part (B * ceil(H / 4) *
+// ceil(W / 32), 2 Cout) f32 scratch; stats (B, 2 Cout) f32 = [sum y, sum
+// y^2] per image (with_stats 0: part and stats are not touched).
+extern "C" int erf_ups_train_fwd(const void* x, const void* w,
                                  const void* bias, void* y, void* part,
                                  void* stats, int B, int H, int W, int Cin,
                                  int Cout, int with_stats, void* stream) {
   if (!shape_ok(B, H, W, Cin, Cout)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return with_stats ? fwd<true>(x, wcat, bias, y, part, stats, B, H, W, Cin,
-                                Cout, s)
-                    : fwd<false>(x, wcat, bias, y, part, stats, B, H, W, Cin,
-                                 Cout, s);
+  if (Cin == 128)
+    return with_stats
+               ? fwd<128, 64, true>(x, w, bias, y, part, stats, B, H, W, s)
+               : fwd<128, 64, false>(x, w, bias, y, part, stats, B, H, W, s);
+  return with_stats
+             ? fwd<64, 16, true>(x, w, bias, y, part, stats, B, H, W, s)
+             : fwd<64, 16, false>(x, w, bias, y, part, stats, B, H, W, s);
 }
 
 // Backward.  y: the forward's output; gy (B, 2H, 2W, Cout) bf16; gs1, gs2

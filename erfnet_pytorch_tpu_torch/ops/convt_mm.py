@@ -24,6 +24,12 @@ import torch.nn.functional as F
 UPS_TAPS = {0: ((0, 1),), 1: ((0, 0), (1, 2))}
 # (m_h, m_w) -> row block of Wcat ([x, x_h, x_w, x_hw])
 _ROW = {(0, 0): 0, (1, 0): 1, (0, 1): 2, (1, 1): 3}
+# (row block q, plane a*2 + b) -> (t_h, t_w): the HWIO tap that fills
+# each of Wcat's nine non-zero (Cin x Cout) blocks (the other seven are
+# zero).  csrc/parity_plane.cuh reads the taps through the same table.
+PARITY_TAPS = {(_ROW[(m_h, m_w)], a * 2 + b): (t_h, t_w)
+               for a in (0, 1) for b in (0, 1)
+               for m_h, t_h in UPS_TAPS[a] for m_w, t_w in UPS_TAPS[b]}
 
 
 def convt_to_hwio(w):

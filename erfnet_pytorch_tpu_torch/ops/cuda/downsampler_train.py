@@ -21,7 +21,12 @@ dtype in its gather, and returns the translated image for the backward.
 Backward: from g = bf16(gy + gs1 + 2 y gs2), dW (HWIO f32), db (f32) and,
 except for the stem (the image takes no gradient), dx = bf16(bf16(conv
 input grad) + pool grad) with JAX's tie rule for the pool (each of the W-
-then H-pair maxima splits its cotangent equally among ties).
+then H-pair maxima splits its cotangent equally among ties).  In the bf16
+form the conv input gradient is the parity-plane product
+(``csrc/parity_plane.cuh``) of g with the transposed taps ``wt`` (3, 3,
+Cc, Cin), and the weight gradient's partials are per chunk of
+``WG_ROWS`` output rows and kh (the f32 form's per ``CHUNK`` output
+pixels and tap).
 
 The kernels take (Cin, Cc) in {(3, 13), (16, 48), (64, 64)} (the stem only
 at (3, 13)) and even H, W, and raise on anything else.  Two forms, picked
@@ -46,7 +51,9 @@ from . import _build, route
 
 BM = 64          # output pixels per forward tile (csrc Fwd::BM)
 BM_STEM_F32 = 128  # the f32 form's at Cin = 3 (csrc Fwd32::BM; else BM)
-CHUNK = 2048     # output pixels per weight-gradient partial (csrc CHUNK)
+CHUNK = 2048     # output pixels per f32 weight-gradient partial (csrc CHUNK)
+# output rows per bf16 weight-gradient partial, by Cin (csrc Wg::ROWS)
+WG_ROWS = {3: 2, 16: 4, 64: 4}
 FWD_LAUNCHES = 2
 BWD_LAUNCHES = {True: 3, False: 4}   # by stem
 # the stats-free forms: no statistics reduction, no g fold; always dx
@@ -227,12 +234,15 @@ def down_bwd(x, y, gy, gs1, gs2, w, *, stem):
         _build.require(gs2, "gs2", torch.float32, dev, (B, cout))
     else:   # not read by the stats-free form (g is gy)
         y = gs1 = gs2 = gy
-    # the input gradient's B operand: row (kh * 3 + kw) cc + co, column ci
-    wt = w.to(x.dtype).permute(0, 1, 3, 2).reshape(9 * cc, cin)
-    wt = wt.contiguous()
+    # the input gradient's B operand, the transposed taps (3, 3, cc, cin):
+    # row (kh * 3 + kw) cc + co, column ci
+    wt = w.to(x.dtype).permute(0, 1, 3, 2).contiguous()
     g = torch.empty_like(gy) if stats else gy
     dx = torch.empty_like(x) if not stem else g
-    chunks = -(-(B * (H // 2) * (W // 2)) // CHUNK)
+    if form:    # f32: partials per chunk of output pixels
+        chunks = -(-(B * (H // 2) * (W // 2)) // CHUNK)
+    else:       # bf16: per chunk of output rows
+        chunks = -(-(B * (H // 2)) // WG_ROWS[cin])
     plen = 9 * cin * cc + cc
     part = torch.empty(chunks, plen, dtype=torch.float32, device=dev)
     grads = torch.empty(plen, dtype=torch.float32, device=dev)

@@ -14,7 +14,12 @@ Forward, as the parity-plane product of ``ops/convt_mm.py``: y = bf16([x,
 x_h+1, x_w+1, x_hw+1] @ Wcat + b), Wcat built from the weight's taps
 rounded to the activation dtype, f32 sums and bias, and the per-image (B,
 Cout) f32 sum and sum of squares of the stored y (not in the stats-free
-forms).  Backward from (gy, gs1, gs2): g = bf16(gy + gs1 + 2 y gs2) (the
+forms).  The bf16 kernel (``csrc/parity_plane.cuh``) reads Wcat's nine
+non-zero blocks straight from the (3, 3, Cin, Cout) taps through
+``PARITY_TAPS``, so the wrapper passes the taps as they are; the f32
+forward and both backwards take Wcat (or its transposed layout), built by
+``_wcat`` in one gather from a cached index table, bit-equal to
+``build_upsampler_matmul``.  Backward from (gy, gs1, gs2): g = bf16(gy + gs1 + 2 y gs2) (the
 stats-free forms: g = gy), dx = bf16(the transposed product), dW (3, 3,
 Cin, Cout) forward-conv HWIO in f32 and db = sum g in f32.
 
@@ -34,11 +39,15 @@ from __future__ import annotations
 
 import torch
 
-from ..convt_mm import UPS_TAPS, _ROW, build_upsampler_matmul, convt_to_hwio
+import torch.nn.functional as F
+
+from ..convt_mm import (PARITY_TAPS, UPS_TAPS, _ROW, build_upsampler_matmul,
+                        convt_to_hwio)
 from . import _build, route
 
-BM = 64          # input pixels per tile (csrc BM)
-BN = 64          # output columns per tile (csrc BN)
+BM = 64          # input pixels per tile of the f32 forward (csrc BM)
+BN = 64          # output columns per tile of the f32 forward (csrc BN)
+TH, TW = 4, 32   # input rows, columns per tile of the bf16 forward (csrc)
 CHUNK = 1024     # input pixels per weight-gradient partial (csrc CHUNK)
 FWD_LAUNCHES = 2
 BWD_LAUNCHES = 5
@@ -142,11 +151,37 @@ def _check(x, w, others=()):
     return _build.kernel_form(x, "x", others), B, H, W, cin, cout
 
 
-def _wcat(w, cin, cout, dtype):
-    """The (4 Cin, 4 Cout) parity-plane matrix of the HWIO weight in
-    ``dtype``, its taps rounded to it first."""
-    wcat, _ = build_upsampler_matmul(w.to(dtype), w.new_zeros(cout))
-    return wcat.to(dtype)
+_INDEX = {}
+
+
+def _index(cin, cout, device, transposed):
+    """Cached per (Cin, Cout, device): each element's index into the
+    flattened (3, 3, Cin, Cout) taps with one zero appended (index 9 Cin
+    Cout), laid out as Wcat (4 Cin, 4 Cout) or, ``transposed``, as the dx
+    product's (16 Cout, Cin): row q 4 Cout + plane Cout + c holds
+    Wcat[q Cin:(q + 1) Cin, plane Cout + c]."""
+    key = (cin, cout, str(device), transposed)
+    if key not in _INDEX:
+        idx = torch.full((4, cin, 4, cout), 9 * cin * cout, dtype=torch.long)
+        taps = torch.arange(9 * cin * cout).view(3, 3, cin, cout)
+        for (q, plane), (t_h, t_w) in PARITY_TAPS.items():
+            idx[q, :, plane] = taps[t_h, t_w]
+        if transposed:
+            idx = idx.permute(0, 2, 3, 1)
+        _INDEX[key] = idx.reshape(-1).to(device)
+    return _INDEX[key]
+
+
+def _wcat(w, cin, cout, dtype, transposed=False):
+    """The parity-plane matrix of the HWIO weight in ``dtype``, its taps
+    rounded to it first: Wcat (4 Cin, 4 Cout) (``build_upsampler_matmul``'s,
+    whose blocks each receive one tap onto zero, so bit-equal), or the dx
+    product's (16 Cout, Cin) layout.  One gather from a cached index table:
+    the cast, the appended zero and the gather."""
+    flat = F.pad(w.to(dtype).reshape(-1), (0, 1))
+    out = flat[_index(cin, cout, w.device, transposed)]
+    return out.view(16 * cout, cin) if transposed else out.view(4 * cin,
+                                                                 4 * cout)
 
 
 @route.recorded(ups_fwd_plain)
@@ -158,22 +193,25 @@ def ups_fwd(x, w, b, *, stats=True):
         return ups_fwd_plain(x, w, b, stats=stats)
     form, B, H, W, cin, cout = _check(x, w)
     dev, dt = x.device, x.dtype
-    wcat = _wcat(w, cin, cout, dt).contiguous()
+    if form:    # f32: the (4 Cin, 4 Cout) parity-plane matrix
+        wk = _wcat(w, cin, cout, dt)
+        tiles = B * -(-(H * W) // BM) * (4 * cout // BN)
+    else:       # bf16: the taps themselves (csrc/parity_plane.cuh)
+        wk = w.to(dt).contiguous()
+        tiles = B * -(-H // TH) * -(-W // TW)
     bias = b.float().contiguous()
-    _build.require(wcat, "wcat", dt, dev, (4 * cin, 4 * cout))
+    _build.require(wk, "w", dt, dev)
     _build.require(bias, "b", torch.float32, dev, (cout,))
     y = torch.empty(B, 2 * H, 2 * W, cout, dtype=dt, device=dev)
     if stats:
-        tpi = -(-(H * W) // BM)
-        part = torch.empty(B * tpi * (4 * cout // BN), 2 * cout,
-                           dtype=torch.float32, device=dev)
+        part = torch.empty(tiles, 2 * cout, dtype=torch.float32, device=dev)
         sums = torch.empty(B, 2 * cout, dtype=torch.float32, device=dev)
     else:   # not touched by the stats-free form
         part = sums = bias
     key = "" if stats else "_nostats"
     lib = _build.library("upsampler_train")
     fn = _build.declare(lib, "erf_ups_train_fwd" + form, 6, 6)
-    err = fn(_build.ptr(x), _build.ptr(wcat), _build.ptr(bias), _build.ptr(y),
+    err = fn(_build.ptr(x), _build.ptr(wk), _build.ptr(bias), _build.ptr(y),
              _build.ptr(part), _build.ptr(sums), B, H, W, cin, cout,
              int(stats), _build.stream_ptr(x))
     _build.check(lib, err, f"train upsampler{key}{form} forward launch")
@@ -208,10 +246,7 @@ def ups_bwd(x, y, gy, gs1, gs2, w):
         _build.require(gs2, "gs2", torch.float32, dev, (B, cout))
     else:   # not read by the stats-free form (g is gy)
         y = gs1 = gs2 = gy
-    # the dx product's B operand: row q 4 Cout + plane Cout + c holds
-    # Wcat[q Cin:(q + 1) Cin, plane Cout + c]
-    wt = (_wcat(w, cin, cout, dt).reshape(4, cin, 4 * cout).transpose(1, 2)
-          .reshape(16 * cout, cin).contiguous())
+    wt = _wcat(w, cin, cout, dt, transposed=True)   # the dx product's B
     g = torch.empty_like(gy) if stats else gy
     dx = torch.empty_like(x)
     chunks = -(-(B * H * W) // CHUNK)

@@ -1209,3 +1209,117 @@ def test_packed_stacks_serving_on_the_card(dev, sd, dtype, monkeypatch):
     assert counts == want
     agree = (got == plain(x)).float().mean().item()
     assert agree >= (0.995 if dtype == BF else 0.999), agree
+
+
+# ---------------------------------------------------------------------------
+# the parity-plane product: ragged tiles, pool ties, both statistic forms
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape,cout", [
+    ((1, 3, 45, 128), 64), ((2, 7, 33, 64), 16), ((1, 66, 130, 128), 64)])
+@pytest.mark.parametrize("stats", [True, False])
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_upsampler_forward_ragged(dev, shape, cout, stats, dtype):
+    """Maps whose pixel count is no multiple of the forward's tile (rows
+    off its 4, columns off its 32), both statistic forms."""
+    B, H, W, cin = shape
+    x = _rn(*shape, seed=7).relu().to(dev, dtype)
+    w = _rn(3, 3, cin, cout, seed=8, scale=(9 * cin) ** -0.5).to(dev)
+    b = _rn(cout, seed=9, scale=0.1).to(dev)
+    count = _launched if stats else _nostats
+    n0 = count(upsampler_train.ups_fwd, dtype)
+    got = upsampler_train.ups_fwd(x, w, b, stats=stats)
+    ref = upsampler_train.ups_fwd_plain(x, w, b, stats=stats)
+    torch.cuda.synchronize()
+    assert (count(upsampler_train.ups_fwd, dtype) - n0
+            == (upsampler_train.FWD_LAUNCHES if stats
+                else upsampler_train.NOSTATS_FWD_LAUNCHES))
+    _close(got[0], ref[0])
+    if stats:
+        _rel_for(dtype)(got[1], ref[1])
+        _rel_for(dtype)(got[2], ref[2])
+    else:
+        assert got[1] is None and got[2] is None
+
+
+@pytest.mark.parametrize("shape,cc,stem,stats", [
+    (shape, cc, False, stats)
+    for shape, cc in (((1, 14, 90, 64), 64), ((2, 10, 66, 16), 48),
+                      ((1, 6, 262, 3), 13))
+    for stats in (True, False)] + [((2, 6, 262, 3), 13, True, True)])
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_downsampler_backward_ragged(dev, shape, cc, stem, stats, dtype):
+    """Output maps whose pixel count is no multiple of the input
+    gradient's tile (rows off its 2 or 4, columns off its 32) or of the
+    weight gradient's pixel blocks (64 or 128 a row), pool windows of two
+    and four tied values, both statistic forms (the stem has only the
+    form with them).  dx = bf16(bf16(conv) + pool share) rounds twice:
+    where the share cancels most of the conv part, one ulp of the rounded
+    conv part (which the kernel and the plain version may round either
+    way, their f32 sums lying on both sides of a rounding point) is more
+    than 2^-6 of the result, so each error is held to 2^-6 of the larger
+    of the result and the plain version's rounded conv part
+    (``_close_two_roundings``)."""
+    B, H, W, cin = shape
+    rel = _rel_for(dtype)
+    x = _rn(*shape, seed=11).relu()
+    x[:, 2:4, 2:4, :] = 0.5                        # four tied values
+    x[:, 4:6, 6, :] = 0.25                         # a tied pair by rows
+    x[:, 4:6, 7, :] = 0.0
+    x = x.to(dev, dtype)
+    w = _rn(3, 3, cin, cc, seed=12, scale=(9 * cin) ** -0.5).to(dev)
+    b = _rn(cc, seed=13, scale=0.1).to(dev)
+    y = downsampler_train.down_fwd_plain(x, w, b)[1]
+    gy = _rn(*y.shape, seed=14).to(dev, dtype)
+    gs1 = _rn(B, y.shape[-1], seed=15, scale=1e-2).to(dev) if stats else None
+    gs2 = _rn(B, y.shape[-1], seed=16, scale=1e-2).to(dev) if stats else None
+    count = _launched if stats else _nostats
+    n0 = count(downsampler_train.down_bwd, dtype)
+    got = downsampler_train.down_bwd(x, y, gy, gs1, gs2, w, stem=stem)
+    ref = downsampler_train.down_bwd_plain(x, y, gy, gs1, gs2, w, stem=stem)
+    torch.cuda.synchronize()
+    assert (count(downsampler_train.down_bwd, dtype) - n0
+            == (downsampler_train.BWD_LAUNCHES[stem] if stats
+                else downsampler_train.NOSTATS_BWD_LAUNCHES))
+    if stem:
+        assert got[0] is None
+    elif dtype == BF:
+        _close_two_roundings(got[0], ref[0],
+                             _conv_part(x, y, gy, gs1, gs2, w))
+    else:
+        _close(got[0], ref[0])
+    rel(got[1], ref[1])
+    rel(got[2], ref[2])
+
+
+def _conv_part(x, y, gy, gs1, gs2, w):
+    """The plain version's conv input gradient of dx, rounded to x's dtype
+    (``down_bwd_plain`` before it adds the pool share)."""
+    cc, dt = w.shape[3], x.dtype
+    if gs1 is None:
+        g = gy.to(dt)
+    else:
+        bc = (slice(None), None, None, slice(None))
+        g = (gy.float() + gs1.float()[bc]
+             + 2.0 * y.float() * gs2.float()[bc]).to(dt)
+    dxc = torch.nn.grad.conv2d_input(
+        (x.shape[0], x.shape[3], x.shape[1], x.shape[2]),
+        w.to(dt).float().permute(3, 2, 0, 1),
+        g[..., :cc].float().permute(0, 3, 1, 2), stride=2, padding=1)
+    return dxc.permute(0, 2, 3, 1).to(dt)
+
+
+def _close_two_roundings(got, ref, part):
+    """``_close``'s rule for an output rounded twice, bf16(part + share):
+    >= 99.9 % within one ulp, and every error <= 2^-6 of max(|ref|,
+    |part|, rms(ref))."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    frac = ((ordered(got) - ordered(ref)).abs() <= 1).float().mean().item()
+    g, r = got.float(), ref.float()
+    floor = torch.maximum(r.abs(), part.float().abs()).clamp_min(
+        r.pow(2).mean().sqrt().item())
+    rel = ((g - r).abs() / floor).max().item()
+    assert frac >= 0.999 and rel <= 2.0 ** -6, (frac, rel)

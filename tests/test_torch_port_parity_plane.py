@@ -1,0 +1,188 @@
+"""PyTorch port: the operand layouts of the parity-plane product
+(``csrc/parity_plane.cuh``) against the plain versions, which
+``test_torch_port_train_down.py`` / ``_up.py`` hold against the JAX
+kernels.  Pure torch on the CPU at small sizes: the kernels' own
+decompositions written out, nothing of the card.
+
+* The downsampler's input gradient as the parity-plane product of g's
+  conv channels (read at channel stride Cin + Cc, zero past the bottom
+  and right edges) and the wrapper's transposed tap stack through the
+  flipped tap table, rounded, plus the pool share, against
+  ``down_bwd_plain``'s dx, max-pool ties included.  f32: rtol and atol
+  1e-5 (the same products summed in another order).  bf16: >= 99.9 % of
+  the elements within one bf16 ulp and every error <= 2^-6 of max(|ref|,
+  rms(ref)) (f32 sums in other orders, each rounded once).
+* The upsampler forward as the same product of x and the HWIO taps
+  through the unflipped table, against ``ups_fwd_plain`` (the same
+  rules).
+* The cached Wcat gather of the wrappers (``upsampler_train._wcat``) bit-
+  equal to ``build_upsampler_matmul`` (each block holds one tap added
+  onto zero), in Wcat's and in the dx product's layout.
+* The weight gradient summed per (chunk of output rows, kh) in the
+  kernel's order (blocks of BP pixels of one row, the three kw taps as
+  stride-2 views of one input-row segment), the chunks then reduced in
+  order, against ``down_bwd_plain``'s dW and db: norm-relative 1e-5.
+"""
+
+import pytest
+import torch
+
+from erfnet_pytorch_tpu_torch.ops.convt_mm import (PARITY_TAPS,
+                                                   build_upsampler_matmul)
+from erfnet_pytorch_tpu_torch.ops.cuda import downsampler_train as D
+from erfnet_pytorch_tpu_torch.ops.cuda import upsampler_train as U
+from test_torch_port_common import one_torch_thread  # noqa: F401
+
+BF, F32 = torch.bfloat16, torch.float32
+PAIRS = ((16, 48), (64, 64))
+
+
+def _rn(*shape, seed, scale=1.0):
+    return scale * torch.randn(*shape, generator=torch.Generator()
+                               .manual_seed(seed))
+
+
+def _close(got, ref):
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    if ref.dtype == F32:
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+        return
+
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    frac = ((ordered(got) - ordered(ref)).abs() <= 1).float().mean().item()
+    g, r = got.float(), ref.float()
+    floor = r.pow(2).mean().sqrt().clamp_min(1e-30)
+    rel = ((g - r).abs() / torch.maximum(r.abs(), floor)).max().item()
+    assert frac >= 0.999 and rel <= 2.0 ** -6, (frac, rel)
+
+
+def _rel(got, ref, tol=1e-5):
+    r = ((got - ref).norm() / ref.norm().clamp_min(1e-30)).item()
+    assert r <= tol, r
+
+
+def parity_product(a, taps, flip):
+    """out (B, 2H, 2W, N) f32: for input pixel p = (i, j) of a (B, H, W,
+    K), plane (a, b) = sum over the nine non-zero blocks (q, plane) of
+    a[p + e_q] @ taps[t_h, t_w], e_q = (q & 1, q >> 1), a zero past the
+    bottom and right edges; flip reads tap 2 - t (the input gradient of a
+    stride-2 conv)."""
+    B, H, W, _ = a.shape
+    N = taps.shape[-1]
+    pad = torch.nn.functional.pad(a.float(), (0, 0, 0, 1, 0, 1))
+    views = [pad[:, (q & 1):(q & 1) + H, (q >> 1):(q >> 1) + W]
+             for q in range(4)]
+    out = torch.zeros(B, H, 2, W, 2, N)
+    for (q, plane), (t_h, t_w) in PARITY_TAPS.items():
+        if flip:
+            t_h, t_w = 2 - t_h, 2 - t_w
+        out[:, :, plane >> 1, :, plane & 1] += (
+            views[q] @ taps[t_h, t_w].float())
+    return out.reshape(B, 2 * H, 2 * W, N)
+
+
+def _down_case(cin, cc, dtype, seed):
+    """x (a window of four tied values and a tied pair), y, gy, gs1, gs2,
+    w of a Down(cin -> cin + cc) call at (2, 8, 16)."""
+    x = _rn(2, 8, 16, cin, seed=seed).relu()
+    x[:, 2:4, 2:4] = 0.5
+    x[:, 4:6, 6] = 0.25
+    x[:, 4:6, 7] = 0.0
+    x = x.to(dtype)
+    w = _rn(3, 3, cin, cc, seed=seed + 1, scale=(9 * cin) ** -0.5)
+    b = _rn(cc, seed=seed + 2, scale=0.1)
+    y = D.down_fwd_plain(x, w, b)[1]
+    gy = _rn(*y.shape, seed=seed + 3).to(dtype)
+    gs1 = _rn(2, cin + cc, seed=seed + 4, scale=1e-2)
+    gs2 = _rn(2, cin + cc, seed=seed + 5, scale=1e-2)
+    return x, y, gy, gs1, gs2, w
+
+
+@pytest.mark.parametrize("cin,cc", PAIRS)
+@pytest.mark.parametrize("stats", [True, False])
+@pytest.mark.parametrize("dtype", [F32, BF])
+def test_down_input_gradient_is_the_parity_product(cin, cc, stats, dtype):
+    x, y, gy, gs1, gs2, w = _down_case(cin, cc, dtype, seed=cin + cc)
+    if not stats:
+        gs1 = gs2 = None
+    ref = D.down_bwd_plain(x, y, gy, gs1, gs2, w, stem=False)[0]
+    if stats:   # the stats fold, as the kernel's loads compute it
+        bc = (slice(None), None, None, slice(None))
+        g = (gy.float() + gs1[bc] + 2.0 * y.float() * gs2[bc]).to(dtype)
+    else:
+        g = gy
+    wt = w.to(dtype).permute(0, 1, 3, 2).contiguous()   # the wrapper's
+    conv = parity_product(g[..., :cc], wt, flip=True).to(dtype)
+    got = (conv.float() + D.pool_grad_plain(x, g[..., cc:]).to(dtype)
+           .float()).to(dtype)
+    _close(got, ref)
+
+
+@pytest.mark.parametrize("cin,cout", [(128, 64), (64, 16)])
+@pytest.mark.parametrize("dtype", [F32, BF])
+def test_upsampler_forward_is_the_parity_product(cin, cout, dtype):
+    x = _rn(2, 5, 7, cin, seed=cin).relu().to(dtype)
+    w = _rn(3, 3, cin, cout, seed=cin + 1, scale=(9 * cin) ** -0.5)
+    b = _rn(cout, seed=cin + 2, scale=0.1)
+    ref = U.ups_fwd_plain(x, w, b, stats=False)[0]
+    got = (parity_product(x, w.to(dtype), flip=False) + b).to(dtype)
+    _close(got, ref)
+
+
+@pytest.mark.parametrize("cin,cout", [(128, 64), (64, 16)])
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_cached_wcat_gather_is_build_upsampler_matmul(cin, cout, dtype):
+    w = _rn(3, 3, cin, cout, seed=cin + cout)
+    ref = build_upsampler_matmul(w.to(dtype), w.new_zeros(cout))[0].to(dtype)
+    got = U._wcat(w, cin, cout, dtype)
+    assert got.dtype == dtype and torch.equal(got, ref)
+    reft = (ref.reshape(4, cin, 4 * cout).transpose(1, 2)
+            .reshape(16 * cout, cin))
+    assert torch.equal(U._wcat(w, cin, cout, dtype, transposed=True), reft)
+
+
+def _wgrad_in_kernel_order(x, g, cin, cc):
+    """dW (3, 3, cin, cc) and db as the bf16 kernel sums them: per chunk
+    of WG_ROWS output rows and per kh, blocks of BP pixels of one row;
+    the block's input-row segment (slot s: column 2 wo0 - 1 + s) gives
+    tap kw as the stride-2 view of slots kw, kw + 2, ...; the chunks'
+    partials then added in order."""
+    B, H, W, _ = x.shape
+    Ho, Wo = H // 2, W // 2
+    rows_per, bp = D.WG_ROWS[cin], 64 if (cin, cc) == (64, 64) else 128
+    xf = torch.nn.functional.pad(x.float(), (0, 0, 1, 2 * bp, 1, 1))
+    gf = g[..., :cc].float()
+    parts = []
+    for r0 in range(0, B * Ho, rows_per):
+        dw = torch.zeros(3, 3, cin, cc)
+        db = torch.zeros(cc)
+        for row in range(r0, min(r0 + rows_per, B * Ho)):
+            b, ho = divmod(row, Ho)
+            for wo0 in range(0, Wo, bp):
+                n = min(bp, Wo - wo0)
+                gt = gf[b, ho, wo0:wo0 + n]
+                db += gt.sum(0)
+                for kh in range(3):
+                    seg = xf[b, 2 * ho + kh, 2 * wo0:2 * wo0 + 2 * n + 1]
+                    for kw in range(3):
+                        dw[kh, kw] += seg[kw:kw + 2 * n:2].t() @ gt
+        parts.append(torch.cat([dw.reshape(-1), db]))
+    total = torch.zeros_like(parts[0])
+    for p in parts:
+        total += p
+    return total[:9 * cin * cc].view(3, 3, cin, cc), total[9 * cin * cc:]
+
+
+@pytest.mark.parametrize("cin,cc", [(3, 13), *PAIRS])
+@pytest.mark.parametrize("dtype", [F32, BF])
+def test_weight_gradient_in_kernel_order(cin, cc, dtype):
+    x, y, gy, gs1, gs2, w = _down_case(cin, cc, dtype, seed=3 * cin + cc)
+    stem = cin == 3
+    _, dw, db = D.down_bwd_plain(x, y, gy, gs1, gs2, w, stem=stem)
+    bc = (slice(None), None, None, slice(None))
+    g = (gy.float() + gs1[bc] + 2.0 * y.float() * gs2[bc]).to(dtype)
+    got_dw, got_db = _wgrad_in_kernel_order(x, g, cin, cc)
+    _rel(got_dw, dw)
+    _rel(got_db, db)
