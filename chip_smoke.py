@@ -6,10 +6,12 @@
 
 ``--split`` builds the kernels and splits the calls of the parity-plane
 rows (the train downsampler backward, rows 5, 5 on g = gy and 8; the
-train upsampler forward, rows 12 and 10) at their B=6 shapes by launch:
-CUDA events, device time by kernel (torch.profiler) and the host's
-enqueue time, then prints the card line; no result line.  Phases 9 and
-28 print the same split for those rows.
+train upsampler forward, rows 12 and 10) and of the train downsampler
+forward (rows 7, 6 and 4) at their B=6 shapes by launch: CUDA events,
+device time by kernel (torch.profiler) and the host's enqueue time, with
+cuDNN's forward conv of the same shape by device time beside each
+forward; then prints the card line; no result line.  Phases 9 and 28
+print the same split for the parity-plane rows.
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -3387,66 +3389,84 @@ def log_split(label, s):
 
 
 def split_calls(device, dtype):
-    """(row, label, call) of the parity-plane rows at their B=6 shapes:
-    the train downsampler backward with statistics (rows 5, 8)
-    and on g = gy (row 5 gy), the train upsampler forward with and
-    without statistics (rows 12, 10)."""
+    """(row, label, call, yardstick) at the B=6 shapes: the train
+    downsampler forward with statistics (rows 7, 6) and without (row 4),
+    its backward with statistics (rows 5, 8) and on g = gy (row 5 gy), the
+    train upsampler forward with and without statistics (rows 12, 10).
+    ``yardstick``: cuDNN's forward conv of the same shape (a forward of the
+    downsampler; the stem's on its translated image), else None."""
     import torch
     from erfnet_pytorch_tpu_torch.ops.cuda import downsampler_train as dt
     from erfnet_pytorch_tpu_torch.ops.cuda import upsampler_train as ut
     g = torch.Generator().manual_seed(97)
     calls = []
+
+    def cudnn(xa, w):
+        return _lib_conv(xa, w.permute(3, 2, 0, 1), 2, 1, 1)[0]
     for label, shape, cc in down_train_cases(TRAIN_B):
         stem = label == "stem"
         x, w, b, kw = down_inputs(label, shape, cc, g, device, dtype)
         xa, y = dt.down_fwd_plain(x, w, b, **kw)[:2]
+        calls.append((7 if stem else 6, label, (
+            lambda x=x, w=w, b=b, kw=kw: dt.down_fwd(x, w, b, **kw)),
+            cudnn(xa, w)))
         gy = torch.randn(*y.shape, generator=g).to(device).to(dtype)
         gs = (1e-3 * torch.randn(shape[0], y.shape[-1], generator=g)).to(
             device)
         calls.append((8 if stem else 5, label, (
             lambda xa=xa, y=y, gy=gy, gs=gs, w=w, stem=stem:
-            dt.down_bwd(xa, y, gy, gs, gs, w, stem=stem))))
+            dt.down_bwd(xa, y, gy, gs, gs, w, stem=stem)), None))
     for label, shape, cc in nostats_down_cases(TRAIN_B):
         x, w, b, _kw = down_inputs(label, shape, cc, g, device, dtype)
         y = dt.down_fwd_plain(x, w, b, stats=False)[1]
+        calls.append((4, label, (
+            lambda x=x, w=w, b=b: dt.down_fwd(x, w, b, stats=False)),
+            cudnn(x, w)))
         gy = torch.randn(*y.shape, generator=g).to(device).to(dtype)
         calls.append(("5 gy", label, (
             lambda x=x, gy=gy, w=w:
-            dt.down_bwd(x, None, gy, None, None, w, stem=False))))
+            dt.down_bwd(x, None, gy, None, None, w, stem=False)), None))
     for label, shape, cout in up_train_cases(TRAIN_B):
         x, w, b = ups_inputs(shape, cout, g, device, dtype)
         for stats in (True, False):
             calls.append((12 if stats else 10, label, (
                 lambda x=x, w=w, b=b, stats=stats:
-                ut.ups_fwd(x, w, b, stats=stats))))
+                ut.ups_fwd(x, w, b, stats=stats)), None))
     return calls
 
 
 def phase_split(device, iters, dtypes=None):
     """Each call of ``split_calls`` through its wrapper, split by
     ``kernel_split`` (bf16, and the f32 forms of rows 10 and 12, whose
-    wrappers build the same parity-plane weight); summed by row."""
+    wrappers build the same parity-plane weight), and its yardstick's
+    device time (``cudnn``); summed by row."""
     import torch
     out = {}
     for dtype in dtypes or (torch.bfloat16, torch.float32):
         form = "" if dtype == torch.bfloat16 else " f32"
         log(f"[kernel split{form}] B=6: CUDA events, device time by kernel "
-            "(torch.profiler), host enqueue time per call")
+            "(torch.profiler), host enqueue time per call; cuDNN's forward "
+            "conv by device time")
         with no_tf32() if form else contextlib.nullcontext():
-            for row, label, fn in split_calls(device, dtype):
+            for row, label, fn, lib in split_calls(device, dtype):
                 if form and row not in (10, 12):
                     continue
                 s = kernel_split(fn, iters)
                 log_split(f"row {row}{form} {label}", s)
                 r = out.setdefault(f"{row}{form}", {
                     "events": 0.0, "device": 0.0, "host": 0.0, "gap": 0.0,
-                    "calls": {}})
+                    "cudnn": 0.0, "calls": {}})
+                if lib is not None:
+                    s["cudnn"] = _device_ms(lib, iters)
+                    r["cudnn"] += s["cudnn"]
+                    log(f"      cuDNN forward conv, device {s['cudnn']:.4f}")
                 for k in ("events", "device", "host", "gap"):
                     r[k] += s[k]
                 r["calls"][label] = s
     for row, r in out.items():
         log(f"  row {row}: events {r['events']:.4f} ms, device "
-            f"{r['device']:.4f}, host enqueue {r['host']:.4f}")
+            f"{r['device']:.4f}, host enqueue {r['host']:.4f}"
+            + (f", cuDNN device {r['cudnn']:.4f}" if r["cudnn"] else ""))
     return out
 
 

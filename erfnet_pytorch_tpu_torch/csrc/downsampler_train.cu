@@ -22,10 +22,23 @@
 // equally among tied inputs, so a window of four equal values gives a
 // quarter to each.
 //
-// Forward: an implicit GEMM over tiles of 64 output pixels of one image
-// (K = 9 Cin padded to 16, N = Cc padded to 16), the 3x3 windows gathered
-// into shared memory, mma.sync; the pool from the staged window; per-tile
-// stat partials reduced in a fixed order by a second launch.
+// Forward (bf16): the stride-2 conv over the parity planes of a halo patch
+// (parity_plane.cuh, PFPatch): a tile of TH x 32 output pixels of one image
+// (TH = 2 at Cin = 64, 4 at 16, 8 at 3) stages its (2 TH + 1) x 65 input
+// pixels once with 16-byte cp.async straight into four parity planes,
+// where each of the nine taps is a shifted, unit-stride ldmatrix view
+// (9 Cin Cc MACs a pixel on mma.sync, the (9 Cin x Cc) tap stack resident
+// in shared memory, read from w as it is); the pool is taps 4, 5, 7, 8 of
+// the same patch.  Persistent CTAs: the next tile's patch is in flight
+// while this one multiplies.  The epilogue stages whole output pixels
+// (conv channels rounded from f32, then the pool channels) and writes them
+// 16 bytes a thread; the sums come from the stored values, reduced across
+// the CTA in a fixed order into one partial per tile, and a second launch
+// adds the partials in a fixed order.  At Cin = 3 (PFRaw) a patch row is
+// one run of 65 x 3 values staged in 4-byte words (the stem's shifted by
+// its translate, rounded to bf16 once in an im2col tile of K = 27 padded
+// to 32); the stem writes the translated image's tile interior from the
+// patch.
 //
 // Input gradient (bf16): the conv's input gradient is the transposed
 // conv's parity-plane product (parity_plane.cuh): g pixel (i, j) gives
@@ -48,8 +61,7 @@
 // nine; double-buffered; the partials reduced in a fixed order.
 //
 // Bound on this card: bytes (the products are small next to the maps they
-// read).  What is left: the forward's gathers (each input pixel up to four
-// times through L2); the input gradient's epilogue reads x's window once
+// read).  What is left: the input gradient's epilogue reads x's window once
 // per output pixel, four times in all; the weight gradient's partials (a
 // chunk of 4 rows at 64 -> 64 is 144 CTAs, 1.1 per SM) and its scalar
 // loads of the 3-channel image; wgmma and TMA nowhere.
@@ -91,166 +103,309 @@ namespace {
 
 constexpr int round16(int v) { return (v + 15) / 16 * 16; }
 
-template <int CIN, int CC>
+// Forward (bf16): tiles of TH x 32 output pixels of one image, the halo
+// patch in parity planes (parity_plane.cuh PFPatch; PFRaw and an im2col
+// tile at Cin = 3), the (9 Cin x Cc) tap stack resident; persistent CTAs
+// of 256 threads, the next tile's patch in flight while this one
+// multiplies.  Warps: WROWS x WCOLS, each WM pixels (of one tile row) x WN
+// conv channels.  Epilogue: the conv channels rounded from f32 and the
+// pool channels staged in Cs (whole output pixels), written 16 bytes a
+// thread, the sums taken from the stored values.
+template <int CIN, int CC, bool STEM>
 struct Fwd {
-  static constexpr int BM = 64, THREADS = 128;
-  static constexpr int COUT = CIN + CC;
-  static constexpr int K = 9 * CIN, KP = round16(K), NP = round16(CC);
-  static constexpr int LDA = KP + 8, LDB = NP + 8, LDC = NP + 4;
-  static constexpr size_t a_bytes = ((size_t)BM * LDA * 2 + 127) / 128 * 128;
-  static constexpr size_t c_bytes = ((size_t)BM * LDC * 4 + 127) / 128 * 128;
-  static constexpr size_t smem = a_bytes + c_bytes + (size_t)KP * LDB * 2;
-  static_assert(THREADS % COUT == 0, "a thread keeps one channel");
-  static_assert((size_t)THREADS * 2 * 4 <= c_bytes, "reduction scratch");
+  static constexpr int TH = CIN == 64 ? 2 : CIN == 16 ? 4 : 8, TW = 32;
+  static constexpr int BM = TH * TW, THREADS = 256, WARPS = 8;
+  static constexpr int COUT = CIN + CC, NP = round16(CC), VC = COUT / 8;
+  static constexpr int KP = CIN == 3 ? 32 : 9 * CIN;  // Cin = 3: K = 27, padded
+  static constexpr int WN = NP <= 48 ? NP : 32, WCOLS = NP / WN;
+  static constexpr int WROWS = WARPS / WCOLS, WM = BM / WROWS;
+  static constexpr int MT = WM / 16, NT = WN / 8;
+  // the tap stack: at Cc = 64 a row is 8 chunks, chunk e of row k stored
+  // at e ^ (k & 7) (no padding); else the pitch is an odd multiple of 16
+  // bytes
+  static constexpr bool SWZ_W = NP == 64;
+  static constexpr int LDA = KP + 8, LDB = SWZ_W ? NP : NP + 8;
+  static constexpr int LDO = COUT + 8;
+  __device__ static bf16* w_at(bf16* Ws, int k, int e) {
+    return Ws + k * LDB + (SWZ_W ? e ^ (k & 7) : e) * 8;
+  }
+  static constexpr int MIN_CTAS = CIN == 64 ? 1 : CIN == 16 ? 2 : 3;
+  using Patch =
+      std::conditional_t<CIN == 3, PFRaw<STEM, TH>, PFPatch<CIN, TH>>;
+  static constexpr size_t patch_bytes = Patch::bytes;
+  static constexpr size_t a_off = 2 * patch_bytes;  // two patches
+  static constexpr size_t w_off =
+      a_off + (CIN == 3 ? pp_align((size_t)BM * LDA * 2) : 0);
+  static constexpr size_t o_off = w_off + pp_align((size_t)KP * LDB * 2);
+  static constexpr size_t smem = o_off + pp_align((size_t)BM * LDO * 2);
+  // the sums' scratch lives in the tile's own patch, read by then
+  static constexpr size_t red_bytes = (size_t)WARPS * VC * 16 * 4;
+  static_assert((CIN == 3 || CIN % 16 == 0) && COUT % 8 == 0 &&
+                    WM % 16 == 0 && TW % WM == 0,
+                "forward tile: a warp's pixels in one tile row");
+  static_assert(CIN != 3 || BM == THREADS, "Cin = 3: a thread a pixel");
+  static_assert(VC <= 32 && 2 * COUT <= THREADS && smem <= 232448 &&
+                    red_bytes <= patch_bytes,
+                "forward epilogue");
 };
 
-// Stage the 3x3 windows of output pixels [m0, m_end) (row r, column
-// tap * CIN + ci, tap = kh * 3 + kw), zero outside the map and in the K
-// padding.  STEM: x is the f32 image, translated by (tx, ty) and rounded
-// to bf16 on the way; else x is bf16.
-template <int CIN, int CC, bool STEM>
-__device__ __forceinline__ void gather_fwd(bf16* As, const void* xv,
-                                           const int* shifts, long long m0,
-                                           long long m_end, int Ho, int Wo) {
-  using G = Fwd<CIN, CC>;
-  const int H = 2 * Ho, W = 2 * Wo;
-  if constexpr (!STEM && CIN % 8 == 0) {
-    const bf16* x = static_cast<const bf16*>(xv);
-    constexpr int VPT = CIN / 8;
-    for (int v = threadIdx.x; v < G::BM * 9 * VPT; v += blockDim.x) {
-      const int r = v / (9 * VPT), tap = (v / VPT) % 9, j = v % VPT;
-      const long long m = m0 + r;
-      const long long b = m / ((long long)Ho * Wo);
-      const int rem = (int)(m % ((long long)Ho * Wo));
-      const int hi = 2 * (rem / Wo) - 1 + tap / 3;
-      const int wi = 2 * (rem % Wo) - 1 + tap % 3;
-      const bool valid = m < m_end && hi >= 0 && hi < H && wi >= 0 && wi < W;
-      const long long pix = valid ? (b * H + hi) * W + wi : 0;
-      cp_async16(As + r * G::LDA + tap * CIN + j * 8, x + pix * CIN + j * 8,
-                 valid);
-    }
-    cp_async_commit();
-    cp_async_wait_all();
-  } else {
-    constexpr int PER = G::BM * G::KP / G::THREADS;
-    static_assert(G::BM * G::KP % G::THREADS == 0, "tile / threads");
-    bf16 val[PER];
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int e = threadIdx.x + i * G::THREADS;
-      const int r = e / G::KP, k = e % G::KP;
-      const long long m = m0 + r;
-      const int tap = k / CIN, ci = k % CIN;
-      const long long b = m / ((long long)Ho * Wo);
-      const int rem = (int)(m % ((long long)Ho * Wo));
-      int hi = 2 * (rem / Wo) - 1 + tap / 3;
-      int wi = 2 * (rem % Wo) - 1 + tap % 3;
-      bool valid = m < m_end && k < G::K && hi >= 0 && hi < H && wi >= 0 &&
-                   wi < W;
-      val[i] = __float2bfloat16(0.0f);
-      if constexpr (STEM) {
-        if (valid) {
-          hi -= __ldg(shifts + 2 * b + 1);
-          wi -= __ldg(shifts + 2 * b);
-          valid = hi >= 0 && hi < H && wi >= 0 && wi < W;
-        }
-        if (valid)
-          val[i] = __float2bfloat16(__ldg(static_cast<const float*>(xv) +
-                                          ((b * H + hi) * W + wi) * CIN + ci));
-      } else {
-        if (valid)
-          val[i] = static_cast<const bf16*>(xv)[((b * H + hi) * W + wi) * CIN +
-                                                ci];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int e = threadIdx.x + i * G::THREADS;
-      As[(e / G::KP) * G::LDA + e % G::KP] = val[i];
-    }
-  }
-}
-
 template <int CIN, int CC, bool STEM, bool S>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(256, (Fwd<CIN, CC, STEM>::MIN_CTAS))
 down_fwd_kernel(const void* __restrict__ x, const int* __restrict__ shifts,
-                const bf16* __restrict__ wmat, const float* __restrict__ bias,
+                const bf16* __restrict__ w, const float* __restrict__ bias,
                 bf16* __restrict__ out, bf16* __restrict__ xa,
                 float* __restrict__ part, int B, int Ho, int Wo) {
-  using G = Fwd<CIN, CC>;
+  using G = Fwd<CIN, CC, STEM>;
+  using P = typename G::Patch;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  float* Cs = reinterpret_cast<float*>(smem + G::a_bytes);
-  bf16* Ws = reinterpret_cast<bf16*>(smem + G::a_bytes + G::c_bytes);
-  const int HWo = Ho * Wo, TPI = (HWo + G::BM - 1) / G::BM;
-  const int tiles = B * TPI;
-  const int c = threadIdx.x % G::COUT;  // this thread's output channel
-  const float bc = c < CC ? __ldg(bias + c) : 0.0f;
+  bf16* As = reinterpret_cast<bf16*>(smem + G::a_off);
+  bf16* Ws = reinterpret_cast<bf16*>(smem + G::w_off);
+  bf16* Cs = reinterpret_cast<bf16*>(smem + G::o_off);
+  const int H = 2 * Ho, W = 2 * Wo;
+  const int tiles =
+      B * ((Ho + G::TH - 1) / G::TH) * ((Wo + G::TW - 1) / G::TW);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / G::WCOLS, wn = warp % G::WCOLS;
 
-  load_matrix(Ws, G::LDB, wmat, G::KP, G::NP);
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int b = tile / TPI, local = tile % TPI;
-    const long long m0 = (long long)b * HWo + (long long)local * G::BM;
-    const long long e_img = (long long)b * HWo + HWo;
-    const long long m_end = m0 + G::BM < e_img ? m0 + G::BM : e_img;
-    gather_fwd<CIN, CC, STEM>(As, x, shifts, m0, m_end, Ho, Wo);
-    cp_async_wait_all();  // the weights, at the first tile
+  // the tap stack, row (kh * 3 + kw) CIN + ci, zero in the padding
+  if constexpr (CC % 8 == 0) {
+    static_assert(G::NP == CC, "no column padding");
+    for (int v = threadIdx.x; v < 9 * CIN * (CC / 8); v += G::THREADS) {
+      const int r = v / (CC / 8), e = v % (CC / 8);
+      cp_async16(G::w_at(Ws, r, e), w + (size_t)r * CC + e * 8, true);
+    }
+  } else {
+    for (int e = threadIdx.x; e < G::KP * G::NP; e += G::THREADS) {
+      const int k = e / G::NP, n = e % G::NP;
+      Ws[k * G::LDB + n] =
+          k < 9 * CIN && n < CC ? w[k * CC + n] : __float2bfloat16(0.0f);
+    }
+  }
+  // thread (g8, t4) of an m16 x n8 tile: columns 2 t4, 2 t4 + 1
+  float bv[G::NT][2];
+#pragma unroll
+  for (int nt = 0; nt < G::NT; ++nt)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int n = wn * G::WN + nt * 8 + 2 * (lane % 4) + q;
+      bv[nt][q] = n < CC ? __ldg(bias + n) : 0.0f;
+    }
+
+  auto patch_of = [&](int kk) { return smem + (kk & 1) * G::patch_bytes; };
+  auto issue = [&](int t, int kk) {
+    if (t < tiles) {
+      const PPTile tl = pp_tile_of<G>(t, Ho, Wo);
+      if constexpr (CIN == 3)
+        pf_load_raw<P>(patch_of(kk), x, shifts, tl, H, W, G::THREADS);
+      else
+        pf_load_patch<P>(reinterpret_cast<bf16*>(patch_of(kk)),
+                         static_cast<const bf16*>(x), tl, H, W, G::THREADS);
+    }
+    cp_async_commit();
+  };
+
+  issue(blockIdx.x, 0);  // with the tap stack
+  int kk = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++kk) {
+    const PPTile tl = pp_tile_of<G>(t, Ho, Wo);
+    issue(t + gridDim.x, kk + 1);  // into the buffer tile kk - 1 left
+    cp_async_wait_group<1>();
     __syncthreads();
+    unsigned char* patch = patch_of(kk);
+    float acc[G::MT][G::NT][4];
+#pragma unroll
+    for (int mt = 0; mt < G::MT; ++mt)
+#pragma unroll
+      for (int n = 0; n < G::NT; ++n)
+        acc[mt][n][0] = acc[mt][n][1] = acc[mt][n][2] = acc[mt][n][3] = 0.0f;
 
-    block_gemm<16, G::NP, G::LDA, G::NP, G::KP>(As, Ws, Cs);
-
-    float s0 = 0.0f, s1 = 0.0f;
-    for (int e = threadIdx.x; e < G::BM * G::COUT; e += blockDim.x) {
-      const int r = e / G::COUT;
-      const long long m = m0 + r;
-      if (m >= m_end) break;
-      float v;
-      if (c < CC) {
-        v = __bfloat162float(__float2bfloat16(Cs[r * G::LDC + c] + bc));
-      } else {
-        const bf16* a = As + r * G::LDA + (c - CC);
-        v = fmaxf(fmaxf(__bfloat162float(a[4 * CIN]),
-                        __bfloat162float(a[5 * CIN])),
-                  fmaxf(__bfloat162float(a[7 * CIN]),
-                        __bfloat162float(a[8 * CIN])));
+    // the product: B fragments of rows krow .. krow + 15 of the tap stack
+    // against this warp's A fragments (the tap's plane pixels at Cin = 16,
+    // 64; the im2col tile at Cin = 3)
+    auto mma_k16 = [&](const unsigned (&a)[G::MT][4], int krow) {
+#pragma unroll
+      for (int n = 0; n < G::WN / 16; ++n) {
+        unsigned bb[4];
+        ldsm_x4_trans(bb, G::w_at(Ws, krow + lane % 16,
+                                  (wn * G::WN + n * 16) / 8 + lane / 16));
+#pragma unroll
+        for (int mt = 0; mt < G::MT; ++mt) {
+          mma_bf16_16816(acc[mt][2 * n], a[mt], bb[0], bb[1]);
+          mma_bf16_16816(acc[mt][2 * n + 1], a[mt], bb[2], bb[3]);
+        }
       }
-      out[m * G::COUT + c] = __float2bfloat16(v);
-      if constexpr (S) {
-        s0 += v;
-        s1 += __fmul_rn(v, v);
+    };
+    const bf16* pb = reinterpret_cast<const bf16*>(patch);
+    if constexpr (CIN == 3) {
+      // im2col from the patch rows: K index kh * 9 + kw * 3 + ci is value
+      // 6 c + kw * 3 + ci of patch row 2 r + kh, rounded to bf16 once
+      {
+        const int m = threadIdx.x, r = m / G::TW, c = m % G::TW;
+        float v[G::KP];
+#pragma unroll
+        for (int kh = 0; kh < 3; ++kh)
+#pragma unroll
+          for (int q = 0; q < 9; ++q)
+            v[kh * 9 + q] = P::at(patch, 2 * r + kh, 6 * c + q);
+#pragma unroll
+        for (int k = 27; k < G::KP; ++k) v[k] = 0.0f;
+#pragma unroll
+        for (int j = 0; j < G::KP / 8; ++j)
+          *reinterpret_cast<uint4*>(As + m * G::LDA + j * 8) =
+              pack_bf16x8(v + j * 8);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < G::KP; k += 16) {
+        unsigned a[G::MT][4];
+#pragma unroll
+        for (int mt = 0; mt < G::MT; ++mt)
+          ldsm_x4(a[mt], As + (wm * G::WM + mt * 16 + lane % 16) * G::LDA +
+                             k + (lane / 16) * 8);
+        mma_k16(a, k);
+      }
+    } else {
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        int q[G::MT];  // this lane's A row: the tap's plane pixel
+#pragma unroll
+        for (int mt = 0; mt < G::MT; ++mt) {
+          const int m = wm * G::WM + mt * 16 + lane % 16;
+          q[mt] = P::tap(m / G::TW, m % G::TW, tap / 3, tap % 3);
+        }
+#pragma unroll
+        for (int k = 0; k < CIN; k += 16) {
+          unsigned a[G::MT][4];
+#pragma unroll
+          for (int mt = 0; mt < G::MT; ++mt)
+            ldsm_x4(a[mt], P::at(pb, q[mt], k / 8 + lane / 16));
+          mma_k16(a, tap * CIN + k);
+        }
+      }
+    }
+
+    // stage: the conv channels, bf16(sum + b)
+#pragma unroll
+    for (int mt = 0; mt < G::MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = wm * G::WM + mt * 16 + lane / 4 + 8 * h;
+#pragma unroll
+        for (int nt = 0; nt < G::NT; ++nt) {
+          const int n = wn * G::WN + nt * 8 + 2 * (lane % 4);
+          const float v0 = acc[mt][nt][2 * h] + bv[nt][0];
+          const float v1 = acc[mt][nt][2 * h + 1] + bv[nt][1];
+          bf16* dst = Cs + m * G::LDO + n;
+          if constexpr (CC % 2 == 0) {
+            *reinterpret_cast<__nv_bfloat162*>(dst) =
+                __floats2bfloat162_rn(v0, v1);
+          } else {
+            if (n < CC) dst[0] = __float2bfloat16(v0);
+            if (n + 1 < CC) dst[1] = __float2bfloat16(v1);
+          }
+        }
+      }
+    // the pool channels: max of taps 4, 5, 7, 8 (bf16 values; the max of
+    // the stem's f32 values rounds as the max of their roundings)
+    if constexpr (CIN == 3) {
+      const int m = threadIdx.x, r = m / G::TW, c = m % G::TW;
+#pragma unroll
+      for (int ci = 0; ci < 3; ++ci) {
+        float v = P::at(patch, 2 * r + 1, (2 * c + 1) * 3 + ci);
+        v = fmaxf(v, P::at(patch, 2 * r + 1, (2 * c + 2) * 3 + ci));
+        v = fmaxf(v, fmaxf(P::at(patch, 2 * r + 2, (2 * c + 1) * 3 + ci),
+                           P::at(patch, 2 * r + 2, (2 * c + 2) * 3 + ci)));
+        Cs[m * G::LDO + CC + ci] = __float2bfloat16(v);
+      }
+    } else {
+      for (int v = threadIdx.x; v < G::BM * P::VK; v += G::THREADS) {
+        const int m = v / P::VK, j = v % P::VK;
+        const int r = m / G::TW, c = m % G::TW;
+        float t4[8], t5[8], t7[8], t8[8], o[8];
+        auto tap8 = [&](int kh, int kw, float (&t)[8]) {
+          unpack_bf16x8(*reinterpret_cast<const uint4*>(
+                            P::at(pb, P::tap(r, c, kh, kw), j)), t);
+        };
+        tap8(1, 1, t4);
+        tap8(1, 2, t5);
+        tap8(2, 1, t7);
+        tap8(2, 2, t8);
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          o[k] = fmaxf(fmaxf(t4[k], t5[k]), fmaxf(t7[k], t8[k]));
+        *reinterpret_cast<uint4*>(Cs + m * G::LDO + CC + j * 8) =
+            pack_bf16x8(o);
       }
     }
     if constexpr (STEM) {
-      // each input pixel lies in exactly one output pixel's 2x2 window
-      // (taps 4, 5, 7, 8): that tile writes its translated value
-      for (int e = threadIdx.x; e < G::BM * 4 * CIN; e += blockDim.x) {
-        const int r = e / (4 * CIN), q = (e / CIN) % 4, ci = e % CIN;
-        const long long m = m0 + r;
-        if (m >= m_end) break;
-        const int rem = (int)(m - (long long)b * HWo);
-        const int h = 2 * (rem / Wo) + q / 2, w = 2 * (rem % Wo) + q % 2;
-        const int tap = (1 + q / 2) * 3 + 1 + q % 2;
-        xa[(((long long)b * 2 * Ho + h) * 2 * Wo + w) * CIN + ci] =
-            As[r * G::LDA + tap * CIN + ci];
+      // the translated image's tile interior (patch rows 1 .. 2 TH, values
+      // 3 .. 6 TW + 2), a bf16 pair a thread: each input pixel lies in
+      // exactly one tile
+      const int n3 = 3 * min(2 * G::TW, W - 2 * tl.j0);  // even
+      for (int v = threadIdx.x; v < 2 * G::TH * 3 * G::TW;
+           v += G::THREADS) {
+        const int pr = 1 + v / (3 * G::TW), k = v % (3 * G::TW);
+        const int h = 2 * tl.i0 + pr - 1;
+        if (h < H && 2 * k < n3)
+          *reinterpret_cast<__nv_bfloat162*>(
+              xa + (((long long)tl.b * H + h) * W + 2 * tl.j0) * 3 + 2 * k) =
+              __floats2bfloat162_rn(P::at(patch, pr, 3 + 2 * k),
+                                    P::at(patch, pr, 4 + 2 * k));
       }
     }
-    __syncthreads();  // Cs and As read: Cs becomes the reduction scratch
-    if constexpr (!S) continue;
-    float* red = Cs;
-    red[threadIdx.x] = s0;
-    red[G::THREADS + threadIdx.x] = s1;
     __syncthreads();
-    if (threadIdx.x < G::COUT) {
-      float a0 = 0.0f, a1 = 0.0f;
-      for (int t = threadIdx.x; t < G::THREADS; t += G::COUT) {
-        a0 += red[t];
-        a1 += red[G::THREADS + t];
+
+    // write whole output pixels, 16 bytes a thread; thread t always holds
+    // channels 8 (t % VC) .. + 7, its sums in registers
+    float s0[8], s1[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) s0[k] = s1[k] = 0.0f;
+    for (int v = threadIdx.x; v < G::BM * G::VC; v += G::THREADS) {
+      const int m = v / G::VC, j = v % G::VC;
+      const int i = tl.i0 + m / G::TW, jj = tl.j0 + m % G::TW;
+      if (i >= Ho || jj >= Wo) continue;
+      const uint4 q = *reinterpret_cast<const uint4*>(Cs + m * G::LDO + j * 8);
+      *reinterpret_cast<uint4*>(
+          out + (((long long)tl.b * Ho + i) * Wo + jj) * G::COUT + j * 8) = q;
+      if constexpr (S) {
+        float f[8];
+        unpack_bf16x8(q, f);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          s0[k] += f[k];
+          s1[k] += __fmul_rn(f[k], f[k]);
+        }
       }
-      part[(long long)tile * 2 * G::COUT + threadIdx.x] = a0;
-      part[(long long)tile * 2 * G::COUT + G::COUT + threadIdx.x] = a1;
     }
-    __syncthreads();
+    if constexpr (S) {
+      // lanes of one channel group (lane % VC) in a fixed butterfly, the
+      // warps in order: the tile's partial part[t] = [sum y | sum y^2]
+#pragma unroll
+      for (int o = G::VC; o < 32; o *= 2)
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          s0[k] += __shfl_xor_sync(0xffffffffu, s0[k], o);
+          s1[k] += __shfl_xor_sync(0xffffffffu, s1[k], o);
+        }
+      float* red = reinterpret_cast<float*>(patch);
+      if (lane < G::VC)
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          red[(warp * G::VC + lane) * 16 + k] = s0[k];
+          red[(warp * G::VC + lane) * 16 + 8 + k] = s1[k];
+        }
+      __syncthreads();
+      if (threadIdx.x < 2 * G::COUT) {
+        const int q = threadIdx.x / G::COUT, c = threadIdx.x % G::COUT;
+        float a = 0.0f;
+        for (int wi = 0; wi < G::WARPS; ++wi)
+          a += red[(wi * G::VC + c / 8) * 16 + q * 8 + c % 8];
+        part[(long long)t * 2 * G::COUT + threadIdx.x] = a;
+      }
+    }
+    __syncthreads();  // Cs, red and this patch consumed
   }
+  cp_async_wait_all();
 }
 
 // Input gradient: the conv's, as the parity-plane product
@@ -971,21 +1126,21 @@ cudaError_t grid_for(Kernel k, int threads, size_t smem, bool* ok, int* gm) {
 
 // S: with the statistics (part and their reduction into stats)
 template <int CIN, int CC, bool STEM, bool S>
-int fwd(const void* x, const void* shifts, const void* wmat, const void* bias,
+int fwd(const void* x, const void* shifts, const void* w, const void* bias,
         void* out, void* xa, void* part, void* stats, int B, int H, int W,
         cudaStream_t s) {
-  using G = Fwd<CIN, CC>;
+  using G = Fwd<CIN, CC, STEM>;
   static bool ok = false;
   static int gm = 0;
   cudaError_t e = grid_for(down_fwd_kernel<CIN, CC, STEM, S>, G::THREADS,
                            G::smem, &ok, &gm);
   if (e != cudaSuccess) return e;
   const int Ho = H / 2, Wo = W / 2;
-  const int tpi = (Ho * Wo + G::BM - 1) / G::BM;
+  const int tpi = ((Ho + G::TH - 1) / G::TH) * ((Wo + G::TW - 1) / G::TW);
   const int tiles = B * tpi;
   down_fwd_kernel<CIN, CC, STEM, S>
       <<<tiles < gm ? tiles : gm, G::THREADS, G::smem, s>>>(
-          x, static_cast<const int*>(shifts), static_cast<const bf16*>(wmat),
+          x, static_cast<const int*>(shifts), static_cast<const bf16*>(w),
           static_cast<const float*>(bias), static_cast<bf16*>(out),
           static_cast<bf16*>(xa), static_cast<float*>(part), B, Ho, Wo);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
@@ -1145,12 +1300,13 @@ bool pair_ok(int cin, int cc, int stem) {
 //
 // (cin, cc) in {(3, 13), (16, 48), (64, 64)}, the stem mode only at
 // (3, 13).  x: (B, H, W, cin) f32 in the stem mode (the flipped image),
-// else bf16; shifts: (B, 2) int32 (tx, ty), stem mode only; wmat:
-// (round16(9 cin), round16(cc)) bf16, row (kh * 3 + kw) cin + ci; bias:
-// (cc,) f32; out: (B, H/2, W/2, cin + cc) bf16; xa: (B, H, W, 3) bf16, the
-// translated image (stem mode); part: (B * ceil(H W / 256), 2 (cin + cc))
-// f32 scratch; stats: (B, 2 (cin + cc)) f32 = [sum y, sum y^2] per image;
-// with_stats 0: part and stats are not touched.
+// else bf16; shifts: (B, 2) int32 (tx, ty), stem mode only; w: (3, 3,
+// cin, cc) bf16, the tap stack as it is (row (kh * 3 + kw) cin + ci),
+// 16-byte aligned; bias: (cc,) f32; out: (B, H/2, W/2, cin + cc) bf16; xa:
+// (B, H, W, 3) bf16, the translated image (stem mode); part: (B *
+// ceil(H/2 / th) * ceil(W/2 / 32), 2 (cin + cc)) f32 scratch, th = 8, 4, 2
+// at cin = 3, 16, 64; stats: (B, 2 (cin + cc)) f32 = [sum y, sum y^2] per
+// image; with_stats 0: part and stats are not touched.
 extern "C" int erf_down_train_fwd(const void* x, const void* shifts,
                                   const void* wmat, const void* bias,
                                   void* out, void* xa, void* part,
@@ -1196,8 +1352,9 @@ extern "C" int erf_down_train_bwd(const void* gy, const void* y,
 
 
 // The f32 forms: the same operands with x (the f32 image in the stem
-// mode), out, xa in f32; wmat: (round4(9 cin), round4(cc)) f32, zero
-// padded.
+// mode), out, xa in f32; in place of w, wmat: (round4(9 cin), round4(cc))
+// f32, zero padded; part: (B * ceil(H/2 W/2 / bm), 2 (cin + cc)), bm = 128
+// at cin = 3, else 64.
 extern "C" int erf_down_train_fwd_f32(const void* x, const void* shifts,
                                       const void* wmat, const void* bias,
                                       void* out, void* xa, void* part,

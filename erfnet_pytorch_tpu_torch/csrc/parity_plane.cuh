@@ -1,7 +1,9 @@
 // The parity-plane product of a stride-2 3x3 transposed convolution, on
 // the tensor cores, shared by the train upsampler's forward
 // (upsampler_train.cu) and the train downsampler's input gradient
-// (downsampler_train.cu).
+// (downsampler_train.cu); and, at the end of this file, the staging of
+// the forward direction, a stride-2 3x3 conv over the parity planes of a
+// halo patch (the train downsampler's forward).
 //
 // For input pixel p = (i, j) of an (H, W) map a with K channels it forms
 //
@@ -290,6 +292,137 @@ __device__ __forceinline__ void pp_run(unsigned char* smem, const PPSrc& src,
     pol.end_tile(t);
   }
   cp_async_wait_all();
+}
+
+// ---------------------------------------------------------------------------
+// The forward direction: a stride-2 3x3 pad-1 conv over a halo patch split
+// into parity planes (the train downsampler's forward, downsampler_train.cu).
+//
+// A tile is TH x 32 output pixels (i0 + r, j0 + c), r < TH, c < 32, of one
+// image (PPTile, pp_tile_of).  Its input halo patch, input rows 2 i0 - 1 ..
+// 2 (i0 + TH) - 1 and columns 2 j0 - 1 .. 2 j0 + 63 ((2 TH + 1) x 65
+// pixels), is staged once per tile with cp.async, zero past the map, so
+// each input pixel crosses L2 once per tile (the halo's row and column
+// once more).  Tap (kh, kw) of output pixel (r, c) is patch pixel
+// (2 r + kh, 2 c + kw).
+// * PFPatch (Cin = 16, 64): 16-byte copies straight into four parity
+//   planes, patch pixel (pr, pc) to plane p = 2 (pr & 1) + (pc & 1) at
+//   (pr >> 1, pc >> 1).  Tap (kh, kw) is then plane 2 (kh & 1) + (kw & 1)
+//   at (r + (kh >> 1), c + (kw >> 1)): each tap's operand is a unit-stride
+//   view of one plane, shifted by 0 or 1, and ldmatrix takes it a pixel
+//   row at a time (PFPatch::tap).  The 2x2 pool window of (r, c) is taps
+//   4, 5, 7 and 8, read from the same patch.
+// * PFRaw (Cin = 3): a patch row is one contiguous run of 65 x 3 values, staged as it is in 4-byte words (cp_async4); the stem's
+//   translate shifts the run by tx pixels and the row by ty.  Value e of
+//   patch row pr is pixel column 2 j0 - 1 + e / 3, channel e % 3
+//   (PFRaw::at).
+
+// plane p = 2 (row parity) + column parity of a TH x 32 tile's patch:
+// TH + 1 - (p >> 1) rows of 33 - (p & 1) pixels.  A pixel's CIN
+// channels are VK = CIN / 8 chunks of 16 bytes, unpadded; chunk e of plane
+// pixel q is stored at chunk e ^ ((q / (8 / VK)) % VK) of the pixel, so the
+// 8 rows of an ldmatrix (any 8 consecutive plane pixels) fall on the 8
+// bank groups of a 128-byte line.
+template <int CIN, int TH_>
+struct PFPatch {
+  static_assert(CIN == 16 || CIN == 64, "2 or 8 chunks a pixel");
+  static constexpr int TH = TH_, TW = 32, PR = 2 * TH + 1, PC = 2 * TW + 1;
+  static constexpr int LDK = CIN, VK = CIN / 8, PER_LINE = 8 / VK;
+  static constexpr int PIXELS = PR * PC;
+  static constexpr size_t bytes = pp_align((size_t)PIXELS * LDK * 2);
+  __host__ __device__ static constexpr int cols(int p) {
+    return TW + 1 - (p & 1);
+  }
+  __host__ __device__ static constexpr int plane_off(int p) {  // pixels
+    return p < 2 ? p * (TH + 1) * (TW + 1)
+                 : (TH + 1) * PC + (p - 2) * TH * (TW + 1);
+  }
+  // the plane pixel of patch pixel (pr, pc)
+  __host__ __device__ static constexpr int pixel(int pr, int pc) {
+    return plane_off((pr & 1) * 2 + (pc & 1)) +
+           (pr >> 1) * cols((pr & 1) * 2 + (pc & 1)) + (pc >> 1);
+  }
+  // tap (kh, kw) of output pixel (r, c): the plane pixel of patch pixel
+  // (2 r + kh, 2 c + kw), plane 2 (kh & 1) + (kw & 1) at (r + (kh >> 1),
+  // c + (kw >> 1))
+  __host__ __device__ static constexpr int tap(int r, int c, int kh,
+                                               int kw) {
+    return pixel(2 * r + kh, 2 * c + kw);
+  }
+  // chunk e (channels 8 e .. 8 e + 7) of plane pixel q
+  __device__ static const bf16* at(const bf16* patch, int q, int e) {
+    return patch + q * LDK + (e ^ ((q / PER_LINE) % VK)) * 8;
+  }
+};
+
+// Start copying tile tl's patch of the bf16 map x (B, H, W, CIN) into its
+// planes at dst.
+template <class P>
+__device__ __forceinline__ void pf_load_patch(bf16* dst, const bf16* x,
+                                              PPTile tl, int H, int W,
+                                              int nthreads) {
+  for (int v = threadIdx.x; v < P::PIXELS * P::VK; v += nthreads) {
+    const int pix = v / P::VK, e = v % P::VK;
+    const int pr = pix / P::PC, pc = pix % P::PC;
+    const int h = 2 * tl.i0 - 1 + pr, w = 2 * tl.j0 - 1 + pc;
+    const bool valid = h >= 0 && h < H && w >= 0 && w < W;
+    const long long src =
+        valid ? (((long long)tl.b * H + h) * W + w) * (P::VK * 8) + e * 8 : 0;
+    cp_async16(const_cast<bf16*>(P::at(dst, P::pixel(pr, pc), e)), x + src,
+               valid);
+  }
+}
+
+// The 3-channel patch: STEM, the f32 image, translated; else a bf16 map,
+// whose rows start on a word (W even) and whose patch run starts on the
+// second half of one (LEAD).
+template <bool STEM_, int TH_>
+struct PFRaw {
+  static constexpr bool STEM = STEM_;
+  using T = std::conditional_t<STEM, float, bf16>;
+  static constexpr int TH = TH_, TW = 32, PR = 2 * TH + 1;
+  static constexpr int RUN = (2 * TW + 1) * 3, LEAD = STEM ? 0 : 1;
+  static constexpr int WORDS = ((LEAD + RUN) * (int)sizeof(T) + 3) / 4;
+  static constexpr int LDR = (WORDS * 4 + 15) / 16 * 16;  // row pitch, bytes
+  static constexpr size_t bytes = pp_align((size_t)PR * LDR);
+  __device__ static float at(const unsigned char* raw, int pr, int e) {
+    return to_f32(reinterpret_cast<const T*>(raw + pr * LDR)[LEAD + e]);
+  }
+};
+
+// Start copying tile tl's patch rows into dst.  STEM: x is the f32 image
+// (B, H, W, 3) and the patch is of its translate by (tx, ty) = shifts[b]
+// (out[h, w] = x[h - ty, w - tx], zero outside either map); else x is a
+// bf16 (B, H, W, 3) map, read a word (two values) at a time.
+template <class R>
+__device__ __forceinline__ void pf_load_raw(unsigned char* dst,
+                                            const void* x, const int* shifts,
+                                            PPTile tl, int H, int W,
+                                            int nthreads) {
+  int tx = 0, ty = 0;
+  if constexpr (R::STEM) {
+    tx = __ldg(shifts + 2 * tl.b);
+    ty = __ldg(shifts + 2 * tl.b + 1);
+  }
+  for (int v = threadIdx.x; v < R::PR * R::WORDS; v += nthreads) {
+    const int pr = v / R::WORDS, k = v % R::WORDS;
+    const int h = 2 * tl.i0 - 1 + pr;
+    bool valid;
+    long long src;
+    if constexpr (R::STEM) {
+      const int w = 2 * tl.j0 - 1 + k / 3;  // the translated image's column
+      valid = h >= 0 && h < H && w >= 0 && w < W && h - ty >= 0 &&
+              h - ty < H && w - tx >= 0 && w - tx < W;
+      src = valid ? (((long long)tl.b * H + h - ty) * W + w - tx) * 3 + k % 3
+                  : 0;
+    } else {
+      const int q = 3 * tl.j0 - 2 + k;  // the row's word: values 2 q, 2 q + 1
+      valid = h >= 0 && h < H && q >= 0 && q < 3 * W / 2;
+      src = valid ? ((long long)tl.b * H + h) * (3 * W / 2) + q : 0;
+    }
+    cp_async4(dst + pr * R::LDR + 4 * k,
+              static_cast<const uint32_t*>(x) + src, valid);
+  }
 }
 
 }  // namespace erfk

@@ -21,10 +21,13 @@ dtype in its gather, and returns the translated image for the backward.
 Backward: from g = bf16(gy + gs1 + 2 y gs2), dW (HWIO f32), db (f32) and,
 except for the stem (the image takes no gradient), dx = bf16(bf16(conv
 input grad) + pool grad) with JAX's tie rule for the pool (each of the W-
-then H-pair maxima splits its cotangent equally among ties).  In the bf16
-form the conv input gradient is the parity-plane product
-(``csrc/parity_plane.cuh``) of g with the transposed taps ``wt`` (3, 3,
-Cc, Cin), and the weight gradient's partials are per chunk of
+then H-pair maxima splits its cotangent equally among ties).  The bf16
+forward is the stride-2 conv over the parity planes of each tile's halo
+patch (FWD_TH x FWD_TW output pixels, ``csrc/parity_plane.cuh``), the tap
+stack read as it is (no padded matrix is built for it), one statistic
+partial per tile.  In the bf16 form the conv input gradient is the
+parity-plane product of g with the transposed taps ``wt`` (3, 3, Cc,
+Cin), and the weight gradient's partials are per chunk of
 ``WG_ROWS`` output rows and kh (the f32 form's per ``CHUNK`` output
 pixels and tap).
 
@@ -49,8 +52,11 @@ import torch.nn.functional as F
 from ..augment import apply_shifts
 from . import _build, route
 
-BM = 64          # output pixels per forward tile (csrc Fwd::BM)
-BM_STEM_F32 = 128  # the f32 form's at Cin = 3 (csrc Fwd32::BM; else BM)
+# the bf16 forward's tile, FWD_TH[Cin] x FWD_TW output pixels (csrc Fwd)
+FWD_TH = {3: 8, 16: 4, 64: 2}
+FWD_TW = 32
+# output pixels per tile of the f32 forward, by Cin (csrc Fwd32::BM)
+BM_F32 = {3: 128, 16: 64, 64: 64}
 CHUNK = 2048     # output pixels per f32 weight-gradient partial (csrc CHUNK)
 # output rows per bf16 weight-gradient partial, by Cin (csrc Wg::ROWS)
 WG_ROWS = {3: 2, 16: 4, 64: 4}
@@ -59,10 +65,6 @@ BWD_LAUNCHES = {True: 3, False: 4}   # by stem
 # the stats-free forms: no statistics reduction, no g fold; always dx
 NOSTATS_FWD_LAUNCHES = 1
 NOSTATS_BWD_LAUNCHES = 3
-
-
-def _round16(v):
-    return (v + 15) // 16 * 16
 
 
 def _round4(v):
@@ -179,16 +181,23 @@ def down_fwd(x, w, b, *, shifts=None, dtype=None, stats=True):
         form = _build.kernel_form(x, "x")
         xa = x
     dt = xa.dtype
-    rnd = _round4 if form else _round16
-    wmat = torch.zeros(rnd(9 * cin), rnd(cc), dtype=dt, device=dev)
-    wmat[:9 * cin, :cc] = w.reshape(9 * cin, cc)
+    Ho, Wo = H // 2, W // 2
+    if form:    # f32: the zero-padded (round4(9 cin), round4(cc)) matrix
+        wk = torch.zeros(_round4(9 * cin), _round4(cc), dtype=dt,
+                         device=dev)
+        wk[:9 * cin, :cc] = w.reshape(9 * cin, cc)
+        tpi = -(-(Ho * Wo) // BM_F32[cin])
+    else:       # bf16: the (3, 3, cin, cc) tap stack as it is, 16-byte aligned
+        wk = w.to(dt, memory_format=torch.contiguous_format)
+        if wk.data_ptr() % 16:
+            wk = wk.clone()
+        tpi = -(-Ho // FWD_TH[cin]) * -(-Wo // FWD_TW)
+    _build.require(wk, "w", dt, dev)
     bias = b.float().contiguous()
     _build.require(bias, "b", torch.float32, dev, (cc,))
     cout = cin + cc
-    y = torch.empty(B, H // 2, W // 2, cout, dtype=dt, device=dev)
+    y = torch.empty(B, Ho, Wo, cout, dtype=dt, device=dev)
     if stats:
-        tpi = -(-((H // 2) * (W // 2))
-                // (BM_STEM_F32 if form and cin == 3 else BM))
         part = torch.empty(B * tpi, 2 * cout, dtype=torch.float32,
                            device=dev)
         sums = torch.empty(B, 2 * cout, dtype=torch.float32, device=dev)
@@ -198,7 +207,7 @@ def down_fwd(x, w, b, *, shifts=None, dtype=None, stats=True):
     lib = _build.library("downsampler_train")
     fn = _build.declare(lib, "erf_down_train_fwd" + form, 8, 7)
     err = fn(_build.ptr(x), _build.ptr(shifts if stem else bias),
-             _build.ptr(wmat), _build.ptr(bias), _build.ptr(y),
+             _build.ptr(wk), _build.ptr(bias), _build.ptr(y),
              _build.ptr(xa), _build.ptr(part), _build.ptr(sums), B, H, W,
              cin, cc, int(stem), int(stats), _build.stream_ptr(x))
     _build.check(lib, err, f"train downsampler{key}{form} forward launch")

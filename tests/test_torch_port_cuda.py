@@ -17,7 +17,9 @@ same step through the plain versions); the train kernels' stats-free
 forms (the pair at every lead with (dh, dw) apart, the downsampler with
 dx at Cin = 3, the upsampler) and the relu lead of the stats forms
 against their plain versions, and serving with the packed-run gate on
-(launch counts, agreement with its plain pipeline).
+(launch counts, agreement with its plain pipeline); the halo-patch and
+parity-plane kernels (the train downsampler's forward and backward, the
+train upsampler's forward) at maps off their tiles.
 
 These tests need an NVIDIA GPU with ``nvcc`` (sm_90a) and skip without
 one.  They import nothing of JAX, so on a machine without it run them
@@ -1240,6 +1242,56 @@ def test_upsampler_forward_ragged(dev, shape, cout, stats, dtype):
         _rel_for(dtype)(got[2], ref[2])
     else:
         assert got[1] is None and got[2] is None
+
+
+@pytest.mark.parametrize("shape,cc,stem,stats", [
+    (shape, cc, stem, stats)
+    for shape, cc, stem in (((1, 10, 66, 64), 64, False),
+                            ((2, 6, 80, 64), 64, False),
+                            ((2, 14, 70, 16), 48, False),
+                            ((2, 22, 74, 3), 13, False),
+                            ((2, 22, 74, 3), 13, True),
+                            ((1, 6, 10, 3), 13, True))
+    for stats in (True, False)])
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_downsampler_forward_ragged(dev, shape, cc, stem, stats, dtype):
+    """Output maps off the bf16 forward's tile in rows and columns (rows
+    off its 2, 4 or 8, columns off its 32, a map narrower than a tile),
+    the stem's shifts of +-2 at the edges, pool windows of two and four
+    tied values, both statistic forms: y within the one-ulp rule, its pool
+    channels and the stem's translated image bit-equal, the sums within
+    the f32-output rule, the launch counts."""
+    B, H, W, cin = shape
+    if stem:
+        x = torch.rand(*shape, generator=torch.Generator().manual_seed(17))
+        kw = {"shifts": torch.tensor([[-2, 2], [2, -2]][:B]).to(dev),
+              "dtype": dtype}
+    else:
+        x = _rn(*shape, seed=17).relu()
+        kw = {}
+    x[:, 2:4, 2:4, :] = 0.5                        # four tied values
+    x[:, 4:6, 6, :] = 0.25                         # a tied pair by rows
+    x[:, 4:6, 7, :] = 0.0
+    x = x.to(dev) if stem else x.to(dev, dtype)
+    w = _rn(3, 3, cin, cc, seed=18, scale=(9 * cin) ** -0.5).to(dev)
+    b = _rn(cc, seed=19, scale=0.1).to(dev)
+    count = _launched if stats else _nostats
+    n0 = count(downsampler_train.down_fwd, dtype)
+    got = downsampler_train.down_fwd(x, w, b, stats=stats, **kw)
+    ref = downsampler_train.down_fwd_plain(x, w, b, stats=stats, **kw)
+    torch.cuda.synchronize()
+    assert (count(downsampler_train.down_fwd, dtype) - n0
+            == (downsampler_train.FWD_LAUNCHES if stats
+                else downsampler_train.NOSTATS_FWD_LAUNCHES))
+    if stem:
+        assert torch.equal(got[0], ref[0])
+    _close(got[1], ref[1])
+    assert torch.equal(got[1][..., cc:], ref[1][..., cc:])
+    if stats:
+        _rel_for(dtype)(got[2], ref[2])
+        _rel_for(dtype)(got[3], ref[3])
+    else:
+        assert got[2] is None and got[3] is None
 
 
 @pytest.mark.parametrize("shape,cc,stem,stats", [

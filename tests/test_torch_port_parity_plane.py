@@ -22,6 +22,15 @@ decompositions written out, nothing of the card.
   kernel's order (blocks of BP pixels of one row, the three kw taps as
   stride-2 views of one input-row segment), the chunks then reduced in
   order, against ``down_bwd_plain``'s dW and db: norm-relative 1e-5.
+* The bf16 forward of the train downsampler (``down_fwd``) as its kernel
+  decomposes it, against ``down_fwd_plain``: per tile of TH x 32 output
+  pixels the halo patch (the stem's rows read from the f32 image with the
+  translate, zero outside either map), its four parity planes, the nine
+  taps as shifted views of them, the pool from the same patch, the sums
+  per tile in the kernel's tile order, then reduced in order.  y by the
+  rules above, its pool channels and the stem's translated image bit-
+  equal, the sums norm-relative 1e-5; maps ragged against the tile, pool
+  windows of ties, shifts of +-2 at the edges.
 """
 
 import pytest
@@ -186,3 +195,89 @@ def test_weight_gradient_in_kernel_order(cin, cc, dtype):
     got_dw, got_db = _wgrad_in_kernel_order(x, g, cin, cc)
     _rel(got_dw, dw)
     _rel(got_db, db)
+
+
+def _fwd_in_kernel_order(x, w, b, shifts=None, dtype=None):
+    """(xa, y, s1, s2) as the bf16 forward kernel forms them: tiles of TH
+    x 32 output pixels (TH = D.FWD_TH[Cin]), image by image, tile rows,
+    then tile columns; each tile's (2 TH + 1) x 65 halo patch (input rows
+    2 i0 - 1 + pr, columns 2 j0 - 1 + pc; the stem's from the f32 image
+    translated by (tx, ty), zero outside either map), rounded once, split
+    into the parity planes (pr & 1, pc & 1); tap (kh, kw) the plane (kh &
+    1, kw & 1) shifted by (kh >> 1, kw >> 1); the pool taps 4, 5, 7, 8;
+    the sums of the stored y per tile, the tiles' partials added in
+    order."""
+    B, H, W, cin = x.shape
+    dt = dtype if shifts is not None else x.dtype
+    cc = w.shape[3]
+    th, tw = D.FWD_TH[cin], D.FWD_TW
+    Ho, Wo = H // 2, W // 2
+    wt = w.to(dt).float()
+    xa = torch.zeros(B, H, W, cin, dtype=dt)
+    y = torch.zeros(B, Ho, Wo, cin + cc, dtype=dt)
+    s1 = torch.zeros(B, cin + cc)
+    s2 = torch.zeros(B, cin + cc)
+    for bi in range(B):
+        tx, ty = (0, 0) if shifts is None else (int(v) for v in shifts[bi])
+        for i0 in range(0, Ho, th):
+            for j0 in range(0, Wo, tw):
+                h = torch.arange(2 * i0 - 1, 2 * (i0 + th))[:, None]
+                c = torch.arange(2 * j0 - 1, 2 * j0 + 2 * tw)[None, :]
+                ok = ((h >= 0) & (h < H) & (c >= 0) & (c < W)
+                      & (h - ty >= 0) & (h - ty < H)
+                      & (c - tx >= 0) & (c - tx < W))
+                src = x[bi, (h - ty).clamp(0, H - 1),
+                        (c - tx).clamp(0, W - 1)]
+                patch = torch.where(ok[..., None], src.float(),
+                                    torch.zeros(())).to(dt)
+                planes = {(a, e): patch[a::2, e::2] for a in (0, 1)
+                          for e in (0, 1)}
+
+                def tap(kh, kw):
+                    return planes[kh & 1, kw & 1][
+                        kh >> 1:(kh >> 1) + th, kw >> 1:(kw >> 1) + tw]
+                conv = torch.zeros(th, tw, cc)
+                for kh in range(3):
+                    for kw in range(3):
+                        conv += tap(kh, kw).float() @ wt[kh, kw]
+                pool = torch.maximum(torch.maximum(tap(1, 1), tap(1, 2)),
+                                     torch.maximum(tap(2, 1), tap(2, 2)))
+                tile = torch.cat([(conv + b.float()).to(dt), pool], -1)
+                n_i, n_j = min(th, Ho - i0), min(tw, Wo - j0)
+                tile = tile[:n_i, :n_j]
+                y[bi, i0:i0 + n_i, j0:j0 + n_j] = tile
+                xa[bi, 2 * i0:2 * (i0 + n_i), 2 * j0:2 * (j0 + n_j)] = (
+                    patch[1:1 + 2 * n_i, 1:1 + 2 * n_j])
+                yf = tile.float().reshape(-1, cin + cc)
+                s1[bi] += yf.sum(0)
+                s2[bi] += (yf * yf).sum(0)
+    return (xa if shifts is not None else x), y, s1, s2
+
+
+@pytest.mark.parametrize("shape,cc,stem", [
+    ((2, 22, 74, 3), 13, True), ((1, 6, 10, 3), 13, True),
+    ((2, 22, 74, 3), 13, False), ((2, 14, 70, 16), 48, False),
+    ((2, 10, 74, 64), 64, False)])
+@pytest.mark.parametrize("dtype", [F32, BF])
+def test_down_forward_is_the_halo_patch_product(shape, cc, stem, dtype):
+    B, H, W, cin = shape
+    if stem:
+        x = torch.rand(*shape, generator=torch.Generator().manual_seed(cin))
+        kw = {"shifts": torch.tensor([[-2, 2], [2, -2]][:B]), "dtype": dtype}
+    else:
+        x = _rn(*shape, seed=cin).relu()
+        kw = {}
+    x[:, 2:4, 2:4] = 0.5                           # four tied values
+    x[:, 4:6, 6] = 0.25                            # a tied pair by rows
+    x[:, 4:6, 7] = 0.0
+    if not stem:
+        x = x.to(dtype)
+    w = _rn(3, 3, cin, cc, seed=cin + 1, scale=(9 * cin) ** -0.5)
+    b = _rn(cc, seed=cin + 2, scale=0.1)
+    xa, y, s1, s2 = _fwd_in_kernel_order(x, w, b, **kw)
+    rxa, ry, rs1, rs2 = D.down_fwd_plain(x, w, b, **kw)
+    assert torch.equal(xa, rxa)
+    _close(y, ry)
+    assert torch.equal(y[..., cc:], ry[..., cc:])
+    _rel(s1, rs1)
+    _rel(s2, rs2)
