@@ -6,12 +6,15 @@
 
 ``--split`` builds the kernels and splits the calls of the parity-plane
 rows (the train downsampler backward, rows 5, 5 on g = gy and 8; the
-train upsampler forward, rows 12 and 10) and of the train downsampler
-forward (rows 7, 6 and 4) at their B=6 shapes by launch: CUDA events,
-device time by kernel (torch.profiler) and the host's enqueue time, with
-cuDNN's forward conv of the same shape by device time beside each
-forward; then prints the card line; no result line.  Phases 9 and 28
-print the same split for the parity-plane rows.
+train upsampler forward, rows 12 and 10, and backward, row 13), of the
+train downsampler forward (rows 7, 6 and 4; row 7 also in f32) at their
+B=6 shapes and of the eval upsampler (row 14) at its B=4 shapes by
+launch: CUDA events, device time by kernel (torch.profiler) and the
+host's enqueue time, with cuDNN's call for the same function by device
+time beside each forward and row 13 (the forward conv; the transposed
+conv for row 14, its ``convolution_backward`` for row 13); then prints
+the card line; no result line.  Phases 9 and 28 print the same split
+for the parity-plane rows.
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -3392,12 +3395,19 @@ def split_calls(device, dtype):
     """(row, label, call, yardstick) at the B=6 shapes: the train
     downsampler forward with statistics (rows 7, 6) and without (row 4),
     its backward with statistics (rows 5, 8) and on g = gy (row 5 gy), the
-    train upsampler forward with and without statistics (rows 12, 10).
-    ``yardstick``: cuDNN's forward conv of the same shape (a forward of the
-    downsampler; the stem's on its translated image), else None."""
+    train upsampler forward with and without statistics (rows 12, 10) and
+    its backward with statistics (row 13); and the eval upsampler (row 14)
+    at its B=4 serving shapes.  ``yardstick``: cuDNN's call for the same
+    function (the forward conv of a forward of the downsampler, the stem's
+    on its translated image; ``convolution_backward`` of the transposed
+    conv for row 13; the transposed conv with its bias for row 14), else
+    None."""
     import torch
     from erfnet_pytorch_tpu_torch.ops.cuda import downsampler_train as dt
+    from erfnet_pytorch_tpu_torch.ops.cuda import upsampler
     from erfnet_pytorch_tpu_torch.ops.cuda import upsampler_train as ut
+    from erfnet_pytorch_tpu_torch.ops.cuda.upsampler import \
+        prepare_upsampler
     g = torch.Generator().manual_seed(97)
     calls = []
 
@@ -3432,24 +3442,41 @@ def split_calls(device, dtype):
             calls.append((12 if stats else 10, label, (
                 lambda x=x, w=w, b=b, stats=stats:
                 ut.ups_fwd(x, w, b, stats=stats)), None))
+        y = ut.ups_fwd_plain(x, w, b)[0]
+        gy = torch.randn(*y.shape, generator=g).to(device).to(dtype)
+        gs = (1e-3 * torch.randn(shape[0], cout, generator=g)).to(device)
+        # forward-conv HWIO (flipped) -> ConvTranspose2d (I, O, kh, kw)
+        lib = _lib_conv(x, w.flip(0, 1).permute(2, 3, 0, 1), (2, 2), (1, 1),
+                        (1, 1), transposed=True)[1]
+        calls.append((13, label, (
+            lambda x=x, y=y, gy=gy, gs=gs, w=w:
+            ut.ups_bwd(x, y, gy, gs, gs, w)), lib))
+    sd = seeded_state_dict(0)
+    for prefix, shape in up_cases(4):
+        p = {k: v.to(device) for k, v in
+             prepare_upsampler(sd, prefix, dtype).items()}
+        x = torch.rand(*shape, generator=g).to(device).to(dtype)
+        calls.append((14, f"up {shape[-1]}->", (
+            lambda x=x, p=p: upsampler.upsampler(x, p)),
+            library_call("upsampler", x, p)))
     return calls
 
 
 def phase_split(device, iters, dtypes=None):
     """Each call of ``split_calls`` through its wrapper, split by
     ``kernel_split`` (bf16, and the f32 forms of rows 10 and 12, whose
-    wrappers build the same parity-plane weight), and its yardstick's
-    device time (``cudnn``); summed by row."""
+    wrappers build the same parity-plane weight, and of row 7, the f32
+    stem), and its yardstick's device time (``cudnn``); summed by row."""
     import torch
     out = {}
     for dtype in dtypes or (torch.bfloat16, torch.float32):
         form = "" if dtype == torch.bfloat16 else " f32"
-        log(f"[kernel split{form}] B=6: CUDA events, device time by kernel "
-            "(torch.profiler), host enqueue time per call; cuDNN's forward "
-            "conv by device time")
+        log(f"[kernel split{form}] B=6 (row 14 B=4): CUDA events, device "
+            "time by kernel (torch.profiler), host enqueue time per call; "
+            "cuDNN's call for the same function by device time")
         with no_tf32() if form else contextlib.nullcontext():
             for row, label, fn, lib in split_calls(device, dtype):
-                if form and row not in (10, 12):
+                if form and row not in (7, 10, 12):
                     continue
                 s = kernel_split(fn, iters)
                 log_split(f"row {row}{form} {label}", s)
@@ -3459,7 +3486,7 @@ def phase_split(device, iters, dtypes=None):
                 if lib is not None:
                     s["cudnn"] = _device_ms(lib, iters)
                     r["cudnn"] += s["cudnn"]
-                    log(f"      cuDNN forward conv, device {s['cudnn']:.4f}")
+                    log(f"      cuDNN, device {s['cudnn']:.4f}")
                 for k in ("events", "device", "host", "gap"):
                     r[k] += s[k]
                 r["calls"][label] = s

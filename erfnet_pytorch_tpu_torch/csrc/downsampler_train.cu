@@ -70,20 +70,32 @@
 // dtype): the same function with every map in f32 and nothing rounded to
 // bf16; the stem translates the f32 image without a cast and saves it in
 // f32.  Products on the CUDA cores (FFMA micro-tiles, common.cuh
-// ffma_tile / ffma_outer; no TF32): the forward and the input gradient
-// are implicit GEMMs over tiles of output (input) pixels whose K extent is
-// staged a chunk of taps at a time where the f32 tap stack would not fit
-// beside the tile (the (64, 64) forward's 144 KB of taps three taps at a
-// time, the input gradients three taps at a time; each chunk summed in a
-// chain of its own, the chunks added in order); the pool of the
-// non-stem forward reads its 2x2 window from the map.  The weight
-// gradient is one (Cin x Cc) product per (pixel chunk, tap), the stem's
-// one (27 x 13) product over all taps per chunk (its im2col rows), with
-// the pixels as the product's depth.  The same launches as the bf16 forms;
-// the weight gradient's partials are per (2048-pixel chunk, tap), reduced
-// in a fixed order.  Bound at f32:
-// bytes for the stem, operations for the others (9 Cin Cc MACs per output
-// pixel against 67 TFLOP/s).
+// ffma_tile / ffma_outer; no TF32).  The forward at Cin = 3 (the stem,
+// and the stats-free 3-channel map) is the bf16 form's tile kept in f32:
+// persistent CTAs over tiles of 8 x 32 output pixels, each tile's raw f32
+// patch (PFRaw<true>: rows of 65 x 3 values, the stem's shifted by its
+// translate with zero fill) staged once with coalesced 4-byte cp.async
+// while the previous tile computes, tile coordinates computed once a tile
+// (no per-element 64-bit division); an im2col tile of K = 27 (padded to
+// 28) built from the patch, the 13 conv channels one FFMA chain per
+// output in the plain version's (tap, ci) order and the pool channels
+// from the same patch; whole 64-byte output pixels written 16 bytes a
+// thread, the sums from the stored values in a fixed butterfly, one
+// partial per tile (3072 at the B=6 stem, 6144 before); the stem's
+// translated image written from the patch interior.  The other forwards
+// and the input gradients are implicit GEMMs over tiles of output
+// (input) pixels whose K extent is staged a chunk of taps at a time where
+// the f32 tap stack would not fit beside the tile (the (64, 64)
+// forward's 144 KB of taps three taps at a time, the input gradients
+// three taps at a time; each chunk summed in a chain of its own, the
+// chunks added in order); their pool reads its 2x2 window from the map.
+// The weight gradient is one (Cin x Cc) product per (pixel chunk, tap),
+// the stem's one (27 x 13) product over all taps per chunk (its im2col
+// rows), with the pixels as the product's depth.  The same launches as
+// the bf16 forms; the weight gradient's partials are per (2048-pixel
+// chunk, tap), reduced in a fixed order.  Bound at f32: bytes for the
+// stem, operations for the others (9 Cin Cc MACs per output pixel
+// against 67 TFLOP/s).
 //
 // The stats-free forms (with_stats = 0) replace downsampler_packed
 // (_down_fwd_kernel via _call_fwd_local, with the pool lanes that
@@ -737,88 +749,243 @@ down_wgrad_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
 
 constexpr int round4(int v) { return (v + 3) / 4 * 4; }
 
-// Forward: tiles of BM output pixels; thread (rowg, colg) of an RS x TC
-// grid owns rows rowg + i RS (i < TM) and conv channels 4 colg .. + 3
-// (TN = 4).  NCHUNK chunks of TPC taps; KC = TPC CIN columns.  SCALAR
-// (Cin = 3: the stem, or a stats-free 3-channel map): the whole 3x3
-// window in one chunk of scalar loads, the pool read from it.
+// Forward at Cin = 3 (the stem, or a stats-free 3-channel map): tiles of
+// TH x 32 output pixels of one image over a raw f32 patch (parity_plane.cuh
+// PFRaw<true>: each patch row one run of 65 x 3 values in 4-byte words,
+// the stem's shifted by its translate with zero fill; tile coordinates
+// computed once a tile), persistent CTAs with the next tile's patch in
+// flight.  A thread a pixel builds its im2col row (K = 27, (tap, ci) order,
+// padded to 28) from the patch, unrounded; the 13 conv channels are an
+// FFMA micro-tile (common.cuh ffma_tile, TM = 4 pixels x TN = 4 channels a
+// thread) over the padded (28 x 16) tap stack, one FFMA chain per output
+// in the plain version's (tap, ci) order; the 3 pool channels are the max
+// of taps 4, 5, 7, 8 of the same patch.  The epilogue stages whole 64-byte
+// output pixels, writes them 16 bytes a thread and takes the sums from the
+// stored values in a fixed butterfly (one partial per tile); the stem
+// writes the translated image's tile interior from the patch.
+struct Fwd3F32 {
+  static constexpr int TH = 8, TW = 32, BM = TH * TW, THREADS = 256;
+  static constexpr int CC = 13, COUT = 16, KP = 28, NP = 16;
+  static constexpr int TN = 4, TC = NP / TN, RS = THREADS / TC, TM = BM / RS;
+  static constexpr int LDA = pitch4(KP);
+  using Patch = PFRaw<true, TH>;
+  static constexpr size_t a_off = 2 * Patch::bytes;  // two patches
+  static constexpr size_t w_off = a_off + pp_align((size_t)BM * LDA * 4);
+  static constexpr size_t o_off = w_off + pp_align((size_t)KP * NP * 4);
+  static constexpr size_t smem = o_off + (size_t)BM * COUT * 4;
+  static_assert(BM == THREADS && BM % RS == 0 && 2 * COUT <= 32 &&
+                    (size_t)8 * 2 * COUT * 4 <= (size_t)BM * LDA * 4,
+                "f32 forward tile at Cin = 3: a thread a pixel");
+};
+
+template <bool STEM, bool S>
+__global__ void __launch_bounds__(256, 2)
+down_fwd3_f32_kernel(const float* __restrict__ x,
+                     const int* __restrict__ shifts,
+                     const float* __restrict__ w,
+                     const float* __restrict__ bias, float* __restrict__ out,
+                     float* __restrict__ xa, float* __restrict__ part, int B,
+                     int Ho, int Wo) {
+  using G = Fwd3F32;
+  using P = G::Patch;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* As = reinterpret_cast<float*>(smem + G::a_off);
+  float* Ws = reinterpret_cast<float*>(smem + G::w_off);
+  float* Cs = reinterpret_cast<float*>(smem + G::o_off);
+  const int H = 2 * Ho, W = 2 * Wo;
+  const int tiles =
+      B * ((Ho + G::TH - 1) / G::TH) * ((Wo + G::TW - 1) / G::TW);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int colg = threadIdx.x % G::TC, rowg = threadIdx.x / G::TC;
+
+  // the tap stack (27 x 13, row (kh * 3 + kw) 3 + ci), zero padded
+  for (int e = threadIdx.x; e < G::KP * G::NP; e += G::THREADS) {
+    const int k = e / G::NP, n = e % G::NP;
+    Ws[e] = k < 27 && n < G::CC ? __ldg(w + k * G::CC + n) : 0.0f;
+  }
+  float bv[4];  // this thread's conv channels 4 colg + q
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    bv[q] = 4 * colg + q < G::CC ? __ldg(bias + 4 * colg + q) : 0.0f;
+
+  auto patch_of = [&](int kk) { return smem + (kk & 1) * P::bytes; };
+  auto issue = [&](int t, int kk) {
+    if (t < tiles)
+      pf_load_raw<P>(patch_of(kk), x, STEM ? shifts : nullptr,
+                     pp_tile_of<G>(t, Ho, Wo), H, W, G::THREADS);
+    cp_async_commit();
+  };
+
+  issue(blockIdx.x, 0);
+  int kk = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++kk) {
+    const PPTile tl = pp_tile_of<G>(t, Ho, Wo);
+    issue(t + gridDim.x, kk + 1);  // into the buffer tile kk - 1 left
+    cp_async_wait_group<1>();
+    __syncthreads();
+    const unsigned char* patch = patch_of(kk);
+    // im2col row m: K index kh * 9 + kw * 3 + ci is value 6 c + kw * 3 +
+    // ci of patch row 2 r + kh; and the pool of the same patch
+    const int m = threadIdx.x, r = m / G::TW, c = m % G::TW;
+    {
+      float v[G::KP];
+#pragma unroll
+      for (int kh = 0; kh < 3; ++kh)
+#pragma unroll
+        for (int q = 0; q < 9; ++q)
+          v[kh * 9 + q] = P::at(patch, 2 * r + kh, 6 * c + q);
+      v[27] = 0.0f;
+#pragma unroll
+      for (int j = 0; j < G::KP / 4; ++j)
+        *reinterpret_cast<float4*>(As + m * G::LDA + 4 * j) =
+            make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
+    }
+    float pv[3];
+#pragma unroll
+    for (int ci = 0; ci < 3; ++ci)
+      pv[ci] = fmaxf(fmaxf(P::at(patch, 2 * r + 1, (2 * c + 1) * 3 + ci),
+                           P::at(patch, 2 * r + 1, (2 * c + 2) * 3 + ci)),
+                     fmaxf(P::at(patch, 2 * r + 2, (2 * c + 1) * 3 + ci),
+                           P::at(patch, 2 * r + 2, (2 * c + 2) * 3 + ci)));
+    __syncthreads();
+    float acc[G::TM][G::TN];
+    zero_tile(acc);
+    ffma_tile<G::TM, G::TN, G::KP, 4 * G::TC>(
+        acc, As + rowg * G::LDA, G::RS * G::LDA, Ws + 4 * colg, G::NP);
+    // stage whole pixels: conv channels sum + b, then the pool channels
+#pragma unroll
+    for (int i = 0; i < G::TM; ++i) {
+      float* dst = Cs + (rowg + i * G::RS) * G::COUT + 4 * colg;
+      if (4 * colg + 3 < G::CC)
+        *reinterpret_cast<float4*>(dst) =
+            make_float4(acc[i][0] + bv[0], acc[i][1] + bv[1],
+                        acc[i][2] + bv[2], acc[i][3] + bv[3]);
+      else
+        dst[0] = acc[i][0] + bv[0];  // channel 12; 13 .. 15 are the pool's
+    }
+#pragma unroll
+    for (int ci = 0; ci < 3; ++ci) Cs[m * G::COUT + G::CC + ci] = pv[ci];
+    if constexpr (STEM) {
+      // the translated image's tile interior (patch rows 1 .. 2 TH, values
+      // 3 .. 6 TW + 2), an f32 pair a thread: each input pixel lies in
+      // exactly one tile
+      const int n3 = 3 * min(2 * G::TW, W - 2 * tl.j0);  // even
+      for (int v = threadIdx.x; v < 2 * G::TH * 3 * G::TW;
+           v += G::THREADS) {
+        const int pr = 1 + v / (3 * G::TW), k = v % (3 * G::TW);
+        const int h = 2 * tl.i0 + pr - 1;
+        if (h < H && 2 * k < n3)
+          *reinterpret_cast<float2*>(
+              xa + (((long long)tl.b * H + h) * W + 2 * tl.j0) * 3 + 2 * k) =
+              make_float2(P::at(patch, pr, 3 + 2 * k),
+                          P::at(patch, pr, 4 + 2 * k));
+      }
+    }
+    __syncthreads();
+
+    // whole output pixels, 16 bytes a thread: thread t always holds
+    // channels 4 (t % 4) .. + 3, its sums in registers
+    float s0[4] = {0.0f, 0.0f, 0.0f, 0.0f}, s1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int v = threadIdx.x; v < G::BM * 4; v += G::THREADS) {
+      const int p = v / 4, j = v % 4;
+      const int i = tl.i0 + p / G::TW, jj = tl.j0 + p % G::TW;
+      if (i >= Ho || jj >= Wo) continue;
+      const float4 q = *reinterpret_cast<const float4*>(Cs + p * G::COUT +
+                                                        4 * j);
+      *reinterpret_cast<float4*>(
+          out + (((long long)tl.b * Ho + i) * Wo + jj) * G::COUT + 4 * j) = q;
+      if constexpr (S) {
+        const float f[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          s0[k] += f[k];
+          s1[k] += __fmul_rn(f[k], f[k]);
+        }
+      }
+    }
+    if constexpr (S) {
+      // lanes of one channel group (lane % 4) in a fixed butterfly, the
+      // warps in order: the tile's partial part[t] = [sum y | sum y^2]
+#pragma unroll
+      for (int o = 4; o < 32; o *= 2)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          s0[k] += __shfl_xor_sync(0xffffffffu, s0[k], o);
+          s1[k] += __shfl_xor_sync(0xffffffffu, s1[k], o);
+        }
+      float* red = As;  // read by every thread before the last barrier
+      if (lane < 4)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          red[warp * 2 * G::COUT + 4 * lane + k] = s0[k];
+          red[warp * 2 * G::COUT + G::COUT + 4 * lane + k] = s1[k];
+        }
+      __syncthreads();
+      if (threadIdx.x < 2 * G::COUT) {
+        float a = 0.0f;
+        for (int wi = 0; wi < G::THREADS / 32; ++wi)
+          a += red[wi * 2 * G::COUT + threadIdx.x];
+        part[(long long)t * 2 * G::COUT + threadIdx.x] = a;
+      }
+    }
+    __syncthreads();  // As, Cs and this patch consumed
+  }
+  cp_async_wait_all();
+}
+
+// Forward at Cin = 16, 64: tiles of BM output pixels; thread (rowg, colg)
+// of an RS x TC grid owns rows rowg + i RS (i < TM) and conv channels
+// 4 colg .. + 3 (TN = 4).  NCHUNK chunks of TPC taps; KC = TPC CIN
+// columns.
 template <int CIN, int CC>
 struct Fwd32 {
-  static constexpr bool SCALAR = CIN % 4 != 0;
   static constexpr int COUT = CIN + CC, K = 9 * CIN;
   static constexpr int NP = round4(CC), TN = 4, TC = NP / TN;
   static constexpr int THREADS = TC == 12 ? 192 : 256;
-  static constexpr int BM = SCALAR ? 128 : 64, RS = THREADS / TC;
+  static constexpr int BM = 64, RS = THREADS / TC;
   static constexpr int TM = BM / RS;
   static constexpr int NCHUNK = CIN == 64 ? 3 : 1, TPC = 9 / NCHUNK;
-  static constexpr int KC = SCALAR ? round4(K) : TPC * CIN;
+  static constexpr int KC = TPC * CIN;
   static constexpr int LDA = pitch4(KC);
   static constexpr size_t a_bytes = ((size_t)BM * LDA * 4 + 127) / 128 * 128;
   static constexpr size_t c_bytes = ((size_t)BM * NP * 4 + 127) / 128 * 128;
   static constexpr size_t smem = a_bytes + c_bytes + (size_t)KC * NP * 4;
-  static_assert(THREADS % TC == 0 && BM % RS == 0 && THREADS % COUT == 0 &&
-                    KC % 4 == 0 && (size_t)THREADS * 2 * 4 <= c_bytes,
+  static_assert(CIN % 4 == 0 && THREADS % TC == 0 && BM % RS == 0 &&
+                    THREADS % COUT == 0 && KC % 4 == 0 &&
+                    (size_t)THREADS * 2 * 4 <= c_bytes,
                 "f32 down forward tile");
 };
 
 // Stage taps [t0, t0 + TPC) of the 3x3 windows of output pixels [m0,
-// m_end): row r, column tq CIN + ci; zero off the map and in the K pad.
-// SCALAR: scalar loads; STEM: the f32 image translated by (tx, ty).
-template <int CIN, int CC, bool STEM>
+// m_end): row r, column tq CIN + ci; zero off the map.
+template <int CIN, int CC>
 __device__ __forceinline__ void gather_fwd_f32(float* As, const float* x,
-                                               const int* shifts,
                                                long long m0, long long m_end,
                                                int Ho, int Wo, int t0) {
   using G = Fwd32<CIN, CC>;
   const int H = 2 * Ho, W = 2 * Wo;
-  if constexpr (G::SCALAR) {
-    for (int e = threadIdx.x; e < G::BM * G::KC; e += blockDim.x) {
-      const int r = e / G::KC, k = e % G::KC;
-      const long long m = m0 + r;
-      const int tap = k / CIN, ci = k % CIN;
-      const long long b = m / ((long long)Ho * Wo);
-      const int rem = (int)(m % ((long long)Ho * Wo));
-      int hi = 2 * (rem / Wo) - 1 + tap / 3;
-      int wi = 2 * (rem % Wo) - 1 + tap % 3;
-      bool valid = m < m_end && k < G::K && hi >= 0 && hi < H && wi >= 0 &&
-                   wi < W;
-      float v = 0.0f;
-      if (valid) {
-        if constexpr (STEM) {
-          hi -= __ldg(shifts + 2 * b + 1);
-          wi -= __ldg(shifts + 2 * b);
-        }
-        if (hi >= 0 && hi < H && wi >= 0 && wi < W)
-          v = __ldg(x + ((b * H + hi) * W + wi) * CIN + ci);
-      }
-      As[r * G::LDA + k] = v;
-    }
-  } else {
-    constexpr int VPT = CIN / 4;
-    for (int v = threadIdx.x; v < G::BM * G::TPC * VPT; v += blockDim.x) {
-      const int r = v / (G::TPC * VPT), tq = (v / VPT) % G::TPC, j = v % VPT;
-      const int tap = t0 + tq;
-      const long long m = m0 + r;
-      const long long b = m / ((long long)Ho * Wo);
-      const int rem = (int)(m % ((long long)Ho * Wo));
-      const int hi = 2 * (rem / Wo) - 1 + tap / 3;
-      const int wi = 2 * (rem % Wo) - 1 + tap % 3;
-      const bool valid = m < m_end && hi >= 0 && hi < H && wi >= 0 && wi < W;
-      const long long pix = valid ? (b * H + hi) * W + wi : 0;
-      cp_async16(As + r * G::LDA + tq * CIN + j * 4, x + pix * CIN + j * 4,
-                 valid);
-    }
+  constexpr int VPT = CIN / 4;
+  for (int v = threadIdx.x; v < G::BM * G::TPC * VPT; v += blockDim.x) {
+    const int r = v / (G::TPC * VPT), tq = (v / VPT) % G::TPC, j = v % VPT;
+    const int tap = t0 + tq;
+    const long long m = m0 + r;
+    const long long b = m / ((long long)Ho * Wo);
+    const int rem = (int)(m % ((long long)Ho * Wo));
+    const int hi = 2 * (rem / Wo) - 1 + tap / 3;
+    const int wi = 2 * (rem % Wo) - 1 + tap % 3;
+    const bool valid = m < m_end && hi >= 0 && hi < H && wi >= 0 && wi < W;
+    const long long pix = valid ? (b * H + hi) * W + wi : 0;
+    cp_async16(As + r * G::LDA + tq * CIN + j * 4, x + pix * CIN + j * 4,
+               valid);
   }
 }
 
-template <int CIN, int CC, bool STEM, bool S>
+template <int CIN, int CC, bool S>
 __global__ void __launch_bounds__(256)
 down_fwd_f32_kernel(const float* __restrict__ x,
-                    const int* __restrict__ shifts,
                     const float* __restrict__ wmat,
                     const float* __restrict__ bias, float* __restrict__ out,
-                    float* __restrict__ xa, float* __restrict__ part, int B,
-                    int Ho, int Wo) {
+                    float* __restrict__ part, int B, int Ho, int Wo) {
   using G = Fwd32<CIN, CC>;
   extern __shared__ __align__(128) unsigned char smem[];
   float* As = reinterpret_cast<float*>(smem);
@@ -840,8 +1007,7 @@ down_fwd_f32_kernel(const float* __restrict__ x,
     float acc[G::TM][G::TN];
     zero_tile(acc);
     for (int ch = 0; ch < G::NCHUNK; ++ch) {
-      gather_fwd_f32<CIN, CC, STEM>(As, x, shifts, m0, m_end, Ho, Wo,
-                                    ch * G::TPC);
+      gather_fwd_f32<CIN, CC>(As, x, m0, m_end, Ho, Wo, ch * G::TPC);
       if constexpr (G::NCHUNK > 1)
         load_matrix(Ws, G::NP, wmat + (size_t)ch * G::KC * G::NP, G::KC,
                     G::NP);
@@ -875,9 +1041,6 @@ down_fwd_f32_kernel(const float* __restrict__ x,
       float v;
       if (c < CC) {
         v = Cs[r * G::NP + c] + bc;
-      } else if constexpr (G::SCALAR) {
-        const float* a = As + r * G::LDA + (c - CC);
-        v = fmaxf(fmaxf(a[4 * CIN], a[5 * CIN]), fmaxf(a[7 * CIN], a[8 * CIN]));
       } else {
         const int rem = (int)(m - (long long)b * HWo);
         const float* p = x + (((long long)b * H + 2 * (rem / Wo)) * W +
@@ -892,21 +1055,7 @@ down_fwd_f32_kernel(const float* __restrict__ x,
         s1 += __fmul_rn(v, v);
       }
     }
-    if constexpr (STEM) {
-      // each input pixel lies in exactly one output pixel's 2x2 window
-      // (taps 4, 5, 7, 8): that tile writes its translated value
-      for (int e = threadIdx.x; e < G::BM * 4 * CIN; e += blockDim.x) {
-        const int r = e / (4 * CIN), q = (e / CIN) % 4, ci = e % CIN;
-        const long long m = m0 + r;
-        if (m >= m_end) break;
-        const int rem = (int)(m - (long long)b * HWo);
-        const int h = 2 * (rem / Wo) + q / 2, w = 2 * (rem % Wo) + q % 2;
-        const int tap = (1 + q / 2) * 3 + 1 + q % 2;
-        xa[(((long long)b * H + h) * W + w) * CIN + ci] =
-            As[r * G::LDA + tap * CIN + ci];
-      }
-    }
-    __syncthreads();  // Cs and As read: Cs becomes the reduction scratch
+    __syncthreads();  // Cs read: it becomes the reduction scratch
     if constexpr (!S) continue;
     float* red = Cs;
     red[threadIdx.x] = s0;
@@ -1210,25 +1359,39 @@ template <int CIN, int CC, bool STEM, bool S>
 int fwd_f32(const void* x, const void* shifts, const void* wmat,
             const void* bias, void* out, void* xa, void* part, void* stats,
             int B, int H, int W, cudaStream_t s) {
-  using G = Fwd32<CIN, CC>;
+  const int Ho = H / 2, Wo = W / 2;
   static bool ok = false;
   static int gm = 0;
-  cudaError_t e = grid_for(down_fwd_f32_kernel<CIN, CC, STEM, S>, G::THREADS,
-                           G::smem, &ok, &gm);
-  if (e != cudaSuccess) return e;
-  const int Ho = H / 2, Wo = W / 2;
-  const int tpi = (Ho * Wo + G::BM - 1) / G::BM;
-  const int tiles = B * tpi;
-  down_fwd_f32_kernel<CIN, CC, STEM, S>
-      <<<tiles < gm ? tiles : gm, G::THREADS, G::smem, s>>>(
-          static_cast<const float*>(x), static_cast<const int*>(shifts),
-          static_cast<const float*>(wmat), static_cast<const float*>(bias),
-          static_cast<float*>(out), static_cast<float*>(xa),
-          static_cast<float*>(part), B, Ho, Wo);
+  cudaError_t e = cudaSuccess;
+  int tpi;
+  if constexpr (CIN == 3) {
+    using G = Fwd3F32;
+    if ((e = grid_for(down_fwd3_f32_kernel<STEM, S>, G::THREADS, G::smem,
+                      &ok, &gm)) != cudaSuccess)
+      return e;
+    tpi = ((Ho + G::TH - 1) / G::TH) * ((Wo + G::TW - 1) / G::TW);
+    down_fwd3_f32_kernel<STEM, S>
+        <<<B * tpi < gm ? B * tpi : gm, G::THREADS, G::smem, s>>>(
+            static_cast<const float*>(x), static_cast<const int*>(shifts),
+            static_cast<const float*>(wmat), static_cast<const float*>(bias),
+            static_cast<float*>(out), static_cast<float*>(xa),
+            static_cast<float*>(part), B, Ho, Wo);
+  } else {
+    using G = Fwd32<CIN, CC>;
+    if ((e = grid_for(down_fwd_f32_kernel<CIN, CC, S>, G::THREADS, G::smem,
+                      &ok, &gm)) != cudaSuccess)
+      return e;
+    tpi = (Ho * Wo + G::BM - 1) / G::BM;
+    down_fwd_f32_kernel<CIN, CC, S>
+        <<<B * tpi < gm ? B * tpi : gm, G::THREADS, G::smem, s>>>(
+            static_cast<const float*>(x), static_cast<const float*>(wmat),
+            static_cast<const float*>(bias), static_cast<float*>(out),
+            static_cast<float*>(part), B, Ho, Wo);
+  }
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   if constexpr (!S) return cudaSuccess;
   return reduce_parts(static_cast<const float*>(part),
-                      static_cast<float*>(stats), B, tpi, 2 * G::COUT, s);
+                      static_cast<float*>(stats), B, tpi, 2 * (CIN + CC), s);
 }
 
 template <int CIN, int CC, bool DX>
@@ -1352,9 +1515,10 @@ extern "C" int erf_down_train_bwd(const void* gy, const void* y,
 
 
 // The f32 forms: the same operands with x (the f32 image in the stem
-// mode), out, xa in f32; in place of w, wmat: (round4(9 cin), round4(cc))
-// f32, zero padded; part: (B * ceil(H/2 W/2 / bm), 2 (cin + cc)), bm = 128
-// at cin = 3, else 64.
+// mode), out, xa in f32; in place of w, wmat: at cin = 3 the (3, 3, 3, 13)
+// f32 tap stack as it is, else (round4(9 cin), round4(cc)) f32, zero
+// padded; part: at cin = 3 as the bf16 form's (th = 8), else (B *
+// ceil(H/2 W/2 / 64), 2 (cin + cc)).
 extern "C" int erf_down_train_fwd_f32(const void* x, const void* shifts,
                                       const void* wmat, const void* bias,
                                       void* out, void* xa, void* part,

@@ -3,7 +3,8 @@
 // (upsampler_train.cu) and the train downsampler's input gradient
 // (downsampler_train.cu); and, at the end of this file, the staging of
 // the forward direction, a stride-2 3x3 conv over the parity planes of a
-// halo patch (the train downsampler's forward).
+// halo patch (the train downsampler's forward, and the train upsampler's
+// input gradient, a stride-2 conv of its g).
 //
 // For input pixel p = (i, j) of an (H, W) map a with K channels it forms
 //
@@ -296,7 +297,8 @@ __device__ __forceinline__ void pp_run(unsigned char* smem, const PPSrc& src,
 
 // ---------------------------------------------------------------------------
 // The forward direction: a stride-2 3x3 pad-1 conv over a halo patch split
-// into parity planes (the train downsampler's forward, downsampler_train.cu).
+// into parity planes (the train downsampler's forward, downsampler_train.cu;
+// the train upsampler's input gradient, upsampler_train.cu, with PFPatch).
 //
 // A tile is TH x 32 output pixels (i0 + r, j0 + c), r < TH, c < 32, of one
 // image (PPTile, pp_tile_of).  Its input halo patch, input rows 2 i0 - 1 ..
@@ -312,8 +314,9 @@ __device__ __forceinline__ void pp_run(unsigned char* smem, const PPSrc& src,
 //   view of one plane, shifted by 0 or 1, and ldmatrix takes it a pixel
 //   row at a time (PFPatch::tap).  The 2x2 pool window of (r, c) is taps
 //   4, 5, 7 and 8, read from the same patch.
-// * PFRaw (Cin = 3): a patch row is one contiguous run of 65 x 3 values, staged as it is in 4-byte words (cp_async4); the stem's
-//   translate shifts the run by tx pixels and the row by ty.  Value e of
+// * PFRaw (Cin = 3): a patch row is one contiguous run of 65 x 3 values,
+//   staged as it is in 4-byte words (cp_async4); the stem's translate
+//   shifts the run by tx pixels and the row by ty.  Value e of
 //   patch row pr is pixel column 2 j0 - 1 + e / 3, channel e % 3
 //   (PFRaw::at).
 
@@ -373,9 +376,10 @@ __device__ __forceinline__ void pf_load_patch(bf16* dst, const bf16* x,
   }
 }
 
-// The 3-channel patch: STEM, the f32 image, translated; else a bf16 map,
-// whose rows start on a word (W even) and whose patch run starts on the
-// second half of one (LEAD).
+// The 3-channel patch: STEM, an f32 map (the stem's image, translated;
+// the f32 forward's 3-channel map, untranslated), staged unrounded; else
+// a bf16 map, whose rows start on a word (W even) and whose patch run
+// starts on the second half of one (LEAD).
 template <bool STEM_, int TH_>
 struct PFRaw {
   static constexpr bool STEM = STEM_;
@@ -390,10 +394,11 @@ struct PFRaw {
   }
 };
 
-// Start copying tile tl's patch rows into dst.  STEM: x is the f32 image
-// (B, H, W, 3) and the patch is of its translate by (tx, ty) = shifts[b]
-// (out[h, w] = x[h - ty, w - tx], zero outside either map); else x is a
-// bf16 (B, H, W, 3) map, read a word (two values) at a time.
+// Start copying tile tl's patch rows into dst.  STEM: x is an f32 (B, H,
+// W, 3) map and the patch is of its translate by (tx, ty) = shifts[b]
+// (out[h, w] = x[h - ty, w - tx], zero outside either map; no translate
+// when shifts is null); else x is a bf16 (B, H, W, 3) map, read a word
+// (two values) at a time.
 template <class R>
 __device__ __forceinline__ void pf_load_raw(unsigned char* dst,
                                             const void* x, const int* shifts,
@@ -401,8 +406,10 @@ __device__ __forceinline__ void pf_load_raw(unsigned char* dst,
                                             int nthreads) {
   int tx = 0, ty = 0;
   if constexpr (R::STEM) {
-    tx = __ldg(shifts + 2 * tl.b);
-    ty = __ldg(shifts + 2 * tl.b + 1);
+    if (shifts) {
+      tx = __ldg(shifts + 2 * tl.b);
+      ty = __ldg(shifts + 2 * tl.b + 1);
+    }
   }
   for (int v = threadIdx.x; v < R::PR * R::WORDS; v += nthreads) {
     const int pr = v / R::WORDS, k = v % R::WORDS;

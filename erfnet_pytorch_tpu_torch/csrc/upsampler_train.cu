@@ -20,14 +20,14 @@
 //   g  = bf16(gy + gs1[b] + 2 y gs2[b])                  (adjust_grad)
 //   dx[p] = bf16(sum_q g4[p - e_q] @ Wcat[q]^T)          f32 sums
 //   dW[tap] = sum_p x[p + e_q]^T g_plane[p]              f32, per tap
+//           (= sum_p x[p]^T g[2p - 1 + (2 - tap)] in the conv's terms)
 //   db = sum g                                           f32
 //
 // Launches.  Forward: the product with its epilogue (bias, bf16 store,
 // per-tile statistic partials) and the fixed-order reduction of the
 // partials.  Backward: the g fold, the dx product, the weight-gradient
-// product (one (Cin x Cout) block per tap, the nine non-zero blocks of
-// Wcat, per-chunk partials; the four blocks of offset (0, 0) also sum
-// db), and two fixed-order reductions.
+// product (per-chunk partials of dW and db), and two fixed-order
+// reductions.
 //
 // Forward (bf16): the parity-plane product of parity_plane.cuh, which
 // reads the nine non-zero blocks straight from the (3, 3, Cin, Cout) tap
@@ -38,25 +38,45 @@
 // partials per tile, over a warp's lanes by a fixed xor tree, then over
 // the warps in order.
 //
-// dx: a tiled GEMM over 64 input pixels of one image by 64 output
-// columns: the K extent (16 Cout) is staged 64 at a time, A gathered from
-// the four neighbours with cp.async and zero fill, B copied from the bf16
-// weight matrix, double-buffered, and multiplied by four warps with
-// ldmatrix + mma.sync m16n8k16 into f32 registers, through the zero
-// blocks too.
+// dx (bf16): the transposed conv's input gradient is the stride-2 3x3
+// pad-1 conv of g with the flipped, transposed taps,
+//   dx[i, j] = bf16(sum_{kh, kw} g[2i - 1 + kh, 2j - 1 + kw] @ w[2 - kh, 2 - kw]^T)
+// the train downsampler forward's product (Fwd there): a tile of TH x 32
+// dx pixels stages its (2 TH + 1) x 65 g pixels once in four parity
+// planes (parity_plane.cuh PFPatch), each tap a shifted ldmatrix view;
+// 9 Cout Cin MACs a dx pixel on mma.sync (Wcat's seven zero blocks are
+// never multiplied); the taps copied from w as they are (the flip in the
+// row order, the transpose by the non-transposing ldmatrix of the n-major
+// stack, no wt is built), resident; persistent CTAs with the next tile's
+// patch in flight; whole dx pixels written 16 bytes a thread.  At 128 ->
+// 64 the resident stack (147 KB) leaves room for two patches and no
+// output stage: the stage aliases the tile's own patch once read.
+//
+// Weight gradient (bf16): on a (chunk of input rows, kh) grid, the train
+// downsampler's weight gradient with the maps' roles swapped: a block of
+// BP input pixels stages its x tile once and g's one high-resolution row
+// segment per kh, the three kw taps stride-2 views of it, so x is read at
+// most 3 times (once per kh; not 9) and g 1.5 times (not 2.25); at 64 ->
+// 16 one CTA takes all three kh (x read once).  The blocks stream through
+// a cp.async ring; the chunks are sized so that the grid is one wave of
+// one CTA an SM (erf_ups_train_wg_rows).  db sums every g pixel once, the
+// kh = 1 segments its even rows and the kh = 2 ones its odd rows.
+// Partials per chunk (17.4 MB at the B=6 shapes on 132 SMs, where
+// partials per 1024-pixel chunk and tap took 21 MB), reduced in a fixed
+// order: a step stays bit-reproducible.
 //
 // Bound on this card: bytes (9 Cin Cout MACs per input pixel forward
 // against 2 Cin + 8 Cout bytes read and written: 72 operations per byte
-// at 64 -> 16 and 192 at 128 -> 64, under the card's 295).  What is left
-// in the forward: each tile reads its 9 Cin Cout weights from L2 (1.2 KB
-// a pixel at 128 -> 64), one CTA an SM there (165 KB of shared memory),
-// mma.sync and not wgmma.  The backward is as it was: dx is the
-// downsampler forward's product (a stride-2 conv of g), next to port.
+// at 64 -> 16 and 192 at 128 -> 64, under the card's 295; the backward
+// twice the operations on 4 Cin + 16 Cout bytes: x, dx, gy, y).  What is
+// left: each forward tile reads its 9 Cin Cout weights from L2 (1.2 KB a
+// pixel at 128 -> 64), one CTA an SM for the forward and dx at 128 ->
+// 64, mma.sync and not wgmma, the g fold a pass of its own.
 //
 // The f32 forms (erf_ups_train_*_f32, the JAX package's default compute
 // dtype): the same launches and the same function with x, y, g, dx and
 // Wcat in f32 and nothing rounded to bf16 (Wcat's taps unrounded).  Both
-// products are tiled GEMMs as dx's above (64 pixels x 64 columns, K staged
+// products are tiled GEMMs over Wcat (64 pixels x 64 columns, K staged
 // 64 at a time, the forward skipping zero weight blocks) on the CUDA
 // cores (FFMA micro-tiles of 4 pixels x 8 columns a thread, common.cuh
 // ffma_tile; no TF32): the forward's K in one FFMA chain per output (as
@@ -79,52 +99,12 @@ using namespace erfk;
 
 namespace {
 
-constexpr int THREADS = 128, BM = 64, BN = 64, KC = 64;
-constexpr int LDA = KC + 8, LDB = BN + 8, LDC = BN + 4;
-constexpr int WM = 32, WN = 32, MT = WM / 16, NT = WN / 8;
-constexpr size_t A_BYTES = (size_t)BM * LDA * 2;
-constexpr size_t B_BYTES = (size_t)KC * LDB * 2;
-constexpr size_t STAGE = (A_BYTES + B_BYTES + 127) / 128 * 128;
-constexpr size_t SMEM = 2 * STAGE;
-constexpr int RSTEP = THREADS / (BN / 8), PER = BM / RSTEP;
-static_assert((size_t)BM * LDC * 4 <= SMEM, "product staging");
-static_assert((BM / WM) * (BN / WN) * 32 == THREADS, "warp grid");
+// the f32 forms' tiled GEMMs: BM pixels x BN columns, K staged KC at a time
+constexpr int BM = 64, BN = 64, KC = 64;
 
 // neighbour q of Wcat's row blocks [x, x_h, x_w, x_hw]
 __device__ __forceinline__ int dh_of(int q) { return q & 1; }
 __device__ __forceinline__ int dw_of(int q) { return q >> 1; }
-
-// Start copying B rows [k0, k0 + KC) x columns [n0, n0 + BN) of the
-// row-major (K x N) bf16 matrix w.
-__device__ __forceinline__ void load_b(bf16* Bs, const bf16* w, int N, int k0,
-                                       int n0) {
-  for (int v = threadIdx.x; v < KC * BN / 8; v += THREADS) {
-    const int r = v / (BN / 8), j = v % (BN / 8);
-    cp_async16(Bs + r * LDB + j * 8, w + (long long)(k0 + r) * N + n0 + j * 8,
-               true);
-  }
-}
-
-// dx A chunk: columns [k0, k0 + KC) of the (BM x 16 Cout) gather of the
-// adjusted gradient: column k is channel c of plane pl = a*2+b of the
-// output block of input pixel p - e_q, with q = k / (4 Cout), zero before
-// the map's top and left edges.
-__device__ __forceinline__ void load_a_dx(bf16* As, const bf16* g, int Cout,
-                                          int H, int W, int b, int p0,
-                                          int p_end, int k0) {
-  for (int v = threadIdx.x; v < BM * KC / 8; v += THREADS) {
-    const int r = v / (KC / 8), j = v % (KC / 8);
-    const int k = k0 + j * 8, q = k / (4 * Cout), w4 = k % (4 * Cout);
-    const int pl = w4 / Cout, c = w4 % Cout;
-    const int p = p0 + r, i = p / W - dh_of(q), jj = p % W - dw_of(q);
-    const bool valid = p < p_end && i >= 0 && jj >= 0;
-    const long long src =
-        valid ? (((long long)b * 2 * H + 2 * i + (pl >> 1)) * 2 * W + 2 * jj +
-                 (pl & 1)) * Cout + c
-              : 0;
-    cp_async16(As + r * LDA + j * 8, g + src, valid);
-  }
-}
 
 // Is forward K chunk k0 non-zero for some column of [n0, n0 + BN)?  Block
 // (q, plane a*2+b) of Wcat is non-zero iff dh(q) <= a and dw(q) <= b.
@@ -134,85 +114,6 @@ __device__ __forceinline__ bool fwd_chunk_used(int k0, int n0, int Cin,
   for (int pl = n0 / Cout; pl <= (n0 + BN - 1) / Cout; ++pl)
     if (dh_of(q) <= (pl >> 1) && dw_of(q) <= (pl & 1)) return true;
   return false;
-}
-
-// acc (this warp's WM x WN block) += As (BM x KC) @ Bs (KC x BN)
-__device__ __forceinline__ void mma_chunk(const bf16* As, const bf16* Bs,
-                                          float (&acc)[MT][NT][4]) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / (BN / WN), wn = warp % (BN / WN);
-  const bf16* a_row = As + (wm * WM + lane % 16) * LDA + (lane / 16) * 8;
-  const bf16* b_row = Bs + (lane % 16) * LDB + wn * WN + (lane / 16) * 8;
-#pragma unroll
-  for (int k = 0; k < KC; k += 16) {
-    unsigned a[MT][4];
-#pragma unroll
-    for (int m = 0; m < MT; ++m) ldsm_x4(a[m], a_row + m * 16 * LDA + k);
-#pragma unroll
-    for (int n = 0; n < WN / 16; ++n) {
-      unsigned bb[4];
-      ldsm_x4_trans(bb, b_row + k * LDB + n * 16);
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        mma_bf16_16816(acc[m][2 * n], a[m], bb[0], bb[1]);
-        mma_bf16_16816(acc[m][2 * n + 1], a[m], bb[2], bb[3]);
-      }
-    }
-  }
-}
-
-// Write the accumulators to Cs (BM x BN f32, pitch LDC); the caller
-// synchronises before and after.
-__device__ __forceinline__ void store_acc(float* Cs,
-                                          const float (&acc)[MT][NT][4]) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / (BN / WN), wn = warp % (BN / WN);
-  float* c_row = Cs + (wm * WM + lane / 4) * LDC + wn * WN + 2 * (lane % 4);
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      float* c = c_row + m * 16 * LDC + n * 8;
-      *reinterpret_cast<float2*>(c) = make_float2(acc[m][n][0], acc[m][n][1]);
-      *reinterpret_cast<float2*>(c + 8 * LDC) =
-          make_float2(acc[m][n][2], acc[m][n][3]);
-    }
-}
-
-// The dx tile of CTA (blockIdx.x = pixel tile, blockIdx.y = column tile):
-// the product over the K chunks, double-buffered, left in Cs.
-__device__ void gemm_tile(unsigned char* smem, const bf16* g, const bf16* w,
-                          int K, int N, int Cout, int H, int W, int b, int p0,
-                          int p_end, int n0) {
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-      acc[m][n][0] = acc[m][n][1] = acc[m][n][2] = acc[m][n][3] = 0.0f;
-  auto stage = [&](int s) { return smem + s * STAGE; };
-  auto load = [&](int s, int k0) {
-    load_a_dx(reinterpret_cast<bf16*>(stage(s)), g, Cout, H, W, b, p0, p_end,
-              k0);
-    load_b(reinterpret_cast<bf16*>(stage(s) + A_BYTES), w, N, k0, n0);
-    cp_async_commit();
-  };
-  const int nc = K / KC;
-  load(0, 0);
-  for (int c = 0; c < nc; ++c) {
-    if (c + 1 < nc) {
-      load((c + 1) % 2, (c + 1) * KC);
-      cp_async_wait_group<1>();
-    } else {
-      cp_async_wait_group<0>();
-    }
-    __syncthreads();
-    mma_chunk(reinterpret_cast<const bf16*>(stage(c % 2)),
-              reinterpret_cast<const bf16*>(stage(c % 2) + A_BYTES), acc);
-    __syncthreads();  // this buffer is read before a load refills it
-  }
-  store_acc(reinterpret_cast<float*>(smem), acc);
-  __syncthreads();
 }
 
 // Forward: the parity-plane product (parity_plane.cuh) of x and the
@@ -314,125 +215,365 @@ fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   pp_run<C, false>(smem, src, w, H, W, epi);
 }
 
-// dx (B, H, W, Cin) bf16 from the adjusted gradient g (B, 2H, 2W, Cout)
-// and wt (16 Cout x Cin): row q * 4 Cout + pl * Cout + c = Wcat[q][:, pl
-// * Cout + c]^T.
-__global__ void __launch_bounds__(THREADS)
-dx_kernel(const bf16* __restrict__ g, const bf16* __restrict__ wt,
-          bf16* __restrict__ dx, int H, int W, int Cin, int Cout) {
+// dx (bf16): the stride-2 3x3 pad-1 conv of g (B, 2H, 2W, K = Cout) with
+// the flipped, transposed taps, dx[i, j] = bf16(sum over (kh, kw) of
+// g[2i - 1 + kh, 2j - 1 + kw] @ w[2 - kh, 2 - kw]^T), as the train
+// downsampler forward runs it (downsampler_train.cu Fwd): a tile of TH x
+// 32 dx pixels of one image stages its (2 TH + 1) x 65 g pixels once into
+// four parity planes (parity_plane.cuh PFPatch), each of the nine taps a
+// shifted ldmatrix view; 9 Cout Cin MACs a dx pixel on mma.sync.  The tap
+// stack, row T N + n holding w[8 - T][n, :] (T = kh 3 + kw: the flip),
+// is copied from w as it is, n-major, so the non-transposing ldmatrix
+// gives the B fragments (the transpose); PFPatch's swizzle keeps its
+// ldmatrix rows on distinct bank groups.  At (64, 128) the resident tap
+// stack (147 KB) and two 41.6 KB patches fill the CTA's 227 KB: the
+// output stage aliases the tile's own patch once the product has read it
+// (no third buffer).  Persistent CTAs, the next tile's patch in flight;
+// whole dx pixels written 16 bytes a thread.
+template <int K, int N>  // K = Cout (g's channels), N = Cin (dx's)
+struct UpsDx {
+  static constexpr int TH = K == 64 ? 2 : 4, TW = 32, BM = TH * TW;
+  static constexpr int THREADS = 256, WARPS = 8, WN = 32;
+  static constexpr int WCOLS = N / WN, WROWS = WARPS / WCOLS;
+  static constexpr int WM = BM / WROWS, MT = WM / 16, NT = WN / 8;
+  static constexpr int VN = N / 8, LDO = N + 8;
+  static constexpr int MIN_CTAS = K == 64 ? 1 : 2;
+  using Patch = PFPatch<K, TH>;
+  static constexpr size_t w_off = 2 * Patch::bytes;  // two patches
+  static constexpr size_t smem = w_off + pp_align((size_t)9 * N * K * 2);
+  static_assert(N % WN == 0 && WARPS % WCOLS == 0 && WM % 16 == 0 &&
+                    TW % WM == 0 && (size_t)BM * LDO * 2 <= Patch::bytes &&
+                    smem <= 232448,
+                "dx tile");
+};
+
+template <int K, int N>
+__host__ __device__ constexpr int dx_tiles_per_image(int H, int W) {
+  return ((H + UpsDx<K, N>::TH - 1) / UpsDx<K, N>::TH) * ((W + 31) / 32);
+}
+
+template <int K, int N>
+__global__ void __launch_bounds__(256, UpsDx<K, N>::MIN_CTAS)
+dx_kernel(const bf16* __restrict__ g, const bf16* __restrict__ w,
+          bf16* __restrict__ dx, int B, int H, int W) {
+  using G = UpsDx<K, N>;
+  using P = typename G::Patch;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int HW = H * W, tpi = (HW + BM - 1) / BM;
-  const int tile = blockIdx.x, b = tile / tpi, p0 = (tile % tpi) * BM;
-  const int p_end = p0 + BM < HW ? p0 + BM : HW;
-  const int n0 = blockIdx.y * BN;
-  gemm_tile(smem, g, wt, 16 * Cout, Cin, Cout, H, W, b, p0, p_end, n0);
-  const float* Cs = reinterpret_cast<const float*>(smem);
-  const int j = threadIdx.x % (BN / 8), r0 = threadIdx.x / (BN / 8);
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int r = r0 + i * RSTEP, p = p0 + r;
-    if (p >= p_end) break;
-    const float4* cv = reinterpret_cast<const float4*>(Cs + r * LDC + j * 8);
-    const float4 v0 = cv[0], v1 = cv[1];
-    const float v[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
-    *reinterpret_cast<uint4*>(
-        dx + ((long long)b * HW + p) * Cin + n0 + j * 8) = pack_bf16x8(v);
+  bf16* Ws = reinterpret_cast<bf16*>(smem + G::w_off);
+  const int tiles = B * dx_tiles_per_image<K, N>(H, W);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / G::WCOLS, wn = warp % G::WCOLS;
+
+  // the tap stack: row T N + n = w[8 - T][n, :] (K values, PFPatch's
+  // chunk order)
+  for (int v = threadIdx.x; v < 9 * N * P::VK; v += G::THREADS) {
+    const int r = v / P::VK, e = v % P::VK;
+    cp_async16(const_cast<bf16*>(P::at(Ws, r, e)),
+               w + ((size_t)(8 - r / N) * N + r % N) * K + e * 8, true);
   }
-}
+  auto patch_of = [&](int kk) {
+    return reinterpret_cast<bf16*>(smem + (kk & 1) * P::bytes);
+  };
+  auto issue = [&](int t, int kk) {
+    if (t < tiles)
+      pf_load_patch<P>(patch_of(kk), g, pp_tile_of<G>(t, H, W), 2 * H,
+                       2 * W, G::THREADS);
+    cp_async_commit();
+  };
 
-// Weight gradient: blockIdx.y = tap t_h * 3 + t_w of the HWIO weight, the
-// one non-zero Wcat block (neighbour q, plane a*2+b) that holds it;
-// blockIdx.x = a chunk of CHUNK input pixels (flattened over the batch).
-// part_w[chunk][tap] = sum over the chunk of x[p + e_q]^T g_plane[p]; the
-// four taps of neighbour (0, 0) also write part_db[chunk][plane] = sum of
-// g_plane over the chunk (each output pixel once).
-constexpr int CHUNK = 1024;
-
-// tap index along one axis -> (output parity, neighbour offset)
-__device__ __forceinline__ void tap_of(int t, int& parity, int& off) {
-  parity = t == 1 ? 0 : 1;
-  off = t == 2 ? 1 : 0;
-}
-
-template <int CIN, int COUT>
-struct WgPick;
-template <>
-struct WgPick<128, 64> {
-  using Q = WgCfg<128, 64, 32, 32>;
-  static constexpr int WM = 32, WN = 32;
-};
-template <>
-struct WgPick<64, 16> {
-  using Q = WgCfg<64, 16, 16, 16>;
-  static constexpr int WM = 16, WN = 16;
-};
-
-template <int CIN, int COUT>
-__global__ void __launch_bounds__(256)
-wgrad_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
-             float* __restrict__ part_w, float* __restrict__ part_db, int B,
-             int H, int W) {
-  using P = WgPick<CIN, COUT>;
-  using Q = typename P::Q;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Gs = reinterpret_cast<bf16*>(smem + Q::a_bytes);
-  const int tap = blockIdx.y;
-  int a, bb, dh, dw;
-  tap_of(tap / 3, a, dh);
-  tap_of(tap % 3, bb, dw);
-  const bool sum_db = dh == 0 && dw == 0;
-  const int HW = H * W;
-  const long long P_ = (long long)B * HW;
-  const long long p_begin = (long long)blockIdx.x * CHUNK;
-  const long long p_stop = p_begin + CHUNK < P_ ? p_begin + CHUNK : P_;
-  constexpr int VA = CIN / 8, VG = COUT / 8;
-
-  float acc[Q::MT][Q::NT][4];
+  issue(blockIdx.x, 0);  // with the tap stack
+  int kk = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++kk) {
+    const PPTile tl = pp_tile_of<G>(t, H, W);
+    issue(t + gridDim.x, kk + 1);  // into the buffer tile kk - 1 left
+    cp_async_wait_group<1>();
+    __syncthreads();
+    const bf16* pb = patch_of(kk);
+    float acc[G::MT][G::NT][4];
 #pragma unroll
-  for (int m = 0; m < Q::MT; ++m)
+    for (int mt = 0; mt < G::MT; ++mt)
 #pragma unroll
-    for (int n = 0; n < Q::NT; ++n)
-      acc[m][n][0] = acc[m][n][1] = acc[m][n][2] = acc[m][n][3] = 0.0f;
-  float dbs = 0.0f;  // thread t < COUT: channel t of this plane
-
-  for (long long p0 = p_begin; p0 < p_stop; p0 += Q::BP) {
-    for (int v = threadIdx.x; v < Q::BP * (VA + VG); v += blockDim.x) {
-      const int r = v / (VA + VG), e = v % (VA + VG);
-      const long long p = p0 + r;
-      const bool in = p < p_stop;
-      const int img = (int)(p / HW), local = (int)(p % HW);
-      const int i = local / W, jj = local % W;
-      if (e < VA) {
-        const bool valid = in && i + dh < H && jj + dw < W;
-        const long long src =
-            valid ? (((long long)img * H + i + dh) * W + jj + dw) * CIN : 0;
-        cp_async16(As + r * Q::LDA + e * 8, x + src + e * 8, valid);
-      } else {
-        const long long src =
-            in ? (((long long)img * 2 * H + 2 * i + a) * 2 * W + 2 * jj +
-                  bb) * COUT
-               : 0;
-        cp_async16(Gs + r * Q::LDG + (e - VA) * 8, g + src + (e - VA) * 8,
-                   in);
+      for (int n = 0; n < G::NT; ++n)
+        acc[mt][n][0] = acc[mt][n][1] = acc[mt][n][2] = acc[mt][n][3] = 0.0f;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      int q[G::MT];  // this lane's A row: the tap's plane pixel
+#pragma unroll
+      for (int mt = 0; mt < G::MT; ++mt) {
+        const int m = wm * G::WM + mt * 16 + lane % 16;
+        q[mt] = P::tap(m / G::TW, m % G::TW, tap / 3, tap % 3);
+      }
+#pragma unroll
+      for (int k = 0; k < K; k += 16) {
+        unsigned a[G::MT][4];
+#pragma unroll
+        for (int mt = 0; mt < G::MT; ++mt)
+          ldsm_x4(a[mt], P::at(pb, q[mt], k / 8 + lane / 16));
+#pragma unroll
+        for (int n = 0; n < G::WN / 16; ++n) {
+          // rows n0 + lane % 8 (+ 8 for lanes 16-31), chunk k / 8 (+ 1
+          // for lanes 8-15, 24-31): b0 b1 of columns n0 .. + 7, then of
+          // n0 + 8 .. + 15
+          unsigned bb[4];
+          ldsm_x4(bb, P::at(Ws,
+                            tap * N + wn * G::WN + n * 16 + lane % 8 +
+                                (lane / 16) * 8,
+                            k / 8 + (lane / 8) % 2));
+#pragma unroll
+          for (int mt = 0; mt < G::MT; ++mt) {
+            mma_bf16_16816(acc[mt][2 * n], a[mt], bb[0], bb[1]);
+            mma_bf16_16816(acc[mt][2 * n + 1], a[mt], bb[2], bb[3]);
+          }
+        }
       }
     }
-    cp_async_wait_all();
+    __syncthreads();  // the patch is read: its buffer stages the output
+    bf16* Cs = patch_of(kk);
+#pragma unroll
+    for (int mt = 0; mt < G::MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = wm * G::WM + mt * 16 + lane / 4 + 8 * h;
+#pragma unroll
+        for (int nt = 0; nt < G::NT; ++nt) {
+          const int n = wn * G::WN + nt * 8 + 2 * (lane % 4);
+          *reinterpret_cast<__nv_bfloat162*>(Cs + m * G::LDO + n) =
+              __floats2bfloat162_rn(acc[mt][nt][2 * h],
+                                    acc[mt][nt][2 * h + 1]);
+        }
+      }
     __syncthreads();
-    wgrad_step<CIN, COUT, P::WM, P::WN>(As, Gs, acc);
-    if (sum_db && threadIdx.x < COUT)
-      for (int r = 0; r < Q::BP; ++r)
-        dbs += __bfloat162float(Gs[r * Q::LDG + threadIdx.x]);
-    __syncthreads();
+    for (int v = threadIdx.x; v < G::BM * G::VN; v += G::THREADS) {
+      const int m = v / G::VN, j = v % G::VN;
+      const int i = tl.i0 + m / G::TW, jj = tl.j0 + m % G::TW;
+      if (i < H && jj < W)
+        *reinterpret_cast<uint4*>(
+            dx + (((long long)tl.b * H + i) * W + jj) * N + j * 8) =
+            *reinterpret_cast<const uint4*>(Cs + m * G::LDO + j * 8);
+    }
+    __syncthreads();  // Cs read before the next tile's copies refill it
   }
-  float* dst = part_w + ((long long)blockIdx.x * 9 + tap) * CIN * COUT;
-  wgrad_store<CIN, COUT, P::WM, P::WN>(acc, reinterpret_cast<float*>(smem),
-                                       dst, CIN, COUT);
-  if (sum_db && threadIdx.x < COUT)
-    part_db[((long long)blockIdx.x * 4 + a * 2 + bb) * COUT + threadIdx.x] =
-        dbs;
+  cp_async_wait_all();
 }
 
+// Weight gradient (bf16): dW[2 - kh, 2 - kw] = sum_p x[p]^T g[2i - 1 + kh,
+// 2j - 1 + kw] (p = (i, j)), the train downsampler's weight gradient
+// (downsampler_train.cu down_wgrad_kernel) with the two maps' roles
+// swapped.  blockIdx.x = a chunk of `rows_per` input rows (flattened over
+// the batch; the wrapper sizes the chunks so that the grid is one wave of
+// one CTA an SM), blockIdx.y = khg: the CTA owns the KHN kernel rows kh =
+// khg KHN .. + KHN - 1.  At 128 -> 64 a CTA takes one kh (the taps of all
+// three would not fit its registers), at 64 -> 16, where x is as large as
+// g, all three (x read once).  Each row in blocks of BP input pixels: a
+// block stages its x tile (BP x Cin) once and, per kh, g's one
+// high-resolution row segment (columns 2 j0 - 1 + s, s < 2 BP + 1), even
+// slots in GE, odd ones in GO, so tap kw's B operand is a stride-2 view
+// (kw = 0: GE rows [0, BP), 1: GO, 2: GE rows [1, BP]): x is read 3 / KHN
+// times, g 1.5 times.  The blocks stream through a ring of NS stages (NS
+// - 1 in flight).  Each warp owns WMT x WNT m16 x n16 tiles of all its
+// taps over every WARPS_K-th 16-pixel step (the A fragments shared by the
+// taps); the warp groups' sums are added in group order at the end.  db
+// sums every g pixel once: the kh = 1 segments its even rows 2i, the kh =
+// 2 ones its odd rows 2i + 1, slots 1 .. 2 BP of each; thread t takes the
+// 16-byte chunk t % VG of channels and every DBG-th slot, the DBG threads
+// of a chunk added in order at the end.  part_w[chunk] = dW (3, 3, Cin,
+// Cout) HWIO, part_db[chunk][kh - 1] = db's partial over that kh's rows.
+template <int CIN, int COUT>
+struct UpsWg {
+  static constexpr bool WIDE = CIN == 128;
+  static constexpr int KHN = WIDE ? 1 : 3, KHG = 3 / KHN, TAPS = 3 * KHN;
+  static constexpr int WMT = WIDE ? 2 : 1, WNT = WIDE ? 2 : 1;
+  static constexpr int WARPS_N = COUT / 16 / WNT;
+  static constexpr int WARPS_MN = (CIN / 16 / WMT) * WARPS_N;
+  static constexpr int WARPS_K = 8 / WARPS_MN;
+  static constexpr int BP = 128;  // input pixels a block
+  static constexpr int NS = 3;    // ring stages
+  static constexpr int CTAS = 1;  // CTAs an SM
+  static constexpr int LDA = CIN + 8, LDG = COUT + 8;
+  static constexpr int VG = COUT / 8, DBG = 256 / VG;
+  static constexpr size_t x_bytes = pp_align((size_t)BP * LDA * 2);
+  static constexpr size_t ge_bytes = pp_align((size_t)(BP + 1) * LDG * 2);
+  static constexpr size_t seg_bytes =
+      ge_bytes + pp_align((size_t)BP * LDG * 2);
+  static constexpr size_t stage_bytes = x_bytes + KHN * seg_bytes;
+  static constexpr size_t red_bytes =
+      ((size_t)WARPS_K * TAPS * CIN * COUT + 2 * 256 * 8) * 4;
+  static constexpr size_t smem = NS * stage_bytes > red_bytes
+                                     ? NS * stage_bytes
+                                     : red_bytes;
+  static_assert(CIN % (16 * WMT) == 0 && COUT % (16 * WNT) == 0 &&
+                    8 % WARPS_MN == 0 && (BP / 16) % WARPS_K == 0 &&
+                    256 % VG == 0 && smem <= 232448,
+                "upsampler wgrad tile");
+};
+
+template <int CIN, int COUT>
+__global__ void __launch_bounds__(256, UpsWg<CIN, COUT>::CTAS)
+wgrad_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
+             float* __restrict__ part_w, float* __restrict__ part_db, int B,
+             int H, int W, int rows_per) {
+  using G = UpsWg<CIN, COUT>;
+  constexpr int LDA = G::LDA, LDG = G::LDG, BP = G::BP;
+  constexpr int KHN = G::KHN, NS = G::NS, VG = G::VG;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int kh0 = blockIdx.y * KHN;
+  const int row0 = blockIdx.x * rows_per;
+  const int rows = B * H - row0 < rows_per ? B * H - row0 : rows_per;
+  const int bpr = (W + BP - 1) / BP, nb = rows * bpr;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wk = warp / G::WARPS_MN, wmn = warp % G::WARPS_MN;
+  const int wm = wmn / G::WARPS_N, wn = wmn % G::WARPS_N;
+  auto xs_of = [&](int j) {
+    return reinterpret_cast<bf16*>(smem + (j % NS) * G::stage_bytes);
+  };
+  // kernel row kh0 + l's segment of block j: GE, then GO
+  auto ge_of = [&](int j, int l) {
+    return xs_of(j) + (G::x_bytes + l * G::seg_bytes) / 2;
+  };
+  auto go_of = [&](int j, int l) { return ge_of(j, l) + G::ge_bytes / 2; };
+  // start staging block j (rows of the chunk, then blocks of a row)
+  auto issue = [&](int j) {
+    if (j < nb) {
+      const int row = row0 + j / bpr, j0 = (j % bpr) * BP;
+      const int img = row / H;
+      bf16* xs = xs_of(j);
+      const bf16* xrow = x + (long long)row * W * CIN;
+      for (int v = threadIdx.x; v < BP * (CIN / 8); v += 256) {
+        const int p = v / (CIN / 8), e = v % (CIN / 8);
+        const bool ok = j0 + p < W;
+        cp_async16(xs + p * LDA + e * 8,
+                   xrow + (ok ? (long long)(j0 + p) * CIN + e * 8 : 0), ok);
+      }
+#pragma unroll
+      for (int l = 0; l < KHN; ++l) {
+        const int hr = 2 * (row % H) - 1 + kh0 + l;  // < 2H
+        bf16* ge = ge_of(j, l);
+        bf16* go = go_of(j, l);
+        const bf16* grow =
+            g + ((long long)img * 2 * H + (hr >= 0 ? hr : 0)) * 2 * W * COUT;
+        for (int v = threadIdx.x; v < (2 * BP + 1) * VG; v += 256) {
+          const int sl = v / VG, e = v % VG, col = 2 * j0 - 1 + sl;
+          const bool ok = hr >= 0 && col >= 0 && col < 2 * W;
+          cp_async16((sl & 1 ? go : ge) + (sl >> 1) * LDG + e * 8,
+                     grow + (ok ? (long long)col * COUT + e * 8 : 0), ok);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[G::TAPS][G::WMT][2 * G::WNT][4];
+#pragma unroll
+  for (int t = 0; t < G::TAPS; ++t)
+#pragma unroll
+    for (int mt = 0; mt < G::WMT; ++mt)
+#pragma unroll
+      for (int n = 0; n < 2 * G::WNT; ++n)
+        acc[t][mt][n][0] = acc[t][mt][n][1] = acc[t][mt][n][2] =
+            acc[t][mt][n][3] = 0.0f;
+  float dbs[2][8];  // db over the even (kh = 1) and odd (kh = 2) rows
+#pragma unroll
+  for (int k = 0; k < 8; ++k) dbs[0][k] = dbs[1][k] = 0.0f;
+  for (int j = 0; j < NS - 1; ++j) issue(j);
+  for (int j = 0; j < nb; ++j) {
+    cp_async_wait_group<NS - 2>();
+    __syncthreads();  // block j landed; block j - 1's stage is free
+    issue(j + NS - 1);
+    const bf16* xs = xs_of(j);
+    // slots 1 .. 2 BP of kernel row kh0 + l's segment into d
+    auto sum_db = [&](float (&d)[8], int l) {
+      const bf16* ge = ge_of(j, l);
+      const bf16* go = go_of(j, l);
+      for (int sl = 1 + threadIdx.x / VG; sl <= 2 * BP; sl += G::DBG) {
+        float f[8];
+        unpack_bf16x8(*reinterpret_cast<const uint4*>(
+                          (sl & 1 ? go : ge) + (sl >> 1) * LDG +
+                          (threadIdx.x % VG) * 8),
+                      f);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) d[k] += f[k];
+      }
+    };
+#pragma unroll
+    for (int l = 0; l < KHN; ++l) {
+      if (kh0 + l == 1) sum_db(dbs[0], l);
+      if (kh0 + l == 2) sum_db(dbs[1], l);
+    }
+#pragma unroll
+    for (int kq = 0; kq < BP / 16 / G::WARPS_K; ++kq) {
+      const int ks = kq * G::WARPS_K + wk;
+      unsigned a[G::WMT][4];
+#pragma unroll
+      for (int mt = 0; mt < G::WMT; ++mt)
+        ldsm_x4_trans(a[mt], xs + (ks * 16 + lane % 8 + (lane / 16) * 8) *
+                                      LDA +
+                                 (wm * G::WMT + mt) * 16 +
+                                 ((lane / 8) % 2) * 8);
+#pragma unroll
+      for (int t = 0; t < G::TAPS; ++t) {
+        const int l = t / 3, kw = t % 3;
+        const bf16* view =
+            (kw == 1 ? go_of(j, l) : ge_of(j, l)) + (kw == 2 ? LDG : 0);
+#pragma unroll
+        for (int nt = 0; nt < G::WNT; ++nt) {
+          unsigned bq[4];
+          ldsm_x4_trans(bq, view + (ks * 16 + lane % 16) * LDG +
+                                (wn * G::WNT + nt) * 16 + (lane / 16) * 8);
+#pragma unroll
+          for (int mt = 0; mt < G::WMT; ++mt) {
+            mma_bf16_16816(acc[t][mt][2 * nt], a[mt], bq[0], bq[1]);
+            mma_bf16_16816(acc[t][mt][2 * nt + 1], a[mt], bq[2], bq[3]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();  // the stages are dead: the warp groups' sums and db's
+                    // partials take their place
+  float* red = reinterpret_cast<float*>(smem);
+  float* dbr = red + G::WARPS_K * G::TAPS * CIN * COUT;
+  const int g8 = lane / 4, t4 = lane % 4;
+#pragma unroll
+  for (int t = 0; t < G::TAPS; ++t)
+#pragma unroll
+    for (int mt = 0; mt < G::WMT; ++mt)
+#pragma unroll
+      for (int n8 = 0; n8 < 2 * G::WNT; ++n8)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = (wm * G::WMT + mt) * 16 + g8 + 8 * h;
+          const int c = wn * G::WNT * 16 + n8 * 8 + 2 * t4;
+          float* d = red + ((wk * G::TAPS + t) * CIN + r) * COUT + c;
+          d[0] = acc[t][mt][n8][2 * h];
+          d[1] = acc[t][mt][n8][2 * h + 1];
+        }
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    dbr[threadIdx.x * 8 + k] = dbs[0][k];
+    dbr[(256 + threadIdx.x) * 8 + k] = dbs[1][k];
+  }
+  __syncthreads();
+  float* dst = part_w + (long long)blockIdx.x * 9 * CIN * COUT;
+  for (int e = threadIdx.x; e < G::TAPS * CIN * COUT; e += 256) {
+    float v = 0.0f;
+#pragma unroll
+    for (int k = 0; k < G::WARPS_K; ++k)
+      v += red[k * G::TAPS * CIN * COUT + e];
+    const int t = e / (CIN * COUT), rc = e % (CIN * COUT);
+    const int kh = kh0 + t / 3, kw = t % 3;
+    dst[((2 - kh) * 3 + 2 - kw) * CIN * COUT + rc] = v;
+  }
+  if (threadIdx.x < 2 * COUT) {
+    const int par = threadIdx.x / COUT, c = threadIdx.x % COUT;
+    if (kh0 <= par + 1 && par + 1 < kh0 + KHN) {  // this CTA's kh = par + 1
+      float v = 0.0f;
+      for (int q = 0; q < G::DBG; ++q)
+        v += dbr[(par * 256 + q * VG + c / 8) * 8 + c % 8];
+      part_db[((long long)blockIdx.x * 2 + par) * COUT + c] = v;
+    }
+  }
+}
 
 // ---------------------------------------------------------------------------
 // f32 forms
@@ -603,8 +744,20 @@ dx_f32_kernel(const float* __restrict__ g, const float* __restrict__ wt,
   }
 }
 
-// Weight gradient, f32: as wgrad_kernel (blockIdx.y = tap, blockIdx.x = a
-// chunk of CHUNK input pixels; part_w, part_db as there).
+// Weight gradient, f32: blockIdx.y = tap t_h * 3 + t_w of the HWIO weight,
+// the one non-zero Wcat block (neighbour q, plane a*2+b) that holds it;
+// blockIdx.x = a chunk of CHUNK input pixels (flattened over the batch).
+// part_w[chunk][tap] = sum over the chunk of x[p + e_q]^T g_plane[p]; the
+// four taps of neighbour (0, 0) also write part_db[chunk][plane] = sum of
+// g_plane over the chunk (each output pixel once).
+constexpr int CHUNK = 1024;
+
+// tap index along one axis -> (output parity, neighbour offset)
+__device__ __forceinline__ void tap_of(int t, int& parity, int& off) {
+  parity = t == 1 ? 0 : 1;
+  off = t == 2 ? 1 : 0;
+}
+
 template <int CIN, int COUT>
 struct WgPick32 {
   static constexpr int TM = CIN == 128 ? 8 : 4, TN = 4, THREADS = 256;
@@ -687,18 +840,41 @@ cudaError_t allow(const void* fn, size_t bytes, bool* done) {
   return e;
 }
 
+// The bf16 backward's products: dx (persistent CTAs over its tiles), the
+// weight gradient's partials and their two fixed-order reductions.
 template <int CIN, int COUT>
-int wgrad(const void* x, const void* g, void* part_w, void* part_db, int B,
-          int H, int W, cudaStream_t s) {
-  using Q = typename WgPick<CIN, COUT>::Q;
-  static bool ok = false;
-  cudaError_t e = allow((const void*)wgrad_kernel<CIN, COUT>, Q::smem, &ok);
+int bwd(const void* x, const void* g, const void* w, void* dx, void* part_w,
+        void* part_db, void* grads, int B, int H, int W, int rows,
+        cudaStream_t s) {
+  using D = UpsDx<COUT, CIN>;
+  using G = UpsWg<CIN, COUT>;
+  static bool dx_ok = false, wg_ok = false;
+  static int gm = 0;
+  cudaError_t e = allow_smem(dx_kernel<COUT, CIN>, D::smem, &dx_ok);
   if (e != cudaSuccess) return e;
-  const int chunks = (int)(((long long)B * H * W + CHUNK - 1) / CHUNK);
-  wgrad_kernel<CIN, COUT><<<dim3(chunks, 9), Q::THREADS, Q::smem, s>>>(
+  if (gm == 0 && (e = resident_ctas(dx_kernel<COUT, CIN>, D::THREADS,
+                                    D::smem, &gm)) != cudaSuccess)
+    return e;
+  const int tiles = B * dx_tiles_per_image<COUT, CIN>(H, W);
+  dx_kernel<COUT, CIN><<<tiles < gm ? tiles : gm, D::THREADS, D::smem, s>>>(
+      static_cast<const bf16*>(g), static_cast<const bf16*>(w),
+      static_cast<bf16*>(dx), B, H, W);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if ((e = allow_smem(wgrad_kernel<CIN, COUT>, G::smem, &wg_ok)) !=
+      cudaSuccess)
+    return e;
+  const int chunks = (B * H + rows - 1) / rows;
+  wgrad_kernel<CIN, COUT><<<dim3(chunks, G::KHG), 256, G::smem, s>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(g),
-      static_cast<float*>(part_w), static_cast<float*>(part_db), B, H, W);
-  return cudaGetLastError();
+      static_cast<float*>(part_w), static_cast<float*>(part_db), B, H, W,
+      rows);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  float* gr = static_cast<float*>(grads);
+  if ((e = reduce_parts(static_cast<const float*>(part_w), gr, 1, chunks,
+                        9 * CIN * COUT, s)) != cudaSuccess)
+    return e;
+  return reduce_parts(static_cast<const float*>(part_db), gr + 9 * CIN * COUT,
+                      1, 2 * chunks, COUT, s);
 }
 
 template <int CIN, int COUT>
@@ -786,18 +962,21 @@ extern "C" int erf_ups_train_fwd(const void* x, const void* w,
 }
 
 // Backward.  y: the forward's output; gy (B, 2H, 2W, Cout) bf16; gs1, gs2
-// (B, Cout) f32; wt (16 Cout, Cin) bf16 (see dx_kernel); g (B, 2H, 2W,
-// Cout) bf16 scratch (with_stats 0: gy is g, and y, gs1, gs2 and g are not
-// read); dx (B, H, W, Cin) bf16; part_w (chunks, 9, Cin, Cout) and part_db
-// (chunks, 4, Cout) f32 scratch with chunks = ceil(B H W / 1024); grads
-// (9 Cin Cout + Cout) f32 = [dW (3, 3, Cin, Cout) HWIO, db].
+// (B, Cout) f32; w (3, 3, Cin, Cout) bf16, the forward-conv HWIO tap
+// stack as the forward takes it, 16-byte aligned; g (B, 2H, 2W, Cout) bf16
+// scratch (with_stats 0: gy is g, and y, gs1, gs2 and g are not read); dx
+// (B, H, W, Cin) bf16; rows: input rows per weight-gradient partial;
+// part_w (chunks, 9, Cin, Cout) and part_db (chunks, 2, Cout) f32 scratch
+// with chunks = ceil(B H / rows); grads (9 Cin Cout +
+// Cout) f32 = [dW (3, 3, Cin, Cout) HWIO, db].
 extern "C" int erf_ups_train_bwd(const void* x, const void* y, const void* gy,
                                  const void* gs1, const void* gs2,
-                                 const void* wt, void* g, void* dx,
+                                 const void* w, void* g, void* dx,
                                  void* part_w, void* part_db, void* grads,
                                  int B, int H, int W, int Cin, int Cout,
-                                 int with_stats, void* stream) {
-  if (!shape_ok(B, H, W, Cin, Cout)) return cudaErrorInvalidValue;
+                                 int rows, int with_stats, void* stream) {
+  if (!shape_ok(B, H, W, Cin, Cout) || rows < 1)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaSuccess;
   const void* gg = with_stats ? g : gy;
@@ -805,30 +984,34 @@ extern "C" int erf_ups_train_bwd(const void* x, const void* y, const void* gy,
       (e = adjust_grad(gy, y, gs1, gs2, g, B, 4 * H * W, Cout, s)) !=
           cudaSuccess)
     return e;
-  static bool ok = false;
-  if ((e = allow((const void*)dx_kernel, SMEM, &ok)) != cudaSuccess) return e;
-  const int tpi = (H * W + BM - 1) / BM;
-  dx_kernel<<<dim3(B * tpi, Cin / BN), THREADS, SMEM, s>>>(
-      static_cast<const bf16*>(gg), static_cast<const bf16*>(wt),
-      static_cast<bf16*>(dx), H, W, Cin, Cout);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  e = (cudaError_t)(Cin == 128 ? wgrad<128, 64>(x, gg, part_w, part_db, B, H,
-                                                 W, s)
-                               : wgrad<64, 16>(x, gg, part_w, part_db, B, H,
-                                               W, s));
-  if (e != cudaSuccess) return e;
-  const int chunks = (int)(((long long)B * H * W + CHUNK - 1) / CHUNK);
-  float* gr = static_cast<float*>(grads);
-  if ((e = reduce_parts(static_cast<const float*>(part_w), gr, 1, chunks,
-                        9 * Cin * Cout, s)) != cudaSuccess)
-    return e;
-  return reduce_parts(static_cast<const float*>(part_db), gr + 9 * Cin * Cout,
-                      1, 4 * chunks, Cout, s);
+  return Cin == 128 ? bwd<128, 64>(x, gg, w, dx, part_w, part_db, grads, B,
+                                   H, W, rows, s)
+                    : bwd<64, 16>(x, gg, w, dx, part_w, part_db, grads, B, H,
+                                  W, rows, s);
 }
 
 
-// The f32 forms: x, y, gy, g, dx, wcat (4 Cin, 4 Cout) and wt (16 Cout,
-// Cin) in f32; the same scratch and outputs.
+// Input rows per bf16 weight-gradient partial for a (B, H) map (the
+// backward's `rows`): chunks of ceil(B H KHG / (SMs CTAS)) rows, so that
+// the grid of chunks x KHG CTAs is one wave of CTAS CTAs an SM of the
+// current device; 0 on a CUDA error.
+extern "C" int erf_ups_train_wg_rows(int B, int H, int Cin) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      sms < 1)
+    return 0;
+  const int khg = Cin == 128 ? UpsWg<128, 64>::KHG : UpsWg<64, 16>::KHG;
+  const int ctas = sms * (Cin == 128 ? UpsWg<128, 64>::CTAS
+                                     : UpsWg<64, 16>::CTAS);
+  return (int)(((long long)B * H * khg + ctas - 1) / ctas);
+}
+
+// The f32 forms: x, y, gy, g, dx, wcat (4 Cin, 4 Cout) and, in place of
+// w, wt (16 Cout, Cin) in f32, row q 4 Cout + plane Cout + c = Wcat[q][:,
+// plane Cout + c]^T; part_w (chunks, 9, Cin, Cout) and part_db (chunks, 4,
+// Cout) with chunks = ceil(B H W / 1024); the same outputs.
 extern "C" int erf_ups_train_fwd_f32(const void* x, const void* wcat,
                                      const void* bias, void* y, void* part,
                                      void* stats, int B, int H, int W,

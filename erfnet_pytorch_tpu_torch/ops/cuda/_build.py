@@ -135,6 +135,15 @@ def require(t, name, dtype, device, shape=None) -> None:
                          f"{tuple(shape)}")
 
 
+def taps(w, dtype):
+    """A tap stack as a kernel copies it, 16 bytes at a time: ``w`` in
+    ``dtype``, contiguous (also where it is a view in that dtype already,
+    as the model's HWIO view of a conv weight is) and 16-byte aligned."""
+    import torch
+    t = w.to(dtype, memory_format=torch.contiguous_format).contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 def form_of(dtype, name) -> str:
     """The kernel form of the compute dtype ``dtype``: "" for bf16,
     "_f32" for f32, the suffix of the form's C entry point and the key of

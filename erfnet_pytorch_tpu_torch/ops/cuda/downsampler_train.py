@@ -25,9 +25,11 @@ then H-pair maxima splits its cotangent equally among ties).  The bf16
 forward is the stride-2 conv over the parity planes of each tile's halo
 patch (FWD_TH x FWD_TW output pixels, ``csrc/parity_plane.cuh``), the tap
 stack read as it is (no padded matrix is built for it), one statistic
-partial per tile.  In the bf16 form the conv input gradient is the
-parity-plane product of g with the transposed taps ``wt`` (3, 3, Cc,
-Cin), and the weight gradient's partials are per chunk of
+partial per tile; so is the f32 forward at Cin = 3 (the stem), over each
+tile's raw f32 patch, its product an FFMA chain per output.  In the bf16
+form the conv input gradient is the parity-plane product of g with the
+transposed taps ``wt`` (3, 3, Cc, Cin), and the weight gradient's
+partials are per chunk of
 ``WG_ROWS`` output rows and kh (the f32 form's per ``CHUNK`` output
 pixels and tap).
 
@@ -52,11 +54,11 @@ import torch.nn.functional as F
 from ..augment import apply_shifts
 from . import _build, route
 
-# the bf16 forward's tile, FWD_TH[Cin] x FWD_TW output pixels (csrc Fwd)
+# the bf16 forward's tile, FWD_TH[Cin] x FWD_TW output pixels (csrc Fwd;
+# the f32 forward's at Cin = 3 too, csrc Fwd3F32)
 FWD_TH = {3: 8, 16: 4, 64: 2}
 FWD_TW = 32
-# output pixels per tile of the f32 forward, by Cin (csrc Fwd32::BM)
-BM_F32 = {3: 128, 16: 64, 64: 64}
+BM_F32 = 64      # output pixels per tile of the f32 forward at Cin 16, 64
 CHUNK = 2048     # output pixels per f32 weight-gradient partial (csrc CHUNK)
 # output rows per bf16 weight-gradient partial, by Cin (csrc Wg::ROWS)
 WG_ROWS = {3: 2, 16: 4, 64: 4}
@@ -182,15 +184,15 @@ def down_fwd(x, w, b, *, shifts=None, dtype=None, stats=True):
         xa = x
     dt = xa.dtype
     Ho, Wo = H // 2, W // 2
-    if form:    # f32: the zero-padded (round4(9 cin), round4(cc)) matrix
+    if form and cin != 3:
+        # f32 at Cin 16, 64: the zero-padded (round4(9 cin), round4(cc))
+        # matrix
         wk = torch.zeros(_round4(9 * cin), _round4(cc), dtype=dt,
                          device=dev)
         wk[:9 * cin, :cc] = w.reshape(9 * cin, cc)
-        tpi = -(-(Ho * Wo) // BM_F32[cin])
-    else:       # bf16: the (3, 3, cin, cc) tap stack as it is, 16-byte aligned
-        wk = w.to(dt, memory_format=torch.contiguous_format)
-        if wk.data_ptr() % 16:
-            wk = wk.clone()
+        tpi = -(-(Ho * Wo) // BM_F32)
+    else:       # the (3, 3, cin, cc) tap stack as it is
+        wk = _build.taps(w, dt)
         tpi = -(-Ho // FWD_TH[cin]) * -(-Wo // FWD_TW)
     _build.require(wk, "w", dt, dev)
     bias = b.float().contiguous()

@@ -14,14 +14,18 @@ Forward, as the parity-plane product of ``ops/convt_mm.py``: y = bf16([x,
 x_h+1, x_w+1, x_hw+1] @ Wcat + b), Wcat built from the weight's taps
 rounded to the activation dtype, f32 sums and bias, and the per-image (B,
 Cout) f32 sum and sum of squares of the stored y (not in the stats-free
-forms).  The bf16 kernel (``csrc/parity_plane.cuh``) reads Wcat's nine
-non-zero blocks straight from the (3, 3, Cin, Cout) taps through
-``PARITY_TAPS``, so the wrapper passes the taps as they are; the f32
-forward and both backwards take Wcat (or its transposed layout), built by
-``_wcat`` in one gather from a cached index table, bit-equal to
-``build_upsampler_matmul``.  Backward from (gy, gs1, gs2): g = bf16(gy + gs1 + 2 y gs2) (the
-stats-free forms: g = gy), dx = bf16(the transposed product), dW (3, 3,
-Cin, Cout) forward-conv HWIO in f32 and db = sum g in f32.
+forms).  The bf16 kernels read the (3, 3, Cin, Cout) taps as they are:
+the forward's parity-plane product (``csrc/parity_plane.cuh``) through
+``PARITY_TAPS``, the backward's dx as the stride-2 conv of g over halo
+patches with the taps flipped and transposed; the f32 forward and
+backward take Wcat (or its transposed layout), built by ``_wcat`` in one
+gather from a cached index table, bit-equal to
+``build_upsampler_matmul``.  Backward from (gy, gs1, gs2): g = bf16(gy +
+gs1 + 2 y gs2) (the stats-free forms: g = gy), dx = bf16(the transposed
+product), dW (3, 3, Cin, Cout) forward-conv HWIO in f32 and db = sum g in
+f32; the bf16 weight gradient's partials are per chunk of input rows,
+sized to one wave of the card's SMs (the f32 form's per ``CHUNK`` input
+pixels and tap).
 
 The kernels take (Cin, Cout) in {(128, 64), (64, 16)} and raise on
 anything else.  Two forms, picked by the maps' dtype
@@ -37,6 +41,8 @@ at f32.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 import torch.nn.functional as F
@@ -48,7 +54,13 @@ from . import _build, route
 BM = 64          # input pixels per tile of the f32 forward (csrc BM)
 BN = 64          # output columns per tile of the f32 forward (csrc BN)
 TH, TW = 4, 32   # input rows, columns per tile of the bf16 forward (csrc)
-CHUNK = 1024     # input pixels per weight-gradient partial (csrc CHUNK)
+# the bf16 backward: dx tiles of DX_TH[Cin] x TW dx pixels (csrc UpsDx);
+# weight-gradient partials per chunk of input rows (as many as the kernel
+# asks for, erf_ups_train_wg_rows), in blocks of WG_BP pixels of a row
+# (csrc UpsWg)
+DX_TH = {128: 2, 64: 4}
+WG_BP = 128
+CHUNK = 1024     # input pixels per f32 weight-gradient partial (csrc)
 FWD_LAUNCHES = 2
 BWD_LAUNCHES = 5
 # the stats-free forms: no statistics reduction, no g fold
@@ -225,6 +237,14 @@ def ups_fwd(x, w, b, *, stats=True):
 ups_fwd.launches = _build.counter("", "_f32", "_nostats", "_nostats_f32")
 
 
+def _wg_rows(lib, B, H, cin):
+    """Input rows per bf16 weight-gradient partial on the current device
+    (``erf_ups_train_wg_rows``: one wave of one CTA an SM)."""
+    fn = lib.erf_ups_train_wg_rows
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    return fn(B, H, cin)
+
+
 @route.recorded(ups_bwd_plain)
 def ups_bwd(x, y, gy, gs1, gs2, w):
     """ups_bwd_plain's contract.  CPU tensor: the plain version.  CUDA
@@ -246,21 +266,36 @@ def ups_bwd(x, y, gy, gs1, gs2, w):
         _build.require(gs2, "gs2", torch.float32, dev, (B, cout))
     else:   # not read by the stats-free form (g is gy)
         y = gs1 = gs2 = gy
-    wt = _wcat(w, cin, cout, dt, transposed=True)   # the dx product's B
+    lib = _build.library("upsampler_train")
+    if form:    # f32: the dx product's (16 Cout, Cin) Wcat layout
+        wk = _wcat(w, cin, cout, dt, transposed=True)
+        rows, chunks, db_parts = 0, -(-(B * H * W) // CHUNK), 4
+    else:       # bf16: the taps as they are
+        wk = _build.taps(w, dt)
+        rows = _wg_rows(lib, B, H, cin)
+        if rows < 1:
+            raise RuntimeError("train upsampler backward: the device's SM "
+                               "count could not be read")
+        chunks, db_parts = -(-(B * H) // rows), 2
+    _build.require(wk, "w", dt, dev)
     g = torch.empty_like(gy) if stats else gy
     dx = torch.empty_like(x)
-    chunks = -(-(B * H * W) // CHUNK)
     part_w = torch.empty(chunks, 9, cin, cout, dtype=torch.float32,
                          device=dev)
-    part_db = torch.empty(chunks, 4, cout, dtype=torch.float32, device=dev)
+    part_db = torch.empty(chunks, db_parts, cout, dtype=torch.float32,
+                          device=dev)
     grads = torch.empty(9 * cin * cout + cout, dtype=torch.float32,
                         device=dev)
-    lib = _build.library("upsampler_train")
-    fn = _build.declare(lib, "erf_ups_train_bwd" + form, 11, 6)
+    if form:
+        fn = _build.declare(lib, "erf_ups_train_bwd_f32", 11, 6)
+        ints = (B, H, W, cin, cout, int(stats))
+    else:
+        fn = _build.declare(lib, "erf_ups_train_bwd", 11, 7)
+        ints = (B, H, W, cin, cout, rows, int(stats))
     err = fn(_build.ptr(x), _build.ptr(y), _build.ptr(gy), _build.ptr(gs1),
-             _build.ptr(gs2), _build.ptr(wt), _build.ptr(g), _build.ptr(dx),
-             _build.ptr(part_w), _build.ptr(part_db), _build.ptr(grads), B,
-             H, W, cin, cout, int(stats), _build.stream_ptr(x))
+             _build.ptr(gs2), _build.ptr(wk), _build.ptr(g), _build.ptr(dx),
+             _build.ptr(part_w), _build.ptr(part_db), _build.ptr(grads),
+             *ints, _build.stream_ptr(x))
     _build.check(lib, err, f"train upsampler{key}{form} backward launch")
     _build.count(ups_bwd, key + form,
                  n=BWD_LAUNCHES if stats else NOSTATS_BWD_LAUNCHES)

@@ -18,8 +18,10 @@ forms (the pair at every lead with (dh, dw) apart, the downsampler with
 dx at Cin = 3, the upsampler) and the relu lead of the stats forms
 against their plain versions, and serving with the packed-run gate on
 (launch counts, agreement with its plain pipeline); the halo-patch and
-parity-plane kernels (the train downsampler's forward and backward, the
-train upsampler's forward) at maps off their tiles.
+parity-plane kernels (the train downsampler's forward and backward, its
+f32 forward at Cin = 3 over raw patches, the train upsampler's forward,
+and its backward: dx as a stride-2 conv over halo patches, the weight
+gradient on (row chunk, kh) partials) at maps off their tiles.
 
 These tests need an NVIDIA GPU with ``nvcc`` (sm_90a) and skip without
 one.  They import nothing of JAX, so on a machine without it run them
@@ -1244,6 +1246,39 @@ def test_upsampler_forward_ragged(dev, shape, cout, stats, dtype):
         assert got[1] is None and got[2] is None
 
 
+@pytest.mark.parametrize("shape,cout", [
+    ((1, 3, 45, 128), 64), ((2, 7, 33, 64), 16), ((1, 67, 130, 128), 64),
+    ((1, 35, 257, 64), 16)])
+@pytest.mark.parametrize("stats", [True, False])
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_upsampler_backward_ragged(dev, shape, cout, stats, dtype):
+    """Maps off the bf16 backward's tiles in rows and columns: dx tiles of
+    2 or 4 rows by 32 columns, weight-gradient chunks of 16 input rows in
+    blocks of 128 pixels; both statistic forms; the weight a
+    non-contiguous HWIO view in the maps' dtype: dx within the one-ulp
+    rule, dW and db within the f32-output rule, the launch counts."""
+    B, H, W, cin = shape
+    x = _rn(*shape, seed=21).relu().to(dev, dtype)
+    w = _rn(3, 3, cin, cout, seed=22, scale=(9 * cin) ** -0.5).to(dev)
+    w = w.to(dtype).permute(3, 2, 0, 1).contiguous().permute(2, 3, 1, 0)
+    b = _rn(cout, seed=23, scale=0.1).to(dev)
+    y = upsampler_train.ups_fwd_plain(x, w, b)[0]
+    gy = _rn(*y.shape, seed=24).to(dev, dtype)
+    gs1 = _rn(B, cout, seed=25, scale=1e-2).to(dev) if stats else None
+    gs2 = _rn(B, cout, seed=26, scale=1e-2).to(dev) if stats else None
+    count = _launched if stats else _nostats
+    n0 = count(upsampler_train.ups_bwd, dtype)
+    got = upsampler_train.ups_bwd(x, y, gy, gs1, gs2, w)
+    ref = upsampler_train.ups_bwd_plain(x, y, gy, gs1, gs2, w)
+    torch.cuda.synchronize()
+    assert (count(upsampler_train.ups_bwd, dtype) - n0
+            == (upsampler_train.BWD_LAUNCHES if stats
+                else upsampler_train.NOSTATS_BWD_LAUNCHES))
+    _close(got[0], ref[0])
+    _rel_for(dtype)(got[1], ref[1])
+    _rel_for(dtype)(got[2], ref[2])
+
+
 @pytest.mark.parametrize("shape,cc,stem,stats", [
     (shape, cc, stem, stats)
     for shape, cc, stem in (((1, 10, 66, 64), 64, False),
@@ -1258,7 +1293,8 @@ def test_downsampler_forward_ragged(dev, shape, cc, stem, stats, dtype):
     """Output maps off the bf16 forward's tile in rows and columns (rows
     off its 2, 4 or 8, columns off its 32, a map narrower than a tile),
     the stem's shifts of +-2 at the edges, pool windows of two and four
-    tied values, both statistic forms: y within the one-ulp rule, its pool
+    tied values, both statistic forms, the weight as the model passes it
+    (a non-contiguous HWIO view): y within the one-ulp rule, its pool
     channels and the stem's translated image bit-equal, the sums within
     the f32-output rule, the launch counts."""
     B, H, W, cin = shape
@@ -1274,6 +1310,8 @@ def test_downsampler_forward_ragged(dev, shape, cc, stem, stats, dtype):
     x[:, 4:6, 7, :] = 0.0
     x = x.to(dev) if stem else x.to(dev, dtype)
     w = _rn(3, 3, cin, cc, seed=18, scale=(9 * cin) ** -0.5).to(dev)
+    # the model's layout: the HWIO view of an OIHW weight (not contiguous)
+    w = w.permute(3, 2, 0, 1).contiguous().permute(2, 3, 1, 0)
     b = _rn(cc, seed=19, scale=0.1).to(dev)
     count = _launched if stats else _nostats
     n0 = count(downsampler_train.down_fwd, dtype)

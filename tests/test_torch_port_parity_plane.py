@@ -31,6 +31,23 @@ decompositions written out, nothing of the card.
   rules above, its pool channels and the stem's translated image bit-
   equal, the sums norm-relative 1e-5; maps ragged against the tile, pool
   windows of ties, shifts of +-2 at the edges.
+* The f32 forward at Cin = 3 (the stem, and a 3-channel map) as its
+  kernel forms it: per tile of 8 x 32 output pixels the raw f32 patch,
+  never rounded, an im2col tile of K = 27 in (tap, ci) order times the
+  (27 x 13) taps, the pool from the same patch, the sums per tile; y to
+  the f32 rule above, the pool channels and the translated image bit-
+  equal, the sums norm-relative 1e-5.
+* The train upsampler's bf16 input gradient as its kernel decomposes it:
+  the stride-2 3x3 pad-1 conv of g, tile by tile (DX_TH x 32 dx pixels,
+  each tile's (2 DX_TH + 1) x 65 halo patch of g in parity planes, the
+  taps w[2 - kh, 2 - kw] transposed), against ``ups_bwd_plain``'s dx by
+  the rules above, bf16 and f32, maps ragged against the tile.
+* The train upsampler's weight gradient and db in the bf16 kernel's
+  (chunk of input rows, kh) order: blocks of WG_BP pixels of one
+  row, the kw taps stride-2 views of one high-resolution g row segment,
+  db from the kh = 1 (even g rows) and kh = 2 (odd g rows) segments'
+  slots 1 .. 2 WG_BP, every g pixel exactly once; against
+  ``ups_bwd_plain``'s dW and db, norm-relative 1e-5.
 """
 
 import pytest
@@ -281,3 +298,180 @@ def test_down_forward_is_the_halo_patch_product(shape, cc, stem, dtype):
     assert torch.equal(y[..., cc:], ry[..., cc:])
     _rel(s1, rs1)
     _rel(s2, rs2)
+
+
+def _fwd3_f32_in_kernel_order(x, w, b, shifts=None):
+    """(xa, y, s1, s2) as the f32 forward at Cin = 3 forms them: tiles of
+    8 x 32 output pixels, image by image, tile rows, then tile columns;
+    each tile's raw f32 patch (input rows 2 i0 - 1 + pr, columns 2 j0 - 1
+    + pc; translated by the shifts, zero outside either map), an im2col
+    row per pixel (K index kh 9 + kw 3 + ci) times the (27 x 13) taps,
+    plus b; the pool of taps 4, 5, 7, 8; the sums per tile, the tiles'
+    partials added in order."""
+    B, H, W, _ = x.shape
+    th, tw = D.FWD_TH[3], D.FWD_TW
+    Ho, Wo = H // 2, W // 2
+    wk = w.float().reshape(27, 13)
+    xa = torch.zeros(B, H, W, 3)
+    y = torch.zeros(B, Ho, Wo, 16)
+    s1, s2 = torch.zeros(B, 16), torch.zeros(B, 16)
+    for bi in range(B):
+        tx, ty = (0, 0) if shifts is None else (int(v) for v in shifts[bi])
+        for i0 in range(0, Ho, th):
+            for j0 in range(0, Wo, tw):
+                h = torch.arange(2 * i0 - 1, 2 * (i0 + th))[:, None]
+                c = torch.arange(2 * j0 - 1, 2 * j0 + 2 * tw)[None, :]
+                ok = ((h >= 0) & (h < H) & (c >= 0) & (c < W)
+                      & (h - ty >= 0) & (h - ty < H)
+                      & (c - tx >= 0) & (c - tx < W))
+                patch = torch.where(
+                    ok[..., None],
+                    x[bi, (h - ty).clamp(0, H - 1), (c - tx).clamp(0, W - 1)],
+                    torch.zeros(()))
+                cols = torch.cat(
+                    [patch[kh:kh + 2 * th:2, kw:kw + 2 * tw:2]
+                     for kh in range(3) for kw in range(3)], -1)
+                conv = (cols.reshape(-1, 27) @ wk).reshape(th, tw, 13)
+                pool = torch.stack([patch[1 + kh:1 + kh + 2 * th:2,
+                                          1 + kw:1 + kw + 2 * tw:2]
+                                    for kh in (0, 1) for kw in (0, 1)]
+                                   ).amax(0)
+                tile = torch.cat([conv + b.float(), pool], -1)
+                n_i, n_j = min(th, Ho - i0), min(tw, Wo - j0)
+                tile = tile[:n_i, :n_j]
+                y[bi, i0:i0 + n_i, j0:j0 + n_j] = tile
+                xa[bi, 2 * i0:2 * (i0 + n_i), 2 * j0:2 * (j0 + n_j)] = (
+                    patch[1:1 + 2 * n_i, 1:1 + 2 * n_j])
+                yf = tile.reshape(-1, 16)
+                s1[bi] += yf.sum(0)
+                s2[bi] += (yf * yf).sum(0)
+    return (xa if shifts is not None else x), y, s1, s2
+
+
+@pytest.mark.parametrize("shape,stem", [
+    ((2, 22, 74, 3), True), ((1, 6, 10, 3), True), ((2, 18, 70, 3), False)])
+def test_f32_forward_at_cin3_is_the_raw_patch_product(shape, stem):
+    x = torch.rand(*shape, generator=torch.Generator().manual_seed(31))
+    x[:, 2:4, 2:4] = 0.5                           # four tied values
+    x[:, 4:6, 6] = 0.25                            # a tied pair by rows
+    kw = ({"shifts": torch.tensor([[-2, 2], [2, -2]][:shape[0]]),
+           "dtype": F32} if stem else {})
+    w = _rn(3, 3, 3, 13, seed=32, scale=27 ** -0.5)
+    b = _rn(13, seed=33, scale=0.1)
+    xa, y, s1, s2 = _fwd3_f32_in_kernel_order(x, w, b, kw.get("shifts"))
+    rxa, ry, rs1, rs2 = D.down_fwd_plain(x, w, b, **kw)
+    assert torch.equal(xa, rxa)
+    _close(y, ry)
+    assert torch.equal(y[..., 13:], ry[..., 13:])
+    _rel(s1, rs1)
+    _rel(s2, rs2)
+
+
+def _ups_g(cin, cout, shape, dtype, seed):
+    """x, y, gy, gs1, gs2, w of an upsampler call on x (B, H, W, cin) and
+    the g its kernels start from (the stats fold)."""
+    x = _rn(*shape, seed=seed).relu().to(dtype)
+    w = _rn(3, 3, cin, cout, seed=seed + 1, scale=(9 * cin) ** -0.5)
+    b = _rn(cout, seed=seed + 2, scale=0.1)
+    y = U.ups_fwd_plain(x, w, b)[0]
+    gy = _rn(*y.shape, seed=seed + 3).to(dtype)
+    gs1 = _rn(shape[0], cout, seed=seed + 4, scale=1e-2)
+    gs2 = _rn(shape[0], cout, seed=seed + 5, scale=1e-2)
+    bc = (slice(None), None, None, slice(None))
+    g = (gy.float() + gs1[bc] + 2.0 * y.float() * gs2[bc]).to(dtype)
+    return x, y, gy, gs1, gs2, w, g
+
+
+def _ups_dx_in_kernel_order(g, w, cin):
+    """dx as the bf16 kernel forms it: tiles of DX_TH x 32 dx pixels; each
+    tile's (2 DX_TH + 1) x 65 halo patch of g (rows 2 i0 - 1 + pr, columns
+    2 j0 - 1 + pc, zero past the map), split into parity planes; tap (kh,
+    kw) the plane (kh & 1, kw & 1) shifted by (kh >> 1, kw >> 1), times
+    w[2 - kh, 2 - kw]^T; f32 sums rounded once."""
+    B, H2, W2, _ = g.shape
+    H, W = H2 // 2, W2 // 2
+    th, tw = U.DX_TH[cin], U.TW
+    taps = w.to(g.dtype).float()
+    dx = torch.zeros(B, H, W, cin, dtype=g.dtype)
+    for bi in range(B):
+        for i0 in range(0, H, th):
+            for j0 in range(0, W, tw):
+                h = torch.arange(2 * i0 - 1, 2 * (i0 + th))[:, None]
+                c = torch.arange(2 * j0 - 1, 2 * j0 + 2 * tw)[None, :]
+                ok = (h >= 0) & (h < H2) & (c >= 0) & (c < W2)
+                patch = torch.where(
+                    ok[..., None],
+                    g[bi, h.clamp(0, H2 - 1), c.clamp(0, W2 - 1)].float(),
+                    torch.zeros(()))
+                planes = {(a, e): patch[a::2, e::2] for a in (0, 1)
+                          for e in (0, 1)}
+                acc = torch.zeros(th, tw, cin)
+                for kh in range(3):
+                    for kw in range(3):
+                        view = planes[kh & 1, kw & 1][
+                            kh >> 1:(kh >> 1) + th, kw >> 1:(kw >> 1) + tw]
+                        acc += view @ taps[2 - kh, 2 - kw].t()
+                n_i, n_j = min(th, H - i0), min(tw, W - j0)
+                dx[bi, i0:i0 + n_i, j0:j0 + n_j] = acc[:n_i, :n_j].to(g.dtype)
+    return dx
+
+
+@pytest.mark.parametrize("cin,cout,shape", [
+    (128, 64, (2, 5, 37, 128)), (64, 16, (1, 7, 70, 64))])
+@pytest.mark.parametrize("dtype", [F32, BF])
+def test_upsampler_input_gradient_is_the_halo_patch_conv(cin, cout, shape,
+                                                         dtype):
+    x, y, gy, gs1, gs2, w, g = _ups_g(cin, cout, shape, dtype, seed=cin)
+    ref = U.ups_bwd_plain(x, y, gy, gs1, gs2, w)[0]
+    _close(_ups_dx_in_kernel_order(g, w, cin), ref)
+
+
+def _ups_wgrad_in_kernel_order(x, g, rows_per):
+    """(dW, db, uses) as the bf16 weight-gradient kernel sums them: per
+    chunk of ``rows_per`` input rows (the kernel sizes the chunks to the
+    card's SMs) and per kh, blocks of WG_BP pixels of one
+    row; the block's g segment (slot s: column 2 j0 - 1 + s of g row 2 i -
+    1 + kh) gives tap kw as the stride-2 view of slots kw, kw + 2, ...,
+    dW[2 - kh, 2 - kw] += x_block^T view; db from slots 1 .. 2 WG_BP of the
+    kh = 1 and kh = 2 segments; the partials (chunk, then kh) added in
+    order.  ``uses`` counts how often db read each g pixel."""
+    B, H, W, cin = x.shape
+    cout = g.shape[-1]
+    bp = U.WG_BP
+    xp = torch.nn.functional.pad(x.float(), (0, 0, 0, bp))
+    gp = torch.nn.functional.pad(g.float(), (0, 0, 1, 2 * bp, 1, 0))
+    uses = torch.zeros(B, 2 * H + 1, 2 * W + 1 + 2 * bp)
+    dw, db = torch.zeros(3, 3, cin, cout), torch.zeros(cout)
+    for r0 in range(0, B * H, rows_per):
+        part_w = torch.zeros(3, 3, cin, cout)
+        part_db = [torch.zeros(cout), torch.zeros(cout)]
+        for kh in range(3):
+            for row in range(r0, min(r0 + rows_per, B * H)):
+                bi, i = divmod(row, H)
+                for j0 in range(0, W, bp):
+                    xb = xp[bi, i, j0:j0 + bp]
+                    seg = gp[bi, 2 * i + kh, 2 * j0:2 * j0 + 2 * bp + 1]
+                    for kw in range(3):
+                        part_w[2 - kh, 2 - kw] += (
+                            xb.t() @ seg[kw:kw + 2 * bp:2])
+                    if kh:
+                        part_db[kh - 1] += seg[1:2 * bp + 1].sum(0)
+                        cols = slice(2 * j0 + 1, 2 * j0 + 2 * bp + 1)
+                        uses[bi, 2 * i + kh, cols] += 1
+        dw += part_w
+        db += part_db[0]
+        db += part_db[1]
+    return dw, db, uses[:, 1:, 1:2 * W + 1]
+
+
+@pytest.mark.parametrize("cin,cout,shape,rows_per", [
+    (128, 64, (2, 9, 70, 128), 4), (64, 16, (1, 18, 130, 64), 7)])
+@pytest.mark.parametrize("dtype", [F32, BF])
+def test_upsampler_weight_gradient_in_kernel_order(cin, cout, shape,
+                                                    rows_per, dtype):
+    x, y, gy, gs1, gs2, w, g = _ups_g(cin, cout, shape, dtype, seed=cout)
+    _, rdw, rdb = U.ups_bwd_plain(x, y, gy, gs1, gs2, w)
+    dw, db, uses = _ups_wgrad_in_kernel_order(x, g, rows_per)
+    assert torch.equal(uses, torch.ones_like(uses))   # each g pixel once
+    _rel(dw, rdw)
+    _rel(db, rdb)
