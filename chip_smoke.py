@@ -5,15 +5,17 @@
     python3 chip_smoke.py --split    # only the build and phase_split
 
 ``--split`` builds the kernels and splits the calls of the parity-plane
-rows (the train downsampler backward, rows 5, 5 on g = gy and 8; the
-train upsampler forward, rows 12 and 10, and backward, row 13), of the
-train downsampler forward (rows 7, 6 and 4; row 7 also in f32) at their
-B=6 shapes and of the eval upsampler (row 14) at its B=4 shapes by
-launch: CUDA events, device time by kernel (torch.profiler) and the
-host's enqueue time, with cuDNN's call for the same function by device
-time beside each forward and row 13 (the forward conv; the transposed
-conv for row 14, its ``convolution_backward`` for row 13); then prints
-the card line; no result line.  Phases 9 and 28 print the same split
+rows (the train downsampler backward, rows 5, 5 on g = gy and 8, rows 5
+and 8 also in f32; the train upsampler forward, rows 12 and 10, and
+backward, row 13), of the train downsampler forward (rows 7, 6 and 4;
+row 7 also in f32) at their B=6 shapes and of the eval upsampler (row
+14) at its B=4 shapes by launch: CUDA events, device time by kernel
+(torch.profiler) and the host's enqueue time, with cuDNN's call for the
+same function by device time beside each forward and rows 5, 8 and 13
+(the forward conv; its ``convolution_backward`` for rows 5 and 8, the
+weight gradient alone for row 8, TF32 off at f32; the transposed conv
+for row 14, its ``convolution_backward`` for row 13); then prints the
+card line; no result line.  Phases 9 and 28 print the same split
 for the parity-plane rows.
 
 Phases, each fatal on failure (non-zero exit, no result line):
@@ -3399,9 +3401,10 @@ def split_calls(device, dtype):
     its backward with statistics (row 13); and the eval upsampler (row 14)
     at its B=4 serving shapes.  ``yardstick``: cuDNN's call for the same
     function (the forward conv of a forward of the downsampler, the stem's
-    on its translated image; ``convolution_backward`` of the transposed
-    conv for row 13; the transposed conv with its bias for row 14), else
-    None."""
+    on its translated image; its ``convolution_backward`` for rows 5 and
+    8, the stem's weight gradient alone; ``convolution_backward`` of the
+    transposed conv for row 13; the transposed conv with its bias for row
+    14), else None."""
     import torch
     from erfnet_pytorch_tpu_torch.ops.cuda import downsampler_train as dt
     from erfnet_pytorch_tpu_torch.ops.cuda import upsampler
@@ -3423,9 +3426,12 @@ def split_calls(device, dtype):
         gy = torch.randn(*y.shape, generator=g).to(device).to(dtype)
         gs = (1e-3 * torch.randn(shape[0], y.shape[-1], generator=g)).to(
             device)
+        # the stem's: the weight gradient alone (the image takes none)
+        lib = _lib_conv(xa, w.permute(3, 2, 0, 1), (2, 2), (1, 1), (1, 1),
+                        weight_only=stem)[1]
         calls.append((8 if stem else 5, label, (
             lambda xa=xa, y=y, gy=gy, gs=gs, w=w, stem=stem:
-            dt.down_bwd(xa, y, gy, gs, gs, w, stem=stem)), None))
+            dt.down_bwd(xa, y, gy, gs, gs, w, stem=stem)), lib))
     for label, shape, cc in nostats_down_cases(TRAIN_B):
         x, w, b, _kw = down_inputs(label, shape, cc, g, device, dtype)
         y = dt.down_fwd_plain(x, w, b, stats=False)[1]
@@ -3465,8 +3471,10 @@ def split_calls(device, dtype):
 def phase_split(device, iters, dtypes=None):
     """Each call of ``split_calls`` through its wrapper, split by
     ``kernel_split`` (bf16, and the f32 forms of rows 10 and 12, whose
-    wrappers build the same parity-plane weight, and of row 7, the f32
-    stem), and its yardstick's device time (``cudnn``); summed by row."""
+    wrappers build the same parity-plane weight, of row 7, the f32 stem,
+    and of rows 8 and 5, the f32 stem's and downsampler's backward, with
+    TF32 off), and its yardstick's device time (``cudnn``); summed by
+    row."""
     import torch
     out = {}
     for dtype in dtypes or (torch.bfloat16, torch.float32):
@@ -3476,7 +3484,7 @@ def phase_split(device, iters, dtypes=None):
             "cuDNN's call for the same function by device time")
         with no_tf32() if form else contextlib.nullcontext():
             for row, label, fn, lib in split_calls(device, dtype):
-                if form and row not in (7, 10, 12):
+                if form and row not in (5, 7, 8, 10, 12):
                     continue
                 s = kernel_split(fn, iters)
                 log_split(f"row {row}{form} {label}", s)

@@ -89,13 +89,16 @@
 // forward's 144 KB of taps three taps at a time, the input gradients
 // three taps at a time; each chunk summed in a chain of its own, the
 // chunks added in order); their pool reads its 2x2 window from the map.
-// The weight gradient is one (Cin x Cc) product per (pixel chunk, tap),
-// the stem's one (27 x 13) product over all taps per chunk (its im2col
-// rows), with the pixels as the product's depth.  The same launches as
-// the bf16 forms; the weight gradient's partials are per (2048-pixel
-// chunk, tap), reduced in a fixed order.  Bound at f32: bytes for the
-// stem, operations for the others (9 Cin Cc MACs per output pixel
-// against 67 TFLOP/s).
+// The weight gradient keeps the bf16 form's (chunk of output rows, kh)
+// grid in f32 at every (Cin, Cc): per block of output pixels the g tile
+// and each kh's input-row segment, which is the kh's im2col tile as it is
+// (row pitch 2 Cin), staged through a cp.async ring (coalesced 4-byte
+// copies of the 3-channel run at Cin = 3, 16-byte ones at 16 and 64); an
+// FFMA micro-tile product with the pixels as its depth; one partial per
+// (row chunk), the chunks sized to one wave from the SM count.  The same
+// launches as the bf16 forms, the partials reduced in a fixed order.
+// Bound at f32: bytes for the stem, operations for the others (9 Cin Cc
+// MACs per output pixel against 67 TFLOP/s).
 //
 // The stats-free forms (with_stats = 0) replace downsampler_packed
 // (_down_fwd_kernel via _call_fwd_local, with the pool lanes that
@@ -578,7 +581,6 @@ down_dx_small_kernel(const T* __restrict__ g, const T* __restrict__ x,
 // added in order at the end).  Double-buffered: block j + 1 copies while
 // block j multiplies.  part[chunk] = [dW (9, CIN, CC) | db (CC)]: each
 // (chunk, kh) CTA writes taps kh * 3 + kw, the kh = 0 CTAs also db.
-constexpr int CHUNK = 2048;  // f32 forms: output pixels per partial
 
 template <int CIN, int CC>
 struct Wg {
@@ -1172,95 +1174,200 @@ down_dx_f32_kernel(const float* __restrict__ g, const float* __restrict__ x,
   }
 }
 
-// Weight gradient, f32: blockIdx.x = a chunk of CHUNK output pixels,
-// blockIdx.y = tap (the stem: one CTA per chunk over its 27 im2col rows,
-// tap ci).  part[chunk] = [dW (9, CIN, CC) | db (CC)], db from the
-// blockIdx.y = 0 CTAs.
+// Weight gradient, f32: the bf16 form's (chunk of output rows, kh) grid
+// kept in f32, on the CUDA cores.  blockIdx.x = a chunk of `rows_per`
+// output rows (row b Ho + ho, flattened over the batch; the wrapper sizes
+// the chunks so that the grid is one wave, erf_down_train_wg_rows_f32),
+// blockIdx.y = khg: the CTA owns the KHN kernel rows kh = khg KHN .. +
+// KHN - 1.  At Cin = 3 and 16 one CTA takes all three kh (x and g read
+// once), at 64 one kh (x read three times; the taps of all three would
+// not fit its registers).  Each row in blocks of BP output pixels: a
+// block stages its g tile (BP x NG, the conv channels rounded up to 4)
+// once and, per kh, the one input-row segment its kh needs, slot s the
+// CIN values of column 2 wo0 - 1 + s (s < 2 BP + 1), zero past the map.
+// Output pixel k of the block reads slots 2 k + kw, kw < 3, one run of 3
+// CIN values at 2 k CIN: the segment is the kh's im2col tile as it is,
+// with a row pitch of 2 CIN (row m = kw CIN + ci).  At Cin = 3 a segment
+// is one contiguous run of (2 BP + 1) x 3 values, copied with coalesced
+// 4-byte cp.async; at 16 and 64, 16-byte copies.  Coordinates are
+// computed once a block.  The blocks stream through a ring of NS stages
+// (NS - 1 in flight).  The product dW[kh] (3 CIN x NG) += A^T G runs as
+// FFMA micro-tiles (no TF32), the pixels as the depth: the threads form
+// WK groups of an (RG x TC) grid, thread (rg, tc) owns TM consecutive
+// rows (within one kh) and the columns 4 tc + 4 TC q + (0 .. 3), and
+// group w takes pixels [w KL, (w + 1) KL) of every block; each output is
+// one FMA chain per group, the groups added in order at the end.  db sums
+// every g pixel once, in the kh = 0 CTAs: the rg = 0 threads add the g
+// values they load.  part[chunk] = [dW (9, CIN, CC) | db (CC)]: each
+// (chunk, khg) CTA writes taps kh 3 + kw of its kh, the kh = 0 one db.
 template <int CIN, int CC>
-struct Wg32Shape {
-  static constexpr bool IM2COL = CIN % 4 != 0;  // Cin = 3
-  static constexpr int MR = IM2COL ? 32 : CIN, NC = round4(CC);
-  static constexpr int THREADS = CC == 48 ? 192 : 256, BP = 64;
-  using Q = Wg32<MR, NC, 4, 4, THREADS, BP>;
+struct Wg32R {
+  static constexpr bool RAW = CIN == 3;
+  static constexpr int COUT = CIN + CC, NG = round4(CC), MK = 3 * CIN;
+  static constexpr int KHN = CIN == 64 ? 1 : 3, KHG = 3 / KHN;
+  static constexpr int M = KHN * MK;  // product rows: kh, kw, ci
+  static constexpr int TM = RAW ? 9 : 12, TN = 8;
+  static constexpr int RG = M / TM, TC = NG / TN, GT = RG * TC;
+  static constexpr int THREADS = CIN == 3 ? 192 : CIN == 16 ? 288 : 256;
+  static constexpr int WK = THREADS / GT;
+  static constexpr int BP = RAW ? 128 : 64, KL = BP / WK;
+  static constexpr int NS = RAW ? 4 : 3;    // ring stages
+  static constexpr int CTAS = RAW ? 2 : 1;  // CTAs an SM
+  static constexpr int SEG = (2 * BP + 1) * CIN;  // values of a segment
+  static constexpr size_t seg_bytes = pp_align((size_t)SEG * 4);
+  static constexpr size_t g_bytes = pp_align((size_t)BP * NG * 4);
+  static constexpr size_t stage_bytes = KHN * seg_bytes + g_bytes;
+  static constexpr size_t red_bytes = ((size_t)WK * M * NG + WK * NG) * 4;
+  static constexpr size_t smem =
+      NS * stage_bytes > red_bytes ? NS * stage_bytes : red_bytes;
   static constexpr int PLEN = 9 * CIN * CC + CC;
+  static_assert(MK % TM == 0 && NG % TN == 0 && TN % 4 == 0 &&
+                    (RAW || TM % 4 == 0) && THREADS % GT == 0 &&
+                    BP % WK == 0 && NG <= COUT &&
+                    CTAS * (smem + 1024) <= 233472,
+                "f32 wgrad tile");
 };
 
 template <int CIN, int CC>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(Wg32R<CIN, CC>::THREADS,
+                                  Wg32R<CIN, CC>::CTAS)
 down_wgrad_f32_kernel(const float* __restrict__ x,
                       const float* __restrict__ g, float* __restrict__ part,
-                      int B, int Ho, int Wo) {
-  using S = Wg32Shape<CIN, CC>;
-  using Q = typename S::Q;
-  constexpr int COUT = CIN + CC;
+                      int B, int Ho, int Wo, int rows_per) {
+  using G = Wg32R<CIN, CC>;
+  constexpr int BP = G::BP, NS = G::NS, KHN = G::KHN, NG = G::NG;
+  constexpr int TM = G::TM, TN = G::TN, THREADS = G::THREADS;
   extern __shared__ __align__(128) unsigned char smem[];
-  float* As = reinterpret_cast<float*>(smem);
-  float* Gs = reinterpret_cast<float*>(smem + Q::a_bytes);
-  const int tap0 = blockIdx.y;
-  const int H = 2 * Ho, W = 2 * Wo;
-  const long long P = (long long)B * Ho * Wo;
-  const long long p_begin = (long long)blockIdx.x * CHUNK;
-  const long long p_stop = p_begin + CHUNK < P ? p_begin + CHUNK : P;
-  float dbs = 0.0f;
-  float acc[4][4];
-  zero_tile(acc);
-
-  for (long long p0 = p_begin; p0 < p_stop; p0 += S::BP) {
-    if constexpr (S::IM2COL) {
-      // row k = tap * 3 + ci of the im2col window (k < 27), zero past
-      for (int e = threadIdx.x; e < S::BP * S::MR; e += blockDim.x) {
-        const int r = e / S::MR, k = e % S::MR;
-        const long long p = p0 + r;
-        const long long b = p / ((long long)Ho * Wo);
-        const int rem = (int)(p % ((long long)Ho * Wo));
-        const int tap = k / CIN, ci = k % CIN;
-        const int hi = 2 * (rem / Wo) - 1 + tap / 3;
-        const int wi = 2 * (rem % Wo) - 1 + tap % 3;
-        const bool valid = p < p_stop && k < 9 * CIN && hi >= 0 && hi < H &&
-                           wi >= 0 && wi < W;
-        As[r * S::MR + k] =
-            valid ? __ldg(x + ((b * H + hi) * W + wi) * CIN + ci) : 0.0f;
-      }
-      for (int e = threadIdx.x; e < S::BP * S::NC; e += blockDim.x) {
-        const int r = e / S::NC, k = e % S::NC;
-        const long long p = p0 + r;
-        Gs[r * S::NC + k] =
-            p < p_stop && k < CC ? __ldg(g + p * COUT + k) : 0.0f;
-      }
-    } else {
-      const int kh = tap0 / 3, kw = tap0 % 3;
-      for (int e = threadIdx.x; e < S::BP * (CIN + CC) / 4; e += blockDim.x) {
-        const int r = e / ((CIN + CC) / 4), v = e % ((CIN + CC) / 4);
-        const long long p = p0 + r;
-        if (v < CIN / 4) {
-          const long long b = p / ((long long)Ho * Wo);
-          const int rem = (int)(p % ((long long)Ho * Wo));
-          const int hi = 2 * (rem / Wo) - 1 + kh, wi = 2 * (rem % Wo) - 1 + kw;
-          const bool valid = p < p_stop && hi >= 0 && hi < H && wi >= 0 &&
-                             wi < W;
-          const long long src = valid ? ((b * H + hi) * W + wi) * CIN : 0;
-          cp_async16(As + r * S::MR + 4 * v, x + src + 4 * v, valid);
+  const int kh0 = blockIdx.y * KHN, H = 2 * Ho, W = 2 * Wo;
+  const int row0 = blockIdx.x * rows_per;
+  const int rows = B * Ho - row0 < rows_per ? B * Ho - row0 : rows_per;
+  const int bpr = (Wo + BP - 1) / BP, nb = rows * bpr;
+  // kernel row kh0 + l's segment of block j, and its g tile
+  auto seg_of = [&](int j, int l) {
+    return reinterpret_cast<float*>(smem + (j % NS) * G::stage_bytes +
+                                    l * G::seg_bytes);
+  };
+  auto g_of = [&](int j) {
+    return reinterpret_cast<float*>(smem + (j % NS) * G::stage_bytes +
+                                    KHN * G::seg_bytes);
+  };
+  // start staging block j (rows of the chunk, then blocks of a row)
+  auto issue = [&](int j) {
+    if (j < nb) {
+      const int row = row0 + j / bpr, wo0 = (j % bpr) * BP;
+      const int img = row / Ho, ho = row % Ho;
+#pragma unroll
+      for (int l = 0; l < KHN; ++l) {
+        const int hi = 2 * ho - 1 + kh0 + l;
+        const bool hv = hi >= 0 && hi < H;
+        const float* xrow =
+            x + ((long long)img * H + (hv ? hi : 0)) * W * CIN;
+        float* seg = seg_of(j, l);
+        if constexpr (G::RAW) {  // values from column 2 wo0 - 1 on
+          const int e0 = (2 * wo0 - 1) * CIN;
+          for (int v = threadIdx.x; v < G::SEG; v += THREADS) {
+            const int e = e0 + v;
+            const bool ok = hv && e >= 0 && e < W * CIN;
+            cp_async4(seg + v, xrow + (ok ? e : 0), ok);
+          }
         } else {
-          const int k = 4 * (v - CIN / 4);
-          const bool valid = p < p_stop;
-          cp_async16(Gs + r * S::NC + k, g + (valid ? p * COUT : 0) + k,
-                     valid);
+          constexpr int V = CIN / 4;
+          for (int v = threadIdx.x; v < (2 * BP + 1) * V; v += THREADS) {
+            const int sl = v / V, q = v % V, wi = 2 * wo0 - 1 + sl;
+            const bool ok = hv && wi >= 0 && wi < W;
+            cp_async16(seg + sl * CIN + q * 4,
+                       xrow + (ok ? (long long)wi * CIN + q * 4 : 0), ok);
+          }
         }
       }
-      cp_async_commit();
-      cp_async_wait_all();
+      const float* grow = g + ((long long)row * Wo + wo0) * G::COUT;
+      float* gs = g_of(j);
+      constexpr int VG = NG / 4;
+      for (int v = threadIdx.x; v < BP * VG; v += THREADS) {
+        const int r = v / VG, q = v % VG;
+        const bool ok = wo0 + r < Wo;
+        cp_async16(gs + r * NG + q * 4,
+                   grow + (ok ? (long long)r * G::COUT + q * 4 : 0), ok);
+      }
     }
-    __syncthreads();
-    if (tap0 == 0 && threadIdx.x < CC)
-      for (int r = 0; r < S::BP; ++r) dbs += Gs[r * S::NC + threadIdx.x];
-    wg32_step<S::MR, S::NC, 4, 4, S::THREADS, S::BP>(As, Gs, acc);
-    __syncthreads();
+    cp_async_commit();
+  };
+
+  const int w = threadIdx.x / G::GT, rg = (threadIdx.x % G::GT) / G::TC,
+            tc = threadIdx.x % G::TC;
+  // this thread's rows: rg TM .. + TM - 1, in kernel row kh0 + l at m0
+  const int l = rg * TM / G::MK, m0 = rg * TM % G::MK;
+  const bool dbt = kh0 == 0 && rg == 0;
+  float acc[TM][TN], dba[TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int n = 0; n < TN; ++n) acc[i][n] = 0.0f;
+#pragma unroll
+  for (int n = 0; n < TN; ++n) dba[n] = 0.0f;
+  for (int j = 0; j < NS - 1; ++j) issue(j);
+  for (int j = 0; j < nb; ++j) {
+    cp_async_wait_group<NS - 2>();
+    __syncthreads();  // block j landed; block j - 1's stage is free
+    issue(j + NS - 1);
+    const float* a = seg_of(j, l) + w * G::KL * 2 * CIN + m0;
+    const float* b = g_of(j) + w * G::KL * NG + 4 * tc;
+#pragma unroll 4
+    for (int k = 0; k < G::KL; ++k) {
+      float av[TM], bv[TN];
+      if constexpr (G::RAW) {
+#pragma unroll
+        for (int i = 0; i < TM; ++i) av[i] = a[k * 2 * CIN + i];
+      } else {
+#pragma unroll
+        for (int i = 0; i < TM; i += 4) {
+          const float4 v =
+              *reinterpret_cast<const float4*>(a + k * 2 * CIN + i);
+          av[i] = v.x; av[i + 1] = v.y; av[i + 2] = v.z; av[i + 3] = v.w;
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < TN; n += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            b + k * NG + n * G::TC);
+        bv[n] = v.x; bv[n + 1] = v.y; bv[n + 2] = v.z; bv[n + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int n = 0; n < TN; ++n) acc[i][n] = fmaf(av[i], bv[n], acc[i][n]);
+      if (dbt)
+#pragma unroll
+        for (int n = 0; n < TN; ++n) dba[n] += bv[n];
+    }
   }
-  float* dst = part + (long long)blockIdx.x * S::PLEN;
-  if (tap0 == 0 && threadIdx.x < CC) dst[9 * CIN * CC + threadIdx.x] = dbs;
-  wg32_store<S::MR, S::NC, 4, 4, S::THREADS, S::BP>(
-      acc, reinterpret_cast<float*>(smem), dst + tap0 * CIN * CC,
-      S::IM2COL ? 9 * CIN : CIN, CC);
+  cp_async_wait_all();
+  __syncthreads();  // the stages are dead: the groups' sums take their place
+  float* red = reinterpret_cast<float*>(smem);  // WK x M x NG
+  float* dbr = red + G::WK * G::M * NG;         // WK x NG
+#pragma unroll
+  for (int n = 0; n < TN; ++n) {
+    const int col = 4 * tc + (n / 4) * 4 * G::TC + n % 4;
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+      red[(w * G::M + rg * TM + i) * NG + col] = acc[i][n];
+    if (rg == 0) dbr[w * NG + col] = dba[n];
+  }
+  __syncthreads();
+  float* dst = part + (long long)blockIdx.x * G::PLEN;
+  for (int e = threadIdx.x; e < G::M * CC; e += THREADS) {
+    const int row = e / CC, co = e % CC;
+    float v = 0.0f;
+    for (int k = 0; k < G::WK; ++k) v += red[(k * G::M + row) * NG + co];
+    const int kh = kh0 + row / G::MK, m = row % G::MK;  // m = kw CIN + ci
+    dst[(kh * 3 + m / CIN) * CIN * CC + (m % CIN) * CC + co] = v;
+  }
+  if (kh0 == 0)
+    for (int co = threadIdx.x; co < CC; co += THREADS) {
+      float v = 0.0f;
+      for (int k = 0; k < G::WK; ++k) v += dbr[k * NG + co];
+      dst[9 * CIN * CC + co] = v;
+    }
 }
 
 // ------------------------------- launchers --------------------------------
@@ -1397,7 +1504,8 @@ int fwd_f32(const void* x, const void* shifts, const void* wmat,
 template <int CIN, int CC, bool DX>
 int bwd_f32(int stats, const void* gy, const void* y, const void* gs1,
             const void* gs2, const void* x, const void* wt, void* g, void* dx,
-            void* part, void* grads, int B, int H, int W, cudaStream_t s) {
+            void* part, void* grads, int B, int H, int W, int rows,
+            cudaStream_t s) {
   constexpr int COUT = CIN + CC;
   const int Ho = H / 2, Wo = W / 2;
   cudaError_t e = cudaSuccess;
@@ -1423,21 +1531,19 @@ int bwd_f32(int stats, const void* gy, const void* y, const void* gs1,
             static_cast<const float*>(wt), static_cast<float*>(dx), B, H, W);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
   }
-  using S = Wg32Shape<CIN, CC>;
-  using Q = typename S::Q;
+  using G = Wg32R<CIN, CC>;
   static bool wg_ok = false;
-  if ((e = allow_smem(down_wgrad_f32_kernel<CIN, CC>, Q::smem, &wg_ok)) !=
+  if ((e = allow_smem(down_wgrad_f32_kernel<CIN, CC>, G::smem, &wg_ok)) !=
       cudaSuccess)
     return e;
-  const long long P = (long long)B * Ho * Wo;
-  const int chunks = (int)((P + CHUNK - 1) / CHUNK);
+  const int chunks = (B * Ho + rows - 1) / rows;
   down_wgrad_f32_kernel<CIN, CC>
-      <<<dim3(chunks, S::IM2COL ? 1 : 9), S::THREADS, Q::smem, s>>>(
+      <<<dim3(chunks, G::KHG), G::THREADS, G::smem, s>>>(
           static_cast<const float*>(x), static_cast<const float*>(gg),
-          static_cast<float*>(part), B, Ho, Wo);
+          static_cast<float*>(part), B, Ho, Wo, rows);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   return reduce_parts(static_cast<const float*>(part),
-                      static_cast<float*>(grads), 1, chunks, S::PLEN, s);
+                      static_cast<float*>(grads), 1, chunks, G::PLEN, s);
 }
 
 bool shape_ok(int B, int H, int W, int cin) {
@@ -1537,22 +1643,51 @@ extern "C" int erf_down_train_fwd_f32(const void* x, const void* shifts,
 #undef ARGS
 }
 
-// The f32 backward: gy, y, x, wt (9 cc, cin), g, dx in f32; part:
-// (ceil(B H/2 W/2 / 2048), 9 cin cc + cc) f32 scratch.
+// The f32 backward: gy, y, x, wt (9 cc, cin), g, dx in f32; rows: output
+// rows per weight-gradient partial (erf_down_train_wg_rows_f32); part:
+// (ceil(B H/2 / rows), 9 cin cc + cc) f32 scratch.
 extern "C" int erf_down_train_bwd_f32(const void* gy, const void* y,
                                       const void* gs1, const void* gs2,
                                       const void* x, const void* wt, void* g,
                                       void* dx, void* part, void* grads,
                                       int B, int H, int W, int cin, int cc,
-                                      int stem, int with_stats,
+                                      int stem, int with_stats, int rows,
                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!shape_ok(B, H, W, cin) || !pair_ok(cin, cc, stem))
+  if (!shape_ok(B, H, W, cin) || !pair_ok(cin, cc, stem) || rows < 1)
     return cudaErrorInvalidValue;
-#define ARGS with_stats, gy, y, gs1, gs2, x, wt, g, dx, part, grads, B, H, W, s
+#define ARGS \
+  with_stats, gy, y, gs1, gs2, x, wt, g, dx, part, grads, B, H, W, rows, s
   if (cin == 3)
     return stem ? bwd_f32<3, 13, false>(ARGS) : bwd_f32<3, 13, true>(ARGS);
   if (cin == 16) return bwd_f32<16, 48, true>(ARGS);
   return bwd_f32<64, 64, true>(ARGS);
 #undef ARGS
+}
+
+// Output rows per f32 weight-gradient partial for a (B, H/2 = Ho) map
+// (the f32 backward's `rows`): chunks of ceil(B Ho KHG / (SMs CTAS))
+// rows, so that the grid of chunks x KHG CTAs is one wave of CTAS CTAs an
+// SM of the current device; 0 on a CUDA error or an unsupported cin.
+extern "C" int erf_down_train_wg_rows_f32(int B, int Ho, int cin) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      sms < 1)
+    return 0;
+  int khg, ctas;
+  if (cin == 3) {
+    khg = Wg32R<3, 13>::KHG;
+    ctas = Wg32R<3, 13>::CTAS;
+  } else if (cin == 16) {
+    khg = Wg32R<16, 48>::KHG;
+    ctas = Wg32R<16, 48>::CTAS;
+  } else if (cin == 64) {
+    khg = Wg32R<64, 64>::KHG;
+    ctas = Wg32R<64, 64>::CTAS;
+  } else {
+    return 0;
+  }
+  return (int)(((long long)B * Ho * khg + sms * ctas - 1) / (sms * ctas));
 }

@@ -1,6 +1,7 @@
 // The parity-plane product of a stride-2 3x3 transposed convolution, on
 // the tensor cores, shared by the train upsampler's forward
-// (upsampler_train.cu) and the train downsampler's input gradient
+// (upsampler_train.cu), the eval upsampler (upsampler.cu, with a bias +
+// ReLU epilogue) and the train downsampler's input gradient
 // (downsampler_train.cu); and, at the end of this file, the staging of
 // the forward direction, a stride-2 3x3 conv over the parity planes of a
 // halo patch (the train downsampler's forward, and the train upsampler's

@@ -6,20 +6,24 @@
 // points: BN folded in f32, then the weights rounded to bf16; bias in f32;
 // f32 accumulation; one bf16 rounding of relu(acc + bias).
 //
-// Parity-plane form (ops/convt_mm.py): output pixel (2i+a, 2j+b) reads input
-// (i + m_h, j + m_w) through tap (t_h, t_w) of the forward-conv-equivalent
-// (flipped) HWIO weight, with per dimension parity 0 -> {(m 0, t 1)} and
-// parity 1 -> {(m 0, t 0), (m 1, t 2)}; inputs past the bottom/right edge
-// are zero.  blockIdx.y picks the plane, so each CTA multiplies only the
-// plane's 1, 2 or 4 taps (no structural zeros): 64 input pixels x Cout, K =
-// taps x Cin, mma.sync on tiles gathered into shared memory.  (CTAs that
-// loop over tiles with the plane's weights staged once measured slower:
-// the planes' unequal work then leaves SMs idle.)
+// The parity-plane product of parity_plane.cuh (pp_run), as the train
+// upsampler's forward runs it (upsampler_train.cu fwd_kernel): output
+// pixel (2i+a, 2j+b) reads input (i + m_h, j + m_w) through tap (t_h, t_w)
+// of the forward-conv-equivalent (flipped) HWIO weight, with per dimension
+// parity 0 -> {(m 0, t 1)} and parity 1 -> {(m 0, t 0), (m 1, t 2)}
+// (ops/convt_mm.py PARITY_TAPS; the nine non-zero blocks read straight
+// from the (3, 3, Cin, Cout) stack, nothing gathered on the host); inputs
+// past the bottom/right edge are zero.  Persistent CTAs (as many as the
+// card holds) over tiles of 4 x 32 input pixels of one image: a tile's
+// halo patch is staged once for all four planes, the weight blocks stream
+// through a cp.async ring (resident at 64 -> 16) while the tensor cores
+// work, and each half's output rows are written whole, 16 bytes a thread,
+// bf16(relu(sum + bias)) rounded once.
 //
 // Bound on this card: bytes for both widths at these shapes (9 Cin Cout
-// MACs per input pixel against 2 Cin + 8 Cout bytes).  Each CTA stages the
-// plane's weights itself and gathers (cp.async) each input pixel once per
-// tap; the four planes re-read the same input tile through L2.
+// MACs per input pixel against 2 Cin + 8 Cout bytes).  Each tile reads
+// its 9 Cin Cout weights from L2 (1.2 KB a pixel at 128 -> 64), one CTA
+// an SM at 128 -> 64, mma.sync and not wgmma.
 //
 // The f32 form (the JAX package's default compute dtype): f32 maps, the
 // f32 fold of the weights, f32 bias, no rounding but f32's own.  Each CTA
@@ -28,97 +32,78 @@
 // tile), an FFMA micro-tile on the CUDA cores (each thread TM input pixels
 // x TN output channels; no TF32).  Bound on this card at f32: operations
 // at both widths (9 Cin Cout MACs per input pixel against 67 TFLOP/s).
-#include "common.cuh"
+#include "parity_plane.cuh"
 
 using namespace erfk;
 
 namespace {
 
 template <int CIN, int COUT>
-struct Cfg {
-  static constexpr int BM = 64, THREADS = 128;
-  static constexpr int KMAX = 4 * CIN, LDA = KMAX + 8, LDB = COUT + 8,
-                       LDC = COUT + 4;
-  static constexpr size_t a_raw = (size_t)BM * LDA * 2 > (size_t)BM * LDC * 4
-                                      ? (size_t)BM * LDA * 2
-                                      : (size_t)BM * LDC * 4;
-  static constexpr size_t a_bytes = (a_raw + 127) / 128 * 128;
-  static constexpr size_t smem = a_bytes + (size_t)KMAX * LDB * 2;
+using EvalCfg = PPCfg<CIN, COUT, 4, COUT == 16 ? 9 : 4>;
+
+// pp_run's policy: y = bf16(relu(sum + bias)), whole output rows
+template <class C>
+struct EvalEpi {
+  int tiles, H, W;
+  const float* bias;
+  bf16* y;
+  __device__ float pre(float v, int n) const {
+    return fmaxf(v + __ldg(bias + n), 0.0f);
+  }
+  // half a's output rows of the tile
+  __device__ void out(int a, PPTile tl, const bf16* Cs) const {
+    for (int e = threadIdx.x; e < C::TH * 2 * C::TW * C::VN;
+         e += C::THREADS) {
+      const int pix = e / C::VN, j = e % C::VN;
+      const int r = pix / (2 * C::TW), pc = pix % (2 * C::TW);
+      const int i = tl.i0 + r;
+      if (i >= H || tl.j0 + pc / 2 >= W) continue;
+      *reinterpret_cast<uint4*>(
+          y + (((long long)tl.b * 2 * H + 2 * i + a) * 2 * W + 2 * tl.j0 +
+               pc) * C::N + j * 8) =
+          *reinterpret_cast<const uint4*>(Cs + pix * C::LDN + j * 8);
+    }
+  }
+  __device__ void end_tile(int) const {}
 };
 
 template <int CIN, int COUT>
-__global__ void __launch_bounds__(128)
+__host__ __device__ constexpr int eval_tiles_per_image(int H, int W) {
+  return ((H + EvalCfg<CIN, COUT>::TH - 1) / EvalCfg<CIN, COUT>::TH) *
+         ((W + EvalCfg<CIN, COUT>::TW - 1) / EvalCfg<CIN, COUT>::TW);
+}
+
+template <int CIN, int COUT>
+__global__ void __launch_bounds__(256)
 ups_eval_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                 const float* __restrict__ bias, bf16* __restrict__ out,
-                int M, int H, int W) {
-  using G = Cfg<CIN, COUT>;
+                int B, int H, int W) {
+  using C = EvalCfg<CIN, COUT>;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  float* Cs = reinterpret_cast<float*>(smem);
-  bf16* Ws = reinterpret_cast<bf16*>(smem + G::a_bytes);
-  const int m0 = blockIdx.x * G::BM;
-  const int pa = blockIdx.y >> 1, pb = blockIdx.y & 1;
-  const int nh = pa ? 2 : 1, nw = pb ? 2 : 1, ntaps = nh * nw;
-
-  // tap q = ih * nw + iw: (m_h, t_h) = ih ? (1, 2) : (0, pa ? 0 : 1)
-  for (int q = 0; q < ntaps; ++q) {
-    const int ih = q / nw, iw = q % nw;
-    const int th = ih ? 2 : (pa ? 0 : 1), tw = iw ? 2 : (pb ? 0 : 1);
-    load_matrix(Ws + q * CIN * G::LDB, G::LDB,
-                w + (size_t)(th * 3 + tw) * CIN * COUT, CIN, COUT);
-  }
-
-  constexpr int VPT = CIN / 8;
-  for (int v = threadIdx.x; v < G::BM * ntaps * VPT; v += blockDim.x) {
-    const int r = v / (ntaps * VPT), q = (v / VPT) % ntaps, j = v % VPT;
-    const int m = m0 + r;
-    const int mh = q / nw, mw = q % nw;  // offsets equal the tap's ih, iw
-    const int i = (m / W) % H, jj = m % W;
-    const bool valid = m < M && i + mh < H && jj + mw < W;
-    const long long pix = valid ? (long long)m + mh * W + mw : 0;
-    cp_async16(As + r * G::LDA + q * CIN + j * 8, x + pix * CIN + j * 8,
-               valid);
-  }
-  cp_async_wait_all();
-  __syncthreads();
-
-  switch (ntaps) {  // K = taps x CIN, fixed at compile time per plane
-    case 1: block_gemm<16, COUT, G::LDA, COUT, CIN>(As, Ws, Cs); break;
-    case 2: block_gemm<16, COUT, G::LDA, COUT, 2 * CIN>(As, Ws, Cs); break;
-    default: block_gemm<16, COUT, G::LDA, COUT, 4 * CIN>(As, Ws, Cs);
-  }
-
-  constexpr int VPO = COUT / 8;
-  for (int v = threadIdx.x; v < G::BM * VPO; v += blockDim.x) {
-    const int r = v / VPO, j = v % VPO;
-    const int m = m0 + r;
-    if (m >= M) continue;
-    const long long b = m / (H * W);
-    const int i = (m / W) % H, jj = m % W;
-    float o[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k)
-      o[k] = fmaxf(Cs[r * G::LDC + j * 8 + k] + __ldg(bias + j * 8 + k), 0.0f);
-    bf16* dst = out + ((b * 2 * H + 2 * i + pa) * 2 * W + 2 * jj + pb) * COUT +
-                j * 8;
-    *reinterpret_cast<uint4*>(dst) = pack_bf16x8(o);
-  }
+  EvalEpi<C> epi{B * eval_tiles_per_image<CIN, COUT>(H, W), H, W, bias,
+                 out};
+  pp_run<C, false>(smem, PPSrc{x, CIN}, w, H, W, epi);
 }
 
 template <int CIN, int COUT>
 int launch(const void* x, const void* w, const void* bias, void* out, int B,
            int H, int W, cudaStream_t stream) {
-  using G = Cfg<CIN, COUT>;
+  using C = EvalCfg<CIN, COUT>;
   static bool smem_ok = false;
-  cudaError_t e = allow_smem(ups_eval_kernel<CIN, COUT>, G::smem, &smem_ok);
+  static int gm = 0;
+  cudaError_t e = allow_smem(ups_eval_kernel<CIN, COUT>, C::smem, &smem_ok);
   if (e != cudaSuccess) return e;
+  if (gm == 0 && (e = resident_ctas(ups_eval_kernel<CIN, COUT>, C::THREADS,
+                                    C::smem, &gm)) != cudaSuccess)
+    return e;
   const long long M = (long long)B * H * W;
   if (4 * M * (CIN > COUT ? CIN : COUT) >= (1LL << 31))
     return cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((M + G::BM - 1) / G::BM), 4);
-  ups_eval_kernel<CIN, COUT><<<grid, G::THREADS, G::smem, stream>>>(
+  const int tiles = B * eval_tiles_per_image<CIN, COUT>(H, W);
+  ups_eval_kernel<CIN, COUT><<<tiles < gm ? tiles : gm, C::THREADS, C::smem,
+                               stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-      static_cast<const float*>(bias), static_cast<bf16*>(out), (int)M, H, W);
+      static_cast<const float*>(bias), static_cast<bf16*>(out), B, H, W);
   return cudaGetLastError();
 }
 

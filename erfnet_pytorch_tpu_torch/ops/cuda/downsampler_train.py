@@ -29,9 +29,9 @@ partial per tile; so is the f32 forward at Cin = 3 (the stem), over each
 tile's raw f32 patch, its product an FFMA chain per output.  In the bf16
 form the conv input gradient is the parity-plane product of g with the
 transposed taps ``wt`` (3, 3, Cc, Cin), and the weight gradient's
-partials are per chunk of
-``WG_ROWS`` output rows and kh (the f32 form's per ``CHUNK`` output
-pixels and tap).
+partials are per chunk of ``WG_ROWS`` output rows; the f32 weight
+gradient runs on the same (row chunk, kh) grid, its chunks sized to one
+wave of the card's SMs (``erf_down_train_wg_rows_f32``).
 
 The kernels take (Cin, Cc) in {(3, 13), (16, 48), (64, 64)} (the stem only
 at (3, 13)) and even H, W, and raise on anything else.  Two forms, picked
@@ -48,6 +48,8 @@ bytes for the stem, operations for the others.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
@@ -59,9 +61,11 @@ from . import _build, route
 FWD_TH = {3: 8, 16: 4, 64: 2}
 FWD_TW = 32
 BM_F32 = 64      # output pixels per tile of the f32 forward at Cin 16, 64
-CHUNK = 2048     # output pixels per f32 weight-gradient partial (csrc CHUNK)
 # output rows per bf16 weight-gradient partial, by Cin (csrc Wg::ROWS)
 WG_ROWS = {3: 2, 16: 4, 64: 4}
+# the f32 weight gradient by Cin (csrc Wg32R): kernel rows a CTA, output
+# pixels a block, thread groups over a block's pixels
+WG32 = {3: (3, 128, 32), 16: (3, 64, 4), 64: (1, 64, 2)}
 FWD_LAUNCHES = 2
 BWD_LAUNCHES = {True: 3, False: 4}   # by stem
 # the stats-free forms: no statistics reduction, no g fold; always dx
@@ -223,6 +227,18 @@ def down_fwd(x, w, b, *, shifts=None, dtype=None, stats=True):
 down_fwd.launches = _build.counter("", "_f32", "_nostats", "_nostats_f32")
 
 
+def _wg_rows_f32(lib, B, Ho, cin):
+    """Output rows per f32 weight-gradient partial on the current device
+    (``erf_down_train_wg_rows_f32``: one wave of the kernel's CTAs)."""
+    fn = lib.erf_down_train_wg_rows_f32
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    rows = fn(B, Ho, cin)
+    if rows < 1:
+        raise RuntimeError("train downsampler f32 backward: the device's SM "
+                           "count could not be read")
+    return rows
+
+
 @route.recorded(down_bwd_plain)
 def down_bwd(x, y, gy, gs1, gs2, w, *, stem):
     """down_bwd_plain's contract.  CPU tensor: the plain version.  CUDA
@@ -250,19 +266,21 @@ def down_bwd(x, y, gy, gs1, gs2, w, *, stem):
     wt = w.to(x.dtype).permute(0, 1, 3, 2).contiguous()
     g = torch.empty_like(gy) if stats else gy
     dx = torch.empty_like(x) if not stem else g
-    if form:    # f32: partials per chunk of output pixels
-        chunks = -(-(B * (H // 2) * (W // 2)) // CHUNK)
-    else:       # bf16: per chunk of output rows
-        chunks = -(-(B * (H // 2)) // WG_ROWS[cin])
+    lib = _build.library("downsampler_train")
+    # partials per chunk of output rows: f32, one wave of the SMs; bf16,
+    # WG_ROWS
+    rows = _wg_rows_f32(lib, B, H // 2, cin) if form else WG_ROWS[cin]
+    chunks = -(-(B * (H // 2)) // rows)
     plen = 9 * cin * cc + cc
     part = torch.empty(chunks, plen, dtype=torch.float32, device=dev)
     grads = torch.empty(plen, dtype=torch.float32, device=dev)
-    lib = _build.library("downsampler_train")
-    fn = _build.declare(lib, "erf_down_train_bwd" + form, 10, 7)
+    ints = (B, H, W, cin, cc, int(stem), int(stats)) + ((rows,) if form
+                                                        else ())
+    fn = _build.declare(lib, "erf_down_train_bwd" + form, 10, len(ints))
     err = fn(_build.ptr(gy), _build.ptr(y), _build.ptr(gs1), _build.ptr(gs2),
              _build.ptr(x), _build.ptr(wt), _build.ptr(g), _build.ptr(dx),
-             _build.ptr(part), _build.ptr(grads), B, H, W, cin, cc,
-             int(stem), int(stats), _build.stream_ptr(x))
+             _build.ptr(part), _build.ptr(grads), *ints,
+             _build.stream_ptr(x))
     _build.check(lib, err, f"train downsampler{key}{form} backward launch")
     _build.count(down_bwd, key + form,
                  n=BWD_LAUNCHES[stem] if stats else NOSTATS_BWD_LAUNCHES)

@@ -7,10 +7,12 @@ _ups_eval_kernel_blocked`` (via ``upsampler_packed_eval``).  Kernel source:
 Function: ConvTranspose2d(k3 s2 p1 op1) with BN folded into the weights in
 f32, weights then cast to the compute dtype, + f32 bias, ReLU, one
 rounding.  Each output pixel (2i+a, 2j+b) reads at most four input
-neighbours (``ops/convt_mm.py``); the kernel multiplies each parity plane's
-taps only.  Bound on the H100: bytes at both widths; each CTA stages its
-plane's weights for one tile, and the four planes re-read their input
-tile through L2.
+neighbours (``ops/convt_mm.py``); the bf16 kernel is the parity-plane
+product of ``csrc/parity_plane.cuh`` (the train upsampler's forward, with
+a bias + ReLU epilogue): persistent CTAs over tiles of 4 x 32 input
+pixels, each tile's halo patch staged once for the four planes, the nine
+weight taps read through ``PARITY_TAPS``'s table.  Bound on the H100:
+bytes at both widths.
 
 Forms: bf16 (``erf_upsampler_eval``, mma.sync) and f32
 (``erf_upsampler_eval_f32``, the JAX package's default compute dtype: f32
@@ -28,6 +30,7 @@ from ..convt_mm import (apply_upsampler_matmul, build_upsampler_matmul,
 from ..batchnorm import fold_batch_norm
 from . import _build
 
+TH, TW = 4, 32   # input rows, columns per tile of the bf16 kernel (csrc)
 
 def prepare_upsampler(sd, prefix, dtype):
     """Block ``prefix`` of a reference state_dict -> ``w`` (3, 3, Cin,

@@ -19,9 +19,11 @@ dx at Cin = 3, the upsampler) and the relu lead of the stats forms
 against their plain versions, and serving with the packed-run gate on
 (launch counts, agreement with its plain pipeline); the halo-patch and
 parity-plane kernels (the train downsampler's forward and backward, its
-f32 forward at Cin = 3 over raw patches, the train upsampler's forward,
-and its backward: dx as a stride-2 conv over halo patches, the weight
-gradient on (row chunk, kh) partials) at maps off their tiles.
+f32 forward at Cin = 3 over raw patches and its f32 weight gradient on
+(row chunk, kh) partials, the train upsampler's forward, and its
+backward: dx as a stride-2 conv over halo patches, the weight gradient
+on (row chunk, kh) partials, the eval upsampler) at maps off their
+tiles and chunks.
 
 These tests need an NVIDIA GPU with ``nvcc`` (sm_90a) and skip without
 one.  They import nothing of JAX, so on a machine without it run them
@@ -58,6 +60,7 @@ from erfnet_pytorch_tpu_torch.inference import (build_fast_infer,
                                                 build_plain_infer)
 from erfnet_pytorch_tpu_torch.models.erfnet import Net, init_weights
 from erfnet_pytorch_tpu_torch.ops import cuda as kernels
+from erfnet_pytorch_tpu_torch.ops.cuda import _build
 from erfnet_pytorch_tpu_torch.ops.cuda import (downsampler,
                                                downsampler_train, head_argmax,
                                                head_loss, nb1d, nb1d_halo,
@@ -194,8 +197,13 @@ def test_downsampler_kernel(dev, sd, prefix, shape, dtype):
     ("decoder.layers.0", (1, 3, 7, 128)),
     ("decoder.layers.3", (2, 9, 5, 64)),
     ("decoder.layers.0", (2, 9, 33, 128)),
+    ("decoder.layers.3", (2, 6, 40, 64)),
+    ("decoder.layers.0", (1, 128, 256, 128)),
 ])
 def test_upsampler_kernel(dev, sd, prefix, shape, dtype):
+    """Maps off the bf16 kernel's 4 x 32 tile in rows and columns, and a
+    B=1 map of the 1024x2048 frame's first upsampler; two calls give the
+    same bits."""
     p = _on(upsampler.prepare_upsampler(sd, prefix, dtype), dev)
     x = _x(shape, shape[-1], dev, dtype=dtype)
     n0 = _launched(upsampler.upsampler, dtype)
@@ -203,6 +211,7 @@ def test_upsampler_kernel(dev, sd, prefix, shape, dtype):
     torch.cuda.synchronize()
     assert _launched(upsampler.upsampler, dtype) - n0 == 1
     _close(got, upsampler.upsampler_plain(x, p))
+    assert torch.equal(upsampler.upsampler(x, p), got)
 
 
 @pytest.mark.parametrize("dtype", [BF, F32])
@@ -1380,6 +1389,49 @@ def test_downsampler_backward_ragged(dev, shape, cc, stem, stats, dtype):
         _close(got[0], ref[0])
     rel(got[1], ref[1])
     rel(got[2], ref[2])
+
+
+@pytest.mark.parametrize("shape,cc,stem,stats", [
+    ((2, 10, 262, 3), 13, True, True), ((2, 10, 262, 3), 13, False, False),
+    ((2, 10, 140, 16), 48, False, False), ((1, 10, 132, 64), 64, False,
+                                           False),
+    ((1, 534, 20, 3), 13, True, True), ((1, 266, 20, 16), 48, False, False),
+    ((1, 90, 20, 64), 64, False, True)])
+def test_downsampler_f32_backward_ragged_chunks(dev, shape, cc, stem, stats):
+    """The f32 backward's weight gradient on its (row chunk, kh) grid: Ho
+    = 5 output rows (each chunk one row on the card's SMs), rows wider
+    than one pixel block, and maps whose B Ho rows leave the last chunk
+    short; the stem and the stats-free form; dW, db and dx at phase 23's
+    limits, and two calls bit-identical."""
+    B, H, W, cin = shape
+    x = _rn(*shape, seed=21).relu().to(dev)
+    w = _rn(3, 3, cin, cc, seed=22, scale=(9 * cin) ** -0.5).to(dev)
+    b = _rn(cc, seed=23, scale=0.1).to(dev)
+    y = downsampler_train.down_fwd_plain(x, w, b)[1]
+    gy = _rn(*y.shape, seed=24).to(dev)
+    gs1 = _rn(B, y.shape[-1], seed=25, scale=1e-2).to(dev) if stats else None
+    gs2 = _rn(B, y.shape[-1], seed=26, scale=1e-2).to(dev) if stats else None
+    if H // 2 > 5:
+        rows = downsampler_train._wg_rows_f32(
+            _build.library("downsampler_train"), B, H // 2, cin)
+        assert rows > 1 and (B * H // 2) % rows, rows
+    count = _launched if stats else _nostats
+    n0 = count(downsampler_train.down_bwd, F32)
+    got = downsampler_train.down_bwd(x, y, gy, gs1, gs2, w, stem=stem)
+    again = downsampler_train.down_bwd(x, y, gy, gs1, gs2, w, stem=stem)
+    ref = downsampler_train.down_bwd_plain(x, y, gy, gs1, gs2, w, stem=stem)
+    torch.cuda.synchronize()
+    assert (count(downsampler_train.down_bwd, F32) - n0
+            == 2 * (downsampler_train.BWD_LAUNCHES[stem] if stats
+                    else downsampler_train.NOSTATS_BWD_LAUNCHES))
+    if stem:
+        assert got[0] is None
+    else:
+        _close(got[0], ref[0])
+        assert torch.equal(again[0], got[0])
+    for i in (1, 2):
+        _rel(got[i], ref[i], F32_GRAD_REL)
+        assert torch.equal(again[i], got[i])
 
 
 def _conv_part(x, y, gy, gs1, gs2, w):

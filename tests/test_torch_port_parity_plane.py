@@ -48,6 +48,20 @@ decompositions written out, nothing of the card.
   db from the kh = 1 (even g rows) and kh = 2 (odd g rows) segments'
   slots 1 .. 2 WG_BP, every g pixel exactly once; against
   ``ups_bwd_plain``'s dW and db, norm-relative 1e-5.
+* The eval upsampler (``upsampler.upsampler``, bf16) as its kernel forms
+  it: tile by tile (4 x 32 input pixels), the four planes from one halo
+  patch through the unflipped tap table, bf16(relu(sum + bias)); against
+  ``upsampler_plain`` in bf16 and f32 on maps ragged against the tile by
+  the rules above, and against the JAX ``upsampler_packed_eval`` (Pallas
+  in interpret mode) on the weights ``prepare_upsampler`` carries across
+  from one seeded state_dict.
+* The f32 weight gradient of the train downsampler in its kernel's (row
+  chunk, kh) order: blocks of BP output pixels, each kh's input-row
+  segment read as its im2col tile (row pitch 2 Cin), the thread groups'
+  chains over their pixels added in order, then the chunks; against
+  ``down_bwd_plain``'s dW and db (the stem on its translated image) and
+  against the JAX ``downsampler_packed_stats_aug`` / ``_stats`` VJPs in
+  f32: norm-relative 1e-5.
 """
 
 import pytest
@@ -56,6 +70,7 @@ import torch
 from erfnet_pytorch_tpu_torch.ops.convt_mm import (PARITY_TAPS,
                                                    build_upsampler_matmul)
 from erfnet_pytorch_tpu_torch.ops.cuda import downsampler_train as D
+from erfnet_pytorch_tpu_torch.ops.cuda import upsampler as E
 from erfnet_pytorch_tpu_torch.ops.cuda import upsampler_train as U
 from test_torch_port_common import one_torch_thread  # noqa: F401
 
@@ -475,3 +490,203 @@ def test_upsampler_weight_gradient_in_kernel_order(cin, cout, shape,
     assert torch.equal(uses, torch.ones_like(uses))   # each g pixel once
     _rel(dw, rdw)
     _rel(db, rdb)
+
+
+def _ups_eval_in_kernel_order(x, p):
+    """The eval upsampler as its kernel forms it: per tile of TH x TW
+    input pixels of one image, the (TH + 1) x (TW + 1) halo patch (zero
+    past the bottom and right edges), each of the nine blocks (q, plane)
+    the patch's view shifted by e_q times tap PARITY_TAPS[q, plane] of the
+    (3, 3, Cin, Cout) stack, then bf16(relu(sum + bias)) (f32: no
+    rounding but f32's own), the tile's whole output rows kept where they
+    lie on the map."""
+    dt = x.dtype
+    B, H, W, cin = x.shape
+    w, b = p["w"].float(), p["b"].float()
+    cout = w.shape[-1]
+    th, tw = E.TH, E.TW
+    out = torch.zeros(B, 2 * H, 2 * W, cout, dtype=dt)
+    for bi in range(B):
+        for i0 in range(0, H, th):
+            for j0 in range(0, W, tw):
+                nh, nw = min(th, H - i0), min(tw, W - j0)
+                patch = torch.zeros(th + 1, tw + 1, cin)
+                ph, pw = min(th + 1, H - i0), min(tw + 1, W - j0)
+                patch[:ph, :pw] = x[bi, i0:i0 + ph, j0:j0 + pw].float()
+                acc = torch.zeros(th, 2, tw, 2, cout)
+                for (q, plane), (t_h, t_w) in PARITY_TAPS.items():
+                    view = patch[(q & 1):(q & 1) + th, (q >> 1):(q >> 1) + tw]
+                    acc[:, plane >> 1, :, plane & 1] += view @ w[t_h, t_w]
+                y = (acc + b).relu().to(dt).reshape(2 * th, 2 * tw, cout)
+                out[bi, 2 * i0:2 * (i0 + nh), 2 * j0:2 * (j0 + nw)] = \
+                    y[:2 * nh, :2 * nw]
+    return out
+
+
+def _ups_eval_params(cin, cout, dtype, seed):
+    """The eval upsampler's operands from a seeded reference-layout block
+    with non-trivial BN running statistics, by ``prepare_upsampler``."""
+    pre = "up"
+    sd = {pre + ".conv.weight": _rn(cin, cout, 3, 3, seed=seed,
+                                    scale=(9 * cin) ** -0.5),
+          pre + ".conv.bias": _rn(cout, seed=seed + 1, scale=0.1),
+          pre + ".bn.weight": 1 + _rn(cout, seed=seed + 2, scale=0.1),
+          pre + ".bn.bias": _rn(cout, seed=seed + 3, scale=0.1),
+          pre + ".bn.running_mean": _rn(cout, seed=seed + 4, scale=0.1),
+          pre + ".bn.running_var": 0.5 + _rn(cout, seed=seed + 5).abs()}
+    return E.prepare_upsampler(sd, pre, dtype)
+
+
+@pytest.mark.parametrize("cin,cout", [(128, 64), (64, 16)])
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_eval_upsampler_is_the_halo_patch_parity_product(cin, cout, dtype):
+    """Maps ragged against the 4 x 32 tile: H = 6, W = 40."""
+    p = _ups_eval_params(cin, cout, dtype, seed=cin + cout)
+    x = _rn(2, 6, 40, cin, seed=cin).relu().to(dtype)
+    ref = E.upsampler_plain(x, p)
+    got = _ups_eval_in_kernel_order(x, p)
+    _close(got, ref)
+
+
+@pytest.mark.parametrize("i,shape,pi,po", [
+    (0, (2, 8, 16, 128), 1, 2), (3, (2, 8, 16, 64), 2, 8)])
+def test_eval_upsampler_kernel_order_matches_jax_kernel(i, shape, pi, po):
+    """Against the JAX ``upsampler_packed_eval`` in bf16 at the TPU path's
+    W-pack factors, at shapes ``ups_packed_eval_supported`` admits; the
+    port's operands from the same seeded state_dict."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from erfnet_pytorch_tpu.inference import _MAX_MAP_ELEMS
+    from erfnet_pytorch_tpu.models.erfnet import BN_EPS
+    from erfnet_pytorch_tpu.ops.pallas.upsampler import (
+        ups_packed_eval_supported, upsampler_packed_eval)
+    from test_torch_port_common import assert_bf16_close, jax_net, to_torch
+
+    params, state, sd = jax_net(13)
+    lp, ls = params["decoder"]["layers"][i], state["decoder"]["layers"][i]
+    B, H, W, cin = shape
+    cout = lp["conv"]["w"].shape[-1]
+    xp = (B, H, W // pi, pi * cin)
+    assert ups_packed_eval_supported(xp, pi, po, cout, _MAX_MAP_ELEMS)
+    x = np.maximum(np.random.RandomState(i).randn(*shape), 0
+                   ).astype(np.float32)
+    ref = upsampler_packed_eval(
+        jnp.asarray(x, jnp.bfloat16).reshape(xp), lp["conv"]["w"],
+        lp["conv"]["b"], lp["bn"]["scale"], lp["bn"]["bias"],
+        ls["bn"]["mean"], ls["bn"]["var"], pi=pi, po=po, eps=BN_EPS,
+        max_elems=_MAX_MAP_ELEMS, interpret=True)
+    ref = to_torch(ref.reshape(B, 2 * H, 2 * W, cout), BF)
+    p = E.prepare_upsampler(sd, f"decoder.layers.{i}", BF)
+    got = _ups_eval_in_kernel_order(torch.from_numpy(x).to(BF), p)
+    assert_bf16_close(got, ref)
+
+
+def _wgrad_f32_in_kernel_order(x, g, cin, cc, rows_per):
+    """dW (3, 3, cin, cc) and db as the f32 kernel sums them: per chunk
+    of rows_per output rows and per CTA of KHN kernel rows, blocks of BP
+    output pixels of one row; each kh's input-row segment (slot s: column
+    2 wo0 - 1 + s, zero past the map) read as its im2col tile, pixel k's
+    row the 3 cin values at 2 k cin (kw cin + ci); thread group w's chain
+    over pixels [w KL, (w + 1) KL) of every block, the groups added in
+    order; db in the kh = 0 CTA by the same groups; then the chunks'
+    partials in order."""
+    khn, bp, wk = D.WG32[cin]
+    kl = bp // wk
+    B, H, W, _ = x.shape
+    Ho, Wo = H // 2, W // 2
+    xf = torch.nn.functional.pad(x.float(), (0, 0, 1, 2 * bp, 1, 1))
+    gf = g[..., :cc].float()
+    total = torch.zeros(9 * cin * cc + cc)
+    for r0 in range(0, B * Ho, rows_per):
+        rows = range(r0, min(r0 + rows_per, B * Ho))
+        dw = torch.zeros(3, 3 * cin, cc)
+        db = torch.zeros(cc)
+        for kh0 in range(0, 3, khn):
+            grp = torch.zeros(wk, khn, 3 * cin, cc)
+            dbg = torch.zeros(wk, cc)
+            for row in rows:
+                b, ho = divmod(row, Ho)
+                for wo0 in range(0, Wo, bp):
+                    gt = torch.zeros(bp, cc)
+                    n = min(bp, Wo - wo0)
+                    gt[:n] = gf[b, ho, wo0:wo0 + n]
+                    for li in range(khn):
+                        seg = xf[b, 2 * ho + kh0 + li,
+                                 2 * wo0:2 * wo0 + 2 * bp + 1].clone()
+                        a = seg.reshape(-1).as_strided((bp, 3 * cin),
+                                                       (2 * cin, 1))
+                        for w in range(wk):
+                            sl = slice(w * kl, (w + 1) * kl)
+                            grp[w, li] += a[sl].t() @ gt[sl]
+                    if kh0 == 0:
+                        for w in range(wk):
+                            dbg[w] += gt[w * kl:(w + 1) * kl].sum(0)
+            s, d = grp[0].clone(), dbg[0].clone()
+            for w in range(1, wk):
+                s += grp[w]
+                d += dbg[w]
+            dw[kh0:kh0 + khn] = s
+            if kh0 == 0:
+                db = d
+        total += torch.cat([dw.reshape(-1), db])
+    return total[:9 * cin * cc].view(3, 3, cin, cc), total[9 * cin * cc:]
+
+
+def _f32_fold(y, gy, gs1, gs2):
+    bc = (slice(None), None, None, slice(None))
+    return gy.float() + gs1[bc] + 2.0 * y.float() * gs2[bc]
+
+
+@pytest.mark.parametrize("cin,cc,shape,rows_per", [
+    (3, 13, (2, 6, 260, 3), 2), (16, 48, (2, 6, 140, 16), 4),
+    (64, 64, (1, 6, 132, 64), 2)])
+def test_f32_weight_gradient_in_kernel_order(cin, cc, shape, rows_per):
+    """Rows ragged against the chunk, output rows wider than one block;
+    the stem on its translated image (shifts of +-2)."""
+    stem = cin == 3
+    sd = 5 * cin + cc
+    w = _rn(3, 3, cin, cc, seed=sd, scale=(9 * cin) ** -0.5)
+    b = _rn(cc, seed=sd + 1, scale=0.1)
+    if stem:
+        img = torch.rand(*shape, generator=torch.Generator().manual_seed(sd))
+        shifts = torch.tensor([[-2, 1], [2, -2]])
+        x, y = D.down_fwd_plain(img, w, b, shifts=shifts, dtype=F32)[:2]
+    else:
+        x = _rn(*shape, seed=sd + 2).relu()
+        y = D.down_fwd_plain(x, w, b)[1]
+    B, cout = shape[0], cin + cc
+    gy = _rn(*y.shape, seed=sd + 3)
+    gs1 = _rn(B, cout, seed=sd + 4, scale=1e-2)
+    gs2 = _rn(B, cout, seed=sd + 5, scale=1e-2)
+    _, dw, db = D.down_bwd_plain(x, y, gy, gs1, gs2, w, stem=stem)
+    got_dw, got_db = _wgrad_f32_in_kernel_order(
+        x, _f32_fold(y, gy, gs1, gs2), cin, cc, rows_per)
+    _rel(got_dw, dw)
+    _rel(got_db, db)
+
+
+@pytest.mark.parametrize("stem", [True, False], ids=["stem", "down16_64"])
+def test_f32_weight_gradient_kernel_order_matches_jax_kernel(stem):
+    """Against the JAX ``downsampler_packed_stats_aug`` (the stem, its
+    translate) and ``downsampler_packed_stats`` VJPs in f32, built as
+    ``test_torch_port_train_down`` builds them."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from test_torch_port_train_down import SHIFTS, _inputs, _jax
+    v = _inputs(stem, seed=11 if stem else 12)
+    _, jgrads = _jax(v, stem, jnp.float32)
+    jdw, jdb = (torch.from_numpy(np.array(t)) for t in jgrads[-2:])
+    w, b = torch.tensor(v["w"]), torch.tensor(v["b"])
+    cin, cc = w.shape[2], w.shape[3]
+    if stem:
+        x, y = D.down_fwd_plain(torch.tensor(v["x"]), w, b,
+                                shifts=torch.tensor(SHIFTS), dtype=F32)[:2]
+    else:
+        x, y = D.down_fwd_plain(torch.tensor(v["x"]), w, b)[:2]
+    g = _f32_fold(y, torch.tensor(v["gy"]), torch.tensor(v["gs1"]),
+                  torch.tensor(v["gs2"]))
+    got_dw, got_db = _wgrad_f32_in_kernel_order(x, g, cin, cc, rows_per=3)
+    _rel(got_dw, jdw)
+    _rel(got_db, jdb)
