@@ -9,14 +9,18 @@ rows (the train downsampler backward, rows 5, 5 on g = gy and 8, rows 5
 and 8 also in f32; the train upsampler forward, rows 12 and 10, and
 backward, row 13), of the train downsampler forward (rows 7, 6 and 4;
 row 7 also in f32) at their B=6 shapes and of the eval upsampler (row
-14) at its B=4 shapes by launch: CUDA events, device time by kernel
+14) at its B=4 shapes, and of the bf16 train NB1d conv pair (rows 21,
+22 and 23 at C=64 and C=128, and at C=16, a forward and a backward of
+each distinct lead, shape and dilation of the B=6 steps, weighted by its
+calls per step) by launch: CUDA events, device time by kernel
 (torch.profiler) and the host's enqueue time, with cuDNN's call for the
-same function by device time beside each forward and rows 5, 8 and 13
-(the forward conv; its ``convolution_backward`` for rows 5 and 8, the
-weight gradient alone for row 8, TF32 off at f32; the transposed conv
-for row 14, its ``convolution_backward`` for row 13); then prints the
-card line; no result line.  Phases 9 and 28 print the same split
-for the parity-plane rows.
+same function by device time beside each forward and rows 5, 8, 13 and
+the pair (the forward conv; its ``convolution_backward`` for rows 5 and
+8, the weight gradient alone for row 8, TF32 off at f32; the transposed
+conv for row 14, its ``convolution_backward`` for row 13; the pair's two
+convs, forward or ``convolution_backward``); then prints the card line;
+no result line.  Phases 9 and 28 print the same split for the
+parity-plane rows.
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -3394,19 +3398,25 @@ def log_split(label, s):
 
 
 def split_calls(device, dtype):
-    """(row, label, call, yardstick) at the B=6 shapes: the train
-    downsampler forward with statistics (rows 7, 6) and without (row 4),
-    its backward with statistics (rows 5, 8) and on g = gy (row 5 gy), the
-    train upsampler forward with and without statistics (rows 12, 10) and
-    its backward with statistics (row 13); and the eval upsampler (row 14)
-    at its B=4 serving shapes.  ``yardstick``: cuDNN's call for the same
-    function (the forward conv of a forward of the downsampler, the stem's
-    on its translated image; its ``convolution_backward`` for rows 5 and
-    8, the stem's weight gradient alone; ``convolution_backward`` of the
-    transposed conv for row 13; the transposed conv with its bias for row
-    14), else None."""
+    """(row, label, call, yardstick, calls per step) at the B=6 shapes:
+    the train downsampler forward with statistics (rows 7, 6) and without
+    (row 4), its backward with statistics (rows 5, 8) and on g = gy (row
+    5 gy), the train upsampler forward with and without statistics (rows
+    12, 10) and its backward with statistics (row 13); the eval upsampler
+    (row 14) at its B=4 serving shapes; and the bf16 train NB1d conv pair
+    (rows 21, 22, 23 at C=64 and C=128, "21 C16" .. "23 C16"), a forward
+    and a backward call of each distinct (lead, shape, dilation) of
+    ``pair_cases`` and ``dec_pair_cases``, weighted by its calls per step
+    of the encoder stage (C=64, C=128) or of stage 2 (C=16).
+    ``yardstick``: cuDNN's call for the same function (the forward conv of
+    a forward of the downsampler, the stem's on its translated image; its
+    ``convolution_backward`` for rows 5 and 8, the stem's weight gradient
+    alone; ``convolution_backward`` of the transposed conv for row 13; the
+    transposed conv with its bias for row 14; the pair's two convs, their
+    forwards or their ``convolution_backward``s), else None."""
     import torch
     from erfnet_pytorch_tpu_torch.ops.cuda import downsampler_train as dt
+    from erfnet_pytorch_tpu_torch.ops.cuda import nb1d_pair as pr
     from erfnet_pytorch_tpu_torch.ops.cuda import upsampler
     from erfnet_pytorch_tpu_torch.ops.cuda import upsampler_train as ut
     from erfnet_pytorch_tpu_torch.ops.cuda.upsampler import \
@@ -3422,7 +3432,7 @@ def split_calls(device, dtype):
         xa, y = dt.down_fwd_plain(x, w, b, **kw)[:2]
         calls.append((7 if stem else 6, label, (
             lambda x=x, w=w, b=b, kw=kw: dt.down_fwd(x, w, b, **kw)),
-            cudnn(xa, w)))
+            cudnn(xa, w), 1))
         gy = torch.randn(*y.shape, generator=g).to(device).to(dtype)
         gs = (1e-3 * torch.randn(shape[0], y.shape[-1], generator=g)).to(
             device)
@@ -3431,23 +3441,23 @@ def split_calls(device, dtype):
                         weight_only=stem)[1]
         calls.append((8 if stem else 5, label, (
             lambda xa=xa, y=y, gy=gy, gs=gs, w=w, stem=stem:
-            dt.down_bwd(xa, y, gy, gs, gs, w, stem=stem)), lib))
+            dt.down_bwd(xa, y, gy, gs, gs, w, stem=stem)), lib, 1))
     for label, shape, cc in nostats_down_cases(TRAIN_B):
         x, w, b, _kw = down_inputs(label, shape, cc, g, device, dtype)
         y = dt.down_fwd_plain(x, w, b, stats=False)[1]
         calls.append((4, label, (
             lambda x=x, w=w, b=b: dt.down_fwd(x, w, b, stats=False)),
-            cudnn(x, w)))
+            cudnn(x, w), 1))
         gy = torch.randn(*y.shape, generator=g).to(device).to(dtype)
         calls.append(("5 gy", label, (
             lambda x=x, gy=gy, w=w:
-            dt.down_bwd(x, None, gy, None, None, w, stem=False)), None))
+            dt.down_bwd(x, None, gy, None, None, w, stem=False)), None, 1))
     for label, shape, cout in up_train_cases(TRAIN_B):
         x, w, b = ups_inputs(shape, cout, g, device, dtype)
         for stats in (True, False):
             calls.append((12 if stats else 10, label, (
                 lambda x=x, w=w, b=b, stats=stats:
-                ut.ups_fwd(x, w, b, stats=stats)), None))
+                ut.ups_fwd(x, w, b, stats=stats)), None, 1))
         y = ut.ups_fwd_plain(x, w, b)[0]
         gy = torch.randn(*y.shape, generator=g).to(device).to(dtype)
         gs = (1e-3 * torch.randn(shape[0], cout, generator=g)).to(device)
@@ -3456,7 +3466,7 @@ def split_calls(device, dtype):
                         (1, 1), transposed=True)[1]
         calls.append((13, label, (
             lambda x=x, y=y, gy=gy, gs=gs, w=w:
-            ut.ups_bwd(x, y, gy, gs, gs, w)), lib))
+            ut.ups_bwd(x, y, gy, gs, gs, w)), lib, 1))
     sd = seeded_state_dict(0)
     for prefix, shape in up_cases(4):
         p = {k: v.to(device) for k, v in
@@ -3464,7 +3474,28 @@ def split_calls(device, dtype):
         x = torch.rand(*shape, generator=g).to(device).to(dtype)
         calls.append((14, f"up {shape[-1]}->", (
             lambda x=x, p=p: upsampler.upsampler(x, p)),
-            library_call("upsampler", x, p)))
+            library_call("upsampler", x, p), 1))
+    if dtype != torch.bfloat16:
+        return calls
+    for mode, shape, d, n in pair_cases(TRAIN_B) + [
+            c for c in dec_pair_cases(TRAIN_B) if c[1][-1] == 16]:
+        C = shape[-1]
+        kw = pair_inputs(mode, shape, d, g, device, dtype)
+        saved = pair_saved(mode, kw, pr.pair_fwd_plain(mode, **kw))
+        ct = pair_cotangents(mode, shape, g, device, dtype)
+        wh = kw["wh"].permute(2, 1, 0)[..., None]          # (O, I, 3, 1)
+        ww = kw["ww"].permute(2, 1, 0)[:, :, None, :]      # (O, I, 1, 3)
+        lh = _lib_conv(kw["x"], wh, (1, 1), (d, 0), (d, 1))
+        lw = _lib_conv(saved["t1"], ww, (1, 1), (0, d), (1, d))
+        row = PAIR_ROW[mode] if C != 16 else f"{PAIR_ROW[mode]} C16"
+        label = f"pair {mode} C{C} d{d} x{n}"
+        calls.append((row, label + " fwd", (
+            lambda mode=mode, kw=kw: pr.pair_fwd(mode, **kw)),
+            lambda lh=lh, lw=lw: (lh[0](), lw[0]()), n))
+        calls.append((row, label + " bwd", (
+            lambda mode=mode, saved=saved, ct=ct:
+            pr.pair_bwd(mode, saved, **ct)),
+            lambda lh=lh, lw=lw: (lh[1](), lw[1]()), n))
     return calls
 
 
@@ -3474,7 +3505,8 @@ def phase_split(device, iters, dtypes=None):
     wrappers build the same parity-plane weight, of row 7, the f32 stem,
     and of rows 8 and 5, the f32 stem's and downsampler's backward, with
     TF32 off), and its yardstick's device time (``cudnn``); summed by
-    row."""
+    row, each call times its calls per step, with the row's device time
+    by kernel (``kernels``)."""
     import torch
     out = {}
     for dtype in dtypes or (torch.bfloat16, torch.float32):
@@ -3483,25 +3515,29 @@ def phase_split(device, iters, dtypes=None):
             "time by kernel (torch.profiler), host enqueue time per call; "
             "cuDNN's call for the same function by device time")
         with no_tf32() if form else contextlib.nullcontext():
-            for row, label, fn, lib in split_calls(device, dtype):
+            for row, label, fn, lib, n in split_calls(device, dtype):
                 if form and row not in (5, 7, 8, 10, 12):
                     continue
                 s = kernel_split(fn, iters)
                 log_split(f"row {row}{form} {label}", s)
                 r = out.setdefault(f"{row}{form}", {
                     "events": 0.0, "device": 0.0, "host": 0.0, "gap": 0.0,
-                    "cudnn": 0.0, "calls": {}})
+                    "cudnn": 0.0, "calls": {}, "kernels": {}})
                 if lib is not None:
                     s["cudnn"] = _device_ms(lib, iters)
-                    r["cudnn"] += s["cudnn"]
+                    r["cudnn"] += n * s["cudnn"]
                     log(f"      cuDNN, device {s['cudnn']:.4f}")
                 for k in ("events", "device", "host", "gap"):
-                    r[k] += s[k]
+                    r[k] += n * s[k]
+                for k, (ms, _seen) in s["launches"].items():
+                    r["kernels"][k] = r["kernels"].get(k, 0.0) + n * ms
                 r["calls"][label] = s
     for row, r in out.items():
         log(f"  row {row}: events {r['events']:.4f} ms, device "
             f"{r['device']:.4f}, host enqueue {r['host']:.4f}"
             + (f", cuDNN device {r['cudnn']:.4f}" if r["cudnn"] else ""))
+        for k, ms in sorted(r["kernels"].items(), key=lambda kv: -kv[1]):
+            log(f"      {ms:.4f} ms  {k}")
     return out
 
 

@@ -35,31 +35,65 @@
 //
 // Launches.  Forward: lead (affine and epi only; an elementwise pass that
 // writes t0, in epi mode y_next, which the pair returns anyway), the H
-// conv (t1), the W conv (z and per-tile stat partials), the reduction of
+// conv (t1), the W conv (z and the statistic partials), the reduction of
 // the partials.  Backward: the g fold, the transposed W conv (dz1, bias
 // partials), the transposed H conv (the lead's backward and its partials),
 // the weight-gradient product (six (C x C) products as per-chunk
 // partials), and two fixed-order reductions.  t0 and t1 are kept from the
 // forward instead of recomputed: memory for one conv per backward.
 //
-// Each conv is an implicit GEMM over tiles of 64 consecutive pixels of
-// one image x all C channels (K = 3C): the three tap rows of each pixel
-// are gathered into shared memory with cp.async (zero fill off the map,
-// which also covers d >= H or W), the (3C x C) tap stack sits beside
-// them, eight warps (four at C = 16) multiply with ldmatrix + mma.sync.
-// A persistent grid walks the tiles, staging the tap stack once per CTA.
-// The transposed convs are the same kernel with the tap stack flipped and
-// each tap transposed (the wrapper prepares it).
+// Each bf16 conv is an implicit GEMM (K = 3C) over tiles of pixels along
+// its axis (conv_tiles, Geo): a tile is L positions along the axis x TA
+// across it, and its halo patch, the L + 2d positions along (clamped to
+// the map) x TA, is staged once with cp.async; the three taps are views of
+// the patch shifted by -d, 0 and d along the axis (ldmatrix takes each
+// lane's row address: a view costs no copy, a row off the map reads a
+// zero pixel, which also covers d >= H or W).  Tiles span the axis where
+// the patch fits (the B=6 path: the C = 128 H conv 64 x 2, its W conv
+// 1 x 128, the C = 64 H conv 128 x 1; no halo is read), else take the
+// least halo that fits (the C = 64 W conv 128 of 256 positions, the C =
+// 16 convs 64 x 4 and 256 of 512: 1-3 % more), else three bands of L for
+// a dilation too large for one patch.  So each input pixel crosses L2
+// about once a conv, where the im2col tile of 64 pixels x 3 taps took it
+// three times.  The (3C x C) tap stack is resident; a persistent CTA
+// walks its tiles with a ring of NS patches, the next tiles' patches
+// copying while this one multiplies (three at C = 64, two CTAs an SM for
+// the forward convs; three at C = 128, one CTA; four at C = 16, whose
+// 256-pixel tiles move 8 KB).  Eight warps of 32 rows x C / 2 columns (C
+// = 16: all 16) multiply with ldmatrix + mma.sync, f32 accumulators, and
+// the epilogue runs from the accumulator fragments: at C = 64 and 128 the
+// fragments of four n8 tiles are transposed across each quad by shuffles
+// (quad_gather), so that a lane holds 8 consecutive channels of a pixel
+// and loads and stores 16 bytes; bias, ReLU, the [t1 > 0] mask, the
+// lead's backward and the bf16 rounding happen in registers, g for dbw is
+// read from the patch's centre tap, and the maps the epilogue reads (t1;
+// x, the mask, gy) are loaded before the product, which hides their
+// latency.  The statistic and bias partials are per CTA (the forward's
+// per (image, CTA)): each thread adds its columns over all its tiles,
+// then an xor tree over the lanes and the warps in order (flush_sums), so
+// reduce_parts adds grid-many rows (the resident CTAs,
+// erf_pair_part_rows), where one row a 64-pixel tile took 768-12288.  The
+// grid comes from the SM count and the occupancy, so the order is fixed on
+// a card and a step is bit-reproducible.  The transposed convs are the
+// same kernel with the tap stack flipped and each tap transposed (the
+// wrapper prepares it).
+//
+// The weight gradient (wgrad_kernel) runs on a (chunk of tiles, axis)
+// grid: a CTA stages each tile's dz1 or g rows and the halo patch of t0
+// or t1 along its axis once, the three taps shifted views of the patch,
+// through a ring of stages; at C = 128 the output columns split in four
+// (see Wg).  Chunks are one wave of its CTAs from the SM count, at most 9
+// MiB of partials (erf_pair_wg_chunks).
 //
 // Bound on this card: 6 C^2 MACs per pixel forward and 12 C^2 backward
 // against 4 C to 10 C bytes per pixel read and written once, so
 // operations at C = 128 and bytes at C = 64 and at C = 16 (the decoder's
-// last run).
-//
-// This version moves t1, g and dz1 through device memory between launches
-// and gathers every input pixel three times; one fused launch per pair
-// with the intermediate kept on chip, and wgmma, are the next steps.
-//
+// last run).  What is left: t1, g and dz1 still pass through device
+// memory between launches, the lead and the g fold are passes of their
+// own, mma.sync, not wgmma, multiplies, and 16-byte cp.async copies (a
+// CTA's requests in flight) pace the memory-bound kernels: TMA tensor
+// copies of whole patches are the next step.
+
 // The f32 forms (erf_pair_*_f32, the JAX package's default compute dtype):
 // the same launches and the same function with every map in f32 and
 // nothing rounded to bf16 (t0, t1, z, g, dz1 and the outputs stay f32; the
@@ -95,223 +129,593 @@ using namespace erfk;
 
 namespace {
 
-constexpr size_t cmax(size_t a, size_t b) { return a > b ? a : b; }
+constexpr size_t align128(size_t b) { return (b + 127) / 128 * 128; }
 
-// C = 16: four warps of 16 x 16 (N = 16 is two n8 tiles, K = 48 three k16
-// steps); C = 64, 128: eight warps in two column bands.
-template <int C>
-struct Cfg {
-  static constexpr int THREADS = C == 16 ? 128 : 256, BM = 64;
-  static constexpr int NBUF = C == 64 ? 1 : 2;
-  static constexpr int WCOLS = C == 16 ? 1 : 2;
-  static constexpr int WN = C / WCOLS, WM = BM * WCOLS / (THREADS / 32);
-  static constexpr int K = 3 * C, LDA = K + 8, LDB = C + 8, LDC = C + 4;
-  static constexpr int VPT = C / 8, RSTEP = THREADS / VPT, PER = BM / RSTEP;
-  // one buffer holds the gathered A tile, then the f32 product, then the
-  // per-thread statistic sums of the tile
-  static constexpr size_t a_raw =
-      cmax(cmax((size_t)BM * LDA * 2, (size_t)BM * LDC * 4),
-           (size_t)RSTEP * 2 * C * 4);
-  static constexpr size_t a_bytes = (a_raw + 127) / 128 * 128;
-  static constexpr size_t smem = NBUF * a_bytes + (size_t)K * LDB * 2;
+// ---------------------------------------------------------------------------
+// bf16: the four convs over halo patches, and the weight gradient
+// ---------------------------------------------------------------------------
+
+// A conv's tiling along its axis (0: H, the H conv and its transpose; 1:
+// W).  n, m: the map's extent along and across the axis; d: the dilation,
+// at most n (a tap at or past n reads zeros, as one at n does).  A tile is
+// L positions along x TA across of one image (TA = 2^lg), tile pixel q =
+// i TA + a (i < L, a < TA) at along s0 + i, across a0 + a; segs x ablk
+// tiles an image.  Its patch: band = 0, the along positions [lo, lo + ext) = [max(0, s0 -
+// d), min(n, s0 + L + d)) x TA, patch pixel (p - lo) TA + a; band = 1 (a d
+// too large for that to fit), three bands of L positions, band t at s0 +
+// (t - 1) d, patch pixel (t L + i) TA + a.  Tap t of tile pixel (i, a)
+// reads along p = s0 + i + (t - 1) d, a zero pixel where p is off the map.
+struct Geo {
+  int axis, d, n, m, L, TA, lg, band, segs, ablk;
 };
 
-// tile -> pixels [m0, m_end) of image b: tiles never straddle two images,
-// so a tile's partial sums belong to one image.
-struct TileMap {
-  int HW, TPI;
-  __device__ __forceinline__ void at(int tile, int bm, int& b, long long& m0,
-                                     long long& m_end) const {
-    b = tile / TPI;
-    const int local = tile % TPI;
-    m0 = (long long)b * HW + (long long)local * bm;
-    const long long e = (long long)b * HW + HW;
-    m_end = m0 + bm < e ? m0 + bm : e;
+// The tiling of a conv of dilation d along axis of an (H, W) map, for
+// tiles of at most bm pixels whose patch holds at most cap pixels, at
+// least ta_min across (a power of two): the tile spans the axis where it
+// can (no halo is read); else the smallest TA (the longest L, the least
+// halo) whose patch fits; else bands.
+Geo make_geo(int H, int W, int axis, int d, int bm, int cap, int ta_min) {
+  Geo g;
+  g.axis = axis;
+  g.n = axis ? W : H;
+  g.m = axis ? H : W;
+  g.d = d < g.n ? d : g.n;
+  g.band = 0;
+  if ((long long)g.n * ta_min <= bm) {
+    g.L = g.n;
+    const int most = bm / g.n < g.m ? bm / g.n : g.m;
+    for (g.TA = 1; 2 * g.TA <= most;) g.TA *= 2;
+  } else {
+    g.band = 1;
+    for (int ta = ta_min; ta <= bm; ta *= 2) {
+      const int L = bm / ta;
+      const int ext = L + 2 * g.d < g.n ? L + 2 * g.d : g.n;
+      if ((long long)ext * ta <= cap) {
+        g.L = L;
+        g.TA = ta;
+        g.band = 0;
+        break;
+      }
+    }
+    if (g.band) {
+      g.TA = ta_min;
+      g.L = cap / (3 * ta_min);
+    }
   }
+  for (g.lg = 0; (1 << g.lg) < g.TA;) ++g.lg;
+  g.segs = (g.n + g.L - 1) / g.L;
+  g.ablk = (g.m + g.TA - 1) / g.TA;
+  return g;
+}
+
+// Tile t of a tiling: its image, first along and across positions, and
+// its patch's along positions (band 0: [lo, lo + ext); band 1: 3 L).
+struct Tile {
+  int b, s0, a0, lo, ext;
 };
 
-// Start copying the A tile of pixels [m0, m_end): row r holds the three
-// taps of pixel m0 + r, zero where a tap leaves the map or r is past the
-// tile.
-template <int C>
-__device__ __forceinline__ void gather(unsigned char* buf, const bf16* src,
-                                       long long m0, long long m_end, int H,
-                                       int W, int axis, int dil) {
-  using G = Cfg<C>;
-  constexpr int VPT = C / 8;
-  bf16* As = reinterpret_cast<bf16*>(buf);
-  const int step = axis == 0 ? W : 1;
-  const int lim = axis == 0 ? H : W;
-  for (int v = threadIdx.x; v < G::BM * 3 * VPT; v += blockDim.x) {
-    const int r = v / (3 * VPT), t = (v / VPT) % 3, j = v % VPT;
-    const long long m = m0 + r;
-    const int off = (t - 1) * dil;
-    const int pos = axis == 0 ? (int)((m / W) % H) : (int)(m % W);
-    const bool valid = m < m_end && pos + off >= 0 && pos + off < lim;
-    const long long pix = valid ? m + (long long)off * step : 0;
-    cp_async16(As + r * G::LDA + t * C + j * 8, src + pix * C + j * 8, valid);
+__device__ __forceinline__ Tile tile_at(const Geo& g, int t) {
+  const int per = g.segs * g.ablk, l = t % per;
+  Tile r;
+  r.b = t / per;
+  r.s0 = (l / g.ablk) * g.L;
+  r.a0 = (l % g.ablk) * g.TA;
+  if (g.band) {
+    r.lo = 0;
+    r.ext = 3 * g.L;
+  } else {
+    r.lo = r.s0 > g.d ? r.s0 - g.d : 0;
+    const int hi = r.s0 + g.L + g.d;
+    r.ext = (hi < g.n ? hi : g.n) - r.lo;
   }
-  cp_async_commit();
+  return r;
 }
 
-// One conv over all tiles of this CTA's share: acc = sum_t shift(src, t)
-// @ w[t]; then epi(m, b, c0, acc, s0, s1) for each pixel m of the tile and
-// 8 channels c0.. of it.  With Epi::SUMS the per-thread sums s0, s1 are
-// added over the tile in a fixed order and stored as part[tile][2C].
-template <int C, class Epi>
-__device__ void conv_tiles(unsigned char* smem, const bf16* src,
-                           const bf16* w, int B, int H, int W, int axis,
-                           int dil, const Epi& epi, float* part) {
-  using G = Cfg<C>;
-  constexpr int VPT = G::VPT, RSTEP = G::RSTEP, PER = G::PER;
-  const TileMap tm{H * W, (H * W + G::BM - 1) / G::BM};
-  const int tiles = B * tm.TPI;
-  bf16* Ws = reinterpret_cast<bf16*>(smem + G::NBUF * G::a_bytes);
-  const int j = threadIdx.x % VPT, r0 = threadIdx.x / VPT;
-
-  load_matrix(Ws, G::LDB, w, G::K, C);
-  int tile = blockIdx.x;
-  {
-    int b;
-    long long m0, me;
-    tm.at(tile, G::BM, b, m0, me);
-    if (tile < tiles) gather<C>(smem, src, m0, me, H, W, axis, dil);
-    else cp_async_commit();
-  }
-  for (int it = 0; tile < tiles; ++it, tile += gridDim.x) {
-    const int next = tile + (int)gridDim.x;
-    unsigned char* cur = smem + (it % G::NBUF) * G::a_bytes;
-    if constexpr (G::NBUF == 2) {
-      if (next < tiles) {
-        int b;
-        long long m0, me;
-        tm.at(next, G::BM, b, m0, me);
-        gather<C>(smem + ((it + 1) % 2) * G::a_bytes, src, m0, me, H, W, axis,
-                  dil);
-      } else {
-        cp_async_commit();
-      }
-      cp_async_wait_group<1>();
-    } else {
-      cp_async_wait_group<0>();
-    }
-    __syncthreads();
-
-    int b;
-    long long m0, m_end;
-    tm.at(tile, G::BM, b, m0, m_end);
-    float* Cs = reinterpret_cast<float*>(cur);
-    block_gemm<G::WM, G::WN, G::LDA, C, G::K>(
-        reinterpret_cast<const bf16*>(cur), Ws, Cs);
-    float s0[8], s1[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) s0[k] = s1[k] = 0.0f;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int r = r0 + i * RSTEP;
-      const long long m = m0 + r;
-      if (m >= m_end) break;  // rows grow with i
-      const float4* c = reinterpret_cast<const float4*>(Cs + r * G::LDC + j * 8);
-      const float4 c0 = c[0], c1 = c[1];
-      float acc[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
-      epi(m, b, j * 8, acc, s0, s1);
-    }
-    if constexpr (Epi::SUMS) {
-      __syncthreads();  // every read of Cs is done: reuse it as scratch
-      float* red = Cs;
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        red[r0 * 2 * C + j * 8 + k] = s0[k];
-        red[r0 * 2 * C + C + j * 8 + k] = s1[k];
-      }
-      __syncthreads();
-      for (int c = threadIdx.x; c < 2 * C; c += blockDim.x) {
-        float s = 0.0f;
-        for (int q = 0; q < RSTEP; ++q) s += red[q * 2 * C + c];
-        part[(long long)tile * 2 * C + c] = s;
-      }
-    }
-    __syncthreads();  // this buffer is read before a gather refills it
-    if constexpr (G::NBUF == 1) {
-      if (next < tiles) {
-        int nb;
-        long long n0, ne;
-        tm.at(next, G::BM, nb, n0, ne);
-        gather<C>(smem, src, n0, ne, H, W, axis, dil);
-      }
-    }
-  }
-  cp_async_wait_all();
+// The map pixel of image b at along p, across c.
+__device__ __forceinline__ long long geo_pixel(const Geo& g, int b, int p,
+                                               int c) {
+  return g.axis == 0 ? ((long long)b * g.n + p) * g.m + c
+                     : ((long long)b * g.m + c) * g.n + p;
 }
 
-__device__ __forceinline__ void load8(const bf16* p, float* v) {
-  unpack_bf16x8(__ldcg(reinterpret_cast<const uint4*>(p)), v);
+// Tile pixel q -> (i, a); false past the tile or the map.
+__device__ __forceinline__ bool tile_pixel(const Geo& g, const Tile& tl,
+                                           int q, int& i, int& a) {
+  i = q >> g.lg;
+  a = q & (g.TA - 1);
+  return i < g.L && tl.s0 + i < g.n && tl.a0 + a < g.m;
 }
 
-__device__ __forceinline__ void store8(bf16* p, const float* v) {
-  *reinterpret_cast<uint4*>(p) = pack_bf16x8(v);
+// Start copying tile tl's patch of the (B, H, W, C) bf16 map src into dst
+// (pitch LDK bf16), zero where a position is off the map (nothing is read
+// there).  Patch pixel px = j TA + a: consecutive threads copy consecutive
+// 16 bytes of a map row on the path's tiles (TA pixels of a row for the H
+// conv, TA = 1 for the W conv).
+template <int C, int LDK, int THREADS>
+__device__ __forceinline__ void stage_patch(bf16* dst, const bf16* src,
+                                            const Geo& g, const Tile& tl) {
+  constexpr int VK = C / 8;
+  const int npx = tl.ext << g.lg;
+  for (int v = threadIdx.x; v < npx * VK; v += THREADS) {
+    const int e = v % VK, px = v / VK;
+    const int j = px >> g.lg, c = tl.a0 + (px & (g.TA - 1));
+    const int p = g.band ? tl.s0 + j % g.L + (j / g.L - 1) * g.d : tl.lo + j;
+    const bool valid = p >= 0 && p < g.n && c < g.m;
+    const long long off = valid ? geo_pixel(g, tl.b, p, c) * C + e * 8 : 0;
+    cp_async16(dst + px * LDK + e * 8, src + off, valid);
+  }
+}
+
+// Tap t of tile pixel q = (i, a) reads patch pixel q + shift[t] where
+// lo[t] <= i < hi[t] (else the zero pixel): the tile's three views.
+struct Taps {
+  int shift[3], lo[3], hi[3];
+};
+
+__device__ __forceinline__ Taps taps_of(const Geo& g, const Tile& tl) {
+  Taps r;
+#pragma unroll
+  for (int t = 0; t < 3; ++t) {
+    const int off = tl.s0 + (t - 1) * g.d;  // along of (i = 0, tap t)
+    r.shift[t] = (g.band ? t * g.L : off - tl.lo) << g.lg;
+    r.lo[t] = -off;
+    r.hi[t] = g.n - off;
+  }
+  return r;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Two bf16 channels as loaded (packed) and of shared memory, as f32.
+__device__ __forceinline__ float2 bf2(unsigned u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+
+__device__ __forceinline__ float2 lds2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ void st2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// t1 = bf16(relu(acc + bh))
+// ldmatrix x4 (and .trans) from a shared-memory byte address: each lane
+// gives the row address of its own matrix row, so a row of a tap's view is
+// any patch pixel.
+__device__ __forceinline__ void ldsm4(unsigned (&r)[4], uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm4t(unsigned (&r)[4], uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// The conv's tile: BM pixels, a patch of at most CAP pixels (pitch LDK:
+// an odd multiple of 16 bytes, so any 8 consecutive patch pixels of an
+// ldmatrix fall on 8 bank groups), a ring of NS patches (NS - 1 in flight:
+// three at C = 64 and 128, four at C = 16, whose 256-pixel tiles move 8
+// KB each), the (3C x C) tap stack resident, a zero pixel, and the sums'
+// scratch: 113 KB at C = 64 (two CTAs an SM), 209 KB at C = 128 (one).
+// CAP holds the path's patches (C = 128: 64 x 2 and 1 x 128 pixels, C =
+// 64: 128 x 1 and 130 x 1).  Eight warps: C = 16 one column band (WN =
+// 16), C = 64 and 128 two; WM = 32 rows each.  minb(naux): the CTAs an SM
+// the launch bounds ask for; one where the epilogue prefetches naux maps
+// at C = 64 (16 registers each), so that they need not spill.
 template <int C>
-struct EpiReluBias {
-  static constexpr bool SUMS = false;
-  const float* bias;
-  bf16* out;
-  __device__ void operator()(long long m, int, int c0, float (&v)[8],
-                             float (&)[8], float (&)[8]) const {
-    float o[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) o[k] = fmaxf(v[k] + __ldg(bias + c0 + k), 0.0f);
-    store8(out + m * C + c0, o);
+struct Conv {
+  static constexpr int THREADS = 256, BM = C == 16 ? 256 : 128;
+  static constexpr int CAP = C == 16 ? 512 : C == 64 ? 192 : 128;
+  static constexpr int NS = C == 16 ? 4 : 3;
+  static constexpr int minb(int naux) {
+    return C == 128 || (C == 64 && naux > 0) ? 1 : 2;
+  }
+  static constexpr int TA_MIN = C == 16 ? 4 : 1;  // H conv: 128-byte runs
+  static constexpr int WCOLS = C == 16 ? 1 : 2, WROWS = 8 / WCOLS;
+  static constexpr int WN = C / WCOLS, WM = BM / WROWS;
+  static constexpr int MT = WM / 16, NT = WN / 8, LDK = C + 8;
+  static constexpr size_t patch_bytes = align128((size_t)CAP * LDK * 2);
+  static constexpr size_t w_off = NS * patch_bytes;
+  static constexpr size_t zero_off = w_off + align128((size_t)3 * C * LDK * 2);
+  static constexpr size_t red_off = zero_off + align128((size_t)LDK * 2);
+  static constexpr size_t smem = red_off + (size_t)WROWS * 2 * C * 4;
+  static_assert(WM % 16 == 0 && WN % 16 == 0 && CAP >= 3 * TA_MIN &&
+                    smem <= 232448,
+                "pair conv tile");
+};
+
+template <int C>
+Geo conv_geo(int H, int W, int axis, int d) {
+  using K = Conv<C>;
+  return make_geo(H, W, axis, d, K::BM, K::CAP, axis == 0 ? K::TA_MIN : 1);
+}
+
+// The epilogue's layout: after the product a lane holds, for each of its
+// rows, NG groups of E consecutive channels.  C = 64 and 128 (four or
+// more n8 tiles a warp): E = 8, the fragments of four n8 tiles transposed
+// across the four lanes of a quad (quad_gather), so that each lane's
+// loads and stores are 16 bytes; C = 16: E = 2, the fragment's own pair.
+template <int C>
+struct Epl {
+  using K = Conv<C>;
+  static constexpr int E = K::NT % 4 == 0 ? 8 : 2, NG = 2 * K::NT / E;
+  // the first channel of group x of lane
+  __device__ static int chan(int wn, int lane, int x) {
+    return wn * K::WN +
+           (E == 8 ? (4 * x + lane % 4) * 8 : x * 8 + 2 * (lane % 4));
   }
 };
 
-// z = bf16(acc + bw); with S: s0 += z, s1 += z^2 (of the rounded z)
-template <int C, bool S>
-struct EpiStats {
-  static constexpr bool SUMS = S;
-  const float* bias;
-  bf16* out;
-  __device__ void operator()(long long m, int, int c0, float (&v)[8],
-                             float (&s0)[8], float (&s1)[8]) const {
-    float o[8];
+__device__ __forceinline__ float pick4(float a, float b, float c, float d,
+                                       int i) {
+  return i & 2 ? (i & 1 ? d : c) : (i & 1 ? b : a);
+}
+
+// p[s] = this lane's pair (columns 2 (lane % 4), + 1) of n8 tile s of four;
+// v = the 8 columns of tile lane % 4, the pair of lane l at v[2 l]: a 4 x 4
+// transpose of pairs across the quad (three xor shuffles; every lane of
+// the warp calls it).
+__device__ __forceinline__ void quad_gather(const float (&p)[4][2],
+                                            float (&v)[8], int lane) {
+  const int tq = lane % 4;
+  float r[4][2];  // r[k]: the pair of lane tq ^ k
 #pragma unroll
-    for (int k = 0; k < 8; ++k) o[k] = round_bf16(v[k] + __ldg(bias + c0 + k));
-    store8(out + m * C + c0, o);
-    if constexpr (S) {
+  for (int c = 0; c < 2; ++c) {
+    r[0][c] = pick4(p[0][c], p[1][c], p[2][c], p[3][c], tq);
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        s0[k] += o[k];
-        s1[k] += __fmul_rn(o[k], o[k]);
+    for (int k = 1; k < 4; ++k)
+      r[k][c] = __shfl_xor_sync(
+          0xffffffffu, pick4(p[0][c], p[1][c], p[2][c], p[3][c], tq ^ k), k);
+  }
+#pragma unroll
+  for (int l = 0; l < 4; ++l)
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+      v[2 * l + c] = pick4(r[0][c], r[1][c], r[2][c], r[3][c], l ^ tq);
+}
+
+// E bf16 channels: from a map (read-only path), to floats, to a map
+// (rounded to nearest even), from shared memory.
+template <int E>
+__device__ __forceinline__ void ldg_bf16(const bf16* p, unsigned (&u)[E / 2]) {
+  if constexpr (E == 8) {
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+    u[0] = q.x, u[1] = q.y, u[2] = q.z, u[3] = q.w;
+  } else {
+    u[0] = __ldg(reinterpret_cast<const unsigned*>(p));
+  }
+}
+
+template <int E>
+__device__ __forceinline__ void unpack(const unsigned (&u)[E / 2],
+                                       float (&f)[E]) {
+#pragma unroll
+  for (int k = 0; k < E / 2; ++k) {
+    const float2 t = bf2(u[k]);
+    f[2 * k] = t.x;
+    f[2 * k + 1] = t.y;
+  }
+}
+
+template <int E>
+__device__ __forceinline__ void st_bf16(bf16* p, const float (&f)[E]) {
+  if constexpr (E == 8) {
+    *reinterpret_cast<uint4*>(p) = pack_bf16x8(f);
+  } else {
+    st2(p, f[0], f[1]);
+  }
+}
+
+template <int E>
+__device__ __forceinline__ void lds_bf16(const bf16* p, float (&f)[E]) {
+  if constexpr (E == 8) {
+    unpack_bf16x8(*reinterpret_cast<const uint4*>(p), f);
+  } else {
+    const float2 t = lds2(p);
+    f[0] = t.x;
+    f[1] = t.y;
+  }
+}
+
+// Add this thread's column sums over the CTA in a fixed order (the 8
+// lanes of a column by an xor tree, then the WROWS warps of a column band
+// in order) into dst[0, 2C) = [s0 | s1], and zero them.  s[x][k] is column
+// Epl::chan(wn, lane, x) + k.  Every thread calls it.
+template <int C>
+__device__ __forceinline__ void flush_sums(
+    float (&s0)[Epl<C>::NG][Epl<C>::E], float (&s1)[Epl<C>::NG][Epl<C>::E],
+    float* red, float* dst) {
+  using K = Conv<C>;
+  using P = Epl<C>;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / K::WCOLS, wn = warp % K::WCOLS;
+#pragma unroll
+  for (int x = 0; x < P::NG; ++x)
+#pragma unroll
+    for (int k = 0; k < P::E; ++k) {
+      float a = s0[x][k], b = s1[x][k];
+#pragma unroll
+      for (int o = 4; o < 32; o *= 2) {
+        a += __shfl_xor_sync(0xffffffffu, a, o);
+        b += __shfl_xor_sync(0xffffffffu, b, o);
+      }
+      if (lane < 4) {
+        const int col = P::chan(wn, lane, x) + k;
+        red[wm * 2 * C + col] = a;
+        red[wm * 2 * C + C + col] = b;
+      }
+      s0[x][k] = s1[x][k] = 0.0f;
+    }
+  __syncthreads();
+  for (int c = threadIdx.x; c < 2 * C; c += K::THREADS) {
+    float s = 0.0f;
+    for (int w = 0; w < K::WROWS; ++w) s += red[w * 2 * C + c];
+    dst[c] = s;
+  }
+  __syncthreads();
+}
+
+// One conv over this CTA's tiles (t = blockIdx.x, + gridDim.x, ...):
+// acc = sum_t view_t(patch) @ w[t]; then epi(pixel, b, c0, v, s0, s1,
+// centre, av) for every map pixel of the tile and each group of E
+// channels c0 .. c0 + E a lane holds (Epl; centre: the conv's input at
+// the pixel, tap 1 of the patch; av: the epilogue's Epi::NAUX maps there,
+// loaded before the product, which hides their latency).  The next tiles'
+// patches copy while this one multiplies (NS - 1 in flight).  With
+// Epi::SUMS the per-thread sums s0, s1 are added over the CTA's tiles and
+// stored by flush_sums: per (image, CTA) at part[(b gridDim.x + cta) 2C]
+// with Epi::PER_IMAGE (zero rows for the images the CTA has no tile of),
+// else per CTA at part[cta 2C].
+template <int C, class Epi>
+__device__ __forceinline__ void conv_tiles(unsigned char* smem,
+                                           const bf16* src, const bf16* w,
+                                           const Geo g, int B, const Epi& epi,
+                                           float* part) {
+  using K = Conv<C>;
+  using P = Epl<C>;
+  constexpr int E = P::E, NG = P::NG;
+  const int tiles = B * g.segs * g.ablk;
+  bf16* Ws = reinterpret_cast<bf16*>(smem + K::w_off);
+  bf16* zero = reinterpret_cast<bf16*>(smem + K::zero_off);
+  float* red = reinterpret_cast<float*>(smem + K::red_off);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / K::WCOLS, wn = warp % K::WCOLS;
+  for (int v = threadIdx.x; v < K::LDK / 8; v += K::THREADS)
+    reinterpret_cast<uint4*>(zero)[v] = zero_vec();
+  load_matrix(Ws, K::LDK, w, 3 * C, C);
+  auto patch = [&](int k) {
+    return reinterpret_cast<bf16*>(smem + (k % K::NS) * K::patch_bytes);
+  };
+  auto issue = [&](int k) {
+    const int t = blockIdx.x + k * (int)gridDim.x;
+    if (t < tiles)
+      stage_patch<C, K::LDK, K::THREADS>(patch(k), src, g, tile_at(g, t));
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int k = 0; k < K::NS - 1; ++k) issue(k);
+  const uint32_t zero_a = smem_addr(zero) + (lane / 16) * 16;
+  const uint32_t w_a =
+      smem_addr(Ws) + ((lane % 16) * K::LDK + wn * K::WN + (lane / 16) * 8) * 2;
+  float s0[NG][E], s1[NG][E];
+#pragma unroll
+  for (int x = 0; x < NG; ++x)
+#pragma unroll
+    for (int k = 0; k < E; ++k) s0[x][k] = s1[x][k] = 0.0f;
+  int cur = -1, next_img = 0;  // PER_IMAGE: the image in s0, s1; the next row
+  auto image_row = [&](int b) {
+    return part + ((long long)b * gridDim.x + blockIdx.x) * 2 * C;
+  };
+  auto zero_rows = [&](int from, int to) {
+    for (int b = from; b < to; ++b)
+      for (int c = threadIdx.x; c < 2 * C; c += K::THREADS) image_row(b)[c] = 0.0f;
+  };
+  for (int k = 0, t = blockIdx.x; t < tiles; ++k, t += gridDim.x) {
+    cp_async_wait_group<K::NS - 2>();
+    __syncthreads();  // tile k's patch is in; tile k - 1's reads are done
+    issue(k + K::NS - 1);
+    const Tile tl = tile_at(g, t);
+    if constexpr (Epi::SUMS && Epi::PER_IMAGE) {
+      if (tl.b != cur) {
+        if (cur >= 0) {
+          zero_rows(next_img, cur);
+          flush_sums<C>(s0, s1, red, image_row(cur));
+          next_img = cur + 1;
+        }
+        cur = tl.b;
       }
     }
+    const bf16* pt = patch(k);
+    const Taps tv = taps_of(g, tl);
+    const uint32_t pa = smem_addr(pt) + (lane / 16) * 16;
+    uint32_t a_addr[3][K::MT];
+#pragma unroll
+    for (int mt = 0; mt < K::MT; ++mt) {
+      int i, a;
+      const int q = wm * K::WM + mt * 16 + lane % 16;
+      const bool ok = tile_pixel(g, tl, q, i, a);
+#pragma unroll
+      for (int tp = 0; tp < 3; ++tp)
+        a_addr[tp][mt] = ok && i >= tv.lo[tp] && i < tv.hi[tp]
+                             ? pa + (q + tv.shift[tp]) * (K::LDK * 2)
+                             : zero_a;
+    }
+    // the fragments' rows: lane / 4 and + 8 of each m16 tile
+    constexpr int NA = Epi::NAUX > 0 ? Epi::NAUX : 1;
+    unsigned aux[K::MT][2][NG][NA][E / 2];
+    if constexpr (Epi::NAUX > 0) {
+#pragma unroll
+      for (int mt = 0; mt < K::MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          int i, a;
+          const bool ok = tile_pixel(
+              g, tl, wm * K::WM + mt * 16 + lane / 4 + 8 * h, i, a);
+          const long long pix =
+              ok ? geo_pixel(g, tl.b, tl.s0 + i, tl.a0 + a) * C : 0;
+#pragma unroll
+          for (int x = 0; x < NG; ++x)
+#pragma unroll
+            for (int y = 0; y < NA; ++y) {
+              if (ok)
+                ldg_bf16<E>(epi.aux(y) + pix + P::chan(wn, lane, x),
+                            aux[mt][h][x][y]);
+              else
+#pragma unroll
+                for (int z = 0; z < E / 2; ++z) aux[mt][h][x][y][z] = 0u;
+            }
+        }
+    }
+    float acc[K::MT][K::NT][4];
+#pragma unroll
+    for (int mt = 0; mt < K::MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < K::NT; ++nt)
+        acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.0f;
+#pragma unroll
+    for (int tp = 0; tp < 3; ++tp)
+#pragma unroll
+      for (int kk = 0; kk < C; kk += 16) {
+        unsigned af[K::MT][4];
+#pragma unroll
+        for (int mt = 0; mt < K::MT; ++mt) ldsm4(af[mt], a_addr[tp][mt] + kk * 2);
+#pragma unroll
+        for (int n = 0; n < K::WN / 16; ++n) {
+          unsigned bb[4];
+          ldsm4t(bb, w_a + ((tp * C + kk) * K::LDK + n * 16) * 2);
+#pragma unroll
+          for (int mt = 0; mt < K::MT; ++mt) {
+            mma_bf16_16816(acc[mt][2 * n], af[mt], bb[0], bb[1]);
+            mma_bf16_16816(acc[mt][2 * n + 1], af[mt], bb[2], bb[3]);
+          }
+        }
+      }
+    // the epilogue, from the fragments (every lane gathers: quad_gather
+    // shuffles across the quad, whose four lanes share a row)
+#pragma unroll
+    for (int mt = 0; mt < K::MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        int i, a;
+        const int q = wm * K::WM + mt * 16 + lane / 4 + 8 * h;
+        const bool ok = tile_pixel(g, tl, q, i, a);
+        const long long pix =
+            ok ? geo_pixel(g, tl.b, tl.s0 + i, tl.a0 + a) : 0;
+        const bf16* ctr = pt + (q + tv.shift[1]) * K::LDK;
+#pragma unroll
+        for (int x = 0; x < NG; ++x) {
+          float v[E];
+          if constexpr (E == 8) {
+            float p4[4][2];
+#pragma unroll
+            for (int s = 0; s < 4; ++s) {
+              p4[s][0] = acc[mt][4 * x + s][2 * h];
+              p4[s][1] = acc[mt][4 * x + s][2 * h + 1];
+            }
+            quad_gather(p4, v, lane);
+          } else {
+            v[0] = acc[mt][x][2 * h];
+            v[1] = acc[mt][x][2 * h + 1];
+          }
+          const int c0 = P::chan(wn, lane, x);
+          if (ok)
+            epi(pix, tl.b, c0, v, s0[x], s1[x], ctr + c0, aux[mt][h][x]);
+        }
+      }
+  }
+  if constexpr (Epi::SUMS) {
+    if constexpr (Epi::PER_IMAGE) {
+      if (cur >= 0) {
+        zero_rows(next_img, cur);
+        flush_sums<C>(s0, s1, red, image_row(cur));
+        next_img = cur + 1;
+      }
+      zero_rows(next_img, B);
+    } else {
+      flush_sums<C>(s0, s1, red, part + (long long)blockIdx.x * 2 * C);
+    }
+  }
+  cp_async_wait_all();
+}
+
+// The epilogues, on E channels c0 .. c0 + E of map pixel m: v the sums,
+// av[y] the NAUX maps prefetched there (aux(y), bf16 pairs packed), ctr
+// the conv's input there (shared memory).
+// t1 = bf16(relu(acc + bh))
+template <int C>
+struct EpiReluBias {
+  static constexpr bool SUMS = false, PER_IMAGE = false;
+  static constexpr int NAUX = 0, E = Epl<C>::E;
+  const float* bias;
+  bf16* out;
+  __device__ const bf16* aux(int) const { return nullptr; }
+  __device__ void operator()(long long m, int, int c0, float (&v)[E],
+                             float (&)[E], float (&)[E], const bf16*,
+                             const unsigned (&)[1][E / 2]) const {
+#pragma unroll
+    for (int k = 0; k < E; ++k) v[k] = fmaxf(v[k] + __ldg(bias + c0 + k), 0.0f);
+    st_bf16<E>(out + m * C + c0, v);
+  }
+};
+
+// z = bf16(acc + bw); with S: s0 += z, s1 += z^2 (of the rounded z), per
+// image
+template <int C, bool S>
+struct EpiStats {
+  static constexpr bool SUMS = S, PER_IMAGE = true;
+  static constexpr int NAUX = 0, E = Epl<C>::E;
+  const float* bias;
+  bf16* out;
+  __device__ const bf16* aux(int) const { return nullptr; }
+  __device__ void operator()(long long m, int, int c0, float (&v)[E],
+                             float (&s0)[E], float (&s1)[E], const bf16*,
+                             const unsigned (&)[1][E / 2]) const {
+#pragma unroll
+    for (int k = 0; k < E; ++k) {
+      v[k] = round_bf16(v[k] + __ldg(bias + c0 + k));
+      if constexpr (S) {
+        s0[k] += v[k];
+        s1[k] += __fmul_rn(v[k], v[k]);
+      }
+    }
+    st_bf16<E>(out + m * C + c0, v);
   }
 };
 
 // dz1 = acc [t1 > 0] -> bf16; s0 += dz1 (f32, before rounding), s1 += g
+// (g: the conv's input at the pixel, from the patch)
 template <int C>
 struct EpiDz1 {
-  static constexpr bool SUMS = true;
+  static constexpr bool SUMS = true, PER_IMAGE = false;
+  static constexpr int NAUX = 1, E = Epl<C>::E;
   const bf16* t1;
-  const bf16* g;
   bf16* out;
-  __device__ void operator()(long long m, int, int c0, float (&v)[8],
-                             float (&s0)[8], float (&s1)[8]) const {
-    float tv[8], gv[8];
-    load8(t1 + m * C + c0, tv);
-    load8(g + m * C + c0, gv);
+  __device__ const bf16* aux(int) const { return t1; }
+  __device__ void operator()(long long m, int, int c0, float (&v)[E],
+                             float (&s0)[E], float (&s1)[E], const bf16* ctr,
+                             const unsigned (&av)[1][E / 2]) const {
+    float tv[E], gv[E];
+    unpack<E>(av[0], tv);
+    lds_bf16<E>(ctr, gv);
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
+    for (int k = 0; k < E; ++k) {
       v[k] = tv[k] > 0.0f ? v[k] : 0.0f;
       s0[k] += v[k];
       s1[k] += gv[k];
     }
-    store8(out + m * C + c0, v);
+    st_bf16<E>(out + m * C + c0, v);
   }
 };
 
@@ -319,10 +723,17 @@ enum Lead { NONE = 0, AFFINE = 1, EPI = 2, RELU = 3 };
 
 constexpr bool lead_sums(int mode) { return mode == AFFINE || mode == EPI; }
 
-// the lead stage's backward from dt0 = acc (see the file comment)
+constexpr int lead_maps(int mode) {
+  return mode == EPI ? 3 : mode == AFFINE ? 2 : mode == RELU ? 1 : 0;
+}
+
+// the lead stage's backward from dt0 = acc (see the file comment); the
+// prefetched maps: relu the mask; affine x, the mask; epi x, the mask, gy
 template <int C, int MODE>
 struct EpiLeadBwd {
-  static constexpr bool SUMS = lead_sums(MODE);
+  static constexpr bool SUMS = lead_sums(MODE), PER_IMAGE = false;
+  static constexpr int NAUX = lead_maps(MODE), E = Epl<C>::E;
+  static constexpr int NA = NAUX > 0 ? NAUX : 1;
   const bf16* x;      // affine: x; epi: t
   const bf16* mask;   // affine: t0; epi: y_next; relu: x
   const bf16* gy;     // epi
@@ -330,78 +741,82 @@ struct EpiLeadBwd {
   const float* a;     // f32 (C,)
   bf16* out;          // dx (none, affine) or dt (epi)
   bf16* out2;         // epi: dy_res
-  __device__ void operator()(long long m, int b, int c0, float (&v)[8],
-                             float (&s0)[8], float (&s1)[8]) const {
+  __device__ const bf16* aux(int k) const {
+    if constexpr (MODE == RELU) return mask;
+    return k == 0 ? x : k == 1 ? mask : gy;
+  }
+  __device__ void operator()(long long m, int b, int c0, float (&v)[E],
+                             float (&s0)[E], float (&s1)[E], const bf16*,
+                             const unsigned (&av)[NA][E / 2]) const {
     if constexpr (MODE == NONE) {
-      store8(out + m * C + c0, v);
+      st_bf16<E>(out + m * C + c0, v);
     } else if constexpr (MODE == RELU) {
-      float mv[8];
-      load8(mask + m * C + c0, mv);
+      float mv[E];
+      unpack<E>(av[0], mv);
 #pragma unroll
-      for (int k = 0; k < 8; ++k) v[k] = mv[k] > 0.0f ? v[k] : 0.0f;
-      store8(out + m * C + c0, v);
+      for (int k = 0; k < E; ++k) v[k] = mv[k] > 0.0f ? v[k] : 0.0f;
+      st_bf16<E>(out + m * C + c0, v);
     } else {
-      float xv[8], mv[8], o[8];
-      load8(x + m * C + c0, xv);
-      load8(mask + m * C + c0, mv);
+      float xv[E], mv[E];
+      unpack<E>(av[0], xv);
+      unpack<E>(av[1], mv);
       if constexpr (MODE == EPI) {
-        float gv[8];
-        load8(gy + m * C + c0, gv);
+        float gv[E];
+        unpack<E>(av[2], gv);
 #pragma unroll
-        for (int k = 0; k < 8; ++k) v[k] = mv[k] > 0.0f ? v[k] + gv[k] : 0.0f;
-        store8(out2 + m * C + c0, v);
+        for (int k = 0; k < E; ++k) v[k] = mv[k] > 0.0f ? v[k] + gv[k] : 0.0f;
+        st_bf16<E>(out2 + m * C + c0, v);
 #pragma unroll
-        for (int k = 0; k < 8; ++k) v[k] = v[k] * __ldg(drop + b * C + c0 + k);
+        for (int k = 0; k < E; ++k) v[k] = v[k] * __ldg(drop + b * C + c0 + k);
       } else {
 #pragma unroll
-        for (int k = 0; k < 8; ++k) v[k] = mv[k] > 0.0f ? v[k] : 0.0f;
+        for (int k = 0; k < E; ++k) v[k] = mv[k] > 0.0f ? v[k] : 0.0f;
       }
+      float o[E];
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
+      for (int k = 0; k < E; ++k) {
         o[k] = v[k] * __ldg(a + c0 + k);
         s0[k] += __fmul_rn(v[k], xv[k]);
         s1[k] += v[k];
       }
-      store8(out + m * C + c0, o);
+      st_bf16<E>(out + m * C + c0, o);
     }
   }
 };
 
 template <int C>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(256, Conv<C>::minb(0))
 fwd_h_kernel(const bf16* t0, const bf16* __restrict__ w,
-             const float* __restrict__ bias, bf16* t1, int B, int H, int W,
-             int dh) {
+             const float* __restrict__ bias, bf16* t1, Geo g, int B) {
   extern __shared__ __align__(128) unsigned char smem[];
-  conv_tiles<C>(smem, t0, w, B, H, W, 0, dh, EpiReluBias<C>{bias, t1},
-                nullptr);
+  conv_tiles<C>(smem, t0, w, g, B, EpiReluBias<C>{bias, t1}, nullptr);
 }
 
 template <int C, bool S>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(256, Conv<C>::minb(0))
 fwd_w_kernel(const bf16* t1, const bf16* __restrict__ w,
-             const float* __restrict__ bias, bf16* z, float* part, int B,
-             int H, int W, int dw) {
+             const float* __restrict__ bias, bf16* z, float* part, Geo g,
+             int B) {
   extern __shared__ __align__(128) unsigned char smem[];
-  conv_tiles<C>(smem, t1, w, B, H, W, 1, dw, EpiStats<C, S>{bias, z}, part);
+  conv_tiles<C>(smem, t1, w, g, B, EpiStats<C, S>{bias, z}, part);
 }
 
 template <int C>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(256, Conv<C>::minb(1))
 bwd_w_kernel(const bf16* g, const bf16* __restrict__ wt, const bf16* t1,
-             bf16* dz1, float* part, int B, int H, int W, int dw) {
+             bf16* dz1, float* part, Geo geo, int B) {
   extern __shared__ __align__(128) unsigned char smem[];
-  conv_tiles<C>(smem, g, wt, B, H, W, 1, dw, EpiDz1<C>{t1, g, dz1}, part);
+  conv_tiles<C>(smem, g, wt, geo, B, EpiDz1<C>{t1, dz1}, part);
 }
 
 template <int C, int MODE>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(256, Conv<C>::minb(lead_maps(MODE)))
 bwd_h_kernel(const bf16* dz1, const bf16* __restrict__ wt, const bf16* x,
              const bf16* mask, const bf16* gy, const float* drop,
-             const float* a, bf16* out, bf16* out2, float* part, int B, int H,
-             int W, int dh) {
+             const float* a, bf16* out, bf16* out2, float* part, Geo g,
+             int B) {
   extern __shared__ __align__(128) unsigned char smem[];
-  conv_tiles<C>(smem, dz1, wt, B, H, W, 0, dh,
+  conv_tiles<C>(smem, dz1, wt, g, B,
                 EpiLeadBwd<C, MODE>{x, mask, gy, drop, a, out, out2}, part);
 }
 
@@ -455,88 +870,239 @@ lead_relu_kernel(const T* __restrict__ x, T* __restrict__ t0, long long n8) {
   const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (v >= n8) return;
   float o[8];
-  erfk::load8(x + v * 8, o);  // both dtypes (the local load8 is bf16)
+  load8(x + v * 8, o);  // both dtypes
 #pragma unroll
   for (int k = 0; k < 8; ++k) o[k] = fmaxf(o[k], 0.0f);
   store_vec8(t0 + v * 8, o);
 }
 
-// Weight gradients: blockIdx.y = 0..2: dwh[k] = shift_h(t0, k)^T dz1;
-// 3..5: dww[k] = shift_w(t1, k)^T g.  blockIdx.x = a chunk of CHUNK
-// pixels; its (C x C) partial goes to part[chunk][y].
-constexpr int CHUNK = 2048;
+// Weight gradients on a (pixel chunk, axis) grid: blockIdx.y = axis
+// NSPLIT + split, axis 0: dwh[k] = shift_h(t0, k)^T dz1, axis 1: dww[k] =
+// shift_w(t1, k)^T g, for k = 0, 1, 2 and the output columns [split NC,
+// + NC); blockIdx.x = a chunk of the axis's tiles (the conv's tiling at BP
+// pixels a tile).  Per tile the CTA stages the G rows of its pixels
+// (dz1 or g, its NC columns) and the A patch along the axis (t0 or t1, all
+// C channels) once, and forms the three taps as shifted views of the
+// patch (ldmatrix.trans of each lane's own pixel row), so a chunk reads
+// each input pixel once (the halo of a tile that does not span the axis
+// once more).  The tiles stream through a ring of NS stages (NS - 1 in
+// flight, no wait for all copies between tiles).  256 threads; the three
+// (C x NC) f32 accumulators of a CTA:
+// * C = 16: eight groups of one warp on alternate 16-pixel steps, their
+//   sums added in group order at the end (24 registers a thread); tiles
+//   of 256 pixels, three stages, two CTAs an SM.
+// * C = 64: two groups of four warps, each warp 16 input x 64 output
+//   channels of the three taps (96 registers; 3 + 4 ldmatrix for 24
+//   mma.sync a 16-pixel step); tiles of 256 pixels (the H axis' 128 x 2,
+//   the W axis' 1 x 256: no halo), two stages, one CTA an SM.
+// * C = 128: the output columns split in four (NSPLIT = 4), each warp 32
+//   x 16 (48 registers), tiles of 128 pixels, two stages, two CTAs an SM:
+//   each quarter stages the whole A patch and its quarter of G, so A
+//   crosses L2 four times and G once.
+// Chunks = the resident CTAs / (2 NSPLIT), at most 9 MiB of partials: one
+// wave (at C = 128 the cap leaves 24 chunks, 192 of 264 CTA slots).  The
+// partial of (chunk, axis, tap) goes to part[chunk][axis 3 + k][C][C].
+// Its time is the sum of its copies and its product, which overlap little
+// (other splits and CTA counts, a fourth stage and bulk copies a pixel
+// were tried and were no faster: PERF.md).
+template <int C>
+struct Wg {
+  static constexpr int THREADS = 256;
+  static constexpr int NSPLIT = C == 128 ? 4 : 1, NC = C / NSPLIT;
+  static constexpr int BP = C == 128 ? 128 : 256;
+  static constexpr int CAP = C == 16 ? 512 : C == 64 ? 320 : 128;
+  static constexpr int NS = C == 16 ? 3 : 2, MINB = C == 64 ? 1 : 2;
+  static constexpr int WM = C == 128 ? 32 : 16;
+  static constexpr int WN = C == 16 ? 16 : C == 64 ? 64 : 16;
+  static constexpr int WGM = C / WM, WGN = NC / WN;
+  static constexpr int WARPS_K = THREADS / 32 / (WGM * WGN);
+  static constexpr int MT = WM / 16, NT = WN / 8;
+  static constexpr int LDA = C + 8, LDG = NC + 8, VG = NC / 8;
+  static constexpr size_t patch_bytes = align128((size_t)CAP * LDA * 2);
+  static constexpr size_t stage_bytes =
+      patch_bytes + align128((size_t)BP * LDG * 2);
+  static constexpr size_t zero_off = NS * stage_bytes;
+  static constexpr size_t smem = zero_off + align128((size_t)LDA * 2);
+  static constexpr size_t red_bytes = (size_t)WARPS_K * 3 * C * NC * 4;
+  static_assert(WGM * WGN * WARPS_K * 32 == THREADS &&
+                    BP % (16 * WARPS_K) == 0 && red_bytes <= zero_off &&
+                    smem <= 232448,
+                "pair weight gradient");
+};
 
 template <int C>
-struct WgPick;
-template <>
-struct WgPick<16> {
-  using Q = WgCfg<16, 16, 16, 16>;
-  static constexpr int WM = 16, WN = 16;
-};
-template <>
-struct WgPick<64> {
-  using Q = WgCfg<64, 64, 16, 32>;
-  static constexpr int WM = 16, WN = 32;
-};
-template <>
-struct WgPick<128> {
-  using Q = WgCfg<128, 128, 32, 64>;
-  static constexpr int WM = 32, WN = 64;
-};
+Geo wg_geo(int H, int W, int axis, int d) {
+  using Q = Wg<C>;
+  return make_geo(H, W, axis, d, Q::BP, Q::CAP,
+                  axis == 0 ? Conv<C>::TA_MIN : 1);
+}
 
 template <int C>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(Wg<C>::THREADS, Wg<C>::MINB)
 wgrad_kernel(const bf16* __restrict__ t0, const bf16* __restrict__ dz1,
              const bf16* __restrict__ t1, const bf16* __restrict__ g,
-             float* __restrict__ part, int B, int H, int W, int dh, int dw) {
-  using P = WgPick<C>;
-  using Q = typename P::Q;
+             float* __restrict__ part, Geo gh, Geo gw, int B, int chunks) {
+  using Q = Wg<C>;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Gs = reinterpret_cast<bf16*>(smem + Q::a_bytes);
-  const int y = blockIdx.y;
-  const int axis = y < 3 ? 0 : 1, tap = y % 3;
-  const bf16* A = y < 3 ? t0 : t1;
-  const bf16* Gm = y < 3 ? dz1 : g;
-  const int off = (tap - 1) * (axis == 0 ? dh : dw);
-  const int step = axis == 0 ? W : 1, lim = axis == 0 ? H : W;
-  const long long P_ = (long long)B * H * W;
-  const long long p_begin = (long long)blockIdx.x * CHUNK;
-  const long long p_stop = p_begin + CHUNK < P_ ? p_begin + CHUNK : P_;
-  constexpr int VPT = C / 8;
-
-  float acc[Q::MT][Q::NT][4];
-#pragma unroll
-  for (int m = 0; m < Q::MT; ++m)
-#pragma unroll
-    for (int n = 0; n < Q::NT; ++n)
-      acc[m][n][0] = acc[m][n][1] = acc[m][n][2] = acc[m][n][3] = 0.0f;
-
-  for (long long p0 = p_begin; p0 < p_stop; p0 += Q::BP) {
-    for (int v = threadIdx.x; v < Q::BP * VPT; v += blockDim.x) {
-      const int r = v / VPT, jv = v % VPT;
-      const long long p = p0 + r;
-      const bool in = p < p_stop;
-      const int pos = axis == 0 ? (int)((p / W) % H) : (int)(p % W);
-      const bool valid = in && pos + off >= 0 && pos + off < lim;
-      const long long src = valid ? p + (long long)off * step : 0;
-      cp_async16(As + r * Q::LDA + jv * 8, A + src * C + jv * 8, valid);
-      cp_async16(Gs + r * Q::LDG + jv * 8, Gm + (in ? p : 0) * C + jv * 8, in);
+  const int axis = blockIdx.y / Q::NSPLIT, split = blockIdx.y % Q::NSPLIT;
+  const Geo geo = axis ? gw : gh;
+  const bf16* A = axis ? t1 : t0;
+  const bf16* G = axis ? g : dz1;
+  const long long T = (long long)B * geo.segs * geo.ablk;
+  const int k0 = (int)(T * blockIdx.x / chunks);
+  const int k1 = (int)(T * (blockIdx.x + 1) / chunks);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wk = warp / (Q::WGM * Q::WGN), wmn = warp % (Q::WGM * Q::WGN);
+  const int wm = wmn / Q::WGN, wn = wmn % Q::WGN;
+  bf16* zero = reinterpret_cast<bf16*>(smem + Q::zero_off);
+  for (int v = threadIdx.x; v < Q::LDA / 8; v += Q::THREADS)
+    reinterpret_cast<uint4*>(zero)[v] = zero_vec();
+  auto stage = [&](int k) { return smem + (k % Q::NS) * Q::stage_bytes; };
+  auto issue = [&](int k) {
+    if (k0 + k < k1) {
+      const Tile tl = tile_at(geo, k0 + k);
+      unsigned char* st = stage(k);
+      stage_patch<C, Q::LDA, Q::THREADS>(reinterpret_cast<bf16*>(st), A, geo,
+                                         tl);
+      bf16* Gs = reinterpret_cast<bf16*>(st + Q::patch_bytes);
+      for (int v = threadIdx.x; v < Q::BP * Q::VG; v += Q::THREADS) {
+        const int e = v % Q::VG, q = v / Q::VG;
+        int i, a;
+        const bool valid = tile_pixel(geo, tl, q, i, a);
+        const long long off =
+            valid ? geo_pixel(geo, tl.b, tl.s0 + i, tl.a0 + a) * C +
+                        split * Q::NC + e * 8
+                  : 0;
+        cp_async16(Gs + q * Q::LDG + e * 8, G + off, valid);
+      }
     }
-    cp_async_wait_all();
-    __syncthreads();
-    wgrad_step<C, C, P::WM, P::WN>(As, Gs, acc);
-    __syncthreads();
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int k = 0; k < Q::NS - 1; ++k) issue(k);
+  float acc[3][Q::MT][Q::NT][4];
+#pragma unroll
+  for (int tp = 0; tp < 3; ++tp)
+#pragma unroll
+    for (int mt = 0; mt < Q::MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < Q::NT; ++nt)
+        acc[tp][mt][nt][0] = acc[tp][mt][nt][1] = acc[tp][mt][nt][2] =
+            acc[tp][mt][nt][3] = 0.0f;
+  // A (ldmatrix.trans): this lane's pixel row of a 16-pixel step and its
+  // 8 channels; G: row lane % 16, column half lane / 16
+  const int r = (lane % 8) + (lane / 16) * 8;
+  const uint32_t col_a = (wm * Q::WM + ((lane / 8) % 2) * 8) * 2;
+  const uint32_t zero_a = smem_addr(zero) + col_a;
+  for (int k = 0; k0 + k < k1; ++k) {
+    cp_async_wait_group<Q::NS - 2>();
+    __syncthreads();  // tile k is in; tile k - 1's reads are done
+    issue(k + Q::NS - 1);
+    const Tile tl = tile_at(geo, k0 + k);
+    const Taps tv = taps_of(geo, tl);
+    const unsigned char* st = stage(k);
+    const uint32_t pa = smem_addr(st) + col_a;
+    const uint32_t ga =
+        smem_addr(st + Q::patch_bytes) +
+        ((lane % 16) * Q::LDG + wn * Q::WN + (lane / 16) * 8) * 2;
+#pragma unroll
+    for (int ks = 0; ks < Q::BP / 16; ++ks) {
+      if (ks % Q::WARPS_K != wk) continue;
+      int i, a;
+      const int q = ks * 16 + r;
+      const bool ok = tile_pixel(geo, tl, q, i, a);
+      uint32_t ta[3];
+#pragma unroll
+      for (int tp = 0; tp < 3; ++tp)
+        ta[tp] = ok && i >= tv.lo[tp] && i < tv.hi[tp]
+                     ? pa + (q + tv.shift[tp]) * (Q::LDA * 2)
+                     : zero_a;
+      unsigned bb[Q::WN / 16][4];
+#pragma unroll
+      for (int n = 0; n < Q::WN / 16; ++n)
+        ldsm4t(bb[n], ga + (ks * 16 * Q::LDG + n * 16) * 2);
+#pragma unroll
+      for (int tp = 0; tp < 3; ++tp)
+#pragma unroll
+        for (int mt = 0; mt < Q::MT; ++mt) {
+          unsigned af[4];
+          ldsm4t(af, ta[tp] + mt * 16 * 2);
+#pragma unroll
+          for (int n = 0; n < Q::WN / 16; ++n) {
+            mma_bf16_16816(acc[tp][mt][2 * n], af, bb[n][0], bb[n][1]);
+            mma_bf16_16816(acc[tp][mt][2 * n + 1], af, bb[n][2], bb[n][3]);
+          }
+        }
+    }
   }
-  float* dst = part + ((long long)blockIdx.x * 6 + y) * C * C;
-  wgrad_store<C, C, P::WM, P::WN>(acc, reinterpret_cast<float*>(smem), dst, C,
-                                  C);
+  cp_async_wait_all();
+  // thread (lane / 4, lane % 4): rows (input channels) lane / 4 and + 8 of
+  // each m16 tile, columns 2 (lane % 4) and + 1 of each n8 tile; with
+  // several groups their sums are added in group order through shared
+  // memory (the dead stages)
+  const int gq = lane / 4, tq = lane % 4;
+  float* dst0 = part + ((long long)blockIdx.x * 6 + axis * 3) * C * C +
+                split * Q::NC;
+  if constexpr (Q::WARPS_K == 1) {
+#pragma unroll
+    for (int tp = 0; tp < 3; ++tp)
+#pragma unroll
+      for (int mt = 0; mt < Q::MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < Q::NT; ++nt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = wm * Q::WM + mt * 16 + gq + 8 * h;
+            const int col = wn * Q::WN + nt * 8 + 2 * tq;
+            *reinterpret_cast<float2*>(dst0 + ((long long)tp * C + row) * C +
+                                       col) =
+                make_float2(acc[tp][mt][nt][2 * h], acc[tp][mt][nt][2 * h + 1]);
+          }
+    return;
+  }
+  float* red = reinterpret_cast<float*>(smem);
+  __syncthreads();  // every warp is done with the stages
+#pragma unroll
+  for (int tp = 0; tp < 3; ++tp)
+#pragma unroll
+    for (int mt = 0; mt < Q::MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < Q::NT; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = wm * Q::WM + mt * 16 + gq + 8 * h;
+          const int col = wn * Q::WN + nt * 8 + 2 * tq;
+          *reinterpret_cast<float2*>(
+              red + ((wk * 3 + tp) * C + row) * Q::NC + col) =
+              make_float2(acc[tp][mt][nt][2 * h], acc[tp][mt][nt][2 * h + 1]);
+        }
+  __syncthreads();
+  for (int e = threadIdx.x; e < 3 * C * Q::NC; e += Q::THREADS) {
+    float s = 0.0f;
+    for (int w = 0; w < Q::WARPS_K; ++w) s += red[w * 3 * C * Q::NC + e];
+    const int tp = e / (C * Q::NC), row = (e / Q::NC) % C, col = e % Q::NC;
+    dst0[((long long)tp * C + row) * C + col] = s;
+  }
 }
 
 
 // ---------------------------------------------------------------------------
 // f32 forms
 // ---------------------------------------------------------------------------
+
+// tile -> pixels [m0, m_end) of image b: tiles never straddle two images,
+// so a tile's partial sums belong to one image.
+struct TileMap {
+  int HW, TPI;
+  __device__ __forceinline__ void at(int tile, int bm, int& b, long long& m0,
+                                     long long& m_end) const {
+    b = tile / TPI;
+    const int local = tile % TPI;
+    m0 = (long long)b * HW + (long long)local * bm;
+    const long long e = (long long)b * HW + HW;
+    m_end = m0 + bm < e ? m0 + bm : e;
+  }
+};
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
@@ -814,8 +1380,10 @@ bwd_h_f32_kernel(const float* dz1, const float* __restrict__ wt,
 }
 
 // Weight gradients, f32: blockIdx.y = 0..2: dwh[k] = shift_h(t0, k)^T dz1;
-// 3..5: dww[k] = shift_w(t1, k)^T g; blockIdx.x = a chunk of CHUNK
+// 3..5: dww[k] = shift_w(t1, k)^T g; blockIdx.x = a chunk of CHUNK_F32
 // pixels; its (C x C) partial goes to part[chunk][y].
+constexpr int CHUNK_F32 = 2048;
+
 template <int C>
 struct PairWg32 {
   static constexpr int TM = C == 128 ? 8 : 4, TN = TM;
@@ -841,8 +1409,9 @@ wgrad_f32_kernel(const float* __restrict__ t0, const float* __restrict__ dz1,
   const int off = (tap - 1) * (axis == 0 ? dh : dw);
   const int step = axis == 0 ? W : 1, lim = axis == 0 ? H : W;
   const long long P_ = (long long)B * H * W;
-  const long long p_begin = (long long)blockIdx.x * CHUNK;
-  const long long p_stop = p_begin + CHUNK < P_ ? p_begin + CHUNK : P_;
+  const long long p_begin = (long long)blockIdx.x * CHUNK_F32;
+  const long long p_stop =
+      p_begin + CHUNK_F32 < P_ ? p_begin + CHUNK_F32 : P_;
   constexpr int VPT = C / 4;
   float acc[S::TM][S::TN];
   zero_tile(acc);
@@ -915,19 +1484,73 @@ lead_epi_f32_kernel(const float* __restrict__ t,
 
 // ------------------------------- launchers --------------------------------
 
+// Resident CTAs of a conv kernel (its shared memory allowed first): the
+// grid of its persistent CTAs and the number of its partial rows; a CUDA
+// error as a negative number.
 template <int C, class Kernel>
-cudaError_t prep(Kernel k, bool* smem_ok, int* grid_max) {
-  using G = Cfg<C>;
-  cudaError_t e = allow_smem(k, G::smem, smem_ok);
-  if (e != cudaSuccess) return e;
-  if (*grid_max == 0) return resident_ctas(k, G::THREADS, G::smem, grid_max);
-  return cudaSuccess;
+int conv_ctas(Kernel k) {
+  bool ok = false;
+  int gm = 0;
+  cudaError_t e = allow_smem(k, Conv<C>::smem, &ok);
+  if (e == cudaSuccess)
+    e = resident_ctas(k, Conv<C>::THREADS, Conv<C>::smem, &gm);
+  return e == cudaSuccess ? gm : -(int)e;
 }
 
-template <int C>
-int conv_grid(int B, int H, int W, int grid_max) {
-  const int tiles = B * ((H * W + Cfg<C>::BM - 1) / Cfg<C>::BM);
+int grid_of(const Geo& g, int B, int grid_max) {
+  const int tiles = B * g.segs * g.ablk;
   return tiles < grid_max ? tiles : grid_max;
+}
+
+cudaError_t bad_grid(int gm) {
+  return gm < 0 ? (cudaError_t)-gm : cudaErrorInvalidConfiguration;
+}
+
+// Rows of statistic partials a bf16 conv of this C may write: the most
+// resident CTAs of the kernels that write them.
+template <int C>
+int part_rows() {
+  static const int rows = [] {
+    const int r[4] = {conv_ctas<C>(fwd_w_kernel<C, true>),
+                      conv_ctas<C>(bwd_w_kernel<C>),
+                      conv_ctas<C>(bwd_h_kernel<C, AFFINE>),
+                      conv_ctas<C>(bwd_h_kernel<C, EPI>)};
+    int m = r[0];
+    for (int v : r) {
+      if (v <= 0) return v;
+      m = v > m ? v : m;
+    }
+    return m;
+  }();
+  return rows;
+}
+
+// The weight gradient's chunks a axis: one wave of its CTAs on this
+// device, at most WG_PART_BYTES of partials and at most the tiles of
+// either axis; a CUDA error as a negative number.
+constexpr long long WG_PART_BYTES = 9LL << 20;
+
+template <int C>
+int wg_chunks(int B, int H, int W, int dh, int dw) {
+  using Q = Wg<C>;
+  static const int ctas = [] {
+    bool ok = false;
+    int gm = 0;
+    cudaError_t e = allow_smem(wgrad_kernel<C>, Q::smem, &ok);
+    if (e == cudaSuccess)
+      e = resident_ctas(wgrad_kernel<C>, Q::THREADS, Q::smem, &gm);
+    return e == cudaSuccess ? gm : -(int)e;
+  }();
+  if (ctas <= 0) return ctas;
+  const Geo gh = wg_geo<C>(H, W, 0, dh), gw = wg_geo<C>(H, W, 1, dw);
+  long long n = ctas / (2 * Q::NSPLIT);
+  const long long cap = WG_PART_BYTES / (24LL * C * C);
+  const long long th = (long long)B * gh.segs * gh.ablk;
+  const long long tw = (long long)B * gw.segs * gw.ablk;
+  n = n < cap ? n : cap;
+  n = n < th ? n : th;
+  n = n < tw ? n : tw;
+  return n > 0 ? (int)n : 1;
 }
 
 // S: with the statistics (part and their reduction into stats)
@@ -935,43 +1558,43 @@ template <int C, bool S>
 int fwd(const void* t0, const void* wh, const void* bh, const void* ww,
         const void* bw, void* t1, void* z, void* part, void* stats, int B,
         int H, int W, int dh, int dw, cudaStream_t s) {
-  using G = Cfg<C>;
-  static bool ok_h = false, ok_w = false;
-  static int gm_h = 0, gm_w = 0;
-  cudaError_t e = prep<C>(fwd_h_kernel<C>, &ok_h, &gm_h);
-  if (e == cudaSuccess) e = prep<C>(fwd_w_kernel<C, S>, &ok_w, &gm_w);
-  if (e != cudaSuccess) return e;
-  fwd_h_kernel<C><<<conv_grid<C>(B, H, W, gm_h), G::THREADS, G::smem, s>>>(
+  using K = Conv<C>;
+  static const int gm_h = conv_ctas<C>(fwd_h_kernel<C>);
+  static const int gm_w = conv_ctas<C>(fwd_w_kernel<C, S>);
+  if (gm_h <= 0) return bad_grid(gm_h);
+  if (gm_w <= 0) return bad_grid(gm_w);
+  const Geo gh = conv_geo<C>(H, W, 0, dh), gw = conv_geo<C>(H, W, 1, dw);
+  fwd_h_kernel<C><<<grid_of(gh, B, gm_h), K::THREADS, K::smem, s>>>(
       static_cast<const bf16*>(t0), static_cast<const bf16*>(wh),
-      static_cast<const float*>(bh), static_cast<bf16*>(t1), B, H, W, dh);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  fwd_w_kernel<C, S><<<conv_grid<C>(B, H, W, gm_w), G::THREADS, G::smem, s>>>(
+      static_cast<const float*>(bh), static_cast<bf16*>(t1), gh, B);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int grid_w = grid_of(gw, B, gm_w);
+  fwd_w_kernel<C, S><<<grid_w, K::THREADS, K::smem, s>>>(
       static_cast<const bf16*>(t1), static_cast<const bf16*>(ww),
       static_cast<const float*>(bw), static_cast<bf16*>(z),
-      static_cast<float*>(part), B, H, W, dw);
+      static_cast<float*>(part), gw, B);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   if constexpr (!S) return cudaSuccess;
-  const int tpi = (H * W + G::BM - 1) / G::BM;
   return reduce_parts(static_cast<const float*>(part),
-                      static_cast<float*>(stats), B, tpi, 2 * C, s);
+                      static_cast<float*>(stats), B, grid_w, 2 * C, s);
 }
 
 template <int C, int MODE>
 int bwd_h(const void* dz1, const void* wht, const void* x, const void* mask,
           const void* gy, const void* drop, const void* a, void* out,
-          void* out2, float* part, int B, int H, int W, int dh,
+          void* out2, float* part, const Geo& g, int B, int* grid,
           cudaStream_t s) {
-  using G = Cfg<C>;
-  static bool ok = false;
-  static int gm = 0;
-  cudaError_t e = prep<C>(bwd_h_kernel<C, MODE>, &ok, &gm);
-  if (e != cudaSuccess) return e;
-  bwd_h_kernel<C, MODE><<<conv_grid<C>(B, H, W, gm), G::THREADS, G::smem, s>>>(
+  using K = Conv<C>;
+  static const int gm = conv_ctas<C>(bwd_h_kernel<C, MODE>);
+  if (gm <= 0) return bad_grid(gm);
+  *grid = grid_of(g, B, gm);
+  bwd_h_kernel<C, MODE><<<*grid, K::THREADS, K::smem, s>>>(
       static_cast<const bf16*>(dz1), static_cast<const bf16*>(wht),
       static_cast<const bf16*>(x), static_cast<const bf16*>(mask),
       static_cast<const bf16*>(gy), static_cast<const float*>(drop),
       static_cast<const float*>(a), static_cast<bf16*>(out),
-      static_cast<bf16*>(out2), part, B, H, W, dh);
+      static_cast<bf16*>(out2), part, g, B);
   return cudaGetLastError();
 }
 
@@ -982,12 +1605,16 @@ int bwd(int mode, int stats, const void* gz, const void* z, const void* gs1,
         const void* drop, const void* a, void* g, void* dz1, void* out,
         void* out2, void* part_b, void* part_w, void* grads, int B, int H,
         int W, int dh, int dw, cudaStream_t s) {
-  using G = Cfg<C>;
-  static bool ok_w = false;
-  static int gm_w = 0;
+  using K = Conv<C>;
+  using Q = Wg<C>;
+  static const int gm_w = conv_ctas<C>(bwd_w_kernel<C>);
   static bool wg_ok = false;
-  const long long P = (long long)B * H * W;
-  const int tiles = B * ((H * W + G::BM - 1) / G::BM);
+  if (gm_w <= 0) return bad_grid(gm_w);
+  const int rows = part_rows<C>();
+  if (rows <= 0) return bad_grid(rows);
+  const int chunks = wg_chunks<C>(B, H, W, dh, dw);
+  if (chunks <= 0) return bad_grid(chunks);
+  const Geo gh = conv_geo<C>(H, W, 0, dh), gw = conv_geo<C>(H, W, 1, dw);
   float* pb = static_cast<float*>(part_b);
   cudaError_t e = cudaSuccess;
   // the stats fold writes g; without the statistics g is gz itself
@@ -995,60 +1622,54 @@ int bwd(int mode, int stats, const void* gz, const void* z, const void* gs1,
   if (stats && (e = adjust_grad(gz, z, gs1, gs2, g, B, H * W, C, s)) !=
                    cudaSuccess)
     return e;
-  if ((e = prep<C>(bwd_w_kernel<C>, &ok_w, &gm_w)) != cudaSuccess) return e;
-  // bias partials: part_b holds two (tiles, 2C) halves, [dbh, dbw] per
-  // tile from bwd_w and [da, db] per tile from bwd_h
-  bwd_w_kernel<C><<<conv_grid<C>(B, H, W, gm_w), G::THREADS, G::smem, s>>>(
+  // bias partials: part_b holds two (rows, 2C) halves, [dbh, dbw] per CTA
+  // of bwd_w and [da, db] per CTA of bwd_h
+  const int grid_w = grid_of(gw, B, gm_w);
+  bwd_w_kernel<C><<<grid_w, K::THREADS, K::smem, s>>>(
       static_cast<const bf16*>(gg), static_cast<const bf16*>(wwt),
-      static_cast<const bf16*>(t1), static_cast<bf16*>(dz1), pb, B, H, W,
-      dw);
+      static_cast<const bf16*>(t1), static_cast<bf16*>(dz1), pb, gw, B);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  float* ph = pb + (long long)tiles * 2 * C;
+  float* ph = pb + (long long)rows * 2 * C;
+  int grid_h = 0;
   switch (mode) {
     case NONE:
       e = (cudaError_t)bwd_h<C, NONE>(dz1, wht, x, mask, gy, drop, a, out,
-                                      out2, ph, B, H, W, dh, s);
+                                      out2, ph, gh, B, &grid_h, s);
       break;
     case AFFINE:
       e = (cudaError_t)bwd_h<C, AFFINE>(dz1, wht, x, mask, gy, drop, a, out,
-                                        out2, ph, B, H, W, dh, s);
+                                        out2, ph, gh, B, &grid_h, s);
       break;
     case EPI:
       e = (cudaError_t)bwd_h<C, EPI>(dz1, wht, x, mask, gy, drop, a, out,
-                                     out2, ph, B, H, W, dh, s);
+                                     out2, ph, gh, B, &grid_h, s);
       break;
     case RELU:
       e = (cudaError_t)bwd_h<C, RELU>(dz1, wht, x, mask, gy, drop, a, out,
-                                      out2, ph, B, H, W, dh, s);
+                                      out2, ph, gh, B, &grid_h, s);
       break;
     default:
       return cudaErrorInvalidValue;
   }
   if (e != cudaSuccess) return e;
-  using Q = typename WgPick<C>::Q;
-  if (!wg_ok && Q::smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(wgrad_kernel<C>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)Q::smem);
-    if (e != cudaSuccess) return e;
-  }
-  wg_ok = true;
-  const int chunks = (int)((P + CHUNK - 1) / CHUNK);
-  wgrad_kernel<C><<<dim3(chunks, 6), Q::THREADS, Q::smem, s>>>(
+  if ((e = allow_smem(wgrad_kernel<C>, Q::smem, &wg_ok)) != cudaSuccess)
+    return e;
+  wgrad_kernel<C><<<dim3(chunks, 2 * Q::NSPLIT), Q::THREADS, Q::smem, s>>>(
       static_cast<const bf16*>(t0), static_cast<const bf16*>(dz1),
       static_cast<const bf16*>(t1), static_cast<const bf16*>(gg),
-      static_cast<float*>(part_w), B, H, W, dh, dw);
+      static_cast<float*>(part_w), wg_geo<C>(H, W, 0, dh),
+      wg_geo<C>(H, W, 1, dw), B, chunks);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   // grads = [dwh (3CC), dww (3CC) | dbh, dbw | da, db]
   float* gr = static_cast<float*>(grads);
   if ((e = reduce_parts(static_cast<const float*>(part_w), gr, 1, chunks,
                         6 * C * C, s)) != cudaSuccess)
     return e;
-  if ((e = reduce_parts(pb, gr + 6 * C * C, 1, tiles, 2 * C, s)) !=
+  if ((e = reduce_parts(pb, gr + 6 * C * C, 1, grid_w, 2 * C, s)) !=
       cudaSuccess)
     return e;
   if (lead_sums(mode))
-    e = reduce_parts(ph, gr + 6 * C * C + 2 * C, 1, tiles, 2 * C, s);
+    e = reduce_parts(ph, gr + 6 * C * C + 2 * C, 1, grid_h, 2 * C, s);
   return e;
 }
 
@@ -1169,7 +1790,7 @@ int bwd_f32(int mode, int stats, const void* gz, const void* z,
   using Q = typename PairWg32<C>::Q;
   if ((e = allow_smem(wgrad_f32_kernel<C>, Q::smem, &wg_ok)) != cudaSuccess)
     return e;
-  const int chunks = (int)((P + CHUNK - 1) / CHUNK);
+  const int chunks = (int)((P + CHUNK_F32 - 1) / CHUNK_F32);
   wgrad_f32_kernel<C><<<dim3(chunks, 6), PairWg32<C>::THREADS, Q::smem, s>>>(
       static_cast<const float*>(t0), static_cast<const float*>(dz1),
       static_cast<const float*>(t1), static_cast<const float*>(gg),
@@ -1222,17 +1843,58 @@ int fwd_any_f32(int stats, const void* t0, const void* wh, const void* bh,
 }
 
 }  // namespace
-
 // ------------------------------ C interface -------------------------------
 //
 // Maps are (B, H, W, C) bf16, NHWC, C in {16, 64, 128}; tap stacks (3, C, C)
 // bf16 [tap, cin, cout]; biases, a, b (C,) f32; the dropout mask (B, C)
 // f32; dh, dw the H and W dilations (>= 1); stats 1 for the forms with the
 // per-image statistics, 0 for the stats-free ones.  Scratch (from the
-// wrapper): part (B * tiles_per_image, 2C) f32 in the forward (not read
-// without the statistics), part_b (tiles, 4C) and part_w (chunks, 6, C,
-// C) f32 in the backward, with tiles_per_image = ceil(H W / 64) and chunks
-// = ceil(B H W / 2048).  Each entry point returns the first CUDA error.
+// wrapper): part (B * rows, 2C) f32 in the forward (not read without the
+// statistics), part_b (2 * rows, 2C) and part_w (chunks, 6, C, C) f32 in
+// the backward, with rows = erf_pair_part_rows(C) and chunks =
+// erf_pair_wg_chunks(B, H, W, C, dh, dw).  Each entry point returns the
+// first CUDA error.
+
+// The rows of statistic partials of a bf16 pair call at this C: the most
+// resident CTAs of its conv kernels on the current device; 0 on a CUDA
+// error or another C.
+extern "C" int erf_pair_part_rows(int C) {
+  const int r = C == 16 ? part_rows<16>()
+                : C == 64 ? part_rows<64>()
+                : C == 128 ? part_rows<128>() : 0;
+  return r > 0 ? r : 0;
+}
+
+// The bf16 weight gradient's chunks (one wave of its CTAs on the current
+// device, at most 9 MiB of partials); 0 on a CUDA error or a bad shape.
+extern "C" int erf_pair_wg_chunks(int B, int H, int W, int C, int dh,
+                                  int dw) {
+  if (!shape_ok(B, H, W, C, dh, dw)) return 0;
+  const int n = C == 16   ? wg_chunks<16>(B, H, W, dh, dw)
+                : C == 64 ? wg_chunks<64>(B, H, W, dh, dw)
+                          : wg_chunks<128>(B, H, W, dh, dw);
+  return n > 0 ? n : 0;
+}
+
+// The bf16 tiling of a conv (kind 0) or of the weight gradient (kind 1)
+// along axis (0: H, 1: W) of dilation d on an (H, W) map: out = [L, TA,
+// band, segs, ablk, d] (Geo).  Host only; 0, or cudaErrorInvalidValue.
+extern "C" int erf_pair_geometry(int C, int kind, int H, int W, int axis,
+                                 int d, int* out) {
+  if (!shape_ok(1, H, W, C, d, d) || (axis != 0 && axis != 1) ||
+      (kind != 0 && kind != 1))
+    return cudaErrorInvalidValue;
+  Geo g;
+  if (C == 16)
+    g = kind ? wg_geo<16>(H, W, axis, d) : conv_geo<16>(H, W, axis, d);
+  else if (C == 64)
+    g = kind ? wg_geo<64>(H, W, axis, d) : conv_geo<64>(H, W, axis, d);
+  else
+    g = kind ? wg_geo<128>(H, W, axis, d) : conv_geo<128>(H, W, axis, d);
+  const int v[6] = {g.L, g.TA, g.band, g.segs, g.ablk, g.d};
+  for (int k = 0; k < 6; ++k) out[k] = v[k];
+  return 0;
+}
 
 // t0 = lead(x): mode 1 affine (x, a, b), 2 epi (x = t, yres, drop, a, b),
 // 3 relu (x).  Pointers first, then ints, then the stream, in every entry

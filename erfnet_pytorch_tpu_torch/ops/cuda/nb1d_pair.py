@@ -40,9 +40,18 @@ operations at C = 128, bytes at C = 64 and 16 (6 C^2 MACs per pixel
 forward, 12 C^2 backward) at bf16, operations at every C at f32; this
 version keeps t0 and t1 from the forward (no recompute) and passes the
 pair's intermediates through device memory between launches.
+
+The bf16 convs run over halo-patch tiles (``csrc/nb1d_pair.cu`` Geo):
+``conv_geometry`` is the tiling the kernels choose, written out for the
+tests (``erf_pair_geometry`` returns the kernels' own).  Their statistic
+and bias partials are per CTA, ``erf_pair_part_rows(C)`` rows, and the
+weight gradient's per chunk of tiles, ``erf_pair_wg_chunks`` chunks, both
+from the card's SM count.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -50,9 +59,12 @@ from . import _build, route
 from .nb1d import _shift
 
 MODES = ("none", "affine", "epi", "relu")   # csrc enum Lead
-BM = 64         # pixels per conv tile (csrc/nb1d_pair.cu Cfg::BM)
 BM_F32 = {16: 256, 64: 64, 128: 64}   # the f32 form's, by C (Cfg32::BM)
-CHUNK = 2048    # pixels per weight-gradient partial (csrc CHUNK)
+CHUNK_F32 = 2048    # pixels per f32 weight-gradient partial (csrc CHUNK_F32)
+# the bf16 tiles by C (csrc Conv, Wg): (pixels a tile, patch pixels, least
+# width across the H conv), for the convs and for the weight gradient
+CONV_TILE = {16: (256, 512, 4), 64: (128, 192, 1), 128: (128, 128, 1)}
+WG_TILE = {16: (256, 512, 4), 64: (256, 320, 1), 128: (128, 128, 1)}
 # kernel launches of one pair call, by lead mode; the stats-free forms
 # launch one fewer each way (no statistics reduction, no g fold)
 FWD_LAUNCHES = {"none": 3, "affine": 4, "epi": 4, "relu": 4}
@@ -65,6 +77,33 @@ def dilations(dil):
     """(dh, dw) of a pair's ``dil``: one int for both convs, or a pair."""
     dh, dw = dil if isinstance(dil, (tuple, list)) else (dil, dil)
     return int(dh), int(dw)
+
+
+def conv_geometry(H, W, axis, d, tile):
+    """The bf16 kernels' tiling along ``axis`` (0: H, 1: W) of an (H, W)
+    map at dilation d, ``tile`` = (bm, cap, ta_min) from CONV_TILE or
+    WG_TILE (csrc make_geo; ta_min holds for the H axis only): (L, TA,
+    band, segs, ablk, d), TA a power of two.  A tile is L
+    positions along the axis x TA across; its patch is the L + 2d
+    positions along it, clamped to the map (band 0), or three bands of L
+    at -d, 0 and d (band 1); segs x ablk tiles cover an image; d is
+    clamped to the axis' extent."""
+    bm, cap, ta_min = tile
+    ta_min = 1 if axis else ta_min   # the least width applies across W
+    n, m = (W, H) if axis else (H, W)
+    d = min(d, n)
+    if n * ta_min <= bm:    # TA: a power of two
+        L, TA, band = n, 1 << (min(bm // n, m).bit_length() - 1), 0
+    else:
+        for TA in (ta_min << k for k in range(32)):
+            if TA > bm:
+                L, TA, band = cap // (3 * ta_min), ta_min, 1
+                break
+            L = bm // TA
+            if min(n, L + 2 * d) * TA <= cap:
+                band = 0
+                break
+    return L, TA, band, -(-n // L), -(-m // TA), d
 
 
 # ---------------------------------------------------------------------------
@@ -191,8 +230,40 @@ def _check_map(x, name, C, others=()):
     return _build.kernel_form(x, name, others)
 
 
-def _tiles_per_image(form, H, W, C):
-    return -(-(H * W) // (BM_F32[C] if form else BM))
+_SCRATCH = {}   # (entry point, its arguments, device) -> its answer
+
+
+def _ask(lib, name, *args, device):
+    """The bf16 kernels' scratch size from their C entry point, once per
+    argument tuple and device (it depends on the card's SM count)."""
+    key = (name, args, device)
+    if key not in _SCRATCH:
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_int] * len(args)
+        fn.restype = ctypes.c_int
+        n = fn(*args)
+        if n <= 0:
+            raise RuntimeError(f"{name}{args} failed")
+        _SCRATCH[key] = n
+    return _SCRATCH[key]
+
+
+def _part_rows(lib, form, B, H, W, C, device):
+    """Rows of statistic partials a call writes: per 64-pixel (C = 16:
+    256) tile at f32; per resident CTA of the bf16 convs
+    (``erf_pair_part_rows``)."""
+    if form:
+        return B * -(-(H * W) // BM_F32[C])
+    return _ask(lib, "erf_pair_part_rows", C, device=device)
+
+
+def _wg_chunks(lib, form, B, H, W, C, dh, dw, device):
+    """Weight-gradient partials of a call: one per 2048 pixels at f32;
+    one wave of the bf16 kernel's CTAs (``erf_pair_wg_chunks``)."""
+    if form:
+        return -(-(B * H * W) // CHUNK_F32)
+    return _ask(lib, "erf_pair_wg_chunks", B, H, W, C, dh, dw,
+                device=device)
 
 
 @route.recorded(pair_fwd_plain)
@@ -238,8 +309,9 @@ def pair_fwd(mode, x, wh, bh, ww, bw, dil, *, yres=None, m=None, a=None,
         _build.count(pair_fwd, key + form)
     t1, z = torch.empty_like(x), torch.empty_like(x)
     if stats:
-        tpi = _tiles_per_image(form, H, W, C)
-        part = torch.empty(B * tpi, 2 * C, dtype=torch.float32, device=dev)
+        rows = _part_rows(lib, form, B, H, W, C, dev)
+        part = torch.empty(B * rows if not form else rows, 2 * C,
+                           dtype=torch.float32, device=dev)
         sums = torch.empty(B, 2 * C, dtype=torch.float32, device=dev)
     else:   # not read by the stats-free form
         part = sums = bhf
@@ -301,12 +373,12 @@ def pair_bwd(mode, saved, gz, gs1, gs2, gy=None):
         _build.require(drop, "m", torch.float32, dev, (B, C))
     else:
         gy = x
-    tiles = B * _tiles_per_image(form, H, W, C)
-    chunks = -(-(B * H * W) // CHUNK)
-    part_b = torch.empty(2 * tiles, 2 * C, dtype=torch.float32, device=dev)
+    lib = _build.library("nb1d_pair")
+    rows = _part_rows(lib, form, B, H, W, C, dev)
+    chunks = _wg_chunks(lib, form, B, H, W, C, dh, dw, dev)
+    part_b = torch.empty(2 * rows, 2 * C, dtype=torch.float32, device=dev)
     part_w = torch.empty(chunks, 6, C, C, dtype=torch.float32, device=dev)
     grads = torch.zeros(6 * C * C + 4 * C, dtype=torch.float32, device=dev)
-    lib = _build.library("nb1d_pair")
     fn = _build.declare(lib, "erf_pair_bwd" + form, 20, 8)
     err = fn(_build.ptr(gz), _build.ptr(saved["z"] if stats else gz),
              _build.ptr(gs1),

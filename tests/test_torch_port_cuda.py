@@ -348,9 +348,18 @@ def _rn(*shape, seed, scale=1.0):
     ("epi", (1, 9, 13, 64), 1), ("none", (2, 4, 8, 128), 1),
     ("affine", (1, 6, 10, 128), 2), ("affine", (2, 4, 8, 128), 16),
     ("epi", (1, 3, 70, 128), 1), ("none", (1, 5, 9, 16), 1),
-    ("affine", (2, 7, 11, 16), 1), ("epi", (1, 9, 13, 16), 1)])
+    ("affine", (2, 7, 11, 16), 1), ("epi", (1, 9, 13, 16), 1),
+    ("affine", (1, 130, 20, 64), 1), ("epi", (1, 70, 130, 128), 2),
+    ("none", (1, 70, 20, 16), 1), ("affine", (1, 64, 16, 128), 8)])
 @pytest.mark.parametrize("dtype", [BF, F32])
 def test_nb1d_pair_kernels(dev, mode, shape, dil, dtype):
+    """Forward and backward against the plain versions, launch counts, and
+    two calls of each bit-identical.  The last four maps are ragged against
+    the bf16 tiles (``nb1d_pair.conv_geometry``): C = 64 130 x 20 (the H
+    conv's 128-row tiles leave 2 rows, the W conv's 20 x 4 tiles half a
+    tile), C = 128 70 x 130 (the W conv takes three bands of 42), C = 16
+    70 x 20 (64 x 4 H tiles and 20 x 8 W tiles), and C = 128 at d = 8 on
+    64 x 16."""
     B, H, W, C = shape
     rel = _rel_for(dtype)
     x = _rn(*shape, seed=1)
@@ -375,6 +384,8 @@ def test_nb1d_pair_kernels(dev, mode, shape, dil, dtype):
         _close(got[i], ref[i])
     rel(got[3], ref[3])
     rel(got[4], ref[4])
+    again = nb1d_pair.pair_fwd(mode, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
     t0, t1, z = ref[:3]
     saved = {"x": kw["x"], "t0": t0, "t1": t1, "z": z,
              "wh": kw["wh"].to(dtype), "ww": kw["ww"].to(dtype),
@@ -393,6 +404,40 @@ def test_nb1d_pair_kernels(dev, mode, shape, dil, dtype):
     assert set(got) == set(ref)
     for k, v in ref.items():
         (_close if k in ("dx", "dt", "dy_res") else rel)(got[k], v)
+    again = nb1d_pair.pair_bwd(mode, saved, **ct)
+    assert all(torch.equal(got[k], again[k]) for k in got)
+
+
+@pytest.mark.parametrize("C", [16, 64, 128])
+def test_nb1d_pair_geometry(dev, C):
+    """The bf16 kernels' tilings (erf_pair_geometry) are the ones
+    ``nb1d_pair.conv_geometry`` writes out for the CPU tests, for the convs
+    and the weight gradient, on the path's maps, ragged maps and
+    dilations past the map; the partial rows and the weight gradient's
+    chunks are positive."""
+    import ctypes
+    lib = _build.library("nb1d_pair")
+    fn = lib.erf_pair_geometry
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    out = (ctypes.c_int * 6)()
+    for kind, tile in ((0, nb1d_pair.CONV_TILE[C]),
+                       (1, nb1d_pair.WG_TILE[C])):
+        for H, W in ((64, 128), (128, 256), (256, 512), (5, 9), (70, 130),
+                     (130, 20), (4, 8), (3, 70), (40, 300)):
+            for axis in (0, 1):
+                for d in (1, 2, 8, 16, 100, 200):
+                    assert fn(C, kind, H, W, axis, d,
+                              ctypes.addressof(out)) == 0
+                    assert tuple(out) == nb1d_pair.conv_geometry(
+                        H, W, axis, d, tile), (kind, H, W, axis, d)
+    assert lib.erf_pair_part_rows(C) > 0
+    chunks = lib.erf_pair_wg_chunks
+    chunks.argtypes = [ctypes.c_int] * 6
+    assert chunks(6, 64, 128, C, 1, 1) > 0
+    tiles = [g[3] * g[4] for g in (
+        nb1d_pair.conv_geometry(3, 5, a, 16, nb1d_pair.WG_TILE[C])
+        for a in (0, 1))]
+    assert 1 <= chunks(1, 3, 5, C, 16, 16) <= min(tiles)
 
 
 @pytest.mark.parametrize("shape,cc,stem", [
@@ -1077,14 +1122,16 @@ def _nostats(wrapper, dtype):
     ("epi", (1, 8, 16, 128), (16, 8), False),
     ("relu", (1, 9, 13, 16), 1, False),
     ("relu", (2, 8, 16, 128), (16, 8), True),
-    ("relu", (1, 5, 9, 64), (2, 1), True)])
+    ("relu", (1, 5, 9, 64), (2, 1), True),
+    ("affine", (1, 130, 20, 64), (1, 2), False)])
 @pytest.mark.parametrize("dtype", [BF, F32])
 def test_nb1d_pair_kernels_relu_two_dilations_nostats(dev, mode, shape, dil,
                                                       stats, dtype):
     """The stats-free forms (fused_pair and its affine / epi twins) and
     the relu lead with (dh, dw) apart, also in the stats forms; sh = 16 on
     H = 8 reads zero fill for every off-centre H tap; x holds exact zeros
-    for the relu lead's mask."""
+    for the relu lead's mask; the last map is ragged against the bf16
+    tiles."""
     B, H, W, C = shape
     rel = _rel_for(dtype)
     x = _rn(*shape, seed=1)
