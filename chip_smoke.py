@@ -5,22 +5,23 @@
     python3 chip_smoke.py --split    # only the build and phase_split
 
 ``--split`` builds the kernels and splits the calls of the parity-plane
-rows (the train downsampler backward, rows 5, 5 on g = gy and 8, rows 5
-and 8 also in f32; the train upsampler forward, rows 12 and 10, and
-backward, row 13), of the train downsampler forward (rows 7, 6 and 4;
-row 7 also in f32) at their B=6 shapes and of the eval upsampler (row
-14) at its B=4 shapes, and of the bf16 train NB1d conv pair (rows 21,
-22 and 23 at C=64 and C=128, and at C=16, a forward and a backward of
-each distinct lead, shape and dilation of the B=6 steps, weighted by its
-calls per step) by launch: CUDA events, device time by kernel
-(torch.profiler) and the host's enqueue time, with cuDNN's call for the
-same function by device time beside each forward and rows 5, 8, 13 and
-the pair (the forward conv; its ``convolution_backward`` for rows 5 and
-8, the weight gradient alone for row 8, TF32 off at f32; the transposed
-conv for row 14, its ``convolution_backward`` for row 13; the pair's two
-convs, forward or ``convolution_backward``); then prints the card line;
-no result line.  Phases 9 and 28 print the same split for the
-parity-plane rows.
+rows (the train downsampler backward, rows 5, 5 on g = gy and 8; the
+train upsampler forward, rows 12 and 10, and backward, rows 13 and 11),
+of the train downsampler forward (rows 7, 6 and 4) at their B=6 shapes,
+each in bf16 and in f32, of the eval downsampler and upsampler (rows 9
+and 14) at their B=4 shapes in bf16, and of the bf16 train NB1d conv
+pair (rows 21, 22 and 23 at C=64 and C=128, and at C=16, a forward and
+a backward of each distinct lead, shape and dilation of the B=6 steps,
+weighted by its calls per step) by launch: CUDA events, device time by
+kernel (torch.profiler) and the host's enqueue time, with cuDNN's call
+for the same function by device time beside each forward and rows 5, 8,
+11, 13 and the pair (the forward conv, with its bias for row 9; its
+``convolution_backward`` for rows 5 and 8, the weight gradient alone
+for row 8, TF32 off at f32; the transposed conv for row 14, its
+``convolution_backward`` for rows 13 and 11; the pair's two convs,
+forward or ``convolution_backward``); then prints the card line; no
+result line.  Phases 9 and 28 print the same split for the parity-plane
+rows.
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -3402,8 +3403,9 @@ def split_calls(device, dtype):
     the train downsampler forward with statistics (rows 7, 6) and without
     (row 4), its backward with statistics (rows 5, 8) and on g = gy (row
     5 gy), the train upsampler forward with and without statistics (rows
-    12, 10) and its backward with statistics (row 13); the eval upsampler
-    (row 14) at its B=4 serving shapes; and the bf16 train NB1d conv pair
+    12, 10) and its backward with and without (rows 13, 11); the eval
+    downsampler and upsampler (rows 9, 14) at their B=4 serving shapes;
+    and the bf16 train NB1d conv pair
     (rows 21, 22, 23 at C=64 and C=128, "21 C16" .. "23 C16"), a forward
     and a backward call of each distinct (lead, shape, dilation) of
     ``pair_cases`` and ``dec_pair_cases``, weighted by its calls per step
@@ -3411,14 +3413,19 @@ def split_calls(device, dtype):
     ``yardstick``: cuDNN's call for the same function (the forward conv of
     a forward of the downsampler, the stem's on its translated image; its
     ``convolution_backward`` for rows 5 and 8, the stem's weight gradient
-    alone; ``convolution_backward`` of the transposed conv for row 13; the
-    transposed conv with its bias for row 14; the pair's two convs, their
+    alone; ``convolution_backward`` of the transposed conv for rows 13
+    and 11; the conv with its bias for row 9 (without the pool, the BN
+    affine and the ReLU), the transposed conv with its bias for row 14;
+    the pair's two convs, their
     forwards or their ``convolution_backward``s), else None."""
     import torch
+    from erfnet_pytorch_tpu_torch.ops.cuda import downsampler
     from erfnet_pytorch_tpu_torch.ops.cuda import downsampler_train as dt
     from erfnet_pytorch_tpu_torch.ops.cuda import nb1d_pair as pr
     from erfnet_pytorch_tpu_torch.ops.cuda import upsampler
     from erfnet_pytorch_tpu_torch.ops.cuda import upsampler_train as ut
+    from erfnet_pytorch_tpu_torch.ops.cuda.downsampler import \
+        prepare_downsampler
     from erfnet_pytorch_tpu_torch.ops.cuda.upsampler import \
         prepare_upsampler
     g = torch.Generator().manual_seed(97)
@@ -3467,7 +3474,17 @@ def split_calls(device, dtype):
         calls.append((13, label, (
             lambda x=x, y=y, gy=gy, gs=gs, w=w:
             ut.ups_bwd(x, y, gy, gs, gs, w)), lib, 1))
+        calls.append((11, label, (
+            lambda x=x, gy=gy, w=w: ut.ups_bwd(x, None, gy, None, None, w)),
+            lib, 1))
     sd = seeded_state_dict(0)
+    for prefix, shape in down_cases(4):
+        p = {k: v.to(device) for k, v in
+             prepare_downsampler(sd, prefix, dtype).items()}
+        x = torch.rand(*shape, generator=g).to(device).to(dtype)
+        calls.append((9, f"down {shape[-1]}->", (
+            lambda x=x, p=p: downsampler.downsampler(x, p)),
+            library_call("downsampler", x, p), 1))
     for prefix, shape in up_cases(4):
         p = {k: v.to(device) for k, v in
              prepare_upsampler(sd, prefix, dtype).items()}
@@ -3501,22 +3518,21 @@ def split_calls(device, dtype):
 
 def phase_split(device, iters, dtypes=None):
     """Each call of ``split_calls`` through its wrapper, split by
-    ``kernel_split`` (bf16, and the f32 forms of rows 10 and 12, whose
-    wrappers build the same parity-plane weight, of row 7, the f32 stem,
-    and of rows 8 and 5, the f32 stem's and downsampler's backward, with
-    TF32 off), and its yardstick's device time (``cudnn``); summed by
+    ``kernel_split`` (bf16, and the f32 forms of every train row, with
+    TF32 off: the serving rows 9 and 14 in bf16 only), and its
+    yardstick's device time (``cudnn``); summed by
     row, each call times its calls per step, with the row's device time
     by kernel (``kernels``)."""
     import torch
     out = {}
     for dtype in dtypes or (torch.bfloat16, torch.float32):
         form = "" if dtype == torch.bfloat16 else " f32"
-        log(f"[kernel split{form}] B=6 (row 14 B=4): CUDA events, device "
-            "time by kernel (torch.profiler), host enqueue time per call; "
-            "cuDNN's call for the same function by device time")
+        log(f"[kernel split{form}] B=6 (rows 9, 14 B=4): CUDA events, "
+            "device time by kernel (torch.profiler), host enqueue time per "
+            "call; cuDNN's call for the same function by device time")
         with no_tf32() if form else contextlib.nullcontext():
             for row, label, fn, lib, n in split_calls(device, dtype):
-                if form and row not in (5, 7, 8, 10, 12):
+                if form and row in (9, 14):
                     continue
                 s = kernel_split(fn, iters)
                 log_split(f"row {row}{form} {label}", s)
@@ -4138,6 +4154,7 @@ def phase_nostats_parity(device, dtype):
     largest map error by kernel, the f32 rules' measured maxima)."""
     import torch
     from erfnet_pytorch_tpu_torch.ops import cuda as kernels
+    from erfnet_pytorch_tpu_torch.ops.cuda import downsampler
     from erfnet_pytorch_tpu_torch.ops.cuda import downsampler_train as dt
     from erfnet_pytorch_tpu_torch.ops.cuda import nb1d_pair as pr
     from erfnet_pytorch_tpu_torch.ops.cuda import upsampler_train as ut
@@ -4239,6 +4256,7 @@ def _nostats_path_ops(g, device, dtype):
     """The stats-free ops' value+grad calls of phase 28 besides the
     chains, at B=6 recipe shapes: (label, fn, args, diff indices, names of
     the outputs and gradients that are maps)."""
+    from erfnet_pytorch_tpu_torch.ops.cuda import downsampler
     from erfnet_pytorch_tpu_torch.ops.cuda import downsampler_train as dt
     from erfnet_pytorch_tpu_torch.ops.cuda import nb1d_pair as pr
     from erfnet_pytorch_tpu_torch.ops.cuda import upsampler_train as ut
@@ -4291,6 +4309,7 @@ def phase_nostats_path(device, dtype):
     through the plain versions)."""
     import torch
     from erfnet_pytorch_tpu_torch.ops import cuda as kernels
+    from erfnet_pytorch_tpu_torch.ops.cuda import downsampler
     from erfnet_pytorch_tpu_torch.ops.cuda import downsampler_train as dt
     from erfnet_pytorch_tpu_torch.ops.cuda import nb1d_pair as pr
     from erfnet_pytorch_tpu_torch.ops.cuda import route
@@ -4383,6 +4402,7 @@ def phase_nostats_timing(device, iters, dtype):
     one backward of every case."""
     import torch
     from erfnet_pytorch_tpu_torch.ops import cuda as kernels
+    from erfnet_pytorch_tpu_torch.ops.cuda import downsampler
     from erfnet_pytorch_tpu_torch.ops.cuda import downsampler_train as dt
     from erfnet_pytorch_tpu_torch.ops.cuda import nb1d_pair as pr
     from erfnet_pytorch_tpu_torch.ops.cuda import upsampler_train as ut

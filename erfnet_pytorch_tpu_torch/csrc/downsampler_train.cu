@@ -22,7 +22,8 @@
 // equally among tied inputs, so a window of four equal values gives a
 // quarter to each.
 //
-// Forward (bf16): the stride-2 conv over the parity planes of a halo patch
+// Forward (bf16, down_fwd.cuh, which the eval block in downsampler.cu
+// shares): the stride-2 conv over the parity planes of a halo patch
 // (parity_plane.cuh, PFPatch): a tile of TH x 32 output pixels of one image
 // (TH = 2 at Cin = 64, 4 at 16, 8 at 3) stages its (2 TH + 1) x 65 input
 // pixels once with 16-byte cp.async straight into four parity planes,
@@ -82,13 +83,22 @@
 // from the same patch; whole 64-byte output pixels written 16 bytes a
 // thread, the sums from the stored values in a fixed butterfly, one
 // partial per tile (3072 at the B=6 stem, 6144 before); the stem's
-// translated image written from the patch interior.  The other forwards
-// and the input gradients are implicit GEMMs over tiles of output
-// (input) pixels whose K extent is staged a chunk of taps at a time where
-// the f32 tap stack would not fit beside the tile (the (64, 64)
-// forward's 144 KB of taps three taps at a time, the input gradients
+// translated image written from the patch interior.  The forwards at Cin
+// = 16 and 64 are implicit GEMMs over tiles of 64 output pixels whose K
+// extent is staged a chunk of taps at a time where the f32 tap stack
+// would not fit beside the tile (the (64, 64) forward's 144 KB of taps
 // three taps at a time; each chunk summed in a chain of its own, the
 // chunks added in order); their pool reads its 2x2 window from the map.
+// The input gradient at Cin = 16 and 64 is the bf16 form's parity-plane
+// product on FFMA micro-tiles (Dx32): per tile of TH x 32 g pixels (TH =
+// 4 at Cin = 16, 2 at 64) the (TH + 1) x 33 patch of g's conv channels is
+// staged once, the four neighbour operands views of it, the nine
+// flipped, transposed taps resident (27 KB and 147 KB, beside two
+// patches), persistent CTAs with the next patch in flight; 9 Cin Cc MACs
+// a g pixel where the implicit GEMM per input pixel this replaced
+// multiplied the stride's zero taps too (36); one FMA chain per unit, the
+// units added to each plane in a fixed order; the pool's share from x's
+// window and g's pool channels read once per g pixel, 16 bytes a lane.
 // The weight gradient keeps the bf16 form's (chunk of output rows, kh)
 // grid in f32 at every (Cin, Cc): per block of output pixels the g tile
 // and each kh's input-row segment, which is the kh's im2col tile as it is
@@ -98,7 +108,11 @@
 // (row chunk), the chunks sized to one wave from the SM count.  The same
 // launches as the bf16 forms, the partials reduced in a fixed order.
 // Bound at f32: bytes for the stem, operations for the others (9 Cin Cc
-// MACs per output pixel against 67 TFLOP/s).
+// MACs per output pixel against 67 TFLOP/s).  What is left at f32: in
+// the input gradient the pool's share (x's windows, g's pool channels)
+// and the dx stores follow the product in each CTA, and at Cin = 64 one
+// CTA an SM leaves nothing to run beside them: the maps' traffic and the
+// product add up (PERF.md §6, scripts/cuda_down_dx32_variants.py).
 //
 // The stats-free forms (with_stats = 0) replace downsampler_packed
 // (_down_fwd_kernel via _call_fwd_local, with the pool lanes that
@@ -110,318 +124,13 @@
 // flag of its own, apart from the channel count).  At Cin = 3 the input
 // gradient is a direct sum (down_dx_small_kernel): its K of 9 x 13 and
 // N of 3 are too narrow for the tiled products.
-#include "parity_plane.cuh"
+#include "down_fwd.cuh"
 
 using namespace erfk;
 
 namespace {
 
 constexpr int round16(int v) { return (v + 15) / 16 * 16; }
-
-// Forward (bf16): tiles of TH x 32 output pixels of one image, the halo
-// patch in parity planes (parity_plane.cuh PFPatch; PFRaw and an im2col
-// tile at Cin = 3), the (9 Cin x Cc) tap stack resident; persistent CTAs
-// of 256 threads, the next tile's patch in flight while this one
-// multiplies.  Warps: WROWS x WCOLS, each WM pixels (of one tile row) x WN
-// conv channels.  Epilogue: the conv channels rounded from f32 and the
-// pool channels staged in Cs (whole output pixels), written 16 bytes a
-// thread, the sums taken from the stored values.
-template <int CIN, int CC, bool STEM>
-struct Fwd {
-  static constexpr int TH = CIN == 64 ? 2 : CIN == 16 ? 4 : 8, TW = 32;
-  static constexpr int BM = TH * TW, THREADS = 256, WARPS = 8;
-  static constexpr int COUT = CIN + CC, NP = round16(CC), VC = COUT / 8;
-  static constexpr int KP = CIN == 3 ? 32 : 9 * CIN;  // Cin = 3: K = 27, padded
-  static constexpr int WN = NP <= 48 ? NP : 32, WCOLS = NP / WN;
-  static constexpr int WROWS = WARPS / WCOLS, WM = BM / WROWS;
-  static constexpr int MT = WM / 16, NT = WN / 8;
-  // the tap stack: at Cc = 64 a row is 8 chunks, chunk e of row k stored
-  // at e ^ (k & 7) (no padding); else the pitch is an odd multiple of 16
-  // bytes
-  static constexpr bool SWZ_W = NP == 64;
-  static constexpr int LDA = KP + 8, LDB = SWZ_W ? NP : NP + 8;
-  static constexpr int LDO = COUT + 8;
-  __device__ static bf16* w_at(bf16* Ws, int k, int e) {
-    return Ws + k * LDB + (SWZ_W ? e ^ (k & 7) : e) * 8;
-  }
-  static constexpr int MIN_CTAS = CIN == 64 ? 1 : CIN == 16 ? 2 : 3;
-  using Patch =
-      std::conditional_t<CIN == 3, PFRaw<STEM, TH>, PFPatch<CIN, TH>>;
-  static constexpr size_t patch_bytes = Patch::bytes;
-  static constexpr size_t a_off = 2 * patch_bytes;  // two patches
-  static constexpr size_t w_off =
-      a_off + (CIN == 3 ? pp_align((size_t)BM * LDA * 2) : 0);
-  static constexpr size_t o_off = w_off + pp_align((size_t)KP * LDB * 2);
-  static constexpr size_t smem = o_off + pp_align((size_t)BM * LDO * 2);
-  // the sums' scratch lives in the tile's own patch, read by then
-  static constexpr size_t red_bytes = (size_t)WARPS * VC * 16 * 4;
-  static_assert((CIN == 3 || CIN % 16 == 0) && COUT % 8 == 0 &&
-                    WM % 16 == 0 && TW % WM == 0,
-                "forward tile: a warp's pixels in one tile row");
-  static_assert(CIN != 3 || BM == THREADS, "Cin = 3: a thread a pixel");
-  static_assert(VC <= 32 && 2 * COUT <= THREADS && smem <= 232448 &&
-                    red_bytes <= patch_bytes,
-                "forward epilogue");
-};
-
-template <int CIN, int CC, bool STEM, bool S>
-__global__ void __launch_bounds__(256, (Fwd<CIN, CC, STEM>::MIN_CTAS))
-down_fwd_kernel(const void* __restrict__ x, const int* __restrict__ shifts,
-                const bf16* __restrict__ w, const float* __restrict__ bias,
-                bf16* __restrict__ out, bf16* __restrict__ xa,
-                float* __restrict__ part, int B, int Ho, int Wo) {
-  using G = Fwd<CIN, CC, STEM>;
-  using P = typename G::Patch;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem + G::a_off);
-  bf16* Ws = reinterpret_cast<bf16*>(smem + G::w_off);
-  bf16* Cs = reinterpret_cast<bf16*>(smem + G::o_off);
-  const int H = 2 * Ho, W = 2 * Wo;
-  const int tiles =
-      B * ((Ho + G::TH - 1) / G::TH) * ((Wo + G::TW - 1) / G::TW);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / G::WCOLS, wn = warp % G::WCOLS;
-
-  // the tap stack, row (kh * 3 + kw) CIN + ci, zero in the padding
-  if constexpr (CC % 8 == 0) {
-    static_assert(G::NP == CC, "no column padding");
-    for (int v = threadIdx.x; v < 9 * CIN * (CC / 8); v += G::THREADS) {
-      const int r = v / (CC / 8), e = v % (CC / 8);
-      cp_async16(G::w_at(Ws, r, e), w + (size_t)r * CC + e * 8, true);
-    }
-  } else {
-    for (int e = threadIdx.x; e < G::KP * G::NP; e += G::THREADS) {
-      const int k = e / G::NP, n = e % G::NP;
-      Ws[k * G::LDB + n] =
-          k < 9 * CIN && n < CC ? w[k * CC + n] : __float2bfloat16(0.0f);
-    }
-  }
-  // thread (g8, t4) of an m16 x n8 tile: columns 2 t4, 2 t4 + 1
-  float bv[G::NT][2];
-#pragma unroll
-  for (int nt = 0; nt < G::NT; ++nt)
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int n = wn * G::WN + nt * 8 + 2 * (lane % 4) + q;
-      bv[nt][q] = n < CC ? __ldg(bias + n) : 0.0f;
-    }
-
-  auto patch_of = [&](int kk) { return smem + (kk & 1) * G::patch_bytes; };
-  auto issue = [&](int t, int kk) {
-    if (t < tiles) {
-      const PPTile tl = pp_tile_of<G>(t, Ho, Wo);
-      if constexpr (CIN == 3)
-        pf_load_raw<P>(patch_of(kk), x, shifts, tl, H, W, G::THREADS);
-      else
-        pf_load_patch<P>(reinterpret_cast<bf16*>(patch_of(kk)),
-                         static_cast<const bf16*>(x), tl, H, W, G::THREADS);
-    }
-    cp_async_commit();
-  };
-
-  issue(blockIdx.x, 0);  // with the tap stack
-  int kk = 0;
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++kk) {
-    const PPTile tl = pp_tile_of<G>(t, Ho, Wo);
-    issue(t + gridDim.x, kk + 1);  // into the buffer tile kk - 1 left
-    cp_async_wait_group<1>();
-    __syncthreads();
-    unsigned char* patch = patch_of(kk);
-    float acc[G::MT][G::NT][4];
-#pragma unroll
-    for (int mt = 0; mt < G::MT; ++mt)
-#pragma unroll
-      for (int n = 0; n < G::NT; ++n)
-        acc[mt][n][0] = acc[mt][n][1] = acc[mt][n][2] = acc[mt][n][3] = 0.0f;
-
-    // the product: B fragments of rows krow .. krow + 15 of the tap stack
-    // against this warp's A fragments (the tap's plane pixels at Cin = 16,
-    // 64; the im2col tile at Cin = 3)
-    auto mma_k16 = [&](const unsigned (&a)[G::MT][4], int krow) {
-#pragma unroll
-      for (int n = 0; n < G::WN / 16; ++n) {
-        unsigned bb[4];
-        ldsm_x4_trans(bb, G::w_at(Ws, krow + lane % 16,
-                                  (wn * G::WN + n * 16) / 8 + lane / 16));
-#pragma unroll
-        for (int mt = 0; mt < G::MT; ++mt) {
-          mma_bf16_16816(acc[mt][2 * n], a[mt], bb[0], bb[1]);
-          mma_bf16_16816(acc[mt][2 * n + 1], a[mt], bb[2], bb[3]);
-        }
-      }
-    };
-    const bf16* pb = reinterpret_cast<const bf16*>(patch);
-    if constexpr (CIN == 3) {
-      // im2col from the patch rows: K index kh * 9 + kw * 3 + ci is value
-      // 6 c + kw * 3 + ci of patch row 2 r + kh, rounded to bf16 once
-      {
-        const int m = threadIdx.x, r = m / G::TW, c = m % G::TW;
-        float v[G::KP];
-#pragma unroll
-        for (int kh = 0; kh < 3; ++kh)
-#pragma unroll
-          for (int q = 0; q < 9; ++q)
-            v[kh * 9 + q] = P::at(patch, 2 * r + kh, 6 * c + q);
-#pragma unroll
-        for (int k = 27; k < G::KP; ++k) v[k] = 0.0f;
-#pragma unroll
-        for (int j = 0; j < G::KP / 8; ++j)
-          *reinterpret_cast<uint4*>(As + m * G::LDA + j * 8) =
-              pack_bf16x8(v + j * 8);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < G::KP; k += 16) {
-        unsigned a[G::MT][4];
-#pragma unroll
-        for (int mt = 0; mt < G::MT; ++mt)
-          ldsm_x4(a[mt], As + (wm * G::WM + mt * 16 + lane % 16) * G::LDA +
-                             k + (lane / 16) * 8);
-        mma_k16(a, k);
-      }
-    } else {
-#pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {
-        int q[G::MT];  // this lane's A row: the tap's plane pixel
-#pragma unroll
-        for (int mt = 0; mt < G::MT; ++mt) {
-          const int m = wm * G::WM + mt * 16 + lane % 16;
-          q[mt] = P::tap(m / G::TW, m % G::TW, tap / 3, tap % 3);
-        }
-#pragma unroll
-        for (int k = 0; k < CIN; k += 16) {
-          unsigned a[G::MT][4];
-#pragma unroll
-          for (int mt = 0; mt < G::MT; ++mt)
-            ldsm_x4(a[mt], P::at(pb, q[mt], k / 8 + lane / 16));
-          mma_k16(a, tap * CIN + k);
-        }
-      }
-    }
-
-    // stage: the conv channels, bf16(sum + b)
-#pragma unroll
-    for (int mt = 0; mt < G::MT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = wm * G::WM + mt * 16 + lane / 4 + 8 * h;
-#pragma unroll
-        for (int nt = 0; nt < G::NT; ++nt) {
-          const int n = wn * G::WN + nt * 8 + 2 * (lane % 4);
-          const float v0 = acc[mt][nt][2 * h] + bv[nt][0];
-          const float v1 = acc[mt][nt][2 * h + 1] + bv[nt][1];
-          bf16* dst = Cs + m * G::LDO + n;
-          if constexpr (CC % 2 == 0) {
-            *reinterpret_cast<__nv_bfloat162*>(dst) =
-                __floats2bfloat162_rn(v0, v1);
-          } else {
-            if (n < CC) dst[0] = __float2bfloat16(v0);
-            if (n + 1 < CC) dst[1] = __float2bfloat16(v1);
-          }
-        }
-      }
-    // the pool channels: max of taps 4, 5, 7, 8 (bf16 values; the max of
-    // the stem's f32 values rounds as the max of their roundings)
-    if constexpr (CIN == 3) {
-      const int m = threadIdx.x, r = m / G::TW, c = m % G::TW;
-#pragma unroll
-      for (int ci = 0; ci < 3; ++ci) {
-        float v = P::at(patch, 2 * r + 1, (2 * c + 1) * 3 + ci);
-        v = fmaxf(v, P::at(patch, 2 * r + 1, (2 * c + 2) * 3 + ci));
-        v = fmaxf(v, fmaxf(P::at(patch, 2 * r + 2, (2 * c + 1) * 3 + ci),
-                           P::at(patch, 2 * r + 2, (2 * c + 2) * 3 + ci)));
-        Cs[m * G::LDO + CC + ci] = __float2bfloat16(v);
-      }
-    } else {
-      for (int v = threadIdx.x; v < G::BM * P::VK; v += G::THREADS) {
-        const int m = v / P::VK, j = v % P::VK;
-        const int r = m / G::TW, c = m % G::TW;
-        float t4[8], t5[8], t7[8], t8[8], o[8];
-        auto tap8 = [&](int kh, int kw, float (&t)[8]) {
-          unpack_bf16x8(*reinterpret_cast<const uint4*>(
-                            P::at(pb, P::tap(r, c, kh, kw), j)), t);
-        };
-        tap8(1, 1, t4);
-        tap8(1, 2, t5);
-        tap8(2, 1, t7);
-        tap8(2, 2, t8);
-#pragma unroll
-        for (int k = 0; k < 8; ++k)
-          o[k] = fmaxf(fmaxf(t4[k], t5[k]), fmaxf(t7[k], t8[k]));
-        *reinterpret_cast<uint4*>(Cs + m * G::LDO + CC + j * 8) =
-            pack_bf16x8(o);
-      }
-    }
-    if constexpr (STEM) {
-      // the translated image's tile interior (patch rows 1 .. 2 TH, values
-      // 3 .. 6 TW + 2), a bf16 pair a thread: each input pixel lies in
-      // exactly one tile
-      const int n3 = 3 * min(2 * G::TW, W - 2 * tl.j0);  // even
-      for (int v = threadIdx.x; v < 2 * G::TH * 3 * G::TW;
-           v += G::THREADS) {
-        const int pr = 1 + v / (3 * G::TW), k = v % (3 * G::TW);
-        const int h = 2 * tl.i0 + pr - 1;
-        if (h < H && 2 * k < n3)
-          *reinterpret_cast<__nv_bfloat162*>(
-              xa + (((long long)tl.b * H + h) * W + 2 * tl.j0) * 3 + 2 * k) =
-              __floats2bfloat162_rn(P::at(patch, pr, 3 + 2 * k),
-                                    P::at(patch, pr, 4 + 2 * k));
-      }
-    }
-    __syncthreads();
-
-    // write whole output pixels, 16 bytes a thread; thread t always holds
-    // channels 8 (t % VC) .. + 7, its sums in registers
-    float s0[8], s1[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) s0[k] = s1[k] = 0.0f;
-    for (int v = threadIdx.x; v < G::BM * G::VC; v += G::THREADS) {
-      const int m = v / G::VC, j = v % G::VC;
-      const int i = tl.i0 + m / G::TW, jj = tl.j0 + m % G::TW;
-      if (i >= Ho || jj >= Wo) continue;
-      const uint4 q = *reinterpret_cast<const uint4*>(Cs + m * G::LDO + j * 8);
-      *reinterpret_cast<uint4*>(
-          out + (((long long)tl.b * Ho + i) * Wo + jj) * G::COUT + j * 8) = q;
-      if constexpr (S) {
-        float f[8];
-        unpack_bf16x8(q, f);
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          s0[k] += f[k];
-          s1[k] += __fmul_rn(f[k], f[k]);
-        }
-      }
-    }
-    if constexpr (S) {
-      // lanes of one channel group (lane % VC) in a fixed butterfly, the
-      // warps in order: the tile's partial part[t] = [sum y | sum y^2]
-#pragma unroll
-      for (int o = G::VC; o < 32; o *= 2)
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          s0[k] += __shfl_xor_sync(0xffffffffu, s0[k], o);
-          s1[k] += __shfl_xor_sync(0xffffffffu, s1[k], o);
-        }
-      float* red = reinterpret_cast<float*>(patch);
-      if (lane < G::VC)
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          red[(warp * G::VC + lane) * 16 + k] = s0[k];
-          red[(warp * G::VC + lane) * 16 + 8 + k] = s1[k];
-        }
-      __syncthreads();
-      if (threadIdx.x < 2 * G::COUT) {
-        const int q = threadIdx.x / G::COUT, c = threadIdx.x % G::COUT;
-        float a = 0.0f;
-        for (int wi = 0; wi < G::WARPS; ++wi)
-          a += red[(wi * G::VC + c / 8) * 16 + q * 8 + c % 8];
-        part[(long long)t * 2 * G::COUT + threadIdx.x] = a;
-      }
-    }
-    __syncthreads();  // Cs, red and this patch consumed
-  }
-  cp_async_wait_all();
-}
 
 // Input gradient: the conv's, as the parity-plane product
 // (parity_plane.cuh, FLIP) of g's CC conv channels (the A map, (B, Ho, Wo)
@@ -1077,101 +786,210 @@ down_fwd_f32_kernel(const float* __restrict__ x,
   cp_async_wait_all();
 }
 
-// Input gradient of the conv (K = 9 CC in three chunks of three taps, N =
-// CIN) plus the pool's; thread (rowg, colg) owns input pixels rowg + i RS
-// and input channels 4 colg .. + 3.
+// Input gradient, f32: the bf16 form's parity-plane product (FLIP) on the
+// CUDA cores.  A tile of TH x 32 g pixels of one image stages its
+// (TH + 1) x 33 patch of g's CC conv channels (channel stride CIN + CC,
+// zero past the bottom and right edges) once with 16-byte cp.async; the
+// four neighbour operands e_q of the product are views of it shifted by
+// one row and / or one column.  The nine (CC x CIN) blocks, the flipped,
+// transposed taps of wt read through pp_unit_tap(s, FLIP), stay resident
+// (27 KB at (16, 48), 147 KB at (64, 64), beside two patches), loaded once
+// by each persistent CTA (two an SM at (16, 48)); the next tile's patch is
+// in flight while this one multiplies.  Thread (rowg, tc) owns g pixels
+// rowg + i RS (i < TM) and input channels 4 tc .. 4 tc + 3 of all four
+// planes, so the pixel's 2x2 input block is its own: FFMA micro-tiles,
+// the units grouped by
+// their neighbour q (the A operand loaded once for the group's units), one
+// FMA chain per unit over its CC terms, and each plane the sum of its
+// units in the fixed order q = 0, 1, 2, 3.  The epilogue adds the pool's
+// share from x's 2x2 window and g's pool channels, each read once per g
+// pixel, 16 bytes a lane, and writes the four dx pixels 16 bytes a lane.
 template <int CIN, int CC>
 struct Dx32 {
-  static constexpr int COUT = CIN + CC, TPC = 3, KC = TPC * CC;
-  static constexpr int TN = 4, TC = CIN / TN, THREADS = 256;
-  static constexpr int RS = THREADS / TC, BM = CIN == 16 ? 128 : 64;
-  static constexpr int TM = BM / RS, LDA = pitch4(KC);
-  static constexpr size_t a_bytes = ((size_t)BM * LDA * 4 + 127) / 128 * 128;
-  static constexpr size_t smem = a_bytes + (size_t)KC * CIN * 4;
-  static_assert(CC % 4 == 0 && CIN % 4 == 0 && BM % RS == 0, "f32 dx tile");
+  static constexpr int K = CC, N = CIN, COUT = CIN + CC;
+  static constexpr int TH = CIN == 64 ? 2 : 4, TW = 32, BM = TH * TW;
+  // CTAs an SM: at Cin = 16 two, so that one's copies and epilogue run
+  // under the other's product (0.149 -> 0.134 ms at B=6, PERF.md §6); at
+  // 64 the resident taps leave room for one
+  static constexpr int CTAS = CIN == 64 ? 1 : 2;
+  static constexpr int THREADS = 256, TN = 4, TC = N / TN;
+  static constexpr int RS = THREADS / TC, TM = BM / RS;
+  static constexpr int PH = TH + 1, PW = TW + 1;
+  // the patch's pixel pitch (floats): an odd number of 16-byte chunks, so
+  // the float4 reads of up to 8 consecutive pixels fall on distinct banks
+  static constexpr int LDK = (K / 4) % 2 ? K : K + 4;
+  static constexpr size_t patch_bytes = pp_align((size_t)PH * PW * LDK * 4);
+  static constexpr size_t w_off = 2 * patch_bytes;  // two patches
+  static constexpr size_t smem = w_off + (size_t)9 * K * N * 4;
+  static_assert(K % 4 == 0 && N % TN == 0 && THREADS % TC == 0 &&
+                    BM % RS == 0 && TW % (32 / TC) == 0 &&
+                    CTAS * (smem + 1024) <= 233472,
+                "f32 dx tile");
 };
 
-template <int CIN, int CC>
-__global__ void __launch_bounds__(256)
-down_dx_f32_kernel(const float* __restrict__ g, const float* __restrict__ x,
-                   const float* __restrict__ wt, float* __restrict__ dx,
-                   int B, int H, int W) {
-  using G = Dx32<CIN, CC>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* As = reinterpret_cast<float*>(smem);
-  float* Ws = reinterpret_cast<float*>(smem + G::a_bytes);
-  const int Ho = H / 2, Wo = W / 2;
-  const long long M = (long long)B * H * W;
-  const long long tiles = (M + G::BM - 1) / G::BM;
-  constexpr int VPT = CC / 4;
-  const int colg = threadIdx.x % G::TC, rowg = threadIdx.x / G::TC;
-
-  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const long long m0 = tile * G::BM;
-    float acc[G::TM][G::TN];
-    zero_tile(acc);
-    for (int ch = 0; ch < 3; ++ch) {
-      for (int v = threadIdx.x; v < G::BM * G::TPC * VPT; v += blockDim.x) {
-        const int r = v / (G::TPC * VPT), tq = (v / VPT) % G::TPC,
-                  j = v % VPT;
-        const int tap = ch * G::TPC + tq;
-        const long long m = m0 + r;
-        const long long b = m / ((long long)H * W);
-        const int rem = (int)(m % ((long long)H * W));
-        const int hh = rem / W + 1 - tap / 3, ww = rem % W + 1 - tap % 3;
-        const bool valid = m < M && hh >= 0 && ww >= 0 && hh % 2 == 0 &&
-                           ww % 2 == 0 && hh / 2 < Ho && ww / 2 < Wo;
-        const long long pix = valid ? (b * Ho + hh / 2) * Wo + ww / 2 : 0;
-        cp_async16(As + r * G::LDA + tq * CC + j * 4,
-                   g + pix * G::COUT + j * 4, valid);
-      }
-      load_matrix(Ws, CIN, wt + (size_t)ch * G::KC * CIN, G::KC, CIN);
-      cp_async_commit();
-      cp_async_wait_all();
-      __syncthreads();
-      float part[G::TM][G::TN];  // a chain per chunk (add_tile)
-      zero_tile(part);
-      ffma_tile<G::TM, G::TN, G::KC, 4 * G::TC>(
-          part, As + rowg * G::LDA, G::RS * G::LDA, Ws + 4 * colg, CIN);
-      add_tile(acc, part);
-      __syncthreads();  // chunk consumed before the next gather
-    }
+// p[u] += the view of neighbour Q (this thread's pixels pix[i], shifted
+// by e_Q) @ the block of unit S_u (this thread's 4 columns), one FMA chain
+// per output in increasing k.
+template <class G, int Q, int... S>
+__device__ __forceinline__ void dx32_units(
+    const float* patch, const float* Ws, const int (&pix)[G::TM],
+    float (&p)[sizeof...(S)][G::TM][G::TN]) {
+  constexpr int K = G::K, N = G::N, NU = sizeof...(S);
+  constexpr int OFF = (Q & 1) * G::PW + (Q >> 1);
+  constexpr int taps[NU] = {pp_unit_tap(S, true)...};
+  const float* wb = Ws + 4 * (threadIdx.x % G::TC);
+#pragma unroll 2
+  for (int k = 0; k < K; k += 4) {
+    float av[G::TM][4];
 #pragma unroll
     for (int i = 0; i < G::TM; ++i) {
-      const long long m = m0 + rowg + i * G::RS;
-      if (m >= M) break;  // rows grow with i
-      const long long b = m / ((long long)H * W);
-      const int rem = (int)(m % ((long long)H * W));
-      const int h = rem / W, w = rem % W;
-      const int ho = h / 2, wo = w / 2, pr = h % 2, pc = w % 2;
-      float o[4];
+      const float4 v = *reinterpret_cast<const float4*>(
+          patch + (pix[i] + OFF) * G::LDK + k);
+      av[i][0] = v.x; av[i][1] = v.y; av[i][2] = v.z; av[i][3] = v.w;
+    }
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int ci = 4 * colg + q;
-        const float* win = x + ((b * H + 2 * ho) * W + 2 * wo) * CIN + ci;
-        float xv[2][2];
+    for (int u = 0; u < NU; ++u)
 #pragma unroll
-        for (int a = 0; a < 2; ++a)
+      for (int kk = 0; kk < 4; ++kk) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            wb + (taps[u] * K + k + kk) * N);
+        const float bv[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-          for (int k = 0; k < 2; ++k)
-            xv[a][k] = __ldg(win + ((long long)a * W + k) * CIN);
-        const float m0v = fmaxf(xv[0][0], xv[0][1]);
-        const float m1v = fmaxf(xv[1][0], xv[1][1]);
-        const float mp = fmaxf(m0v, m1v);
-        const float gp = __ldg(g + ((b * Ho + ho) * Wo + wo) * G::COUT + CC + ci);
-        const float mr = pr ? m1v : m0v;
-        float share = 0.0f;
-        if (mr == mp) {
-          const float gr = gp / (float)((m0v == mp) + (m1v == mp));
-          if (xv[pr][pc] == mr)
-            share = gr / (float)((xv[pr][0] == mr) + (xv[pr][1] == mr));
-        }
-        o[q] = acc[i][q] + share;
+        for (int i = 0; i < G::TM; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            p[u][i][j] = fmaf(av[i][kk], bv[j], p[u][i][j]);
       }
-      *reinterpret_cast<float4*>(dx + m * CIN + 4 * colg) =
-          make_float4(o[0], o[1], o[2], o[3]);
+  }
+}
+
+template <int CIN, int CC>
+__global__ void __launch_bounds__(256, Dx32<CIN, CC>::CTAS)
+down_dx_f32_kernel(const float* __restrict__ g, const float* __restrict__ x,
+                   const float* __restrict__ wt, float* __restrict__ dx,
+                   int B, int Ho, int Wo) {
+  using G = Dx32<CIN, CC>;
+  constexpr int K = G::K, TM = G::TM, TN = G::TN, COUT = G::COUT;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Ws = reinterpret_cast<float*>(smem + G::w_off);
+  const int H = 2 * Ho, W = 2 * Wo;
+  const int tiles =
+      B * ((Ho + G::TH - 1) / G::TH) * ((Wo + G::TW - 1) / G::TW);
+  const int tc = threadIdx.x % G::TC, rowg = threadIdx.x / G::TC;
+
+  // the (3, 3, CC, CIN) stack as it is: block s is tap pp_unit_tap(s, true)
+  for (int v = threadIdx.x; v < 9 * K * G::N / 4; v += G::THREADS)
+    cp_async16(Ws + 4 * v, wt + 4 * v, true);
+  auto patch_of = [&](int kk) {
+    return reinterpret_cast<float*>(smem + (kk & 1) * G::patch_bytes);
+  };
+  auto issue = [&](int t, int kk) {
+    if (t < tiles) {
+      const PPTile tl = pp_tile_of<G>(t, Ho, Wo);
+      float* dst = patch_of(kk);
+      for (int v = threadIdx.x; v < G::PH * G::PW * (K / 4);
+           v += G::THREADS) {
+        const int pix = v / (K / 4), e = v % (K / 4);
+        const int i = tl.i0 + pix / G::PW, j = tl.j0 + pix % G::PW;
+        const bool valid = i < Ho && j < Wo;
+        const long long off =
+            valid ? (((long long)tl.b * Ho + i) * Wo + j) * COUT + 4 * e : 0;
+        cp_async16(dst + pix * G::LDK + 4 * e, g + off, valid);
+      }
+    }
+    cp_async_commit();
+  };
+  int pix[TM];  // this thread's tile pixels, as patch pixels
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int m = rowg + i * G::RS;
+    pix[i] = (m / G::TW) * G::PW + m % G::TW;
+  }
+
+  issue(blockIdx.x, 0);  // with the weights
+  int kk = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++kk) {
+    const PPTile tl = pp_tile_of<G>(t, Ho, Wo);
+    issue(t + gridDim.x, kk + 1);  // into the buffer tile kk - 1 left
+    cp_async_wait_group<1>();
+    __syncthreads();
+    const float* pb = patch_of(kk);
+    // acc[plane]: neighbour 0's units 0, 1, 3, 4 (planes 0 .. 3) start
+    // each plane's sum; then neighbour 1's units 5, 6 (planes 2, 3), 2's
+    // units 2, 7 (planes 1, 3), 3's unit 8 (plane 3), each added in turn
+    float acc[4][TM][TN], part[2][TM][TN];
+#pragma unroll
+    for (int pl = 0; pl < 4; ++pl) zero_tile(acc[pl]);
+    dx32_units<G, 0, 0, 1, 3, 4>(pb, Ws, pix, acc);
+    zero_tile(part[0]);
+    zero_tile(part[1]);
+    dx32_units<G, 1, 5, 6>(pb, Ws, pix, part);
+    add_tile(acc[2], part[0]);
+    add_tile(acc[3], part[1]);
+    zero_tile(part[0]);
+    zero_tile(part[1]);
+    dx32_units<G, 2, 2, 7>(pb, Ws, pix, part);
+    add_tile(acc[1], part[0]);
+    add_tile(acc[3], part[1]);
+    {
+      float p3[1][TM][TN];
+      zero_tile(p3[0]);
+      dx32_units<G, 3, 8>(pb, Ws, pix, p3);
+      add_tile(acc[3], p3[0]);
+    }
+    __syncthreads();  // the patch is read: tile kk + 1's copies may refill it
+
+    // the pool's share and the stores: pixel (gi, gj) is the pool window
+    // of input pixels (2 gi + a, 2 gj + b)
+    const int ci = 4 * tc;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int m = rowg + i * G::RS;
+      const int gi = tl.i0 + m / G::TW, gj = tl.j0 + m % G::TW;
+      if (gi >= Ho || gj >= Wo) continue;
+      const float* win =
+          x + (((long long)tl.b * H + 2 * gi) * W + 2 * gj) * CIN + ci;
+      float xv[2][2][4], gp[4];
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          const float4 v = __ldg(reinterpret_cast<const float4*>(
+              win + ((long long)a * W + b) * CIN));
+          xv[a][b][0] = v.x; xv[a][b][1] = v.y;
+          xv[a][b][2] = v.z; xv[a][b][3] = v.w;
+        }
+      {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(
+            g + (((long long)tl.b * Ho + gi) * Wo + gj) * COUT + CC + ci));
+        gp[0] = v.x; gp[1] = v.y; gp[2] = v.z; gp[3] = v.w;
+      }
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          float o[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float m0v = fmaxf(xv[0][0][q], xv[0][1][q]);
+            const float m1v = fmaxf(xv[1][0][q], xv[1][1][q]);
+            const float mp = fmaxf(m0v, m1v), mr = a ? m1v : m0v;
+            const float x0 = xv[a][0][q], x1 = xv[a][1][q];
+            float share = 0.0f;
+            if (mr == mp) {
+              const float gr = gp[q] / (float)((m0v == mp) + (m1v == mp));
+              if ((b ? x1 : x0) == mr)
+                share = gr / (float)((x0 == mr) + (x1 == mr));
+            }
+            o[q] = acc[a * 2 + b][i][q] + share;
+          }
+          *reinterpret_cast<float4*>(
+              dx + (((long long)tl.b * H + 2 * gi + a) * W + 2 * gj + b) *
+                       CIN + ci) = make_float4(o[0], o[1], o[2], o[3]);
+        }
     }
   }
+  cp_async_wait_all();
 }
 
 // Weight gradient, f32: the bf16 form's (chunk of output rows, kh) grid
@@ -1398,7 +1216,8 @@ int fwd(const void* x, const void* shifts, const void* w, const void* bias,
       <<<tiles < gm ? tiles : gm, G::THREADS, G::smem, s>>>(
           x, static_cast<const int*>(shifts), static_cast<const bf16*>(w),
           static_cast<const float*>(bias), static_cast<bf16*>(out),
-          static_cast<bf16*>(xa), static_cast<float*>(part), B, Ho, Wo);
+          static_cast<bf16*>(xa), static_cast<float*>(part), B, Ho, Wo,
+          nullptr, nullptr);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   if constexpr (!S) return cudaSuccess;
   return reduce_parts(static_cast<const float*>(part),
@@ -1524,11 +1343,13 @@ int bwd_f32(int stats, const void* gy, const void* y, const void* gs1,
     if ((e = grid_for(down_dx_f32_kernel<CIN, CC>, G::THREADS, G::smem, &ok,
                       &gm)) != cudaSuccess)
       return e;
-    const long long tiles = ((long long)B * H * W + G::BM - 1) / G::BM;
+    const int tiles =
+        B * ((Ho + G::TH - 1) / G::TH) * ((Wo + G::TW - 1) / G::TW);
     down_dx_f32_kernel<CIN, CC>
-        <<<(unsigned)(tiles < gm ? tiles : gm), G::THREADS, G::smem, s>>>(
+        <<<tiles < gm ? tiles : gm, G::THREADS, G::smem, s>>>(
             static_cast<const float*>(gg), static_cast<const float*>(x),
-            static_cast<const float*>(wt), static_cast<float*>(dx), B, H, W);
+            static_cast<const float*>(wt), static_cast<float*>(dx), B, Ho,
+            Wo);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
   }
   using G = Wg32R<CIN, CC>;

@@ -10,11 +10,11 @@ the conv weights are cast to the compute dtype, the bias and the BN
 scale/shift stay f32 and BN is not folded into the weights; the pool value
 is the max of the compute-dtype inputs; one rounding at the end.  Bound on
 the H100: bytes (the three blocks move far more bytes than their products
-need time); this version gathers each 3x3 window through L2, so input
-pixels are read up to four times from cache, and stages the weights once
-per CTA.
+need time).
 
-Forms: bf16 (``erf_downsampler_eval``, mma.sync) and f32
+Forms: bf16 (``erf_downsampler_eval``: the train forward's halo-patch
+conv, ``csrc/down_fwd.cuh``, with the BatchNorm and ReLU in its epilogue;
+it reads the tap stack ``w`` as it is) and f32
 (``erf_downsampler_eval_f32``, the JAX package's default compute dtype:
 f32 maps, an f32 ``wmat``, f32 FMAs on the CUDA cores, no TF32), picked by
 the input's dtype; launches counted apart (``downsampler.launches[""]``
@@ -36,9 +36,10 @@ def _round16(v):
 
 def prepare_downsampler(sd, prefix, dtype):
     """Block ``prefix`` of a reference state_dict -> kernel operands:
-    ``w`` (3, 3, Cin, Cc) HWIO in ``dtype``; ``wmat`` the same as a
-    (9 Cin, Cc) matrix zero-padded to multiples of 16 (the kernel's GEMM
-    operand); ``b`` (Cc,) f32; ``scale``/``shift`` (Cout,) f32."""
+    ``w`` (3, 3, Cin, Cc) HWIO in ``dtype`` (the bf16 kernel's tap stack);
+    ``wmat`` the same as a (9 Cin, Cc) matrix zero-padded to multiples of
+    16 (the f32 kernel's GEMM operand); ``b`` (Cc,) f32;
+    ``scale``/``shift`` (Cout,) f32."""
     w = sd[prefix + ".conv.weight"].permute(2, 3, 1, 0).float()
     cin, cc = w.shape[2], w.shape[3]
     wmat = torch.zeros(_round16(9 * cin), _round16(cc), dtype=torch.float32,
@@ -67,8 +68,9 @@ def downsampler_plain(x, p):
 
 def downsampler(x, p):
     """CPU tensor: the plain version.  CUDA tensor: one launch of the
-    kernel's form for x's dtype (bf16 or f32, ``wmat`` in the same dtype;
-    Cin in 3/16/64 with Cc 13/48/64, even H and W), or raise."""
+    kernel's form for x's dtype (bf16 with ``w``, f32 with ``wmat``, in
+    x's dtype; Cin in 3/16/64 with Cc 13/48/64, even H and W), or
+    raise."""
     if x.device.type == "cpu":
         return downsampler_plain(x, p)
     B, H, W, cin = x.shape
@@ -77,15 +79,20 @@ def downsampler(x, p):
         raise ValueError(f"downsampler kernel: unsupported shape {x.shape} "
                          f"-> Cc {cc}")
     form = _build.kernel_form(x, "x")
-    _build.require(p["wmat"], "wmat", x.dtype, x.device,
-                   (_round16(9 * cin), _round16(cc)))
+    if form:    # f32: the zero-padded (9 Cin, Cc) matrix
+        wk = p["wmat"]
+        _build.require(wk, "wmat", x.dtype, x.device,
+                       (_round16(9 * cin), _round16(cc)))
+    else:       # bf16: the (3, 3, Cin, Cc) tap stack as it is
+        _build.require(p["w"], "w", x.dtype, x.device, (3, 3, cin, cc))
+        wk = _build.taps(p["w"], x.dtype)   # 16-byte aligned
     for name, n in (("b", cc), ("scale", cin + cc), ("shift", cin + cc)):
         _build.require(p[name], name, torch.float32, x.device, (n,))
     lib = _build.library("downsampler")
     fn = _build.declare(lib, "erf_downsampler_eval" + form, 6, 5)
     out = torch.empty(B, H // 2, W // 2, cin + cc, dtype=x.dtype,
                       device=x.device)
-    err = fn(_build.ptr(x), _build.ptr(p["wmat"]), _build.ptr(p["b"]),
+    err = fn(_build.ptr(x), _build.ptr(wk), _build.ptr(p["b"]),
              _build.ptr(p["scale"]), _build.ptr(p["shift"]), _build.ptr(out),
              B, H, W, cin, cc, _build.stream_ptr(x))
     _build.check(lib, err, f"downsampler{form} launch")

@@ -26,12 +26,14 @@ forward is the stride-2 conv over the parity planes of each tile's halo
 patch (FWD_TH x FWD_TW output pixels, ``csrc/parity_plane.cuh``), the tap
 stack read as it is (no padded matrix is built for it), one statistic
 partial per tile; so is the f32 forward at Cin = 3 (the stem), over each
-tile's raw f32 patch, its product an FFMA chain per output.  In the bf16
-form the conv input gradient is the parity-plane product of g with the
-transposed taps ``wt`` (3, 3, Cc, Cin), and the weight gradient's
-partials are per chunk of ``WG_ROWS`` output rows; the f32 weight
-gradient runs on the same (row chunk, kh) grid, its chunks sized to one
-wave of the card's SMs (``erf_down_train_wg_rows_f32``).
+tile's raw f32 patch, its product an FFMA chain per output.  In both
+forms the conv input gradient at Cin = 16 and 64 is the parity-plane
+product of g with the transposed taps ``wt`` (3, 3, Cc, Cin), per tile of
+g pixels (tensor cores at bf16, FFMA micro-tiles at f32, one chain per
+tap block).  The bf16 weight gradient's partials are per chunk of
+``WG_ROWS`` output rows; the f32 weight gradient runs on the same (row
+chunk, kh) grid, its chunks sized to one wave of the card's SMs
+(``erf_down_train_wg_rows_f32``).
 
 The kernels take (Cin, Cc) in {(3, 13), (16, 48), (64, 64)} (the stem only
 at (3, 13)) and even H, W, and raise on anything else.  Two forms, picked
@@ -61,6 +63,8 @@ from . import _build, route
 FWD_TH = {3: 8, 16: 4, 64: 2}
 FWD_TW = 32
 BM_F32 = 64      # output pixels per tile of the f32 forward at Cin 16, 64
+# the f32 input gradient's tile, DX32_TH[Cin] x 32 g pixels (csrc Dx32)
+DX32_TH = {16: 4, 64: 2}
 # output rows per bf16 weight-gradient partial, by Cin (csrc Wg::ROWS)
 WG_ROWS = {3: 2, 16: 4, 64: 4}
 # the f32 weight gradient by Cin (csrc Wg32R): kernel rows a CTA, output

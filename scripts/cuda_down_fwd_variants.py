@@ -1,7 +1,8 @@
 """Where the bf16 train downsampler forward spends its time, on the card.
 
 Builds ``erfnet_pytorch_tpu_torch/csrc/downsampler_train.cu`` as it is and
-in variants that each take one part of the forward kernel away, then runs
+in variants that each take one part of the forward kernel
+(``csrc/down_fwd.cuh``) away, then runs
 each build through ``downsampler_train.down_fwd`` at the B=6 shapes of
 rows 7, 6 and 4 (``chip_smoke.py`` ``down_train_cases`` and the 3-channel
 ``nostats_down_cases`` map) and prints, per build and shape, the device
@@ -46,16 +47,23 @@ def build(out_dir):
     """{variant: loaded library}, nvcc processes in parallel."""
     from erfnet_pytorch_tpu_torch.ops.cuda import _build
     src = open(os.path.join(CSRC, "downsampler_train.cu")).read()
+    hdr = open(os.path.join(CSRC, "down_fwd.cuh")).read()
     procs = {}
     for name, subs in VARIANTS.items():
-        s = src
+        s = hdr
         for a, b in subs:
             if a not in s:
-                raise SystemExit(f"{name}: the source no longer holds {a!r}")
+                raise SystemExit(f"{name}: the header no longer holds {a!r}")
             s = s.replace(a, b)
-        path = os.path.join(out_dir, f"{name}.cu")
-        with open(path, "w") as f:
+        # the variant's header beside its copy of the source, found before
+        # the one in csrc/
+        vdir = os.path.join(out_dir, name)
+        os.makedirs(vdir, exist_ok=True)
+        with open(os.path.join(vdir, "down_fwd.cuh"), "w") as f:
             f.write(s)
+        path = os.path.join(vdir, "downsampler_train.cu")
+        with open(path, "w") as f:
+            f.write(src)
         procs[name] = subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-I", CSRC, "-o",
              os.path.join(out_dir, f"lib{name}.so"), path],

@@ -1512,3 +1512,69 @@ def _close_two_roundings(got, ref, part):
         r.pow(2).mean().sqrt().item())
     rel = ((g - r).abs() / floor).max().item()
     assert frac >= 0.999 and rel <= 2.0 ** -6, (frac, rel)
+
+
+@pytest.mark.parametrize("shape,cc", [
+    ((1, 22, 90, 16), 48), ((4, 130, 260, 16), 48), ((2, 14, 70, 64), 64),
+    ((3, 10, 322, 64), 64)])
+@pytest.mark.parametrize("stats", [True, False])
+def test_downsampler_f32_input_gradient_ragged_tiles(dev, shape, cc, stats):
+    """The f32 input gradient as the parity-plane product over tiles of
+    4 x 32 (Cin = 16) and 2 x 32 (Cin = 64) g pixels: g maps whose rows
+    and columns leave the last tile short, more tiles than the card's
+    CTAs (each CTA several tiles, the next patch in flight), pool windows
+    of four and two tied values, with and without the statistics; dx at
+    phase 23's map rule, two calls bit-identical."""
+    B, H, W, cin = shape
+    x = _rn(*shape, seed=31).relu()
+    x[:, 2:4, 2:4, :] = 0.5                        # four tied values
+    x[:, 4:6, 6, :] = 0.25                         # a tied pair by rows
+    x[:, 4:6, 7, :] = 0.0
+    x = x.to(dev)
+    w = _rn(3, 3, cin, cc, seed=32, scale=(9 * cin) ** -0.5).to(dev)
+    b = _rn(cc, seed=33, scale=0.1).to(dev)
+    y = downsampler_train.down_fwd_plain(x, w, b)[1]
+    gy = _rn(*y.shape, seed=34).to(dev)
+    gs1 = _rn(B, y.shape[-1], seed=35, scale=1e-2).to(dev) if stats else None
+    gs2 = _rn(B, y.shape[-1], seed=36, scale=1e-2).to(dev) if stats else None
+    th = downsampler_train.DX32_TH[cin]
+    assert (H // 2) % th and (W // 2) % 32
+    count = _launched if stats else _nostats
+    n0 = count(downsampler_train.down_bwd, F32)
+    got = downsampler_train.down_bwd(x, y, gy, gs1, gs2, w, stem=False)
+    again = downsampler_train.down_bwd(x, y, gy, gs1, gs2, w, stem=False)
+    ref = downsampler_train.down_bwd_plain(x, y, gy, gs1, gs2, w, stem=False)
+    torch.cuda.synchronize()
+    assert (count(downsampler_train.down_bwd, F32) - n0
+            == 2 * (downsampler_train.BWD_LAUNCHES[False] if stats
+                    else downsampler_train.NOSTATS_BWD_LAUNCHES))
+    _close(got[0], ref[0])
+    assert torch.equal(again[0], got[0])
+    for i in (1, 2):
+        _rel(got[i], ref[i], F32_GRAD_REL)
+
+
+@pytest.mark.parametrize("prefix,shape", [
+    ("encoder.initial_block", (3, 70, 198, 3)),
+    ("encoder.initial_block", (2, 2, 2, 3)),
+    ("encoder.layers.0", (2, 38, 70, 16)),
+    ("encoder.layers.0", (5, 66, 258, 16)),
+    ("encoder.layers.6", (2, 22, 134, 64)),
+    ("encoder.layers.6", (9, 34, 130, 64))])
+def test_downsampler_eval_halo_patch_ragged_tiles(dev, sd, prefix, shape):
+    """The bf16 eval block on the train forward's halo-patch tiles (8, 4
+    and 2 x 32 output pixels at Cin = 3, 16 and 64): output maps whose
+    rows and columns leave the last tile short, a map smaller than one
+    tile, more tiles than the card's CTAs, pool windows of tied values,
+    negative values for the ReLU; one launch, bit-identical twice."""
+    p = _on(downsampler.prepare_downsampler(sd, prefix, BF), dev)
+    x = _rn(*shape, seed=shape[-1] + shape[0])
+    x[:, :2, :2, :] = 0.5                          # four tied values
+    x = x.to(dev, BF)
+    n0 = _launched(downsampler.downsampler, BF)
+    got = downsampler.downsampler(x, p)
+    again = downsampler.downsampler(x, p)
+    torch.cuda.synchronize()
+    assert _launched(downsampler.downsampler, BF) - n0 == 2
+    _close(got, downsampler.downsampler_plain(x, p))
+    assert torch.equal(again, got)
