@@ -9,17 +9,20 @@ rows (the train downsampler backward, rows 5, 5 on g = gy and 8; the
 train upsampler forward, rows 12 and 10, and backward, rows 13 and 11),
 of the train downsampler forward (rows 7, 6 and 4) at their B=6 shapes,
 each in bf16 and in f32, of the eval downsampler and upsampler (rows 9
-and 14) at their B=4 shapes in bf16, and of the bf16 train NB1d conv
-pair (rows 21, 22 and 23 at C=64 and C=128, and at C=16, a forward and
-a backward of each distinct lead, shape and dilation of the B=6 steps,
-weighted by its calls per step) by launch: CUDA events, device time by
-kernel (torch.profiler) and the host's enqueue time, with cuDNN's call
-for the same function by device time beside each forward and rows 5, 8,
-11, 13 and the pair (the forward conv, with its bias for row 9; its
+and 14) at their B=4 shapes in bf16, of the train NB1d conv pair (rows
+21, 22 and 23 at C=64 and C=128, and at C=16, a forward and a backward
+of each distinct lead, shape and dilation of the B=6 steps, weighted by
+its calls per step) and of the head + class-weighted NLL (row 17 at G=1
+and G=4, forward and backward), each in bf16 and in f32, by launch:
+CUDA events, device time by kernel (torch.profiler) and the host's
+enqueue time, with the library's call for the same function by device
+time beside each forward and rows 5, 8, 11, 13, the pair and row 17
+(cuDNN's forward conv, with its bias for row 9; its
 ``convolution_backward`` for rows 5 and 8, the weight gradient alone
-for row 8, TF32 off at f32; the transposed conv for row 14, its
-``convolution_backward`` for rows 13 and 11; the pair's two convs,
-forward or ``convolution_backward``); then prints the card line; no
+for row 8; the transposed conv for row 14, its ``convolution_backward``
+for rows 13 and 11; the pair's two convs, forward or
+``convolution_backward``; ``addmm`` + ``cross_entropy`` and their
+backward for row 17; TF32 off at f32); then prints the card line; no
 result line.  Phases 9 and 28 print the same split for the parity-plane
 rows.
 
@@ -3405,22 +3408,26 @@ def split_calls(device, dtype):
     5 gy), the train upsampler forward with and without statistics (rows
     12, 10) and its backward with and without (rows 13, 11); the eval
     downsampler and upsampler (rows 9, 14) at their B=4 serving shapes;
-    and the bf16 train NB1d conv pair
-    (rows 21, 22, 23 at C=64 and C=128, "21 C16" .. "23 C16"), a forward
-    and a backward call of each distinct (lead, shape, dilation) of
-    ``pair_cases`` and ``dec_pair_cases``, weighted by its calls per step
-    of the encoder stage (C=64, C=128) or of stage 2 (C=16).
-    ``yardstick``: cuDNN's call for the same function (the forward conv of
-    a forward of the downsampler, the stem's on its translated image; its
+    the train NB1d conv pair (rows 21, 22, 23 at C=64 and C=128, "21 C16"
+    .. "23 C16"), a forward and a backward call of each distinct (lead,
+    shape, dilation) of ``pair_cases`` and ``dec_pair_cases``, weighted by
+    its calls per step of the encoder stage (C=64, C=128) or of stage 2
+    (C=16); and the head + class-weighted NLL forward and backward (row 17
+    at G=1, the encoder stage's; "17 G4", stage 2's), one call each a
+    step.  ``yardstick``: the library's call for the same function, timed
+    and never on the path: cuDNN's (the forward conv of a forward of the
+    downsampler, the stem's on its translated image; its
     ``convolution_backward`` for rows 5 and 8, the stem's weight gradient
     alone; ``convolution_backward`` of the transposed conv for rows 13
     and 11; the conv with its bias for row 9 (without the pool, the BN
     affine and the ReLU), the transposed conv with its bias for row 14;
-    the pair's two convs, their
-    forwards or their ``convolution_backward``s), else None."""
+    the pair's two convs, their forwards or their
+    ``convolution_backward``s), ``addmm`` + ``cross_entropy`` and their
+    backward for row 17 (``_lib_head_loss``), else None."""
     import torch
     from erfnet_pytorch_tpu_torch.ops.cuda import downsampler
     from erfnet_pytorch_tpu_torch.ops.cuda import downsampler_train as dt
+    from erfnet_pytorch_tpu_torch.ops.cuda import head_loss as hl
     from erfnet_pytorch_tpu_torch.ops.cuda import nb1d_pair as pr
     from erfnet_pytorch_tpu_torch.ops.cuda import upsampler
     from erfnet_pytorch_tpu_torch.ops.cuda import upsampler_train as ut
@@ -3492,8 +3499,6 @@ def split_calls(device, dtype):
         calls.append((14, f"up {shape[-1]}->", (
             lambda x=x, p=p: upsampler.upsampler(x, p)),
             library_call("upsampler", x, p), 1))
-    if dtype != torch.bfloat16:
-        return calls
     for mode, shape, d, n in pair_cases(TRAIN_B) + [
             c for c in dec_pair_cases(TRAIN_B) if c[1][-1] == 16]:
         C = shape[-1]
@@ -3513,13 +3518,48 @@ def split_calls(device, dtype):
             lambda mode=mode, saved=saved, ct=ct:
             pr.pair_bwd(mode, saved, **ct)),
             lambda lh=lh, lw=lw: (lh[1](), lw[1]()), n))
+    gnum = torch.ones((), device=device)
+    for G in (1, 4):
+        M = head_loss_rows(TRAIN_B) if G == 1 else head4_rows(TRAIN_B)
+        feats, w, b, labels, cw = head_inputs(M, g, device, G=G, dtype=dtype)
+        lib = _lib_head_loss(feats, w, b, labels, cw)
+        row, label = (17, "head_loss G1") if G == 1 else ("17 G4",
+                                                           "head_loss G4")
+        calls.append((row, label + " fwd", (
+            lambda feats=feats, w=w, b=b, labels=labels, cw=cw:
+            hl.head_loss_fwd(feats, w, b, labels, cw)), lib[0], 1))
+        calls.append((row, label + " bwd", (
+            lambda feats=feats, w=w, b=b, labels=labels, cw=cw:
+            hl.head_loss_bwd(feats, w, b, labels, cw, gnum)), lib[1], 1))
     return calls
+
+
+def _lib_head_loss(feats, w, b, labels, cw):
+    """The head+loss yardstick, never on the path: ``torch.addmm`` and
+    ``F.cross_entropy`` with the class weights and the void label ignored,
+    summed, in the feats' dtype (the logits (M, G n) as M G rows of n), as
+    two calls to time: the forward, and the backward of one forward's
+    graph (feats, W and b)."""
+    import torch
+    import torch.nn.functional as F
+    dt = feats.dtype
+    leaves = [t.detach().to(dt).requires_grad_() for t in (feats, w, b)]
+    lab = labels.reshape(-1)
+
+    def fwd():
+        z = torch.addmm(leaves[2], leaves[0], leaves[1])
+        return F.cross_entropy(z.reshape(lab.shape[0], -1), lab,
+                               weight=cw.to(dt), ignore_index=N_CLASSES - 1,
+                               reduction="sum")
+    loss = fwd()
+    return fwd, lambda: torch.autograd.grad(loss, leaves, retain_graph=True)
 
 
 def phase_split(device, iters, dtypes=None):
     """Each call of ``split_calls`` through its wrapper, split by
-    ``kernel_split`` (bf16, and the f32 forms of every train row, with
-    TF32 off: the serving rows 9 and 14 in bf16 only), and its
+    ``kernel_split`` (bf16, and the f32 forms of every train row, the pair
+    and head+loss rows included, with TF32 off: the serving rows 9 and 14
+    in bf16 only), and its
     yardstick's device time (``cudnn``); summed by
     row, each call times its calls per step, with the row's device time
     by kernel (``kernels``)."""

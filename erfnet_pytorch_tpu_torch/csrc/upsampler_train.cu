@@ -74,19 +74,39 @@
 // 64, mma.sync and not wgmma, the g fold a pass of its own.
 //
 // The f32 forms (erf_ups_train_*_f32, the JAX package's default compute
-// dtype): the same launches and the same function with x, y, g, dx and
-// Wcat in f32 and nothing rounded to bf16 (Wcat's taps unrounded).  Both
-// products are tiled GEMMs over Wcat (64 pixels x 64 columns, K staged
-// 64 at a time, the forward skipping zero weight blocks) on the CUDA
-// cores (FFMA micro-tiles of 4 pixels x 8 columns a thread, common.cuh
-// ffma_tile; no TF32): the forward's K in one FFMA chain per output (as
-// the plain version's single matmul sums it), the dx product's 16 Cout
-// in a chain per 64-wide chunk, the chunks added in order (shorter
-// chains; measured 0.4 of the single chain's error, PERF.md §6); the
-// weight gradient is one (Cin x Cout) product per (chunk, tap) with the
-// pixels as its depth (common.cuh ffma_outer).
+// dtype): the same launches and the same function with x, y, g and dx in
+// f32 and nothing rounded to bf16, every product on the CUDA cores (FFMA
+// micro-tiles; no TF32, no library call).  The forward is a tiled GEMM
+// over Wcat (taps unrounded; 64 pixels x 64 columns, K staged 64 at a
+// time, zero weight blocks skipped, the K in one FFMA chain per output as
+// the plain version's single matmul sums it; common.cuh ffma_tile).  The
+// backward keeps the bf16 form's two designs in f32 and reads the tap
+// stack w (3, 3, Cin, Cout) as it is (no Wcat):
+// * dx (UpsDx32): the halo-patch stride-2 conv of g, 9 Cout Cin MACs a dx
+//   pixel (the transposed Wcat GEMM it replaced multiplied Wcat's seven
+//   zero blocks too: 9.66 against 5.44 GMAC at the B=6 shapes).  At 64 ->
+//   16 the f32 stack (36 KB) is resident beside two patches, two CTAs an
+//   SM.  At 128 -> 64 the stack (295 KB) exceeds a CTA's 227 KB, so it
+//   streams a tap (32 KB) a stage through a 2-stage cp.async ring beside
+//   two 2 x 32 tiles' patches (the next tile's in flight).  A ring, and
+//   not dx's 128 channels split over two CTAs each with its 147 KB half
+//   resident: that leaves room for one patch (copies and product in turn)
+//   and reads g twice.  Of the rings timed, whole taps in two stages beat
+//   half taps in four or three (9 barriers a tile, not 18) and 1 x 32
+//   tiles (PERF.md §6).  Each output one FMA chain per tap (128 -> 64) or
+//   per kh row of three taps (64 -> 16), the chains added in the order the
+//   taps stream.
+// * The weight gradient (UpsWg32): the (chunk of input rows, kh) grid, x
+//   read 3 / KHN times (once at 64 -> 16) and g 1.5 times, one partial
+//   per chunk (12.7 MB at 128 -> 64 and 4.7 MB at 64 -> 16 on 132 SMs,
+//   where partials per 1024-pixel chunk and tap took 21 MB), each output
+//   one FMA chain per thread group, the groups added in order.
 // Bound at f32: operations (9 Cin Cout MACs per input pixel forward, twice
-// that backward, against 67 TFLOP/s).
+// that backward, against 67 TFLOP/s).  What is left: dx runs at 2.2-2.6x
+// its bound, its product at about half the FFMA rate (without the product
+// dx takes 0.06 of its 0.23 ms at 128 -> 64, scripts/cuda_ups_bwd_variants.py;
+// PERF.md §6); at 64 -> 16 two CTAs an SM cap it at 128 registers (a few
+// spilled, still faster than one CTA); the g fold is a pass of its own.
 //
 // The stats-free forms (with_stats = 0) replace upsampler_packed
 // (_ups_fwd_kernel via _call_fwd_local, _ups_bwd_kernel via
@@ -389,6 +409,7 @@ struct UpsWg {
   static constexpr int BP = 128;  // input pixels a block
   static constexpr int NS = 3;    // ring stages
   static constexpr int CTAS = 1;  // CTAs an SM
+  static constexpr int THREADS = 256;
   static constexpr int LDA = CIN + 8, LDG = COUT + 8;
   static constexpr int VG = COUT / 8, DBG = 256 / VG;
   static constexpr size_t x_bytes = pp_align((size_t)BP * LDA * 2);
@@ -579,8 +600,9 @@ wgrad_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
 // f32 forms
 // ---------------------------------------------------------------------------
 
-// Thread (rowg, colg) of an RS32 x TC32 grid owns rows rowg + i RS32 (i <
-// TM32) and columns 4 colg + g CS32 + q (g < 2, q < 4) of the tile.
+// The forward's tiled GEMM: thread (rowg, colg) of an RS32 x TC32 grid owns
+// rows rowg + i RS32 (i < TM32) and columns 4 colg + g CS32 + q (g < 2, q <
+// 4) of the tile.
 constexpr int THREADS32 = 128, TN32 = 8, TC32 = BN / TN32;
 constexpr int RS32 = THREADS32 / TC32, TM32 = BM / RS32, CS32 = 4 * TC32;
 constexpr int LDA32 = pitch4(KC);
@@ -588,73 +610,52 @@ constexpr size_t A32_BYTES = ((size_t)BM * LDA32 * 4 + 127) / 128 * 128;
 constexpr size_t SMEM32 = A32_BYTES + (size_t)KC * BN * 4;
 static_assert((size_t)RS32 * 2 * BN * 4 <= SMEM32, "f32 statistic scratch");
 
-// Start copying chunk [k0, k0 + KC) of the forward gather (FWD: column k
-// is channel k % Cin of neighbour q = k / Cin, zero past the bottom and
-// right edges) or of the dx gather (load_a_dx), f32, and rows [k0, k0 + KC) x
-// columns [n0, n0 + BN) of the (K x N) f32 matrix w.
-template <bool FWD>
+// Start copying chunk [k0, k0 + KC) of the forward gather (column k is
+// channel k % Cin of neighbour q = k / Cin, zero past the bottom and right
+// edges), f32, and rows [k0, k0 + KC) x columns [n0, n0 + BN) of the f32
+// Wcat (4 Cin x 4 Cout).
 __device__ __forceinline__ void load_chunk_f32(float* As, float* Bs,
-                                               const float* a_src,
-                                               const float* w, int N, int Cin,
+                                               const float* x,
+                                               const float* wcat, int Cin,
                                                int Cout, int H, int W, int b,
                                                int p0, int p_end, int k0,
                                                int n0) {
   for (int v = threadIdx.x; v < BM * KC / 4; v += THREADS32) {
     const int r = v / (KC / 4), j = v % (KC / 4);
     const int k = k0 + j * 4, p = p0 + r;
-    long long src = 0;
-    bool valid;
-    if (FWD) {
-      const int q = k / Cin, c = k % Cin;
-      const int i = p / W + dh_of(q), jj = p % W + dw_of(q);
-      valid = p < p_end && i < H && jj < W;
-      if (valid) src = (((long long)b * H + i) * W + jj) * Cin + c;
-    } else {
-      const int q = k / (4 * Cout), w4 = k % (4 * Cout);
-      const int pl = w4 / Cout, c = w4 % Cout;
-      const int i = p / W - dh_of(q), jj = p % W - dw_of(q);
-      valid = p < p_end && i >= 0 && jj >= 0;
-      if (valid)
-        src = (((long long)b * 2 * H + 2 * i + (pl >> 1)) * 2 * W + 2 * jj +
-               (pl & 1)) * Cout + c;
-    }
-    cp_async16(As + r * LDA32 + j * 4, a_src + src, valid);
+    const int q = k / Cin, c = k % Cin;
+    const int i = p / W + dh_of(q), jj = p % W + dw_of(q);
+    const bool valid = p < p_end && i < H && jj < W;
+    const long long src =
+        valid ? (((long long)b * H + i) * W + jj) * Cin + c : 0;
+    cp_async16(As + r * LDA32 + j * 4, x + src, valid);
   }
   for (int v = threadIdx.x; v < KC * BN / 4; v += THREADS32) {
     const int r = v / (BN / 4), j = v % (BN / 4);
-    cp_async16(Bs + r * BN + j * 4, w + (long long)(k0 + r) * N + n0 + j * 4,
-               true);
+    cp_async16(Bs + r * BN + j * 4,
+               wcat + (long long)(k0 + r) * 4 * Cout + n0 + j * 4, true);
   }
   cp_async_commit();
 }
 
-// The tile of CTA (blockIdx.x = pixel tile, blockIdx.y = column tile):
-// acc = the product over the K chunks (the forward skips zero blocks).
-template <bool FWD>
-__device__ void gemm_tile_f32(unsigned char* smem, const float* a_src,
-                              const float* w, int K, int N, int Cin, int Cout,
-                              int H, int W, int b, int p0, int p_end, int n0,
+// The forward tile of CTA (blockIdx.x = pixel tile, blockIdx.y = column
+// tile): acc = the product over the K chunks, zero weight blocks skipped,
+// one chain (the plain version's single matmul).
+__device__ void gemm_tile_f32(unsigned char* smem, const float* x,
+                              const float* wcat, int Cin, int Cout, int H,
+                              int W, int b, int p0, int p_end, int n0,
                               float (&acc)[TM32][TN32]) {
   float* As = reinterpret_cast<float*>(smem);
   float* Bs = reinterpret_cast<float*>(smem + A32_BYTES);
   const int colg = threadIdx.x % TC32, rowg = threadIdx.x / TC32;
   zero_tile(acc);
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    if (FWD && !fwd_chunk_used(k0, n0, Cin, Cout)) continue;
-    load_chunk_f32<FWD>(As, Bs, a_src, w, N, Cin, Cout, H, W, b, p0, p_end,
-                        k0, n0);
+  for (int k0 = 0; k0 < 4 * Cin; k0 += KC) {
+    if (!fwd_chunk_used(k0, n0, Cin, Cout)) continue;
+    load_chunk_f32(As, Bs, x, wcat, Cin, Cout, H, W, b, p0, p_end, k0, n0);
     cp_async_wait_all();
     __syncthreads();
-    if constexpr (FWD) {  // one chain: the plain version's single matmul
-      ffma_tile<TM32, TN32, KC, CS32>(acc, As + rowg * LDA32, RS32 * LDA32,
-                                      Bs + 4 * colg, BN);
-    } else {  // a chain per chunk, added in order (add_tile)
-      float part[TM32][TN32];
-      zero_tile(part);
-      ffma_tile<TM32, TN32, KC, CS32>(part, As + rowg * LDA32, RS32 * LDA32,
-                                      Bs + 4 * colg, BN);
-      add_tile(acc, part);
-    }
+    ffma_tile<TM32, TN32, KC, CS32>(acc, As + rowg * LDA32, RS32 * LDA32,
+                                    Bs + 4 * colg, BN);
     __syncthreads();  // the chunk is consumed before the next load
   }
 }
@@ -671,8 +672,7 @@ fwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ wcat,
   const int p_end = p0 + BM < HW ? p0 + BM : HW;
   const int n0 = ct * BN;
   float acc[TM32][TN32];
-  gemm_tile_f32<true>(smem, x, wcat, 4 * Cin, 4 * Cout, Cin, Cout, H, W, b,
-                      p0, p_end, n0, acc);
+  gemm_tile_f32(smem, x, wcat, Cin, Cout, H, W, b, p0, p_end, n0, acc);
   const int colg = threadIdx.x % TC32, rowg = threadIdx.x / TC32;
   float s0[TN32], s1[TN32];
 #pragma unroll
@@ -719,110 +719,416 @@ fwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ wcat,
   }
 }
 
-__global__ void __launch_bounds__(THREADS32)
-dx_f32_kernel(const float* __restrict__ g, const float* __restrict__ wt,
-              float* __restrict__ dx, int H, int W, int Cin, int Cout) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int HW = H * W, tpi = (HW + BM - 1) / BM;
-  const int tile = blockIdx.x, b = tile / tpi, p0 = (tile % tpi) * BM;
-  const int p_end = p0 + BM < HW ? p0 + BM : HW;
-  const int n0 = blockIdx.y * BN;
-  float acc[TM32][TN32];
-  gemm_tile_f32<false>(smem, g, wt, 16 * Cout, Cin, Cin, Cout, H, W, b, p0,
-                       p_end, n0, acc);
-  const int colg = threadIdx.x % TC32, rowg = threadIdx.x / TC32;
-#pragma unroll
-  for (int i = 0; i < TM32; ++i) {
-    const int p = p0 + rowg + i * RS32;
-    if (p >= p_end) break;
-#pragma unroll
-    for (int gq = 0; gq < TN32 / 4; ++gq)
-      *reinterpret_cast<float4*>(dx + ((long long)b * HW + p) * Cin + n0 +
-                                 4 * colg + gq * CS32) =
-          make_float4(acc[i][4 * gq], acc[i][4 * gq + 1], acc[i][4 * gq + 2],
-                      acc[i][4 * gq + 3]);
-  }
+// 16-byte chunk e of row q of an f32 array of V chunks a row (V = 4, 8 or
+// 16) is stored at chunk e ^ f32_swz(q, V) of the row, so that the same
+// chunk of any 8 consecutive rows falls on the 8 bank groups of a
+// 128-byte line.
+__host__ __device__ constexpr int f32_swz(int q, int V) {
+  return V >= 8 ? (q & 7) : (q / (8 / V)) % V;
 }
 
-// Weight gradient, f32: blockIdx.y = tap t_h * 3 + t_w of the HWIO weight,
-// the one non-zero Wcat block (neighbour q, plane a*2+b) that holds it;
-// blockIdx.x = a chunk of CHUNK input pixels (flattened over the batch).
-// part_w[chunk][tap] = sum over the chunk of x[p + e_q]^T g_plane[p]; the
-// four taps of neighbour (0, 0) also write part_db[chunk][plane] = sum of
-// g_plane over the chunk (each output pixel once).
-constexpr int CHUNK = 1024;
-
-// tap index along one axis -> (output parity, neighbour offset)
-__device__ __forceinline__ void tap_of(int t, int& parity, int& off) {
-  parity = t == 1 ? 0 : 1;
-  off = t == 2 ? 1 : 0;
-}
-
-template <int CIN, int COUT>
-struct WgPick32 {
-  static constexpr int TM = CIN == 128 ? 8 : 4, TN = 4, THREADS = 256;
-  static constexpr int BP = 64;
-  using Q = Wg32<CIN, COUT, TM, TN, THREADS, BP>;
+// dx (f32): the bf16 form's halo-patch stride-2 conv of g (UpsDx) on FFMA
+// micro-tiles,
+//   dx[i, j] = sum_{kh, kw} g[2i - 1 + kh, 2j - 1 + kw] @ w[2 - kh, 2 - kw]^T
+// A tile of TH x 32 dx pixels of one image stages its (2 TH + 1) x 65 g
+// pixels once, 16-byte cp.async into four parity planes (PFPatch's
+// geometry, f32 chunks swizzled by f32_swz, zero past the map), each tap a
+// unit-stride view of one plane.  The taps stream from w (3, 3, N, K) as
+// they are: stage s holds KS of the K values of w's tap t = s / SPT for
+// every dx channel n (row n = w[t][n][k0 .. k0 + KS): the transpose is in
+// the operand's indexing), in the order t = 0 .. 8, patch tap (2 - t / 3,
+// 2 - t % 3) (the flip), through a ring of NS stages (NS - 1 in flight);
+// at 64 -> 16 the ring holds the whole f32 stack (36 KB) and only a CTA's
+// first tile loads it.  At 128 -> 64 the stack (295 KB) exceeds a CTA's
+// 227 KB: a tap (32 KB) a stage, two stages, beside two 2 x 32 tiles' 83
+// KB patches (231.9 KB in all; PERF.md §6 has the other layouts timed).
+// Persistent CTAs: the next tile's patch travels with the stage NS - 1
+// ahead of its first.  Thread (rg, tc) owns dx pixels rg + i RS (i < TM)
+// and channels tc + j TC (j < TN): per four k, TM float4 of the patch and
+// TN of the stage (each a channel's k-contiguous row) and 4 TM TN FMAs;
+// the RS pixels of one i are consecutive plane pixels and the TC
+// channels consecutive rows, on distinct bank groups.  Sum order: one FMA
+// chain per group of TPG taps over the group's (tap, k) in increasing
+// order, the groups added in the order they stream.  The sums are staged
+// in the tile's own patch buffer once it is read and whole dx pixels
+// written 16 bytes a thread.
+template <int K, int N>  // K = Cout (g's channels), N = Cin (dx's)
+struct UpsDx32 {
+  static constexpr bool WIDE = K == 64;
+  static constexpr int TH = WIDE ? 2 : 4, TW = 32, BM = TH * TW;
+  static constexpr int THREADS = 256, TN = 8, TC = N / TN;
+  static constexpr int RS = THREADS / TC, TM = BM / RS;
+  // k values a stage: a whole tap (scripts/cuda_ups_bwd_variants.py times
+  // half taps)
+  static constexpr int KS = K;
+  static constexpr int SPT = K / KS, STAGES = 9 * SPT;  // a tap's, a tile's
+  static constexpr int NS = WIDE ? 2 : STAGES;   // ring stages
+  static constexpr bool RESIDENT = NS == STAGES;
+  static constexpr int TPG = WIDE ? 1 : 3;       // taps a chain
+  static constexpr int CTAS = WIDE ? 1 : 2;      // CTAs an SM
+  static constexpr int VK = K / 4, VS = KS / 4, LDO = N + TC;
+  using Geo = PFPatch<K, TH>;
+  static constexpr size_t patch_bytes = pp_align((size_t)Geo::PIXELS * K * 4);
+  static constexpr size_t stage_bytes = (size_t)N * KS * 4;
+  static constexpr size_t ring_off = 2 * patch_bytes;  // two patches
+  static constexpr size_t smem = ring_off + NS * stage_bytes;
+  static_assert(K % KS == 0 && KS % 4 == 0 && N % TN == 0 && TC % 8 == 0 &&
+                    THREADS % TC == 0 && BM % RS == 0 && 9 % TPG == 0 &&
+                    (size_t)BM * LDO * 4 <= patch_bytes &&
+                    CTAS * (smem + 1024) <= 233472,
+                "f32 dx tile");
 };
 
-template <int CIN, int COUT>
-__global__ void __launch_bounds__(256)
-wgrad_f32_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                 float* __restrict__ part_w, float* __restrict__ part_db,
-                 int B, int H, int W) {
-  using P = WgPick32<CIN, COUT>;
-  using Q = typename P::Q;
+template <int K, int N>
+__global__ void __launch_bounds__(256, UpsDx32<K, N>::CTAS)
+dx32_kernel(const float* __restrict__ g, const float* __restrict__ w,
+            float* __restrict__ dx, int B, int H, int W) {
+  using G = UpsDx32<K, N>;
+  using P = typename G::Geo;
+  constexpr int TM = G::TM, TN = G::TN, TC = G::TC, KS = G::KS;
+  constexpr int VK = G::VK, VS = G::VS, SPT = G::SPT, STAGES = G::STAGES;
   extern __shared__ __align__(128) unsigned char smem[];
-  float* As = reinterpret_cast<float*>(smem);
-  float* Gs = reinterpret_cast<float*>(smem + Q::a_bytes);
-  const int tap = blockIdx.y;
-  int a, bb, dh, dw;
-  tap_of(tap / 3, a, dh);
-  tap_of(tap % 3, bb, dw);
-  const bool sum_db = dh == 0 && dw == 0;
-  const int HW = H * W;
-  const long long P_ = (long long)B * HW;
-  const long long p_begin = (long long)blockIdx.x * CHUNK;
-  const long long p_stop = p_begin + CHUNK < P_ ? p_begin + CHUNK : P_;
-  constexpr int VA = CIN / 4, VG = COUT / 4;
-  float acc[P::TM][P::TN];
-  zero_tile(acc);
-  float dbs = 0.0f;  // thread t < COUT: channel t of this plane
-
-  for (long long p0 = p_begin; p0 < p_stop; p0 += P::BP) {
-    for (int v = threadIdx.x; v < P::BP * (VA + VG); v += blockDim.x) {
-      const int r = v / (VA + VG), e = v % (VA + VG);
-      const long long p = p0 + r;
-      const bool in = p < p_stop;
-      const int img = (int)(p / HW), local = (int)(p % HW);
-      const int i = local / W, jj = local % W;
-      if (e < VA) {
-        const bool valid = in && i + dh < H && jj + dw < W;
-        const long long src =
-            valid ? (((long long)img * H + i + dh) * W + jj + dw) * CIN : 0;
-        cp_async16(As + r * CIN + e * 4, x + src + e * 4, valid);
-      } else {
-        const long long src =
-            in ? (((long long)img * 2 * H + 2 * i + a) * 2 * W + 2 * jj +
-                  bb) * COUT
-               : 0;
-        cp_async16(Gs + r * COUT + (e - VA) * 4, g + src + (e - VA) * 4, in);
+  const int H2 = 2 * H, W2 = 2 * W;
+  const int tiles =
+      B * ((H + G::TH - 1) / G::TH) * ((W + G::TW - 1) / G::TW);
+  const int tc = threadIdx.x % TC, rg = threadIdx.x / TC;
+  auto patch_of = [&](int kk) {
+    return reinterpret_cast<float*>(smem + (kk & 1) * G::patch_bytes);
+  };
+  auto stage_of = [&](int v) {
+    return reinterpret_cast<float*>(smem + G::ring_off +
+                                    (v % G::NS) * G::stage_bytes);
+  };
+  // stage v of this CTA: its (v / STAGES)-th tile's stage v % STAGES, with
+  // the tile's patch at its first
+  auto issue = [&](int v) {
+    const int kk = v / STAGES, s = v % STAGES;
+    const int t = blockIdx.x + kk * gridDim.x;
+    if (t < tiles) {
+      if (s == 0) {
+        const PPTile tl = pp_tile_of<G>(t, H, W);
+        float* dst = patch_of(kk);
+        for (int c = threadIdx.x; c < P::PIXELS * VK; c += G::THREADS) {
+          const int pix = c / VK, e = c % VK;
+          const int pr = pix / P::PC, pc = pix % P::PC;
+          const int h = 2 * tl.i0 - 1 + pr, col = 2 * tl.j0 - 1 + pc;
+          const bool valid = h >= 0 && h < H2 && col >= 0 && col < W2;
+          const long long src =
+              valid ? (((long long)tl.b * H2 + h) * W2 + col) * K + 4 * e : 0;
+          const int q = P::pixel(pr, pc);
+          cp_async16(dst + q * K + 4 * (e ^ f32_swz(q, VK)), g + src, valid);
+        }
+      }
+      if (!G::RESIDENT || kk == 0) {
+        float* dst = stage_of(v);
+        const float* src = w + (size_t)(s / SPT) * N * K + (s % SPT) * KS;
+        for (int c = threadIdx.x; c < N * VS; c += G::THREADS) {
+          const int n = c / VS, e = c % VS;
+          cp_async16(dst + n * KS + 4 * (e ^ f32_swz(n, VS)),
+                     src + (size_t)n * K + 4 * e, true);
+        }
       }
     }
     cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();
-    wg32_step<CIN, COUT, P::TM, P::TN, P::THREADS, P::BP>(As, Gs, acc);
-    if (sum_db && threadIdx.x < COUT)
-      for (int r = 0; r < P::BP; ++r) dbs += Gs[r * COUT + threadIdx.x];
-    __syncthreads();
+  };
+  int pr0[TM], pc0[TM];  // this thread's pixels in the tile
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int m = rg + i * G::RS;
+    pr0[i] = m / G::TW;
+    pc0[i] = m % G::TW;
   }
-  float* dst = part_w + ((long long)blockIdx.x * 9 + tap) * CIN * COUT;
-  wg32_store<CIN, COUT, P::TM, P::TN, P::THREADS, P::BP>(
-      acc, reinterpret_cast<float*>(smem), dst, CIN, COUT);
-  if (sum_db && threadIdx.x < COUT)
-    part_db[((long long)blockIdx.x * 4 + a * 2 + bb) * COUT + threadIdx.x] =
-        dbs;
+  // every channel tc + j TC of a stage row shares tc's swizzle (TC % 8 == 0)
+  const int fb = f32_swz(tc, VS);
+
+  for (int v = 0; v < G::NS - 1; ++v) issue(v);
+  int kk = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++kk) {
+    const PPTile tl = pp_tile_of<G>(t, H, W);
+    const float* pb = patch_of(kk);
+    float acc[TM][TN], part[TM][TN];
+    zero_tile(acc);
+    zero_tile(part);
+    for (int s = 0; s < STAGES; ++s) {
+      const int u = kk * STAGES + s;
+      cp_async_wait_group<G::NS - 2>();
+      // resident taps: after the first tile only the patch needs a barrier
+      if (!G::RESIDENT || s == 0 || kk == 0) __syncthreads();
+      issue(u + G::NS - 1);
+      const int tap = s / SPT, kh = 2 - tap / 3, kw = 2 - tap % 3;
+      const int e0 = (s % SPT) * VS;  // the stage's first chunk of a pixel
+      int oa[TM], fa[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const int q = P::tap(pr0[i], pc0[i], kh, kw);
+        oa[i] = q * K;
+        fa[i] = f32_swz(q, VK);
+      }
+      const float* bs = stage_of(u) + tc * KS;
+#pragma unroll
+      for (int e = 0; e < VS; ++e) {
+        float4 av[TM];
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+          av[i] = *reinterpret_cast<const float4*>(
+              pb + oa[i] + 4 * ((e0 + e) ^ fa[i]));
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          const float4 b = *reinterpret_cast<const float4*>(
+              bs + j * TC * KS + 4 * (e ^ fb));
+#pragma unroll
+          for (int i = 0; i < TM; ++i) {
+            part[i][j] = fmaf(av[i].x, b.x, part[i][j]);
+            part[i][j] = fmaf(av[i].y, b.y, part[i][j]);
+            part[i][j] = fmaf(av[i].z, b.z, part[i][j]);
+            part[i][j] = fmaf(av[i].w, b.w, part[i][j]);
+          }
+        }
+      }
+      if (s % SPT == SPT - 1 && tap % G::TPG == G::TPG - 1) {
+        add_tile(acc, part);  // the group's chain ends
+        zero_tile(part);
+      }
+    }
+    __syncthreads();  // the patch is read: its buffer stages the output
+    float* Cs = patch_of(kk);
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+        Cs[(rg + i * G::RS) * G::LDO + tc + j * TC] = acc[i][j];
+    __syncthreads();
+    for (int c = threadIdx.x; c < G::BM * (N / 4); c += G::THREADS) {
+      const int m = c / (N / 4), e = c % (N / 4);
+      const int i = tl.i0 + m / G::TW, jj = tl.j0 + m % G::TW;
+      if (i < H && jj < W)
+        *reinterpret_cast<float4*>(
+            dx + (((long long)tl.b * H + i) * W + jj) * N + 4 * e) =
+            *reinterpret_cast<const float4*>(Cs + m * G::LDO + 4 * e);
+    }
+    // Cs is rewritten only by tile kk + 2's patch, issued after the next
+    // tile's first barrier
+  }
+  cp_async_wait_all();
+}
+
+// Weight gradient (f32): the bf16 form's (chunk of input rows, kh) grid
+// (UpsWg) on FFMA micro-tiles, as Wg32R is for the downsampler.
+// blockIdx.x = a chunk of `rows_per` input rows (flattened over the batch;
+// the wrapper sizes the chunks so that the grid is one wave of one CTA an
+// SM, erf_ups_train_wg_rows_f32), blockIdx.y = khg: the CTA owns the KHN
+// kernel rows kh = khg KHN .. + KHN - 1 (at 128 -> 64 one, at 64 -> 16 all
+// three, so x is read once).  Each row in blocks of BP input pixels: a
+// block stages its x tile (BP x CIN) once and, per kh, g's one
+// high-resolution row segment, slot s the COUT values of column 2 j0 - 1
+// + s (s < 2 BP + 1, zero past the map), read as the kh's im2col tile:
+// pixel k's taps kw < 3 are slots 2 k + kw, one run of 3 COUT values at
+// 2 k COUT (row pitch 2 COUT, column kw COUT + co).  So x is read 3 / KHN
+// times and g 1.5 times.  The blocks stream through a ring of NS stages
+// (NS - 1 in flight).  The product dW[kh] (CIN x 3 COUT) += x_tile^T seg
+// runs as FFMA micro-tiles (no TF32) with the pixels as its depth: the
+// threads form WK groups of an (RG x TC) grid, thread (rg, tc) owns rows 4
+// rg + 4 RG a + (0 .. 3) and columns 4 tc + 4 TC b + (0 .. 3) of each of
+// its kh, and group w takes pixels [w KL, (w + 1) KL) of every block; each
+// output is one FMA chain per group, the groups added in order at the
+// end.  db sums every g pixel once, as in bf16: the kh = 1 segments' slots
+// 1 .. 2 BP (the even g rows) and the kh = 2 ones' (the odd); thread t
+// takes the 4 channels of chunk t % VG at every DBG-th slot, the DBG
+// threads of a chunk added in order at the end.  part_w[chunk] = dW (3, 3,
+// CIN, COUT) HWIO, part_db[chunk][kh - 1] = db's partial over that kh's
+// rows.
+template <int CIN, int COUT>
+struct UpsWg32 {
+  static constexpr bool WIDE = CIN == 128;
+  static constexpr int KHN = WIDE ? 1 : 3, KHG = 3 / KHN;
+  static constexpr int MC = 3 * COUT;  // product columns of a kh: (kw, co)
+  static constexpr int TM = 8, TN = WIDE ? 12 : 4;
+  static constexpr int RG = CIN / TM, TC = MC / TN, GT = RG * TC;
+  static constexpr int THREADS = WIDE ? 256 : 384, WK = THREADS / GT;
+  static constexpr int BP = 64, KL = BP / WK;  // input pixels a block, a group's
+  static constexpr int NS = 3, CTAS = 1;       // ring stages, CTAs an SM
+  static constexpr int VG = COUT / 4, DBG = THREADS / VG;
+  static constexpr size_t x_bytes = pp_align((size_t)BP * CIN * 4);
+  static constexpr size_t seg_bytes =
+      pp_align((size_t)(2 * BP + 1) * COUT * 4);
+  static constexpr size_t stage_bytes = x_bytes + KHN * seg_bytes;
+  static constexpr size_t red_bytes =
+      ((WK > 1 ? (size_t)WK * KHN * CIN * MC : 0) + 2 * THREADS * 4) * 4;
+  static constexpr size_t smem =
+      NS * stage_bytes > red_bytes ? NS * stage_bytes : red_bytes;
+  static_assert(CIN % TM == 0 && MC % TN == 0 && TM % 4 == 0 &&
+                    TN % 4 == 0 && THREADS % GT == 0 && BP % WK == 0 &&
+                    THREADS % VG == 0 && smem + 1024 <= 233472,
+                "f32 upsampler wgrad tile");
+};
+
+template <int CIN, int COUT>
+__global__ void __launch_bounds__(UpsWg32<CIN, COUT>::THREADS,
+                                  UpsWg32<CIN, COUT>::CTAS)
+wgrad32_kernel(const float* __restrict__ x, const float* __restrict__ g,
+               float* __restrict__ part_w, float* __restrict__ part_db,
+               int B, int H, int W, int rows_per) {
+  using G = UpsWg32<CIN, COUT>;
+  constexpr int BP = G::BP, NS = G::NS, KHN = G::KHN, MC = G::MC;
+  constexpr int TM = G::TM, TN = G::TN, VG = G::VG, THREADS = G::THREADS;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int kh0 = blockIdx.y * KHN;
+  const int row0 = blockIdx.x * rows_per;
+  const int rows = B * H - row0 < rows_per ? B * H - row0 : rows_per;
+  const int bpr = (W + BP - 1) / BP, nb = rows * bpr;
+  auto xs_of = [&](int j) {
+    return reinterpret_cast<float*>(smem + (j % NS) * G::stage_bytes);
+  };
+  // kernel row kh0 + l's segment of block j
+  auto seg_of = [&](int j, int l) {
+    return reinterpret_cast<float*>(smem + (j % NS) * G::stage_bytes +
+                                    G::x_bytes + l * G::seg_bytes);
+  };
+  // start staging block j (rows of the chunk, then blocks of a row)
+  auto issue = [&](int j) {
+    if (j < nb) {
+      const int row = row0 + j / bpr, j0 = (j % bpr) * BP;
+      const int img = row / H, i = row % H;
+      float* xs = xs_of(j);
+      const float* xrow = x + (long long)row * W * CIN;
+      constexpr int VX = CIN / 4;
+      for (int v = threadIdx.x; v < BP * VX; v += THREADS) {
+        const int p = v / VX, e = v % VX;
+        const bool ok = j0 + p < W;
+        cp_async16(xs + p * CIN + 4 * e,
+                   xrow + (ok ? (long long)(j0 + p) * CIN + 4 * e : 0), ok);
+      }
+#pragma unroll
+      for (int l = 0; l < KHN; ++l) {
+        const int hr = 2 * i - 1 + kh0 + l;  // < 2H
+        float* seg = seg_of(j, l);
+        const float* grow =
+            g + ((long long)img * 2 * H + (hr >= 0 ? hr : 0)) * 2 * W * COUT;
+        for (int v = threadIdx.x; v < (2 * BP + 1) * VG; v += THREADS) {
+          const int sl = v / VG, e = v % VG, col = 2 * j0 - 1 + sl;
+          const bool ok = hr >= 0 && col >= 0 && col < 2 * W;
+          cp_async16(seg + sl * COUT + 4 * e,
+                     grow + (ok ? (long long)col * COUT + 4 * e : 0), ok);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  const int w = threadIdx.x / G::GT, rg = (threadIdx.x % G::GT) / G::TC,
+            tc = threadIdx.x % G::TC;
+  float acc[KHN][TM][TN];
+#pragma unroll
+  for (int l = 0; l < KHN; ++l) zero_tile(acc[l]);
+  float dbs[2][4];  // db over the even (kh = 1) and odd (kh = 2) rows
+#pragma unroll
+  for (int q = 0; q < 4; ++q) dbs[0][q] = dbs[1][q] = 0.0f;
+  for (int j = 0; j < NS - 1; ++j) issue(j);
+  for (int j = 0; j < nb; ++j) {
+    cp_async_wait_group<NS - 2>();
+    __syncthreads();  // block j landed; block j - 1's stage is free
+    issue(j + NS - 1);
+#pragma unroll
+    for (int l = 0; l < KHN; ++l) {
+      if (kh0 + l == 0) continue;
+      const float* seg = seg_of(j, l) + 4 * (threadIdx.x % VG);
+      float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      for (int sl = 1 + threadIdx.x / VG; sl <= 2 * BP; sl += G::DBG) {
+        const float4 v = *reinterpret_cast<const float4*>(seg + sl * COUT);
+        d[0] += v.x;
+        d[1] += v.y;
+        d[2] += v.z;
+        d[3] += v.w;
+      }
+      const bool odd = kh0 + l == 2;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        dbs[0][q] += odd ? 0.0f : d[q];
+        dbs[1][q] += odd ? d[q] : 0.0f;
+      }
+    }
+    const float* a = xs_of(j) + w * G::KL * CIN + 4 * rg;
+    const float* b[KHN];
+#pragma unroll
+    for (int l = 0; l < KHN; ++l)
+      b[l] = seg_of(j, l) + w * G::KL * 2 * COUT + 4 * tc;
+#pragma unroll 2
+    for (int k = 0; k < G::KL; ++k) {
+      float av[TM];
+#pragma unroll
+      for (int q = 0; q < TM / 4; ++q) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(a + k * CIN + q * 4 * G::RG);
+        av[4 * q] = v.x; av[4 * q + 1] = v.y;
+        av[4 * q + 2] = v.z; av[4 * q + 3] = v.w;
+      }
+#pragma unroll
+      for (int l = 0; l < KHN; ++l) {
+        float bv[TN];
+#pragma unroll
+        for (int q = 0; q < TN / 4; ++q) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              b[l] + k * 2 * COUT + q * 4 * G::TC);
+          bv[4 * q] = v.x; bv[4 * q + 1] = v.y;
+          bv[4 * q + 2] = v.z; bv[4 * q + 3] = v.w;
+        }
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int n = 0; n < TN; ++n)
+            acc[l][i][n] = fmaf(av[i], bv[n], acc[l][i][n]);
+      }
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();  // the stages are dead: the groups' sums and db's
+                    // partials take their place
+  float* red = reinterpret_cast<float*>(smem);
+  float* dbr = red + (G::WK > 1 ? G::WK * KHN * CIN * MC : 0);
+  float* dst = part_w + (long long)blockIdx.x * 9 * CIN * COUT;
+  // kernel row kh, product column col = kw COUT + co -> the HWIO tap
+  auto tap_at = [&](int kh, int col) {
+    return dst + ((2 - kh) * 3 + 2 - col / COUT) * CIN * COUT + col % COUT;
+  };
+#pragma unroll
+  for (int l = 0; l < KHN; ++l)
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int q = 0; q < TN / 4; ++q) {
+        const int r = 4 * rg + (i / 4) * 4 * G::RG + i % 4;
+        const int col = 4 * tc + q * 4 * G::TC;
+        const float4 v =
+            make_float4(acc[l][i][4 * q], acc[l][i][4 * q + 1],
+                        acc[l][i][4 * q + 2], acc[l][i][4 * q + 3]);
+        if constexpr (G::WK == 1)
+          *reinterpret_cast<float4*>(tap_at(kh0 + l, col) + r * COUT) = v;
+        else
+          *reinterpret_cast<float4*>(
+              red + (((size_t)w * KHN + l) * CIN + r) * MC + col) = v;
+      }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    dbr[threadIdx.x * 4 + q] = dbs[0][q];
+    dbr[(THREADS + threadIdx.x) * 4 + q] = dbs[1][q];
+  }
+  __syncthreads();
+  if constexpr (G::WK > 1)
+    for (int e = threadIdx.x; e < KHN * CIN * MC; e += THREADS) {
+      float v = 0.0f;
+      for (int k = 0; k < G::WK; ++k) v += red[(size_t)k * KHN * CIN * MC + e];
+      const int l = e / (CIN * MC), r = e / MC % CIN, col = e % MC;
+      tap_at(kh0 + l, col)[r * COUT] = v;
+    }
+  if (threadIdx.x < 2 * COUT) {
+    const int par = threadIdx.x / COUT, c = threadIdx.x % COUT;
+    if (kh0 <= par + 1 && par + 1 < kh0 + KHN) {  // this CTA's kh = par + 1
+      float v = 0.0f;
+      for (int q = 0; q < G::DBG; ++q)
+        v += dbr[(par * THREADS + q * VG + c / 4) * 4 + c % 4];
+      part_db[((long long)blockIdx.x * 2 + par) * COUT + c] = v;
+    }
+  }
 }
 
 // ------------------------------- launchers --------------------------------
@@ -840,32 +1146,41 @@ cudaError_t allow(const void* fn, size_t bytes, bool* done) {
   return e;
 }
 
-// The bf16 backward's products: dx (persistent CTAs over its tiles), the
-// weight gradient's partials and their two fixed-order reductions.
-template <int CIN, int COUT>
+// The backward's products: dx (persistent CTAs over its tiles), the
+// weight gradient's partials (a chunk of `rows` input rows, KHG CTAs a
+// chunk) and their two fixed-order reductions; F32: the f32 forms.
+template <int CIN, int COUT, bool F32>
 int bwd(const void* x, const void* g, const void* w, void* dx, void* part_w,
         void* part_db, void* grads, int B, int H, int W, int rows,
         cudaStream_t s) {
-  using D = UpsDx<COUT, CIN>;
-  using G = UpsWg<CIN, COUT>;
+  using T = std::conditional_t<F32, float, bf16>;
+  using D = std::conditional_t<F32, UpsDx32<COUT, CIN>, UpsDx<COUT, CIN>>;
+  using G = std::conditional_t<F32, UpsWg32<CIN, COUT>, UpsWg<CIN, COUT>>;
+  void (*dxk)(const T*, const T*, T*, int, int, int);
+  void (*wgk)(const T*, const T*, float*, float*, int, int, int, int);
+  if constexpr (F32) {
+    dxk = dx32_kernel<COUT, CIN>;
+    wgk = wgrad32_kernel<CIN, COUT>;
+  } else {
+    dxk = dx_kernel<COUT, CIN>;
+    wgk = wgrad_kernel<CIN, COUT>;
+  }
   static bool dx_ok = false, wg_ok = false;
   static int gm = 0;
-  cudaError_t e = allow_smem(dx_kernel<COUT, CIN>, D::smem, &dx_ok);
+  cudaError_t e = allow_smem(dxk, D::smem, &dx_ok);
   if (e != cudaSuccess) return e;
-  if (gm == 0 && (e = resident_ctas(dx_kernel<COUT, CIN>, D::THREADS,
-                                    D::smem, &gm)) != cudaSuccess)
+  if (gm == 0 &&
+      (e = resident_ctas(dxk, D::THREADS, D::smem, &gm)) != cudaSuccess)
     return e;
-  const int tiles = B * dx_tiles_per_image<COUT, CIN>(H, W);
-  dx_kernel<COUT, CIN><<<tiles < gm ? tiles : gm, D::THREADS, D::smem, s>>>(
-      static_cast<const bf16*>(g), static_cast<const bf16*>(w),
-      static_cast<bf16*>(dx), B, H, W);
+  const int tiles = B * ((H + D::TH - 1) / D::TH) * ((W + D::TW - 1) / D::TW);
+  dxk<<<tiles < gm ? tiles : gm, D::THREADS, D::smem, s>>>(
+      static_cast<const T*>(g), static_cast<const T*>(w), static_cast<T*>(dx),
+      B, H, W);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  if ((e = allow_smem(wgrad_kernel<CIN, COUT>, G::smem, &wg_ok)) !=
-      cudaSuccess)
-    return e;
+  if ((e = allow_smem(wgk, G::smem, &wg_ok)) != cudaSuccess) return e;
   const int chunks = (B * H + rows - 1) / rows;
-  wgrad_kernel<CIN, COUT><<<dim3(chunks, G::KHG), 256, G::smem, s>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(g),
+  wgk<<<dim3(chunks, G::KHG), G::THREADS, G::smem, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g),
       static_cast<float*>(part_w), static_cast<float*>(part_db), B, H, W,
       rows);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
@@ -877,19 +1192,41 @@ int bwd(const void* x, const void* g, const void* w, void* dx, void* part_w,
                       1, 2 * chunks, COUT, s);
 }
 
-template <int CIN, int COUT>
-int wgrad_f32(const void* x, const void* g, void* part_w, void* part_db,
-              int B, int H, int W, cudaStream_t s) {
-  using P = WgPick32<CIN, COUT>;
-  static bool ok = false;
-  cudaError_t e = allow((const void*)wgrad_f32_kernel<CIN, COUT>,
-                        P::Q::smem, &ok);
-  if (e != cudaSuccess) return e;
-  const int chunks = (int)(((long long)B * H * W + CHUNK - 1) / CHUNK);
-  wgrad_f32_kernel<CIN, COUT><<<dim3(chunks, 9), P::THREADS, P::Q::smem, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(g),
-      static_cast<float*>(part_w), static_cast<float*>(part_db), B, H, W);
-  return cudaGetLastError();
+// Both forms' entry: the g fold (with_stats), then bwd.
+template <bool F32>
+int bwd_entry(const void* x, const void* y, const void* gy, const void* gs1,
+              const void* gs2, const void* w, void* g, void* dx,
+              void* part_w, void* part_db, void* grads, int B, int H, int W,
+              int Cin, int Cout, int rows, int with_stats, void* stream) {
+  if (!shape_ok(B, H, W, Cin, Cout) || rows < 1)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaSuccess;
+  const void* gg = with_stats ? g : gy;
+  if (with_stats &&
+      (e = (F32 ? adjust_grad_f32 : adjust_grad)(
+           gy, y, gs1, gs2, g, B, 4 * H * W, Cout, s)) != cudaSuccess)
+    return e;
+  return Cin == 128 ? bwd<128, 64, F32>(x, gg, w, dx, part_w, part_db,
+                                        grads, B, H, W, rows, s)
+                    : bwd<64, 16, F32>(x, gg, w, dx, part_w, part_db, grads,
+                                       B, H, W, rows, s);
+}
+
+// Input rows per weight-gradient partial for a (B, H) map: chunks of
+// ceil(B H KHG / (SMs CTAS)) rows, so that the grid of chunks x KHG CTAs
+// is one wave of CTAS CTAs an SM of the current device; 0 on a CUDA error.
+template <class Wide, class Narrow>
+int wg_rows(int B, int H, int Cin) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      sms < 1)
+    return 0;
+  const int khg = Cin == 128 ? Wide::KHG : Narrow::KHG;
+  const int ctas = sms * (Cin == 128 ? Wide::CTAS : Narrow::CTAS);
+  return (int)(((long long)B * H * khg + ctas - 1) / ctas);
 }
 
 template <int CIN, int COUT, bool S>
@@ -965,53 +1302,29 @@ extern "C" int erf_ups_train_fwd(const void* x, const void* w,
 // (B, Cout) f32; w (3, 3, Cin, Cout) bf16, the forward-conv HWIO tap
 // stack as the forward takes it, 16-byte aligned; g (B, 2H, 2W, Cout) bf16
 // scratch (with_stats 0: gy is g, and y, gs1, gs2 and g are not read); dx
-// (B, H, W, Cin) bf16; rows: input rows per weight-gradient partial;
-// part_w (chunks, 9, Cin, Cout) and part_db (chunks, 2, Cout) f32 scratch
-// with chunks = ceil(B H / rows); grads (9 Cin Cout +
-// Cout) f32 = [dW (3, 3, Cin, Cout) HWIO, db].
+// (B, H, W, Cin) bf16; rows: input rows per weight-gradient partial
+// (erf_ups_train_wg_rows); part_w (chunks, 9, Cin, Cout) and part_db
+// (chunks, 2, Cout) f32 scratch with chunks = ceil(B H / rows); grads (9
+// Cin Cout + Cout) f32 = [dW (3, 3, Cin, Cout) HWIO, db].
 extern "C" int erf_ups_train_bwd(const void* x, const void* y, const void* gy,
                                  const void* gs1, const void* gs2,
                                  const void* w, void* g, void* dx,
                                  void* part_w, void* part_db, void* grads,
                                  int B, int H, int W, int Cin, int Cout,
                                  int rows, int with_stats, void* stream) {
-  if (!shape_ok(B, H, W, Cin, Cout) || rows < 1)
-    return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaSuccess;
-  const void* gg = with_stats ? g : gy;
-  if (with_stats &&
-      (e = adjust_grad(gy, y, gs1, gs2, g, B, 4 * H * W, Cout, s)) !=
-          cudaSuccess)
-    return e;
-  return Cin == 128 ? bwd<128, 64>(x, gg, w, dx, part_w, part_db, grads, B,
-                                   H, W, rows, s)
-                    : bwd<64, 16>(x, gg, w, dx, part_w, part_db, grads, B, H,
-                                  W, rows, s);
+  return bwd_entry<false>(x, y, gy, gs1, gs2, w, g, dx, part_w, part_db,
+                          grads, B, H, W, Cin, Cout, rows, with_stats,
+                          stream);
 }
 
-
-// Input rows per bf16 weight-gradient partial for a (B, H) map (the
-// backward's `rows`): chunks of ceil(B H KHG / (SMs CTAS)) rows, so that
-// the grid of chunks x KHG CTAs is one wave of CTAS CTAs an SM of the
-// current device; 0 on a CUDA error.
 extern "C" int erf_ups_train_wg_rows(int B, int H, int Cin) {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess ||
-      sms < 1)
-    return 0;
-  const int khg = Cin == 128 ? UpsWg<128, 64>::KHG : UpsWg<64, 16>::KHG;
-  const int ctas = sms * (Cin == 128 ? UpsWg<128, 64>::CTAS
-                                     : UpsWg<64, 16>::CTAS);
-  return (int)(((long long)B * H * khg + ctas - 1) / ctas);
+  return wg_rows<UpsWg<128, 64>, UpsWg<64, 16>>(B, H, Cin);
 }
 
-// The f32 forms: x, y, gy, g, dx, wcat (4 Cin, 4 Cout) and, in place of
-// w, wt (16 Cout, Cin) in f32, row q 4 Cout + plane Cout + c = Wcat[q][:,
-// plane Cout + c]^T; part_w (chunks, 9, Cin, Cout) and part_db (chunks, 4,
-// Cout) with chunks = ceil(B H W / 1024); the same outputs.
+// The f32 forms: x, y, gy, g and dx in f32.  Forward: wcat (4 Cin, 4 Cout)
+// f32 in place of w, Wcat with its taps unrounded.  Backward: w (3, 3,
+// Cin, Cout) f32 as the bf16 form takes it, rows from
+// erf_ups_train_wg_rows_f32; the same scratch and outputs.
 extern "C" int erf_ups_train_fwd_f32(const void* x, const void* wcat,
                                      const void* bias, void* y, void* part,
                                      void* stats, int B, int H, int W,
@@ -1027,38 +1340,15 @@ extern "C" int erf_ups_train_fwd_f32(const void* x, const void* wcat,
 
 extern "C" int erf_ups_train_bwd_f32(const void* x, const void* y,
                                      const void* gy, const void* gs1,
-                                     const void* gs2, const void* wt, void* g,
+                                     const void* gs2, const void* w, void* g,
                                      void* dx, void* part_w, void* part_db,
                                      void* grads, int B, int H, int W,
-                                     int Cin, int Cout, int with_stats,
-                                     void* stream) {
-  if (!shape_ok(B, H, W, Cin, Cout)) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaSuccess;
-  const void* gg = with_stats ? g : gy;
-  if (with_stats &&
-      (e = adjust_grad_f32(gy, y, gs1, gs2, g, B, 4 * H * W, Cout, s)) !=
-          cudaSuccess)
-    return e;
-  static bool ok = false;
-  if ((e = allow((const void*)dx_f32_kernel, SMEM32, &ok)) != cudaSuccess)
-    return e;
-  const int tpi = (H * W + BM - 1) / BM;
-  dx_f32_kernel<<<dim3(B * tpi, Cin / BN), THREADS32, SMEM32, s>>>(
-      static_cast<const float*>(gg), static_cast<const float*>(wt),
-      static_cast<float*>(dx), H, W, Cin, Cout);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  e = (cudaError_t)(Cin == 128
-                        ? wgrad_f32<128, 64>(x, gg, part_w, part_db, B, H, W,
-                                             s)
-                        : wgrad_f32<64, 16>(x, gg, part_w, part_db, B, H, W,
-                                            s));
-  if (e != cudaSuccess) return e;
-  const int chunks = (int)(((long long)B * H * W + CHUNK - 1) / CHUNK);
-  float* gr = static_cast<float*>(grads);
-  if ((e = reduce_parts(static_cast<const float*>(part_w), gr, 1, chunks,
-                        9 * Cin * Cout, s)) != cudaSuccess)
-    return e;
-  return reduce_parts(static_cast<const float*>(part_db), gr + 9 * Cin * Cout,
-                      1, 4 * chunks, Cout, s);
+                                     int Cin, int Cout, int rows,
+                                     int with_stats, void* stream) {
+  return bwd_entry<true>(x, y, gy, gs1, gs2, w, g, dx, part_w, part_db,
+                         grads, B, H, W, Cin, Cout, rows, with_stats, stream);
+}
+
+extern "C" int erf_ups_train_wg_rows_f32(int B, int H, int Cin) {
+  return wg_rows<UpsWg32<128, 64>, UpsWg32<64, 16>>(B, H, Cin);
 }

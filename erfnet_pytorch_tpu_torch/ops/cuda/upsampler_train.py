@@ -14,29 +14,29 @@ Forward, as the parity-plane product of ``ops/convt_mm.py``: y = bf16([x,
 x_h+1, x_w+1, x_hw+1] @ Wcat + b), Wcat built from the weight's taps
 rounded to the activation dtype, f32 sums and bias, and the per-image (B,
 Cout) f32 sum and sum of squares of the stored y (not in the stats-free
-forms).  The bf16 kernels read the (3, 3, Cin, Cout) taps as they are:
-the forward's parity-plane product (``csrc/parity_plane.cuh``) through
-``PARITY_TAPS``, the backward's dx as the stride-2 conv of g over halo
-patches with the taps flipped and transposed; the f32 forward and
-backward take Wcat (or its transposed layout), built by ``_wcat`` in one
-gather from a cached index table, bit-equal to
-``build_upsampler_matmul``.  Backward from (gy, gs1, gs2): g = bf16(gy +
-gs1 + 2 y gs2) (the stats-free forms: g = gy), dx = bf16(the transposed
-product), dW (3, 3, Cin, Cout) forward-conv HWIO in f32 and db = sum g in
-f32; the bf16 weight gradient's partials are per chunk of input rows,
-sized to one wave of the card's SMs (the f32 form's per ``CHUNK`` input
-pixels and tap).
+forms).  The bf16 forward reads the (3, 3, Cin, Cout) taps as they are
+(the parity-plane product of ``csrc/parity_plane.cuh`` through
+``PARITY_TAPS``); the f32 forward takes Wcat, built by ``_wcat`` in one
+gather from a cached index table, bit-equal to ``build_upsampler_matmul``.
+Backward from (gy, gs1, gs2): g = bf16(gy + gs1 + 2 y gs2) (the stats-free
+forms: g = gy), dx = bf16(the transposed product), dW (3, 3, Cin, Cout)
+forward-conv HWIO in f32 and db = sum g in f32.  Both forms read the taps
+as they are: dx is the stride-2 conv of g over halo patches (tiles of
+``DX_TH`` / ``DX32_TH`` rows of 32 dx pixels) with the taps flipped and
+transposed, and the weight gradient's partials are per chunk of input
+rows, sized to one wave of the card's SMs (``erf_ups_train_wg_rows`` and
+its ``_f32`` twin).
 
 The kernels take (Cin, Cout) in {(128, 64), (64, 16)} and raise on
 anything else.  Two forms, picked by the maps' dtype
 (``_build.kernel_form``; every map of one call has one dtype, or the call
 raises): bf16 (``erf_ups_train_*``) and f32 (the ``_f32`` entry points;
-the JAX package's default compute dtype), in which Wcat is built in f32
-and nothing is rounded to bf16.  Launches are counted apart:
-``launches[""]``, ``launches["_f32"]``, and the stats-free forms'
-``launches["_nostats"]`` and ``launches["_nostats_f32"]``.  The plain
-versions take f32 or bf16.  Bound on the H100: bytes at bf16, operations
-at f32.
+the JAX package's default compute dtype), in which nothing is rounded to
+bf16 and every product runs on FFMA micro-tiles (no TF32).  Launches are
+counted apart: ``launches[""]``, ``launches["_f32"]``, and the stats-free
+forms' ``launches["_nostats"]`` and ``launches["_nostats_f32"]``.  The
+plain versions take f32 or bf16.  Bound on the H100: bytes at bf16,
+operations at f32.
 """
 
 from __future__ import annotations
@@ -60,7 +60,13 @@ TH, TW = 4, 32   # input rows, columns per tile of the bf16 forward (csrc)
 # (csrc UpsWg)
 DX_TH = {128: 2, 64: 4}
 WG_BP = 128
-CHUNK = 1024     # input pixels per f32 weight-gradient partial (csrc)
+# the f32 backward by Cin (csrc UpsDx32, UpsWg32): dx tiles of DX32_TH x TW
+# dx pixels, each output a chain per DX32_TAPS taps; the weight gradient's
+# (kernel rows a CTA, pixels a block, thread groups), its partials per
+# chunk of input rows (erf_ups_train_wg_rows_f32)
+DX32_TH = {128: 2, 64: 4}
+DX32_TAPS = {128: 1, 64: 3}
+WG32 = {128: (1, 64, 1), 64: (3, 64, 4)}
 FWD_LAUNCHES = 2
 BWD_LAUNCHES = 5
 # the stats-free forms: no statistics reduction, no g fold
@@ -166,34 +172,28 @@ def _check(x, w, others=()):
 _INDEX = {}
 
 
-def _index(cin, cout, device, transposed):
+def _index(cin, cout, device):
     """Cached per (Cin, Cout, device): each element's index into the
     flattened (3, 3, Cin, Cout) taps with one zero appended (index 9 Cin
-    Cout), laid out as Wcat (4 Cin, 4 Cout) or, ``transposed``, as the dx
-    product's (16 Cout, Cin): row q 4 Cout + plane Cout + c holds
-    Wcat[q Cin:(q + 1) Cin, plane Cout + c]."""
-    key = (cin, cout, str(device), transposed)
+    Cout), laid out as Wcat (4 Cin, 4 Cout)."""
+    key = (cin, cout, str(device))
     if key not in _INDEX:
         idx = torch.full((4, cin, 4, cout), 9 * cin * cout, dtype=torch.long)
         taps = torch.arange(9 * cin * cout).view(3, 3, cin, cout)
         for (q, plane), (t_h, t_w) in PARITY_TAPS.items():
             idx[q, :, plane] = taps[t_h, t_w]
-        if transposed:
-            idx = idx.permute(0, 2, 3, 1)
         _INDEX[key] = idx.reshape(-1).to(device)
     return _INDEX[key]
 
 
-def _wcat(w, cin, cout, dtype, transposed=False):
-    """The parity-plane matrix of the HWIO weight in ``dtype``, its taps
-    rounded to it first: Wcat (4 Cin, 4 Cout) (``build_upsampler_matmul``'s,
-    whose blocks each receive one tap onto zero, so bit-equal), or the dx
-    product's (16 Cout, Cin) layout.  One gather from a cached index table:
-    the cast, the appended zero and the gather."""
+def _wcat(w, cin, cout, dtype):
+    """The parity-plane matrix Wcat (4 Cin, 4 Cout) of the HWIO weight in
+    ``dtype``, its taps rounded to it first (``build_upsampler_matmul``'s,
+    whose blocks each receive one tap onto zero, so bit-equal).  One gather
+    from a cached index table: the cast, the appended zero and the
+    gather."""
     flat = F.pad(w.to(dtype).reshape(-1), (0, 1))
-    out = flat[_index(cin, cout, w.device, transposed)]
-    return out.view(16 * cout, cin) if transposed else out.view(4 * cin,
-                                                                 4 * cout)
+    return flat[_index(cin, cout, w.device)].view(4 * cin, 4 * cout)
 
 
 @route.recorded(ups_fwd_plain)
@@ -237,12 +237,17 @@ def ups_fwd(x, w, b, *, stats=True):
 ups_fwd.launches = _build.counter("", "_f32", "_nostats", "_nostats_f32")
 
 
-def _wg_rows(lib, B, H, cin):
-    """Input rows per bf16 weight-gradient partial on the current device
-    (``erf_ups_train_wg_rows``: one wave of one CTA an SM)."""
-    fn = lib.erf_ups_train_wg_rows
+def _wg_rows(lib, form, B, H, cin):
+    """Input rows per weight-gradient partial of the form on the current
+    device (``erf_ups_train_wg_rows`` or its ``_f32`` twin: one wave of one
+    CTA an SM)."""
+    fn = getattr(lib, "erf_ups_train_wg_rows" + form)
     fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
-    return fn(B, H, cin)
+    rows = fn(B, H, cin)
+    if rows < 1:
+        raise RuntimeError("train upsampler backward: the device's SM "
+                           "count could not be read")
+    return rows
 
 
 @route.recorded(ups_bwd_plain)
@@ -267,35 +272,22 @@ def ups_bwd(x, y, gy, gs1, gs2, w):
     else:   # not read by the stats-free form (g is gy)
         y = gs1 = gs2 = gy
     lib = _build.library("upsampler_train")
-    if form:    # f32: the dx product's (16 Cout, Cin) Wcat layout
-        wk = _wcat(w, cin, cout, dt, transposed=True)
-        rows, chunks, db_parts = 0, -(-(B * H * W) // CHUNK), 4
-    else:       # bf16: the taps as they are
-        wk = _build.taps(w, dt)
-        rows = _wg_rows(lib, B, H, cin)
-        if rows < 1:
-            raise RuntimeError("train upsampler backward: the device's SM "
-                               "count could not be read")
-        chunks, db_parts = -(-(B * H) // rows), 2
+    wk = _build.taps(w, dt)     # both forms: the taps as they are
     _build.require(wk, "w", dt, dev)
+    rows = _wg_rows(lib, form, B, H, cin)
+    chunks = -(-(B * H) // rows)
     g = torch.empty_like(gy) if stats else gy
     dx = torch.empty_like(x)
     part_w = torch.empty(chunks, 9, cin, cout, dtype=torch.float32,
                          device=dev)
-    part_db = torch.empty(chunks, db_parts, cout, dtype=torch.float32,
-                          device=dev)
+    part_db = torch.empty(chunks, 2, cout, dtype=torch.float32, device=dev)
     grads = torch.empty(9 * cin * cout + cout, dtype=torch.float32,
                         device=dev)
-    if form:
-        fn = _build.declare(lib, "erf_ups_train_bwd_f32", 11, 6)
-        ints = (B, H, W, cin, cout, int(stats))
-    else:
-        fn = _build.declare(lib, "erf_ups_train_bwd", 11, 7)
-        ints = (B, H, W, cin, cout, rows, int(stats))
+    fn = _build.declare(lib, "erf_ups_train_bwd" + form, 11, 7)
     err = fn(_build.ptr(x), _build.ptr(y), _build.ptr(gy), _build.ptr(gs1),
              _build.ptr(gs2), _build.ptr(wk), _build.ptr(g), _build.ptr(dx),
              _build.ptr(part_w), _build.ptr(part_db), _build.ptr(grads),
-             *ints, _build.stream_ptr(x))
+             B, H, W, cin, cout, rows, int(stats), _build.stream_ptr(x))
     _build.check(lib, err, f"train upsampler{key}{form} backward launch")
     _build.count(ups_bwd, key + form,
                  n=BWD_LAUNCHES if stats else NOSTATS_BWD_LAUNCHES)

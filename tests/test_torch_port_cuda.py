@@ -21,9 +21,9 @@ against their plain versions, and serving with the packed-run gate on
 parity-plane kernels (the train downsampler's forward and backward, its
 f32 forward at Cin = 3 over raw patches and its f32 weight gradient on
 (row chunk, kh) partials, the train upsampler's forward, and its
-backward: dx as a stride-2 conv over halo patches, the weight gradient
-on (row chunk, kh) partials, the eval upsampler) at maps off their
-tiles and chunks.
+backward in both forms: dx as a stride-2 conv over halo patches, the
+weight gradient on (row chunk, kh) partials, the eval upsampler) at maps
+off their tiles and chunks.
 
 These tests need an NVIDIA GPU with ``nvcc`` (sm_90a) and skip without
 one.  They import nothing of JAX, so on a machine without it run them
@@ -1333,6 +1333,46 @@ def test_upsampler_backward_ragged(dev, shape, cout, stats, dtype):
     _close(got[0], ref[0])
     _rel_for(dtype)(got[1], ref[1])
     _rel_for(dtype)(got[2], ref[2])
+
+
+@pytest.mark.parametrize("shape,cout,stats", [
+    ((1, 47, 70, 128), 64, True), ((1, 47, 70, 128), 64, False),
+    ((2, 139, 40, 64), 16, True), ((2, 139, 40, 64), 16, False),
+    ((3, 3, 1, 128), 64, True), ((1, 1, 33, 64), 16, False)])
+def test_upsampler_f32_backward_ragged_chunks(dev, shape, cout, stats):
+    """The f32 backward, dx over halo patches and the weight gradient on
+    (row chunk, kh) partials: maps whose B H input rows leave the last
+    chunk short on the card's SMs (chunks of more than one row), W off
+    dx's 32-column tiles and the weight gradient's 64-pixel blocks, maps
+    smaller than one tile; both statistic forms; dx at phase 23's map
+    limits, dW and db within F32_GRAD_REL, the launch counts, and two
+    calls bit-identical."""
+    B, H, W, cin = shape
+    x = _rn(*shape, seed=31).relu().to(dev)
+    w = _rn(3, 3, cin, cout, seed=32, scale=(9 * cin) ** -0.5).to(dev)
+    b = _rn(cout, seed=33, scale=0.1).to(dev)
+    y = upsampler_train.ups_fwd_plain(x, w, b)[0]
+    gy = _rn(*y.shape, seed=34).to(dev)
+    gs1 = _rn(B, cout, seed=35, scale=1e-2).to(dev) if stats else None
+    gs2 = _rn(B, cout, seed=36, scale=1e-2).to(dev) if stats else None
+    if H > 3:
+        rows = upsampler_train._wg_rows(_build.library("upsampler_train"),
+                                        "_f32", B, H, cin)
+        assert rows > 1 and (B * H) % rows, rows
+    count = _launched if stats else _nostats
+    n0 = count(upsampler_train.ups_bwd, F32)
+    got = upsampler_train.ups_bwd(x, y, gy, gs1, gs2, w)
+    again = upsampler_train.ups_bwd(x, y, gy, gs1, gs2, w)
+    ref = upsampler_train.ups_bwd_plain(x, y, gy, gs1, gs2, w)
+    torch.cuda.synchronize()
+    assert (count(upsampler_train.ups_bwd, F32) - n0
+            == 2 * (upsampler_train.BWD_LAUNCHES if stats
+                    else upsampler_train.NOSTATS_BWD_LAUNCHES))
+    _close(got[0], ref[0])
+    for i in (1, 2):
+        _rel(got[i], ref[i], F32_GRAD_REL)
+    for i in range(3):
+        assert torch.equal(again[i], got[i])
 
 
 @pytest.mark.parametrize("shape,cc,stem,stats", [

@@ -15,9 +15,9 @@ decompositions written out, nothing of the card.
 * The upsampler forward as the same product of x and the HWIO taps
   through the unflipped table, against ``ups_fwd_plain`` (the same
   rules).
-* The cached Wcat gather of the wrappers (``upsampler_train._wcat``) bit-
-  equal to ``build_upsampler_matmul`` (each block holds one tap added
-  onto zero), in Wcat's and in the dx product's layout.
+* The cached Wcat gather of the f32 forward's wrapper
+  (``upsampler_train._wcat``) bit-equal to ``build_upsampler_matmul``
+  (each block holds one tap added onto zero).
 * The weight gradient summed per (chunk of output rows, kh) in the
   kernel's order (blocks of BP pixels of one row, the three kw taps as
   stride-2 views of one input-row segment), the chunks then reduced in
@@ -179,9 +179,6 @@ def test_cached_wcat_gather_is_build_upsampler_matmul(cin, cout, dtype):
     ref = build_upsampler_matmul(w.to(dtype), w.new_zeros(cout))[0].to(dtype)
     got = U._wcat(w, cin, cout, dtype)
     assert got.dtype == dtype and torch.equal(got, ref)
-    reft = (ref.reshape(4, cin, 4 * cout).transpose(1, 2)
-            .reshape(16 * cout, cin))
-    assert torch.equal(U._wcat(w, cin, cout, dtype, transposed=True), reft)
 
 
 def _wgrad_in_kernel_order(x, g, cin, cc):
@@ -397,16 +394,20 @@ def _ups_g(cin, cout, shape, dtype, seed):
     return x, y, gy, gs1, gs2, w, g
 
 
-def _ups_dx_in_kernel_order(g, w, cin):
-    """dx as the bf16 kernel forms it: tiles of DX_TH x 32 dx pixels; each
-    tile's (2 DX_TH + 1) x 65 halo patch of g (rows 2 i0 - 1 + pr, columns
-    2 j0 - 1 + pc, zero past the map), split into parity planes; tap (kh,
-    kw) the plane (kh & 1, kw & 1) shifted by (kh >> 1, kw >> 1), times
-    w[2 - kh, 2 - kw]^T; f32 sums rounded once."""
+def _ups_dx_in_kernel_order(g, w, th, group=9):
+    """dx as the dx kernels form it: tiles of th x 32 dx pixels; each
+    tile's (2 th + 1) x 65 halo patch of g (rows 2 i0 - 1 + pr, columns 2
+    j0 - 1 + pc, zero past the map), split into parity planes; the taps
+    in the order t = 0 .. 8 of w, patch tap (kh, kw) = (2 - t // 3, 2 - t
+    % 3) the plane (kh & 1, kw & 1) shifted by (kh >> 1, kw >> 1), times
+    w[t] transposed (in g's dtype); one f32 chain per ``group`` taps (the
+    bf16 kernel's nine in one, the f32 kernel's DX32_TAPS), the chains
+    added in order, rounded once."""
     B, H2, W2, _ = g.shape
     H, W = H2 // 2, W2 // 2
-    th, tw = U.DX_TH[cin], U.TW
+    tw = U.TW
     taps = w.to(g.dtype).float()
+    cin = w.shape[2]
     dx = torch.zeros(B, H, W, cin, dtype=g.dtype)
     for bi in range(B):
         for i0 in range(0, H, th):
@@ -421,11 +422,14 @@ def _ups_dx_in_kernel_order(g, w, cin):
                 planes = {(a, e): patch[a::2, e::2] for a in (0, 1)
                           for e in (0, 1)}
                 acc = torch.zeros(th, tw, cin)
-                for kh in range(3):
-                    for kw in range(3):
-                        view = planes[kh & 1, kw & 1][
-                            kh >> 1:(kh >> 1) + th, kw >> 1:(kw >> 1) + tw]
-                        acc += view @ taps[2 - kh, 2 - kw].t()
+                for t0 in range(0, 9, group):
+                    views, ws = [], []
+                    for t in range(t0, t0 + group):
+                        kh, kw = 2 - t // 3, 2 - t % 3
+                        views.append(planes[kh & 1, kw & 1][
+                            kh >> 1:(kh >> 1) + th, kw >> 1:(kw >> 1) + tw])
+                        ws.append(taps[t // 3, t % 3].t())
+                    acc += torch.cat(views, -1) @ torch.cat(ws, 0)
                 n_i, n_j = min(th, H - i0), min(tw, W - j0)
                 dx[bi, i0:i0 + n_i, j0:j0 + n_j] = acc[:n_i, :n_j].to(g.dtype)
     return dx
@@ -438,7 +442,7 @@ def test_upsampler_input_gradient_is_the_halo_patch_conv(cin, cout, shape,
                                                          dtype):
     x, y, gy, gs1, gs2, w, g = _ups_g(cin, cout, shape, dtype, seed=cin)
     ref = U.ups_bwd_plain(x, y, gy, gs1, gs2, w)[0]
-    _close(_ups_dx_in_kernel_order(g, w, cin), ref)
+    _close(_ups_dx_in_kernel_order(g, w, U.DX_TH[cin]), ref)
 
 
 def _ups_wgrad_in_kernel_order(x, g, rows_per):
