@@ -16,11 +16,12 @@ its calls per step) and of the head + class-weighted NLL (row 17 at G=1
 and G=4, forward and backward), each in bf16 and in f32, by launch:
 CUDA events, device time by kernel (torch.profiler) and the host's
 enqueue time, with the library's call for the same function by device
-time beside each forward and rows 5, 8, 11, 13, the pair and row 17
-(cuDNN's forward conv, with its bias for row 9; its
-``convolution_backward`` for rows 5 and 8, the weight gradient alone
-for row 8; the transposed conv for row 14, its ``convolution_backward``
-for rows 13 and 11; the pair's two convs, forward or
+time beside each forward and rows 5, 5 on g = gy, 8, 11, 13, the pair
+and row 17 (cuDNN's forward conv, with its bias for row 9; its
+``convolution_backward`` for rows 5, 5 on g = gy and 8, the weight
+gradient alone for row 8; the transposed conv with its bias for rows
+14, 12 and 10, its ``convolution_backward`` for rows 13 and 11; the
+pair's two convs, forward or
 ``convolution_backward``; ``addmm`` + ``cross_entropy`` and their
 backward for row 17; TF32 off at f32); then prints the card line; no
 result line.  Phases 9 and 28 print the same split for the parity-plane
@@ -3417,13 +3418,14 @@ def split_calls(device, dtype):
     step.  ``yardstick``: the library's call for the same function, timed
     and never on the path: cuDNN's (the forward conv of a forward of the
     downsampler, the stem's on its translated image; its
-    ``convolution_backward`` for rows 5 and 8, the stem's weight gradient
-    alone; ``convolution_backward`` of the transposed conv for rows 13
-    and 11; the conv with its bias for row 9 (without the pool, the BN
-    affine and the ReLU), the transposed conv with its bias for row 14;
+    ``convolution_backward`` for rows 5, 5 gy and 8, the stem's weight
+    gradient alone; ``convolution_backward`` of the transposed conv for
+    rows 13 and 11; the conv with its bias for row 9 (without the pool,
+    the BN affine and the ReLU), the transposed conv with its bias for
+    rows 14, 12 and 10;
     the pair's two convs, their forwards or their
     ``convolution_backward``s), ``addmm`` + ``cross_entropy`` and their
-    backward for row 17 (``_lib_head_loss``), else None."""
+    backward for row 17 (``_lib_head_loss``)."""
     import torch
     from erfnet_pytorch_tpu_torch.ops.cuda import downsampler
     from erfnet_pytorch_tpu_torch.ops.cuda import downsampler_train as dt
@@ -3463,15 +3465,19 @@ def split_calls(device, dtype):
             lambda x=x, w=w, b=b: dt.down_fwd(x, w, b, stats=False)),
             cudnn(x, w), 1))
         gy = torch.randn(*y.shape, generator=g).to(device).to(dtype)
+        # its input and weight gradients (and the bias's)
+        lib = _lib_conv(x, w.permute(3, 2, 0, 1), (2, 2), (1, 1), (1, 1))[1]
         calls.append(("5 gy", label, (
             lambda x=x, gy=gy, w=w:
-            dt.down_bwd(x, None, gy, None, None, w, stem=False)), None, 1))
+            dt.down_bwd(x, None, gy, None, None, w, stem=False)), lib, 1))
     for label, shape, cout in up_train_cases(TRAIN_B):
         x, w, b = ups_inputs(shape, cout, g, device, dtype)
+        # the transposed conv with its bias, as row 14's
+        lib = library_call("upsampler", x, {"w": w.to(x.dtype), "b": b})
         for stats in (True, False):
             calls.append((12 if stats else 10, label, (
                 lambda x=x, w=w, b=b, stats=stats:
-                ut.ups_fwd(x, w, b, stats=stats)), None, 1))
+                ut.ups_fwd(x, w, b, stats=stats)), lib, 1))
         y = ut.ups_fwd_plain(x, w, b)[0]
         gy = torch.randn(*y.shape, generator=g).to(device).to(dtype)
         gs = (1e-3 * torch.randn(shape[0], cout, generator=g)).to(device)

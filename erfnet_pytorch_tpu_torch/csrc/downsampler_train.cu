@@ -84,11 +84,20 @@
 // thread, the sums from the stored values in a fixed butterfly, one
 // partial per tile (3072 at the B=6 stem, 6144 before); the stem's
 // translated image written from the patch interior.  The forwards at Cin
-// = 16 and 64 are implicit GEMMs over tiles of 64 output pixels whose K
-// extent is staged a chunk of taps at a time where the f32 tap stack
-// would not fit beside the tile (the (64, 64) forward's 144 KB of taps
-// three taps at a time; each chunk summed in a chain of its own, the
-// chunks added in order); their pool reads its 2x2 window from the map.
+// = 16 and 64 are the bf16 form's halo-patch conv on FFMA micro-tiles
+// (Fwd32, down_fwd32_kernel): tiles of 4 x 32 / 2 x 32 output pixels, each
+// (2 TH + 1) x 65 patch staged once in four parity planes with XOR-
+// swizzled 16-byte chunks (parity_plane.cuh: the patch loader, the tap
+// ring and the micro-tile of the f32 upsampler's dx), each tap a
+// unit-stride view, 9 Cin Cc
+// MACs a pixel against the tap stack as it is; at Cin = 16 the 27 KB
+// stack resident and two CTAs an SM, at 64 a tap (16 KB) a stage through
+// a 3-stage ring beside two 83 KB patches; the pool from the same patch;
+// one FMA chain per kh row (Cin = 16) or tap (64), added in tap order.
+// They replaced an im2col implicit GEMM (each input pixel gathered about
+// 2.25 times a tap at a time, no copy overlapping the product, a zero-
+// padded weight matrix built per call, the pool read again from the map;
+// 0.448 ms a B=6 step against cuDNN's 0.347, PERF.md §6).
 // The input gradient at Cin = 16 and 64 is the bf16 form's parity-plane
 // product on FFMA micro-tiles (Dx32): per tile of TH x 32 g pixels (TH =
 // 4 at Cin = 16, 2 at 64) the (TH + 1) x 33 patch of g's conv channels is
@@ -108,7 +117,9 @@
 // (row chunk), the chunks sized to one wave from the SM count.  The same
 // launches as the bf16 forms, the partials reduced in a fixed order.
 // Bound at f32: bytes for the stem, operations for the others (9 Cin Cc
-// MACs per output pixel against 67 TFLOP/s).  What is left at f32: in
+// MACs per output pixel against 67 TFLOP/s; 0.0947 ms for the two
+// forwards at Cin = 16 and 64 of a B=6 step).  What is left at f32: the
+// forwards' products read a 16-byte operand for every 7 or 8 FMAs; in
 // the input gradient the pool's share (x's windows, g's pool channels)
 // and the dx stores follow the product in each CTA, and at Cin = 64 one
 // CTA an SM leaves nothing to run beside them: the maps' traffic and the
@@ -644,144 +655,232 @@ down_fwd3_f32_kernel(const float* __restrict__ x,
   cp_async_wait_all();
 }
 
-// Forward at Cin = 16, 64: tiles of BM output pixels; thread (rowg, colg)
-// of an RS x TC grid owns rows rowg + i RS (i < TM) and conv channels
-// 4 colg .. + 3 (TN = 4).  NCHUNK chunks of TPC taps; KC = TPC CIN
-// columns.
+// Forward at Cin = 16, 64 (f32): the bf16 form's stride-2 conv over each
+// tile's halo patch (down_fwd.cuh) on FFMA micro-tiles, the geometry of the
+// f32 upsampler's dx (upsampler_train.cu UpsDx32).  A tile of TH x 32
+// output pixels of one image (TH = 4 at Cin = 16, 2 at 64) stages its (2 TH
+// + 1) x 65 input pixels once, 16-byte cp.async into four parity planes
+// (parity_plane.cuh pf_load_patch_f32: PFPatch's geometry, f32 chunks
+// swizzled by f32_swz, zero past the map); tap (kh, kw) is a unit-stride
+// view of one plane, w[kh, kw] (CIN x CC, the tap stack as it is) its B
+// operand.  The copies (PFRing) and the FFMA micro-tile (pf32_fma) are
+// the f32 upsampler's dx's; only the B operand's indexing is this
+// kernel's.  Thread (rg, tc) owns output pixels rg + i RS (i < TM) and
+// conv channels 4 tc + g CS + (0 .. 3) (g < TN / 4): per four input
+// channels TM float4 of the patch and TN float4 of the tap, 4 TM TN FMAs.
+// Sum order: one FMA chain per group of TPG taps over the group's (tap,
+// ci) in increasing order, the groups added in tap order (a kh row a
+// chain at Cin = 16, a tap at 64), then the bias.
+// * Cin = 16: the 27 KB stack stays resident beside two 37 KB patches, two
+//   CTAs an SM; the next tile's patch is in flight while this one
+//   multiplies.
+// * Cin = 64: the 147 KB stack does not fit beside two 83 KB patches; a tap
+//   (16 KB) a stage streams through a ring of NS = 3 stages (two in
+//   flight, 216 KB in all), and the next tile's patch travels whole with
+//   its first tap, two stages ahead (spread over the stages it was 4 %
+//   slower, PERF.md §6; scripts/cuda_down_fwd_variants.py times the
+//   ring's depth and other tilings).
+// The pool is taps 4, 5, 7 and 8 of the same patch.  The epilogue stages
+// whole output pixels (conv channels + bias, then the pool channels; chunk
+// e of pixel m at e ^ 4 (m & 1)) in the tile's own patch buffer once it is
+// read, writes them 16 bytes a thread and takes the sums from the stored
+// values (thread t always holds channels 4 (t % VC) ..: a chain over its
+// pixels, the lanes of one channel group in a fixed butterfly, the warps
+// in order), one partial per tile.
 template <int CIN, int CC>
 struct Fwd32 {
-  static constexpr int COUT = CIN + CC, K = 9 * CIN;
-  static constexpr int NP = round4(CC), TN = 4, TC = NP / TN;
-  static constexpr int THREADS = TC == 12 ? 192 : 256;
-  static constexpr int BM = 64, RS = THREADS / TC;
-  static constexpr int TM = BM / RS;
-  static constexpr int NCHUNK = CIN == 64 ? 3 : 1, TPC = 9 / NCHUNK;
-  static constexpr int KC = TPC * CIN;
-  static constexpr int LDA = pitch4(KC);
-  static constexpr size_t a_bytes = ((size_t)BM * LDA * 4 + 127) / 128 * 128;
-  static constexpr size_t c_bytes = ((size_t)BM * NP * 4 + 127) / 128 * 128;
-  static constexpr size_t smem = a_bytes + c_bytes + (size_t)KC * NP * 4;
-  static_assert(CIN % 4 == 0 && THREADS % TC == 0 && BM % RS == 0 &&
-                    THREADS % COUT == 0 && KC % 4 == 0 &&
-                    (size_t)THREADS * 2 * 4 <= c_bytes,
-                "f32 down forward tile");
+  static constexpr bool WIDE = CIN == 64;
+  static constexpr int K = CIN, N = CC, COUT = CIN + CC;
+  static constexpr int TH = WIDE ? 2 : 4, TW = 32, BM = TH * TW;
+  // a thread 4 pixels x 12 channels at Cin = 16 (128 threads, 246
+  // registers), 4 x 4 at 64 (256)
+  static constexpr int THREADS = WIDE ? 256 : 128, WARPS = THREADS / 32;
+  static constexpr int TN = WIDE ? 4 : 12, TC = N / TN, CS = 4 * TC;
+  static constexpr int RS = THREADS / TC, TM = BM / RS;
+  static constexpr int NS = WIDE ? 3 : 9;      // ring stages (9: resident)
+  static constexpr int TPG = WIDE ? 1 : 3;     // taps a chain
+  static constexpr int CTAS = WIDE ? 1 : 2;    // CTAs an SM
+  static constexpr int VK = K / 4, VC = COUT / 4;
+  static constexpr int PV = BM * VK / THREADS;  // pool chunks a thread
+  using Geo = PFPatch<K, TH>;
+  static constexpr size_t patch_bytes = pp_align((size_t)Geo::PIXELS * K * 4);
+  static constexpr size_t stage_bytes = (size_t)K * N * 4;   // a tap
+  static constexpr size_t ring_off = 2 * patch_bytes;        // two patches
+  static constexpr size_t smem = ring_off + NS * stage_bytes;
+  // the output staging and the sums' scratch, in the tile's patch buffer
+  static constexpr size_t red_off = (size_t)BM * COUT * 4;
+  static_assert(N % TN == 0 && TN % 4 == 0 && THREADS % TC == 0 &&
+                    BM % RS == 0 && 9 % TPG == 0 && BM * VK % THREADS == 0 &&
+                    THREADS % VC == 0 && VC >= 8 && VC <= 32 &&
+                    red_off + (size_t)WARPS * 2 * COUT * 4 <= patch_bytes &&
+                    CTAS * (smem + 1024) <= 233472,
+                "f32 forward tile at Cin = 16, 64");
 };
 
-// Stage taps [t0, t0 + TPC) of the 3x3 windows of output pixels [m0,
-// m_end): row r, column tq CIN + ci; zero off the map.
-template <int CIN, int CC>
-__device__ __forceinline__ void gather_fwd_f32(float* As, const float* x,
-                                               long long m0, long long m_end,
-                                               int Ho, int Wo, int t0) {
-  using G = Fwd32<CIN, CC>;
-  const int H = 2 * Ho, W = 2 * Wo;
-  constexpr int VPT = CIN / 4;
-  for (int v = threadIdx.x; v < G::BM * G::TPC * VPT; v += blockDim.x) {
-    const int r = v / (G::TPC * VPT), tq = (v / VPT) % G::TPC, j = v % VPT;
-    const int tap = t0 + tq;
-    const long long m = m0 + r;
-    const long long b = m / ((long long)Ho * Wo);
-    const int rem = (int)(m % ((long long)Ho * Wo));
-    const int hi = 2 * (rem / Wo) - 1 + tap / 3;
-    const int wi = 2 * (rem % Wo) - 1 + tap % 3;
-    const bool valid = m < m_end && hi >= 0 && hi < H && wi >= 0 && wi < W;
-    const long long pix = valid ? (b * H + hi) * W + wi : 0;
-    cp_async16(As + r * G::LDA + tq * CIN + j * 4, x + pix * CIN + j * 4,
-               valid);
-  }
-}
+// the staged output: chunk e of pixel m at chunk e ^ fwd32_swz(m)
+__device__ __forceinline__ int fwd32_swz(int m) { return 4 * (m & 1); }
 
 template <int CIN, int CC, bool S>
-__global__ void __launch_bounds__(256)
-down_fwd_f32_kernel(const float* __restrict__ x,
-                    const float* __restrict__ wmat,
-                    const float* __restrict__ bias, float* __restrict__ out,
-                    float* __restrict__ part, int B, int Ho, int Wo) {
+__global__ void __launch_bounds__(Fwd32<CIN, CC>::THREADS,
+                                  Fwd32<CIN, CC>::CTAS)
+down_fwd32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                  const float* __restrict__ bias, float* __restrict__ out,
+                  float* __restrict__ part, int B, int Ho, int Wo) {
   using G = Fwd32<CIN, CC>;
+  using P = typename G::Geo;
+  using Ring = PFRing<9, G::NS>;
+  constexpr int K = G::K, N = G::N, TM = G::TM, TN = G::TN;
+  constexpr int COUT = G::COUT, VK = G::VK, VC = G::VC;
   extern __shared__ __align__(128) unsigned char smem[];
-  float* As = reinterpret_cast<float*>(smem);
-  float* Cs = reinterpret_cast<float*>(smem + G::a_bytes);
-  float* Ws = reinterpret_cast<float*>(smem + G::a_bytes + G::c_bytes);
-  const int HWo = Ho * Wo, TPI = (HWo + G::BM - 1) / G::BM;
-  const int tiles = B * TPI;
   const int H = 2 * Ho, W = 2 * Wo;
-  const int c = threadIdx.x % G::COUT;  // this thread's epilogue channel
-  const float bc = c < CC ? __ldg(bias + c) : 0.0f;
-  const int colg = threadIdx.x % G::TC, rowg = threadIdx.x / G::TC;
+  const int tiles =
+      B * ((Ho + G::TH - 1) / G::TH) * ((Wo + G::TW - 1) / G::TW);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tc = tid % G::TC, rg = tid / G::TC;
+  auto patch_of = [&](int kk) {
+    return reinterpret_cast<float*>(smem + (kk & 1) * G::patch_bytes);
+  };
+  auto stage_of = [&](int r) {
+    return reinterpret_cast<float*>(smem + G::ring_off + r * G::stage_bytes);
+  };
+  auto patch = [&](int kk) {
+    pf_load_patch_f32<P>(patch_of(kk), x,
+                         pp_tile_of<G>(blockIdx.x + kk * gridDim.x, Ho, Wo),
+                         H, W, G::THREADS);
+  };
+  // stage s: tap s of w, (K x N) as it is
+  auto stage = [&](int r, int s) {
+    float* dst = stage_of(r);
+    const float* src = w + (size_t)s * K * N;
+    for (int c = tid; c < K * N / 4; c += G::THREADS)
+      cp_async16(dst + 4 * c, src + 4 * c, true);
+  };
+  int pr[TM], pc[TM];  // this thread's pixels in the tile
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int m = rg + i * G::RS;
+    pr[i] = m / G::TW;
+    pc[i] = m % G::TW;
+  }
 
-  if constexpr (G::NCHUNK == 1) load_matrix(Ws, G::NP, wmat, G::KC, G::NP);
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int b = tile / TPI, local = tile % TPI;
-    const long long m0 = (long long)b * HWo + (long long)local * G::BM;
-    const long long e_img = (long long)b * HWo + HWo;
-    const long long m_end = m0 + G::BM < e_img ? m0 + G::BM : e_img;
-    float acc[G::TM][G::TN];
+  Ring::start(tiles, patch, stage);
+  int kk = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++kk) {
+    const PPTile tl = pp_tile_of<G>(t, Ho, Wo);
+    float* pb = patch_of(kk);
+    float acc[TM][TN], psum[TM][TN];
     zero_tile(acc);
-    for (int ch = 0; ch < G::NCHUNK; ++ch) {
-      gather_fwd_f32<CIN, CC>(As, x, m0, m_end, Ho, Wo, ch * G::TPC);
-      if constexpr (G::NCHUNK > 1)
-        load_matrix(Ws, G::NP, wmat + (size_t)ch * G::KC * G::NP, G::KC,
-                    G::NP);
-      cp_async_commit();
-      cp_async_wait_all();
-      __syncthreads();
-      if constexpr (G::NCHUNK == 1) {
-        ffma_tile<G::TM, G::TN, G::KC, 4 * G::TC>(
-            acc, As + rowg * G::LDA, G::RS * G::LDA, Ws + 4 * colg, G::NP);
-      } else {  // a chain per chunk, added in order (add_tile)
-        float part[G::TM][G::TN];
-        zero_tile(part);
-        ffma_tile<G::TM, G::TN, G::KC, 4 * G::TC>(
-            part, As + rowg * G::LDA, G::RS * G::LDA, Ws + 4 * colg, G::NP);
-        add_tile(acc, part);
-        __syncthreads();  // chunk consumed
+    zero_tile(psum);
+#pragma unroll 1
+    for (int s = 0; s < 9; ++s) {
+      // B: the tap's row ci, this thread's columns 4 tc + g CS + (0 .. 3)
+      const float* bb = stage_of(Ring::next(kk, s, tiles, patch, stage)) +
+                        4 * tc;
+      pf32_fma<VK>(pb, PF32Tap<P, TM>(pr, pc, s / 3, s % 3), 0,
+                   [&](int e, float (&bv)[4][TN]) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+#pragma unroll
+          for (int g = 0; g < TN / 4; ++g) {
+            const float4 v = *reinterpret_cast<const float4*>(
+                bb + (4 * e + k) * N + g * G::CS);
+            bv[k][4 * g] = v.x; bv[k][4 * g + 1] = v.y;
+            bv[k][4 * g + 2] = v.z; bv[k][4 * g + 3] = v.w;
+          }
+      }, psum);
+      if (s % G::TPG == G::TPG - 1) {  // the group's chain ends
+        add_tile(acc, psum);
+        zero_tile(psum);
+      }
+    }
+    // the pool: taps 4, 5, 7, 8 of the same patch, PV chunks a thread
+    float4 pool[G::PV];
+#pragma unroll
+    for (int p = 0; p < G::PV; ++p) {
+      const int v = tid + p * G::THREADS, m = v / VK, e = v % VK;
+      const int r = m / G::TW, c = m % G::TW;
+      const float4 a = *reinterpret_cast<const float4*>(
+          pf32_at<P>(pb, P::tap(r, c, 1, 1), e));
+      const float4 b = *reinterpret_cast<const float4*>(
+          pf32_at<P>(pb, P::tap(r, c, 1, 2), e));
+      const float4 d = *reinterpret_cast<const float4*>(
+          pf32_at<P>(pb, P::tap(r, c, 2, 1), e));
+      const float4 f = *reinterpret_cast<const float4*>(
+          pf32_at<P>(pb, P::tap(r, c, 2, 2), e));
+      pool[p] = make_float4(fmaxf(fmaxf(a.x, b.x), fmaxf(d.x, f.x)),
+                            fmaxf(fmaxf(a.y, b.y), fmaxf(d.y, f.y)),
+                            fmaxf(fmaxf(a.z, b.z), fmaxf(d.z, f.z)),
+                            fmaxf(fmaxf(a.w, b.w), fmaxf(d.w, f.w)));
+    }
+    __syncthreads();  // the patch is read: its buffer stages the output
+    float* Cs = pb;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int m = rg + i * G::RS;
+#pragma unroll
+      for (int g = 0; g < TN / 4; ++g) {
+        const int e = tc + g * G::TC;  // channels 4 e .. 4 e + 3
+        *reinterpret_cast<float4*>(Cs + m * COUT + 4 * (e ^ fwd32_swz(m))) =
+            make_float4(acc[i][4 * g] + __ldg(bias + 4 * e),
+                        acc[i][4 * g + 1] + __ldg(bias + 4 * e + 1),
+                        acc[i][4 * g + 2] + __ldg(bias + 4 * e + 2),
+                        acc[i][4 * g + 3] + __ldg(bias + 4 * e + 3));
       }
     }
 #pragma unroll
-    for (int i = 0; i < G::TM; ++i)
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        Cs[(rowg + i * G::RS) * G::NP + 4 * colg + q] = acc[i][q];
+    for (int p = 0; p < G::PV; ++p) {
+      const int v = tid + p * G::THREADS, m = v / VK, e = N / 4 + v % VK;
+      *reinterpret_cast<float4*>(Cs + m * COUT + 4 * (e ^ fwd32_swz(m))) =
+          pool[p];
+    }
     __syncthreads();
 
-    float s0 = 0.0f, s1 = 0.0f;
-    for (int e = threadIdx.x; e < G::BM * G::COUT; e += blockDim.x) {
-      const int r = e / G::COUT;
-      const long long m = m0 + r;
-      if (m >= m_end) break;
-      float v;
-      if (c < CC) {
-        v = Cs[r * G::NP + c] + bc;
-      } else {
-        const int rem = (int)(m - (long long)b * HWo);
-        const float* p = x + (((long long)b * H + 2 * (rem / Wo)) * W +
-                              2 * (rem % Wo)) * CIN + (c - CC);
-        v = fmaxf(fmaxf(__ldg(p), __ldg(p + CIN)),
-                  fmaxf(__ldg(p + (long long)W * CIN),
-                        __ldg(p + (long long)W * CIN + CIN)));
-      }
-      out[m * G::COUT + c] = v;
+    // whole output pixels, 16 bytes a thread: thread t always holds
+    // channels 4 (t % VC) .. + 3, its sums in registers
+    float s0[4] = {0.0f, 0.0f, 0.0f, 0.0f}, s1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int v = tid; v < G::BM * VC; v += G::THREADS) {
+      const int m = v / VC, j = v % VC;
+      const int i = tl.i0 + m / G::TW, jj = tl.j0 + m % G::TW;
+      if (i >= Ho || jj >= Wo) continue;
+      const float4 q = *reinterpret_cast<const float4*>(
+          Cs + m * COUT + 4 * (j ^ fwd32_swz(m)));
+      *reinterpret_cast<float4*>(
+          out + (((long long)tl.b * Ho + i) * Wo + jj) * COUT + 4 * j) = q;
       if constexpr (S) {
-        s0 += v;
-        s1 += __fmul_rn(v, v);
+        const float f[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          s0[k] += f[k];
+          s1[k] += __fmul_rn(f[k], f[k]);
+        }
       }
     }
-    __syncthreads();  // Cs read: it becomes the reduction scratch
-    if constexpr (!S) continue;
-    float* red = Cs;
-    red[threadIdx.x] = s0;
-    red[G::THREADS + threadIdx.x] = s1;
-    __syncthreads();
-    if (threadIdx.x < G::COUT) {
-      float a0 = 0.0f, a1 = 0.0f;
-      for (int t = threadIdx.x; t < G::THREADS; t += G::COUT) {
-        a0 += red[t];
-        a1 += red[G::THREADS + t];
+    if constexpr (S) {
+      // lanes of one channel group (lane % VC) in a fixed butterfly, the
+      // warps in order: the tile's partial part[t] = [sum y | sum y^2]
+#pragma unroll
+      for (int o = VC; o < 32; o *= 2)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          s0[k] += __shfl_xor_sync(0xffffffffu, s0[k], o);
+          s1[k] += __shfl_xor_sync(0xffffffffu, s1[k], o);
+        }
+      float* red = Cs + G::red_off / 4;
+      if (lane < VC)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          red[warp * 2 * COUT + 4 * lane + k] = s0[k];
+          red[warp * 2 * COUT + COUT + 4 * lane + k] = s1[k];
+        }
+      __syncthreads();
+      for (int c = tid; c < 2 * COUT; c += G::THREADS) {
+        float a = 0.0f;
+        for (int wi = 0; wi < G::WARPS; ++wi) a += red[wi * 2 * COUT + c];
+        part[(long long)t * 2 * COUT + c] = a;
       }
-      part[(long long)tile * 2 * G::COUT + threadIdx.x] = a0;
-      part[(long long)tile * 2 * G::COUT + G::COUT + threadIdx.x] = a1;
     }
-    __syncthreads();
+    // Cs is rewritten only by tile kk + 2's patch, issued after the next
+    // tile's first barrier
   }
   cp_async_wait_all();
 }
@@ -1282,7 +1381,7 @@ int bwd(int stats, const void* gy, const void* y, const void* gs1,
 }
 
 template <int CIN, int CC, bool STEM, bool S>
-int fwd_f32(const void* x, const void* shifts, const void* wmat,
+int fwd_f32(const void* x, const void* shifts, const void* w,
             const void* bias, void* out, void* xa, void* part, void* stats,
             int B, int H, int W, cudaStream_t s) {
   const int Ho = H / 2, Wo = W / 2;
@@ -1299,18 +1398,18 @@ int fwd_f32(const void* x, const void* shifts, const void* wmat,
     down_fwd3_f32_kernel<STEM, S>
         <<<B * tpi < gm ? B * tpi : gm, G::THREADS, G::smem, s>>>(
             static_cast<const float*>(x), static_cast<const int*>(shifts),
-            static_cast<const float*>(wmat), static_cast<const float*>(bias),
+            static_cast<const float*>(w), static_cast<const float*>(bias),
             static_cast<float*>(out), static_cast<float*>(xa),
             static_cast<float*>(part), B, Ho, Wo);
   } else {
     using G = Fwd32<CIN, CC>;
-    if ((e = grid_for(down_fwd_f32_kernel<CIN, CC, S>, G::THREADS, G::smem,
+    if ((e = grid_for(down_fwd32_kernel<CIN, CC, S>, G::THREADS, G::smem,
                       &ok, &gm)) != cudaSuccess)
       return e;
-    tpi = (Ho * Wo + G::BM - 1) / G::BM;
-    down_fwd_f32_kernel<CIN, CC, S>
+    tpi = ((Ho + G::TH - 1) / G::TH) * ((Wo + G::TW - 1) / G::TW);
+    down_fwd32_kernel<CIN, CC, S>
         <<<B * tpi < gm ? B * tpi : gm, G::THREADS, G::smem, s>>>(
-            static_cast<const float*>(x), static_cast<const float*>(wmat),
+            static_cast<const float*>(x), static_cast<const float*>(w),
             static_cast<const float*>(bias), static_cast<float*>(out),
             static_cast<float*>(part), B, Ho, Wo);
   }
@@ -1398,7 +1497,7 @@ bool pair_ok(int cin, int cc, int stem) {
 // at cin = 3, 16, 64; stats: (B, 2 (cin + cc)) f32 = [sum y, sum y^2] per
 // image; with_stats 0: part and stats are not touched.
 extern "C" int erf_down_train_fwd(const void* x, const void* shifts,
-                                  const void* wmat, const void* bias,
+                                  const void* w, const void* bias,
                                   void* out, void* xa, void* part,
                                   void* stats, int B, int H, int W, int cin,
                                   int cc, int stem, int with_stats,
@@ -1406,7 +1505,7 @@ extern "C" int erf_down_train_fwd(const void* x, const void* shifts,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!shape_ok(B, H, W, cin) || !pair_ok(cin, cc, stem))
     return cudaErrorInvalidValue;
-#define ARGS x, shifts, wmat, bias, out, xa, part, stats, B, H, W, s
+#define ARGS x, shifts, w, bias, out, xa, part, stats, B, H, W, s
   if (cin == 3)
     return stem ? ERF_DOWN_FWD(fwd, 3, 13, true)
                 : ERF_DOWN_FWD(fwd, 3, 13, false);
@@ -1442,12 +1541,11 @@ extern "C" int erf_down_train_bwd(const void* gy, const void* y,
 
 
 // The f32 forms: the same operands with x (the f32 image in the stem
-// mode), out, xa in f32; in place of w, wmat: at cin = 3 the (3, 3, 3, 13)
-// f32 tap stack as it is, else (round4(9 cin), round4(cc)) f32, zero
-// padded; part: at cin = 3 as the bf16 form's (th = 8), else (B *
-// ceil(H/2 W/2 / 64), 2 (cin + cc)).
+// mode), w, out, xa in f32 (w the (3, 3, cin, cc) f32 tap stack as it is,
+// 16-byte aligned); part as the bf16 form's (th = 8, 4, 2 at cin = 3, 16,
+// 64).
 extern "C" int erf_down_train_fwd_f32(const void* x, const void* shifts,
-                                      const void* wmat, const void* bias,
+                                      const void* w, const void* bias,
                                       void* out, void* xa, void* part,
                                       void* stats, int B, int H, int W,
                                       int cin, int cc, int stem,
@@ -1455,7 +1553,7 @@ extern "C" int erf_down_train_fwd_f32(const void* x, const void* shifts,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!shape_ok(B, H, W, cin) || !pair_ok(cin, cc, stem))
     return cudaErrorInvalidValue;
-#define ARGS x, shifts, wmat, bias, out, xa, part, stats, B, H, W, s
+#define ARGS x, shifts, w, bias, out, xa, part, stats, B, H, W, s
   if (cin == 3)
     return stem ? ERF_DOWN_FWD(fwd_f32, 3, 13, true)
                 : ERF_DOWN_FWD(fwd_f32, 3, 13, false);

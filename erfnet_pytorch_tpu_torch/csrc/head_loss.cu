@@ -19,25 +19,39 @@
 //   dz = bf16(gnum w_p (softmax_p(z) - onehot(t)))
 //   dfeats = bf16(dz . bf16(W)^T);  dW = f^T dz;  db = sum_m dz   (f32)
 //
-// The logits never reach device memory.  One thread per row computes its
-// G n logits on the CUDA cores in f32 (a row's products are exact in f32,
-// as on the TPU's MXU); sums over rows go to per-CTA partials reduced in
-// a fixed order.  At G = 1 the weight gradient is a separate launch over
-// chunks of rows that reads the feats and the stored dz; at G = 4, where
-// dz (M x 80) would be five times the features, each CTA keeps its rows'
-// dz in shared memory and adds its share of dW and db there.
+// The logits and dz never reach device memory; sums over rows go to
+// per-CTA partials reduced in a fixed order, so a step is bit-
+// reproducible.  The forward (fwd_kernel, fwd4_kernel): one thread a row
+// computes its G n logits on the CUDA cores in f32 (a row's products are
+// exact in f32, as on the TPU's MXU), at G = 1 over NMAX = 32 zero-padded
+// classes (0.036 ms at B=6 against the library's 0.045: left as it is).
+// The G = 1 backward is one pass (bwd1_kernel): persistent CTAs, one wave,
+// each over a chunk of rows in blocks of 128 staged with 16-byte cp.async
+// (the next block in flight); per block the logits, softmax and dz over
+// 20 columns of W at n = 20, else 32 (two threads a row), [dW | db] +=
+// F^T [dz | 1] on an FFMA micro-tile with the rows as its depth, then
+// dfeats = dz . W^T staged in the block's feats buffer and written 16
+// bytes a thread.
+// The two launches it replaced (a thread a row over 32 classes writing dz
+// (M x n) to device memory, then a weight gradient over 48 CTAs of 1024
+// rows that read it back) took 0.27 ms at B=6 (PERF.md §6).  At G = 4,
+// where dz (M x 80) would be five times the features, each CTA keeps its
+// rows' dz in shared memory and adds its share of dW and db there.
 //
-// Bound on this card: bytes (K bf16 features per row against 2 K G n
-// operations).  This version runs the product on the CUDA cores, which at
-// n = 20 is about at the byte bound's level; the tensor cores are the next
-// step if it is not.
+// Bound on this card at G = 1, B=6 (M = 49152, n = 20): bytes, 2 M K
+// bf16 values read and written against 3 M K n FMAs (0.0114 ms; at f32
+// 0.0227 ms, and the products on the CUDA cores at 67 TFLOP/s take 0.011
+// ms).  What is left: the logits and dfeats loops read W from shared
+// memory at about one 16-byte load per 4 FMAs (two threads a row); the
+// tensor cores are the next step if the pass stays above its bound.
 //
 // The f32 forms (erf_head_loss*_f32, the JAX package's default compute
 // dtype): the same kernels as templates on the element type T of feats,
 // W, dz and dfeats.  At f32 the feature rows are read as f32, W is staged
 // unrounded, and dz and dfeats are not rounded: f32 logits, f32 products,
 // f32 sums, nothing rounded to bf16.  The G = 4 backward keeps its rows'
-// f32 dz in (dynamic) shared memory, 41 KB per CTA.  Bound at f32: bytes
+// f32 dz in (dynamic) shared memory, 41 KB per CTA; the G = 1 backward
+// stages its blocks of feats in f32 (64 KB each).  Bound at f32: bytes
 // (512 bytes per G = 1 row, 64 per G = 4 row, against 40 and 160 FMAs).
 #include "common.cuh"
 
@@ -119,7 +133,7 @@ fwd_kernel(const T* __restrict__ feats, const T* __restrict__ w,
 #pragma unroll
     for (int c = 0; c < NMAX; ++c) {
       if (c < n) s += expf(z[c] - mx);
-      if (c == t) zt = z[c];
+      if (c == t && c < n) zt = z[c];  // a label in [n, NMAX) weighs 0
     }
     const float wt = t >= 0 && t < n ? cws[t] : 0.0f;
     num = wt * (mx + logf(s) - zt);
@@ -133,99 +147,305 @@ fwd_kernel(const T* __restrict__ feats, const T* __restrict__ w,
   }
 }
 
+// ---------------------------------------------------------------------------
+// G = 1 backward: one pass (bwd1_kernel)
+// ---------------------------------------------------------------------------
+//
+// Persistent CTAs, one wave: CTA c owns rows [c rows, (c + 1) rows) of the
+// M feature rows (rows = head_loss_rows(M): at least R1, and enough that
+// the CTAs fit the SMs once) and takes them in blocks of R1 rows, the next
+// block's feats in flight (16-byte cp.async, coalesced) while this one
+// computes.  A staged row keeps its K values in T, its 16-byte chunk e at
+// chunk e ^ swz1(r).  Per block:
+//  1. Stage one, two threads a row: thread (r, h) sums the logits of row r
+//     over its half of K, chunks j = 2 i + h (one FMA chain per class in
+//     increasing k), for NP columns of W (staged once as f32, zero past
+//     n; NP = 20 for the encoder's 17-20 classes, else 32); the two
+//     halves are added (a shuffle), then the bias.  Both
+//     threads take the softmax and dz = round_T(gnum w[t] (p - onehot))
+//     and write their half of the row's dz to Ds (f32: a bf16 dz is
+//     exact there).
+//  2. Stage two: [dW | db] += F^T [dz | 1] over the block's rows, an FFMA
+//     micro-tile with the rows as its depth: warp w takes rows [w KL1,
+//     (w + 1) KL1) of every block, lane l owns dW rows k = 4 l .. 4 l + 3
+//     and all NP columns (one FMA chain per output over the warp's rows in
+//     order); lane c < n of warp w sums db[c] over the same rows.
+//  3. dfeats = round_T(dz . W^T), two threads a row (thread (r, h) its
+//     chunks j = 2 i + h, one FMA chain per output over c), staged in
+//     the block's own feats buffer (read by then) and written 16 bytes a
+//     thread.
+// At the end the eight warps' sums are added in warp order: the CTA's
+// partial part[c] = [dW (K n) | db (n)], reduced over the CTAs in a fixed
+// order by a second launch.  dz never leaves the CTA.
+constexpr int R1 = 128, THREADS1 = 256, WK1 = THREADS1 / 32, KL1 = R1 / WK1;
+constexpr int CTAS1 = 1;  // CTAs an SM (registers: 4 NP dW sums a thread)
+
+// staged feature rows of T: 16-byte chunks, 8 bf16 or 4 f32 a chunk;
+// chunk e of row r at chunk e ^ swz1(r), so that the 8 lanes of a quarter
+// warp (rows r .. r + 3, halves h = 0, 1, chunks 2 i + h) fall on 8 bank
+// groups
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-bwd_rows_kernel(const T* __restrict__ feats, const T* __restrict__ w,
-                const float* __restrict__ bias,
-                const int* __restrict__ labels, const float* __restrict__ cw,
-                const float* __restrict__ gnum, T* __restrict__ dz_out,
-                T* __restrict__ dfeats, int M, int n) {
-  __shared__ float Ws[K * NMAX], bs[NMAX], cws[NMAX];
-  stage(w, bias, cw, n, Ws, bs, cws);
-  const long long m = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (m >= M) return;
-  float z[NMAX];
-  logits(feats + m * K, Ws, bs, n, z);
-  float mx = z[0];
-#pragma unroll
-  for (int c = 1; c < NMAX; ++c) mx = fmaxf(mx, z[c]);
-  float s = 0.0f;
-#pragma unroll
-  for (int c = 0; c < NMAX; ++c) {
-    z[c] = c < n ? expf(z[c] - mx) : 0.0f;
-    s += z[c];
+struct Rows1 {
+  static constexpr int VPC = 16 / (int)sizeof(T), CPR = K / VPC;
+  static constexpr size_t bytes = (size_t)R1 * K * sizeof(T);
+};
+__device__ __forceinline__ int swz1(int r) { return 2 * (r & 3); }
+
+// W (K, n) staged as f32 (K, NP), zero past n: row k at chunk k PC + (k >>
+// 3), PC odd, so that the rows the two halves of a row read at once (4
+// apart at f32, 8 apart at bf16) fall on distinct bank groups
+template <int NP>
+struct W1 {
+  static constexpr int PC = (NP / 4) % 2 ? NP / 4 : NP / 4 + 1;
+  static constexpr size_t bytes = ((size_t)K * PC + K / 8) * 16;
+  __device__ static float* row(float* Ws, int k) {
+    return Ws + 4 * (k * PC + (k >> 3));
   }
-  const int t = __ldg(labels + m);
-  const float gw = __ldg(gnum) * (t >= 0 && t < n ? cws[t] : 0.0f);
-  const float inv = 1.0f / s;
-#pragma unroll
-  for (int c = 0; c < NMAX; ++c) {
-    const float p = z[c] * inv;
-    z[c] = round_as<T>(gw * (p - (c == t ? 1.0f : 0.0f)));
-    if (c < n) dz_out[m * n + c] = from_f32<T>(z[c]);
-  }
-  // dfeats[k] = sum_c dz[c] W[k, c], 8 features per store
-  T* dst = dfeats + m * K;
-#pragma unroll 1
-  for (int kv = 0; kv < K / 8; ++kv) {
-    float o[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float* wr = Ws + (kv * 8 + i) * NMAX;
-      float a = 0.0f;
-#pragma unroll
-      for (int c = 0; c < NMAX; ++c) a = fmaf(z[c], wr[c], a);
-      o[i] = a;
-    }
-    store_vec8(dst + kv * 8, o);
-  }
+};
+
+template <typename T, int NP>
+struct Bwd1 {
+  using F = Rows1<T>;
+  static constexpr size_t w_off = 2 * F::bytes;  // two feats buffers
+  static constexpr size_t d_off = w_off + (W1<NP>::bytes + 127) / 128 * 128;
+  static constexpr size_t work = d_off + (size_t)R1 * NP * 4;
+  // the warps' [dW | db] sums at the end, over the dead buffers
+  static constexpr size_t red = (size_t)WK1 * (K + 1) * NP * 4;
+  static constexpr size_t smem = work > red ? work : red;
+  static_assert(NP % 4 == 0 && NP <= NMAX && F::CPR % 2 == 0 &&
+                    THREADS1 == 2 * R1 && smem <= 232448,
+                "G = 1 backward tile");
+};
+
+// this thread's 16-byte chunk of a staged row -> VPC f32 values
+__device__ __forceinline__ void chunk_f32(const float* p, float* v) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+}
+__device__ __forceinline__ void chunk_f32(const bf16* p, float* v) {
+  unpack_bf16x8(*reinterpret_cast<const uint4*>(p), v);
+}
+__device__ __forceinline__ void chunk_store(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void chunk_store(bf16* p, const float* v) {
+  *reinterpret_cast<uint4*>(p) = pack_bf16x8(v);
+}
+// values 4 l .. 4 l + 3 of a staged row (lane l of stage two)
+__device__ __forceinline__ void quad_f32(const float* row, int r, int l,
+                                         float* v) {
+  chunk_f32(row + 4 * (l ^ swz1(r)), v);
+}
+__device__ __forceinline__ void quad_f32(const bf16* row, int r, int l,
+                                         float* v) {
+  const uint2 u = *reinterpret_cast<const uint2*>(
+      row + 8 * ((l >> 1) ^ swz1(r)) + 4 * (l & 1));
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
+  const float2 a = __bfloat1622float2(p[0]), b = __bfloat1622float2(p[1]);
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
 }
 
-// dW (K, n) and db (n,) partials over a chunk of CHUNK rows: thread
-// (k = tid / 2, half = tid % 2) owns dW[k, half * 16 .. + 16); threads
-// < n also sum db.  part[chunk] = [dW (K n), db (n)].
-constexpr int CHUNK = 1024, SUB = 64;
+template <typename T, int NP>
+__global__ void __launch_bounds__(THREADS1, CTAS1)
+bwd1_kernel(const T* __restrict__ feats, const T* __restrict__ w,
+            const float* __restrict__ bias, const int* __restrict__ labels,
+            const float* __restrict__ cw, const float* __restrict__ gnum,
+            T* __restrict__ dfeats, float* __restrict__ part, int M, int n,
+            int rows) {
+  using G = Bwd1<T, NP>;
+  using F = Rows1<T>;
+  constexpr int VPC = F::VPC, CPR = F::CPR;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Ws = reinterpret_cast<float*>(smem + G::w_off);
+  float* Ds = reinterpret_cast<float*>(smem + G::d_off);
+  __shared__ float bs[NP], cws[NP];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int r = tid >> 1, h = tid & 1;  // stage one and three: row, half
+  const long long c_begin = (long long)blockIdx.x * rows;
+  const long long c_end = c_begin + rows < M ? c_begin + rows : M;
+  const int blocks = (int)((c_end - c_begin + R1 - 1) / R1);
+  auto buf = [&](int kb) {
+    return reinterpret_cast<T*>(smem + (kb & 1) * F::bytes);
+  };
+  // block kb's rows into buf(kb), zero past the chunk
+  auto issue = [&](int kb) {
+    if (kb < blocks) {
+      const long long r0 = c_begin + (long long)kb * R1;
+      T* dst = buf(kb);
+      for (int v = tid; v < R1 * CPR; v += THREADS1) {
+        const int rr = v / CPR, e = v % CPR;
+        const bool valid = r0 + rr < c_end;
+        cp_async16(dst + rr * K + VPC * (e ^ swz1(rr)),
+                   feats + (valid ? (r0 + rr) * K + VPC * e : 0), valid);
+      }
+    }
+    cp_async_commit();
+  };
+  issue(0);
+  for (int i = tid; i < K * NP; i += THREADS1) {
+    const int k = i / NP, c = i % NP;
+    W1<NP>::row(Ws, k)[c] = c < n ? to_f32(w[k * n + c]) : 0.0f;
+  }
+  if (tid < NP) {
+    bs[tid] = tid < n ? bias[tid] : 0.0f;
+    cws[tid] = tid < n ? cw[tid] : 0.0f;
+  }
+  const float gs = __ldg(gnum);
+  float acc[4][NP], dbs = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < NP; ++c) acc[i][c] = 0.0f;
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-wgrad_kernel(const T* __restrict__ feats, const T* __restrict__ dz,
-             float* __restrict__ part, int M, int n) {
-  __shared__ float fs[SUB][K + 1];
-  __shared__ float ds[SUB][NMAX];
-  const int k = threadIdx.x / 2, half = threadIdx.x % 2;
-  float acc[16];
+  for (int kb = 0; kb < blocks; ++kb) {
+    const long long r0 = c_begin + (long long)kb * R1;
+    const int nvalid = (int)(c_end - r0 < R1 ? c_end - r0 : R1);
+    T* Fb = buf(kb);
+    cp_async_wait_group<0>();  // block kb, the only group in flight
+    __syncthreads();
+    // block kb + 1 into the buffer block kb - 1 left: the barrier above
+    // ends its dfeats copy-out
+    issue(kb + 1);
+
+    // 1. logits, softmax, dz of row r
+    {
+      const T* frow = Fb + r * K;
+      float z[NP];
 #pragma unroll
-  for (int i = 0; i < 16; ++i) acc[i] = 0.0f;
-  float dbs = 0.0f;
-  const long long r_begin = (long long)blockIdx.x * CHUNK;
-  const long long r_stop = r_begin + CHUNK < M ? r_begin + CHUNK : M;
-  for (long long r0 = r_begin; r0 < r_stop; r0 += SUB) {
-    for (int e = threadIdx.x; e < SUB * K; e += THREADS) {
-      const int r = e / K, kk = e % K;
-      fs[r][kk] = r0 + r < r_stop ? to_f32(feats[(r0 + r) * K + kk]) : 0.0f;
-    }
-    for (int e = threadIdx.x; e < SUB * NMAX; e += THREADS) {
-      const int r = e / NMAX, c = e % NMAX;
-      ds[r][c] = r0 + r < r_stop && c < n ? to_f32(dz[(r0 + r) * n + c])
-                                          : 0.0f;
+      for (int c = 0; c < NP; ++c) z[c] = 0.0f;
+#pragma unroll 2
+      for (int i = 0; i < CPR / 2; ++i) {
+        const int j = 2 * i + h;
+        float fv[VPC];
+        chunk_f32(frow + VPC * (j ^ swz1(r)), fv);
+#pragma unroll
+        for (int kk = 0; kk < VPC; ++kk) {
+          const float* wr = W1<NP>::row(Ws, j * VPC + kk);
+#pragma unroll
+          for (int c4 = 0; c4 < NP / 4; ++c4) {
+            const float4 wv = *reinterpret_cast<const float4*>(wr + 4 * c4);
+            z[4 * c4] = fmaf(fv[kk], wv.x, z[4 * c4]);
+            z[4 * c4 + 1] = fmaf(fv[kk], wv.y, z[4 * c4 + 1]);
+            z[4 * c4 + 2] = fmaf(fv[kk], wv.z, z[4 * c4 + 2]);
+            z[4 * c4 + 3] = fmaf(fv[kk], wv.w, z[4 * c4 + 3]);
+          }
+        }
+      }
+      // the halves added (h = 0's + h = 1's, the same in both lanes), the
+      // bias; -inf past the n classes
+#pragma unroll
+      for (int c = 0; c < NP; ++c) {
+        z[c] += __shfl_xor_sync(0xffffffffu, z[c], 1);
+        z[c] = c < n ? z[c] + bs[c] : -__int_as_float(0x7f800000);
+      }
+      float mx = z[0];
+#pragma unroll
+      for (int c = 1; c < NP; ++c) mx = fmaxf(mx, z[c]);
+      float s = 0.0f;
+#pragma unroll
+      for (int c = 0; c < NP; ++c) {
+        z[c] = c < n ? expf(z[c] - mx) : 0.0f;
+        s += z[c];
+      }
+      const int t = r < nvalid ? __ldg(labels + r0 + r) : -1;
+      const float gw = gs * (t >= 0 && t < n ? cws[t] : 0.0f);
+      const float inv = 1.0f / s;
+#pragma unroll
+      for (int c = 0; c < NP; ++c) {
+        const float p = z[c] * inv;
+        z[c] = r < nvalid && c < n
+                   ? round_as<T>(gw * (p - (c == t ? 1.0f : 0.0f)))
+                   : 0.0f;
+      }
+#pragma unroll
+      for (int c4 = 0; c4 < NP / 4; ++c4)
+        if ((c4 & 1) == h)
+          *reinterpret_cast<float4*>(Ds + r * NP + 4 * c4) =
+              make_float4(z[4 * c4], z[4 * c4 + 1], z[4 * c4 + 2],
+                          z[4 * c4 + 3]);
     }
     __syncthreads();
-    for (int r = 0; r < SUB; ++r) {
-      const float f = fs[r][k];
+
+    // 2. [dW | db] over this warp's rows of the block
+    {
+      const int stop = min((warp + 1) * KL1, nvalid);
+      for (int rr = warp * KL1; rr < stop; ++rr) {
+        float f[4], d[NP];
+        quad_f32(Fb + rr * K, rr, lane, f);
 #pragma unroll
-      for (int i = 0; i < 16; ++i) acc[i] = fmaf(f, ds[r][half * 16 + i], acc[i]);
+        for (int c4 = 0; c4 < NP / 4; ++c4) {
+          const float4 v = *reinterpret_cast<const float4*>(Ds + rr * NP +
+                                                            4 * c4);
+          d[4 * c4] = v.x; d[4 * c4 + 1] = v.y;
+          d[4 * c4 + 2] = v.z; d[4 * c4 + 3] = v.w;
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < NP; ++c) acc[i][c] = fmaf(f[i], d[c], acc[i][c]);
+        if (lane < NP) dbs += Ds[rr * NP + lane];
+      }
     }
-    if (threadIdx.x < n)
-      for (int r = 0; r < SUB; ++r) dbs += ds[r][threadIdx.x];
-    __syncthreads();
-  }
-  float* dst = part + (long long)blockIdx.x * (K * n + n);
+    __syncthreads();  // F is read: its buffer stages dfeats
+
+    // 3. dfeats of row r, this thread's chunks, into the buffer
+    {
+      float d[NP];
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const int c = half * 16 + i;
-    if (c < n) dst[k * n + c] = acc[i];
+      for (int c4 = 0; c4 < NP / 4; ++c4) {
+        const float4 v = *reinterpret_cast<const float4*>(Ds + r * NP + 4 * c4);
+        d[4 * c4] = v.x; d[4 * c4 + 1] = v.y;
+        d[4 * c4 + 2] = v.z; d[4 * c4 + 3] = v.w;
+      }
+      T* frow = Fb + r * K;
+#pragma unroll 2
+      for (int i = 0; i < CPR / 2; ++i) {
+        const int j = 2 * i + h;
+        float o[VPC];
+#pragma unroll
+        for (int kk = 0; kk < VPC; ++kk) {
+          const float* wr = W1<NP>::row(Ws, j * VPC + kk);
+          float a = 0.0f;
+#pragma unroll
+          for (int c4 = 0; c4 < NP / 4; ++c4) {
+            const float4 wv = *reinterpret_cast<const float4*>(wr + 4 * c4);
+            a = fmaf(d[4 * c4], wv.x, a);
+            a = fmaf(d[4 * c4 + 1], wv.y, a);
+            a = fmaf(d[4 * c4 + 2], wv.z, a);
+            a = fmaf(d[4 * c4 + 3], wv.w, a);
+          }
+          o[kk] = a;
+        }
+        chunk_store(frow + VPC * (j ^ swz1(r)), o);
+      }
+    }
+    __syncthreads();
+    // whole rows, 16 bytes a thread: the block's rows are consecutive
+    for (int v = tid; v < nvalid * CPR; v += THREADS1) {
+      const int rr = v / CPR, e = v % CPR;
+      *reinterpret_cast<uint4*>(dfeats + (r0 + rr) * K + VPC * e) =
+          *reinterpret_cast<const uint4*>(Fb + rr * K + VPC * (e ^ swz1(rr)));
+    }
+    // buf(kb) is refilled only by block kb + 2, issued after the next
+    // iteration's barrier
   }
-  if (threadIdx.x < n) dst[K * n + threadIdx.x] = dbs;
+  cp_async_wait_all();
+  __syncthreads();  // every buffer is dead: red may alias them
+  float* red = reinterpret_cast<float*>(smem);
+  const int len = (K + 1) * n;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < NP; ++c)
+      if (c < n) red[warp * len + (4 * lane + i) * n + c] = acc[i][c];
+  if (lane < n) red[warp * len + K * n + lane] = dbs;
+  __syncthreads();
+  float* dst = part + (long long)blockIdx.x * len;
+  for (int e = tid; e < len; e += THREADS1) {
+    float a = 0.0f;
+    for (int wi = 0; wi < WK1; ++wi) a += red[wi * len + e];
+    dst[e] = a;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -459,26 +679,58 @@ int fwd1(const void* feats, const void* w, const void* bias,
                       static_cast<float*>(out), 1, blocks, 2, s);
 }
 
-template <typename T>
-int bwd1(const void* feats, const void* w, const void* bias,
-         const void* labels, const void* cw, const void* gnum, void* dz,
-         void* dfeats, void* part, void* grads, int M, int n, void* stream) {
-  if (n < 1 || n > NMAX || M < 1) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  bwd_rows_kernel<T><<<(M + THREADS - 1) / THREADS, THREADS, 0, s>>>(
+// Rows a G = 1 backward CTA owns: at least R1, and enough that the
+// CTAs (CTAS1 an SM) fit the device's SMs once; 0 on a CUDA error.
+int head_loss_rows(int M) {
+  static int sms = 0;
+  int dev = 0;
+  if (sms == 0 &&
+      (cudaGetDevice(&dev) != cudaSuccess ||
+       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+           cudaSuccess))
+    return 0;
+  if (sms < 1 || M < 1) return 0;
+  const long long per = ((long long)M + sms * CTAS1 - 1) / (sms * CTAS1);
+  return (int)(per > R1 ? per : R1);
+}
+
+template <typename T, int NP>
+cudaError_t bwd1_launch(const void* feats, const void* w, const void* bias,
+                        const void* labels, const void* cw, const void* gnum,
+                        void* dfeats, void* part, int M, int n, int rows,
+                        int ctas, cudaStream_t s) {
+  using G = Bwd1<T, NP>;
+  static bool ok = false;
+  cudaError_t e = allow_smem(bwd1_kernel<T, NP>, G::smem, &ok);
+  if (e != cudaSuccess) return e;
+  bwd1_kernel<T, NP><<<ctas, THREADS1, G::smem, s>>>(
       static_cast<const T*>(feats), static_cast<const T*>(w),
       static_cast<const float*>(bias), static_cast<const int*>(labels),
       static_cast<const float*>(cw), static_cast<const float*>(gnum),
-      static_cast<T*>(dz), static_cast<T*>(dfeats), M, n);
-  cudaError_t e = cudaGetLastError();
+      static_cast<T*>(dfeats), static_cast<float*>(part), M, n, rows);
+  return cudaGetLastError();
+}
+
+// Launches: the one-pass kernel (20 or 32 columns of W), then the
+// reduction of its per-CTA partials.
+template <typename T>
+int bwd1(const void* feats, const void* w, const void* bias,
+         const void* labels, const void* cw, const void* gnum, void* dfeats,
+         void* part, void* grads, int M, int n, void* stream) {
+  if (n < 1 || n > NMAX || M < 1) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rows = head_loss_rows(M);
+  if (rows < 1) return cudaErrorInvalidValue;
+  const int ctas = (M + rows - 1) / rows;
+#define ERF_BWD1(NP)                                                      \
+  bwd1_launch<T, NP>(feats, w, bias, labels, cw, gnum, dfeats, part, M, n, \
+                     rows, ctas, s)
+  // the encoder's 20 classes, else 32 columns, zero past n
+  cudaError_t e = n > 16 && n <= 20 ? ERF_BWD1(20) : ERF_BWD1(32);
+#undef ERF_BWD1
   if (e != cudaSuccess) return e;
-  const int chunks = (M + CHUNK - 1) / CHUNK;
-  wgrad_kernel<T><<<chunks, THREADS, 0, s>>>(static_cast<const T*>(feats),
-                                             static_cast<const T*>(dz),
-                                             static_cast<float*>(part), M, n);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
   return reduce_parts(static_cast<const float*>(part),
-                      static_cast<float*>(grads), 1, chunks, K * n + n, s);
+                      static_cast<float*>(grads), 1, ctas, K * n + n, s);
 }
 
 template <typename T>
@@ -524,7 +776,7 @@ int bwd4(const void* feats, const void* w, const void* bias,
 
 // ------------------------------ C interface -------------------------------
 //
-// The bf16 forms take feats, W, dz and dfeats in bf16; the _f32 forms the
+// The bf16 forms take feats, W and dfeats in bf16; the _f32 forms the
 // same operands in f32.  bias, cw, gnum, part, out and grads are f32 in
 // both.
 
@@ -545,27 +797,30 @@ extern "C" int erf_head_loss_fwd_f32(const void* feats, const void* w,
   return fwd1<float>(feats, w, bias, labels, cw, part, out, M, n, stream);
 }
 
-// Backward.  gnum: (1,) f32 on the device; dz: (M, n) scratch; dfeats:
-// (M, 128); part: (ceil(M / 1024), 128 n + n) f32 scratch; grads:
-// (128 n + n) f32 = [dW (128, n), db].
+// Backward.  gnum: (1,) f32 on the device; dfeats: (M, 128); part:
+// (ceil(M / erf_head_loss_rows(M)), 128 n + n) f32 scratch, one partial a
+// CTA; grads: (128 n + n) f32 = [dW (128, n), db].
 extern "C" int erf_head_loss_bwd(const void* feats, const void* w,
                                  const void* bias, const void* labels,
-                                 const void* cw, const void* gnum, void* dz,
+                                 const void* cw, const void* gnum,
                                  void* dfeats, void* part, void* grads, int M,
                                  int n, void* stream) {
-  return bwd1<bf16>(feats, w, bias, labels, cw, gnum, dz, dfeats, part,
-                    grads, M, n, stream);
+  return bwd1<bf16>(feats, w, bias, labels, cw, gnum, dfeats, part, grads, M,
+                    n, stream);
 }
 
 extern "C" int erf_head_loss_bwd_f32(const void* feats, const void* w,
                                      const void* bias, const void* labels,
                                      const void* cw, const void* gnum,
-                                     void* dz, void* dfeats, void* part,
-                                     void* grads, int M, int n,
-                                     void* stream) {
-  return bwd1<float>(feats, w, bias, labels, cw, gnum, dz, dfeats, part,
-                     grads, M, n, stream);
+                                     void* dfeats, void* part, void* grads,
+                                     int M, int n, void* stream) {
+  return bwd1<float>(feats, w, bias, labels, cw, gnum, dfeats, part, grads,
+                     M, n, stream);
 }
+
+// Rows per CTA of the G = 1 backward for M rows (its partials: ceil(M /
+// rows)); 0 on a CUDA error.
+extern "C" int erf_head_loss_rows(int M) { return head_loss_rows(M); }
 
 // G = 4.  feats: (M, 16); w: (16, 4n), column g n + c for plane g =
 // a*2+b; bias: (4n,) f32; labels: (M, 4) int32 in plane order; cw: (n,)

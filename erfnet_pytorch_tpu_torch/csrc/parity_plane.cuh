@@ -433,4 +433,149 @@ __device__ __forceinline__ void pf_load_raw(unsigned char* dst,
   }
 }
 
+// ---------------------------------------------------------------------------
+// f32 halo patches: PFPatch's geometry with f32 channels, the staging of
+// the f32 forms of the halo-patch stride-2 conv (the train upsampler's dx,
+// upsampler_train.cu dx32_kernel, and the f32 train downsampler forward,
+// downsampler_train.cu down_fwd32_kernel).  A pixel's CIN f32 channels are
+// VK = CIN / 4 chunks of 16 bytes, unpadded, chunk e of plane pixel q at
+// chunk e ^ f32_swz(q, VK).
+// ---------------------------------------------------------------------------
+
+// 16-byte chunk e of row q of an f32 array of V chunks a row (V = 4, 8 or
+// 16) is stored at chunk e ^ f32_swz(q, V) of the row, so that the same
+// chunk of any 8 consecutive rows falls on the 8 bank groups of a
+// 128-byte line.
+__host__ __device__ constexpr int f32_swz(int q, int V) {
+  return V >= 8 ? (q & 7) : (q / (8 / V)) % V;
+}
+
+// Start copying tile tl's patch of the f32 map x (B, H, W, CIN) into its
+// planes at dst (P = PFPatch<CIN, TH>), zero past the map.
+template <class P>
+__device__ __forceinline__ void pf_load_patch_f32(float* dst, const float* x,
+                                                  PPTile tl, int H, int W,
+                                                  int nthreads) {
+  constexpr int CIN = P::LDK, VK = CIN / 4;
+  for (int c = threadIdx.x; c < P::PIXELS * VK; c += nthreads) {
+    const int pix = c / VK, e = c % VK;
+    const int pr = pix / P::PC, pc = pix % P::PC;
+    const int h = 2 * tl.i0 - 1 + pr, col = 2 * tl.j0 - 1 + pc;
+    const bool valid = h >= 0 && h < H && col >= 0 && col < W;
+    const long long src =
+        valid ? (((long long)tl.b * H + h) * W + col) * CIN + 4 * e : 0;
+    const int q = P::pixel(pr, pc);
+    cp_async16(dst + q * CIN + 4 * (e ^ f32_swz(q, VK)), x + src, valid);
+  }
+}
+
+// chunk e (channels 4 e .. 4 e + 3) of plane pixel q of an f32 patch
+template <class P>
+__device__ __forceinline__ const float* pf32_at(const float* patch, int q,
+                                                int e) {
+  return patch + q * P::LDK + 4 * (e ^ f32_swz(q, P::LDK / 4));
+}
+
+// The copies of the f32 halo-patch convs' persistent CTAs.  A tile's
+// weights are STAGES stages (a tap, or part of one, each), streamed
+// through a ring of NS stage buffers with NS - 1 cp.async groups in
+// flight; NS == STAGES keeps them resident, loaded by the CTA's first
+// tile only.  Group v holds stage v % STAGES of the CTA's tile kk = v /
+// STAGES and, with the tile's first stage, its patch (into patch buffer
+// kk & 1), so the next tile's patch is in flight through this tile's last
+// NS - 1 stages.  A patch buffer is next written by the patch of the tile
+// two on, issued after the next tile's first barrier: a tile may stage
+// its output in its own patch buffer once its stages are done.  The
+// caller's copies:
+//   patch(kk)      start copying the patch of the CTA's tile kk
+//   stage(r, s)    start copying stage s into ring buffer r
+template <int STAGES, int NS>
+struct PFRing {
+  static constexpr bool RESIDENT = NS == STAGES;
+  static_assert(NS >= 2 && NS <= STAGES, "f32 stage ring");
+
+  template <class Patch, class Stage>
+  __device__ __forceinline__ static void issue(int v, int tiles,
+                                               const Patch& patch,
+                                               const Stage& stage) {
+    const int kk = v / STAGES, s = v % STAGES;
+    if (blockIdx.x + kk * gridDim.x < tiles) {
+      if (s == 0) patch(kk);
+      if (!RESIDENT || kk == 0) stage(v % NS, s);
+    }
+    cp_async_commit();
+  }
+  // the first NS - 1 groups
+  template <class Patch, class Stage>
+  __device__ __forceinline__ static void start(int tiles, const Patch& patch,
+                                               const Stage& stage) {
+    for (int v = 0; v < NS - 1; ++v) issue(v, tiles, patch, stage);
+  }
+  // Before stage s of the CTA's tile kk: its group landed and seen by
+  // every thread, then the group NS - 1 ahead issued (into the buffer
+  // that stage s - 1 left).  Returns the ring buffer of stage s.
+  template <class Patch, class Stage>
+  __device__ __forceinline__ static int next(int kk, int s, int tiles,
+                                             const Patch& patch,
+                                             const Stage& stage) {
+    const int u = kk * STAGES + s;
+    cp_async_wait_group<NS - 2>();
+    // resident stages: after the first tile only the patch needs a barrier
+    if (!RESIDENT || s == 0 || kk == 0) __syncthreads();
+    issue(u + NS - 1, tiles, patch, stage);
+    return u % NS;
+  }
+};
+
+// Tap (kh, kw) of this thread's TM output pixels (pr[i], pc[i]) in an f32
+// patch (P = PFPatch): chunk e of pixel i at patch + off[i] + 4 (e ^
+// swz[i]).
+template <class P, int TM>
+struct PF32Tap {
+  int off[TM], swz[TM];
+  __device__ __forceinline__ PF32Tap(const int (&pr)[TM],
+                                     const int (&pc)[TM], int kh, int kw) {
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int q = P::tap(pr[i], pc[i], kh, kw);
+      off[i] = q * P::LDK;
+      swz[i] = f32_swz(q, P::LDK / 4);
+    }
+  }
+};
+
+// The FFMA micro-tile of the f32 halo-patch convs: part[i][j] += the tap's
+// chunks e0 .. e0 + VS - 1 of pixel i (channels 4 e0 .. 4 (e0 + VS) - 1)
+// times the matching rows of the B operand, output j.  Per chunk, TM
+// float4 of the patch and b(e, bv), the caller's 4 x TN block of B (bv[k]
+// [j]: the stage's channel 4 e + k, this thread's output j), then 4 TM TN
+// FMAs; each output is one FMA chain in increasing channel.
+template <int VS, class P, int TM, int TN, class BLoad>
+__device__ __forceinline__ void pf32_fma(const float* patch,
+                                         const PF32Tap<P, TM>& a, int e0,
+                                         const BLoad& b,
+                                         float (&part)[TM][TN]) {
+#pragma unroll
+  for (int e = 0; e < VS; ++e) {
+    float4 av[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+      av[i] = *reinterpret_cast<const float4*>(patch + a.off[i] +
+                                               4 * ((e0 + e) ^ a.swz[i]));
+    float bv[4][TN];
+    b(e, bv);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float x = k == 0   ? av[i].x
+                        : k == 1 ? av[i].y
+                        : k == 2 ? av[i].z
+                                 : av[i].w;
+#pragma unroll
+        for (int j = 0; j < TN; ++j) part[i][j] = fmaf(x, bv[k][j], part[i][j]);
+      }
+  }
+}
+
 }  // namespace erfk

@@ -719,33 +719,28 @@ fwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ wcat,
   }
 }
 
-// 16-byte chunk e of row q of an f32 array of V chunks a row (V = 4, 8 or
-// 16) is stored at chunk e ^ f32_swz(q, V) of the row, so that the same
-// chunk of any 8 consecutive rows falls on the 8 bank groups of a
-// 128-byte line.
-__host__ __device__ constexpr int f32_swz(int q, int V) {
-  return V >= 8 ? (q & 7) : (q / (8 / V)) % V;
-}
-
 // dx (f32): the bf16 form's halo-patch stride-2 conv of g (UpsDx) on FFMA
 // micro-tiles,
 //   dx[i, j] = sum_{kh, kw} g[2i - 1 + kh, 2j - 1 + kw] @ w[2 - kh, 2 - kw]^T
 // A tile of TH x 32 dx pixels of one image stages its (2 TH + 1) x 65 g
 // pixels once, 16-byte cp.async into four parity planes (PFPatch's
-// geometry, f32 chunks swizzled by f32_swz, zero past the map), each tap a
-// unit-stride view of one plane.  The taps stream from w (3, 3, N, K) as
-// they are: stage s holds KS of the K values of w's tap t = s / SPT for
-// every dx channel n (row n = w[t][n][k0 .. k0 + KS): the transpose is in
-// the operand's indexing), in the order t = 0 .. 8, patch tap (2 - t / 3,
-// 2 - t % 3) (the flip), through a ring of NS stages (NS - 1 in flight);
-// at 64 -> 16 the ring holds the whole f32 stack (36 KB) and only a CTA's
-// first tile loads it.  At 128 -> 64 the stack (295 KB) exceeds a CTA's
-// 227 KB: a tap (32 KB) a stage, two stages, beside two 2 x 32 tiles' 83
-// KB patches (231.9 KB in all; PERF.md §6 has the other layouts timed).
-// Persistent CTAs: the next tile's patch travels with the stage NS - 1
-// ahead of its first.  Thread (rg, tc) owns dx pixels rg + i RS (i < TM)
-// and channels tc + j TC (j < TN): per four k, TM float4 of the patch and
-// TN of the stage (each a channel's k-contiguous row) and 4 TM TN FMAs;
+// geometry, f32 chunks swizzled by f32_swz, zero past the map:
+// parity_plane.cuh pf_load_patch_f32), each tap a unit-stride view of
+// one plane.  The taps stream from w (3, 3, N, K) as they are: stage s
+// holds KS of the K values of w's tap t = s / SPT for every dx channel n
+// (row n = w[t][n][k0 .. k0 + KS): the transpose is in the operand's
+// indexing), in the order t = 0 .. 8, patch tap (2 - t / 3, 2 - t % 3)
+// (the flip), through a ring of NS stages (NS - 1 in flight); at 64 -> 16
+// the ring holds the whole f32 stack (36 KB) and only a CTA's first tile
+// loads it.  At 128 -> 64 the stack (295 KB) exceeds a CTA's 227 KB: a
+// tap (32 KB) a stage, two stages, beside two 2 x 32 tiles' 83 KB
+// patches (231.9 KB in all; PERF.md §6 has the other layouts timed).
+// Persistent CTAs: the next tile's patch travels with its first stage
+// (the copies, PFRing, and the micro-tile, pf32_fma, are the f32
+// downsampler forward's too).  Thread (rg, tc) owns dx pixels rg + i RS
+// (i < TM) and channels tc + j TC (j < TN): per four k, TM float4 of the
+// patch and TN of the stage (each a channel's k-contiguous row) and 4 TM
+// TN FMAs;
 // the RS pixels of one i are consecutive plane pixels and the TC
 // channels consecutive rows, on distinct bank groups.  Sum order: one FMA
 // chain per group of TPG taps over the group's (tap, k) in increasing
@@ -763,10 +758,9 @@ struct UpsDx32 {
   static constexpr int KS = K;
   static constexpr int SPT = K / KS, STAGES = 9 * SPT;  // a tap's, a tile's
   static constexpr int NS = WIDE ? 2 : STAGES;   // ring stages
-  static constexpr bool RESIDENT = NS == STAGES;
   static constexpr int TPG = WIDE ? 1 : 3;       // taps a chain
   static constexpr int CTAS = WIDE ? 1 : 2;      // CTAs an SM
-  static constexpr int VK = K / 4, VS = KS / 4, LDO = N + TC;
+  static constexpr int VS = KS / 4, LDO = N + TC;
   using Geo = PFPatch<K, TH>;
   static constexpr size_t patch_bytes = pp_align((size_t)Geo::PIXELS * K * 4);
   static constexpr size_t stage_bytes = (size_t)N * KS * 4;
@@ -785,8 +779,9 @@ dx32_kernel(const float* __restrict__ g, const float* __restrict__ w,
             float* __restrict__ dx, int B, int H, int W) {
   using G = UpsDx32<K, N>;
   using P = typename G::Geo;
+  using Ring = PFRing<G::STAGES, G::NS>;
   constexpr int TM = G::TM, TN = G::TN, TC = G::TC, KS = G::KS;
-  constexpr int VK = G::VK, VS = G::VS, SPT = G::SPT, STAGES = G::STAGES;
+  constexpr int VS = G::VS, SPT = G::SPT;
   extern __shared__ __align__(128) unsigned char smem[];
   const int H2 = 2 * H, W2 = 2 * W;
   const int tiles =
@@ -795,41 +790,24 @@ dx32_kernel(const float* __restrict__ g, const float* __restrict__ w,
   auto patch_of = [&](int kk) {
     return reinterpret_cast<float*>(smem + (kk & 1) * G::patch_bytes);
   };
-  auto stage_of = [&](int v) {
-    return reinterpret_cast<float*>(smem + G::ring_off +
-                                    (v % G::NS) * G::stage_bytes);
+  auto stage_of = [&](int r) {
+    return reinterpret_cast<float*>(smem + G::ring_off + r * G::stage_bytes);
   };
-  // stage v of this CTA: its (v / STAGES)-th tile's stage v % STAGES, with
-  // the tile's patch at its first
-  auto issue = [&](int v) {
-    const int kk = v / STAGES, s = v % STAGES;
-    const int t = blockIdx.x + kk * gridDim.x;
-    if (t < tiles) {
-      if (s == 0) {
-        const PPTile tl = pp_tile_of<G>(t, H, W);
-        float* dst = patch_of(kk);
-        for (int c = threadIdx.x; c < P::PIXELS * VK; c += G::THREADS) {
-          const int pix = c / VK, e = c % VK;
-          const int pr = pix / P::PC, pc = pix % P::PC;
-          const int h = 2 * tl.i0 - 1 + pr, col = 2 * tl.j0 - 1 + pc;
-          const bool valid = h >= 0 && h < H2 && col >= 0 && col < W2;
-          const long long src =
-              valid ? (((long long)tl.b * H2 + h) * W2 + col) * K + 4 * e : 0;
-          const int q = P::pixel(pr, pc);
-          cp_async16(dst + q * K + 4 * (e ^ f32_swz(q, VK)), g + src, valid);
-        }
-      }
-      if (!G::RESIDENT || kk == 0) {
-        float* dst = stage_of(v);
-        const float* src = w + (size_t)(s / SPT) * N * K + (s % SPT) * KS;
-        for (int c = threadIdx.x; c < N * VS; c += G::THREADS) {
-          const int n = c / VS, e = c % VS;
-          cp_async16(dst + n * KS + 4 * (e ^ f32_swz(n, VS)),
-                     src + (size_t)n * K + 4 * e, true);
-        }
-      }
+  auto patch = [&](int kk) {
+    pf_load_patch_f32<P>(patch_of(kk), g,
+                         pp_tile_of<G>(blockIdx.x + kk * gridDim.x, H, W),
+                         H2, W2, G::THREADS);
+  };
+  // stage s: KS of the K values of w's tap s / SPT for every dx channel n
+  // (row n = w[t][n][k0 .. k0 + KS), chunk e at e ^ f32_swz(n, VS))
+  auto stage = [&](int r, int s) {
+    float* dst = stage_of(r);
+    const float* src = w + (size_t)(s / SPT) * N * K + (s % SPT) * KS;
+    for (int c = threadIdx.x; c < N * VS; c += G::THREADS) {
+      const int n = c / VS, e = c % VS;
+      cp_async16(dst + n * KS + 4 * (e ^ f32_swz(n, VS)),
+                 src + (size_t)n * K + 4 * e, true);
     }
-    cp_async_commit();
   };
   int pr0[TM], pc0[TM];  // this thread's pixels in the tile
 #pragma unroll
@@ -841,7 +819,7 @@ dx32_kernel(const float* __restrict__ g, const float* __restrict__ w,
   // every channel tc + j TC of a stage row shares tc's swizzle (TC % 8 == 0)
   const int fb = f32_swz(tc, VS);
 
-  for (int v = 0; v < G::NS - 1; ++v) issue(v);
+  Ring::start(tiles, patch, stage);
   int kk = 0;
   for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++kk) {
     const PPTile tl = pp_tile_of<G>(t, H, W);
@@ -849,42 +827,20 @@ dx32_kernel(const float* __restrict__ g, const float* __restrict__ w,
     float acc[TM][TN], part[TM][TN];
     zero_tile(acc);
     zero_tile(part);
-    for (int s = 0; s < STAGES; ++s) {
-      const int u = kk * STAGES + s;
-      cp_async_wait_group<G::NS - 2>();
-      // resident taps: after the first tile only the patch needs a barrier
-      if (!G::RESIDENT || s == 0 || kk == 0) __syncthreads();
-      issue(u + G::NS - 1);
-      const int tap = s / SPT, kh = 2 - tap / 3, kw = 2 - tap % 3;
-      const int e0 = (s % SPT) * VS;  // the stage's first chunk of a pixel
-      int oa[TM], fa[TM];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const int q = P::tap(pr0[i], pc0[i], kh, kw);
-        oa[i] = q * K;
-        fa[i] = f32_swz(q, VK);
-      }
-      const float* bs = stage_of(u) + tc * KS;
-#pragma unroll
-      for (int e = 0; e < VS; ++e) {
-        float4 av[TM];
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-          av[i] = *reinterpret_cast<const float4*>(
-              pb + oa[i] + 4 * ((e0 + e) ^ fa[i]));
+    for (int s = 0; s < G::STAGES; ++s) {
+      const float* bs = stage_of(Ring::next(kk, s, tiles, patch, stage)) +
+                        tc * KS;
+      const int tap = s / SPT;  // patch tap (2 - tap / 3, 2 - tap % 3)
+      const PF32Tap<P, TM> a(pr0, pc0, 2 - tap / 3, 2 - tap % 3);
+      // B: channel n's k-contiguous row, four k a float4
+      pf32_fma<VS>(pb, a, (s % SPT) * VS, [&](int e, float (&bv)[4][TN]) {
 #pragma unroll
         for (int j = 0; j < TN; ++j) {
           const float4 b = *reinterpret_cast<const float4*>(
               bs + j * TC * KS + 4 * (e ^ fb));
-#pragma unroll
-          for (int i = 0; i < TM; ++i) {
-            part[i][j] = fmaf(av[i].x, b.x, part[i][j]);
-            part[i][j] = fmaf(av[i].y, b.y, part[i][j]);
-            part[i][j] = fmaf(av[i].z, b.z, part[i][j]);
-            part[i][j] = fmaf(av[i].w, b.w, part[i][j]);
-          }
+          bv[0][j] = b.x; bv[1][j] = b.y; bv[2][j] = b.z; bv[3][j] = b.w;
         }
-      }
+      }, part);
       if (s % SPT == SPT - 1 && tap % G::TPG == G::TPG - 1) {
         add_tile(acc, part);  // the group's chain ends
         zero_tile(part);

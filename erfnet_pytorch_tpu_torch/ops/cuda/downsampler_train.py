@@ -25,8 +25,12 @@ then H-pair maxima splits its cotangent equally among ties).  The bf16
 forward is the stride-2 conv over the parity planes of each tile's halo
 patch (FWD_TH x FWD_TW output pixels, ``csrc/parity_plane.cuh``), the tap
 stack read as it is (no padded matrix is built for it), one statistic
-partial per tile; so is the f32 forward at Cin = 3 (the stem), over each
-tile's raw f32 patch, its product an FFMA chain per output.  In both
+partial per tile; so is the f32 forward, on FFMA micro-tiles: at Cin = 3
+(the stem) over each tile's raw f32 patch, an FFMA chain per output; at
+Cin = 16 and 64 over the patch in parity planes (the f32 upsampler dx's
+staging), one chain per kh row or per tap, the taps resident at 16 and
+streamed a tap a stage at 64 (its product at about 3x its bound at
+67 TFLOP/s: what is left).  In both
 forms the conv input gradient at Cin = 16 and 64 is the parity-plane
 product of g with the transposed taps ``wt`` (3, 3, Cc, Cin), per tile of
 g pixels (tensor cores at bf16, FFMA micro-tiles at f32, one chain per
@@ -58,11 +62,12 @@ import torch.nn.functional as F
 from ..augment import apply_shifts
 from . import _build, route
 
-# the bf16 forward's tile, FWD_TH[Cin] x FWD_TW output pixels (csrc Fwd;
-# the f32 forward's at Cin = 3 too, csrc Fwd3F32)
+# the forward's tile, FWD_TH[Cin] x FWD_TW output pixels, in both forms
+# (csrc Fwd; Fwd3F32 and Fwd32 at f32)
 FWD_TH = {3: 8, 16: 4, 64: 2}
 FWD_TW = 32
-BM_F32 = 64      # output pixels per tile of the f32 forward at Cin 16, 64
+# the f32 forward at Cin 16, 64 (csrc Fwd32): taps a chain
+FWD32_TAPS = {16: 3, 64: 1}
 # the f32 input gradient's tile, DX32_TH[Cin] x 32 g pixels (csrc Dx32)
 DX32_TH = {16: 4, 64: 2}
 # output rows per bf16 weight-gradient partial, by Cin (csrc Wg::ROWS)
@@ -75,10 +80,6 @@ BWD_LAUNCHES = {True: 3, False: 4}   # by stem
 # the stats-free forms: no statistics reduction, no g fold; always dx
 NOSTATS_FWD_LAUNCHES = 1
 NOSTATS_BWD_LAUNCHES = 3
-
-
-def _round4(v):
-    return (v + 3) // 4 * 4
 
 
 # ---------------------------------------------------------------------------
@@ -192,16 +193,8 @@ def down_fwd(x, w, b, *, shifts=None, dtype=None, stats=True):
         xa = x
     dt = xa.dtype
     Ho, Wo = H // 2, W // 2
-    if form and cin != 3:
-        # f32 at Cin 16, 64: the zero-padded (round4(9 cin), round4(cc))
-        # matrix
-        wk = torch.zeros(_round4(9 * cin), _round4(cc), dtype=dt,
-                         device=dev)
-        wk[:9 * cin, :cc] = w.reshape(9 * cin, cc)
-        tpi = -(-(Ho * Wo) // BM_F32)
-    else:       # the (3, 3, cin, cc) tap stack as it is
-        wk = _build.taps(w, dt)
-        tpi = -(-Ho // FWD_TH[cin]) * -(-Wo // FWD_TW)
+    wk = _build.taps(w, dt)      # the (3, 3, cin, cc) tap stack as it is
+    tpi = -(-Ho // FWD_TH[cin]) * -(-Wo // FWD_TW)
     _build.require(wk, "w", dt, dev)
     bias = b.float().contiguous()
     _build.require(bias, "b", torch.float32, dev, (cc,))

@@ -24,11 +24,19 @@ anything else.  Two forms, picked by the feats' dtype
 (the ``_f32`` entry points; the JAX package's default compute dtype), in
 which W is cast to f32 and nothing is rounded to bf16 (dz and dfeats
 stay f32).  Launches are counted apart (``launches[""]``,
-``launches["_f32"]``).  Bound on the H100: bytes (the feature rows and
-labels).
+``launches["_f32"]``).  The G = 1 backward is one pass and the reduction
+of its partials: persistent CTAs, one wave (``erf_head_loss_rows``: at
+least BWD1_BLOCK rows each), each over blocks of BWD1_BLOCK rows; per
+block the logits, softmax and dz over ``bwd1_columns(n)`` columns, then
+[dW | db] += feats^T [dz | 1], then dfeats; dz stays in shared memory.
+Bound on the H100: bytes (the feature rows and labels).  What is left:
+the G = 1 passes read W from shared memory at about one 16-byte load per
+4 FMAs, on the CUDA cores.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -37,7 +45,19 @@ from . import _build, route
 # (K, G) -> the most classes per group the kernel takes
 KERNELS = {(128, 1): 32, (16, 4): 20}
 FWD_LAUNCHES = 2
-BWD_LAUNCHES = {1: 3, 4: 2}          # by G
+BWD_LAUNCHES = {1: 2, 4: 2}          # by G
+# rows a block of the G = 1 backward (csrc R1); a CTA owns at least one
+BWD1_BLOCK = 128
+
+
+def bwd1_columns(n):
+    """Columns of W (zero past n) the G = 1 backward computes for n
+    classes (csrc bwd1): the encoder's 20, else 32."""
+    return 20 if 16 < n <= 20 else 32
+
+
+# rows a CTA of the G = 4 backward (csrc CHUNK4)
+BWD4_ROWS = 1024
 
 
 def _groups(labels):
@@ -127,6 +147,18 @@ def head_loss_fwd(feats, w, b, labels, cw):
 head_loss_fwd.launches = _build.counter("", "_f32")
 
 
+def _bwd1_rows(lib, M):
+    """Rows a CTA of the G = 1 backward owns on the current device
+    (``erf_head_loss_rows``: one wave of the SMs, at least BWD1_BLOCK)."""
+    fn = lib.erf_head_loss_rows
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    rows = fn(M)
+    if rows < 1:
+        raise RuntimeError("head_loss backward: the device's SM count could "
+                           "not be read")
+    return rows
+
+
 @route.recorded(head_loss_bwd_plain)
 def head_loss_bwd(feats, w, b, labels, cw, gnum):
     """head_loss_bwd_plain's contract.  CPU tensor: the plain version.
@@ -138,24 +170,18 @@ def head_loss_bwd(feats, w, b, labels, cw, gnum):
     dev = feats.device
     g = gnum.float().reshape(1).to(dev).contiguous()
     dfeats = torch.empty_like(feats)
-    # per-CTA partials of [dW, db]: 1024 rows each
-    part = torch.empty(-(-M // 1024), K * gn + gn, dtype=torch.float32,
+    lib = _build.library("head_loss")
+    # per-CTA partials of [dW, db]
+    rows = _bwd1_rows(lib, M) if G == 1 else BWD4_ROWS
+    part = torch.empty(-(-M // rows), K * gn + gn, dtype=torch.float32,
                        device=dev)
     grads = torch.empty(K * gn + gn, dtype=torch.float32, device=dev)
-    lib = _build.library("head_loss")
-    if G == 1:
-        dz = torch.empty(M, n, dtype=feats.dtype, device=dev)
-        fn = _build.declare(lib, "erf_head_loss_bwd" + form, 10, 2)
-        err = fn(_build.ptr(feats), _build.ptr(wc), _build.ptr(bf),
-                 _build.ptr(lab), _build.ptr(cwf), _build.ptr(g),
-                 _build.ptr(dz), _build.ptr(dfeats), _build.ptr(part),
-                 _build.ptr(grads), M, n, _build.stream_ptr(feats))
-    else:
-        fn = _build.declare(lib, "erf_head_loss4_bwd" + form, 9, 2)
-        err = fn(_build.ptr(feats), _build.ptr(wc), _build.ptr(bf),
-                 _build.ptr(lab), _build.ptr(cwf), _build.ptr(g),
-                 _build.ptr(dfeats), _build.ptr(part), _build.ptr(grads), M,
-                 n, _build.stream_ptr(feats))
+    fn = _build.declare(lib, ("erf_head_loss_bwd" if G == 1
+                              else "erf_head_loss4_bwd") + form, 9, 2)
+    err = fn(_build.ptr(feats), _build.ptr(wc), _build.ptr(bf),
+             _build.ptr(lab), _build.ptr(cwf), _build.ptr(g),
+             _build.ptr(dfeats), _build.ptr(part), _build.ptr(grads), M, n,
+             _build.stream_ptr(feats))
     _build.check(lib, err, f"head_loss{form} backward launch")
     _build.count(head_loss_bwd, form, n=BWD_LAUNCHES[G])
     return dfeats, grads[:K * gn].view(K, gn), grads[K * gn:]

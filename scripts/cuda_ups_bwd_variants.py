@@ -74,10 +74,8 @@ DX32_TH = ("  static constexpr int TH = WIDE ? 2 : 4, TW = 32, BM = TH * TW;\n"
 DX32_KS = "  static constexpr int KS = K;"
 DX32_NS = "  static constexpr int NS = WIDE ? 2 : STAGES;   // ring stages"
 DX32_CTAS = "  static constexpr int CTAS = WIDE ? 1 : 2;      // CTAs an SM"
-DX32_FMA = """            part[i][j] = fmaf(av[i].x, b.x, part[i][j]);
-            part[i][j] = fmaf(av[i].y, b.y, part[i][j]);
-            part[i][j] = fmaf(av[i].z, b.z, part[i][j]);
-            part[i][j] = fmaf(av[i].w, b.w, part[i][j]);"""
+DX32_FMA = ("      pf32_fma<VS>(pb, a, (s % SPT) * VS, "
+            "[&](int e, float (&bv)[4][TN]) {")
 WG32_FMA = "            acc[l][i][n] = fmaf(av[i], bv[n], acc[l][i][n]);"
 WG32_THREADS = ("  static constexpr int THREADS = WIDE ? 256 : 384, "
                 "WK = THREADS / GT;")
@@ -111,7 +109,7 @@ VARIANTS = {
         (DX32_TH, DX32_TH.replace("WIDE ? 2 : 4", "WIDE ? 1 : 4")),
         (DX32_NS, DX32_NS.replace("WIDE ? 2 :", "WIDE ? 3 :"))]},
     "f32_dx_no_product": {"forms": ("f32",), "lines": [
-        (DX32_FMA, "            (void)av[i]; (void)b;")]},
+        (DX32_FMA, "      if (kk < 0) " + DX32_FMA[6:])]},
     "f32_wg_no_product": {"forms": ("f32",), "lines": [
         (WG32_FMA, "            { (void)av[i]; (void)bv[n]; }")]},
     "f32_narrow_1cta": {"forms": ("f32",), "lines": [

@@ -92,6 +92,25 @@ def assert_bf16_close(got, ref, *, within1=0.999, max_rel=2.0 ** -6):
     assert frac >= within1 and rel <= max_rel, (frac, rel)
 
 
+def reduce_parts_order(parts):
+    """The sum of a list of per-CTA partials in the order of the CUDA
+    ``reduce_parts`` (``csrc/common.cuh``): warp w of the reduction adds
+    partials w, w + WJ, ... in turn (WJ = 32, 8 or 1 warps by their
+    count), then the WJ warp sums are added in order."""
+    n = len(parts)
+    wj = 32 if n >= 256 else 8 if n >= 32 else 1
+    sums = []
+    for w in range(wj):
+        s = torch.zeros_like(parts[0])
+        for j in range(w, n, wj):
+            s += parts[j]
+        sums.append(s)
+    out = sums[0].clone()
+    for s in sums[1:]:
+        out += s
+    return out
+
+
 @pytest.fixture(scope="module")
 def nets():
     return jax_net(0)

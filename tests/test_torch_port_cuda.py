@@ -480,20 +480,25 @@ def test_downsampler_train_kernels(dev, shape, cc, stem, dtype):
     rel(got[2], ref[2])
 
 
+@pytest.mark.parametrize("M", [1300, 100, 50000])
 @pytest.mark.parametrize("G", [1, 4])
 @pytest.mark.parametrize("all_void", [False, True])
 @pytest.mark.parametrize("dtype", [BF, F32])
-def test_head_loss_kernels(dev, all_void, G, dtype):
+def test_head_loss_kernels(dev, all_void, G, dtype, M):
+    """M ragged against the forward's 256 rows a CTA, the G = 4 backward's
+    1024 and the G = 1 backward's blocks of 128 (1300); smaller than one
+    G = 1 backward CTA's rows (100); and ragged against the rows a CTA of
+    the G = 1 backward owns on the card (50000: 379 on 132 SMs, the last
+    CTA 351)."""
     from erfnet_pytorch_tpu_torch.training.class_weights import \
         ENCODER_WEIGHTS
-    M = 1300                                   # ragged against 256 and 1024
     K = 128 if G == 1 else 16
     feats = _rn(M, K, seed=1).relu().to(dev, dtype)
     w = _rn(K, 20 * G, seed=2, scale=0.1 if G == 1 else 0.3).to(dev)
     b = _rn(20 * G, seed=3, scale=0.1).to(dev)
     labels = torch.randint(0, 20, (M,) if G == 1 else (M, G),
                            generator=torch.Generator().manual_seed(4))
-    labels[:100] = 19
+    labels[:M // 13] = 19
     if all_void:
         labels[:] = 19
     labels = labels.to(dev)
@@ -513,6 +518,52 @@ def test_head_loss_kernels(dev, all_void, G, dtype):
         return
     assert abs(num.item() - pnum.item()) <= 1e-5 * abs(pnum.item())
     assert abs(den.item() - pden.item()) <= 1e-5 * abs(pden.item())
+    _close(got[0], ref[0])
+    _rel_for(dtype)(got[1], ref[1])
+    _rel_for(dtype)(got[2], ref[2])
+
+
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_head_loss_bwd_repeats_bit_identically(dev, dtype):
+    """The G = 1 backward at the encoder stage's B=6 rows (49152: three
+    blocks a CTA on 132 SMs, so each buffer is refilled while the CTA
+    runs), called 30 times on one input: every result bit-equal to the
+    first (the blocks' copies never overwrite rows still being read)."""
+    from erfnet_pytorch_tpu_torch.training.class_weights import \
+        ENCODER_WEIGHTS
+    M, K = 49152, 128
+    feats = _rn(M, K, seed=11).relu().to(dev, dtype)
+    w = _rn(K, 20, seed=12, scale=0.1).to(dev)
+    b = _rn(20, seed=13, scale=0.1).to(dev)
+    labels = torch.randint(0, 20, (M,),
+                           generator=torch.Generator().manual_seed(14))
+    labels, cw = labels.to(dev), torch.as_tensor(ENCODER_WEIGHTS).to(dev)
+    gnum = torch.tensor([1e-4], device=dev)
+    first = head_loss.head_loss_bwd(feats, w, b, labels, cw, gnum)
+    for _ in range(29):
+        got = head_loss.head_loss_bwd(feats, w, b, labels, cw, gnum)
+        assert all(torch.equal(g, f) for g, f in zip(got, first))
+
+
+@pytest.mark.parametrize("n", [13, 32])
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_head_loss_g1_other_class_counts(dev, n, dtype):
+    """The G = 1 backward at n other than the encoder's 20 (its 32-column
+    form): 13 classes, 19 columns of padding, and the most it takes."""
+    M, K = 1300, 128
+    feats = _rn(M, K, seed=5).relu().to(dev, dtype)
+    w = _rn(K, n, seed=6, scale=0.1).to(dev)
+    b = _rn(n, seed=7, scale=0.1).to(dev)
+    gen = torch.Generator().manual_seed(8)
+    labels = torch.randint(0, n + 2, (M,), generator=gen).to(dev)
+    cw = torch.rand(n, generator=gen).to(dev)
+    num, den = head_loss.head_loss_fwd(feats, w, b, labels, cw)
+    pnum, pden = head_loss.head_loss_fwd_plain(feats, w, b, labels, cw)
+    assert abs(num.item() - pnum.item()) <= 1e-5 * abs(pnum.item())
+    assert abs(den.item() - pden.item()) <= 1e-5 * abs(pden.item())
+    gnum = 1.0 / den.clamp_min(1e-12)
+    got = head_loss.head_loss_bwd(feats, w, b, labels, cw, gnum)
+    ref = head_loss.head_loss_bwd_plain(feats, w, b, labels, cw, gnum)
     _close(got[0], ref[0])
     _rel_for(dtype)(got[1], ref[1])
     _rel_for(dtype)(got[2], ref[2])
@@ -684,7 +735,8 @@ def test_train_step_matches_plain_and_repeats_bit_identically(dev, sd):
     assert counts["pair_fwd"] == 2 * 3 + 13 * 4 + 11 * 4
     assert counts["pair_bwd"] == 2 * 6 + 24 * 7
     assert counts["down_fwd"] == 6 and counts["down_bwd"] == 3 + 2 * 4
-    assert counts["head_loss_fwd"] == 2 and counts["head_loss_bwd"] == 3
+    assert (counts["head_loss_fwd"] == 2
+            and counts["head_loss_bwd"] == head_loss.BWD_LAUNCHES[1])
     _, _, _, state2, _ = _train_step_run(dev, sd)
     assert all(torch.equal(state1[k], state2[k]) for k in state1)
     lossp, counts, gradsp, _, _ = _train_step_run(dev, sd, plain=True)

@@ -17,6 +17,22 @@ plain versions and the JAX Pallas kernels (interpret mode).
   windows, with and without the statistics; and against the JAX
   ``downsampler_packed_stats`` VJP in f32 (max error <= 1e-5 of the
   largest value, ``test_torch_port_train_down``'s f32 map rule).
+* The f32 train downsampler's forward at Cin = 16 and 64
+  (``csrc/downsampler_train.cu`` ``Fwd32``): per tile of FWD_TH x 32
+  output pixels of one image, image by image, tile rows, then tile
+  columns, the (2 TH + 1) x 65 halo patch (zero past the map) in its four
+  parity planes, tap (kh, kw) the plane (kh & 1, kw & 1) shifted by (kh
+  >> 1, kw >> 1) times w[kh, kw] as it is; one chain per group of
+  FWD32_TAPS taps (a kh row at Cin = 16, a tap at 64), the groups added
+  in tap order, then the bias; the pool from taps 4, 5, 7 and 8 of the
+  same patch; the sums per tile of the stored values, the tiles' partials
+  added in ``reduce_parts``' order.  Against ``down_fwd_plain`` with and
+  without the statistics (y norm-relative 5e-7 and 1e-5 of max(|ref|,
+  rms(ref)) per element, ``chip_smoke.py``'s f32 map rule; the pool
+  channels bit-equal; the sums norm-relative 1e-5) on maps ragged against
+  the tile, smaller than one, with tied pool windows; and against the JAX
+  ``downsampler_packed_stats`` and stats-free ``downsampler_packed`` in
+  f32 (y within 1e-5 of the largest value, the sums norm-relative 1e-5).
 * The bf16 eval downsampler (``csrc/downsampler.cu`` on the train
   forward's ``csrc/down_fwd.cuh``): per tile of FWD_TH x 32 output
   pixels, the (2 TH + 1) x 65 halo patch in its four parity planes, the
@@ -35,6 +51,7 @@ import torch
 from erfnet_pytorch_tpu_torch.ops.cuda import downsampler as E
 from erfnet_pytorch_tpu_torch.ops.cuda import downsampler_train as D
 from test_torch_port_common import one_torch_thread  # noqa: F401
+from test_torch_port_common import reduce_parts_order
 
 BF, F32 = torch.bfloat16, torch.float32
 PAIRS = ((16, 48), (64, 64))
@@ -262,3 +279,129 @@ def test_eval_downsampler_kernel_order_matches_jax_kernel(prefix, path,
     p = E.prepare_downsampler(sd, prefix, BF)
     got = _eval_in_kernel_order(torch.from_numpy(x).to(BF), p)
     assert_bf16_close(got, ref)
+
+
+# the f32 forward at Cin = 16, 64 (module docstring)
+F32_NORM_REL, F32_MAX_REL = 5e-7, 1e-5
+
+
+def _map_close(got, ref):
+    g, r = got.double(), ref.double()
+    norm = ((g - r).norm() / r.norm().clamp_min(1e-30)).item()
+    floor = r.pow(2).mean().sqrt().clamp_min(1e-30)
+    rel = ((g - r).abs() / torch.maximum(r.abs(), floor)).max().item()
+    assert norm <= F32_NORM_REL and rel <= F32_MAX_REL, (norm, rel)
+
+
+def _rel(got, ref, tol=1e-5):
+    r = ((got - ref).norm() / ref.norm().clamp_min(1e-30)).item()
+    assert r <= tol, r
+
+
+def _fwd32_in_kernel_order(x, w, b):
+    """(y, s1, s2) as the f32 forward kernel at Cin = 16, 64 forms them
+    from x (B, H, W, Cin) f32 and the HWIO taps w."""
+    B, H, W, cin = x.shape
+    cc = w.shape[3]
+    th, tw, group = D.FWD_TH[cin], D.FWD_TW, D.FWD32_TAPS[cin]
+    Ho, Wo = H // 2, W // 2
+    y = torch.zeros(B, Ho, Wo, cin + cc)
+    s1, s2 = torch.zeros(B, cin + cc), torch.zeros(B, cin + cc)
+    for bi in range(B):
+        parts = []
+        for i0 in range(0, Ho, th):
+            for j0 in range(0, Wo, tw):
+                h = torch.arange(2 * i0 - 1, 2 * (i0 + th))[:, None]
+                c = torch.arange(2 * j0 - 1, 2 * j0 + 2 * tw)[None, :]
+                ok = (h >= 0) & (h < H) & (c >= 0) & (c < W)
+                src = x[bi, h.clamp(0, H - 1), c.clamp(0, W - 1)]
+                patch = torch.where(ok[..., None], src, torch.zeros(()))
+                planes = {(a, e): patch[a::2, e::2] for a in (0, 1)
+                          for e in (0, 1)}
+
+                def tap(t):
+                    kh, kw = divmod(t, 3)
+                    return planes[kh & 1, kw & 1][
+                        kh >> 1:(kh >> 1) + th, kw >> 1:(kw >> 1) + tw]
+                conv = torch.zeros(th, tw, cc)
+                for t0 in range(0, 9, group):        # one chain a group
+                    taps = range(t0, t0 + group)
+                    conv += (torch.cat([tap(t) for t in taps], -1)
+                             @ torch.cat([w[divmod(t, 3)] for t in taps]))
+                pool = torch.maximum(torch.maximum(tap(4), tap(5)),
+                                     torch.maximum(tap(7), tap(8)))
+                tile = torch.cat([conv + b, pool], -1)
+                n_i, n_j = min(th, Ho - i0), min(tw, Wo - j0)
+                tile = tile[:n_i, :n_j]
+                y[bi, i0:i0 + n_i, j0:j0 + n_j] = tile
+                yf = tile.reshape(-1, cin + cc)
+                parts.append(torch.cat([yf.sum(0), (yf * yf).sum(0)]))
+        tot = reduce_parts_order(parts)
+        s1[bi], s2[bi] = tot[:cin + cc], tot[cin + cc:]
+    return y, s1, s2
+
+
+@pytest.mark.parametrize("cin,cc,shape", [
+    (16, 48, (2, 14, 70, 16)), (16, 48, (1, 4, 6, 16)),
+    (64, 64, (2, 10, 74, 64)), (64, 64, (1, 2, 2, 64))])
+@pytest.mark.parametrize("stats", [True, False])
+def test_f32_forward_in_kernel_order(cin, cc, shape, stats):
+    """Output maps ragged against the tile (rows off 4 or 2, columns off
+    32) and smaller than one, pool windows of four and of two tied
+    values."""
+    sd = cin + shape[1] + stats
+    x = _rn(*shape, seed=sd).relu()
+    x[:, :2, :2] = 0.5                             # four tied values
+    if shape[1] >= 6 and shape[2] >= 8:
+        x[:, 4:6, 6] = 0.25                        # a tied pair by rows
+        x[:, 4:6, 7] = 0.0
+    w = _rn(3, 3, cin, cc, seed=sd + 1, scale=(9 * cin) ** -0.5)
+    b = _rn(cc, seed=sd + 2, scale=0.1)
+    _, ry, rs1, rs2 = D.down_fwd_plain(x, w, b, stats=stats)
+    y, s1, s2 = _fwd32_in_kernel_order(x, w, b)
+    _map_close(y, ry)
+    assert torch.equal(y[..., cc:], ry[..., cc:])  # the pool: exact
+    if stats:
+        _rel(s1, rs1)
+        _rel(s2, rs2)
+    else:
+        assert rs1 is None and rs2 is None
+
+
+@pytest.mark.parametrize("cin,cc,shape,pi", [
+    (16, 48, (2, 16, 32, 16), 8), (64, 64, (2, 8, 8, 64), 2)])
+@pytest.mark.parametrize("stats", [True, False])
+def test_f32_forward_kernel_order_matches_jax_kernel(cin, cc, shape, pi,
+                                                     stats):
+    """Against the JAX ``downsampler_packed_stats`` (per-image sums of its
+    per-row partials) and the stats-free ``downsampler_packed`` in f32,
+    W-packed at the train path's pi, on numpy inputs (Pallas in interpret
+    mode)."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from erfnet_pytorch_tpu.ops.pallas.downsampler import (
+        downsampler_packed, downsampler_packed_stats)
+    B, H, W, _ = shape
+    cout = cin + cc
+    rs = np.random.RandomState(cin + stats)
+    x = np.maximum(rs.randn(*shape), 0).astype(np.float32)
+    x[:, 2:4, 2:4] = 0.75                          # 2x2 windows of ties
+    w = (rs.randn(3, 3, cin, cc) * (9 * cin) ** -0.5).astype(np.float32)
+    b = (0.1 * rs.randn(cc)).astype(np.float32)
+    xp = jnp.asarray(x).reshape(B, H, W // pi, pi * cin)
+    if stats:
+        jy, js1, js2 = downsampler_packed_stats(xp, jnp.asarray(w),
+                                                jnp.asarray(b), pi=pi,
+                                                interpret=True)
+        js = [torch.from_numpy(np.array(t).reshape(B, -1, cout).sum(1))
+              for t in (js1, js2)]
+    else:
+        jy = downsampler_packed(xp, jnp.asarray(w), jnp.asarray(b), pi=pi,
+                                interpret=True)
+    jy = torch.from_numpy(np.array(jy).reshape(B, H // 2, W // 2, cout))
+    y, s1, s2 = _fwd32_in_kernel_order(*(torch.tensor(t) for t in (x, w, b)))
+    assert (y - jy).abs().max() <= 1e-5 * jy.abs().max()
+    if stats:
+        _rel(s1, js[0])
+        _rel(s2, js[1])

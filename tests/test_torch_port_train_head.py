@@ -7,6 +7,19 @@ plain loss
 class-weighted NLL with void rows (class 19, weight 0) and an all-void
 batch, whose loss is 0 and whose gradients are 0.
 
+The G = 1 backward's kernel (``csrc/head_loss.cu`` ``bwd1_kernel``) as it
+decomposes its sums, written out in pure torch: the rows in per-CTA
+chunks as the wrapper sizes them for a card of 132 SMs (at least
+BWD1_BLOCK rows a CTA), each chunk in blocks of BWD1_BLOCK rows; the
+logits the sum of two chains, one over each half of K (the 16-byte
+chunks of the staged row taken alternately), plus the bias; dz rounded to
+the feats' dtype; [dW | db] per warp over its 16 rows of every block, the
+eight warps added in order; dfeats = dz . W^T; the CTAs' partials reduced
+in ``reduce_parts``' order.  Against ``head_loss_bwd_plain`` on M ragged
+against the block and the chunk, an M smaller than one CTA's rows, n
+other than 20 (the kernel's 32 columns of W) and an all-void batch; and
+against the JAX kernel.
+
 Tolerances.  f32: num and den rtol 1e-5, dfeats max|diff| <= 1e-5
 max|ref|, dW and db norm-relative 1e-5 (the same products summed in other
 orders).  bf16 features: num and den rtol 1e-5 (the logits are f32 sums of
@@ -32,6 +45,7 @@ from erfnet_pytorch_tpu_torch.ops.cuda import head_loss as HL
 from erfnet_pytorch_tpu_torch.ops.loss import weighted_log_softmax_nll
 from erfnet_pytorch_tpu_torch.training.class_weights import ENCODER_WEIGHTS
 from test_torch_port_common import one_torch_thread  # noqa: F401
+from test_torch_port_common import reduce_parts_order
 
 M, K, N = 512, 128, 20
 
@@ -224,3 +238,141 @@ def test_decoder_head_loss_matches_jax_kernel(form, dt, all_void):
         r = torch.from_numpy(np.array(r, np.float32))
         err = ((g - r).norm() / r.norm()).item()
         assert err <= tol, (nm, err)
+
+
+# the G = 1 backward kernel's decomposition (module docstring)
+SMS = 132                               # the H100's SMs
+WARPS = 8                               # csrc THREADS1 / 32
+
+
+def _bwd1_rows(M):
+    """Rows a CTA owns, as ``erf_head_loss_rows`` picks them on 132 SMs."""
+    return max(HL.BWD1_BLOCK, -(-M // SMS))
+
+
+def _head_bwd1_in_kernel_order(feats, w, b, labels, cw, gnum):
+    """(dfeats, dW, db) as the one-pass G = 1 backward forms them."""
+    dt = feats.dtype
+    M, K = feats.shape
+    n = w.shape[1]
+    R = HL.BWD1_BLOCK
+    f = feats.float()
+    cols = HL.bwd1_columns(n)                   # W's columns, zero past n
+    wf = torch.nn.functional.pad(w.to(dt).float(), (0, cols - n))
+    bf = torch.cat([b.float(), torch.full((cols - n,), -float("inf"))])
+    vpc = 16 // feats.element_size()            # values a 16-byte chunk
+    half = (torch.arange(K) // vpc) % 2          # the thread of a row pair
+    lab = labels.long()
+    cwf = cw.float()
+    rows = _bwd1_rows(M)
+    dfeats = torch.empty(M, K, dtype=dt)
+    parts = []
+    for c0 in range(0, M, rows):                 # the CTAs
+        c1 = min(c0 + rows, M)
+        gw, gb = torch.zeros(WARPS, K, cols), torch.zeros(WARPS, cols)
+        for r0 in range(c0, c1, R):              # its blocks
+            fb = f[r0:min(r0 + R, c1)]
+            z = ((fb[:, half == 0] @ wf[half == 0])
+                 + (fb[:, half == 1] @ wf[half == 1])) + bf
+            e = torch.exp(z - z.amax(1, keepdim=True))
+            p = e * (1.0 / e.sum(1, keepdim=True))
+            t = lab[r0:r0 + fb.shape[0]]
+            valid = (t >= 0) & (t < n)
+            wt = torch.where(valid, cwf[t.clamp(0, n - 1)], torch.zeros(()))
+            onehot = (torch.arange(cols) == t[:, None]).float()
+            dz = (gnum * wt[:, None] * (p - onehot)).to(dt).float()
+            dz[:, n:] = 0.0
+            for wi in range(WARPS):
+                sl = slice(wi * R // WARPS, (wi + 1) * R // WARPS)
+                gw[wi] += fb[sl].t() @ dz[sl]
+                gb[wi] += dz[sl].sum(0)
+            dfeats[r0:r0 + fb.shape[0]] = (dz @ wf.t()).to(dt)
+        part = torch.cat([gw[0, :, :n].reshape(-1), gb[0, :n]])
+        for wi in range(1, WARPS):
+            part += torch.cat([gw[wi, :, :n].reshape(-1), gb[wi, :n]])
+        parts.append(part)
+    grads = reduce_parts_order(parts)
+    return dfeats, grads[:K * n].view(K, n), grads[K * n:]
+
+
+def _bwd1_case(M, n, dt, all_void, seed):
+    rs = np.random.RandomState(seed)
+    labels = rs.randint(0, n, (M,)).astype(np.int32)
+    labels[: M // 5] = 19                       # void: weight 0 or off n
+    if all_void:
+        labels[:] = 19
+    feats = torch.tensor(np.maximum(rs.randn(M, K), 0).astype(np.float32))
+    return (feats.to(dt), torch.tensor((0.1 * rs.randn(K, n)).astype(
+                np.float32)),
+            torch.tensor((0.1 * rs.randn(n)).astype(np.float32)),
+            torch.tensor(labels), torch.tensor(ENCODER_WEIGHTS[:n]))
+
+
+def _grad_close(dt, got, ref, dfeats_max):
+    """dfeats by the module's rule for ``dt`` (f32: within dfeats_max of
+    the largest value), dW and db norm-relative."""
+    if dt == torch.bfloat16:
+        _close_bf16("dfeats", got[0], ref[0].float())
+    else:
+        assert (got[0] - ref[0]).abs().max() <= dfeats_max * (
+            ref[0].abs().max())
+    tol = 1e-5 if dt == torch.float32 else 1e-3
+    for nm, g, r in (("dW", got[1], ref[1]), ("db", got[2], ref[2])):
+        err = ((g - r).norm() / r.norm()).item()
+        assert err <= tol, (nm, err)
+
+
+@pytest.mark.parametrize("M,n", [(17000, 20), (1037, 20), (100, 13)])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_head_loss_bwd1_in_kernel_order(M, n, dt):
+    """M ragged against the block and the chunk (17000: 129 rows a CTA on
+    132 SMs, a block of 128 and one of 1, the last CTA 101 rows; 1037:
+    nine CTAs of one block, the last 13 rows), and smaller than one CTA's
+    rows with n off the encoder's 20 (100, n = 13: the kernel's 32
+    columns of W, 19 of them padding)."""
+    tdt = {"f32": torch.float32, "bf16": torch.bfloat16}[dt]
+    args = _bwd1_case(M, n, tdt, False, seed=M + n)
+    num, den = HL.head_loss_fwd_plain(*args)
+    gnum = 1.0 / den.clamp_min(1e-12)
+    got = _head_bwd1_in_kernel_order(*args, gnum)
+    ref = HL.head_loss_bwd_plain(*args, gnum)
+    assert got[0].dtype == ref[0].dtype == tdt
+    _grad_close(tdt, got, ref, 1e-5)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_head_loss_bwd1_all_void_is_zero(dt):
+    """An all-void batch (num = den = 0): every gradient exactly 0."""
+    tdt = {"f32": torch.float32, "bf16": torch.bfloat16}[dt]
+    args = _bwd1_case(1037, 20, tdt, True, seed=3)
+    num, den = HL.head_loss_fwd_plain(*args)
+    assert num.item() == 0 and den.item() == 0
+    got = _head_bwd1_in_kernel_order(*args, 1.0 / den.clamp_min(1e-12))
+    assert all(t.abs().max().item() == 0 for t in got)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_head_loss_bwd1_kernel_order_matches_jax_kernel(dt):
+    """The kernel's order against the JAX ``make_head_loss(G=1)`` VJP of
+    num / den (Pallas in interpret mode), by the module's rules."""
+    jdt, tdt = {"f32": (jnp.float32, torch.float32),
+                "bf16": (jnp.bfloat16, torch.bfloat16)}[dt]
+    v = _inputs(11, False)
+    op = make_head_loss(jnp.asarray(J_WEIGHTS), n_classes=N, G=1,
+                        interpret=True)
+    labels = jnp.asarray(v["labels"])[:, None]
+
+    def loss(f, w, b):
+        num, den = op(f, w, b, labels)
+        return num / jnp.maximum(den, 1e-12)
+
+    jg = jax.grad(loss, argnums=(0, 1, 2))(
+        jnp.asarray(v["feats"], jdt), jnp.asarray(v["w"]),
+        jnp.asarray(v["b"]))
+    args = (torch.tensor(v["feats"]).to(tdt), torch.tensor(v["w"]),
+            torch.tensor(v["b"]), torch.tensor(v["labels"]),
+            torch.tensor(ENCODER_WEIGHTS))
+    _, den = HL.head_loss_fwd_plain(*args)
+    got = _head_bwd1_in_kernel_order(*args, 1.0 / den.clamp_min(1e-12))
+    _grad_close(tdt, got, [torch.from_numpy(np.array(r, np.float32))
+                           for r in jg], 1e-5)
