@@ -3262,6 +3262,20 @@ def phase_train_profile(sd, device, e2e, n=2, enc=True, dtype=None):
                                 "cudaLaunchKernelExC", "cuLaunchKernelEx"))
     out["host_kernel_launches_per_step"] = launches / n
     log(f"  host kernel launches per step: {launches / n:.0f}")
+    # the pair's partials a call: rows per conv (the resident CTAs; per
+    # image in the forward) and weight-gradient chunks, at the step's maps
+    from erfnet_pytorch_tpu_torch.ops.cuda import _build, nb1d_pair
+    lib = _build.library("nb1d_pair")
+    form = "_f32" if dtype == torch.float32 else ""
+    parts = {C: (nb1d_pair._part_rows(lib, form, C, device),
+                 nb1d_pair._wg_chunks(lib, form, TRAIN_B, H, W, C, 1, 1,
+                                      device))
+             for C, H, W in ((64, 128, 256), (128, 64, 128), (16, 256, 512))
+             if not enc or C != 16}
+    log("  pair partials a call: " + "; ".join(
+        f"C={C} {r} rows a conv, {ch} weight-gradient chunks"
+        for C, (r, ch) in parts.items()))
+    out["pair_partial_rows"] = {C: r for C, (r, _ch) in parts.items()}
     kernels.reset_launch_counts()
     return out
 
@@ -3408,7 +3422,8 @@ def split_calls(device, dtype):
     (row 4), its backward with statistics (rows 5, 8) and on g = gy (row
     5 gy), the train upsampler forward with and without statistics (rows
     12, 10) and its backward with and without (rows 13, 11); the eval
-    downsampler and upsampler (rows 9, 14) at their B=4 serving shapes;
+    downsampler and upsampler (rows 9, 14) and the decoder head + argmax
+    (rows 15, 16 G4) at their B=4 serving shapes;
     the train NB1d conv pair (rows 21, 22, 23 at C=64 and C=128, "21 C16"
     .. "23 C16"), a forward and a backward call of each distinct (lead,
     shape, dilation) of ``pair_cases`` and ``dec_pair_cases``, weighted by
@@ -3425,9 +3440,10 @@ def split_calls(device, dtype):
     rows 14, 12 and 10;
     the pair's two convs, their forwards or their
     ``convolution_backward``s), ``addmm`` + ``cross_entropy`` and their
-    backward for row 17 (``_lib_head_loss``)."""
+    backward for row 17 (``_lib_head_loss``), the transposed conv with its
+    bias and ``argmax`` for rows 15, 16 G4 (``_lib_head``)."""
     import torch
-    from erfnet_pytorch_tpu_torch.ops.cuda import downsampler
+    from erfnet_pytorch_tpu_torch.ops.cuda import downsampler, head_argmax
     from erfnet_pytorch_tpu_torch.ops.cuda import downsampler_train as dt
     from erfnet_pytorch_tpu_torch.ops.cuda import head_loss as hl
     from erfnet_pytorch_tpu_torch.ops.cuda import nb1d_pair as pr
@@ -3435,6 +3451,7 @@ def split_calls(device, dtype):
     from erfnet_pytorch_tpu_torch.ops.cuda import upsampler_train as ut
     from erfnet_pytorch_tpu_torch.ops.cuda.downsampler import \
         prepare_downsampler
+    from erfnet_pytorch_tpu_torch.ops.cuda.head_argmax import prepare_head
     from erfnet_pytorch_tpu_torch.ops.cuda.upsampler import \
         prepare_upsampler
     g = torch.Generator().manual_seed(97)
@@ -3505,6 +3522,13 @@ def split_calls(device, dtype):
         calls.append((14, f"up {shape[-1]}->", (
             lambda x=x, p=p: upsampler.upsampler(x, p)),
             library_call("upsampler", x, p), 1))
+    prefix, shape = head_case(4)
+    p = {k: v.to(device) if isinstance(v, torch.Tensor) else v
+         for k, v in prepare_head(sd, prefix, dtype).items()}
+    x = torch.randn(*shape, generator=g).to(device).to(dtype)
+    calls.append(("15, 16 G4", "head 16->", (
+        lambda x=x, p=p: head_argmax.head_argmax(x, p)),
+        _lib_head(x, sd, prefix), 1))
     for mode, shape, d, n in pair_cases(TRAIN_B) + [
             c for c in dec_pair_cases(TRAIN_B) if c[1][-1] == 16]:
         C = shape[-1]
@@ -3538,6 +3562,19 @@ def split_calls(device, dtype):
             lambda feats=feats, w=w, b=b, labels=labels, cw=cw:
             hl.head_loss_bwd(feats, w, b, labels, cw, gnum)), lib[1], 1))
     return calls
+
+
+def _lib_head(x, sd, prefix):
+    """The decoder head's yardstick, never on the path: ConvTranspose2d(16,
+    n, 2, stride 2) with its bias on the (B, H, W, 16) feats, channels-last,
+    in their dtype, then ``argmax`` over the classes."""
+    import torch
+    import torch.nn.functional as F
+    xc = x.permute(0, 3, 1, 2)
+    w = sd[prefix + ".weight"].to(x.device, x.dtype).contiguous(
+        memory_format=torch.channels_last)
+    b = sd[prefix + ".bias"].to(x.device, x.dtype)
+    return lambda: F.conv_transpose2d(xc, w, b, stride=2).argmax(1)
 
 
 def _lib_head_loss(feats, w, b, labels, cw):

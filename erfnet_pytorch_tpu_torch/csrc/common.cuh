@@ -591,113 +591,6 @@ inline cudaError_t adjust_grad_f32(const void* g, const void* z,
   return cudaGetLastError();
 }
 
-// Thread tile of an f32 product whose depth is the pixel axis, both
-// operands pixel-major in shared memory (row k = a pixel):
-//   acc[4 ga + qa][4 gb + qb] += sum_{k < KLEN} A(k, ga CSA + qa) B(k, gb CSB + qb)
-// A row k at a + k * lda, B row k at b + k * ldb, 16-byte aligned.  With
-// a = As + 4 rg and b = Bs + 4 tc for thread (rg, tc) of an (RG x TC)
-// grid, CSA = 4 RG and CSB = 4 TC, the threads cover every (row, column)
-// of an (RG TM) x (TC TN) output once.  All threads read the same
-// pixel row at a time (broadcasts, consecutive float4 across tc); each
-// output is one f32 FMA chain in increasing k.
-template <int TM, int TN, int KLEN, int CSA, int CSB>
-__device__ __forceinline__ void ffma_outer(float (&acc)[TM][TN],
-                                           const float* a, int lda,
-                                           const float* b, int ldb) {
-  static_assert(TM % 4 == 0 && TN % 4 == 0, "ffma_outer shape");
-#pragma unroll 4
-  for (int k = 0; k < KLEN; ++k) {
-    float av[TM], bv[TN];
-#pragma unroll
-    for (int g = 0; g < TM / 4; ++g) {
-      const float4 v = *reinterpret_cast<const float4*>(a + k * lda + g * CSA);
-      av[4 * g] = v.x; av[4 * g + 1] = v.y; av[4 * g + 2] = v.z;
-      av[4 * g + 3] = v.w;
-    }
-#pragma unroll
-    for (int g = 0; g < TN / 4; ++g) {
-      const float4 v = *reinterpret_cast<const float4*>(b + k * ldb + g * CSB);
-      bv[4 * g] = v.x; bv[4 * g + 1] = v.y; bv[4 * g + 2] = v.z;
-      bv[4 * g + 3] = v.w;
-    }
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// The f32 weight-gradient product of one CTA: D (MR x NC) += A^T G over
-// pixel blocks of BP staged pixel-major in shared memory (A (BP x MR), G
-// (BP x NC), row pitches MR and NC).  The threads form WK groups of an
-// (RG x TC) grid, RG = MR / TM, TC = NC / TN; group w takes pixels
-// [w KL, (w + 1) KL) of each block (KL = BP / WK), and at the end the
-// groups' sums are added in group order (wg32_store).
-template <int MR, int NC, int TM, int TN, int THREADS, int BP>
-struct Wg32 {
-  static constexpr int RG = MR / TM, TC = NC / TN, GT = RG * TC;
-  static constexpr int WK = THREADS / GT, KL = BP / WK;
-  static_assert(MR % TM == 0 && NC % TN == 0 && THREADS % GT == 0 &&
-                    BP % WK == 0 && TM % 4 == 0 && TN % 4 == 0,
-                "f32 wgrad grid");
-  static constexpr size_t a_bytes = ((size_t)BP * MR * 4 + 127) / 128 * 128;
-  static constexpr size_t g_bytes = ((size_t)BP * NC * 4 + 127) / 128 * 128;
-  static constexpr size_t red_bytes = WK > 1 ? (size_t)WK * MR * NC * 4 : 0;
-  static constexpr size_t smem =
-      a_bytes + g_bytes > red_bytes ? a_bytes + g_bytes : red_bytes;
-};
-
-template <int MR, int NC, int TM, int TN, int THREADS, int BP>
-__device__ __forceinline__ void wg32_step(const float* As, const float* Gs,
-                                          float (&acc)[TM][TN]) {
-  using Q = Wg32<MR, NC, TM, TN, THREADS, BP>;
-  const int w = threadIdx.x / Q::GT, t = threadIdx.x % Q::GT;
-  const int rg = t / Q::TC, tc = t % Q::TC;
-  ffma_outer<TM, TN, Q::KL, 4 * Q::RG, 4 * Q::TC>(
-      acc, As + (size_t)w * Q::KL * MR + 4 * rg, MR,
-      Gs + (size_t)w * Q::KL * NC + 4 * tc, NC);
-}
-
-// Store D's rows [0, mreal) x columns [0, nreal) to dst (row pitch nreal),
-// the WK groups' sums added in group order through shared memory (red,
-// >= red_bytes; the staged tiles must be dead).  Call with the whole
-// block.
-template <int MR, int NC, int TM, int TN, int THREADS, int BP>
-__device__ __forceinline__ void wg32_store(const float (&acc)[TM][TN],
-                                           float* red, float* dst, int mreal,
-                                           int nreal) {
-  using Q = Wg32<MR, NC, TM, TN, THREADS, BP>;
-  const int w = threadIdx.x / Q::GT, t = threadIdx.x % Q::GT;
-  const int rg = t / Q::TC, tc = t % Q::TC;
-  if constexpr (Q::WK == 1) {
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int row = 4 * rg + (i / 4) * 4 * Q::RG + i % 4;
-        const int col = 4 * tc + (j / 4) * 4 * Q::TC + j % 4;
-        if (row < mreal && col < nreal) dst[row * nreal + col] = acc[i][j];
-      }
-  } else {
-    __syncthreads();  // the staged tiles are dead: red may alias them
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int row = 4 * rg + (i / 4) * 4 * Q::RG + i % 4;
-        const int col = 4 * tc + (j / 4) * 4 * Q::TC + j % 4;
-        red[((size_t)w * MR + row) * NC + col] = acc[i][j];
-      }
-    __syncthreads();
-    for (int e = threadIdx.x; e < mreal * nreal; e += THREADS) {
-      const int row = e / nreal, col = e % nreal;
-      float s = 0.0f;
-      for (int k = 0; k < Q::WK; ++k) s += red[((size_t)k * MR + row) * NC + col];
-      dst[e] = s;
-    }
-  }
-}
-
 }  // namespace erfk
 
 extern "C" const char* erf_error_string(int err) {

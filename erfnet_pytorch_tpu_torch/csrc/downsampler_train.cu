@@ -71,7 +71,7 @@
 // dtype): the same function with every map in f32 and nothing rounded to
 // bf16; the stem translates the f32 image without a cast and saves it in
 // f32.  Products on the CUDA cores (FFMA micro-tiles, common.cuh
-// ffma_tile / ffma_outer; no TF32).  The forward at Cin = 3 (the stem,
+// ffma_tile; no TF32).  The forward at Cin = 3 (the stem,
 // and the stats-free 3-channel map) is the bf16 form's tile kept in f32:
 // persistent CTAs over tiles of 8 x 32 output pixels, each tile's raw f32
 // patch (PFRaw<true>: rows of 65 x 3 values, the stem's shifted by its

@@ -97,20 +97,28 @@
 // The f32 forms (erf_pair_*_f32, the JAX package's default compute dtype):
 // the same launches and the same function with every map in f32 and
 // nothing rounded to bf16 (t0, t1, z, g, dz1 and the outputs stay f32; the
-// lead stage's a, b and mask are not rounded).  The convs are implicit
-// GEMMs on the CUDA cores (FFMA micro-tiles, common.cuh ffma_tile; no
-// TF32): each thread owns TM pixels x 8 channels of a tile.  An f32 tap
-// stack is 3 C^2 x 4 bytes, 192 KB at C = 128, so the C = 128 convs take
-// K one tap at a time (the tap's weights and the tile's shifted rows,
-// restaged per tile), as the f32 serving block does, each tap's sum in
-// a chain of its own, the taps added in order (as the plain version adds
-// its per-tap products; a quarter of one 384-term chain's error at the
-// backward's dx, PERF.md §6); the C = 64 and C = 16 stacks are staged
-// once per CTA.  The weight gradients are (C x C)
-// products with the chunk's pixels as their depth (common.cuh
-// ffma_outer), per (chunk, tap) partials reduced in a fixed order.
-// Bound at f32: operations at every C (6 C^2 MACs per pixel forward, 12
-// C^2 backward, against 67 TFLOP/s).
+// lead stage's a, b and mask are not rounded), and the bf16 forms' design
+// on the CUDA cores (no TF32).  The four convs (conv32_tiles, Conv32) run
+// over the bf16 tiling (make_geo) at the f32 pixel budget: a tile's halo
+// patch is staged once with 16-byte cp.async into f32 rows whose chunks
+// are swizzled (parity_plane.cuh f32_swz), a zero pixel after it; the
+// three taps are shifted views, and persistent CTAs walk their tiles with
+// the next tile's patch in flight (PFRing).  Each thread multiplies 4
+// pixels x 8 channels on an FFMA micro-tile (pf32_fma): one chain over the
+// three taps at C = 64 and 16; at C = 128 a chain a tap, the taps added in
+// order (as the plain version adds its per-tap products; one 384-term chain
+// took the backward's dx to 4.6e-7 of a 5e-7 limit, PERF.md §6).  The tap
+// stack is resident (48 KB at C = 64, 3 KB at 16); at C = 128 (192 KB) the
+// output channels split over two CTAs, each with its 96 KB share.  The
+// epilogues' maps are loaded before the product; the statistic and bias
+// partials are per CTA, the forward's per (image, CTA)
+// (erf_pair_part_rows_f32).  The weight gradient (wgrad_f32_kernel, WgF32)
+// runs on the (chunk of tiles, axis) grid of wgrad_kernel: per tile the A
+// patch and the G rows staged once, the taps as views, a thread 4 input x
+// 8 output channels of the three taps; at C = 128 the output columns
+// split in four; chunks from erf_pair_wg_chunks_f32, partials per (chunk,
+// axis, tap).  Bound at f32: operations (6 C^2 MACs per pixel forward, 12
+// C^2 backward, against 67 TFLOP/s), but bytes for the C = 16 epi lead.
 //
 // The stats-free forms (erf_pair_* with with_stats = 0) replace fused_pair,
 // fused_pair_affine and fused_pair_epi (_fwd_kernel / _bwd_kernel and
@@ -124,6 +132,7 @@
 // W ones), on the unpacked map: a tap at or beyond the map's extent reads
 // the zero fill.
 #include "common.cuh"
+#include "parity_plane.cuh"
 
 using namespace erfk;
 
@@ -1087,22 +1096,9 @@ wgrad_kernel(const bf16* __restrict__ t0, const bf16* __restrict__ dz1,
 
 
 // ---------------------------------------------------------------------------
-// f32 forms
+// f32 forms: the four convs over halo patches on FFMA micro-tiles, and the
+// weight gradient
 // ---------------------------------------------------------------------------
-
-// tile -> pixels [m0, m_end) of image b: tiles never straddle two images,
-// so a tile's partial sums belong to one image.
-struct TileMap {
-  int HW, TPI;
-  __device__ __forceinline__ void at(int tile, int bm, int& b, long long& m0,
-                                     long long& m_end) const {
-    b = tile / TPI;
-    const int local = tile % TPI;
-    m0 = (long long)b * HW + (long long)local * bm;
-    const long long e = (long long)b * HW + HW;
-    m_end = m0 + bm < e ? m0 + bm : e;
-  }
-};
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
@@ -1112,133 +1108,299 @@ __device__ __forceinline__ void st4(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
-// Thread t of the tile grid owns pixels rowg + i RS (i < TM, rowg = t /
-// TC) and channels 4 colg + g CS + q (g < TN / 4, q < 4, colg = t % TC,
-// CS = 4 TC).  NCHUNK chunks of TPC taps, KC = TPC C columns.
-template <int C>
-struct Cfg32 {
-  static constexpr int THREADS = 256, TN = 8, BM = C == 16 ? 256 : 64;
-  static constexpr int TC = C / TN, RS = THREADS / TC, TM = BM / RS;
-  static constexpr int CS = 4 * TC;
-  static constexpr int NCHUNK = C == 128 ? 3 : 1, TPC = 3 / NCHUNK;
-  static constexpr int KC = TPC * C, LDA = pitch4(KC);
-  static constexpr size_t a_bytes = ((size_t)BM * LDA * 4 + 127) / 128 * 128;
-  static constexpr size_t smem = a_bytes + (size_t)KC * C * 4;
-  static_assert(THREADS % TC == 0 && BM % RS == 0 &&
-                    (size_t)RS * 2 * C * 4 <= a_bytes,
-                "f32 pair tile");
-};
-
-// Start copying taps [t0, t0 + TPC) of the A tile of pixels [m0, m_end):
-// row r, column tq C + c = channel c of pixel m0 + r shifted by (t0 + tq
-// - 1) dil along the axis, zero off the map or past the tile.
-template <int C>
-__device__ __forceinline__ void gather_f32(float* As, const float* src,
-                                           long long m0, long long m_end,
-                                           int H, int W, int axis, int dil,
-                                           int t0) {
-  using G = Cfg32<C>;
-  constexpr int VPT = C / 4;
-  const int step = axis == 0 ? W : 1;
-  const int lim = axis == 0 ? H : W;
-  for (int v = threadIdx.x; v < G::BM * G::TPC * VPT; v += blockDim.x) {
-    const int r = v / (G::TPC * VPT), tq = (v / VPT) % G::TPC, j = v % VPT;
-    const long long m = m0 + r;
-    const int off = (t0 + tq - 1) * dil;
-    const int pos = axis == 0 ? (int)((m / W) % H) : (int)(m % W);
-    const bool valid = m < m_end && pos + off >= 0 && pos + off < lim;
-    const long long pix = valid ? m + (long long)off * step : 0;
-    cp_async16(As + r * G::LDA + tq * C + j * 4, src + pix * C + j * 4,
+// Start copying tile tl's patch of the (B, H, W, C) f32 map src into dst
+// (C floats a pixel, chunk e of patch pixel px at chunk e ^ f32_swz(px, C /
+// 4) with SWZ, else at e), zero where a position is off the map: the f32
+// form of stage_patch.
+template <int C, int THREADS, bool SWZ>
+__device__ __forceinline__ void stage_patch32(float* dst, const float* src,
+                                              const Geo& g, const Tile& tl) {
+  constexpr int VK = C / 4;
+  static_assert(THREADS % VK == 0, "a thread copies one chunk of pixels");
+  const int npx = tl.ext << g.lg, e = threadIdx.x % VK;
+  for (int px = threadIdx.x / VK; px < npx; px += THREADS / VK) {
+    const int j = px >> g.lg, c = tl.a0 + (px & (g.TA - 1));
+    int p;
+    if (g.band)
+      p = tl.s0 + j % g.L + (j / g.L - 1) * g.d;
+    else
+      p = tl.lo + j;
+    const bool valid = p >= 0 && p < g.n && c < g.m;
+    const long long off = valid ? geo_pixel(g, tl.b, p, c) * C + e * 4 : 0;
+    cp_async16(dst + px * C + 4 * (SWZ ? e ^ f32_swz(px, VK) : e), src + off,
                valid);
   }
 }
 
-// One conv over all tiles of this CTA's share, f32: acc = sum_t shift(src,
-// t) @ w[t]; then epi(m, b, c0, v, s0, s1) for each owned pixel m and
-// group of 4 channels c0..; with Epi::SUMS the per-thread sums are added
-// over the tile in a fixed order into part[tile][2C].
-template <int C, class Epi>
-__device__ void conv_tiles_f32(unsigned char* smem, const float* src,
-                               const float* w, int B, int H, int W, int axis,
-                               int dil, const Epi& epi, float* part) {
-  using G = Cfg32<C>;
-  constexpr int NG = G::TN / 4;
-  float* As = reinterpret_cast<float*>(smem);
-  float* Ws = reinterpret_cast<float*>(smem + G::a_bytes);
-  const TileMap tm{H * W, (H * W + G::BM - 1) / G::BM};
-  const int tiles = B * tm.TPI;
-  const int colg = threadIdx.x % G::TC, rowg = threadIdx.x / G::TC;
+// The f32 conv's tile (conv32_tiles).  A CTA computes the N = C / NSPLIT
+// output channels of its split (blockIdx.y) over BM = TM RS tile pixels:
+// thread (rg, tc) = (tid / TC, tid % TC) owns tile pixels rg + i RS (i <
+// TM = 4) and channels split N + 4 tc + g CS + (0 .. 3) (g < TN / 4 = 2,
+// CS = 4 TC).  Two patch buffers of CAP pixels and a zero pixel after
+// them; the split's share of the tap stack as STAGES stages of KS k rows x
+// N (PFRing: resident where NS == STAGES, loaded by the CTA's first tile
+// only).  The product runs at 1.7-1.8x its FMA bound, the variants
+// alike (8 x 8 a thread, two CTAs an SM, other unrolls: PERF.md).
+// * C = 64: the 48 KB stack resident beside two 34 KB patches (tiles of
+//   128 pixels: the H conv 128 x 1, the W conv 128 of 256 positions with
+//   a halo of 2), one CTA an SM.
+// * C = 128: the stack is 192 KB; the output channels split over two CTAs,
+//   each with its 96 KB share resident beside two 64 KB patches (the H
+//   conv 64 x 2, the W conv 1 x 128: no halo), 225 KB, one CTA an SM
+//   (scripts/cuda_pair_variants.py --forms f32 times the other way: one CTA
+//   for all 128 channels over 64-pixel tiles, half a tap a stage streamed
+//   through a 3-stage ring).
+// * C = 16: tiles of 512 pixels (the H conv 256 x 2, the W conv 1 x 512),
+//   the 3 KB stack resident, two CTAs an SM where the epilogue reads no
+//   map.
+// Sum order: one FMA chain per group of TPG taps over (tap, ci) in
+// increasing order, the groups added in tap order (C = 128: a chain a tap,
+// as the plain version adds its per-tap products).
+template <int C>
+struct Conv32 {
+  static constexpr int THREADS = 256, TM = 4, TN = 8;
+  // C = 128: two splits, each its share of the stack resident
+  static constexpr int NSPLIT = C == 128 ? 2 : 1, N = C / NSPLIT;
+  static constexpr int KS = C, NS = 3;  // k rows a stage, ring stages
+  static constexpr int CAP = C == 16 ? 544 : C == 64 ? 136 : 128;  // pixels
+  static constexpr int TA_MIN = C == 16 ? 2 : 1;  // H conv: 128-byte runs
+  static constexpr int TPG = C == 128 ? 1 : 3;    // taps a chain
+  static constexpr int UNROLL = 4;  // chunks of 4 k unrolled (pf32_fma)
+  static constexpr int minb(int naux) { return C == 16 && naux == 0 ? 2 : 1; }
+  static constexpr int TC = N / TN, RS = THREADS / TC, BM = TM * RS;
+  static constexpr int CS = 4 * TC, VK = C / 4, VS = KS / 4;
+  static constexpr int SPT = C / KS, STAGES = 3 * SPT;  // a tap's, a tile's
+  static constexpr size_t patch_bytes = align128((size_t)(CAP + 1) * C * 4);
+  static constexpr size_t stage_bytes = (size_t)KS * N * 4;
+  static constexpr size_t ring_off = 2 * patch_bytes;
+  static constexpr size_t smem = ring_off + NS * stage_bytes;
+  static_assert(N % TN == 0 && THREADS % TC == 0 && TC <= 32 &&
+                    C % KS == 0 && KS % 4 == 0 && 3 % TPG == 0 &&
+                    NS <= STAGES && CAP >= BM &&
+                    (size_t)(THREADS / 32) * 2 * N * 4 <= (size_t)CAP * C * 4 &&
+                    smem <= 232448,
+                "f32 pair conv tile");
+};
 
-  if constexpr (G::NCHUNK == 1) load_matrix(Ws, C, w, G::KC, C);
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    int b;
-    long long m0, m_end;
-    tm.at(tile, G::BM, b, m0, m_end);
-    float acc[G::TM][G::TN];
-    zero_tile(acc);
-    for (int ch = 0; ch < G::NCHUNK; ++ch) {
-      gather_f32<C>(As, src, m0, m_end, H, W, axis, dil, ch * G::TPC);
-      if constexpr (G::NCHUNK > 1)
-        load_matrix(Ws, C, w + (size_t)ch * G::KC * C, G::KC, C);
-      cp_async_commit();
-      cp_async_wait_all();
-      __syncthreads();
-      if constexpr (G::NCHUNK == 1) {
-        ffma_tile<G::TM, G::TN, G::KC, G::CS>(acc, As + rowg * G::LDA,
-                                              G::RS * G::LDA, Ws + 4 * colg,
-                                              C);
-      } else {  // a chain per tap, the taps added in order (add_tile)
-        float part[G::TM][G::TN];
-        zero_tile(part);
-        ffma_tile<G::TM, G::TN, G::KC, G::CS>(part, As + rowg * G::LDA,
-                                              G::RS * G::LDA, Ws + 4 * colg,
-                                              C);
-        add_tile(acc, part);
-      }
-      __syncthreads();  // every thread is done with the chunk
+template <int C>
+Geo conv32_geo(int H, int W, int axis, int d) {
+  using K = Conv32<C>;
+  return make_geo(H, W, axis, d, K::BM, K::CAP, axis == 0 ? K::TA_MIN : 1);
+}
+
+// Tap t's view for this thread's TM pixels: chunk e of pixel i at patch +
+// off[i] + 4 (e ^ swz[i]) (pf32_fma), the zero pixel where it is off the
+// map or the pixel past the tile.
+template <int TM>
+struct LineTap32 {
+  int off[TM], swz[TM];
+};
+
+// One f32 conv over this CTA's tiles (t = blockIdx.x, + gridDim.x, ...):
+// acc = sum_t view_t(patch) @ w[t] for the split's channels; then epi(pixel,
+// b, c0, v, s0, s1, centre, av) for every map pixel of the tile and each
+// group of 4 channels c0 .. c0 + 3 a thread holds (centre: the conv's input
+// there, tap 1 of the patch; av: the epilogue's Epi::NAUX maps there, loaded
+// before the product, which hides their latency).  The next tile's patch
+// copies while this one
+// multiplies.  With Epi::SUMS the per-thread sums s0, s1 are added over the
+// CTA's tiles, then over the CTA in a fixed order (flush32: the lanes of a
+// column by an xor tree, then the warps in order, through the finished
+// tile's patch buffer): per (image, CTA) at part[(b gridDim.x + cta) 2C]
+// with Epi::PER_IMAGE (zero for the images the CTA has no tile of), else per
+// CTA at part[cta 2C]; a split writes its N columns of each half.
+template <int C, class Epi>
+__device__ __forceinline__ void conv32_tiles(unsigned char* smem,
+                                             const float* src, const float* w,
+                                             const Geo g, int B,
+                                             const Epi& epi, float* part) {
+  using K = Conv32<C>;
+  using Ring = PFRing<K::STAGES, K::NS>;
+  constexpr int TM = K::TM, TN = K::TN, N = K::N, VK = K::VK;
+  constexpr int NA = Epi::NAUX > 0 ? Epi::NAUX : 1;
+  const int tiles = B * g.segs * g.ablk;
+  const int split = blockIdx.y, tc = threadIdx.x % K::TC;
+  const int rg = threadIdx.x / K::TC, lane = threadIdx.x % 32;
+  const int cb = split * N + 4 * tc;  // this thread's first channel
+  auto patch_of = [&](int kk) {
+    return reinterpret_cast<float*>(smem + (kk & 1) * K::patch_bytes);
+  };
+  auto stage_of = [&](int r) {
+    return reinterpret_cast<float*>(smem + K::ring_off + r * K::stage_bytes);
+  };
+  for (int v = threadIdx.x; v < 2 * VK; v += K::THREADS)  // the zero pixels
+    reinterpret_cast<float4*>(patch_of(v / VK) + K::CAP * C)[v % VK] =
+        make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  auto patch = [&](int kk) {
+    stage_patch32<C, K::THREADS, true>(
+        patch_of(kk), src, g, tile_at(g, blockIdx.x + kk * (int)gridDim.x));
+  };
+  // stage s: k rows (s % SPT) KS .. + KS of tap s / SPT, the split's N
+  // columns
+  auto stage = [&](int r, int s) {
+    float* dst = stage_of(r);
+    const float* from =
+        w + ((size_t)(s / K::SPT) * C + (s % K::SPT) * K::KS) * C + split * N;
+    for (int c = threadIdx.x; c < K::KS * N / 4; c += K::THREADS) {
+      const int k = c / (N / 4), j = c % (N / 4);
+      cp_async16(dst + k * N + 4 * j, from + (size_t)k * C + 4 * j, true);
     }
-    float s0[G::TN], s1[G::TN];
+  };
+  float s0[TN], s1[TN];
 #pragma unroll
-    for (int j = 0; j < G::TN; ++j) s0[j] = s1[j] = 0.0f;
+  for (int j = 0; j < TN; ++j) s0[j] = s1[j] = 0.0f;
+  auto image_row = [&](int b) {
+    return part + ((long long)b * gridDim.x + blockIdx.x) * 2 * C;
+  };
+  // column c < 2N of the split's [s0 | s1] -> its place in a 2C row
+  auto col = [&](int c) { return c < N ? split * N + c : C + split * N + c - N; };
+  auto zero_rows = [&](int from, int to) {
+    for (int b = from; b < to; ++b)
+      for (int c = threadIdx.x; c < 2 * N; c += K::THREADS)
+        image_row(b)[col(c)] = 0.0f;
+  };
+  // the sums over the CTA into dst[0, 2C) (this split's columns), zeroed;
+  // red: a dead patch buffer.  Every thread calls it.
+  auto flush32 = [&](float* red, float* dst) {
+    __syncthreads();  // every warp is done with red's patch
+    const int warp = threadIdx.x / 32;
 #pragma unroll
-    for (int i = 0; i < G::TM; ++i) {
-      const long long m = m0 + rowg + i * G::RS;
-      if (m >= m_end) break;  // rows grow with i
+    for (int j = 0; j < TN; ++j) {
+      float a = s0[j], b = s1[j];
 #pragma unroll
-      for (int g = 0; g < NG; ++g) {
-        float v[4] = {acc[i][4 * g], acc[i][4 * g + 1], acc[i][4 * g + 2],
-                      acc[i][4 * g + 3]};
-        epi(m, b, 4 * colg + g * G::CS, v, s0 + 4 * g, s1 + 4 * g);
+      for (int o = K::TC; o < 32; o *= 2) {
+        a += __shfl_xor_sync(0xffffffffu, a, o);
+        b += __shfl_xor_sync(0xffffffffu, b, o);
+      }
+      if (lane < K::TC) {
+        const int c = 4 * tc + (j / 4) * K::CS + j % 4;
+        red[warp * 2 * N + c] = a;
+        red[warp * 2 * N + N + c] = b;
+      }
+      s0[j] = s1[j] = 0.0f;
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < 2 * N; c += K::THREADS) {
+      float s = 0.0f;
+      for (int wp = 0; wp < K::THREADS / 32; ++wp) s += red[wp * 2 * N + c];
+      dst[col(c)] = s;
+    }
+    __syncthreads();
+  };
+
+  Ring::start(tiles, patch, stage);
+  int next_img = 0;  // PER_IMAGE: the first image row not yet written
+  int kk = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++kk) {
+    const Tile tl = tile_at(g, t);
+    const Taps tv = taps_of(g, tl);
+    int q[TM], along[TM];
+    bool ok[TM];
+    long long pix[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      int a;
+      q[i] = rg + i * K::RS;
+      ok[i] = tile_pixel(g, tl, q[i], along[i], a);
+      pix[i] = ok[i] ? geo_pixel(g, tl.b, tl.s0 + along[i], tl.a0 + a) : 0;
+    }
+    // the epilogue's maps, loaded before the product
+    float4 aux[TM][TN / 4][NA];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int x = 0; x < TN / 4; ++x)
+#pragma unroll
+        for (int y = 0; y < Epi::NAUX; ++y)
+          aux[i][x][y] = ok[i] ? ld4(epi.aux(y) + pix[i] * C + cb + x * K::CS)
+                               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const float* pb = patch_of(kk);
+    float acc[TM][TN], psum[TM][TN];
+    zero_tile(acc);
+    zero_tile(psum);
+#pragma unroll 1
+    for (int s = 0; s < K::STAGES; ++s) {
+      const float* bs =
+          stage_of(Ring::next(kk, s, tiles, patch, stage)) + 4 * tc;
+      const int tp = s / K::SPT;
+      LineTap32<TM> a;
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const int r = ok[i] && along[i] >= tv.lo[tp] && along[i] < tv.hi[tp]
+                          ? q[i] + tv.shift[tp]
+                          : K::CAP;
+        a.off[i] = r * C;
+        a.swz[i] = f32_swz(r, VK);
+      }
+      // B: the stage's row 4 e + k, this thread's columns 4 tc + x CS ..
+      auto bload = [&](int e, float (&bv)[4][TN]) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+#pragma unroll
+          for (int x = 0; x < TN / 4; ++x) {
+            const float4 v = *reinterpret_cast<const float4*>(
+                bs + (4 * e + k) * N + x * K::CS);
+            bv[k][4 * x] = v.x; bv[k][4 * x + 1] = v.y;
+            bv[k][4 * x + 2] = v.z; bv[k][4 * x + 3] = v.w;
+          }
+      };
+      if constexpr (K::TPG == 3 && K::SPT == 1) {  // one chain: straight in
+        pf32_fma<K::VS, K::UNROLL>(pb, a, 0, bload, acc);
+      } else {
+        pf32_fma<K::VS, K::UNROLL>(pb, a, (s % K::SPT) * K::VS, bload, psum);
+        if (s % K::SPT == K::SPT - 1 && tp % K::TPG == K::TPG - 1) {
+          add_tile(acc, psum);  // the group's chain ends
+          zero_tile(psum);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      if (!ok[i]) continue;
+      const int rc = q[i] + tv.shift[1];  // the centre tap's patch pixel
+#pragma unroll
+      for (int x = 0; x < TN / 4; ++x) {
+        const int c0 = cb + x * K::CS;
+        float v[4] = {acc[i][4 * x], acc[i][4 * x + 1], acc[i][4 * x + 2],
+                      acc[i][4 * x + 3]};
+        epi(pix[i], tl.b, c0, v, s0 + 4 * x, s1 + 4 * x,
+            pb + rc * C + 4 * ((c0 / 4) ^ f32_swz(rc, VK)), aux[i][x]);
       }
     }
     if constexpr (Epi::SUMS) {
-      float* red = As;  // the chunk loop ended with a barrier
-#pragma unroll
-      for (int j = 0; j < G::TN; ++j) {
-        const int c = 4 * colg + (j / 4) * G::CS + j % 4;
-        red[rowg * 2 * C + c] = s0[j];
-        red[rowg * 2 * C + C + c] = s1[j];
+      // the CTA's last tile, or (per image) its last tile of this image
+      const int tn = t + (int)gridDim.x;
+      if (tn >= tiles || (Epi::PER_IMAGE && tile_at(g, tn).b != tl.b)) {
+        float* red = patch_of(kk);  // read: patch kk + 2 comes after the
+                                    // next tile's first barrier
+        if constexpr (Epi::PER_IMAGE) {
+          zero_rows(next_img, tl.b);
+          flush32(red, image_row(tl.b));
+          next_img = tl.b + 1;
+        } else {
+          flush32(red, part + (long long)blockIdx.x * 2 * C);
+        }
       }
-      __syncthreads();
-      for (int c = threadIdx.x; c < 2 * C; c += blockDim.x) {
-        float s = 0.0f;
-        for (int q = 0; q < G::RS; ++q) s += red[q * 2 * C + c];
-        part[(long long)tile * 2 * C + c] = s;
-      }
-      __syncthreads();  // red is read before the next gather
     }
   }
+  if constexpr (Epi::SUMS && Epi::PER_IMAGE) zero_rows(next_img, B);
   cp_async_wait_all();
 }
 
+// The f32 epilogues, on channels c0 .. c0 + 3 of map pixel m: v the sums,
+// av[y] the NAUX maps loaded there before the product, ctr the conv's input
+// there (the patch's centre tap).
 // t1 = relu(acc + bh)
 template <int C>
 struct EpiReluBias32 {
-  static constexpr bool SUMS = false;
+  static constexpr bool SUMS = false, PER_IMAGE = false;
+  static constexpr int NAUX = 0;
   const float* bias;
   float* out;
+  __device__ const float* aux(int) const { return nullptr; }
   __device__ void operator()(long long m, int, int c0, float (&v)[4], float*,
-                             float*) const {
+                             float*, const float*,
+                             const float4 (&)[1]) const {
     float o[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) o[k] = fmaxf(v[k] + __ldg(bias + c0 + k), 0.0f);
@@ -1246,14 +1408,17 @@ struct EpiReluBias32 {
   }
 };
 
-// z = acc + bw; with S: s0 += z, s1 += z^2
+// z = acc + bw; with S: s0 += z, s1 += z^2, per image
 template <int C, bool S>
 struct EpiStats32 {
-  static constexpr bool SUMS = S;
+  static constexpr bool SUMS = S, PER_IMAGE = true;
+  static constexpr int NAUX = 0;
   const float* bias;
   float* out;
+  __device__ const float* aux(int) const { return nullptr; }
   __device__ void operator()(long long m, int, int c0, float (&v)[4],
-                             float* s0, float* s1) const {
+                             float* s0, float* s1, const float*,
+                             const float4 (&)[1]) const {
     float o[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
@@ -1267,31 +1432,42 @@ struct EpiStats32 {
   }
 };
 
-// dz1 = acc [t1 > 0]; s0 += dz1, s1 += g
+__device__ __forceinline__ void unpack4(const float4& q, float (&f)[4]) {
+  f[0] = q.x, f[1] = q.y, f[2] = q.z, f[3] = q.w;
+}
+
+// dz1 = acc [t1 > 0]; s0 += dz1, s1 += g (g: the conv's input at the
+// pixel, from the patch)
 template <int C>
 struct EpiDz1_32 {
-  static constexpr bool SUMS = true;
+  static constexpr bool SUMS = true, PER_IMAGE = false;
+  static constexpr int NAUX = 1;
   const float* t1;
-  const float* g;
   float* out;
+  __device__ const float* aux(int) const { return t1; }
   __device__ void operator()(long long m, int, int c0, float (&v)[4],
-                             float* s0, float* s1) const {
-    const float4 t = ld4(t1 + m * C + c0), gv = ld4(g + m * C + c0);
-    const float tv[4] = {t.x, t.y, t.z, t.w}, gg[4] = {gv.x, gv.y, gv.z, gv.w};
+                             float* s0, float* s1, const float* ctr,
+                             const float4 (&av)[1]) const {
+    float tv[4], gv[4];
+    unpack4(av[0], tv);
+    unpack4(*reinterpret_cast<const float4*>(ctr), gv);
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       v[k] = tv[k] > 0.0f ? v[k] : 0.0f;
       s0[k] += v[k];
-      s1[k] += gg[k];
+      s1[k] += gv[k];
     }
     st4(out + m * C + c0, v);
   }
 };
 
-// the lead stage's backward from dt0 = acc, f32 (see the file comment)
+// the lead stage's backward from dt0 = acc, f32 (see the file comment); the
+// maps: relu the mask; affine x, the mask; epi x, the mask, gy
 template <int C, int MODE>
 struct EpiLeadBwd32 {
-  static constexpr bool SUMS = lead_sums(MODE);
+  static constexpr bool SUMS = lead_sums(MODE), PER_IMAGE = false;
+  static constexpr int NAUX = lead_maps(MODE);
+  static constexpr int NA = NAUX > 0 ? NAUX : 1;
   const float* x;     // affine: x; epi: t
   const float* mask;  // affine: t0; epi: y_next; relu: x
   const float* gy;    // epi
@@ -1299,24 +1475,28 @@ struct EpiLeadBwd32 {
   const float* a;     // (C,)
   float* out;         // dx (none, affine) or dt (epi)
   float* out2;        // epi: dy_res
+  __device__ const float* aux(int k) const {
+    if constexpr (MODE == RELU) return mask;
+    return k == 0 ? x : k == 1 ? mask : gy;
+  }
   __device__ void operator()(long long m, int b, int c0, float (&v)[4],
-                             float* s0, float* s1) const {
+                             float* s0, float* s1, const float*,
+                             const float4 (&av)[NA]) const {
     if constexpr (MODE == NONE) {
       st4(out + m * C + c0, v);
     } else if constexpr (MODE == RELU) {
-      const float4 m4 = ld4(mask + m * C + c0);
-      const float mv[4] = {m4.x, m4.y, m4.z, m4.w};
+      float mv[4];
+      unpack4(av[0], mv);
 #pragma unroll
       for (int k = 0; k < 4; ++k) v[k] = mv[k] > 0.0f ? v[k] : 0.0f;
       st4(out + m * C + c0, v);
     } else {
-      const float4 x4 = ld4(x + m * C + c0), m4 = ld4(mask + m * C + c0);
-      const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
-      const float mv[4] = {m4.x, m4.y, m4.z, m4.w};
-      float o[4];
+      float xv[4], mv[4], o[4];
+      unpack4(av[0], xv);
+      unpack4(av[1], mv);
       if constexpr (MODE == EPI) {
-        const float4 g4 = ld4(gy + m * C + c0);
-        const float gv[4] = {g4.x, g4.y, g4.z, g4.w};
+        float gv[4];
+        unpack4(av[2], gv);
 #pragma unroll
         for (int k = 0; k < 4; ++k) v[k] = mv[k] > 0.0f ? v[k] + gv[k] : 0.0f;
         st4(out2 + m * C + c0, v);
@@ -1338,104 +1518,248 @@ struct EpiLeadBwd32 {
 };
 
 template <int C>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(256, Conv32<C>::minb(0))
 fwd_h_f32_kernel(const float* t0, const float* __restrict__ w,
-                 const float* __restrict__ bias, float* t1, int B, int H,
-                 int W, int dh) {
+                 const float* __restrict__ bias, float* t1, Geo g, int B) {
   extern __shared__ __align__(128) unsigned char smem[];
-  conv_tiles_f32<C>(smem, t0, w, B, H, W, 0, dh, EpiReluBias32<C>{bias, t1},
-                    nullptr);
+  conv32_tiles<C>(smem, t0, w, g, B, EpiReluBias32<C>{bias, t1}, nullptr);
 }
 
 template <int C, bool S>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(256, Conv32<C>::minb(0))
 fwd_w_f32_kernel(const float* t1, const float* __restrict__ w,
-                 const float* __restrict__ bias, float* z, float* part, int B,
-                 int H, int W, int dw) {
+                 const float* __restrict__ bias, float* z, float* part, Geo g,
+                 int B) {
   extern __shared__ __align__(128) unsigned char smem[];
-  conv_tiles_f32<C>(smem, t1, w, B, H, W, 1, dw, EpiStats32<C, S>{bias, z},
-                    part);
+  conv32_tiles<C>(smem, t1, w, g, B, EpiStats32<C, S>{bias, z}, part);
 }
 
 template <int C>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(256, Conv32<C>::minb(1))
 bwd_w_f32_kernel(const float* g, const float* __restrict__ wt,
-                 const float* t1, float* dz1, float* part, int B, int H,
-                 int W, int dw) {
+                 const float* t1, float* dz1, float* part, Geo geo, int B) {
   extern __shared__ __align__(128) unsigned char smem[];
-  conv_tiles_f32<C>(smem, g, wt, B, H, W, 1, dw, EpiDz1_32<C>{t1, g, dz1},
-                    part);
+  conv32_tiles<C>(smem, g, wt, geo, B, EpiDz1_32<C>{t1, dz1}, part);
 }
 
 template <int C, int MODE>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(256, Conv32<C>::minb(lead_maps(MODE)))
 bwd_h_f32_kernel(const float* dz1, const float* __restrict__ wt,
                  const float* x, const float* mask, const float* gy,
                  const float* drop, const float* a, float* out, float* out2,
-                 float* part, int B, int H, int W, int dh) {
+                 float* part, Geo g, int B) {
   extern __shared__ __align__(128) unsigned char smem[];
-  conv_tiles_f32<C>(smem, dz1, wt, B, H, W, 0, dh,
-                    EpiLeadBwd32<C, MODE>{x, mask, gy, drop, a, out, out2},
-                    part);
+  conv32_tiles<C>(smem, dz1, wt, g, B,
+                  EpiLeadBwd32<C, MODE>{x, mask, gy, drop, a, out, out2},
+                  part);
 }
 
-// Weight gradients, f32: blockIdx.y = 0..2: dwh[k] = shift_h(t0, k)^T dz1;
-// 3..5: dww[k] = shift_w(t1, k)^T g; blockIdx.x = a chunk of CHUNK_F32
-// pixels; its (C x C) partial goes to part[chunk][y].
-constexpr int CHUNK_F32 = 2048;
-
+// Weight gradients, f32, on the bf16 form's (chunk of tiles, axis) grid
+// (wgrad_kernel): blockIdx.y = axis NSPLIT + split, axis 0: dwh[k] =
+// shift_h(t0, k)^T dz1, axis 1: dww[k] = shift_w(t1, k)^T g, for k = 0, 1,
+// 2 and the output columns [split NC, + NC); blockIdx.x = a chunk of the
+// axis's tiles (the f32 conv's tiling).  Per tile the CTA stages the G rows
+// of its pixels (dz1 or g, its NC columns) and the A patch along the axis
+// (t0 or t1, all C channels, unswizzled: every thread reads one pixel row at
+// a time) once, through a ring of NS stages (NS - 1 in flight); the three
+// taps are views of the patch, the zero pixel after it where a tap is off
+// the map.  The product (3 x C x NC) += A_t^T G runs on FFMA micro-tiles
+// with the pixels as its depth: thread (r, c, w) owns input channels 4 r ..
+// 4 r + 3 and output channels 4 c + (0 .. 3) and 4 c + 4 CG + (0 .. 3) of
+// the three taps (96 accumulators), four r and CL c a warp (so a pixel's A
+// chunks and each G half are one 64- or 128-byte run); K-group w of WK
+// takes every WK-th pixel.  Per pixel 3 + 2 float4 of shared memory feed
+// 96 FMAs; a tile's pixels run in segments with the same taps on the map
+// (a tap off it reads the zero pixel), so no pixel is tested (but in a
+// tile ragged across the map).  Each output is one FMA chain per K-group
+// over the chunk's pixels in order, the groups added in order at the end
+// (through the dead stages).
+// * C = 64: tiles of 128 pixels, two stages (67 KB each), two K-groups,
+//   one CTA an SM.
+// * C = 128: the output columns split in four, each quarter staging the
+//   whole A patch (64 KB) and its quarter of G; two stages, two K-groups,
+//   one CTA an SM.
+// * C = 16: tiles of 512 pixels, 32 K-groups, three stages.
+// Chunks = the resident CTAs / (2 NSPLIT), at most 9 MiB of partials: one
+// wave.  The partial of (chunk, axis, tap) goes to part[chunk][axis 3 +
+// k][C][C].
 template <int C>
-struct PairWg32 {
-  static constexpr int TM = C == 128 ? 8 : 4, TN = TM;
-  static constexpr int THREADS = 256, BP = C == 16 ? 256 : 64;
-  using Q = Wg32<C, C, TM, TN, THREADS, BP>;
+struct WgF32 {
+  static constexpr int THREADS = 256, TM = 4, TN = 8;
+  static constexpr int NSPLIT = C == 128 ? 4 : 1, NC = C / NSPLIT;
+  static constexpr int BP = C == 16 ? 512 : 128;
+  static constexpr int CAP = C == 16 ? 544 : C == 64 ? 136 : 128;
+  static constexpr int NS = C == 16 ? 3 : 2;
+  static constexpr int RG = C / TM, CG = NC / TN, CL = CG < 8 ? CG : 8;
+  static constexpr int WK = THREADS / (RG * CG);
+  static constexpr size_t patch_bytes = align128((size_t)(CAP + 1) * C * 4);
+  static constexpr size_t stage_bytes =
+      patch_bytes + align128((size_t)BP * NC * 4);
+  static constexpr size_t smem = NS * stage_bytes;
+  static_assert(TM == 4 && TN == 8 && RG % 4 == 0 && CG % CL == 0 &&
+                    THREADS % (RG * CG) == 0 &&
+                    4 * CL * (RG / 4) * (CG / CL) * WK == THREADS &&
+                    (size_t)WK * 3 * C * NC * 4 <= smem && smem <= 232448,
+                "f32 pair weight gradient");
 };
 
 template <int C>
-__global__ void __launch_bounds__(256)
+Geo wg32_geo(int H, int W, int axis, int d) {
+  using Q = WgF32<C>;
+  return make_geo(H, W, axis, d, Q::BP, Q::CAP,
+                  axis == 0 ? Conv32<C>::TA_MIN : 1);
+}
+
+template <int C>
+__global__ void __launch_bounds__(WgF32<C>::THREADS, 1)
 wgrad_f32_kernel(const float* __restrict__ t0, const float* __restrict__ dz1,
                  const float* __restrict__ t1, const float* __restrict__ g,
-                 float* __restrict__ part, int B, int H, int W, int dh,
-                 int dw) {
-  using S = PairWg32<C>;
-  using Q = typename S::Q;
+                 float* __restrict__ part, Geo gh, Geo gw, int B,
+                 int chunks) {
+  using Q = WgF32<C>;
+  constexpr int NC = Q::NC, CAP = Q::CAP;
   extern __shared__ __align__(128) unsigned char smem[];
-  float* As = reinterpret_cast<float*>(smem);
-  float* Gs = reinterpret_cast<float*>(smem + Q::a_bytes);
-  const int y = blockIdx.y;
-  const int axis = y < 3 ? 0 : 1, tap = y % 3;
-  const float* A = y < 3 ? t0 : t1;
-  const float* Gm = y < 3 ? dz1 : g;
-  const int off = (tap - 1) * (axis == 0 ? dh : dw);
-  const int step = axis == 0 ? W : 1, lim = axis == 0 ? H : W;
-  const long long P_ = (long long)B * H * W;
-  const long long p_begin = (long long)blockIdx.x * CHUNK_F32;
-  const long long p_stop =
-      p_begin + CHUNK_F32 < P_ ? p_begin + CHUNK_F32 : P_;
-  constexpr int VPT = C / 4;
-  float acc[S::TM][S::TN];
-  zero_tile(acc);
-
-  for (long long p0 = p_begin; p0 < p_stop; p0 += S::BP) {
-    for (int v = threadIdx.x; v < S::BP * VPT; v += blockDim.x) {
-      const int r = v / VPT, jv = v % VPT;
-      const long long p = p0 + r;
-      const bool in = p < p_stop;
-      const int pos = axis == 0 ? (int)((p / W) % H) : (int)(p % W);
-      const bool valid = in && pos + off >= 0 && pos + off < lim;
-      const long long src = valid ? p + (long long)off * step : 0;
-      cp_async16(As + r * C + jv * 4, A + src * C + jv * 4, valid);
-      cp_async16(Gs + r * C + jv * 4, Gm + (in ? p : 0) * C + jv * 4, in);
+  const int axis = blockIdx.y / Q::NSPLIT, split = blockIdx.y % Q::NSPLIT;
+  const Geo geo = axis ? gw : gh;
+  const float* A = axis ? t1 : t0;
+  const float* G = axis ? g : dz1;
+  const long long T = (long long)B * geo.segs * geo.ablk;
+  const int k0 = (int)(T * blockIdx.x / chunks);
+  const int k1 = (int)(T * (blockIdx.x + 1) / chunks);
+  // thread (r, c, wk): four r and CL c a warp
+  const int tid = threadIdx.x;
+  const int rest = tid / (4 * Q::CL), rest2 = rest / (Q::RG / 4);
+  const int r = tid % 4 + 4 * (rest % (Q::RG / 4));
+  const int c = (tid / 4) % Q::CL + Q::CL * (rest2 % (Q::CG / Q::CL));
+  const int wk = rest2 / (Q::CG / Q::CL);
+  auto stage = [&](int k) { return smem + (k % Q::NS) * Q::stage_bytes; };
+  for (int v = tid; v < Q::NS * C / 4; v += Q::THREADS)  // the zero pixels
+    reinterpret_cast<float4*>(reinterpret_cast<float*>(stage(v / (C / 4))) +
+                              CAP * C)[v % (C / 4)] =
+        make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  auto issue = [&](int k) {
+    if (k0 + k < k1) {
+      const Tile tl = tile_at(geo, k0 + k);
+      unsigned char* st = stage(k);
+      stage_patch32<C, Q::THREADS, false>(reinterpret_cast<float*>(st), A,
+                                          geo, tl);
+      float* Gs = reinterpret_cast<float*>(st + Q::patch_bytes);
+      const int e = tid % (NC / 4);
+      for (int q = tid / (NC / 4); q < Q::BP; q += Q::THREADS / (NC / 4)) {
+        int i, a;
+        const bool valid = tile_pixel(geo, tl, q, i, a);
+        const long long off =
+            valid ? geo_pixel(geo, tl.b, tl.s0 + i, tl.a0 + a) * C +
+                        split * NC + e * 4
+                  : 0;
+        cp_async16(Gs + q * NC + e * 4, G + off, valid);
+      }
     }
     cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();
-    wg32_step<C, C, S::TM, S::TN, S::THREADS, S::BP>(As, Gs, acc);
-    __syncthreads();
+  };
+#pragma unroll
+  for (int k = 0; k < Q::NS - 1; ++k) issue(k);
+  float acc[3][4][8];
+#pragma unroll
+  for (int tp = 0; tp < 3; ++tp) zero_tile(acc[tp]);
+  // pixel q of the tile: its G row, and the three taps' patch rows at
+  // a[t] + q st[t] (st 0: the zero pixel)
+  auto step = [&](const float* Gs, int q, const float* (&a)[3],
+                  int (&st)[3]) {
+    const float4 gv = *reinterpret_cast<const float4*>(Gs + q * NC + 4 * c);
+    const float4 gw = *reinterpret_cast<const float4*>(Gs + q * NC + 4 * c +
+                                                       4 * Q::CG);
+    const float g8[8] = {gv.x, gv.y, gv.z, gv.w, gw.x, gw.y, gw.z, gw.w};
+#pragma unroll
+    for (int tp = 0; tp < 3; ++tp) {
+      const float4 av = *reinterpret_cast<const float4*>(a[tp] + q * st[tp]);
+      const float a4[4] = {av.x, av.y, av.z, av.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          acc[tp][i][j] = fmaf(a4[i], g8[j], acc[tp][i][j]);
+    }
+  };
+  auto first = [&](int q0) { return q0 + ((wk - q0) % Q::WK + Q::WK) % Q::WK; };
+  for (int k = 0; k0 + k < k1; ++k) {
+    cp_async_wait_group<Q::NS - 2>();
+    __syncthreads();  // tile k is in; tile k - 1's reads are done
+    issue(k + Q::NS - 1);
+    const Tile tl = tile_at(geo, k0 + k);
+    const Taps tv = taps_of(geo, tl);
+    const float* As =
+        reinterpret_cast<const float*>(stage(k)) + 4 * r;  // chunk r
+    const float* Gs = reinterpret_cast<const float*>(stage(k) + Q::patch_bytes);
+    const float* zero = As + CAP * C;
+    if (tl.a0 + geo.TA > geo.m) {  // ragged across: every pixel tested
+      for (int q = first(0); q < (geo.L << geo.lg); q += Q::WK) {
+        int i, a;
+        const bool ok = tile_pixel(geo, tl, q, i, a);
+        const float* ap[3];
+        int st[3] = {0, 0, 0};
+#pragma unroll
+        for (int tp = 0; tp < 3; ++tp)
+          ap[tp] = ok && i >= tv.lo[tp] && i < tv.hi[tp]
+                       ? As + (q + tv.shift[tp]) * C
+                       : zero;
+        step(Gs, q, ap, st);
+      }
+      continue;
+    }
+    // tap t reads the map for tile pixels q in [qlo[t], qhi[t]) (whole rows
+    // of TA); the pixels in segments of the same taps on the map, the
+    // others reading the zero pixel (pixels past the map add nothing)
+    const int len = geo.n - tl.s0 < geo.L ? geo.n - tl.s0 : geo.L;
+    const int qend = len << geo.lg;
+    int qlo[3], qhi[3];
+#pragma unroll
+    for (int tp = 0; tp < 3; ++tp) {
+      const int lo = tv.lo[tp] > 0 ? tv.lo[tp] : 0;
+      const int hi = tv.hi[tp] < len ? tv.hi[tp] : len;
+      qlo[tp] = lo << geo.lg;
+      qhi[tp] = (hi > lo ? hi : lo) << geo.lg;
+    }
+    for (int q0 = 0; q0 < qend;) {
+      int q1 = qend;
+      const float* ap[3];
+      int st[3];
+#pragma unroll
+      for (int tp = 0; tp < 3; ++tp) {
+        const bool on = q0 >= qlo[tp] && q0 < qhi[tp];
+        ap[tp] = on ? As + tv.shift[tp] * C : zero;
+        st[tp] = on ? C : 0;
+        if (qlo[tp] > q0 && qlo[tp] < q1) q1 = qlo[tp];
+        if (qhi[tp] > q0 && qhi[tp] < q1) q1 = qhi[tp];
+      }
+#pragma unroll 4
+      for (int q = first(q0); q < q1; q += Q::WK) step(Gs, q, ap, st);
+      q0 = q1;
+    }
   }
-  float* dst = part + ((long long)blockIdx.x * 6 + y) * C * C;
-  wg32_store<C, C, S::TM, S::TN, S::THREADS, S::BP>(
-      acc, reinterpret_cast<float*>(smem), dst, C, C);
+  cp_async_wait_all();
+  // the K-groups' sums added in group order through the dead stages
+  float* red = reinterpret_cast<float*>(smem);
+  __syncthreads();
+#pragma unroll
+  for (int tp = 0; tp < 3; ++tp)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int x = 0; x < 2; ++x)
+        *reinterpret_cast<float4*>(
+            red + (((size_t)wk * 3 + tp) * C + 4 * r + i) * NC + 4 * c +
+            4 * Q::CG * x) =
+            make_float4(acc[tp][i][4 * x], acc[tp][i][4 * x + 1],
+                        acc[tp][i][4 * x + 2], acc[tp][i][4 * x + 3]);
+  __syncthreads();
+  for (int e = tid; e < 3 * C * NC; e += Q::THREADS) {
+    float s = 0.0f;
+    for (int w = 0; w < Q::WK; ++w) s += red[(size_t)w * 3 * C * NC + e];
+    const int tp = e / (C * NC), row = (e / NC) % C, cc = e % NC;
+    part[((long long)blockIdx.x * 6 + axis * 3 + tp) * C * C +
+         (long long)row * C + split * NC + cc] = s;
+  }
 }
 
 // t0 = relu(x a + b), f32 (nothing rounded)
@@ -1673,67 +1997,110 @@ int bwd(int mode, int stats, const void* gz, const void* z, const void* gs1,
   return e;
 }
 
-// f32 launchers: the same sequence as the bf16 ones
+// f32 launchers: the same sequence as the bf16 ones.  Resident CTAs of an
+// f32 conv kernel a split (its shared memory allowed first): the x extent
+// of its persistent grid and the number of its partial rows; a CUDA error
+// as a negative number.
 template <int C, class Kernel>
-cudaError_t prep32(Kernel k, bool* smem_ok, int* grid_max) {
-  using G = Cfg32<C>;
-  cudaError_t e = allow_smem(k, G::smem, smem_ok);
-  if (e != cudaSuccess) return e;
-  if (*grid_max == 0) return resident_ctas(k, G::THREADS, G::smem, grid_max);
-  return cudaSuccess;
+int conv32_ctas(Kernel k) {
+  using K = Conv32<C>;
+  bool ok = false;
+  int gm = 0;
+  cudaError_t e = allow_smem(k, K::smem, &ok);
+  if (e == cudaSuccess) e = resident_ctas(k, K::THREADS, K::smem, &gm);
+  if (e != cudaSuccess) return -(int)e;
+  return gm / K::NSPLIT > 0 ? gm / K::NSPLIT : -(int)cudaErrorInvalidConfiguration;
 }
 
 template <int C>
-int conv_grid32(int B, int H, int W, int grid_max) {
-  const int tiles = B * ((H * W + Cfg32<C>::BM - 1) / Cfg32<C>::BM);
-  return tiles < grid_max ? tiles : grid_max;
+dim3 grid32(const Geo& g, int B, int gm) {
+  return dim3(grid_of(g, B, gm), Conv32<C>::NSPLIT);
+}
+
+// Rows of statistic partials an f32 conv of this C may write.
+template <int C>
+int part_rows32() {
+  static const int rows = [] {
+    const int r[4] = {conv32_ctas<C>(fwd_w_f32_kernel<C, true>),
+                      conv32_ctas<C>(bwd_w_f32_kernel<C>),
+                      conv32_ctas<C>(bwd_h_f32_kernel<C, AFFINE>),
+                      conv32_ctas<C>(bwd_h_f32_kernel<C, EPI>)};
+    int m = r[0];
+    for (int v : r) {
+      if (v <= 0) return v;
+      m = v > m ? v : m;
+    }
+    return m;
+  }();
+  return rows;
+}
+
+// The f32 weight gradient's chunks: one wave, as wg_chunks.
+template <int C>
+int wg32_chunks(int B, int H, int W, int dh, int dw) {
+  using Q = WgF32<C>;
+  static const int ctas = [] {
+    bool ok = false;
+    int gm = 0;
+    cudaError_t e = allow_smem(wgrad_f32_kernel<C>, Q::smem, &ok);
+    if (e == cudaSuccess)
+      e = resident_ctas(wgrad_f32_kernel<C>, Q::THREADS, Q::smem, &gm);
+    return e == cudaSuccess ? gm : -(int)e;
+  }();
+  if (ctas <= 0) return ctas;
+  const Geo gh = wg32_geo<C>(H, W, 0, dh), gw = wg32_geo<C>(H, W, 1, dw);
+  long long n = ctas / (2 * Q::NSPLIT);
+  const long long cap = WG_PART_BYTES / (24LL * C * C);
+  const long long th = (long long)B * gh.segs * gh.ablk;
+  const long long tw = (long long)B * gw.segs * gw.ablk;
+  n = n < cap ? n : cap;
+  n = n < th ? n : th;
+  n = n < tw ? n : tw;
+  return n > 0 ? (int)n : 1;
 }
 
 template <int C, bool S>
 int fwd_f32(const void* t0, const void* wh, const void* bh, const void* ww,
             const void* bw, void* t1, void* z, void* part, void* stats, int B,
             int H, int W, int dh, int dw, cudaStream_t s) {
-  using G = Cfg32<C>;
-  static bool ok_h = false, ok_w = false;
-  static int gm_h = 0, gm_w = 0;
-  cudaError_t e = prep32<C>(fwd_h_f32_kernel<C>, &ok_h, &gm_h);
-  if (e == cudaSuccess) e = prep32<C>(fwd_w_f32_kernel<C, S>, &ok_w, &gm_w);
+  using K = Conv32<C>;
+  static const int gm_h = conv32_ctas<C>(fwd_h_f32_kernel<C>);
+  static const int gm_w = conv32_ctas<C>(fwd_w_f32_kernel<C, S>);
+  if (gm_h <= 0) return bad_grid(gm_h);
+  if (gm_w <= 0) return bad_grid(gm_w);
+  const Geo gh = conv32_geo<C>(H, W, 0, dh), gw = conv32_geo<C>(H, W, 1, dw);
+  fwd_h_f32_kernel<C><<<grid32<C>(gh, B, gm_h), K::THREADS, K::smem, s>>>(
+      static_cast<const float*>(t0), static_cast<const float*>(wh),
+      static_cast<const float*>(bh), static_cast<float*>(t1), gh, B);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  fwd_h_f32_kernel<C>
-      <<<conv_grid32<C>(B, H, W, gm_h), G::THREADS, G::smem, s>>>(
-          static_cast<const float*>(t0), static_cast<const float*>(wh),
-          static_cast<const float*>(bh), static_cast<float*>(t1), B, H, W,
-          dh);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  fwd_w_f32_kernel<C, S>
-      <<<conv_grid32<C>(B, H, W, gm_w), G::THREADS, G::smem, s>>>(
-          static_cast<const float*>(t1), static_cast<const float*>(ww),
-          static_cast<const float*>(bw), static_cast<float*>(z),
-          static_cast<float*>(part), B, H, W, dw);
+  const dim3 grid_w = grid32<C>(gw, B, gm_w);
+  fwd_w_f32_kernel<C, S><<<grid_w, K::THREADS, K::smem, s>>>(
+      static_cast<const float*>(t1), static_cast<const float*>(ww),
+      static_cast<const float*>(bw), static_cast<float*>(z),
+      static_cast<float*>(part), gw, B);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   if constexpr (!S) return cudaSuccess;
-  const int tpi = (H * W + G::BM - 1) / G::BM;
   return reduce_parts(static_cast<const float*>(part),
-                      static_cast<float*>(stats), B, tpi, 2 * C, s);
+                      static_cast<float*>(stats), B, grid_w.x, 2 * C, s);
 }
 
 template <int C, int MODE>
 int bwd_h_f32(const void* dz1, const void* wht, const void* x,
               const void* mask, const void* gy, const void* drop,
-              const void* a, void* out, void* out2, float* part, int B, int H,
-              int W, int dh, cudaStream_t s) {
-  using G = Cfg32<C>;
-  static bool ok = false;
-  static int gm = 0;
-  cudaError_t e = prep32<C>(bwd_h_f32_kernel<C, MODE>, &ok, &gm);
-  if (e != cudaSuccess) return e;
-  bwd_h_f32_kernel<C, MODE>
-      <<<conv_grid32<C>(B, H, W, gm), G::THREADS, G::smem, s>>>(
-          static_cast<const float*>(dz1), static_cast<const float*>(wht),
-          static_cast<const float*>(x), static_cast<const float*>(mask),
-          static_cast<const float*>(gy), static_cast<const float*>(drop),
-          static_cast<const float*>(a), static_cast<float*>(out),
-          static_cast<float*>(out2), part, B, H, W, dh);
+              const void* a, void* out, void* out2, float* part, const Geo& g,
+              int B, int* grid, cudaStream_t s) {
+  using K = Conv32<C>;
+  static const int gm = conv32_ctas<C>(bwd_h_f32_kernel<C, MODE>);
+  if (gm <= 0) return bad_grid(gm);
+  const dim3 grid_h = grid32<C>(g, B, gm);
+  *grid = grid_h.x;
+  bwd_h_f32_kernel<C, MODE><<<grid_h, K::THREADS, K::smem, s>>>(
+      static_cast<const float*>(dz1), static_cast<const float*>(wht),
+      static_cast<const float*>(x), static_cast<const float*>(mask),
+      static_cast<const float*>(gy), static_cast<const float*>(drop),
+      static_cast<const float*>(a), static_cast<float*>(out),
+      static_cast<float*>(out2), part, g, B);
   return cudaGetLastError();
 }
 
@@ -1745,66 +2112,72 @@ int bwd_f32(int mode, int stats, const void* gz, const void* z,
             void* dz1, void* out, void* out2, void* part_b, void* part_w,
             void* grads, int B, int H, int W, int dh, int dw,
             cudaStream_t s) {
-  using G = Cfg32<C>;
-  static bool ok_w = false;
-  static int gm_w = 0;
+  using K = Conv32<C>;
+  using Q = WgF32<C>;
+  static const int gm_w = conv32_ctas<C>(bwd_w_f32_kernel<C>);
   static bool wg_ok = false;
-  const long long P = (long long)B * H * W;
-  const int tiles = B * ((H * W + G::BM - 1) / G::BM);
+  if (gm_w <= 0) return bad_grid(gm_w);
+  const int rows = part_rows32<C>();
+  if (rows <= 0) return bad_grid(rows);
+  const int chunks = wg32_chunks<C>(B, H, W, dh, dw);
+  if (chunks <= 0) return bad_grid(chunks);
+  const Geo gh = conv32_geo<C>(H, W, 0, dh), gw = conv32_geo<C>(H, W, 1, dw);
   float* pb = static_cast<float*>(part_b);
   cudaError_t e = cudaSuccess;
+  // the stats fold writes g; without the statistics g is gz itself
   const void* gg = stats ? g : gz;
   if (stats && (e = adjust_grad_f32(gz, z, gs1, gs2, g, B, H * W, C, s)) !=
                    cudaSuccess)
     return e;
-  if ((e = prep32<C>(bwd_w_f32_kernel<C>, &ok_w, &gm_w)) != cudaSuccess)
-    return e;
-  bwd_w_f32_kernel<C>
-      <<<conv_grid32<C>(B, H, W, gm_w), G::THREADS, G::smem, s>>>(
-          static_cast<const float*>(gg), static_cast<const float*>(wwt),
-          static_cast<const float*>(t1), static_cast<float*>(dz1), pb, B, H,
-          W, dw);
+  // bias partials: part_b holds two (rows, 2C) halves, [dbh, dbw] per CTA
+  // of bwd_w and [da, db] per CTA of bwd_h
+  const dim3 grid_w = grid32<C>(gw, B, gm_w);
+  bwd_w_f32_kernel<C><<<grid_w, K::THREADS, K::smem, s>>>(
+      static_cast<const float*>(gg), static_cast<const float*>(wwt),
+      static_cast<const float*>(t1), static_cast<float*>(dz1), pb, gw, B);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  float* ph = pb + (long long)tiles * 2 * C;
+  float* ph = pb + (long long)rows * 2 * C;
+  int grid_h = 0;
   switch (mode) {
     case NONE:
       e = (cudaError_t)bwd_h_f32<C, NONE>(dz1, wht, x, mask, gy, drop, a, out,
-                                          out2, ph, B, H, W, dh, s);
+                                          out2, ph, gh, B, &grid_h, s);
       break;
     case AFFINE:
       e = (cudaError_t)bwd_h_f32<C, AFFINE>(dz1, wht, x, mask, gy, drop, a,
-                                            out, out2, ph, B, H, W, dh, s);
+                                            out, out2, ph, gh, B, &grid_h, s);
       break;
     case EPI:
       e = (cudaError_t)bwd_h_f32<C, EPI>(dz1, wht, x, mask, gy, drop, a, out,
-                                         out2, ph, B, H, W, dh, s);
+                                         out2, ph, gh, B, &grid_h, s);
       break;
     case RELU:
       e = (cudaError_t)bwd_h_f32<C, RELU>(dz1, wht, x, mask, gy, drop, a, out,
-                                          out2, ph, B, H, W, dh, s);
+                                          out2, ph, gh, B, &grid_h, s);
       break;
     default:
       return cudaErrorInvalidValue;
   }
   if (e != cudaSuccess) return e;
-  using Q = typename PairWg32<C>::Q;
   if ((e = allow_smem(wgrad_f32_kernel<C>, Q::smem, &wg_ok)) != cudaSuccess)
     return e;
-  const int chunks = (int)((P + CHUNK_F32 - 1) / CHUNK_F32);
-  wgrad_f32_kernel<C><<<dim3(chunks, 6), PairWg32<C>::THREADS, Q::smem, s>>>(
+  wgrad_f32_kernel<C><<<dim3(chunks, 2 * Q::NSPLIT), Q::THREADS, Q::smem,
+                        s>>>(
       static_cast<const float*>(t0), static_cast<const float*>(dz1),
       static_cast<const float*>(t1), static_cast<const float*>(gg),
-      static_cast<float*>(part_w), B, H, W, dh, dw);
+      static_cast<float*>(part_w), wg32_geo<C>(H, W, 0, dh),
+      wg32_geo<C>(H, W, 1, dw), B, chunks);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  // grads = [dwh (3CC), dww (3CC) | dbh, dbw | da, db]
   float* gr = static_cast<float*>(grads);
   if ((e = reduce_parts(static_cast<const float*>(part_w), gr, 1, chunks,
                         6 * C * C, s)) != cudaSuccess)
     return e;
-  if ((e = reduce_parts(pb, gr + 6 * C * C, 1, tiles, 2 * C, s)) !=
+  if ((e = reduce_parts(pb, gr + 6 * C * C, 1, grid_w.x, 2 * C, s)) !=
       cudaSuccess)
     return e;
   if (lead_sums(mode))
-    e = reduce_parts(ph, gr + 6 * C * C + 2 * C, 1, tiles, 2 * C, s);
+    e = reduce_parts(ph, gr + 6 * C * C + 2 * C, 1, grid_h, 2 * C, s);
   return e;
 }
 
@@ -1975,9 +2348,43 @@ extern "C" int erf_pair_bwd(const void* gz, const void* z, const void* gs1,
 
 
 // The f32 forms: the same operands with every map (x, y_res, t0, t1, z,
-// g, dz1, gz, gy, out, out2) and tap stack in f32.  The scratch sizes
-// follow the f32 tiles: tiles_per_image = ceil(H W / 256) at C = 16,
-// ceil(H W / 64) at C = 64 and 128.
+// g, dz1, gz, gy, out, out2) and tap stack in f32.  The scratch has the
+// bf16 layout, sized by the f32 kernels: rows = erf_pair_part_rows_f32(C),
+// chunks = erf_pair_wg_chunks_f32(B, H, W, C, dh, dw).
+extern "C" int erf_pair_part_rows_f32(int C) {
+  const int r = C == 16 ? part_rows32<16>()
+                : C == 64 ? part_rows32<64>()
+                : C == 128 ? part_rows32<128>() : 0;
+  return r > 0 ? r : 0;
+}
+
+extern "C" int erf_pair_wg_chunks_f32(int B, int H, int W, int C, int dh,
+                                      int dw) {
+  if (!shape_ok(B, H, W, C, dh, dw)) return 0;
+  const int n = C == 16   ? wg32_chunks<16>(B, H, W, dh, dw)
+                : C == 64 ? wg32_chunks<64>(B, H, W, dh, dw)
+                          : wg32_chunks<128>(B, H, W, dh, dw);
+  return n > 0 ? n : 0;
+}
+
+// The f32 tilings, as erf_pair_geometry.
+extern "C" int erf_pair_geometry_f32(int C, int kind, int H, int W,
+                                     int axis, int d, int* out) {
+  if (!shape_ok(1, H, W, C, d, d) || (axis != 0 && axis != 1) ||
+      (kind != 0 && kind != 1))
+    return cudaErrorInvalidValue;
+  Geo g;
+  if (C == 16)
+    g = kind ? wg32_geo<16>(H, W, axis, d) : conv32_geo<16>(H, W, axis, d);
+  else if (C == 64)
+    g = kind ? wg32_geo<64>(H, W, axis, d) : conv32_geo<64>(H, W, axis, d);
+  else
+    g = kind ? wg32_geo<128>(H, W, axis, d) : conv32_geo<128>(H, W, axis, d);
+  const int v[6] = {g.L, g.TA, g.band, g.segs, g.ablk, g.d};
+  for (int k = 0; k < 6; ++k) out[k] = v[k];
+  return 0;
+}
+
 extern "C" int erf_pair_lead_f32(const void* x, const void* yres,
                                  const void* drop, const void* a,
                                  const void* b, void* t0, int mode, int B,

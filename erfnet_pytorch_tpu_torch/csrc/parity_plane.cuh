@@ -549,13 +549,15 @@ struct PF32Tap {
 // times the matching rows of the B operand, output j.  Per chunk, TM
 // float4 of the patch and b(e, bv), the caller's 4 x TN block of B (bv[k]
 // [j]: the stage's channel 4 e + k, this thread's output j), then 4 TM TN
-// FMAs; each output is one FMA chain in increasing channel.
-template <int VS, class P, int TM, int TN, class BLoad>
-__device__ __forceinline__ void pf32_fma(const float* patch,
-                                         const PF32Tap<P, TM>& a, int e0,
-                                         const BLoad& b,
+// FMAs; each output is one FMA chain in increasing channel.  The tap a:
+// PF32Tap, or any view with the same off[TM] and swz[TM] (nb1d_pair.cu's
+// line patches).  UNROLL: the chunks unrolled (all of them by default;
+// nb1d_pair.cu's convs take 4, scripts/cuda_pair_variants.py times others).
+template <int VS, int UNROLL = VS, class Tap, int TM, int TN, class BLoad>
+__device__ __forceinline__ void pf32_fma(const float* patch, const Tap& a,
+                                         int e0, const BLoad& b,
                                          float (&part)[TM][TN]) {
-#pragma unroll
+#pragma unroll (UNROLL)
   for (int e = 0; e < VS; ++e) {
     float4 av[TM];
 #pragma unroll

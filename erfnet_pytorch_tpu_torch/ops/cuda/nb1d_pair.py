@@ -41,11 +41,15 @@ forward, 12 C^2 backward) at bf16, operations at every C at f32; this
 version keeps t0 and t1 from the forward (no recompute) and passes the
 pair's intermediates through device memory between launches.
 
-The bf16 convs run over halo-patch tiles (``csrc/nb1d_pair.cu`` Geo):
-``conv_geometry`` is the tiling the kernels choose, written out for the
-tests (``erf_pair_geometry`` returns the kernels' own).  Their statistic
-and bias partials are per CTA, ``erf_pair_part_rows(C)`` rows, and the
-weight gradient's per chunk of tiles, ``erf_pair_wg_chunks`` chunks, both
+The convs of both forms run over halo-patch tiles along the conv's axis
+(``csrc/nb1d_pair.cu`` Geo; bf16 on tensor cores, f32 on FFMA micro-tiles
+with swizzled f32 patches, at C = 128 the output channels split over two
+CTAs): ``conv_geometry`` is the tiling the kernels choose, written out for
+the tests with CONV_TILE / WG_TILE (bf16) or CONV_TILE_F32 / WG_TILE_F32
+(f32) (``erf_pair_geometry`` and ``erf_pair_geometry_f32`` return the
+kernels' own).  Their statistic and bias partials are per CTA,
+``erf_pair_part_rows(_f32)(C)`` rows, and the weight gradient's per
+(chunk of tiles, axis, tap), ``erf_pair_wg_chunks(_f32)`` chunks, both
 from the card's SM count.
 """
 
@@ -59,12 +63,13 @@ from . import _build, route
 from .nb1d import _shift
 
 MODES = ("none", "affine", "epi", "relu")   # csrc enum Lead
-BM_F32 = {16: 256, 64: 64, 128: 64}   # the f32 form's, by C (Cfg32::BM)
-CHUNK_F32 = 2048    # pixels per f32 weight-gradient partial (csrc CHUNK_F32)
 # the bf16 tiles by C (csrc Conv, Wg): (pixels a tile, patch pixels, least
 # width across the H conv), for the convs and for the weight gradient
 CONV_TILE = {16: (256, 512, 4), 64: (128, 192, 1), 128: (128, 128, 1)}
 WG_TILE = {16: (256, 512, 4), 64: (256, 320, 1), 128: (128, 128, 1)}
+# the f32 tiles (csrc Conv32, WgF32), the same way
+CONV_TILE_F32 = {16: (512, 544, 2), 64: (128, 136, 1), 128: (128, 128, 1)}
+WG_TILE_F32 = {16: (512, 544, 2), 64: (128, 136, 1), 128: (128, 128, 1)}
 # kernel launches of one pair call, by lead mode; the stats-free forms
 # launch one fewer each way (no statistics reduction, no g fold)
 FWD_LAUNCHES = {"none": 3, "affine": 4, "epi": 4, "relu": 4}
@@ -80,14 +85,14 @@ def dilations(dil):
 
 
 def conv_geometry(H, W, axis, d, tile):
-    """The bf16 kernels' tiling along ``axis`` (0: H, 1: W) of an (H, W)
-    map at dilation d, ``tile`` = (bm, cap, ta_min) from CONV_TILE or
-    WG_TILE (csrc make_geo; ta_min holds for the H axis only): (L, TA,
-    band, segs, ablk, d), TA a power of two.  A tile is L
-    positions along the axis x TA across; its patch is the L + 2d
-    positions along it, clamped to the map (band 0), or three bands of L
-    at -d, 0 and d (band 1); segs x ablk tiles cover an image; d is
-    clamped to the axis' extent."""
+    """The kernels' tiling along ``axis`` (0: H, 1: W) of an (H, W) map at
+    dilation d, ``tile`` = (bm, cap, ta_min) from CONV_TILE or WG_TILE
+    (bf16), CONV_TILE_F32 or WG_TILE_F32 (f32) (csrc make_geo; ta_min
+    holds for the H axis only): (L, TA, band, segs, ablk, d), TA a power
+    of two.  A tile is L positions along the axis x TA across; its patch
+    is the L + 2d positions along it, clamped to the map (band 0), or three
+    bands of L at -d, 0 and d (band 1); segs x ablk tiles cover an image; d
+    is clamped to the axis' extent."""
     bm, cap, ta_min = tile
     ta_min = 1 if axis else ta_min   # the least width applies across W
     n, m = (W, H) if axis else (H, W)
@@ -234,7 +239,7 @@ _SCRATCH = {}   # (entry point, its arguments, device) -> its answer
 
 
 def _ask(lib, name, *args, device):
-    """The bf16 kernels' scratch size from their C entry point, once per
+    """The kernels' scratch size from their C entry point, once per
     argument tuple and device (it depends on the card's SM count)."""
     key = (name, args, device)
     if key not in _SCRATCH:
@@ -248,21 +253,17 @@ def _ask(lib, name, *args, device):
     return _SCRATCH[key]
 
 
-def _part_rows(lib, form, B, H, W, C, device):
-    """Rows of statistic partials a call writes: per 64-pixel (C = 16:
-    256) tile at f32; per resident CTA of the bf16 convs
-    (``erf_pair_part_rows``)."""
-    if form:
-        return B * -(-(H * W) // BM_F32[C])
-    return _ask(lib, "erf_pair_part_rows", C, device=device)
+def _part_rows(lib, form, C, device):
+    """Rows of statistic partials a call writes (per image in the
+    forward): the most resident CTAs of the form's convs, a split
+    (``erf_pair_part_rows``, ``erf_pair_part_rows_f32``)."""
+    return _ask(lib, "erf_pair_part_rows" + form, C, device=device)
 
 
 def _wg_chunks(lib, form, B, H, W, C, dh, dw, device):
-    """Weight-gradient partials of a call: one per 2048 pixels at f32;
-    one wave of the bf16 kernel's CTAs (``erf_pair_wg_chunks``)."""
-    if form:
-        return -(-(B * H * W) // CHUNK_F32)
-    return _ask(lib, "erf_pair_wg_chunks", B, H, W, C, dh, dw,
+    """Weight-gradient partials of a call: one wave of the form's kernel
+    (``erf_pair_wg_chunks``, ``erf_pair_wg_chunks_f32``)."""
+    return _ask(lib, "erf_pair_wg_chunks" + form, B, H, W, C, dh, dw,
                 device=device)
 
 
@@ -309,9 +310,8 @@ def pair_fwd(mode, x, wh, bh, ww, bw, dil, *, yres=None, m=None, a=None,
         _build.count(pair_fwd, key + form)
     t1, z = torch.empty_like(x), torch.empty_like(x)
     if stats:
-        rows = _part_rows(lib, form, B, H, W, C, dev)
-        part = torch.empty(B * rows if not form else rows, 2 * C,
-                           dtype=torch.float32, device=dev)
+        rows = _part_rows(lib, form, C, dev)
+        part = torch.empty(B * rows, 2 * C, dtype=torch.float32, device=dev)
         sums = torch.empty(B, 2 * C, dtype=torch.float32, device=dev)
     else:   # not read by the stats-free form
         part = sums = bhf
@@ -374,7 +374,7 @@ def pair_bwd(mode, saved, gz, gs1, gs2, gy=None):
     else:
         gy = x
     lib = _build.library("nb1d_pair")
-    rows = _part_rows(lib, form, B, H, W, C, dev)
+    rows = _part_rows(lib, form, C, dev)
     chunks = _wg_chunks(lib, form, B, H, W, C, dh, dw, dev)
     part_b = torch.empty(2 * rows, 2 * C, dtype=torch.float32, device=dev)
     part_w = torch.empty(chunks, 6, C, C, dtype=torch.float32, device=dev)

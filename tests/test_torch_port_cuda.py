@@ -360,7 +360,31 @@ def test_nb1d_pair_kernels(dev, mode, shape, dil, dtype):
     tile), C = 128 70 x 130 (the W conv takes three bands of 42), C = 16
     70 x 20 (64 x 4 H tiles and 20 x 8 W tiles), and C = 128 at d = 8 on
     64 x 16."""
+    _pair_kernels_case(mode, shape, dil, dtype)
+
+
+@pytest.mark.parametrize("mode,shape,dil", [
+    ("affine", (1, 130, 20, 64), 1), ("epi", (2, 37, 300, 64), (1, 2)),
+    ("none", (2, 5, 140, 64), (5, 3)), ("relu", (1, 300, 12, 64), (2, 1)),
+    ("epi", (1, 300, 20, 16), 1), ("affine", (2, 70, 100, 128), (4, 16)),
+    ("epi", (1, 8, 200, 128), (4, 3)), ("affine", (1, 6, 40, 128), (8, 64))])
+def test_nb1d_pair_f32_kernels_ragged_tiles(dev, mode, shape, dil):
+    """The f32 forms on maps ragged against the f32 tiles
+    (``nb1d_pair.CONV_TILE_F32``): C = 64 130 x 20 (the H conv's 128-row
+    tiles with a halo leave 2 rows, 20 x 4 W tiles half a tile), 37 x 300
+    (W segments of 128, 128 and 44 at dw = 2, 37 x 2 H tiles), 5 x 140 at
+    dh = 5 >= H (5 x 16 H tiles past the map), 300 x 12 (H segments of 128,
+    128 and 44 at dh = 2); C = 16 300 x 20 (two H segments of 256 x 2,
+    20 x 16 W tiles past the map's 300 columns); C = 128 70 x 100 at (4,
+    16) (70 x 1 H tiles, 100 x 1 W tiles), 8 x 200 at (4, 3) (8 x 16 H
+    tiles past the map's 200 columns, the W conv in three bands of 42) and
+    6 x 40 at (8, 64), both dilations past the map."""
+    _pair_kernels_case(mode, shape, dil, F32)
+
+
+def _pair_kernels_case(mode, shape, dil, dtype):
     B, H, W, C = shape
+    dev = torch.device("cuda")
     rel = _rel_for(dtype)
     x = _rn(*shape, seed=1)
     kw = {"x": (x.relu() if mode == "none" else x).to(dev, dtype),
@@ -410,34 +434,64 @@ def test_nb1d_pair_kernels(dev, mode, shape, dil, dtype):
 
 @pytest.mark.parametrize("C", [16, 64, 128])
 def test_nb1d_pair_geometry(dev, C):
-    """The bf16 kernels' tilings (erf_pair_geometry) are the ones
-    ``nb1d_pair.conv_geometry`` writes out for the CPU tests, for the convs
-    and the weight gradient, on the path's maps, ragged maps and
+    """Both forms' tilings (erf_pair_geometry, erf_pair_geometry_f32) are
+    the ones ``nb1d_pair.conv_geometry`` writes out for the CPU tests, for
+    the convs and the weight gradient, on the path's maps, ragged maps and
     dilations past the map; the partial rows and the weight gradient's
     chunks are positive."""
     import ctypes
     lib = _build.library("nb1d_pair")
-    fn = lib.erf_pair_geometry
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
     out = (ctypes.c_int * 6)()
-    for kind, tile in ((0, nb1d_pair.CONV_TILE[C]),
-                       (1, nb1d_pair.WG_TILE[C])):
-        for H, W in ((64, 128), (128, 256), (256, 512), (5, 9), (70, 130),
-                     (130, 20), (4, 8), (3, 70), (40, 300)):
-            for axis in (0, 1):
-                for d in (1, 2, 8, 16, 100, 200):
-                    assert fn(C, kind, H, W, axis, d,
-                              ctypes.addressof(out)) == 0
-                    assert tuple(out) == nb1d_pair.conv_geometry(
-                        H, W, axis, d, tile), (kind, H, W, axis, d)
-    assert lib.erf_pair_part_rows(C) > 0
-    chunks = lib.erf_pair_wg_chunks
-    chunks.argtypes = [ctypes.c_int] * 6
-    assert chunks(6, 64, 128, C, 1, 1) > 0
-    tiles = [g[3] * g[4] for g in (
-        nb1d_pair.conv_geometry(3, 5, a, 16, nb1d_pair.WG_TILE[C])
-        for a in (0, 1))]
-    assert 1 <= chunks(1, 3, 5, C, 16, 16) <= min(tiles)
+    for form, conv, wg in (("", nb1d_pair.CONV_TILE, nb1d_pair.WG_TILE),
+                           ("_f32", nb1d_pair.CONV_TILE_F32,
+                            nb1d_pair.WG_TILE_F32)):
+        fn = getattr(lib, "erf_pair_geometry" + form)
+        fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        for kind, tile in ((0, conv[C]), (1, wg[C])):
+            for H, W in ((64, 128), (128, 256), (256, 512), (5, 9),
+                         (70, 130), (130, 20), (4, 8), (3, 70), (40, 300),
+                         (300, 20), (37, 300)):
+                for axis in (0, 1):
+                    for d in (1, 2, 8, 16, 100, 200):
+                        assert fn(C, kind, H, W, axis, d,
+                                  ctypes.addressof(out)) == 0
+                        assert tuple(out) == nb1d_pair.conv_geometry(
+                            H, W, axis, d, tile), (form, kind, H, W, axis, d)
+        assert getattr(lib, "erf_pair_part_rows" + form)(C) > 0
+        chunks = getattr(lib, "erf_pair_wg_chunks" + form)
+        chunks.argtypes = [ctypes.c_int] * 6
+        assert chunks(6, 64, 128, C, 1, 1) > 0
+        tiles = [g[3] * g[4] for g in (
+            nb1d_pair.conv_geometry(3, 5, a, 16, wg[C]) for a in (0, 1))]
+        assert 1 <= chunks(1, 3, 5, C, 16, 16) <= min(tiles)
+
+
+def test_nb1d_pair_f32_backward_repeats_bit_identically(dev):
+    """The f32 backward at B=6, C = 128 (the encoder's shape, persistent
+    CTAs over many tiles each, the weight gradient's column quarters) run
+    30 times: every output bit-equal to the first run's."""
+    B, H, W, C = 6, 64, 128, 128
+    x = _rn(B, H, W, C, seed=1).to(dev)
+    kw = {"x": x, "wh": _rn(3, C, C, seed=2, scale=(3 * C) ** -0.5).to(dev),
+          "bh": _rn(C, seed=3, scale=0.1).to(dev),
+          "ww": _rn(3, C, C, seed=4, scale=(3 * C) ** -0.5).to(dev),
+          "bw": _rn(C, seed=5, scale=0.1).to(dev), "dil": 2,
+          "a": (1 + _rn(C, seed=6, scale=0.1)).to(dev),
+          "b": _rn(C, seed=7, scale=0.1).to(dev),
+          "yres": _rn(B, H, W, C, seed=8).relu().to(dev),
+          "m": torch.where(_rn(B, C, seed=9) > -0.5, 1 / 0.7, 0.0).to(dev)}
+    t0, t1, z = nb1d_pair.pair_fwd_plain("epi", **kw)[:3]
+    saved = {"x": x, "t0": t0, "t1": t1, "z": z, "wh": kw["wh"],
+             "ww": kw["ww"], "a": kw["a"], "m": kw["m"], "dil": 2}
+    ct = {"gz": _rn(B, H, W, C, seed=10).to(dev),
+          "gs1": _rn(B, C, seed=11, scale=1e-3).to(dev),
+          "gs2": _rn(B, C, seed=12, scale=1e-3).to(dev),
+          "gy": _rn(B, H, W, C, seed=13).to(dev)}
+    first = nb1d_pair.pair_bwd("epi", saved, **ct)
+    first = {k: v.clone() for k, v in first.items()}
+    for _ in range(29):
+        again = nb1d_pair.pair_bwd("epi", saved, **ct)
+        assert all(torch.equal(first[k], again[k]) for k in first)
 
 
 @pytest.mark.parametrize("shape,cc,stem", [
