@@ -321,6 +321,7 @@ import traceback
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12          # f32 on the CUDA cores (no tensor cores)
+TF32_FLOPS_PER_S = 494.7e12      # dense TF32 tensor-core peak
 INT8_OPS_PER_S = 1979e12         # dense int8 tensor-core peak
 N_CLASSES = 20
 ITERS = 20                       # timed iterations per kernel measurement
@@ -708,10 +709,10 @@ def bound_ms(kind, shape, p, esz=2, flops_per_s=BF16_FLOPS_PER_S):
     operations ms)."""
     B, H, W, C = shape
     ps = p if isinstance(p, list) else [p]
-    # wmat and q: other layouts of w and qt, which the kernels read
+    # wmat, q and wtc: other layouts of w and qt, which the kernels read
     wbytes = sum(v.numel() * v.element_size() for q in ps
                  for k, v in q.items()
-                 if hasattr(v, "numel") and k not in ("wmat", "q"))
+                 if hasattr(v, "numel") and k not in ("wmat", "q", "wtc"))
     if kind == "downsampler":
         cc = p["b"].shape[0]
         pix = B * (H // 2) * (W // 2)
@@ -734,8 +735,9 @@ def bound_ms(kind, shape, p, esz=2, flops_per_s=BF16_FLOPS_PER_S):
 def library_call(kind, x, p):
     """One PyTorch call computing the kernel's product, as a yardstick the
     port never calls: cuDNN conv / transposed conv in x's dtype (bf16, or
-    f32 with TF32 off), channels-last.  None where no single call computes
-    the function."""
+    f32 with TF32 off), channels-last; for nb1d, where no single call
+    computes the block, cuDNN's four convs of it (``_lib_nb1d``).  None
+    for the head."""
     import torch
     import torch.nn.functional as F
     if kind == "downsampler":
@@ -752,7 +754,38 @@ def library_call(kind, x, p):
         b = p["b"].to(x.dtype)
         return lambda: F.conv_transpose2d(xc, w, b, stride=2, padding=1,
                                           output_padding=1)
+    if kind == "nb1d":
+        return _lib_nb1d(x, p)
     return None
+
+
+def _lib_nb1d(x, p):
+    """The NB1d block's yardstick, never on the path: cuDNN's four convs
+    (``F.conv2d`` with (3, 1) and (1, 3) kernels at their dilation) with
+    their biases, the ReLUs and the residual, channels-last, in x's dtype
+    (f32: TF32 off by the caller)."""
+    import torch
+    import torch.nn.functional as F
+    xc = x.permute(0, 3, 1, 2)           # NCHW view of NHWC = channels-last
+    d = p["dilation"]
+    convs = []
+    for i in range(4):
+        dd = 1 if i < 2 else d
+        taps = p["w"][i].to(x.dtype).permute(2, 1, 0)      # (Cout, Cin, 3)
+        if i % 2 == 0:                   # along H
+            wt, pad, dil = taps[..., None], (dd, 0), (dd, 1)
+        else:
+            wt, pad, dil = taps[:, :, None, :], (0, dd), (1, dd)
+        convs.append((wt.contiguous(memory_format=torch.channels_last),
+                      p["b"][i].to(x.dtype), pad, dil))
+
+    def block():
+        y = xc
+        for i, (wt, b, pad, dil) in enumerate(convs):
+            z = F.conv2d(y, wt, b, padding=pad, dilation=dil)
+            y = torch.relu(z + xc if i == 3 else z)
+        return y
+    return block
 
 
 def phase_timing(sd, device, iters):
@@ -1904,8 +1937,21 @@ def phase_f32_timing(sd, device, iters):
            "upsampler": (upsampler.upsampler, upsampler.upsampler_plain),
            "head_argmax": (head_argmax.head_argmax,
                            head_argmax.head_argmax_plain)}
-    rows = kernel_rows(prepared_ops(sd, device, SERVE_HW, f32), fns, g,
-                       device, iters, f32)
+    ops = prepared_ops(sd, device, SERVE_HW, f32)
+    rows = kernel_rows(ops, fns, g, device, iters, f32)
+    # nb1d_f32's bound for the work it does: three TF32 products at the
+    # tensor-core peak where it runs 3xTF32 (C = 64, 128), f32 operations
+    # on the CUDA cores at C = 16 (beside its f32 bound, which stays the
+    # row's)
+    tc = 0.0
+    for _l, p, shape, n in ops["nb1d"]:
+        tc += n * (bound_ms("nb1d", shape, p, 4, TF32_FLOPS_PER_S / 3)[1]
+                   if shape[-1] != 16 else
+                   bound_ms("nb1d", shape, p, 4, F32_FLOPS_PER_S)[1])
+    rows["nb1d"]["bound_tf32x3_ms"] = tc
+    log(f"  nb1d_f32 bound of its own work (3xTF32 at C=64, 128 over "
+        f"{TF32_FLOPS_PER_S / 1e12:g} TFLOP/s, f32 FMAs at C=16): {tc:.4f} "
+        "ms")
     for kind, r in rows.items():
         log(f"  {kind}_f32 per B=4 forward: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} "
@@ -3365,9 +3411,15 @@ def _device_events(fn, n):
 
 def _device_ms(fn, n):
     """Device time of one call of ``fn``: its CUDA kernels' durations
-    (torch.profiler) summed over n calls, over n."""
-    us = sum(ev.time_range.end - ev.time_range.start
-             for ev in _device_events(fn, n))
+    (torch.profiler) summed over n calls, over n.  Where the profiler
+    records no device time in any of its sessions, CUDA events around n
+    calls instead, which the log says."""
+    try:
+        evs = _device_events(fn, n)
+    except PhaseError:
+        log("  no device time from the profiler: CUDA events instead")
+        return _time(fn, n)
+    us = sum(ev.time_range.end - ev.time_range.start for ev in evs)
     return us / n / 1e3
 
 
@@ -3423,7 +3475,9 @@ def split_calls(device, dtype):
     5 gy), the train upsampler forward with and without statistics (rows
     12, 10) and its backward with and without (rows 13, 11); the eval
     downsampler and upsampler (rows 9, 14) and the decoder head + argmax
-    (rows 15, 16 G4) at their B=4 serving shapes;
+    (rows 15, 16 G4) and the NB1d blocks (bf16 rows 1 and 3; f32 "1-3
+    C128", "1-3 C64", "1-3 C16") at their B=4 serving shapes, weighted by
+    their calls per forward;
     the train NB1d conv pair (rows 21, 22, 23 at C=64 and C=128, "21 C16"
     .. "23 C16"), a forward and a backward call of each distinct (lead,
     shape, dilation) of ``pair_cases`` and ``dec_pair_cases``, weighted by
@@ -3441,11 +3495,14 @@ def split_calls(device, dtype):
     the pair's two convs, their forwards or their
     ``convolution_backward``s), ``addmm`` + ``cross_entropy`` and their
     backward for row 17 (``_lib_head_loss``), the transposed conv with its
-    bias and ``argmax`` for rows 15, 16 G4 (``_lib_head``)."""
+    bias and ``argmax`` for rows 15, 16 G4 (``_lib_head``), the block's
+    four convs with their biases, ReLUs and residual for the NB1d rows
+    (``_lib_nb1d``)."""
     import torch
     from erfnet_pytorch_tpu_torch.ops.cuda import downsampler, head_argmax
     from erfnet_pytorch_tpu_torch.ops.cuda import downsampler_train as dt
     from erfnet_pytorch_tpu_torch.ops.cuda import head_loss as hl
+    from erfnet_pytorch_tpu_torch.ops.cuda import nb1d, nb1d_halo
     from erfnet_pytorch_tpu_torch.ops.cuda import nb1d_pair as pr
     from erfnet_pytorch_tpu_torch.ops.cuda import upsampler
     from erfnet_pytorch_tpu_torch.ops.cuda import upsampler_train as ut
@@ -3529,6 +3586,25 @@ def split_calls(device, dtype):
     calls.append(("15, 16 G4", "head 16->", (
         lambda x=x, p=p: head_argmax.head_argmax(x, p)),
         _lib_head(x, sd, prefix), 1))
+    # the serving NB1d blocks at B=4 512x1024: bf16 rows 1 (nb1d_halo, C=64
+    # and C=16) and 3 (nb1d, C=128); f32 rows 1-3 f32 (nb1d, every block)
+    # split by C
+    f32 = dtype == torch.float32
+    for label, p, shape, n in prepared_ops(sd, device, SERVE_HW,
+                                           dtype)["nb1d"]:
+        C = shape[-1]
+        if n == 0:
+            continue
+        x = torch.rand(*shape, generator=g).to(device).to(dtype)
+        calls.append((f"1-3 C{C}" if f32 else 3, label, (
+            lambda x=x, p=p: nb1d.nb1d(x, p)), _lib_nb1d(x, p), n))
+    if not f32:
+        for prefix, shape, n in halo_cases(4, SERVE_HW):
+            p = halo_params(sd, prefix, device)
+            x = torch.rand(*shape, generator=g).to(device).to(dtype)
+            calls.append((1, f"nb1d_halo C{shape[-1]}", (
+                lambda x=x, p=p: nb1d_halo.nb1d_halo(x, p)),
+                _lib_nb1d(x, p), n))
     for mode, shape, d, n in pair_cases(TRAIN_B) + [
             c for c in dec_pair_cases(TRAIN_B) if c[1][-1] == 16]:
         C = shape[-1]
@@ -3598,11 +3674,11 @@ def _lib_head_loss(feats, w, b, labels, cw):
     return fwd, lambda: torch.autograd.grad(loss, leaves, retain_graph=True)
 
 
-def phase_split(device, iters, dtypes=None):
+def phase_split(device, iters, dtypes=None, only=None):
     """Each call of ``split_calls`` through its wrapper, split by
     ``kernel_split`` (bf16, and the f32 forms of every train row, the pair
     and head+loss rows included, with TF32 off: the serving rows 9 and 14
-    in bf16 only), and its
+    in bf16 only; ``only``: the rows to time, by label, else all), and its
     yardstick's device time (``cudnn``); summed by
     row, each call times its calls per step, with the row's device time
     by kernel (``kernels``)."""
@@ -3615,7 +3691,7 @@ def phase_split(device, iters, dtypes=None):
             "call; cuDNN's call for the same function by device time")
         with no_tf32() if form else contextlib.nullcontext():
             for row, label, fn, lib, n in split_calls(device, dtype):
-                if form and row in (9, 14):
+                if form and row in (9, 14) or only and str(row) not in only:
                     continue
                 s = kernel_split(fn, iters)
                 log_split(f"row {row}{form} {label}", s)
@@ -4901,7 +4977,10 @@ def main():
         build_s = phase_build()
         if "--split" in sys.argv[1:]:
             # only the build and the split of the redesigned rows' calls
-            split = phase_split(device, ITERS)
+            # (--rows "1-3 C128,17 G4": those rows only)
+            only = (sys.argv[sys.argv.index("--rows") + 1].split(",")
+                    if "--rows" in sys.argv[1:] else None)
+            split = phase_split(device, ITERS, only=only)
             log(json.dumps({"split": split}))
             log(card)
             return 0

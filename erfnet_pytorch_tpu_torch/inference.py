@@ -321,7 +321,8 @@ def build_fast_infer(state_dict_or_net, *, dtype=torch.bfloat16,
     any device; predictions (B, H, W) int32 on ``device`` (default cuda).
     ``dtype``: the compute dtype, bf16 or f32 (the JAX CLIs' default); on
     CUDA each kernel runs its form for that dtype (f32: f32 FMAs on the
-    CUDA cores, no TF32, all 17 NB1d blocks on ``nb1d``).
+    CUDA cores, no TF32, but 3xTF32 products in the NB1d block, which
+    takes all 17 blocks).
 
     q8_scales: calibrated activation absmaxes {(tag, layer): {"in", "a1",
     "a2", "a3"}} (``quantize.py``); the NB1d blocks then run int8 as the

@@ -29,9 +29,14 @@ of its partials: persistent CTAs, one wave (``erf_head_loss_rows``: at
 least BWD1_BLOCK rows each), each over blocks of BWD1_BLOCK rows; per
 block the logits, softmax and dz over ``bwd1_columns(n)`` columns, then
 [dW | db] += feats^T [dz | 1], then dfeats; dz stays in shared memory.
-Bound on the H100: bytes (the feature rows and labels).  What is left:
-the G = 1 passes read W from shared memory at about one 16-byte load per
-4 FMAs, on the CUDA cores.
+Both G = 4 passes run the same way (``erf_head_loss4_rows``: one wave,
+at least BLOCK4 rows a CTA, blocks of BLOCK4 rows), four threads a row,
+one plane's logits each: the forward's partials [num, den] and the
+backward's [dW | db] one per CTA, the backward's dz in shared memory,
+dfeats the sum of the four planes' partial products.  Bound on the
+H100: bytes (the feature rows and labels), but operations at G = 4 in
+f32.  What is left: the products run on the CUDA cores, and the G = 1
+passes read W from shared memory at about one 16-byte load per 4 FMAs.
 """
 
 from __future__ import annotations
@@ -46,18 +51,16 @@ from . import _build, route
 KERNELS = {(128, 1): 32, (16, 4): 20}
 FWD_LAUNCHES = 2
 BWD_LAUNCHES = {1: 2, 4: 2}          # by G
-# rows a block of the G = 1 backward (csrc R1); a CTA owns at least one
+# rows a block of the G = 1 backward (csrc R1) and of the G = 4 passes
+# (csrc R4); a CTA owns at least one
 BWD1_BLOCK = 128
+BLOCK4 = 128
 
 
 def bwd1_columns(n):
     """Columns of W (zero past n) the G = 1 backward computes for n
     classes (csrc bwd1): the encoder's 20, else 32."""
     return 20 if 16 < n <= 20 else 32
-
-
-# rows a CTA of the G = 4 backward (csrc CHUNK4)
-BWD4_ROWS = 1024
 
 
 def _groups(labels):
@@ -130,10 +133,13 @@ def head_loss_fwd(feats, w, b, labels, cw):
     if feats.device.type == "cpu":
         return head_loss_fwd_plain(feats, w, b, labels, cw)
     form, M, G, n, wc, bf, lab, cwf = _check(feats, w, b, labels, cw)
-    part = torch.empty(-(-M // 256), 2, dtype=torch.float32,
+    lib = _build.library("head_loss")
+    # per-CTA partials of [num, den]: one per 256 rows at G = 1, one per
+    # persistent CTA at G = 4
+    rows = 256 if G == 1 else _cta_rows(lib, G, M)
+    part = torch.empty(-(-M // rows), 2, dtype=torch.float32,
                        device=feats.device)
     out = torch.empty(2, dtype=torch.float32, device=feats.device)
-    lib = _build.library("head_loss")
     fn = _build.declare(lib, ("erf_head_loss_fwd" if G == 1
                               else "erf_head_loss4_fwd") + form, 7, 2)
     err = fn(_build.ptr(feats), _build.ptr(wc), _build.ptr(bf),
@@ -147,15 +153,17 @@ def head_loss_fwd(feats, w, b, labels, cw):
 head_loss_fwd.launches = _build.counter("", "_f32")
 
 
-def _bwd1_rows(lib, M):
-    """Rows a CTA of the G = 1 backward owns on the current device
-    (``erf_head_loss_rows``: one wave of the SMs, at least BWD1_BLOCK)."""
-    fn = lib.erf_head_loss_rows
+def _cta_rows(lib, G, M):
+    """Rows a persistent CTA owns on the current device: the G = 1
+    backward's (``erf_head_loss_rows``: one wave of the SMs, at least
+    BWD1_BLOCK) or both G = 4 passes' (``erf_head_loss4_rows``: one wave,
+    at least BLOCK4)."""
+    fn = lib.erf_head_loss_rows if G == 1 else lib.erf_head_loss4_rows
     fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
     rows = fn(M)
     if rows < 1:
-        raise RuntimeError("head_loss backward: the device's SM count could "
-                           "not be read")
+        raise RuntimeError("head_loss: the device's SM count could not be "
+                           "read")
     return rows
 
 
@@ -172,7 +180,7 @@ def head_loss_bwd(feats, w, b, labels, cw, gnum):
     dfeats = torch.empty_like(feats)
     lib = _build.library("head_loss")
     # per-CTA partials of [dW, db]
-    rows = _bwd1_rows(lib, M) if G == 1 else BWD4_ROWS
+    rows = _cta_rows(lib, G, M)
     part = torch.empty(-(-M // rows), K * gn + gn, dtype=torch.float32,
                        device=dev)
     grads = torch.empty(K * gn + gn, dtype=torch.float32, device=dev)

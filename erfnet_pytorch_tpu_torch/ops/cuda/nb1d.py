@@ -23,19 +23,27 @@ with cp.async, and multiplies with mma.sync.
 Forms: bf16 maps with bf16 weights (``erf_nb1d_block``; on the serving
 path the C=128 run), and f32 maps with f32 weights (``erf_nb1d_block_f32``,
 the JAX package's default compute dtype; on the f32 serving path all 17
-blocks, every (C, d) and map size).  The f32 form multiplies with f32
-FMAs on the CUDA cores (no TF32); its two scratch maps are f32, allocated
+blocks, every (C, d) and map size).  The f32 form's stages are halo-patch
+convs (``csrc/conv32.cuh``, shared with the f32 train pair) whose product
+at C=64 and C=128 is 3xTF32 in wgmma: each operand split into TF32 hi and
+lo halves and a_hi w_hi + a_hi w_lo + a_lo w_hi summed in f32, within
+phase 20's f32 limits of the plain version; the weights' halves come from
+``prepare_nb1d`` (``wtc``, ``tc_taps``), made once.  At C=16 the product
+is f32 FMAs on the CUDA cores.  Its two scratch maps are f32, allocated
 per call at the call's map size.  The wrapper counts each form's launches
 apart: ``nb1d.launches[""]`` and ``nb1d.launches["_f32"]``.
 
 Parameters of one block (``prepare_nb1d``): ``w`` (4, 3, C, C) — the four
 convs' tap stacks [tap, cin, cout], BN1/BN2 folded in f32 and then cast to
-the compute dtype — ``b`` (4, C) f32, and the dilation.  The TPU path has
-two bias rules that the caller applies: the C=128 stack rounds its biases
-to the compute dtype, the W-packed C=64/C=16 blocks keep them in f32.
+the compute dtype — ``b`` (4, C) f32, the dilation, and at f32 ``wtc``,
+the tap stacks' TF32 images for the kernel.  The TPU path has two bias
+rules that the caller applies: the C=128 stack rounds its biases to the
+compute dtype, the W-packed C=64/C=16 blocks keep them in f32.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -73,12 +81,48 @@ def fuse_nb1d_params(sd, prefix):
     return torch.stack(ws), torch.stack(bs)
 
 
+# the f32 form's output-channel splits by C (csrc Tc32::NSPLIT,
+# erf_nb1d_f32_splits): the CTAs of a split read its share of the tap
+# stack's TF32 images
+TC_SPLITS = {16: 1, 64: 1, 128: 2}
+
+
+def tf32(x):
+    """f32 x rounded to TF32 (10 mantissa bits, to nearest, ties away from
+    zero: the kernel's cvt.rna.tf32.f32), as f32 with the low 13 bits
+    clear."""
+    i = x.float().contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tc_taps(w, splits):
+    """The f32 form's copy of the tap stacks w (4, 3, C, C): each tap
+    split into TF32 hi = tf32(w) and lo = tf32(w - hi), laid out for the
+    kernel's wgmma (csrc tc_tiles) as (4, splits, 3, 2, C C / splits): per
+    conv, output-channel split (N = C / splits columns), tap and half, the
+    (C x N) image in 8 x 4 core matrices, k = 8 ks + 4 kc + j, n = 8 n8 +
+    r at [ks, kc, n8, r, j]."""
+    C = w.shape[-1]
+    N = C // splits
+    hi = tf32(w)
+    lo = tf32(w.float() - hi)
+
+    def image(t):    # [conv, tap, k, n] -> [conv, split, tap, ks kc n8 r j]
+        t = t.reshape(4, 3, C // 8, 2, 4, splits, N // 8, 8)
+        return t.permute(0, 5, 1, 2, 3, 6, 7, 4).reshape(4, splits, 3, C * N)
+    return torch.stack([image(hi), image(lo)], 3).contiguous()
+
+
 def prepare_nb1d(w, b, dilation, dtype, *, round_bias):
     """Kernel operands of one block: weights in ``dtype``; biases f32,
-    rounded through ``dtype`` first when ``round_bias`` (the C=128 stack)."""
+    rounded through ``dtype`` first when ``round_bias`` (the C=128 stack);
+    at f32 also ``wtc``, the tap stacks' TF32 images (``tc_taps``)."""
     b = b.to(dtype).float() if round_bias else b.float()  # no-op at f32
-    return {"w": w.to(dtype).contiguous(), "b": b.contiguous(),
-            "dilation": int(dilation)}
+    p = {"w": w.to(dtype).contiguous(), "b": b.contiguous(),
+         "dilation": int(dilation)}
+    if dtype == torch.float32 and w.shape[-1] in TC_SPLITS:
+        p["wtc"] = tc_taps(p["w"], TC_SPLITS[w.shape[-1]])
+    return p
 
 
 def stack_nb1d_params(ps):
@@ -162,14 +206,32 @@ def nb1d(x, p):
     _build.require(p["w"], "w", x.dtype, x.device, (4, 3, C, C))
     _build.require(p["b"], "b", torch.float32, x.device, (4, C))
     lib = _build.library("nb1d")
-    fn = _build.declare(lib, "erf_nb1d_block" + form, 6, 5)
     t1, t2, out = (torch.empty_like(x) for _ in range(3))
-    err = fn(_build.ptr(x), _build.ptr(p["w"]), _build.ptr(p["b"]),
-             _build.ptr(t1), _build.ptr(t2), _build.ptr(out), B, H, W, C,
-             p["dilation"], _build.stream_ptr(x))
+    if form:
+        if "wtc" not in p:
+            raise ValueError("nb1d f32: the operands lack wtc, the tap "
+                             "stacks' TF32 images (prepare_nb1d, tc_taps)")
+        splits = _f32_splits(lib, C)
+        _build.require(p["wtc"], "wtc", torch.float32, x.device,
+                       (4, splits, 3, 2, C * C // splits))
+        fn = _build.declare(lib, "erf_nb1d_block_f32", 7, 5)
+        ops = (x, p["w"], p["wtc"], p["b"], t1, t2, out)
+    else:
+        fn = _build.declare(lib, "erf_nb1d_block", 6, 5)
+        ops = (x, p["w"], p["b"], t1, t2, out)
+    err = fn(*map(_build.ptr, ops), B, H, W, C, p["dilation"],
+             _build.stream_ptr(x))
     _build.check(lib, err, f"nb1d{form} launch")
     _build.count(nb1d, form)
     return out
 
 
 nb1d.launches = _build.counter("", "_f32")
+
+
+def _f32_splits(lib, C):
+    """The output-channel splits of the f32 form's ``wtc`` layout at C
+    (``erf_nb1d_f32_splits``)."""
+    fn = lib.erf_nb1d_f32_splits
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(C)

@@ -162,8 +162,8 @@ def _launched(wrapper, dtype):
 ])
 def test_nb1d_kernel(dev, sd, prefix, c, shape, dil, dtype):
     """Both forms at ragged maps (tile tails, maps narrower than a tile,
-    dilations beyond the map); the f32 form's C=128 stages take K in
-    chunks, its C=16 tiles are 256 pixels."""
+    dilations beyond the map); the f32 form's C=128 stages split the
+    output channels over two CTAs, its C=16 tiles are 512 pixels."""
     w, b = nb1d.fuse_nb1d_params(sd, prefix)
     p = _on(nb1d.prepare_nb1d(w, b, dil, dtype, round_bias=(c == 128)), dev)
     x = _x(shape, c, dev, dtype=dtype)
@@ -172,6 +172,59 @@ def test_nb1d_kernel(dev, sd, prefix, c, shape, dil, dtype):
     torch.cuda.synchronize()
     assert _launched(nb1d.nb1d, dtype) - n0 == nb1d.LAUNCHES_PER_BLOCK
     _close(got, nb1d.nb1d_plain(x, p))
+
+
+# The f32 block's halo-patch tiles (nb1d.cu over conv32.cuh's tiling,
+# nb1d_pair.CONV_TILE_F32): C = 16 tiles of 256 x 2 along H and 1 x 512
+# along W, C = 64 128 x 1 and 128 of 256 positions with the halo, C = 128
+# 64 x 2 and 1 x 128; where a tile spanning 128 positions cannot hold its
+# halo, tiles of 128 - 2 d (the C = 128 W convs of the 1024x2048 maps).
+# Maps ragged against each, dilations at or past H and W (every dilated
+# tap off the map), and the 1024x2048 forward's shapes at B=2.
+NB1D_F32_TILES = [
+    ("decoder.layers.4", (1, 300, 20, 16), 1),
+    ("decoder.layers.4", (2, 257, 513, 16), 1),
+    ("encoder.layers.1", (2, 37, 300, 64), 1),
+    ("encoder.layers.1", (1, 129, 257, 64), 1),
+    ("encoder.layers.7", (1, 65, 129, 128), 2),
+    ("encoder.layers.9", (2, 8, 200, 128), 8),
+    ("encoder.layers.10", (1, 5, 140, 128), 16),
+    ("encoder.layers.10", (2, 16, 16, 128), 16),
+    ("encoder.layers.9", (1, 70, 20, 128), 100),
+    ("decoder.layers.4", (2, 512, 1024, 16), 1),
+    ("encoder.layers.1", (2, 256, 512, 64), 1),
+    ("encoder.layers.7", (2, 128, 256, 128), 2),
+    ("encoder.layers.10", (2, 128, 256, 128), 16),
+]
+
+
+@pytest.mark.parametrize("prefix,shape,dil", NB1D_F32_TILES)
+def test_nb1d_f32_ragged_tiles(dev, sd, prefix, shape, dil):
+    """The f32 block against its plain version, one launch, at maps ragged
+    against its tiles, at dilations at or past H and W and at the
+    streaming shapes (phase 20's f32 rule)."""
+    C = shape[-1]
+    w, b = nb1d.fuse_nb1d_params(sd, prefix)
+    p = _on(nb1d.prepare_nb1d(w, b, dil, F32, round_bias=(C == 128)), dev)
+    x = _x(shape, C + dil, dev, dtype=F32)
+    n0 = _launched(nb1d.nb1d, F32)
+    got = nb1d.nb1d(x, p)
+    torch.cuda.synchronize()
+    assert _launched(nb1d.nb1d, F32) - n0 == nb1d.LAUNCHES_PER_BLOCK
+    _close(got, nb1d.nb1d_plain(x, p))
+
+
+def test_nb1d_f32_repeats_bit_identically(dev, sd):
+    """The f32 block at C=128, B=4 (the serving run's (4, 64, 128, 128),
+    several tiles a CTA in each stage), called 30 times on one input:
+    every output bit-equal to the first (no patch is overwritten while it
+    is read, no stage reads a map before the barrier)."""
+    w, b = nb1d.fuse_nb1d_params(sd, "encoder.layers.8")
+    p = _on(nb1d.prepare_nb1d(w, b, 4, F32, round_bias=True), dev)
+    x = _x((4, 64, 128, 128), 21, dev, dtype=F32)
+    first = nb1d.nb1d(x, p)
+    for _ in range(29):
+        assert torch.equal(nb1d.nb1d(x, p), first)
 
 
 @pytest.mark.parametrize("dtype", [BF, F32])
@@ -539,11 +592,48 @@ def test_downsampler_train_kernels(dev, shape, cc, stem, dtype):
 @pytest.mark.parametrize("all_void", [False, True])
 @pytest.mark.parametrize("dtype", [BF, F32])
 def test_head_loss_kernels(dev, all_void, G, dtype, M):
-    """M ragged against the forward's 256 rows a CTA, the G = 4 backward's
-    1024 and the G = 1 backward's blocks of 128 (1300); smaller than one
-    G = 1 backward CTA's rows (100); and ragged against the rows a CTA of
-    the G = 1 backward owns on the card (50000: 379 on 132 SMs, the last
-    CTA 351)."""
+    """M ragged against the G = 1 forward's 256 rows a CTA and the blocks
+    of 128 rows of the G = 1 backward and the G = 4 passes (1300);
+    smaller than one CTA's rows (100); and ragged against the rows a
+    persistent CTA owns on the card (50000: 379 on 132 SMs, the last CTA
+    351)."""
+    _head_loss_case(dev, all_void, G, dtype, M)
+
+
+@pytest.mark.parametrize("all_void", [False, True])
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_head_loss_kernels_stage2_rows(dev, all_void, dtype):
+    """G = 4 at the stage-2 step's M = 786432 (B=6, 256 x 512 pre-head
+    pixels): 2979 rows a CTA, two CTAs on each of 132 SMs, 24 blocks,
+    the last of 35 rows."""
+    _head_loss_case(dev, all_void, 4, dtype, 786432)
+
+
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_head_loss4_repeats_bit_identically(dev, dtype):
+    """Both G = 4 passes at the stage-2 M = 786432 (24 blocks a CTA, so
+    each buffer is refilled many times while the CTA runs), called 30
+    times on one input: every result bit-equal to the first."""
+    from erfnet_pytorch_tpu_torch.training.class_weights import \
+        DECODER_WEIGHTS
+    M = 786432
+    feats = _rn(M, 16, seed=31).relu().to(dev, dtype)
+    w = _rn(16, 80, seed=32, scale=0.3).to(dev)
+    b = _rn(80, seed=33, scale=0.1).to(dev)
+    labels = torch.randint(0, 20, (M, 4),
+                           generator=torch.Generator().manual_seed(34))
+    labels, cw = labels.to(dev), torch.as_tensor(DECODER_WEIGHTS).to(dev)
+    gnum = torch.tensor([1e-6], device=dev)
+    fwd = head_loss.head_loss_fwd(feats, w, b, labels, cw)
+    bwd = head_loss.head_loss_bwd(feats, w, b, labels, cw, gnum)
+    for _ in range(29):
+        assert all(torch.equal(g, f) for g, f in zip(
+            head_loss.head_loss_fwd(feats, w, b, labels, cw), fwd))
+        assert all(torch.equal(g, f) for g, f in zip(
+            head_loss.head_loss_bwd(feats, w, b, labels, cw, gnum), bwd))
+
+
+def _head_loss_case(dev, all_void, G, dtype, M):
     from erfnet_pytorch_tpu_torch.training.class_weights import \
         ENCODER_WEIGHTS
     K = 128 if G == 1 else 16

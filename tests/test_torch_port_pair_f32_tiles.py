@@ -126,16 +126,18 @@ class _Patch:
         return self.buf[r[:, None], self.perm[r]].reshape(len(r), -1)
 
 
-def conv32_model(x, w, axis, d):
+def conv32_model(x, w, axis, d, tile=None):
     """acc = sum_t shift(x, (t - 1) d) @ w[t] along ``axis``, f32, as
-    conv32_tiles forms it: per tile of the f32 tiling, the swizzled patch
-    staged once, the taps read as views of it, each output a chain over
-    CHAIN_TAPS[C] taps at a time, the chains added in tap order."""
+    conv32_tiles forms it: per tile of the f32 tiling (``tile``, default
+    CONV_TILE_F32's), the swizzled patch staged once, the taps read as
+    views of it, each output a chain over CHAIN_TAPS[C] taps at a time, the
+    chains added in tap order."""
     B, H, W, C = x.shape
-    bm, cap, _ = P.CONV_TILE_F32[C]
+    tile = tile or P.CONV_TILE_F32[C]
+    bm, cap, _ = tile
     xa = _along(x.float(), axis)
     acc = torch.zeros(*xa.shape[:3], C)
-    tiles, geo = _tiles(B, H, W, axis, d, P.CONV_TILE_F32[C])
+    tiles, geo = _tiles(B, H, W, axis, d, tile)
     assert geo[0] * geo[1] <= bm
     tpg = CHAIN_TAPS[C]
     for _t, b, s0, a0, i, a in tiles:
