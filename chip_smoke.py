@@ -9,7 +9,10 @@ rows (the train downsampler backward, rows 5, 5 on g = gy and 8; the
 train upsampler forward, rows 12 and 10, and backward, rows 13 and 11),
 of the train downsampler forward (rows 7, 6 and 4) at their B=6 shapes,
 each in bf16 and in f32, of the eval downsampler and upsampler (rows 9
-and 14) at their B=4 shapes in bf16, of the train NB1d conv pair (rows
+and 14) at their B=4 shapes in bf16, of the bf16 eval NB1d blocks (row 1
+the halo-tile block at 512x1024, row 2 at 1024x2048, row 3 the C=128
+blocks, row 3p the W-packed runs, each a launch a block) and of every
+NB1d block at f32 at their B=4 shapes, of the train NB1d conv pair (rows
 21, 22 and 23 at C=64 and C=128, and at C=16, a forward and a backward
 of each distinct lead, shape and dilation of the B=6 steps, weighted by
 its calls per step) and of the head + class-weighted NLL (row 17 at G=1
@@ -21,7 +24,8 @@ and row 17 (cuDNN's forward conv, with its bias for row 9; its
 ``convolution_backward`` for rows 5, 5 on g = gy and 8, the weight
 gradient alone for row 8; the transposed conv with its bias for rows
 14, 12 and 10, its ``convolution_backward`` for rows 13 and 11; the
-pair's two convs, forward or
+four convs with their biases, ReLUs and residual of every block for the
+NB1d rows; the pair's two convs, forward or
 ``convolution_backward``; ``addmm`` + ``cross_entropy`` and their
 backward for row 17; TF32 off at f32); then prints the card line; no
 result line.  Phases 9 and 28 print the same split for the parity-plane
@@ -709,10 +713,11 @@ def bound_ms(kind, shape, p, esz=2, flops_per_s=BF16_FLOPS_PER_S):
     operations ms)."""
     B, H, W, C = shape
     ps = p if isinstance(p, list) else [p]
-    # wmat, q and wtc: other layouts of w and qt, which the kernels read
+    # wmat, q, wtc and wg: other layouts of w and qt, which the kernels read
     wbytes = sum(v.numel() * v.element_size() for q in ps
                  for k, v in q.items()
-                 if hasattr(v, "numel") and k not in ("wmat", "q", "wtc"))
+                 if hasattr(v, "numel")
+                 and k not in ("wmat", "q", "wtc", "wg"))
     if kind == "downsampler":
         cc = p["b"].shape[0]
         pix = B * (H // 2) * (W // 2)
@@ -3587,8 +3592,10 @@ def split_calls(device, dtype):
         lambda x=x, p=p: head_argmax.head_argmax(x, p)),
         _lib_head(x, sd, prefix), 1))
     # the serving NB1d blocks at B=4 512x1024: bf16 rows 1 (nb1d_halo, C=64
-    # and C=16) and 3 (nb1d, C=128); f32 rows 1-3 f32 (nb1d, every block)
-    # split by C
+    # and C=16), 3 (nb1d, C=128) and 3p (the W-packed runs, a halo-tile
+    # launch a block, their biases rounded as a stack's), and row 2
+    # (nb1d_halo at 1024x2048); f32 rows 1-3 f32 (nb1d, every block) split
+    # by C
     f32 = dtype == torch.float32
     for label, p, shape, n in prepared_ops(sd, device, SERVE_HW,
                                            dtype)["nb1d"]:
@@ -3599,12 +3606,19 @@ def split_calls(device, dtype):
         calls.append((f"1-3 C{C}" if f32 else 3, label, (
             lambda x=x, p=p: nb1d.nb1d(x, p)), _lib_nb1d(x, p), n))
     if not f32:
-        for prefix, shape, n in halo_cases(4, SERVE_HW):
-            p = halo_params(sd, prefix, device)
+        for row, hw in ((1, SERVE_HW), (2, STREAM_HW)):
+            for prefix, shape, n in halo_cases(4, hw):
+                p = halo_params(sd, prefix, device)
+                x = torch.rand(*shape, generator=g).to(device).to(dtype)
+                calls.append((row, f"nb1d_halo C{shape[-1]}", (
+                    lambda x=x, p=p: nb1d_halo.nb1d_halo(x, p)),
+                    _lib_nb1d(x, p), n))
+        for label, C, blocks, run in packed_runs(sd, device):
+            shape = {64: (4, 128, 256, 64), 16: (4, 256, 512, 16)}[C]
             x = torch.rand(*shape, generator=g).to(device).to(dtype)
-            calls.append((1, f"nb1d_halo C{shape[-1]}", (
-                lambda x=x, p=p: nb1d_halo.nb1d_halo(x, p)),
-                _lib_nb1d(x, p), n))
+            libs = [_lib_nb1d(x, q) for q in blocks]
+            calls.append(("3p", label, (lambda x=x, run=run: run(x)),
+                          lambda libs=libs: [f() for f in libs], 1))
     for mode, shape, d, n in pair_cases(TRAIN_B) + [
             c for c in dec_pair_cases(TRAIN_B) if c[1][-1] == 16]:
         C = shape[-1]
@@ -3638,6 +3652,25 @@ def split_calls(device, dtype):
             lambda feats=feats, w=w, b=b, labels=labels, cw=cw:
             hl.head_loss_bwd(feats, w, b, labels, cw, gnum)), lib[1], 1))
     return calls
+
+
+def packed_runs(sd, device):
+    """The bf16 W-packed runs of a 512x1024 forward with the JAX gate of
+    the packed stacks on (row 3p): (label, C, the operands of its blocks,
+    run(x) through the kernels), each run one call of
+    ``inference._nb1d_stack`` (a halo-tile launch a block, the biases
+    rounded as a stack's)."""
+    import torch
+    from erfnet_pytorch_tpu_torch import inference as inf
+    saved = inf._PACKED_STACKS
+    inf._PACKED_STACKS = True
+    try:
+        prep = inf.prepare(sd, torch.bfloat16, device)
+    finally:
+        inf._PACKED_STACKS = saved
+    return [(label, C, blocks, lambda x, run=run: run(x, inf.KERNEL_OPS))
+            for label, C, blocks, run in _run_entries(prep, torch.bfloat16)
+            if C != 128]
 
 
 def _lib_head(x, sd, prefix):

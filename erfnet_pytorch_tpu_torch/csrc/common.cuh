@@ -1,16 +1,9 @@
-// Shared pieces of the port's CUDA kernels (sm_90a).
-//
-// block_gemm: one CTA multiplies a bf16 tile A (BM x K, shared memory) by a
-// bf16 tile B (K x N, shared memory) on the tensor cores (mma.sync m16n8k16
-// with ldmatrix operand loads, f32 accumulation) and leaves the f32 product
-// in shared memory.  Each warp owns one block of a grid of row bands x
-// column bands.  The product may alias A: the function synchronises the
-// block before it stores.
-//
-// Every kernel of the port stages its operands this way: gather an implicit-
-// GEMM tile of the input into shared memory with cp.async (zero fill at the
-// map's edges), multiply, and run its epilogue from the f32 product.  Simple
-// and correct first; TMA, wgmma and pipelining are later work.
+// Shared pieces of the port's CUDA kernels (sm_90a): ldmatrix and the
+// mma.sync bf16 product, cp.async copies (zero fill at the map's edges),
+// bf16 packing, the f32 helpers of the f32 forms, and the launch helpers
+// (shared-memory opt-in, resident CTAs, error strings).  The halo-patch
+// convs' tiling is in conv32.cuh, their bf16 patch loader and the wgmma
+// pieces in conv16.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -50,63 +43,6 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Row pitches: A is LDA bf16, B is N + 8 bf16, C is N + 4 f32.  A pitch of
-// an odd multiple of 16 bytes puts the 8 rows of an ldmatrix on 8
-// different bank groups.  The warps form a grid of (rows / WM) x (N / WN):
-// warp w owns rows [WM (w / (N / WN)), + WM) and columns
-// [WN (w % (N / WN)), + WN).  KLEN: the K extent multiplied.
-template <int WM, int WN, int LDA, int N, int KLEN>
-__device__ __forceinline__ void block_gemm(const bf16* A, const bf16* B,
-                                           float* C) {
-  constexpr int LDB = N + 8, LDC = N + 4, MT = WM / 16, NT = WN / 8;
-  constexpr int WCOLS = N / WN;
-  static_assert(WM % 16 == 0 && WN % 16 == 0 && N % WN == 0 &&
-                    KLEN % 16 == 0 && KLEN <= LDA - 8,
-                "tile shape");
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / WCOLS, wn = warp % WCOLS;
-  // ldmatrix addresses: A rows (lane % 16) of each m16 tile, column half
-  // lane / 16; B (k-major) rows k + lane % 16, column half lane / 16
-  const bf16* a_row = A + (wm * WM + lane % 16) * LDA + (lane / 16) * 8;
-  const bf16* b_row = B + (lane % 16) * LDB + wn * WN + (lane / 16) * 8;
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-      acc[m][n][0] = acc[m][n][1] = acc[m][n][2] = acc[m][n][3] = 0.0f;
-#pragma unroll 4
-  for (int k = 0; k < KLEN; k += 16) {
-    unsigned a[MT][4];
-#pragma unroll
-    for (int m = 0; m < MT; ++m) ldsm_x4(a[m], a_row + m * 16 * LDA + k);
-#pragma unroll
-    for (int n = 0; n < WN / 16; ++n) {
-      unsigned b[4];
-      ldsm_x4_trans(b, b_row + k * LDB + n * 16);
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        mma_bf16_16816(acc[m][2 * n], a[m], b[0], b[1]);
-        mma_bf16_16816(acc[m][2 * n + 1], a[m], b[2], b[3]);
-      }
-    }
-  }
-  __syncthreads();  // every warp is done with A before C overwrites it
-  // thread (g, t) = (lane / 4, lane % 4) holds rows g and g + 8, columns
-  // 2t and 2t + 1 of each m16 x n8 tile
-  float* c_row = C + (wm * WM + lane / 4) * LDC + wn * WN + 2 * (lane % 4);
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      float* c = c_row + m * 16 * LDC + n * 8;
-      *reinterpret_cast<float2*>(c) = make_float2(acc[m][n][0], acc[m][n][1]);
-      *reinterpret_cast<float2*>(c + 8 * LDC) =
-          make_float2(acc[m][n][2], acc[m][n][3]);
-    }
-  __syncthreads();
 }
 
 // Asynchronous 16-byte copy global -> shared (cp.async, through L2 only),
@@ -430,112 +366,6 @@ inline cudaError_t reduce_parts(const float* part, float* out, int groups,
   reduce_parts_kernel<><<<dim3((len + 31) / 32, groups), 32 * wj, 0, s>>>(
       part, out, n, len);
   return cudaGetLastError();
-}
-
-// Weight-gradient product of one CTA: D (MB x NP, f32) += A^T G over BP
-// pixels, A (BP x MB) and G (BP x NP) bf16 in shared memory, pixel-major
-// (row = pixel).  The A fragments are loaded with ldmatrix.trans, so the
-// pixel axis is the product's depth.  The 8 warps form a grid of
-// (MB / WM) x (NP / WN) x WARPS_K; with WARPS_K > 1 a warp takes every
-// WARPS_K-th 16-pixel step and the warps' sums are added in a fixed order
-// at the end (wgrad_store).
-template <int MB, int NP, int WM, int WN>
-struct WgCfg {
-  static constexpr int THREADS = 256, BP = 64;
-  static constexpr int WARPS_MN = (MB / WM) * (NP / WN);
-  static constexpr int WARPS_K = 8 / WARPS_MN;
-  static constexpr int MT = WM / 16, NT = WN / 8;
-  static constexpr int LDA = MB + 8, LDG = NP + 8;
-  static_assert(MB % WM == 0 && NP % WN == 0 && WM % 16 == 0 &&
-                    WN % 16 == 0 && 8 % WARPS_MN == 0,
-                "wgrad warp grid");
-  static constexpr size_t a_bytes = ((size_t)BP * LDA * 2 + 127) / 128 * 128;
-  static constexpr size_t g_bytes = ((size_t)BP * LDG * 2 + 127) / 128 * 128;
-  static constexpr size_t red_bytes =
-      WARPS_K > 1 ? (size_t)WARPS_K * MB * NP * 4 : 0;
-  static constexpr size_t smem = a_bytes + g_bytes > red_bytes
-                                     ? a_bytes + g_bytes
-                                     : red_bytes;
-};
-
-template <int MB, int NP, int WM, int WN>
-__device__ __forceinline__ void wgrad_step(
-    const bf16* As, const bf16* Gs,
-    float (&acc)[WgCfg<MB, NP, WM, WN>::MT][WgCfg<MB, NP, WM, WN>::NT][4]) {
-  using Q = WgCfg<MB, NP, WM, WN>;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wk = warp / Q::WARPS_MN, wmn = warp % Q::WARPS_MN;
-  const int wm = wmn / (NP / WN), wn = wmn % (NP / WN);
-  const bf16* a_base = As + ((lane % 8) + (lane / 16) * 8) * Q::LDA + wm * WM +
-                       ((lane / 8) % 2) * 8;
-  const bf16* g_base = Gs + (lane % 16) * Q::LDG + wn * WN + (lane / 16) * 8;
-#pragma unroll
-  for (int ks = 0; ks < Q::BP / 16; ++ks) {
-    if (ks % Q::WARPS_K != wk) continue;
-    unsigned a[Q::MT][4];
-#pragma unroll
-    for (int m = 0; m < Q::MT; ++m)
-      ldsm_x4_trans(a[m], a_base + ks * 16 * Q::LDA + m * 16);
-#pragma unroll
-    for (int n = 0; n < WN / 16; ++n) {
-      unsigned b[4];
-      ldsm_x4_trans(b, g_base + ks * 16 * Q::LDG + n * 16);
-#pragma unroll
-      for (int m = 0; m < Q::MT; ++m) {
-        mma_bf16_16816(acc[m][2 * n], a[m], b[0], b[1]);
-        mma_bf16_16816(acc[m][2 * n + 1], a[m], b[2], b[3]);
-      }
-    }
-  }
-}
-
-// Store D's rows [0, mreal) x columns [0, nreal) to dst (row pitch nreal),
-// adding the WARPS_K partial sums in a fixed order through shared memory
-// (red, >= red_bytes, free for use).  Call with the whole block.
-template <int MB, int NP, int WM, int WN>
-__device__ __forceinline__ void wgrad_store(
-    float (&acc)[WgCfg<MB, NP, WM, WN>::MT][WgCfg<MB, NP, WM, WN>::NT][4],
-    float* red, float* dst, int mreal, int nreal) {
-  using Q = WgCfg<MB, NP, WM, WN>;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wk = warp / Q::WARPS_MN, wmn = warp % Q::WARPS_MN;
-  const int wm = wmn / (NP / WN), wn = wmn % (NP / WN);
-  const int g = lane / 4, t = lane % 4;
-  if constexpr (Q::WARPS_K == 1) {
-#pragma unroll
-    for (int m = 0; m < Q::MT; ++m)
-#pragma unroll
-      for (int n = 0; n < Q::NT; ++n)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = wm * WM + m * 16 + g + 8 * h;
-          const int col = wn * WN + n * 8 + 2 * t;
-          if (row >= mreal) continue;
-          if (col < nreal) dst[row * nreal + col] = acc[m][n][2 * h];
-          if (col + 1 < nreal) dst[row * nreal + col + 1] = acc[m][n][2 * h + 1];
-        }
-  } else {
-    __syncthreads();  // the staged tiles are dead: red may alias them
-#pragma unroll
-    for (int m = 0; m < Q::MT; ++m)
-#pragma unroll
-      for (int n = 0; n < Q::NT; ++n)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = wm * WM + m * 16 + g + 8 * h;
-          const int col = wn * WN + n * 8 + 2 * t;
-          float* r = red + ((size_t)wk * MB + row) * NP + col;
-          r[0] = acc[m][n][2 * h];
-          r[1] = acc[m][n][2 * h + 1];
-        }
-    __syncthreads();
-    for (int e = threadIdx.x; e < mreal * nreal; e += blockDim.x) {
-      const int row = e / nreal, col = e % nreal;
-      float s = 0.0f;
-      for (int k = 0; k < Q::WARPS_K; ++k) s += red[((size_t)k * MB + row) * NP + col];
-      dst[e] = s;
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------

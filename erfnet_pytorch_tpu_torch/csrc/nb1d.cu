@@ -1,8 +1,9 @@
-// non_bottleneck_1d inference: one launch per block.
+// non_bottleneck_1d inference: one block in one launch.
 //
-// Replaces erfnet_pytorch_tpu/ops/pallas/nb1d.py:_nb1d_kernel (via
-// nb1d_infer / nb1d_infer_packed) and :_nb1d_stack_kernel (via
-// nb1d_stack_infer).  A block with BN folded is
+// Replaces erfnet_pytorch_tpu/ops/pallas/nb1d.py:_nb1d_stack_kernel (:434,
+// reached by pl.pallas_call at :475 through nb1d_stack_infer, :456) and
+// :_nb1d_kernel (:140, via nb1d_infer / nb1d_infer_packed).  A block with
+// BN folded is
 //
 //   t1 = relu(conv3x1(x)      + b1)   -> bf16
 //   t2 = relu(conv1x3(t1)     + b2)   -> bf16
@@ -13,28 +14,39 @@
 // accumulation, zero fill outside the map (including taps at d >= H or W).
 // The rounding points are the TPU kernel's: each stage's output is rounded
 // to bf16 before the next conv, the last stage adds the residual in f32.
+// Layout: NHWC, C in {16, 64, 128}.
 //
-// Layout: NHWC, C in {16, 64, 128}, no W-packing (a TPU lane device).  A
-// stage is an implicit GEMM over tiles of consecutive pixels x all C
-// channels (K = 3C): the three tap rows of each pixel are gathered into
-// shared memory with cp.async, the (3C x C) tap stack sits beside them,
-// eight warps multiply with ldmatrix + mma.sync.
-//
-// The TPU kernel keeps the whole map in VMEM across the four stages; a
-// CTA's shared memory holds a few rows at most, and the dilated stages
-// reach 16 rows away.  So the four stages run in one cooperative launch:
-// a persistent grid (as many CTAs as can be resident) walks the tiles of a
-// stage, then waits at a grid-wide barrier before the next stage reads
-// what the previous one wrote.  Stage outputs go through two scratch maps
-// in device memory; at serving sizes a map (8 MB at B=4) stays in the 50 MB
-// L2.  Each CTA stages a stage's tap stack once, not once per tile.
+// bf16 form (erf_nb1d_block).  The serving path runs it for the dilated
+// C=128 run, 8 blocks at (B, 64, 128, 128) (twice H and W at 1024x2048),
+// one cooperative launch a block: 4 stages on a persistent grid, a
+// grid-wide barrier between two, the stage outputs through two scratch
+// maps in device memory (8 MB at B=4, in the 50 MB L2).  (The TPU runs the
+// whole run in one call; here the 8 blocks in one launch measured 1-2 %
+// faster at 512x1024 and within the spread at 1024x2048, PERF.md PR 20,
+// so a launch a block stays.)  Each stage is a halo-patch conv
+// (stage16): a tile's patch along the stage's axis, its L positions and d
+// on each side (zeros off the map), is copied once with cp.async.cg (the
+// stage inputs were written earlier in the launch) into chunk-major planes
+// (conv16.cuh stage_patch), so that each tap, a constant shift of the
+// patch's pixels, is a wgmma A operand as it stands (8 consecutive pixels
+// of a plane are one 128-byte core matrix): the product is bf16 wgmma
+// m64nCk16 with both operands in shared memory, A the shifted patch and B
+// the conv's tap stack, laid out once by the wrapper in core matrices
+// (ops/cuda/nb1d.py wg_taps).  Two warpgroups take the tile's two m64
+// blocks with all C output channels; the next tile's patch copies while
+// this one multiplies; the epilogue (bias, ReLU, the residual loaded
+// before the product, bf16) runs from the accumulator fragments, four n8
+// tiles gathered across each quad (quad_gather) so that a lane stores 16
+// bytes.  A stage's tap stack (96 KB at C = 128) is copied in after the
+// grid-wide barrier, beside the stage's first patch (copied ahead of the
+// barrier, during the stage before, it measured slower: PERF.md PR 20).
 //
 // Bound on this card: the C=128 and C=64 blocks are operation-bound (12 C^2
-// MACs per pixel against 4 C bytes moved), the C=16 blocks byte-bound.
-// This version gathers every input pixel three times (once per tap) and
-// reaches about a tenth of either bound; a band of rows staged once per
-// tile, wgmma with TMA-fed tiles, and the next stage's weights fetched
-// during the grid-wide barrier are the next steps.
+// MACs per pixel against 4 C bytes moved), the C=16 blocks byte-bound; the
+// C=128 run a B=4 512x1024 forward 0.104 ms at 989 TFLOP/s.  What is left
+// (scripts/cuda_nb1d_bf16_variants.py): each stage's frame (its barrier,
+// its first patch, the epilogue, a tap stack a stage) against two tiles a
+// CTA at 512x1024.
 //
 // The f32 form (the JAX package's default compute dtype; the eval CLIs
 // without --bf16) serves all 17 blocks of the net, every (C, d) and every
@@ -65,188 +77,297 @@
 
 #include <cooperative_groups.h>
 
-#include "conv32.cuh"
+#include "conv16.cuh"
 
 using namespace erfk;
 namespace cg = cooperative_groups;
 
 namespace {
 
-// BM pixels per tile; the 8 warps split the tile into WM-row x WN-column
-// blocks.  C = 16 takes bigger tiles: its products are small, so per-tile
-// costs would dominate.  NBUF A buffers: with two, the next tile's gather
-// is in flight while this one is multiplied; C = 64 keeps one, which lets
-// four CTAs share an SM instead of two (measured faster).
+// ---------------------------------------------------------------------------
+// bf16 form: each stage a halo-patch conv with a bf16 wgmma product, the
+// four stages of a block in one cooperative launch
+// ---------------------------------------------------------------------------
+
+// The stage's tile: BM = 128 tile pixels, warpgroup g the m64 block [64 g,
+// 64 g + 64), all C output channels (wgmma m64nCk16: C / 2 accumulators a
+// thread).  Two halo patches of up to CAP pixels (48 KB), chunk-major in
+// planes of P pixels (P odd: the 16-byte copies of one pixel's chunks fall
+// on distinct bank groups), the next tile's patch copying while this one
+// multiplies; the stage's (3C x C) tap stack in wgmma's core-matrix layout
+// (96 KB at C = 128), one copy a CTA, after the patches (a read past a
+// patch's last plane, by the rows past a ragged tile, stays in the
+// allocation: those rows are never stored).  197 KB at C = 128: one CTA
+// an SM.  The H conv's tiles take at least TA_MIN pixels across (C = 16:
+// 128-byte runs).
 template <int C>
-struct Cfg {
-  static constexpr int THREADS = 256, BM = C == 16 ? 256 : 64;
-  static constexpr int NBUF = C == 64 ? 1 : 2;
-  static constexpr int WCOLS = C == 16 ? 1 : 2;  // warps across the columns
-  static constexpr int WN = C / WCOLS, WM = BM * WCOLS / (THREADS / 32);
-  static constexpr int K = 3 * C, LDA = K + 8, LDB = C + 8, LDC = C + 4;
-  static constexpr size_t a_raw = (size_t)BM * LDA * 2 > (size_t)BM * LDC * 4
-                                      ? (size_t)BM * LDA * 2
-                                      : (size_t)BM * LDC * 4;
-  static constexpr size_t a_bytes = (a_raw + 127) / 128 * 128;
-  static constexpr size_t smem = NBUF * a_bytes + (size_t)K * LDB * 2;
+struct Eval16 {
+  static constexpr int THREADS = 256, WGS = THREADS / 128, BM = 64 * WGS;
+  static constexpr int NA = C / 2, VK = C / 8;
+  static constexpr int CAP = 24576 / C, P = CAP + 1;
+  static constexpr int TA_MIN = C == 16 ? 4 : 1;
+  static constexpr size_t patch_bytes = align128((size_t)VK * P * 16);
+  static constexpr size_t w_off = 2 * patch_bytes;
+  static constexpr size_t smem = w_off + (size_t)3 * C * C * 2 + BM * 16;
+  static_assert(CAP >= BM && C % 16 == 0 && smem <= 232448, "bf16 nb1d tile");
 };
 
-// Start copying the A tile of pixels [m0, m0 + BM): row r holds the three
-// taps of pixel m0 + r, zero where a tap leaves the map.
+// A stage's tiling: tiles of at most BM pixels whose patch, the tile's L
+// positions along and d on each side of them (off the map too, where the
+// copy leaves zeros), holds at most CAP pixels; of those the one with the
+// fewest tiles (then the smallest patch), else three bands of L positions
+// (a dilation too large for one patch).  Either way each tap is the patch
+// shifted by a constant: tap t of tile pixel q reads patch pixel q + t d TA
+// (bands: q + t L TA).
 template <int C>
-__device__ __forceinline__ void gather(unsigned char* buf, const bf16* src,
-                                       int m0, int M, int H, int W, int axis,
-                                       int dil) {
-  using G = Cfg<C>;
-  constexpr int VPT = C / 8;  // 16-byte vectors per (pixel, tap)
-  bf16* As = reinterpret_cast<bf16*>(buf);
-  const int step = axis == 0 ? W : 1;
-  const int lim = axis == 0 ? H : W;
-  for (int v = threadIdx.x; v < G::BM * 3 * VPT; v += blockDim.x) {
-    const int r = v / (3 * VPT), t = (v / VPT) % 3, j = v % VPT;
-    const int m = m0 + r;
-    const int off = (t - 1) * dil;
-    const int pos = axis == 0 ? (m / W) % H : m % W;
-    const bool valid = m < M && pos + off >= 0 && pos + off < lim;
-    const long long pix = valid ? m + off * step : 0;
-    cp_async16(As + r * G::LDA + t * C + j * 8, src + pix * C + j * 8, valid);
+Geo eval16_geo(int H, int W, int axis, int d) {
+  using E = Eval16<C>;
+  Geo g;
+  g.axis = axis;
+  g.n = axis ? W : H;
+  g.m = axis ? H : W;
+  g.d = d < g.n ? d : g.n;
+  g.band = 1;
+  const int ta_min = axis == 0 ? E::TA_MIN : 1;
+  long long best = 0;
+  int best_px = 0;
+  for (int ta = ta_min; ta <= E::BM; ta *= 2) {
+    const int L = g.n < E::BM / ta ? g.n : E::BM / ta;
+    const int px = (L + 2 * g.d) * ta;
+    if (px > E::CAP) continue;
+    const long long tiles =
+        (long long)((g.n + L - 1) / L) * ((g.m + ta - 1) / ta);
+    if (g.band || tiles < best || (tiles == best && px < best_px)) {
+      best = tiles;
+      best_px = px;
+      g.L = L;
+      g.TA = ta;
+      g.band = 0;
+    }
   }
-  cp_async_commit();
+  if (g.band) {
+    g.TA = ta_min;
+    g.L = E::CAP / (3 * ta_min) < E::BM / ta_min ? E::CAP / (3 * ta_min)
+                                                 : E::BM / ta_min;
+  }
+  for (g.lg = 0; (1 << g.lg) < g.TA;) ++g.lg;
+  g.segs = (g.n + g.L - 1) / g.L;
+  g.ablk = (g.m + g.TA - 1) / g.TA;
+  return g;
 }
 
-// One stage over the tiles of this CTA's share:
-//   out = relu(conv3tap(src; w, axis, dil) + bias [+ res]).
-// axis 0: taps along H (pixel step W); axis 1: along W (pixel step 1).
-// Each thread owns 8 fixed channels of every (THREADS / VPT)-th tile row:
-// its bias is loaded once per stage, its residual vectors before the
-// product so that their latency hides behind it.  src and res are read
-// through L2 (cp.async.cg, __ldcg), never through the read-only path:
-// within the launch an earlier stage wrote them.
-template <int C>
-__device__ void stage(unsigned char* smem, const bf16* src, const bf16* w,
-                      const float* bias, const bf16* res, bf16* out, int M,
-                      int H, int W, int axis, int dil) {
-  using G = Cfg<C>;
-  constexpr int VPT = C / 8, RSTEP = G::THREADS / VPT;
-  constexpr int PER = G::BM / RSTEP;  // output vectors per thread per tile
-  static_assert(G::THREADS % VPT == 0 && G::BM % RSTEP == 0, "tile shape");
-  bf16* Ws = reinterpret_cast<bf16*>(smem + G::NBUF * G::a_bytes);
-  const int tiles = (M + G::BM - 1) / G::BM;
-  const int j = threadIdx.x % VPT, r0 = threadIdx.x / VPT;
-  float bv[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) bv[i] = __ldg(bias + j * 8 + i);
+// Tile t with its patch: band 0 keeps the whole halo, from s0 - d
+// (conv32.cuh tile_at clamps it to the map).
+__device__ __forceinline__ Tile eval16_tile(const Geo& g, int t) {
+  Tile tl = tile_at(g, t);
+  if (!g.band) {
+    tl.lo = tl.s0 - g.d;
+    tl.ext = g.L + 2 * g.d;
+  }
+  return tl;
+}
 
-  load_matrix(Ws, G::LDB, w, G::K, C);
-  int tile = blockIdx.x;
-  gather<C>(smem, src, tile * G::BM, M, H, W, axis, dil);
-  for (int it = 0; tile < tiles; ++it, tile += gridDim.x) {
-    const int next = tile + (int)gridDim.x;
-    unsigned char* cur = smem + (it % G::NBUF) * G::a_bytes;
-    if constexpr (G::NBUF == 2) {
-      if (next < tiles)
-        gather<C>(smem + ((it + 1) % 2) * G::a_bytes, src, next * G::BM, M,
-                  H, W, axis, dil);
-      else
-        cp_async_commit();  // an empty group keeps the count uniform
-      cp_async_wait_group<1>();  // this tile's A (and the weights) landed
-    } else {
-      cp_async_wait_group<0>();
+// Start copying a conv's (3C x C) tap stack, laid out for wgmma
+// (ops/cuda/nb1d.py wg_taps), into shared memory.
+template <int C, int THREADS>
+__device__ __forceinline__ void load_taps(bf16* dst, const bf16* src) {
+  for (int v = threadIdx.x; v < 3 * C * C / 8; v += THREADS)
+    cp_async16(dst + v * 8, src + v * 8, true);
+}
+
+// One stage over this CTA's tiles (t = blockIdx.x, + gridDim.x, ...):
+//   out = bf16(relu(conv3tap(src; the taps, g's axis and dilation) + bias
+//                   [+ res]))
+// taps: this stage's tap stack, copied in beside the first patch.  src
+// was written earlier in the launch (but for the block's input): the
+// patches come through L2 (cp.async.cg), res by __ldcg, loaded before the
+// product, which hides its latency.  Every lane's rows store 16 bytes (C
+// >= 64: the accumulators of four n8 tiles gathered across the quad,
+// quad_gather) or 4 (C = 16).
+template <int C, bool RES>
+__device__ __forceinline__ void stage16(unsigned char* smem, const bf16* src,
+                                        const bf16* res, const float* bias,
+                                        bf16* out, const Geo g, int B,
+                                        const bf16* taps) {
+  using E = Eval16<C>;
+  constexpr int NA = E::NA, NG = C >= 64 ? C / 32 : C / 8;
+  const int tiles = B * g.segs * g.ablk;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gid = lane >> 2, tq = lane & 3;
+  const int q0 = (warp / 4) * 64;  // the warpgroup's m64 block
+  bf16* Ws = reinterpret_cast<bf16*>(smem + E::w_off);
+  auto patch_of = [&](int k) {
+    return reinterpret_cast<bf16*>(smem + (k & 1) * E::patch_bytes);
+  };
+  auto issue = [&](int k, int t) {
+    if (t < tiles)
+      stage_patch<C, E::THREADS, 8, E::P * 8>(patch_of(k), src, g,
+                                             eval16_tile(g, t));
+    cp_async_commit();
+  };
+  if ((int)blockIdx.x >= tiles) return;  // no tile in this stage
+  load_taps<C, E::THREADS>(Ws, taps);  // committed with the first patch
+  issue(0, blockIdx.x);
+  int k = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++k) {
+    cp_async_wait_all();
+    fence_async_smem();
+    __syncthreads();  // patch k and the taps are in; tile k - 1 is done
+    issue(k + 1, t + (int)gridDim.x);
+    const Tile tl = eval16_tile(g, t);
+    int q[2];
+    bool ok[2];
+    long long pix[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      int i, a;
+      q[h] = q0 + (warp % 4) * 16 + gid + 8 * h;
+      ok[h] = tile_pixel(g, tl, q[h], i, a);
+      pix[h] = ok[h] ? geo_pixel(g, tl.b, tl.s0 + i, tl.a0 + a) : 0;
     }
-    __syncthreads();
-
-    const int m0 = tile * G::BM;
-    uint4 rv[PER];
-    if (res != nullptr) {
+    // the residual at this lane's channels, before the product
+    uint4 rv[2][C >= 64 ? NG : 1];
+    unsigned rw[2][C >= 64 ? 1 : NG];
 #pragma unroll
-      for (int i = 0; i < PER; ++i) {
-        const int m = m0 + r0 + i * RSTEP;
-        rv[i] = m < M ? __ldcg(reinterpret_cast<const uint4*>(
-                            res + (long long)m * C + j * 8))
-                      : zero_vec();
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int x = 0; x < NG; ++x) {
+        if constexpr (C >= 64) {
+          rv[h][x] = RES && ok[h]
+                         ? __ldcg(reinterpret_cast<const uint4*>(
+                               res + pix[h] * C + (4 * x + tq) * 8))
+                         : zero_vec();
+        } else {
+          rw[h][x] = RES && ok[h]
+                         ? __ldcg(reinterpret_cast<const unsigned*>(
+                               res + pix[h] * C + 8 * x + 2 * tq))
+                         : 0u;
+        }
+      }
+    const bf16* pb = patch_of(k);
+    float acc[NA];
+#pragma unroll
+    for (int i = 0; i < NA; ++i) acc[i] = 0.0f;
+    wgmma_fence();
+#pragma unroll
+    for (int tp = 0; tp < 3; ++tp) {
+      const int sh = (g.band ? tp * g.L : tp * g.d) << g.lg;
+      const uint64_t da = wgmma_desc(pb + (q0 + sh) * 8, E::P * 16, 128);
+      const uint64_t db = wgmma_desc(Ws, C * 16, 128);
+#pragma unroll
+      for (int ks = 0; ks < C / 16; ++ks) {
+        const uint64_t koff_a = (uint64_t)(2 * ks * E::P);
+        const uint64_t koff_b = wg_tap_offset<C>(tp, ks) >> 4;
+        wgmma_bf16(acc, da + koff_a, db + koff_b, ks | tp);
       }
     }
-    float* Cs = reinterpret_cast<float*>(cur);
-    block_gemm<G::WM, G::WN, G::LDA, C, G::K>(
-        reinterpret_cast<const bf16*>(cur), Ws, Cs);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(acc);
 #pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int r = r0 + i * RSTEP, m = m0 + r;
-      if (m >= M) break;  // rows grow with i
-      const float4* c = reinterpret_cast<const float4*>(Cs + r * G::LDC + j * 8);
-      const float4 c0 = c[0], c1 = c[1];
-      float o[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+    for (int h = 0; h < 2; ++h) {
+      if constexpr (C >= 64) {
 #pragma unroll
-      for (int k = 0; k < 8; ++k) o[k] += bv[k];
-      if (res != nullptr) {
-        float rf[8];
-        unpack_bf16x8(rv[i], rf);
+        for (int x = 0; x < NG; ++x) {
+          float p4[4][2], o[8];
 #pragma unroll
-        for (int k = 0; k < 8; ++k) o[k] += rf[k];
+          for (int s = 0; s < 4; ++s) {
+            p4[s][0] = acc[4 * (4 * x + s) + 2 * h];
+            p4[s][1] = acc[4 * (4 * x + s) + 2 * h + 1];
+          }
+          quad_gather(p4, o, lane);
+          const int c0 = (4 * x + tq) * 8;
+          float r[8];
+          unpack_bf16x8(rv[h][x], r);
+#pragma unroll
+          for (int c = 0; c < 8; ++c)
+            o[c] = fmaxf(o[c] + __ldg(bias + c0 + c) + (RES ? r[c] : 0.0f),
+                         0.0f);
+          const uint4 v8 = pack_bf16x8(o);
+          if (ok[h])
+            *reinterpret_cast<uint4*>(out + pix[h] * C + c0) = v8;
+        }
+      } else {
+#pragma unroll
+        for (int x = 0; x < NG; ++x) {
+          const int c = 8 * x + 2 * tq;
+          const float2 r = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&rw[h][x]));
+          const float o0 = fmaxf(acc[4 * x + 2 * h] + __ldg(bias + c) +
+                                     (RES ? r.x : 0.0f), 0.0f);
+          const float o1 = fmaxf(acc[4 * x + 2 * h + 1] +
+                                     __ldg(bias + c + 1) + (RES ? r.y : 0.0f),
+                                 0.0f);
+          if (ok[h])
+            *reinterpret_cast<__nv_bfloat162*>(out + pix[h] * C + c) =
+                __floats2bfloat162_rn(o0, o1);
+        }
       }
-#pragma unroll
-      for (int k = 0; k < 8; ++k) o[k] = fmaxf(o[k], 0.0f);
-      *reinterpret_cast<uint4*>(out + (long long)m * C + j * 8) =
-          pack_bf16x8(o);
-    }
-    __syncthreads();  // this buffer's C read before a gather refills it
-    if constexpr (G::NBUF == 1) {
-      if (next < tiles)
-        gather<C>(smem, src, next * G::BM, M, H, W, axis, dil);
     }
   }
   cp_async_wait_all();
 }
 
+// A block's four stages:
+//   x -> t1 (H, d 1) -> t2 (W, d 1) -> t1 (H, d) -> out (W, d, + x)
+// with a grid-wide barrier between two.  wg: (4, 3, C C) taps (wg_taps),
+// bias (4, C) f32; geo: the stages' tilings (conv32.cuh Geo).
 template <int C>
-__global__ void __launch_bounds__(256)
-nb1d_block_kernel(const bf16* x, const bf16* __restrict__ w,
-                  const float* __restrict__ b, bf16* t1, bf16* t2, bf16* out,
-                  int M, int H, int W, int dil) {
+__global__ void __launch_bounds__(256, 1)
+nb1d_block_kernel(const bf16* x, const bf16* __restrict__ wg,
+                  const float* __restrict__ bias, bf16* t1, bf16* t2,
+                  bf16* out, int B, const Geo g0, const Geo g1, const Geo g2,
+                  const Geo g3) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int WS = 3 * C * C;
-  cg::grid_group grid = cg::this_grid();
-  stage<C>(smem, x, w, b, nullptr, t1, M, H, W, 0, 1);
-  grid.sync();
-  stage<C>(smem, t1, w + WS, b + C, nullptr, t2, M, H, W, 1, 1);
-  grid.sync();
-  stage<C>(smem, t2, w + 2 * WS, b + 2 * C, nullptr, t1, M, H, W, 0, dil);
-  grid.sync();
-  stage<C>(smem, t1, w + 3 * WS, b + 3 * C, x, out, M, H, W, 1, dil);
+  constexpr int WC = 3 * C * C;  // a conv's taps
+  stage16<C, false>(smem, x, nullptr, bias, t1, g0, B, wg);
+  cg::this_grid().sync();
+  stage16<C, false>(smem, t1, nullptr, bias + C, t2, g1, B, wg + WC);
+  cg::this_grid().sync();
+  stage16<C, false>(smem, t2, nullptr, bias + 2 * C, t1, g2, B, wg + 2 * WC);
+  cg::this_grid().sync();
+  stage16<C, true>(smem, t1, x, bias + 3 * C, out, g3, B, wg + 3 * WC);
 }
 
 template <int C>
-int launch(const void* x, const void* w, const void* bias, void* t1,
-           void* t2, void* out, int B, int H, int W, int dil,
-           cudaStream_t stream) {
-  using G = Cfg<C>;
+int launch_block(const void* x, const void* wg, const void* bias, void* t1,
+                 void* t2, void* out, int B, int H, int W, int dil,
+                 cudaStream_t stream) {
+  using E = Eval16<C>;
   static bool smem_ok = false;
   static int grid_max = 0;  // resident CTAs: a cooperative grid's limit
-  cudaError_t e = allow_smem(nb1d_block_kernel<C>, G::smem, &smem_ok);
+  cudaError_t e = allow_smem(nb1d_block_kernel<C>, E::smem, &smem_ok);
   if (e != cudaSuccess) return e;
   if (grid_max == 0 &&
-      (e = resident_ctas(nb1d_block_kernel<C>, G::THREADS, G::smem,
+      (e = resident_ctas(nb1d_block_kernel<C>, E::THREADS, E::smem,
                          &grid_max)) != cudaSuccess)
     return e;
+  if (dil < 1) return cudaErrorInvalidValue;
   if ((long long)B * H * W * C >= (1LL << 31)) return cudaErrorInvalidValue;
-  int M = B * H * W;
-  const int tiles = (M + G::BM - 1) / G::BM;
+  Geo g[4] = {eval16_geo<C>(H, W, 0, 1), eval16_geo<C>(H, W, 1, 1),
+              eval16_geo<C>(H, W, 0, dil), eval16_geo<C>(H, W, 1, dil)};
+  long long tiles = 0;
+  for (const Geo& q : g) {
+    const long long n = (long long)B * q.segs * q.ablk;
+    tiles = n > tiles ? n : tiles;
+  }
+  if (tiles >= (1LL << 31)) return cudaErrorInvalidValue;
   const dim3 grid((unsigned)(tiles < grid_max ? tiles : grid_max));
   const bf16* xp = static_cast<const bf16*>(x);
-  const bf16* wp = static_cast<const bf16*>(w);
+  const bf16* wp = static_cast<const bf16*>(wg);
   const float* bp = static_cast<const float*>(bias);
   bf16* t1p = static_cast<bf16*>(t1);
   bf16* t2p = static_cast<bf16*>(t2);
   bf16* op = static_cast<bf16*>(out);
-  void* args[] = {&xp, &wp, &bp, &t1p, &t2p, &op, &M, &H, &W, &dil};
+  void* args[] = {&xp, &wp, &bp, &t1p, &t2p, &op, &B,
+                  &g[0], &g[1], &g[2], &g[3]};
   // refuses (never hangs) a grid that cannot be resident all at once
   e = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(nb1d_block_kernel<C>), grid,
-      dim3(G::THREADS), args, G::smem, stream);
+      dim3(E::THREADS), args, E::smem, stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
-
 
 // ---------------------------------------------------------------------------
 // f32 form: the four stages as halo-patch convs (conv32.cuh) in one
@@ -345,47 +466,6 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[32],
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d), "l"(b));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Pins registers that an in-flight wgmma reads or writes: the compiler
-// neither moves nor reuses them across this point (placed after the wait
-// that ends the wgmma).
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int M>
-__device__ __forceinline__ void reg_fence(uint32_t (&r)[M][4]) {
-#pragma unroll
-  for (int m = 0; m < M; ++m)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[m][i])::"memory");
-}
-// shared memory written by this thread (cp.async) made visible to wgmma's
-// reads (the async proxy)
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// A wgmma descriptor of a K-major operand without swizzle: 8-row x 16-byte
-// core matrices of 128 contiguous bytes, lbo bytes between two adjacent
-// in K, sbo between two adjacent in N.
-__device__ __forceinline__ uint64_t wgmma_desc(const float* p, uint32_t lbo,
-                                               uint32_t sbo) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  return (uint64_t)((a >> 4) & 0x3FFF) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
-         (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
 }
 
 // The 3xTF32 conv's tile: Conv32's tiling and patches (the same Geo: BM
@@ -745,19 +825,43 @@ int launch_f32(const void* x, const void* w, const void* wt,
 
 }  // namespace
 
-// One block: out = nb1d(x).  x, out: (B, H, W, C) bf16; w: (4, 3, C, C)
-// bf16 [conv, tap, cin, cout]; bias: (4, C) f32; t1, t2: (B, H, W, C) bf16
-// scratch.  Returns the launch's error (cudaGetLastError()).
-extern "C" int erf_nb1d_block(const void* x, const void* w, const void* bias,
+// One block: out = nb1d(x).  x, out: (B, H, W, C) bf16; wg: (4, 3, C C)
+// bf16, the four tap stacks laid out for wgmma (ops/cuda/nb1d.py
+// wg_taps); bias: (4, C) f32; t1, t2: (B, H, W, C) bf16 scratch.  Returns
+// the launch's error (cudaGetLastError()).
+extern "C" int erf_nb1d_block(const void* x, const void* wg, const void* bias,
                               void* t1, void* t2, void* out, int B, int H,
                               int W, int C, int dil, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C) {
-    case 16: return launch<16>(x, w, bias, t1, t2, out, B, H, W, dil, s);
-    case 64: return launch<64>(x, w, bias, t1, t2, out, B, H, W, dil, s);
-    case 128: return launch<128>(x, w, bias, t1, t2, out, B, H, W, dil, s);
+    case 16:
+      return launch_block<16>(x, wg, bias, t1, t2, out, B, H, W, dil, s);
+    case 64:
+      return launch_block<64>(x, wg, bias, t1, t2, out, B, H, W, dil, s);
+    case 128:
+      return launch_block<128>(x, wg, bias, t1, t2, out, B, H, W, dil, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// One tiling of the bf16 form, as the kernel takes it: (L, TA, band, segs,
+// ablk) into geo[0..4] of a conv of dilation d along axis of an (H, W)
+// map with C channels (the CPU tests hold the decomposition with it).
+extern "C" int erf_nb1d_geometry(int H, int W, int C, int axis, int d,
+                                 int* geo) {
+  Geo g;
+  switch (C) {
+    case 16: g = eval16_geo<16>(H, W, axis, d); break;
+    case 64: g = eval16_geo<64>(H, W, axis, d); break;
+    case 128: g = eval16_geo<128>(H, W, axis, d); break;
+    default: return cudaErrorInvalidValue;
+  }
+  geo[0] = g.L;
+  geo[1] = g.TA;
+  geo[2] = g.band;
+  geo[3] = g.segs;
+  geo[4] = g.ablk;
+  return 0;
 }
 
 // The f32 form: x, out, t1, t2 (B, H, W, C) f32; w (4, 3, C, C) f32;

@@ -133,7 +133,7 @@
 // W dilations apart (dh for the H conv, its transpose and dwh; dw for the
 // W ones), on the unpacked map: a tap at or beyond the map's extent reads
 // the zero fill.
-#include "conv32.cuh"
+#include "conv16.cuh"
 
 using namespace erfk;
 
@@ -143,31 +143,8 @@ namespace {
 // bf16: the four convs over halo patches, and the weight gradient
 // ---------------------------------------------------------------------------
 
-// The tiling (Geo, make_geo, tile_at, Taps) is conv32.cuh's.
-
-// Start copying tile tl's patch of the (B, H, W, C) bf16 map src into dst
-// (pitch LDK bf16), zero where a position is off the map (nothing is read
-// there).  Patch pixel px = j TA + a: consecutive threads copy consecutive
-// 16 bytes of a map row on the path's tiles (TA pixels of a row for the H
-// conv, TA = 1 for the W conv).
-template <int C, int LDK, int THREADS>
-__device__ __forceinline__ void stage_patch(bf16* dst, const bf16* src,
-                                            const Geo& g, const Tile& tl) {
-  constexpr int VK = C / 8;
-  const int npx = tl.ext << g.lg;
-  for (int v = threadIdx.x; v < npx * VK; v += THREADS) {
-    const int e = v % VK, px = v / VK;
-    const int j = px >> g.lg, c = tl.a0 + (px & (g.TA - 1));
-    const int p = g.band ? tl.s0 + j % g.L + (j / g.L - 1) * g.d : tl.lo + j;
-    const bool valid = p >= 0 && p < g.n && c < g.m;
-    const long long off = valid ? geo_pixel(g, tl.b, p, c) * C + e * 8 : 0;
-    cp_async16(dst + px * LDK + e * 8, src + off, valid);
-  }
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+// The tiling (Geo, make_geo, tile_at, Taps) is conv32.cuh's; the patch
+// loader (stage_patch), ldmatrix and quad_gather are conv16.cuh's.
 
 // Two bf16 channels as loaded (packed) and of shared memory, as f32.
 __device__ __forceinline__ float2 bf2(unsigned u) {
@@ -184,24 +161,6 @@ __device__ __forceinline__ void st2(bf16* p, float a, float b) {
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
-}
-
-// ldmatrix x4 (and .trans) from a shared-memory byte address: each lane
-// gives the row address of its own matrix row, so a row of a tap's view is
-// any patch pixel.
-__device__ __forceinline__ void ldsm4(unsigned (&r)[4], uint32_t a) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm4t(unsigned (&r)[4], uint32_t a) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
 }
 
 // The conv's tile: BM pixels, a patch of at most CAP pixels (pitch LDK:
@@ -258,34 +217,6 @@ struct Epl {
            (E == 8 ? (4 * x + lane % 4) * 8 : x * 8 + 2 * (lane % 4));
   }
 };
-
-__device__ __forceinline__ float pick4(float a, float b, float c, float d,
-                                       int i) {
-  return i & 2 ? (i & 1 ? d : c) : (i & 1 ? b : a);
-}
-
-// p[s] = this lane's pair (columns 2 (lane % 4), + 1) of n8 tile s of four;
-// v = the 8 columns of tile lane % 4, the pair of lane l at v[2 l]: a 4 x 4
-// transpose of pairs across the quad (three xor shuffles; every lane of
-// the warp calls it).
-__device__ __forceinline__ void quad_gather(const float (&p)[4][2],
-                                            float (&v)[8], int lane) {
-  const int tq = lane % 4;
-  float r[4][2];  // r[k]: the pair of lane tq ^ k
-#pragma unroll
-  for (int c = 0; c < 2; ++c) {
-    r[0][c] = pick4(p[0][c], p[1][c], p[2][c], p[3][c], tq);
-#pragma unroll
-    for (int k = 1; k < 4; ++k)
-      r[k][c] = __shfl_xor_sync(
-          0xffffffffu, pick4(p[0][c], p[1][c], p[2][c], p[3][c], tq ^ k), k);
-  }
-#pragma unroll
-  for (int l = 0; l < 4; ++l)
-#pragma unroll
-    for (int c = 0; c < 2; ++c)
-      v[2 * l + c] = pick4(r[0][c], r[1][c], r[2][c], r[3][c], l ^ tq);
-}
 
 // E bf16 channels: from a map (read-only path), to floats, to a map
 // (rounded to nearest even), from shared memory.
@@ -402,7 +333,8 @@ __device__ __forceinline__ void conv_tiles(unsigned char* smem,
   auto issue = [&](int k) {
     const int t = blockIdx.x + k * (int)gridDim.x;
     if (t < tiles)
-      stage_patch<C, K::LDK, K::THREADS>(patch(k), src, g, tile_at(g, t));
+      stage_patch<C, K::THREADS, K::LDK, 8>(patch(k), src, g,
+                                            tile_at(g, t));
     cp_async_commit();
   };
 #pragma unroll
@@ -863,8 +795,8 @@ wgrad_kernel(const bf16* __restrict__ t0, const bf16* __restrict__ dz1,
     if (k0 + k < k1) {
       const Tile tl = tile_at(geo, k0 + k);
       unsigned char* st = stage(k);
-      stage_patch<C, Q::LDA, Q::THREADS>(reinterpret_cast<bf16*>(st), A, geo,
-                                         tl);
+      stage_patch<C, Q::THREADS, Q::LDA, 8>(reinterpret_cast<bf16*>(st), A,
+                                            geo, tl);
       bf16* Gs = reinterpret_cast<bf16*>(st + Q::patch_bytes);
       for (int v = threadIdx.x; v < Q::BP * Q::VG; v += Q::THREADS) {
         const int e = v % Q::VG, q = v / Q::VG;

@@ -1,44 +1,49 @@
 """non_bottleneck_1d inference block: CUDA kernel and plain version.
 
 Replaces the TPU kernels ``erfnet_pytorch_tpu/ops/pallas/nb1d.py:
-_nb1d_kernel`` (via ``nb1d_infer`` / ``nb1d_infer_packed``) and
-``_nb1d_stack_kernel`` (via ``nb1d_stack_infer``, and via
+_nb1d_stack_kernel`` (:434, via ``nb1d_stack_infer``; and via
 ``nb1d_stack_infer_packed`` on a W-packed C=64/C=16 run: K blocks in one
 call, here K calls of a block, its operands from ``stack_nb1d_params``; x
-is rounded to its dtype between blocks, as one block's output is).  Kernel
-source: ``csrc/nb1d.cu``.  The serving path runs it for the dilated C=128
-run; the C=64 and C=16 blocks, which it also takes, run the halo-tile
-block (``nb1d_halo.py``, the same function, faster at every frame size
-measured), so here they serve as its yardstick.
+is rounded to its dtype between blocks, as one block's output is) and
+``_nb1d_kernel`` (:140, via ``nb1d_infer`` / ``nb1d_infer_packed``).
+Kernel source: ``csrc/nb1d.cu``.  The serving path runs it for the
+dilated C=128 run, a launch a block; the C=64 and C=16 blocks, which it
+also takes, run the halo-tile block (``nb1d_halo.py``, the same
+function, faster at every frame size measured), so here they serve as
+its yardstick.
 
-Form shipped: one launch per block.  The four convs run as four stages of
-one cooperative kernel, a persistent grid with a grid-wide barrier between
-stages; the stage outputs pass through two scratch maps in device memory
+bf16 form (``erf_nb1d_block``): the four stages of a block in one
+cooperative launch, a persistent grid with a grid-wide barrier between
+stages, the stage outputs through two scratch maps in device memory
 (L2-resident at serving sizes), since a CTA's shared memory cannot hold
-the whole map as the TPU's VMEM does.  Bound on the H100: the C=128 and
-C=64 blocks are operation-bound, the C=16 blocks byte-bound; each CTA
-stages a stage's tap stack once, gathers every input pixel once per tap
-with cp.async, and multiplies with mma.sync.
+the whole map as the TPU's VMEM does.  Each stage is a halo-patch conv
+whose taps are constant shifts of the patch (``eval_geometry``), with a
+bf16 ``wgmma`` product reading the patch and the tap stack from shared
+memory; the stacks come laid out for it (``wg_taps``, made once by
+``prepare_nb1d``).  Bound on the H100: the C=128 and C=64 blocks are
+operation-bound, the C=16 blocks byte-bound.  ``eval_stage_tiled`` / ``nb1d_tiled`` compute a stage / a
+block as the kernel tiles it: the CPU tests hold the tiling with them.
 
-Forms: bf16 maps with bf16 weights (``erf_nb1d_block``; on the serving
-path the C=128 run), and f32 maps with f32 weights (``erf_nb1d_block_f32``,
-the JAX package's default compute dtype; on the f32 serving path all 17
-blocks, every (C, d) and map size).  The f32 form's stages are halo-patch
-convs (``csrc/conv32.cuh``, shared with the f32 train pair) whose product
-at C=64 and C=128 is 3xTF32 in wgmma: each operand split into TF32 hi and
-lo halves and a_hi w_hi + a_hi w_lo + a_lo w_hi summed in f32, within
-phase 20's f32 limits of the plain version; the weights' halves come from
-``prepare_nb1d`` (``wtc``, ``tc_taps``), made once.  At C=16 the product
-is f32 FMAs on the CUDA cores.  Its two scratch maps are f32, allocated
-per call at the call's map size.  The wrapper counts each form's launches
-apart: ``nb1d.launches[""]`` and ``nb1d.launches["_f32"]``.
+Forms: bf16 maps with bf16 weights, and f32 maps with f32 weights
+(``erf_nb1d_block_f32``, the JAX package's default compute dtype; on the
+f32 serving path all 17 blocks, a launch a block, every (C, d) and map
+size).  The f32 form's stages are halo-patch convs (``csrc/conv32.cuh``,
+shared with the f32 train pair) whose product at C=64 and C=128 is
+3xTF32 in wgmma: each operand split into TF32 hi and lo halves and a_hi
+w_hi + a_hi w_lo + a_lo w_hi summed in f32, within phase 20's f32 limits
+of the plain version; the weights' halves come from ``prepare_nb1d``
+(``wtc``, ``tc_taps``), made once.  At C=16 the product is f32 FMAs on
+the CUDA cores.  Its two scratch maps are f32, allocated per call at the
+call's map size.  The wrapper counts each form's launches apart:
+``nb1d.launches[""]`` and ``nb1d.launches["_f32"]``.
 
 Parameters of one block (``prepare_nb1d``): ``w`` (4, 3, C, C) — the four
 convs' tap stacks [tap, cin, cout], BN1/BN2 folded in f32 and then cast to
-the compute dtype — ``b`` (4, C) f32, the dilation, and at f32 ``wtc``,
-the tap stacks' TF32 images for the kernel.  The TPU path has two bias
-rules that the caller applies: the C=128 stack rounds its biases to the
-compute dtype, the W-packed C=64/C=16 blocks keep them in f32.
+the compute dtype — ``b`` (4, C) f32, the dilation, at bf16 ``wg``, the
+tap stacks in the kernels' wgmma layout, and at f32 ``wtc``, their TF32
+images for the kernel.  The TPU path has two bias rules that the caller
+applies: the C=128 stack rounds its biases to the compute dtype, the
+W-packed C=64/C=16 blocks keep them in f32.
 """
 
 from __future__ import annotations
@@ -113,13 +118,27 @@ def tc_taps(w, splits):
     return torch.stack([image(hi), image(lo)], 3).contiguous()
 
 
+def wg_taps(w):
+    """The bf16 form's copy of the tap stacks w (4, 3, C, C) [conv, tap,
+    cin, cout], laid out for the kernels' wgmma (csrc/conv16.cuh
+    wg_tap_offset) as (4, 3, C C): per conv and tap, the (C x C) image in
+    8 x 8 core matrices, k = 16 ks + 8 kc + j, n = 8 n8 + r at [ks, kc,
+    n8, r, j] (K-major: row n of a core matrix its 8 consecutive k)."""
+    C = w.shape[-1]
+    t = w.reshape(4, 3, C // 16, 2, 8, C // 8, 8)  # [.., ks, kc, j, n8, r]
+    return t.permute(0, 1, 2, 3, 5, 6, 4).reshape(4, 3, C * C).contiguous()
+
+
 def prepare_nb1d(w, b, dilation, dtype, *, round_bias):
     """Kernel operands of one block: weights in ``dtype``; biases f32,
     rounded through ``dtype`` first when ``round_bias`` (the C=128 stack);
-    at f32 also ``wtc``, the tap stacks' TF32 images (``tc_taps``)."""
+    at bf16 also ``wg``, the tap stacks laid out for wgmma (``wg_taps``);
+    at f32 ``wtc``, their TF32 images (``tc_taps``)."""
     b = b.to(dtype).float() if round_bias else b.float()  # no-op at f32
     p = {"w": w.to(dtype).contiguous(), "b": b.contiguous(),
          "dilation": int(dilation)}
+    if dtype == torch.bfloat16 and w.shape[-1] % 16 == 0:
+        p["wg"] = wg_taps(p["w"])
     if dtype == torch.float32 and w.shape[-1] in TC_SPLITS:
         p["wtc"] = tc_taps(p["w"], TC_SPLITS[w.shape[-1]])
     return p
@@ -189,6 +208,99 @@ def nb1d_plain(x, p):
 
 
 # ---------------------------------------------------------------------------
+# the bf16 form's tiling, as csrc/nb1d.cu eval16_geo computes it
+# ---------------------------------------------------------------------------
+
+# tile pixels (an m64 block a warpgroup), patch pixels and the H conv's
+# least run across, by C (csrc Eval16)
+EVAL_BM = 128
+
+
+def eval_cap(C):
+    return 24576 // C
+
+
+def eval_geometry(H, W, C, axis, d):
+    """(L, TA, band, segs, ablk, d) of a bf16 stage: conv of dilation d
+    along ``axis`` (0: H, 1: W) of an (H, W) map, C channels.  Tiles are L
+    positions along x TA across (TA a power of two); band 0: the patch is
+    the tile's positions and d on each side (zeros off the map), tap t of
+    tile pixel q at patch pixel q + t d TA; band 1 (d too large): three
+    bands of L positions at s0 + (t - 1) d, tap t at q + t L TA.  Of the
+    band-0 tilings whose patch fits, the fewest tiles, then the smallest
+    patch."""
+    n, m = (W, H) if axis else (H, W)
+    d = min(d, n)
+    ta_min = 4 if axis == 0 and C == 16 else 1
+    cap, bm = eval_cap(C), EVAL_BM
+    best = None
+    ta = ta_min
+    while ta <= bm:
+        L = min(n, bm // ta)
+        px = (L + 2 * d) * ta
+        if px <= cap:
+            key = (-(-n // L) * -(-m // ta), px)
+            if best is None or key < best[0]:
+                best = (key, L, ta)
+        ta *= 2
+    if best is None:
+        L, ta, band = min(cap // (3 * ta_min), bm // ta_min), ta_min, 1
+    else:
+        (_key, L, ta), band = best, 0
+    return L, ta, band, -(-n // L), -(-m // ta), d
+
+
+def eval_stage_tiled(x, w, b, *, axis, dilation, res=None):
+    """One stage (``conv_stage_plain``) computed as the bf16 kernel tiles
+    it (``eval_geometry``): each tile's patch gathered with its zeros, the
+    three taps as constant shifts of the patch, the sums of the taps in
+    the plain version's order; every map pixel from exactly one tile."""
+    B, H, W, C = x.shape
+    L, ta, band, segs, ablk, d = eval_geometry(H, W, C, axis, dilation)
+    xm = x if axis == 0 else x.transpose(1, 2)        # (B, n, m, C)
+    n, m = xm.shape[1], xm.shape[2]
+    out = torch.empty_like(xm)
+    hits = torch.zeros(B, n, m, dtype=torch.int32)
+    halo = 0 if band else d
+    ext = 3 * L if band else L + 2 * d
+    for s0 in range(0, segs * L, L):
+        for a0 in range(0, ablk * ta, ta):
+            pos = (torch.arange(ext) if not band else
+                   torch.cat([torch.arange(L) + (t - 1) * dilation
+                              for t in range(3)])) + s0 - halo
+            cols = torch.arange(a0, a0 + ta)
+            keep = ((pos >= 0) & (pos < n))[:, None] & (cols < m)[None, :]
+            patch = xm.float()[:, pos.clamp(0, n - 1)][:, :, cols.clamp(
+                max=m - 1)] * keep[None, :, :, None]
+            patch = patch.reshape(B, ext * ta, C)
+            acc = None
+            for t in range(3):
+                sh = (t * L if band else t * d) * ta
+                v = patch[:, sh:sh + L * ta] @ w[t].float()
+                acc = v if acc is None else acc + v
+            acc = acc + b.float()
+            rows, cs = min(L, n - s0), min(ta, m - a0)
+            acc = acc.reshape(B, L, ta, C)[:, :rows, :cs]
+            if res is not None:
+                rm = res if axis == 0 else res.transpose(1, 2)
+                acc = acc + rm[:, s0:s0 + rows, a0:a0 + cs].float()
+            out[:, s0:s0 + rows, a0:a0 + cs] = torch.relu(acc).to(x.dtype)
+            hits[:, s0:s0 + rows, a0:a0 + cs] += 1
+    assert bool((hits == 1).all()), "every map pixel from one tile"
+    return out if axis == 0 else out.transpose(1, 2).contiguous()
+
+
+def nb1d_tiled(x, p):
+    """One block through ``eval_stage_tiled``: the bf16 kernel's
+    decomposition, equal to ``nb1d_plain``."""
+    w, b, d = p["w"], p["b"], p["dilation"]
+    t1 = eval_stage_tiled(x, w[0], b[0], axis=0, dilation=1)
+    t2 = eval_stage_tiled(t1, w[1], b[1], axis=1, dilation=1)
+    t3 = eval_stage_tiled(t2, w[2], b[2], axis=0, dilation=d)
+    return eval_stage_tiled(t3, w[3], b[3], axis=1, dilation=d, res=x)
+
+
+# ---------------------------------------------------------------------------
 # wrapper
 # ---------------------------------------------------------------------------
 
@@ -217,8 +329,14 @@ def nb1d(x, p):
         fn = _build.declare(lib, "erf_nb1d_block_f32", 7, 5)
         ops = (x, p["w"], p["wtc"], p["b"], t1, t2, out)
     else:
+        if "wg" not in p:
+            raise ValueError("nb1d bf16: the operands lack wg, the tap "
+                             "stacks laid out for wgmma (prepare_nb1d, "
+                             "wg_taps)")
+        _build.require(p["wg"], "wg", torch.bfloat16, x.device,
+                       (4, 3, C * C))
         fn = _build.declare(lib, "erf_nb1d_block", 6, 5)
-        ops = (x, p["w"], p["b"], t1, t2, out)
+        ops = (x, p["wg"], p["b"], t1, t2, out)
     err = fn(*map(_build.ptr, ops), B, H, W, C, p["dilation"],
              _build.stream_ptr(x))
     _build.check(lib, err, f"nb1d{form} launch")

@@ -159,11 +159,18 @@ def _launched(wrapper, dtype):
     ("encoder.layers.8", 128, (1, 9, 70, 128), 4),
     ("encoder.layers.1", 64, (2, 33, 65, 64), 1),
     ("decoder.layers.4", 16, (1, 70, 300, 16), 1),
+    ("encoder.layers.7", 128, (1, 37, 70, 128), 2),
+    ("encoder.layers.9", 128, (1, 130, 5, 128), 64),
+    ("encoder.layers.9", 128, (1, 3, 200, 128), 160),
+    ("encoder.layers.8", 128, (2, 128, 256, 128), 4),
+    ("encoder.layers.1", 64, (1, 45, 91, 64), 1),
 ])
 def test_nb1d_kernel(dev, sd, prefix, c, shape, dil, dtype):
     """Both forms at ragged maps (tile tails, maps narrower than a tile,
-    dilations beyond the map); the f32 form's C=128 stages split the
-    output channels over two CTAs, its C=16 tiles are 512 pixels."""
+    dilations beyond the map: at 160 the bf16 form's W conv in bands)
+    and at the 1024x2048 forward's C=128 map; the f32 form's C=128
+    stages split the output channels over two CTAs, its C=16 tiles are
+    512 pixels."""
     w, b = nb1d.fuse_nb1d_params(sd, prefix)
     p = _on(nb1d.prepare_nb1d(w, b, dil, dtype, round_bias=(c == 128)), dev)
     x = _x(shape, c, dev, dtype=dtype)
@@ -225,6 +232,60 @@ def test_nb1d_f32_repeats_bit_identically(dev, sd):
     first = nb1d.nb1d(x, p)
     for _ in range(29):
         assert torch.equal(nb1d.nb1d(x, p), first)
+
+
+# The bf16 form's tilings (csrc/nb1d.cu eval16_geo, nb1d.eval_geometry):
+# the serving maps, both frame sizes, ragged maps, dilations at, past and
+# far past H and W (bands), C = 64 and 16 with their 128-byte runs.
+NB1D_GEOMETRY = [
+    (128, 64, 128), (128, 128, 256), (128, 37, 70), (128, 3, 200),
+    (128, 130, 5), (64, 128, 256), (64, 45, 91), (16, 256, 512),
+    (16, 70, 300), (16, 5, 1)]
+
+
+@pytest.mark.parametrize("C,H,W", NB1D_GEOMETRY)
+def test_nb1d_geometry(dev, C, H, W):
+    """The kernel's own tiling of each stage (erf_nb1d_geometry) is the
+    one the CPU tests decompose the block with (nb1d.eval_geometry)."""
+    import ctypes
+    lib = _build.library("nb1d")
+    fn = lib.erf_nb1d_geometry
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    for axis in (0, 1):
+        for d in (1, 2, 4, 16, 64, 160):
+            geo = (ctypes.c_int * 5)()
+            assert fn(H, W, C, axis, d, geo) == 0
+            assert tuple(geo) == nb1d.eval_geometry(H, W, C, axis, d)[:5]
+
+
+def test_nb1d_bf16_repeats_bit_identically(dev, sd):
+    """The bf16 block at C=128 on the 1024x2048 forward's (4, 128, 256,
+    128): 1024 tiles a stage, about 8 a CTA, behind grid-wide barriers;
+    called 30 times on one input, every output bit-equal to the first (no
+    patch overwritten while it is read, no stage reading a map before the
+    barrier, no tap stack replaced before the stage that reads it)."""
+    w, b = nb1d.fuse_nb1d_params(sd, "encoder.layers.7")
+    p = _on(nb1d.prepare_nb1d(w, b, 2, BF, round_bias=True), dev)
+    x = _x((4, 128, 256, 128), 23, dev)
+    first = nb1d.nb1d(x, p)
+    for _ in range(29):
+        assert torch.equal(nb1d.nb1d(x, p), first)
+
+
+@pytest.mark.parametrize("prefix,shape", [
+    ("encoder.layers.1", (4, 128, 256, 64)),
+    ("decoder.layers.4", (4, 256, 512, 16))])
+def test_nb1d_halo_repeats_bit_identically(dev, sd, prefix, shape):
+    """The halo-tile block at its 512x1024 serving maps (5-6 tiles a CTA
+    at C=64, about 4 at C=16, the next x window in flight during stages
+    2-4), 30 times on one input: every output bit-equal to the first."""
+    w, b = nb1d.fuse_nb1d_params(sd, prefix)
+    p = _on(nb1d.prepare_nb1d(w, b, 1, BF, round_bias=False), dev)
+    x = _x(shape, 24, dev)
+    first = nb1d_halo.nb1d_halo(x, p)
+    for _ in range(29):
+        assert torch.equal(nb1d_halo.nb1d_halo(x, p), first)
 
 
 @pytest.mark.parametrize("dtype", [BF, F32])
