@@ -11,8 +11,10 @@ of the train downsampler forward (rows 7, 6 and 4) at their B=6 shapes,
 each in bf16 and in f32, of the eval downsampler and upsampler (rows 9
 and 14) at their B=4 shapes in bf16, of the bf16 eval NB1d blocks (row 1
 the halo-tile block at 512x1024, row 2 at 1024x2048, row 3 the C=128
-blocks, row 3p the W-packed runs, each a launch a block) and of every
-NB1d block at f32 at their B=4 shapes, of the train NB1d conv pair (rows
+blocks, row 3p the W-packed runs, each a launch a block), of the int8
+NB1d block (row 24 the C=64 and C=16 blocks, row 25 the C=128 run at
+512x1024 and 1024x2048) and of every NB1d block at f32 at their B=4
+shapes, of the train NB1d conv pair (rows
 21, 22 and 23 at C=64 and C=128, and at C=16, a forward and a backward
 of each distinct lead, shape and dilation of the B=6 steps, weighted by
 its calls per step) and of the head + class-weighted NLL (row 17 at G=1
@@ -25,7 +27,8 @@ and row 17 (cuDNN's forward conv, with its bias for row 9; its
 gradient alone for row 8; the transposed conv with its bias for rows
 14, 12 and 10, its ``convolution_backward`` for rows 13 and 11; the
 four convs with their biases, ReLUs and residual of every block for the
-NB1d rows; the pair's two convs, forward or
+NB1d rows, ``torch._int_mm``'s four products of every block for the int8
+rows; the pair's two convs, forward or
 ``convolution_backward``; ``addmm`` + ``cross_entropy`` and their
 backward for row 17; TF32 off at f32); then prints the card line; no
 result line.  Phases 9 and 28 print the same split for the parity-plane
@@ -791,6 +794,29 @@ def _lib_nb1d(x, p):
             y = torch.relu(z + xc if i == 3 else z)
         return y
     return block
+
+
+def _lib_q8(shape, g, device):
+    """The int8 block's yardstick, never on the path: ``torch._int_mm`` on
+    each of its four convs' three-tap operand, an (M, 3C) int8 matrix (a
+    pixel's three taps side by side, M = B H W) by the (3C, C) codes: the
+    block's four int8 products without their epilogues, gathers and
+    residual.  None where the card's ``_int_mm`` refuses the shapes (the
+    reason is logged)."""
+    import torch
+    B, H, W, C = shape
+    a = torch.randint(0, 128, (B * H * W, 3 * C), generator=g,
+                      dtype=torch.int8).to(device)
+    w = torch.randint(-127, 128, (3 * C, C), generator=g,
+                      dtype=torch.int8).to(device)
+    try:
+        torch._int_mm(a, w)
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        log(f"  torch._int_mm refuses ({B * H * W}, {3 * C}) x ({3 * C}, "
+            f"{C}): {str(e).splitlines()[0]}")
+        return None
+    return lambda: [torch._int_mm(a, w) for _ in range(4)]
 
 
 def phase_timing(sd, device, iters):
@@ -3481,7 +3507,8 @@ def split_calls(device, dtype):
     12, 10) and its backward with and without (rows 13, 11); the eval
     downsampler and upsampler (rows 9, 14) and the decoder head + argmax
     (rows 15, 16 G4) and the NB1d blocks (bf16 rows 1 and 3; f32 "1-3
-    C128", "1-3 C64", "1-3 C16") at their B=4 serving shapes, weighted by
+    C128", "1-3 C64", "1-3 C16"; the int8 rows "24 C64", "24 C16", 25 and
+    "25 2k", ``q8_split_calls``) at their B=4 serving shapes, weighted by
     their calls per forward;
     the train NB1d conv pair (rows 21, 22, 23 at C=64 and C=128, "21 C16"
     .. "23 C16"), a forward and a backward call of each distinct (lead,
@@ -3502,7 +3529,8 @@ def split_calls(device, dtype):
     backward for row 17 (``_lib_head_loss``), the transposed conv with its
     bias and ``argmax`` for rows 15, 16 G4 (``_lib_head``), the block's
     four convs with their biases, ReLUs and residual for the NB1d rows
-    (``_lib_nb1d``)."""
+    (``_lib_nb1d``), ``torch._int_mm``'s four products a block for the
+    int8 rows (``_lib_q8``)."""
     import torch
     from erfnet_pytorch_tpu_torch.ops.cuda import downsampler, head_argmax
     from erfnet_pytorch_tpu_torch.ops.cuda import downsampler_train as dt
@@ -3619,6 +3647,11 @@ def split_calls(device, dtype):
             libs = [_lib_nb1d(x, q) for q in blocks]
             calls.append(("3p", label, (lambda x=x, run=run: run(x)),
                           lambda libs=libs: [f() for f in libs], 1))
+        # the int8 blocks of the bf16 int8 path at B=4 (row 24: the C=64
+        # and C=16 blocks at 512x1024; row 25: the C=128 run with its f32
+        # carry at 512x1024 and 1024x2048), scales calibrated on one
+        # seeded 512x1024 batch; yardstick torch._int_mm's four products
+        calls += q8_split_calls(sd, device, g)
     for mode, shape, d, n in pair_cases(TRAIN_B) + [
             c for c in dec_pair_cases(TRAIN_B) if c[1][-1] == 16]:
         C = shape[-1]
@@ -3651,6 +3684,33 @@ def split_calls(device, dtype):
         calls.append((row, label + " bwd", (
             lambda feats=feats, w=w, b=b, labels=labels, cw=cw:
             hl.head_loss_bwd(feats, w, b, labels, cw, gnum)), lib[1], 1))
+    return calls
+
+
+def q8_split_calls(sd, device, g):
+    """``split_calls``' entries of the int8 block ``nb1d_q8`` (rows 24, 25
+    and "25 2k"): each case of ``q8_cases(4)`` at its calls per forward,
+    the yardstick ``_lib_q8`` (None where ``torch._int_mm`` refuses)."""
+    import torch
+    from erfnet_pytorch_tpu_torch.ops.cuda import nb1d_q8 as q8
+    from erfnet_pytorch_tpu_torch.quantize import calibrate_q8_scales
+    u8 = torch.randint(0, 256, (1,) + SERVE_HW + (3,), generator=g,
+                       dtype=torch.uint8).to(device)
+    scales = calibrate_q8_scales(sd, [u8])
+    calls = []
+    for hw, tag in ((SERVE_HW, ""), (STREAM_HW, " 2k")):
+        for prefix, shape, d, din, dout, n in q8_cases(4, hw):
+            C = shape[-1]
+            if tag and C != 128:
+                continue   # bf16 at 1024x2048, as in the JAX package
+            p = q8_params(sd, scales, prefix, d, device)
+            x = _q8_input(shape, scales[_scale_key(prefix)], din, g, device)
+            calls.append((f"24 C{C}" if C != 128 else f"25{tag}",
+                          f"nb1d_q8 C{C} d{d} {str(din)[6:]}->"
+                          f"{str(dout)[6:]}", (
+                              lambda x=x, p=p, dout=dout:
+                              q8.nb1d_q8(x, p, dout)),
+                          _lib_q8(shape, g, device), n))
     return calls
 
 
@@ -3707,6 +3767,13 @@ def _lib_head_loss(feats, w, b, labels, cw):
     return fwd, lambda: torch.autograd.grad(loss, leaves, retain_graph=True)
 
 
+def yardstick_name(row):
+    """The library call a split row is timed beside: ``torch._int_mm``'s
+    products for the int8 rows 24 and 25, else cuDNN's (or another
+    PyTorch call's, ``split_calls``)."""
+    return "_int_mm" if str(row).split()[0] in ("24", "25") else "cuDNN"
+
+
 def phase_split(device, iters, dtypes=None, only=None):
     """Each call of ``split_calls`` through its wrapper, split by
     ``kernel_split`` (bf16, and the f32 forms of every train row, the pair
@@ -3734,7 +3801,8 @@ def phase_split(device, iters, dtypes=None, only=None):
                 if lib is not None:
                     s["cudnn"] = _device_ms(lib, iters)
                     r["cudnn"] += n * s["cudnn"]
-                    log(f"      cuDNN, device {s['cudnn']:.4f}")
+                    log(f"      {yardstick_name(row)}, device "
+                        f"{s['cudnn']:.4f}")
                 for k in ("events", "device", "host", "gap"):
                     r[k] += n * s[k]
                 for k, (ms, _seen) in s["launches"].items():
@@ -3743,7 +3811,8 @@ def phase_split(device, iters, dtypes=None, only=None):
     for row, r in out.items():
         log(f"  row {row}: events {r['events']:.4f} ms, device "
             f"{r['device']:.4f}, host enqueue {r['host']:.4f}"
-            + (f", cuDNN device {r['cudnn']:.4f}" if r["cudnn"] else ""))
+            + (f", {yardstick_name(row)} device {r['cudnn']:.4f}"
+               if r["cudnn"] else ""))
         for k, ms in sorted(r["kernels"].items(), key=lambda kv: -kv[1]):
             log(f"      {ms:.4f} ms  {k}")
     return out

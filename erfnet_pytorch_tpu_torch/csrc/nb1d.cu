@@ -112,59 +112,12 @@ struct Eval16 {
   static_assert(CAP >= BM && C % 16 == 0 && smem <= 232448, "bf16 nb1d tile");
 };
 
-// A stage's tiling: tiles of at most BM pixels whose patch, the tile's L
-// positions along and d on each side of them (off the map too, where the
-// copy leaves zeros), holds at most CAP pixels; of those the one with the
-// fewest tiles (then the smallest patch), else three bands of L positions
-// (a dilation too large for one patch).  Either way each tap is the patch
-// shifted by a constant: tap t of tile pixel q reads patch pixel q + t d TA
-// (bands: q + t L TA).
+// A stage's tiling (conv16.cuh patch_geo): tiles of at most BM pixels
+// whose patch holds at most CAP pixels, at least TA_MIN across along H.
 template <int C>
 Geo eval16_geo(int H, int W, int axis, int d) {
   using E = Eval16<C>;
-  Geo g;
-  g.axis = axis;
-  g.n = axis ? W : H;
-  g.m = axis ? H : W;
-  g.d = d < g.n ? d : g.n;
-  g.band = 1;
-  const int ta_min = axis == 0 ? E::TA_MIN : 1;
-  long long best = 0;
-  int best_px = 0;
-  for (int ta = ta_min; ta <= E::BM; ta *= 2) {
-    const int L = g.n < E::BM / ta ? g.n : E::BM / ta;
-    const int px = (L + 2 * g.d) * ta;
-    if (px > E::CAP) continue;
-    const long long tiles =
-        (long long)((g.n + L - 1) / L) * ((g.m + ta - 1) / ta);
-    if (g.band || tiles < best || (tiles == best && px < best_px)) {
-      best = tiles;
-      best_px = px;
-      g.L = L;
-      g.TA = ta;
-      g.band = 0;
-    }
-  }
-  if (g.band) {
-    g.TA = ta_min;
-    g.L = E::CAP / (3 * ta_min) < E::BM / ta_min ? E::CAP / (3 * ta_min)
-                                                 : E::BM / ta_min;
-  }
-  for (g.lg = 0; (1 << g.lg) < g.TA;) ++g.lg;
-  g.segs = (g.n + g.L - 1) / g.L;
-  g.ablk = (g.m + g.TA - 1) / g.TA;
-  return g;
-}
-
-// Tile t with its patch: band 0 keeps the whole halo, from s0 - d
-// (conv32.cuh tile_at clamps it to the map).
-__device__ __forceinline__ Tile eval16_tile(const Geo& g, int t) {
-  Tile tl = tile_at(g, t);
-  if (!g.band) {
-    tl.lo = tl.s0 - g.d;
-    tl.ext = g.L + 2 * g.d;
-  }
-  return tl;
+  return patch_geo(H, W, axis, d, E::BM, E::CAP, axis == 0 ? E::TA_MIN : 1);
 }
 
 // Start copying a conv's (3C x C) tap stack, laid out for wgmma
@@ -202,7 +155,7 @@ __device__ __forceinline__ void stage16(unsigned char* smem, const bf16* src,
   auto issue = [&](int k, int t) {
     if (t < tiles)
       stage_patch<C, E::THREADS, 8, E::P * 8>(patch_of(k), src, g,
-                                             eval16_tile(g, t));
+                                             patch_tile(g, t));
     cp_async_commit();
   };
   if ((int)blockIdx.x >= tiles) return;  // no tile in this stage
@@ -214,7 +167,7 @@ __device__ __forceinline__ void stage16(unsigned char* smem, const bf16* src,
     fence_async_smem();
     __syncthreads();  // patch k and the taps are in; tile k - 1 is done
     issue(k + 1, t + (int)gridDim.x);
-    const Tile tl = eval16_tile(g, t);
+    const Tile tl = patch_tile(g, t);
     int q[2];
     bool ok[2];
     long long pix[2];

@@ -228,7 +228,7 @@ def eval_geometry(H, W, C, axis, d):
     tile pixel q at patch pixel q + t d TA; band 1 (d too large): three
     bands of L positions at s0 + (t - 1) d, tap t at q + t L TA.  Of the
     band-0 tilings whose patch fits, the fewest tiles, then the smallest
-    patch."""
+    patch (csrc/conv16.cuh patch_geo)."""
     n, m = (W, H) if axis else (H, W)
     d = min(d, n)
     ta_min = 4 if axis == 0 and C == 16 else 1
@@ -250,16 +250,17 @@ def eval_geometry(H, W, C, axis, d):
     return L, ta, band, -(-n // L), -(-m // ta), d
 
 
-def eval_stage_tiled(x, w, b, *, axis, dilation, res=None):
-    """One stage (``conv_stage_plain``) computed as the bf16 kernel tiles
-    it (``eval_geometry``): each tile's patch gathered with its zeros, the
-    three taps as constant shifts of the patch, the sums of the taps in
-    the plain version's order; every map pixel from exactly one tile."""
+def tiled_tap_sums(x, w, *, axis, dilation, geometry, dtype):
+    """sum_t shift(x, (t-1) d) @ w[t] along ``axis``, products and sums in
+    ``dtype``, computed as the halo-patch kernels tile it (``geometry``:
+    ``eval_geometry``'s tuple): each tile's patch gathered with its zeros,
+    the three taps as constant shifts of the patch, the taps summed in the
+    plain versions' order; every map pixel from exactly one tile."""
     B, H, W, C = x.shape
-    L, ta, band, segs, ablk, d = eval_geometry(H, W, C, axis, dilation)
+    L, ta, band, segs, ablk, d = geometry
     xm = x if axis == 0 else x.transpose(1, 2)        # (B, n, m, C)
     n, m = xm.shape[1], xm.shape[2]
-    out = torch.empty_like(xm)
+    out = torch.empty(B, n, m, w.shape[-1], dtype=dtype)
     hits = torch.zeros(B, n, m, dtype=torch.int32)
     halo = 0 if band else d
     ext = 3 * L if band else L + 2 * d
@@ -270,24 +271,33 @@ def eval_stage_tiled(x, w, b, *, axis, dilation, res=None):
                               for t in range(3)])) + s0 - halo
             cols = torch.arange(a0, a0 + ta)
             keep = ((pos >= 0) & (pos < n))[:, None] & (cols < m)[None, :]
-            patch = xm.float()[:, pos.clamp(0, n - 1)][:, :, cols.clamp(
+            patch = xm.to(dtype)[:, pos.clamp(0, n - 1)][:, :, cols.clamp(
                 max=m - 1)] * keep[None, :, :, None]
             patch = patch.reshape(B, ext * ta, C)
             acc = None
             for t in range(3):
                 sh = (t * L if band else t * d) * ta
-                v = patch[:, sh:sh + L * ta] @ w[t].float()
+                v = patch[:, sh:sh + L * ta] @ w[t].to(dtype)
                 acc = v if acc is None else acc + v
-            acc = acc + b.float()
             rows, cs = min(L, n - s0), min(ta, m - a0)
-            acc = acc.reshape(B, L, ta, C)[:, :rows, :cs]
-            if res is not None:
-                rm = res if axis == 0 else res.transpose(1, 2)
-                acc = acc + rm[:, s0:s0 + rows, a0:a0 + cs].float()
-            out[:, s0:s0 + rows, a0:a0 + cs] = torch.relu(acc).to(x.dtype)
+            out[:, s0:s0 + rows, a0:a0 + cs] = acc.reshape(
+                B, L, ta, -1)[:, :rows, :cs]
             hits[:, s0:s0 + rows, a0:a0 + cs] += 1
     assert bool((hits == 1).all()), "every map pixel from one tile"
     return out if axis == 0 else out.transpose(1, 2).contiguous()
+
+
+def eval_stage_tiled(x, w, b, *, axis, dilation, res=None):
+    """One stage (``conv_stage_plain``) computed as the bf16 kernel tiles
+    it (``eval_geometry``, ``tiled_tap_sums`` in f32)."""
+    C = x.shape[-1]
+    acc = tiled_tap_sums(
+        x, w, axis=axis, dilation=dilation, dtype=torch.float32,
+        geometry=eval_geometry(x.shape[1], x.shape[2], C, axis, dilation))
+    acc = acc + b.float()
+    if res is not None:
+        acc = acc + res.float()
+    return torch.relu(acc).to(x.dtype)
 
 
 def nb1d_tiled(x, p):

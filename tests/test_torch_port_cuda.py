@@ -1034,6 +1034,15 @@ BF, F32 = torch.bfloat16, torch.float32
     ("encoder.layers.10", (2, 8, 16, 128), 16),
     ("encoder.layers.1", (1, 7, 9, 64), 1),
     ("decoder.layers.4", (3, 5, 33, 16), 1),
+    # ragged against the halo block's 16 x 32 tiles
+    # and the C=128 stages' (a patch band at d = 160 past H and W)
+    ("encoder.layers.2", (2, 37, 45, 64), 1),
+    ("decoder.layers.1", (1, 13, 97, 64), 1),
+    ("decoder.layers.5", (2, 49, 70, 16), 1),
+    ("encoder.layers.8", (1, 37, 70, 128), 4),
+    ("encoder.layers.9", (1, 64, 128, 128), 160),
+    # row 25 at 1024x2048
+    ("encoder.layers.13", (2, 128, 256, 128), 8),
 ])
 def test_nb1d_q8_kernel(dev, sd, prefix, shape, dil, din, dout):
     """The int8 block at ragged shapes, scales calibrated on the input
@@ -1054,6 +1063,45 @@ def test_nb1d_q8_kernel(dev, sd, prefix, shape, dil, din, dout):
     assert torch.equal(got, nb1d_q8.nb1d_q8_plain(x, p, dout))
 
 
+@pytest.mark.parametrize("H,W", [(64, 128), (128, 256), (37, 70), (3, 200),
+                                 (130, 5)])
+def test_nb1d_q8_geometry(dev, H, W):
+    """The C=128 int8 kernel's own tiling of each stage
+    (erf_nb1d_q8_geometry) is the one the CPU tests decompose the block
+    with (nb1d_q8.stage_geometry)."""
+    import ctypes
+    fn = _build.library("nb1d_q8").erf_nb1d_q8_geometry
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    for axis in (0, 1):
+        for d in (1, 2, 4, 16, 64, 160):
+            geo = (ctypes.c_int * 5)()
+            assert fn(H, W, axis, d, geo) == 0
+            assert tuple(geo) == nb1d_q8.stage_geometry(H, W, axis, d)[:5]
+
+
+@pytest.mark.parametrize("prefix,shape,dil,din,dout", [
+    ("encoder.layers.1", (4, 128, 256, 64), 1, BF, BF),
+    ("decoder.layers.4", (4, 256, 512, 16), 1, BF, BF),
+    ("encoder.layers.8", (4, 64, 128, 128), 4, F32, F32),
+    ("encoder.layers.14", (4, 128, 256, 128), 16, F32, BF),
+])
+def test_nb1d_q8_repeats_bit_identically(dev, sd, prefix, shape, dil, din,
+                                         dout):
+    """Each int8 kernel at its B=4 serving maps (the halo block at C=64
+    and C=16, several tiles a CTA, the next tile's window quantized after
+    the previous tile's stores; the C=128 stages behind grid-wide barriers
+    at 512x1024 and 1024x2048), 30 times on one input: every output
+    bit-equal to the first."""
+    w, b = nb1d.fuse_nb1d_params(sd, prefix)
+    acts = {"in": 4.0, "a1": 6.0, "a2": 6.0, "a3": 6.0}
+    p = _on(nb1d_q8.prepare_nb1d_q8(w, b, acts, dil), dev)
+    x = _x(shape, 25, dev).to(din)
+    first = nb1d_q8.nb1d_q8(x, p, dout)
+    for _ in range(29):
+        assert torch.equal(nb1d_q8.nb1d_q8(x, p, dout), first)
+
+
 def test_nb1d_q8_wrapper_refuses_what_the_kernel_does_not_take(dev, sd):
     w, b = nb1d.fuse_nb1d_params(sd, "encoder.layers.1")
     p = _on(nb1d_q8.prepare_nb1d_q8(w, b, {"in": 1, "a1": 1, "a2": 1,
@@ -1067,6 +1115,9 @@ def test_nb1d_q8_wrapper_refuses_what_the_kernel_does_not_take(dev, sd):
     with pytest.raises(ValueError):
         nb1d_q8.nb1d_q8(torch.zeros(1, 4, 8, 32, device=dev, dtype=BF), p,
                         BF)                                        # C=32
+    with pytest.raises(ValueError):                # the halo block: d = 1
+        nb1d_q8.nb1d_q8(torch.zeros(1, 4, 8, 64, device=dev, dtype=BF),
+                        dict(p, dilation=2), BF)
 
 
 def test_int8_serving_path_matches_plain_pipeline(dev, sd):

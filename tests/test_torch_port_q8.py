@@ -148,12 +148,13 @@ def test_prepare_matches_jax(nets, where, layer, acts):
             want = np.asarray(ref[f"{name}{k + 1}"])
             assert got.numpy().dtype == want.dtype, (name, k)
             assert np.array_equal(got.numpy(), want), (name, k)
-        # the kernel's transposed stack holds the same codes, zero padded
-        qt = p["qt"][k]
-        assert qt.shape == (C, tq.kernel_depth(C))
-        assert torch.equal(qt[:, :3 * C],
-                           p["q"][k].permute(2, 0, 1).reshape(C, 3 * C))
-        assert not qt[:, 3 * C:].any()
+        # the kernels' wgmma layout holds the same codes: k = 16 kc + j,
+        # n = 8 n8 + r at [kc, n8, r, j]
+        wg = p["wg"][k]
+        assert wg.shape == (3, C * C) and wg.dtype == torch.int8
+        assert torch.equal(wg.reshape(3, C // 16, C // 8, 8, 16)
+                           .permute(0, 1, 4, 2, 3).reshape(3, C, C),
+                           p["q"][k])
     assert p["inv_in"] == float(np.float32(1.0 / float(ref["s_in"])))
 
 
