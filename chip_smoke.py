@@ -9,26 +9,25 @@ rows (the train downsampler backward, rows 5, 5 on g = gy and 8; the
 train upsampler forward, rows 12 and 10, and backward, rows 13 and 11),
 of the train downsampler forward (rows 7, 6 and 4) at their B=6 shapes,
 each in bf16 and in f32, of the eval downsampler and upsampler (rows 9
-and 14) at their B=4 shapes in bf16, of the bf16 eval NB1d blocks (row 1
-the halo-tile block at 512x1024, row 2 at 1024x2048, row 3 the C=128
-blocks, row 3p the W-packed runs, each a launch a block), of the int8
-NB1d block (row 24 the C=64 and C=16 blocks, row 25 the C=128 run at
-512x1024 and 1024x2048) and of every NB1d block at f32 at their B=4
-shapes, of the train NB1d conv pair (rows
-21, 22 and 23 at C=64 and C=128, and at C=16, a forward and a backward
-of each distinct lead, shape and dilation of the B=6 steps, weighted by
-its calls per step) and of the head + class-weighted NLL (row 17 at G=1
-and G=4, forward and backward), each in bf16 and in f32, by launch:
-CUDA events, device time by kernel (torch.profiler) and the host's
-enqueue time, with the library's call for the same function by device
-time beside each forward and rows 5, 5 on g = gy, 8, 11, 13, the pair
-and row 17 (cuDNN's forward conv, with its bias for row 9; its
-``convolution_backward`` for rows 5, 5 on g = gy and 8, the weight
-gradient alone for row 8; the transposed conv with its bias for rows
-14, 12 and 10, its ``convolution_backward`` for rows 13 and 11; the
-four convs with their biases, ReLUs and residual of every block for the
-NB1d rows, ``torch._int_mm``'s four products of every block for the int8
-rows; the pair's two convs, forward or
+and 14) at their B=4 shapes in bf16 and in f32, of the bf16 eval NB1d
+blocks (row 1 the halo-tile block at 512x1024, row 2 at 1024x2048, row 3
+the C=128 blocks, row 3p the W-packed runs, each a launch a block), of
+the int8 NB1d block (row 24 the C=64 and C=16 blocks, row 25 the C=128
+run at 512x1024 and 1024x2048) and of every NB1d block at f32 at their
+B=4 shapes, of the train NB1d conv pair (rows 21, 22 and 23 at C=64 and
+C=128, and at C=16, a forward and a backward of each distinct lead,
+shape and dilation of the B=6 steps, weighted by its calls per step) and
+of the head + class-weighted NLL (row 17 at G=1 and G=4, forward and
+backward), each in bf16 and in f32, by launch: CUDA events, device time
+by kernel (torch.profiler) and the host's enqueue time, with the
+library's call for the same function by device time beside each forward
+and rows 5, 5 on g = gy, 8, 11, 13, the pair and row 17 (cuDNN's forward
+conv, with its bias for row 9; its ``convolution_backward`` for rows 5,
+5 on g = gy and 8, the weight gradient alone for row 8; the transposed
+conv with its bias for rows 14, 12 and 10, its ``convolution_backward``
+for rows 13 and 11; the four convs with their biases, ReLUs and residual
+of every block for the NB1d rows, ``torch._int_mm``'s four products of
+every block for the int8 rows; the pair's two convs, forward or
 ``convolution_backward``; ``addmm`` + ``cross_entropy`` and their
 backward for row 17; TF32 off at f32); then prints the card line; no
 result line.  Phases 9 and 28 print the same split for the parity-plane
@@ -1970,19 +1969,22 @@ def phase_f32_timing(sd, device, iters):
                            head_argmax.head_argmax_plain)}
     ops = prepared_ops(sd, device, SERVE_HW, f32)
     rows = kernel_rows(ops, fns, g, device, iters, f32)
-    # nb1d_f32's bound for the work it does: three TF32 products at the
-    # tensor-core peak where it runs 3xTF32 (C = 64, 128), f32 operations
-    # on the CUDA cores at C = 16 (beside its f32 bound, which stays the
-    # row's)
-    tc = 0.0
-    for _l, p, shape, n in ops["nb1d"]:
-        tc += n * (bound_ms("nb1d", shape, p, 4, TF32_FLOPS_PER_S / 3)[1]
-                   if shape[-1] != 16 else
-                   bound_ms("nb1d", shape, p, 4, F32_FLOPS_PER_S)[1])
-    rows["nb1d"]["bound_tf32x3_ms"] = tc
-    log(f"  nb1d_f32 bound of its own work (3xTF32 at C=64, 128 over "
-        f"{TF32_FLOPS_PER_S / 1e12:g} TFLOP/s, f32 FMAs at C=16): {tc:.4f} "
-        "ms")
+    # nb1d_f32's and upsampler_f32's bounds for the work they do: three
+    # TF32 products at the tensor-core peak where they run 3xTF32 (nb1d at
+    # C = 64, 128; the upsampler at both shapes), f32 operations on the
+    # CUDA cores at nb1d's C = 16, each case's bytes where they take
+    # longer (beside the f32 bound, which stays the row's)
+    for kind in ("nb1d", "upsampler"):
+        tc = 0.0
+        for _l, p, shape, n in ops[kind]:
+            rate = (F32_FLOPS_PER_S if kind == "nb1d" and shape[-1] == 16
+                    else TF32_FLOPS_PER_S / 3)
+            tc += n * max(bound_ms(kind, shape, p, 4, rate))
+        rows[kind]["bound_tf32x3_ms"] = tc
+        log(f"  {kind}_f32 bound of its own work (3xTF32 over "
+            f"{TF32_FLOPS_PER_S / 1e12:g} TFLOP/s"
+            + (", f32 FMAs at C=16" if kind == "nb1d" else "")
+            + f"): {tc:.4f} ms ({rows[kind]['ms'] / tc:.1f}x)")
     for kind, r in rows.items():
         log(f"  {kind}_f32 per B=4 forward: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} "
@@ -3057,6 +3059,14 @@ def _bound(flops, nbytes, flops_per_s=BF16_FLOPS_PER_S):
     return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / flops_per_s
 
 
+def log_tf32x3(fl, dms):
+    """The f32 upsampler forward's bound for the work it does, three TF32
+    products at the tensor-core peak or its (flops, bytes) ``fl``'s bytes,
+    beside its device ms ``dms`` (the row's bound stays f32's)."""
+    tb = max(_bound(*fl, TF32_FLOPS_PER_S / 3))
+    log(f"    3xTF32 bound {tb:.4f} ms (device {dms / tb:.1f}x)")
+
+
 def _lib_conv(x, w_oihw, stride, padding, dilation, weight_only=False,
               transposed=False):
     """cuDNN's forward conv (or transposed conv, k3 s2 p1 op1 for the
@@ -3258,9 +3268,12 @@ def phase_train_timing(sd, device, iters, dtype=None):
                 pms = tm(lambda: ut.ups_fwd_plain(x, w, b), 2)
                 row, launches = 12, ut.FWD_LAUNCHES
             lms = tm(lib[int(bwd)], iters)
-            bms = add("upsampler_train", row, (0, 1), launches, ms, pms,
-                      _flops_bytes_ups(shape, cout, bwd, esz), lms, dms)
+            fl = _flops_bytes_ups(shape, cout, bwd, esz)
+            bms = add("upsampler_train", row, (0, 1), launches, ms, pms, fl,
+                      lms, dms)
             line(f"{label:<10}", "bwd" if bwd else "fwd", ms, pms, bms, lms)
+            if f32 and not bwd:
+                log_tf32x3(fl, dms)
     gnum = torch.ones((), device=device)
     for G in (1, 4):
         M = head_loss_rows(TRAIN_B) if G == 1 else head4_rows(TRAIN_B)
@@ -3776,9 +3789,9 @@ def yardstick_name(row):
 
 def phase_split(device, iters, dtypes=None, only=None):
     """Each call of ``split_calls`` through its wrapper, split by
-    ``kernel_split`` (bf16, and the f32 forms of every train row, the pair
-    and head+loss rows included, with TF32 off: the serving rows 9 and 14
-    in bf16 only; ``only``: the rows to time, by label, else all), and its
+    ``kernel_split`` (bf16, and the f32 forms of every row, the pair and
+    head+loss rows and the serving rows 9 and 14 included, with TF32 off;
+    ``only``: the rows to time, by label, else all), and its
     yardstick's device time (``cudnn``); summed by
     row, each call times its calls per step, with the row's device time
     by kernel (``kernels``)."""
@@ -3791,7 +3804,7 @@ def phase_split(device, iters, dtypes=None, only=None):
             "call; cuDNN's call for the same function by device time")
         with no_tf32() if form else contextlib.nullcontext():
             for row, label, fn, lib, n in split_calls(device, dtype):
-                if form and row in (9, 14) or only and str(row) not in only:
+                if only and str(row) not in only:
                     continue
                 s = kernel_split(fn, iters)
                 log_split(f"row {row}{form} {label}", s)
@@ -4762,6 +4775,8 @@ def phase_nostats_timing(device, iters, dtype):
             lms = tm(lfn, iters)
             figures = add(kernel, row, ms, pms, fl, lms, dms)
             log(f"  {label} {what} (row {row}): {figures}")
+            if f32 and row == 10:
+                log_tf32x3(fl, dms)
     for d in (by_kernel, by_row):
         for r in d.values():
             r["bound_by"] = ("operations" if r["op_ms"] > r["byte_ms"]
@@ -5216,7 +5231,9 @@ def main():
             "replaces": repl, "launches": launched[f"{name}_f32"],
             "max_abs_err": f32_errs[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **({"bound_tf32x3_ms": r["bound_tf32x3_ms"]}
+               if "bound_tf32x3_ms" in r else {})})
     # the train kernels' f32 forms: sums over one f32 step of each stage
     # (phase 25), launches of phase 24's 5 steps of each stage, errors of
     # phases 23 and 24

@@ -5,7 +5,8 @@
 // (downsampler_train.cu); and, at the end of this file, the staging of
 // the forward direction, a stride-2 3x3 conv over the parity planes of a
 // halo patch (the train downsampler's forward, and the train upsampler's
-// input gradient, a stride-2 conv of its g).
+// input gradient, a stride-2 conv of its g).  The f32 forms of the
+// upsampler's forward run the same product in ups_fwd32.cuh.
 //
 // For input pixel p = (i, j) of an (H, W) map a with K channels it forms
 //

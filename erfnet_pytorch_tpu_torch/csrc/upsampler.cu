@@ -26,13 +26,16 @@
 // an SM at 128 -> 64, mma.sync and not wgmma.
 //
 // The f32 form (the JAX package's default compute dtype): f32 maps, the
-// f32 fold of the weights, f32 bias, no rounding but f32's own.  Each CTA
-// multiplies its plane's taps one at a time (K chunks of Cin: a plane's
-// four f32 taps at Cin 128 would not fit in shared memory beside the
-// tile), an FFMA micro-tile on the CUDA cores (each thread TM input pixels
-// x TN output channels; no TF32).  Bound on this card at f32: operations
-// at both widths (9 Cin Cout MACs per input pixel against 67 TFLOP/s).
+// f32 fold of the weights, f32 bias, no rounding but f32's own.  The
+// train upsampler's f32 forward (ups_fwd32.cuh) with the epilogue
+// relu(sum + bias): tiles of 4 x 32 input pixels, each tile's f32 halo
+// patch staged once for the four planes, the nine taps as units of a view
+// and its planes, 3xTF32 in wgmma, the split taps resident at 64 -> 16 and
+// streamed and split in the kernel at 128 -> 64 (the output channels over
+// two CTAs).  Bound on this card at f32: operations (9 Cin Cout MACs per
+// input pixel against 67 TFLOP/s).
 #include "parity_plane.cuh"
+#include "ups_fwd32.cuh"
 
 using namespace erfk;
 
@@ -109,99 +112,56 @@ int launch(const void* x, const void* w, const void* bias, void* out, int B,
 
 
 // ---------------------------------------------------------------------------
-// f32 form
+// f32 form: ups_fwd32.cuh's parity-plane product over halo patches with
+// the epilogue relu(sum + bias)
 // ---------------------------------------------------------------------------
 
-// Thread t owns input pixels rg, rg + RS, ... (rg = t / TC) of the tile and
-// the output channels 4 cg + g CS + q, q < 4, of its TN / 4 groups g (cg =
-// t % TC, CS = 4 TC; see ffma_tile).
-template <int CIN, int COUT>
-struct Cfg32 {
-  static constexpr int BM = 64, THREADS = 128, TN = COUT == 16 ? 4 : 8;
-  static constexpr int TC = COUT / TN, RS = THREADS / TC, TM = BM / RS;
-  static constexpr int CS = 4 * TC;
-  static constexpr int LDA = pitch4(CIN), LDB = COUT;
-  static_assert(COUT % TN == 0 && THREADS % TC == 0 && BM % RS == 0,
-                "f32 upsampler tile");
-  static constexpr size_t a_bytes = ((size_t)BM * LDA * 4 + 127) / 128 * 128;
-  static constexpr size_t smem = a_bytes + (size_t)CIN * LDB * 4;
+struct EvalOut32 {
+  static constexpr bool STATS = false;
+  const float* bias;
+  float* y;
+  float* part;   // unused
+  __device__ float4 operator()(long long o, int ch, float4 v) const {
+    const float4 b = make_float4(__ldg(bias + ch), __ldg(bias + ch + 1),
+                                 __ldg(bias + ch + 2), __ldg(bias + ch + 3));
+    const float4 r =
+        make_float4(fmaxf(v.x + b.x, 0.0f), fmaxf(v.y + b.y, 0.0f),
+                    fmaxf(v.z + b.z, 0.0f), fmaxf(v.w + b.w, 0.0f));
+    *reinterpret_cast<float4*>(y + o) = r;
+    return r;
+  }
 };
 
 template <int CIN, int COUT>
-__global__ void __launch_bounds__(128)
-ups_eval_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                    const float* __restrict__ bias, float* __restrict__ out,
-                    int M, int H, int W) {
-  using G = Cfg32<CIN, COUT>;
+__global__ void __launch_bounds__(256, 1)
+ups_eval32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                  const float* __restrict__ bias, float* __restrict__ out,
+                  int B, int H, int W) {
   extern __shared__ __align__(128) unsigned char smem[];
-  float* As = reinterpret_cast<float*>(smem);
-  float* Ws = reinterpret_cast<float*>(smem + G::a_bytes);
-  const int m0 = blockIdx.x * G::BM;
-  const int pa = blockIdx.y >> 1, pb = blockIdx.y & 1;
-  const int nw = pb ? 2 : 1, ntaps = (pa ? 2 : 1) * nw;
-  const int cg = threadIdx.x % G::TC, rg = threadIdx.x / G::TC;
-  float acc[G::TM][G::TN];
-  zero_tile(acc);
-
-  constexpr int VPT = CIN / 4;
-  for (int q = 0; q < ntaps; ++q) {
-    // tap q = ih * nw + iw reads input (i + ih, j + iw) through weight tap
-    // (th, tw) = (ih ? 2 : (pa ? 0 : 1), iw ? 2 : (pb ? 0 : 1))
-    const int ih = q / nw, iw = q % nw;
-    const int th = ih ? 2 : (pa ? 0 : 1), tw = iw ? 2 : (pb ? 0 : 1);
-    load_matrix(Ws, G::LDB, w + (size_t)(th * 3 + tw) * CIN * COUT, CIN,
-                COUT);
-    for (int v = threadIdx.x; v < G::BM * VPT; v += blockDim.x) {
-      const int r = v / VPT, j = v % VPT;
-      const int m = m0 + r;
-      const int i = (m / W) % H, jj = m % W;
-      const bool valid = m < M && i + ih < H && jj + iw < W;
-      const long long pix = valid ? (long long)m + ih * W + iw : 0;
-      cp_async16(As + r * G::LDA + j * 4, x + pix * CIN + j * 4, valid);
-    }
-    cp_async_wait_all();
-    __syncthreads();
-    ffma_tile<G::TM, G::TN, CIN, G::CS>(acc, As + rg * G::LDA,
-                                        G::RS * G::LDA, Ws + 4 * cg, G::LDB);
-    __syncthreads();  // every thread is done with this tap
-  }
-
-#pragma unroll
-  for (int i = 0; i < G::TM; ++i) {
-    const int m = m0 + rg + i * G::RS;
-    if (m >= M) break;  // rows grow with i
-    const long long b = m / (H * W);
-    const int ii = (m / W) % H, jj = m % W;
-    float* dst = out + ((b * 2 * H + 2 * ii + pa) * 2 * W + 2 * jj + pb) *
-                           COUT;
-#pragma unroll
-    for (int j = 0; j < G::TN; j += 4) {
-      const int c = 4 * cg + (j / 4) * G::CS;
-      *reinterpret_cast<float4*>(dst + c) = make_float4(
-          fmaxf(acc[i][j] + __ldg(bias + c), 0.0f),
-          fmaxf(acc[i][j + 1] + __ldg(bias + c + 1), 0.0f),
-          fmaxf(acc[i][j + 2] + __ldg(bias + c + 2), 0.0f),
-          fmaxf(acc[i][j + 3] + __ldg(bias + c + 3), 0.0f));
-    }
-  }
+  ups_fwd32<CIN, COUT>(smem, x, w, B, H, W, EvalOut32{bias, out, nullptr});
 }
 
 template <int CIN, int COUT>
 int launch_f32(const void* x, const void* w, const void* bias, void* out,
                int B, int H, int W, cudaStream_t stream) {
-  using G = Cfg32<CIN, COUT>;
+  using C = Ups32<CIN, COUT>;
+  constexpr size_t smem = Ups32Smem<CIN, COUT>::smem;
   static bool smem_ok = false;
-  cudaError_t e = allow_smem(ups_eval_f32_kernel<CIN, COUT>, G::smem,
-                             &smem_ok);
+  static int gm = 0;
+  cudaError_t e = allow_smem(ups_eval32_kernel<CIN, COUT>, smem, &smem_ok);
   if (e != cudaSuccess) return e;
+  if (gm == 0 && (e = resident_ctas(ups_eval32_kernel<CIN, COUT>, C::THREADS,
+                                    smem, &gm)) != cudaSuccess)
+    return e;
   const long long M = (long long)B * H * W;
   if (4 * M * (CIN > COUT ? CIN : COUT) >= (1LL << 31))
     return cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((M + G::BM - 1) / G::BM), 4);
-  ups_eval_f32_kernel<CIN, COUT><<<grid, G::THREADS, G::smem, stream>>>(
+  const int tiles = B * ((H + C::TH - 1) / C::TH) * ((W + C::TW - 1) / C::TW);
+  const int per = gm / C::NSPLIT > 0 ? gm / C::NSPLIT : 1;  // CTAs a split
+  ups_eval32_kernel<CIN, COUT><<<dim3(tiles < per ? tiles : per, C::NSPLIT),
+                                 C::THREADS, smem, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(bias), static_cast<float*>(out), (int)M, H,
-      W);
+      static_cast<const float*>(bias), static_cast<float*>(out), B, H, W);
   return cudaGetLastError();
 }
 

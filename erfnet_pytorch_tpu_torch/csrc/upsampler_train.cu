@@ -75,13 +75,13 @@
 //
 // The f32 forms (erf_ups_train_*_f32, the JAX package's default compute
 // dtype): the same launches and the same function with x, y, g and dx in
-// f32 and nothing rounded to bf16, every product on the CUDA cores (FFMA
-// micro-tiles; no TF32, no library call).  The forward is a tiled GEMM
-// over Wcat (taps unrounded; 64 pixels x 64 columns, K staged 64 at a
-// time, zero weight blocks skipped, the K in one FFMA chain per output as
-// the plain version's single matmul sums it; common.cuh ffma_tile).  The
-// backward keeps the bf16 form's two designs in f32 and reads the tap
-// stack w (3, 3, Cin, Cout) as it is (no Wcat):
+// f32 and nothing rounded to bf16, no library call; every form reads the
+// tap stack w (3, 3, Cin, Cout) as it is (no Wcat).  The forward is
+// ups_fwd32.cuh's parity-plane product over halo patches (the bf16
+// form's 4 x 32 tiles and partials; only the nine non-zero blocks; 3xTF32
+// in wgmma, within 5e-7 of the plain version, the taps split into TF32
+// images in the kernel).  The backward keeps the bf16 form's two designs
+// in f32, on FFMA micro-tiles (no TF32):
 // * dx (UpsDx32): the halo-patch stride-2 conv of g, 9 Cout Cin MACs a dx
 //   pixel (the transposed Wcat GEMM it replaced multiplied Wcat's seven
 //   zero blocks too: 9.66 against 5.44 GMAC at the B=6 shapes).  At 64 ->
@@ -102,7 +102,8 @@
 //   where partials per 1024-pixel chunk and tap took 21 MB), each output
 //   one FMA chain per thread group, the groups added in order.
 // Bound at f32: operations (9 Cin Cout MACs per input pixel forward, twice
-// that backward, against 67 TFLOP/s).  What is left: dx runs at 2.2-2.6x
+// that backward, against 67 TFLOP/s; the forward's three TF32 products
+// against 494.7 TFLOP/s take 0.41 of that).  What is left: dx runs at 2.2-2.6x
 // its bound, its product at about half the FFMA rate (without the product
 // dx takes 0.06 of its 0.23 ms at 128 -> 64, scripts/cuda_ups_bwd_variants.py;
 // PERF.md §6); at 64 -> 16 two CTAs an SM cap it at 128 registers (a few
@@ -114,27 +115,11 @@
 // statistic partials and their reduction is skipped; the backward starts
 // from g = gy (no g fold, y not read).
 #include "parity_plane.cuh"
+#include "ups_fwd32.cuh"
 
 using namespace erfk;
 
 namespace {
-
-// the f32 forms' tiled GEMMs: BM pixels x BN columns, K staged KC at a time
-constexpr int BM = 64, BN = 64, KC = 64;
-
-// neighbour q of Wcat's row blocks [x, x_h, x_w, x_hw]
-__device__ __forceinline__ int dh_of(int q) { return q & 1; }
-__device__ __forceinline__ int dw_of(int q) { return q >> 1; }
-
-// Is forward K chunk k0 non-zero for some column of [n0, n0 + BN)?  Block
-// (q, plane a*2+b) of Wcat is non-zero iff dh(q) <= a and dw(q) <= b.
-__device__ __forceinline__ bool fwd_chunk_used(int k0, int n0, int Cin,
-                                               int Cout) {
-  const int q = k0 / Cin;
-  for (int pl = n0 / Cout; pl <= (n0 + BN - 1) / Cout; ++pl)
-    if (dh_of(q) <= (pl >> 1) && dw_of(q) <= (pl & 1)) return true;
-  return false;
-}
 
 // Forward: the parity-plane product (parity_plane.cuh) of x and the
 // (3, 3, Cin, Cout) tap stack, y = bf16(sum + bias); with S, the per-tile
@@ -600,123 +585,31 @@ wgrad_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
 // f32 forms
 // ---------------------------------------------------------------------------
 
-// The forward's tiled GEMM: thread (rowg, colg) of an RS32 x TC32 grid owns
-// rows rowg + i RS32 (i < TM32) and columns 4 colg + g CS32 + q (g < 2, q <
-// 4) of the tile.
-constexpr int THREADS32 = 128, TN32 = 8, TC32 = BN / TN32;
-constexpr int RS32 = THREADS32 / TC32, TM32 = BM / RS32, CS32 = 4 * TC32;
-constexpr int LDA32 = pitch4(KC);
-constexpr size_t A32_BYTES = ((size_t)BM * LDA32 * 4 + 127) / 128 * 128;
-constexpr size_t SMEM32 = A32_BYTES + (size_t)KC * BN * 4;
-static_assert((size_t)RS32 * 2 * BN * 4 <= SMEM32, "f32 statistic scratch");
-
-// Start copying chunk [k0, k0 + KC) of the forward gather (column k is
-// channel k % Cin of neighbour q = k / Cin, zero past the bottom and right
-// edges), f32, and rows [k0, k0 + KC) x columns [n0, n0 + BN) of the f32
-// Wcat (4 Cin x 4 Cout).
-__device__ __forceinline__ void load_chunk_f32(float* As, float* Bs,
-                                               const float* x,
-                                               const float* wcat, int Cin,
-                                               int Cout, int H, int W, int b,
-                                               int p0, int p_end, int k0,
-                                               int n0) {
-  for (int v = threadIdx.x; v < BM * KC / 4; v += THREADS32) {
-    const int r = v / (KC / 4), j = v % (KC / 4);
-    const int k = k0 + j * 4, p = p0 + r;
-    const int q = k / Cin, c = k % Cin;
-    const int i = p / W + dh_of(q), jj = p % W + dw_of(q);
-    const bool valid = p < p_end && i < H && jj < W;
-    const long long src =
-        valid ? (((long long)b * H + i) * W + jj) * Cin + c : 0;
-    cp_async16(As + r * LDA32 + j * 4, x + src, valid);
-  }
-  for (int v = threadIdx.x; v < KC * BN / 4; v += THREADS32) {
-    const int r = v / (BN / 4), j = v % (BN / 4);
-    cp_async16(Bs + r * BN + j * 4,
-               wcat + (long long)(k0 + r) * 4 * Cout + n0 + j * 4, true);
-  }
-  cp_async_commit();
-}
-
-// The forward tile of CTA (blockIdx.x = pixel tile, blockIdx.y = column
-// tile): acc = the product over the K chunks, zero weight blocks skipped,
-// one chain (the plain version's single matmul).
-__device__ void gemm_tile_f32(unsigned char* smem, const float* x,
-                              const float* wcat, int Cin, int Cout, int H,
-                              int W, int b, int p0, int p_end, int n0,
-                              float (&acc)[TM32][TN32]) {
-  float* As = reinterpret_cast<float*>(smem);
-  float* Bs = reinterpret_cast<float*>(smem + A32_BYTES);
-  const int colg = threadIdx.x % TC32, rowg = threadIdx.x / TC32;
-  zero_tile(acc);
-  for (int k0 = 0; k0 < 4 * Cin; k0 += KC) {
-    if (!fwd_chunk_used(k0, n0, Cin, Cout)) continue;
-    load_chunk_f32(As, Bs, x, wcat, Cin, Cout, H, W, b, p0, p_end, k0, n0);
-    cp_async_wait_all();
-    __syncthreads();
-    ffma_tile<TM32, TN32, KC, CS32>(acc, As + rowg * LDA32, RS32 * LDA32,
-                                    Bs + 4 * colg, BN);
-    __syncthreads();  // the chunk is consumed before the next load
-  }
-}
-
+// Forward (f32): ups_fwd32.cuh's parity-plane product over halo patches,
+// y = sum + bias; with S, the per-tile partials part[tile][2 COUT] = [sum
+// y, sum y^2] of the stored y (the bf16 form's tiles, 4 x 32 input pixels).
 template <bool S>
-__global__ void __launch_bounds__(THREADS32)
-fwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ wcat,
-               const float* __restrict__ bias, float* __restrict__ y,
-               float* __restrict__ part, int H, int W, int Cin, int Cout) {
+struct TrainOut32 {
+  static constexpr bool STATS = S;
+  const float* bias;
+  float* y;
+  float* part;
+  __device__ float4 operator()(long long o, int ch, float4 v) const {
+    const float4 b = make_float4(__ldg(bias + ch), __ldg(bias + ch + 1),
+                                 __ldg(bias + ch + 2), __ldg(bias + ch + 3));
+    const float4 r = make_float4(v.x + b.x, v.y + b.y, v.z + b.z, v.w + b.w);
+    *reinterpret_cast<float4*>(y + o) = r;
+    return r;
+  }
+};
+
+template <int CIN, int COUT, bool S>
+__global__ void __launch_bounds__(256, 1)
+fwd32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+             const float* __restrict__ bias, float* __restrict__ y,
+             float* __restrict__ part, int B, int H, int W) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int HW = H * W, tpi = (HW + BM - 1) / BM;
-  const int tile = blockIdx.x, ct = blockIdx.y, n_ct = gridDim.y;
-  const int b = tile / tpi, p0 = (tile % tpi) * BM;
-  const int p_end = p0 + BM < HW ? p0 + BM : HW;
-  const int n0 = ct * BN;
-  float acc[TM32][TN32];
-  gemm_tile_f32(smem, x, wcat, Cin, Cout, H, W, b, p0, p_end, n0, acc);
-  const int colg = threadIdx.x % TC32, rowg = threadIdx.x / TC32;
-  float s0[TN32], s1[TN32];
-#pragma unroll
-  for (int j = 0; j < TN32; ++j) s0[j] = s1[j] = 0.0f;
-#pragma unroll
-  for (int i = 0; i < TM32; ++i) {
-    const int p = p0 + rowg + i * RS32;
-    if (p >= p_end) break;
-#pragma unroll
-    for (int g = 0; g < TN32 / 4; ++g) {
-      const int n = n0 + 4 * colg + g * CS32, pl = n / Cout, c0 = n % Cout;
-      float o[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        o[q] = acc[i][4 * g + q] + __ldg(bias + c0 + q);
-        if constexpr (S) {
-          s0[4 * g + q] += o[q];
-          s1[4 * g + q] += __fmul_rn(o[q], o[q]);
-        }
-      }
-      const int oi = 2 * (p / W) + (pl >> 1), oj = 2 * (p % W) + (pl & 1);
-      *reinterpret_cast<float4*>(
-          y + (((long long)b * 2 * H + oi) * 2 * W + oj) * Cout + c0) =
-          make_float4(o[0], o[1], o[2], o[3]);
-    }
-  }
-  if constexpr (!S) return;
-  float* red = reinterpret_cast<float*>(smem);  // gemm ended with a barrier
-#pragma unroll
-  for (int j = 0; j < TN32; ++j) {
-    const int col = 4 * colg + (j / 4) * CS32 + j % 4;
-    red[rowg * 2 * BN + col] = s0[j];
-    red[rowg * 2 * BN + BN + col] = s1[j];
-  }
-  __syncthreads();
-  // output t < 2 Cout: [sum | sum of squares] of channel t % Cout over
-  // the planes of this column tile, then the row groups, in order
-  for (int t = threadIdx.x; t < 2 * Cout; t += THREADS32) {
-    const int c = t % Cout, sq = t / Cout;
-    float s = 0.0f;
-    for (int pn = 0; pn < BN; pn += Cout)  // Cout divides BN
-      for (int q = 0; q < RS32; ++q) s += red[q * 2 * BN + sq * BN + pn + c];
-    part[((long long)tile * n_ct + ct) * 2 * Cout + t] = s;
-  }
+  ups_fwd32<CIN, COUT>(smem, x, w, B, H, W, TrainOut32<S>{bias, y, part});
 }
 
 // dx (f32): the bf16 form's halo-patch stride-2 conv of g (UpsDx) on FFMA
@@ -1094,14 +987,6 @@ bool shape_ok(int B, int H, int W, int Cin, int Cout) {
          H > 0 && W > 0 && (long long)B * 4 * H * W * Cin < (1LL << 31);
 }
 
-cudaError_t allow(const void* fn, size_t bytes, bool* done) {
-  if (*done || bytes <= 48 * 1024) return cudaSuccess;
-  cudaError_t e = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e == cudaSuccess) *done = true;
-  return e;
-}
-
 // The backward's products: dx (persistent CTAs over its tiles), the
 // weight gradient's partials (a chunk of `rows` input rows, KHG CTAs a
 // chunk) and their two fixed-order reductions; F32: the f32 forms.
@@ -1208,22 +1093,32 @@ int fwd(const void* x, const void* w, const void* bias, void* y, void* part,
                       static_cast<float*>(stats), B, tpi, 2 * COUT, s);
 }
 
-template <bool S>
-int fwd_f32(const void* x, const void* wcat, const void* bias, void* y,
-            void* part, void* stats, int B, int H, int W, int Cin, int Cout,
-            cudaStream_t s) {
+template <int CIN, int COUT, bool S>
+int fwd_f32(const void* x, const void* w, const void* bias, void* y,
+            void* part, void* stats, int B, int H, int W, cudaStream_t s) {
+  using C = Ups32<CIN, COUT>;
+  static_assert(C::TH == UpsCfg<CIN, COUT>::TH &&
+                    C::TW == UpsCfg<CIN, COUT>::TW,
+                "the f32 forward's partials are per bf16 tile");
+  constexpr size_t smem = Ups32Smem<CIN, COUT>::smem;
   static bool ok = false;
-  cudaError_t e = allow((const void*)fwd_f32_kernel<S>, SMEM32, &ok);
+  static int gm = 0;
+  cudaError_t e = allow_smem(fwd32_kernel<CIN, COUT, S>, smem, &ok);
   if (e != cudaSuccess) return e;
-  const int tpi = (H * W + BM - 1) / BM, n_ct = 4 * Cout / BN;
-  fwd_f32_kernel<S><<<dim3(B * tpi, n_ct), THREADS32, SMEM32, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(wcat),
+  if (gm == 0 && (e = resident_ctas(fwd32_kernel<CIN, COUT, S>, C::THREADS,
+                                    smem, &gm)) != cudaSuccess)
+    return e;
+  const int tpi = ups_tiles_per_image<CIN, COUT>(H, W), tiles = B * tpi;
+  const int per = gm / C::NSPLIT > 0 ? gm / C::NSPLIT : 1;  // CTAs a split
+  fwd32_kernel<CIN, COUT, S><<<dim3(tiles < per ? tiles : per, C::NSPLIT),
+                               C::THREADS, smem, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
       static_cast<const float*>(bias), static_cast<float*>(y),
-      static_cast<float*>(part), H, W, Cin, Cout);
+      static_cast<float*>(part), B, H, W);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   if constexpr (!S) return cudaSuccess;
   return reduce_parts(static_cast<const float*>(part),
-                      static_cast<float*>(stats), B, tpi * n_ct, 2 * Cout, s);
+                      static_cast<float*>(stats), B, tpi, 2 * COUT, s);
 }
 
 }  // namespace
@@ -1277,21 +1172,24 @@ extern "C" int erf_ups_train_wg_rows(int B, int H, int Cin) {
   return wg_rows<UpsWg<128, 64>, UpsWg<64, 16>>(B, H, Cin);
 }
 
-// The f32 forms: x, y, gy, g and dx in f32.  Forward: wcat (4 Cin, 4 Cout)
-// f32 in place of w, Wcat with its taps unrounded.  Backward: w (3, 3,
-// Cin, Cout) f32 as the bf16 form takes it, rows from
+// The f32 forms: x, y, gy, g and dx in f32, w (3, 3, Cin, Cout) f32 as
+// the bf16 forms take it; the backward's rows from
 // erf_ups_train_wg_rows_f32; the same scratch and outputs.
-extern "C" int erf_ups_train_fwd_f32(const void* x, const void* wcat,
+extern "C" int erf_ups_train_fwd_f32(const void* x, const void* w,
                                      const void* bias, void* y, void* part,
                                      void* stats, int B, int H, int W,
                                      int Cin, int Cout, int with_stats,
                                      void* stream) {
   if (!shape_ok(B, H, W, Cin, Cout)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return with_stats ? fwd_f32<true>(x, wcat, bias, y, part, stats, B, H, W,
-                                    Cin, Cout, s)
-                    : fwd_f32<false>(x, wcat, bias, y, part, stats, B, H, W,
-                                     Cin, Cout, s);
+  if (Cin == 128)
+    return with_stats
+               ? fwd_f32<128, 64, true>(x, w, bias, y, part, stats, B, H, W, s)
+               : fwd_f32<128, 64, false>(x, w, bias, y, part, stats, B, H, W,
+                                         s);
+  return with_stats
+             ? fwd_f32<64, 16, true>(x, w, bias, y, part, stats, B, H, W, s)
+             : fwd_f32<64, 16, false>(x, w, bias, y, part, stats, B, H, W, s);
 }
 
 extern "C" int erf_ups_train_bwd_f32(const void* x, const void* y,

@@ -16,9 +16,11 @@ bytes at both widths.
 
 Forms: bf16 (``erf_upsampler_eval``, mma.sync) and f32
 (``erf_upsampler_eval_f32``, the JAX package's default compute dtype: f32
-maps and weights, f32 FMAs on the CUDA cores, no TF32), picked by the
-input's dtype; launches counted apart (``upsampler.launches[""]`` and
-``["_f32"]``).
+maps and weights, the train upsampler's f32 forward of
+``csrc/ups_fwd32.cuh`` with a bias + ReLU epilogue: 3xTF32 in wgmma, the
+taps split in the kernel, within 5e-7 of the f32 plain version), picked
+by the input's dtype; launches counted apart (``upsampler.launches[""]``
+and ``["_f32"]``).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from ..convt_mm import (apply_upsampler_matmul, build_upsampler_matmul,
 from ..batchnorm import fold_batch_norm
 from . import _build
 
-TH, TW = 4, 32   # input rows, columns per tile of the bf16 kernel (csrc)
+TH, TW = 4, 32   # input rows, columns per tile of both forms (csrc)
 
 def prepare_upsampler(sd, prefix, dtype):
     """Block ``prefix`` of a reference state_dict -> ``w`` (3, 3, Cin,

@@ -14,10 +14,11 @@ Forward, as the parity-plane product of ``ops/convt_mm.py``: y = bf16([x,
 x_h+1, x_w+1, x_hw+1] @ Wcat + b), Wcat built from the weight's taps
 rounded to the activation dtype, f32 sums and bias, and the per-image (B,
 Cout) f32 sum and sum of squares of the stored y (not in the stats-free
-forms).  The bf16 forward reads the (3, 3, Cin, Cout) taps as they are
-(the parity-plane product of ``csrc/parity_plane.cuh`` through
-``PARITY_TAPS``); the f32 forward takes Wcat, built by ``_wcat`` in one
-gather from a cached index table, bit-equal to ``build_upsampler_matmul``.
+forms).  Both forms read the (3, 3, Cin, Cout) taps as they are, through
+``PARITY_TAPS``'s table, over tiles of ``TH`` x ``TW`` input pixels (no
+Wcat is built): the bf16 forward the parity-plane product of
+``csrc/parity_plane.cuh``, the f32 forward that of ``csrc/ups_fwd32.cuh``
+(3xTF32 in wgmma, the taps split in the kernel).
 Backward from (gy, gs1, gs2): g = bf16(gy + gs1 + 2 y gs2) (the stats-free
 forms: g = gy), dx = bf16(the transposed product), dW (3, 3, Cin, Cout)
 forward-conv HWIO in f32 and db = sum g in f32.  Both forms read the taps
@@ -32,7 +33,8 @@ anything else.  Two forms, picked by the maps' dtype
 (``_build.kernel_form``; every map of one call has one dtype, or the call
 raises): bf16 (``erf_ups_train_*``) and f32 (the ``_f32`` entry points;
 the JAX package's default compute dtype), in which nothing is rounded to
-bf16 and every product runs on FFMA micro-tiles (no TF32).  Launches are
+bf16: the forward's product is 3xTF32 (within 5e-7 of the f32 plain
+version), the backward's FFMA micro-tiles (no TF32).  Launches are
 counted apart: ``launches[""]``, ``launches["_f32"]``, and the stats-free
 forms' ``launches["_nostats"]`` and ``launches["_nostats_f32"]``.  The
 plain versions take f32 or bf16.  Bound on the H100: bytes at bf16,
@@ -45,15 +47,10 @@ import ctypes
 
 import torch
 
-import torch.nn.functional as F
-
-from ..convt_mm import (PARITY_TAPS, UPS_TAPS, _ROW, build_upsampler_matmul,
-                        convt_to_hwio)
+from ..convt_mm import UPS_TAPS, _ROW, build_upsampler_matmul, convt_to_hwio
 from . import _build, route
 
-BM = 64          # input pixels per tile of the f32 forward (csrc BM)
-BN = 64          # output columns per tile of the f32 forward (csrc BN)
-TH, TW = 4, 32   # input rows, columns per tile of the bf16 forward (csrc)
+TH, TW = 4, 32   # input rows, columns per tile of both forwards (csrc)
 # the bf16 backward: dx tiles of DX_TH[Cin] x TW dx pixels (csrc UpsDx);
 # weight-gradient partials per chunk of input rows (as many as the kernel
 # asks for, erf_ups_train_wg_rows), in blocks of WG_BP pixels of a row
@@ -169,33 +166,6 @@ def _check(x, w, others=()):
     return _build.kernel_form(x, "x", others), B, H, W, cin, cout
 
 
-_INDEX = {}
-
-
-def _index(cin, cout, device):
-    """Cached per (Cin, Cout, device): each element's index into the
-    flattened (3, 3, Cin, Cout) taps with one zero appended (index 9 Cin
-    Cout), laid out as Wcat (4 Cin, 4 Cout)."""
-    key = (cin, cout, str(device))
-    if key not in _INDEX:
-        idx = torch.full((4, cin, 4, cout), 9 * cin * cout, dtype=torch.long)
-        taps = torch.arange(9 * cin * cout).view(3, 3, cin, cout)
-        for (q, plane), (t_h, t_w) in PARITY_TAPS.items():
-            idx[q, :, plane] = taps[t_h, t_w]
-        _INDEX[key] = idx.reshape(-1).to(device)
-    return _INDEX[key]
-
-
-def _wcat(w, cin, cout, dtype):
-    """The parity-plane matrix Wcat (4 Cin, 4 Cout) of the HWIO weight in
-    ``dtype``, its taps rounded to it first (``build_upsampler_matmul``'s,
-    whose blocks each receive one tap onto zero, so bit-equal).  One gather
-    from a cached index table: the cast, the appended zero and the
-    gather."""
-    flat = F.pad(w.to(dtype).reshape(-1), (0, 1))
-    return flat[_index(cin, cout, w.device)].view(4 * cin, 4 * cout)
-
-
 @route.recorded(ups_fwd_plain)
 def ups_fwd(x, w, b, *, stats=True):
     """ups_fwd_plain's contract.  CPU tensor: the plain version.  CUDA
@@ -205,12 +175,8 @@ def ups_fwd(x, w, b, *, stats=True):
         return ups_fwd_plain(x, w, b, stats=stats)
     form, B, H, W, cin, cout = _check(x, w)
     dev, dt = x.device, x.dtype
-    if form:    # f32: the (4 Cin, 4 Cout) parity-plane matrix
-        wk = _wcat(w, cin, cout, dt)
-        tiles = B * -(-(H * W) // BM) * (4 * cout // BN)
-    else:       # bf16: the taps themselves (csrc/parity_plane.cuh)
-        wk = w.to(dt).contiguous()
-        tiles = B * -(-H // TH) * -(-W // TW)
+    wk = _build.taps(w, dt)     # both forms: the taps as they are
+    tiles = B * -(-H // TH) * -(-W // TW)
     bias = b.float().contiguous()
     _build.require(wk, "w", dt, dev)
     _build.require(bias, "b", torch.float32, dev, (cout,))

@@ -1683,6 +1683,49 @@ def test_upsampler_f32_backward_ragged_chunks(dev, shape, cout, stats):
         assert torch.equal(again[i], got[i])
 
 
+@pytest.mark.parametrize("shape,cout", [
+    ((1, 47, 70, 128), 64), ((2, 9, 33, 64), 16), ((3, 1, 1, 128), 64),
+    ((1, 2, 3, 64), 16), ((2, 64, 128, 128), 64)])
+@pytest.mark.parametrize("form", ["stats", "nostats", "eval"])
+def test_upsampler_f32_forward_ragged_tiles(dev, shape, cout, form):
+    """The f32 forward (csrc/ups_fwd32.cuh) of the train upsampler with
+    and without the statistics and of the eval upsampler: maps off its 4
+    x 32 tiles in rows and columns, smaller than one tile, and a whole
+    decoder map; y at phase 23's map limits, the sums within
+    F32_GRAD_REL, the launch counts, and two calls bit-identical."""
+    cin = shape[-1]
+    x = _rn(*shape, seed=41).relu().to(dev)
+    w = _rn(3, 3, cin, cout, seed=42, scale=(9 * cin) ** -0.5).to(dev)
+    b = _rn(cout, seed=43, scale=0.1).to(dev)
+    if form == "eval":
+        p = {"w": w, "b": b}
+        n0 = _launched(upsampler.upsampler, F32)
+        got = (upsampler.upsampler(x, p),)
+        again = (upsampler.upsampler(x, p),)
+        ref = (upsampler.upsampler_plain(x, p),)
+        assert _launched(upsampler.upsampler, F32) - n0 == 2
+    else:
+        stats = form == "stats"
+        fn = upsampler_train.ups_fwd
+        count = _launched if stats else _nostats
+        n = (upsampler_train.FWD_LAUNCHES if stats
+             else upsampler_train.NOSTATS_FWD_LAUNCHES)
+        n0 = count(fn, F32)
+        got = fn(x, w, b, stats=stats)
+        again = fn(x, w, b, stats=stats)
+        ref = upsampler_train.ups_fwd_plain(x, w, b, stats=stats)
+        torch.cuda.synchronize()
+        assert count(fn, F32) - n0 == 2 * n
+        if not stats:
+            got, again, ref = got[:1], again[:1], ref[:1]
+    torch.cuda.synchronize()
+    _close(got[0], ref[0])
+    for i in range(1, len(ref)):
+        _rel(got[i], ref[i], F32_GRAD_REL)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
 @pytest.mark.parametrize("shape,cc,stem,stats", [
     (shape, cc, stem, stats)
     for shape, cc, stem in (((1, 10, 66, 64), 64, False),

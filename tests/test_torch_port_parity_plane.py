@@ -15,9 +15,6 @@ decompositions written out, nothing of the card.
 * The upsampler forward as the same product of x and the HWIO taps
   through the unflipped table, against ``ups_fwd_plain`` (the same
   rules).
-* The cached Wcat gather of the f32 forward's wrapper
-  (``upsampler_train._wcat``) bit-equal to ``build_upsampler_matmul``
-  (each block holds one tap added onto zero).
 * The weight gradient summed per (chunk of output rows, kh) in the
   kernel's order (blocks of BP pixels of one row, the three kw taps as
   stride-2 views of one input-row segment), the chunks then reduced in
@@ -67,8 +64,7 @@ decompositions written out, nothing of the card.
 import pytest
 import torch
 
-from erfnet_pytorch_tpu_torch.ops.convt_mm import (PARITY_TAPS,
-                                                   build_upsampler_matmul)
+from erfnet_pytorch_tpu_torch.ops.convt_mm import PARITY_TAPS
 from erfnet_pytorch_tpu_torch.ops.cuda import downsampler_train as D
 from erfnet_pytorch_tpu_torch.ops.cuda import upsampler as E
 from erfnet_pytorch_tpu_torch.ops.cuda import upsampler_train as U
@@ -170,15 +166,6 @@ def test_upsampler_forward_is_the_parity_product(cin, cout, dtype):
     ref = U.ups_fwd_plain(x, w, b, stats=False)[0]
     got = (parity_product(x, w.to(dtype), flip=False) + b).to(dtype)
     _close(got, ref)
-
-
-@pytest.mark.parametrize("cin,cout", [(128, 64), (64, 16)])
-@pytest.mark.parametrize("dtype", [BF, F32])
-def test_cached_wcat_gather_is_build_upsampler_matmul(cin, cout, dtype):
-    w = _rn(3, 3, cin, cout, seed=cin + cout)
-    ref = build_upsampler_matmul(w.to(dtype), w.new_zeros(cout))[0].to(dtype)
-    got = U._wcat(w, cin, cout, dtype)
-    assert got.dtype == dtype and torch.equal(got, ref)
 
 
 def _wgrad_in_kernel_order(x, g, cin, cc):
