@@ -18,8 +18,10 @@ B=4 shapes, of the train NB1d conv pair (rows 21, 22 and 23 at C=64 and
 C=128, and at C=16, a forward and a backward of each distinct lead,
 shape and dilation of the B=6 steps, weighted by its calls per step) and
 of the head + class-weighted NLL (row 17 at G=1 and G=4, forward and
-backward), each in bf16 and in f32, by launch: CUDA events, device time
-by kernel (torch.profiler) and the host's enqueue time, with the
+backward), of the decoder head + argmax (rows 15, 16 G4) and the
+encoder's 1x1 head + argmax (row 16 G1, the B=6 eval batch), each in
+bf16 and in f32, by launch: CUDA events, device time by kernel
+(torch.profiler) and the host's enqueue time, with the
 library's call for the same function by device time beside each forward
 and rows 5, 5 on g = gy, 8, 11, 13, the pair and row 17 (cuDNN's forward
 conv, with its bias for row 9; its ``convolution_backward`` for rows 5,
@@ -29,8 +31,11 @@ for rows 13 and 11; the four convs with their biases, ReLUs and residual
 of every block for the NB1d rows, ``torch._int_mm``'s four products of
 every block for the int8 rows; the pair's two convs, forward or
 ``convolution_backward``; ``addmm`` + ``cross_entropy`` and their
-backward for row 17; TF32 off at f32); then prints the card line; no
-result line.  Phases 9 and 28 print the same split for the parity-plane
+backward for row 17, ``conv_transpose2d`` + ``argmax`` for rows 15, 16
+G4, ``addmm`` + ``argmax`` for row 16 G1; TF32 off at f32); then prints
+the card line; no result line.  ``--rows "9;15, 16 G4;16 G1"`` times
+those rows only (labels split on ";", or on "," where the value holds
+no ";").  Phases 9 and 28 print the same split for the parity-plane
 rows.
 
 Phases, each fatal on failure (non-zero exit, no result line):
@@ -50,7 +55,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
        floor.
      * predictions: equal at every pixel except where the reference's two
        largest bf16 logits are within one bf16 ulp of each other (a tie
-       that the f32 summation order may break either way).
+       that the f32 summation order may break either way); and with two
+       classes of every plane made one W column and bias, planted the
+       largest, every prediction the lower class, a NaN feature pixel's
+       four n - 1 (``head_tie_nan``).
 3. Serving: ``build_fast_infer(preds_only=True)`` at 20 classes on seeded
    random weights answers 3 requests of 4 uint8 512x1024 frames.  Checks
    shape, dtype and class range; launch counts per forward of 3 / 8 / 9 /
@@ -172,9 +180,12 @@ versions' convolutions and matmuls) and the flags restored after:
     head, the encoder's 1x1 head) against its plain version on the card
     at B=2 and every shape of the 512x1024 and 1024x2048 f32 forwards
     (nb1d at C=16, 64 and 128, every dilation, all on nb1d), plus a
-    dilation beyond the map, ragged maps, the 1x1 head with NaN rows and
-    a planted exact tie.  Outputs within ``F32_NORM_REL`` norm-relative
-    and ``F32_MAX_REL`` x max(|ref|, rms(ref)) at every element;
+    dilation beyond the map, ragged maps (the three downsamplers off
+    their 8, 4 and 2 x 32 tiles, more tiles than CTAs), the decoder head
+    with a planted exact tie and a NaN pixel (``head_tie_nan``), the 1x1
+    head with NaN rows and a planted exact tie.  Outputs within
+    ``F32_NORM_REL`` norm-relative and ``F32_MAX_REL`` x max(|ref|,
+    rms(ref)) at every element;
     predictions equal off the plain version's near-ties (``F32_TIE_REL``).
     Prints the measured maxima.
 21. f32 serving: ``build_fast_infer(dtype=f32, preds_only=True)`` answers
@@ -475,6 +486,37 @@ def head_ties(feats, p):
     return tie.permute(0, 1, 3, 2, 4).reshape(B, 2 * H, 2 * W)
 
 
+def head_tie_nan(tag, p, shape, g, device, dtype):
+    """The decoder head kernel on post-ReLU feats of ``shape`` in
+    ``dtype``, its W and bias with classes 3 and 7 of every plane one
+    column and planted the largest (every prediction must be 3, the lower
+    index) and one NaN feature pixel (its four predictions n - 1); the
+    plain version must agree."""
+    import torch
+    from erfnet_pytorch_tpu_torch.ops.cuda import head_argmax
+    n = p["n_classes"]
+    w, b = p["w"].clone(), p["b"].clone()
+    for pl in range(4):
+        b[pl * n + 3] += 100.0
+        w[:, pl * n + 7] = w[:, pl * n + 3]
+        b[pl * n + 7] = b[pl * n + 3]
+    q = dict(p, w=w, b=b)
+    x = _input(shape, g, device, dtype).relu()
+    x[0, 1, 2, 5] = float("nan")
+    nan = torch.zeros(shape[0], 2 * shape[1], 2 * shape[2],
+                      dtype=torch.bool, device=device)
+    nan[0, 2:4, 4:6] = True
+    for name, f in (("kernel", head_argmax.head_argmax),
+                    ("plain", head_argmax.head_argmax_plain)):
+        got = f(x, q)
+        if not ((got[~nan] == 3).all() and (got[nan] == n - 1).all()):
+            raise PhaseError(f"{tag} head ({name}): a planted exact tie "
+                             "does not give the lower class, or a NaN "
+                             "pixel not the last")
+    log(f"  {tag} head: planted exact tie -> class 3 at every pixel, the "
+        f"NaN pixel -> {n - 1}: ok")
+
+
 # ---------------------------------------------------------------------------
 # shapes of the serving path (512x1024, or the 1024x2048 streaming frames)
 # ---------------------------------------------------------------------------
@@ -635,9 +677,13 @@ def phase_parity(sd, device):
     log("[parity] kernel vs plain on the card, B=2, bf16")
     # a dilation beyond the map: every dilated side tap reads zero fill
     big = dict(ops["nb1d"][-1][1], dilation=160)
-    return serving_parity(
+    errs = serving_parity(
         ops, g, device, {k: 0.0 for k in PER_FORWARD},
         extra_nb1d=[("nb1d C128 d160 (>= H, W)", big, (4, 64, 128, 128))])
+    label, p, shape, _n = ops["head_argmax"][0]
+    head_tie_nan("bf16", p, (2,) + shape[1:], g, device, torch.bfloat16)
+    torch.cuda.synchronize()
+    return errs
 
 
 def phase_serving(sd, device):
@@ -715,11 +761,11 @@ def bound_ms(kind, shape, p, esz=2, flops_per_s=BF16_FLOPS_PER_S):
     operations ms)."""
     B, H, W, C = shape
     ps = p if isinstance(p, list) else [p]
-    # wmat, q, wtc and wg: other layouts of w and qt, which the kernels read
+    # q, wtc and wg: other layouts of w and qt, which the kernels read
     wbytes = sum(v.numel() * v.element_size() for q in ps
                  for k, v in q.items()
                  if hasattr(v, "numel")
-                 and k not in ("wmat", "q", "wtc", "wg"))
+                 and k not in ("q", "wtc", "wg"))
     if kind == "downsampler":
         cc = p["b"].shape[0]
         pix = B * (H // 2) * (W // 2)
@@ -1782,6 +1828,19 @@ def phase_f32_parity(sd, device):
         errs["head_argmax"] = max(errs["head_argmax"], compare_preds_f32(
             f"{tag} head", head_argmax.head_argmax(x, p),
             head_argmax.head_argmax_plain(x, p), head_ties_f32(x, p), worst))
+        if hw == SERVE_HW:
+            head_tie_nan("f32", p, (2,) + shape[1:], g, device, f32)
+            # maps ragged against the three kernels' tiles (8, 4 and 2 x
+            # 32 output pixels), each CTA several tiles
+            by_cin = {s[-1]: q for _l, q, s, _n in ops["downsampler"]}
+            for rs in ((3, 70, 198, 3), (5, 66, 258, 16), (9, 34, 130, 64)):
+                x = _input(rs, g, device, f32)
+                errs["downsampler"] = max(
+                    errs["downsampler"], compare_f32_form(
+                        f"{tag} down {rs[-1]}-> ragged {rs[1]}x{rs[2]}",
+                        downsampler.downsampler(x, by_cin[rs[-1]]),
+                        downsampler.downsampler_plain(x, by_cin[rs[-1]]),
+                        worst))
         torch.cuda.synchronize()
 
     for M in (HEAD1_M, 1037):
@@ -3518,7 +3577,7 @@ def split_calls(device, dtype):
     (row 4), its backward with statistics (rows 5, 8) and on g = gy (row
     5 gy), the train upsampler forward with and without statistics (rows
     12, 10) and its backward with and without (rows 13, 11); the eval
-    downsampler and upsampler (rows 9, 14) and the decoder head + argmax
+    downsampler and upsampler (rows 9, 14), the decoder head + argmax
     (rows 15, 16 G4) and the NB1d blocks (bf16 rows 1 and 3; f32 "1-3
     C128", "1-3 C64", "1-3 C16"; the int8 rows "24 C64", "24 C16", 25 and
     "25 2k", ``q8_split_calls``) at their B=4 serving shapes, weighted by
@@ -3529,8 +3588,10 @@ def split_calls(device, dtype):
     its calls per step of the encoder stage (C=64, C=128) or of stage 2
     (C=16); and the head + class-weighted NLL forward and backward (row 17
     at G=1, the encoder stage's; "17 G4", stage 2's), one call each a
-    step.  ``yardstick``: the library's call for the same function, timed
-    and never on the path: cuDNN's (the forward conv of a forward of the
+    step; the encoder's 1x1 head + argmax (row "16 G1") at the B=6 eval
+    batch, beside ``addmm`` + ``argmax``.  ``yardstick``: the library's
+    call for the same function, timed and never on the path: cuDNN's
+    (the forward conv of a forward of the
     downsampler, the stem's on its translated image; its
     ``convolution_backward`` for rows 5, 5 gy and 8, the stem's weight
     gradient alone; ``convolution_backward`` of the transposed conv for
@@ -3632,6 +3693,14 @@ def split_calls(device, dtype):
     calls.append(("15, 16 G4", "head 16->", (
         lambda x=x, p=p: head_argmax.head_argmax(x, p)),
         _lib_head(x, sd, prefix), 1))
+    # the encoder's 1x1 head + argmax at the B=6 encoder-stage eval batch,
+    # beside torch.addmm + argmax in the feats' dtype
+    f, w1, b1 = _head1_inputs(sd, HEAD1_M, torch.Generator().manual_seed(31),
+                              device, dtype)
+    calls.append(("16 G1", f"head1 {HEAD1_K}->{N_CLASSES}", (
+        lambda f=f, w1=w1, b1=b1: head_argmax.head_argmax_1x1(f, w1, b1)),
+        lambda f=f, w1=w1, b=b1.to(dtype):
+        torch.addmm(b, f, w1).argmax(-1), 1))
     # the serving NB1d blocks at B=4 512x1024: bf16 rows 1 (nb1d_halo, C=64
     # and C=16), 3 (nb1d, C=128) and 3p (the W-packed runs, a halo-tile
     # launch a block, their biases rounded as a stack's), and row 2
@@ -3781,10 +3850,19 @@ def _lib_head_loss(feats, w, b, labels, cw):
 
 
 def yardstick_name(row):
-    """The library call a split row is timed beside: ``torch._int_mm``'s
-    products for the int8 rows 24 and 25, else cuDNN's (or another
-    PyTorch call's, ``split_calls``)."""
-    return "_int_mm" if str(row).split()[0] in ("24", "25") else "cuDNN"
+    """The library call a split row is timed beside (``split_calls``):
+    ``torch._int_mm``'s products for the int8 rows 24 and 25, the PyTorch
+    calls of the heads' rows 15-17, else cuDNN's."""
+    first = str(row).split()[0]
+    return {"24": "_int_mm", "25": "_int_mm",
+            "15,": "conv_transpose2d + argmax", "16": "addmm + argmax",
+            "17": "addmm + cross_entropy"}.get(first, "cuDNN")
+
+
+def split_rows(arg):
+    """``--rows``' value -> the row labels: split on ";" (labels such as
+    "15, 16 G4" hold a comma), or on "," where the value holds no ";"."""
+    return [r.strip() for r in arg.split(";" if ";" in arg else ",")]
 
 
 def phase_split(device, iters, dtypes=None, only=None):
@@ -5094,8 +5172,9 @@ def main():
         build_s = phase_build()
         if "--split" in sys.argv[1:]:
             # only the build and the split of the redesigned rows' calls
-            # (--rows "1-3 C128,17 G4": those rows only)
-            only = (sys.argv[sys.argv.index("--rows") + 1].split(",")
+            # (--rows "9;15, 16 G4;16 G1": those rows only, split on ";",
+            # or on "," where the value holds no ";")
+            only = (split_rows(sys.argv[sys.argv.index("--rows") + 1])
                     if "--rows" in sys.argv[1:] else None)
             split = phase_split(device, ITERS, only=only)
             log(json.dumps({"split": split}))

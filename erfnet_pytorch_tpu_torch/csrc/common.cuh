@@ -66,6 +66,13 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                "l"(src), "r"(valid ? 4 : 0));
 }
 
+// The same for 8 bytes, always valid (cp.async.ca: .cg copies 16 only).
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+               "l"(src));
+}
+
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
@@ -239,19 +246,6 @@ __device__ __forceinline__ void add_tile(float (&acc)[TM][TN],
   for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] += part[i][j];
-}
-
-// Start copying a dense row-major (rows x cols) f32 matrix from global
-// memory into shared memory with row pitch ld; cols % 4 == 0.  Completes
-// at the caller's cp_async_wait_all().
-__device__ __forceinline__ void load_matrix(float* dst, int ld,
-                                            const float* src, int rows,
-                                            int cols) {
-  const int vpr = cols / 4;
-  for (int v = threadIdx.x; v < rows * vpr; v += blockDim.x) {
-    const int r = v / vpr, j = v % vpr;
-    cp_async16(dst + r * ld + j * 4, src + (int64_t)r * cols + j * 4, true);
-  }
 }
 
 // Opt a kernel into more than 48 KB of dynamic shared memory (once per

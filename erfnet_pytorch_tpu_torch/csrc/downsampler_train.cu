@@ -72,7 +72,8 @@
 // bf16; the stem translates the f32 image without a cast and saves it in
 // f32.  Products on the CUDA cores (FFMA micro-tiles, common.cuh
 // ffma_tile; no TF32).  The forward at Cin = 3 (the stem,
-// and the stats-free 3-channel map) is the bf16 form's tile kept in f32:
+// and the stats-free 3-channel map; down_fwd32.cuh down_fwd3_f32_kernel,
+// which the f32 eval block runs too) is the bf16 form's tile kept in f32:
 // persistent CTAs over tiles of 8 x 32 output pixels, each tile's raw f32
 // patch (PFRaw<true>: rows of 65 x 3 values, the stem's shifted by its
 // translate with zero fill) staged once with coalesced 4-byte cp.async
@@ -136,6 +137,7 @@
 // gradient is a direct sum (down_dx_small_kernel): its K of 9 x 13 and
 // N of 3 are too narrow for the tiled products.
 #include "down_fwd.cuh"
+#include "down_fwd32.cuh"
 
 using namespace erfk;
 
@@ -471,189 +473,9 @@ down_wgrad_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
 
 constexpr int round4(int v) { return (v + 3) / 4 * 4; }
 
-// Forward at Cin = 3 (the stem, or a stats-free 3-channel map): tiles of
-// TH x 32 output pixels of one image over a raw f32 patch (parity_plane.cuh
-// PFRaw<true>: each patch row one run of 65 x 3 values in 4-byte words,
-// the stem's shifted by its translate with zero fill; tile coordinates
-// computed once a tile), persistent CTAs with the next tile's patch in
-// flight.  A thread a pixel builds its im2col row (K = 27, (tap, ci) order,
-// padded to 28) from the patch, unrounded; the 13 conv channels are an
-// FFMA micro-tile (common.cuh ffma_tile, TM = 4 pixels x TN = 4 channels a
-// thread) over the padded (28 x 16) tap stack, one FFMA chain per output
-// in the plain version's (tap, ci) order; the 3 pool channels are the max
-// of taps 4, 5, 7, 8 of the same patch.  The epilogue stages whole 64-byte
-// output pixels, writes them 16 bytes a thread and takes the sums from the
-// stored values in a fixed butterfly (one partial per tile); the stem
-// writes the translated image's tile interior from the patch.
-struct Fwd3F32 {
-  static constexpr int TH = 8, TW = 32, BM = TH * TW, THREADS = 256;
-  static constexpr int CC = 13, COUT = 16, KP = 28, NP = 16;
-  static constexpr int TN = 4, TC = NP / TN, RS = THREADS / TC, TM = BM / RS;
-  static constexpr int LDA = pitch4(KP);
-  using Patch = PFRaw<true, TH>;
-  static constexpr size_t a_off = 2 * Patch::bytes;  // two patches
-  static constexpr size_t w_off = a_off + pp_align((size_t)BM * LDA * 4);
-  static constexpr size_t o_off = w_off + pp_align((size_t)KP * NP * 4);
-  static constexpr size_t smem = o_off + (size_t)BM * COUT * 4;
-  static_assert(BM == THREADS && BM % RS == 0 && 2 * COUT <= 32 &&
-                    (size_t)8 * 2 * COUT * 4 <= (size_t)BM * LDA * 4,
-                "f32 forward tile at Cin = 3: a thread a pixel");
-};
-
-template <bool STEM, bool S>
-__global__ void __launch_bounds__(256, 2)
-down_fwd3_f32_kernel(const float* __restrict__ x,
-                     const int* __restrict__ shifts,
-                     const float* __restrict__ w,
-                     const float* __restrict__ bias, float* __restrict__ out,
-                     float* __restrict__ xa, float* __restrict__ part, int B,
-                     int Ho, int Wo) {
-  using G = Fwd3F32;
-  using P = G::Patch;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* As = reinterpret_cast<float*>(smem + G::a_off);
-  float* Ws = reinterpret_cast<float*>(smem + G::w_off);
-  float* Cs = reinterpret_cast<float*>(smem + G::o_off);
-  const int H = 2 * Ho, W = 2 * Wo;
-  const int tiles =
-      B * ((Ho + G::TH - 1) / G::TH) * ((Wo + G::TW - 1) / G::TW);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int colg = threadIdx.x % G::TC, rowg = threadIdx.x / G::TC;
-
-  // the tap stack (27 x 13, row (kh * 3 + kw) 3 + ci), zero padded
-  for (int e = threadIdx.x; e < G::KP * G::NP; e += G::THREADS) {
-    const int k = e / G::NP, n = e % G::NP;
-    Ws[e] = k < 27 && n < G::CC ? __ldg(w + k * G::CC + n) : 0.0f;
-  }
-  float bv[4];  // this thread's conv channels 4 colg + q
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-    bv[q] = 4 * colg + q < G::CC ? __ldg(bias + 4 * colg + q) : 0.0f;
-
-  auto patch_of = [&](int kk) { return smem + (kk & 1) * P::bytes; };
-  auto issue = [&](int t, int kk) {
-    if (t < tiles)
-      pf_load_raw<P>(patch_of(kk), x, STEM ? shifts : nullptr,
-                     pp_tile_of<G>(t, Ho, Wo), H, W, G::THREADS);
-    cp_async_commit();
-  };
-
-  issue(blockIdx.x, 0);
-  int kk = 0;
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++kk) {
-    const PPTile tl = pp_tile_of<G>(t, Ho, Wo);
-    issue(t + gridDim.x, kk + 1);  // into the buffer tile kk - 1 left
-    cp_async_wait_group<1>();
-    __syncthreads();
-    const unsigned char* patch = patch_of(kk);
-    // im2col row m: K index kh * 9 + kw * 3 + ci is value 6 c + kw * 3 +
-    // ci of patch row 2 r + kh; and the pool of the same patch
-    const int m = threadIdx.x, r = m / G::TW, c = m % G::TW;
-    {
-      float v[G::KP];
-#pragma unroll
-      for (int kh = 0; kh < 3; ++kh)
-#pragma unroll
-        for (int q = 0; q < 9; ++q)
-          v[kh * 9 + q] = P::at(patch, 2 * r + kh, 6 * c + q);
-      v[27] = 0.0f;
-#pragma unroll
-      for (int j = 0; j < G::KP / 4; ++j)
-        *reinterpret_cast<float4*>(As + m * G::LDA + 4 * j) =
-            make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
-    }
-    float pv[3];
-#pragma unroll
-    for (int ci = 0; ci < 3; ++ci)
-      pv[ci] = fmaxf(fmaxf(P::at(patch, 2 * r + 1, (2 * c + 1) * 3 + ci),
-                           P::at(patch, 2 * r + 1, (2 * c + 2) * 3 + ci)),
-                     fmaxf(P::at(patch, 2 * r + 2, (2 * c + 1) * 3 + ci),
-                           P::at(patch, 2 * r + 2, (2 * c + 2) * 3 + ci)));
-    __syncthreads();
-    float acc[G::TM][G::TN];
-    zero_tile(acc);
-    ffma_tile<G::TM, G::TN, G::KP, 4 * G::TC>(
-        acc, As + rowg * G::LDA, G::RS * G::LDA, Ws + 4 * colg, G::NP);
-    // stage whole pixels: conv channels sum + b, then the pool channels
-#pragma unroll
-    for (int i = 0; i < G::TM; ++i) {
-      float* dst = Cs + (rowg + i * G::RS) * G::COUT + 4 * colg;
-      if (4 * colg + 3 < G::CC)
-        *reinterpret_cast<float4*>(dst) =
-            make_float4(acc[i][0] + bv[0], acc[i][1] + bv[1],
-                        acc[i][2] + bv[2], acc[i][3] + bv[3]);
-      else
-        dst[0] = acc[i][0] + bv[0];  // channel 12; 13 .. 15 are the pool's
-    }
-#pragma unroll
-    for (int ci = 0; ci < 3; ++ci) Cs[m * G::COUT + G::CC + ci] = pv[ci];
-    if constexpr (STEM) {
-      // the translated image's tile interior (patch rows 1 .. 2 TH, values
-      // 3 .. 6 TW + 2), an f32 pair a thread: each input pixel lies in
-      // exactly one tile
-      const int n3 = 3 * min(2 * G::TW, W - 2 * tl.j0);  // even
-      for (int v = threadIdx.x; v < 2 * G::TH * 3 * G::TW;
-           v += G::THREADS) {
-        const int pr = 1 + v / (3 * G::TW), k = v % (3 * G::TW);
-        const int h = 2 * tl.i0 + pr - 1;
-        if (h < H && 2 * k < n3)
-          *reinterpret_cast<float2*>(
-              xa + (((long long)tl.b * H + h) * W + 2 * tl.j0) * 3 + 2 * k) =
-              make_float2(P::at(patch, pr, 3 + 2 * k),
-                          P::at(patch, pr, 4 + 2 * k));
-      }
-    }
-    __syncthreads();
-
-    // whole output pixels, 16 bytes a thread: thread t always holds
-    // channels 4 (t % 4) .. + 3, its sums in registers
-    float s0[4] = {0.0f, 0.0f, 0.0f, 0.0f}, s1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int v = threadIdx.x; v < G::BM * 4; v += G::THREADS) {
-      const int p = v / 4, j = v % 4;
-      const int i = tl.i0 + p / G::TW, jj = tl.j0 + p % G::TW;
-      if (i >= Ho || jj >= Wo) continue;
-      const float4 q = *reinterpret_cast<const float4*>(Cs + p * G::COUT +
-                                                        4 * j);
-      *reinterpret_cast<float4*>(
-          out + (((long long)tl.b * Ho + i) * Wo + jj) * G::COUT + 4 * j) = q;
-      if constexpr (S) {
-        const float f[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          s0[k] += f[k];
-          s1[k] += __fmul_rn(f[k], f[k]);
-        }
-      }
-    }
-    if constexpr (S) {
-      // lanes of one channel group (lane % 4) in a fixed butterfly, the
-      // warps in order: the tile's partial part[t] = [sum y | sum y^2]
-#pragma unroll
-      for (int o = 4; o < 32; o *= 2)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          s0[k] += __shfl_xor_sync(0xffffffffu, s0[k], o);
-          s1[k] += __shfl_xor_sync(0xffffffffu, s1[k], o);
-        }
-      float* red = As;  // read by every thread before the last barrier
-      if (lane < 4)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          red[warp * 2 * G::COUT + 4 * lane + k] = s0[k];
-          red[warp * 2 * G::COUT + G::COUT + 4 * lane + k] = s1[k];
-        }
-      __syncthreads();
-      if (threadIdx.x < 2 * G::COUT) {
-        float a = 0.0f;
-        for (int wi = 0; wi < G::THREADS / 32; ++wi)
-          a += red[wi * 2 * G::COUT + threadIdx.x];
-        part[(long long)t * 2 * G::COUT + threadIdx.x] = a;
-      }
-    }
-    __syncthreads();  // As, Cs and this patch consumed
-  }
-  cp_async_wait_all();
-}
+// Forward at Cin = 3 (the stem, or a stats-free 3-channel map): Fwd3F32
+// and down_fwd3_f32_kernel in down_fwd32.cuh (the f32 eval block's first
+// downsampler runs the same tile with the BatchNorm and ReLU).
 
 // Forward at Cin = 16, 64 (f32): the bf16 form's stride-2 conv over each
 // tile's halo patch (down_fwd.cuh) on FFMA micro-tiles, the geometry of the

@@ -1,8 +1,9 @@
 // Two heads + argmax, logits never in device memory.
 //
-// (1) erf_head_argmax, the decoder head: ConvTranspose2d(16, n, k2 s2) as a parity-plane
-// matmul, logits rounded to bf16, first-max argmax over the n classes of
-// each parity plane, int32 predictions stored straight into (B, 2H, 2W).
+// (1) erf_head_argmax, the decoder head: ConvTranspose2d(16, n, k2 s2) as
+// a parity-plane matmul, logits rounded to bf16, first-max argmax over the
+// n classes of each parity plane, int32 predictions stored straight into
+// (B, 2H, 2W).
 //
 // Replaces erfnet_pytorch_tpu/ops/pallas/head_argmax.py:_kernel_grouped and
 // :_kernel (via head_argmax, G = 32 packed and G = 4 plain): the same
@@ -10,15 +11,48 @@
 // folded into the store.  Logits never reach device memory.
 //
 // Semantics: z[g*n + c] = sum_k f[k] W[k, g*n + c] + bias[g*n + c] in f32
-// (bf16 x bf16 products are exact in f32), rounded to bf16; plane
-// g = a*2 + b writes pixel (2i + a, 2j + b).  The lowest index among the
-// maxima wins; a plane with a NaN logit gives n - 1, as the TPU kernel's
-// clamp does.
+// (bf16 x bf16 products are exact in f32; the bias added after the sum, as
+// the plain version adds it), rounded to bf16; plane g = a*2 + b writes
+// pixel (2i + a, 2j + b).  The lowest index among the maxima wins; a plane
+// with a NaN logit gives n - 1, as the TPU kernel's clamp does.
 //
-// Bound on this card: one thread per feature pixel does 16 x 4n FMAs on the
-// CUDA cores in f32 (1280 for n = 20) against 32 bytes read and 16 written,
-// so this version is bound by f32 issue rate, above the byte bound.  Moving
-// the product to the tensor cores is the next step.
+// On the tensor cores: a warp takes feature pixels 32 at a time, two
+// m16 blocks, its A fragments the pixels' 16-channel rows, 8 bytes a lane
+// a row (bf16; 16 at f32): the K order is permuted so that lane (g, t)
+// holds channels 4t .. 4t + 3 of rows g and g + 8, the B fragments of W
+// permuted the same way.  W (16 x 4n) is laid out once per CTA in shared
+// memory as each lane's B fragments, each plane's n classes padded to a
+// multiple of 8 (24 at n = 20: 12 n8 tiles for the four planes), and the
+// bias beside it.  bf16: one mma.sync m16n8k16 per (m16 block, n8 tile),
+// f32 accumulators.  f32: 3xTF32 over the two k8 steps (W split into TF32
+// hi and lo once per CTA, the feature rows split in registers; the cross
+// products chained, the high parts' apart, added on the CUDA cores), the
+// logits not rounded (the TPU kernel's round_bf16 is false there).
+// mma.sync and not wgmma: N is 24 columns a plane and K one k-step, too
+// small for a warpgroup's m64 tiles to pay for their staging; CUDA C++
+// and not Triton, as every kernel of the port.
+// Argmax in registers: each lane takes the first maximum over its own
+// columns of a plane (increasing column order, a strict >, head_fold:
+// three instructions a logit; padded columns excluded by their index; a
+// NaN marks the lane's result (+inf, -1), which wins every comparison);
+// the four lanes of a quad then combine by two
+// xor-shuffles (the larger value, on equal values the lower class index),
+// each exchange halving the (plane, block, row) results a lane carries, so
+// that lane t ends with the four planes of one pixel (block t / 2, row g +
+// 8 (t % 2)) and stores its 2 x 2 predictions as two int2, a warp's stores
+// two runs of 256 contiguous bytes.  n up to 256: n <= 32 unrolls the
+// tiles of a plane, larger n loops over them.
+//
+// Bound on this card: bytes, 32 read and 16 written per feature pixel in
+// bf16 (0.0075 ms at B=4 512x1024); f32: the 16 x 80 MACs per feature
+// pixel against 67 TFLOP/s, 0.0200 ms, or under 3xTF32 the bytes (64 read,
+// 16 written), 0.0125 ms.  What bounds this version: the argmax's
+// per-logit work on the CUDA cores, the bias add, the rounding and
+// head_fold for 96 logits a lane per 32 pixels, and the quad exchange
+// (folding the NaN test into the max, rounding two logits a cvt, testing
+// the padding in a plane's last tile only and decoding the pixel in 32
+// bits took the bf16 form from 0.0403 to 0.0349 ms and f32 from 0.0587 to
+// 0.0436, B=4 512x1024, NVIDIA H100 80GB HBM3, 700.00 W: PERF.md §6).
 //
 // (2) erf_head_argmax_1x1, the encoder's 1x1 head as the encoder-stage eval
 // step and train IoU run it: feats (M, 128) bf16 @ W (128, n) + bias (n,)
@@ -42,63 +76,283 @@
 // eval_iou and the other eval CLIs without --bf16): the same kernels as
 // templates on the element type T of feats and W.  At f32 the feats and W
 // are read as f32 (the 1x1 head's 512-byte feature row as thirty-two
-// 16-byte loads), the same f32 FMAs run, and the logits are not rounded:
-// the TPU kernel's round_bf16 is false at f32.  The first-max and NaN
-// rules are the same.  Bound at f32: the decoder head's 16 x 80 FMAs per
-// feature pixel against 67 TFLOP/s (above its 80 bytes); the 1x1 head's
-// bytes (512 read, 4 written per pixel).
+// 16-byte loads) and the logits are not rounded: the TPU kernel's
+// round_bf16 is false at f32.  The first-max and NaN rules are the same.
+// The 1x1 head's bound at f32: bytes (512 read, 4 written per pixel).
+#include <type_traits>
+
 #include "common.cuh"
+#include "conv32.cuh"
 
 using namespace erfk;
 
 namespace {
 
-constexpr int K = 16, THREADS = 256;
+constexpr int K = 16, THREADS = 256, WARPS = THREADS / 32;
+constexpr int MB = 2, PX = 16 * MB;   // m16 blocks, pixels a warp step
+constexpr int SENT = 0x7fffffff;   // a lane's index with no finite maximum
 
+// per form: the 32-bit words of a lane's B fragments of an n8 tile (bf16:
+// b0, b1; f32: the hi parts of steps 0 and 1, then the lo parts) and a
+// lane's raw A row (4 channels)
 template <typename T>
+struct HeadForm;
+template <>
+struct HeadForm<bf16> {
+  static constexpr int FW = 2;
+  using Raw = uint2;
+};
+template <>
+struct HeadForm<float> {
+  static constexpr int FW = 8;
+  using Raw = float4;
+};
+
+// d += a (16x8, row, TF32) b (8x8, col, TF32), f32 accumulators
+__device__ __forceinline__ void mma_tf32_1688(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// max that returns NaN when either input is NaN
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;\n" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t bf16_bits(bf16 v) {
+  return __bfloat16_as_ushort(v);
+}
+
+// One logit z of column col into a lane's (best, idx): the index moves
+// where z > best or either is NaN, best becomes max.NaN (a NaN sticks),
+// so a strict > keeps the first maximum and a lane that met a NaN ends
+// with best NaN (its index then means nothing).
+__device__ __forceinline__ void head_fold(float z, int col, float& best,
+                                          int& idx) {
+  idx = !(z <= best) ? col : idx;
+  best = max_nan(best, z);
+}
+
+// (bo, io) wins over (bm, im): the larger value, on equal values the lower
+// index (a NaN's (+inf, -1) wins every comparison)
+__device__ __forceinline__ bool head_better(float bo, int io, float bm,
+                                            int im) {
+  return bo > bm || (bo == bm && io < im);
+}
+
+// NTP: n8 tiles a plane (ceil(n / 8)) as a constant, or 0: ntp_rt
+template <typename T, int NTP>
 __global__ void __launch_bounds__(THREADS)
 head_argmax_kernel(const T* __restrict__ feats, const T* __restrict__ w,
                    const float* __restrict__ bias, int* __restrict__ out,
-                   long long M, int H, int W, int n) {
-  extern __shared__ float sm[];
-  float* Ws = sm;              // (K, 4n)
-  float* bs = sm + K * 4 * n;  // (4n,)
-  for (int i = threadIdx.x; i < K * 4 * n; i += blockDim.x)
-    Ws[i] = to_f32(w[i]);
-  for (int i = threadIdx.x; i < 4 * n; i += blockDim.x) bs[i] = bias[i];
+                   long long M, int H, int W, int n, int ntp_rt) {
+  using F = HeadForm<T>;
+  using Raw = typename F::Raw;
+  constexpr bool F32 = std::is_same<T, float>::value;
+  const int ntp = NTP ? NTP : ntp_rt, np = 8 * ntp;
+  extern __shared__ __align__(16) unsigned char sm[];
+  // B fragments: tile tt = p ntp + j (plane p, columns 8 j ..), lane l at
+  // Bf + (tt 32 + l) FW; the bias, plane p's padded columns at bs + p np
+  uint32_t* Bf = reinterpret_cast<uint32_t*>(sm);
+  float* bs = reinterpret_cast<float*>(sm + (size_t)4 * ntp * 32 * F::FW * 4);
+  for (int v = threadIdx.x; v < 4 * ntp * 32; v += THREADS) {
+    const int tt = v / 32, l = v % 32, p = tt / ntp;
+    const int col = 8 * (tt % ntp) + (l >> 2), r0 = 4 * (l & 3);
+    // lane (g, t): column g of the tile, W rows 4t .. 4t + 3 (the
+    // permuted K: bf16 logical k 2t, 2t + 1, 2t + 8, 2t + 9; f32 t, t + 4
+    // of step 0, then of step 1)
+    const T* src = w + (size_t)r0 * 4 * n + p * n + col;
+    uint32_t* dst = Bf + (size_t)v * F::FW;
+    if constexpr (F32) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        split_tf32(col < n ? __ldg(src + (size_t)k * 4 * n) : 0.0f, dst[k],
+                   dst[4 + k]);
+    } else {
+      uint32_t q[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        q[k] = col < n ? bf16_bits(src[(size_t)k * 4 * n]) : 0u;
+      dst[0] = q[0] | q[1] << 16;
+      dst[1] = q[2] | q[3] << 16;
+    }
+  }
+  for (int v = threadIdx.x; v < 4 * np; v += THREADS)
+    bs[v] = v % np < n ? __ldg(bias + (v / np) * n + v % np) : 0.0f;
   __syncthreads();
 
-  const long long m = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= M) return;
-  float f[K];
-  load8(feats + m * K, f);
-  load8(feats + m * K + 8, f + 8);
-  const long long b = m / ((long long)H * W);
-  const int i = (int)((m / W) % H), j = (int)(m % W);
-
-  for (int a = 0; a < 2; ++a) {
-    int pred[2];
-    for (int pb = 0; pb < 2; ++pb) {
-      const int g = a * 2 + pb;
-      float best = __int_as_float(0xff800000);  // -inf
-      int idx = 0;
-      bool nan = false;
-      for (int c = 0; c < n; ++c) {
-        float acc = 0.0f;
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const int hb = t & 1, bb = t >> 1;   // the pixel this lane stores
+  static_assert(MB == 2, "a lane stores one pixel of the two blocks");
+  const long long steps = (M + PX - 1) / PX;
+  const long long stride = (long long)gridDim.x * WARPS;
+  const int HW = H * W;   // M < 2^31: the pixel decode in 32 bits
+  // rows g and g + 8 (h) of block bk: channels 4t .. 4t + 3, zero past M
+  auto load = [&](long long s, Raw (&r)[MB][2]) {
 #pragma unroll
-        for (int k = 0; k < K; ++k) acc = fmaf(f[k], Ws[k * 4 * n + g * n + c], acc);
-        const float z = round_as<T>(acc + bs[g * n + c]);
-        if (isnan(z)) {
-          nan = true;
-        } else if (z > best) {
-          best = z;
-          idx = c;
+    for (int bk = 0; bk < MB; ++bk)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long m = s * PX + bk * 16 + h * 8 + g;
+        r[bk][h] = m < M ? __ldg(reinterpret_cast<const Raw*>(
+                               feats + m * K + 4 * t))
+                         : Raw{};
+      }
+  };
+  long long s = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
+  Raw cur[MB][2];
+  if (s < steps) load(s, cur);
+  for (; s < steps; s += stride) {
+    Raw nxt[MB][2];
+    if (s + stride < steps) load(s + stride, nxt);
+    // A: bf16 a[bk] = (row g: ch 4t, 4t+1), (row g+8: same), (row g: ch
+    // 4t+2, 4t+3), (row g+8: same); f32 step 0 the rows' .x and .y, step
+    // 1 their .z and .w, each split into TF32 hi and lo
+    uint32_t a[MB][2][4], al[MB][2][4];
+#pragma unroll
+    for (int bk = 0; bk < MB; ++bk) {
+      if constexpr (F32) {
+        const float v[2][4] = {{cur[bk][0].x, cur[bk][1].x, cur[bk][0].y,
+                                cur[bk][1].y},
+                               {cur[bk][0].z, cur[bk][1].z, cur[bk][0].w,
+                                cur[bk][1].w}};
+#pragma unroll
+        for (int st = 0; st < 2; ++st)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            split_tf32(v[st][i], a[bk][st][i], al[bk][st][i]);
+      } else {
+        a[bk][0][0] = cur[bk][0].x;
+        a[bk][0][1] = cur[bk][1].x;
+        a[bk][0][2] = cur[bk][0].y;
+        a[bk][0][3] = cur[bk][1].y;
+      }
+    }
+    // each lane's first maximum over its columns, per (plane, block, row)
+    float best[4][MB][2];
+    int idx[4][MB][2];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+#pragma unroll
+      for (int bk = 0; bk < MB; ++bk)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          best[p][bk][h] = __int_as_float(0xff800000);  // -inf
+          idx[p][bk][h] = SENT;
+        }
+#pragma unroll(NTP ? NTP : 1)
+      for (int j = 0; j < ntp; ++j) {
+        const uint32_t* f = Bf + ((size_t)(p * ntp + j) * 32 + lane) * F::FW;
+        const float2 bv =
+            *reinterpret_cast<const float2*>(bs + p * np + 8 * j + 2 * t);
+        uint32_t b[F::FW];
+        if constexpr (F32) {
+          const uint4 hi = *reinterpret_cast<const uint4*>(f);
+          const uint4 lo = *reinterpret_cast<const uint4*>(f + 4);
+          b[0] = hi.x; b[1] = hi.y; b[2] = hi.z; b[3] = hi.w;
+          b[4] = lo.x; b[5] = lo.y; b[6] = lo.z; b[7] = lo.w;
+        } else {
+          const uint2 q = *reinterpret_cast<const uint2*>(f);
+          b[0] = q.x;
+          b[1] = q.y;
+        }
+        // only the last tile of a plane holds padded columns
+        const bool last = NTP ? j == NTP - 1 : j == ntp - 1;
+        const int col = 8 * j + 2 * t;
+#pragma unroll
+        for (int bk = 0; bk < MB; ++bk) {
+          float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          if constexpr (F32) {
+            float big[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            mma_tf32_1688(c, al[bk][0], b[0], b[1]);
+            mma_tf32_1688(c, a[bk][0], b[4], b[5]);
+            mma_tf32_1688(c, al[bk][1], b[2], b[3]);
+            mma_tf32_1688(c, a[bk][1], b[6], b[7]);
+            mma_tf32_1688(big, a[bk][0], b[0], b[1]);
+            mma_tf32_1688(big, a[bk][1], b[2], b[3]);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) c[i] = big[i] + c[i];
+          } else {
+            mma_bf16_16816(c, a[bk][0], b[0], b[1]);
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float z0 = c[2 * h] + bv.x, z1 = c[2 * h + 1] + bv.y;
+            if constexpr (!F32) {   // both rounded to bf16 by one cvt
+              const __nv_bfloat162 r = __floats2bfloat162_rn(z0, z1);
+              z0 = __low2float(r);
+              z1 = __high2float(r);
+            }
+            if (!last || col < n)
+              head_fold(z0, col, best[p][bk][h], idx[p][bk][h]);
+            if (!last || col + 1 < n)
+              head_fold(z1, col + 1, best[p][bk][h], idx[p][bk][h]);
+          }
         }
       }
-      pred[pb] = nan ? n - 1 : idx;
+#pragma unroll
+      for (int bk = 0; bk < MB; ++bk)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (isnan(best[p][bk][h])) {
+            best[p][bk][h] = __int_as_float(0x7f800000);  // +inf
+            idx[p][bk][h] = -1;
+          }
     }
-    *reinterpret_cast<int2*>(out + (b * 2 * H + 2 * i + a) * 2 * W + 2 * j) =
-        make_int2(pred[0], pred[1]);
+    // the quad: xor 1 pairs the rows (h), xor 2 the blocks; each lane
+    // keeps its own pixel's half and sends the other
+    float rb[4][MB];
+    int ri[4][MB];
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+#pragma unroll
+      for (int bk = 0; bk < MB; ++bk) {
+        float kb = hb ? best[p][bk][1] : best[p][bk][0];
+        int ki = hb ? idx[p][bk][1] : idx[p][bk][0];
+        const float ob = __shfl_xor_sync(
+            0xffffffffu, hb ? best[p][bk][0] : best[p][bk][1], 1);
+        const int oi = __shfl_xor_sync(
+            0xffffffffu, hb ? idx[p][bk][0] : idx[p][bk][1], 1);
+        if (head_better(ob, oi, kb, ki)) {
+          kb = ob;
+          ki = oi;
+        }
+        rb[p][bk] = kb;
+        ri[p][bk] = ki;
+      }
+    int pred[4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      float kb = bb ? rb[p][1] : rb[p][0];
+      int ki = bb ? ri[p][1] : ri[p][0];
+      const float ob =
+          __shfl_xor_sync(0xffffffffu, bb ? rb[p][0] : rb[p][1], 2);
+      const int oi =
+          __shfl_xor_sync(0xffffffffu, bb ? ri[p][0] : ri[p][1], 2);
+      if (head_better(ob, oi, kb, ki)) ki = oi;
+      pred[p] = ki < 0 ? n - 1 : ki == SENT ? 0 : ki;
+    }
+    // pixel m's planes (a, 0), (a, 1) at output row 2 i + a, columns 2 j,
+    // 2 j + 1
+    const long long m = s * PX + bb * 16 + hb * 8 + g;
+    if (m < M) {
+      const int b = (int)m / HW, rem = (int)m % HW, i = rem / W, j = rem % W;
+      int* o = out + (((long long)b * 2 * H + 2 * i) * 2 * W + 2 * j);
+      *reinterpret_cast<int2*>(o) = make_int2(pred[0], pred[1]);
+      *reinterpret_cast<int2*>(o + 2 * W) = make_int2(pred[2], pred[3]);
+    }
+#pragma unroll
+    for (int bk = 0; bk < MB; ++bk) {
+      cur[bk][0] = nxt[bk][0];
+      cur[bk][1] = nxt[bk][1];
+    }
   }
 }
 
@@ -176,18 +430,52 @@ int head_1x1(const void* feats, const void* w, const void* bias, void* out,
   return launch_1x1<T, 32>(feats, w, bias, out, M, n, s);
 }
 
+template <typename T, int NTP>
+int launch_head(const void* feats, const void* w, const void* bias,
+                void* out, int B, int H, int W, int n, cudaStream_t s) {
+  const auto kernel = head_argmax_kernel<T, NTP>;
+  const int ntp = (n + 7) / 8;
+  // the smem of this n; the attribute is set once for the most a form
+  // takes (n = 256 where NTP = 0)
+  const auto bytes = [](int tiles) {
+    return (size_t)4 * tiles * 32 * HeadForm<T>::FW * 4 +
+           (size_t)32 * tiles * 4;
+  };
+  static bool ok = false;
+  static int gm = 0;
+  cudaError_t e = allow_smem(kernel, bytes(NTP ? NTP : 32), &ok);
+  if (e != cudaSuccess) return e;
+  int grid_max = gm;
+  if (grid_max == 0) {
+    if ((e = resident_ctas(kernel, THREADS, bytes(ntp), &grid_max)) !=
+        cudaSuccess)
+      return e;
+    if (NTP) gm = grid_max;   // NTP = 0: the smem varies with n
+  }
+  const long long M = (long long)B * H * W;
+  const long long ctas = ((M + PX - 1) / PX + WARPS - 1) / WARPS;
+  head_argmax_kernel<T, NTP>
+      <<<(unsigned)(ctas < grid_max ? ctas : grid_max), THREADS, bytes(ntp),
+         s>>>(static_cast<const T*>(feats), static_cast<const T*>(w),
+              static_cast<const float*>(bias), static_cast<int*>(out), M, H,
+              W, n, ntp);
+  return cudaGetLastError();
+}
+
 template <typename T>
 int head(const void* feats, const void* w, const void* bias, void* out,
          int B, int H, int W, int n, void* stream) {
-  if (n < 1 || n > 256) return cudaErrorInvalidValue;
-  const long long M = (long long)B * H * W;
-  const size_t smem = (size_t)(K + 1) * 4 * n * sizeof(float);
-  const unsigned grid = (unsigned)((M + THREADS - 1) / THREADS);
-  head_argmax_kernel<T><<<grid, THREADS, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(feats), static_cast<const T*>(w),
-      static_cast<const float*>(bias), static_cast<int*>(out), M, H, W, n);
-  return cudaGetLastError();
+  if (n < 1 || n > 256 || B < 1 || H < 1 || W < 1 ||
+      (long long)B * H * W >= (1LL << 31))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch ((n + 7) / 8) {
+    case 1: return launch_head<T, 1>(feats, w, bias, out, B, H, W, n, s);
+    case 2: return launch_head<T, 2>(feats, w, bias, out, B, H, W, n, s);
+    case 3: return launch_head<T, 3>(feats, w, bias, out, B, H, W, n, s);
+    case 4: return launch_head<T, 4>(feats, w, bias, out, B, H, W, n, s);
+    default: return launch_head<T, 0>(feats, w, bias, out, B, H, W, n, s);
+  }
 }
 
 }  // namespace

@@ -188,13 +188,6 @@ __device__ __forceinline__ void ups32_wgmma(float (&d)[NA],
   wgmma_tf32(*reinterpret_cast<float(*)[N / 2]>(&d[0]), a, b, scale_d);
 }
 
-// cp.async of 8 bytes (the .ca form: .cg copies 16 only)
-__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src));
-}
-
 template <int... U, class F>
 __device__ __forceinline__ void ups32_each(std::integer_sequence<int, U...>,
                                            F&& f) {

@@ -13,12 +13,13 @@ the H100: bytes (the three blocks move far more bytes than their products
 need time).
 
 Forms: bf16 (``erf_downsampler_eval``: the train forward's halo-patch
-conv, ``csrc/down_fwd.cuh``, with the BatchNorm and ReLU in its epilogue;
-it reads the tap stack ``w`` as it is) and f32
-(``erf_downsampler_eval_f32``, the JAX package's default compute dtype:
-f32 maps, an f32 ``wmat``, f32 FMAs on the CUDA cores, no TF32), picked by
-the input's dtype; launches counted apart (``downsampler.launches[""]``
-and ``["_f32"]``).
+conv, ``csrc/down_fwd.cuh``, with the BatchNorm and ReLU in its epilogue)
+and f32 (``erf_downsampler_eval_f32``, the JAX package's default compute
+dtype: f32 maps, nothing rounded but f32's own; ``csrc/down_fwd32.cuh``:
+at Cin = 16 and 64 the same halo-patch frame with a 3xTF32 product on the
+tensor cores, at Cin = 3 the f32 train stem's raw-patch tile on FFMA),
+picked by the input's dtype; both read the tap stack ``w`` as it is.
+Launches counted apart (``downsampler.launches[""]`` and ``["_f32"]``).
 """
 
 from __future__ import annotations
@@ -30,26 +31,16 @@ from ..batchnorm import bn_affine
 from . import _build
 
 
-def _round16(v):
-    return (v + 15) // 16 * 16
-
-
 def prepare_downsampler(sd, prefix, dtype):
     """Block ``prefix`` of a reference state_dict -> kernel operands:
-    ``w`` (3, 3, Cin, Cc) HWIO in ``dtype`` (the bf16 kernel's tap stack);
-    ``wmat`` the same as a (9 Cin, Cc) matrix zero-padded to multiples of
-    16 (the f32 kernel's GEMM operand); ``b`` (Cc,) f32;
-    ``scale``/``shift`` (Cout,) f32."""
+    ``w`` (3, 3, Cin, Cc) HWIO in ``dtype`` (the tap stack both forms
+    read as it is); ``b`` (Cc,) f32; ``scale``/``shift`` (Cout,) f32."""
     w = sd[prefix + ".conv.weight"].permute(2, 3, 1, 0).float()
-    cin, cc = w.shape[2], w.shape[3]
-    wmat = torch.zeros(_round16(9 * cin), _round16(cc), dtype=torch.float32,
-                       device=w.device)
-    wmat[:9 * cin, :cc] = w.reshape(9 * cin, cc)
     scale, shift = bn_affine(sd[prefix + ".bn.weight"],
                              sd[prefix + ".bn.bias"],
                              sd[prefix + ".bn.running_mean"],
                              sd[prefix + ".bn.running_var"])
-    return {"w": w.to(dtype).contiguous(), "wmat": wmat.to(dtype),
+    return {"w": w.to(dtype).contiguous(),
             "b": sd[prefix + ".conv.bias"].float().contiguous(),
             "scale": scale.contiguous(), "shift": shift.contiguous()}
 
@@ -68,9 +59,8 @@ def downsampler_plain(x, p):
 
 def downsampler(x, p):
     """CPU tensor: the plain version.  CUDA tensor: one launch of the
-    kernel's form for x's dtype (bf16 with ``w``, f32 with ``wmat``, in
-    x's dtype; Cin in 3/16/64 with Cc 13/48/64, even H and W), or
-    raise."""
+    kernel's form for x's dtype (bf16 or f32, ``w`` in x's dtype; Cin in
+    3/16/64 with Cc 13/48/64, even H and W), or raise."""
     if x.device.type == "cpu":
         return downsampler_plain(x, p)
     B, H, W, cin = x.shape
@@ -79,13 +69,9 @@ def downsampler(x, p):
         raise ValueError(f"downsampler kernel: unsupported shape {x.shape} "
                          f"-> Cc {cc}")
     form = _build.kernel_form(x, "x")
-    if form:    # f32: the zero-padded (9 Cin, Cc) matrix
-        wk = p["wmat"]
-        _build.require(wk, "wmat", x.dtype, x.device,
-                       (_round16(9 * cin), _round16(cc)))
-    else:       # bf16: the (3, 3, Cin, Cc) tap stack as it is
-        _build.require(p["w"], "w", x.dtype, x.device, (3, 3, cin, cc))
-        wk = _build.taps(p["w"], x.dtype)   # 16-byte aligned
+    # the (3, 3, Cin, Cc) tap stack as it is, 16-byte aligned
+    _build.require(p["w"], "w", x.dtype, x.device, (3, 3, cin, cc))
+    wk = _build.taps(p["w"], x.dtype)
     for name, n in (("b", cc), ("scale", cin + cc), ("shift", cin + cc)):
         _build.require(p[name], name, torch.float32, x.device, (n,))
     lib = _build.library("downsampler")

@@ -11,16 +11,18 @@ Function: ConvTranspose2d(16, n, k2 s2) as the parity-plane matmul
 feats (M, 16) @ W (16, 4n) + bias, logits rounded to bf16 when the feats
 are bf16, first-max argmax over n per plane, a plane holding a NaN gives
 n - 1; predictions int32 (B, 2H, 2W).  Logits never reach device memory.
-Bound on the H100: this version does the 16 x 4n FMAs per pixel in f32 on
-the CUDA cores, so it is bound by their issue rate rather than by its
-48 bytes per feature pixel.
+The product runs on the tensor cores (``mma.sync``: bf16 m16n8k16, f32
+3xTF32 m16n8k8), the argmax in registers (each lane's first maximum, then
+its quad's by xor-shuffles).  Bound on the H100: bytes in bf16 (48 per
+feature pixel); at f32 the 16 x 4n MACs against the f32 rate, or the
+bytes under 3xTF32.
 
 Forms of both kernels: bf16 feats with a bf16 W (``erf_head_argmax``,
 ``erf_head_argmax_1x1``) and f32 feats with an f32 W (the ``_f32`` entry
 points; the JAX package's default compute dtype), picked by the feats'
-dtype.  The f32 form runs the same f32 FMAs and leaves the logits
-unrounded (the TPU kernel's ``round_bf16`` is false at f32).  W must be in
-the feats' dtype and the bias f32.  Launches are counted apart
+dtype.  The f32 form leaves the logits unrounded (the TPU kernel's
+``round_bf16`` is false at f32).  W must be in the feats' dtype and the
+bias f32.  Launches are counted apart
 (``launches[""]``, ``launches["_f32"]``).
 """
 
@@ -69,6 +71,8 @@ def head_argmax(feats, p):
     if K != 16:
         raise ValueError(f"head_argmax kernel takes 16 channels, got {K}")
     form = _build.kernel_form(feats, "feats")
+    if feats.data_ptr() % 16:
+        raise ValueError("head_argmax kernel: feats must be 16-byte aligned")
     _build.require(p["w"], "w", feats.dtype, feats.device, (K, 4 * n))
     _build.require(p["b"], "b", torch.float32, feats.device, (4 * n,))
     lib = _build.library("head_argmax")

@@ -371,7 +371,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev, sd):
         downsampler.downsampler(x16, q)
     for dt in (torch.float16, torch.float64):
         with pytest.raises(TypeError):
-            downsampler.downsampler(x16.to(dt), dict(q, wmat=q["wmat"].to(dt)))
+            downsampler.downsampler(x16.to(dt), dict(q, w=q["w"].to(dt)))
     u = _on(upsampler.prepare_upsampler(sd, "decoder.layers.3", F32), dev)
     x64 = torch.zeros(1, 4, 4, 64, device=dev)
     with pytest.raises(TypeError):                          # bf16 x, f32 w
@@ -1969,3 +1969,84 @@ def test_downsampler_eval_halo_patch_ragged_tiles(dev, sd, prefix, shape):
     assert _launched(downsampler.downsampler, BF) - n0 == 2
     _close(got, downsampler.downsampler_plain(x, p))
     assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("prefix,shape", [
+    ("encoder.initial_block", (3, 70, 198, 3)),
+    ("encoder.initial_block", (2, 2, 2, 3)),
+    ("encoder.layers.0", (2, 38, 70, 16)),
+    ("encoder.layers.0", (5, 66, 258, 16)),
+    ("encoder.layers.0", (1, 4, 6, 16)),
+    ("encoder.layers.6", (2, 22, 134, 64)),
+    ("encoder.layers.6", (9, 34, 130, 64)),
+    ("encoder.layers.6", (1, 2, 2, 64)),
+    ("encoder.layers.6", (2, 128, 256, 64))])
+def test_downsampler_f32_halo_patch_ragged_tiles(dev, sd, prefix, shape):
+    """The f32 eval block: at Cin = 16 and 64 the halo-patch forward with
+    its 3xTF32 product (4 and 2 x 32 output pixels a tile, the taps
+    resident at 16 and streamed at 64), at Cin = 3 the raw-patch tile
+    (8 x 32): output maps whose rows and columns leave the last tile
+    short, maps smaller than one tile, more tiles than the card's CTAs
+    (each CTA several tiles, the next patch in flight), pool windows of
+    tied values, negative values for the ReLU; phase 20's map rule, one
+    launch a call, bit-identical twice."""
+    p = _on(downsampler.prepare_downsampler(sd, prefix, F32), dev)
+    x = _rn(*shape, seed=shape[-1] + shape[1])
+    x[:, :2, :2, :] = 0.5                          # four tied values
+    x = x.to(dev)
+    n0 = _launched(downsampler.downsampler, F32)
+    got = downsampler.downsampler(x, p)
+    again = downsampler.downsampler(x, p)
+    torch.cuda.synchronize()
+    assert _launched(downsampler.downsampler, F32) - n0 == 2
+    _close(got, downsampler.downsampler_plain(x, p))
+    assert torch.equal(again, got)
+
+
+def _head_case(n, dtype, seed, shape=(2, 7, 37)):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(*shape, 16, generator=g).relu()
+    w = 0.25 * torch.randn(16, 4 * n, generator=g)
+    b = 0.1 * torch.randn(4 * n, generator=g)
+    return x, {"w": w.to(dtype), "b": b, "n_classes": n}
+
+
+@pytest.mark.parametrize("n", [1, 20, 33, 256])
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_head_argmax_tensor_cores_ties_nan_classes(dev, n, dtype):
+    """The decoder head on the tensor cores: 2 x 7 x 37 feature pixels (a
+    ragged last warp step of 32), n = 1, 20 (the path's), 33 and 256 (the
+    tiles of a plane looped); equal to the plain version off its
+    near-ties, two calls bit-identical; a NaN feature pixel gives n - 1 on
+    its four planes; classes 3 and 7 with one W column and bias, planted
+    the largest of every plane, give 3 (the lower index) everywhere."""
+    x, p = _head_case(n, dtype, seed=n)
+    x[1, 2, 3, 4] = float("nan")
+    x, p = x.to(dev, dtype), _on(p, dev)
+    n0 = _launched(head_argmax.head_argmax, dtype)
+    got = head_argmax.head_argmax(x, p)
+    again = head_argmax.head_argmax(x, p)
+    torch.cuda.synchronize()
+    assert _launched(head_argmax.head_argmax, dtype) - n0 == 2
+    assert torch.equal(again, got)
+    ref = head_argmax.head_argmax_plain(x, p)
+    assert (got[1, 4:6, 6:8] == n - 1).all()
+    assert (ref[1, 4:6, 6:8] == n - 1).all()
+    z = (x.reshape(-1, 16).float() @ p["w"].float() + p["b"]).to(dtype)
+    if n > 1:
+        tie = _ties(z.reshape(2, 7, 37, 2, 2, n), dtype)
+        tie = tie.permute(0, 1, 3, 2, 4).reshape(2, 14, 74)
+    else:
+        tie = torch.zeros_like(got, dtype=torch.bool)
+    assert ((got != ref) & ~tie).sum().item() == 0
+    if n > 7:
+        w, b = p["w"].clone(), p["b"].clone()
+        for pl in range(4):
+            b[pl * n + 3] += 100.0
+            w[:, pl * n + 7] = w[:, pl * n + 3]
+            b[pl * n + 7] = b[pl * n + 3]
+        tied = head_argmax.head_argmax(x, dict(p, w=w, b=b))
+        nan = torch.zeros_like(tied, dtype=torch.bool)
+        nan[1, 4:6, 6:8] = True
+        assert (tied[~nan] == 3).all() and (tied[nan] == n - 1).all()
+
