@@ -13,14 +13,17 @@ and 14) at their B=4 shapes in bf16 and in f32, of the bf16 eval NB1d
 blocks (row 1 the halo-tile block at 512x1024, row 2 at 1024x2048, row 3
 the C=128 blocks, row 3p the W-packed runs, each a launch a block), of
 the int8 NB1d block (row 24 the C=64 and C=16 blocks, row 25 the C=128
-run at 512x1024 and 1024x2048) and of every NB1d block at f32 at their
+run at 512x1024 and 1024x2048, row 25p the W-packed int8 runs) and of
+every NB1d block at f32 at their
 B=4 shapes, of the train NB1d conv pair (rows 21, 22 and 23 at C=64 and
 C=128, and at C=16, a forward and a backward of each distinct lead,
 shape and dilation of the B=6 steps, weighted by its calls per step) and
 of the head + class-weighted NLL (row 17 at G=1 and G=4, forward and
 backward), of the decoder head + argmax (rows 15, 16 G4) and the
-encoder's 1x1 head + argmax (row 16 G1, the B=6 eval batch), each in
-bf16 and in f32, by launch: CUDA events, device time by kernel
+encoder's 1x1 head + argmax (row 16 G1, the B=6 eval batch, L2-warm as
+the eval step finds the feats; "16 G1 cold": rotating over copies of
+the feats that together exceed the 50 MB L2), each in bf16 and in f32,
+by launch: CUDA events, device time by kernel
 (torch.profiler) and the host's enqueue time, with the
 library's call for the same function by device time beside each forward
 and rows 5, 5 on g = gy, 8, 11, 13, the pair and row 17 (cuDNN's forward
@@ -215,11 +218,14 @@ run after phase 9:
 17. Head+argmax parity: the encoder's 1x1 head + argmax kernel
     ``head_argmax_1x1`` against its plain version on the card at the
     encoder-stage eval batch (49152, 128) -> 20, a ragged M with NaN rows
-    (the last class) and a planted exact tie (the first max wins),
-    phase 2's near-tie rule; its device time per B=6 call (torch.profiler:
-    a call is as short as the host's time to launch it, so CUDA events
-    would time the host) beside the plain version's, its bound and that
-    of ``torch.addmm`` + ``argmax`` on the same inputs.
+    (the last class) and a zero row, n = 1, 8, 19, 20 and 32 at M = 1037
+    (one to four n8 tiles, padded columns), and a planted exact tie (the
+    first max wins), phase 2's near-tie rule; its device time per B=6
+    call (torch.profiler: a call is as short as the host's time to launch
+    it, so CUDA events would time the host), L2-warm and cold (rotating
+    over copies of the feats beyond the 50 MB L2), beside the plain
+    version's, its bound and that of ``torch.addmm`` + ``argmax`` on the
+    same inputs.
 18. Eval steps: ``make_eval_step`` of both stages at B=6 on 512x1024
     uint8 frames, bf16: launch counts per eval batch (encoder stage 3 /
     5 / 8 / 2 / 1: downsampler / nb1d_halo / nb1d / head+loss forward /
@@ -340,6 +346,7 @@ BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12          # f32 on the CUDA cores (no tensor cores)
 TF32_FLOPS_PER_S = 494.7e12      # dense TF32 tensor-core peak
 INT8_OPS_PER_S = 1979e12         # dense int8 tensor-core peak
+L2_BYTES = 50 * 2 ** 20          # H100 SXM L2 cache
 N_CLASSES = 20
 ITERS = 20                       # timed iterations per kernel measurement
 # launches per forward; nb1d's is the 8 blocks of the C=128 run times its
@@ -1843,30 +1850,10 @@ def phase_f32_parity(sd, device):
                         worst))
         torch.cuda.synchronize()
 
-    for M in (HEAD1_M, 1037):
-        f, w, b = _head1_inputs(sd, M, g, device, f32)
-        if M != HEAD1_M:
-            f[5] = float("nan")
-            f[9, 3] = float("nan")
-            f[11] = 0                    # every logit is its bias
-        got = head_argmax.head_argmax_1x1(f, w, b)
-        ref = head_argmax.head_argmax_1x1_plain(f, w, b)
-        tie = f32_ties(f @ w + b)
-        tie[~torch.isfinite(f).all(-1)] = False
+    for case in head1_cases(sd, g, device, f32):
         errs["head_argmax_1x1"] = max(errs["head_argmax_1x1"],
-                                      compare_preds_f32(
-            f"head_argmax_1x1 ({M}, 128) -> 20", got, ref, tie, worst))
-        if M != HEAD1_M and (got[5].item() != N_CLASSES - 1
-                             or got[9].item() != N_CLASSES - 1):
-            raise PhaseError("f32 1x1 head: a NaN row does not give the "
-                             "last class")
-    f, w, b = _head1_inputs(sd, 4096, g, device, f32)
-    w, b = w.clone(), b.clone()
-    w[:, 7], b[7] = w[:, 3], b[3] + 1e3
-    b[3] += 1e3
-    if not (head_argmax.head_argmax_1x1(f, w, b) == 3).all():
-        raise PhaseError("f32 1x1 head: the first of two equal maxima does "
-                         "not win")
+                                      head1_check(*case, worst))
+    head1_planted_tie(sd, g, device, f32)
     log("  f32 1x1 head, planted tie: the first max wins at every row")
     torch.cuda.synchronize()
     log(f"  measured maxima: norm rel {worst['norm']:.3e} (limit "
@@ -2064,10 +2051,14 @@ def phase_f32_timing(sd, device, iters):
         "bound_ms": max(byte_ms, op_ms),
         "bound_by": "bytes" if byte_ms >= op_ms else "operations",
         "library_ms": dev_ms["addmm + argmax"]}
+    cold = {k: _device_ms(head1_cold(fn, f), iters) for k, fn in (
+        ("kernel", lambda x: head_argmax.head_argmax_1x1(x, w, b)),
+        ("addmm + argmax", lambda x: torch.addmm(b, x, w).argmax(-1)))}
     log(f"  head_argmax_1x1_f32 B=6 ({HEAD1_M}, 128) -> 20, device time: "
-        f"kernel {dev_ms['kernel']:.4f} ms, plain {dev_ms['plain']:.4f}, "
-        f"bound {max(byte_ms, op_ms):.4f}, addmm + argmax f32 "
-        f"{dev_ms['addmm + argmax']:.4f}")
+        f"kernel {dev_ms['kernel']:.4f} ms (cold {cold['kernel']:.4f}), "
+        f"plain {dev_ms['plain']:.4f}, bound {max(byte_ms, op_ms):.4f}, "
+        f"addmm + argmax f32 {dev_ms['addmm + argmax']:.4f} (cold "
+        f"{cold['addmm + argmax']:.4f})")
 
     x = torch.rand((4,) + SERVE_HW + (3,), generator=g).to(device)
     for _ in range(2):
@@ -3579,9 +3570,9 @@ def split_calls(device, dtype):
     12, 10) and its backward with and without (rows 13, 11); the eval
     downsampler and upsampler (rows 9, 14), the decoder head + argmax
     (rows 15, 16 G4) and the NB1d blocks (bf16 rows 1 and 3; f32 "1-3
-    C128", "1-3 C64", "1-3 C16"; the int8 rows "24 C64", "24 C16", 25 and
-    "25 2k", ``q8_split_calls``) at their B=4 serving shapes, weighted by
-    their calls per forward;
+    C128", "1-3 C64", "1-3 C16"; the int8 rows "24 C64", "24 C16", 25,
+    "25 2k" and 25p, ``q8_split_calls``) at their B=4 serving shapes,
+    weighted by their calls per forward;
     the train NB1d conv pair (rows 21, 22, 23 at C=64 and C=128, "21 C16"
     .. "23 C16"), a forward and a backward call of each distinct (lead,
     shape, dilation) of ``pair_cases`` and ``dec_pair_cases``, weighted by
@@ -3589,7 +3580,8 @@ def split_calls(device, dtype):
     (C=16); and the head + class-weighted NLL forward and backward (row 17
     at G=1, the encoder stage's; "17 G4", stage 2's), one call each a
     step; the encoder's 1x1 head + argmax (row "16 G1") at the B=6 eval
-    batch, beside ``addmm`` + ``argmax``.  ``yardstick``: the library's
+    batch, beside ``addmm`` + ``argmax``, and the same with its feats
+    cold (row "16 G1 cold", ``head1_cold``).  ``yardstick``: the library's
     call for the same function, timed and never on the path: cuDNN's
     (the forward conv of a forward of the
     downsampler, the stem's on its translated image; its
@@ -3701,6 +3693,12 @@ def split_calls(device, dtype):
         lambda f=f, w1=w1, b1=b1: head_argmax.head_argmax_1x1(f, w1, b1)),
         lambda f=f, w1=w1, b=b1.to(dtype):
         torch.addmm(b, f, w1).argmax(-1), 1))
+    # the same, cold: each call on one of copies of the feats beyond L2
+    calls.append(("16 G1 cold", f"head1 {HEAD1_K}->{N_CLASSES} cold",
+                  head1_cold(lambda x, w1=w1, b1=b1:
+                             head_argmax.head_argmax_1x1(x, w1, b1), f),
+                  head1_cold(lambda x, w1=w1, b=b1.to(dtype):
+                             torch.addmm(b, x, w1).argmax(-1), f), 1))
     # the serving NB1d blocks at B=4 512x1024: bf16 rows 1 (nb1d_halo, C=64
     # and C=16), 3 (nb1d, C=128) and 3p (the W-packed runs, a halo-tile
     # launch a block, their biases rounded as a stack's), and row 2
@@ -3772,7 +3770,9 @@ def split_calls(device, dtype):
 def q8_split_calls(sd, device, g):
     """``split_calls``' entries of the int8 block ``nb1d_q8`` (rows 24, 25
     and "25 2k"): each case of ``q8_cases(4)`` at its calls per forward,
-    the yardstick ``_lib_q8`` (None where ``torch._int_mm`` refuses)."""
+    the yardstick ``_lib_q8`` (None where ``torch._int_mm`` refuses); and
+    row 25p, each int8 W-packed run of the gate-on path (``packed_runs``
+    with the scales) beside ``_lib_q8`` for each of its blocks."""
     import torch
     from erfnet_pytorch_tpu_torch.ops.cuda import nb1d_q8 as q8
     from erfnet_pytorch_tpu_torch.quantize import calibrate_q8_scales
@@ -3793,21 +3793,32 @@ def q8_split_calls(sd, device, g):
                               lambda x=x, p=p, dout=dout:
                               q8.nb1d_q8(x, p, dout)),
                           _lib_q8(shape, g, device), n))
+    for label, C, blocks, run in packed_runs(sd, device, scales):
+        shape = {64: (4, 128, 256, 64), 16: (4, 256, 512, 16)}[C]
+        x = torch.rand(*shape, generator=g).to(device).to(torch.bfloat16)
+        lib = _lib_q8(shape, g, device)
+        calls.append(("25p", label, (lambda x=x, run=run: run(x)),
+                      None if lib is None else
+                      (lambda lib=lib, k=len(blocks): [lib()
+                                                       for _ in range(k)]),
+                      1))
     return calls
 
 
-def packed_runs(sd, device):
+def packed_runs(sd, device, scales=None):
     """The bf16 W-packed runs of a 512x1024 forward with the JAX gate of
-    the packed stacks on (row 3p): (label, C, the operands of its blocks,
-    run(x) through the kernels), each run one call of
-    ``inference._nb1d_stack`` (a halo-tile launch a block, the biases
-    rounded as a stack's)."""
+    the packed stacks on (row 3p), or with int8 ``scales`` its int8 runs
+    (row 25p): (label, C, the operands of its blocks, run(x) through the
+    kernels), each run one call of ``inference._nb1d_stack`` (a halo-tile
+    launch a block, the biases rounded as a stack's) or
+    ``inference._nb1d_q8_stack`` (an ``nb1d_q8`` launch a block, the f32
+    carry between blocks)."""
     import torch
     from erfnet_pytorch_tpu_torch import inference as inf
     saved = inf._PACKED_STACKS
     inf._PACKED_STACKS = True
     try:
-        prep = inf.prepare(sd, torch.bfloat16, device)
+        prep = inf.prepare(sd, torch.bfloat16, device, scales)
     finally:
         inf._PACKED_STACKS = saved
     return [(label, C, blocks, lambda x, run=run: run(x, inf.KERNEL_OPS))
@@ -3851,10 +3862,10 @@ def _lib_head_loss(feats, w, b, labels, cw):
 
 def yardstick_name(row):
     """The library call a split row is timed beside (``split_calls``):
-    ``torch._int_mm``'s products for the int8 rows 24 and 25, the PyTorch
-    calls of the heads' rows 15-17, else cuDNN's."""
+    ``torch._int_mm``'s products for the int8 rows 24, 25 and 25p, the
+    PyTorch calls of the heads' rows 15-17, else cuDNN's."""
     first = str(row).split()[0]
-    return {"24": "_int_mm", "25": "_int_mm",
+    return {"24": "_int_mm", "25": "_int_mm", "25p": "_int_mm",
             "15,": "conv_transpose2d + argmax", "16": "addmm + argmax",
             "17": "addmm + cross_entropy"}.get(first, "cuDNN")
 
@@ -3936,22 +3947,101 @@ def compare_preds(name, got, ref, tie):
     return float((got - ref).abs()[keep].max()) if keep.any() else 0.0
 
 
-def _head1_inputs(sd, M, g, device, dtype=None):
-    """Post-ReLU feats (M, 128), W (128, 20) in the feats' dtype (as the
-    kernel takes it) and the f32 bias."""
+def _head1_inputs(sd, M, g, device, dtype=None, n=N_CLASSES):
+    """Post-ReLU feats (M, 128), W (128, n) in the feats' dtype (as the
+    kernel takes it) and the f32 bias: the encoder's head at n = 20, else
+    seeded from ``g``."""
     import torch
     dtype = dtype or torch.bfloat16
     f = torch.randn(M, HEAD1_K, generator=g).clamp_min(0).to(dtype)
-    w = sd["encoder.output_conv.weight"][:, :, 0, 0].t().contiguous()
-    b = sd["encoder.output_conv.bias"].float()
+    if n == N_CLASSES:
+        w = sd["encoder.output_conv.weight"][:, :, 0, 0].t().contiguous()
+        b = sd["encoder.output_conv.bias"].float()
+    else:
+        w = 0.1 * torch.randn(HEAD1_K, n, generator=g)
+        b = 0.1 * torch.randn(n, generator=g)
     return f.to(device), w.to(device, dtype), b.to(device)
+
+
+def head1_cases(sd, g, device, dtype):
+    """The 1x1 head's checked cases: (name, feats, W, b) at the B=6 eval
+    batch, at a ragged M = 1037 with an all-NaN row 5, a NaN in row 9
+    and a zero row 11 (every logit its bias), and at M = 1037 for n = 1,
+    8, 19 and 32 (one to four n8 tiles, padded columns)."""
+    cases = []
+    for M, n in ((HEAD1_M, N_CLASSES), (1037, N_CLASSES), (1037, 1),
+                 (1037, 8), (1037, 19), (1037, 32)):
+        f, w, b = _head1_inputs(sd, M, g, device, dtype, n)
+        if M != HEAD1_M and n == N_CLASSES:
+            f[5] = float("nan")
+            f[9, 3] = float("nan")
+            f[11] = 0
+        cases.append((f"head_argmax_1x1 ({M}, 128) -> {n}", f, w, b))
+    return cases
+
+
+def head1_check(name, f, w, b, worst=None):
+    """``head_argmax_1x1`` against its plain version off the plain
+    version's near-ties (bf16 ``head1_ties``; f32 ``f32_ties``, counted
+    into ``worst``); rows holding a NaN give n - 1 and a zero row its
+    bias's first maximum.  Returns the error off the ties."""
+    import torch
+    from erfnet_pytorch_tpu_torch.ops.cuda.head_argmax import (
+        head_argmax_1x1, head_argmax_1x1_plain)
+    n = w.shape[1]
+    got = head_argmax_1x1(f, w, b)
+    torch.cuda.synchronize()
+    ref = head_argmax_1x1_plain(f, w, b)
+    if n == 1:
+        tie = torch.zeros_like(ref, dtype=torch.bool)
+    elif f.dtype == torch.bfloat16:
+        tie = head1_ties(f, w, b)
+    else:
+        tie = f32_ties(f @ w + b)
+    nan = ~torch.isfinite(f.float()).all(-1)
+    tie[nan] = False
+    err = (compare_preds(name, got, ref, tie) if worst is None
+           else compare_preds_f32(name, got, ref, tie, worst))
+    if nan.any() and not (got[nan] == n - 1).all():
+        raise PhaseError(f"{name}: a NaN row does not give the last class")
+    zero = (f == 0).all(-1)
+    if zero.any():
+        zb = b.to(f.dtype).float() if f.dtype == torch.bfloat16 else b
+        if not (got[zero] == int(zb.argmax())).all():
+            raise PhaseError(f"{name}: a zero row does not give the first "
+                             "maximum of its bias")
+    return err
+
+
+def head1_planted_tie(sd, g, device, dtype):
+    """Classes 3 and 7 with one W column and bias, planted the largest of
+    every row: every prediction 3."""
+    from erfnet_pytorch_tpu_torch.ops.cuda.head_argmax import head_argmax_1x1
+    f, w, b = _head1_inputs(sd, 4096, g, device, dtype)
+    w, b = w.clone(), b.clone()
+    w[:, 7], b[7] = w[:, 3], b[3] + 1e3
+    b[3] += 1e3
+    if not (head_argmax_1x1(f, w, b) == 3).all():
+        raise PhaseError(f"head_argmax_1x1 {str(dtype)[6:]}: the first of "
+                         "two equal maxima does not win")
+
+
+def head1_cold(call, f):
+    """``call(feats)`` as a call of no arguments that rotates over copies
+    of ``f`` totalling more than the 50 MB L2 (at least two), so that
+    each call finds its feats cold."""
+    import itertools
+    k = max(2, -(-L2_BYTES // (f.numel() * f.element_size())) + 1)
+    it = itertools.cycle([f.clone() for _ in range(k)])
+    return lambda: call(next(it))
 
 
 def phase_head1(sd, device, iters):
     """The encoder's 1x1 head + argmax kernel against its plain version on
-    the card at the encoder-stage eval batch (49152, 128) -> 20, a ragged
-    M with an all-NaN row and a row of one NaN (both give n - 1), and a
-    planted exact tie (the first max wins); then its device time at B=6
+    the card (``head1_cases``: the encoder-stage eval batch (49152, 128)
+    -> 20, a ragged M with an all-NaN row and a row of one NaN (both give
+    n - 1) and a zero row, n = 1, 8, 19, 32), and a planted exact tie
+    (the first max wins); then its device time at B=6, L2-warm and cold,
     beside the plain version's, its bound and ``torch.addmm`` +
     ``argmax``'s."""
     import torch
@@ -3959,32 +4049,9 @@ def phase_head1(sd, device, iters):
         head_argmax_1x1, head_argmax_1x1_plain)
     log("[head1] head_argmax_1x1 against its plain version")
     g = torch.Generator().manual_seed(31)
-    err = 0.0
-    for M in (HEAD1_M, 1037):
-        f, w, b = _head1_inputs(sd, M, g, device)
-        if M != HEAD1_M:
-            f[5] = float("nan")
-            f[9, 3] = float("nan")
-            f[11] = 0                    # every logit is its bias
-        got = head_argmax_1x1(f, w, b)
-        torch.cuda.synchronize()
-        ref = head_argmax_1x1_plain(f, w, b)
-        tie = head1_ties(f, w, b)
-        tie[~torch.isfinite(f.float()).all(-1)] = False
-        err = max(err, compare_preds(f"head_argmax_1x1 ({M}, 128) -> 20",
-                                     got, ref, tie))
-        if M != HEAD1_M:
-            if got[5].item() != N_CLASSES - 1 or got[9].item() != N_CLASSES - 1:
-                raise PhaseError("a NaN row does not give the last class")
-    # a planted exact tie: two equal columns of W and bias
-    f, w, b = _head1_inputs(sd, 4096, g, device)
-    w, b = w.clone(), b.clone()
-    w[:, 7], b[7] = w[:, 3], b[3] + 1e3
-    b[3] += 1e3
-    got = head_argmax_1x1(f, w, b)
-    if not (got == 3).all():
-        raise PhaseError("head_argmax_1x1: the first of two equal maxima "
-                         "does not win")
+    err = max(head1_check(*case)
+              for case in head1_cases(sd, g, device, torch.bfloat16))
+    head1_planted_tie(sd, g, device, torch.bfloat16)
     log("  planted tie: the first max wins at every row")
 
     f, wb, b = _head1_inputs(sd, HEAD1_M, g, device)
@@ -4000,6 +4067,12 @@ def phase_head1(sd, device, iters):
     ev_ms = {k: _time(fn, iters) for k, fn in calls.items()}
     log("  CUDA events over a loop of calls (host-bound): " + ", ".join(
         f"{k} {v:.4f} ms" for k, v in ev_ms.items()))
+    cold = {"kernel": head1_cold(lambda x: head_argmax_1x1(x, wb, b), f),
+            "addmm + argmax": head1_cold(
+                lambda x: torch.addmm(bb, x, wb).argmax(-1), f)}
+    log("  cold (rotating over copies of the feats beyond the 50 MB L2), "
+        "device time per call: " + ", ".join(
+            f"{k} {_device_ms(fn, iters):.4f} ms" for k, fn in cold.items()))
     ms, plain_ms, lib_ms = (dev_ms[k] for k in calls)
     nbytes = f.numel() * 2 + HEAD1_M * 4 + wb.numel() * 2 + b.numel() * 4
     flops = 2 * HEAD1_M * HEAD1_K * N_CLASSES

@@ -62,23 +62,40 @@
 // it): the same sum in f32 (bf16 x bf16 products are exact), the same
 // rounding, the same first-max rule, and a pixel with a NaN logit gives
 // n - 1 as that kernel's clamp does.  The TPU kernel computes the logits
-// transposed so that the argmax is a sublane reduction; here each thread
-// owns one pixel and keeps its n logits in registers.
+// transposed so that the argmax is a sublane reduction; here the product
+// runs on the tensor cores and the argmax in registers, as in (1).
+//
+// A warp takes the pixels an m16 block (16 rows) at a time, from a grid
+// of one wave of persistent CTAs (resident_ctas), and loads the next
+// block's rows before the products of this one.  The K order is permuted
+// so that the A fragments are plain 16-byte loads: lane (g, t)'s load q
+// is the 16 bytes at 64 q + 16 t of rows g and g + 8, so each load of the
+// warp reads 64 contiguous bytes of each of its 16 rows and a quad reads
+// a row whole; each load makes two k steps (bf16: four loads, eight
+// m16n8k16 steps; f32: eight loads, sixteen m16n8k8 steps).  W (128 x n)
+// is laid out once a CTA in shared memory as the lanes' B fragments,
+// permuted the same way, the classes padded to n8 tiles (NT = 1 .. 4, 3
+// at n = 20); the lane's bias columns stay in registers.  f32: 3xTF32 as
+// in (1), W split into TF32 hi and lo once a CTA, the rows split in
+// registers.  Epilogue: the bias added after the sum, the logits rounded
+// to bf16 in the bf16 form, head_fold over the lane's columns of its two
+// rows (padded columns excluded by their index), then two xor exchanges
+// in the quad, the first halving the rows a lane carries; lanes t = 0, 1
+// store a block's 16 predictions, 64 contiguous bytes.  mma.sync and not
+// wgmma: N is at most 32 columns, and an m64 warpgroup tile would need
+// the pixels staged in shared memory to feed a product that does not
+// bound the kernel.
 //
 // Bound on this card: bytes, 256 read and 4 written per pixel (12.8 MB at
-// the B=6 512x1024 encoder stage, about 3.8 us at 3.35 TB/s); the 128 x n
-// FMAs per pixel run on the CUDA cores in f32, so this simple version is
-// bound by its f32 FMAs and shared-memory reads of W instead (W and the bias
-// stay in shared memory, padded to NP classes, read as broadcasts; the
-// feature row comes in as sixteen 16-byte loads).  The tensor cores are
-// the next step.
+// the B=6 512x1024 encoder stage, about 3.8 us at 3.35 TB/s), which fit in
+// the 50 MB L2 when the encoder has just written them; f32 512 read (7.6
+// us), the 128 x n MACs a pixel far below that on the tensor cores.
+// Measured: PERF.md §6 rows 16 G1, 16 G1 f32.
 // (3) The f32 forms of both (the JAX package's default compute dtype,
 // eval_iou and the other eval CLIs without --bf16): the same kernels as
 // templates on the element type T of feats and W.  At f32 the feats and W
-// are read as f32 (the 1x1 head's 512-byte feature row as thirty-two
-// 16-byte loads) and the logits are not rounded: the TPU kernel's
+// are read as f32 and the logits are not rounded: the TPU kernel's
 // round_bf16 is false at f32.  The first-max and NaN rules are the same.
-// The 1x1 head's bound at f32: bytes (512 read, 4 written per pixel).
 #include <type_traits>
 
 #include "common.cuh"
@@ -356,64 +373,213 @@ head_argmax_kernel(const T* __restrict__ feats, const T* __restrict__ w,
   }
 }
 
-constexpr int K1 = 128, THREADS1 = 128;
+constexpr int K1 = 128, WARPS1 = 8, CTA1 = 32 * WARPS1;
 
-template <typename T, int NP>
-__global__ void __launch_bounds__(THREADS1)
+// per form: Q 16-byte loads of a row a lane (its 32 of the row's 128
+// channels), each E channels; BW: the uint4 words of a lane's B fragments
+// for one load's channels of an n8 tile (bf16 the bf16 pairs; f32 the
+// TF32 hi parts, then the lo parts)
+template <typename T>
+struct Head1Form;
+template <>
+struct Head1Form<bf16> {
+  static constexpr int Q = 4, E = 8, BW = 1, MIN_CTAS = 2;
+};
+template <>
+struct Head1Form<float> {
+  static constexpr int Q = 8, E = 4, BW = 2, MIN_CTAS = 1;
+};
+
+// NT: the n8 tiles of the classes (ceil(n / 8), 1 .. 4)
+template <typename T, int NT>
+__global__ void __launch_bounds__(CTA1, Head1Form<T>::MIN_CTAS)
 head_argmax_1x1_kernel(const T* __restrict__ feats,
                        const T* __restrict__ w,
                        const float* __restrict__ bias, int* __restrict__ out,
                        long long M, int n) {
-  __shared__ __align__(16) float Ws[K1 * NP];  // (K1, NP), zero past n
-  __shared__ float bs[NP];
-  for (int i = threadIdx.x; i < K1 * NP; i += blockDim.x) {
-    const int k = i / NP, c = i % NP;
-    Ws[i] = c < n ? to_f32(w[k * n + c]) : 0.0f;
+  using F = Head1Form<T>;
+  constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr int Q = F::Q, E = F::E, BW = F::BW;
+  // B fragments of load q, tile j, word b, lane l at Bf[((q NT + j) BW +
+  // b) 32 + l]: a warp's read of one word is 512 contiguous bytes
+  __shared__ uint4 Bf[Q * NT * BW * 32];
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const long long blocks = (M + 15) / 16;
+  const long long stride = (long long)gridDim.x * WARPS1;
+  // rows g and g + 8 (h) of m16 block sb: load q of lane t is the row's
+  // 16 bytes at 64 q + 16 t (channels E (4 q + t) ..), so that each load
+  // of the warp reads 64 contiguous bytes of each of its rows; zero past M
+  auto load = [&](long long sb, uint4 (&r)[2][Q]) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long m = sb * 16 + h * 8 + g;
+      const uint4* src =
+          reinterpret_cast<const uint4*>(feats + m * K1) + t;
+#pragma unroll
+      for (int q = 0; q < Q; ++q)
+        r[h][q] = m < M ? __ldg(src + 4 * q) : make_uint4(0, 0, 0, 0);
+    }
+  };
+  long long s = (long long)blockIdx.x * WARPS1 + threadIdx.x / 32;
+  uint4 cur[2][Q];
+  if (s < blocks) load(s, cur);   // in flight while W is laid out
+
+  // lane l = (g', t') of tile j, load q: column 8 j + g', W rows k0 ..
+  // k0 + E - 1 (k0 = E (4 q + t')), the channels lane t' holds of load q
+#pragma unroll
+  for (int v0 = 0; v0 < Q * NT * 32; v0 += CTA1) {
+    const int v = v0 + threadIdx.x;
+    if (v >= Q * NT * 32) break;
+    const int l = v % 32, j = (v / 32) % NT, q = v / (32 * NT);
+    const int col = 8 * j + (l >> 2), k0 = E * (4 * q + (l & 3));
+    const T* src = w + (size_t)k0 * n + col;
+    uint4* dst = Bf + (size_t)(q * NT + j) * BW * 32 + l;
+    if constexpr (F32) {
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        split_tf32(col < n ? __ldg(src + (size_t)k * n) : 0.0f, hi[k], lo[k]);
+      dst[0] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      dst[32] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    } else {
+      uint32_t p[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        p[k] = col < n ? bf16_bits(src[(size_t)2 * k * n]) |
+                             bf16_bits(src[(size_t)(2 * k + 1) * n]) << 16
+                       : 0u;
+      dst[0] = make_uint4(p[0], p[1], p[2], p[3]);
+    }
   }
-  for (int i = threadIdx.x; i < NP; i += blockDim.x)
-    bs[i] = i < n ? bias[i] : 0.0f;
+  // this lane's columns 8 j + 2 t, + 1 of the bias, zero past n
+  float2 bv[NT];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int c = 8 * j + 2 * t;
+    bv[j] = make_float2(c < n ? __ldg(bias + c) : 0.0f,
+                        c + 1 < n ? __ldg(bias + c + 1) : 0.0f);
+  }
   __syncthreads();
 
-  const long long m = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= M) return;
-  float acc[NP];
+  for (; s < blocks; s += stride) {
+    uint4 nxt[2][Q];
+    if (s + stride < blocks) load(s + stride, nxt);
+    float c[NT][4], big[F32 ? NT : 1][4];
 #pragma unroll
-  for (int c = 0; c < NP; ++c) acc[c] = 0.0f;
-  const T* src = feats + m * K1;
-#pragma unroll 2
-  for (int k0 = 0; k0 < K1; k0 += 8) {
-    float f[8];
-    load8(src + k0, f);
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      const float* wr = Ws + (k0 + kk) * NP;
+      for (int i = 0; i < 4; ++i) {
+        c[j][i] = 0.0f;
+        if constexpr (F32) big[j][i] = 0.0f;
+      }
+    // load q's words x, y, z, w of rows g (r0) and g + 8 (r1) make two k
+    // steps: bf16 m16n8k16 a = (r0.x, r1.x, r0.y, r1.y), then (.z, .w)
+    // (logical k 2t, 2t + 1 the word's pair, 2t + 8, 2t + 9 the next);
+    // f32 m16n8k8 the same words as TF32 (logical k t, t + 4), each split
+    // into hi and lo
 #pragma unroll
-      for (int c = 0; c < NP; ++c) acc[c] = fmaf(f[kk], wr[c], acc[c]);
-    }
-  }
-  float best = __int_as_float(0xff800000);  // -inf
-  int idx = 0;
-  bool nan = false;
+    for (int q = 0; q < Q; ++q) {
+      const uint4 r0 = cur[0][q], r1 = cur[1][q];
+      const uint32_t a[2][4] = {{r0.x, r1.x, r0.y, r1.y},
+                                {r0.z, r1.z, r0.w, r1.w}};
+      const uint4* f = Bf + (size_t)q * NT * BW * 32 + lane;
+      if constexpr (F32) {
+        uint32_t ah[2][4], al[2][4];
 #pragma unroll
-  for (int c = 0; c < NP; ++c) {
-    if (c < n) {
-      const float z = round_as<T>(acc[c] + bs[c]);
-      if (isnan(z)) {
-        nan = true;
-      } else if (z > best) {
-        best = z;
-        idx = c;
+        for (int st = 0; st < 2; ++st)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            split_tf32(__uint_as_float(a[st][i]), ah[st][i], al[st][i]);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const uint4 hi = f[j * 64], lo = f[j * 64 + 32];
+          mma_tf32_1688(c[j], al[0], hi.x, hi.y);
+          mma_tf32_1688(c[j], ah[0], lo.x, lo.y);
+          mma_tf32_1688(c[j], al[1], hi.z, hi.w);
+          mma_tf32_1688(c[j], ah[1], lo.z, lo.w);
+          mma_tf32_1688(big[j], ah[0], hi.x, hi.y);
+          mma_tf32_1688(big[j], ah[1], hi.z, hi.w);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const uint4 b = f[j * 32];
+          mma_bf16_16816(c[j], a[0], b.x, b.y);
+          mma_bf16_16816(c[j], a[1], b.z, b.w);
+        }
       }
     }
+    // each lane's first maximum over its columns of rows g, g + 8 (h)
+    float best[2] = {__int_as_float(0xff800000), __int_as_float(0xff800000)};
+    int idx[2] = {SENT, SENT};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int col = 8 * j + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float z0 = c[j][2 * h], z1 = c[j][2 * h + 1];
+        if constexpr (F32) {
+          z0 = big[j][2 * h] + z0;
+          z1 = big[j][2 * h + 1] + z1;
+        }
+        z0 += bv[j].x;
+        z1 += bv[j].y;
+        if constexpr (!F32) {   // both rounded to bf16 by one cvt
+          const __nv_bfloat162 r = __floats2bfloat162_rn(z0, z1);
+          z0 = __low2float(r);
+          z1 = __high2float(r);
+        }
+        // only the last tile holds padded columns
+        if (j < NT - 1 || col < n) head_fold(z0, col, best[h], idx[h]);
+        if (j < NT - 1 || col + 1 < n)
+          head_fold(z1, col + 1, best[h], idx[h]);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (isnan(best[h])) {
+        best[h] = __int_as_float(0x7f800000);  // +inf
+        idx[h] = -1;
+      }
+    // the quad: xor 1 pairs lanes, each keeping row h = t & 1 and sending
+    // the other; xor 2 then joins the pairs, so lanes t = 0, 1 end with
+    // rows g and g + 8
+    const int hb = t & 1;
+    float kb = hb ? best[1] : best[0];
+    int ki = hb ? idx[1] : idx[0];
+    float ob = __shfl_xor_sync(0xffffffffu, hb ? best[0] : best[1], 1);
+    int oi = __shfl_xor_sync(0xffffffffu, hb ? idx[0] : idx[1], 1);
+    if (head_better(ob, oi, kb, ki)) {
+      kb = ob;
+      ki = oi;
+    }
+    ob = __shfl_xor_sync(0xffffffffu, kb, 2);
+    oi = __shfl_xor_sync(0xffffffffu, ki, 2);
+    if (head_better(ob, oi, kb, ki)) ki = oi;
+    // lanes t = 0 and 1 store the block's 16 predictions, 64 contiguous
+    // bytes
+    const long long m = s * 16 + hb * 8 + g;
+    if (t < 2 && m < M) out[m] = ki < 0 ? n - 1 : ki == SENT ? 0 : ki;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int q = 0; q < Q; ++q) cur[h][q] = nxt[h][q];
   }
-  out[m] = nan ? n - 1 : idx;
 }
 
-template <typename T, int NP>
+// One wave of persistent CTAs (W laid out once a CTA), at most one per 8
+// m16 blocks.
+template <typename T, int NT>
 cudaError_t launch_1x1(const void* feats, const void* w, const void* bias,
                        void* out, long long M, int n, cudaStream_t s) {
-  const unsigned grid = (unsigned)((M + THREADS1 - 1) / THREADS1);
-  head_argmax_1x1_kernel<T, NP><<<grid, THREADS1, 0, s>>>(
+  const auto kernel = head_argmax_1x1_kernel<T, NT>;
+  static int gm = 0;
+  if (gm == 0) {
+    const cudaError_t e = resident_ctas(kernel, CTA1, 0, &gm);
+    if (e != cudaSuccess) return e;
+  }
+  const long long ctas = ((M + 15) / 16 + WARPS1 - 1) / WARPS1;
+  kernel<<<(unsigned)(ctas < gm ? ctas : gm), CTA1, 0, s>>>(
       static_cast<const T*>(feats), static_cast<const T*>(w),
       static_cast<const float*>(bias), static_cast<int*>(out), M, n);
   return cudaGetLastError();
@@ -424,10 +590,12 @@ int head_1x1(const void* feats, const void* w, const void* bias, void* out,
              int M, int n, void* stream) {
   if (M < 1 || n < 1 || n > 32) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= 8) return launch_1x1<T, 8>(feats, w, bias, out, M, n, s);
-  if (n <= 16) return launch_1x1<T, 16>(feats, w, bias, out, M, n, s);
-  if (n <= 24) return launch_1x1<T, 24>(feats, w, bias, out, M, n, s);
-  return launch_1x1<T, 32>(feats, w, bias, out, M, n, s);
+  switch ((n + 7) / 8) {
+    case 1: return launch_1x1<T, 1>(feats, w, bias, out, M, n, s);
+    case 2: return launch_1x1<T, 2>(feats, w, bias, out, M, n, s);
+    case 3: return launch_1x1<T, 3>(feats, w, bias, out, M, n, s);
+    default: return launch_1x1<T, 4>(feats, w, bias, out, M, n, s);
+  }
 }
 
 template <typename T, int NTP>
@@ -480,8 +648,8 @@ int head(const void* feats, const void* w, const void* bias, void* out,
 
 }  // namespace
 
-// feats: (M, 128) bf16; w: (128, n) bf16; bias: (n,) f32; out: (M,) int32.
-// n <= 32 (the class count padded to NP = 8, 16, 24 or 32).
+// feats: (M, 128) bf16, 16-byte aligned; w: (128, n) bf16; bias: (n,)
+// f32; out: (M,) int32.  n <= 32 (NT = ceil(n / 8) n8 tiles).
 extern "C" int erf_head_argmax_1x1(const void* feats, const void* w,
                                    const void* bias, void* out, int M, int n,
                                    void* stream) {

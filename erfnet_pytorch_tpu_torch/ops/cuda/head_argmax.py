@@ -95,9 +95,11 @@ head_argmax.launches = _build.counter("", "_f32")
 # JAX encoder-stage eval step calls it): z = feats (M, 128) @ W (128, n) +
 # b in f32 with W cast to the feats' dtype first, z rounded to bf16 when
 # the feats are bf16, first-max argmax over n, a pixel with a NaN logit
-# gives n - 1; predictions (M,) int32.  Bound on the H100: bytes (the
-# 256-byte feature row per pixel); this version is bound by its f32 FMAs
-# on the CUDA cores instead (see the source).
+# gives n - 1; predictions (M,) int32.  The product runs on the tensor
+# cores (``mma.sync``: bf16 m16n8k16, f32 3xTF32 m16n8k8) over m16 blocks
+# of pixels whose rows a warp reads as 16-byte loads (hence the 16-byte
+# alignment), the argmax in registers.  Bound on the H100: bytes (the
+# 256-byte feature row per pixel, 512 at f32).
 # ---------------------------------------------------------------------------
 
 def head_argmax_1x1_plain(feats, w, b):
@@ -116,8 +118,8 @@ def head_argmax_1x1_plain(feats, w, b):
 def head_argmax_1x1(feats, w, b):
     """head_argmax_1x1_plain's contract.  CPU tensor: the plain version.
     CUDA tensor: one launch of the kernel's form for the feats' dtype
-    (bf16 or f32 feats with 128 channels, W in the same dtype, an f32 bias,
-    at most 32 classes), or raise."""
+    (bf16 or f32 feats with 128 channels, contiguous and 16-byte aligned,
+    W in the same dtype, an f32 bias, at most 32 classes), or raise."""
     if feats.device.type == "cpu":
         return head_argmax_1x1_plain(feats, w, b)
     M, K = feats.shape
@@ -127,6 +129,9 @@ def head_argmax_1x1(feats, w, b):
                          f"at most 32 classes; got feats "
                          f"{tuple(feats.shape)}, W {tuple(w.shape)}")
     form = _build.kernel_form(feats, "feats")
+    if feats.data_ptr() % 16:
+        raise ValueError("head_argmax_1x1 kernel: feats must be 16-byte "
+                         "aligned")
     _build.require(w, "w", feats.dtype, feats.device, (K, n))
     _build.require(b, "b", torch.float32, feats.device, (n,))
     lib = _build.library("head_argmax")

@@ -1268,27 +1268,87 @@ def test_forward_off_the_whole_map_gate(dev, sd):
                            features(prep, x, torch.bfloat16, hybrid))
 
 
+def _head1_case(sd, M, n, dtype, seed):
+    """Post-ReLU feats (M, 128) and the 1x1 head's W (128, n) in ``dtype``
+    and f32 bias: the encoder's at n = 20, else seeded."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(M, 128, generator=g).clamp_min(0)
+    if n == 20:
+        w = sd["encoder.output_conv.weight"][:, :, 0, 0].t().contiguous()
+        b = sd["encoder.output_conv.bias"]
+    else:
+        w = 0.1 * torch.randn(128, n, generator=g)
+        b = 0.1 * torch.randn(n, generator=g)
+    return x.to(dtype), w.to(dtype), b
+
+
+def _head1_ties(x, w, b):
+    """The plain version's near-ties (``_ties``) of rows x; none at n = 1."""
+    if w.shape[1] == 1:
+        return torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    return _ties((x.float() @ w.float() + b).to(x.dtype), x.dtype)
+
+
 @pytest.mark.parametrize("dtype", [BF, F32])
-def test_head_argmax_1x1_kernel(dev, sd, dtype):
-    """The encoder's 1x1 head + argmax: one launch; equal to its plain
-    version on the card wherever the plain version's two largest logits
-    are not a near-tie (``_ties``); a row holding a NaN gives the last
-    class."""
-    g = torch.Generator().manual_seed(9)
-    x = torch.randn(1037, 128, generator=g).clamp_min(0).to(dev, dtype)
-    x[7, 100] = float("nan")
-    w = sd["encoder.output_conv.weight"][:, :, 0, 0].t().contiguous().to(
-        dev, dtype)
-    b = sd["encoder.output_conv.bias"].to(dev)
+@pytest.mark.parametrize("M", [1, 15, 17, 1037, 49152])
+@pytest.mark.parametrize("n", [1, 8, 19, 20, 32])
+def test_head_argmax_1x1_kernel(dev, sd, dtype, M, n):
+    """The encoder's 1x1 head + argmax on the tensor cores: one launch;
+    M ragged against the m16 blocks (1, 15, 17, 1037) and the B=6 eval
+    batch (49152, several blocks a warp), n from one to four n8 tiles
+    (1, 8, 19, 20, 32: padded columns); equal to its plain version on the
+    card wherever the plain version's two largest logits are not a
+    near-tie (``_ties``)."""
+    x, w, b = (t.to(dev) for t in _head1_case(sd, M, n, dtype, seed=M + n))
     n0 = _launched(head_argmax.head_argmax_1x1, dtype)
     got = head_argmax.head_argmax_1x1(x, w, b)
     torch.cuda.synchronize()
     assert _launched(head_argmax.head_argmax_1x1, dtype) - n0 == 1
     ref = head_argmax.head_argmax_1x1_plain(x, w, b)
-    assert got.shape == (1037,) and got.dtype == torch.int32
-    assert got[7] == 19 and ref[7] == 19
-    z = (x.float() @ w.float() + b).to(dtype)
-    assert ((got != ref) & ~_ties(z, dtype)).sum().item() == 0
+    assert got.shape == (M,) and got.dtype == torch.int32
+    assert ((got != ref) & ~_head1_ties(x, w, b)).sum().item() == 0
+
+
+@pytest.mark.parametrize("dtype", [BF, F32])
+@pytest.mark.parametrize("n", [20, 32])
+def test_head_argmax_1x1_nan_zero_tie(dev, sd, dtype, n):
+    """A row holding one NaN and an all-NaN row give n - 1; a zero row
+    gives its bias's first maximum (every logit is its bias, rounded to
+    bf16 in the bf16 form); classes 3 and 7 with one W column and bias,
+    planted the largest of every row, give 3 (the first maximum)."""
+    x, w, b = (t.to(dev) for t in _head1_case(sd, 1037, n, dtype, seed=n))
+    x[7, 100] = float("nan")
+    x[300] = float("nan")
+    x[511] = 0
+    got = head_argmax.head_argmax_1x1(x, w, b)
+    ref = head_argmax.head_argmax_1x1_plain(x, w, b)
+    assert got[7] == n - 1 and got[300] == n - 1 and ref[300] == n - 1
+    zb = b.to(dtype).float()
+    assert got[511] == int(zb.argmax()) == ref[511]
+    keep = torch.ones(1037, dtype=torch.bool, device=dev)
+    keep[[7, 300]] = False
+    tie = _head1_ties(x, w, b)
+    assert ((got != ref) & ~tie & keep).sum().item() == 0
+    w, b = w.clone(), b.clone()
+    w[:, 7], b[7] = w[:, 3], b[3] + 1e3
+    b[3] += 1e3
+    tied = head_argmax.head_argmax_1x1(x, w, b)
+    assert (tied[keep] == 3).all() and (tied[~keep] == n - 1).all()
+    assert torch.equal(head_argmax.head_argmax_1x1(x, w, b), tied)
+
+
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_head_argmax_1x1_refuses_misaligned_feats(dev, sd, dtype):
+    """The kernel reads each row as 16-byte loads: a contiguous view that
+    starts off a 16-byte boundary raises, and launches nothing."""
+    x, w, b = (t.to(dev) for t in _head1_case(sd, 64, 20, dtype, seed=5))
+    buf = torch.zeros(64 * 128 + 1, device=dev, dtype=dtype)
+    off = buf[1:].view(64, 128)
+    off.copy_(x)
+    n0 = _launched(head_argmax.head_argmax_1x1, dtype)
+    with pytest.raises(ValueError, match="16-byte"):
+        head_argmax.head_argmax_1x1(off, w, b)
+    assert _launched(head_argmax.head_argmax_1x1, dtype) == n0
 
 
 def test_head_argmax_1x1_refuses_what_the_kernel_does_not_take(dev, sd):

@@ -3,8 +3,12 @@ head_argmax_1x1``, its plain version, which the wrapper runs on a CPU
 tensor) against the JAX package's Pallas ``head_argmax(G=1,
 n_classes=20)`` in interpret mode, as the JAX encoder-stage eval step
 calls it, at M=384, K=128: f32 and bf16 feats, a planted exact tie (the
-first max wins) and NaN rows (the last class).  Predictions are equal at
-every row."""
+first max wins) and NaN rows (the last class); and ``head_argmax(G=1)``
+at n = 1, 8 and 32 classes (one to four of the kernel's n8 tiles) with
+seeded weights, and a zero feature row (every logit its bias).
+Predictions are equal at every row (at n = 1, 8 and 32 off the plain
+version's near-ties, ``chip_smoke``'s rule: the two sides sum in other
+orders)."""
 
 import numpy as np
 import pytest
@@ -15,6 +19,7 @@ import jax.numpy as jnp
 from erfnet_pytorch_tpu.ops.pallas.head_argmax import (head_argmax as
                                                        jax_head_argmax)
 
+import chip_smoke
 from erfnet_pytorch_tpu_torch.ops.cuda import head_argmax as port
 from test_torch_port_common import N_CLASSES, jax_net, to_torch
 from test_torch_port_common import one_torch_thread  # noqa: F401
@@ -38,10 +43,10 @@ def _feats(seed):
                       ).astype(np.float32)
 
 
-def _both(feats, w, b, dt):
+def _both(feats, w, b, dt, n=N_CLASSES):
     jdt, tdt = DTYPES[dt]
     ref = to_torch(jax_head_argmax(jnp.asarray(feats, jdt), jnp.asarray(w),
-                                   jnp.asarray(b), G=1, n_classes=N_CLASSES,
+                                   jnp.asarray(b), G=1, n_classes=n,
                                    interpret=True))[0]
     got = port.head_argmax_1x1(torch.from_numpy(feats).to(tdt),
                                torch.from_numpy(w), torch.from_numpy(b))
@@ -88,3 +93,46 @@ def test_wrapper_runs_the_plain_version_on_the_cpu(head):
     ref = port.head_argmax_1x1_plain(x, torch.from_numpy(w).bfloat16(),
                                      torch.from_numpy(b))
     assert torch.equal(got, ref)
+
+
+def _ties(feats, w, b, dt):
+    """The plain version's near-ties (``chip_smoke.head1_ties`` in bf16,
+    ``f32_ties`` at f32); none at n = 1."""
+    tdt = DTYPES[dt][1]
+    x, wt, bt = (torch.from_numpy(feats).to(tdt), torch.from_numpy(w).to(tdt),
+                 torch.from_numpy(b))
+    if w.shape[1] == 1:
+        return torch.zeros(x.shape[0], dtype=torch.bool)
+    if tdt == torch.bfloat16:
+        return chip_smoke.head1_ties(x, wt, bt)
+    return chip_smoke.f32_ties(x @ wt + bt)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("n", [1, 8, 32])
+def test_head_argmax_1x1_class_counts_match_jax(dt, n):
+    """n = 1, 8 and 32 classes, seeded W and bias, against the JAX
+    ``head_argmax(G=1, n_classes=n)`` in interpret mode."""
+    rs = np.random.RandomState(40 + n)
+    w = (0.1 * rs.randn(K, n)).astype(np.float32)
+    b = (0.1 * rs.randn(n)).astype(np.float32)
+    feats = _feats(4 + n)
+    got, ref = _both(feats, w, b, dt, n)
+    assert got.shape == (M,) and got.dtype == torch.int32
+    off = (got != ref.to(torch.int32)) & ~_ties(feats, w, b, dt)
+    assert off.sum().item() == 0
+    if n > 1:
+        assert len(torch.unique(got)) > 1
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_zero_feature_row(head, dt):
+    """A zero feature row: every logit is its bias (rounded to bf16 for
+    bf16 feats), the prediction the bias's first maximum."""
+    w, b = head
+    feats = _feats(5)
+    feats[17] = 0
+    got, ref = _both(feats, w, b, dt)
+    assert torch.equal(got, ref.to(torch.int32))
+    zb = torch.from_numpy(b).to(DTYPES[dt][1]).float()
+    assert got[17] == int(zb.argmax())
