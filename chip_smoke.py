@@ -166,7 +166,12 @@ phases 14-16 (the 1024x2048 streaming path) right after phase 13:
     ``eval_forwardTime --fp32`` at B=4 512x1024: exit 0, 4 PNGs each, the
     IoU table, the f32 dtype line, no "training bf16" note on stderr, and
     the launches that each run prints exactly those of its forwards in
-    its dtype's kernel forms (no bf16 launch in an f32 run).
+    its dtype's kernel forms (no bf16 launch in an f32 run).  Then
+    ``export_model`` writes a bf16 bundle of bucket 2 at 1024x2048 and
+    ``eval_cityscapes_color --erfx`` and ``eval_cityscapes_server --erfx``
+    serve from it: exit 0, 4 PNGs each, the bf16 launches of 2 forwards,
+    the color PNGs pixel for pixel those of the ``--bf16`` run; each
+    run's wall seconds are printed.
 16. 1024x2048 timing and profile: ms/img at B=1 and B=4 (frames on the
     card), the streaming rate in frames/s (host uint8 frames to host
     uint8 color maps, 10 batches of 4), ``nb1d_halo`` summed over one B=4
@@ -308,6 +313,18 @@ phase 19, with TF32 off and the flags restored after:
     block by block against its plain version, timed beside its bound;
     ms/img gate on and off; one 1024x2048 request, whose packed maps fail
     the gate, equal to the gate-off path's.
+
+30. Bundles (``export.py``, ``cli/export_model.py``): ``export_model``
+    as processes (bf16 buckets 1 and 4, ``--f32 --input-dtype uint8``
+    bucket 4, and ``--cpu`` bf16 bucket 4, at 512x1024), each bundle
+    loaded onto the card; ``predict`` at B = 1, 3 (padded to 4) and 4
+    bit-identical to ``build_fast_infer(preds_only=True)`` of its dtype,
+    each forward with the serving launches (3 / 8 / 9 / 2 / 1, or 3 / 17
+    / 2 / 1 of the ``_f32`` forms), the CPU-exported bundle too; a JAX
+    bundle refused; ms/img at B=4 through the bundles beside
+    ``build_fast_infer``'s, in turns, with the card line, the host's
+    enqueue time a forward of each, and a profile of each (device busy
+    share, time by kernel, host operations by self CPU time).
 
 The last three lines are the card (``nvidia-smi`` name and power limit),
 one JSON object listing every kernel, and the result object.  In that
@@ -745,14 +762,29 @@ def _time(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def _time_uncounted(fn, iters):
-    """``_time``, with every launch counter put back after: timing
-    launches are not the main path's."""
+def _time_uncounted(fn, iters, timer=None):
+    """``timer`` (default ``_time``), with every launch counter put back
+    after: timing launches are not the main path's."""
     from erfnet_pytorch_tpu_torch.ops import cuda as kernels
     saved = {f: dict(f.launches) for f in kernels.kernel_wrappers()}
-    ms = _time(fn, iters)
+    ms = (timer or _time)(fn, iters)
     for f, c in saved.items():
         f.launches.update(c)
+    return ms
+
+
+def _enqueue_ms(fn, n):
+    """The host's time to enqueue one call of ``fn`` (ms, a mean over n
+    calls after a warm one): the host clock around calls that end in no
+    synchronize; n small enough that the launch queue never fills."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    torch.cuda.synchronize()
     return ms
 
 
@@ -1507,62 +1539,109 @@ def phase_stream(sd, device):
         base = ["--datadir", tmp, "--state", wpath, "--subset", "val",
                 "--height", str(STREAM_HW[0]), "--batch-size", "2",
                 "--num-workers", "4"]
-        # each eval CLI at its default dtype, f32, over 2 batches; the
-        # color CLI once more with --bf16; eval_forwardTime --fp32 over
-        # 1 + 3 forwards of 4 512x1024 frames
-        f32, bf16 = F32_PER_FORWARD, STREAM_PER_FORWARD
-        for cli, args, out, per, n in (
-                ("eval_cityscapes_color", base + ["--outdir"], "color",
-                 f32, 2),
-                ("eval_cityscapes_server", base + ["--outdir"], "server",
-                 f32, 2),
-                ("eval_iou", base, None, f32, 2),
-                ("eval_cityscapes_color", base + ["--bf16", "--outdir"],
-                 "color_bf16", bf16, 2),
-                ("eval_forwardTime", ["--fp32", "--batch-size", "4",
-                                      "--warmup", "1", "--iterations", "3"],
-                 None, f32, 4)):
-            if out:
-                args = args + [os.path.join(tmp, out)]
-            t0 = time.time()
-            r = subprocess.run(
-                [sys.executable, "-m", f"erfnet_pytorch_tpu_torch.cli.{cli}",
-                 *args], cwd=here, capture_output=True, text=True,
-                timeout=300)
-            if r.returncode != 0:
-                log(r.stdout[-3000:] + r.stderr[-3000:])
-                raise PhaseError(f"{cli}: exit {r.returncode}")
-            if out:
-                pngs = [os.path.join(d, f) for d, _s, fs in
-                        os.walk(os.path.join(tmp, out)) for f in fs
-                        if f.endswith(".png")]
-                ok = len(pngs) == 4
-                said = f"{len(pngs)} PNGs"
-            elif cli == "eval_iou":
-                ok = "MEAN IoU" in r.stdout and r.stdout.count("% ") >= 20
-                said = r.stdout.strip().splitlines()[-1]
-            else:
-                said = [ln for ln in r.stdout.splitlines()
-                        if ln.startswith(("device:", "FORWARD:"))]
-                ok = len(said) == 2 and "dtype f32" in said[0]
-            if r.stderr.strip():
-                log(f"  {cli} stderr: {r.stderr.strip()[-500:]}")
-            if "bf16 on the card" in r.stderr:
-                raise PhaseError(f"{cli}: says it runs bf16 on the card")
-            launched = [ln for ln in r.stdout.splitlines()
-                        if ln.startswith("kernel launches ")]
-            if len(launched) != 1:
-                raise PhaseError(f"{cli}: printed no kernel launches")
-            c = json.loads(launched[0][len("kernel launches "):])
-            dtype_flag = " ".join(a for a in args if a in ("--bf16",
-                                                           "--fp32"))
-            log(f"  {cli} {dtype_flag}: exit 0 in {time.time() - t0:.1f} "
-                f"s, {said}; launches {({k: v for k, v in c.items() if v})}")
-            if not ok:
-                raise PhaseError(f"{cli}: wrote no expected output")
-            # the run went through the forms of its dtype alone
-            _check_counts(c, per, n, cli)
+        # the bundle of the --erfx runs (bf16, the export default; bucket
+        # 2) exports while the first five CLIs run
+        exported = _export_bundles(
+            here, wpath, tmp, [("stream", ["--batch-sizes", "2"], (2,),
+                               "bf16")], STREAM_HW)
+        bundle = os.path.join(tmp, "stream.erfx")
+        erfx = base + ["--erfx", bundle, "--outdir"]
+        try:
+            _stream_clis(here, tmp, base, erfx, exported)
+        finally:
+            exported(kill=True)
+        # the bundle runs the live --bf16 run's kernels in its order on
+        # the same batches: the same pixels
+        _same_pngs(os.path.join(tmp, "color_erfx"),
+                   os.path.join(tmp, "color_bf16"), "color --erfx")
     return counts, min(agree), q8_counts, min(q8_agree), min(noise)
+
+
+def _stream_clis(here, tmp, base, erfx, exported):
+    """Phase 15's CLI runs, each a process of its own: each eval CLI at its
+    default dtype, f32, over 2 batches; the color CLI once more with
+    --bf16; eval_forwardTime --fp32 over 1 + 3 forwards of 4 512x1024
+    frames; the color and server CLIs with --erfx.  ``exported`` waits for
+    the 1024x2048 bundle that the --erfx runs serve from."""
+    f32, bf16 = F32_PER_FORWARD, STREAM_PER_FORWARD
+    for cli, args, out, per, n in (
+            ("eval_cityscapes_color", base + ["--outdir"], "color",
+             f32, 2),
+            ("eval_cityscapes_server", base + ["--outdir"], "server",
+             f32, 2),
+            ("eval_iou", base, None, f32, 2),
+            ("eval_cityscapes_color", base + ["--bf16", "--outdir"],
+             "color_bf16", bf16, 2),
+            ("eval_forwardTime", ["--fp32", "--batch-size", "4",
+                                  "--warmup", "1", "--iterations", "3"],
+             None, f32, 4),
+            ("eval_cityscapes_color", erfx, "color_erfx", bf16, 2),
+            ("eval_cityscapes_server", erfx, "server_erfx", bf16, 2)):
+        if out:
+            args = args + [os.path.join(tmp, out)]
+        if "--erfx" in args and exported is not None:
+            _b, lines, secs = exported()["stream"]
+            exported = None
+            log(f"  export_model 1024x2048 bf16 bucket 2: {lines[-1]} "
+                f"({secs:.1f} s wall, beside the runs above)")
+        t0 = time.time()
+        r = subprocess.run(
+            [sys.executable, "-m", f"erfnet_pytorch_tpu_torch.cli.{cli}",
+             *args], cwd=here, capture_output=True, text=True,
+            timeout=300)
+        if r.returncode != 0:
+            log(r.stdout[-3000:] + r.stderr[-3000:])
+            raise PhaseError(f"{cli}: exit {r.returncode}")
+        if out:
+            pngs = [os.path.join(d, f) for d, _s, fs in
+                    os.walk(os.path.join(tmp, out)) for f in fs
+                    if f.endswith(".png")]
+            ok = len(pngs) == 4
+            said = f"{len(pngs)} PNGs"
+        elif cli == "eval_iou":
+            ok = "MEAN IoU" in r.stdout and r.stdout.count("% ") >= 20
+            said = r.stdout.strip().splitlines()[-1]
+        else:
+            said = [ln for ln in r.stdout.splitlines()
+                    if ln.startswith(("device:", "FORWARD:"))]
+            ok = len(said) == 2 and "dtype f32" in said[0]
+        if r.stderr.strip():
+            log(f"  {cli} stderr: {r.stderr.strip()[-500:]}")
+        if "bf16 on the card" in r.stderr:
+            raise PhaseError(f"{cli}: says it runs bf16 on the card")
+        launched = [ln for ln in r.stdout.splitlines()
+                    if ln.startswith("kernel launches ")]
+        if len(launched) != 1:
+            raise PhaseError(f"{cli}: printed no kernel launches")
+        c = json.loads(launched[0][len("kernel launches "):])
+        dtype_flag = " ".join(a for a in args
+                              if a in ("--bf16", "--fp32", "--erfx"))
+        log(f"  {cli} {dtype_flag}: exit 0 in {time.time() - t0:.1f} "
+            f"s, {said}; launches {({k: v for k, v in c.items() if v})}")
+        if not ok:
+            raise PhaseError(f"{cli}: wrote no expected output")
+        # the run went through the forms of its dtype alone
+        _check_counts(c, per, n, cli)
+
+
+def _same_pngs(a, b, what):
+    """Every PNG under ``a`` decodes to the pixels of its namesake under
+    ``b``, and the two trees hold the same files."""
+    import numpy as np
+    from PIL import Image
+    names = [sorted(os.path.relpath(os.path.join(d, f), root)
+                    for d, _s, fs in os.walk(root) for f in fs)
+             for root in (a, b)]
+    if names[0] != names[1] or not names[0]:
+        raise PhaseError(f"{what}: files {names[0]} against {names[1]}")
+    for rel in names[0]:
+        with Image.open(os.path.join(a, rel)) as x, \
+                Image.open(os.path.join(b, rel)) as y:
+            if x.mode != y.mode or not np.array_equal(np.asarray(x),
+                                                      np.asarray(y)):
+                raise PhaseError(f"{what}: {rel} differs")
+    log(f"  {what}: {len(names[0])} PNGs pixel for pixel those of the "
+        "live run")
 
 
 def phase_stream_timing(sd, device, iters):
@@ -5216,6 +5295,194 @@ def phase_packed_serving(sd, scales, device, iters, hw=SERVE_HW,
     return out
 
 
+BUNDLE_SPECS = (
+    # name, export_model flags, buckets, compute dtype
+    ("bf16", ["--batch-sizes", "1,4"], (1, 4), "bf16"),
+    ("f32_u8", ["--f32", "--input-dtype", "uint8", "--batch-sizes", "4"],
+     (4,), "f32"),
+    ("bf16_cpu", ["--cpu", "--batch-sizes", "4"], (4,), "bf16"),
+)
+
+
+def _export_bundles(here, wpath, tmp, specs, hw):
+    """``export_model`` as processes, all started together, one a spec;
+    returns a function that waits for them: {name: (path, its printed
+    lines, wall s)}, raising on an exit that is not 0 (with
+    ``kill=True`` it ends and reaps them instead, returning nothing)."""
+    procs = {}
+    for name, flags, _b, _dt in specs:
+        path = os.path.join(tmp, f"{name}.erfx")
+        procs[name] = (path, time.time(), subprocess.Popen(
+            [sys.executable, "-m", "erfnet_pytorch_tpu_torch.cli.export_model",
+             "--state", wpath, "-o", path, "--height", str(hw[0]),
+             "--width", str(hw[1]), *flags], cwd=here, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+
+    def wait(kill=False):
+        if kill:
+            for _p, _t, proc in procs.values():
+                if proc.returncode is None:
+                    proc.kill()
+                    proc.communicate()
+            return None
+        out = {}
+        for name, (path, t0, proc) in procs.items():
+            try:
+                stdout, stderr = proc.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.communicate()
+                raise PhaseError(f"export_model {name}: timed out") from None
+            if proc.returncode != 0:
+                log(stdout[-2000:] + stderr[-3000:])
+                raise PhaseError(f"export_model {name}: exit "
+                                 f"{proc.returncode}")
+            out[name] = (path, stdout.strip().splitlines(), time.time() - t0)
+        return out
+
+    return wait
+
+
+def phase_bundles(sd, device, iters):
+    """30. Bundles: ``export_model`` as processes on the card (bf16 buckets
+    1 and 4, and ``--f32 --input-dtype uint8`` bucket 4, at 512x1024), and
+    ``--cpu`` (bf16, bucket 4: exported on the host).  ``load_servable``
+    loads each onto the card; ``predict`` at B = 1, 3 (padded to 4) and 4
+    gives predictions bit-identical to ``build_fast_infer(preds_only=True)``
+    in the same dtype on the same frames, each forward with the serving
+    path's launches (bf16 3 / 8 / 9 / 2 / 1, f32 3 / 17 / 2 / 1 of the
+    ``_f32`` forms, nothing else): the CPU-exported bundle too, moved to
+    the card.  A file with the JAX bundles' magic is refused.  Then ms/img
+    at B=4 through the bf16 and f32 bundles beside ``build_fast_infer``'s,
+    in turns (live, bundle, bundle, live), CUDA events over ``iters``
+    forwards; the host's enqueue time a forward; a profile of each
+    (``_host_profile``).  Every timing launch is put back off the
+    counters."""
+    import tempfile
+    import torch
+    from erfnet_pytorch_tpu_torch.data import to_tensor
+    from erfnet_pytorch_tpu_torch.export import JAX_MAGIC, load_servable
+    from erfnet_pytorch_tpu_torch.inference import build_fast_infer
+    from erfnet_pytorch_tpu_torch.ops import cuda as kernels
+    here = os.path.dirname(os.path.abspath(__file__))
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    per = {"bf16": STREAM_PER_FORWARD, "f32": F32_PER_FORWARD}
+    g = torch.Generator().manual_seed(30)
+    u8 = torch.randint(0, 256, (4,) + SERVE_HW + (3,), generator=g,
+                       dtype=torch.uint8).to(device)
+    live = {k: build_fast_infer(sd, dtype=dt, preds_only=True)
+            for k, dt in dtypes.items()}
+    result = {"export_s": {}, "load_first_predict_s": {},
+              "ms_per_img_b4": {}, "enqueue_ms_b4": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        wpath = os.path.join(tmp, "model_best.pth")
+        torch.save(sd, wpath)
+        log("[bundles] export_model: bf16 buckets 1,4; --f32 --input-dtype "
+            "uint8 bucket 4; --cpu bf16 bucket 4 (512x1024)")
+        made = _export_bundles(here, wpath, tmp, BUNDLE_SPECS, SERVE_HW)()
+        servables = {}
+        for name, _flags, buckets, dt in BUNDLE_SPECS:
+            path, lines, secs = made[name]
+            result["export_s"][name] = secs
+            t0 = time.time()
+            sv = load_servable(path)
+            sv.predict(u8[:buckets[0]])
+            torch.cuda.synchronize()
+            result["load_first_predict_s"][name] = time.time() - t0
+            log(f"  {name}: {lines[-1]} ({secs:.1f} s wall; load and "
+                f"first predict {result['load_first_predict_s'][name]:.1f}"
+                " s)")
+            servables[name] = sv
+            want_dev = "cpu" if name.endswith("_cpu") else "cuda"
+            if (sv.batch_sizes != buckets or sv.header["device"] != want_dev
+                    or not sv.header["kernels"] or sv.device != device):
+                raise PhaseError(f"{name}: header {sv.header}")
+            for B in (1, 3, 4):
+                with torch.inference_mode():
+                    ref = live[dt](to_tensor(u8[:B]))
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+                got = sv.predict(u8[:B])
+                torch.cuda.synchronize()
+                counts = kernels.launch_counts()
+                _check_counts(counts, per[dt], 1, f"bundle {name} B={B}")
+                if not (got.device == ref.device and torch.equal(got, ref)):
+                    n = int((got.cpu() != ref.cpu()).sum())
+                    raise PhaseError(f"bundle {name} B={B}: {n} predictions "
+                                     "differ from build_fast_infer's")
+            log(f"  {name}: B = 1, 3, 4 bit-identical to build_fast_infer "
+                f"({dt}); launches a forward "
+                f"{ {k: v for k, v in counts.items() if v} }")
+        bad = os.path.join(tmp, "jax.erfx")
+        with open(bad, "wb") as f:
+            f.write(JAX_MAGIC + b"\x00" * 16)
+        try:
+            load_servable(bad)
+        except ValueError as e:
+            if "JAX bundle" not in str(e):
+                raise PhaseError(f"JAX bundle refused as {e}") from None
+            log(f"  a JAX bundle refused: {e}")
+        else:
+            raise PhaseError("a file with the JAX magic was loaded")
+        for name, dt in (("bf16", "bf16"), ("f32_u8", "f32")):
+            sv, fwd = servables[name], live[dt]
+
+            def run_live():
+                # the /255 inside, as the bundle's predict runs it
+                with torch.inference_mode():
+                    fwd(to_tensor(u8))
+
+            t = [_time_uncounted(run_live, iters),
+                 _time_uncounted(lambda: sv.predict(u8), iters),
+                 _time_uncounted(lambda: sv.predict(u8), iters),
+                 _time_uncounted(run_live, iters)]
+            t = [v / 4 for v in t]
+            result["ms_per_img_b4"][name] = {"build_fast_infer": [t[0], t[3]],
+                                             "bundle": [t[1], t[2]]}
+            q = {"build_fast_infer": _time_uncounted(run_live, 5, _enqueue_ms),
+                 "bundle": _time_uncounted(lambda: sv.predict(u8), 5,
+                                           _enqueue_ms)}
+            result["enqueue_ms_b4"][name] = q
+            log(f"  ms/img at B=4 ({dt}, {iters} forwards, events; live, "
+                f"bundle, bundle, live): {t[0]:.4f} {t[1]:.4f} {t[2]:.4f} "
+                f"{t[3]:.4f}; host enqueue a B=4 forward: live "
+                f"{q['build_fast_infer']:.4f} ms, bundle {q['bundle']:.4f}; "
+                f"{card_line()}")
+            prof = result.setdefault("profile_b4", {})
+            for what, fn, ms in (("build_fast_infer", run_live, t[0] + t[3]),
+                                 ("bundle", lambda: sv.predict(u8),
+                                  t[1] + t[2])):
+                log(f"  {name} {what}, B=4, torch.profiler:")
+                prof[f"{name} {what}"] = _host_profile(fn, 1e3 * ms / 2 * 4)
+    return result
+
+
+def _host_profile(fn, timed_us, n=5):
+    """torch.profiler over n calls of a forward ``fn``: the device's busy
+    share of the timed forward and its time by kernel, and the host's
+    busiest operations by self CPU time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from erfnet_pytorch_tpu_torch.ops import cuda as kernels
+    saved = {f: dict(f.launches) for f in kernels.kernel_wrappers()}
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    for f, c in saved.items():
+        f.launches.update(c)
+    r = busy_share(prof, n, timed_us, "forward") or {}
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    r["host_self_us_per_forward"] = {
+        e.key: e.self_cpu_time_total / n for e in host[:8]}
+    for k, us in r["host_self_us_per_forward"].items():
+        log(f"    host {us:9.1f} us  {k}")
+    return r
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5313,6 +5580,7 @@ def main():
                 "launches": ncounts, "chain": chain, "kernels": nkern,
                 "rows": nrows}
         packed = phase_packed_serving(sd, scales, device, ITERS)
+        bundles = phase_bundles(sd, device, ITERS)
     except Exception:  # every phase failure is fatal and reported
         traceback.print_exc()
         log("FAIL")
@@ -5462,7 +5730,7 @@ def main():
                "stats_free": {form or "_bf16": {
                    k: v for k, v in ns.items() if k != "errs"}
                    for form, ns in nostats.items()},
-               "packed_runs": packed}
+               "packed_runs": packed, "bundles": bundles}
     log(f"summary {json.dumps(summary)}")
     log(card)
     log(json.dumps({"kernels": kernels}))

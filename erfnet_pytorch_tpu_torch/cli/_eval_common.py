@@ -38,14 +38,19 @@ def add_eval_flags(p, *, subset):
     return p
 
 
-def resolve(args, parser=None):
-    """(device, dtype, eval width, state_dict): the card unless --cpu (and
-    then raise if there is none); the dtype by ``_device_flags``."""
+def load_weights(args):
+    """The state_dict of --state, else of --loadDir/--loadWeights."""
     from ..weights import load_any_weights
-    device, dtype = resolve_device_dtype(args, parser)
-    width = args.width if args.width is not None else 2 * args.height
     path = args.state or os.path.join(args.loadDir, args.loadWeights)
     print(f"Loading weights: {path}")
     sd = load_any_weights(path)
     print("Model and weights LOADED successfully")
-    return device, dtype, width, sd
+    return sd
+
+
+def resolve(args, parser=None):
+    """(device, dtype, eval width, state_dict): the card unless --cpu (and
+    then raise if there is none); the dtype by ``_device_flags``."""
+    device, dtype = resolve_device_dtype(args, parser)
+    width = args.width if args.width is not None else 2 * args.height
+    return device, dtype, width, load_weights(args)

@@ -41,6 +41,9 @@ kernel; on the CPU every block runs the kernel's plain version.  There is
 no switch between the two and no fallback: a block the kernel cannot take
 raises.  ``build_plain_infer`` runs the same pipeline through the plain
 versions on any device; it is the on-card reference.
+``build_exportable_infer`` gives the forward (``predict``) as a Module
+whose buffers are the prepared weights, over the kernels' operators
+(``ops/cuda/library.py``), for ``torch.export`` (``export.py``).
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from .data.transforms import to_tensor
 from .device import resolve_device
 from .models.erfnet import ENCODER_LAYER_SPECS, DECODER_LAYER_SPECS
 from .ops.argmax import fast_argmax
@@ -298,16 +302,92 @@ def features(prep, images, dtype, ops):
                        prep["decoder"], dtype, ops)
 
 
+def predict(prep, images, dtype, preds_only, ops):
+    """Images (B, H, W, 3) float on the weights' device -> predictions
+    (B, H, W) int32, or (logits, predictions) unless ``preds_only``."""
+    y = features(prep, images, dtype, ops)
+    if preds_only:
+        return ops["head"](y, prep["head"])
+    logits = apply_head_matmul(y, prep["head"]["w"], prep["head"]["b"])
+    return logits, fast_argmax(logits)
+
+
 def _make_infer(prep, dtype, device, preds_only, ops):
     @torch.inference_mode()
     def infer(images):
-        y = features(prep, images.to(device), dtype, ops)
-        if preds_only:
-            return ops["head"](y, prep["head"])
-        logits = apply_head_matmul(y, prep["head"]["w"], prep["head"]["b"])
-        return logits, fast_argmax(logits)
+        return predict(prep, images.to(device), dtype, preds_only, ops)
 
     return infer
+
+
+class _Buffer:
+    """A prepared operand's place in ``ExportableInfer``'s tree of
+    operands: the name of the buffer that holds it."""
+
+    def __init__(self, name):
+        self.name = name
+
+
+class ExportableInfer(nn.Module):
+    """``predict`` as a Module that ``torch.export`` takes: the prepared
+    operands (``prepare``) are its buffers, so an exported program holds
+    its own copy of the folded weights.  ``uint8_input``: the forward
+    takes raw uint8 frames and runs ``to_tensor`` (the /255) itself.
+    The routing (``_float_block``, ``_nb1d_block``) is Python on shapes
+    and dtypes, so a trace fixes it for its input shape, as ``jax.jit``
+    fixes the JAX path's per bucket."""
+
+    def __init__(self, prep, dtype, preds_only, ops, uint8_input=False):
+        super().__init__()
+        self.dtype, self.preds_only, self.ops = dtype, preds_only, ops
+        self.uint8_input = uint8_input
+        seen = {}
+
+        def lift(t, path):
+            if isinstance(t, torch.Tensor):
+                if id(t) not in seen:
+                    seen[id(t)] = "_".join(path)
+                    self.register_buffer(seen[id(t)], t)
+                return _Buffer(seen[id(t)])
+            if isinstance(t, dict):
+                return {k: lift(v, path + (k,)) for k, v in t.items()}
+            if isinstance(t, (list, tuple)):
+                return type(t)(lift(v, path + (str(i),))
+                               for i, v in enumerate(t))
+            return t
+
+        self._tree = lift(prep, ())
+
+    def _operands(self, t):
+        if isinstance(t, _Buffer):
+            return getattr(self, t.name)
+        if isinstance(t, dict):
+            return {k: self._operands(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(self._operands(v) for v in t)
+        return t
+
+    def forward(self, images):
+        if self.uint8_input:
+            images = to_tensor(images)
+        return predict(self._operands(self._tree), images, self.dtype,
+                       self.preds_only, self.ops)
+
+
+def build_exportable_infer(state_dict_or_net, *, dtype=torch.bfloat16,
+                           preds_only=True, device=None, uint8_input=False,
+                           kernels=True):
+    """``ExportableInfer`` of the weights, on ``device`` (default cuda).
+    ``kernels``: the forward calls the kernels' operators
+    (``ops/cuda/library.py``), each one node of an exported graph, which
+    launches its kernel on a CUDA tensor and runs its plain version on a
+    CPU one; False: the plain versions, traced into aten operations
+    alone (a program any PyTorch runs without this package)."""
+    from .ops.cuda import library
+    dev = resolve_device(device)
+    return ExportableInfer(prepare(state_dict_or_net, dtype, dev), dtype,
+                           preds_only, library.OPS if kernels else PLAIN_OPS,
+                           uint8_input)
 
 
 def build_fast_infer(state_dict_or_net, *, dtype=torch.bfloat16,

@@ -21,7 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-BN_EPS = 1e-3
+from ..ops.batchnorm import BN_EPS
 
 # (kind, args) — kind in {"down", "nb1d", "up"}; nb1d args = (C, drop, dil).
 # Copies of the JAX package's ENCODER_LAYER_SPECS / DECODER_LAYER_SPECS.

@@ -11,7 +11,9 @@ Pipeline, overlapped:
            while the next batch computes
 
 The consumer blocks only on batch N-1's copy event while batch N is in
-flight.  ``PngBatchSink`` writes the PNGs with PIL.
+flight.  ``from_servable`` serves from a bundle (``export.py``) in the
+forward's place, without the model code or a checkpoint.
+``PngBatchSink`` writes the PNGs with PIL.
 """
 
 from __future__ import annotations
@@ -26,7 +28,6 @@ import torch
 from .data.loader import to_device
 from .data.transforms import colorize, to_tensor, train_id_to_label_id
 from .device import resolve_device
-from .inference import build_fast_infer
 
 OUTPUTS = ("color", "labelId", "trainId")
 
@@ -42,27 +43,65 @@ def _postprocess(pred, output: str):
 
 class StreamingSegmenter:
     def __init__(self, state_dict_or_net, *, dtype=torch.bfloat16,
-                 output: str = "color", q8_scales=None, device=None):
+                 output: str = "color", q8_scales=None, device=None,
+                 predict=None):
         """output: 'color' (palette RGB), 'labelId' (the test-server
         remap) or 'trainId' (the raw argmax).  dtype: the compute dtype,
         bf16 or f32 (the eval CLIs' default); either way the predictions
         are int32 on the device and the output uint8.  q8_scales: optional
-        w8a8 int8 calibration (``quantize.py``).  device: default cuda."""
+        w8a8 int8 calibration (``quantize.py``).  device: default cuda.
+        predict: frames on the device -> predictions, in the live
+        forward's place (``from_servable`` passes a bundle's); the
+        weights and their flags are then not read."""
         if output not in OUTPUTS:
             raise ValueError(f"output must be one of {OUTPUTS}, got "
                              f"{output!r}")
         self.device = resolve_device(device)
         self.output = output
-        self._infer = build_fast_infer(state_dict_or_net, dtype=dtype,
-                                       preds_only=True, device=self.device,
-                                       q8_scales=q8_scales)
+        if predict is None:
+            from .inference import build_fast_infer
+            infer = build_fast_infer(state_dict_or_net, dtype=dtype,
+                                     preds_only=True, device=self.device,
+                                     q8_scales=q8_scales)
+
+            def predict(x):
+                return infer(to_tensor(x))
+        self._predict = predict
+
+    @classmethod
+    def from_servable(cls, servable_or_path, *, output: str = "color",
+                      device=None):
+        """Serve from a bundle (``export.load_servable``; a path is loaded
+        onto ``device``, default cuda) instead of live weights: the
+        forward is the bundle's ``predict``, which takes the frames in any
+        form; frames of another size than the bundle's raise.  The
+        colorize or remap runs on the bundle's device."""
+        from .export import load_servable
+        servable = servable_or_path
+        if isinstance(servable, (str, os.PathLike)):
+            servable = load_servable(servable, device=device)
+        elif device is not None and resolve_device(device) != servable.device:
+            raise ValueError(f"the servable is on {servable.device}, not "
+                             f"{device}")
+        hw = servable.input_hw
+
+        def predict(images):
+            if tuple(images.shape[1:3]) != hw:
+                raise ValueError(
+                    f"bundle expects {hw[0]}x{hw[1]} inputs, got "
+                    f"{images.shape[1]}x{images.shape[2]}")
+            out = servable.predict(images)
+            return out[1] if isinstance(out, tuple) else out
+
+        return cls(None, output=output, device=servable.device,
+                   predict=predict)
 
     def step(self, images):
         """Frames (B, H, W, 3), uint8 or float in [0, 1], on any device ->
         the uint8 output on the segmenter's device."""
         with torch.inference_mode():
-            x = to_tensor(to_device(images, self.device))
-            return _postprocess(self._infer(x), self.output)
+            x = to_device(images, self.device)
+            return _postprocess(self._predict(x), self.output)
 
     def run(self, batches) -> Iterator[Tuple[np.ndarray, list]]:
         """batches: iterable of (images (B, H, W, 3) on the host or the

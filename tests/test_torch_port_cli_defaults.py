@@ -139,3 +139,39 @@ def test_train_main_refuses_an_imagenet_checkpoint(tmp_path, capsys):
                          str(path)])
     assert e.value.code == 2
     assert "A6" in capsys.readouterr().err
+
+
+def test_export_model_parser_is_the_jax_parser():
+    """export_model: the JAX exporter's flags with its defaults (bf16
+    unless --f32, erfnet.erfx, buckets 1,8, 512x1024, the erfx format),
+    every flag given parses alike, and both refuse the same choices."""
+    from erfnet_pytorch_tpu.cli import export_model as jexport_model
+    from erfnet_pytorch_tpu_torch.cli import export_model
+    port, ref = export_model.build_parser(), jexport_model.build_parser()
+    assert vars(port.parse_args([])) == vars(ref.parse_args([]))
+    argv = ["-o", "x.erfx", "--f32", "--xla", "--cpu", "--logits",
+            "--input-dtype", "uint8", "--format", "torch",
+            "--module-prefix", "--batch-sizes", "4", "--height", "64",
+            "--width", "128", "--state", "w.pth", "--loadDir", "d",
+            "--loadWeights", "m.pth"]
+    assert vars(port.parse_args(argv)) == vars(ref.parse_args(argv))
+    for bad in (["--input-dtype", "float16"], ["--format", "onnx"]):
+        for parser in (port, ref):
+            with pytest.raises(SystemExit):
+                parser.parse_args(bad)
+
+
+@pytest.mark.parametrize("cli", ["color", "server"])
+def test_png_cli_serving_flags_are_the_jax_flags(cli):
+    """--erfx, --writer and --png-level: the JAX CLIs' defaults, --writer's
+    choices, and given values parse alike."""
+    port, jax_cli, _argv = CLIS[cli]
+    argv = ["--erfx", "m.erfx", "--writer", "pil", "--png-level", "6"]
+    for args in ([], argv):
+        got = vars(port.build_parser().parse_args(args))
+        ref = vars(jax_cli.build_parser().parse_args(args))
+        assert ({k: got[k] for k in ("erfx", "writer", "png_level")}
+                == {k: ref[k] for k in ("erfx", "writer", "png_level")})
+    for parser in (port.build_parser(), jax_cli.build_parser()):
+        with pytest.raises(SystemExit):
+            parser.parse_args(["--writer", "tiff"])

@@ -394,6 +394,23 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev, sd):
                                     b1.bfloat16())
 
 
+def _check_serving_launches(counts, dtype):
+    """One serving forward's launches: bf16 the C=128 run on nb1d, the
+    C=64 and C=16 blocks on nb1d_halo; f32 all 17 blocks on nb1d's f32
+    form; nothing else."""
+    if dtype == BF:
+        want = {"downsampler": 3, "nb1d": 8 * nb1d.LAUNCHES_PER_BLOCK,
+                "nb1d_halo": 9 * nb1d_halo.LAUNCHES_PER_BLOCK,
+                "upsampler": 2, "head_argmax": 1}
+    else:
+        want = {"downsampler_f32": 3,
+                "nb1d_f32": 17 * nb1d.LAUNCHES_PER_BLOCK,
+                "upsampler_f32": 2, "head_argmax_f32": 1}
+    counts = dict(counts)
+    assert {k: counts.pop(k) for k in want} == want
+    assert set(counts.values()) == {0}
+
+
 @pytest.mark.parametrize("dtype", [BF, F32])
 def test_serving_path_matches_plain_pipeline(dev, sd, dtype):
     """build_fast_infer(preds_only) on the card: every kernel launches the
@@ -412,17 +429,7 @@ def test_serving_path_matches_plain_pipeline(dev, sd, dtype):
     kernels.reset_launch_counts()
     got = infer(to_tensor(u8))
     torch.cuda.synchronize()
-    counts = kernels.launch_counts()
-    if dtype == BF:
-        want = {"downsampler": 3, "nb1d": 8 * nb1d.LAUNCHES_PER_BLOCK,
-                "nb1d_halo": 9 * nb1d_halo.LAUNCHES_PER_BLOCK,
-                "upsampler": 2, "head_argmax": 1}
-    else:
-        want = {"downsampler_f32": 3,
-                "nb1d_f32": 17 * nb1d.LAUNCHES_PER_BLOCK,
-                "upsampler_f32": 2, "head_argmax_f32": 1}
-    assert {k: counts.pop(k) for k in want} == want
-    assert set(counts.values()) == {0}
+    _check_serving_launches(kernels.launch_counts(), dtype)
     ref = plain(to_tensor(u8))
     assert got.shape == (2, 64, 128) and got.dtype == torch.int32
     agree = (got == ref).float().mean().item()
@@ -2110,3 +2117,38 @@ def test_head_argmax_tensor_cores_ties_nan_classes(dev, n, dtype):
         nan[1, 4:6, 6:8] = True
         assert (tied[~nan] == 3).all() and (tied[nan] == n - 1).all()
 
+
+
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_bundle_serves_the_kernels_on_the_card(dev, sd, dtype, tmp_path):
+    """A bundle (buckets 1, 2 at 64x128) exported on the card, and one
+    exported on the CPU and loaded onto the card (moved there), predict
+    what ``build_fast_infer(preds_only=True)`` does bit for bit, each
+    forward through the serving kernels (the launches of one forward,
+    B = 1 padded to 2); the operators launch or raise on a CUDA
+    tensor."""
+    from erfnet_pytorch_tpu_torch.data import to_tensor
+    from erfnet_pytorch_tpu_torch.export import load_servable, save_servable
+    from erfnet_pytorch_tpu_torch.ops.cuda import library
+    u8 = torch.randint(0, 256, (2, 64, 128, 3),
+                       generator=torch.Generator().manual_seed(6),
+                       dtype=torch.uint8).to(dev)
+    ref = build_fast_infer(sd, dtype=dtype, preds_only=True)(to_tensor(u8))
+    for where in ("cuda", "cpu"):
+        path = str(tmp_path / f"{where}.erfx")
+        save_servable(path, sd, batch_sizes=(1, 2), height=64, width=128,
+                      dtype=dtype, device=where)
+        sv = load_servable(path)
+        assert sv.device == dev and sv.header["device"] == where
+        got = sv.predict(u8)
+        assert got.device.type == "cuda" and torch.equal(got, ref)
+        kernels.reset_launch_counts()
+        one = sv.predict(u8[:1])
+        torch.cuda.synchronize()
+        _check_serving_launches(kernels.launch_counts(), dtype)
+        assert torch.equal(one, ref[:1])
+    x = _x((1, 16, 32, 64), 7, dev, dtype=F32)
+    p = _on(nb1d.prepare_nb1d(*nb1d.fuse_nb1d_params(sd, "encoder.layers.1"),
+                              1, BF, round_bias=False), dev)
+    with pytest.raises(TypeError):
+        library.nb1d_halo(x, p["w"], p["wg"], p["b"], 1)

@@ -41,7 +41,8 @@ def test_package_imports_neither_jax_nor_the_jax_package():
               "cli.eval_cityscapes_server", "training.steps", "training.optim", "training.class_weights",
               "training.trainer", "training.checkpoint",
               "training.visualize", "utils.profiling", "data.cache",
-              "cli.train_main", "cli._device_flags", "cli._eval_common"):
+              "cli.train_main", "cli._device_flags", "cli._eval_common",
+              "export", "ops.cuda.library", "cli.export_model"):
         assert f"erfnet_pytorch_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
